@@ -1,0 +1,12 @@
+from .schedule import DiffusionSchedule, extract, get_betas, make_schedule, schedule_from_betas
+from .gaussian import (
+    AttributeSpec,
+    ModelPrediction,
+    model_predictions,
+    p_mean_variance,
+    predict_eps_from_xstart,
+    predict_xstart_from_eps,
+    predict_xstart_from_v,
+    q_posterior_mean_variance,
+)
+from .samplers import p_sample_loop, p_sample_step

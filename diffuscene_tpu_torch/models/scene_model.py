@@ -1,0 +1,283 @@
+"""Top-level scene-layout diffusion model: conditioning and sampling.
+
+Port of the sampling path of ``diffuscene_tpu/models/scene_model.py``
+(reference DiffusionSceneLayout_DDPM, diffusion_scene_layout_ddpm.py:14-454).
+The modules hold only networks and parameters; diffusion math and the
+sampling loop are plain functions from ``diffusion/``.
+
+Ported: the unconditional task with the learnable instance embedding
+(the bedroom flagship), ``fused=False`` (module forward) and
+``fused="rows"`` (rows engine on the chain kernel), DDPM sampling.
+Raising ``NotImplementedError``: the 3-D engine (``fused=True``), the
+DDIM/DPM samplers, completion and arrangement, text, room-mask and the
+fixed one-hot instance embedding.
+"""
+from __future__ import annotations
+
+import dataclasses
+import inspect
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..diffusion import AttributeSpec, DiffusionSchedule, make_schedule
+from ..diffusion import samplers as S
+from ..utils.convert import denoiser_tree
+from .denoiser import Unet1D, init_parameters
+
+_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+           "float32": torch.float32, "f32": torch.float32}
+
+
+@dataclasses.dataclass(frozen=True)
+class SceneModelConfig:
+    """Static model configuration (mirrors the YAML ``network`` section)."""
+
+    # attribute layout
+    point_dim: int = 62
+    translation_dim: int = 3
+    size_dim: int = 3
+    angle_dim: int = 2
+    class_dim: int = 22
+    objectness_dim: int = 0
+    objfeat_dim: int = 32
+    # conditioning
+    sample_num_points: int = 12
+    room_mask_condition: bool = False
+    latent_dim: int = 0
+    instance_condition: bool = True
+    learnable_embedding: bool = True
+    instance_emb_dim: int = 128
+    text_condition: bool = False
+    text_glove_embedding: bool = False
+    text_clip_embedding: bool = False
+    text_embed_dim: int = 512
+    room_partial_condition: bool = False
+    partial_num_points: int = 0
+    partial_emb_dim: int = 64
+    room_arrange_condition: bool = False
+    arrange_emb_dim: int = 64
+    # diffusion
+    schedule_type: str = "linear"
+    beta_start: float = 1e-4
+    beta_end: float = 0.02
+    time_num: int = 1000
+    loss_type: str = "mse"
+    model_mean_type: str = "v"
+    model_var_type: str = "fixedsmall"
+    loss_separate: bool = True
+    loss_iou: bool = True
+    # denoiser net kwargs
+    net_kwargs: Tuple[Tuple[str, Any], ...] = ()
+
+    @property
+    def bbox_dim(self) -> int:
+        return self.translation_dim + self.size_dim + self.angle_dim
+
+    @property
+    def spec(self) -> AttributeSpec:
+        return AttributeSpec(
+            translation_dim=self.translation_dim,
+            size_dim=self.size_dim,
+            angle_dim=self.angle_dim,
+            class_dim=self.class_dim,
+            objectness_dim=self.objectness_dim,
+            objfeat_dim=self.objfeat_dim,
+        )
+
+    @classmethod
+    def from_config(cls, network: Dict[str, Any]) -> "SceneModelConfig":
+        """Build from a reference-format ``network`` config dict (already
+        parsed: this package reads no YAML)."""
+        dk = network.get("diffusion_kwargs", {})
+        fields = dict(
+            point_dim=network.get("point_dim", 62),
+            translation_dim=network.get("translation_dim", 3),
+            size_dim=network.get("size_dim", 3),
+            angle_dim=network.get("angle_dim", 1),
+            class_dim=network.get("class_dim", 21),
+            objectness_dim=network.get("objectness_dim", 1),
+            objfeat_dim=network.get("objfeat_dim", 0),
+            sample_num_points=network.get("sample_num_points", 12),
+            room_mask_condition=network.get("room_mask_condition", True),
+            latent_dim=network.get("latent_dim", 0),
+            instance_condition=network.get("instance_condition", False),
+            learnable_embedding=network.get("learnable_embedding", False),
+            instance_emb_dim=network.get("instance_emb_dim", 64),
+            text_condition=network.get("text_condition", False),
+            text_glove_embedding=network.get("text_glove_embedding", False),
+            text_clip_embedding=network.get("text_clip_embedding", False),
+            text_embed_dim=network.get("text_embed_dim", 512),
+            room_partial_condition=network.get("room_partial_condition", False),
+            partial_num_points=network.get("partial_num_points", 0),
+            partial_emb_dim=network.get("partial_emb_dim", 64),
+            room_arrange_condition=network.get("room_arrange_condition", False),
+            arrange_emb_dim=network.get("arrange_emb_dim", 64),
+            schedule_type=dk.get("schedule_type", "linear"),
+            beta_start=dk.get("beta_start", 1e-4),
+            beta_end=dk.get("beta_end", 0.02),
+            time_num=dk.get("time_num", 1000),
+            loss_type=dk.get("loss_type", "mse"),
+            model_mean_type=dk.get("model_mean_type", "eps"),
+            model_var_type=dk.get("model_var_type", "fixedsmall"),
+            loss_separate=dk.get("loss_separate", False),
+            loss_iou=dk.get("loss_iou", False),
+            net_kwargs=tuple(sorted(network.get("net_kwargs", {}).items())),
+        )
+        return cls(**fields)
+
+
+_UNET_ARGS = frozenset(inspect.signature(Unet1D.__init__).parameters) - {"self", "device"}
+
+
+def build_unet1d(cfg: SceneModelConfig, device=None) -> Unet1D:
+    """Unet1D from the config's net_kwargs (unknown keys are dropped, as the
+    JAX package drops keys its Unet1D does not have)."""
+    net_kwargs = {k: v for k, v in dict(cfg.net_kwargs).items() if k in _UNET_ARGS}
+    net_kwargs.setdefault("text_condition", cfg.text_condition)
+    if "dim_mults" in net_kwargs:
+        net_kwargs["dim_mults"] = tuple(net_kwargs["dim_mults"])
+    dt = net_kwargs.get("compute_dtype")
+    if isinstance(dt, str):
+        net_kwargs["compute_dtype"] = _DTYPES[dt]
+    return Unet1D(**net_kwargs, device=device)
+
+
+class ConditionNets(nn.Module):
+    """Conditioning heads: the instance-condition branch with a learnable
+    embedding (diffusion_scene_layout_ddpm.py:27-129)."""
+
+    def __init__(self, cfg: SceneModelConfig, device=None):
+        super().__init__()
+        if cfg.room_mask_condition or cfg.room_partial_condition or cfg.room_arrange_condition \
+                or cfg.text_condition:
+            raise NotImplementedError(
+                "text, completion/arrange and room-mask conditions are not ported "
+                "yet (ROADMAP A4, A5, A7)")
+        if cfg.instance_condition and not cfg.learnable_embedding:
+            raise NotImplementedError(
+                "the fixed one-hot instance embedding is not ported yet (ROADMAP A2)")
+        self.cfg = cfg
+        self.positional_embedding = (
+            nn.Parameter(torch.empty(cfg.sample_num_points, cfg.instance_emb_dim, device=device))
+            if cfg.instance_condition else None)
+
+    def forward(self, batch_size: int, num_points: int) -> Optional[torch.Tensor]:
+        """-> condition (B, N, instance_emb_dim) f32, or None."""
+        if self.positional_embedding is None:
+            return None
+        pos = self.positional_embedding[None, :num_points, :]
+        return pos.expand(batch_size, num_points, self.cfg.instance_emb_dim)
+
+
+class SceneDiffusion:
+    """Networks + schedule + sampler (DiffusionSceneLayout_DDPM +
+    DiffusionPoint, diffusion_scene_layout_ddpm.py:131-347)."""
+
+    def __init__(self, cfg: SceneModelConfig, device: torch.device | str = "cpu"):
+        self.cfg = cfg
+        self.spec = cfg.spec
+        self.device = torch.device(device)
+        self.denoiser = build_unet1d(cfg, device=self.device)
+        self.conditioner = ConditionNets(cfg, device=self.device)
+        self.sched: DiffusionSchedule = make_schedule(
+            cfg.schedule_type, cfg.beta_start, cfg.beta_end, cfg.time_num,
+            model_mean_type=cfg.model_mean_type, device=self.device,
+        )
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> "SceneDiffusion":
+        """Random parameters from a CPU ``generator``: the same seed gives the
+        same weights on any device."""
+        init_parameters(self.denoiser, generator)
+        if self.conditioner.positional_embedding is not None:
+            pe = self.conditioner.positional_embedding
+            pe.copy_(torch.randn(pe.shape, generator=generator))
+        return self
+
+    def make_condition(self, batch_size: int) -> Optional[torch.Tensor]:
+        return self.conditioner(batch_size, self.cfg.sample_num_points)
+
+    def _denoise_fn(self, condition, fused=False):
+        """``fused`` is False (module forward) or ``"rows"`` (flat-row engine,
+        its resblock chains on the chain kernel)."""
+        if fused is False:
+            def fn(x, t):
+                with torch.no_grad():
+                    return self.denoiser(x, t, condition)
+            return fn
+        if fused != "rows":
+            raise NotImplementedError(
+                f"fused={fused!r}: the 3-D serving engine is not ported yet (ROADMAP A1)")
+        from .inference import (
+            fused_unet1d_forward_rows,
+            precompute_conditioning,
+            prepare_chain_params,
+            prepare_inference_params,
+        )
+
+        net = self.denoiser
+        prep = prepare_inference_params(net, denoiser_tree(net),
+                                        num_timesteps=self.sched.num_timesteps)
+        cond_ctx = precompute_conditioning(net, prep, condition)
+        chains = prepare_chain_params(net, prep, frozenset(cond_ctx["film_c"]))
+        film_c2 = {name: v.reshape(-1, v.shape[-1]).contiguous()
+                   for name, v in cond_ctx["film_c"].items()}
+        ctx_rows = {"film_c2": film_c2}
+
+        def fn(x, t):
+            return fused_unet1d_forward_rows(net, prep, chains, x, t, ctx_rows)
+
+        return fn
+
+    @torch.no_grad()
+    def sample(
+        self,
+        batch_size: int,
+        generator: Optional[torch.Generator] = None,
+        clip_denoised: bool = False,
+        fused=False,
+        noise_fn=None,
+        ddim: bool = False,
+        dpm: bool = False,
+        partial_boxes=None,
+        input_boxes=None,
+    ) -> torch.Tensor:
+        """DDPM ancestral sampling of ``batch_size`` scenes -> (B, N, point_dim)
+        (diffusion_scene_layout_ddpm.py:228-310).  Noise comes from
+        ``generator`` (on this model's device) or from ``noise_fn``."""
+        if ddim or dpm:
+            raise NotImplementedError("DDIM and DPM-Solver sampling are not ported yet (ROADMAP A3)")
+        if partial_boxes is not None or input_boxes is not None:
+            raise NotImplementedError("completion and arrangement are not ported yet (ROADMAP A5)")
+        cfg = self.cfg
+        condition = self.make_condition(batch_size)
+        fn = self._denoise_fn(condition, fused=fused)
+        shape = (batch_size, cfg.sample_num_points, cfg.point_dim)
+        return S.p_sample_loop(self.sched, cfg.model_mean_type, cfg.model_var_type, fn,
+                               shape, generator=generator, clip_denoised=clip_denoised,
+                               noise_fn=noise_fn)
+
+    def split_samples(self, samples: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Split packed samples into an attribute dict + empty-slot mask
+        (the slicing part of delete_empty_from_network_samples,
+        diffusion_scene_layout_ddpm.py:352-364)."""
+        spec = self.spec
+        out = {
+            "translations": samples[:, :, spec.trans_slice],
+            "sizes": samples[:, :, spec.size_slice],
+            "angles": samples[:, :, spec.angle_slice],
+            # raw probability map without the empty channel
+            "class_labels": samples[:, :, spec.bbox_dim: spec.bbox_dim + spec.class_dim - 1]
+            if spec.objectness_dim == 0
+            else samples[:, :, spec.class_slice],
+            "objectness": samples[:, :, spec.empty_slice],
+        }
+        if spec.objfeat_dim > 0:
+            out["objfeats"] = samples[:, :, spec.objfeat_slice]
+        if spec.objectness_dim > 0:
+            out["is_empty"] = samples[:, :, spec.empty_slice][..., 0] < 0
+        else:
+            out["is_empty"] = samples[:, :, spec.empty_slice][..., 0] >= 0
+        return out

@@ -1,0 +1,384 @@
+"""Whole-level ResnetBlock chains on flat (B*N, C) rows.
+
+Port of ``diffuscene_tpu/ops/fused_level.py``.  The rows engine
+(``models/inference.py:fused_unet1d_forward_rows``) runs every ResnetBlock of
+the denoiser through :func:`apply_chain`, 19 chains of 1-2 blocks per
+forward.  Each block computes
+
+    z   = x @ W1 (+ skip @ W1s) + b1          # f32 accumulate -> compute dtype
+    a,b = groupnorm_coeffs(z)                  # per scene, f32 moments
+    a,b = film_fold(a, b)                      # "scene" FiLM rows (B, 2C)
+    z   = silu(z * a + b)                      # "row" FiLM (M, 2C) before the silu
+    z   = z @ W2 + b2
+    z   = silu(groupnorm(z))
+    out = z + (x | x @ Wres (+ skip @ Wres_s) + bres)
+
+GroupNorm statistics span each scene's N rows and the group's channels (eps
+1e-6, the flax default).  Weights arrive standardized and cast.
+
+On the H100, (B, N, C) -> (B*N, C) is a view, so flat rows are the natural
+layout here (on the TPU, N=12 padded to 16 sublanes made every such reshape
+a copy).
+
+:func:`apply_chain` sends CUDA tensors to the hand-written kernel in
+``csrc/fused_chain.cu`` and CPU tensors to :func:`apply_chain_reference`,
+the plain torch twin of the JAX ``apply_chain_xla``.  It never falls back:
+a CUDA tensor the kernel cannot take raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc" / "fused_chain.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+MAX_ROWS = 24        # valid rows per thread-block tile in the kernel (kRows)
+MAX_CHANNELS = 512   # C = 2 x threads per block, at most 256 threads
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainBlock:
+    """Static description of one ResnetBlock in a chain."""
+
+    has_skip: bool = False        # block1 input is concat(h, skip) -> split matmuls
+    film: str = "none"            # "none" | "scene" (B, 2C) rows | "row" (M, 2C) rows
+    has_res_proj: bool = False    # res path is a projection (required when has_skip)
+
+    def __post_init__(self):
+        if self.film not in ("none", "scene", "row"):
+            raise ValueError(f"film must be none, scene or row, got {self.film!r}")
+        # an identity residual over an implicit concat would change the width
+        if self.has_skip and not self.has_res_proj:
+            raise ValueError("skip-cat blocks must have a res projection")
+
+    @property
+    def spec(self) -> int:
+        """The kernel's bit encoding of this block."""
+        film = {"none": 0, "scene": 1, "row": 2}[self.film]
+        return int(self.has_skip) | film << 1 | int(self.has_res_proj) << 3
+
+
+@dataclasses.dataclass
+class ChainParams:
+    """Stacked weights and static spec for one chain call."""
+
+    blocks: Tuple[ChainBlock, ...]
+    W: torch.Tensor               # (nW, C, C) compute dtype, pre-standardized, (in, out)
+    V: torch.Tensor               # (nV, C) f32: per block b1,g1s,g1b,b2,g2s,g2b[,bres]
+    n_w: Tuple[int, ...]          # per-block number of (C, C) weights
+    n_v: Tuple[int, ...]          # per-block number of (C,) vectors
+    # W in the bf16 kernel's tensor-core fragment order, packed at the first
+    # kernel launch (pack_mma_weights)
+    W_packed: Optional[torch.Tensor] = None
+
+
+def build_chain(blocks: Sequence[ChainBlock], weights: Sequence[Dict[str, Any]],
+                compute_dtype=torch.bfloat16) -> ChainParams:
+    """Stack a chain's weights into (nW, C, C) + (nV, C) tensors (once per
+    sampling call).  ``weights[i]`` keys: w1, [w1s], w2, [wres, [wres_s]],
+    b1, gn1_scale, gn1_bias, b2, gn2_scale, gn2_bias, [bres]."""
+    Ws: List[torch.Tensor] = []
+    Vs: List[torch.Tensor] = []
+    n_w: List[int] = []
+    n_v: List[int] = []
+    for blk, wd in zip(blocks, weights):
+        w = [wd["w1"]]
+        if blk.has_skip:
+            w.append(wd["w1s"])
+        w.append(wd["w2"])
+        if blk.has_res_proj:
+            w.append(wd["wres"])
+            if blk.has_skip:
+                w.append(wd["wres_s"])
+        v = [wd["b1"], wd["gn1_scale"], wd["gn1_bias"],
+             wd["b2"], wd["gn2_scale"], wd["gn2_bias"]]
+        if blk.has_res_proj:
+            v.append(wd["bres"])
+        Ws += w
+        Vs += v
+        n_w.append(len(w))
+        n_v.append(len(v))
+    W = torch.stack([a.to(compute_dtype) for a in Ws]).contiguous()
+    V = torch.stack([a.to(torch.float32) for a in Vs]).contiguous()
+    return ChainParams(blocks=tuple(blocks), W=W, V=V, n_w=tuple(n_w), n_v=tuple(n_v))
+
+
+# ---------------------------------------------------------------------------
+# plain torch version (CPU path, and the oracle on the card)
+# ---------------------------------------------------------------------------
+
+def _silu(z: torch.Tensor) -> torch.Tensor:
+    """SiLU computed in f32, rounded to z's dtype."""
+    zf = z.float()
+    return (zf * torch.sigmoid(zf)).to(z.dtype)
+
+
+def apply_chain_reference(
+    chain: ChainParams,
+    x: torch.Tensor,
+    films: Sequence[Optional[torch.Tensor]],
+    skips: Sequence[Optional[torch.Tensor]],
+    n_per_scene: int,
+    groups: int = 8,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """The chain in plain torch ops, twin of the JAX ``apply_chain_xla``.
+    Matmuls take f32 products of the compute-dtype operands and accumulate
+    in f32; the dense outputs are rounded to the compute dtype before the
+    GroupNorm moments are taken, as in the kernel."""
+    M, C = x.shape
+    n = n_per_scene
+    B = M // n
+    films = [f for f in films if f is not None]
+    skips = [s for s in skips if s is not None]
+    dt = x.dtype
+    gs = C // groups
+
+    def mm(a, w):
+        return torch.matmul(a.float(), w.float())
+
+    def gn_affine(z, scale, bias):
+        """(M, C) compute-dtype z -> per-scene f32 affine (B, C) a, b."""
+        zf = z.float().reshape(B, n, groups, gs)
+        mean = zf.mean(dim=(1, 3))                      # (B, g)
+        e2 = (zf * zf).mean(dim=(1, 3))
+        var = (e2 - mean * mean).clamp_min(0.0)
+        inv = torch.rsqrt(var + eps)
+        a = inv.repeat_interleave(gs, dim=1) * scale
+        b = bias - (mean * inv).repeat_interleave(gs, dim=1) * scale
+        return a, b
+
+    def affine(z, a, b):
+        """z * a[scene] + b[scene] in the compute dtype."""
+        z3 = z.reshape(B, n, C)
+        return (z3 * a.to(dt)[:, None, :] + b.to(dt)[:, None, :]).reshape(M, C)
+
+    h = x
+    wi = vi = si = fi = 0
+    W, V = chain.W, chain.V
+    for bi, blk in enumerate(chain.blocks):
+        xin = h
+        b1, g1s, g1b = V[vi], V[vi + 1], V[vi + 2]
+        b2, g2s, g2b = V[vi + 3], V[vi + 4], V[vi + 5]
+
+        z = mm(h, W[wi])
+        wj = wi + 1
+        if blk.has_skip:
+            sk = skips[si]
+            z = z + mm(sk, W[wj])
+            wj += 1
+        z = (z + b1).to(dt)
+        a, b = gn_affine(z, g1s, g1b)
+        if blk.film == "scene":
+            f = films[fi].float()                  # (B, 2C)
+            fs = f[:, :C] + 1.0
+            a = a * fs
+            b = b * fs + f[:, C:]
+            fi += 1
+        z = affine(z, a, b)
+        if blk.film == "row":
+            f = films[fi].to(dt)                   # (M, 2C)
+            z = z * (f[:, :C] + 1) + f[:, C:]
+            fi += 1
+        z = _silu(z)
+
+        z2 = mm(z, W[wj])
+        wj += 1
+        z2 = (z2 + b2).to(dt)
+        a, b = gn_affine(z2, g2s, g2b)
+        z2 = _silu(affine(z2, a, b))
+
+        if blk.has_res_proj:
+            res = mm(xin, W[wj])
+            wj += 1
+            if blk.has_skip:
+                res = res + mm(sk, W[wj])
+                wj += 1
+            res = (res + V[vi + 6]).to(dt)
+        else:
+            res = xin
+        h = z2 + res
+        if blk.has_skip:
+            si += 1
+        wi += chain.n_w[bi]
+        vi += chain.n_v[bi]
+    return h
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel: build at first use, bind with ctypes
+# ---------------------------------------------------------------------------
+
+def pack_mma_weights(W: torch.Tensor) -> torch.Tensor:
+    """(nW, K, N) (in, out) weights -> (nW, N, K), each 16-wide k block
+    reordered to k = [0,1,8,9, 2,3,10,11, 4,5,12,13, 6,7,14,15]: the
+    B-fragment order of mma.m16n8k16, so that lane (g, t) of a warp reads
+    its fragment {2t, 2t+1, 2t+8, 2t+9} of output column g as 8 contiguous
+    bytes.  Done once per chain, not per step."""
+    nW, K, N = W.shape
+    if K % 16:
+        raise ValueError(f"K={K} is not a multiple of 16")
+    Wt = W.transpose(1, 2)                                  # (nW, N, K)
+    blocks = Wt.reshape(nW, N, K // 16, 2, 4, 2)            # k = 8h + 2t + e
+    return blocks.permute(0, 1, 2, 4, 3, 5).contiguous().reshape(nW, N, K)
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the fused chain kernel cannot be built")
+
+
+def library_path() -> Path:
+    """Build output path, keyed by the source and flags so an edit rebuilds."""
+    digest = hashlib.sha256(CSRC.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"libfused_chain_{digest}.so"
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Compile ``csrc/fused_chain.cu`` with nvcc for sm_90a (unless this
+    source was built already) and load it.  The compiler's register and
+    shared-memory report goes to ``<lib>.ptxas.txt`` beside the library."""
+    out = library_path()
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+        out.with_suffix(".ptxas.txt").write_text(proc.stderr)
+        os.replace(tmp, out)
+    lib = ctypes.CDLL(str(out))
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.fused_chain_launch.argtypes = [
+        ci, vp, vp, vp, vp, vp, vp, vp, vp,
+        ci, ci, ci, ci, ctypes.c_float, ci, ci, ci, vp,
+    ]
+    lib.fused_chain_launch.restype = ci
+    lib.fused_chain_max_rows.restype = ci
+    lib.fused_chain_max_channels.restype = ci
+    if (lib.fused_chain_max_rows(), lib.fused_chain_max_channels()) != (MAX_ROWS, MAX_CHANNELS):
+        raise RuntimeError("csrc/fused_chain.cu and ops/fused_level.py disagree on the tile limits")
+    return lib
+
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_operand(name: str, t: torch.Tensor, device, dtype, shape):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, x on {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+def _launch_kernel(chain: ChainParams, x, films, skips, n: int, groups: int,
+                   eps: float) -> torch.Tensor:
+    M, C = x.shape
+    B = M // n
+    dt = x.dtype
+    if dt not in _DTYPES:
+        raise ValueError(f"the chain kernel takes float32 or bfloat16, got {dt}")
+    if not 1 <= len(chain.blocks) <= 2:
+        raise ValueError("the chain kernel runs chains of 1 or 2 blocks")
+    if n > MAX_ROWS:
+        raise ValueError(f"the chain kernel takes at most {MAX_ROWS} rows per scene, got {n}")
+    if C % 64 or C > MAX_CHANNELS or C % groups or (C // groups) % 2:
+        raise ValueError(f"the chain kernel takes C % 64 == 0, C <= {MAX_CHANNELS} and "
+                         f"even groups of channels, got C={C}, groups={groups}")
+    dev = x.device
+    _check_operand("x", x, dev, dt, (M, C))
+    _check_operand("W", chain.W, dev, dt, (sum(chain.n_w), C, C))
+    _check_operand("V", chain.V, dev, torch.float32, (sum(chain.n_v), C))
+    ptr_skip, ptr_film = [None, None], [None, None]
+    for i, (blk, f, sk) in enumerate(zip(chain.blocks, films, skips)):
+        if sk is not None:
+            _check_operand(f"skips[{i}]", sk, dev, dt, (M, C))
+            ptr_skip[i] = sk.data_ptr()
+        if f is not None:
+            _check_operand(f"films[{i}]", f, dev, dt, f.shape)
+            ptr_film[i] = f.data_ptr()
+    W = chain.W
+    if dt == torch.bfloat16:
+        if chain.W_packed is None:
+            chain.W_packed = pack_mma_weights(chain.W)
+        W = chain.W_packed
+    specs = [blk.spec for blk in chain.blocks] + [0]
+    out = torch.empty_like(x)
+    lib = load_library()
+    rc = lib.fused_chain_launch(
+        _DTYPES[dt], x.data_ptr(), ptr_skip[0], ptr_skip[1], ptr_film[0], ptr_film[1],
+        W.data_ptr(), chain.V.data_ptr(), out.data_ptr(),
+        B, n, C, groups, eps, len(chain.blocks), specs[0], specs[1],
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"fused_chain_launch failed with code {rc}")
+    return out
+
+
+def apply_chain(
+    chain: ChainParams,
+    x: torch.Tensor,                                  # (M, C) compute dtype, M = B * n
+    films: Sequence[Optional[torch.Tensor]],          # per block: None | (B, 2C) | (M, 2C)
+    skips: Sequence[Optional[torch.Tensor]],          # per block: None | (M, C)
+    n_per_scene: int,
+    groups: int = 8,
+    eps: float = 1e-6,
+) -> torch.Tensor:
+    """Run the chain over all rows: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors.  Any B works (the kernel masks a ragged
+    last tile).  ``apply_chain.launches`` counts the chains sent to the
+    kernel, one per call."""
+    M, C = x.shape
+    n = n_per_scene
+    B = M // n
+    if M != B * n:
+        raise ValueError(f"{M} rows are not whole scenes of {n}")
+    if len(films) != len(chain.blocks) or len(skips) != len(chain.blocks):
+        raise ValueError("films and skips need one entry per block")
+    for blk, f, sk in zip(chain.blocks, films, skips):
+        if (f is not None) != (blk.film != "none"):
+            raise ValueError(f"film given/missing for a {blk.film!r} block")
+        if (sk is not None) != blk.has_skip:
+            raise ValueError("skip given/missing for a block")
+        if f is not None:
+            want = (B, 2 * C) if blk.film == "scene" else (M, 2 * C)
+            if tuple(f.shape) != want:
+                raise ValueError(f"film shape {tuple(f.shape)}, expected {want}")
+    if x.device.type == "cpu":
+        return apply_chain_reference(chain, x, films, skips, n, groups=groups, eps=eps)
+    if x.device.type != "cuda":
+        raise ValueError(f"apply_chain runs on cpu or cuda tensors, got {x.device}")
+    out = _launch_kernel(chain, x, films, skips, n, groups, eps)
+    apply_chain.launches += 1
+    return out
+
+
+apply_chain.launches = 0

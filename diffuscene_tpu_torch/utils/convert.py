@@ -1,0 +1,208 @@
+"""Weight bridge between the port's ``Unet1D`` and the Flax param tree.
+
+The port's modules carry the reference DiffuScene state_dict layout
+(``models/denoiser.py``), which ``diffuscene_tpu.utils.convert.convert_denoiser``
+turns into the Flax ``Unet1D`` tree.  This module is its inverse:
+
+- :func:`flax_to_torch_denoiser` maps a Flax tree of numpy arrays to a port
+  state_dict (``convert_denoiser`` of the result gives the tree back, bit
+  for bit);
+- :func:`denoiser_tree` maps a port module's tensors to the Flax layout the
+  serving engine reads (``models/inference.py``), on the module's device;
+- :func:`load_jax_params` loads a JAX ``SceneNetworks`` variable tree, as
+  numpy arrays, into a port ``SceneDiffusion``.
+
+Tensor rules: Conv1d (O, I, 1) <-> Dense kernel (I, O); Linear (O, I) <->
+(I, O); GroupNorm weight/bias <-> scale/bias; LayerNorm g (1, C, 1) <-> (C,).
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+_SLOTS = {"block0": 0, "block1": 1, "attncross": 2, "block2": 3, "attn": 4, "proj": 5}
+_SLOT_NAMES = {v: k for k, v in _SLOTS.items()}
+
+Path = Tuple[str, ...]
+
+
+def _resblock_to_torch(sub: Path) -> Tuple[str, str]:
+    """ResnetBlock-internal flax subpath -> (torch key suffix, kind)."""
+    if sub[0] == "mlp":
+        return f"mlp.1.{'weight' if sub[1] == 'kernel' else 'bias'}", "linear"
+    if sub[0] in ("block1", "block2"):
+        if sub[1] == "proj":
+            return f"{sub[0]}.proj.{'weight' if sub[2] == 'kernel' else 'bias'}", "conv"
+        return f"{sub[0]}.norm.{'weight' if sub[2] == 'scale' else 'bias'}", "vec"
+    if sub[0] == "res_conv":
+        return f"res_conv.{'weight' if sub[1] == 'kernel' else 'bias'}", "conv"
+    raise KeyError(sub)
+
+
+def _attn_to_torch(sub: Path, full: bool) -> Tuple[str, str]:
+    """Attention-internal flax subpath -> (key under ``fn.fn.``, kind)."""
+    if sub[0] in ("to_qkv", "to_q", "to_kv"):
+        return f"{sub[0]}.weight", "conv"
+    if sub[0] == "to_out":
+        kind = "weight" if sub[1] == "kernel" else "bias"
+        return (f"to_out.{kind}" if full else f"to_out.0.{kind}"), "conv"
+    if sub == ("out_norm", "g"):
+        return "to_out.1.g", "g"
+    raise KeyError(sub)
+
+
+def _flax_to_torch_key(path: Path) -> Tuple[str, str]:
+    """Flax Unet1D param path -> (torch state_dict key, tensor kind)."""
+    name, sub = path[0], path[1:]
+    leaf = "weight" if sub[-1] == "kernel" else "bias"
+    m = re.match(r"(bbox|class|objectness|objfeat)_(embedf|hidden2output)$", name)
+    if m:
+        return f"{name}.{2 * int(sub[0][2:])}.{leaf}", "conv"
+    if name in ("init_conv", "final_conv"):
+        return f"{name}.{leaf}", "conv"
+    if name in ("time_mlp_1", "time_mlp_2"):
+        return f"time_mlp.{1 if name == 'time_mlp_1' else 3}.{leaf}", "linear"
+    m = re.match(r"(down|up)(\d+)_(block[012]|proj|attn|attncross)(_norm)?$", name)
+    if m:
+        stack, lvl, slot, norm = m.groups()
+        base = f"{stack}s.{lvl}.{_SLOTS[slot]}"
+        if norm:
+            return f"{base}.fn.norm.g", "g"
+        if slot == "proj":
+            return f"{base}.{leaf}", "conv"
+        if slot.startswith("block"):
+            key, kind = _resblock_to_torch(sub)
+            return f"{base}.{key}", kind
+        key, kind = _attn_to_torch(sub, full=False)
+        return f"{base}.fn.fn.{key}", kind
+    if name in ("mid_block0", "mid_block1", "mid_block2", "final_res_block"):
+        key, kind = _resblock_to_torch(sub)
+        return f"{name}.{key}", kind
+    if name == "mid_attn_norm":
+        return "mid_attn.fn.norm.g", "g"
+    if name == "mid_attn":
+        key, kind = _attn_to_torch(sub, full=True)
+        return f"mid_attn.fn.fn.{key}", kind
+    raise KeyError(f"unmapped flax denoiser path: {path}")
+
+
+def _torch_to_flax_key(key: str) -> Tuple[Path, str]:
+    """Torch state_dict key -> (flax param path, tensor kind)."""
+    parts = key.split(".")
+    leaf = parts[-1]
+    m = re.match(r"(bbox|class|objectness|objfeat)_(embedf|hidden2output)$", parts[0])
+    if m:
+        fc = f"fc{int(parts[1]) // 2}"
+        return (parts[0], fc, "kernel" if leaf == "weight" else "bias"), "conv"
+    if parts[0] in ("init_conv", "final_conv"):
+        return (parts[0], "kernel" if leaf == "weight" else "bias"), "conv"
+    if parts[0] == "time_mlp":
+        name = "time_mlp_1" if parts[1] == "1" else "time_mlp_2"
+        return (name, "kernel" if leaf == "weight" else "bias"), "linear"
+    if parts[0] in ("downs", "ups"):
+        prefix = "down" if parts[0] == "downs" else "up"
+        slot = _SLOT_NAMES[int(parts[2])]
+        name = f"{prefix}{parts[1]}_{slot}"
+        rest = parts[3:]
+    elif parts[0] in ("mid_block0", "mid_block1", "mid_block2", "final_res_block", "mid_attn"):
+        slot = "attn" if parts[0] == "mid_attn" else "block"
+        name = parts[0]
+        rest = parts[1:]
+    else:
+        raise KeyError(f"unmapped torch denoiser key: {key}")
+    if slot == "proj":
+        return (name, "kernel" if leaf == "weight" else "bias"), "conv"
+    if slot.startswith("block"):
+        if rest[0] == "mlp":
+            return (name, "mlp", "kernel" if leaf == "weight" else "bias"), "linear"
+        if rest[0] in ("block1", "block2"):
+            if rest[1] == "proj":
+                return (name, rest[0], "proj", "kernel" if leaf == "weight" else "bias"), "conv"
+            return (name, rest[0], "norm", "scale" if leaf == "weight" else "bias"), "vec"
+        return (name, "res_conv", "kernel" if leaf == "weight" else "bias"), "conv"
+    # attention: Residual(PreNorm(fn)) -> fn.norm.g / fn.fn.*
+    if rest[:2] == ["fn", "norm"]:
+        return (f"{name}_norm", "g"), "g"
+    inner = rest[2:]
+    if inner[0] in ("to_qkv", "to_q", "to_kv"):
+        return (name, inner[0], "kernel"), "conv"
+    if inner[:2] == ["to_out", "1"]:
+        return (name, "out_norm", "g"), "g"
+    return (name, "to_out", "kernel" if leaf == "weight" else "bias"), "conv"
+
+
+def _to_torch_layout(a, kind: str):
+    if kind == "conv":
+        return a.T[:, :, None]
+    if kind == "linear":
+        return a.T
+    if kind == "g":
+        return a.reshape(1, -1, 1)
+    return a
+
+
+def _to_flax_layout(t, kind: str):
+    if kind == "conv":
+        return t[:, :, 0].t()
+    if kind == "linear":
+        return t.t()
+    if kind == "g":
+        return t.reshape(-1)
+    return t
+
+
+def _flatten(tree: Dict[str, Any], prefix: Path = ()) -> Iterator[Tuple[Path, Any]]:
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _set(tree: Dict, path: Path, leaf) -> None:
+    node = tree
+    for p in path[:-1]:
+        node = node.setdefault(p, {})
+    node[path[-1]] = leaf
+
+
+def flax_to_torch_denoiser(np_tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``Unet1D`` params (numpy leaves) -> port ``Unet1D`` state_dict
+    (CPU float32 tensors)."""
+    out = {}
+    for path, a in _flatten(np_tree):
+        key, kind = _flax_to_torch_key(path)
+        if path[-1] == "bias":
+            kind = "vec"
+        arr = np.ascontiguousarray(_to_torch_layout(np.asarray(a, np.float32), kind))
+        out[key] = torch.from_numpy(arr)
+    return out
+
+
+def denoiser_tree(net: torch.nn.Module) -> Dict[str, Any]:
+    """A port ``Unet1D``'s parameters in the Flax tree layout ((in, out)
+    kernels), as tensors on the module's device."""
+    tree: Dict[str, Any] = {}
+    for key, t in net.state_dict().items():
+        path, kind = _torch_to_flax_key(key)
+        if path[-1] == "bias":
+            kind = "vec"
+        _set(tree, path, _to_flax_layout(t.detach(), kind))
+    return tree
+
+
+def load_jax_params(scene, np_params: Dict[str, Any]) -> None:
+    """Load a JAX ``SceneNetworks`` variable tree (numpy leaves:
+    ``params.denoiser`` and ``params.conditioner.positional_embedding``)
+    into a port ``SceneDiffusion``, so both packages compute the same thing."""
+    p = np_params["params"]
+    sd = flax_to_torch_denoiser(p["denoiser"])
+    scene.denoiser.load_state_dict(sd, strict=True)
+    cond = p.get("conditioner", {})
+    if scene.conditioner is not None and "positional_embedding" in cond:
+        with torch.no_grad():
+            scene.conditioner.positional_embedding.copy_(
+                torch.from_numpy(np.asarray(cond["positional_embedding"], np.float32)))

@@ -1,0 +1,42 @@
+"""The port stands alone on the card's machine, which has no JAX, flax or
+pyyaml: no file of diffuscene_tpu_torch/ (nor chip_smoke.py) imports them or
+the JAX package."""
+import ast
+import os
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "diffuscene_tpu")
+
+
+def _sources():
+    root = os.path.join(REPO, "diffuscene_tpu_torch")
+    for d, _, files in os.walk(root):
+        for f in sorted(files):
+            if f.endswith(".py"):
+                yield os.path.relpath(os.path.join(d, f), REPO)
+    yield "chip_smoke.py"
+
+
+def _imported_roots(path):
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", list(_sources()))
+def test_port_imports_no_jax_yaml_or_jax_package(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{path} imports {bad}"
+
+
+def test_port_sources_found():
+    paths = list(_sources())
+    assert "diffuscene_tpu_torch/ops/fused_level.py" in paths
+    assert len(paths) >= 12
