@@ -6,7 +6,8 @@
 Phases, each of which raises on failure (exit code 1, no "ok" line):
 
 1. the card's name and power limit (nvidia-smi), and the build of the CUDA
-   chain kernel from csrc/fused_chain.cu (nvcc, sm_90a) with its time;
+   kernels from csrc/fused_chain.cu and csrc/chamfer_nn.cu (one nvcc each,
+   started together, sm_90a) with its time;
 2. the chain kernel against its plain torch version on the card, at the
    flagship's shapes (C=512, B=64, N=12 and N=21), every chain variant, in
    bf16 and f32, with each case's time beside the plain version's;
@@ -15,19 +16,42 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    on the kernel against the plain Unet1D module forward, in f32 and bf16;
 4. a full 1000-step DDPM sample of 64 scenes through
    SceneDiffusion.sample(fused="rows"), bf16: shape, finiteness, and 19
-   chain-kernel calls per step (apply_chain.launches).
+   chain-kernel calls per step (apply_chain.launches); then torch.profiler
+   over 20 sampling steps (device busy time, idle share, top kernels);
+5. the chamfer nearest-neighbour kernel against its plain torch version on
+   the card: the shape autoencoder's (16, 2048, 3) vs (16, 2025, 3), D=2 and
+   D=5 at that size, a ragged (3, 1000) vs (3, 777), identical clouds; both
+   directions; the backward through the kernel against autograd over the
+   plain version; kernel, plain and torch.cdist times;
+6. the shape autoencoder's training path at full width (the
+   bed_living_diningrooms_lat32 config: latent 32, B=16, 2048 points, Adam
+   1e-4, clip 10): one step with the kernel against the same step with the
+   plain version, then 30 train steps on 16 synthetic box-surface clouds
+   from the seed (finite, falling loss, 2 chamfer-kernel launches a step,
+   directed_nn.launches), then encoding 64 clouds, then torch.profiler over
+   5 more steps (device busy time, idle share, the kernels that take most).
+
+TF32 is off for every matmul and convolution (the references are f32).
 
 The line before the last is the card's name and power limit again, the one
-before it a JSON summary of the kernels; the last line is
+before it a JSON summary of the kernels (launches on each main path, worst
+error, kernel, plain and library times of one forward's chains and of one
+chamfer forward, and each one's bound); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
 import json
+import math
 import subprocess
 import sys
 import time
 
 C, B, T = 512, 64, 1000
 SEED = 0
+DEV = "cuda"
+# published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s,
+# dense bf16 tensor-core FLOP/s, FP32 FLOP/s outside the tensor cores (an
+# FMA counted as 2, so FP32 instructions issue at half that rate)
+HBM_BPS, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
 # stated tolerances, kernel vs plain version on the same inputs: f32 differs
 # only in summation order; bf16 may also flip a rounding of an intermediate
 KERNEL_TOL = {"float32": dict(atol=1e-3, rtol=1e-4), "bfloat16": dict(atol=1e-1, rtol=5e-2)}
@@ -45,6 +69,25 @@ VARIANTS = {
     "skip": [("scene", True, True)],
 }
 FORWARD_MIX = {"row_scene": 5, "scene": 5, "row_skip": 4, "skip": 5}
+SAMPLE_PROFILE_STEPS = 20
+# chamfer cases (B, N, M, D); "identical" compares a cloud with itself
+CHAMFER_CASES = {"ae": (16, 2048, 2025, 3), "d2": (16, 2048, 2025, 2),
+                 "d5": (16, 2048, 2025, 5), "ragged": (3, 1000, 777, 3),
+                 "identical": (16, 2048, 2048, 3)}
+# stated tolerances, chamfer kernel vs plain version: the kernel repeats the
+# plain version's roundings, so distances should be equal; 1e-5 bounds a
+# rounding slip on values of O(1).  An index may differ only where both
+# candidates' plain distances are within that bound (a tie under rounding).
+# Gradients: index_add_ sums with atomics in a varying order, and autograd
+# over the plain version forms 2x*g - 2y*g where the backward forms
+# 2(x - y)*g, so they agree to rounding of entries of O(1e-6).
+CHAMFER_DIST_ATOL = 1e-5
+CHAMFER_GRAD_TOL = dict(atol=1e-9, rtol=1e-4)
+# AE step, kernel vs plain chamfer: the same forward arithmetic, so the loss
+# should agree to rounding; the gradient norm through index_add_ atomics
+AE_STEP_TOL = {"loss": 1e-6, "gradnorm": 1e-4}       # relative
+AE_CONFIG = "configs/obj_autoencoder/bed_living_diningrooms_lat32.yaml"
+AE_STEPS, AE_POINTS, AE_ENCODE, AE_PROFILE_STEPS = 30, 2048, 64, 5
 
 
 def card_line():
@@ -123,7 +166,14 @@ def phase_kernels(fl, torch):
                 ms = cuda_ms(lambda: fl.apply_chain(chain, x, films, skips, n_per_scene=n))
                 plain = cuda_ms(lambda: fl.apply_chain_reference(chain, x, films, skips,
                                                                  n_per_scene=n))
-                results[(n, dname, variant)] = (err, ms, plain)
+                # the least work: every (M, C) x (C, C) product, each operand
+                # read once and the output written once
+                flops = 2 * x.shape[0] * C * C * chain.W.shape[0]
+                nbytes = (chain.W.numel() * chain.W.element_size() + chain.V.numel() * 4
+                          + 2 * x.numel() * x.element_size()
+                          + sum(t.numel() * t.element_size() for t in films + skips
+                                if t is not None))
+                results[(n, dname, variant)] = (err, ms, plain, flops, nbytes)
                 print(f"kernel fused_chain N={n} {dname:8s} {variant:9s} max_abs_err={err:.3e} "
                       f"tol={KERNEL_TOL[dname]} {'ok' if ok else 'FAIL'} "
                       f"kernel_ms={ms:.4f} plain_ms={plain:.4f}", flush=True)
@@ -207,6 +257,225 @@ def phase_forward(torch, dtype):
     return scene, rows_ms, module_ms
 
 
+def chamfer_bound_ms(B, N, M, D):
+    """Least time of one chamfer forward (both directions) on the card: at
+    least D + 3 FP32 instructions a pair (D FMAs of the dot product, the
+    expansion's add and FMA, a compare-select), issued at FP32_FLOPS / 2 a
+    second; bytes (each cloud read once, dist and idx written once) are far
+    below.  Returns (ms, "operations" or "bytes")."""
+    ops_s = 2 * B * N * M * (D + 3) / (FP32_FLOPS / 2)
+    bytes_s = (4 * B * (N + M) * D + 8 * B * (N + M)) / HBM_BPS
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
+
+
+def phase_chamfer(ch, torch):
+    """Chamfer kernel vs plain version on the card; returns a dict of the
+    worst error and the AE shape's times."""
+    dev = torch.device(DEV)
+    g = torch.Generator(device=dev).manual_seed(SEED + 10)
+    worst, failures, out = 0.0, [], {}
+    for name, (nb, n, m, d) in CHAMFER_CASES.items():
+        x = torch.rand(nb, n, d, generator=g, device=dev) - 0.5
+        y = x.clone() if name == "identical" else torch.rand(nb, m, d, generator=g, device=dev) - 0.5
+        for direction, (a, b) in (("x->y", (x, y)), ("y->x", (y, x))):
+            dist_k, idx_k = ch.directed_nn(a, b)
+            dist_t, idx_t = ch.directed_nn_reference(a, b)
+            torch.cuda.synchronize()
+            err = (dist_k - dist_t).abs().max().item()
+            differ = idx_k != idx_t
+            n_differ = int(differ.sum().item())
+            # where the indices differ, the plain distance at the kernel's
+            # index must tie with the plain minimum to within the bound
+            tie_gap = 0.0
+            if n_differ:
+                full = ch.pairwise_sqdist_kernel_order(a, b)
+                at_k = torch.gather(full, 2, idx_k.long()[..., None])[..., 0]
+                tie_gap = (at_k - dist_t)[differ].abs().max().item()
+            ok = (err <= CHAMFER_DIST_ATOL and tie_gap <= CHAMFER_DIST_ATOL
+                  and bool(torch.isfinite(dist_k).all()))
+            worst = max(worst, err)
+            print(f"kernel chamfer_nn {name:9s} B={nb} N={a.shape[1]} M={b.shape[1]} D={d} "
+                  f"{direction}: max_abs_err={err:.3e} idx_differ={n_differ} "
+                  f"tie_gap={tie_gap:.3e} tol={CHAMFER_DIST_ATOL} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                failures.append((name, direction, err, n_differ, tie_gap))
+
+    # backward through the kernel path vs autograd over the plain version
+    nb, n, m, d = CHAMFER_CASES["ae"]
+    x0 = torch.rand(nb, n, d, generator=g, device=dev) - 0.5
+    y0 = torch.rand(nb, m, d, generator=g, device=dev) - 0.5
+    xk, yk = x0.clone().requires_grad_(), y0.clone().requires_grad_()
+    d1, d2, _, _ = ch.chamfer_distance(xk, yk)
+    (d1.mean() + d2.mean()).backward()
+    xt, yt = x0.clone().requires_grad_(), y0.clone().requires_grad_()
+    full = ch.pairwise_sqdist_kernel_order(xt, yt)
+    (full.min(dim=2).values.mean() + full.min(dim=1).values.mean()).backward()
+    torch.cuda.synchronize()
+    gerr = max((xk.grad - xt.grad).abs().max().item(), (yk.grad - yt.grad).abs().max().item())
+    gok = (torch.allclose(xk.grad, xt.grad, **CHAMFER_GRAD_TOL)
+           and torch.allclose(yk.grad, yt.grad, **CHAMFER_GRAD_TOL))
+    print(f"kernel chamfer_nn backward {tuple(x0.shape)}/{tuple(y0.shape)} vs autograd over "
+          f"the plain version: max_abs_err={gerr:.3e} (grad scale {xt.grad.abs().max().item():.3e}) "
+          f"tol={CHAMFER_GRAD_TOL} {'ok' if gok else 'FAIL'}", flush=True)
+    if not gok:
+        failures.append(("backward", gerr))
+    if failures:
+        raise RuntimeError(f"chamfer kernel disagrees with its plain version: {failures}")
+
+    # one chamfer forward (both directions) at the AE shape
+    def kernel():
+        ch.directed_nn(x0, y0)
+        ch.directed_nn(y0, x0)
+
+    def plain():
+        ch.directed_nn_reference(x0, y0)
+        ch.directed_nn_reference(y0, x0)
+
+    def library():
+        dd = torch.cdist(x0, y0).square()
+        dd.min(dim=2)
+        dd.min(dim=1)
+
+    out["ms"], out["plain_ms"], out["library_ms"] = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
+    out["bound_ms"], out["bound_by"] = chamfer_bound_ms(nb, n, m, d)
+    out["max_abs_err"] = worst
+    print(f"chamfer forward, both directions, {tuple(x0.shape)}/{tuple(y0.shape)}: kernel "
+          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, torch.cdist "
+          f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']})",
+          flush=True)
+    return out
+
+
+def box_clouds(n_clouds, n_points, seed):
+    """Points spread uniformly over the surfaces of random boxes (half-extents
+    0.1-0.5), one box per cloud, float32 (n_clouds, n_points, 3)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = np.empty((n_clouds, n_points, 3), np.float32)
+    for i in range(n_clouds):
+        h = rng.uniform(0.1, 0.5, 3)
+        areas = np.array([h[1] * h[2], h[0] * h[2], h[0] * h[1]]).repeat(2)
+        face = rng.choice(6, n_points, p=areas / areas.sum())
+        pts = rng.uniform(-1.0, 1.0, (n_points, 3))
+        axis = face // 2
+        pts[np.arange(n_points), axis] = np.where(face % 2 == 0, -1.0, 1.0)
+        out[i] = pts * h
+    return out
+
+
+def phase_autoencoder(ch, torch):
+    """The shape autoencoder's training path at full width on the card."""
+    import copy
+
+    from diffuscene_tpu_torch.models.autoencoder import build_autoencoder
+    from diffuscene_tpu_torch.train.ae_trainer import AETrainer
+    from diffuscene_tpu_torch.utils.config import load_config
+
+    cfg = load_config(AE_CONFIG)
+    batch = int(cfg["training"]["batch_size"])
+    model = build_autoencoder(cfg["network"], device=DEV)
+    trainer = AETrainer(model, cfg["training"], device=DEV,
+                        steps_per_epoch=int(cfg["training"]["steps_per_epoch"])).init(SEED)
+    clouds = trainer.put_batch(box_clouds(batch, AE_POINTS, SEED + 20))
+
+    # one step with the kernel vs the same step with the plain version
+    start = copy.deepcopy(trainer.state_dict())
+    eps = torch.randn(batch, model.latent_dim, generator=torch.Generator().manual_seed(SEED + 21))
+    eps = eps.to(DEV)
+    before = ch.directed_nn.launches
+    with_kernel = trainer.train_step(clouds, eps=eps)
+    kernel_launches = ch.directed_nn.launches - before
+    trainer.load_state_dict(copy.deepcopy(start))
+    kernel_fn = ch.directed_nn
+    ch.directed_nn = ch.directed_nn_reference        # this comparison only
+    try:
+        with_plain = trainer.train_step(clouds, eps=eps)
+    finally:
+        ch.directed_nn = kernel_fn
+    plain_launches = ch.directed_nn.launches - before - kernel_launches
+    trainer.load_state_dict(start)
+    if kernel_launches != 2 or plain_launches != 0:
+        raise RuntimeError(f"the kernel-vs-plain AE step launched the kernel {kernel_launches} "
+                           f"and {plain_launches} times, expected 2 and 0")
+    rel = {k: abs(with_kernel[k] - with_plain[k]) / abs(with_plain[k]) for k in AE_STEP_TOL}
+    ok = all(rel[k] <= AE_STEP_TOL[k] for k in AE_STEP_TOL)
+    print(f"ae step, kernel vs plain chamfer: loss {with_kernel['loss']:.7f} vs "
+          f"{with_plain['loss']:.7f}, gradnorm {with_kernel['gradnorm']:.5f} vs "
+          f"{with_plain['gradnorm']:.5f}, relative {rel} tol={AE_STEP_TOL} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"the AE step disagrees between kernel and plain chamfer: {rel}")
+
+    # the main path: 30 full-width train steps, every chamfer on the kernel
+    torch.cuda.synchronize()
+    ch.directed_nn.launches = 0
+    losses, times = [], []
+    for _ in range(AE_STEPS):
+        t0 = time.perf_counter()
+        m = trainer.train_step(clouds)           # ends in one host transfer
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+    launches = ch.directed_nn.launches
+    finite = all(math.isfinite(v) for v in losses)
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    step_ms = 1e3 * sum(times[5:]) / len(times[5:])
+    print(f"ae train: {AE_STEPS} steps, B={batch}, {AE_POINTS} points, latent "
+          f"{model.latent_dim}: loss first5 {first:.5f} last5 {last:.5f} finite={finite} "
+          f"chamfer_launches={launches} ms_per_step={step_ms:.3f} (steps 6-{AE_STEPS}; "
+          f"first step {1e3 * times[0]:.3f} ms) last_metrics={m}", flush=True)
+    if not finite or not last < first:
+        raise RuntimeError(f"AE loss not finite or not falling: {losses}")
+    if launches != 2 * AE_STEPS:
+        raise RuntimeError(f"expected {2 * AE_STEPS} chamfer-kernel launches, counted {launches}")
+
+    more = trainer.put_batch(box_clouds(AE_ENCODE, AE_POINTS, SEED + 22))
+    trainer.encode(more)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lat = trainer.encode(more)
+    torch.cuda.synchronize()
+    enc_ms = 1e3 * (time.perf_counter() - t0)
+    lat_ok = tuple(lat.shape) == (AE_ENCODE, model.latent_dim) and bool(torch.isfinite(lat).all())
+    print(f"ae encode: {AE_ENCODE} clouds -> {tuple(lat.shape)} finite={lat_ok} "
+          f"ms={enc_ms:.3f} latent_std={lat.std().item():.5f}", flush=True)
+    if not lat_ok:
+        raise RuntimeError("the encoded latents are malformed")
+    profile_steps(torch, lambda: trainer.train_step(clouds), AE_PROFILE_STEPS, step_ms)
+    return launches
+
+
+def profile_steps(torch, step, n, step_ms):
+    """Where a step's time goes: torch.profiler over ``n`` steady steps;
+    device busy time (the sum of the kernels' times, one stream), the idle
+    share of the unprofiled step time ``step_ms`` (the profiler slows the
+    host), and the kernels that take the most."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    if not busy_us:
+        print("profile: the profiler saw no device time (not measured)", flush=True)
+        return
+    busy_ms = busy_us / n / 1e3
+    print(f"profile: {n} steps, device busy {busy_ms:.3f} ms/step; unprofiled step {step_ms:.3f} "
+          f"ms, idle share {1 - busy_ms / step_ms:.3f}; profiled wall {wall_us / n / 1e3:.3f} "
+          f"ms/step", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"profile:   {e.self_device_time_total / busy_us:6.1%} "
+              f"{e.self_device_time_total / n / 1e3:8.3f} ms/step {e.count // n:4d} calls/step "
+              f"{e.key[:90]}", flush=True)
+
+
 def main():
     import torch
 
@@ -215,6 +484,8 @@ def main():
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from diffuscene_tpu_torch.ops import build
+    from diffuscene_tpu_torch.ops import chamfer as ch
     from diffuscene_tpu_torch.ops import fused_level as fl
 
     card = card_line()
@@ -222,25 +493,32 @@ def main():
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
     t0 = time.perf_counter()
+    libs = build.build([fl.CSRC, ch.CSRC])
     fl.load_library()
-    print(f"build: fused_chain.cu -> {fl.library_path().name} in {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    ptxas = fl.library_path().with_suffix(".ptxas.txt")
-    if ptxas.exists():
-        for line in ptxas.read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print("ptxas:", line.strip())
+    ch.load_library()
+    print(f"build: {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s "
+          f"(one nvcc each, in parallel)", flush=True)
+    for lib in libs:
+        ptxas = lib.with_suffix(".ptxas.txt")
+        if ptxas.exists():
+            for line in ptxas.read_text().splitlines():
+                if "registers" in line or "spill" in line:
+                    print(f"ptxas {lib.name.rsplit('_', 1)[0]}:", line.strip())
 
     worst, results = phase_kernels(fl, torch)
-    fwd_kernel_ms = sum(results[(12, "bfloat16", v)][1] * k for v, k in FORWARD_MIX.items())
-    fwd_plain_ms = sum(results[(12, "bfloat16", v)][2] * k for v, k in FORWARD_MIX.items())
+    fwd = {i: sum(results[(12, "bfloat16", v)][i] * k for v, k in FORWARD_MIX.items())
+           for i in (1, 2, 3, 4)}
+    chain_ops_s, chain_bytes_s = fwd[3] / BF16_FLOPS, fwd[4] / HBM_BPS
+    chain_bound_ms = 1e3 * max(chain_ops_s, chain_bytes_s)
     print(f"chains of one flagship forward (N=12, B={B}, bf16, 19 chains): "
-          f"kernel {fwd_kernel_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms", flush=True)
+          f"kernel {fwd[1]:.3f} ms, plain {fwd[2]:.3f} ms, bound {chain_bound_ms:.4f} ms "
+          f"({fwd[3] / 1e9:.2f} GFLOP, {fwd[4] / 1e6:.2f} MB)", flush=True)
 
     phase_forward(torch, torch.float32)
     scene, _, _ = phase_forward(torch, torch.bfloat16)
 
-    # the main path: 1000-step DDPM sample, every chain through the kernel
+    # the first slice's main path: 1000-step DDPM sample, every chain
+    # through the kernel
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     torch.cuda.synchronize()
     fl.apply_chain.launches = 0
@@ -248,27 +526,60 @@ def main():
     out = scene.sample(B, generator=gen, clip_denoised=True, fused="rows")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = fl.apply_chain.launches
+    chain_launches = fl.apply_chain.launches
     finite = bool(torch.isfinite(out).all())
     print(f"sample: {T}-step DDPM, B={B}, bf16, fused=rows: shape={tuple(out.shape)} "
-          f"finite={finite} chain_calls={launches} wall_s={wall:.3f} "
+          f"finite={finite} chain_calls={chain_launches} wall_s={wall:.3f} "
           f"scenes_per_s={B / wall:.3f} | {card}", flush=True)
     if tuple(out.shape) != (B, 12, 62) or not finite:
         raise RuntimeError("the sample is malformed")
-    if launches != 19 * T:
-        raise RuntimeError(f"expected {19 * T} chain-kernel calls, counted {launches}")
+    if chain_launches != 19 * T:
+        raise RuntimeError(f"expected {19 * T} chain-kernel calls, counted {chain_launches}")
     parts = scene.split_samples(out)
     print(f"sample: empty-slot share {parts['is_empty'].float().mean().item():.3f}", flush=True)
+    # where one sampling step's time goes (the step the sample above ran T times)
+    from diffuscene_tpu_torch.diffusion import p_sample_step
+
+    cfg = scene.cfg
+    denoise = scene._denoise_fn(scene.make_condition(B), fused="rows")
+    x_t = torch.randn(B, 12, 62, generator=gen, device="cuda")
+    noise = torch.randn(B, 12, 62, generator=gen, device="cuda")
+    t_last = torch.full((B,), T - 1, dtype=torch.long, device="cuda")
+    profile_steps(torch, lambda: p_sample_step(scene.sched, cfg.model_mean_type,
+                                               cfg.model_var_type, denoise, x_t, t_last,
+                                               noise, True),
+                  SAMPLE_PROFILE_STEPS, 1e3 * wall / T)
+    del scene, out, parts, denoise
+    torch.cuda.empty_cache()
+
+    cham = phase_chamfer(ch, torch)
+    # this slice's main path: AE training steps, every chamfer on the kernel
+    cham_launches = phase_autoencoder(ch, torch)
 
     print(json.dumps({"kernels": [{
         "name": "fused_chain",
         "route": "cuda",
         "source": "diffuscene_tpu_torch/csrc/fused_chain.cu",
         "replaces": "diffuscene_tpu/ops/fused_level.py:165",
-        "launches": launches,
+        "launches": chain_launches,
         "max_abs_err": worst,
-        "ms": fwd_kernel_ms,
-        "plain_ms": fwd_plain_ms,
+        "ms": fwd[1],
+        "plain_ms": fwd[2],
+        "bound_ms": chain_bound_ms,
+        "bound_by": "operations" if chain_ops_s >= chain_bytes_s else "bytes",
+        "library_ms": None,
+    }, {
+        "name": "chamfer_nn",
+        "route": "cuda",
+        "source": "diffuscene_tpu_torch/csrc/chamfer_nn.cu",
+        "replaces": "diffuscene_tpu/ops/chamfer.py:65",
+        "launches": cham_launches,
+        "max_abs_err": cham["max_abs_err"],
+        "ms": cham["ms"],
+        "plain_ms": cham["plain_ms"],
+        "bound_ms": cham["bound_ms"],
+        "bound_by": cham["bound_by"],
+        "library_ms": cham["library_ms"],
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -173,9 +173,10 @@ class ConditionNets(nn.Module):
 
 class SceneDiffusion:
     """Networks + schedule + sampler (DiffusionSceneLayout_DDPM +
-    DiffusionPoint, diffusion_scene_layout_ddpm.py:131-347)."""
+    DiffusionPoint, diffusion_scene_layout_ddpm.py:131-347).  Built on the
+    card unless ``device`` says otherwise."""
 
-    def __init__(self, cfg: SceneModelConfig, device: torch.device | str = "cpu"):
+    def __init__(self, cfg: SceneModelConfig, device: torch.device | str = "cuda"):
         self.cfg = cfg
         self.spec = cfg.spec
         self.device = torch.device(device)

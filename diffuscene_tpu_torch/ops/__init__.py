@@ -7,3 +7,13 @@ from .fused_level import (
     load_library,
 )
 from .fused_resblock import standardize_kernel
+from .chamfer import (
+    chamfer_2d,
+    chamfer_3d,
+    chamfer_5d,
+    chamfer_distance,
+    directed_nn,
+    directed_nn_reference,
+    fscore,
+)
+from .knn import gather_neighbors, knn_indices

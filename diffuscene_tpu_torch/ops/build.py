@@ -1,0 +1,73 @@
+"""Build the hand-written CUDA sources of ``csrc/`` and load them with ctypes.
+
+Each source is one shared library with a plain C interface, compiled by
+``nvcc`` for sm_90a at first use into the git-ignored ``build/kernels/``.
+The library's name carries a hash of the source and the flags, so an edit
+rebuilds.  :func:`build` starts one ``nvcc`` per missing library, all at
+once, and waits for them together; the compiler's register and
+shared-memory report goes to ``<lib>.ptxas.txt`` beside each library.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+from typing import List, Sequence
+
+CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def library_path(source: Path) -> Path:
+    """Build output path of ``source``, keyed by its bytes and the flags."""
+    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{source.stem}_{digest}.so"
+
+
+def build(sources: Sequence[Path]) -> List[Path]:
+    """Compile every source whose library is missing, one nvcc each, all
+    started together; return the library paths.  Raises if any build fails."""
+    outs = [library_path(s) for s in sources]
+    jobs = []
+    for src, out in zip(sources, outs):
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((src, out, tmp, proc))
+    errors = []
+    for src, out, tmp, proc in jobs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            errors.append(f"nvcc {src.name} failed ({proc.returncode}):\n{err}")
+            continue
+        out.with_suffix(".ptxas.txt").write_text(err)
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return outs
+
+
+def load(source: Path) -> ctypes.CDLL:
+    """Build ``source`` if needed and load its library."""
+    return ctypes.CDLL(str(build([source])[0]))

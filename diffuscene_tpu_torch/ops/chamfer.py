@@ -1,0 +1,184 @@
+"""Chamfer distance between point clouds: the CUDA nearest-neighbour kernel
+and its plain torch twin.
+
+Port of ``diffuscene_tpu/ops/chamfer.py``.  For clouds x (B, N, D) and
+y (B, M, D) the chamfer distance is, in both directions, each point's
+squared distance to its nearest neighbour in the other cloud, with the
+argmin.  The shape autoencoder's loss (``models/autoencoder.py``) runs it
+once per step, two directed launches.
+
+- :func:`directed_nn` sends CUDA tensors to the hand-written kernel in
+  ``csrc/chamfer_nn.cu`` and CPU tensors to :func:`directed_nn_reference`.
+  It never falls back: a CUDA tensor the kernel cannot take raises.
+- :func:`chamfer_distance` is a ``torch.autograd.Function``.  Its backward is
+  the gather and scatter-add of the JAX custom VJP (``_chamfer_bwd``) in
+  plain torch; the JAX backward is no Pallas kernel either.  On CUDA,
+  ``index_add_`` sums with atomics in a varying order, so gradients agree
+  with a fixed-order sum only to rounding.
+
+Distances use the expansion |x|^2 + |y|^2 - 2 x.y, as the JAX package's
+Pallas kernel and ``chamfer_oracle`` do, and are not clamped at 0.  Ties
+take the lowest index.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from . import build
+
+CSRC = build.CSRC_DIR / "chamfer_nn.cu"
+MAX_DIM = 8
+
+
+def pairwise_sqdist_kernel_order(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The kernel's arithmetic, every product and sum rounded on its own in
+    the kernel's order: |x|^2 and |y|^2 and x.y summed over d = 0, 1, ...,
+    then (|x|^2 + |y|^2) - 2 x.y."""
+    xx = x[..., 0] * x[..., 0]
+    yy = y[..., 0] * y[..., 0]
+    xy = x[:, :, None, 0] * y[:, None, :, 0]
+    for d in range(1, x.shape[-1]):
+        xx = xx + x[..., d] * x[..., d]
+        yy = yy + y[..., d] * y[..., d]
+        xy = xy + x[:, :, None, d] * y[:, None, :, d]
+    return (xx[:, :, None] + yy[:, None, :]) - 2.0 * xy
+
+
+def directed_nn_reference(x: torch.Tensor, y: torch.Tensor):
+    """Plain torch twin of the kernel, equal to it bit for bit:
+    (B, N, D) vs (B, M, D) -> (dist (B, N) f32, idx (B, N) int32)."""
+    dist, idx = pairwise_sqdist_kernel_order(x.float(), y.float()).min(dim=2)
+    return dist, idx.int()
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Compile ``csrc/chamfer_nn.cu`` for sm_90a (unless this source was
+    built already, see ``ops/build.py``) and load it."""
+    lib = build.load(CSRC)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.chamfer_nn_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
+    lib.chamfer_nn_launch.restype = ci
+    lib.chamfer_nn_max_dim.restype = ci
+    if lib.chamfer_nn_max_dim() != MAX_DIM:
+        raise RuntimeError("csrc/chamfer_nn.cu and ops/chamfer.py disagree on the largest D")
+    return lib
+
+
+def _launch_kernel(x: torch.Tensor, y: torch.Tensor):
+    B, N, D = x.shape
+    M = y.shape[1]
+    for name, t in (("x", x), ("y", y)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"the chamfer kernel takes float32, {name} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if y.device != x.device:
+        raise ValueError(f"y is on {y.device}, x on {x.device}")
+    if not 1 <= D <= MAX_DIM:
+        raise ValueError(f"the chamfer kernel takes 1 <= D <= {MAX_DIM}, got {D}")
+    dist = torch.empty(B, N, dtype=torch.float32, device=x.device)
+    idx = torch.empty(B, N, dtype=torch.int32, device=x.device)
+    rc = load_library().chamfer_nn_launch(
+        x.data_ptr(), y.data_ptr(), dist.data_ptr(), idx.data_ptr(), B, N, M, D,
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"chamfer_nn_launch failed with code {rc}")
+    return dist, idx
+
+
+def directed_nn(x: torch.Tensor, y: torch.Tensor):
+    """Nearest neighbour in y of every point of x: (dist (B, N), idx (B, N)
+    int32).  The CUDA kernel for CUDA tensors, the plain version for CPU
+    tensors; ``directed_nn.launches`` counts kernel launches."""
+    if x.dim() != 3 or y.dim() != 3 or x.shape[0] != y.shape[0] or x.shape[2] != y.shape[2]:
+        raise ValueError(f"expected (B, N, D) and (B, M, D), got {tuple(x.shape)} "
+                         f"and {tuple(y.shape)}")
+    if x.shape[1] == 0 or y.shape[1] == 0:
+        raise ValueError("both clouds need at least one point")
+    if x.device.type == "cpu" and y.device.type == "cpu":
+        return directed_nn_reference(x, y)
+    if x.device.type != "cuda":
+        raise ValueError(f"directed_nn runs on cpu or cuda tensors, got {x.device} and {y.device}")
+    out = _launch_kernel(x, y)
+    directed_nn.launches += 1
+    return out
+
+
+directed_nn.launches = 0
+
+
+class _Chamfer(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, y):
+        dist1, idx1 = directed_nn(x, y)
+        dist2, idx2 = directed_nn(y, x)
+        ctx.save_for_backward(x, y, idx1, idx2)
+        ctx.mark_non_differentiable(idx1, idx2)
+        return dist1, dist2, idx1, idx2
+
+    @staticmethod
+    def backward(ctx, g1, g2, _gi1, _gi2):
+        x, y, idx1, idx2 = ctx.saved_tensors
+        B, N, D = x.shape
+        M = y.shape[1]
+        if g1 is None:
+            g1 = torch.zeros(B, N, dtype=x.dtype, device=x.device)
+        if g2 is None:
+            g2 = torch.zeros(B, M, dtype=y.dtype, device=y.device)
+        i1 = idx1.long()
+        i2 = idx2.long()
+        # dist1 term: d|x_n - y_idx1[n]|^2
+        y_near = torch.gather(y, 1, i1[..., None].expand(B, N, D))
+        diff1 = 2.0 * (x - y_near) * g1[..., None]
+        # dist2 term: d|y_m - x_idx2[m]|^2
+        x_near = torch.gather(x, 1, i2[..., None].expand(B, M, D))
+        diff2 = 2.0 * (y - x_near) * g2[..., None]
+        base_y = (torch.arange(B, device=x.device) * M)[:, None]
+        base_x = (torch.arange(B, device=x.device) * N)[:, None]
+        gx = diff1.reshape(B * N, D).clone()
+        gx.index_add_(0, (i2 + base_x).reshape(-1), -diff2.reshape(B * M, D))
+        gy = diff2.reshape(B * M, D).clone()
+        gy.index_add_(0, (i1 + base_y).reshape(-1), -diff1.reshape(B * N, D))
+        return gx.reshape(B, N, D), gy.reshape(B, M, D)
+
+
+def chamfer_distance(x: torch.Tensor, y: torch.Tensor):
+    """Bidirectional chamfer: (dist1 (B, N), dist2 (B, M), idx1, idx2).
+    Differentiable in both clouds through dist1 and dist2; the int32 index
+    outputs are not differentiable."""
+    return _Chamfer.apply(x, y)
+
+
+def _check_dim(x, y, d):
+    if x.shape[-1] != d or y.shape[-1] != d:
+        raise ValueError(f"expected {d}-d points, got {x.shape[-1]} and {y.shape[-1]}")
+
+
+def chamfer_2d(x, y):
+    _check_dim(x, y, 2)
+    return chamfer_distance(x, y)
+
+
+def chamfer_3d(x, y):
+    _check_dim(x, y, 3)
+    return chamfer_distance(x, y)
+
+
+def chamfer_5d(x, y):
+    _check_dim(x, y, 5)
+    return chamfer_distance(x, y)
+
+
+def fscore(dist1: torch.Tensor, dist2: torch.Tensor, threshold: float = 0.001):
+    """Point-cloud F-score from chamfer distances: (f, precision_1,
+    precision_2), each (B,)."""
+    precision_1 = (dist1 < threshold).float().mean(dim=1)
+    precision_2 = (dist2 < threshold).float().mean(dim=1)
+    denom = precision_1 + precision_2
+    f = torch.where(denom > 0, 2 * precision_1 * precision_2 / denom.clamp_min(1e-12),
+                    torch.zeros_like(denom))
+    return f, precision_1, precision_2

@@ -30,20 +30,13 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-CSRC = Path(__file__).resolve().parents[1] / "csrc" / "fused_chain.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+from . import build
+
+CSRC = build.CSRC_DIR / "fused_chain.cu"
 MAX_ROWS = 24        # valid rows per thread-block tile in the kernel (kRows)
 MAX_CHANNELS = 512   # C = 2 x threads per block, at most 256 threads
 
@@ -235,40 +228,11 @@ def pack_mma_weights(W: torch.Tensor) -> torch.Tensor:
     return blocks.permute(0, 1, 2, 4, 3, 5).contiguous().reshape(nW, N, K)
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if os.path.exists(default):
-        return default
-    raise RuntimeError("nvcc not found: the fused chain kernel cannot be built")
-
-
-def library_path() -> Path:
-    """Build output path, keyed by the source and flags so an edit rebuilds."""
-    digest = hashlib.sha256(CSRC.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"libfused_chain_{digest}.so"
-
-
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
-    """Compile ``csrc/fused_chain.cu`` with nvcc for sm_90a (unless this
-    source was built already) and load it.  The compiler's register and
-    shared-memory report goes to ``<lib>.ptxas.txt`` beside the library."""
-    out = library_path()
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        out.with_suffix(".ptxas.txt").write_text(proc.stderr)
-        os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    """Compile ``csrc/fused_chain.cu`` for sm_90a (unless this source was
+    built already, see ``ops/build.py``) and load it."""
+    lib = build.load(CSRC)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.fused_chain_launch.argtypes = [
         ci, vp, vp, vp, vp, vp, vp, vp, vp,

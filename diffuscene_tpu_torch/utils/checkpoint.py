@@ -1,0 +1,69 @@
+"""Checkpoints in torch format, with the reference's ``model_{epoch:05d}``
+naming and auto-resume.
+
+Port of ``diffuscene_tpu/utils/checkpoint.py`` (reference
+``scripts/training_utils.py:62-97``): each checkpoint is one file
+``<experiment_dir>/model_{epoch:05d}`` written by ``torch.save`` (the whole
+trainer state: step, model, optimizer moments, generator), and resume picks
+the highest epoch.  The JAX package's asynchronous saves and pruning are
+not ported.
+"""
+from __future__ import annotations
+
+import os
+import re
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+_CKPT_RE = re.compile(r"^model_(\d+)$")
+
+
+def checkpoint_path(experiment_dir: str, epoch: int) -> str:
+    return os.path.join(os.path.abspath(experiment_dir), f"model_{epoch:05d}")
+
+
+def latest_epoch(experiment_dir: str) -> Optional[int]:
+    """Highest epoch with a saved checkpoint, or None (training_utils.py:62-75)."""
+    if not os.path.isdir(experiment_dir):
+        return None
+    ids = [int(m.group(1)) for f in os.listdir(experiment_dir)
+           if (m := _CKPT_RE.match(f)) and os.path.isfile(os.path.join(experiment_dir, f))]
+    return max(ids) if ids else None
+
+
+def save_checkpoint(state: Any, experiment_dir: str, epoch: int) -> str:
+    """Write ``state`` to model_{epoch:05d}, through a temporary file so that
+    an interrupted save leaves no partial checkpoint."""
+    os.makedirs(experiment_dir, exist_ok=True)
+    path = checkpoint_path(experiment_dir, epoch)
+    tmp = path + ".tmp"
+    torch.save(state, tmp)
+    os.replace(tmp, path)
+    return path
+
+
+def load_checkpoint(experiment_dir: str, epoch: Optional[int] = None,
+                    map_location: Any = "cpu") -> Tuple[Optional[Any], Optional[int]]:
+    """The latest (or given-epoch) checkpoint: (state, epoch), or (None, None)
+    when there is none, the reference's silent no-op resume."""
+    if epoch is None:
+        epoch = latest_epoch(experiment_dir)
+    if epoch is None:
+        return None, None
+    state = torch.load(checkpoint_path(experiment_dir, epoch), map_location=map_location,
+                       weights_only=True)
+    return state, epoch
+
+
+def load_model_weights(path: str) -> Dict[str, Any]:
+    """A model state_dict from a reference ``.pt``/``.pth`` file (the port's
+    modules carry the reference names) or from the newest checkpoint of an
+    experiment dir."""
+    if path.endswith((".pt", ".pth")):
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        return dict(sd.state_dict() if hasattr(sd, "state_dict") else sd)
+    state, epoch = load_checkpoint(path)
+    if epoch is None:
+        raise FileNotFoundError(f"no model_* checkpoints under {path}")
+    return state["model"]

@@ -10,7 +10,11 @@ turns into the Flax ``Unet1D`` tree.  This module is its inverse:
 - :func:`denoiser_tree` maps a port module's tensors to the Flax layout the
   serving engine reads (``models/inference.py``), on the module's device;
 - :func:`load_jax_params` loads a JAX ``SceneNetworks`` variable tree, as
-  numpy arrays, into a port ``SceneDiffusion``.
+  numpy arrays, into a port ``SceneDiffusion``;
+- :func:`flax_to_torch_autoencoder` is the inverse of
+  ``convert_autoencoder`` for the shape autoencoder, and
+  :func:`load_jax_autoencoder` loads JAX variables into a port
+  ``KLAutoEncoder``.
 
 Tensor rules: Conv1d (O, I, 1) <-> Dense kernel (I, O); Linear (O, I) <->
 (I, O); GroupNorm weight/bias <-> scale/bias; LayerNorm g (1, C, 1) <-> (C,).
@@ -206,3 +210,67 @@ def load_jax_params(scene, np_params: Dict[str, Any]) -> None:
         with torch.no_grad():
             scene.conditioner.positional_embedding.copy_(
                 torch.from_numpy(np.asarray(cond["positional_embedding"], np.float32)))
+
+
+def _autoencoder_layers():
+    """(flax path, torch prefix, kind) of every layer of ``KLAutoEncoder``;
+    kind is conv, linear or bn.  The same table as ``convert_autoencoder``
+    of the JAX package, read the other way."""
+    layers = []
+    for i in range(1, 5):
+        layers.append((("encoder", f"conv{i}"), f"encoder.conv{i}", "conv"))
+        layers.append((("encoder", f"bn{i}"), f"encoder.bn{i}", "bn"))
+    for g in (1, 2):
+        layers.append((("encoder", f"graph_layer{g}", "conv"), f"encoder.graph_layer{g}.conv", "conv"))
+        layers.append((("encoder", f"graph_layer{g}", "bn"), f"encoder.graph_layer{g}.bn", "bn"))
+    for name in ("mean_fc", "logvar_fc", "fc"):
+        layers.append(((name,), name, "linear"))
+    for f in (1, 2):
+        # Sequential indices: 0 conv, 1 bn, 3 conv, 4 bn, 6 out conv
+        for flax_name, idx, kind in (("conv0", 0, "conv"), ("bn0", 1, "bn"), ("conv1", 3, "conv"),
+                                     ("bn1", 4, "bn"), ("out", 6, "conv")):
+            layers.append((("decoder", f"fold{f}", flax_name), f"decoder.fold{f}.layers.{idx}", kind))
+    return layers
+
+
+def _get(tree: Dict[str, Any], path: Path):
+    for p in path:
+        tree = tree[p]
+    return tree
+
+
+def flax_to_torch_autoencoder(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+    """Flax ``KLAutoEncoder`` variables (``params`` and ``batch_stats``,
+    numpy leaves) -> port ``KLAutoEncoder`` state_dict (CPU float32 tensors;
+    ``num_batches_tracked`` 0).  ``convert_autoencoder`` of the result gives
+    the variables back, bit for bit."""
+    params, stats = variables["params"], variables["batch_stats"]
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(key, a):
+        out[key] = torch.from_numpy(np.array(a, np.float32, order="C"))
+
+    for path, prefix, kind in _autoencoder_layers():
+        p = _get(params, path)
+        if kind == "bn":
+            s = _get(stats, path)
+            put(f"{prefix}.weight", p["scale"])
+            put(f"{prefix}.bias", p["bias"])
+            put(f"{prefix}.running_mean", s["mean"])
+            put(f"{prefix}.running_var", s["var"])
+            out[f"{prefix}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+        else:
+            k = np.asarray(p["kernel"]).T
+            put(f"{prefix}.weight", k[:, :, None] if kind == "conv" else k)
+            put(f"{prefix}.bias", p["bias"])
+    return out
+
+
+def load_jax_autoencoder(model: torch.nn.Module, variables: Dict[str, Any]) -> None:
+    """Load JAX ``KLAutoEncoder`` variables (numpy leaves) into a port
+    ``KLAutoEncoder``; num_batches_tracked is kept as the module has it."""
+    sd = flax_to_torch_autoencoder(variables)
+    for k, v in model.state_dict().items():
+        if k.endswith("num_batches_tracked"):
+            sd[k] = v
+    model.load_state_dict(sd, strict=True)

@@ -111,7 +111,7 @@ def test_rows_sample_chain_matches_jax():
         assert tuple(shp) == a.shape
         return torch.from_numpy(a.copy())
 
-    scene = SceneDiffusion(cfg)
+    scene = SceneDiffusion(cfg, device="cpu")
     load_jax_params(scene, params)
     got = scene.sample(B, clip_denoised=True, fused="rows", noise_fn=noise_fn).numpy()
     assert not noises  # the port drew exactly the JAX stream
@@ -137,7 +137,7 @@ def test_scene_config_from_flagship_yaml_matches_jax():
 
 def test_sampler_needs_one_noise_source_and_rejects_unported_paths():
     _, cfg = _cfgs(time_num=2)
-    scene = SceneDiffusion(cfg).init(torch.Generator().manual_seed(0))
+    scene = SceneDiffusion(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     with pytest.raises(ValueError):
         scene.sample(2)
     out = scene.sample(2, generator=torch.Generator().manual_seed(1))
