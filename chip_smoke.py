@@ -6,8 +6,9 @@
 Phases, each of which raises on failure (exit code 1, no "ok" line):
 
 1. the card's name and power limit (nvidia-smi), and the build of the CUDA
-   kernels from csrc/fused_chain.cu and csrc/chamfer_nn.cu (one nvcc each,
-   started together, sm_90a) with its time;
+   kernels from csrc/fused_chain.cu, csrc/chamfer_nn.cu,
+   csrc/fused_resblock.cu and csrc/set_attention.cu (one nvcc each, started
+   together, sm_90a) with its time;
 2. the chain kernel against its plain torch version on the card, at the
    flagship's shapes (C=512, B=64, N=12 and N=21), every chain variant, in
    bf16 and f32, with each case's time beside the plain version's;
@@ -29,14 +30,32 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    plain version, then 30 train steps on 16 synthetic box-surface clouds
    from the seed (finite, falling loss, 2 chamfer-kernel launches a step,
    directed_nn.launches), then encoding 64 clouds, then torch.profiler over
-   5 more steps (device busy time, idle share, the kernels that take most).
+   5 more steps (device busy time, idle share, the kernels that take most);
+7. the ResnetBlock kernel (B1) against its plain torch version on the card:
+   C=512, B=64, N=12 and N=21, per-row film, per-scene film, zero film rows
+   and no film, C_in 512 (identity residual) and 1024 (x and skip with the
+   residual projection, and one (M, 1024) x), bf16 and f32, and a ragged
+   B=63; each case's time beside the plain version's;
+8. the set-attention kernel (B2) against its plain torch version: (64, 12,
+   512) and (64, 21, 512), bf16 and f32, eps 1e-5 and 1e-3, with times;
+9. one full-width forward of the flagship through the 3-D engine
+   (fused_unet1d_forward, 28 B1 and 1 B2 launches) against the plain Unet1D
+   module in f32 and bf16 and against the rows engine, with each engine's
+   ms per forward;
+10. a full 1000-step DDPM sample of 64 scenes through
+   SceneDiffusion.sample(fused=True), bf16: shape, finiteness, exactly
+   28,000 B1 and 1,000 B2 launches; torch.profiler over 20 steps;
+11. a 20-step DPM-Solver++ sample of 64 scenes, fused=True, bf16: finite,
+   exactly 560 B1 and 20 B2 launches, wall time.
 
-TF32 is off for every matmul and convolution (the references are f32).
+The phases run in the order 1, 2, 7, 8, 3 with 9 (one set of full-width
+models), 4, 10, 11, 5, 6.  TF32 is off for every matmul and convolution (the references are f32).
 
 The line before the last is the card's name and power limit again, the one
 before it a JSON summary of the kernels (launches on each main path, worst
-error, kernel, plain and library times of one forward's chains and of one
-chamfer forward, and each one's bound); the last line is
+error, kernel, plain and library times of one forward's chains, of one
+forward's 28 ResnetBlocks, of one set attention and of one chamfer forward,
+and each one's bound); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
 import json
@@ -69,6 +88,17 @@ VARIANTS = {
     "skip": [("scene", True, True)],
 }
 FORWARD_MIX = {"row_scene": 5, "scene": 5, "row_skip": 4, "skip": 5}
+# B1 cases: name -> (film, C_in, skip form).  film: "row" per-object rows
+# (the block0s), "scene" per-scene time rows, "zero" zero rows, "none" no
+# film (must equal "zero" exactly); C_in 1024 as x and skip (the engine's
+# up blocks) or as one (M, 1024) x (B1's own form)
+RB_CASES = {"row": ("row", C, False), "scene": ("scene", C, False),
+            "skip": ("scene", 2 * C, True), "cat": ("row", 2 * C, False),
+            "zero": ("zero", C, False), "none": ("none", C, False)}
+# one flagship forward: 9 block0s, 10 time blocks, 9 skip-concat blocks
+RB_FORWARD_MIX = {"row": 9, "scene": 10, "skip": 9}
+ATTN_HEADS, ATTN_DIM_HEAD = 4, 32
+DPM_STEPS = 20
 SAMPLE_PROFILE_STEPS = 20
 # chamfer cases (B, N, M, D); "identical" compares a cloud with itself
 CHAMFER_CASES = {"ae": (16, 2048, 2025, 3), "d2": (16, 2048, 2025, 2),
@@ -218,6 +248,9 @@ def flagship(torch, dtype):
 
 
 def phase_forward(torch, dtype):
+    """Phases 3 and 9: one full-width forward through the rows engine and
+    through the 3-D engine, each against the plain module forward, and the
+    two engines against each other."""
     from diffuscene_tpu_torch.models import inference as inf
     from diffuscene_tpu_torch.utils.convert import denoiser_tree
 
@@ -239,14 +272,19 @@ def phase_forward(torch, dtype):
     def rows_fwd():
         return inf.fused_unet1d_forward_rows(net, prep, chains, x, t, rows, exact_gelu=True)
 
+    def engine_fwd():
+        return inf.fused_unet1d_forward(net, prep, x, t, cond_ctx=ctx, exact_gelu=True)
+
     def module_fwd():
         with torch.no_grad():
             return net(x, t, cond)
 
+    def compare(a, b):
+        return (a - b).abs().max().item(), ((a - b).norm() / b.norm()).item()
+
     got, want = rows_fwd(), module_fwd()
     torch.cuda.synchronize()
-    err = (got - want).abs().max().item()
-    rel = ((got - want).norm() / want.norm()).item()
+    err, rel = compare(got, want)
     ok = bool(torch.isfinite(got).all()) and got.shape == (B, 12, 62) and err <= FORWARD_TOL[dname]
     rows_ms, module_ms = cuda_ms(rows_fwd, iters=10), cuda_ms(module_fwd, iters=10)
     print(f"forward {dname}: rows engine vs module max_abs_err={err:.3e} rel_l2={rel:.3e} "
@@ -254,7 +292,216 @@ def phase_forward(torch, dtype):
           f"module_ms={module_ms:.3f} prepare_s={prep_s:.3f}", flush=True)
     if not ok:
         raise RuntimeError(f"{dname} rows forward disagrees with the module forward: {err}")
-    return scene, rows_ms, module_ms
+
+    # phase 9: the 3-D engine, every ResnetBlock on B1 and mid_attn on B2
+    from diffuscene_tpu_torch.ops import attention as at
+    from diffuscene_tpu_torch.ops import fused_resblock as rb
+
+    torch.cuda.synchronize()
+    rb.fused_resnet_block.launches = at.fused_set_attention.launches = 0
+    eng = engine_fwd()
+    launches = (rb.fused_resnet_block.launches, at.fused_set_attention.launches)
+    torch.cuda.synchronize()
+    err_m, rel_m = compare(eng, want)
+    err_r, rel_r = compare(eng, got)
+    ok = (bool(torch.isfinite(eng).all()) and eng.shape == (B, 12, 62) and launches == (28, 1)
+          and err_m <= FORWARD_TOL[dname] and err_r <= FORWARD_TOL[dname])
+    engine_ms = cuda_ms(engine_fwd, iters=10)
+    print(f"forward {dname}: 3-D engine vs module max_abs_err={err_m:.3e} rel_l2={rel_m:.3e}, "
+          f"vs rows engine max_abs_err={err_r:.3e} rel_l2={rel_r:.3e} tol={FORWARD_TOL[dname]} "
+          f"launches B1={launches[0]} B2={launches[1]} {'ok' if ok else 'FAIL'} | B={B}: "
+          f"engine_ms={engine_ms:.3f} rows_ms={rows_ms:.3f}", flush=True)
+    if not ok:
+        raise RuntimeError(f"{dname} 3-D engine forward disagrees: module {err_m}, rows {err_r}, "
+                           f"launches {launches}")
+    return scene
+
+
+def rb_case(torch, name, n, dtype, seed, batch=B):
+    """Random B1 inputs on the card, as the flagship's prepared weights are
+    scaled: standardized W1/W2 (unit variance per output column)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0, base=0.0):
+        return base + scale * torch.randn(*shape, generator=g, device=dev)
+
+    film, c_in, skip_form = RB_CASES[name]
+    M = batch * n
+    kw = dict(w1=rnd(c_in, C, scale=0.7 if c_in > C else 1.0), b1=rnd(C, scale=0.1),
+              gn1_scale=rnd(C, scale=0.1, base=1.0), gn1_bias=rnd(C, scale=0.1),
+              w2=rnd(C, C), b2=rnd(C, scale=0.1),
+              gn2_scale=rnd(C, scale=0.1, base=1.0), gn2_bias=rnd(C, scale=0.1))
+    if c_in != C:
+        kw.update(w_res=rnd(c_in, C, scale=c_in ** -0.5), b_res=rnd(C, scale=0.1))
+    kw = {k: (v.to(dtype) if k in ("w1", "w2", "w_res") else v) for k, v in kw.items()}
+    x = rnd(M, c_in).to(dtype)
+    skip = None
+    if skip_form:
+        x, skip = x[:, :C].contiguous(), x[:, C:].contiguous()
+    f = {"row": lambda: rnd(M, 2 * C, scale=0.2).to(dtype),
+         "scene": lambda: rnd(batch, 2 * C, scale=0.2).to(dtype),
+         "zero": lambda: torch.zeros(M, 2 * C, dtype=dtype, device=dev),
+         "none": lambda: None}[film]()
+    return (x, f), dict(kw, skip=skip, n_per_scene=n, compute_dtype=dtype)
+
+
+def rb_work(args, kw):
+    """The least work of one B1 call: every product, each operand read once
+    and the output written once.  Returns (flops, bytes)."""
+    x, f = args
+    M = x.shape[0]
+    c_in = kw["w1"].shape[0]
+    k_total = c_in + C + (c_in if kw.get("w_res") is not None else 0)
+    flops = 2 * M * C * k_total
+    tensors = [x, f, kw["skip"], kw["w1"], kw["w2"], kw.get("w_res")]
+    nbytes = sum(t.numel() * t.element_size() for t in tensors if t is not None)
+    nbytes += 7 * C * 4 + M * C * x.element_size()
+    return flops, nbytes
+
+
+def phase_resblock(rb, torch):
+    """Phase 7: B1 vs its plain version; returns (worst error, results)."""
+    results, failures, worst = {}, [], 0.0
+    seed = 300
+    for n in (12, 21):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            for name in RB_CASES:
+                seed += 1
+                args, kw = rb_case(torch, name, n, dtype, seed)
+                got = rb.fused_resnet_block(*args, **kw)
+                want = rb.fused_resnet_block_reference(*args, **kw)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                ok = (bool(torch.isfinite(got.float()).all())
+                      and torch.allclose(got.float(), want.float(), **KERNEL_TOL[dname]))
+                if name == "none":   # no film is zero film rows, exactly
+                    zero = torch.zeros(args[0].shape[0], 2 * C, dtype=dtype, device="cuda")
+                    ok = ok and torch.equal(got, rb.fused_resnet_block(args[0], zero, **kw))
+                worst = max(worst, err)
+                ms = cuda_ms(lambda: rb.fused_resnet_block(*args, **kw))
+                plain = cuda_ms(lambda: rb.fused_resnet_block_reference(*args, **kw))
+                results[(n, dname, name)] = (err, ms, plain) + rb_work(args, kw)
+                print(f"kernel fused_resblock N={n} {dname:8s} {name:5s} max_abs_err={err:.3e} "
+                      f"tol={KERNEL_TOL[dname]} {'ok' if ok else 'FAIL'} kernel_ms={ms:.4f} "
+                      f"plain_ms={plain:.4f}", flush=True)
+                if not ok:
+                    failures.append((n, dname, name, err))
+    # a ragged last tile: 63 scenes of 12 rows, tiles of 2 scenes
+    for dtype in (torch.bfloat16, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        args, kw = rb_case(torch, "skip", 12, dtype, 7, batch=63)
+        got = rb.fused_resnet_block(*args, **kw)
+        want = rb.fused_resnet_block_reference(*args, **kw)
+        err = (got.float() - want.float()).abs().max().item()
+        ok = torch.allclose(got.float(), want.float(), **KERNEL_TOL[dname])
+        worst = max(worst, err)
+        print(f"kernel fused_resblock N=12 B=63 {dname:8s} skip  max_abs_err={err:.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            failures.append((12, dname, "skip B=63", err))
+    if failures:
+        raise RuntimeError(f"resblock kernel disagrees with its plain version: {failures}")
+    return worst, results
+
+
+def phase_attention(at, torch):
+    """Phase 8: B2 vs its plain version; returns (worst error, results)."""
+    dev = torch.device("cuda")
+    results, failures, worst = {}, [], 0.0
+    hd = ATTN_HEADS * ATTN_DIM_HEAD
+    g = torch.Generator(device=dev).manual_seed(SEED + 30)
+
+    def rnd(*shape, scale=1.0, base=0.0):
+        return base + scale * torch.randn(*shape, generator=g, device=dev)
+
+    for n in (12, 21):
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            for eps in (1e-5, 1e-3):
+                args = (rnd(B, n, C).to(dtype), rnd(C, scale=0.2, base=1.0),
+                        rnd(C, 3 * hd, scale=C ** -0.5).to(dtype),
+                        rnd(hd, C, scale=hd ** -0.5).to(dtype), rnd(C, scale=0.1))
+                kw = dict(heads=ATTN_HEADS, dim_head=ATTN_DIM_HEAD, eps=eps, compute_dtype=dtype)
+                got = at.fused_set_attention(*args, **kw)
+                want = at.fused_set_attention_reference(*args, **kw)
+                torch.cuda.synchronize()
+                err = (got.float() - want.float()).abs().max().item()
+                ok = (bool(torch.isfinite(got.float()).all())
+                      and torch.allclose(got.float(), want.float(), **KERNEL_TOL[dname]))
+                worst = max(worst, err)
+                ms = cuda_ms(lambda: at.fused_set_attention(*args, **kw))
+                plain = cuda_ms(lambda: at.fused_set_attention_reference(*args, **kw))
+                # the two products on the tensor cores; the per-head scores
+                # and their product with v (N x N x D each) in f32
+                M = B * n
+                mm_flops = 2 * M * C * 3 * hd + 2 * M * hd * C
+                attn_flops = 4 * B * ATTN_HEADS * n * n * ATTN_DIM_HEAD
+                nbytes = (2 * args[0].numel() * args[0].element_size()
+                          + sum(a.numel() * a.element_size() for a in args[1:]))
+                results[(n, dname, eps)] = (err, ms, plain, mm_flops, nbytes, attn_flops)
+                print(f"kernel set_attention N={n} {dname:8s} eps={eps:g} max_abs_err={err:.3e} "
+                      f"tol={KERNEL_TOL[dname]} {'ok' if ok else 'FAIL'} kernel_ms={ms:.4f} "
+                      f"plain_ms={plain:.4f}", flush=True)
+                if not ok:
+                    failures.append((n, dname, eps, err))
+    if failures:
+        raise RuntimeError(f"set-attention kernel disagrees with its plain version: {failures}")
+    return worst, results
+
+
+def bound(flops, nbytes, fp32_flops=0):
+    """Least time in ms on the card of ``flops`` on the bf16 tensor cores,
+    ``fp32_flops`` outside them and ``nbytes`` of device memory traffic, and
+    what sets it."""
+    ops_s, bytes_s = flops / BF16_FLOPS + fp32_flops / FP32_FLOPS, nbytes / HBM_BPS
+    return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
+
+
+def phase_engine_samples(torch, scene, card):
+    """Phases 10 and 11: DDPM-1000 and DPM-Solver++-20 through the 3-D
+    engine; every ResnetBlock on B1 and mid_attn on B2.  Returns the
+    DDPM-1000 launch counts."""
+    from diffuscene_tpu_torch.diffusion import p_sample_step
+    from diffuscene_tpu_torch.ops import attention as at
+    from diffuscene_tpu_torch.ops import fused_resblock as rb
+
+    counts = {}
+    for name, kw, steps in (("DDPM", {}, T), ("DPM-Solver++", dict(dpm=True, dpm_steps=DPM_STEPS),
+                                              DPM_STEPS)):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        torch.cuda.synchronize()
+        rb.fused_resnet_block.launches = at.fused_set_attention.launches = 0
+        t0 = time.perf_counter()
+        out = scene.sample(B, generator=gen, clip_denoised=True, fused=True, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts[name] = (rb.fused_resnet_block.launches, at.fused_set_attention.launches)
+        finite = bool(torch.isfinite(out).all())
+        print(f"sample: {steps}-step {name}, B={B}, bf16, fused=True: shape={tuple(out.shape)} "
+              f"finite={finite} resblock_launches={counts[name][0]} "
+              f"attention_launches={counts[name][1]} wall_s={wall:.3f} "
+              f"scenes_per_s={B / wall:.3f} | {card}", flush=True)
+        if tuple(out.shape) != (B, 12, 62) or not finite:
+            raise RuntimeError(f"the {name} sample is malformed")
+        if counts[name] != (28 * steps, steps):
+            raise RuntimeError(f"expected {28 * steps} B1 and {steps} B2 launches in the {name} "
+                               f"sample, counted {counts[name]}")
+        if name == "DDPM":
+            parts = scene.split_samples(out)
+            print(f"sample: empty-slot share {parts['is_empty'].float().mean().item():.3f}",
+                  flush=True)
+            cfg = scene.cfg
+            denoise = scene._denoise_fn(scene.make_condition(B), fused=True)
+            x_t = torch.randn(B, 12, 62, generator=gen, device="cuda")
+            noise = torch.randn(B, 12, 62, generator=gen, device="cuda")
+            t_last = torch.full((B,), T - 1, dtype=torch.long, device="cuda")
+            profile_steps(torch, lambda: p_sample_step(scene.sched, cfg.model_mean_type,
+                                                       cfg.model_var_type, denoise, x_t, t_last,
+                                                       noise, True),
+                          SAMPLE_PROFILE_STEPS, 1e3 * wall / T)
+    return counts["DDPM"]
 
 
 def chamfer_bound_ms(B, N, M, D):
@@ -484,18 +731,20 @@ def main():
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from diffuscene_tpu_torch.ops import attention as at
     from diffuscene_tpu_torch.ops import build
     from diffuscene_tpu_torch.ops import chamfer as ch
     from diffuscene_tpu_torch.ops import fused_level as fl
+    from diffuscene_tpu_torch.ops import fused_resblock as rb
 
     card = card_line()
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
     t0 = time.perf_counter()
-    libs = build.build([fl.CSRC, ch.CSRC])
-    fl.load_library()
-    ch.load_library()
+    libs = build.build([fl.CSRC, ch.CSRC, rb.CSRC, at.CSRC])
+    for mod in (fl, ch, rb, at):
+        mod.load_library()
     print(f"build: {', '.join(p.name for p in libs)} in {time.perf_counter() - t0:.2f} s "
           f"(one nvcc each, in parallel)", flush=True)
     for lib in libs:
@@ -508,14 +757,28 @@ def main():
     worst, results = phase_kernels(fl, torch)
     fwd = {i: sum(results[(12, "bfloat16", v)][i] * k for v, k in FORWARD_MIX.items())
            for i in (1, 2, 3, 4)}
-    chain_ops_s, chain_bytes_s = fwd[3] / BF16_FLOPS, fwd[4] / HBM_BPS
-    chain_bound_ms = 1e3 * max(chain_ops_s, chain_bytes_s)
+    chain_bound_ms, chain_bound_by = bound(fwd[3], fwd[4])
     print(f"chains of one flagship forward (N=12, B={B}, bf16, 19 chains): "
           f"kernel {fwd[1]:.3f} ms, plain {fwd[2]:.3f} ms, bound {chain_bound_ms:.4f} ms "
           f"({fwd[3] / 1e9:.2f} GFLOP, {fwd[4] / 1e6:.2f} MB)", flush=True)
 
+    rb_worst, rb_results = phase_resblock(rb, torch)
+    rb_fwd = {i: sum(rb_results[(12, "bfloat16", v)][i] * k for v, k in RB_FORWARD_MIX.items())
+              for i in (1, 2, 3, 4)}
+    rb_bound_ms, rb_bound_by = bound(rb_fwd[3], rb_fwd[4])
+    print(f"ResnetBlocks of one flagship forward (N=12, B={B}, bf16, 28 blocks): "
+          f"kernel {rb_fwd[1]:.3f} ms, plain {rb_fwd[2]:.3f} ms, bound {rb_bound_ms:.4f} ms "
+          f"({rb_fwd[3] / 1e9:.2f} GFLOP, {rb_fwd[4] / 1e6:.2f} MB)", flush=True)
+    at_worst, at_results = phase_attention(at, torch)
+    at_main = at_results[(12, "bfloat16", 1e-3)]    # the bf16 engine's call
+    at_bound_ms, at_bound_by = bound(at_main[3], at_main[4], at_main[5])
+    print(f"set attention of one flagship forward (N=12, B={B}, bf16, eps 1e-3): kernel "
+          f"{at_main[1]:.4f} ms, plain {at_main[2]:.4f} ms, bound {at_bound_ms:.5f} ms "
+          f"({at_main[3] / 1e9:.3f} GFLOP bf16 + {at_main[5] / 1e9:.4f} GFLOP f32, "
+          f"{at_main[4] / 1e6:.2f} MB)", flush=True)
+
     phase_forward(torch, torch.float32)
-    scene, _, _ = phase_forward(torch, torch.bfloat16)
+    scene = phase_forward(torch, torch.bfloat16)
 
     # the first slice's main path: 1000-step DDPM sample, every chain
     # through the kernel
@@ -549,11 +812,16 @@ def main():
                                                cfg.model_var_type, denoise, x_t, t_last,
                                                noise, True),
                   SAMPLE_PROFILE_STEPS, 1e3 * wall / T)
-    del scene, out, parts, denoise
+    del out, parts, denoise
+
+    # this slice's main path: the 3-D engine, every ResnetBlock on B1 and
+    # mid_attn on B2
+    rb_launches, at_launches = phase_engine_samples(torch, scene, card)
+    del scene
     torch.cuda.empty_cache()
 
     cham = phase_chamfer(ch, torch)
-    # this slice's main path: AE training steps, every chamfer on the kernel
+    # the second slice's main path: AE training steps, every chamfer on the kernel
     cham_launches = phase_autoencoder(ch, torch)
 
     print(json.dumps({"kernels": [{
@@ -566,7 +834,7 @@ def main():
         "ms": fwd[1],
         "plain_ms": fwd[2],
         "bound_ms": chain_bound_ms,
-        "bound_by": "operations" if chain_ops_s >= chain_bytes_s else "bytes",
+        "bound_by": chain_bound_by,
         "library_ms": None,
     }, {
         "name": "chamfer_nn",
@@ -580,6 +848,30 @@ def main():
         "bound_ms": cham["bound_ms"],
         "bound_by": cham["bound_by"],
         "library_ms": cham["library_ms"],
+    }, {
+        "name": "fused_resblock",
+        "route": "cuda",
+        "source": "diffuscene_tpu_torch/csrc/fused_resblock.cu",
+        "replaces": "diffuscene_tpu/ops/fused_resblock.py:89",
+        "launches": rb_launches,
+        "max_abs_err": rb_worst,
+        "ms": rb_fwd[1],
+        "plain_ms": rb_fwd[2],
+        "bound_ms": rb_bound_ms,
+        "bound_by": rb_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "set_attention",
+        "route": "cuda",
+        "source": "diffuscene_tpu_torch/csrc/set_attention.cu",
+        "replaces": "diffuscene_tpu/ops/attention.py:35",
+        "launches": at_launches,
+        "max_abs_err": at_worst,
+        "ms": at_main[1],
+        "plain_ms": at_main[2],
+        "bound_ms": at_bound_ms,
+        "bound_by": at_bound_by,
+        "library_ms": None,
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -9,4 +9,4 @@ from .gaussian import (
     predict_xstart_from_v,
     q_posterior_mean_variance,
 )
-from .samplers import p_sample_loop, p_sample_step
+from .samplers import ddim_sample_loop, dpm_solver_sample_loop, p_sample_loop, p_sample_step

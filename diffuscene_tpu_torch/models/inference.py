@@ -1,24 +1,35 @@
-"""Serving engine for the sampling loop: the rows-layout denoiser forward.
+"""Serving engines for the sampling loop: the denoiser forward with everything
+step-invariant prepared once.
 
-Port of the rows path of ``diffuscene_tpu/models/inference.py``.  Sampling
-reruns the Unet1D forward once per step, so everything that does not depend
-on the current sample is prepared once per sampling call:
+Port of ``diffuscene_tpu/models/inference.py``.  Sampling reruns the Unet1D
+forward once per step, so everything that does not depend on the current
+sample is prepared once per sampling call:
 
 - every WSDense kernel is standardized and cast to the compute dtype once;
 - the per-ResnetBlock time-FiLM rows ``mlp(silu(t_emb(t)))`` depend only on
   the integer timestep, so they are tabulated for all T steps as (T, 2C)
   tables and gathered per step;
-- the cond-FiLM rows (from the per-object condition) are computed once;
-- the ResnetBlocks are stacked into 19 chains of 1-2 blocks
-  (:func:`prepare_chain_params`) that ``ops/fused_level.apply_chain`` runs,
-  on the card in one CUDA kernel launch each.
+- the cond-FiLM rows (from the per-object condition) are computed once.
 
-Activations stay flat (B*N, C) rows end to end; attention reshapes its narrow
-(M, H*D) head tensors to (B, N, H*D) views for the per-scene contractions.
+Two forwards share that preparation:
+
+- :func:`fused_unet1d_forward`, the 3-D engine (``fused=True``, the JAX
+  package's usual serving configuration): each of the 28 ResnetBlocks is one
+  ``ops/fused_resblock.fused_resnet_block`` call (kernel B1 on the card) and
+  the middle full attention with its pre-norm and residual is one
+  ``ops/attention.fused_set_attention`` call (kernel B2);
+- :func:`fused_unet1d_forward_rows`, the rows engine (``fused="rows"``): the
+  ResnetBlocks are stacked into 19 chains of 1-2 blocks
+  (:func:`prepare_chain_params`) that ``ops/fused_level.apply_chain`` runs
+  (kernel B4).
+
+On the H100 (B, N, C) -> (B*N, C) is a view, so both keep activations as
+flat (B*N, C) rows; attention views its narrow (M, H*D) head tensors as
+(B, N, H*D) for the per-scene contractions.
 
 Parameters come in the Flax tree layout ((in, out) kernels), from
-``utils/convert.denoiser_tree``.  Not ported yet: the 3-D engine
-``fused_unet1d_forward`` and the text cross-attention rows path.
+``utils/convert.denoiser_tree``.  Not ported yet: the text cross-attention
+(ROADMAP A4).
 """
 from __future__ import annotations
 
@@ -27,8 +38,9 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops.attention import fused_set_attention
 from ..ops.fused_level import ChainBlock, apply_chain, build_chain
-from ..ops.fused_resblock import standardize_kernel
+from ..ops.fused_resblock import fused_resnet_block, standardize_kernel
 from .denoiser import Unet1D, head_blockmask, seg_softmax_heads, sinusoidal_pos_emb
 
 # ---------------------------------------------------------------------------
@@ -299,8 +311,131 @@ def _full_attention_rows(p, x2, B, N, heads=4, dim_head=32):
 
 
 # ---------------------------------------------------------------------------
-# the forward
+# the forwards
 # ---------------------------------------------------------------------------
+
+def _encode(net: Unet1D, prep: Dict[str, Any], x2: torch.Tensor, exact_gelu: bool):
+    """Per-attribute encoder MLPs summed, then init_conv, on (M, point_dim)
+    rows (denoise_net.py:512-525)."""
+    misc = prep["misc"]
+    if net.seperate_all:
+        bd = net.bbox_dim
+        h = _mlp3(misc["bbox_embedf"], x2[:, :bd], exact_gelu)
+        h = h + _mlp3(misc["class_embedf"], x2[:, bd: bd + net.class_dim], exact_gelu)
+        ofs = bd + net.class_dim
+        if net.objectness_dim > 0:
+            h = h + _mlp3(misc["objectness_embedf"], x2[:, ofs: ofs + net.objectness_dim], exact_gelu)
+            ofs += net.objectness_dim
+        if net.objfeat_dim > 0:
+            h = h + _mlp3(misc["objfeat_embedf"], x2[:, ofs: ofs + net.objfeat_dim], exact_gelu)
+    else:
+        h = x2
+    return _dense(misc["init_conv"], h)
+
+
+def _decode(net: Unet1D, prep: Dict[str, Any], h: torch.Tensor, exact_gelu: bool):
+    """Per-attribute decoder MLPs (their fc0 layers as one matmul) or the
+    final conv, on (M, C) rows -> (M, out) f32."""
+    misc = prep["misc"]
+    if not net.seperate_all:
+        return _dense(misc["final_conv"], h).float()
+    approx = "none" if exact_gelu else "tanh"
+    h0 = F.gelu(_dense(prep["dec_fc0"], h), approximate=approx)
+    outs, ofs = [], 0
+    for name in prep["dec_names"]:
+        pdec = misc[name]
+        w = pdec["fc0"]["kernel"].shape[1]
+        hi = F.gelu(_dense(pdec["fc1"], h0[:, ofs: ofs + w]), approximate=approx)
+        ofs += w
+        outs.append(_dense(pdec["fc2"], hi))
+    return torch.cat(outs, dim=-1).float()
+
+
+@torch.no_grad()
+def fused_unet1d_forward(
+    net: Unet1D,
+    prep: Dict[str, Any],                   # prepare_inference_params output
+    x: torch.Tensor,                        # (B, N, point_dim)
+    t: torch.Tensor,                        # (B,) integer timesteps
+    condition: Optional[torch.Tensor] = None,   # (B, N, cond_dim)
+    cond_ctx: Optional[Dict[str, Any]] = None,  # precompute_conditioning output
+    exact_gelu: bool = False,
+) -> torch.Tensor:
+    """The 3-D serving engine: functionally ``Unet1D.forward``, with every
+    ResnetBlock one ``fused_resnet_block`` call (28 a forward: 9 cond-FiLM
+    block0s with per-object rows, 19 time-FiLM blocks with per-scene rows, 9
+    of them over a skip concat) and ``mid_attn`` one ``fused_set_attention``
+    call.  A block0 without cond-FiLM rows (the unconditioned model) runs
+    with zero film."""
+    if net.text_condition:
+        raise NotImplementedError("text cross-attention is not ported yet (ROADMAP A4)")
+    B, N, _ = x.shape
+    M = B * N
+    dt = net.compute_dtype
+    misc, blocks = prep["misc"], prep["blocks"]
+    n_levels = len(net.dim_mults)
+    groups = net.resnet_block_groups
+    if cond_ctx is None:
+        cond_ctx = precompute_conditioning(net, prep, condition)
+    film_c = cond_ctx["film_c"]
+
+    def resblock(name, h, film, skip=None):
+        bp = blocks[name]
+        b1, b2, rc = bp["block1"], bp["block2"], bp.get("res_conv")
+        return fused_resnet_block(
+            h, film, b1["proj"]["kernel"], b1["proj"]["bias"],
+            b1["norm"]["scale"], b1["norm"]["bias"],
+            b2["proj"]["kernel"], b2["proj"]["bias"],
+            b2["norm"]["scale"], b2["norm"]["bias"],
+            w_res=None if rc is None else rc["kernel"],
+            b_res=None if rc is None else rc["bias"],
+            n_per_scene=N, groups=groups, compute_dtype=dt, skip=skip)
+
+    def cond_block(name, h):     # per-object (M, 2C) rows, or none
+        f = film_c.get(name)
+        return resblock(name, h, None if f is None else f.reshape(M, -1))
+
+    def time_block(name, h, skip=None):   # per-scene (B, 2C) rows of the table
+        return resblock(name, h, prep["film_t"][name][t], skip)
+
+    h = _encode(net, prep, x.to(dt).reshape(M, -1), exact_gelu)
+    r = h
+    skips = []
+    for i in range(n_levels):
+        h = cond_block(f"down{i}_block0", h)
+        h = time_block(f"down{i}_block1", h)
+        skips.append(h)
+        h = time_block(f"down{i}_block2", h)
+        h = h + _linear_attention_rows(
+            misc[f"down{i}_attn"],
+            _channel_layernorm(misc[f"down{i}_attn_norm"]["g"], h, dt), dt, B, N)
+        skips.append(h)
+        if i == n_levels - 1:
+            h = _dense(misc[f"down{i}_proj"], h)
+
+    h = cond_block("mid_block0", h)
+    h = time_block("mid_block1", h)
+    # x + Attention(LN(x)), with the model's pre-norm eps for this dtype
+    ap = misc["mid_attn"]
+    h = fused_set_attention(
+        h.reshape(B, N, -1), misc["mid_attn_norm"]["g"], ap["to_qkv"]["kernel"],
+        ap["to_out"]["kernel"], ap["to_out"]["bias"],
+        eps=1e-5 if dt == torch.float32 else 1e-3, compute_dtype=dt).reshape(M, -1)
+    h = time_block("mid_block2", h)
+
+    for j in range(n_levels):
+        h = cond_block(f"up{j}_block0", h)
+        h = time_block(f"up{j}_block1", h, skips.pop())
+        h = time_block(f"up{j}_block2", h, skips.pop())
+        h = h + _linear_attention_rows(
+            misc[f"up{j}_attn"],
+            _channel_layernorm(misc[f"up{j}_attn_norm"]["g"], h, dt), dt, B, N)
+        if j == n_levels - 1:
+            h = _dense(misc[f"up{j}_proj"], h)
+
+    h = time_block("final_res_block", h, r)
+    return _decode(net, prep, h, exact_gelu).reshape(B, N, -1)
+
 
 @torch.no_grad()
 def fused_unet1d_forward_rows(
@@ -323,20 +458,7 @@ def fused_unet1d_forward_rows(
     groups = net.resnet_block_groups
     film_c2 = cond_ctx_rows["film_c2"]
 
-    x2 = x.to(dt).reshape(M, -1)
-    if net.seperate_all:
-        bd = net.bbox_dim
-        h = _mlp3(misc["bbox_embedf"], x2[:, :bd], exact_gelu)
-        h = h + _mlp3(misc["class_embedf"], x2[:, bd: bd + net.class_dim], exact_gelu)
-        ofs = bd + net.class_dim
-        if net.objectness_dim > 0:
-            h = h + _mlp3(misc["objectness_embedf"], x2[:, ofs: ofs + net.objectness_dim], exact_gelu)
-            ofs += net.objectness_dim
-        if net.objfeat_dim > 0:
-            h = h + _mlp3(misc["objfeat_embedf"], x2[:, ofs: ofs + net.objfeat_dim], exact_gelu)
-    else:
-        h = x2
-    h = _dense(misc["init_conv"], h)
+    h = _encode(net, prep, x.to(dt).reshape(M, -1), exact_gelu)
     r = h
 
     def run_chain(key, h, skip_rows=()):
@@ -384,19 +506,4 @@ def fused_unet1d_forward_rows(
             h = _dense(misc[f"up{j}_proj"], h)
 
     h = run_chain("final", h, (r,))
-
-    if net.seperate_all:
-        approx = "none" if exact_gelu else "tanh"
-        h0 = F.gelu(_dense(prep["dec_fc0"], h), approximate=approx)
-        outs, ofs = [], 0
-        for name in prep["dec_names"]:
-            pdec = misc[name]
-            w = pdec["fc0"]["kernel"].shape[1]
-            hi = h0[:, ofs: ofs + w]
-            ofs += w
-            hi = F.gelu(_dense(pdec["fc1"], hi), approximate=approx)
-            outs.append(_dense(pdec["fc2"], hi))
-        out = torch.cat(outs, dim=-1)
-    else:
-        out = _dense(misc["final_conv"], h)
-    return out.float().reshape(B, N, -1)
+    return _decode(net, prep, h, exact_gelu).reshape(B, N, -1)

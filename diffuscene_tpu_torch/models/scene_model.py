@@ -6,11 +6,11 @@ The modules hold only networks and parameters; diffusion math and the
 sampling loop are plain functions from ``diffusion/``.
 
 Ported: the unconditional task with the learnable instance embedding
-(the bedroom flagship), ``fused=False`` (module forward) and
-``fused="rows"`` (rows engine on the chain kernel), DDPM sampling.
-Raising ``NotImplementedError``: the 3-D engine (``fused=True``), the
-DDIM/DPM samplers, completion and arrangement, text, room-mask and the
-fixed one-hot instance embedding.
+(the bedroom flagship); ``fused=False`` (module forward), ``fused=True``
+(the 3-D engine on the ResnetBlock and set-attention kernels) and
+``fused="rows"`` (rows engine on the chain kernel); DDPM, DDIM and
+DPM-Solver++ sampling.  Raising ``NotImplementedError``: completion and
+arrangement, text, room-mask and the fixed one-hot instance embedding.
 """
 from __future__ import annotations
 
@@ -201,17 +201,19 @@ class SceneDiffusion:
         return self.conditioner(batch_size, self.cfg.sample_num_points)
 
     def _denoise_fn(self, condition, fused=False):
-        """``fused`` is False (module forward) or ``"rows"`` (flat-row engine,
-        its resblock chains on the chain kernel)."""
+        """``fused`` is False (module forward), True (the 3-D engine, each
+        ResnetBlock on the ResnetBlock kernel and mid_attn on the
+        set-attention kernel) or ``"rows"`` (flat-row engine, its resblock
+        chains on the chain kernel)."""
         if fused is False:
             def fn(x, t):
                 with torch.no_grad():
                     return self.denoiser(x, t, condition)
             return fn
-        if fused != "rows":
-            raise NotImplementedError(
-                f"fused={fused!r}: the 3-D serving engine is not ported yet (ROADMAP A1)")
+        if fused is not True and fused != "rows":
+            raise ValueError(f"fused must be False, True or 'rows', got {fused!r}")
         from .inference import (
+            fused_unet1d_forward,
             fused_unet1d_forward_rows,
             precompute_conditioning,
             prepare_chain_params,
@@ -222,6 +224,11 @@ class SceneDiffusion:
         prep = prepare_inference_params(net, denoiser_tree(net),
                                         num_timesteps=self.sched.num_timesteps)
         cond_ctx = precompute_conditioning(net, prep, condition)
+        if fused is True:
+            def fn(x, t):
+                return fused_unet1d_forward(net, prep, x, t, cond_ctx=cond_ctx)
+            return fn
+
         chains = prepare_chain_params(net, prep, frozenset(cond_ctx["film_c"]))
         film_c2 = {name: v.reshape(-1, v.shape[-1]).contiguous()
                    for name, v in cond_ctx["film_c"].items()}
@@ -241,24 +248,33 @@ class SceneDiffusion:
         fused=False,
         noise_fn=None,
         ddim: bool = False,
+        ddim_steps: int = 50,
+        ddim_eta: float = 0.0,
         dpm: bool = False,
+        dpm_steps: int = 20,
         partial_boxes=None,
         input_boxes=None,
     ) -> torch.Tensor:
-        """DDPM ancestral sampling of ``batch_size`` scenes -> (B, N, point_dim)
-        (diffusion_scene_layout_ddpm.py:228-310).  Noise comes from
-        ``generator`` (on this model's device) or from ``noise_fn``."""
-        if ddim or dpm:
-            raise NotImplementedError("DDIM and DPM-Solver sampling are not ported yet (ROADMAP A3)")
+        """Sample ``batch_size`` scenes -> (B, N, point_dim)
+        (diffusion_scene_layout_ddpm.py:228-310): DPM-Solver++ with ``dpm``,
+        else DDIM with ``ddim``, else DDPM ancestral sampling.  Noise comes
+        from ``generator`` (on this model's device) or from ``noise_fn``."""
         if partial_boxes is not None or input_boxes is not None:
             raise NotImplementedError("completion and arrangement are not ported yet (ROADMAP A5)")
         cfg = self.cfg
         condition = self.make_condition(batch_size)
         fn = self._denoise_fn(condition, fused=fused)
         shape = (batch_size, cfg.sample_num_points, cfg.point_dim)
-        return S.p_sample_loop(self.sched, cfg.model_mean_type, cfg.model_var_type, fn,
-                               shape, generator=generator, clip_denoised=clip_denoised,
-                               noise_fn=noise_fn)
+        noise = dict(generator=generator, noise_fn=noise_fn)
+        mmt = cfg.model_mean_type
+        if dpm:
+            return S.dpm_solver_sample_loop(self.sched, mmt, fn, shape, dpm_steps,
+                                            clip_denoised, **noise)
+        if ddim:
+            return S.ddim_sample_loop(self.sched, mmt, fn, shape, ddim_steps, ddim_eta,
+                                      clip_denoised, **noise)
+        return S.p_sample_loop(self.sched, mmt, cfg.model_var_type, fn, shape,
+                               clip_denoised=clip_denoised, **noise)
 
     def split_samples(self, samples: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Split packed samples into an attribute dict + empty-slot mask

@@ -6,7 +6,12 @@ from .fused_level import (
     build_chain,
     load_library,
 )
-from .fused_resblock import standardize_kernel
+from .fused_resblock import (
+    fused_resnet_block,
+    fused_resnet_block_reference,
+    standardize_kernel,
+)
+from .attention import fused_set_attention, fused_set_attention_reference
 from .chamfer import (
     chamfer_2d,
     chamfer_3d,

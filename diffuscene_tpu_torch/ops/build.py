@@ -2,8 +2,8 @@
 
 Each source is one shared library with a plain C interface, compiled by
 ``nvcc`` for sm_90a at first use into the git-ignored ``build/kernels/``.
-The library's name carries a hash of the source and the flags, so an edit
-rebuilds.  :func:`build` starts one ``nvcc`` per missing library, all at
+The library's name carries a hash of the source, the shared headers and the
+flags, so an edit rebuilds.  :func:`build` starts one ``nvcc`` per missing library, all at
 once, and waits for them together; the compiler's register and
 shared-memory report goes to ``<lib>.ptxas.txt`` beside each library.
 """
@@ -16,10 +16,15 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import List, Sequence
+from typing import Any, Callable, List, Optional, Sequence
+
+import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+# the kernels' dtype argument
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,8 +40,10 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    """Build output path of ``source``, keyed by its bytes and the flags."""
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """Build output path of ``source``, keyed by its bytes, the bytes of the
+    headers in ``csrc/`` (which a source may include) and the flags."""
+    blob = source.read_bytes() + b"".join(h.read_bytes() for h in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{source.stem}_{digest}.so"
 
 
@@ -71,3 +78,37 @@ def build(sources: Sequence[Path]) -> List[Path]:
 def load(source: Path) -> ctypes.CDLL:
     """Build ``source`` if needed and load its library."""
     return ctypes.CDLL(str(build([source])[0]))
+
+
+def check_operand(name: str, t: torch.Tensor, device, dtype, shape) -> None:
+    """Raise unless ``t`` is what a kernel reads through a raw pointer: on
+    ``device``, of ``dtype`` and ``shape``, contiguous, 16-byte aligned."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, x on {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
+_PREPARED = WeakIdKeyDictionary()
+
+
+def prepared(owner: torch.Tensor, deps: Sequence[Optional[torch.Tensor]],
+             make: Callable[[], Any]) -> Any:
+    """A kernel operand derived from weights (packed, cast, stacked), made by
+    ``make()`` once and kept while ``owner`` lives: remade when ``owner`` or
+    any of ``deps`` is another tensor or was changed in place.  Sampling
+    calls a kernel with the same prepared weights at every step."""
+    sig = tuple((id(t), t._version) for t in (owner, *deps) if t is not None)
+    hit = _PREPARED.get(owner)
+    if hit is not None and hit[0] == sig:
+        return hit[2]
+    value = make()
+    # the deps are held so that their ids stay theirs while the entry lives
+    _PREPARED[owner] = (sig, tuple(deps), value)
+    return value

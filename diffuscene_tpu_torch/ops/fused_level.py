@@ -246,28 +246,12 @@ def load_library() -> ctypes.CDLL:
     return lib
 
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-
-
-def _check_operand(name: str, t: torch.Tensor, device, dtype, shape):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, x on {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
-
-
 def _launch_kernel(chain: ChainParams, x, films, skips, n: int, groups: int,
                    eps: float) -> torch.Tensor:
     M, C = x.shape
     B = M // n
     dt = x.dtype
-    if dt not in _DTYPES:
+    if dt not in build.DTYPE_CODES:
         raise ValueError(f"the chain kernel takes float32 or bfloat16, got {dt}")
     if not 1 <= len(chain.blocks) <= 2:
         raise ValueError("the chain kernel runs chains of 1 or 2 blocks")
@@ -277,16 +261,16 @@ def _launch_kernel(chain: ChainParams, x, films, skips, n: int, groups: int,
         raise ValueError(f"the chain kernel takes C % 64 == 0, C <= {MAX_CHANNELS} and "
                          f"even groups of channels, got C={C}, groups={groups}")
     dev = x.device
-    _check_operand("x", x, dev, dt, (M, C))
-    _check_operand("W", chain.W, dev, dt, (sum(chain.n_w), C, C))
-    _check_operand("V", chain.V, dev, torch.float32, (sum(chain.n_v), C))
+    build.check_operand("x", x, dev, dt, (M, C))
+    build.check_operand("W", chain.W, dev, dt, (sum(chain.n_w), C, C))
+    build.check_operand("V", chain.V, dev, torch.float32, (sum(chain.n_v), C))
     ptr_skip, ptr_film = [None, None], [None, None]
     for i, (blk, f, sk) in enumerate(zip(chain.blocks, films, skips)):
         if sk is not None:
-            _check_operand(f"skips[{i}]", sk, dev, dt, (M, C))
+            build.check_operand(f"skips[{i}]", sk, dev, dt, (M, C))
             ptr_skip[i] = sk.data_ptr()
         if f is not None:
-            _check_operand(f"films[{i}]", f, dev, dt, f.shape)
+            build.check_operand(f"films[{i}]", f, dev, dt, f.shape)
             ptr_film[i] = f.data_ptr()
     W = chain.W
     if dt == torch.bfloat16:
@@ -297,7 +281,7 @@ def _launch_kernel(chain: ChainParams, x, films, skips, n: int, groups: int,
     out = torch.empty_like(x)
     lib = load_library()
     rc = lib.fused_chain_launch(
-        _DTYPES[dt], x.data_ptr(), ptr_skip[0], ptr_skip[1], ptr_film[0], ptr_film[1],
+        build.DTYPE_CODES[dt], x.data_ptr(), ptr_skip[0], ptr_skip[1], ptr_film[0], ptr_film[1],
         W.data_ptr(), chain.V.data_ptr(), out.data_ptr(),
         B, n, C, groups, eps, len(chain.blocks), specs[0], specs[1],
         torch.cuda.current_stream(dev).cuda_stream,

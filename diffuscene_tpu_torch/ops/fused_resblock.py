@@ -1,12 +1,49 @@
-"""Weight standardization for the serving engine.
+"""One ResnetBlock on flat (M, C_in) rows, and weight standardization.
 
-Port of ``diffuscene_tpu/ops/fused_resblock.py:184 standardize_kernel`` only;
-the single-ResnetBlock kernel of that module (``fused_resnet_block``) is not
-ported yet (ROADMAP queue B).
+Port of ``diffuscene_tpu/ops/fused_resblock.py``.  :func:`fused_resnet_block`
+computes one ResnetBlock (denoise_net.py:178-206 semantics):
+
+    h   = silu(GN(x @ w1 + b1) * (film_scale + 1) + film_shift)
+    h   = silu(GN(h @ w2 + b2))
+    out = h + (x  or  x @ w_res + b_res)
+
+with the roundings of the Pallas kernel ``_resblock_kernel``: the products
+accumulate in f32, the GroupNorm takes one-pass f32 moments
+E[h^2] - E[h]^2 over each scene's N rows and the group's channels (no
+rounding of h before them, no clamp), FiLM and SiLU run in f32, h is cast to
+the compute dtype only as the second product's operand, and the sum is cast
+to x's dtype at the end.  These are not the 3-D engine's nor the chain
+kernel's roundings, which round each dense output first.
+
+Two input forms beside B1's own:
+
+- ``film`` may be per scene, (B, 2C), read at row ``r // n_per_scene``, so a
+  caller need not copy a scene's time-FiLM row to its N objects; ``None``
+  means zero film rows (exact: h * 1 + 0 == h);
+- ``skip`` is the second half of a skip-concat input [x | skip]; ``w1`` and
+  ``w_res`` keep their (C_x + C_skip, C) shape and the kernel splits them.
+
+:func:`fused_resnet_block` sends CUDA tensors to the hand-written kernel in
+``csrc/fused_resblock.cu`` and CPU tensors to
+:func:`fused_resnet_block_reference`, which builds the expanded film rows and
+the concatenation explicitly.  It never falls back: a CUDA tensor the kernel
+cannot take raises.
 """
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
+
+from . import build
+from .fused_level import pack_mma_weights
+
+CSRC = build.CSRC_DIR / "fused_resblock.cu"
+MAX_ROWS = 24      # valid rows per thread-block tile in the kernel (kRows)
+MAX_IN = 1024      # x and skip widths together (kMaxIn)
 
 
 def standardize_kernel(kernel: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -16,3 +53,178 @@ def standardize_kernel(kernel: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     mean = kernel.mean(dim=0, keepdim=True)
     var = kernel.var(dim=0, unbiased=False, keepdim=True)
     return (kernel - mean) * torch.rsqrt(var + eps)
+
+
+def _film_rows(film: torch.Tensor, M: int, n: int) -> torch.Tensor:
+    """(M, 2C) film rows from per-row (M, 2C) or per-scene (M // n, 2C) rows."""
+    return film if film.shape[0] == M else film.repeat_interleave(n, dim=0)
+
+
+def fused_resnet_block_reference(
+    x: torch.Tensor,                        # (M, C_x)
+    film: Optional[torch.Tensor],           # (M, 2C) | (M // n, 2C) | None
+    w1: torch.Tensor,                       # (C_x [+ C_skip], C) pre-standardized
+    b1: torch.Tensor,
+    gn1_scale: torch.Tensor, gn1_bias: torch.Tensor,
+    w2: torch.Tensor,                       # (C, C) pre-standardized
+    b2: torch.Tensor,
+    gn2_scale: torch.Tensor, gn2_bias: torch.Tensor,
+    w_res: Optional[torch.Tensor] = None,   # (C_x [+ C_skip], C)
+    b_res: Optional[torch.Tensor] = None,
+    n_per_scene: int = 1,
+    groups: int = 8,
+    eps: float = 1e-6,
+    compute_dtype=torch.bfloat16,
+    skip: Optional[torch.Tensor] = None,    # (M, C_skip)
+) -> torch.Tensor:
+    """The block in plain torch ops, with B1's roundings (module docstring)."""
+    dt = x.dtype
+    xin = x if skip is None else torch.cat([x, skip], dim=-1)
+    M, C = xin.shape[0], w1.shape[-1]
+    n = n_per_scene
+    B = M // n
+
+    def dense(a, w, b):
+        out = a.float() @ w.to(compute_dtype).float()
+        return out if b is None else out + b.float()
+
+    def groupnorm(h, scale, bias):
+        hg = h.reshape(B, n, groups, C // groups)
+        mean = hg.mean(dim=(1, 3), keepdim=True)
+        e2 = (hg * hg).mean(dim=(1, 3), keepdim=True)
+        inv = torch.rsqrt(e2 - mean * mean + eps)
+        return ((hg - mean) * inv).reshape(M, C) * scale.float() + bias.float()
+
+    h = groupnorm(dense(xin, w1, b1), gn1_scale, gn1_bias)
+    if film is not None:
+        f = _film_rows(film, M, n).to(dt)
+        h = h * (f[:, :C] + 1).float() + f[:, C:].float()
+    h = F.silu(h)
+    h = F.silu(groupnorm(dense(h.to(compute_dtype), w2, b2), gn2_scale, gn2_bias))
+    res = xin.float()[:, :C] if w_res is None else dense(xin, w_res, b_res)
+    return (h + res).to(dt)
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernel: build at first use, bind with ctypes
+# ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Compile ``csrc/fused_resblock.cu`` for sm_90a (unless this source was
+    built already, see ``ops/build.py``) and load it."""
+    lib = build.load(CSRC)
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.fused_resblock_launch.argtypes = [
+        ci, vp, vp, vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_float, vp,
+    ]
+    lib.fused_resblock_launch.restype = ci
+    lib.fused_resblock_max_rows.restype = ci
+    lib.fused_resblock_max_in.restype = ci
+    if (lib.fused_resblock_max_rows(), lib.fused_resblock_max_in()) != (MAX_ROWS, MAX_IN):
+        raise RuntimeError("csrc/fused_resblock.cu and ops/fused_resblock.py disagree on limits")
+    return lib
+
+
+def _kernel_weights(w: Optional[torch.Tensor], kx: int, dt) -> Optional[torch.Tensor]:
+    """An (in, out) weight as the kernel reads it: f32 as is; bf16 packed
+    into mma fragment order, its x rows and then its skip rows."""
+    if w is None:
+        return None
+    w = w.to(dt)
+    if dt == torch.float32:
+        return w.contiguous()
+    parts = [w[:kx]] + ([w[kx:]] if w.shape[0] > kx else [])
+    return torch.cat([pack_mma_weights(p[None]).reshape(-1) for p in parts])
+
+
+def _launch_kernel(x, skip, film, w1, b1, g1s, g1b, w2, b2, g2s, g2b, w_res, b_res,
+                   n: int, groups: int, eps: float, dt) -> torch.Tensor:
+    M, kx = x.shape
+    ks = 0 if skip is None else skip.shape[1]
+    C = w1.shape[-1]
+    if x.dtype != dt or dt not in build.DTYPE_CODES:
+        raise ValueError(f"the resblock kernel takes x in the compute dtype, float32 or "
+                         f"bfloat16; got x {x.dtype}, compute dtype {dt}")
+    if n > MAX_ROWS:
+        raise ValueError(f"the resblock kernel takes at most {MAX_ROWS} rows per scene, got {n}")
+    if (C % 64 or C > 512 or C % groups or (C // groups) % 2 or kx % 16 or ks % 16
+            or kx + ks > MAX_IN):
+        raise ValueError(f"the resblock kernel takes C % 64 == 0, C <= 512, even groups of "
+                         f"channels and input widths of multiples of 16 up to {MAX_IN}; got "
+                         f"C={C}, groups={groups}, C_x={kx}, C_skip={ks}")
+    dev = x.device
+    build.check_operand("x", x, dev, dt, (M, kx))
+    if skip is not None:
+        build.check_operand("skip", skip, dev, dt, (M, ks))
+    film_kind = 0
+    if film is not None:
+        film = film.to(dt)
+        build.check_operand("film", film, dev, dt, film.shape)
+        film_kind = 2 if film.shape[0] == M else 1
+    W1, W2, Wres, V = build.prepared(b1, (w1, g1s, g1b, w2, b2, g2s, g2b, w_res, b_res), lambda: (
+        _kernel_weights(w1, kx, dt), _kernel_weights(w2, C, dt), _kernel_weights(w_res, kx, dt),
+        torch.stack([v.float() for v in (b1, g1s, g1b, b2, g2s, g2b,
+                                          b1.new_zeros(C) if b_res is None else b_res)])))
+    for name, w in (("w1", W1), ("w2", W2), ("w_res", Wres), ("vectors", V)):
+        if w is not None and (w.device != dev or w.data_ptr() % 16):
+            raise ValueError(f"{name} must be 16-byte aligned on {dev}")
+    out = torch.empty(M, C, dtype=dt, device=dev)
+    rc = load_library().fused_resblock_launch(
+        build.DTYPE_CODES[dt], x.data_ptr(), None if skip is None else skip.data_ptr(),
+        None if film is None else film.data_ptr(), film_kind, W1.data_ptr(), W2.data_ptr(),
+        None if Wres is None else Wres.data_ptr(), V.data_ptr(), out.data_ptr(),
+        M // n, n, C, kx, ks, groups, eps, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"fused_resblock_launch failed with code {rc}")
+    return out
+
+
+def fused_resnet_block(
+    x: torch.Tensor,                        # (M, C_x)
+    film: Optional[torch.Tensor],           # (M, 2C) | (M // n, 2C) | None (zero film)
+    w1: torch.Tensor,                       # (C_x [+ C_skip], C) pre-standardized
+    b1: torch.Tensor,
+    gn1_scale: torch.Tensor, gn1_bias: torch.Tensor,
+    w2: torch.Tensor,                       # (C, C) pre-standardized
+    b2: torch.Tensor,
+    gn2_scale: torch.Tensor, gn2_bias: torch.Tensor,
+    w_res: Optional[torch.Tensor] = None,   # (C_x [+ C_skip], C) when C_in != C
+    b_res: Optional[torch.Tensor] = None,
+    n_per_scene: int = 1,
+    groups: int = 8,
+    eps: float = 1e-6,
+    compute_dtype=torch.bfloat16,
+    skip: Optional[torch.Tensor] = None,    # (M, C_skip): the input is [x | skip]
+) -> torch.Tensor:
+    """One ResnetBlock over all rows: the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors.  Any number of whole scenes works (the
+    kernel masks a ragged last tile).  ``fused_resnet_block.launches`` counts
+    the kernel launches."""
+    M = x.shape[0]
+    n = n_per_scene
+    C = w1.shape[-1]
+    c_in = x.shape[1] + (0 if skip is None else skip.shape[1])
+    if M % n:
+        raise ValueError(f"{M} rows are not whole scenes of {n}")
+    if skip is not None and skip.shape[0] != M:
+        raise ValueError(f"skip has {skip.shape[0]} rows, x {M}")
+    if w1.shape[0] != c_in or (w_res is not None and tuple(w_res.shape) != (c_in, C)):
+        raise ValueError(f"w1 / w_res must be ({c_in}, {C})")
+    if w_res is None and c_in != C:
+        raise ValueError(f"an identity residual needs C_in == C, got {c_in} and {C}")
+    if film is not None and (film.shape[-1] != 2 * C or film.shape[0] not in (M, M // n)):
+        raise ValueError(f"film has shape {tuple(film.shape)}, expected ({M} or {M // n}, {2 * C})")
+    args = (x, film, w1, b1, gn1_scale, gn1_bias, w2, b2, gn2_scale, gn2_bias, w_res, b_res)
+    if x.device.type == "cpu":
+        return fused_resnet_block_reference(*args, n_per_scene=n, groups=groups, eps=eps,
+                                            compute_dtype=compute_dtype, skip=skip)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_resnet_block runs on cpu or cuda tensors, got {x.device}")
+    out = _launch_kernel(x, skip, *args[1:], n, groups, eps, compute_dtype)
+    fused_resnet_block.launches += 1
+    return out
+
+
+fused_resnet_block.launches = 0

@@ -1,0 +1,105 @@
+"""Parity of the port's set-attention op (diffuscene_tpu_torch/ops/attention.py)
+with the JAX package's Pallas kernel (diffuscene_tpu/ops/attention.py:
+fused_set_attention), run in interpret mode on the CPU as its own tests do.
+
+Tolerances: f32 atol 3e-5, the JAX package's own
+(tests/test_fused_attention.py:27), for the same f32 math summed in another
+order; bf16 atol 3e-2: outputs of O(1) rounded to bf16 (2^-8 relative), plus
+a flipped rounding of LN(x) or of the head outputs before their products.
+
+The CUDA kernel itself runs only on the card: see ``chip_smoke.py`` and the
+``gpu``-marked test at the end.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diffuscene_tpu.ops import attention as jat
+from diffuscene_tpu_torch.models.denoiser import Attention, PreNorm, Residual
+from diffuscene_tpu_torch.ops import attention as tat
+
+B, N, C, H, D = 3, 12, 128, 4, 32
+TOL = {"f32": dict(atol=3e-5, rtol=0), "bf16": dict(atol=3e-2, rtol=0)}
+DTYPES = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _case(seed, n=N, c=C):
+    rng = np.random.default_rng(seed)
+    f = lambda *s, scale=1.0, base=0.0: (base + rng.normal(size=s) * scale).astype(np.float32)  # noqa: E731
+    return {"x": f(B, n, c), "g": f(c, scale=0.2, base=1.0),
+            "w_qkv": f(c, 3 * H * D, scale=c ** -0.5), "w_out": f(H * D, c, scale=(H * D) ** -0.5),
+            "b_out": f(c, scale=0.1)}
+
+
+def _run_torch(d, dtype, eps, x=None):
+    tdt = DTYPES[dtype][1]
+    x = torch.from_numpy(d["x"] if x is None else x).to(tdt)
+    out = tat.fused_set_attention(x, *(torch.from_numpy(d[k]) for k in ("g", "w_qkv", "w_out",
+                                                                         "b_out")),
+                                  heads=H, dim_head=D, eps=eps, compute_dtype=tdt)
+    assert out.dtype == tdt and out.shape == x.shape
+    return out.float().numpy()
+
+
+@pytest.mark.parametrize("eps", [1e-5, 1e-3])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_attention_matches_jax_pallas(dtype, eps):
+    d = _case(seed=int(eps * 1e5))
+    jdt = DTYPES[dtype][0]
+    want = jat.fused_set_attention(jnp.asarray(d["x"]).astype(jdt), *(jnp.asarray(d[k]) for k in (
+        "g", "w_qkv", "w_out", "b_out")), heads=H, dim_head=D, eps=eps, compute_dtype=jdt)
+    np.testing.assert_allclose(_run_torch(d, dtype, eps), np.asarray(want.astype(jnp.float32)),
+                               **TOL[dtype])
+
+
+def test_attention_permutation_equivariance():
+    d = _case(seed=1)
+    perm = np.random.default_rng(2).permutation(N)
+    out = _run_torch(d, "f32", 1e-5)
+    out_p = _run_torch(d, "f32", 1e-5, x=d["x"][:, perm])
+    np.testing.assert_allclose(out_p, out[:, perm], atol=1e-5)
+
+
+def test_attention_equals_module_residual_prenorm_attention_f32():
+    """In f32 the op is the model's ``Residual(PreNorm(Attention))`` (whose
+    pre-norm is one-pass with eps 1e-5) on the same weights."""
+    d = _case(seed=3)
+    block = Residual(PreNorm(C, Attention(C, heads=H, dim_head=D)))
+    with torch.no_grad():
+        block.fn.norm.g.copy_(torch.from_numpy(d["g"]).reshape(1, C, 1))
+        block.fn.fn.to_qkv.weight.copy_(torch.from_numpy(d["w_qkv"]).t()[:, :, None])
+        block.fn.fn.to_out.weight.copy_(torch.from_numpy(d["w_out"]).t()[:, :, None])
+        block.fn.fn.to_out.bias.copy_(torch.from_numpy(d["b_out"]))
+        want = block(torch.from_numpy(d["x"])).numpy()
+    np.testing.assert_allclose(_run_torch(d, "f32", 1e-5), want, **TOL["f32"])
+
+
+def test_wrapper_validates_and_counts_only_kernel_launches():
+    d = _case(seed=4)
+    before = tat.fused_set_attention.launches
+    _run_torch(d, "f32", 1e-5)
+    assert tat.fused_set_attention.launches == before  # the CPU path is not a launch
+    t = {k: torch.from_numpy(v) for k, v in d.items()}
+    with pytest.raises(ValueError):   # w_qkv of the wrong width
+        tat.fused_set_attention(t["x"], t["g"], t["w_qkv"][:, :-1], t["w_out"], t["b_out"])
+    with pytest.raises(ValueError):   # neither cpu nor cuda: no silent fallback
+        tat.fused_set_attention(t["x"].to("meta"), t["g"], t["w_qkv"], t["w_out"], t["b_out"])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("n", [12, 21])
+def test_cuda_kernel_matches_plain_version(n, dtype):
+    """The CUDA kernel against its plain version on the card, C=512."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
+    d = _case(seed=5, n=n, c=512)
+    tdt = DTYPES[dtype][1]
+    t = {k: torch.from_numpy(v).cuda() for k, v in d.items()}
+    args = (t["x"].to(tdt), t["g"], t["w_qkv"], t["w_out"], t["b_out"])
+    got = tat.fused_set_attention(*args, eps=1e-3, compute_dtype=tdt)
+    want = tat.fused_set_attention_reference(*args, eps=1e-3, compute_dtype=tdt)
+    torch.cuda.synchronize()
+    tol = dict(atol=1e-3, rtol=1e-4) if dtype == "f32" else dict(atol=1e-1, rtol=5e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)

@@ -39,6 +39,7 @@ def test_port_imports_no_jax_yaml_or_jax_package(path):
 def test_port_sources_found():
     paths = list(_sources())
     for module in ("ops/fused_level.py", "ops/build.py", "ops/chamfer.py", "ops/knn.py",
+                   "ops/fused_resblock.py", "ops/attention.py", "models/inference.py",
                    "models/autoencoder.py", "train/optim.py", "train/ae_trainer.py",
                    "utils/checkpoint.py", "utils/config.py", "data/threed_future.py",
                    "data/raw.py", "cli/train_objautoencoder.py",

@@ -1,12 +1,14 @@
-"""Parity of the port's diffusion core, DDPM sampler and scene model
+"""Parity of the port's diffusion core, samplers and scene model
 (diffuscene_tpu_torch/diffusion, models/scene_model.py) with the JAX package.
 
-The whole-chain test drives both ``SceneDiffusion.sample(fused="rows")``
-(the JAX side in Pallas interpret mode) at time_num=5, f32, with the same
-converted weights; the port replays the JAX sampler's noise stream through
-``noise_fn`` (the key splits of diffusion/samplers.py:p_sample_loop).
-Tolerance atol 1e-4: f32 math summed in another order, over 5 steps.
+The whole-chain tests drive both ``SceneDiffusion.sample`` with the same
+converted weights, f32: the rows engine (``fused="rows"``, the JAX side in
+Pallas interpret mode) and the 3-D engine (``fused=True``) with DDPM, DDIM
+and DPM-Solver++; the port replays the JAX sampler's noise stream through
+``noise_fn`` (the key splits of diffusion/samplers.py).  Tolerance atol
+1e-4: f32 math summed in another order, over 4-5 steps.
 """
+import dataclasses
 import os
 
 import jax
@@ -78,9 +80,7 @@ def _cfgs(time_num=5):
     return JSceneModelConfig(**kw), SceneModelConfig(**kw)
 
 
-def test_rows_sample_chain_matches_jax():
-    jcfg, cfg = _cfgs(time_num=5)
-    jscene = JSceneDiffusion(jcfg)
+def _random_params(jscene):
     shapes = jax.eval_shape(jscene.init, jax.random.PRNGKey(0))
     rng = np.random.default_rng(11)
 
@@ -92,19 +92,29 @@ def test_rows_sample_chain_matches_jax():
         width = 1.0 if name == "positional_embedding" else 0.1
         return (base + rng.normal(size=a.shape) * width).astype(np.float32)
 
-    params = jax.tree_util.tree_map_with_path(leaf, shapes)
+    return jax.tree_util.tree_map_with_path(leaf, shapes)
+
+
+def _jax_noise(key, shape, n_draws):
+    """The JAX samplers' noise stream: x_T from the first split, then one
+    split per drawing step (diffusion/samplers.py)."""
+    k, init_key = jax.random.split(key)
+    noises = [np.asarray(jax.random.normal(init_key, shape, jnp.float32))]
+    for _ in range(n_draws):
+        k, sub = jax.random.split(k)
+        noises.append(np.asarray(jax.random.normal(sub, shape, jnp.float32)))
+    return noises
+
+
+def _sample_matches_jax(time_num, fused, n_draws, **kwargs):
+    jcfg, cfg = _cfgs(time_num=time_num)
+    jscene = JSceneDiffusion(jcfg)
+    params = _random_params(jscene)
     B, shape = 4, (4, 12, 62)
     key = jax.random.PRNGKey(7)
     want = np.asarray(jax.jit(lambda p, k: jscene.sample(
-        p, k, batch_size=B, clip_denoised=True, fused="rows"))(params, key))
-
-    # the JAX sampler's noise stream: x_T from the first split, then one
-    # split per step (diffusion/samplers.py:p_sample_loop)
-    k, init_key = jax.random.split(key)
-    noises = [np.asarray(jax.random.normal(init_key, shape, jnp.float32))]
-    for _ in range(jcfg.time_num):
-        k, sub = jax.random.split(k)
-        noises.append(np.asarray(jax.random.normal(sub, shape, jnp.float32)))
+        p, k, batch_size=B, clip_denoised=True, fused=fused, **kwargs))(params, key))
+    noises = _jax_noise(key, shape, n_draws)
 
     def noise_fn(shp):
         a = noises.pop(0)
@@ -113,16 +123,32 @@ def test_rows_sample_chain_matches_jax():
 
     scene = SceneDiffusion(cfg, device="cpu")
     load_jax_params(scene, params)
-    got = scene.sample(B, clip_denoised=True, fused="rows", noise_fn=noise_fn).numpy()
+    got = scene.sample(B, clip_denoised=True, fused=fused, noise_fn=noise_fn, **kwargs).numpy()
     assert not noises  # the port drew exactly the JAX stream
     assert got.shape == shape and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    return scene, jscene, got
 
+
+def test_rows_sample_chain_matches_jax():
+    scene, jscene, got = _sample_matches_jax(5, "rows", 5)
     parts = scene.split_samples(torch.from_numpy(got))
     jparts = jscene.split_samples(jnp.asarray(got))
     assert parts.keys() == jparts.keys()
     for k_ in parts:
         assert np.array_equal(parts[k_].numpy(), np.asarray(jparts[k_])), k_
+
+
+@pytest.mark.parametrize("sampler,time_num,n_draws,kwargs", [
+    ("ddpm", 5, 5, {}),
+    # DDIM walks a strided subsequence: the FiLM-table gather at
+    # non-contiguous t (JAX tests/test_fused_engine.py:134); one draw a step
+    ("ddim", 8, 4, dict(ddim=True, ddim_steps=4)),
+    # DPM-Solver++ draws x_T only
+    ("dpm", 8, 0, dict(dpm=True, dpm_steps=4)),
+])
+def test_engine_samplers_match_jax(sampler, time_num, n_draws, kwargs):
+    _sample_matches_jax(time_num, True, n_draws, **kwargs)
 
 
 def test_scene_config_from_flagship_yaml_matches_jax():
@@ -143,6 +169,9 @@ def test_sampler_needs_one_noise_source_and_rejects_unported_paths():
     out = scene.sample(2, generator=torch.Generator().manual_seed(1))
     again = scene.sample(2, generator=torch.Generator().manual_seed(1))
     assert torch.equal(out, again)
-    for kwargs in (dict(fused=True), dict(ddim=True), dict(dpm=True)):
+    boxes = torch.zeros(2, 3, 62)
+    for kwargs in (dict(partial_boxes=boxes), dict(input_boxes=boxes)):  # completion, arrangement
         with pytest.raises(NotImplementedError):
             scene.sample(2, generator=torch.Generator(), **kwargs)
+    with pytest.raises(NotImplementedError):  # text conditioning
+        SceneDiffusion(dataclasses.replace(cfg, text_condition=True), device="cpu")
