@@ -34,8 +34,14 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
 7. the ResnetBlock kernel (B1) against its plain torch version on the card:
    C=512, B=64, N=12 and N=21, per-row film, per-scene film, zero film rows
    and no film, C_in 512 (identity residual) and 1024 (x and skip with the
-   residual projection, and one (M, 1024) x), bf16 and f32, and a ragged
-   B=63; each case's time beside the plain version's;
+   residual projection, and one (M, 1024) x), bf16 and f32, a ragged B=63,
+   and the per-scene and skip blocks at B=768 (the JAX bench's batch) with
+   their bound; the bf16 kernel's launch plan (clusters, stages, shared
+   memory, clusters that fit at once); each case's time as CUDA events
+   around 20 eager calls (the wrapper's host time included, as for the
+   other kernels), beside CUDA events around a CUDA-graph replay of 20
+   calls (the kernel back to back), profiler device time and the plain
+   version's time;
 8. the set-attention kernel (B2) against its plain torch version: (64, 12,
    512) and (64, 21, 512), bf16 and f32, eps 1e-5 and 1e-3, with times;
 9. one full-width forward of the flagship through the 3-D engine
@@ -50,12 +56,18 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
 
 The phases run in the order 1, 2, 7, 8, 3 with 9 (one set of full-width
 models), 4, 10, 11, 5, 6.  TF32 is off for every matmul and convolution (the references are f32).
+Phase 1 prints each kernel's registers, stack and spills from ptxas.
+
+    python3 chip_smoke.py --only-resblock
+
+runs phases 1 and 7 alone, the short check of a new B1 kernel (no ok line).
 
 The line before the last is the card's name and power limit again, the one
 before it a JSON summary of the kernels (launches on each main path, worst
 error, kernel, plain and library times of one forward's chains, of one
-forward's 28 ResnetBlocks, of one set attention and of one chamfer forward,
-and each one's bound); the last line is
+forward's 28 ResnetBlocks (with their graph-replay time beside, as
+"graph_ms"), of one set attention and of one chamfer forward, and each
+one's bound); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
 import json
@@ -97,6 +109,8 @@ RB_CASES = {"row": ("row", C, False), "scene": ("scene", C, False),
             "zero": ("zero", C, False), "none": ("none", C, False)}
 # one flagship forward: 9 block0s, 10 time blocks, 9 skip-concat blocks
 RB_FORWARD_MIX = {"row": 9, "scene": 10, "skip": 9}
+# B1 at the JAX bench's batch (bench.py), bf16, N=12
+RB_LARGE_B, RB_LARGE_B_CASES = 768, ("scene", "skip")
 ATTN_HEADS, ATTN_DIM_HEAD = 4, 32
 DPM_STEPS = 20
 SAMPLE_PROFILE_STEPS = 20
@@ -124,6 +138,43 @@ def card_line():
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def device_ms(torch, fn, match, iters=20):
+    """Mean device time per call of ``fn`` of the kernels whose name holds
+    ``match`` (torch.profiler over ``iters`` calls after a warm-up); NaN if
+    the profiler saw none (not measured)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key)
+    return us / iters / 1e3 if us else float("nan")
+
+
+def graph_ms(torch, fn, iters=20, replays=5):
+    """Mean time per call of ``fn`` replayed from a CUDA graph of ``iters``
+    calls: the kernels back to back on the card, without the host's cost of
+    each call (CUDA events around ``replays`` replays after a warm one)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * iters)
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -381,11 +432,13 @@ def phase_resblock(rb, torch):
                     ok = ok and torch.equal(got, rb.fused_resnet_block(args[0], zero, **kw))
                 worst = max(worst, err)
                 ms = cuda_ms(lambda: rb.fused_resnet_block(*args, **kw))
+                graph = graph_ms(torch, lambda: rb.fused_resnet_block(*args, **kw))
                 plain = cuda_ms(lambda: rb.fused_resnet_block_reference(*args, **kw))
-                results[(n, dname, name)] = (err, ms, plain) + rb_work(args, kw)
+                dev = device_ms(torch, lambda: rb.fused_resnet_block(*args, **kw), "resblock")
+                results[(n, dname, name)] = (err, ms, plain) + rb_work(args, kw) + (dev, graph)
                 print(f"kernel fused_resblock N={n} {dname:8s} {name:5s} max_abs_err={err:.3e} "
                       f"tol={KERNEL_TOL[dname]} {'ok' if ok else 'FAIL'} kernel_ms={ms:.4f} "
-                      f"plain_ms={plain:.4f}", flush=True)
+                      f"graph_ms={graph:.4f} device_ms={dev:.4f} plain_ms={plain:.4f}", flush=True)
                 if not ok:
                     failures.append((n, dname, name, err))
     # a ragged last tile: 63 scenes of 12 rows, tiles of 2 scenes
@@ -401,9 +454,78 @@ def phase_resblock(rb, torch):
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             failures.append((12, dname, "skip B=63", err))
+    # the JAX bench's batch (B=768): the per-scene-film and the skip blocks
+    for name in RB_LARGE_B_CASES:
+        args, kw = rb_case(torch, name, 12, torch.bfloat16, 500 + len(name), batch=RB_LARGE_B)
+        got = rb.fused_resnet_block(*args, **kw)
+        want = rb.fused_resnet_block_reference(*args, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = (bool(torch.isfinite(got.float()).all())
+              and torch.allclose(got.float(), want.float(), **KERNEL_TOL["bfloat16"]))
+        worst = max(worst, err)
+        ms = cuda_ms(lambda: rb.fused_resnet_block(*args, **kw))
+        graph = graph_ms(torch, lambda: rb.fused_resnet_block(*args, **kw))
+        plain = cuda_ms(lambda: rb.fused_resnet_block_reference(*args, **kw), iters=5)
+        dev = device_ms(torch, lambda: rb.fused_resnet_block(*args, **kw), "resblock")
+        flops, nbytes = rb_work(args, kw)
+        b_ms, b_by = bound(flops, nbytes)
+        results[(12, "bfloat16", name, RB_LARGE_B)] = (err, ms, plain, flops, nbytes, dev, graph)
+        print(f"kernel fused_resblock N=12 B={RB_LARGE_B} bfloat16 {name:5s} max_abs_err={err:.3e} "
+              f"{'ok' if ok else 'FAIL'} kernel_ms={ms:.4f} graph_ms={graph:.4f} device_ms={dev:.4f} "
+              f"plain_ms={plain:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)",
+              flush=True)
+        if not ok:
+            failures.append((12, "bfloat16", f"{name} B={RB_LARGE_B}", err))
     if failures:
         raise RuntimeError(f"resblock kernel disagrees with its plain version: {failures}")
     return worst, results
+
+
+def resblock_forward(worst, results):
+    """The 28 B1 blocks of one flagship forward (N=12, B=64, bf16) from
+    phase 7's cases: CUDA-event (eager and graph replay), device, plain and
+    bound times."""
+    mix = {i: sum(results[(12, "bfloat16", v)][i] * k for v, k in RB_FORWARD_MIX.items())
+           for i in (1, 2, 3, 4, 5, 6)}
+    bound_ms, bound_by = bound(mix[3], mix[4])
+    print(f"ResnetBlocks of one flagship forward (N=12, B={B}, bf16, 28 blocks): "
+          f"kernel {mix[1]:.3f} ms (CUDA events, eager calls), graph replay {mix[6]:.3f} ms "
+          f"(CUDA events), device {mix[5]:.3f} ms (profiler), plain "
+          f"{mix[2]:.3f} ms, bound {bound_ms:.4f} ms ({mix[3] / 1e9:.2f} GFLOP, "
+          f"{mix[4] / 1e6:.2f} MB)", flush=True)
+    return worst, mix, bound_ms, bound_by
+
+
+def resblock_plan(rb):
+    """The bf16 B1 kernel's launch at the flagship's shapes: clusters of 8
+    CTAs, stages, shared memory a CTA (the library's sum) and the clusters
+    that fit on the card at once."""
+    lib = rb.load_library()
+    for n in (12, 21):
+        for kx, ks in ((C, 0), (C, C)):
+            p = rb.tile_plan(B, n, kx, ks)
+            fit = lib.fused_resblock_max_active_clusters(kx, ks, int(ks > 0))
+            print(f"plan fused_resblock bf16 N={n} B={B} C_in={kx}+{ks}: {p.scenes_per_tile} "
+                  f"scenes a tile, {p.clusters} clusters of 8 = {p.ctas} CTAs, {p.stages} stages, "
+                  f"{lib.fused_resblock_smem_bytes(kx, ks)} bytes of shared memory a CTA, "
+                  f"{fit} clusters fit at once", flush=True)
+
+
+def ptxas_summary(text):
+    """Per kernel of a ptxas -v report: (mangled name, the line with its
+    registers, the line with its spills)."""
+    out, name, spill = [], None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line and name:
+            out.append((name, line.split(":", 1)[-1].strip(), spill))
+            name, spill = None, ""
+    return out
 
 
 def phase_attention(at, torch):
@@ -723,9 +845,13 @@ def profile_steps(torch, step, n, step_ms):
               f"{e.key[:90]}", flush=True)
 
 
-def main():
+def main(argv):
     import torch
 
+    only_resblock = argv == ["--only-resblock"]
+    if argv and not only_resblock:
+        print("usage: chip_smoke.py [--only-resblock]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -750,10 +876,14 @@ def main():
     for lib in libs:
         ptxas = lib.with_suffix(".ptxas.txt")
         if ptxas.exists():
-            for line in ptxas.read_text().splitlines():
-                if "registers" in line or "spill" in line:
-                    print(f"ptxas {lib.name.rsplit('_', 1)[0]}:", line.strip())
+            for name, regs, spill in ptxas_summary(ptxas.read_text()):
+                print(f"ptxas {lib.name.rsplit('_', 1)[0]} {name}: {regs} | {spill}")
 
+    if only_resblock:   # the short check of a new B1 kernel: phase 7 alone
+        resblock_plan(rb)
+        resblock_forward(*phase_resblock(rb, torch))
+        print(card_line())
+        return 0
     worst, results = phase_kernels(fl, torch)
     fwd = {i: sum(results[(12, "bfloat16", v)][i] * k for v, k in FORWARD_MIX.items())
            for i in (1, 2, 3, 4)}
@@ -762,13 +892,8 @@ def main():
           f"kernel {fwd[1]:.3f} ms, plain {fwd[2]:.3f} ms, bound {chain_bound_ms:.4f} ms "
           f"({fwd[3] / 1e9:.2f} GFLOP, {fwd[4] / 1e6:.2f} MB)", flush=True)
 
-    rb_worst, rb_results = phase_resblock(rb, torch)
-    rb_fwd = {i: sum(rb_results[(12, "bfloat16", v)][i] * k for v, k in RB_FORWARD_MIX.items())
-              for i in (1, 2, 3, 4)}
-    rb_bound_ms, rb_bound_by = bound(rb_fwd[3], rb_fwd[4])
-    print(f"ResnetBlocks of one flagship forward (N=12, B={B}, bf16, 28 blocks): "
-          f"kernel {rb_fwd[1]:.3f} ms, plain {rb_fwd[2]:.3f} ms, bound {rb_bound_ms:.4f} ms "
-          f"({rb_fwd[3] / 1e9:.2f} GFLOP, {rb_fwd[4] / 1e6:.2f} MB)", flush=True)
+    resblock_plan(rb)
+    rb_worst, rb_fwd, rb_bound_ms, rb_bound_by = resblock_forward(*phase_resblock(rb, torch))
     at_worst, at_results = phase_attention(at, torch)
     at_main = at_results[(12, "bfloat16", 1e-3)]    # the bf16 engine's call
     at_bound_ms, at_bound_by = bound(at_main[3], at_main[4], at_main[5])
@@ -856,6 +981,7 @@ def main():
         "launches": rb_launches,
         "max_abs_err": rb_worst,
         "ms": rb_fwd[1],
+        "graph_ms": rb_fwd[6],
         "plain_ms": rb_fwd[2],
         "bound_ms": rb_bound_ms,
         "bound_by": rb_bound_by,
@@ -881,4 +1007,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -17,41 +17,486 @@
 // second product's operand.  The skip concat is never built: W1 and Wres are
 // split into their x and skip rows.
 //
-// Design.  As in fused_chain.cu, a thread block owns a tile of whole scenes
-// (2 of 12 rows or 1 of 21), so every scene's GroupNorm moments reduce in
-// shared memory in a fixed order.  The x and skip tiles and the f32
-// intermediate stay in shared memory for the whole block; only x, skip,
-// film, the weights and the output touch device memory.  bfloat16 products
-// run on the tensor cores (mma.sync m16n8k16, f32 accumulation, tile padded
-// to 32 rows, warp w owns output columns [64w, 64w + 64), A by ldmatrix from
-// shared memory, B fragments from device memory in the packed order of
-// pack_mma_weights); float32 products run on the FMA pipes in full f32
-// (thread t owns output columns 2t, 2t+1 of all 24 rows).
+// bfloat16 (the serving dtype; resblock_sm90): C = 512 in 8 GroupNorm groups
+// of 64 channels.  A scene tile (at most 64 rows: 5 scenes of 12, 3 of 21;
+// always the most whole scenes that fit, since every CTA runs the same K
+// loop whatever its rows) is one thread-block cluster of 8 CTAs, and CTA g
+// owns output columns [64g, 64g + 64) of both products, so each GroupNorm is
+// CTA-local: a scene's group is its n rows x the CTA's own 64 columns, and
+// the moments reduce in shared memory in a fixed order.  At B=64 that is 13
+// clusters (104 CTAs) for n=12 and 22 (176 CTAs) for n=21.  In a CTA:
 //
-// What bounds it.  One flagship block is 0.8-2.0 GFLOP at B=64, N=12
-// (two or three (768, 512-1024) x (., 512) products), 1-2 us at the bf16
-// tensor-core peak; the weights (0.5-1.5 MB) and activations (1.5-3 MB) take
-// about as long at the HBM rate.  At B=64 a launch has only 32 blocks, each
-// streaming every weight matrix from L2, so like the chain kernel it is bound
-// by per-SM L2 bandwidth and latency; wgmma with weight tiles shared across
-// a cluster, and more blocks per launch, are the next steps.
+// - one producer warp brings in the [x | skip] tile, each CTA of the
+//   cluster loading every 8th row once into all 8 (bulk copies multicast to
+//   the cluster), and this CTA's 64 columns of the 7 vectors; then it
+//   streams the CTA's weight chunks (64 deep x 64 columns, packed by the
+//   wrapper in the wgmma B layout, see sm90.cuh) through a ring of 4 (C_in
+//   512) or 8 (C_in 1024) stages by cp.async.bulk with mbarriers: W1 and
+//   Wres chunks of each K tile in turn, then W2's;
+// - one consumer warpgroup runs the products on wgmma m64n64k16 (A from the
+//   shared tile by ldmatrix, B from the ring), two K tiles a group: W1 and
+//   the residual projection share one K loop with two accumulators; an
+//   identity residual keeps its 64-column slice of x in that second
+//   accumulator;
+// - after GN1, FiLM and SiLU each CTA writes its bf16 (rows x 64) slice of h
+//   into its place in the gathered operand G (the x tile's space) and, once
+//   a cluster barrier says every CTA is done with its x tile, stores it into
+//   the other 7 CTAs' G by st.async through distributed shared memory, each
+//   slice completing on its own mbarrier there; block2 starts on the CTA's
+//   own slice and takes each other slice as it lands.  A second cluster
+//   barrier, waited on at the end, keeps every CTA alive until all slices
+//   have landed.
+//
+// float32 (resblock_kernel<float>, for parity): as before, a thread block
+// owns 2 scenes of 12 or 1 of 21, the f32 intermediate stays in shared
+// memory, and the products run in full f32 on the FMA pipes (thread t owns
+// output columns 2t, 2t+1 of all 24 rows).
+//
+// What bounds it.  One flagship block is 0.8-2.0 GFLOP at B=64, N=12, 1-2 us
+// at the bf16 tensor-core peak, and needs 2-6 MB of device memory traffic.
+// The kernel is bound by latency along each CTA's chain of phases: the x
+// tile's arrival, the weight stream of block1 from L2 (each of the 13-22 row
+// tiles reads every weight matrix, 13-33 MB a block at B=64), the
+// epilogues on one warpgroup, and the exchange of h through distributed
+// shared memory.  The next steps are a 2-D cluster (row tiles x groups) with each
+// weight chunk multicast to the row tiles that share it, and launches that
+// overlap one block's prologue with the previous block's tail.
+#include <cooperative_groups.h>
+
+#include "sm90.cuh"
 #include "tile_mma.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
+using bf16 = __nv_bfloat16;
+
+constexpr int kMaxIn = 1024;    // x and skip widths together
+
+// ---------------------------------------------------------------------------
+// bfloat16: the cluster kernel
+// ---------------------------------------------------------------------------
+
+constexpr int kC = 512;                     // channels
+constexpr int kCluster = 8;                 // CTAs per scene tile = GroupNorm groups
+constexpr int kGroup = kC / kCluster;       // 64 columns per CTA
+constexpr int kTileRows = 64;               // rows per scene tile (wgmma M)
+constexpr int kConsumers = 128;             // one warpgroup
+constexpr int kThreads = kConsumers + 32;   // and one producer warp
+constexpr int kMaxStages = 8;
+static_assert(kGroup == sm90::kChunkN, "one chunk spans one group's columns");
+
+// shared-memory layout of resblock_sm90 for kin = kx + ks input columns
+struct Layout {
+  int stages;
+  unsigned ring, x, v, red, stat, bars, total;
+};
+
+__host__ __device__ constexpr Layout layout(int kin) {
+  Layout L{};
+  L.stages = kin <= kC ? 4 : kMaxStages;
+  L.ring = 0;                                                     // stages x 8 KB
+  L.x = L.ring + L.stages * sm90::kChunkBytes;                    // [x | skip], later G
+  L.v = L.x + kTileRows * ((kin > kC ? kin : kC) + 8) * 2;        // this CTA's 7 vectors
+  L.red = L.v + 7 * kGroup * 4;                                   // row sums, squares
+  L.stat = L.red + 2 * kTileRows * 4;                             // scene mean, rsqrt
+  L.bars = L.stat + 2 * kTileRows * 4;                            // full, empty, x, slices
+  L.total = L.bars + (2 * kMaxStages + 1 + kCluster) * 8;
+  return L;
+}
+
+// The gathered h, G: 8 slices of (64 rows x 64 columns), slice q from CTA q,
+// each row 128 bytes with its 16-byte chunks swizzled (chunk ^ row % 8) so
+// that ldmatrix reads and the epilogue's writes are free of bank conflicts;
+// a slice's valid rows are contiguous, so it moves as rows * 8 pieces of 16
+// bytes at the same offsets in every CTA.  Element offset of chunk `chunk`
+// of row `row` of slice q:
+__device__ __forceinline__ int hslice(int q, int row, int chunk) {
+  return q * kTileRows * kGroup + row * kGroup + 8 * (chunk ^ (row & 7));
+}
+static_assert(kCluster * kTileRows * kGroup * 2 <= kTileRows * (kC + 8) * 2,
+              "G fits in the x tile's space");
+
+struct Args90 {
+  const bf16* x;      // (M, kx)
+  const bf16* skip;   // (M, ks) or null
+  const bf16* film;   // (B, 2C) per scene, (M, 2C) per row, or null
+  const bf16* W1;     // (8, (kx + ks) / 64, 64 x 64) chunks (pack_group_tiles)
+  const bf16* W2;     // (8, 8, 64 x 64)
+  const bf16* Wres;   // like W1, or null (identity residual)
+  const float* V;     // (7, C) f32: b1, g1 scale, g1 bias, b2, g2 scale, g2 bias, bres
+  bf16* out;          // (M, C)
+  int B, n, kx, ks, ts, film_kind;
+  float eps;
+};
+
+// silu in f32 with the fast exponential and division: the result is rounded
+// to bf16 (as the second product's operand, or in the output)
+__device__ __forceinline__ float silu_fast(float z) { return __fdividef(z, 1.f + __expf(-z)); }
+
+// Per-scene moments of the accumulator h (this CTA's 64 columns, bias
+// added) into stat: mean at [s], rsqrt(var + eps) at [64 + s].  Fixed order:
+// a row's 16 values per thread, the row's 4 threads by shuffles, the
+// scene's rows in turn.
+__device__ __forceinline__ void scene_moments(const float (&h)[32], int n, int nsc, float eps,
+                                              float* red, float* stat) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = 16 * warp + (lane >> 2);
+  float s0 = 0.f, q0 = 0.f, s1 = 0.f, q1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    s0 += h[4 * j] + h[4 * j + 1];
+    q0 += h[4 * j] * h[4 * j] + h[4 * j + 1] * h[4 * j + 1];
+    s1 += h[4 * j + 2] + h[4 * j + 3];
+    q1 += h[4 * j + 2] * h[4 * j + 2] + h[4 * j + 3] * h[4 * j + 3];
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+    q0 += __shfl_xor_sync(0xffffffffu, q0, off);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+    q1 += __shfl_xor_sync(0xffffffffu, q1, off);
+  }
+  if ((lane & 3) == 0) {
+    red[r0] = s0;
+    red[kTileRows + r0] = q0;
+    red[r0 + 8] = s1;
+    red[kTileRows + r0 + 8] = q1;
+  }
+  sm90::bar_sync<kConsumers>(1);
+  if (threadIdx.x < nsc) {
+    const int s = threadIdx.x;
+    float sum = 0.f, sq = 0.f;
+    for (int i = 0; i < n; ++i) {
+      sum += red[s * n + i];
+      sq += red[kTileRows + s * n + i];
+    }
+    const float denom = 1.f / (float)(n * kGroup);
+    const float mean = sum * denom;
+    stat[s] = mean;
+    // B1's one-pass variance, without a clamp (fused_resblock.py:76-81)
+    stat[kTileRows + s] = rsqrtf(sq * denom - mean * mean + eps);
+  }
+  sm90::bar_sync<kConsumers>(1);
+}
+
+// acc[64 x 64] = A[64 x nkt*64] @ (this CTA's chunks) by the consumer
+// warpgroup, and accR likewise from the interleaved residual chunks when
+// kRes.  A: the x tile (row-major, stride lda) or, when kSlices, the
+// gathered h, taken from CTA `first`'s slice on (K tile q is CTA q's slice,
+// see hslice), each other slice waited for on its barrier in `slice_bar`
+// so that the products start on the slices already in.  Two K tiles a step
+// (nkt is even): their chunks are waited for and their A fragments loaded,
+// then all their products issue as one group, and the stages go back to the
+// producer when it is done.  A fragments in registers cannot load while
+// products that read registers are in flight (ptxas serializes them), so
+// the step is what amortizes the wait.  (s, ph): the ring position.
+template <bool kRes, bool kSlices>
+__device__ __forceinline__ void consume(float (&acc)[32], float (&accR)[32], const bf16* A,
+                                        int lda, int nkt, bf16* ring, uint64_t* full,
+                                        uint64_t* empty, int stages, int& s, uint32_t& ph,
+                                        int first = 0, uint64_t* slice_bar = nullptr) {
+  constexpr int kStep = 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = 16 * warp + (lane & 15), half = lane >> 4;
+#pragma unroll 1
+  for (int kt = 0; kt < nkt; kt += kStep) {
+    int sw[kStep], sr[kStep];        // the stages of each tile's W and residual chunks
+    uint32_t af[kStep][4][4];        // each tile's A fragments, 4 k16 steps
+#pragma unroll
+    for (int u = 0; u < kStep; ++u) {
+      sw[u] = s;
+      sm90::mbar_wait(&full[s], ph);
+      if (++s == stages) s = 0, ph ^= 1;
+      sr[u] = 0;
+      if constexpr (kRes) {
+        sr[u] = s;
+        sm90::mbar_wait(&full[s], ph);
+        if (++s == stages) s = 0, ph ^= 1;
+      }
+      int q = kt + u;
+      if constexpr (kSlices) {
+        q = (first + kt + u) % kCluster;
+        if (q != first) sm90::mbar_wait(&slice_bar[q], 0);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (kSlices)
+          tile::ldmatrix_x4(af[u][j], A + hslice(q, row, 2 * j + half));
+        else
+          tile::ldmatrix_x4(af[u][j],
+                            A + row * lda + (kt + u) * sm90::kChunkK + 16 * j + 8 * half);
+      }
+    }
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < kStep; ++u) {
+      const uint64_t dw = sm90::chunk_desc(ring + sw[u] * sm90::kChunkElems);
+      const uint64_t dr = sm90::chunk_desc(ring + sr[u] * sm90::kChunkElems);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        sm90::wgmma_m64n64k16(acc, af[u][j], sm90::desc_add(dw, j * sm90::kChunkKStep));
+        if constexpr (kRes)
+          sm90::wgmma_m64n64k16(accR, af[u][j], sm90::desc_add(dr, j * sm90::kChunkKStep));
+      }
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_operand(acc);
+    if constexpr (kRes) sm90::fence_operand(accR);
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < kStep; ++u) {   // this warp is done with the stages
+      sm90::mbar_arrive_if(&empty[sw[u]], lane == 0);
+      if constexpr (kRes) sm90::mbar_arrive_if(&empty[sr[u]], lane == 0);
+    }
+  }
+}
+
+template <bool kRes>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
+    resblock_sm90(const Args90 a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int kin = a.kx + a.ks;
+  const Layout L = layout(kin);
+  bf16* ring = reinterpret_cast<bf16*>(smem + L.ring);
+  bf16* X = reinterpret_cast<bf16*>(smem + L.x);
+  bf16* G = X;                       // the gathered h, once the x tile is read
+  float* Vs = reinterpret_cast<float*>(smem + L.v);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  float* stat = reinterpret_cast<float*>(smem + L.stat);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + kMaxStages;
+  uint64_t* xbar = empty + kMaxStages;   // the x tile and the vectors
+  uint64_t* gbar = xbar + 1;        // [q]: CTA q's slice of h has landed here
+
+  const int grp = (int)cg::this_cluster().block_rank();   // GroupNorm group = column slice
+  const int scene0 = (blockIdx.x / kCluster) * a.ts;
+  const int nsc = min(a.ts, a.B - scene0);             // the last tile may be ragged
+  const int rows = nsc * a.n;
+  const size_t row0 = (size_t)scene0 * a.n;
+  const int ldx = kin + 8;
+  const int nkt1 = kin / sm90::kChunkK, nkt2 = kC / sm90::kChunkK;
+  const int stages = L.stages;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int col0 = grp * kGroup;               // this CTA's first output column
+  const uint32_t slice_bytes = rows * kGroup * 2;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumers / 32);
+    }
+    sm90::mbar_init(xbar, 1);
+    for (int q = 0; q < kCluster; ++q) {
+      sm90::mbar_init(&gbar[q], 1);
+      if (q != grp) sm90::mbar_expect_tx(&gbar[q], slice_bytes);   // this CTA's own is local
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  sm90::cluster_arrive();          // (0) every CTA's barriers are set up
+  sm90::cluster_wait();
+
+  if (warp == kConsumers / 32) {
+    // ---- producer warp: the x tile and this CTA's vectors, then the weight chunks ----
+    // Every CTA of the cluster reads the same x tile: CTA g loads rows g,
+    // g + 8, ... once from device memory into all 8 CTAs (multicast).
+    if (lane == 0) sm90::mbar_expect_tx(xbar, (uint32_t)(rows * kin * 2 + 7 * kGroup * 4));
+    __syncwarp();
+    if (lane < 7) sm90::bulk_load(Vs + lane * kGroup, a.V + lane * kC + col0, kGroup * 4, xbar);
+    for (int r = grp + kCluster * lane; r < rows; r += kCluster * 32) {
+      sm90::bulk_load_multicast(X + r * ldx, a.x + (row0 + r) * a.kx, a.kx * 2, xbar, 0xff);
+      if (a.ks)
+        sm90::bulk_load_multicast(X + r * ldx + a.kx, a.skip + (row0 + r) * a.ks, a.ks * 2, xbar,
+                                  0xff);
+    }
+    if (lane == 0) {
+      int s = 0;
+      uint32_t ph = 0;
+      auto put = [&](const bf16* src) {
+        sm90::mbar_wait(&empty[s], ph ^ 1);
+        sm90::mbar_expect_tx(&full[s], sm90::kChunkBytes);
+        sm90::bulk_load(ring + s * sm90::kChunkElems, src, sm90::kChunkBytes, &full[s]);
+        if (++s == stages) s = 0, ph ^= 1;
+      };
+      const bf16* w1 = a.W1 + (size_t)grp * nkt1 * sm90::kChunkElems;
+      const bf16* wr = kRes ? a.Wres + (size_t)grp * nkt1 * sm90::kChunkElems : nullptr;
+      for (int kt = 0; kt < nkt1; ++kt) {
+        put(w1 + (size_t)kt * sm90::kChunkElems);
+        if (kRes) put(wr + (size_t)kt * sm90::kChunkElems);
+      }
+      sm90::cluster_arrive_relaxed();      // (1) before W2, which waits on the second product
+      // W2's K tiles in the order block2 takes the slices: this CTA's first
+      const bf16* w2 = a.W2 + (size_t)grp * nkt2 * sm90::kChunkElems;
+      for (int kt = 0; kt < nkt2; ++kt)
+        put(w2 + (size_t)((grp + kt) % kCluster) * sm90::kChunkElems);
+    } else {
+      sm90::cluster_arrive_relaxed();      // (1)
+    }
+    sm90::cluster_wait();          // (1)
+    sm90::cluster_arrive_relaxed();        // (2)
+    sm90::cluster_wait();          // (2)
+    return;
+  }
+
+  // ---- consumer warpgroup ----
+  const int t = lane & 3;
+  const int r0 = 16 * warp + (lane >> 2);    // this thread's rows: r0, r0 + 8
+  // this thread's film scale and shift pairs, loaded now, used after block1
+  uint32_t fsc[2][8], fsh[2][8];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = min(r0 + 8 * half, rows - 1);
+    const bf16* f = a.film_kind == 1 ? a.film + (size_t)(scene0 + r / a.n) * 2 * kC
+                                     : a.film + (row0 + r) * 2 * kC;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = col0 + 8 * j + 2 * t;
+      fsc[half][j] = a.film_kind ? *reinterpret_cast<const uint32_t*>(f + c) : 0u;
+      fsh[half][j] = a.film_kind ? *reinterpret_cast<const uint32_t*>(f + kC + c) : 0u;
+    }
+  }
+  float acc[32], accR[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = accR[i] = 0.f;
+  int s = 0;
+  uint32_t ph = 0;
+
+  // block1: h = [x | skip] @ W1 + b1 (and the residual projection), f32
+  sm90::mbar_wait(xbar, 0);
+  consume<kRes, false>(acc, accR, X, ldx, nkt1, ring, full, empty, stages, s, ph);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] += Vs[8 * (i / 4) + 2 * t + (i & 1)];
+  if constexpr (!kRes) {   // the identity residual: this CTA's slice of x
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      accR[i] = __bfloat162float(X[(r0 + 8 * ((i >> 1) & 1)) * ldx + col0 + 8 * (i / 4) + 2 * t +
+                                   (i & 1)]);
+  }
+  // (1) the x tile is read: the others may write h into it.  Release, so
+  // that the loads of the identity residual above are ordered before
+  // the peers' stores into the same bytes
+  sm90::cluster_arrive();
+  scene_moments(acc, a.n, nsc, a.eps, red, stat);
+
+  // GN1, FiLM, SiLU; this CTA's bf16 slice of h into its place in G
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r < rows) {
+      const int sc = r / a.n;
+      const float mean = stat[sc], inv = stat[kTileRows + sc];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        float z0 = (acc[4 * j + 2 * half] - mean) * inv * Vs[kGroup + c] + Vs[2 * kGroup + c];
+        float z1 =
+            (acc[4 * j + 2 * half + 1] - mean) * inv * Vs[kGroup + c + 1] + Vs[2 * kGroup + c + 1];
+        if (a.film_kind) {   // a bf16 pair: the low half is the first element
+          z0 = z0 * tile::rnd<bf16>(__uint_as_float(fsc[half][j] << 16) + 1.f) +
+               __uint_as_float(fsh[half][j] << 16);
+          z1 = z1 * tile::rnd<bf16>(__uint_as_float(fsc[half][j] & 0xffff0000u) + 1.f) +
+               __uint_as_float(fsh[half][j] & 0xffff0000u);
+        }
+        tile::st2<bf16>(G + hslice(grp, r, j) + 2 * t, silu_fast(z0), silu_fast(z1));
+      }
+    }
+  }
+
+  // the exchange: every consumer thread stores 16-byte pieces of this slice
+  // into the other CTAs' G (st.async, each completing on the receiving CTA's
+  // barrier for this slice), once every CTA of the cluster is done with its
+  // x tile
+  sm90::bar_sync<kConsumers>(1);
+  sm90::cluster_wait();            // (1)
+  {
+    const bf16* mine = G + hslice(grp, 0, 0);
+    uint32_t dst[kCluster - 1], bar[kCluster - 1];
+#pragma unroll
+    for (int p = 0; p < kCluster - 1; ++p) {
+      const int peer = (grp + 1 + p) % kCluster;
+      dst[p] = sm90::cluster_addr(mine, peer);
+      bar[p] = sm90::cluster_addr(&gbar[grp], peer);
+    }
+    for (int i = threadIdx.x; i < rows * (kGroup / 8); i += kConsumers) {
+      const uint4 v = reinterpret_cast<const uint4*>(mine)[i];
+#pragma unroll
+      for (int p = 0; p < kCluster - 1; ++p) sm90::st_async(dst[p] + 16 * i, v, bar[p]);
+    }
+  }
+
+  // block2: h = round(h) @ W2 + b2, from this CTA's slice on, each other one
+  // as it lands; then GroupNorm, SiLU, the residual, the store
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  consume<false, true>(acc, accR, G, 0, nkt2, ring, full, empty, stages, s, ph, grp, gbar);
+  sm90::cluster_arrive_relaxed();  // (2) every slice of this CTA's G has landed
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] += Vs[3 * kGroup + 8 * (i / 4) + 2 * t + (i & 1)];
+  scene_moments(acc, a.n, nsc, a.eps, red, stat);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r < rows) {
+      const int sc = r / a.n;
+      const float mean = stat[sc], inv = stat[kTileRows + sc];
+      bf16* o = a.out + (row0 + r) * kC + col0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        const int i = 4 * j + 2 * half;
+        const float h0 =
+            silu_fast((acc[i] - mean) * inv * Vs[4 * kGroup + c] + Vs[5 * kGroup + c]);
+        const float h1 =
+            silu_fast((acc[i + 1] - mean) * inv * Vs[4 * kGroup + c + 1] + Vs[5 * kGroup + c + 1]);
+        float res0 = accR[i], res1 = accR[i + 1];
+        if constexpr (kRes) {
+          res0 += Vs[6 * kGroup + c];
+          res1 += Vs[6 * kGroup + c + 1];
+        }
+        tile::st2<bf16>(o + c, h0 + res0, h1 + res1);
+      }
+    }
+  }
+  sm90::cluster_wait();            // (2) no CTA leaves before every slice has landed
+}
+
+constexpr int kSmemMax = (int)layout(kMaxIn).total;
+
+template <bool kRes>
+cudaError_t prepare_sm90() {   // once per instantiation
+  static const cudaError_t err = cudaFuncSetAttribute(
+      resblock_sm90<kRes>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+  return err;
+}
+
+int launch_sm90(const Args90& a, cudaStream_t stream) {
+  const cudaError_t err = a.Wres ? prepare_sm90<true>() : prepare_sm90<false>();
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)((a.B + a.ts - 1) / a.ts) * kCluster;
+  const size_t smem = layout(a.kx + a.ks).total;
+  if (a.Wres)
+    resblock_sm90<true><<<grid, kThreads, smem, stream>>>(a);
+  else
+    resblock_sm90<false><<<grid, kThreads, smem, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// float32: the parity kernel
+// ---------------------------------------------------------------------------
+
 constexpr int kRows = 24;       // valid rows per tile: 2 scenes of 12 or 1 of 21
 constexpr int kMaxScenes = 4;   // scenes per tile (bounds the reduction buffer)
 constexpr int kPad = 8;         // shared-memory row padding (elements)
-constexpr int kMaxIn = 1024;    // x and skip widths together
-
-using bf16 = __nv_bfloat16;
 
 struct Args {
   const void* x;      // (M, kx)
   const void* skip;   // (M, ks) or null
   const void* film;   // (B, 2C) per scene, (M, 2C) per row, or null
-  const void* W1;     // f32: (kx + ks, C) (in, out); bf16: packed x rows, then packed skip rows
-  const void* W2;     // f32: (C, C); bf16: packed
+  const void* W1;     // (kx + ks, C) (in, out)
+  const void* W2;     // (C, C)
   const void* Wres;   // like W1, or null (identity residual)
   const float* V;     // (7, C) f32: b1, g1 scale, g1 bias, b2, g2 scale, g2 bias, bres
   void* out;          // (M, C)
@@ -63,36 +508,6 @@ struct Args {
 // hands each thread's pairs of adjacent output columns to a functor.
 template <typename T>
 struct Prod;
-
-template <>
-struct Prod<bf16> {
-  static constexpr int kTile = 32;
-  float acc[2][8][4];
-
-  __device__ __forceinline__ void zero() {
-#pragma unroll
-    for (int m = 0; m < 2; ++m)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[m][j][0] = acc[m][j][1] = acc[m][j][2] = acc[m][j][3] = 0.f;
-  }
-  __device__ __forceinline__ void mm(const bf16* A, int lda, const void* W, int K, int /*C*/) {
-    tile::warp_mma<8>(acc, A, lda, static_cast<const bf16*>(W), K, 64 * (threadIdx.x >> 5));
-  }
-  template <typename F>
-  __device__ __forceinline__ void each(F f) const {
-    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-    const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = 64 * warp + 8 * j + 2 * t;
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        f(16 * m + g, col, acc[m][j][0], acc[m][j][1]);
-        f(16 * m + g + 8, col, acc[m][j][2], acc[m][j][3]);
-      }
-    }
-  }
-};
 
 template <>
 struct Prod<float> {
@@ -186,17 +601,15 @@ template <typename T>
 __global__ void __launch_bounds__(256) resblock_kernel(Args a) {
   using P = Prod<T>;
   constexpr int kTile = P::kTile;
-  constexpr bool kBf16 = sizeof(T) == 2;
   extern __shared__ __align__(16) unsigned char smem[];
   const int C = a.C, n = a.n, ts = a.ts, kx = a.kx, ks = a.ks;
   const int tid = threadIdx.x, nthr = blockDim.x;
-  const int ldx = kx + kPad, lds = ks + kPad, ldh = C + 4, ldb = C + kPad;
+  const int ldx = kx + kPad, lds = ks + kPad, ldh = C + 4;
 
   T* X = reinterpret_cast<T*>(smem);                   // x tile
   T* S = X + kTile * ldx;                              // skip tile (ks > 0)
   float* H = reinterpret_cast<float*>(S + (ks ? kTile * lds : 0));  // f32 intermediate
-  bf16* Hb = reinterpret_cast<bf16*>(H + kTile * ldh);  // bf16: the second product's operand
-  float* red = reinterpret_cast<float*>(Hb + (kBf16 ? kTile * ldb : 0));
+  float* red = H + kTile * ldh;
   float* stat = red + 2 * ts * nthr;
 
   const int scene0 = blockIdx.x * ts;
@@ -209,10 +622,6 @@ __global__ void __launch_bounds__(256) resblock_kernel(Args a) {
 
   tile::load_rows<T>(X, ldx, static_cast<const T*>(a.x) + row0 * kx, kx, rows, kTile, kx);
   if (ks) tile::load_rows<T>(S, lds, static_cast<const T*>(a.skip) + row0 * ks, ks, rows, kTile, ks);
-  if constexpr (kBf16) {  // the padded rows of the second product's operand
-    for (int i = tid; i < (kTile - rows) * C; i += nthr)
-      Hb[(rows + i / C) * ldb + i % C] = __float2bfloat16(0.f);
-  }
   __syncthreads();
 
   // block1: h = [x | skip] @ W1 + b1, kept in f32
@@ -224,19 +633,12 @@ __global__ void __launch_bounds__(256) resblock_kernel(Args a) {
     tile::st2<float>(H + r * ldh + c, v0 + V[c], v1 + V[c + 1]);
   });
   __syncthreads();
-  if constexpr (kBf16)
-    gn_film_silu<T, bf16>(H, ldh, Hb, ldb, a, V + C, V + 2 * C, a.film_kind, film, scene0, nsc,
-                          red, stat);
-  else
-    gn_film_silu<T, float>(H, ldh, H, ldh, a, V + C, V + 2 * C, a.film_kind, film, scene0, nsc,
-                           red, stat);
+  gn_film_silu<T, float>(H, ldh, H, ldh, a, V + C, V + 2 * C, a.film_kind, film, scene0, nsc,
+                         red, stat);
 
-  // block2: h = round(h) @ W2 + b2, GroupNorm, SiLU
+  // block2: h = h @ W2 + b2, GroupNorm, SiLU
   p.zero();
-  if constexpr (kBf16)
-    p.mm(Hb, ldb, a.W2, C, C);
-  else
-    p.mm(H, ldh, a.W2, C, C);
+  p.mm(H, ldh, a.W2, C, C);
   __syncthreads();  // every thread is done reading H
   p.each([&](int r, int c, float v0, float v1) {
     tile::st2<float>(H + r * ldh + c, v0 + V[3 * C + c], v1 + V[3 * C + c + 1]);
@@ -271,17 +673,16 @@ size_t smem_bytes(const Args& a, int threads) {
   size_t b = (size_t)kTile * (a.kx + kPad) * sizeof(T);
   if (a.ks) b += (size_t)kTile * (a.ks + kPad) * sizeof(T);
   b += (size_t)kTile * (a.C + 4) * sizeof(float);
-  if (sizeof(T) == 2) b += (size_t)kTile * (a.C + kPad) * sizeof(bf16);
   return b + (2 * (size_t)a.ts * threads + 2 * (size_t)a.ts * a.groups) * sizeof(float);
 }
 
 template <typename T>
 int launch(const Args& a, cudaStream_t stream) {
+  static const cudaError_t attr = cudaFuncSetAttribute(   // once per instantiation
+      resblock_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
+  if (attr != cudaSuccess) return (int)attr;
   const int threads = a.C / 2;
   const size_t smem = smem_bytes<T>(a, threads);
-  cudaError_t err = cudaFuncSetAttribute(resblock_kernel<T>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
   const int grid = (a.B + a.ts - 1) / a.ts;
   resblock_kernel<T><<<grid, threads, smem, stream>>>(a);
   return (int)cudaGetLastError();
@@ -291,20 +692,64 @@ int launch(const Args& a, cudaStream_t stream) {
 
 extern "C" {
 
-int fused_resblock_max_rows() { return kRows; }
+// rows of one scene the kernel of `dtype` (0 float32, 1 bfloat16) takes
+int fused_resblock_max_rows(int dtype) { return dtype == 1 ? kTileRows : kRows; }
 int fused_resblock_max_in() { return kMaxIn; }
+// dynamic shared memory of one bf16 CTA for kx + ks input columns
+int fused_resblock_smem_bytes(int kx, int ks) { return (int)layout(kx + ks).total; }
 
-// dtype: 0 float32, 1 bfloat16 (weights packed by pack_mma_weights).
+// clusters of the bf16 kernel that fit on the card at once, or minus a
+// cudaError_t code
+int fused_resblock_max_active_clusters(int kx, int ks, int has_res) {
+  const cudaError_t err = has_res ? prepare_sm90<true>() : prepare_sm90<false>();
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * 64);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = layout(kx + ks).total;
+  int clusters = 0;
+  const cudaError_t e = has_res
+      ? cudaOccupancyMaxActiveClusters(&clusters, resblock_sm90<true>, &cfg)
+      : cudaOccupancyMaxActiveClusters(&clusters, resblock_sm90<false>, &cfg);
+  return e == cudaSuccess ? clusters : -(int)e;
+}
+
+// dtype: 0 float32, 1 bfloat16 (weights packed by pack_group_tiles).
 // Returns a cudaError_t code (0 on success), or -1 for arguments the kernel
 // does not take.
 int fused_resblock_launch(int dtype, const void* x, const void* skip, const void* film,
                           int film_kind, const void* W1, const void* W2, const void* Wres,
                           const float* V, void* out, int B, int n, int C, int kx, int ks,
                           int groups, float eps, void* stream) {
-  if (n < 1 || n > kRows || B < 1 || C % 64 != 0 || C > 512 || groups < 1 || C % groups != 0 ||
-      (C / groups) % 2 != 0 || kx < 16 || kx % 16 != 0 || ks < 0 || ks % 16 != 0 ||
-      kx + ks > kMaxIn || (ks > 0) != (skip != nullptr) || film_kind < 0 || film_kind > 2 ||
-      (film_kind != 0) != (film != nullptr) || (Wres == nullptr && (kx != C || ks != 0)))
+  if (n < 1 || B < 1 || ks < 0 || kx + ks > kMaxIn || (ks > 0) != (skip != nullptr) ||
+      film_kind < 0 || film_kind > 2 || (film_kind != 0) != (film != nullptr) ||
+      (Wres == nullptr && (kx != C || ks != 0)))
+    return -1;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) {
+    if (n > kTileRows || C != kC || groups != kCluster || kx < sm90::kChunkK ||
+        kx % sm90::kChunkK != 0 || ks % sm90::kChunkK != 0 || (kx + ks) % (2 * sm90::kChunkK) != 0)
+      return -1;
+    Args90 a;
+    a.x = static_cast<const bf16*>(x);
+    a.skip = static_cast<const bf16*>(skip);
+    a.film = static_cast<const bf16*>(film);
+    a.W1 = static_cast<const bf16*>(W1);
+    a.W2 = static_cast<const bf16*>(W2);
+    a.Wres = static_cast<const bf16*>(Wres);
+    a.V = V;
+    a.out = static_cast<bf16*>(out);
+    a.B = B;
+    a.n = n;
+    a.kx = kx;
+    a.ks = ks;
+    a.ts = kTileRows / n;
+    a.film_kind = film_kind;
+    a.eps = eps;
+    return launch_sm90(a, s);
+  }
+  if (dtype != 0 || n > kRows || C % 64 != 0 || C > 512 || groups < 1 || C % groups != 0 ||
+      (C / groups) % 2 != 0 || kx < 16 || kx % 16 != 0 || ks % 16 != 0)
     return -1;
   Args a;
   a.x = x;
@@ -324,10 +769,7 @@ int fused_resblock_launch(int dtype, const void* x, const void* skip, const void
   a.ts = kRows / n < kMaxScenes ? kRows / n : kMaxScenes;
   a.film_kind = film_kind;
   a.eps = eps;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(a, s);
-  if (dtype == 1) return launch<bf16>(a, s);
-  return -1;
+  return launch<float>(a, s);
 }
 
 }  // extern "C"

@@ -1,0 +1,214 @@
+// Hopper (sm_90a) building blocks for the cluster kernels of this package:
+//
+// - mbarriers: init, arrive, arrive with an expected byte count, and the
+//   parity wait;
+// - the bulk copy of contiguous bytes from device memory into shared memory
+//   (cp.async.bulk, no tensor map; also multicast to the CTAs of a cluster),
+//   and the 16-byte asynchronous store into another CTA's shared memory
+//   (st.async), each completing on an mbarrier;
+// - the split cluster barrier (barrier.cluster.arrive / wait);
+// - warpgroup products: the shared-memory descriptor of a weight chunk in the
+//   no-swizzle core-matrix layout, and wgmma.mma_async m64n64k16 with A in
+//   registers, B from shared memory, f32 accumulation;
+// - the named barrier of the consumer warps.
+//
+// The weight chunk layout.  A chunk is one 64-deep K tile of one group of 64
+// output columns, (k, n) in [0, 64)^2, stored as 8 x 8 core matrices of 8 n
+// rows by 8 k values (16 bytes a row): element (k, n) at
+//
+//     ((k / 8) * 8 + n / 8) * 64 + (n % 8) * 8 + k % 8
+//
+// so core matrices adjacent in n are 128 bytes apart (the descriptor's
+// stride byte offset) and those adjacent in k 1024 bytes apart (its leading
+// byte offset), and each 16-deep k step starts 2048 bytes further on
+// (pack_group_tiles in ops/fused_resblock.py writes this order).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace sm90 {
+
+constexpr int kChunkK = 64;                          // depth of one weight chunk
+constexpr int kChunkN = 64;                          // output columns of one chunk
+constexpr int kChunkElems = kChunkK * kChunkN;
+constexpr int kChunkBytes = kChunkElems * 2;         // bf16
+constexpr uint32_t kChunkLbo = 1024;                 // next core matrix in k
+constexpr uint32_t kChunkSbo = 128;                  // next core matrix in n
+constexpr uint32_t kChunkKStep = 2048;               // next 16-deep k step
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers -----------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// makes the initialised barriers visible to the async proxy and the cluster
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival by each thread whose `pred` holds (predicated, not branched:
+// a branch between asynchronous warpgroup products serializes them)
+__device__ __forceinline__ void mbar_arrive_if(uint64_t* bar, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"((int)pred)
+      : "memory");
+}
+
+// one arrival that also expects `bytes` of copies to complete on the barrier
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// wait until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+// ---- bulk copy -----------------------------------------------------------
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from device
+// memory into this CTA's shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// bulk_load into the same offset of the shared memory of every CTA of the
+// cluster in `mask`, completing on the mbarrier at `bar`'s offset in each
+__device__ __forceinline__ void bulk_load_multicast(void* dst, const void* src, uint32_t bytes,
+                                                    uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes.multicast::cluster "
+      "[%0], [%1], %2, [%3], %4;\n" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}
+
+// the address of `p` (in this CTA's shared memory) in the shared memory of
+// the cluster's CTA `rank`
+__device__ __forceinline__ uint32_t cluster_addr(const void* p, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(smem_u32(p)), "r"(rank));
+  return out;
+}
+
+// 16 bytes from registers to cluster address `dst` (another CTA's shared
+// memory), completing on the mbarrier at cluster address `bar` in that CTA
+__device__ __forceinline__ void st_async(uint32_t dst, uint4 v, uint32_t bar) {
+  asm volatile(
+      "st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32 [%0], {%1, %2, %3, %4}, [%5];\n" ::
+          "r"(dst),
+      "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w), "r"(bar)
+      : "memory");
+}
+
+// ---- cluster barrier -----------------------------------------------------
+
+// every thread of the cluster arrives once and then waits once per phase;
+// arrive releases this thread's writes, wait acquires the others'.
+// cluster_arrive_relaxed orders nothing: for a signal that this thread is
+// done reading (its loads have returned) or that a copy it waited for has
+// landed
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait;\n" ::: "memory");
+}
+
+// ---- named barrier of the consumer warps --------------------------------
+
+template <int kThreads>
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kThreads) : "memory");
+}
+
+// ---- warpgroup products -------------------------------------------------
+
+// descriptor of a weight chunk (layout above) at shared address `chunk`
+__device__ __forceinline__ uint64_t chunk_desc(const void* chunk) {
+  return static_cast<uint64_t>((smem_u32(chunk) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(kChunkLbo >> 4) << 16) |
+         (static_cast<uint64_t>(kChunkSbo >> 4) << 32);  // layout type 0: no swizzle
+}
+
+// the descriptor advanced by `bytes` (the start address is in 16-byte units)
+__device__ __forceinline__ uint64_t desc_add(uint64_t desc, uint32_t bytes) {
+  return desc + (bytes >> 4);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accesses of the accumulators across the
+// asynchronous products
+__device__ __forceinline__ void fence_operand(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+
+// d[64 x 64] += A[64 x 16] @ B[16 x 64], by one warpgroup.  A in registers:
+// warp w of the group holds rows 16w..16w+15 as the mma.m16n8k16 A fragment
+// (ldmatrix.x4 order).  B: a 16-deep k step of a chunk, by descriptor.
+// Accumulator i of lane (g, t) of warp w: row 16w + g (+8 when i & 2),
+// column 8 (i / 4) + 2t (+1 when i & 1).
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"   // scale-d: accumulate into d
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+}  // namespace sm90

@@ -1,5 +1,6 @@
-// Device helpers shared by the single-ResnetBlock kernel (fused_resblock.cu)
-// and the set-attention kernel (set_attention.cu), for sm_90a:
+// Device helpers shared by the single-ResnetBlock kernel (fused_resblock.cu:
+// its f32 kernel, and ldmatrix and the conversions in its bf16 one) and the
+// set-attention kernel (set_attention.cu), for sm_90a:
 //
 // - float <-> storage-type conversions and rounding;
 // - 16-byte row copies from device memory into padded shared-memory tiles;

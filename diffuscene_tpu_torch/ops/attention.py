@@ -100,7 +100,7 @@ def _launch_kernel(x, g, w_qkv, w_out, b_out, heads, dim_head, eps, dt) -> torch
     build.check_operand("x", x, dev, dt, (B, N, C))
     Wqkv, Wout, V = build.prepared(b_out, (g, w_qkv, w_out), lambda: (
         _kernel_weight(w_qkv, dt), _kernel_weight(w_out, dt),
-        torch.stack([g.float(), b_out.float()])))
+        torch.stack([g.float(), b_out.float()])), key=dt)
     for name, w in (("w_qkv", Wqkv), ("w_out", Wout), ("g, b_out", V)):
         if w.device != dev or w.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned on {dev}")
@@ -108,7 +108,7 @@ def _launch_kernel(x, g, w_qkv, w_out, b_out, heads, dim_head, eps, dt) -> torch
     rc = load_library().set_attention_launch(
         build.DTYPE_CODES[dt], x.data_ptr(), V[0].data_ptr(), Wqkv.data_ptr(), Wout.data_ptr(),
         V[1].data_ptr(), out.data_ptr(), B, N, C, heads, dim_head, eps,
-        torch.cuda.current_stream(dev).cuda_stream,
+        build.stream_ptr(dev),
     )
     if rc != 0:
         raise RuntimeError(f"set_attention_launch failed with code {rc}")

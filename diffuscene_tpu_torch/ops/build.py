@@ -19,7 +19,6 @@ from pathlib import Path
 from typing import Any, Callable, List, Optional, Sequence
 
 import torch
-from torch.utils.weak import WeakIdKeyDictionary
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -80,9 +79,28 @@ def load(source: Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(build([source])[0]))
 
 
+# torch's own raw-stream getter (what its generated kernels launch on), a
+# tenth of the host time of torch.cuda.current_stream(); the public call
+# where a build of torch lacks it
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def stream_ptr(device: torch.device) -> int:
+    """The current CUDA stream of ``device`` as an integer handle, for a
+    kernel launch through ctypes."""
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
 def check_operand(name: str, t: torch.Tensor, device, dtype, shape) -> None:
     """Raise unless ``t`` is what a kernel reads through a raw pointer: on
-    ``device``, of ``dtype`` and ``shape``, contiguous, 16-byte aligned."""
+    ``device``, of ``dtype`` and ``shape``, contiguous, 16-byte aligned.
+    Kernel wrappers call this on every launch, so the passing case is one
+    test."""
+    if (t.dtype == dtype and t.shape == tuple(shape) and t.is_contiguous()
+            and not t.data_ptr() % 16 and t.device == device):
+        return
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, x on {device}")
     if t.dtype != dtype:
@@ -91,24 +109,22 @@ def check_operand(name: str, t: torch.Tensor, device, dtype, shape) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
-
-
-_PREPARED = WeakIdKeyDictionary()
+    raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def prepared(owner: torch.Tensor, deps: Sequence[Optional[torch.Tensor]],
-             make: Callable[[], Any]) -> Any:
+             make: Callable[[], Any], key: Any = None) -> Any:
     """A kernel operand derived from weights (packed, cast, stacked), made by
-    ``make()`` once and kept while ``owner`` lives: remade when ``owner`` or
-    any of ``deps`` is another tensor or was changed in place.  Sampling
-    calls a kernel with the same prepared weights at every step."""
-    sig = tuple((id(t), t._version) for t in (owner, *deps) if t is not None)
-    hit = _PREPARED.get(owner)
-    if hit is not None and hit[0] == sig:
+    ``make()`` once and kept on ``owner`` while it lives: remade when
+    ``owner`` or any of ``deps`` is another tensor or was changed in place,
+    or ``key`` (the compute dtype, say) differs.
+    Sampling calls a kernel with the same prepared weights at every step, so
+    the hit is a few attribute reads."""
+    versions = [key, owner._version] + [t._version for t in deps if t is not None]
+    hit = getattr(owner, "_kernel_operands", None)
+    if (hit is not None and hit[0] == versions and len(hit[1]) == len(deps)
+            and all(a is b for a, b in zip(hit[1], deps))):
         return hit[2]
     value = make()
-    # the deps are held so that their ids stay theirs while the entry lives
-    _PREPARED[owner] = (sig, tuple(deps), value)
+    owner._kernel_operands = (versions, tuple(deps), value)
     return value

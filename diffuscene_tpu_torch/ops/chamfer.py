@@ -84,7 +84,7 @@ def _launch_kernel(x: torch.Tensor, y: torch.Tensor):
     idx = torch.empty(B, N, dtype=torch.int32, device=x.device)
     rc = load_library().chamfer_nn_launch(
         x.data_ptr(), y.data_ptr(), dist.data_ptr(), idx.data_ptr(), B, N, M, D,
-        torch.cuda.current_stream(x.device).cuda_stream)
+        build.stream_ptr(x.device))
     if rc != 0:
         raise RuntimeError(f"chamfer_nn_launch failed with code {rc}")
     return dist, idx

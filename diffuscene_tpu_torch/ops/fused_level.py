@@ -284,7 +284,7 @@ def _launch_kernel(chain: ChainParams, x, films, skips, n: int, groups: int,
         build.DTYPE_CODES[dt], x.data_ptr(), ptr_skip[0], ptr_skip[1], ptr_film[0], ptr_film[1],
         W.data_ptr(), chain.V.data_ptr(), out.data_ptr(),
         B, n, C, groups, eps, len(chain.blocks), specs[0], specs[1],
-        torch.cuda.current_stream(dev).cuda_stream,
+        build.stream_ptr(dev),
     )
     if rc != 0:
         raise RuntimeError(f"fused_chain_launch failed with code {rc}")

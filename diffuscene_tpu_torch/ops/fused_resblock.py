@@ -28,22 +28,79 @@ Two input forms beside B1's own:
 :func:`fused_resnet_block_reference`, which builds the expanded film rows and
 the concatenation explicitly.  It never falls back: a CUDA tensor the kernel
 cannot take raises.
+
+The bf16 kernel is a cluster kernel for Hopper: a tile of whole scenes (at
+most ``TILE_ROWS`` rows) is one cluster of ``CLUSTER`` CTAs, CTA g owning
+GroupNorm group g's 64 output columns; it takes C = 512 in 8 groups and input
+widths of multiples of 64 that sum to a multiple of 128 (its K loop takes
+two 64-deep tiles a step).  :func:`tile_plan` is its launch and shared-memory
+plan and :func:`pack_group_tiles` the weight layout its bulk copies read.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
 
 from . import build
-from .fused_level import pack_mma_weights
 
 CSRC = build.CSRC_DIR / "fused_resblock.cu"
-MAX_ROWS = 24      # valid rows per thread-block tile in the kernel (kRows)
+# rows of one scene each kernel takes: the f32 kernel's 24-row tile (kRows),
+# the bf16 kernel's 64-row scene tile (kTileRows)
+MAX_ROWS = {torch.float32: 24, torch.bfloat16: 64}
 MAX_IN = 1024      # x and skip widths together (kMaxIn)
+# the bf16 cluster kernel (csrc/fused_resblock.cu, csrc/sm90.cuh)
+TILE_ROWS = 64     # rows of a scene tile: the wgmma M
+CLUSTER = 8        # CTAs of a tile's cluster, one per GroupNorm group
+CHANNELS = 512     # C, so 64 columns per group
+K_TILE = 64        # depth of one weight chunk
+CHUNK_BYTES = K_TILE * (CHANNELS // CLUSTER) * 2
+SMEM_LIMIT = 232448    # dynamic shared memory one CTA may use on an H100
+
+
+class TilePlan(NamedTuple):
+    scenes_per_tile: int
+    clusters: int
+    ctas: int
+    stages: int         # weight chunks in flight in a CTA's ring
+    smem_bytes: int     # dynamic shared memory of one CTA
+
+
+def tile_plan(B: int, n: int, kx: int, ks: int = 0) -> TilePlan:
+    """The bf16 kernel's launch for B scenes of n rows and [x | skip] inputs
+    of kx + ks columns; its shared-memory sum mirrors ``layout()`` in the
+    .cu (``fused_resblock_smem_bytes``): the weight ring, the [x | skip]
+    tile (which later holds the gathered (64, 512) h), the CTA's 64 columns
+    of the 7 vectors, row sums and squares, scene moments, 25 mbarriers (the
+    ring's full and empty ones, the x tile's, one for each CTA's slice of
+    the gathered h)."""
+    kin = kx + ks
+    ts = TILE_ROWS // n
+    tiles = -(-B // ts)
+    stages = 4 if kin <= CHANNELS else 8
+    group = CHANNELS // CLUSTER
+    smem = (stages * CHUNK_BYTES + TILE_ROWS * (max(kin, CHANNELS) + 8) * 2 + 7 * group * 4
+            + 2 * TILE_ROWS * 4 + 2 * TILE_ROWS * 4 + (2 * 8 + 1 + CLUSTER) * 8)
+    return TilePlan(ts, tiles, CLUSTER * tiles, stages, smem)
+
+
+def pack_group_tiles(w: torch.Tensor) -> torch.Tensor:
+    """A (K, 512) (in, out) weight as the bf16 kernel's chunks, flat: chunk
+    (g, kt) holds rows [64 kt, 64 kt + 64) of group g's columns [64 g,
+    64 g + 64), 4096 elements from (g * K / 64 + kt) * 4096, in the wgmma
+    no-swizzle core-matrix layout of csrc/sm90.cuh: (k, n) of the chunk at
+    ((k // 8) * 8 + n // 8) * 64 + (n % 8) * 8 + k % 8.  With K = kx + ks
+    and kx a multiple of 64, the first kx / 64 chunks of a group are its x
+    rows and the rest its skip rows.  Done once per weight set."""
+    K, C = w.shape
+    if K % K_TILE or C != CHANNELS:
+        raise ValueError(f"pack_group_tiles takes ({K_TILE}k, {CHANNELS}) weights, got {(K, C)}")
+    G = C // 64
+    # (kt, kb, k8, g, nb, n8) -> (g, kt, kb, nb, n8, k8)
+    return w.reshape(K // 64, 8, 8, G, 8, 8).permute(3, 0, 1, 4, 5, 2).contiguous().reshape(-1)
 
 
 def standardize_kernel(kernel: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -112,30 +169,35 @@ def fused_resnet_block_reference(
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Compile ``csrc/fused_resblock.cu`` for sm_90a (unless this source was
-    built already, see ``ops/build.py``) and load it."""
+    built already, see ``ops/build.py``), load it, and check its limits
+    against this module's."""
     lib = build.load(CSRC)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.fused_resblock_launch.argtypes = [
         ci, vp, vp, vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_float, vp,
     ]
     lib.fused_resblock_launch.restype = ci
-    lib.fused_resblock_max_rows.restype = ci
-    lib.fused_resblock_max_in.restype = ci
-    if (lib.fused_resblock_max_rows(), lib.fused_resblock_max_in()) != (MAX_ROWS, MAX_IN):
+    for fn, args in ((lib.fused_resblock_max_rows, [ci]), (lib.fused_resblock_max_in, []),
+                     (lib.fused_resblock_smem_bytes, [ci, ci]),
+                     (lib.fused_resblock_max_active_clusters, [ci, ci, ci])):
+        fn.argtypes, fn.restype = args, ci
+    limits = ({dt: lib.fused_resblock_max_rows(code) for dt, code in build.DTYPE_CODES.items()},
+              lib.fused_resblock_max_in())
+    smem = {(kx, ks): lib.fused_resblock_smem_bytes(kx, ks)
+            for kx, ks in ((512, 0), (1024, 0), (512, 512))}
+    if limits != (MAX_ROWS, MAX_IN) or any(
+            v != tile_plan(1, 1, kx, ks).smem_bytes for (kx, ks), v in smem.items()):
         raise RuntimeError("csrc/fused_resblock.cu and ops/fused_resblock.py disagree on limits")
     return lib
 
 
-def _kernel_weights(w: Optional[torch.Tensor], kx: int, dt) -> Optional[torch.Tensor]:
-    """An (in, out) weight as the kernel reads it: f32 as is; bf16 packed
-    into mma fragment order, its x rows and then its skip rows."""
+def _kernel_weights(w: Optional[torch.Tensor], dt) -> Optional[torch.Tensor]:
+    """An (in, out) weight as the kernel reads it: f32 as is; bf16 as
+    :func:`pack_group_tiles` chunks."""
     if w is None:
         return None
     w = w.to(dt)
-    if dt == torch.float32:
-        return w.contiguous()
-    parts = [w[:kx]] + ([w[kx:]] if w.shape[0] > kx else [])
-    return torch.cat([pack_mma_weights(p[None]).reshape(-1) for p in parts])
+    return w.contiguous() if dt == torch.float32 else pack_group_tiles(w)
 
 
 def _launch_kernel(x, skip, film, w1, b1, g1s, g1b, w2, b2, g2s, g2b, w_res, b_res,
@@ -146,11 +208,19 @@ def _launch_kernel(x, skip, film, w1, b1, g1s, g1b, w2, b2, g2s, g2b, w_res, b_r
     if x.dtype != dt or dt not in build.DTYPE_CODES:
         raise ValueError(f"the resblock kernel takes x in the compute dtype, float32 or "
                          f"bfloat16; got x {x.dtype}, compute dtype {dt}")
-    if n > MAX_ROWS:
-        raise ValueError(f"the resblock kernel takes at most {MAX_ROWS} rows per scene, got {n}")
-    if (C % 64 or C > 512 or C % groups or (C // groups) % 2 or kx % 16 or ks % 16
+    if n > MAX_ROWS[dt]:
+        raise ValueError(f"the {dt} resblock kernel takes at most {MAX_ROWS[dt]} rows per scene, "
+                         f"got {n}")
+    if dt == torch.bfloat16:
+        if (C != CHANNELS or groups != CLUSTER or kx % K_TILE or ks % K_TILE
+                or (kx + ks) % (2 * K_TILE) or kx + ks > MAX_IN):
+            raise ValueError(f"the bf16 resblock kernel takes C={CHANNELS} in {CLUSTER} groups and "
+                             f"input widths of multiples of {K_TILE} summing to a multiple of "
+                             f"{2 * K_TILE} up to {MAX_IN}; got C={C}, groups={groups}, "
+                             f"C_x={kx}, C_skip={ks}")
+    elif (C % 64 or C > 512 or C % groups or (C // groups) % 2 or kx % 16 or ks % 16
             or kx + ks > MAX_IN):
-        raise ValueError(f"the resblock kernel takes C % 64 == 0, C <= 512, even groups of "
+        raise ValueError(f"the f32 resblock kernel takes C % 64 == 0, C <= 512, even groups of "
                          f"channels and input widths of multiples of 16 up to {MAX_IN}; got "
                          f"C={C}, groups={groups}, C_x={kx}, C_skip={ks}")
     dev = x.device
@@ -159,22 +229,29 @@ def _launch_kernel(x, skip, film, w1, b1, g1s, g1b, w2, b2, g2s, g2b, w_res, b_r
         build.check_operand("skip", skip, dev, dt, (M, ks))
     film_kind = 0
     if film is not None:
-        film = film.to(dt)
+        if film.dtype != dt:
+            film = film.to(dt)
         build.check_operand("film", film, dev, dt, film.shape)
         film_kind = 2 if film.shape[0] == M else 1
-    W1, W2, Wres, V = build.prepared(b1, (w1, g1s, g1b, w2, b2, g2s, g2b, w_res, b_res), lambda: (
-        _kernel_weights(w1, kx, dt), _kernel_weights(w2, C, dt), _kernel_weights(w_res, kx, dt),
-        torch.stack([v.float() for v in (b1, g1s, g1b, b2, g2s, g2b,
-                                          b1.new_zeros(C) if b_res is None else b_res)])))
-    for name, w in (("w1", W1), ("w2", W2), ("w_res", Wres), ("vectors", V)):
-        if w is not None and (w.device != dev or w.data_ptr() % 16):
-            raise ValueError(f"{name} must be 16-byte aligned on {dev}")
-    out = torch.empty(M, C, dtype=dt, device=dev)
+
+    def make():
+        ops = (_kernel_weights(w1, dt), _kernel_weights(w2, dt), _kernel_weights(w_res, dt),
+               torch.stack([v.float() for v in (b1, g1s, g1b, b2, g2s, g2b,
+                                                 b1.new_zeros(C) if b_res is None else b_res)]))
+        for name, w in zip(("w1", "w2", "w_res", "vectors"), ops):
+            if w is not None and (w.device != dev or w.data_ptr() % 16):
+                raise ValueError(f"{name} must be 16-byte aligned on {dev}")
+        return ops, dev, tuple(None if w is None else w.data_ptr() for w in ops)
+
+    _, wdev, (w1p, w2p, wresp, vp) = build.prepared(
+        b1, (w1, g1s, g1b, w2, b2, g2s, g2b, w_res, b_res), make, key=dt)
+    if wdev != dev:
+        raise ValueError(f"the weights are on {wdev}, x on {dev}")
+    out = x.new_empty((M, C))
     rc = load_library().fused_resblock_launch(
         build.DTYPE_CODES[dt], x.data_ptr(), None if skip is None else skip.data_ptr(),
-        None if film is None else film.data_ptr(), film_kind, W1.data_ptr(), W2.data_ptr(),
-        None if Wres is None else Wres.data_ptr(), V.data_ptr(), out.data_ptr(),
-        M // n, n, C, kx, ks, groups, eps, torch.cuda.current_stream(dev).cuda_stream,
+        None if film is None else film.data_ptr(), film_kind, w1p, w2p, wresp, vp, out.data_ptr(),
+        M // n, n, C, kx, ks, groups, eps, build.stream_ptr(dev),
     )
     if rc != 0:
         raise RuntimeError(f"fused_resblock_launch failed with code {rc}")
@@ -217,10 +294,10 @@ def fused_resnet_block(
     if film is not None and (film.shape[-1] != 2 * C or film.shape[0] not in (M, M // n)):
         raise ValueError(f"film has shape {tuple(film.shape)}, expected ({M} or {M // n}, {2 * C})")
     args = (x, film, w1, b1, gn1_scale, gn1_bias, w2, b2, gn2_scale, gn2_bias, w_res, b_res)
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return fused_resnet_block_reference(*args, n_per_scene=n, groups=groups, eps=eps,
                                             compute_dtype=compute_dtype, skip=skip)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
         raise ValueError(f"fused_resnet_block runs on cpu or cuda tensors, got {x.device}")
     out = _launch_kernel(x, skip, *args[1:], n, groups, eps, compute_dtype)
     fused_resnet_block.launches += 1

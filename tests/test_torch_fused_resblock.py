@@ -180,15 +180,118 @@ def test_prepared_operands_follow_their_weights():
     assert made == [16.0, 32.0, 32.0]
 
 
+def test_prepared_operands_follow_the_compute_dtype():
+    """The packed layout depends on the compute dtype, so the B1 and B2
+    wrappers key their prepared operands on it: the same weights run in
+    f32 and then in bf16 (or back) get each dtype's own operands."""
+    from diffuscene_tpu_torch.ops import build
+
+    b, w = torch.zeros(4), torch.ones(4, 4)
+
+    def make(dt):
+        return lambda: w.to(dt)
+
+    for dt in (torch.float32, torch.bfloat16, torch.float32):
+        assert build.prepared(b, (w,), make(dt), key=dt).dtype == dt
+    held = build.prepared(b, (w,), make(torch.float32), key=torch.float32)
+    assert build.prepared(b, (w,), make(torch.bfloat16), key=torch.float32) is held
+
+
+@pytest.mark.parametrize("name,K,kx", [("w1_x_skip", 1024, 512), ("w2", 512, 512),
+                                       ("w_res_x_skip", 1024, 512), ("w1_cat", 1024, 1024)])
+def test_group_tile_packing_matches_index_formula(name, K, kx):
+    """Element (group g, k-tile kt, position p) of the bf16 kernel's packed
+    weight is W[64 kt + 8 (p // 512) + p % 8, 64 g + 8 ((p // 64) % 8) +
+    (p // 8) % 8]: core matrices of 8 columns x 8 k values (128 bytes), 128
+    bytes apart in n and 1024 in k (the wgmma descriptor's SBO and LBO in
+    csrc/sm90.cuh).  With the skip split at kx, a group's first kx / 64
+    chunks hold x rows and the rest skip rows."""
+    C = trb.CHANNELS
+    w = torch.arange(K * C, dtype=torch.float64).reshape(K, C)   # every element distinct
+    packed = trb.pack_group_tiles(w).reshape(C // 64, K // 64, 4096)
+    g, kt, p = np.meshgrid(np.arange(C // 64), np.arange(K // 64), np.arange(4096), indexing="ij")
+    k = 64 * kt + 8 * (p // 512) + p % 8
+    col = 64 * g + 8 * ((p // 64) % 8) + (p // 8) % 8
+    assert np.array_equal(packed.numpy(), w.numpy()[k, col])
+    assert (k[:, : kx // 64] < kx).all() and (k[:, kx // 64:] >= kx).all()
+    with pytest.raises(ValueError):   # neither 64-deep tiles nor 512 columns
+        trb.pack_group_tiles(w[:, :256])
+
+
+# (N, kx, ks, B) -> (scenes per tile, clusters, CTAs, stages, shared bytes)
+PLANS = {
+    (12, 512, 0, 64): (5, 13, 104, 4, 102344), (12, 1024, 0, 64): (5, 13, 104, 8, 200648),
+    (12, 512, 512, 64): (5, 13, 104, 8, 200648), (12, 512, 512, 63): (5, 13, 104, 8, 200648),
+    (12, 512, 0, 768): (5, 154, 1232, 4, 102344), (12, 512, 512, 768): (5, 154, 1232, 8, 200648),
+    (21, 512, 0, 64): (3, 22, 176, 4, 102344), (21, 512, 512, 64): (3, 22, 176, 8, 200648),
+    (21, 1024, 0, 63): (3, 21, 168, 8, 200648), (21, 512, 512, 768): (3, 256, 2048, 8, 200648),
+}
+
+
+@pytest.mark.parametrize("case", list(PLANS))
+def test_tile_plan_at_flagship_shapes(case):
+    """The bf16 kernel's launch: whole scenes in 64-row tiles, one cluster
+    of 8 CTAs a tile, and a CTA's shared memory within the H100's 232,448
+    bytes (the library checks the same sum against the .cu when it loads)."""
+    N, kx, ks, B = case
+    plan = trb.tile_plan(B, N, kx, ks)
+    assert tuple(plan) == PLANS[case]
+    assert plan.scenes_per_tile * N <= trb.TILE_ROWS < (plan.scenes_per_tile + 1) * N
+    assert plan.clusters * plan.scenes_per_tile >= B > (plan.clusters - 1) * plan.scenes_per_tile
+    assert plan.smem_bytes <= trb.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("case", ["c64", "groups16", "cx_not_64", "cin_not_128", "rows65",
+                                  "f32_rows25"])
+def test_kernel_path_refuses_shapes_it_does_not_take(case):
+    """No fallback: what the kernels do not take raises before any launch
+    (the bf16 kernel: C=512 in 8 groups, input widths of multiples of 64
+    summing to a multiple of 128, scenes of at most 64 rows; the f32
+    kernel: scenes of at most 24 rows)."""
+    C, c_in, n, groups, dt = 512, 512, 12, 8, torch.bfloat16
+    if case == "c64":
+        C, c_in = 64, 64
+    elif case == "groups16":
+        groups = 16
+    elif case == "cx_not_64":
+        c_in = 528
+    elif case == "cin_not_128":
+        c_in = 576
+    elif case == "rows65":
+        n = 65
+    else:
+        n, dt = 25, torch.float32
+    x = torch.zeros(n, c_in, dtype=dt)
+    w1, w2 = torch.zeros(c_in, C), torch.zeros(C, C)
+    v = torch.zeros(C)
+    w_res = None if c_in == C else torch.zeros(c_in, C)
+    with pytest.raises(ValueError):
+        trb._launch_kernel(x, None, None, w1, v, v, v, w2, v, v, v, w_res, v, n, groups, 1e-6, dt)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("c_in,film", [(512, "row"), (512, "none"), (1024, "scene")])
-def test_cuda_kernel_matches_plain_version(c_in, film, dtype):
-    """The CUDA kernel against its plain version on the card, C=512, a
-    ragged last tile (7 scenes of 12)."""
+def test_cuda_library_agrees_with_the_plan():
+    """The library's limits and shared-memory sums equal the wrapper's
+    (load_library raises otherwise), and enough clusters of the bf16 kernel
+    fit on the card to run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
-    B, N = 7, 12
+    lib = trb.load_library()
+    for kx, ks in ((512, 0), (1024, 0), (512, 512)):
+        assert lib.fused_resblock_smem_bytes(kx, ks) == trb.tile_plan(64, 12, kx, ks).smem_bytes
+        assert lib.fused_resblock_max_active_clusters(kx, ks, int(kx + ks != 512)) >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [12, 21])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("c_in,film", [(512, "row"), (512, "none"), (1024, "scene")])
+def test_cuda_kernel_matches_plain_version(c_in, film, dtype, N):
+    """The CUDA kernel against its plain version on the card, C=512, a
+    ragged last tile (7 scenes: tiles of 5 scenes of 12, of 3 of 21)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
+    B = 7
     d = _case(B, N, c_in, seed=6, c=512)
     tdt = DTYPES[dtype][1]
     dev = torch.device("cuda")
