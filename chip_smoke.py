@@ -9,16 +9,23 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    kernels from csrc/fused_chain.cu, csrc/chamfer_nn.cu,
    csrc/fused_resblock.cu and csrc/set_attention.cu (one nvcc each, started
    together, sm_90a) with its time;
-2. the chain kernel against its plain torch version on the card, at the
-   flagship's shapes (C=512, B=64, N=12 and N=21), every chain variant, in
-   bf16 and f32, with each case's time beside the plain version's;
+2. the chain kernel (B4) against its plain torch version on the card, at
+   the flagship's shapes (C=512, B=64, N=12 and N=21), every chain variant,
+   in bf16 and f32, a ragged B=63, and the row_scene and row_skip chains at
+   B=768 (the JAX bench's batch) with their bound; the bf16 kernel's launch
+   plan (tile_plan against the library's shared-memory sum, clusters that
+   fit at once); each case's time as CUDA events around 20 eager calls,
+   beside a CUDA-graph replay of 20 calls, the profiler's device time and
+   the plain version's time; then the 19 chains of one flagship forward
+   (bf16, and f32 beside its FP32 bound);
 3. one full-width forward of the flagship bedroom denoiser (dim 512, 4
    levels, N=12, point_dim 62, random weights from a seed): the rows engine
    on the kernel against the plain Unet1D module forward, in f32 and bf16;
 4. a full 1000-step DDPM sample of 64 scenes through
    SceneDiffusion.sample(fused="rows"), bf16: shape, finiteness, and 19
    chain-kernel calls per step (apply_chain.launches); then torch.profiler
-   over 20 sampling steps (device busy time, idle share, top kernels);
+   over 20 sampling steps (device busy time, idle share, top kernels, B4's
+   ms per step);
 5. the chamfer nearest-neighbour kernel against its plain torch version on
    the card: the shape autoencoder's (16, 2048, 3) vs (16, 2025, 3), D=2 and
    D=5 at that size, a ragged (3, 1000) vs (3, 777), identical clouds; both
@@ -50,7 +57,8 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    ms per forward;
 10. a full 1000-step DDPM sample of 64 scenes through
    SceneDiffusion.sample(fused=True), bf16: shape, finiteness, exactly
-   28,000 B1 and 1,000 B2 launches; torch.profiler over 20 steps;
+   28,000 B1 and 1,000 B2 launches; torch.profiler over 20 steps (B1's
+   and B2's ms per step);
 11. a 20-step DPM-Solver++ sample of 64 scenes, fused=True, bf16: finite,
    exactly 560 B1 and 20 B2 launches, wall time.
 
@@ -60,12 +68,16 @@ Phase 1 prints each kernel's registers, stack and spills from ptxas.
 
     python3 chip_smoke.py --only-resblock
 
-runs phases 1 and 7 alone, the short check of a new B1 kernel (no ok line).
+runs phases 1 and 7 alone, the short check of a new B1 kernel, and
+
+    python3 chip_smoke.py --only-chain
+
+phases 1 and 2 alone, the short check of a new chain kernel (no ok line).
 
 The line before the last is the card's name and power limit again, the one
 before it a JSON summary of the kernels (launches on each main path, worst
-error, kernel, plain and library times of one forward's chains, of one
-forward's 28 ResnetBlocks (with their graph-replay time beside, as
+error, kernel, plain and library times of one forward's 19 chains and of
+its 28 ResnetBlocks (each with its graph-replay time beside, as
 "graph_ms"), of one set attention and of one chamfer forward, and each
 one's bound); the last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
@@ -109,7 +121,8 @@ RB_CASES = {"row": ("row", C, False), "scene": ("scene", C, False),
             "zero": ("zero", C, False), "none": ("none", C, False)}
 # one flagship forward: 9 block0s, 10 time blocks, 9 skip-concat blocks
 RB_FORWARD_MIX = {"row": 9, "scene": 10, "skip": 9}
-# B1 at the JAX bench's batch (bench.py), bf16, N=12
+# B4 and B1 at the JAX bench's batch (bench.py), bf16, N=12
+CHAIN_LARGE_B_CASES = ("row_scene", "row_skip")
 RB_LARGE_B, RB_LARGE_B_CASES = 768, ("scene", "skip")
 ATTN_HEADS, ATTN_DIM_HEAD = 4, 32
 DPM_STEPS = 20
@@ -227,8 +240,44 @@ def chain_case(fl, torch, variant, n, dtype, seed, batch=B):
     return chain, rnd(M, C).to(dtype), films, skips
 
 
+def chain_work(chain, x, films, skips):
+    """The least work of one chain call: every (M, C) x (C, C) product, each
+    operand read once and the output written once.  Returns (flops, bytes)."""
+    flops = 2 * x.shape[0] * C * C * chain.W.shape[0]
+    nbytes = (chain.W.numel() * chain.W.element_size() + chain.V.numel() * 4
+              + 2 * x.numel() * x.element_size()
+              + sum(t.numel() * t.element_size() for t in films + skips if t is not None))
+    return flops, nbytes
+
+
+def chain_check(fl, torch, variant, n, dtype, seed, batch=B, timed=True):
+    """One chain case: kernel vs plain version; with ``timed``, the eager
+    (CUDA events), graph-replay, profiler-device and plain times.  Returns
+    (ok, error, times or None, work)."""
+    dname = str(dtype).split(".")[-1]
+    chain, x, films, skips = chain_case(fl, torch, variant, n, dtype, seed, batch=batch)
+    got = fl.apply_chain(chain, x, films, skips, n_per_scene=n)
+    want = fl.apply_chain_reference(chain, x, films, skips, n_per_scene=n)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    ok = (bool(torch.isfinite(got.float()).all())
+          and torch.allclose(got.float(), want.float(), **KERNEL_TOL[dname]))
+    times = None
+    if timed:
+        def call():
+            return fl.apply_chain(chain, x, films, skips, n_per_scene=n)
+
+        times = dict(ms=cuda_ms(call), graph=graph_ms(torch, call),
+                     dev=device_ms(torch, call, "chain"),
+                     plain=cuda_ms(lambda: fl.apply_chain_reference(chain, x, films, skips,
+                                                                    n_per_scene=n),
+                                   iters=20 if batch == B else 5))
+    return ok, err, times, chain_work(chain, x, films, skips)
+
+
 def phase_kernels(fl, torch):
-    """Kernel vs plain version; returns (worst error, per-case results)."""
+    """Phase 2: B4 vs its plain version; returns (worst error, per-case
+    results (err, ms, plain, flops, bytes, device ms, graph ms))."""
     results, failures, worst = {}, [], 0.0
     seed = 100
     for n in (12, 21):
@@ -236,46 +285,77 @@ def phase_kernels(fl, torch):
             dname = str(dtype).split(".")[-1]
             for variant in VARIANTS:
                 seed += 1
-                chain, x, films, skips = chain_case(fl, torch, variant, n, dtype, seed)
-                got = fl.apply_chain(chain, x, films, skips, n_per_scene=n)
-                want = fl.apply_chain_reference(chain, x, films, skips, n_per_scene=n)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                finite = bool(torch.isfinite(got.float()).all())
-                ok = finite and torch.allclose(got.float(), want.float(), **KERNEL_TOL[dname])
+                ok, err, tm, (flops, nbytes) = chain_check(fl, torch, variant, n, dtype, seed)
                 worst = max(worst, err)
-                ms = cuda_ms(lambda: fl.apply_chain(chain, x, films, skips, n_per_scene=n))
-                plain = cuda_ms(lambda: fl.apply_chain_reference(chain, x, films, skips,
-                                                                 n_per_scene=n))
-                # the least work: every (M, C) x (C, C) product, each operand
-                # read once and the output written once
-                flops = 2 * x.shape[0] * C * C * chain.W.shape[0]
-                nbytes = (chain.W.numel() * chain.W.element_size() + chain.V.numel() * 4
-                          + 2 * x.numel() * x.element_size()
-                          + sum(t.numel() * t.element_size() for t in films + skips
-                                if t is not None))
-                results[(n, dname, variant)] = (err, ms, plain, flops, nbytes)
+                results[(n, dname, variant)] = (err, tm["ms"], tm["plain"], flops, nbytes,
+                                                tm["dev"], tm["graph"])
                 print(f"kernel fused_chain N={n} {dname:8s} {variant:9s} max_abs_err={err:.3e} "
                       f"tol={KERNEL_TOL[dname]} {'ok' if ok else 'FAIL'} "
-                      f"kernel_ms={ms:.4f} plain_ms={plain:.4f}", flush=True)
+                      f"kernel_ms={tm['ms']:.4f} graph_ms={tm['graph']:.4f} "
+                      f"device_ms={tm['dev']:.4f} plain_ms={tm['plain']:.4f}", flush=True)
                 if not ok:
-                    failures.append((n, dname, variant, err, finite))
-    # a ragged last tile: 63 scenes of 12 rows, tiles of 2 scenes
+                    failures.append((n, dname, variant, err))
+    # a ragged last tile: 63 scenes of 12 rows
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        chain, x, films, skips = chain_case(fl, torch, "row_skip", 12, dtype, 7, batch=63)
-        got = fl.apply_chain(chain, x, films, skips, n_per_scene=12)
-        want = fl.apply_chain_reference(chain, x, films, skips, n_per_scene=12)
-        err = (got.float() - want.float()).abs().max().item()
-        ok = torch.allclose(got.float(), want.float(), **KERNEL_TOL[dname])
+        ok, err, _, _ = chain_check(fl, torch, "row_skip", 12, dtype, 7, batch=63, timed=False)
         worst = max(worst, err)
         print(f"kernel fused_chain N=12 B=63 {dname:8s} row_skip  max_abs_err={err:.3e} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
-            failures.append((12, dname, "row_skip B=63", err, True))
+            failures.append((12, dname, "row_skip B=63", err))
+    # the JAX bench's batch (B=768)
+    for variant in CHAIN_LARGE_B_CASES:
+        ok, err, tm, (flops, nbytes) = chain_check(fl, torch, variant, 12, torch.bfloat16,
+                                                   600 + len(variant), batch=RB_LARGE_B)
+        worst = max(worst, err)
+        b_ms, b_by = bound(flops, nbytes)
+        print(f"kernel fused_chain N=12 B={RB_LARGE_B} bfloat16 {variant:9s} max_abs_err={err:.3e} "
+              f"{'ok' if ok else 'FAIL'} kernel_ms={tm['ms']:.4f} graph_ms={tm['graph']:.4f} "
+              f"device_ms={tm['dev']:.4f} plain_ms={tm['plain']:.4f} bound_ms={b_ms:.4f} ({b_by}; "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+        if not ok:
+            failures.append((12, "bfloat16", f"{variant} B={RB_LARGE_B}", err))
     if failures:
         raise RuntimeError(f"chain kernel disagrees with its plain version: {failures}")
     return worst, results
+
+
+def chain_forward(results):
+    """The 19 chains of one flagship forward (N=12, B=64) from phase 2's
+    cases, bf16 and f32: eager, graph-replay, device and plain times and the
+    bound (bf16 tensor cores; FP32 outside them).  Returns the bf16 sums and
+    bound."""
+    out = {}
+    for dname in ("bfloat16", "float32"):
+        mix = {i: sum(results[(12, dname, v)][i] * k for v, k in FORWARD_MIX.items())
+               for i in range(1, 7)}
+        b_ms, b_by = bound(mix[3], mix[4]) if dname == "bfloat16" else bound(0, mix[4], mix[3])
+        print(f"chains of one flagship forward (N=12, B={B}, {dname}, 19 chains): kernel "
+              f"{mix[1]:.3f} ms (CUDA events, eager calls), graph replay {mix[6]:.3f} ms, device "
+              f"{mix[5]:.3f} ms (profiler), plain {mix[2]:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
+              f"{mix[3] / 1e9:.2f} GFLOP, {mix[4] / 1e6:.2f} MB)", flush=True)
+        out[dname] = (mix, b_ms, b_by)
+    return out["bfloat16"]
+
+
+def chain_plan(fl):
+    """The bf16 chain kernel's launch at the flagship's shapes and the JAX
+    bench's batch: clusters of 8 CTAs, stages, shared memory a CTA (the
+    plan's sum and the library's) and the clusters that fit at once."""
+    lib = fl.load_library()
+    for n in (12, 21):
+        for batch in (B, RB_LARGE_B):
+            for variant in ("row_scene", "row_skip"):
+                blocks = [fl.ChainBlock(has_skip=sk, film=f, has_res_proj=r)
+                          for f, sk, r in VARIANTS[variant]]
+                p = fl.tile_plan(batch, n, blocks, lib)
+                skip = any(b.has_skip for b in blocks)
+                print(f"plan fused_chain bf16 N={n} B={batch} {variant}: {p.scenes_per_tile} "
+                      f"scenes a tile, {p.clusters} clusters of 8 = {p.ctas} CTAs, {p.stages} "
+                      f"stages, {p.smem_bytes} bytes of shared memory a CTA (library "
+                      f"{lib.fused_chain_smem_bytes(int(skip))}), {p.resident} clusters fit at "
+                      f"once", flush=True)
 
 
 def flagship(torch, dtype):
@@ -622,7 +702,8 @@ def phase_engine_samples(torch, scene, card):
             profile_steps(torch, lambda: p_sample_step(scene.sched, cfg.model_mean_type,
                                                        cfg.model_var_type, denoise, x_t, t_last,
                                                        noise, True),
-                          SAMPLE_PROFILE_STEPS, 1e3 * wall / T)
+                          SAMPLE_PROFILE_STEPS, 1e3 * wall / T,
+                          named=(("B1", "resblock_sm90"), ("B2", "set_attention")))
     return counts["DDPM"]
 
 
@@ -815,11 +896,12 @@ def phase_autoencoder(ch, torch):
     return launches
 
 
-def profile_steps(torch, step, n, step_ms):
+def profile_steps(torch, step, n, step_ms, named=()):
     """Where a step's time goes: torch.profiler over ``n`` steady steps;
     device busy time (the sum of the kernels' times, one stream), the idle
     share of the unprofiled step time ``step_ms`` (the profiler slows the
-    host), and the kernels that take the most."""
+    host), the kernels that take the most, and the time of each hand-written
+    kernel in ``named`` ((label, a part of its kernel name) pairs)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -843,14 +925,20 @@ def profile_steps(torch, step, n, step_ms):
         print(f"profile:   {e.self_device_time_total / busy_us:6.1%} "
               f"{e.self_device_time_total / n / 1e3:8.3f} ms/step {e.count // n:4d} calls/step "
               f"{e.key[:90]}", flush=True)
+    for label, match in named:
+        mine = [e for e in kernels if match in e.key]
+        us = sum(e.self_device_time_total for e in mine)
+        print(f"profile: {label} ({match}) {us / n / 1e3:.3f} ms/step, "
+              f"{sum(e.count for e in mine) // n} calls/step, {us / busy_us:.1%} of the device "
+              f"time", flush=True)
 
 
 def main(argv):
     import torch
 
-    only_resblock = argv == ["--only-resblock"]
-    if argv and not only_resblock:
-        print("usage: chip_smoke.py [--only-resblock]", file=sys.stderr)
+    only = argv[0] if argv else None
+    if argv not in ([], ["--only-resblock"], ["--only-chain"]):
+        print("usage: chip_smoke.py [--only-resblock | --only-chain]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -879,18 +967,17 @@ def main(argv):
             for name, regs, spill in ptxas_summary(ptxas.read_text()):
                 print(f"ptxas {lib.name.rsplit('_', 1)[0]} {name}: {regs} | {spill}")
 
-    if only_resblock:   # the short check of a new B1 kernel: phase 7 alone
+    if only == "--only-resblock":   # the short check of a new B1 kernel: phase 7 alone
         resblock_plan(rb)
         resblock_forward(*phase_resblock(rb, torch))
         print(card_line())
         return 0
+    chain_plan(fl)
     worst, results = phase_kernels(fl, torch)
-    fwd = {i: sum(results[(12, "bfloat16", v)][i] * k for v, k in FORWARD_MIX.items())
-           for i in (1, 2, 3, 4)}
-    chain_bound_ms, chain_bound_by = bound(fwd[3], fwd[4])
-    print(f"chains of one flagship forward (N=12, B={B}, bf16, 19 chains): "
-          f"kernel {fwd[1]:.3f} ms, plain {fwd[2]:.3f} ms, bound {chain_bound_ms:.4f} ms "
-          f"({fwd[3] / 1e9:.2f} GFLOP, {fwd[4] / 1e6:.2f} MB)", flush=True)
+    fwd, chain_bound_ms, chain_bound_by = chain_forward(results)
+    if only == "--only-chain":      # the short check of a new chain kernel: phase 2 alone
+        print(card_line())
+        return 0
 
     resblock_plan(rb)
     rb_worst, rb_fwd, rb_bound_ms, rb_bound_by = resblock_forward(*phase_resblock(rb, torch))
@@ -936,7 +1023,7 @@ def main(argv):
     profile_steps(torch, lambda: p_sample_step(scene.sched, cfg.model_mean_type,
                                                cfg.model_var_type, denoise, x_t, t_last,
                                                noise, True),
-                  SAMPLE_PROFILE_STEPS, 1e3 * wall / T)
+                  SAMPLE_PROFILE_STEPS, 1e3 * wall / T, named=(("B4", "chain_sm90"),))
     del out, parts, denoise
 
     # this slice's main path: the 3-D engine, every ResnetBlock on B1 and
@@ -957,6 +1044,7 @@ def main(argv):
         "launches": chain_launches,
         "max_abs_err": worst,
         "ms": fwd[1],
+        "graph_ms": fwd[6],
         "plain_ms": fwd[2],
         "bound_ms": chain_bound_ms,
         "bound_by": chain_bound_by,

@@ -64,7 +64,6 @@
 #include <cooperative_groups.h>
 
 #include "sm90.cuh"
-#include "tile_mma.cuh"
 
 namespace {
 
@@ -77,14 +76,15 @@ constexpr int kMaxIn = 1024;    // x and skip widths together
 // bfloat16: the cluster kernel
 // ---------------------------------------------------------------------------
 
-constexpr int kC = 512;                     // channels
-constexpr int kCluster = 8;                 // CTAs per scene tile = GroupNorm groups
-constexpr int kGroup = kC / kCluster;       // 64 columns per CTA
-constexpr int kTileRows = 64;               // rows per scene tile (wgmma M)
-constexpr int kConsumers = 128;             // one warpgroup
-constexpr int kThreads = kConsumers + 32;   // and one producer warp
+using sm90::kC;
+using sm90::kCluster;
+using sm90::kConsumers;
+using sm90::kGroup;
+using sm90::kThreads;
+using sm90::kTileRows;
+using sm90::hslice;
+using sm90::silu_fast;
 constexpr int kMaxStages = 8;
-static_assert(kGroup == sm90::kChunkN, "one chunk spans one group's columns");
 
 // shared-memory layout of resblock_sm90 for kin = kx + ks input columns
 struct Layout {
@@ -105,15 +105,7 @@ __host__ __device__ constexpr Layout layout(int kin) {
   return L;
 }
 
-// The gathered h, G: 8 slices of (64 rows x 64 columns), slice q from CTA q,
-// each row 128 bytes with its 16-byte chunks swizzled (chunk ^ row % 8) so
-// that ldmatrix reads and the epilogue's writes are free of bank conflicts;
-// a slice's valid rows are contiguous, so it moves as rows * 8 pieces of 16
-// bytes at the same offsets in every CTA.  Element offset of chunk `chunk`
-// of row `row` of slice q:
-__device__ __forceinline__ int hslice(int q, int row, int chunk) {
-  return q * kTileRows * kGroup + row * kGroup + 8 * (chunk ^ (row & 7));
-}
+// The gathered h, G (sm90::hslice), lives in the x tile's space.
 static_assert(kCluster * kTileRows * kGroup * 2 <= kTileRows * (kC + 8) * 2,
               "G fits in the x tile's space");
 
@@ -129,129 +121,6 @@ struct Args90 {
   int B, n, kx, ks, ts, film_kind;
   float eps;
 };
-
-// silu in f32 with the fast exponential and division: the result is rounded
-// to bf16 (as the second product's operand, or in the output)
-__device__ __forceinline__ float silu_fast(float z) { return __fdividef(z, 1.f + __expf(-z)); }
-
-// Per-scene moments of the accumulator h (this CTA's 64 columns, bias
-// added) into stat: mean at [s], rsqrt(var + eps) at [64 + s].  Fixed order:
-// a row's 16 values per thread, the row's 4 threads by shuffles, the
-// scene's rows in turn.
-__device__ __forceinline__ void scene_moments(const float (&h)[32], int n, int nsc, float eps,
-                                              float* red, float* stat) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int r0 = 16 * warp + (lane >> 2);
-  float s0 = 0.f, q0 = 0.f, s1 = 0.f, q1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    s0 += h[4 * j] + h[4 * j + 1];
-    q0 += h[4 * j] * h[4 * j] + h[4 * j + 1] * h[4 * j + 1];
-    s1 += h[4 * j + 2] + h[4 * j + 3];
-    q1 += h[4 * j + 2] * h[4 * j + 2] + h[4 * j + 3] * h[4 * j + 3];
-  }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1) {
-    s0 += __shfl_xor_sync(0xffffffffu, s0, off);
-    q0 += __shfl_xor_sync(0xffffffffu, q0, off);
-    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
-    q1 += __shfl_xor_sync(0xffffffffu, q1, off);
-  }
-  if ((lane & 3) == 0) {
-    red[r0] = s0;
-    red[kTileRows + r0] = q0;
-    red[r0 + 8] = s1;
-    red[kTileRows + r0 + 8] = q1;
-  }
-  sm90::bar_sync<kConsumers>(1);
-  if (threadIdx.x < nsc) {
-    const int s = threadIdx.x;
-    float sum = 0.f, sq = 0.f;
-    for (int i = 0; i < n; ++i) {
-      sum += red[s * n + i];
-      sq += red[kTileRows + s * n + i];
-    }
-    const float denom = 1.f / (float)(n * kGroup);
-    const float mean = sum * denom;
-    stat[s] = mean;
-    // B1's one-pass variance, without a clamp (fused_resblock.py:76-81)
-    stat[kTileRows + s] = rsqrtf(sq * denom - mean * mean + eps);
-  }
-  sm90::bar_sync<kConsumers>(1);
-}
-
-// acc[64 x 64] = A[64 x nkt*64] @ (this CTA's chunks) by the consumer
-// warpgroup, and accR likewise from the interleaved residual chunks when
-// kRes.  A: the x tile (row-major, stride lda) or, when kSlices, the
-// gathered h, taken from CTA `first`'s slice on (K tile q is CTA q's slice,
-// see hslice), each other slice waited for on its barrier in `slice_bar`
-// so that the products start on the slices already in.  Two K tiles a step
-// (nkt is even): their chunks are waited for and their A fragments loaded,
-// then all their products issue as one group, and the stages go back to the
-// producer when it is done.  A fragments in registers cannot load while
-// products that read registers are in flight (ptxas serializes them), so
-// the step is what amortizes the wait.  (s, ph): the ring position.
-template <bool kRes, bool kSlices>
-__device__ __forceinline__ void consume(float (&acc)[32], float (&accR)[32], const bf16* A,
-                                        int lda, int nkt, bf16* ring, uint64_t* full,
-                                        uint64_t* empty, int stages, int& s, uint32_t& ph,
-                                        int first = 0, uint64_t* slice_bar = nullptr) {
-  constexpr int kStep = 2;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = 16 * warp + (lane & 15), half = lane >> 4;
-#pragma unroll 1
-  for (int kt = 0; kt < nkt; kt += kStep) {
-    int sw[kStep], sr[kStep];        // the stages of each tile's W and residual chunks
-    uint32_t af[kStep][4][4];        // each tile's A fragments, 4 k16 steps
-#pragma unroll
-    for (int u = 0; u < kStep; ++u) {
-      sw[u] = s;
-      sm90::mbar_wait(&full[s], ph);
-      if (++s == stages) s = 0, ph ^= 1;
-      sr[u] = 0;
-      if constexpr (kRes) {
-        sr[u] = s;
-        sm90::mbar_wait(&full[s], ph);
-        if (++s == stages) s = 0, ph ^= 1;
-      }
-      int q = kt + u;
-      if constexpr (kSlices) {
-        q = (first + kt + u) % kCluster;
-        if (q != first) sm90::mbar_wait(&slice_bar[q], 0);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if constexpr (kSlices)
-          tile::ldmatrix_x4(af[u][j], A + hslice(q, row, 2 * j + half));
-        else
-          tile::ldmatrix_x4(af[u][j],
-                            A + row * lda + (kt + u) * sm90::kChunkK + 16 * j + 8 * half);
-      }
-    }
-    sm90::wgmma_fence();
-#pragma unroll
-    for (int u = 0; u < kStep; ++u) {
-      const uint64_t dw = sm90::chunk_desc(ring + sw[u] * sm90::kChunkElems);
-      const uint64_t dr = sm90::chunk_desc(ring + sr[u] * sm90::kChunkElems);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        sm90::wgmma_m64n64k16(acc, af[u][j], sm90::desc_add(dw, j * sm90::kChunkKStep));
-        if constexpr (kRes)
-          sm90::wgmma_m64n64k16(accR, af[u][j], sm90::desc_add(dr, j * sm90::kChunkKStep));
-      }
-    }
-    sm90::wgmma_commit();
-    sm90::wgmma_wait<0>();
-    sm90::fence_operand(acc);
-    if constexpr (kRes) sm90::fence_operand(accR);
-    __syncwarp();
-#pragma unroll
-    for (int u = 0; u < kStep; ++u) {   // this warp is done with the stages
-      sm90::mbar_arrive_if(&empty[sw[u]], lane == 0);
-      if constexpr (kRes) sm90::mbar_arrive_if(&empty[sr[u]], lane == 0);
-    }
-  }
-}
 
 template <bool kRes>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
@@ -365,7 +234,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 
   // block1: h = [x | skip] @ W1 + b1 (and the residual projection), f32
   sm90::mbar_wait(xbar, 0);
-  consume<kRes, false>(acc, accR, X, ldx, nkt1, ring, full, empty, stages, s, ph);
+  sm90::consume<kRes, false>(acc, accR, X, ldx, nkt1, ring, full, empty, stages, s, ph);
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] += Vs[8 * (i / 4) + 2 * t + (i & 1)];
   if constexpr (!kRes) {   // the identity residual: this CTA's slice of x
@@ -378,7 +247,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
   // that the loads of the identity residual above are ordered before
   // the peers' stores into the same bytes
   sm90::cluster_arrive();
-  scene_moments(acc, a.n, nsc, a.eps, red, stat);
+  sm90::scene_moments<false>(acc, a.n, nsc, a.eps, red, stat);
 
   // GN1, FiLM, SiLU; this CTA's bf16 slice of h into its place in G
 #pragma unroll
@@ -410,31 +279,17 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
   // x tile
   sm90::bar_sync<kConsumers>(1);
   sm90::cluster_wait();            // (1)
-  {
-    const bf16* mine = G + hslice(grp, 0, 0);
-    uint32_t dst[kCluster - 1], bar[kCluster - 1];
-#pragma unroll
-    for (int p = 0; p < kCluster - 1; ++p) {
-      const int peer = (grp + 1 + p) % kCluster;
-      dst[p] = sm90::cluster_addr(mine, peer);
-      bar[p] = sm90::cluster_addr(&gbar[grp], peer);
-    }
-    for (int i = threadIdx.x; i < rows * (kGroup / 8); i += kConsumers) {
-      const uint4 v = reinterpret_cast<const uint4*>(mine)[i];
-#pragma unroll
-      for (int p = 0; p < kCluster - 1; ++p) sm90::st_async(dst[p] + 16 * i, v, bar[p]);
-    }
-  }
+  sm90::send_slice(G, grp, rows, gbar);
 
   // block2: h = round(h) @ W2 + b2, from this CTA's slice on, each other one
   // as it lands; then GroupNorm, SiLU, the residual, the store
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-  consume<false, true>(acc, accR, G, 0, nkt2, ring, full, empty, stages, s, ph, grp, gbar);
+  sm90::consume<false, true>(acc, accR, G, 0, nkt2, ring, full, empty, stages, s, ph, grp, gbar);
   sm90::cluster_arrive_relaxed();  // (2) every slice of this CTA's G has landed
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] += Vs[3 * kGroup + 8 * (i / 4) + 2 * t + (i & 1)];
-  scene_moments(acc, a.n, nsc, a.eps, red, stat);
+  sm90::scene_moments<false>(acc, a.n, nsc, a.eps, red, stat);
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int r = r0 + 8 * half;

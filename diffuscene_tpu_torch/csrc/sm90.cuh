@@ -10,7 +10,14 @@
 // - warpgroup products: the shared-memory descriptor of a weight chunk in the
 //   no-swizzle core-matrix layout, and wgmma.mma_async m64n64k16 with A in
 //   registers, B from shared memory, f32 accumulation;
-// - the named barrier of the consumer warps.
+// - the named barrier of the consumer warps;
+// - the scene-tile cluster shared by the bf16 ResnetBlock kernel
+//   (fused_resblock.cu) and the bf16 chain kernel (fused_chain.cu): a tile of
+//   whole scenes (at most 64 rows) is one cluster of 8 CTAs, CTA g owning
+//   GroupNorm group g's 64 output columns; its layout of a gathered (64, 512)
+//   activation (hslice), its K loop on wgmma fed by a ring of weight chunks
+//   (consume), the per-scene moments of its 64 columns (scene_moments), and
+//   the exchange of a CTA's slice with the other 7 (send_slice).
 //
 // The weight chunk layout.  A chunk is one 64-deep K tile of one group of 64
 // output columns, (k, n) in [0, 64)^2, stored as 8 x 8 core matrices of 8 n
@@ -27,6 +34,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tile_mma.cuh"
 
 namespace sm90 {
 
@@ -129,6 +138,12 @@ __device__ __forceinline__ void st_async(uint32_t dst, uint4 v, uint32_t bar) {
       : "memory");
 }
 
+// orders this thread's generic-proxy memory accesses before its (or, after
+// a barrier, another thread's) later bulk copies of the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+
 // ---- cluster barrier -----------------------------------------------------
 
 // every thread of the cluster arrives once and then waits once per phase;
@@ -209,6 +224,171 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ---- the scene-tile cluster ------------------------------------------------
+
+constexpr int kC = 512;                     // channels
+constexpr int kCluster = 8;                 // CTAs per scene tile = GroupNorm groups
+constexpr int kGroup = kC / kCluster;       // 64 columns per CTA
+constexpr int kTileRows = 64;               // rows per scene tile (wgmma M)
+constexpr int kConsumers = 128;             // one warpgroup
+constexpr int kThreads = kConsumers + 32;   // and one producer warp
+static_assert(kGroup == kChunkN, "one chunk spans one group's columns");
+
+// A gathered activation G: 8 slices of (64 rows x 64 columns), slice q from
+// CTA q, each row 128 bytes with its 16-byte chunks swizzled (chunk ^ row % 8)
+// so that ldmatrix reads and the epilogue's writes are free of bank
+// conflicts; a slice's valid rows are contiguous, so it moves as rows * 8
+// pieces of 16 bytes at the same offsets in every CTA.  Element offset of
+// chunk `chunk` of row `row` of slice q:
+__device__ __forceinline__ int hslice(int q, int row, int chunk) {
+  return q * kTileRows * kGroup + row * kGroup + 8 * (chunk ^ (row & 7));
+}
+
+// silu in f32 with the fast exponential and division (the kernels round the
+// result to bf16)
+__device__ __forceinline__ float silu_fast(float z) { return __fdividef(z, 1.f + __expf(-z)); }
+
+// acc[64 x 64] += A[64 x nkt*64] @ (this CTA's chunks) by the consumer
+// warpgroup, and accR likewise from the interleaved residual chunks when
+// kRes.  A: a row-major tile (stride lda) or, when kSlices, a gathered G,
+// taken from CTA `first`'s slice on (K tile q is CTA q's slice, see hslice),
+// each other slice waited for on its barrier in `slice_bar` so that the
+// products start on the slices already in.  Two K tiles a step (nkt is
+// even): their chunks are waited for and their A fragments loaded, then all
+// their products issue as one group, and the stages go back to the producer
+// when it is done.  A fragments in registers cannot load while products that
+// read registers are in flight (ptxas serializes them), so the step is what
+// amortizes the wait.  (s, ph): the ring position.
+template <bool kRes, bool kSlices>
+__device__ __forceinline__ void consume(float (&acc)[32], float (&accR)[32],
+                                        const __nv_bfloat16* A, int lda, int nkt,
+                                        __nv_bfloat16* ring, uint64_t* full, uint64_t* empty,
+                                        int stages, int& s, uint32_t& ph, int first = 0,
+                                        uint64_t* slice_bar = nullptr) {
+  constexpr int kStep = 2;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = 16 * warp + (lane & 15), half = lane >> 4;
+#pragma unroll 1
+  for (int kt = 0; kt < nkt; kt += kStep) {
+    int sw[kStep], sr[kStep];        // the stages of each tile's W and residual chunks
+    uint32_t af[kStep][4][4];        // each tile's A fragments, 4 k16 steps
+#pragma unroll
+    for (int u = 0; u < kStep; ++u) {
+      sw[u] = s;
+      mbar_wait(&full[s], ph);
+      if (++s == stages) s = 0, ph ^= 1;
+      sr[u] = 0;
+      if constexpr (kRes) {
+        sr[u] = s;
+        mbar_wait(&full[s], ph);
+        if (++s == stages) s = 0, ph ^= 1;
+      }
+      int q = kt + u;
+      if constexpr (kSlices) {
+        q = (first + kt + u) % kCluster;
+        if (q != first) mbar_wait(&slice_bar[q], 0);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if constexpr (kSlices)
+          tile::ldmatrix_x4(af[u][j], A + hslice(q, row, 2 * j + half));
+        else
+          tile::ldmatrix_x4(af[u][j], A + row * lda + (kt + u) * kChunkK + 16 * j + 8 * half);
+      }
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int u = 0; u < kStep; ++u) {
+      const uint64_t dw = chunk_desc(ring + sw[u] * kChunkElems);
+      const uint64_t dr = chunk_desc(ring + sr[u] * kChunkElems);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        wgmma_m64n64k16(acc, af[u][j], desc_add(dw, j * kChunkKStep));
+        if constexpr (kRes) wgmma_m64n64k16(accR, af[u][j], desc_add(dr, j * kChunkKStep));
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_operand(acc);
+    if constexpr (kRes) fence_operand(accR);
+    __syncwarp();
+#pragma unroll
+    for (int u = 0; u < kStep; ++u) {   // this warp is done with the stages
+      mbar_arrive_if(&empty[sw[u]], lane == 0);
+      if constexpr (kRes) mbar_arrive_if(&empty[sr[u]], lane == 0);
+    }
+  }
+}
+
+// Per-scene moments of an accumulator h (this CTA's 64 columns) into stat:
+// mean at [s], rsqrt(var + eps) at [64 + s], with the one-pass variance
+// E[h^2] - E[h]^2 clamped at 0 when kClamp (the chain's GroupNorm) or not
+// (B1's).  Fixed order: a row's 16 values per thread, the row's 4 threads by
+// shuffles, the scene's rows in turn.  Called by the consumer warpgroup.
+template <bool kClamp>
+__device__ __forceinline__ void scene_moments(const float (&h)[32], int n, int nsc, float eps,
+                                              float* red, float* stat) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = 16 * warp + (lane >> 2);
+  float s0 = 0.f, q0 = 0.f, s1 = 0.f, q1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    s0 += h[4 * j] + h[4 * j + 1];
+    q0 += h[4 * j] * h[4 * j] + h[4 * j + 1] * h[4 * j + 1];
+    s1 += h[4 * j + 2] + h[4 * j + 3];
+    q1 += h[4 * j + 2] * h[4 * j + 2] + h[4 * j + 3] * h[4 * j + 3];
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    s0 += __shfl_xor_sync(0xffffffffu, s0, off);
+    q0 += __shfl_xor_sync(0xffffffffu, q0, off);
+    s1 += __shfl_xor_sync(0xffffffffu, s1, off);
+    q1 += __shfl_xor_sync(0xffffffffu, q1, off);
+  }
+  if ((lane & 3) == 0) {
+    red[r0] = s0;
+    red[kTileRows + r0] = q0;
+    red[r0 + 8] = s1;
+    red[kTileRows + r0 + 8] = q1;
+  }
+  bar_sync<kConsumers>(1);
+  if (threadIdx.x < nsc) {
+    const int s = threadIdx.x;
+    float sum = 0.f, sq = 0.f;
+    for (int i = 0; i < n; ++i) {
+      sum += red[s * n + i];
+      sq += red[kTileRows + s * n + i];
+    }
+    const float denom = 1.f / (float)(n * kGroup);
+    const float mean = sum * denom;
+    const float var = sq * denom - mean * mean;
+    stat[s] = mean;
+    stat[kTileRows + s] = rsqrtf((kClamp ? fmaxf(var, 0.f) : var) + eps);
+  }
+  bar_sync<kConsumers>(1);
+}
+
+// The exchange: every consumer thread stores 16-byte pieces of this CTA's
+// slice (`rank`, rows x 64) of the gathered G into the same place in the
+// other 7 CTAs' G by st.async, each piece completing on bars[rank] there.
+// The caller makes sure first that no peer still reads the bytes written.
+__device__ __forceinline__ void send_slice(const __nv_bfloat16* G, int rank, int rows,
+                                           uint64_t* bars) {
+  const __nv_bfloat16* mine = G + hslice(rank, 0, 0);
+  uint32_t dst[kCluster - 1], bar[kCluster - 1];
+#pragma unroll
+  for (int p = 0; p < kCluster - 1; ++p) {
+    const int peer = (rank + 1 + p) % kCluster;
+    dst[p] = cluster_addr(mine, peer);
+    bar[p] = cluster_addr(&bars[rank], peer);
+  }
+  for (int i = threadIdx.x; i < rows * (kGroup / 8); i += kConsumers) {
+    const uint4 v = reinterpret_cast<const uint4*>(mine)[i];
+#pragma unroll
+    for (int p = 0; p < kCluster - 1; ++p) st_async(dst[p] + 16 * i, v, bar[p]);
+  }
 }
 
 }  // namespace sm90

@@ -24,21 +24,33 @@ a copy).
 ``csrc/fused_chain.cu`` and CPU tensors to :func:`apply_chain_reference`,
 the plain torch twin of the JAX ``apply_chain_xla``.  It never falls back:
 a CUDA tensor the kernel cannot take raises.
+
+The bf16 kernel is B1's cluster kernel carried over a chain: a tile of whole
+scenes (at most 64 rows) is one cluster of 8 CTAs, CTA g owning GroupNorm
+group g's 64 output columns of every product; it takes C = 512 in 8 groups
+and at most one skip a chain.  :func:`tile_plan` is its launch and
+shared-memory plan and :func:`pack_chain_weights` the weight layout its bulk
+copies read.  The f32 kernel takes C <= 512 (a multiple of 64)
+and scenes of at most 24 rows.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
 import functools
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from . import build
+from .fused_resblock import CHANNELS, CHUNK_BYTES, CLUSTER, TILE_ROWS, pack_group_tiles
 
 CSRC = build.CSRC_DIR / "fused_chain.cu"
-MAX_ROWS = 24        # valid rows per thread-block tile in the kernel (kRows)
-MAX_CHANNELS = 512   # C = 2 x threads per block, at most 256 threads
+# rows of one scene each kernel takes: the f32 kernel's 24-row tile (kRows),
+# the bf16 kernel's 64-row scene tile (kTileRows)
+MAX_ROWS = {torch.float32: 24, torch.bfloat16: TILE_ROWS}
+MAX_CHANNELS = 512   # f32: C = 2 x threads per block, at most 256 threads
+MAX_VECTORS = 14     # bf16: vectors of a two-block chain staged in shared memory
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,8 +84,8 @@ class ChainParams:
     V: torch.Tensor               # (nV, C) f32: per block b1,g1s,g1b,b2,g2s,g2b[,bres]
     n_w: Tuple[int, ...]          # per-block number of (C, C) weights
     n_v: Tuple[int, ...]          # per-block number of (C,) vectors
-    # W in the bf16 kernel's tensor-core fragment order, packed at the first
-    # kernel launch (pack_mma_weights)
+    # W as the bf16 kernel's weight chunks (pack_chain_weights), packed at
+    # the first kernel launch
     W_packed: Optional[torch.Tensor] = None
 
 
@@ -219,7 +231,7 @@ def pack_mma_weights(W: torch.Tensor) -> torch.Tensor:
     reordered to k = [0,1,8,9, 2,3,10,11, 4,5,12,13, 6,7,14,15]: the
     B-fragment order of mma.m16n8k16, so that lane (g, t) of a warp reads
     its fragment {2t, 2t+1, 2t+8, 2t+9} of output column g as 8 contiguous
-    bytes.  Done once per chain, not per step."""
+    bytes.  The set-attention kernel's weights (ops/attention.py)."""
     nW, K, N = W.shape
     if K % 16:
         raise ValueError(f"K={K} is not a multiple of 16")
@@ -228,10 +240,74 @@ def pack_mma_weights(W: torch.Tensor) -> torch.Tensor:
     return blocks.permute(0, 1, 2, 4, 3, 5).contiguous().reshape(nW, N, K)
 
 
+class TilePlan(NamedTuple):
+    scenes_per_tile: int
+    clusters: int
+    ctas: int
+    stages: int                # weight chunks in flight in a CTA's ring
+    smem_bytes: int            # dynamic shared memory of one CTA
+    resident: Optional[int]    # clusters that fit on the card at once (with ``lib``)
+
+
+def tile_plan(B: int, n: int, blocks: Sequence[ChainBlock], lib=None) -> TilePlan:
+    """The bf16 kernel's launch for B scenes of n rows and a chain of
+    ``blocks``; its shared-memory sum mirrors ``layout()`` in the .cu
+    (``fused_chain_smem_bytes``): the weight ring (8 stages with a skip, else
+    4), the x tile (later the gathered h and each block's gathered output),
+    the skip tile if a block takes one, the CTA's 64 columns of up to 14
+    vectors, row sums and squares, scene moments, and 35 mbarriers (the
+    ring's full and empty ones, the x and skip tiles', block 1's output
+    tile's, one for each CTA's slice of each block's h).  With ``lib``, the
+    loaded library, ``resident`` is cudaOccupancyMaxActiveClusters."""
+    skip = any(b.has_skip for b in blocks)
+    ts = TILE_ROWS // n
+    tiles = -(-B // ts)
+    stages = 8 if skip else 4
+    group = CHANNELS // CLUSTER
+    tile = TILE_ROWS * (CHANNELS + 8) * 2
+    smem = (stages * CHUNK_BYTES + tile * (1 + skip) + MAX_VECTORS * group * 4
+            + 2 * TILE_ROWS * 4 + 2 * TILE_ROWS * 4 + (2 * 8 + 3 + 2 * CLUSTER) * 8)
+    resident = None if lib is None else lib.fused_chain_max_active_clusters(int(skip))
+    return TilePlan(ts, tiles, CLUSTER * tiles, stages, smem, resident)
+
+
+def pack_chain_weights(W: torch.Tensor) -> torch.Tensor:
+    """A chain's stacked (nW, 512, 512) (in, out) weights as the bf16
+    kernel's chunks: :func:`pack_group_tiles` of the (nW * 512, 512) stack,
+    so K tile q of weight w for group g is chunk (g, 8 w + q), 4096 elements
+    from (g * 8 nW + 8 w + q) * 4096, and a CTA's chunks for the whole chain
+    are contiguous.  Done once per chain."""
+    return pack_group_tiles(W.reshape(-1, W.shape[-1]))
+
+
+def check_kernel_shapes(blocks: Sequence[ChainBlock], dt: torch.dtype, C: int, n: int,
+                        groups: int) -> None:
+    """Raise ValueError unless the kernel of ``dt`` takes a chain of ``blocks``
+    on scenes of n rows of C channels in ``groups`` groups (bf16: C = 512 in
+    8 groups, at most 64 rows a scene and one skip a chain; f32: C a multiple
+    of 64 up to 512 in groups of an even width, at most 24 rows a scene)."""
+    if dt not in build.DTYPE_CODES:
+        raise ValueError(f"the chain kernel takes float32 or bfloat16, got {dt}")
+    if not 1 <= len(blocks) <= 2:
+        raise ValueError("the chain kernel runs chains of 1 or 2 blocks")
+    if n > MAX_ROWS[dt]:
+        raise ValueError(f"the {dt} chain kernel takes at most {MAX_ROWS[dt]} rows per scene, "
+                         f"got {n}")
+    if dt == torch.bfloat16:
+        if C != CHANNELS or groups != CLUSTER or sum(b.has_skip for b in blocks) > 1:
+            raise ValueError(f"the bf16 chain kernel takes C={CHANNELS} in {CLUSTER} groups and "
+                             f"at most one skip a chain; got C={C}, groups={groups}, "
+                             f"{sum(b.has_skip for b in blocks)} skips")
+    elif C % 64 or C > MAX_CHANNELS or C % groups or (C // groups) % 2:
+        raise ValueError(f"the f32 chain kernel takes C % 64 == 0, C <= {MAX_CHANNELS} and "
+                         f"even groups of channels, got C={C}, groups={groups}")
+
+
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Compile ``csrc/fused_chain.cu`` for sm_90a (unless this source was
-    built already, see ``ops/build.py``) and load it."""
+    built already, see ``ops/build.py``), load it, and check its limits
+    against this module's."""
     lib = build.load(CSRC)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.fused_chain_launch.argtypes = [
@@ -239,33 +315,30 @@ def load_library() -> ctypes.CDLL:
         ci, ci, ci, ci, ctypes.c_float, ci, ci, ci, vp,
     ]
     lib.fused_chain_launch.restype = ci
-    lib.fused_chain_max_rows.restype = ci
-    lib.fused_chain_max_channels.restype = ci
-    if (lib.fused_chain_max_rows(), lib.fused_chain_max_channels()) != (MAX_ROWS, MAX_CHANNELS):
-        raise RuntimeError("csrc/fused_chain.cu and ops/fused_level.py disagree on the tile limits")
+    for fn, args in ((lib.fused_chain_max_rows, [ci]), (lib.fused_chain_max_channels, []),
+                     (lib.fused_chain_smem_bytes, [ci]),
+                     (lib.fused_chain_max_active_clusters, [ci])):
+        fn.argtypes, fn.restype = args, ci
+    rows = {dt: lib.fused_chain_max_rows(code) for dt, code in build.DTYPE_CODES.items()}
+    plans = {skip: tile_plan(1, 1, [ChainBlock(has_skip=skip, has_res_proj=skip)]).smem_bytes
+             for skip in (False, True)}
+    if (rows != MAX_ROWS or lib.fused_chain_max_channels() != MAX_CHANNELS
+            or any(lib.fused_chain_smem_bytes(int(k)) != v for k, v in plans.items())):
+        raise RuntimeError("csrc/fused_chain.cu and ops/fused_level.py disagree on limits")
     return lib
 
 
 def _launch_kernel(chain: ChainParams, x, films, skips, n: int, groups: int,
                    eps: float) -> torch.Tensor:
     M, C = x.shape
-    B = M // n
     dt = x.dtype
-    if dt not in build.DTYPE_CODES:
-        raise ValueError(f"the chain kernel takes float32 or bfloat16, got {dt}")
-    if not 1 <= len(chain.blocks) <= 2:
-        raise ValueError("the chain kernel runs chains of 1 or 2 blocks")
-    if n > MAX_ROWS:
-        raise ValueError(f"the chain kernel takes at most {MAX_ROWS} rows per scene, got {n}")
-    if C % 64 or C > MAX_CHANNELS or C % groups or (C // groups) % 2:
-        raise ValueError(f"the chain kernel takes C % 64 == 0, C <= {MAX_CHANNELS} and "
-                         f"even groups of channels, got C={C}, groups={groups}")
+    check_kernel_shapes(chain.blocks, dt, C, n, groups)
     dev = x.device
     build.check_operand("x", x, dev, dt, (M, C))
     build.check_operand("W", chain.W, dev, dt, (sum(chain.n_w), C, C))
     build.check_operand("V", chain.V, dev, torch.float32, (sum(chain.n_v), C))
     ptr_skip, ptr_film = [None, None], [None, None]
-    for i, (blk, f, sk) in enumerate(zip(chain.blocks, films, skips)):
+    for i, (f, sk) in enumerate(zip(films, skips)):
         if sk is not None:
             build.check_operand(f"skips[{i}]", sk, dev, dt, (M, C))
             ptr_skip[i] = sk.data_ptr()
@@ -275,15 +348,14 @@ def _launch_kernel(chain: ChainParams, x, films, skips, n: int, groups: int,
     W = chain.W
     if dt == torch.bfloat16:
         if chain.W_packed is None:
-            chain.W_packed = pack_mma_weights(chain.W)
+            chain.W_packed = pack_chain_weights(chain.W)
         W = chain.W_packed
     specs = [blk.spec for blk in chain.blocks] + [0]
     out = torch.empty_like(x)
-    lib = load_library()
-    rc = lib.fused_chain_launch(
+    rc = load_library().fused_chain_launch(
         build.DTYPE_CODES[dt], x.data_ptr(), ptr_skip[0], ptr_skip[1], ptr_film[0], ptr_film[1],
         W.data_ptr(), chain.V.data_ptr(), out.data_ptr(),
-        B, n, C, groups, eps, len(chain.blocks), specs[0], specs[1],
+        M // n, n, C, groups, eps, len(chain.blocks), specs[0], specs[1],
         build.stream_ptr(dev),
     )
     if rc != 0:

@@ -17,6 +17,7 @@ import torch
 
 from diffuscene_tpu.ops import fused_level as jfl
 from diffuscene_tpu_torch.ops import fused_level as tfl
+from diffuscene_tpu_torch.ops import fused_resblock as trb
 
 GROUPS = 8
 C = 64
@@ -160,14 +161,126 @@ def test_mma_weight_packing_matches_fragment_layout():
     torch.testing.assert_close(acc, torch.einsum("mk,wkn->wmn", A, W), rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def _blocks(variant):
+    return [tfl.ChainBlock(has_skip=s, film=f, has_res_proj=r) for f, s, r in VARIANTS[variant]]
+
+
+# (N, B) -> (scenes per tile, clusters); every chain without a skip takes 4
+# ring stages and 104,216 bytes of shared memory a CTA, with one 8 and 203,544
+TILES = {(12, 64): (5, 13), (12, 63): (5, 13), (12, 768): (5, 154),
+         (21, 64): (3, 22), (21, 63): (3, 21), (21, 768): (3, 256)}
+
+
+@pytest.mark.parametrize("N,B", list(TILES))
 @pytest.mark.parametrize("variant", list(VARIANTS))
-def test_cuda_kernel_matches_plain_version(variant, dtype):
-    """The CUDA kernel against its plain version on the card, C=512."""
+def test_tile_plan_at_flagship_shapes(variant, N, B):
+    """The bf16 kernel's launch: whole scenes in 64-row tiles, one cluster
+    of 8 CTAs a tile, and a CTA's shared memory within the H100's 232,448
+    bytes (the library checks the same sum against the .cu when it loads)."""
+    plan = tfl.tile_plan(B, N, _blocks(variant))
+    skip = any(s for _, s, _ in VARIANTS[variant])
+    ts, clusters = TILES[(N, B)]
+    assert tuple(plan) == (ts, clusters, 8 * clusters, 8 if skip else 4,
+                           203544 if skip else 104216, None)
+    assert plan.scenes_per_tile * N <= trb.TILE_ROWS < (plan.scenes_per_tile + 1) * N
+    assert plan.clusters * plan.scenes_per_tile >= B > (plan.clusters - 1) * plan.scenes_per_tile
+    assert plan.smem_bytes <= trb.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("variant", ["skip", "row_skip"])
+def test_chain_weight_packing_matches_index_formula(variant):
+    """Element (group g, weight w, K tile q, position p) of the bf16 kernel's
+    packed chain weights is W[w][64 q + 8 (p // 512) + p % 8, 64 g + 8 ((p //
+    64) % 8) + (p // 8) % 8]: core matrices of 8 columns x 8 k values, 128
+    bytes apart in n and 1024 in k (csrc/sm90.cuh), each group's chunks of
+    the whole chain contiguous, the stack's order w1, [w1s], w2, [wres,
+    [wres_s]] kept, so the skip halves W1s and Wres_s are weights of their
+    own."""
+    C = trb.CHANNELS
+    names = []
+    for _, has_skip, res in VARIANTS[variant]:
+        names += ["w1"] + ["w1s"] * has_skip + ["w2"] + ["wres"] * res + ["wres_s"] * (has_skip and res)
+    base = {k: torch.zeros(C) for k in ("b1", "b2", "gn1_bias", "gn2_bias", "gn1_scale",
+                                       "gn2_scale", "bres")}
+    weights, i = [], 0
+    for _, has_skip, res in VARIANTS[variant]:
+        wd = dict(base)
+        for k in ["w1"] + ["w1s"] * has_skip + ["w2"] + ["wres"] * res + ["wres_s"] * (has_skip and res):
+            # every element of the stack distinct
+            wd[k] = torch.arange(C * C, dtype=torch.float64).reshape(C, C) + i * C * C
+            i += 1
+        weights.append(wd)
+    chain = tfl.build_chain(_blocks(variant), weights, compute_dtype=torch.float64)
+    nW = chain.W.shape[0]
+    assert nW == len(names)
+    packed = tfl.pack_chain_weights(chain.W).reshape(C // 64, nW, 8, 4096)
+    g, w, q, p = np.meshgrid(np.arange(C // 64), np.arange(nW), np.arange(8), np.arange(4096),
+                             indexing="ij")
+    k = 64 * q + 8 * (p // 512) + p % 8
+    col = 64 * g + 8 * ((p // 64) % 8) + (p // 8) % 8
+    assert np.array_equal(packed.numpy(), chain.W.numpy()[w, k, col])
+    # the order of the stack: weight w holds the values made w-th
+    assert np.array_equal(packed.numpy()[0, :, 0, 0] // (C * C), np.arange(nW))
+
+
+REFUSED = {
+    "bf16_c64": dict(C=64), "bf16_groups16": dict(groups=16), "bf16_rows65": dict(n=65),
+    "bf16_two_skips": dict(variant="two_skips"), "f32_rows25": dict(n=25, dt=torch.float32),
+    "f32_c576": dict(C=576, dt=torch.float32), "three_blocks": dict(variant="three"),
+}
+
+
+@pytest.mark.parametrize("case", list(REFUSED))
+def test_kernel_path_refuses_shapes_it_does_not_take(case):
+    """No fallback: what the kernels do not take raises before any launch
+    (the bf16 kernel: C=512 in 8 groups, scenes of at most 64 rows, at most
+    one skip a chain; the f32 kernel: C a multiple of 64 up to 512, scenes of
+    at most 24 rows; both: chains of 1 or 2 blocks)."""
+    kw = dict(C=512, groups=8, n=12, dt=torch.bfloat16, variant="row_skip")
+    kw.update(REFUSED[case])
+    blocks = {"two_skips": [("scene", True, True)] * 2, "three": [("none", False, False)] * 3,
+              "row_skip": VARIANTS["row_skip"]}[kw["variant"]]
+    blocks = [tfl.ChainBlock(has_skip=s, film=f, has_res_proj=r) for f, s, r in blocks]
+    with pytest.raises(ValueError):
+        tfl.check_kernel_shapes(blocks, kw["dt"], kw["C"], kw["n"], kw["groups"])
+    # and through the launch path, on CPU tensors: it raises before it builds
+    C, n, dt = kw["C"], kw["n"], kw["dt"]
+    wd = {k: torch.zeros(C, C) for k in ("w1", "w1s", "w2", "wres", "wres_s")}
+    wd.update({k: torch.zeros(C) for k in ("b1", "b2", "gn1_bias", "gn2_bias", "gn1_scale",
+                                          "gn2_scale", "bres")})
+    chain = tfl.build_chain(blocks, [wd] * len(blocks), compute_dtype=dt)
+    x = torch.zeros(n, C, dtype=dt)
+    films = [None if b.film == "none" else torch.zeros(n, 2 * C, dtype=dt) for b in blocks]
+    skips = [torch.zeros(n, C, dtype=dt) if b.has_skip else None for b in blocks]
+    with pytest.raises(ValueError):
+        tfl._launch_kernel(chain, x, films, skips, n, kw["groups"], 1e-6)
+    tfl.check_kernel_shapes(_blocks("row_skip"), torch.bfloat16, 512, 21, 8)   # taken
+
+
+@pytest.mark.gpu
+def test_cuda_library_agrees_with_the_plan():
+    """The library's limits and shared-memory sums equal the wrapper's
+    (load_library raises otherwise), and enough clusters of the bf16 kernel
+    fit on the card to run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
-    x, blocks, weights, films, skips = _case(variant, 7, 12, seed=3, C=512)  # ragged last tile
+    lib = tfl.load_library()
+    for variant in ("row_scene", "row_skip"):
+        plan = tfl.tile_plan(64, 12, _blocks(variant), lib)
+        assert lib.fused_chain_smem_bytes(int(variant == "row_skip")) == plan.smem_bytes
+        assert plan.resident >= 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("N", [12, 21])
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_cuda_kernel_matches_plain_version(variant, dtype, N):
+    """The CUDA kernel against its plain version on the card, C=512, a
+    ragged last tile (7 scenes: bf16 tiles of 5 scenes of 12, of 3 of 21)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
+    x, blocks, weights, films, skips = _case(variant, 7, N, seed=3, C=512)
     tdt = torch.float32 if dtype == "f32" else torch.bfloat16
     dev = torch.device("cuda")
     chain = tfl.build_chain(
@@ -176,8 +289,8 @@ def test_cuda_kernel_matches_plain_version(variant, dtype):
         compute_dtype=tdt)
     cast = lambda a: None if a is None else torch.from_numpy(a).to(dev, tdt)  # noqa: E731
     args = (chain, cast(x), [cast(f) for f in films], [cast(s) for s in skips])
-    got = tfl.apply_chain(*args, n_per_scene=12)
-    want = tfl.apply_chain_reference(*args, n_per_scene=12)
+    got = tfl.apply_chain(*args, n_per_scene=N)
+    want = tfl.apply_chain_reference(*args, n_per_scene=N)
     torch.cuda.synchronize()
     tol = dict(atol=1e-3, rtol=0) if dtype == "f32" else dict(atol=1e-1, rtol=5e-2)
     torch.testing.assert_close(got.float(), want.float(), **tol)
