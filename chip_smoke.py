@@ -27,17 +27,21 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    over 20 sampling steps (device busy time, idle share, top kernels, B4's
    ms per step);
 5. the chamfer nearest-neighbour kernel against its plain torch version on
-   the card: the shape autoencoder's (16, 2048, 3) vs (16, 2025, 3), D=2 and
-   D=5 at that size, a ragged (3, 1000) vs (3, 777), identical clouds; both
-   directions; the backward through the kernel against autograd over the
-   plain version; kernel, plain and torch.cdist times;
+   the card, distances bit for bit: the shape autoencoder's (16, 2048, 3)
+   vs (16, 2025, 3), D=2 and D=5 at that size, a ragged (3, 1000) vs
+   (3, 777), identical clouds, and exact ties across two slices of the
+   kernel's y sweep (the lower index must win); both directions; each
+   launch plan; the backward through the kernel against autograd over the
+   plain version; kernel (eager, graph replay, device), plain and
+   torch.cdist times;
 6. the shape autoencoder's training path at full width (the
    bed_living_diningrooms_lat32 config: latent 32, B=16, 2048 points, Adam
    1e-4, clip 10): one step with the kernel against the same step with the
    plain version, then 30 train steps on 16 synthetic box-surface clouds
    from the seed (finite, falling loss, 2 chamfer-kernel launches a step,
    directed_nn.launches), then encoding 64 clouds, then torch.profiler over
-   5 more steps (device busy time, idle share, the kernels that take most);
+   5 more steps (device busy time, idle share, the kernels that take most,
+   B3's share);
 7. the ResnetBlock kernel (B1) against its plain torch version on the card:
    C=512, B=64, N=12 and N=21, per-row film, per-scene film, zero film rows
    and no film, C_in 512 (identity residual) and 1024 (x and skip with the
@@ -50,7 +54,11 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    calls (the kernel back to back), profiler device time and the plain
    version's time;
 8. the set-attention kernel (B2) against its plain torch version: (64, 12,
-   512) and (64, 21, 512), bf16 and f32, eps 1e-5 and 1e-3, with times;
+   512) and (64, 21, 512), bf16 and f32, eps 1e-5 and 1e-3, and bf16
+   (768, 12, 512) with its bound; the bf16 kernel's launch plan (tiles,
+   clusters of 4, shared memory, clusters that fit at once); each case's
+   time as eager calls, graph replay, profiler device time and the plain
+   version's; bf16 shapes the kernel does not take must raise;
 9. one full-width forward of the flagship through the 3-D engine
    (fused_unet1d_forward, 28 B1 and 1 B2 launches) against the plain Unet1D
    module in f32 and bf16 and against the rows engine, with each engine's
@@ -58,7 +66,7 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
 10. a full 1000-step DDPM sample of 64 scenes through
    SceneDiffusion.sample(fused=True), bf16: shape, finiteness, exactly
    28,000 B1 and 1,000 B2 launches; torch.profiler over 20 steps (B1's
-   and B2's ms per step);
+   and B2's ms per step; a named kernel the profile does not show raises);
 11. a 20-step DPM-Solver++ sample of 64 scenes, fused=True, bf16: finite,
    exactly 560 B1 and 20 B2 launches, wall time.
 
@@ -72,14 +80,16 @@ runs phases 1 and 7 alone, the short check of a new B1 kernel, and
 
     python3 chip_smoke.py --only-chain
 
-phases 1 and 2 alone, the short check of a new chain kernel (no ok line).
+phases 1 and 2 alone, the short check of a new chain kernel,
+``--only-attention`` phases 1 and 8 (B2) and ``--only-chamfer`` phases 1
+and 5 (B3); none of them prints an ok line.
 
 The line before the last is the card's name and power limit again, the one
 before it a JSON summary of the kernels (launches on each main path, worst
 error, kernel, plain and library times of one forward's 19 chains and of
-its 28 ResnetBlocks (each with its graph-replay time beside, as
-"graph_ms"), of one set attention and of one chamfer forward, and each
-one's bound); the last line is
+its 28 ResnetBlocks, of one set attention and of one chamfer forward, each
+with its graph-replay time beside as "graph_ms", and each one's bound); the
+last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
 import json
@@ -124,13 +134,16 @@ RB_FORWARD_MIX = {"row": 9, "scene": 10, "skip": 9}
 # B4 and B1 at the JAX bench's batch (bench.py), bf16, N=12
 CHAIN_LARGE_B_CASES = ("row_scene", "row_skip")
 RB_LARGE_B, RB_LARGE_B_CASES = 768, ("scene", "skip")
-ATTN_HEADS, ATTN_DIM_HEAD = 4, 32
+ATTN_HEADS, ATTN_DIM_HEAD, ATTN_LARGE_B = 4, 32, 768
 DPM_STEPS = 20
 SAMPLE_PROFILE_STEPS = 20
-# chamfer cases (B, N, M, D); "identical" compares a cloud with itself
+# chamfer cases (B, N, M, D); "identical" compares a cloud with itself;
+# "dup" copies 8 y points of each slice of the kernel's M sweep into the
+# next slice and puts x points on them: exact ties that span two slices,
+# where the lower index must win
 CHAMFER_CASES = {"ae": (16, 2048, 2025, 3), "d2": (16, 2048, 2025, 2),
                  "d5": (16, 2048, 2025, 5), "ragged": (3, 1000, 777, 3),
-                 "identical": (16, 2048, 2048, 3)}
+                 "identical": (16, 2048, 2048, 3), "dup": (16, 2048, 2025, 3)}
 # stated tolerances, chamfer kernel vs plain version: the kernel repeats the
 # plain version's roundings, so distances should be equal; 1e-5 bounds a
 # rounding slip on values of O(1).  An index may differ only where both
@@ -145,6 +158,8 @@ CHAMFER_GRAD_TOL = dict(atol=1e-9, rtol=1e-4)
 AE_STEP_TOL = {"loss": 1e-6, "gradnorm": 1e-4}       # relative
 AE_CONFIG = "configs/obj_autoencoder/bed_living_diningrooms_lat32.yaml"
 AE_STEPS, AE_POINTS, AE_ENCODE, AE_PROFILE_STEPS = 30, 2048, 64, 5
+# the short checks: phase 1 and one kernel's phase, no ok line
+ONLY = ("--only-resblock", "--only-chain", "--only-attention", "--only-chamfer")
 
 
 def card_line():
@@ -608,8 +623,31 @@ def ptxas_summary(text):
     return out
 
 
+def attention_plan(at):
+    """The bf16 B2 kernel's launch at the flagship's shapes and the JAX
+    bench's batch: tiles, clusters of 4 CTAs launched (at most those
+    resident at once; each walks its tiles), shared memory a CTA (the plan's
+    sum and the library's)."""
+    lib = at.load_library()
+    resident = lib.set_attention_max_active_clusters()
+    if resident <= 0:
+        raise RuntimeError(f"set_attention_max_active_clusters failed ({resident})")
+    for n in (12, 21, 24):
+        for batch in (B, ATTN_LARGE_B):
+            p = at.tile_plan(batch, n, resident)
+            print(f"plan set_attention bf16 N={n} B={batch}: {p.scenes_per_tile} scenes a tile, "
+                  f"{p.tiles} tiles, {p.clusters} clusters of {at.HEADS} = {p.ctas} CTAs "
+                  f"({resident} clusters fit at once; {p.tiles / p.clusters:.2f} tiles a "
+                  f"cluster), {p.smem_bytes} bytes of shared memory a CTA (library "
+                  f"{lib.set_attention_smem_bytes()}), 288 threads a CTA (two consumer "
+                  f"warpgroups, a producer warp), W_qkv in 8 stages of 64 x 96", flush=True)
+
+
 def phase_attention(at, torch):
-    """Phase 8: B2 vs its plain version; returns (worst error, results)."""
+    """Phase 8: B2 vs its plain version: (64, 12, 512) and (64, 21, 512) in
+    bf16 and f32 at eps 1e-5 and 1e-3, and bf16 (768, 12, 512); each with
+    eager, graph-replay, device and plain times; a bf16 shape the kernel
+    does not take must raise.  Returns (worst error, results)."""
     dev = torch.device("cuda")
     results, failures, worst = {}, [], 0.0
     hd = ATTN_HEADS * ATTN_DIM_HEAD
@@ -618,39 +656,78 @@ def phase_attention(at, torch):
     def rnd(*shape, scale=1.0, base=0.0):
         return base + scale * torch.randn(*shape, generator=g, device=dev)
 
-    for n in (12, 21):
-        for dtype in (torch.bfloat16, torch.float32):
-            dname = str(dtype).split(".")[-1]
-            for eps in (1e-5, 1e-3):
-                args = (rnd(B, n, C).to(dtype), rnd(C, scale=0.2, base=1.0),
-                        rnd(C, 3 * hd, scale=C ** -0.5).to(dtype),
-                        rnd(hd, C, scale=hd ** -0.5).to(dtype), rnd(C, scale=0.1))
-                kw = dict(heads=ATTN_HEADS, dim_head=ATTN_DIM_HEAD, eps=eps, compute_dtype=dtype)
-                got = at.fused_set_attention(*args, **kw)
-                want = at.fused_set_attention_reference(*args, **kw)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                ok = (bool(torch.isfinite(got.float()).all())
-                      and torch.allclose(got.float(), want.float(), **KERNEL_TOL[dname]))
-                worst = max(worst, err)
-                ms = cuda_ms(lambda: at.fused_set_attention(*args, **kw))
-                plain = cuda_ms(lambda: at.fused_set_attention_reference(*args, **kw))
-                # the two products on the tensor cores; the per-head scores
-                # and their product with v (N x N x D each) in f32
-                M = B * n
-                mm_flops = 2 * M * C * 3 * hd + 2 * M * hd * C
-                attn_flops = 4 * B * ATTN_HEADS * n * n * ATTN_DIM_HEAD
-                nbytes = (2 * args[0].numel() * args[0].element_size()
-                          + sum(a.numel() * a.element_size() for a in args[1:]))
-                results[(n, dname, eps)] = (err, ms, plain, mm_flops, nbytes, attn_flops)
-                print(f"kernel set_attention N={n} {dname:8s} eps={eps:g} max_abs_err={err:.3e} "
-                      f"tol={KERNEL_TOL[dname]} {'ok' if ok else 'FAIL'} kernel_ms={ms:.4f} "
-                      f"plain_ms={plain:.4f}", flush=True)
-                if not ok:
-                    failures.append((n, dname, eps, err))
+    cases = [(n, dtype, eps, B) for n in (12, 21) for dtype in (torch.bfloat16, torch.float32)
+             for eps in (1e-5, 1e-3)] + [(12, torch.bfloat16, 1e-3, ATTN_LARGE_B)]
+    for n, dtype, eps, batch in cases:
+        dname = str(dtype).split(".")[-1]
+        args = (rnd(batch, n, C).to(dtype), rnd(C, scale=0.2, base=1.0),
+                rnd(C, 3 * hd, scale=C ** -0.5).to(dtype),
+                rnd(hd, C, scale=hd ** -0.5).to(dtype), rnd(C, scale=0.1))
+        kw = dict(heads=ATTN_HEADS, dim_head=ATTN_DIM_HEAD, eps=eps, compute_dtype=dtype)
+        got = at.fused_set_attention(*args, **kw)
+        want = at.fused_set_attention_reference(*args, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok = (bool(torch.isfinite(got.float()).all())
+              and torch.allclose(got.float(), want.float(), **KERNEL_TOL[dname]))
+        worst = max(worst, err)
+
+        def call():
+            return at.fused_set_attention(*args, **kw)
+
+        ms, graph = cuda_ms(call), graph_ms(torch, call)
+        dev_ms = device_ms(torch, call, "attention")
+        plain = cuda_ms(lambda: at.fused_set_attention_reference(*args, **kw),
+                        iters=20 if batch == B else 5)
+        # the two products on the tensor cores; the per-head scores and
+        # their product with v (N x N x D each) in f32
+        M = batch * n
+        mm_flops = 2 * M * C * 3 * hd + 2 * M * hd * C
+        attn_flops = 4 * batch * ATTN_HEADS * n * n * ATTN_DIM_HEAD
+        nbytes = (2 * args[0].numel() * args[0].element_size()
+                  + sum(a.numel() * a.element_size() for a in args[1:]))
+        if dtype == torch.float32:   # every product on the FMA pipes
+            attn_flops, mm_flops = attn_flops + mm_flops, 0
+        b_ms, b_by = bound(mm_flops, nbytes, attn_flops)
+        results[(n, dname, eps, batch)] = dict(err=err, ms=ms, graph=graph, dev=dev_ms,
+                                               plain=plain, bound=b_ms, bound_by=b_by,
+                                               mm_flops=mm_flops, attn_flops=attn_flops,
+                                               nbytes=nbytes)
+        print(f"kernel set_attention N={n} B={batch} {dname:8s} eps={eps:g} max_abs_err={err:.3e} "
+              f"tol={KERNEL_TOL[dname]} {'ok' if ok else 'FAIL'} kernel_ms={ms:.4f} "
+              f"graph_ms={graph:.4f} device_ms={dev_ms:.4f} plain_ms={plain:.4f} "
+              f"bound_ms={b_ms:.5f} ({b_by}; {nbytes / 1e6:.2f} MB)", flush=True)
+        if not ok:
+            failures.append((n, dname, eps, batch, err))
+    # the bf16 kernel takes C=512 and 4 heads of 32 only: anything else raises
+    for c, heads, dim_head in ((256, 4, 32), (512, 8, 16)):
+        hd2 = heads * dim_head
+        bad = (rnd(2, 12, c).to(torch.bfloat16), rnd(c), rnd(c, 3 * hd2).to(torch.bfloat16),
+               rnd(hd2, c).to(torch.bfloat16), rnd(c))
+        try:
+            at.fused_set_attention(*bad, heads=heads, dim_head=dim_head)
+        except ValueError as e:
+            print(f"kernel set_attention bf16 C={c} {heads} x {dim_head}: raises ({e}) ok",
+                  flush=True)
+        else:
+            failures.append(("bf16 shape not refused", c, heads, dim_head))
     if failures:
         raise RuntimeError(f"set-attention kernel disagrees with its plain version: {failures}")
     return worst, results
+
+
+def attention_phase(at, torch):
+    """Phase 8 with its plan and the summary of the bf16 engine's call;
+    returns (worst error, that call's results)."""
+    attention_plan(at)
+    worst, results = phase_attention(at, torch)
+    main = results[(12, "bfloat16", 1e-3, B)]    # the bf16 engine's call
+    print(f"set attention of one flagship forward (N=12, B={B}, bf16, eps 1e-3): kernel "
+          f"{main['ms']:.4f} ms (eager calls), graph replay {main['graph']:.4f} ms, device "
+          f"{main['dev']:.4f} ms, plain {main['plain']:.4f} ms, bound {main['bound']:.5f} ms "
+          f"({main['mm_flops'] / 1e9:.3f} GFLOP bf16 + {main['attn_flops'] / 1e9:.4f} GFLOP "
+          f"f32, {main['nbytes'] / 1e6:.2f} MB)", flush=True)
+    return worst, main
 
 
 def bound(flops, nbytes, fp32_flops=0):
@@ -703,7 +780,7 @@ def phase_engine_samples(torch, scene, card):
                                                        cfg.model_var_type, denoise, x_t, t_last,
                                                        noise, True),
                           SAMPLE_PROFILE_STEPS, 1e3 * wall / T,
-                          named=(("B1", "resblock_sm90"), ("B2", "set_attention")))
+                          named=(("B1", "resblock_sm90"), ("B2", "attention_sm90")))
     return counts["DDPM"]
 
 
@@ -718,20 +795,46 @@ def chamfer_bound_ms(B, N, M, D):
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes"
 
 
+def chamfer_plan(ch, torch):
+    """The chamfer kernel's launch for each case (points a thread, cluster
+    of CTAs splitting the y sweep, CTAs, warps an SM)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for name, (nb, n, m, d) in CHAMFER_CASES.items():
+        for a, b in ((n, m), (m, n)) if n != m else ((n, m),):
+            p = ch.launch_plan(nb, a, b)
+            print(f"plan chamfer_nn {name} B={nb} N={a} M={b}: {p.points_per_thread} points a "
+                  f"thread, {p.threads} threads a CTA, clusters of {p.cluster} (y slices of "
+                  f"{p.slices[0][1] - p.slices[0][0]}, the last {p.slices[-1][1] - p.slices[-1][0]}),"
+                  f" {p.ctas} CTAs, {p.ctas * p.threads / 32 / sms:.1f} warps an SM on {sms} SMs",
+                  flush=True)
+
+
 def phase_chamfer(ch, torch):
-    """Chamfer kernel vs plain version on the card; returns a dict of the
-    worst error and the AE shape's times."""
+    """Chamfer kernel vs plain version on the card: distances equal bit for
+    bit, indices equal or tied, and the lower index on the ties of "dup";
+    returns a dict of the worst error and the AE shape's times."""
     dev = torch.device(DEV)
     g = torch.Generator(device=dev).manual_seed(SEED + 10)
     worst, failures, out = 0.0, [], {}
+    chamfer_plan(ch, torch)
     for name, (nb, n, m, d) in CHAMFER_CASES.items():
         x = torch.rand(nb, n, d, generator=g, device=dev) - 0.5
         y = x.clone() if name == "identical" else torch.rand(nb, m, d, generator=g, device=dev) - 0.5
+        ties = []
+        if name == "dup":   # y points of slice k copied into slice k + 1
+            slices = ch.launch_plan(nb, n, m).slices
+            for k in range(len(slices) - 1):
+                for c in range(8):
+                    lo = slices[k][0] + 7 + c
+                    y[:, slices[k + 1][0] + 11 + c] = y[:, lo]
+                    x[:, len(ties)] = y[:, lo]
+                    ties.append((len(ties), lo))
         for direction, (a, b) in (("x->y", (x, y)), ("y->x", (y, x))):
             dist_k, idx_k = ch.directed_nn(a, b)
             dist_t, idx_t = ch.directed_nn_reference(a, b)
             torch.cuda.synchronize()
             err = (dist_k - dist_t).abs().max().item()
+            equal = torch.equal(dist_k, dist_t)
             differ = idx_k != idx_t
             n_differ = int(differ.sum().item())
             # where the indices differ, the plain distance at the kernel's
@@ -741,15 +844,18 @@ def phase_chamfer(ch, torch):
                 full = ch.pairwise_sqdist_kernel_order(a, b)
                 at_k = torch.gather(full, 2, idx_k.long()[..., None])[..., 0]
                 tie_gap = (at_k - dist_t)[differ].abs().max().item()
-            ok = (err <= CHAMFER_DIST_ATOL and tie_gap <= CHAMFER_DIST_ATOL
+            # the copied points' own queries must take the copy's lower index
+            forward_ties = ties if direction == "x->y" else []
+            lowest = all(bool((idx_k[:, k] == lo).all()) for k, lo in forward_ties)
+            ok = (err <= CHAMFER_DIST_ATOL and tie_gap <= CHAMFER_DIST_ATOL and equal and lowest
                   and bool(torch.isfinite(dist_k).all()))
             worst = max(worst, err)
             print(f"kernel chamfer_nn {name:9s} B={nb} N={a.shape[1]} M={b.shape[1]} D={d} "
-                  f"{direction}: max_abs_err={err:.3e} idx_differ={n_differ} "
-                  f"tie_gap={tie_gap:.3e} tol={CHAMFER_DIST_ATOL} {'ok' if ok else 'FAIL'}",
-                  flush=True)
+                  f"{direction}: max_abs_err={err:.3e} bit_equal={equal} idx_differ={n_differ} "
+                  f"tie_gap={tie_gap:.3e} cross_slice_ties={len(forward_ties)} lowest={lowest} "
+                  f"tol={CHAMFER_DIST_ATOL} {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
-                failures.append((name, direction, err, n_differ, tie_gap))
+                failures.append((name, direction, err, equal, n_differ, tie_gap, lowest))
 
     # backward through the kernel path vs autograd over the plain version
     nb, n, m, d = CHAMFER_CASES["ae"]
@@ -788,10 +894,13 @@ def phase_chamfer(ch, torch):
         dd.min(dim=1)
 
     out["ms"], out["plain_ms"], out["library_ms"] = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
+    out["graph_ms"] = graph_ms(torch, kernel)
+    out["device_ms"] = device_ms(torch, kernel, "chamfer_nn_sm90")
     out["bound_ms"], out["bound_by"] = chamfer_bound_ms(nb, n, m, d)
     out["max_abs_err"] = worst
     print(f"chamfer forward, both directions, {tuple(x0.shape)}/{tuple(y0.shape)}: kernel "
-          f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, torch.cdist "
+          f"{out['ms']:.4f} ms (eager calls), graph replay {out['graph_ms']:.4f} ms, device "
+          f"{out['device_ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, torch.cdist "
           f"{out['library_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']})",
           flush=True)
     return out
@@ -892,7 +1001,8 @@ def phase_autoencoder(ch, torch):
           f"ms={enc_ms:.3f} latent_std={lat.std().item():.5f}", flush=True)
     if not lat_ok:
         raise RuntimeError("the encoded latents are malformed")
-    profile_steps(torch, lambda: trainer.train_step(clouds), AE_PROFILE_STEPS, step_ms)
+    profile_steps(torch, lambda: trainer.train_step(clouds), AE_PROFILE_STEPS, step_ms,
+                  named=(("B3", "chamfer_nn_sm90"),))
     return launches
 
 
@@ -928,6 +1038,8 @@ def profile_steps(torch, step, n, step_ms, named=()):
     for label, match in named:
         mine = [e for e in kernels if match in e.key]
         us = sum(e.self_device_time_total for e in mine)
+        if not us:
+            raise RuntimeError(f"the profile shows no device time of {label} ({match})")
         print(f"profile: {label} ({match}) {us / n / 1e3:.3f} ms/step, "
               f"{sum(e.count for e in mine) // n} calls/step, {us / busy_us:.1%} of the device "
               f"time", flush=True)
@@ -937,8 +1049,8 @@ def main(argv):
     import torch
 
     only = argv[0] if argv else None
-    if argv not in ([], ["--only-resblock"], ["--only-chain"]):
-        print("usage: chip_smoke.py [--only-resblock | --only-chain]", file=sys.stderr)
+    if argv not in ([], *([flag] for flag in ONLY)):
+        print(f"usage: chip_smoke.py [{' | '.join(ONLY)}]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -972,6 +1084,14 @@ def main(argv):
         resblock_forward(*phase_resblock(rb, torch))
         print(card_line())
         return 0
+    if only == "--only-attention":  # the short check of a new B2 kernel: phase 8 alone
+        attention_phase(at, torch)
+        print(card_line())
+        return 0
+    if only == "--only-chamfer":    # the short check of a new B3 kernel: phase 5 alone
+        phase_chamfer(ch, torch)
+        print(card_line())
+        return 0
     chain_plan(fl)
     worst, results = phase_kernels(fl, torch)
     fwd, chain_bound_ms, chain_bound_by = chain_forward(results)
@@ -981,13 +1101,7 @@ def main(argv):
 
     resblock_plan(rb)
     rb_worst, rb_fwd, rb_bound_ms, rb_bound_by = resblock_forward(*phase_resblock(rb, torch))
-    at_worst, at_results = phase_attention(at, torch)
-    at_main = at_results[(12, "bfloat16", 1e-3)]    # the bf16 engine's call
-    at_bound_ms, at_bound_by = bound(at_main[3], at_main[4], at_main[5])
-    print(f"set attention of one flagship forward (N=12, B={B}, bf16, eps 1e-3): kernel "
-          f"{at_main[1]:.4f} ms, plain {at_main[2]:.4f} ms, bound {at_bound_ms:.5f} ms "
-          f"({at_main[3] / 1e9:.3f} GFLOP bf16 + {at_main[5] / 1e9:.4f} GFLOP f32, "
-          f"{at_main[4] / 1e6:.2f} MB)", flush=True)
+    at_worst, at_main = attention_phase(at, torch)
 
     phase_forward(torch, torch.float32)
     scene = phase_forward(torch, torch.bfloat16)
@@ -1057,6 +1171,7 @@ def main(argv):
         "launches": cham_launches,
         "max_abs_err": cham["max_abs_err"],
         "ms": cham["ms"],
+        "graph_ms": cham["graph_ms"],
         "plain_ms": cham["plain_ms"],
         "bound_ms": cham["bound_ms"],
         "bound_by": cham["bound_by"],
@@ -1081,10 +1196,11 @@ def main(argv):
         "replaces": "diffuscene_tpu/ops/attention.py:35",
         "launches": at_launches,
         "max_abs_err": at_worst,
-        "ms": at_main[1],
-        "plain_ms": at_main[2],
-        "bound_ms": at_bound_ms,
-        "bound_by": at_bound_by,
+        "ms": at_main["ms"],
+        "graph_ms": at_main["graph"],
+        "plain_ms": at_main["plain"],
+        "bound_ms": at_main["bound"],
+        "bound_by": at_main["bound_by"],
         "library_ms": None,
     }]}))
     print(card_line())

@@ -20,86 +20,175 @@
 // compare-select: 6 at D=3); the AE loss's two directions at
 // (16, 2048, 3) x (16, 2025, 3) are 1.33e8 pairs, about 24 us on 132 SMs x
 // 128 FP32 lanes at ~1.98 GHz.  Bytes are under 1 MB.  Rounding each step
-// on its own costs 2D + 4 instructions a pair instead.
+// on its own costs 2D - 1 instructions for the dot product and 3 for the
+// expansion, and the compare-select 3: 11 at D=3, about 44 us.
 //
-// Design: one thread per x point, 128 threads a block, a grid of
-// (ceil(N / 128), B).  The block stages y in chunks of kTileM points in
-// shared memory, each point as D coordinates and its squared norm; every
-// thread of a warp reads the same point at once (a broadcast, no bank
-// conflicts).  The running (min, argmin) of each thread stays in registers.
-// D is a template parameter so that the dot product unrolls.
-#include <cuda_runtime.h>
+// Design.  A thread keeps kPoints = 2 x points in registers (points t and
+// t + 32 of its CTA's 64), and each y point, read once from shared memory as
+// a broadcast (one 16-byte load at D <= 3), feeds 2 independent (min,
+// argmin) chains; the y loop is unrolled 8 deep, so a thread has 16
+// independent pairs in flight.  The M sweep is split across a cluster of S
+// CTAs (S = min(2, ceil(M / 64)); slice q is y points [q L, (q + 1) L),
+// L = ceil(M / S)), each staging its slice in shared memory in chunks of
+// kTileM points (coordinates, then |y|^2).  The CTAs then merge their
+// partial (dist, idx) through distributed shared memory: CTA q takes 1/S of
+// the block's points and reads the S partials in rank order with a strict
+// "<", so the lowest index still wins a tie that spans two slices.  One
+// launch a directed call, a grid of (ceil(N / 64) * S, B) CTAs of one warp:
+// at the AE shape 1024 CTAs, 7.8 an SM.
+//
+// Why these sizes: the pair loop is issue-bound (11 instructions a pair, as
+// above), so the kernel's time is set by how evenly the CTAs land on the
+// SMs.  Clusters of 3 to 8 CTAs were placed on 124 of the 132 SMs, and an SM
+// holding one CTA more than the mean finishes last; clusters of 2 use all
+// 132, and 1024 one-warp CTAs put 7 or 8 on each.  chip_smoke.py on an
+// H100 (PERF.md §6): 4 points a thread in 512 CTAs of 4 warps and
+// clusters of 8 took 0.089 ms a chamfer forward as graph replay, this
+// layout 0.070.
+#include <cooperative_groups.h>
 #include <math.h>
+
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTileM = 1024;
+namespace cg = cooperative_groups;
+
+constexpr int kThreads = 32;
+constexpr int kPoints = 2;                      // x points a thread
+constexpr int kBlockPoints = kThreads * kPoints;
+constexpr int kMaxCluster = 2;                  // CTAs splitting the M sweep
+constexpr int kMinSlice = 64;                   // one CTA below 2 x 64 y points
+constexpr int kTileM = 512;                     // y points staged at once
 constexpr int kMaxDim = 8;
+
+// floats a staged y point takes: D coordinates, |y|^2, padded to 16 bytes
+template <int D>
+__host__ __device__ constexpr int y_stride() { return (D + 1 + 3) / 4 * 4; }
+
+int cluster_size(int M) {
+  const int s = (M + kMinSlice - 1) / kMinSlice;
+  return s < kMaxCluster ? s : kMaxCluster;
+}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
-nn_kernel(const float* __restrict__ x, const float* __restrict__ y,
-          float* __restrict__ dist, int* __restrict__ idx, int N, int M) {
-  extern __shared__ float ys[];          // kTileM x (D + 1): coordinates, then |y|^2
+chamfer_nn_sm90(const float* __restrict__ x, const float* __restrict__ y,
+                float* __restrict__ dist, int* __restrict__ idx, int N, int M, int slice) {
+  constexpr int kS = y_stride<D>();
+  extern __shared__ float4 smem4[];
+  float* ys = reinterpret_cast<float*>(smem4);                       // kTileM x kS
+  float2* part = reinterpret_cast<float2*>(ys + kTileM * kS);       // (dist, idx bits)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), S = (int)cluster.num_blocks();
   const int b = blockIdx.y;
-  const int n = blockIdx.x * kThreads + threadIdx.x;
-  const bool valid = n < N;
+  const int n0 = (blockIdx.x / S) * kBlockPoints;
+  const int m_lo = rank * slice, m_hi = min(M, m_lo + slice);
 
-  float xv[D];
-  float xx = 0.f;
-  const float* xp = x + ((size_t)b * N + (valid ? n : 0)) * D;
+  float xv[kPoints][D], xx[kPoints], best[kPoints];
+  int best_i[kPoints];
 #pragma unroll
-  for (int d = 0; d < D; ++d) {
-    xv[d] = valid ? xp[d] : 0.f;
-    xx = d == 0 ? __fmul_rn(xv[0], xv[0]) : __fadd_rn(xx, __fmul_rn(xv[d], xv[d]));
+  for (int p = 0; p < kPoints; ++p) {
+    const int n = n0 + p * kThreads + threadIdx.x;
+    const float* xp = x + ((size_t)b * N + (n < N ? n : 0)) * D;
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      xv[p][d] = n < N ? xp[d] : 0.f;
+      const float sq = __fmul_rn(xv[p][d], xv[p][d]);
+      xx[p] = d == 0 ? sq : __fadd_rn(xx[p], sq);
+    }
+    best[p] = INFINITY;
+    best_i[p] = 0;
   }
 
-  float best = INFINITY;
-  int best_i = 0;
   const float* yb = y + (size_t)b * M * D;
-  for (int m0 = 0; m0 < M; m0 += kTileM) {
-    const int len = min(kTileM, M - m0);
+  for (int m0 = m_lo; m0 < m_hi; m0 += kTileM) {
+    const int len = min(kTileM, m_hi - m0);
     __syncthreads();                     // the previous chunk is no longer read
+#pragma unroll 4
     for (int j = threadIdx.x; j < len; j += kThreads) {
       const float* yp = yb + (size_t)(m0 + j) * D;
       float yy = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) {
         const float v = yp[d];
-        ys[j * (D + 1) + d] = v;
+        ys[j * kS + d] = v;
         yy = d == 0 ? __fmul_rn(v, v) : __fadd_rn(yy, __fmul_rn(v, v));
       }
-      ys[j * (D + 1) + D] = yy;
+      ys[j * kS + D] = yy;
     }
     __syncthreads();
-    if (valid) {
-      for (int j = 0; j < len; ++j) {
-        const float* yp = ys + j * (D + 1);
-        float xy = __fmul_rn(xv[0], yp[0]);
+#pragma unroll 8
+    for (int j = 0; j < len; ++j) {
+      float yv[kS];
 #pragma unroll
-        for (int d = 1; d < D; ++d) xy = __fadd_rn(xy, __fmul_rn(xv[d], yp[d]));
-        const float dd = __fsub_rn(__fadd_rn(xx, yp[D]), __fmul_rn(2.f, xy));
-        if (dd < best) {
-          best = dd;
-          best_i = m0 + j;
+      for (int v = 0; v < kS / 4; ++v) {
+        const float4 q = reinterpret_cast<const float4*>(ys + j * kS)[v];
+        yv[4 * v] = q.x;
+        yv[4 * v + 1] = q.y;
+        yv[4 * v + 2] = q.z;
+        yv[4 * v + 3] = q.w;
+      }
+#pragma unroll
+      for (int p = 0; p < kPoints; ++p) {
+        float xy = __fmul_rn(xv[p][0], yv[0]);
+#pragma unroll
+        for (int d = 1; d < D; ++d) xy = __fadd_rn(xy, __fmul_rn(xv[p][d], yv[d]));
+        const float dd = __fsub_rn(__fadd_rn(xx[p], yv[D]), __fmul_rn(2.f, xy));
+        if (dd < best[p]) {
+          best[p] = dd;
+          best_i[p] = m0 + j;
         }
       }
     }
   }
-  if (valid) {
-    dist[(size_t)b * N + n] = best;
-    idx[(size_t)b * N + n] = best_i;
+
+  // merge the cluster's partials: CTA `rank` takes points [rank * per, ...)
+  // of the block, reading slice 0's partial first, then each later one that
+  // is strictly smaller
+#pragma unroll
+  for (int p = 0; p < kPoints; ++p)
+    part[p * kThreads + threadIdx.x] = make_float2(best[p], __int_as_float(best_i[p]));
+  sm90::cluster_arrive();              // every partial of the cluster is written
+  sm90::cluster_wait();
+  const int per = (kBlockPoints + S - 1) / S;
+  for (int i = threadIdx.x; i < per; i += kThreads) {
+    const int q = rank * per + i, n = n0 + q;
+    if (q >= kBlockPoints || n >= N) break;
+    float bd = 0.f;
+    int bi = 0;
+    for (int c = 0; c < S; ++c) {
+      const uint2 v = sm90::ld_cluster_u2(sm90::cluster_addr(&part[q], c));
+      const float d = __uint_as_float(v.x);
+      if (c == 0 || d < bd) {
+        bd = d;
+        bi = (int)v.y;
+      }
+    }
+    dist[(size_t)b * N + n] = bd;
+    idx[(size_t)b * N + n] = bi;
   }
+  sm90::cluster_arrive();              // no CTA leaves while another reads its partials
+  sm90::cluster_wait();
 }
 
 template <int D>
 cudaError_t launch(const float* x, const float* y, float* dist, int* idx, int B, int N, int M,
                    cudaStream_t stream) {
-  const dim3 grid((N + kThreads - 1) / kThreads, B);
-  const size_t smem = sizeof(float) * kTileM * (D + 1);
-  nn_kernel<D><<<grid, kThreads, smem, stream>>>(x, y, dist, idx, N, M);
-  return cudaGetLastError();
+  const int S = cluster_size(M);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((N + kBlockPoints - 1) / kBlockPoints * S), (unsigned)B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = sizeof(float) * kTileM * y_stride<D>() + sizeof(float2) * kBlockPoints;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, chamfer_nn_sm90<D>, x, y, dist, idx, N, M, (M + S - 1) / S);
 }
 
 }  // namespace
@@ -107,6 +196,10 @@ cudaError_t launch(const float* x, const float* y, float* dist, int* idx, int B,
 extern "C" {
 
 int chamfer_nn_max_dim() { return kMaxDim; }
+int chamfer_nn_points_per_thread() { return kPoints; }
+int chamfer_nn_threads() { return kThreads; }
+// CTAs of a cluster (slices of the M sweep) for M points of y
+int chamfer_nn_cluster_size(int M) { return M < 1 ? 0 : cluster_size(M); }
 
 // x (B, N, D), y (B, M, D) f32 contiguous; dist (B, N) f32, idx (B, N) int32.
 // Returns 0, or the CUDA error of the launch (a refused launch never runs).

@@ -5,10 +5,12 @@
 // - the bulk copy of contiguous bytes from device memory into shared memory
 //   (cp.async.bulk, no tensor map; also multicast to the CTAs of a cluster),
 //   and the 16-byte asynchronous store into another CTA's shared memory
-//   (st.async), each completing on an mbarrier;
+//   (st.async), each completing on an mbarrier, and the 8-byte load from
+//   another CTA's shared memory (ld.shared::cluster);
 // - the split cluster barrier (barrier.cluster.arrive / wait);
-// - warpgroup products: the shared-memory descriptor of a weight chunk in the
-//   no-swizzle core-matrix layout, and wgmma.mma_async m64n64k16 with A in
+// - warpgroup products: the shared-memory descriptor of a K-major operand in
+//   the no-swizzle core-matrix layout (a weight chunk's, or one of another
+//   width), and wgmma.mma_async m64n64k16 and m64n48k16 with A in
 //   registers, B from shared memory, f32 accumulation;
 // - the named barrier of the consumer warps;
 // - the scene-tile cluster shared by the bf16 ResnetBlock kernel
@@ -170,11 +172,19 @@ __device__ __forceinline__ void bar_sync(int id) {
 
 // ---- warpgroup products -------------------------------------------------
 
+// descriptor of a K-major operand in the no-swizzle core-matrix layout at
+// shared address `p`: core matrices adjacent in k `lbo` bytes apart, those
+// adjacent in n kChunkSbo (128) bytes apart, i.e. (k, n) at
+// ((k / 8) * (lbo / 128) + n / 8) * 64 + (n % 8) * 8 + k % 8
+__device__ __forceinline__ uint64_t kmajor_desc(const void* p, uint32_t lbo) {
+  return static_cast<uint64_t>((smem_u32(p) & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(kChunkSbo >> 4) << 32);  // layout type 0: no swizzle
+}
+
 // descriptor of a weight chunk (layout above) at shared address `chunk`
 __device__ __forceinline__ uint64_t chunk_desc(const void* chunk) {
-  return static_cast<uint64_t>((smem_u32(chunk) & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(kChunkLbo >> 4) << 16) |
-         (static_cast<uint64_t>(kChunkSbo >> 4) << 32);  // layout type 0: no swizzle
+  return kmajor_desc(chunk, kChunkLbo);
 }
 
 // the descriptor advanced by `bytes` (the start address is in 16-byte units)
@@ -195,9 +205,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // keeps the compiler from moving accesses of the accumulators across the
 // asynchronous products
-__device__ __forceinline__ void fence_operand(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void fence_operand(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 
@@ -224,6 +235,35 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], const uint32_t (
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// d[64 x 48] += A[64 x 16] @ B[16 x 48], as wgmma_m64n64k16 with 48
+// columns: accumulator i < 24 of lane (g, t) of warp w is row 16w + g (+8
+// when i & 2), column 8 (i / 4) + 2t (+1 when i & 1).
+__device__ __forceinline__ void wgmma_m64n48k16(float (&d)[24], const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// 8 bytes from cluster address `src` (another CTA's shared memory)
+__device__ __forceinline__ uint2 ld_cluster_u2(uint32_t src) {
+  uint2 v;
+  asm volatile("ld.shared::cluster.v2.u32 {%0, %1}, [%2];\n" : "=r"(v.x), "=r"(v.y) : "r"(src)
+               : "memory");
+  return v;
 }
 
 // ---- the scene-tile cluster ------------------------------------------------

@@ -19,11 +19,16 @@ once per step, two directed launches.
 Distances use the expansion |x|^2 + |y|^2 - 2 x.y, as the JAX package's
 Pallas kernel and ``chamfer_oracle`` do, and are not clamped at 0.  Ties
 take the lowest index.
+
+The kernel keeps two x points per thread and splits the sweep over y
+across a thread-block cluster of two, merging the slices' minima in slice order;
+:func:`launch_plan` is its launch.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -31,6 +36,30 @@ from . import build
 
 CSRC = build.CSRC_DIR / "chamfer_nn.cu"
 MAX_DIM = 8
+POINTS_PER_THREAD = 2     # x points a thread keeps (kPoints)
+THREADS = 32              # threads a CTA, one warp (kThreads)
+MAX_CLUSTER = 2           # CTAs splitting the y sweep (kMaxCluster)
+MIN_SLICE = 64            # fewer CTAs below MAX_CLUSTER * MIN_SLICE y points (kMinSlice)
+
+
+class LaunchPlan(NamedTuple):
+    points_per_thread: int
+    threads: int
+    cluster: int                          # CTAs of a cluster = slices of y
+    slices: Tuple[Tuple[int, int], ...]   # [lo, hi) of y each CTA sweeps
+    x_blocks: int                         # clusters along x per cloud
+    ctas: int
+
+
+def launch_plan(B: int, N: int, M: int) -> LaunchPlan:
+    """The kernel's launch for x (B, N, D) against y (B, M, D): slice q of
+    the cluster sweeps y points [q L, min(M, (q + 1) L)), L = ceil(M / S),
+    S = min(2, ceil(M / 64)); each cluster covers 64 x points of a cloud."""
+    S = min(MAX_CLUSTER, -(-M // MIN_SLICE))
+    L = -(-M // S)
+    slices = tuple((q * L, min(M, (q + 1) * L)) for q in range(S))
+    x_blocks = -(-N // (THREADS * POINTS_PER_THREAD))
+    return LaunchPlan(POINTS_PER_THREAD, THREADS, S, slices, x_blocks, B * x_blocks * S)
 
 
 def pairwise_sqdist_kernel_order(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -62,9 +91,15 @@ def load_library() -> ctypes.CDLL:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.chamfer_nn_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, vp]
     lib.chamfer_nn_launch.restype = ci
-    lib.chamfer_nn_max_dim.restype = ci
-    if lib.chamfer_nn_max_dim() != MAX_DIM:
-        raise RuntimeError("csrc/chamfer_nn.cu and ops/chamfer.py disagree on the largest D")
+    for fn, args in ((lib.chamfer_nn_max_dim, []), (lib.chamfer_nn_points_per_thread, []),
+                     (lib.chamfer_nn_threads, []), (lib.chamfer_nn_cluster_size, [ci])):
+        fn.argtypes, fn.restype = args, ci
+    ms = (1, 64, 65, 777, 2025, 10 ** 6)
+    if ((lib.chamfer_nn_max_dim(), lib.chamfer_nn_points_per_thread(), lib.chamfer_nn_threads())
+            != (MAX_DIM, POINTS_PER_THREAD, THREADS)
+            or [lib.chamfer_nn_cluster_size(m) for m in ms]
+            != [launch_plan(1, 1, m).cluster for m in ms]):
+        raise RuntimeError("csrc/chamfer_nn.cu and ops/chamfer.py disagree on the launch")
     return lib
 
 

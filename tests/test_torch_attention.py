@@ -87,6 +87,56 @@ def test_wrapper_validates_and_counts_only_kernel_launches():
         tat.fused_set_attention(t["x"].to("meta"), t["g"], t["w_qkv"], t["w_out"], t["b_out"])
 
 
+def _core_matrix_offsets(k_deep: int, n_wide: int) -> torch.Tensor:
+    """Offset of (k, n) in a chunk of the no-swizzle core-matrix layout:
+    ((k // 8) * (n_wide // 8) + n // 8) * 64 + (n % 8) * 8 + k % 8."""
+    k = torch.arange(k_deep)[:, None]
+    n = torch.arange(n_wide)[None, :]
+    return ((k // 8) * (n_wide // 8) + n // 8) * 64 + (n % 8) * 8 + k % 8
+
+
+@pytest.mark.parametrize("head", range(4))
+def test_attention_weight_packing_per_head(head):
+    """CTA ``head`` of the bf16 kernel reads 8 chunks of 64 deep x 96 that
+    hold its q, k and v columns of W_qkv, and the (128, 128) block of W_out
+    for its output columns, 4 chunks of 64 x 64."""
+    rng = np.random.default_rng(20 + head)
+    w_qkv = torch.from_numpy(rng.normal(size=(512, 384)).astype(np.float32))
+    w_out = torch.from_numpy(rng.normal(size=(128, 512)).astype(np.float32))
+    qkv, out = tat.pack_attention_weights(w_qkv, w_out)
+    assert qkv.shape == (4 * 8 * 64 * 96,) and out.shape == (128 * 512,)
+    cols = torch.cat([torch.arange(32 * head, 32 * head + 32) + 128 * part for part in range(3)])
+    off = _core_matrix_offsets(64, 96)
+    for kt in range(8):
+        chunk = qkv[(head * 8 + kt) * 6144:(head * 8 + kt + 1) * 6144]
+        torch.testing.assert_close(chunk[off], w_qkv[64 * kt:64 * kt + 64, cols], rtol=0, atol=0)
+    block = out[head * 16384:(head + 1) * 16384]
+    off = _core_matrix_offsets(64, 64)
+    for u in range(2):
+        for kt in range(2):
+            chunk = block[(2 * u + kt) * 4096:(2 * u + kt + 1) * 4096]
+            c0 = 128 * head + 64 * u
+            torch.testing.assert_close(chunk[off], w_out[64 * kt:64 * kt + 64, c0:c0 + 64],
+                                       rtol=0, atol=0)
+    with pytest.raises(ValueError):   # the bf16 kernel's widths only
+        tat.pack_attention_weights(w_qkv[:256], w_out[:, :256])
+
+
+@pytest.mark.parametrize("n,scenes,tiles_64", [(12, 5, 13), (21, 3, 22), (24, 2, 32)])
+def test_attention_tile_plan(n, scenes, tiles_64):
+    """Tiles of whole scenes in 64 rows, one cluster of 4 CTAs each, capped
+    at the clusters resident at once; one CTA's shared memory fits."""
+    plan = tat.tile_plan(64, n)
+    assert (plan.scenes_per_tile, plan.tiles, plan.clusters, plan.ctas) == (
+        scenes, tiles_64, tiles_64, 4 * tiles_64)
+    assert plan.scenes_per_tile * n <= 64 < (plan.scenes_per_tile + 1) * n
+    assert 200_000 < plan.smem_bytes <= 232_448
+    big = tat.tile_plan(768, n, resident=33)
+    assert big.tiles == -(-768 // scenes) and (big.clusters, big.ctas) == (33, 132)
+    with pytest.raises(ValueError):
+        tat.tile_plan(64, 25)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("n", [12, 21])
@@ -103,3 +153,23 @@ def test_cuda_kernel_matches_plain_version(n, dtype):
     torch.cuda.synchronize()
     tol = dict(atol=1e-3, rtol=1e-4) if dtype == "f32" else dict(atol=1e-1, rtol=5e-2)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_bf16_at_bench_batch_and_refusals():
+    """The bf16 cluster kernel at B=768 (persistent clusters walking several
+    tiles each) against its plain version, and a bf16 shape it does not
+    take raises on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
+    d = _case(seed=6, n=12, c=512)
+    t = {k: torch.from_numpy(v).cuda() for k, v in d.items()}
+    x = t["x"].repeat(256, 1, 1).to(torch.bfloat16)          # (768, 12, 512)
+    args = (x, t["g"], t["w_qkv"], t["w_out"], t["b_out"])
+    got = tat.fused_set_attention(*args, eps=1e-3)
+    want = tat.fused_set_attention_reference(*args, eps=1e-3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-1, rtol=5e-2)
+    with pytest.raises(ValueError):
+        tat.fused_set_attention(x[:, :, :256].contiguous(), t["g"][:256], t["w_qkv"][:256],
+                                t["w_out"][:, :256], t["b_out"][:256])

@@ -161,6 +161,40 @@ def test_gather_neighbors_matches_jax():
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("M,cluster", [(1, 1), (64, 1), (65, 2), (777, 2), (2025, 2),
+                                       (2048, 2), (100_003, 2)])
+def test_launch_plan_slices_cover_m(M, cluster):
+    """The kernel's y slices are contiguous, non-empty, in order, and cover
+    [0, M) exactly, also where S does not divide M."""
+    plan = tch.launch_plan(16, 2048, M)
+    assert plan.cluster == cluster == len(plan.slices)
+    assert plan.slices[0][0] == 0 and plan.slices[-1][1] == M
+    assert all(a[1] == b[0] for a, b in zip(plan.slices, plan.slices[1:]))
+    assert all(hi > lo for lo, hi in plan.slices)
+    assert plan.x_blocks == 2048 // (plan.threads * plan.points_per_thread)
+    assert plan.ctas == 16 * plan.x_blocks * plan.cluster
+
+
+@pytest.mark.gpu
+def test_cuda_kernel_ties_across_slices_take_the_lower_index():
+    """Exact ties between copies of a y point in two slices of the kernel's
+    sweep: the query on that point takes the lower index, as the twin."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
+    x, y = (torch.from_numpy(a).cuda() for a in _clouds(17, 4, 2048, 2025, 3))
+    slices = tch.launch_plan(4, 2048, 2025).slices
+    ties = [(k, c, slices[k][0] + 3 + c) for k in range(len(slices) - 1) for c in range(8)]
+    for i, (k, c, lo) in enumerate(ties):
+        y[:, slices[k + 1][0] + 5 + c] = y[:, lo]
+        x[:, i] = y[:, lo]
+    dist, idx = tch.directed_nn(x, y)
+    want_d, want_i = tch.directed_nn_reference(x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(dist, want_d) and torch.equal(idx, want_i)
+    for i, (_, _, lo) in enumerate(ties):
+        assert bool((idx[:, i] == lo).all()) and bool((dist[:, i] == 0).all())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,N,M,D", [(16, 2048, 2025, 3), (3, 1000, 777, 5)])
 def test_cuda_kernel_matches_plain_version(B, N, M, D):
