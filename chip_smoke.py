@@ -68,10 +68,30 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    28,000 B1 and 1,000 B2 launches; torch.profiler over 20 steps (B1's
    and B2's ms per step; a named kernel the profile does not show raises);
 11. a 20-step DPM-Solver++ sample of 64 scenes, fused=True, bf16: finite,
-   exactly 560 B1 and 20 B2 launches, wall time.
+   exactly 560 B1 and 20 B2 launches, wall time;
+12. the scene model's training path at the flagship's full width (the
+   diffusion_bedrooms_instancond_lat32_v config: dim 512, 4 levels, N=12,
+   v-prediction, loss_separate, loss_iou on the train bounds, clip + Adam,
+   B=128, f32), on a synthetic cached dataset of 640 rooms made from the
+   seed and read through the copied data pipeline: one Trainer step on the
+   card against the same step on the CPU (the loss, every loss term, the
+   gradient norm and every parameter's gradient, same t and noise), then
+   30 steps on the card (finite, falling loss, the median host-clock
+   ms/step around train_step and its one metrics transfer, peak memory),
+   then torch.profiler over 5 steps (busy time, idle share, top kernels);
+13. the b512 recipe (bf16, ws_fast_vjp, fused Adam with bf16 moments, bf16
+   gradients and EMA, B=512): one step's gradients with ws_fast_vjp against
+   the same step without it, then 20 finite steps, ms/step, peak memory and
+   the profile as in 12;
+14. the entry points: cli/train_diffusion.py on the b512 config (its EMA)
+   for 3 epochs of the synthetic dataset, writing checkpoints, then
+   cli/generate_diffusion.py --fused --dpm on its checkpoint with the EMA
+   weights: 64 scenes, exactly 560 B1 and 20 B2 launches, the categorical
+   KL in stats.json.
 
 The phases run in the order 1, 2, 7, 8, 3 with 9 (one set of full-width
-models), 4, 10, 11, 5, 6.  TF32 is off for every matmul and convolution (the references are f32).
+models), 4, 10, 11, 5, 6, 12, 13, 14.  TF32 is off for every matmul and
+convolution (the references are f32).
 Phase 1 prints each kernel's registers, stack and spills from ptxas.
 
     python3 chip_smoke.py --only-resblock
@@ -81,19 +101,24 @@ runs phases 1 and 7 alone, the short check of a new B1 kernel, and
     python3 chip_smoke.py --only-chain
 
 phases 1 and 2 alone, the short check of a new chain kernel,
-``--only-attention`` phases 1 and 8 (B2) and ``--only-chamfer`` phases 1
-and 5 (B3); none of them prints an ok line.
+``--only-attention`` phases 1 and 8 (B2), ``--only-chamfer`` phases 1
+and 5 (B3) and ``--only-train`` phases 1 and 12-14 (with the train JSON
+line); none of them prints an ok line.
 
 The line before the last is the card's name and power limit again, the one
-before it a JSON summary of the kernels (launches on each main path, worst
+before it a JSON summary of the kernels, and the one before that a JSON
+summary of phases 12-14 ("train": each recipe's ms/step, busy time, idle
+share, peak memory and agreement; the CLI pair's times and launches); the
+kernels line holds the launches on each main path, worst
 error, kernel, plain and library times of one forward's 19 chains and of
 its 28 ResnetBlocks, of one set attention and of one chamfer forward, each
-with its graph-replay time beside as "graph_ms", and each one's bound); the
+with its graph-replay time beside as "graph_ms", and each one's bound.  The
 last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -158,8 +183,27 @@ CHAMFER_GRAD_TOL = dict(atol=1e-9, rtol=1e-4)
 AE_STEP_TOL = {"loss": 1e-6, "gradnorm": 1e-4}       # relative
 AE_CONFIG = "configs/obj_autoencoder/bed_living_diningrooms_lat32.yaml"
 AE_STEPS, AE_POINTS, AE_ENCODE, AE_PROFILE_STEPS = 30, 2048, 64, 5
+# the scene model's training path (phases 12-14), on a synthetic cached
+# dataset made from the seed inside the checkout (build/ is git-ignored):
+# 640 rooms, 576 in train + val (4 batches of 128 or one of 512 an epoch)
+FLAGSHIP_CONFIG = "configs/uncond/diffusion_bedrooms_instancond_lat32_v.yaml"
+B512_CONFIG = "configs/uncond/diffusion_bedrooms_instancond_lat32_v_b512_tpu.yaml"
+TRAIN_DATA, TRAIN_OUT, TRAIN_SCENES = "build/smoke_scenes", "build/smoke_train", 640
+FLAGSHIP_STEPS, B512_STEPS, TRAIN_PROFILE_STEPS, CLI_EPOCHS, GEN_SCENES = 30, 20, 5, 3, 64
+# stated tolerances, the flagship step (f32, TF32 off) on the card vs the CPU:
+# the same f32 arithmetic summed in other orders through 28 ResnetBlocks and
+# 9 attentions, forward and backward: the loss, each loss term and the
+# gradient norm within 1e-4 relative, each parameter's gradient within 1e-3
+# in relative L2
+TRAIN_STEP_TOL = {"loss": 1e-4, "gradnorm": 1e-4, "grad_rel_l2": 1e-3}
+# ws_fast_vjp vs autograd through the exact standardization, bf16, B=512:
+# the forward differs by one-pass vs two-pass moments rounded to bf16, the
+# backward's projection term uses the bf16 w (2^-9 relative), and both
+# differences pass through the bf16 network: the loss within 1e-2 relative,
+# the whole gradient within 5e-2 in relative L2, each parameter's within 2e-1
+FAST_VJP_TOL = {"loss": 1e-2, "whole": 5e-2, "worst": 2e-1}
 # the short checks: phase 1 and one kernel's phase, no ok line
-ONLY = ("--only-resblock", "--only-chain", "--only-attention", "--only-chamfer")
+ONLY = ("--only-resblock", "--only-chain", "--only-attention", "--only-chamfer", "--only-train")
 
 
 def card_line():
@@ -530,10 +574,14 @@ def phase_resblock(rb, torch):
                 graph = graph_ms(torch, lambda: rb.fused_resnet_block(*args, **kw))
                 plain = cuda_ms(lambda: rb.fused_resnet_block_reference(*args, **kw))
                 dev = device_ms(torch, lambda: rb.fused_resnet_block(*args, **kw), "resblock")
-                results[(n, dname, name)] = (err, ms, plain) + rb_work(args, kw) + (dev, graph)
+                flops, nbytes = rb_work(args, kw)
+                results[(n, dname, name)] = (err, ms, plain, flops, nbytes, dev, graph)
+                b_ms, b_by = (bound(flops, nbytes) if dname == "bfloat16"
+                              else bound(0, nbytes, flops))
                 print(f"kernel fused_resblock N={n} {dname:8s} {name:5s} max_abs_err={err:.3e} "
                       f"tol={KERNEL_TOL[dname]} {'ok' if ok else 'FAIL'} kernel_ms={ms:.4f} "
-                      f"graph_ms={graph:.4f} device_ms={dev:.4f} plain_ms={plain:.4f}", flush=True)
+                      f"graph_ms={graph:.4f} device_ms={dev:.4f} plain_ms={plain:.4f} "
+                      f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
                 if not ok:
                     failures.append((n, dname, name, err))
     # a ragged last tile: 63 scenes of 12 rows, tiles of 2 scenes
@@ -579,18 +627,22 @@ def phase_resblock(rb, torch):
 
 
 def resblock_forward(worst, results):
-    """The 28 B1 blocks of one flagship forward (N=12, B=64, bf16) from
-    phase 7's cases: CUDA-event (eager and graph replay), device, plain and
-    bound times."""
-    mix = {i: sum(results[(12, "bfloat16", v)][i] * k for v, k in RB_FORWARD_MIX.items())
-           for i in (1, 2, 3, 4, 5, 6)}
-    bound_ms, bound_by = bound(mix[3], mix[4])
-    print(f"ResnetBlocks of one flagship forward (N=12, B={B}, bf16, 28 blocks): "
-          f"kernel {mix[1]:.3f} ms (CUDA events, eager calls), graph replay {mix[6]:.3f} ms "
-          f"(CUDA events), device {mix[5]:.3f} ms (profiler), plain "
-          f"{mix[2]:.3f} ms, bound {bound_ms:.4f} ms ({mix[3] / 1e9:.2f} GFLOP, "
-          f"{mix[4] / 1e6:.2f} MB)", flush=True)
-    return worst, mix, bound_ms, bound_by
+    """The 28 B1 blocks of one flagship forward (N=12, B=64) from phase 7's
+    cases, bf16 and f32: CUDA-event (eager and graph replay), device, plain
+    and bound times (bf16 tensor cores; FP32 outside them).  Returns the
+    bf16 sums and bound."""
+    out = {}
+    for dname in ("bfloat16", "float32"):
+        mix = {i: sum(results[(12, dname, v)][i] * k for v, k in RB_FORWARD_MIX.items())
+               for i in (1, 2, 3, 4, 5, 6)}
+        b_ms, b_by = bound(mix[3], mix[4]) if dname == "bfloat16" else bound(0, mix[4], mix[3])
+        print(f"ResnetBlocks of one flagship forward (N=12, B={B}, {dname}, 28 blocks): "
+              f"kernel {mix[1]:.3f} ms (CUDA events, eager calls), graph replay {mix[6]:.3f} ms "
+              f"(CUDA events), device {mix[5]:.3f} ms (profiler), plain "
+              f"{mix[2]:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {mix[3] / 1e9:.2f} GFLOP, "
+              f"{mix[4] / 1e6:.2f} MB)", flush=True)
+        out[dname] = (mix, b_ms, b_by)
+    return (worst,) + out["bfloat16"]
 
 
 def resblock_plan(rb):
@@ -1006,6 +1058,241 @@ def phase_autoencoder(ch, torch):
     return launches
 
 
+def scene_trainer(torch, config_path, device, data_dir):
+    """A config's scene model and Trainer on ``device``, weights from the
+    seed, and its train split of the synthetic dataset at ``data_dir``
+    through the copied data pipeline."""
+    from diffuscene_tpu_torch.data.factory import get_dataset_raw_and_encoded
+    from diffuscene_tpu_torch.models import SceneDiffusion, SceneModelConfig
+    from diffuscene_tpu_torch.train.trainer import Trainer
+    from diffuscene_tpu_torch.utils.config import load_config
+
+    cfg = load_config(config_path)
+    data = dict(cfg["data"], dataset_directory=data_dir,
+                annotation_file=os.path.join(data_dir, "splits.csv"))
+    _, ds = get_dataset_raw_and_encoded(data, augmentations=data.get("augmentations"),
+                                        split=cfg["training"]["splits"], seed=SEED)
+    batch = int(cfg["training"]["batch_size"])
+    scene = SceneDiffusion(SceneModelConfig.from_config(cfg["network"]),
+                           bounds=ds.bounds.as_device_bounds(), device=device)
+    trainer = Trainer(scene, cfg["training"], steps_per_epoch=max(len(ds) // batch, 1),
+                      device=device).init(SEED)
+    return ds, batch, trainer
+
+
+def step_grads(torch, trainer, batch, t, noise):
+    """The loss and every parameter's gradient of one batch."""
+    loss, _ = trainer.scene.get_loss(batch, t=t, noise=noise)
+    return loss.item(), torch.autograd.grad(loss, trainer.params)
+
+
+def grad_rel_l2(a, b):
+    """(the worst parameter's relative L2 difference and its name index,
+    the whole gradient's)."""
+    per = [((x.float() - y.float().to(x.device)).norm() / y.float().norm().clamp_min(1e-30)).item()
+           for x, y in zip(a, b)]
+    num = sum(((x.float() - y.float().to(x.device)) ** 2).sum().item() for x, y in zip(a, b))
+    den = sum((y.float() ** 2).sum().item() for y in b)
+    worst = max(range(len(per)), key=per.__getitem__)
+    return per[worst], worst, math.sqrt(num / den)
+
+
+def train_steps(torch, trainer, batches, n, label):
+    """``n`` train steps on the card through the data pipeline: finite,
+    host-clock ms a step (the median, around train_step and its one metrics
+    transfer), peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times = [], []
+    for _ in range(n):
+        batch = trainer.put_batch(next(batches))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.train_step(batch)
+        times.append(time.perf_counter() - t0)
+        losses.append(m["loss"])
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = 1e3 * sorted(times)[len(times) // 2]
+    finite = all(math.isfinite(v) for v in losses)
+    first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
+    print(f"{label}: {n} steps: loss first5 {first:.5f} last5 {last:.5f} finite={finite} "
+          f"ms_per_step={step_ms:.3f} (median; first step {1e3 * times[0]:.3f} ms) "
+          f"peak_mem_gb={peak_gb:.3f} last_metrics={m}", flush=True)
+    if not finite:
+        raise RuntimeError(f"{label}: a loss is not finite: {losses}")
+    return batch, step_ms, peak_gb, first, last
+
+
+def phase_train_flagship(torch, data_dir):
+    """Phase 12: the flagship's train step on the card against the same step
+    on the CPU, then 30 steps on the card and a profile of 5."""
+    from diffuscene_tpu_torch.data.loader import DataLoader
+
+    ds, bsz, card = scene_trainer(torch, FLAGSHIP_CONFIG, DEV, data_dir)
+    _, _, cpu = scene_trainer(torch, FLAGSHIP_CONFIG, "cpu", data_dir)
+    batches = DataLoader(ds, bsz, shuffle=True, seed=SEED).infinite()
+    host = next(batches)
+    g = torch.Generator().manual_seed(SEED + 30)
+    t = torch.randint(0, T, (bsz,), generator=g)
+    noise = torch.randn(bsz, 12, 62, generator=g)
+    dev_args = (card.put_batch(host), t.to(DEV), noise.to(DEV))
+    cpu_args = (cpu.put_batch(host), t, noise)
+    loss_c, grads_c = step_grads(torch, card, *dev_args)
+    loss_p, grads_p = step_grads(torch, cpu, *cpu_args)
+    worst, at, whole = grad_rel_l2(grads_c, grads_p)
+    del grads_c, grads_p
+    m_c = card.train_step(dev_args[0], t=dev_args[1], noise=dev_args[2])
+    m_p = cpu.train_step(cpu_args[0], t=t, noise=noise)
+    rel = {k: abs(m_c[k] - m_p[k]) / max(abs(m_p[k]), 1e-12) for k in m_p}
+    rel_loss = max(v for k, v in rel.items() if k.startswith("loss"))
+    ok = (rel_loss <= TRAIN_STEP_TOL["loss"] and rel["gradnorm"] <= TRAIN_STEP_TOL["gradnorm"]
+          and worst <= TRAIN_STEP_TOL["grad_rel_l2"])
+    print(f"train flagship, card vs cpu (B={bsz}, f32, TF32 off): loss {m_c['loss']:.7f} vs "
+          f"{m_p['loss']:.7f} (get_loss {loss_c:.7f} vs {loss_p:.7f}), gradnorm "
+          f"{m_c['gradnorm']:.6f} vs {m_p['gradnorm']:.6f}, worst relative loss-term "
+          f"difference {rel_loss:.3e}, gradient relative L2: worst parameter {worst:.3e} "
+          f"({card.names[at]}), whole {whole:.3e}; tol={TRAIN_STEP_TOL} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"the flagship step disagrees between card and CPU: {rel}, "
+                           f"gradients {worst} at {card.names[at]}")
+    del cpu, cpu_args
+
+    # the main path: 30 steps through the data pipeline
+    batch, step_ms, peak_gb, first, last = train_steps(torch, card, batches, FLAGSHIP_STEPS,
+                                                       "train flagship")
+    if not last < first:
+        raise RuntimeError(f"the flagship loss did not fall: first5 {first}, last5 {last}")
+    prof = profile_steps(torch, lambda: card.train_step(batch), TRAIN_PROFILE_STEPS, step_ms)
+    return {"config": FLAGSHIP_CONFIG, "B": bsz, "dtype": "float32", "steps": FLAGSHIP_STEPS,
+            "ms_per_step": step_ms, "busy_ms": prof["busy_ms"], "idle_share": prof["idle_share"],
+            "peak_mem_gb": peak_gb, "loss_first5": first, "loss_last5": last,
+            "card_vs_cpu": {"loss_rel": rel_loss, "gradnorm_rel": rel["gradnorm"],
+                            "grad_rel_l2_worst": worst, "grad_rel_l2": whole},
+            "top_kernels": prof["top"]}
+
+
+def phase_train_b512(torch, data_dir):
+    """Phase 13: the b512 recipe (bf16, ws_fast_vjp, bf16 moments, gradients
+    and EMA, B=512): one step's gradients with ws_fast_vjp against the same
+    step without it, then 20 steps and a profile of 5."""
+    from diffuscene_tpu_torch.data.loader import DataLoader
+    from diffuscene_tpu_torch.models.denoiser import WSConv1x1
+
+    ds, bsz, tr = scene_trainer(torch, B512_CONFIG, DEV, data_dir)
+    batches = DataLoader(ds, bsz, shuffle=True, seed=SEED).infinite()
+    g = torch.Generator().manual_seed(SEED + 31)
+    args = (tr.put_batch(next(batches)), torch.randint(0, T, (bsz,), generator=g).to(DEV),
+            torch.randn(bsz, 12, 62, generator=g).to(DEV))
+    ws = [m for m in tr.scene.denoiser.modules() if isinstance(m, WSConv1x1)]
+    if not ws or not all(m.fast_vjp for m in ws):
+        raise RuntimeError("the b512 config did not switch on ws_fast_vjp in every WS layer")
+    loss_f, grads_f = step_grads(torch, tr, *args)
+    for m in ws:
+        m.fast_vjp = False
+    loss_e, grads_e = step_grads(torch, tr, *args)
+    for m in ws:
+        m.fast_vjp = True
+    worst, at, whole = grad_rel_l2(grads_f, grads_e)
+    del grads_f, grads_e
+    ok = whole <= FAST_VJP_TOL["whole"] and worst <= FAST_VJP_TOL["worst"] and \
+        abs(loss_f - loss_e) <= FAST_VJP_TOL["loss"] * abs(loss_e)
+    print(f"train b512, ws_fast_vjp vs exact (B={bsz}, bf16): loss {loss_f:.6f} vs {loss_e:.6f}, "
+          f"gradient relative L2: worst parameter {worst:.3e} ({tr.names[at]}), whole "
+          f"{whole:.3e}; tol={FAST_VJP_TOL} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"ws_fast_vjp gradients out of bound: {worst} ({tr.names[at]}), "
+                           f"{whole}")
+    if {s.dtype for slot in tr.opt.slots for s in slot} != {torch.bfloat16} or \
+            {e.dtype for e in tr.ema} != {torch.bfloat16}:
+        raise RuntimeError("the b512 recipe's moments or EMA are not bf16")
+
+    batch, step_ms, peak_gb, first, last = train_steps(torch, tr, batches, B512_STEPS,
+                                                       "train b512")
+    prof = profile_steps(torch, lambda: tr.train_step(batch), TRAIN_PROFILE_STEPS, step_ms)
+    return {"config": B512_CONFIG, "B": bsz, "dtype": "bfloat16", "steps": B512_STEPS,
+            "ms_per_step": step_ms, "busy_ms": prof["busy_ms"], "idle_share": prof["idle_share"],
+            "peak_mem_gb": peak_gb, "loss_first5": first, "loss_last5": last,
+            "fast_vjp": {"grad_rel_l2_worst": worst, "grad_rel_l2": whole},
+            "top_kernels": prof["top"]}
+
+
+def phase_cli(torch, data_dir, out_dir, card):
+    """Phase 14: the entry points a user runs.  train_diffusion on the b512
+    config (its EMA) for 3 epochs of the synthetic dataset, writing
+    checkpoints; then generate_diffusion --fused --dpm on its checkpoint with
+    the EMA weights: 64 scenes, exactly 560 B1 and 20 B2 launches, and the
+    categorical KL in stats.json."""
+    import re
+
+    from diffuscene_tpu_torch.cli import generate_diffusion, train_diffusion
+    from diffuscene_tpu_torch.ops import attention as at
+    from diffuscene_tpu_torch.ops import fused_resblock as rb
+    from diffuscene_tpu_torch.utils.checkpoint import load_checkpoint
+
+    with open(B512_CONFIG) as f:
+        text = f.read()
+    text = re.sub(r"^(\s*dataset_directory:).*$", lambda m: f"{m.group(1)} {data_dir}", text,
+                  flags=re.M)
+    text = re.sub(r"^(\s*annotation_file:).*$",
+                  lambda m: f"{m.group(1)} {os.path.join(data_dir, 'splits.csv')}", text, flags=re.M)
+    cfg_path = os.path.join(out_dir, "b512_synthetic.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(text)
+    t0 = time.perf_counter()
+    train_diffusion.main([cfg_path, out_dir, "--experiment_tag", "cli", "--seed", str(SEED),
+                          "--epochs", str(CLI_EPOCHS)])
+    train_s = time.perf_counter() - t0
+    exp = os.path.join(out_dir, "cli")
+    state, epoch = load_checkpoint(exp)
+    if epoch != CLI_EPOCHS - 1 or state.get("ema") is None or state["step"] < CLI_EPOCHS:
+        raise RuntimeError(f"the train CLI left no final checkpoint with an EMA: epoch {epoch}")
+
+    gen_dir = os.path.join(out_dir, "generated")
+    torch.cuda.synchronize()
+    rb.fused_resnet_block.launches = at.fused_set_attention.launches = 0
+    t0 = time.perf_counter()
+    stats = generate_diffusion.main([cfg_path, gen_dir, "--weight_file", exp, "--n_sequences",
+                                     str(GEN_SCENES), "--batch_size", str(GEN_SCENES), "--fused",
+                                     "--dpm", "--dpm_steps", str(DPM_STEPS),
+                                     "--compute_intersec"])
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    launches = (rb.fused_resnet_block.launches, at.fused_set_attention.launches)
+    n_boxes = len([f for f in os.listdir(gen_dir) if f.endswith("_boxes.npz")])
+    with open(os.path.join(gen_dir, "stats.json")) as f:
+        saved = json.load(f)
+    ok = (launches == (28 * DPM_STEPS, DPM_STEPS) and n_boxes == GEN_SCENES
+          and saved.get("n_scenes") == GEN_SCENES
+          and math.isfinite(saved.get("categorical_kl", float("nan"))))
+    print(f"cli: train_diffusion {CLI_EPOCHS} epochs ({state['step']} steps, B=512 bf16) "
+          f"{train_s:.3f} s; generate_diffusion --fused --dpm {GEN_SCENES} scenes (EMA weights) "
+          f"{gen_s:.3f} s, launches B1={launches[0]} B2={launches[1]}, {n_boxes} box files, "
+          f"stats {saved} {'ok' if ok else 'FAIL'} | {card}", flush=True)
+    if not ok:
+        raise RuntimeError(f"the CLI pair failed: launches {launches}, stats {saved}")
+    return {"train_s": train_s, "generate_s": gen_s, "launches": list(launches),
+            "categorical_kl": saved["categorical_kl"]}
+
+
+def phase_train(torch, card):
+    """Phases 12-14 on a synthetic cached dataset made from the seed."""
+    import shutil
+
+    from diffuscene_tpu_torch.data import make_synthetic_cached_dataset
+
+    for d in (TRAIN_DATA, TRAIN_OUT):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(TRAIN_OUT)
+    make_synthetic_cached_dataset(TRAIN_DATA, n_scenes=TRAIN_SCENES, seed=SEED)
+    out = {"card": card, "flagship": phase_train_flagship(torch, TRAIN_DATA)}
+    torch.cuda.empty_cache()
+    out["b512"] = phase_train_b512(torch, TRAIN_DATA)
+    torch.cuda.empty_cache()
+    out["cli"] = phase_cli(torch, TRAIN_DATA, TRAIN_OUT, card)
+    return out
+
+
 def profile_steps(torch, step, n, step_ms, named=()):
     """Where a step's time goes: torch.profiler over ``n`` steady steps;
     device busy time (the sum of the kernels' times, one stream), the idle
@@ -1026,12 +1313,13 @@ def profile_steps(torch, step, n, step_ms, named=()):
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not busy_us:
         print("profile: the profiler saw no device time (not measured)", flush=True)
-        return
+        return {"busy_ms": None, "idle_share": None, "top": []}
     busy_ms = busy_us / n / 1e3
     print(f"profile: {n} steps, device busy {busy_ms:.3f} ms/step; unprofiled step {step_ms:.3f} "
           f"ms, idle share {1 - busy_ms / step_ms:.3f}; profiled wall {wall_us / n / 1e3:.3f} "
           f"ms/step", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]:
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:12]
+    for e in top:
         print(f"profile:   {e.self_device_time_total / busy_us:6.1%} "
               f"{e.self_device_time_total / n / 1e3:8.3f} ms/step {e.count // n:4d} calls/step "
               f"{e.key[:90]}", flush=True)
@@ -1043,6 +1331,8 @@ def profile_steps(torch, step, n, step_ms, named=()):
         print(f"profile: {label} ({match}) {us / n / 1e3:.3f} ms/step, "
               f"{sum(e.count for e in mine) // n} calls/step, {us / busy_us:.1%} of the device "
               f"time", flush=True)
+    return {"busy_ms": busy_ms, "idle_share": 1 - busy_ms / step_ms,
+            "top": [[e.key[:60], e.self_device_time_total / n / 1e3] for e in top[:5]]}
 
 
 def main(argv):
@@ -1090,6 +1380,10 @@ def main(argv):
         return 0
     if only == "--only-chamfer":    # the short check of a new B3 kernel: phase 5 alone
         phase_chamfer(ch, torch)
+        print(card_line())
+        return 0
+    if only == "--only-train":      # the scene model's training path alone: phases 12-14
+        print(json.dumps({"train": phase_train(torch, card)}))
         print(card_line())
         return 0
     chain_plan(fl)
@@ -1149,7 +1443,12 @@ def main(argv):
     cham = phase_chamfer(ch, torch)
     # the second slice's main path: AE training steps, every chamfer on the kernel
     cham_launches = phase_autoencoder(ch, torch)
+    torch.cuda.empty_cache()
+    # this slice's main path: the scene model's train steps and the train
+    # and generate CLIs (B1 and B2 in generate)
+    train = phase_train(torch, card)
 
+    print(json.dumps({"train": train}))
     print(json.dumps({"kernels": [{
         "name": "fused_chain",
         "route": "cuda",

@@ -1,0 +1,190 @@
+"""Generate scenes with a trained scene model and score them.
+
+Port of ``diffuscene_tpu/cli/generate_diffusion.py`` (reference
+``scripts/generate_diffusion.py:47-469``): the trainer's checkpoint (its EMA
+weights unless ``--no_ema``), batched sampling through
+``SceneDiffusion.sample`` (DDPM, ``--ddim`` or ``--dpm``; ``--fused`` serves
+every ResnetBlock on the B1 kernel and mid_attn on the B2 kernel), empty
+slots dropped and attributes descaled with the eval split's bounds.  It
+writes each scene's boxes (``{idx:05d}_boxes.npz``), ``stats.json`` (the
+categorical KL of the generated class frequencies against the eval split's,
+and with ``--compute_intersec`` the box-intersection and symmetry
+statistics, with ``iou_states.txt`` as the JAX CLI writes it).  The JAX CLI
+names that file metrics.json.  ``--device`` picks the card (default) or
+``--device cpu``.
+
+    python -m diffuscene_tpu_torch.cli.generate_diffusion CONFIG OUT \\
+        --weight_file out/<tag> --n_sequences 64 --fused --dpm
+
+The flags that need a render, the mesh catalog or an eval scene's
+conditions raise: ``--render``, ``--render_perspective``,
+``--with_rotating_camera``, ``--save_mesh``, ``--judge_mesh_intersec`` and a
+catalog for retrieval (``eval/render.py`` and ``eval/retrieval.py`` are not
+ported, ROADMAP A8), ``--scene_id`` / ``--fix_order`` (they choose the
+scene whose text, room mask or floor plan conditions a sample; none of
+those is ported, ROADMAP A5, A8) and ``--profile_dir``.  The JAX CLI's
+flags that only shape those outputs (camera, texture, floor, mesh format)
+are not taken.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import numpy as np
+
+_REFUSED = {
+    "render": "renders need eval/render.py, not ported yet (ROADMAP A8)",
+    "render_perspective": "renders need eval/render.py, not ported yet (ROADMAP A8)",
+    "with_rotating_camera": "renders need eval/render.py, not ported yet (ROADMAP A8)",
+    "save_mesh": "mesh export needs eval/retrieval.py, not ported yet (ROADMAP A8)",
+    "judge_mesh_intersec": "mesh intersection needs eval/retrieval.py (ROADMAP A8)",
+    "path_to_pickled_3d_futute_models": "mesh retrieval needs eval/retrieval.py (ROADMAP A8)",
+    "scene_id": "it picks an eval scene's text / room mask / floor plan; none is ported "
+                "(ROADMAP A5, A8)",
+    "fix_order": "it orders the eval scenes whose text / room mask / floor plan condition "
+                 "a sample; none is ported (ROADMAP A5, A8)",
+    "profile_dir": "use torch.profiler around SceneDiffusion.sample (chip_smoke.py does)",
+}
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Generate scenes (PyTorch port)")
+    parser.add_argument("config_file")
+    parser.add_argument("output_directory")
+    parser.add_argument("pickled_models_pos", nargs="?", default=None,
+                        metavar="path_to_pickled_3d_futute_models",
+                        help="mesh catalog for retrieval: not ported (ROADMAP A8)")
+    parser.add_argument("--no_ema", action="store_true",
+                        help="sample with the raw weights even when the checkpoint has an EMA")
+    parser.add_argument("--weight_file", default=None,
+                        help="experiment dir with model_* checkpoints (or a reference .pt)")
+    parser.add_argument("--n_sequences", type=int, default=10)
+    parser.add_argument("--batch_size", type=int, default=64)
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--clip_denoised", action="store_true")
+    parser.add_argument("--ddim", action="store_true")
+    parser.add_argument("--ddim_steps", type=int, default=50)
+    parser.add_argument("--dpm", action="store_true", help="DPM-Solver++(2M) fast sampling")
+    parser.add_argument("--dpm_steps", type=int, default=20)
+    parser.add_argument("--fused", action="store_true",
+                        help="the 3-D serving engine: ResnetBlocks on B1, mid_attn on B2")
+    parser.add_argument("--compute_intersec", action="store_true")
+    parser.add_argument("--judge_mesh_intersec", action="store_true", help="not ported (A8)")
+    parser.add_argument("--scene_id", default=None, help="not ported (A5, A8)")
+    parser.add_argument("--fix_order", action="store_true", help="not ported (A5, A8)")
+    parser.add_argument("--render", action="store_true", help="not ported (A8)")
+    parser.add_argument("--render_top2down", dest="render", action="store_true",
+                        help="alias for --render")
+    parser.add_argument("--path_to_pickled_3d_futute_models", default=None,
+                        help="not ported (A8)")
+    parser.add_argument("--save_mesh", action="store_true", help="not ported (A8)")
+    parser.add_argument("--render_perspective", action="store_true", help="not ported (A8)")
+    parser.add_argument("--with_rotating_camera", action="store_true", help="not ported (A8)")
+    parser.add_argument("--profile_dir", default=None, help="not ported")
+    parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
+    args = parser.parse_args(argv)
+    args.path_to_pickled_3d_futute_models = (args.path_to_pickled_3d_futute_models
+                                             or args.pickled_models_pos)
+    for flag, why in _REFUSED.items():
+        if getattr(args, flag):
+            raise SystemExit(f"--{flag}: {why}")
+
+    import torch
+
+    from ..data.factory import get_dataset_raw_and_encoded
+    from ..eval.metrics import categorical_kl, compute_intersection, compute_symmetry
+    from ..eval.metrics import scene_bboxes_from_params
+    from ..eval.postprocess import split_network_samples
+    from ..models.scene_model import SceneDiffusion, SceneModelConfig
+    from ..utils.checkpoint import load_model_weights
+    from ..utils.config import load_config
+    from ..utils.convert import reference_to_scene_state_dict
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = load_config(args.config_file)
+    os.makedirs(args.output_directory, exist_ok=True)
+
+    # eval-time encoding (generate_diffusion.py:201-208): no permutation
+    enc = config["data"]["encoding_type"]
+    if "no_prm" not in enc:
+        enc = enc + "_no_prm"
+    raw, eval_ds = get_dataset_raw_and_encoded(
+        {**config["data"], "encoding_type": enc}, augmentations=None,
+        split=config["validation"].get("splits", ["test"]),
+        keep_room_layout=bool(config["network"].get("room_mask_condition", True)))
+
+    net_cfg = dict(config["network"])
+    net_cfg.setdefault("sample_num_points", eval_ds.max_length)
+    cfg = SceneModelConfig.from_config(net_cfg)
+    scene = SceneDiffusion(cfg, device=args.device).init(torch.Generator().manual_seed(args.seed))
+    if args.weight_file:
+        if args.weight_file.endswith((".pt", ".pth")):
+            sd = reference_to_scene_state_dict(load_model_weights(args.weight_file))
+        else:
+            sd = load_model_weights(args.weight_file, ema=not args.no_ema)
+        scene.networks.load_state_dict(sd)
+        print(f"loaded weights from {args.weight_file}"
+              + ("" if args.no_ema else " (the EMA weights when the checkpoint has them)"))
+
+    gen = torch.Generator(device=scene.device).manual_seed(args.seed)
+    all_boxes = []
+    n_done = 0
+    while n_done < args.n_sequences:
+        samples = scene.sample(args.batch_size, generator=gen, clip_denoised=args.clip_denoised,
+                               fused=args.fused, ddim=args.ddim, ddim_steps=args.ddim_steps,
+                               dpm=args.dpm, dpm_steps=args.dpm_steps)
+        take = min(args.batch_size, args.n_sequences - n_done)
+        for i, boxes in enumerate(split_network_samples(scene.spec,
+                                                        samples[:take].float().cpu().numpy())):
+            boxes = eval_ds.post_process(boxes)
+            all_boxes.append(boxes)
+            np.savez(os.path.join(args.output_directory, f"{n_done + i:05d}_boxes.npz"),
+                     **{k: np.asarray(v) for k, v in boxes.items()})
+        n_done += take
+        print(f"sampled {n_done}/{args.n_sequences}")
+
+    # metrics (generate_diffusion.py:394-429 + the categorical KL at :44)
+    stats = {"n_scenes": len(all_boxes)}
+    class_freq_gen = np.zeros(len(raw.class_labels) - 2, np.float64)
+    per_scene_stats = []
+    for boxes in all_boxes:
+        cls = np.asarray(boxes["class_labels"])
+        for c in cls.argmax(-1):
+            class_freq_gen[c] += 1
+        if args.compute_intersec:
+            bb = scene_bboxes_from_params(np.asarray(boxes["translations"]).reshape(-1, 3),
+                                          np.asarray(boxes["sizes"]).reshape(-1, 3))
+            n, pairs, avg_iou, avg_insec, ratio = compute_intersection(bb)
+            per_scene_stats.append((n, pairs, avg_iou, avg_insec, ratio,
+                                    compute_symmetry(bb, cls)))
+            arr = np.asarray(per_scene_stats, np.float64)
+            with open(os.path.join(args.output_directory, "iou_states.txt"), "a") as f:
+                f.write(
+                    f"num scenes: {len(arr)} - num objects avg: {arr[:, 0].mean():f}"
+                    f" - std: {arr[:, 0].std():f} - num pairs: {arr[:, 1].mean():f}"
+                    f" - box iou: {arr[:, 2].mean():f}"
+                    f" - box intersec: {arr[:, 3].mean():f}"
+                    f" - overlap ratio: {arr[:, 4].mean():f}"
+                    f" - total num symmetries: {int(arr[:, 5].sum())}\n")
+    if class_freq_gen.sum() > 0:
+        gt_freq = np.array([raw.class_frequencies[c] for c in raw.object_types], np.float64)
+        stats["categorical_kl"] = categorical_kl(gt_freq / gt_freq.sum(),
+                                                 class_freq_gen / class_freq_gen.sum())
+    if per_scene_stats:
+        arr = np.asarray(per_scene_stats, np.float64)
+        stats.update(
+            avg_objects=float(arr[:, 0].mean()), avg_pair_iou=float(arr[:, 2].mean()),
+            avg_intersec=float(arr[:, 3].mean()), avg_overlap_ratio=float(arr[:, 4].mean()),
+            avg_symmetry=float(arr[:, 5].mean()),
+        )
+    with open(os.path.join(args.output_directory, "stats.json"), "w") as f:
+        json.dump(stats, f, indent=2)
+    print(json.dumps(stats))
+    return stats
+
+
+if __name__ == "__main__":
+    main()

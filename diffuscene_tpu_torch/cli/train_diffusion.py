@@ -1,0 +1,188 @@
+"""Train the scene-layout diffusion model.
+
+Port of ``diffuscene_tpu/cli/train_diffusion.py`` (reference
+``scripts/train_diffusion.py:27-256``): datasets from the config, the
+bounds saved beside the checkpoints, the epoch loop with the epoch-level LR
+schedule, periodic checkpoints with auto-resume, validation and the stats
+log.  The same flags, plus ``--device`` (the card unless ``--device cpu``).
+
+    python -m diffuscene_tpu_torch.cli.train_diffusion \\
+        configs/uncond/diffusion_bedrooms_instancond_lat32_v.yaml out
+
+The f32 configs train with TF32 off (the JAX package's f32 matmuls are
+full f32); the bf16 configs (``compute_dtype: bfloat16``) run their
+matmuls in bf16 either way.  Flags of the JAX CLI that the port does not
+have raise: ``--native_loader`` (ROADMAP A11), ``--with_wandb_logger`` (W&B
+needs a network), ``--mixed_precision`` (measured slower in the JAX
+package; not ported), ``--async_checkpoints`` and ``--profile_dir``.  A
+warm start from a reference ``.pt`` starts the EMA from the loaded weights
+(the JAX CLI leaves it at the random init).
+"""
+from __future__ import annotations
+
+import argparse
+import math
+import os
+
+import numpy as np
+
+_REFUSED = {
+    "native_loader": "the native C++ batcher is not ported yet (ROADMAP A11)",
+    "with_wandb_logger": "W&B needs a network; the port logs to stats.txt",
+    "mixed_precision": "the JAX package's mixed_precision opt-in (measured slower) is not ported",
+    "async_checkpoints": "checkpoints are written synchronously by torch.save",
+    "profile_dir": "use torch.profiler around Trainer.train_step (chip_smoke.py does)",
+}
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Train a scene diffusion model (PyTorch port)")
+    parser.add_argument("config_file", help="Path to the YAML config")
+    parser.add_argument("output_directory", help="Where to save checkpoints/logs")
+    parser.add_argument("--experiment_tag", default=None)
+    parser.add_argument("--continue_from_epoch", type=int, default=0)
+    parser.add_argument("--weight_file", default=None,
+                        help="warm-start the model weights before training: a reference "
+                        ".pt/.pth state_dict or an experiment dir with model_* checkpoints "
+                        "(its parameters and EMA; the optimizer starts fresh)")
+    parser.add_argument("--n_processes", type=int, default=0,
+                        help="accepted for reference drop-in compatibility")
+    parser.add_argument("--seed", type=int, default=27)
+    parser.add_argument("--epochs", type=int, default=None, help="override config epochs")
+    parser.add_argument("--with_wandb_logger", action="store_true", help="not available")
+    parser.add_argument("--native_loader", action="store_true", help="not ported (ROADMAP A11)")
+    parser.add_argument("--log_every", type=int, default=10,
+                        help="fetch metrics to the host every N steps")
+    parser.add_argument("--mixed_precision", action="store_true", help="not ported")
+    parser.add_argument("--async_checkpoints", action="store_true", help="not ported")
+    parser.add_argument("--keep_last_checkpoints", type=int, default=None,
+                        help="retain only the N highest-epoch checkpoints (default: keep all)")
+    parser.add_argument("--steps_per_dispatch", type=int, default=1,
+                        help="run N train steps per call (Trainer.train_step_scan); logging "
+                        "then advances once per call")
+    parser.add_argument("--profile_dir", default=None, help="not ported")
+    parser.add_argument("--device", default="cuda",
+                        help="cuda (default) or cpu; f32 matmuls run with TF32 off")
+    args = parser.parse_args(argv)
+    for flag, why in _REFUSED.items():
+        if getattr(args, flag):
+            raise SystemExit(f"--{flag}: {why}")
+
+    import torch
+
+    from ..data.factory import get_dataset_raw_and_encoded, get_encoded_dataset
+    from ..data.loader import DataLoader
+    from ..models.scene_model import SceneDiffusion, SceneModelConfig
+    from ..train.trainer import Trainer
+    from ..utils.checkpoint import (load_checkpoint, load_model_weights, prune_checkpoints,
+                                    save_bounds, save_checkpoint)
+    from ..utils.config import load_config, save_experiment_params
+    from ..utils.convert import reference_to_scene_state_dict
+    from ..utils.stats_logger import StatsLogger
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    config = load_config(args.config_file)
+    np.random.seed(args.seed)
+
+    experiment_tag = args.experiment_tag or os.path.basename(args.config_file).rsplit(".", 1)[0]
+    experiment_dir = os.path.join(args.output_directory, experiment_tag)
+    os.makedirs(experiment_dir, exist_ok=True)
+    save_experiment_params(args, experiment_tag, experiment_dir)
+
+    keep_rl = bool(config["network"].get("room_mask_condition", True))
+    train_raw, train_ds = get_dataset_raw_and_encoded(
+        config["data"], augmentations=config["data"].get("augmentations"),
+        split=config["training"].get("splits", ["train", "val"]), seed=args.seed,
+        keep_room_layout=keep_rl)
+    val_ds = get_encoded_dataset(
+        config["data"], augmentations=None, split=config["validation"].get("splits", ["test"]),
+        seed=args.seed, keep_room_layout=keep_rl)
+    bounds = train_ds.bounds.as_device_bounds()
+    save_bounds(experiment_dir, bounds)
+
+    net_cfg = dict(config["network"])
+    net_cfg.setdefault("sample_num_points", train_ds.max_length)
+    cfg = SceneModelConfig.from_config(net_cfg)
+    scene = SceneDiffusion(cfg, bounds=bounds if cfg.loss_iou else None, device=args.device)
+
+    batch_size = int(config["training"].get("batch_size", 128))
+    train_loader = DataLoader(train_ds, batch_size, shuffle=True, seed=args.seed)
+    val_loader = DataLoader(val_ds, int(config["validation"].get("batch_size", batch_size)),
+                            shuffle=False, drop_last=True)
+    steps_per_epoch = max(len(train_loader), 1)
+    trainer = Trainer(scene, config["training"], steps_per_epoch=steps_per_epoch,
+                      device=args.device).init(args.seed)
+
+    # warm start (train_diffusion.py:181): weights (and an experiment's
+    # EMA) only, the optimizer starts fresh
+    if args.weight_file:
+        if args.weight_file.endswith((".pt", ".pth")):
+            trainer.set_weights(reference_to_scene_state_dict(load_model_weights(args.weight_file)))
+        else:
+            warm = load_model_weights(args.weight_file, ema=False)
+            trainer.set_weights(warm, load_model_weights(args.weight_file, ema=True))
+        print(f"warm-started weights from {args.weight_file}")
+
+    state, resumed = load_checkpoint(experiment_dir)
+    if state is not None:
+        trainer.load_state_dict(state)
+    start_epoch = (resumed + 1) if resumed is not None else args.continue_from_epoch
+
+    def save(epoch):
+        save_checkpoint(trainer.state_dict(), experiment_dir, epoch)
+        if args.keep_last_checkpoints:
+            prune_checkpoints(experiment_dir, args.keep_last_checkpoints, protect=epoch)
+
+    logger = StatsLogger.instance()
+    stats_file = open(os.path.join(experiment_dir, "stats.txt"), "a")
+    logger.add_output_file(stats_file)
+    try:
+        epochs = args.epochs if args.epochs is not None else int(config["training"].get("epochs", 1000))
+        save_every = int(config["training"].get("save_frequency", 10))
+        val_every = int(config["validation"].get("frequency", 100))
+        spd = max(args.steps_per_dispatch, 1)
+        log_every = max(args.log_every, 1)
+        since_log = log_every      # the first call of a run always logs
+        for epoch in range(start_epoch, epochs):
+            pending = []
+            n_batches = len(train_loader)
+            for b, batch in enumerate(train_loader):
+                pending.append(batch)
+                if len(pending) < spd and (b + 1) < n_batches:
+                    continue
+                if len(pending) == 1:
+                    metrics = trainer.train_step(trainer.put_batch(pending[0]))
+                else:
+                    metrics = trainer.train_step_scan(trainer.put_batches(pending))
+                since_log += len(pending)
+                pending = []
+                if since_log >= log_every:
+                    since_log = 0
+                    if not math.isfinite(metrics["loss"]):
+                        # a recoverable state on disk instead of NaN updates
+                        save_checkpoint(trainer.state_dict(), experiment_dir, epoch)
+                        raise RuntimeError(
+                            f"non-finite loss at epoch {epoch} batch {b}; checkpoint saved to "
+                            f"{experiment_dir}: resume with a lower lr or smaller max_grad_norm")
+                    logger.update(metrics)
+                    logger.print_progress(epoch, b + 1, metrics["loss"])
+            logger["lr"].value = trainer.current_lr()
+            logger.clear()
+
+            if (epoch % save_every) == 0 and epoch > start_epoch:
+                save(epoch)
+            if (epoch % val_every) == 0:
+                for b, batch in enumerate(val_loader):
+                    metrics = trainer.eval_step(trainer.put_batch(batch))
+                    logger.update(metrics)
+                    logger.print_progress(-1, b + 1, metrics["loss"])
+                logger.clear()
+        save(epochs - 1)
+        print(f"\ndone: {epochs - start_epoch} epochs, final step {trainer.step}")
+    finally:
+        logger.remove_output_file(stats_file)
+
+
+if __name__ == "__main__":
+    main()

@@ -8,7 +8,7 @@ autoencoder's CLIs read from a catalog pickled by the JAX package:
 attributes, label, paths and the cached per-model point cloud and latents.
 Mesh parsing and transforms, bounding boxes and sizes, and the scene walkers
 are not copied yet (``cli/pickle_threed_future_pointcloud.py`` stays
-queued, ROADMAP A6).
+queued, ROADMAP A7).
 """
 from __future__ import annotations
 

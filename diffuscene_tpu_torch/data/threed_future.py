@@ -4,7 +4,7 @@ of the shape autoencoder.
 Copy of the catalog and point-cloud parts of
 ``diffuscene_tpu/data/threed_future.py`` (reference
 ``scene_synthesis/datasets/threed_future_dataset.py:9-137``); the
-nearest-furniture retrieval methods are not copied yet (ROADMAP A6).  A catalog
+nearest-furniture retrieval methods are not copied yet (ROADMAP A7).  A catalog
 pickled by the JAX package names that package's modules; importing those
 imports JAX, so :meth:`ThreedFutureDataset.from_pickled_dataset` reads
 pickles with an unpickler that maps ``diffuscene_tpu.data.*`` classes to

@@ -1,18 +1,19 @@
-"""Gaussian diffusion core, sampling half: posterior, parameterizations and
-the reverse-step mean/variance.
+"""Gaussian diffusion core: the forward process, the parameterizations,
+the reverse-step mean/variance and the training loss with its IoU
+regularizer.
 
 Port of ``diffuscene_tpu/diffusion/gaussian.py`` (reference
 GaussianDiffusion, diffusion_ddpm.py:125-717).  ``x`` is (B, N, C) with C
-packed as translation, size, angle, class (, objectness)(, objfeat).  The
-training losses and the IoU regularizer are not ported yet.
+packed as translation, size, angle, class (, objectness)(, objfeat).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..ops.iou3d import axis_aligned_bbox_overlaps_3d
 from .schedule import DiffusionSchedule, extract
 
 
@@ -76,6 +77,14 @@ class AttributeSpec:
         return slice(s, s + 1)
 
 
+def q_sample(sched: DiffusionSchedule, x_start, t, noise):
+    """x_t = sqrt(a_bar) x_0 + sqrt(1 - a_bar) eps.  (diffusion_ddpm.py:276-286)"""
+    return (
+        extract(sched.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
+        + extract(sched.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * noise
+    )
+
+
 def q_posterior_mean_variance(sched: DiffusionSchedule, x_start, x_t, t):
     """Posterior q(x_{t-1} | x_t, x_0).  (diffusion_ddpm.py:289-302)"""
     posterior_mean = (
@@ -98,6 +107,13 @@ def predict_eps_from_xstart(sched, x_t, t, x0):
     return (
         extract(sched.sqrt_recip_alphas_cumprod, t, x_t.ndim) * x_t - x0
     ) / extract(sched.sqrt_recipm1_alphas_cumprod, t, x_t.ndim)
+
+
+def predict_v(sched, x0, t, eps):
+    return (
+        extract(sched.sqrt_alphas_cumprod, t, x0.ndim) * eps
+        - extract(sched.sqrt_one_minus_alphas_cumprod, t, x0.ndim) * x0
+    )
 
 
 def predict_xstart_from_v(sched, x_t, t, v):
@@ -154,3 +170,152 @@ def p_mean_variance(
         raise NotImplementedError(model_var_type)
     model_mean, _, _ = q_posterior_mean_variance(sched, x_recon, x_t, t)
     return model_mean, model_log_variance, x_recon
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Static loss configuration (diffusion_ddpm.py:126-152)."""
+
+    model_mean_type: str = "v"
+    model_var_type: str = "fixedsmall"
+    loss_type: str = "mse"
+    loss_separate: bool = True
+    loss_iou: bool = True
+    room_arrange_condition: bool = False
+    iou_weight: float = 0.1
+
+
+def _mean_tail(x: torch.Tensor) -> torch.Tensor:
+    """Mean over all non-batch dims -> (B,)."""
+    return x.reshape(x.shape[0], -1).mean(dim=-1)
+
+
+def descale_to_origin(x, minimum, maximum):
+    """[-1, 1] -> world units.  (diffusion_ddpm.py:668-675)"""
+    x = (x + 1.0) / 2.0
+    return x * (maximum - minimum)[None, None, :] + minimum[None, None, :]
+
+
+def iou_regularizer(
+    sched: DiffusionSchedule,
+    spec: AttributeSpec,
+    cfg: LossConfig,
+    x_recon: torch.Tensor,
+    t: torch.Tensor,
+    bounds: Dict[str, torch.Tensor],
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pairwise box-IoU penalty on the reconstructed scene
+    (diffusion_ddpm.py:600-635): x0 clamped to [-1, 1], translations and
+    sizes descaled with the train-set ``bounds``, corners [c - s, c + s]
+    (sizes are half-extents), the full IoU matrix (diagonal included, as in
+    the reference) masked to non-empty slots, weighted by
+    alphas_cumprod[t] * iou_weight and divided by the valid-pair count
+    + 1e-6.  Returns (loss_iou_valid_avg, bbox_iou_valid_avg), each (B,)."""
+    x_recon = x_recon.clamp(-1.0, 1.0)
+    trans = x_recon[:, :, spec.trans_slice]
+    sizes = x_recon[:, :, spec.size_slice]
+    empty = x_recon[:, :, spec.empty_slice]
+    if spec.objectness_dim > 0:
+        valid = (empty >= 0).to(x_recon.dtype)[..., 0]
+    else:
+        valid = (empty <= 0).to(x_recon.dtype)[..., 0]
+
+    descale_trans = descale_to_origin(trans, bounds["translations_min"], bounds["translations_max"])
+    descale_sizes = descale_to_origin(sizes, bounds["sizes_min"], bounds["sizes_max"])
+    corners = torch.cat([descale_trans - descale_sizes, descale_trans + descale_sizes], dim=-1)
+    bbox_iou = axis_aligned_bbox_overlaps_3d(corners, corners)   # (B, N, N)
+    pair_mask = valid[:, :, None] * valid[:, None, :]
+    bbox_iou_valid = bbox_iou * pair_mask
+
+    B = x_recon.shape[0]
+    w_iou = extract(sched.alphas_cumprod, t, bbox_iou.ndim)
+    denom = pair_mask.reshape(B, -1).sum(dim=-1) + 1e-6
+    loss_iou_valid_avg = (w_iou * cfg.iou_weight * bbox_iou_valid).reshape(B, -1).sum(dim=-1) / denom
+    bbox_iou_valid_avg = bbox_iou_valid.reshape(B, -1).sum(dim=-1) / denom
+    return loss_iou_valid_avg, bbox_iou_valid_avg
+
+
+def p_losses(
+    sched: DiffusionSchedule,
+    spec: AttributeSpec,
+    cfg: LossConfig,
+    denoise_out: torch.Tensor,
+    data_start: torch.Tensor,
+    data_t: torch.Tensor,
+    t: torch.Tensor,
+    noise: torch.Tensor,
+    bounds: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Per-sample training loss given the denoiser output: the MSE branch of
+    the reference ``p_losses`` (diffusion_ddpm.py:520-665), with the
+    per-attribute terms, ``loss_separate``, the SNR loss weight and the IoU
+    regularizer.  Returns (losses_weight (B,), dict of 0-d loss terms)."""
+    if cfg.model_mean_type == "eps":
+        target = noise
+    elif cfg.model_mean_type == "x0":
+        target = data_start
+    elif cfg.model_mean_type == "v":
+        target = predict_v(sched, data_start, t, noise)
+    else:
+        raise NotImplementedError(cfg.model_mean_type)
+
+    diff2 = (target - denoise_out) ** 2
+
+    if cfg.room_arrange_condition:
+        # arrange mode diffuses only the (translation, angle) channels
+        td = spec.translation_dim
+        loss_trans = _mean_tail(diff2[:, :, :td])
+        loss_angle = _mean_tail(diff2[:, :, td:])
+        losses = loss_trans + loss_angle if cfg.loss_separate else _mean_tail(diff2)
+        losses_weight = losses * extract(sched.loss_weight, t, losses.ndim)
+        return losses_weight, {"loss.trans": loss_trans.mean(), "loss.angle": loss_angle.mean()}
+
+    loss_trans = _mean_tail(diff2[:, :, spec.trans_slice])
+    loss_size = _mean_tail(diff2[:, :, spec.size_slice])
+    loss_angle = _mean_tail(diff2[:, :, spec.angle_slice])
+    loss_bbox = _mean_tail(diff2[:, :, : spec.bbox_dim])
+    loss_class = _mean_tail(diff2[:, :, spec.class_slice])
+    loss_object = _mean_tail(diff2[:, :, spec.empty_slice])
+    if spec.objfeat_dim > 0:
+        loss_objfeat = _mean_tail(diff2[:, :, spec.objfeat_slice])
+    else:
+        loss_objfeat = data_start.new_zeros(data_start.shape[0])
+
+    if cfg.loss_separate:
+        losses = loss_bbox + loss_class
+        if spec.objectness_dim > 0:
+            losses = losses + loss_object
+        if spec.objfeat_dim > 0:
+            losses = losses + loss_objfeat
+    else:
+        losses = _mean_tail(diff2)
+
+    losses_weight = losses * extract(sched.loss_weight, t, losses.ndim)
+
+    if cfg.loss_iou:
+        if bounds is None:
+            raise ValueError("loss_iou needs the train set's bounds")
+        if cfg.model_mean_type == "eps":
+            x_recon = predict_xstart_from_eps(sched, data_t, t, denoise_out)
+        elif cfg.model_mean_type == "x0":
+            x_recon = denoise_out
+        else:
+            x_recon = predict_xstart_from_v(sched, data_t, t, denoise_out)
+        loss_iou_valid_avg, bbox_iou_valid_avg = iou_regularizer(
+            sched, spec, cfg, x_recon, t, bounds)
+        losses_weight = losses_weight + loss_iou_valid_avg
+    else:
+        loss_iou_valid_avg = torch.zeros_like(losses)
+        bbox_iou_valid_avg = torch.zeros_like(losses)
+
+    return losses_weight, {
+        "loss.bbox": loss_bbox.mean(),
+        "loss.trans": loss_trans.mean(),
+        "loss.size": loss_size.mean(),
+        "loss.angle": loss_angle.mean(),
+        "loss.class": loss_class.mean(),
+        "loss.object": loss_object.mean(),
+        "loss.objfeat": loss_objfeat.mean(),
+        "loss.liou": loss_iou_valid_avg.mean(),
+        "loss.bbox_iou": bbox_iou_valid_avg.mean(),
+    }

@@ -17,8 +17,12 @@ every layer computes in it, with f32 statistics for the norms.  GroupNorm eps
 is 1e-6 (the flax default, not torch's 1e-5); the WSDense and
 ChannelLayerNorm eps is 1e-5 for float32 activations and 1e-3 otherwise.
 
-Not ported yet: the training-only ``ws_fast_vjp``, the text cross-attention
-blocks, the learned/random Fourier time embedding and unequal ``dim_mults``.
+``Unet1D(ws_fast_vjp=True)`` gives every WSDense the JAX package's
+residual-light backward (``_WSStandardizeFast``, an autograd Function).
+
+Not ported yet: the text cross-attention blocks (ROADMAP A5), the
+learned/random Fourier time embedding and unequal ``dim_mults`` (ROADMAP
+A9).
 """
 from __future__ import annotations
 
@@ -72,16 +76,57 @@ class Linear(nn.Module):
         return torch.matmul(x.to(self.dtype), self.weight.t().to(self.dtype)) + self.bias.to(self.dtype)
 
 
+class _WSStandardizeFast(torch.autograd.Function):
+    """Weight standardization with the JAX package's residual-light VJP
+    (``diffuscene_tpu/models/denoiser.py:33-72``).
+
+    Forward: one-pass moments of the f32 (I, O) kernel, E[k^2] - E[k]^2
+    clamped at 0, then (k - mean) * rsqrt(var + eps) cast to ``dtype``.
+    Backward: the layer-norm gradient
+    ``inv * (dw - mean(dw) - w * mean(dw * w))`` from the SAVED
+    compute-dtype ``w`` and ``inv``, in f32.  With a bf16 ``w`` the
+    projection term carries its rounding (about 2^-9 relative), which is
+    where it departs from autograd through the exact standardization."""
+
+    @staticmethod
+    def forward(ctx, kernel, eps, dtype):
+        mean = kernel.mean(dim=0, keepdim=True)
+        mean2 = (kernel * kernel).mean(dim=0, keepdim=True)
+        inv = torch.rsqrt((mean2 - mean * mean).clamp_min(0.0) + eps)
+        w = ((kernel - mean) * inv).to(dtype)
+        ctx.save_for_backward(w, inv)
+        return w
+
+    @staticmethod
+    def backward(ctx, dw):
+        w, inv = ctx.saved_tensors
+        dwf, wf = dw.float(), w.float()
+        m_dw = dwf.mean(dim=0, keepdim=True)
+        m_dww = (dwf * wf).mean(dim=0, keepdim=True)
+        return inv * (dwf - m_dw - wf * m_dww), None, None
+
+
+def ws_standardize_fast(kernel: torch.Tensor, eps: float, dtype: torch.dtype) -> torch.Tensor:
+    """(I, O) f32 kernel -> standardized ``dtype`` kernel, with the fast VJP."""
+    return _WSStandardizeFast.apply(kernel, eps, dtype)
+
+
 class WSConv1x1(Conv1x1):
     """WSDense: k=1 conv with weight standardization over the input axis
-    (per output unit, biased variance) in f32, then cast to ``dtype``."""
+    (per output unit, biased variance) in f32, then cast to ``dtype``;
+    ``fast_vjp`` switches to :func:`ws_standardize_fast`."""
+
+    fast_vjp = False
 
     def forward(self, x):
         k = self.kernel().float()
         eps = _dtype_eps(x.dtype)
-        mean = k.mean(dim=0, keepdim=True)
-        var = k.var(dim=0, unbiased=False, keepdim=True)
-        w = ((k - mean) * torch.rsqrt(var + eps)).to(self.dtype)
+        if self.fast_vjp:
+            w = ws_standardize_fast(k, eps, self.dtype)
+        else:
+            mean = k.mean(dim=0, keepdim=True)
+            var = k.var(dim=0, unbiased=False, keepdim=True)
+            w = ((k - mean) * torch.rsqrt(var + eps)).to(self.dtype)
         return torch.matmul(x.to(self.dtype), w) + self.bias.to(self.dtype)
 
 
@@ -312,18 +357,18 @@ class Unet1D(nn.Module):
         out_dim: Optional[int] = None,
         compute_dtype: torch.dtype = torch.float32,
         exact_gelu: bool = True,
+        ws_fast_vjp: bool = False,
         device=None,
     ):
         super().__init__()
         if len(set(dim_mults)) != 1:
-            raise NotImplementedError(
-                "unequal dim_mults are not ported yet (ROADMAP A1, the 3-D engine)")
+            raise NotImplementedError("unequal dim_mults are not ported yet (ROADMAP A9)")
         if text_condition:
             raise NotImplementedError(
-                "text cross-attention is not ported yet (ROADMAP A4)")
+                "text cross-attention is not ported yet (ROADMAP A5)")
         if learned_sinusoidal_cond or random_fourier_features:
             raise NotImplementedError(
-                "learned/random Fourier time embeddings are not ported yet (ROADMAP A1)")
+                "learned/random Fourier time embeddings are not ported yet (ROADMAP A9)")
         self.dim = dim
         self.dim_mults = tuple(dim_mults)
         self.channels = channels
@@ -341,6 +386,7 @@ class Unet1D(nn.Module):
         self.out_dim = out_dim
         self.compute_dtype = compute_dtype
         self.exact_gelu = exact_gelu
+        self.ws_fast_vjp = ws_fast_vjp
 
         dt, dev, g = compute_dtype, device, resnet_block_groups
         cond_dim = context_dim + instanclass_dim
@@ -402,6 +448,9 @@ class Unet1D(nn.Module):
         else:
             self.final_conv = Conv1x1(dim, out_dim if out_dim is not None else channels,
                                       dtype=dt, device=dev)
+        for m in self.modules():
+            if isinstance(m, WSConv1x1):
+                m.fast_vjp = ws_fast_vjp
 
     @property
     def bbox_dim(self) -> int:

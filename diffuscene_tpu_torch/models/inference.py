@@ -29,7 +29,7 @@ flat (B*N, C) rows; attention views its narrow (M, H*D) head tensors as
 
 Parameters come in the Flax tree layout ((in, out) kernels), from
 ``utils/convert.denoiser_tree``.  Not ported yet: the text cross-attention
-(ROADMAP A4).
+(ROADMAP A5).
 """
 from __future__ import annotations
 
@@ -240,7 +240,7 @@ def prepare_chain_params(net: Unet1D, prep: Dict[str, Any],
     """Stack the weights of the 19 resblock chains (once per sampling call).
     ``cond_names`` lists the block0 names that get cond-FiLM rows."""
     if len(set(net.dim_mults)) != 1:
-        raise NotImplementedError("rows-layout chains need equal level dims (ROADMAP A1)")
+        raise NotImplementedError("rows-layout chains need equal level dims (ROADMAP A9)")
     C = net.dim * net.dim_mults[0]
     n_levels = len(net.dim_mults)
     dt = net.compute_dtype
@@ -368,7 +368,7 @@ def fused_unet1d_forward(
     call.  A block0 without cond-FiLM rows (the unconditioned model) runs
     with zero film."""
     if net.text_condition:
-        raise NotImplementedError("text cross-attention is not ported yet (ROADMAP A4)")
+        raise NotImplementedError("text cross-attention is not ported yet (ROADMAP A5)")
     B, N, _ = x.shape
     M = B * N
     dt = net.compute_dtype

@@ -1,33 +1,37 @@
-"""Top-level scene-layout diffusion model: conditioning and sampling.
+"""Top-level scene-layout diffusion model: conditioning, training loss and
+sampling.
 
-Port of the sampling path of ``diffuscene_tpu/models/scene_model.py``
-(reference DiffusionSceneLayout_DDPM, diffusion_scene_layout_ddpm.py:14-454).
-The modules hold only networks and parameters; diffusion math and the
-sampling loop are plain functions from ``diffusion/``.
+Port of ``diffuscene_tpu/models/scene_model.py`` (reference
+DiffusionSceneLayout_DDPM, diffusion_scene_layout_ddpm.py:14-454).  The
+modules hold only networks and parameters; diffusion math and the sampling
+loops are plain functions from ``diffusion/``.
 
-Ported: the unconditional task with the learnable instance embedding
-(the bedroom flagship); ``fused=False`` (module forward), ``fused=True``
-(the 3-D engine on the ResnetBlock and set-attention kernels) and
-``fused="rows"`` (rows engine on the chain kernel); DDPM, DDIM and
-DPM-Solver++ sampling.  Raising ``NotImplementedError``: completion and
-arrangement, text, room-mask and the fixed one-hot instance embedding.
+Ported: the unconditional task with the learnable or the fixed one-hot
+instance embedding; the training loss (``get_loss``: q_sample, the module
+forward, ``p_losses`` with the IoU regularizer on the train-set bounds);
+``fused=False`` (module forward), ``fused=True`` (the 3-D engine on the
+ResnetBlock and set-attention kernels) and ``fused="rows"`` (rows engine on
+the chain kernel); DDPM, DDIM and DPM-Solver++ sampling.  Raising
+``NotImplementedError``: completion and arrangement (ROADMAP A6), text
+(ROADMAP A5) and room-mask conditions (ROADMAP A8).
 """
 from __future__ import annotations
 
 import dataclasses
 import inspect
+import math
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
-from ..diffusion import AttributeSpec, DiffusionSchedule, make_schedule
+from ..diffusion import (AttributeSpec, DiffusionSchedule, LossConfig, make_schedule, p_losses,
+                         q_sample)
 from ..diffusion import samplers as S
+from ..utils.config import as_dtype
 from ..utils.convert import denoiser_tree
 from .denoiser import Unet1D, init_parameters
-
-_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
-           "float32": torch.float32, "f32": torch.float32}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +90,17 @@ class SceneModelConfig:
             objfeat_dim=self.objfeat_dim,
         )
 
+    @property
+    def loss_config(self) -> LossConfig:
+        return LossConfig(
+            model_mean_type=self.model_mean_type,
+            model_var_type=self.model_var_type,
+            loss_type=self.loss_type,
+            loss_separate=self.loss_separate,
+            loss_iou=self.loss_iou,
+            room_arrange_condition=self.room_arrange_condition,
+        )
+
     @classmethod
     def from_config(cls, network: Dict[str, Any]) -> "SceneModelConfig":
         """Build from a reference-format ``network`` config dict (already
@@ -128,6 +143,19 @@ class SceneModelConfig:
         return cls(**fields)
 
 
+def pack_target(cfg: SceneModelConfig, sample_params: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Attribute dict -> the diffusion target (B, N, point_dim), in the order
+    of diffusion_scene_layout_ddpm.py:148-160: translations, sizes, angles,
+    class_labels (, objectness)(, objfeats)."""
+    parts = [sample_params["translations"], sample_params["sizes"],
+             sample_params["angles"], sample_params["class_labels"]]
+    if cfg.objectness_dim > 0:
+        parts.append(sample_params["objectness"])
+    if cfg.objfeat_dim > 0:
+        parts.append(sample_params["objfeats_32" if cfg.objfeat_dim == 32 else "objfeats"])
+    return torch.cat(parts, dim=-1)
+
+
 _UNET_ARGS = frozenset(inspect.signature(Unet1D.__init__).parameters) - {"self", "device"}
 
 
@@ -138,54 +166,91 @@ def build_unet1d(cfg: SceneModelConfig, device=None) -> Unet1D:
     net_kwargs.setdefault("text_condition", cfg.text_condition)
     if "dim_mults" in net_kwargs:
         net_kwargs["dim_mults"] = tuple(net_kwargs["dim_mults"])
-    dt = net_kwargs.get("compute_dtype")
-    if isinstance(dt, str):
-        net_kwargs["compute_dtype"] = _DTYPES[dt]
+    if "compute_dtype" in net_kwargs:
+        net_kwargs["compute_dtype"] = as_dtype(net_kwargs["compute_dtype"])
     return Unet1D(**net_kwargs, device=device)
 
 
 class ConditionNets(nn.Module):
-    """Conditioning heads: the instance-condition branch with a learnable
-    embedding (diffusion_scene_layout_ddpm.py:27-129)."""
+    """Conditioning heads: the instance condition, as a learnable embedding
+    or as the fixed one-hot rows through ``fc_instance_condition``
+    (Linear, LeakyReLU(0.1), Linear, no biases;
+    diffusion_scene_layout_ddpm.py:27-129)."""
 
     def __init__(self, cfg: SceneModelConfig, device=None):
         super().__init__()
-        if cfg.room_mask_condition or cfg.room_partial_condition or cfg.room_arrange_condition \
-                or cfg.text_condition:
+        if cfg.room_partial_condition or cfg.room_arrange_condition:
             raise NotImplementedError(
-                "text, completion/arrange and room-mask conditions are not ported "
-                "yet (ROADMAP A4, A5, A7)")
-        if cfg.instance_condition and not cfg.learnable_embedding:
+                "completion and arrange conditions are not ported yet (ROADMAP A6)")
+        if cfg.text_condition:
+            raise NotImplementedError("text conditions are not ported yet (ROADMAP A5)")
+        if cfg.room_mask_condition:
             raise NotImplementedError(
-                "the fixed one-hot instance embedding is not ported yet (ROADMAP A2)")
+                "room-mask conditions (the feature extractors) are not ported yet (ROADMAP A8)")
         self.cfg = cfg
-        self.positional_embedding = (
-            nn.Parameter(torch.empty(cfg.sample_num_points, cfg.instance_emb_dim, device=device))
-            if cfg.instance_condition else None)
+        self.positional_embedding = None
+        self.fc_instance_condition = None
+        n, e = cfg.sample_num_points, cfg.instance_emb_dim
+        if cfg.instance_condition and cfg.learnable_embedding:
+            self.positional_embedding = nn.Parameter(torch.empty(n, e, device=device))
+        elif cfg.instance_condition:
+            self.fc_instance_condition = nn.Sequential(
+                nn.Linear(n, e, bias=False, device=device), nn.LeakyReLU(0.1),
+                nn.Linear(e, e, bias=False, device=device))
 
     def forward(self, batch_size: int, num_points: int) -> Optional[torch.Tensor]:
         """-> condition (B, N, instance_emb_dim) f32, or None."""
-        if self.positional_embedding is None:
-            return None
-        pos = self.positional_embedding[None, :num_points, :]
-        return pos.expand(batch_size, num_points, self.cfg.instance_emb_dim)
+        e = self.cfg.instance_emb_dim
+        if self.positional_embedding is not None:
+            return self.positional_embedding[None, :num_points, :].expand(batch_size, num_points, e)
+        if self.fc_instance_condition is not None:
+            # the one-hot rows of every slot (the JAX package feeds the
+            # (B, N, N) identity; each scene's rows are the same)
+            n = self.cfg.sample_num_points
+            eye = torch.eye(n, device=self.fc_instance_condition[0].weight.device)
+            return self.fc_instance_condition(eye)[None].expand(batch_size, n, e)
+        return None
 
 
 class SceneDiffusion:
-    """Networks + schedule + sampler (DiffusionSceneLayout_DDPM +
+    """Networks + schedule + loss + sampler (DiffusionSceneLayout_DDPM +
     DiffusionPoint, diffusion_scene_layout_ddpm.py:131-347).  Built on the
-    card unless ``device`` says otherwise."""
+    card unless ``device`` says otherwise.  ``bounds`` are the train set's
+    (``Bounds.as_device_bounds()``), which the IoU regularizer needs; they
+    live on the model's device.  ``networks`` holds the denoiser and the
+    conditioning heads as one module (state_dict keys ``denoiser.*`` and
+    ``conditioner.*``)."""
 
-    def __init__(self, cfg: SceneModelConfig, device: torch.device | str = "cuda"):
+    def __init__(self, cfg: SceneModelConfig, bounds: Optional[Dict[str, np.ndarray]] = None,
+                 device: torch.device | str = "cuda"):
         self.cfg = cfg
         self.spec = cfg.spec
+        self.loss_cfg = cfg.loss_config
         self.device = torch.device(device)
         self.denoiser = build_unet1d(cfg, device=self.device)
         self.conditioner = ConditionNets(cfg, device=self.device)
+        self.networks = nn.ModuleDict({"denoiser": self.denoiser, "conditioner": self.conditioner})
         self.sched: DiffusionSchedule = make_schedule(
             cfg.schedule_type, cfg.beta_start, cfg.beta_end, cfg.time_num,
             model_mean_type=cfg.model_mean_type, device=self.device,
         )
+        self.bounds = None if bounds is None else {
+            k: torch.as_tensor(np.asarray(v, np.float32), device=self.device)
+            for k, v in bounds.items()}
+
+    def to(self, device: torch.device | str) -> "SceneDiffusion":
+        """Move the networks, the schedule and the bounds to ``device``."""
+        device = torch.device(device)
+        if device != self.device:
+            cfg = self.cfg
+            self.networks.to(device)
+            self.sched = make_schedule(cfg.schedule_type, cfg.beta_start, cfg.beta_end,
+                                       cfg.time_num, model_mean_type=cfg.model_mean_type,
+                                       device=device)
+            if self.bounds is not None:
+                self.bounds = {k: v.to(device) for k, v in self.bounds.items()}
+            self.device = device
+        return self
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "SceneDiffusion":
@@ -195,10 +260,37 @@ class SceneDiffusion:
         if self.conditioner.positional_embedding is not None:
             pe = self.conditioner.positional_embedding
             pe.copy_(torch.randn(pe.shape, generator=generator))
+        if self.conditioner.fc_instance_condition is not None:
+            for lin in self.conditioner.fc_instance_condition[::2]:
+                w = torch.randn(lin.weight.shape, generator=generator) / math.sqrt(lin.in_features)
+                lin.weight.copy_(w)
         return self
 
     def make_condition(self, batch_size: int) -> Optional[torch.Tensor]:
         return self.conditioner(batch_size, self.cfg.sample_num_points)
+
+    def get_loss(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
+                 t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
+        """Training loss of one batch (diffusion_scene_layout_ddpm.py:131-226
+        + diffusion_ddpm.py:758-772) -> (0-d loss, dict of 0-d terms).
+        ``batch`` holds the attribute tensors (or the ``packed`` target) on
+        this model's device.  The timesteps ``t`` (B,) and the ``noise``
+        (B, N, point_dim) are used when given, else drawn from
+        ``generator`` (on this model's device)."""
+        cfg = self.cfg
+        target = batch["packed"] if "packed" in batch else pack_target(cfg, batch)
+        B = target.shape[0]
+        condition = self.conditioner(B, cfg.sample_num_points)
+        if t is None:
+            t = torch.randint(0, self.sched.num_timesteps, (B,), generator=generator,
+                              device=target.device)
+        if noise is None:
+            noise = torch.randn(target.shape, generator=generator, device=target.device)
+        data_t = q_sample(self.sched, target, t, noise)
+        denoise_out = self.denoiser(data_t, t, condition)
+        losses, loss_dict = p_losses(self.sched, self.spec, self.loss_cfg, denoise_out,
+                                     target, data_t, t, noise, bounds=self.bounds)
+        return losses.mean(), loss_dict
 
     def _denoise_fn(self, condition, fused=False):
         """``fused`` is False (module forward), True (the 3-D engine, each
@@ -260,7 +352,7 @@ class SceneDiffusion:
         else DDIM with ``ddim``, else DDPM ancestral sampling.  Noise comes
         from ``generator`` (on this model's device) or from ``noise_fn``."""
         if partial_boxes is not None or input_boxes is not None:
-            raise NotImplementedError("completion and arrangement are not ported yet (ROADMAP A5)")
+            raise NotImplementedError("completion and arrangement are not ported yet (ROADMAP A6)")
         cfg = self.cfg
         condition = self.make_condition(batch_size)
         fn = self._denoise_fn(condition, fused=fused)

@@ -22,3 +22,4 @@ from .chamfer import (
     fscore,
 )
 from .knn import gather_neighbors, knn_indices
+from .iou3d import axis_aligned_bbox_overlaps_3d

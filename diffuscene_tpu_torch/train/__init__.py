@@ -1,2 +1,3 @@
-from .optim import Optimizer, lr_schedule_factory, optimizer_factory
+from .optim import Optimizer, f32_global_norm, lr_schedule_factory, optimizer_factory
 from .ae_trainer import AETrainer
+from .trainer import Trainer

@@ -4,9 +4,11 @@ naming and auto-resume.
 Port of ``diffuscene_tpu/utils/checkpoint.py`` (reference
 ``scripts/training_utils.py:62-97``): each checkpoint is one file
 ``<experiment_dir>/model_{epoch:05d}`` written by ``torch.save`` (the whole
-trainer state: step, model, optimizer moments, generator), and resume picks
-the highest epoch.  The JAX package's asynchronous saves and pruning are
-not ported.
+trainer state: step, model, EMA, optimizer moments in their dtypes,
+accumulator, generator), and resume picks the highest epoch.  The
+train-set bounds go beside them as ``bounds.npz``
+(train_diffusion.py:128-137).  The JAX package's asynchronous saves are
+not ported; its pruning (``--keep_last_checkpoints``) is.
 """
 from __future__ import annotations
 
@@ -14,6 +16,7 @@ import os
 import re
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 _CKPT_RE = re.compile(r"^model_(\d+)$")
@@ -43,6 +46,19 @@ def save_checkpoint(state: Any, experiment_dir: str, epoch: int) -> str:
     return path
 
 
+def prune_checkpoints(experiment_dir: str, keep_last: int, protect: Optional[int] = None) -> list:
+    """Delete all but the ``keep_last`` highest-epoch checkpoints (never
+    ``protect``); returns the removed epochs."""
+    if not os.path.isdir(experiment_dir):
+        return []
+    ids = sorted(int(m.group(1)) for f in os.listdir(experiment_dir)
+                 if (m := _CKPT_RE.match(f)) and os.path.isfile(os.path.join(experiment_dir, f)))
+    doomed = [e for e in ids[:-keep_last] if e != protect] if keep_last < len(ids) else []
+    for e in doomed:
+        os.remove(checkpoint_path(experiment_dir, e))
+    return doomed
+
+
 def load_checkpoint(experiment_dir: str, epoch: Optional[int] = None,
                     map_location: Any = "cpu") -> Tuple[Optional[Any], Optional[int]]:
     """The latest (or given-epoch) checkpoint: (state, epoch), or (None, None)
@@ -56,14 +72,24 @@ def load_checkpoint(experiment_dir: str, epoch: Optional[int] = None,
     return state, epoch
 
 
-def load_model_weights(path: str) -> Dict[str, Any]:
+def load_model_weights(path: str, ema: bool = True) -> Dict[str, Any]:
     """A model state_dict from a reference ``.pt``/``.pth`` file (the port's
     modules carry the reference names) or from the newest checkpoint of an
-    experiment dir."""
+    experiment dir: its EMA weights when it has them and ``ema`` is set,
+    else its raw weights."""
     if path.endswith((".pt", ".pth")):
         sd = torch.load(path, map_location="cpu", weights_only=True)
         return dict(sd.state_dict() if hasattr(sd, "state_dict") else sd)
     state, epoch = load_checkpoint(path)
     if epoch is None:
         raise FileNotFoundError(f"no model_* checkpoints under {path}")
+    if ema and state.get("ema") is not None:
+        return state["ema"]
     return state["model"]
+
+
+def save_bounds(experiment_dir: str, bounds: Dict[str, np.ndarray]) -> None:
+    """The train-set normalization bounds next to the checkpoints
+    (train_diffusion.py:128-137)."""
+    os.makedirs(experiment_dir, exist_ok=True)
+    np.savez(os.path.join(experiment_dir, "bounds.npz"), **bounds)

@@ -26,6 +26,8 @@ import re
 import subprocess
 from typing import Any, Dict, List, Tuple
 
+import torch
+
 _NULL = {"", "~", "null", "Null", "NULL"}
 _TRUE = {"true", "True", "TRUE", "yes", "Yes", "YES", "on", "On", "ON"}
 _FALSE = {"false", "False", "FALSE", "no", "No", "NO", "off", "Off", "OFF"}
@@ -134,6 +136,16 @@ def parse_yaml(text: str) -> Any:
     if pos != len(lines):
         raise ValueError(f"line {lines[pos][2]}: unexpected dedent or content")
     return value
+
+
+_DTYPES = {"bfloat16": torch.bfloat16, "bf16": torch.bfloat16,
+           "float32": torch.float32, "f32": torch.float32}
+
+
+def as_dtype(name):
+    """A config's dtype name ("bfloat16", "bf16", "float32", "f32") -> the
+    torch dtype; None and torch dtypes pass through."""
+    return _DTYPES[name] if isinstance(name, str) else name
 
 
 def load_config(config_file: str) -> Dict[str, Any]:

@@ -10,7 +10,9 @@ turns into the Flax ``Unet1D`` tree.  This module is its inverse:
 - :func:`denoiser_tree` maps a port module's tensors to the Flax layout the
   serving engine reads (``models/inference.py``), on the module's device;
 - :func:`load_jax_params` loads a JAX ``SceneNetworks`` variable tree, as
-  numpy arrays, into a port ``SceneDiffusion``;
+  numpy arrays, into a port ``SceneDiffusion``, and :func:`scene_tree` maps
+  a port ``SceneDiffusion``'s parameters (or any tensors named like them,
+  such as their gradients) the other way;
 - :func:`flax_to_torch_autoencoder` is the inverse of
   ``convert_autoencoder`` for the shape autoencoder, and
   :func:`load_jax_autoencoder` loads JAX variables into a port
@@ -22,7 +24,7 @@ Tensor rules: Conv1d (O, I, 1) <-> Dense kernel (I, O); Linear (O, I) <->
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -186,11 +188,14 @@ def flax_to_torch_denoiser(np_tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
     return out
 
 
-def denoiser_tree(net: torch.nn.Module) -> Dict[str, Any]:
+def denoiser_tree(net: torch.nn.Module,
+                  values: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, Any]:
     """A port ``Unet1D``'s parameters in the Flax tree layout ((in, out)
-    kernels), as tensors on the module's device."""
+    kernels), as tensors on the module's device.  ``values`` (keyed by the
+    module's state_dict names, e.g. the parameters' gradients) replaces the
+    parameters themselves."""
     tree: Dict[str, Any] = {}
-    for key, t in net.state_dict().items():
+    for key, t in (net.state_dict() if values is None else values).items():
         path, kind = _torch_to_flax_key(key)
         if path[-1] == "bias":
             kind = "vec"
@@ -198,18 +203,45 @@ def denoiser_tree(net: torch.nn.Module) -> Dict[str, Any]:
     return tree
 
 
+# conditioner: port state_dict key -> (flax path under "conditioner", kind)
+_CONDITIONER = {
+    "positional_embedding": (("positional_embedding",), "vec"),
+    "fc_instance_condition.0.weight": (("fc_instance_0", "kernel"), "linear"),
+    "fc_instance_condition.2.weight": (("fc_instance_1", "kernel"), "linear"),
+}
+
+
 def load_jax_params(scene, np_params: Dict[str, Any]) -> None:
     """Load a JAX ``SceneNetworks`` variable tree (numpy leaves:
-    ``params.denoiser`` and ``params.conditioner.positional_embedding``)
-    into a port ``SceneDiffusion``, so both packages compute the same thing."""
+    ``params.denoiser`` and ``params.conditioner``, the learnable
+    ``positional_embedding`` or the one-hot heads ``fc_instance_0/1``) into
+    a port ``SceneDiffusion``, so both packages compute the same thing."""
     p = np_params["params"]
-    sd = flax_to_torch_denoiser(p["denoiser"])
-    scene.denoiser.load_state_dict(sd, strict=True)
+    scene.denoiser.load_state_dict(flax_to_torch_denoiser(p["denoiser"]), strict=True)
     cond = p.get("conditioner", {})
-    if scene.conditioner is not None and "positional_embedding" in cond:
-        with torch.no_grad():
-            scene.conditioner.positional_embedding.copy_(
-                torch.from_numpy(np.asarray(cond["positional_embedding"], np.float32)))
+    sd = {}
+    for key, (path, kind) in _CONDITIONER.items():
+        if path[0] in cond:
+            a = np.asarray(_get(cond, path), np.float32)
+            sd[key] = torch.from_numpy(np.ascontiguousarray(_to_torch_layout(a, kind)))
+    scene.conditioner.load_state_dict(sd, strict=True)
+
+
+def scene_tree(scene, values: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, Any]:
+    """A port ``SceneDiffusion``'s parameters as the JAX ``SceneNetworks``
+    params tree ({"denoiser": ..., "conditioner": ...}, Flax layouts).
+    ``values`` (keyed by ``scene.networks`` state_dict names, e.g.
+    ``{n: p.grad for n, p in scene.networks.named_parameters()}``) replaces
+    the parameters, so gradients can be held against ``jax.grad``'s."""
+    if values is None:
+        values = scene.networks.state_dict()
+    den = {k[len("denoiser."):]: v for k, v in values.items() if k.startswith("denoiser.")}
+    tree = {"denoiser": denoiser_tree(scene.denoiser, den), "conditioner": {}}
+    for k, v in values.items():
+        if k.startswith("conditioner."):
+            path, kind = _CONDITIONER[k[len("conditioner."):]]
+            _set(tree["conditioner"], path, _to_flax_layout(v.detach(), kind))
+    return tree
 
 
 def _autoencoder_layers():
@@ -274,3 +306,20 @@ def load_jax_autoencoder(model: torch.nn.Module, variables: Dict[str, Any]) -> N
         if k.endswith("num_batches_tracked"):
             sd[k] = v
     model.load_state_dict(sd, strict=True)
+
+
+def reference_to_scene_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A reference DiffusionSceneLayout_DDPM state_dict -> ``scene.networks``
+    keys: ``diffusion.model.*`` -> ``denoiser.*`` (the port's Unet1D carries
+    the reference names), the instance heads -> ``conditioner.*``.  Other
+    keys (room-mask extractor, text encoders) raise: those conditions are
+    not ported."""
+    out = {}
+    for key, val in state_dict.items():
+        if key.startswith("diffusion.model."):
+            out["denoiser." + key[len("diffusion.model."):]] = val
+        elif key in _CONDITIONER:
+            out["conditioner." + key] = val
+        else:
+            raise KeyError(f"unmapped scene-model key: {key}")
+    return out

@@ -338,10 +338,13 @@ def test_clip_follows_optax_above_and_below_the_cap(scale):
 
 
 def test_unported_optimizer_options_raise():
+    """fused_adam / adam_moment_dtype take Adam without weight decay only:
+    elsewhere the port raises where the JAX package drops them silently."""
     p = [torch.zeros(3, requires_grad=True)]
     for extra in ({"fused_adam": True}, {"adam_moment_dtype": "bfloat16"}):
-        with pytest.raises(NotImplementedError, match="A2"):
-            toptim.optimizer_factory(p, dict(TRAIN_CFG, **extra))
+        for bad in ({"optimizer": "SGD"}, {"weight_decay": 0.01}):
+            with pytest.raises(ValueError, match="fused_adam"):
+                toptim.optimizer_factory(p, dict(TRAIN_CFG, **extra, **bad))
     with pytest.raises(NotImplementedError):
         toptim.optimizer_factory(p, dict(TRAIN_CFG, optimizer="Lion"))
 
@@ -352,5 +355,5 @@ def test_unported_optimizer_options_raise():
 ], ids=["sgd", "radam", "adamw", "lambda", "warmup_cosine"])
 def test_unported_optimizers_and_schedules_raise(extra):
     """No shipped config selects these; they raise, naming the ROADMAP item."""
-    with pytest.raises(NotImplementedError, match="A2"):
+    with pytest.raises(NotImplementedError, match="A10"):
         toptim.optimizer_factory([torch.zeros(3, requires_grad=True)], dict(TRAIN_CFG, **extra))

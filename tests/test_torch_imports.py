@@ -43,6 +43,10 @@ def test_port_sources_found():
                    "models/autoencoder.py", "train/optim.py", "train/ae_trainer.py",
                    "utils/checkpoint.py", "utils/config.py", "data/threed_future.py",
                    "data/raw.py", "cli/train_objautoencoder.py",
-                   "cli/generate_objautoencoder.py"):
+                   "cli/generate_objautoencoder.py", "ops/iou3d.py", "train/trainer.py",
+                   "data/splits.py", "data/encoding.py", "data/threed_front.py",
+                   "data/filters.py", "data/loader.py", "data/factory.py", "data/synthetic.py",
+                   "eval/postprocess.py", "eval/metrics.py", "cli/train_diffusion.py",
+                   "cli/generate_diffusion.py"):
         assert f"diffuscene_tpu_torch/{module}" in paths, module
-    assert len(paths) >= 30
+    assert len(paths) >= 44
