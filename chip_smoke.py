@@ -46,9 +46,11 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    C=512, B=64, N=12 and N=21, per-row film, per-scene film, zero film rows
    and no film, C_in 512 (identity residual) and 1024 (x and skip with the
    residual projection, and one (M, 1024) x), bf16 and f32, a ragged B=63,
-   and the per-scene and skip blocks at B=768 (the JAX bench's batch) with
-   their bound; the bf16 kernel's launch plan (clusters, stages, shared
-   memory, clusters that fit at once); each case's time as CUDA events
+   and the per-scene and skip blocks at B=256 (run/generate.sh's batch) and
+   B=768 (the JAX bench's), bf16 and f32, with their bound (f32 on the
+   split-TF32 route, the FP32-rate figure beside); each kernel's launch
+   plan (clusters, stages, shared memory, clusters that fit at once); each
+   case's time as CUDA events
    around 20 eager calls (the wrapper's host time included, as for the
    other kernels), beside CUDA events around a CUDA-graph replay of 20
    calls (the kernel back to back), profiler device time and the plain
@@ -69,6 +71,14 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    and B2's ms per step; a named kernel the profile does not show raises);
 11. a 20-step DPM-Solver++ sample of 64 scenes, fused=True, bf16: finite,
    exactly 560 B1 and 20 B2 launches, wall time;
+15. the flagship config's own dtype, f32, through the 3-D engine (the
+   scene phase 3 built): a 1000-step DDPM sample of 64 scenes (exactly
+   28,000 B1 and 1,000 B2 launches) with a 20-step profile against its
+   step time, a 20-step DPM-Solver++ sample at run/generate.sh's batch of
+   256 (exactly 560 and 20), and a 20-step profile of a B=256 step against
+   its host-clock time; each profile names the f32 kernels (resblock_tf32,
+   set_attention_f32) and gives their ms per step, busy time and idle
+   share;
 12. the scene model's training path at the flagship's full width (the
    diffusion_bedrooms_instancond_lat32_v config: dim 512, 4 levels, N=12,
    v-prediction, loss_separate, loss_iou on the train bounds, clip + Adam,
@@ -90,13 +100,17 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    KL in stats.json.
 
 The phases run in the order 1, 2, 7, 8, 3 with 9 (one set of full-width
-models), 4, 10, 11, 5, 6, 12, 13, 14.  TF32 is off for every matmul and
-convolution (the references are f32).
-Phase 1 prints each kernel's registers, stack and spills from ptxas.
+models), 4, 10, 11, 15, 5, 6, 12, 13, 14.  TF32 is off for every matmul and
+convolution (the references are f32; the f32 B1 kernel's split TF32 is
+three tf32 products per f32 product, not TF32 matmul).
+Phase 1 prints each kernel's registers, stack and spills from ptxas, and
+raises if the f32 B1 kernel spills.
 
     python3 chip_smoke.py --only-resblock
 
-runs phases 1 and 7 alone, the short check of a new B1 kernel, and
+runs phases 1 and 7 alone, the short check of a new B1 kernel (bf16 and
+f32), ``--only-f32-engine`` phases 1, 3 + 9 in f32 and 15 (the main path in
+its own dtype), and
 
     python3 chip_smoke.py --only-chain
 
@@ -112,7 +126,10 @@ share, peak memory and agreement; the CLI pair's times and launches); the
 kernels line holds the launches on each main path, worst
 error, kernel, plain and library times of one forward's 19 chains and of
 its 28 ResnetBlocks, of one set attention and of one chamfer forward, each
-with its graph-replay time beside as "graph_ms", and each one's bound.  The
+with its graph-replay time beside as "graph_ms", and each one's bound; the
+ResnetBlock entry also carries the f32 28 blocks ("f32_ms", "f32_graph_ms",
+"f32_plain_ms", "f32_bound_ms" on the split-TF32 route) and the f32 DDPM
+sample's launches ("f32_launches").  The
 last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -128,8 +145,12 @@ SEED = 0
 DEV = "cuda"
 # published peaks of one H100 SXM (NVIDIA data sheet, dense): HBM bytes/s,
 # dense bf16 tensor-core FLOP/s, FP32 FLOP/s outside the tensor cores (an
-# FMA counted as 2, so FP32 instructions issue at half that rate)
-HBM_BPS, BF16_FLOPS, FP32_FLOPS = 3.35e12, 989e12, 67e12
+# FMA counted as 2, so FP32 instructions issue at half that rate), dense
+# TF32 tensor-core FLOP/s
+HBM_BPS, BF16_FLOPS, FP32_FLOPS, TF32_FLOPS = 3.35e12, 989e12, 67e12, 495e12
+# split TF32 ("3xTF32"): an f32 product on the tensor cores as three tf32
+# products (hi*hi + hi*lo + lo*hi)
+TF32_SPLIT = 3
 # stated tolerances, kernel vs plain version on the same inputs: f32 differs
 # only in summation order; bf16 may also flip a rounding of an intermediate
 KERNEL_TOL = {"float32": dict(atol=1e-3, rtol=1e-4), "bfloat16": dict(atol=1e-1, rtol=5e-2)}
@@ -161,6 +182,14 @@ CHAIN_LARGE_B_CASES = ("row_scene", "row_skip")
 RB_LARGE_B, RB_LARGE_B_CASES = 768, ("scene", "skip")
 ATTN_HEADS, ATTN_DIM_HEAD, ATTN_LARGE_B = 4, 32, 768
 DPM_STEPS = 20
+# run/generate.sh's batch: the f32 DPM-Solver++ sample (phase 15) and the
+# second f32 step profile
+GENERATE_B = 256
+# B1's large batches, bf16 and f32: run/generate.sh's and the JAX bench's
+RB_LARGE_BATCHES = (GENERATE_B, RB_LARGE_B)
+# the 3-D engine's kernels as the profiler names them, by compute dtype
+ENGINE_KERNELS = {"bfloat16": (("B1", "resblock_sm90"), ("B2", "attention_sm90")),
+                  "float32": (("B1 f32", "resblock_tf32"), ("B2 f32", "set_attention_f32"))}
 SAMPLE_PROFILE_STEPS = 20
 # chamfer cases (B, N, M, D); "identical" compares a cloud with itself;
 # "dup" copies 8 y points of each slice of the kernel's M sweep into the
@@ -203,7 +232,8 @@ TRAIN_STEP_TOL = {"loss": 1e-4, "gradnorm": 1e-4, "grad_rel_l2": 1e-3}
 # the whole gradient within 5e-2 in relative L2, each parameter's within 2e-1
 FAST_VJP_TOL = {"loss": 1e-2, "whole": 5e-2, "worst": 2e-1}
 # the short checks: phase 1 and one kernel's phase, no ok line
-ONLY = ("--only-resblock", "--only-chain", "--only-attention", "--only-chamfer", "--only-train")
+ONLY = ("--only-resblock", "--only-chain", "--only-attention", "--only-chamfer", "--only-train",
+        "--only-f32-engine")
 
 
 def card_line():
@@ -389,11 +419,12 @@ def chain_forward(results):
     for dname in ("bfloat16", "float32"):
         mix = {i: sum(results[(12, dname, v)][i] * k for v, k in FORWARD_MIX.items())
                for i in range(1, 7)}
-        b_ms, b_by = bound(mix[3], mix[4]) if dname == "bfloat16" else bound(0, mix[4], mix[3])
+        b_ms, b_by, fp32_ms = kernel_bound(dname, mix[3], mix[4])
+        route = "" if fp32_ms is None else f" on the 3xTF32 route, {fp32_ms:.4f} ms at the FP32 rate"
         print(f"chains of one flagship forward (N=12, B={B}, {dname}, 19 chains): kernel "
               f"{mix[1]:.3f} ms (CUDA events, eager calls), graph replay {mix[6]:.3f} ms, device "
-              f"{mix[5]:.3f} ms (profiler), plain {mix[2]:.3f} ms, bound {b_ms:.4f} ms ({b_by}; "
-              f"{mix[3] / 1e9:.2f} GFLOP, {mix[4] / 1e6:.2f} MB)", flush=True)
+              f"{mix[5]:.3f} ms (profiler), plain {mix[2]:.3f} ms, bound {b_ms:.4f} ms{route} "
+              f"({b_by}; {mix[3] / 1e9:.2f} GFLOP, {mix[4] / 1e6:.2f} MB)", flush=True)
         out[dname] = (mix, b_ms, b_by)
     return out["bfloat16"]
 
@@ -550,6 +581,34 @@ def rb_work(args, kw):
     return flops, nbytes
 
 
+def rb_check(rb, torch, name, n, dtype, seed, batch=B, timed=True):
+    """One B1 case: kernel vs plain version ("none" must also equal zero
+    film rows exactly); with ``timed``, the eager (CUDA events),
+    graph-replay, profiler-device and plain times.  Returns (ok, error,
+    times or None, (flops, bytes))."""
+    dname = str(dtype).split(".")[-1]
+    args, kw = rb_case(torch, name, n, dtype, seed, batch=batch)
+    got = rb.fused_resnet_block(*args, **kw)
+    want = rb.fused_resnet_block_reference(*args, **kw)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    ok = (bool(torch.isfinite(got.float()).all())
+          and torch.allclose(got.float(), want.float(), **KERNEL_TOL[dname]))
+    if name == "none":   # no film is zero film rows, exactly
+        zero = torch.zeros(args[0].shape[0], 2 * C, dtype=dtype, device="cuda")
+        ok = ok and torch.equal(got, rb.fused_resnet_block(args[0], zero, **kw))
+    times = None
+    if timed:
+        def call():
+            return rb.fused_resnet_block(*args, **kw)
+
+        times = dict(ms=cuda_ms(call), graph=graph_ms(torch, call),
+                     dev=device_ms(torch, call, "resblock"),
+                     plain=cuda_ms(lambda: rb.fused_resnet_block_reference(*args, **kw),
+                                   iters=20 if batch == B else 5))
+    return ok, err, times, rb_work(args, kw)
+
+
 def phase_resblock(rb, torch):
     """Phase 7: B1 vs its plain version; returns (worst error, results)."""
     results, failures, worst = {}, [], 0.0
@@ -559,68 +618,47 @@ def phase_resblock(rb, torch):
             dname = str(dtype).split(".")[-1]
             for name in RB_CASES:
                 seed += 1
-                args, kw = rb_case(torch, name, n, dtype, seed)
-                got = rb.fused_resnet_block(*args, **kw)
-                want = rb.fused_resnet_block_reference(*args, **kw)
-                torch.cuda.synchronize()
-                err = (got.float() - want.float()).abs().max().item()
-                ok = (bool(torch.isfinite(got.float()).all())
-                      and torch.allclose(got.float(), want.float(), **KERNEL_TOL[dname]))
-                if name == "none":   # no film is zero film rows, exactly
-                    zero = torch.zeros(args[0].shape[0], 2 * C, dtype=dtype, device="cuda")
-                    ok = ok and torch.equal(got, rb.fused_resnet_block(args[0], zero, **kw))
+                ok, err, tm, (flops, nbytes) = rb_check(rb, torch, name, n, dtype, seed)
                 worst = max(worst, err)
-                ms = cuda_ms(lambda: rb.fused_resnet_block(*args, **kw))
-                graph = graph_ms(torch, lambda: rb.fused_resnet_block(*args, **kw))
-                plain = cuda_ms(lambda: rb.fused_resnet_block_reference(*args, **kw))
-                dev = device_ms(torch, lambda: rb.fused_resnet_block(*args, **kw), "resblock")
-                flops, nbytes = rb_work(args, kw)
-                results[(n, dname, name)] = (err, ms, plain, flops, nbytes, dev, graph)
-                b_ms, b_by = (bound(flops, nbytes) if dname == "bfloat16"
-                              else bound(0, nbytes, flops))
+                results[(n, dname, name)] = (err, tm["ms"], tm["plain"], flops, nbytes, tm["dev"],
+                                             tm["graph"])
+                b_ms, b_by, fp32_ms = kernel_bound(dname, flops, nbytes)
+                route = "" if fp32_ms is None else f" (3xTF32; FP32 rate {fp32_ms:.4f})"
                 print(f"kernel fused_resblock N={n} {dname:8s} {name:5s} max_abs_err={err:.3e} "
-                      f"tol={KERNEL_TOL[dname]} {'ok' if ok else 'FAIL'} kernel_ms={ms:.4f} "
-                      f"graph_ms={graph:.4f} device_ms={dev:.4f} plain_ms={plain:.4f} "
-                      f"bound_ms={b_ms:.4f} ({b_by})", flush=True)
+                      f"tol={KERNEL_TOL[dname]} {'ok' if ok else 'FAIL'} kernel_ms={tm['ms']:.4f} "
+                      f"graph_ms={tm['graph']:.4f} device_ms={tm['dev']:.4f} "
+                      f"plain_ms={tm['plain']:.4f} bound_ms={b_ms:.4f}{route} ({b_by})", flush=True)
                 if not ok:
                     failures.append((n, dname, name, err))
-    # a ragged last tile: 63 scenes of 12 rows, tiles of 2 scenes
+    # a ragged last tile: 63 scenes of 12 rows
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        args, kw = rb_case(torch, "skip", 12, dtype, 7, batch=63)
-        got = rb.fused_resnet_block(*args, **kw)
-        want = rb.fused_resnet_block_reference(*args, **kw)
-        err = (got.float() - want.float()).abs().max().item()
-        ok = torch.allclose(got.float(), want.float(), **KERNEL_TOL[dname])
+        ok, err, _, _ = rb_check(rb, torch, "skip", 12, dtype, 7, batch=63, timed=False)
         worst = max(worst, err)
         print(f"kernel fused_resblock N=12 B=63 {dname:8s} skip  max_abs_err={err:.3e} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             failures.append((12, dname, "skip B=63", err))
-    # the JAX bench's batch (B=768): the per-scene-film and the skip blocks
-    for name in RB_LARGE_B_CASES:
-        args, kw = rb_case(torch, name, 12, torch.bfloat16, 500 + len(name), batch=RB_LARGE_B)
-        got = rb.fused_resnet_block(*args, **kw)
-        want = rb.fused_resnet_block_reference(*args, **kw)
-        torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs().max().item()
-        ok = (bool(torch.isfinite(got.float()).all())
-              and torch.allclose(got.float(), want.float(), **KERNEL_TOL["bfloat16"]))
-        worst = max(worst, err)
-        ms = cuda_ms(lambda: rb.fused_resnet_block(*args, **kw))
-        graph = graph_ms(torch, lambda: rb.fused_resnet_block(*args, **kw))
-        plain = cuda_ms(lambda: rb.fused_resnet_block_reference(*args, **kw), iters=5)
-        dev = device_ms(torch, lambda: rb.fused_resnet_block(*args, **kw), "resblock")
-        flops, nbytes = rb_work(args, kw)
-        b_ms, b_by = bound(flops, nbytes)
-        results[(12, "bfloat16", name, RB_LARGE_B)] = (err, ms, plain, flops, nbytes, dev, graph)
-        print(f"kernel fused_resblock N=12 B={RB_LARGE_B} bfloat16 {name:5s} max_abs_err={err:.3e} "
-              f"{'ok' if ok else 'FAIL'} kernel_ms={ms:.4f} graph_ms={graph:.4f} device_ms={dev:.4f} "
-              f"plain_ms={plain:.4f} "
-              f"bound_ms={b_ms:.4f} ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)",
-              flush=True)
-        if not ok:
-            failures.append((12, "bfloat16", f"{name} B={RB_LARGE_B}", err))
+    # run/generate.sh's batch and the JAX bench's (B=256, 768): the
+    # per-scene-film and the skip blocks
+    for batch in RB_LARGE_BATCHES:
+        for dtype in (torch.bfloat16, torch.float32):
+            dname = str(dtype).split(".")[-1]
+            for name in RB_LARGE_B_CASES:
+                ok, err, tm, (flops, nbytes) = rb_check(rb, torch, name, 12, dtype,
+                                                        500 + batch + len(name), batch=batch)
+                worst = max(worst, err)
+                b_ms, b_by, fp32_ms = kernel_bound(dname, flops, nbytes)
+                route = "" if fp32_ms is None else f" (3xTF32; FP32 rate {fp32_ms:.4f})"
+                results[(12, dname, name, batch)] = (err, tm["ms"], tm["plain"], flops, nbytes,
+                                                     tm["dev"], tm["graph"])
+                print(f"kernel fused_resblock N=12 B={batch} {dname:8s} {name:5s} "
+                      f"max_abs_err={err:.3e} {'ok' if ok else 'FAIL'} kernel_ms={tm['ms']:.4f} "
+                      f"graph_ms={tm['graph']:.4f} device_ms={tm['dev']:.4f} "
+                      f"plain_ms={tm['plain']:.4f} bound_ms={b_ms:.4f}{route} ({b_by}; "
+                      f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+                if not ok:
+                    failures.append((12, dname, f"{name} B={batch}", err))
     if failures:
         raise RuntimeError(f"resblock kernel disagrees with its plain version: {failures}")
     return worst, results
@@ -629,35 +667,45 @@ def phase_resblock(rb, torch):
 def resblock_forward(worst, results):
     """The 28 B1 blocks of one flagship forward (N=12, B=64) from phase 7's
     cases, bf16 and f32: CUDA-event (eager and graph replay), device, plain
-    and bound times (bf16 tensor cores; FP32 outside them).  Returns the
-    bf16 sums and bound."""
+    and bound times (bf16 tensor cores; f32 on the 3xTF32 route, with the
+    FP32-rate bound beside).  Returns (worst error, {dtype name: (the
+    sums, bound ms, what bounds it)})."""
     out = {}
     for dname in ("bfloat16", "float32"):
         mix = {i: sum(results[(12, dname, v)][i] * k for v, k in RB_FORWARD_MIX.items())
                for i in (1, 2, 3, 4, 5, 6)}
-        b_ms, b_by = bound(mix[3], mix[4]) if dname == "bfloat16" else bound(0, mix[4], mix[3])
+        b_ms, b_by, fp32_ms = kernel_bound(dname, mix[3], mix[4])
+        route = "" if fp32_ms is None else f" on the 3xTF32 route, {fp32_ms:.4f} ms at the FP32 rate"
         print(f"ResnetBlocks of one flagship forward (N=12, B={B}, {dname}, 28 blocks): "
               f"kernel {mix[1]:.3f} ms (CUDA events, eager calls), graph replay {mix[6]:.3f} ms "
               f"(CUDA events), device {mix[5]:.3f} ms (profiler), plain "
-              f"{mix[2]:.3f} ms, bound {b_ms:.4f} ms ({b_by}; {mix[3] / 1e9:.2f} GFLOP, "
+              f"{mix[2]:.3f} ms, bound {b_ms:.4f} ms{route} ({b_by}; {mix[3] / 1e9:.2f} GFLOP, "
               f"{mix[4] / 1e6:.2f} MB)", flush=True)
         out[dname] = (mix, b_ms, b_by)
-    return (worst,) + out["bfloat16"]
+    return worst, out
 
 
-def resblock_plan(rb):
-    """The bf16 B1 kernel's launch at the flagship's shapes: clusters of 8
-    CTAs, stages, shared memory a CTA (the library's sum) and the clusters
-    that fit on the card at once."""
+def resblock_plan(rb, torch):
+    """Each B1 kernel's launch at the flagship's shapes: clusters of 8 CTAs,
+    stages, shared memory a CTA (the plan's sum and the library's) and the
+    clusters that fit on the card at once."""
+    from diffuscene_tpu_torch.ops import build
+
     lib = rb.load_library()
-    for n in (12, 21):
-        for kx, ks in ((C, 0), (C, C)):
-            p = rb.tile_plan(B, n, kx, ks)
-            fit = lib.fused_resblock_max_active_clusters(kx, ks, int(ks > 0))
-            print(f"plan fused_resblock bf16 N={n} B={B} C_in={kx}+{ks}: {p.scenes_per_tile} "
-                  f"scenes a tile, {p.clusters} clusters of 8 = {p.ctas} CTAs, {p.stages} stages, "
-                  f"{lib.fused_resblock_smem_bytes(kx, ks)} bytes of shared memory a CTA, "
-                  f"{fit} clusters fit at once", flush=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        code = build.DTYPE_CODES[dtype]
+        dname = "bf16" if dtype == torch.bfloat16 else "f32"
+        for n in (12, 21):
+            for kx, ks in ((C, 0), (C, C)):
+                p = rb.tile_plan(B, n, kx, ks, dtype)
+                fit = lib.fused_resblock_max_active_clusters(code, kx, ks, int(ks > 0))
+                print(f"plan fused_resblock {dname} N={n} B={B} C_in={kx}+{ks}: "
+                      f"{p.scenes_per_tile} scenes a tile, {p.clusters} clusters of 8 = {p.ctas} "
+                      f"CTAs, {p.stages} stages, {p.smem_bytes} bytes of shared memory a CTA "
+                      f"(library {lib.fused_resblock_smem_bytes(code, kx, ks)}), {fit} clusters fit "
+                      f"at once", flush=True)
+                if fit < 1:
+                    raise RuntimeError(f"no cluster of the {dname} B1 kernel fits ({fit})")
 
 
 def ptxas_summary(text):
@@ -738,7 +786,10 @@ def phase_attention(at, torch):
         attn_flops = 4 * batch * ATTN_HEADS * n * n * ATTN_DIM_HEAD
         nbytes = (2 * args[0].numel() * args[0].element_size()
                   + sum(a.numel() * a.element_size() for a in args[1:]))
+        route = ""
         if dtype == torch.float32:   # every product on the FMA pipes
+            split_ms = bound(0, nbytes, attn_flops, tf32_flops=TF32_SPLIT * mm_flops)[0]
+            route = f" (FP32 rate; {split_ms:.5f} with the products on the 3xTF32 route)"
             attn_flops, mm_flops = attn_flops + mm_flops, 0
         b_ms, b_by = bound(mm_flops, nbytes, attn_flops)
         results[(n, dname, eps, batch)] = dict(err=err, ms=ms, graph=graph, dev=dev_ms,
@@ -748,7 +799,7 @@ def phase_attention(at, torch):
         print(f"kernel set_attention N={n} B={batch} {dname:8s} eps={eps:g} max_abs_err={err:.3e} "
               f"tol={KERNEL_TOL[dname]} {'ok' if ok else 'FAIL'} kernel_ms={ms:.4f} "
               f"graph_ms={graph:.4f} device_ms={dev_ms:.4f} plain_ms={plain:.4f} "
-              f"bound_ms={b_ms:.5f} ({b_by}; {nbytes / 1e6:.2f} MB)", flush=True)
+              f"bound_ms={b_ms:.5f}{route} ({b_by}; {nbytes / 1e6:.2f} MB)", flush=True)
         if not ok:
             failures.append((n, dname, eps, batch, err))
     # the bf16 kernel takes C=512 and 4 heads of 32 only: anything else raises
@@ -782,57 +833,98 @@ def attention_phase(at, torch):
     return worst, main
 
 
-def bound(flops, nbytes, fp32_flops=0):
+def bound(flops, nbytes, fp32_flops=0, tf32_flops=0):
     """Least time in ms on the card of ``flops`` on the bf16 tensor cores,
-    ``fp32_flops`` outside them and ``nbytes`` of device memory traffic, and
-    what sets it."""
-    ops_s, bytes_s = flops / BF16_FLOPS + fp32_flops / FP32_FLOPS, nbytes / HBM_BPS
+    ``fp32_flops`` outside them, ``tf32_flops`` on the TF32 tensor cores and
+    ``nbytes`` of device memory traffic, and what sets it."""
+    ops_s = flops / BF16_FLOPS + fp32_flops / FP32_FLOPS + tf32_flops / TF32_FLOPS
+    bytes_s = nbytes / HBM_BPS
     return 1e3 * max(ops_s, bytes_s), "operations" if ops_s >= bytes_s else "bytes"
 
 
-def phase_engine_samples(torch, scene, card):
-    """Phases 10 and 11: DDPM-1000 and DPM-Solver++-20 through the 3-D
-    engine; every ResnetBlock on B1 and mid_attn on B2.  Returns the
-    DDPM-1000 launch counts."""
+def kernel_bound(dname, flops, nbytes):
+    """A B1 or B4 call's bound: bf16 on the bf16 tensor cores; f32 on the
+    split-TF32 route (TF32_SPLIT tf32 products each), with the FP32-rate
+    figure beside.  Returns (ms, "operations" or "bytes", FP32-rate ms or
+    None)."""
+    if dname == "bfloat16":
+        return (*bound(flops, nbytes), None)
+    return (*bound(0, nbytes, tf32_flops=TF32_SPLIT * flops), bound(0, nbytes, flops)[0])
+
+
+def sampling_step(torch, scene, batch, gen):
+    """One DDPM step of the 3-D engine at t = T - 1 on fresh inputs (the
+    step a 1000-step sample runs T times), as a callable."""
     from diffuscene_tpu_torch.diffusion import p_sample_step
+
+    cfg = scene.cfg
+    denoise = scene._denoise_fn(scene.make_condition(batch), fused=True)
+    x_t = torch.randn(batch, 12, 62, generator=gen, device="cuda")
+    noise = torch.randn(batch, 12, 62, generator=gen, device="cuda")
+    t_last = torch.full((batch,), T - 1, dtype=torch.long, device="cuda")
+    return lambda: p_sample_step(scene.sched, cfg.model_mean_type, cfg.model_var_type, denoise,
+                                 x_t, t_last, noise, True)
+
+
+def host_ms(torch, fn, n):
+    """Host-clock ms per call of ``fn`` over ``n`` calls after a warm one,
+    ending in a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / n
+
+
+def phase_engine_samples(torch, scene, card, dpm_batch=B, profile_batches=()):
+    """Phases 10 and 11 (bf16) or 15 (f32): DDPM-1000 at B=64 and
+    DPM-Solver++-20 at ``dpm_batch`` through the 3-D engine, every
+    ResnetBlock on B1 and mid_attn on B2, with exact launch counts; a
+    20-step profile at B=64 against the DDPM sample's step time, and one at
+    each batch of ``profile_batches`` against that step's host time.
+    Returns the DDPM-1000 launch counts."""
     from diffuscene_tpu_torch.ops import attention as at
     from diffuscene_tpu_torch.ops import fused_resblock as rb
 
+    dname = str(scene.denoiser.compute_dtype).split(".")[-1]
+    named = ENGINE_KERNELS[dname]
     counts = {}
-    for name, kw, steps in (("DDPM", {}, T), ("DPM-Solver++", dict(dpm=True, dpm_steps=DPM_STEPS),
-                                              DPM_STEPS)):
+    for name, batch, kw, steps in (("DDPM", B, {}, T),
+                                   ("DPM-Solver++", dpm_batch, dict(dpm=True, dpm_steps=DPM_STEPS),
+                                    DPM_STEPS)):
         gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
         torch.cuda.synchronize()
         rb.fused_resnet_block.launches = at.fused_set_attention.launches = 0
         t0 = time.perf_counter()
-        out = scene.sample(B, generator=gen, clip_denoised=True, fused=True, **kw)
+        out = scene.sample(batch, generator=gen, clip_denoised=True, fused=True, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts[name] = (rb.fused_resnet_block.launches, at.fused_set_attention.launches)
         finite = bool(torch.isfinite(out).all())
-        print(f"sample: {steps}-step {name}, B={B}, bf16, fused=True: shape={tuple(out.shape)} "
-              f"finite={finite} resblock_launches={counts[name][0]} "
+        print(f"sample: {steps}-step {name}, B={batch}, {dname}, fused=True: "
+              f"shape={tuple(out.shape)} finite={finite} resblock_launches={counts[name][0]} "
               f"attention_launches={counts[name][1]} wall_s={wall:.3f} "
-              f"scenes_per_s={B / wall:.3f} | {card}", flush=True)
-        if tuple(out.shape) != (B, 12, 62) or not finite:
-            raise RuntimeError(f"the {name} sample is malformed")
+              f"scenes_per_s={batch / wall:.3f} | {card}", flush=True)
+        if tuple(out.shape) != (batch, 12, 62) or not finite:
+            raise RuntimeError(f"the {dname} {name} sample is malformed")
         if counts[name] != (28 * steps, steps):
-            raise RuntimeError(f"expected {28 * steps} B1 and {steps} B2 launches in the {name} "
-                               f"sample, counted {counts[name]}")
+            raise RuntimeError(f"expected {28 * steps} B1 and {steps} B2 launches in the {dname} "
+                               f"{name} sample, counted {counts[name]}")
         if name == "DDPM":
             parts = scene.split_samples(out)
             print(f"sample: empty-slot share {parts['is_empty'].float().mean().item():.3f}",
                   flush=True)
-            cfg = scene.cfg
-            denoise = scene._denoise_fn(scene.make_condition(B), fused=True)
-            x_t = torch.randn(B, 12, 62, generator=gen, device="cuda")
-            noise = torch.randn(B, 12, 62, generator=gen, device="cuda")
-            t_last = torch.full((B,), T - 1, dtype=torch.long, device="cuda")
-            profile_steps(torch, lambda: p_sample_step(scene.sched, cfg.model_mean_type,
-                                                       cfg.model_var_type, denoise, x_t, t_last,
-                                                       noise, True),
-                          SAMPLE_PROFILE_STEPS, 1e3 * wall / T,
-                          named=(("B1", "resblock_sm90"), ("B2", "attention_sm90")))
+            print(f"profile: {dname} 3-D step, B={B}", flush=True)
+            profile_steps(torch, sampling_step(torch, scene, B, gen), SAMPLE_PROFILE_STEPS,
+                          1e3 * wall / T, named=named)
+    for batch in profile_batches:
+        step = sampling_step(torch, scene, batch, torch.Generator(device="cuda").manual_seed(SEED + 4))
+        step_ms = host_ms(torch, step, SAMPLE_PROFILE_STEPS)
+        print(f"profile: {dname} 3-D step, B={batch} (host clock {step_ms:.3f} ms/step "
+              f"unprofiled)", flush=True)
+        profile_steps(torch, step, SAMPLE_PROFILE_STEPS, step_ms, named=named)
     return counts["DDPM"]
 
 
@@ -1368,9 +1460,12 @@ def main(argv):
         if ptxas.exists():
             for name, regs, spill in ptxas_summary(ptxas.read_text()):
                 print(f"ptxas {lib.name.rsplit('_', 1)[0]} {name}: {regs} | {spill}")
+                # the split-TF32 B1 kernel keeps its A fragments in registers
+                if "resblock_tf32" in name and " 0 bytes spill stores, 0 bytes spill loads" not in spill:
+                    raise RuntimeError(f"ptxas spills in {name}: {spill}")
 
     if only == "--only-resblock":   # the short check of a new B1 kernel: phase 7 alone
-        resblock_plan(rb)
+        resblock_plan(rb, torch)
         resblock_forward(*phase_resblock(rb, torch))
         print(card_line())
         return 0
@@ -1386,6 +1481,12 @@ def main(argv):
         print(json.dumps({"train": phase_train(torch, card)}))
         print(card_line())
         return 0
+    if only == "--only-f32-engine":  # the flagship config's own dtype: phases 3 + 9 and 15, f32
+        scene32 = phase_forward(torch, torch.float32)
+        phase_engine_samples(torch, scene32, card, dpm_batch=GENERATE_B,
+                             profile_batches=(GENERATE_B,))
+        print(card_line())
+        return 0
     chain_plan(fl)
     worst, results = phase_kernels(fl, torch)
     fwd, chain_bound_ms, chain_bound_by = chain_forward(results)
@@ -1393,11 +1494,13 @@ def main(argv):
         print(card_line())
         return 0
 
-    resblock_plan(rb)
-    rb_worst, rb_fwd, rb_bound_ms, rb_bound_by = resblock_forward(*phase_resblock(rb, torch))
+    resblock_plan(rb, torch)
+    rb_worst, rb_out = resblock_forward(*phase_resblock(rb, torch))
+    rb_fwd, rb_bound_ms, rb_bound_by = rb_out["bfloat16"]
+    rb32_fwd, rb32_bound_ms, _ = rb_out["float32"]
     at_worst, at_main = attention_phase(at, torch)
 
-    phase_forward(torch, torch.float32)
+    scene32 = phase_forward(torch, torch.float32)
     scene = phase_forward(torch, torch.bfloat16)
 
     # the first slice's main path: 1000-step DDPM sample, every chain
@@ -1438,6 +1541,10 @@ def main(argv):
     # mid_attn on B2
     rb_launches, at_launches = phase_engine_samples(torch, scene, card)
     del scene
+    # phase 15: the flagship config's own dtype, f32, through the 3-D engine
+    rb32_launches, _ = phase_engine_samples(torch, scene32, card, dpm_batch=GENERATE_B,
+                                            profile_batches=(GENERATE_B,))
+    del scene32
     torch.cuda.empty_cache()
 
     cham = phase_chamfer(ch, torch)
@@ -1488,6 +1595,11 @@ def main(argv):
         "bound_ms": rb_bound_ms,
         "bound_by": rb_bound_by,
         "library_ms": None,
+        "f32_launches": rb32_launches,
+        "f32_ms": rb32_fwd[1],
+        "f32_graph_ms": rb32_fwd[6],
+        "f32_plain_ms": rb32_fwd[2],
+        "f32_bound_ms": rb32_bound_ms,
     }, {
         "name": "set_attention",
         "route": "cuda",

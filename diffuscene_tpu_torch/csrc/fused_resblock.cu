@@ -17,7 +17,7 @@
 // second product's operand.  The skip concat is never built: W1 and Wres are
 // split into their x and skip rows.
 //
-// bfloat16 (the serving dtype; resblock_sm90): C = 512 in 8 GroupNorm groups
+// bfloat16 (the b512 recipe's serving dtype; resblock_sm90): C = 512 in 8 GroupNorm groups
 // of 64 channels.  A scene tile (at most 64 rows: 5 scenes of 12, 3 of 21;
 // always the most whole scenes that fit, since every CTA runs the same K
 // loop whatever its rows) is one thread-block cluster of 8 CTAs, and CTA g
@@ -47,20 +47,60 @@
 //   barrier, waited on at the end, keeps every CTA alive until all slices
 //   have landed.
 //
-// float32 (resblock_kernel<float>, for parity): as before, a thread block
-// owns 2 scenes of 12 or 1 of 21, the f32 intermediate stays in shared
-// memory, and the products run in full f32 on the FMA pipes (thread t owns
-// output columns 2t, 2t+1 of all 24 rows).
+// What bounds the bf16 kernel.  One flagship block is 0.8-2.0 GFLOP at
+// B=64, N=12, 1-2 us at the bf16 tensor-core peak, and needs 2-6 MB of
+// device memory traffic.  The kernel is bound by latency along each CTA's
+// chain of phases: the x tile's arrival, the weight stream of block1 from
+// L2 (each of the 13-22 row tiles reads every weight matrix, 13-33 MB a
+// block at B=64), the epilogues on one warpgroup, and the exchange of h
+// through distributed shared memory.  The next steps are a 2-D cluster (row
+// tiles x groups) with each weight chunk multicast to the row tiles that
+// share it, and launches that overlap one block's prologue with the
+// previous block's tail.
 //
-// What bounds it.  One flagship block is 0.8-2.0 GFLOP at B=64, N=12, 1-2 us
-// at the bf16 tensor-core peak, and needs 2-6 MB of device memory traffic.
-// The kernel is bound by latency along each CTA's chain of phases: the x
-// tile's arrival, the weight stream of block1 from L2 (each of the 13-22 row
-// tiles reads every weight matrix, 13-33 MB a block at B=64), the
-// epilogues on one warpgroup, and the exchange of h through distributed
-// shared memory.  The next steps are a 2-D cluster (row tiles x groups) with each
-// weight chunk multicast to the row tiles that share it, and launches that
-// overlap one block's prologue with the previous block's tail.
+// float32 (resblock_tf32; the serving dtype of every diffusion config but
+// the three b512 ones): the same scene tile (at most 64 rows, the wgmma M),
+// cluster of 8 CTAs and CTA-local GroupNorm, with every product on the
+// tensor cores in split TF32: an f32 value v is hi = rna_tf32(v) plus
+// lo = rna_tf32(v - hi), and a product runs as hi*lo + lo*hi + hi*hi with
+// f32 accumulation (wgmma m64n64k8 .tf32), about 2^-21 relative per
+// product.  Never one pass of hi*hi alone: that keeps 11 bits and is
+// another result.  In a CTA (192 threads):
+//
+// - shared memory decides the layout: an f32 tile of 64 rows x 1024 input
+//   columns is 256 KB, so the tile never sits whole.  8 slots of 64 rows x
+//   64 columns (rows 68 floats apart) take its K tiles in turn and then
+//   the gathered h (slot q = CTA q's slice); the ring holds 5 chunks of 32
+//   k x the CTA's 64 columns, split on the host into tf32 hi and lo
+//   (pack_tf32_tiles, 16 KB), 224,272 bytes a CTA in all;
+// - a producer warp streams the chunks (W1 and Wres of each K step in
+//   turn, then W2's in the order block2 takes the slices) by bulk copies;
+// - an x loader warp brings in each K tile: CTA g bulk-copies rows g,
+//   g + 8, ... multicast into all 8 CTAs' slot, once all 8 are done with
+//   the slot's previous K tile (one remote mbarrier arrival from each);
+// - one consumer warpgroup reads its A fragments (the rows) from the slot,
+//   two 16-byte loads a row (the chunks' k is permuted to match), splits
+//   them into hi and lo in registers, and issues the products with B (the
+//   chunk's hi and lo) by descriptor; the next K step's fragments are
+//   loaded and split while a step's products run.  W1 and the residual
+//   projection share the A fragments;
+// - after GN1, FiLM and SiLU (f32) each CTA writes its f32 slice of h
+//   into its slot and, once a cluster barrier says every CTA is done with
+//   its slots, 7 threads bulk-copy it into the other CTAs' slot (shared::cta
+//   to shared::cluster, completing on the peer's barrier for the slice).
+//   The identity residual is read from device memory, exact.
+//
+// What bounds the f32 kernel.  The 28 blocks of a B=64, N=12 forward are
+// 33.42 GFLOP: 0.2025 ms as 3 x 33.42 GFLOP at the 495 TFLOP/s TF32 rate
+// (0.4988 ms at the 67 TFLOP/s FP32 rate).  Each CTA streams its group's
+// split W1, Wres and W2 from L2 (512 KB for a 512-wide block, 1.25 MB for a
+// skip block), so a skip block's launch moves 130 MiB out of L2 at B=64; a
+// CTA's chain of phases (first K tile, the products, the epilogues on one
+// warpgroup, the exchange) sets the rest.  A 24-row tile with the product
+// swapped (out^T = W^T x^T, rows as the wgmma N) was measured first:
+// nearly 3x slower, its 2.7x as many row tiles each streaming every weight
+// in 3 waves of clusters (PERF.md, section 6).
+//
 #include <cooperative_groups.h>
 
 #include "sm90.cuh"
@@ -339,207 +379,404 @@ int launch_sm90(const Args90& a, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// float32: the parity kernel
+// float32: the split-TF32 cluster kernel
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = 24;       // valid rows per tile: 2 scenes of 12 or 1 of 21
-constexpr int kMaxScenes = 4;   // scenes per tile (bounds the reduction buffer)
-constexpr int kPad = 8;         // shared-memory row padding (elements)
+constexpr int kStepK = 32;                      // depth of one f32 weight chunk (a K step)
+constexpr int kStagesF = 5;                     // the weight ring
+constexpr int kThreadsF = kConsumers + 64;      // and a weight producer warp, an x loader warp
+constexpr int kChunkPartF = kStepK * kGroup;    // floats of a chunk's hi (or lo) part: 2048
+constexpr int kChunkBytesF = 2 * kChunkPartF * 4;        // hi and lo: 16 KB
+constexpr uint32_t kLboF = kGroup / 8 * 128;    // next core matrix in k: 1024 bytes
+constexpr uint32_t kKStepF = 2 * kLboF;         // next 8-deep k step: 2048 bytes
+constexpr int kLdF = kGroup + 4;                // row stride (floats) of a slot: 64 + 4
+constexpr int kSlotF = kTileRows * kLdF;        // floats of a slot: 64 rows x 64 columns
 
-struct Args {
-  const void* x;      // (M, kx)
-  const void* skip;   // (M, ks) or null
-  const void* film;   // (B, 2C) per scene, (M, 2C) per row, or null
-  const void* W1;     // (kx + ks, C) (in, out)
-  const void* W2;     // (C, C)
-  const void* Wres;   // like W1, or null (identity residual)
-  const float* V;     // (7, C) f32: b1, g1 scale, g1 bias, b2, g2 scale, g2 bias, bres
-  void* out;          // (M, C)
-  int B, n, C, kx, ks, groups, ts, film_kind;  // film_kind: 0 none, 1 per scene, 2 per row
+// shared-memory layout of resblock_tf32 (the same for every input width)
+struct LayoutF {
+  unsigned ring, slots, v, red, stat, bars, total;
+};
+
+__host__ __device__ constexpr LayoutF layout_f32() {
+  LayoutF L{};
+  L.ring = 0;                                     // kStagesF x 16 KB of split weights
+  L.slots = L.ring + kStagesF * kChunkBytesF;     // 8 slots: x K tiles, later the slices of h
+  L.v = L.slots + kCluster * kSlotF * 4;          // this CTA's 7 vectors
+  L.red = L.v + 7 * kGroup * 4;                   // row sums, squares
+  L.stat = L.red + 2 * kTileRows * 4;             // scene mean, rsqrt
+  L.bars = L.stat + 2 * kTileRows * 4;            // ring full, empty; slot full, empty; slices
+  L.total = L.bars + (2 * kStagesF + 3 * kCluster) * 8;
+  return L;
+}
+
+struct ArgsF {
+  const float* x;      // (M, kx)
+  const float* skip;   // (M, ks) or null
+  const float* film;   // (B, 2C) per scene, (M, 2C) per row, or null
+  const float* W1;     // (8, (kx + ks) / 32, 2, 2048) split chunks (pack_tf32_tiles)
+  const float* W2;     // (8, 16, 2, 2048)
+  const float* Wres;   // like W1, or null (identity residual)
+  const float* V;      // (7, C): b1, g1 scale, g1 bias, b2, g2 scale, g2 bias, bres
+  float* out;          // (M, C)
+  int B, n, kx, ks, ts, film_kind;
   float eps;
 };
 
-// The block's product: accumulators for its output tile and a visitor that
-// hands each thread's pairs of adjacent output columns to a functor.
-template <typename T>
-struct Prod;
-
-template <>
-struct Prod<float> {
-  static constexpr int kTile = kRows;
-  float acc[kRows][2];
-
-  __device__ __forceinline__ void zero() {
+// This thread's A fragments of one K step (32 deep) of a slot (64 rows x
+// 64 columns, rows kLdF apart), split into tf32 hi and lo.  The chunks are
+// packed with the step's k permuted (pack_tf32_tiles): fragment k = 8j +
+// t + 4h of k step j reads column 8t + 2j + h of the step, so lane (g, t)
+// reads 8 contiguous columns of rows 16w + g and + 8 as two 16-byte loads
+// each; rows 68 floats apart keep a quarter warp's loads on distinct banks.
+__device__ __forceinline__ void load_a(const float* slot, int half, uint32_t (&hi)[16],
+                                       uint32_t (&lo)[16]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* p = slot + (16 * warp + (lane >> 2)) * kLdF + kStepK * half + 8 * (lane & 3);
+  float v[2][8];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r][0] = acc[r][1] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const float4 u = *reinterpret_cast<const float4*>(p + 8 * r * kLdF);
+    const float4 w = *reinterpret_cast<const float4*>(p + 8 * r * kLdF + 4);
+    v[r][0] = u.x, v[r][1] = u.y, v[r][2] = u.z, v[r][3] = u.w;
+    v[r][4] = w.x, v[r][5] = w.y, v[r][6] = w.z, v[r][7] = w.w;
   }
-  __device__ __forceinline__ void mm(const float* A, int lda, const void* W, int K, int C) {
-    tile::fma_mm<kRows>(acc, A, lda, static_cast<const float*>(W), C, K, 2 * threadIdx.x);
-  }
-  template <typename F>
-  __device__ __forceinline__ void each(F f) const {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) f(r, 2 * threadIdx.x, acc[r][0], acc[r][1]);
+  for (int j = 0; j < 4; ++j) {   // {(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)}
+    sm90::tf32_split(v[0][2 * j], hi[4 * j], lo[4 * j]);
+    sm90::tf32_split(v[1][2 * j], hi[4 * j + 1], lo[4 * j + 1]);
+    sm90::tf32_split(v[0][2 * j + 1], hi[4 * j + 2], lo[4 * j + 2]);
+    sm90::tf32_split(v[1][2 * j + 1], hi[4 * j + 3], lo[4 * j + 3]);
   }
+}
+
+// d += A @ (the chunk at `chunk`: hi, then lo), as hi*lo + lo*hi + hi*hi in
+// each of the step's 4 k steps
+__device__ __forceinline__ void products_3x(float (&d)[32], const uint32_t (&ah)[16],
+                                            const uint32_t (&al)[16], const float* chunk) {
+  const uint64_t bh = sm90::kmajor_desc(chunk, kLboF);
+  const uint64_t bl = sm90::kmajor_desc(chunk + kChunkPartF, kLboF);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    sm90::wgmma_m64n64k8_tf32(d, ah + 4 * j, sm90::desc_add(bl, j * kKStepF));
+    sm90::wgmma_m64n64k8_tf32(d, al + 4 * j, sm90::desc_add(bh, j * kKStepF));
+    sm90::wgmma_m64n64k8_tf32(d, ah + 4 * j, sm90::desc_add(bh, j * kKStepF));
+  }
+}
+
+// The consumers' side of the weight ring
+struct RingF {
+  const float* base;
+  uint64_t* full;
+  uint64_t* empty;
+  int s;
+  uint32_t ph;
+  __device__ __forceinline__ int take() {   // the next stage, once its chunk has landed
+    const int st = s;
+    sm90::mbar_wait(&full[st], ph);
+    if (++s == kStagesF) s = 0, ph ^= 1;
+    return st;
+  }
+  __device__ __forceinline__ const float* chunk(int st) const { return base + st * 2 * kChunkPartF; }
+  __device__ __forceinline__ void give(int st) { sm90::mbar_arrive_if(&empty[st], true); }
 };
 
-// GroupNorm over the f32 tile H (per scene: its n rows and the group's
-// channels), then FiLM and SiLU, in f32.  The result goes to `dst` (stride
-// ldd, rounded to D), which may be H itself.  Thread t owns columns 2t, 2t+1.
-// red: [2][ts][nthreads] partial sums, stat: [2][ts][groups].
-template <typename T, typename D>
-__device__ void gn_film_silu(const float* H, int ldh, D* dst, int ldd, const Args& a,
-                             const float* scale, const float* bias, int film_kind, const T* film,
-                             int scene0, int nsc, float* red, float* stat) {
-  const int C = a.C, n = a.n, ts = a.ts, groups = a.groups;
-  const int tid = threadIdx.x, nthr = blockDim.x, col = 2 * tid;
-  for (int s = 0; s < nsc; ++s) {
-    float sum = 0.f, sq = 0.f;
-    for (int i = 0; i < n; ++i) {
-      const float2 v = *reinterpret_cast<const float2*>(H + (s * n + i) * ldh + col);
-      sum += v.x + v.y;
-      sq += v.x * v.x + v.y * v.y;
+// Issue one K step's products: this thread's split A fragments times the
+// ring's next chunk into d (and the one after it into dr when kRes).
+// Returns the stages, which retire_step gives back once the products are
+// done.
+template <bool kRes>
+__device__ __forceinline__ int2 issue_step(float (&d)[32], float (&dr)[32],
+                                           const uint32_t (&ah)[16], const uint32_t (&al)[16],
+                                           RingF& w) {
+  const int s1 = w.take();
+  const int s2 = kRes ? w.take() : s1;
+  sm90::wgmma_fence();
+  products_3x(d, ah, al, w.chunk(s1));
+  if constexpr (kRes) products_3x(dr, ah, al, w.chunk(s2));
+  sm90::wgmma_commit();
+  return make_int2(s1, s2);
+}
+
+template <bool kRes>
+__device__ __forceinline__ void retire_step(float (&d)[32], float (&dr)[32], int2 st, RingF& w) {
+  sm90::wgmma_wait<0>();
+  sm90::fence_operand(d);
+  if constexpr (kRes) sm90::fence_operand(dr);
+  w.give(st.x);
+  if constexpr (kRes) w.give(st.y);
+}
+
+// One block's products over `ntiles` 64-deep K tiles of A, two 32-deep
+// steps a tile; the next step's A fragments are loaded and split while a
+// step's products run (two register sets).  tile(kt) waits for K tile kt
+// and returns its slot; done(kt) follows the last read of it.
+template <bool kRes, class Tile, class Done>
+__device__ __forceinline__ void block_products(float (&d)[32], float (&dr)[32], int ntiles,
+                                               Tile tile, Done done, RingF& w) {
+  uint32_t h0[16], l0[16], h1[16], l1[16];
+  const float* A = tile(0);
+  load_a(A, 0, h0, l0);
+#pragma unroll 1
+  for (int kt = 0; kt < ntiles; ++kt) {
+    int2 st = issue_step<kRes>(d, dr, h0, l0, w);
+    load_a(A, 1, h1, l1);
+    done(kt);
+    retire_step<kRes>(d, dr, st, w);
+    st = issue_step<kRes>(d, dr, h1, l1, w);
+    if (kt + 1 < ntiles) {
+      A = tile(kt + 1);
+      load_a(A, 0, h0, l0);
     }
-    red[s * nthr + tid] = sum;
-    red[(ts + s) * nthr + tid] = sq;
+    retire_step<kRes>(d, dr, st, w);
+  }
+}
+
+template <bool kRes>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreadsF, 1)
+    resblock_tf32(const ArgsF a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  constexpr LayoutF L = layout_f32();
+  float* ring = reinterpret_cast<float*>(smem + L.ring);
+  float* slots = reinterpret_cast<float*>(smem + L.slots);   // slot q: x K tile q (mod 8),
+                                                             // later slice q of h
+  float* Vs = reinterpret_cast<float*>(smem + L.v);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  float* stat = reinterpret_cast<float*>(smem + L.stat);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + kStagesF;
+  uint64_t* xfull = empty + kStagesF;     // [q]: slot q holds its x K tile
+  uint64_t* xempty = xfull + kCluster;    // [q]: every CTA's products are done with slot q
+  uint64_t* gbar = xempty + kCluster;     // [q]: CTA q's slice of h has landed here
+
+  const int grp = (int)cg::this_cluster().block_rank();   // GroupNorm group = column slice
+  const int scene0 = (blockIdx.x / kCluster) * a.ts;
+  const int nsc = min(a.ts, a.B - scene0);             // the last tile may be ragged
+  const int rows = nsc * a.n;
+  const size_t row0 = (size_t)scene0 * a.n;
+  const int nkt1 = (a.kx + a.ks) / sm90::kChunkK;      // 64-deep x K tiles
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int col0 = grp * kGroup;
+  constexpr uint32_t kSliceBytes = kSlotF * 4;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStagesF; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumers);
+    }
+    for (int q = 0; q < kCluster; ++q) {
+      sm90::mbar_init(&xfull[q], 1);
+      sm90::mbar_init(&xempty[q], kCluster);   // one arrival from each CTA
+      sm90::mbar_init(&gbar[q], 1);
+      if (q != grp) sm90::mbar_expect_tx(&gbar[q], kSliceBytes);
+    }
+    sm90::mbar_fence_init();
   }
   __syncthreads();
-  const int gs = C / groups, tpg = gs / 2;
-  for (int idx = tid; idx < nsc * groups; idx += nthr) {
-    const int s = idx / groups, g = idx % groups;
-    float sum = 0.f, sq = 0.f;
-    for (int t = g * tpg; t < (g + 1) * tpg; ++t) {
-      sum += red[s * nthr + t];
-      sq += red[(ts + s) * nthr + t];
-    }
-    const float denom = 1.f / (float)(n * gs);
-    const float mean = sum * denom;
-    stat[s * groups + g] = mean;
-    // B1's one-pass variance, without a clamp (fused_resblock.py:76-81)
-    stat[(ts + s) * groups + g] = rsqrtf(sq * denom - mean * mean + a.eps);
-  }
-  __syncthreads();
-  const int g = col / gs;
-  const float sc0 = scale[col], sc1 = scale[col + 1];
-  const float bi0 = bias[col], bi1 = bias[col + 1];
-  for (int s = 0; s < nsc; ++s) {
-    const float mean = stat[s * groups + g], inv = stat[(ts + s) * groups + g];
-    float fs0 = 1.f, fs1 = 1.f, fb0 = 0.f, fb1 = 0.f;
-    if (film_kind == 1) {
-      const T* f = film + (size_t)(scene0 + s) * 2 * C;
-      const float2 fs = tile::ld2<T>(f + col), fb = tile::ld2<T>(f + C + col);
-      fs0 = tile::rnd<T>(fs.x + 1.f); fs1 = tile::rnd<T>(fs.y + 1.f);
-      fb0 = fb.x; fb1 = fb.y;
-    }
-    for (int i = 0; i < n; ++i) {
-      const int r = s * n + i;
-      const float2 v = *reinterpret_cast<const float2*>(H + r * ldh + col);
-      float z0 = (v.x - mean) * inv * sc0 + bi0;
-      float z1 = (v.y - mean) * inv * sc1 + bi1;
-      if (film_kind == 2) {
-        const T* f = film + ((size_t)scene0 * n + r) * 2 * C;
-        const float2 fs = tile::ld2<T>(f + col), fb = tile::ld2<T>(f + C + col);
-        fs0 = tile::rnd<T>(fs.x + 1.f); fs1 = tile::rnd<T>(fs.y + 1.f);
-        fb0 = fb.x; fb1 = fb.y;
+  sm90::cluster_arrive();          // (0) every CTA's barriers are set up
+  sm90::cluster_wait();
+
+  if (warp == kConsumers / 32) {
+    // ---- producer warp: this CTA's weight chunks ----
+    if (lane == 0) {
+      int s = 0;
+      uint32_t ph = 0;
+      auto put = [&](const float* src) {
+        sm90::mbar_wait(&empty[s], ph ^ 1);
+        sm90::mbar_expect_tx(&full[s], kChunkBytesF);
+        sm90::bulk_load(ring + s * 2 * kChunkPartF, src, kChunkBytesF, &full[s]);
+        if (++s == kStagesF) s = 0, ph ^= 1;
+      };
+      const int nsteps = 2 * nkt1;
+      const float* w1 = a.W1 + (size_t)grp * nsteps * 2 * kChunkPartF;
+      const float* wr = kRes ? a.Wres + (size_t)grp * nsteps * 2 * kChunkPartF : nullptr;
+      for (int st = 0; st < nsteps; ++st) {
+        put(w1 + (size_t)st * 2 * kChunkPartF);
+        if (kRes) put(wr + (size_t)st * 2 * kChunkPartF);
       }
-      if (film_kind != 0) {
-        z0 = z0 * fs0 + fb0;
-        z1 = z1 * fs1 + fb1;
+      sm90::cluster_arrive_relaxed();      // (1) before W2, which waits on the second product
+      // W2's K steps in the order block2 takes the slices: this CTA's first
+      const float* w2 = a.W2 + (size_t)grp * 2 * kCluster * 2 * kChunkPartF;
+      for (int kt = 0; kt < kCluster; ++kt)
+        for (int h = 0; h < 2; ++h)
+          put(w2 + (size_t)(2 * ((grp + kt) % kCluster) + h) * 2 * kChunkPartF);
+    } else {
+      sm90::cluster_arrive_relaxed();      // (1)
+    }
+    sm90::cluster_wait();          // (1)
+    sm90::cluster_arrive_relaxed();        // (2)
+    sm90::cluster_wait();          // (2)
+    return;
+  }
+
+  if (warp == kConsumers / 32 + 1) {
+    // ---- x loader warp: the [x | skip] tile, one K tile (64 columns) at a
+    // time into slot kt % 8 of every CTA of the cluster: CTA g copies rows
+    // g, g + 8, ... (256 bytes each, lane i the row g + 8i) into all 8 at
+    // once (bulk copies multicast to the cluster), once all 8 are done with
+    // the slot's previous K tile.  Rows past the tile are left as they are:
+    // they only ever reach rows of the products that are not stored. ----
+    for (int kt = 0; kt < nkt1; ++kt) {
+      const int q = kt % kCluster;
+      sm90::mbar_wait(&xempty[q], ((kt / kCluster) & 1) ^ 1);
+      if (lane == 0) sm90::mbar_expect_tx(&xfull[q], (uint32_t)(rows * kGroup * 4));
+      __syncwarp();
+      const int c = sm90::kChunkK * kt;
+      const int r = grp + kCluster * lane;
+      if (r < rows) {
+        const size_t row = row0 + r;
+        const float* src = c < a.kx ? a.x + row * a.kx + c : a.skip + row * a.ks + (c - a.kx);
+        sm90::bulk_load_multicast(slots + q * kSlotF + r * kLdF, src, kGroup * 4, &xfull[q], 0xff);
       }
-      tile::st2<D>(dst + r * ldd + col, tile::silu(z0), tile::silu(z1));
+    }
+    sm90::cluster_arrive_relaxed();        // (1)
+    sm90::cluster_wait();
+    sm90::cluster_arrive_relaxed();        // (2)
+    sm90::cluster_wait();
+    return;
+  }
+
+  // ---- consumer warpgroup ----
+  // this CTA's 7 vectors (used after block1)
+  for (int i = threadIdx.x; i < 7 * kGroup; i += kConsumers)
+    Vs[i] = a.V[(i / kGroup) * kC + col0 + i % kGroup];
+  float acc[32], accR[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = accR[i] = 0.f;
+  RingF w{ring, full, empty, 0, 0};
+
+  // block1: h = [x | skip] @ W1 + b1 (and the residual projection), f32
+  block_products<kRes>(
+      acc, accR, nkt1,
+      [&](int kt) {
+        sm90::mbar_wait(&xfull[kt % kCluster], (kt / kCluster) & 1);
+        return (const float*)(slots + (kt % kCluster) * kSlotF);
+      },
+      [&](int kt) {
+        if (kt + kCluster < nkt1) {   // the slot takes another K tile: tell every CTA's loader
+          sm90::bar_sync<kConsumers>(1);
+          if (threadIdx.x < kCluster)
+            sm90::mbar_arrive_cluster(sm90::cluster_addr(&xempty[kt % kCluster], threadIdx.x));
+        }
+      },
+      w);
+  // (1) this CTA's loads of its slots are done (their values are in the
+  // finished products): the others may copy h into them
+  sm90::bar_sync<kConsumers>(1);   // Vs written by every consumer
+  sm90::cluster_arrive_relaxed();
+
+  const int t = lane & 3;
+  const int r0 = 16 * warp + (lane >> 2);    // this thread's rows: r0, r0 + 8
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] += Vs[8 * (i / 4) + 2 * t + (i & 1)];
+  sm90::scene_moments<false>(acc, a.n, nsc, a.eps, red, stat);
+
+  // GN1, FiLM, SiLU; this CTA's slice of h into slot grp
+  float* mine = slots + grp * kSlotF;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r < rows) {
+      const int sc = r / a.n;
+      const float mean = stat[sc], inv = stat[kTileRows + sc];
+      const float* f = a.film_kind == 1 ? a.film + (size_t)(scene0 + sc) * 2 * kC + col0
+                                        : a.film + (row0 + r) * 2 * kC + col0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        float z0 = (acc[4 * j + 2 * half] - mean) * inv * Vs[kGroup + c] + Vs[2 * kGroup + c];
+        float z1 =
+            (acc[4 * j + 2 * half + 1] - mean) * inv * Vs[kGroup + c + 1] + Vs[2 * kGroup + c + 1];
+        if (a.film_kind) {
+          const float2 fs = *reinterpret_cast<const float2*>(f + c);
+          const float2 fb = *reinterpret_cast<const float2*>(f + kC + c);
+          z0 = z0 * (fs.x + 1.f) + fb.x;
+          z1 = z1 * (fs.y + 1.f) + fb.y;
+        }
+        *reinterpret_cast<float2*>(mine + r * kLdF + c) = make_float2(silu_fast(z0), silu_fast(z1));
+      }
     }
   }
-  __syncthreads();
-}
 
-template <typename T>
-__global__ void __launch_bounds__(256) resblock_kernel(Args a) {
-  using P = Prod<T>;
-  constexpr int kTile = P::kTile;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int C = a.C, n = a.n, ts = a.ts, kx = a.kx, ks = a.ks;
-  const int tid = threadIdx.x, nthr = blockDim.x;
-  const int ldx = kx + kPad, lds = ks + kPad, ldh = C + 4;
+  // the exchange: once every CTA of the cluster is done with its slots, 7
+  // threads each bulk-copy this slice into one other CTA's slot grp,
+  // completing on that CTA's barrier for this slice
+  sm90::fence_proxy_async_shared();   // this slice's writes before the copies read it
+  sm90::bar_sync<kConsumers>(1);
+  sm90::cluster_wait();            // (1)
+  if (threadIdx.x < kCluster - 1) {
+    const int peer = (grp + 1 + threadIdx.x) % kCluster;
+    sm90::bulk_copy_to_peer(sm90::cluster_addr(mine, peer), mine, kSliceBytes,
+                            sm90::cluster_addr(&gbar[grp], peer));
+  }
 
-  T* X = reinterpret_cast<T*>(smem);                   // x tile
-  T* S = X + kTile * ldx;                              // skip tile (ks > 0)
-  float* H = reinterpret_cast<float*>(S + (ks ? kTile * lds : 0));  // f32 intermediate
-  float* red = H + kTile * ldh;
-  float* stat = red + 2 * ts * nthr;
+  // the identity residual: this thread's x values, exact, from device memory
+  float res[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = r0 + 8 * ((i >> 1) & 1);
+    res[i] = !kRes && r < rows ? a.x[(row0 + r) * a.kx + col0 + 8 * (i / 4) + 2 * t + (i & 1)]
+                               : 0.f;
+  }
 
-  const int scene0 = blockIdx.x * ts;
-  const int nsc = min(ts, a.B - scene0);  // the last tile may be ragged
-  const int rows = nsc * n;
-  const size_t row0 = (size_t)scene0 * n;
-  const float* V = a.V;
-  const T* film = static_cast<const T*>(a.film);
-  T* out = static_cast<T*>(a.out) + row0 * C;
-
-  tile::load_rows<T>(X, ldx, static_cast<const T*>(a.x) + row0 * kx, kx, rows, kTile, kx);
-  if (ks) tile::load_rows<T>(S, lds, static_cast<const T*>(a.skip) + row0 * ks, ks, rows, kTile, ks);
-  __syncthreads();
-
-  // block1: h = [x | skip] @ W1 + b1, kept in f32
-  P p;
-  p.zero();
-  p.mm(X, ldx, a.W1, kx, C);
-  if (ks) p.mm(S, lds, static_cast<const T*>(a.W1) + (size_t)C * kx, ks, C);
-  p.each([&](int r, int c, float v0, float v1) {
-    tile::st2<float>(H + r * ldh + c, v0 + V[c], v1 + V[c + 1]);
-  });
-  __syncthreads();
-  gn_film_silu<T, float>(H, ldh, H, ldh, a, V + C, V + 2 * C, a.film_kind, film, scene0, nsc,
-                         red, stat);
-
-  // block2: h = h @ W2 + b2, GroupNorm, SiLU
-  p.zero();
-  p.mm(H, ldh, a.W2, C, C);
-  __syncthreads();  // every thread is done reading H
-  p.each([&](int r, int c, float v0, float v1) {
-    tile::st2<float>(H + r * ldh + c, v0 + V[3 * C + c], v1 + V[3 * C + c + 1]);
-  });
-  __syncthreads();
-  gn_film_silu<T, float>(H, ldh, H, ldh, a, V + 4 * C, V + 5 * C, 0, film, scene0, nsc, red, stat);
-
-  // residual and store
-  if (a.Wres) {
-    p.zero();
-    p.mm(X, ldx, a.Wres, kx, C);
-    if (ks) p.mm(S, lds, static_cast<const T*>(a.Wres) + (size_t)C * kx, ks, C);
-    const float* bres = V + 6 * C;
-    p.each([&](int r, int c, float v0, float v1) {
-      if (r >= rows) return;
-      const float2 h = *reinterpret_cast<const float2*>(H + r * ldh + c);
-      tile::st2<T>(out + (size_t)r * C + c, h.x + (v0 + bres[c]), h.y + (v1 + bres[c + 1]));
-    });
-  } else {
-    for (int i = tid; i < rows * (C / 2); i += nthr) {
-      const int r = i / (C / 2), c = 2 * (i % (C / 2));
-      const float2 h = *reinterpret_cast<const float2*>(H + r * ldh + c);
-      const float2 x = tile::ld2<T>(X + r * ldx + c);
-      tile::st2<T>(out + (size_t)r * C + c, h.x + x.x, h.y + x.y);
+  // block2: h = h @ W2 + b2, from this CTA's slice on, each other one as it
+  // lands; then GroupNorm, SiLU, the residual, the store
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  block_products<false>(
+      acc, accR, kCluster,
+      [&](int kt) {
+        const int q = (grp + kt) % kCluster;
+        if (q != grp) sm90::mbar_wait(&gbar[q], 0);
+        return (const float*)(slots + q * kSlotF);
+      },
+      [](int) {}, w);
+  sm90::cluster_arrive_relaxed();  // (2) every slice of this CTA's G has landed
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] += Vs[3 * kGroup + 8 * (i / 4) + 2 * t + (i & 1)];
+  sm90::scene_moments<false>(acc, a.n, nsc, a.eps, red, stat);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r < rows) {
+      const int sc = r / a.n;
+      const float mean = stat[sc], inv = stat[kTileRows + sc];
+      float* o = a.out + (row0 + r) * kC + col0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        const int i = 4 * j + 2 * half;
+        const float h0 = silu_fast((acc[i] - mean) * inv * Vs[4 * kGroup + c] + Vs[5 * kGroup + c]);
+        const float h1 =
+            silu_fast((acc[i + 1] - mean) * inv * Vs[4 * kGroup + c + 1] + Vs[5 * kGroup + c + 1]);
+        float res0 = res[i], res1 = res[i + 1];
+        if constexpr (kRes) {
+          res0 = accR[i] + Vs[6 * kGroup + c];
+          res1 = accR[i + 1] + Vs[6 * kGroup + c + 1];
+        }
+        *reinterpret_cast<float2*>(o + c) = make_float2(h0 + res0, h1 + res1);
+      }
     }
   }
+  sm90::cluster_wait();            // (2) no CTA leaves before every slice has landed
 }
 
-template <typename T>
-size_t smem_bytes(const Args& a, int threads) {
-  constexpr int kTile = Prod<T>::kTile;
-  size_t b = (size_t)kTile * (a.kx + kPad) * sizeof(T);
-  if (a.ks) b += (size_t)kTile * (a.ks + kPad) * sizeof(T);
-  b += (size_t)kTile * (a.C + 4) * sizeof(float);
-  return b + (2 * (size_t)a.ts * threads + 2 * (size_t)a.ts * a.groups) * sizeof(float);
+constexpr int kSmemF = (int)layout_f32().total;
+
+template <bool kRes>
+cudaError_t prepare_tf32() {   // once per instantiation
+  static const cudaError_t err = cudaFuncSetAttribute(
+      resblock_tf32<kRes>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemF);
+  return err;
 }
 
-template <typename T>
-int launch(const Args& a, cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(   // once per instantiation
-      resblock_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
-  if (attr != cudaSuccess) return (int)attr;
-  const int threads = a.C / 2;
-  const size_t smem = smem_bytes<T>(a, threads);
-  const int grid = (a.B + a.ts - 1) / a.ts;
-  resblock_kernel<T><<<grid, threads, smem, stream>>>(a);
+int launch_tf32(const ArgsF& a, cudaStream_t stream) {
+  const cudaError_t err = a.Wres ? prepare_tf32<true>() : prepare_tf32<false>();
+  if (err != cudaSuccess) return (int)err;
+  const unsigned grid = (unsigned)((a.B + a.ts - 1) / a.ts) * kCluster;
+  if (a.Wres)
+    resblock_tf32<true><<<grid, kThreadsF, kSmemF, stream>>>(a);
+  else
+    resblock_tf32<false><<<grid, kThreadsF, kSmemF, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -548,43 +785,51 @@ int launch(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 // rows of one scene the kernel of `dtype` (0 float32, 1 bfloat16) takes
-int fused_resblock_max_rows(int dtype) { return dtype == 1 ? kTileRows : kRows; }
+int fused_resblock_max_rows(int dtype) { return kTileRows; }
 int fused_resblock_max_in() { return kMaxIn; }
-// dynamic shared memory of one bf16 CTA for kx + ks input columns
-int fused_resblock_smem_bytes(int kx, int ks) { return (int)layout(kx + ks).total; }
+// dynamic shared memory of one CTA of the `dtype` kernel for kx + ks input
+// columns
+int fused_resblock_smem_bytes(int dtype, int kx, int ks) {
+  return (int)(dtype == 1 ? layout(kx + ks).total : layout_f32().total);
+}
 
-// clusters of the bf16 kernel that fit on the card at once, or minus a
+// clusters of the `dtype` kernel that fit on the card at once, or minus a
 // cudaError_t code
-int fused_resblock_max_active_clusters(int kx, int ks, int has_res) {
-  const cudaError_t err = has_res ? prepare_sm90<true>() : prepare_sm90<false>();
+int fused_resblock_max_active_clusters(int dtype, int kx, int ks, int has_res) {
+  const cudaError_t err = dtype == 1 ? (has_res ? prepare_sm90<true>() : prepare_sm90<false>())
+                                     : (has_res ? prepare_tf32<true>() : prepare_tf32<false>());
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kCluster * 64);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = layout(kx + ks).total;
+  cfg.blockDim = dim3(dtype == 1 ? kThreads : kThreadsF);
+  cfg.dynamicSmemBytes = fused_resblock_smem_bytes(dtype, kx, ks);
   int clusters = 0;
-  const cudaError_t e = has_res
-      ? cudaOccupancyMaxActiveClusters(&clusters, resblock_sm90<true>, &cfg)
-      : cudaOccupancyMaxActiveClusters(&clusters, resblock_sm90<false>, &cfg);
+  cudaError_t e;
+  if (dtype == 1)
+    e = has_res ? cudaOccupancyMaxActiveClusters(&clusters, resblock_sm90<true>, &cfg)
+                : cudaOccupancyMaxActiveClusters(&clusters, resblock_sm90<false>, &cfg);
+  else
+    e = has_res ? cudaOccupancyMaxActiveClusters(&clusters, resblock_tf32<true>, &cfg)
+                : cudaOccupancyMaxActiveClusters(&clusters, resblock_tf32<false>, &cfg);
   return e == cudaSuccess ? clusters : -(int)e;
 }
 
-// dtype: 0 float32, 1 bfloat16 (weights packed by pack_group_tiles).
-// Returns a cudaError_t code (0 on success), or -1 for arguments the kernel
-// does not take.
+// dtype: 0 float32 (weights packed by pack_tf32_tiles), 1 bfloat16 (by
+// pack_group_tiles).  Both take C = 512 in 8 groups and input widths of
+// multiples of 64.  Returns a cudaError_t code (0 on success), or -1 for
+// arguments the kernel does not take.
 int fused_resblock_launch(int dtype, const void* x, const void* skip, const void* film,
                           int film_kind, const void* W1, const void* W2, const void* Wres,
                           const float* V, void* out, int B, int n, int C, int kx, int ks,
                           int groups, float eps, void* stream) {
   if (n < 1 || B < 1 || ks < 0 || kx + ks > kMaxIn || (ks > 0) != (skip != nullptr) ||
       film_kind < 0 || film_kind > 2 || (film_kind != 0) != (film != nullptr) ||
-      (Wres == nullptr && (kx != C || ks != 0)))
+      (Wres == nullptr && (kx != C || ks != 0)) || C != kC || groups != kCluster ||
+      kx < sm90::kChunkK || kx % sm90::kChunkK != 0 || ks % sm90::kChunkK != 0)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    if (n > kTileRows || C != kC || groups != kCluster || kx < sm90::kChunkK ||
-        kx % sm90::kChunkK != 0 || ks % sm90::kChunkK != 0 || (kx + ks) % (2 * sm90::kChunkK) != 0)
-      return -1;
+    if (n > kTileRows || (kx + ks) % (2 * sm90::kChunkK) != 0) return -1;
     Args90 a;
     a.x = static_cast<const bf16*>(x);
     a.skip = static_cast<const bf16*>(skip);
@@ -603,28 +848,24 @@ int fused_resblock_launch(int dtype, const void* x, const void* skip, const void
     a.eps = eps;
     return launch_sm90(a, s);
   }
-  if (dtype != 0 || n > kRows || C % 64 != 0 || C > 512 || groups < 1 || C % groups != 0 ||
-      (C / groups) % 2 != 0 || kx < 16 || kx % 16 != 0 || ks % 16 != 0)
-    return -1;
-  Args a;
-  a.x = x;
-  a.skip = skip;
-  a.film = film;
-  a.W1 = W1;
-  a.W2 = W2;
-  a.Wres = Wres;
+  if (dtype != 0 || n > kTileRows) return -1;
+  ArgsF a;
+  a.x = static_cast<const float*>(x);
+  a.skip = static_cast<const float*>(skip);
+  a.film = static_cast<const float*>(film);
+  a.W1 = static_cast<const float*>(W1);
+  a.W2 = static_cast<const float*>(W2);
+  a.Wres = static_cast<const float*>(Wres);
   a.V = V;
-  a.out = out;
+  a.out = static_cast<float*>(out);
   a.B = B;
   a.n = n;
-  a.C = C;
   a.kx = kx;
   a.ks = ks;
-  a.groups = groups;
-  a.ts = kRows / n < kMaxScenes ? kRows / n : kMaxScenes;
+  a.ts = kTileRows / n;
   a.film_kind = film_kind;
   a.eps = eps;
-  return launch<float>(a, s);
+  return launch_tf32(a, s);
 }
 
 }  // extern "C"

@@ -10,8 +10,11 @@
 // - the split cluster barrier (barrier.cluster.arrive / wait);
 // - warpgroup products: the shared-memory descriptor of a K-major operand in
 //   the no-swizzle core-matrix layout (a weight chunk's, or one of another
-//   width), and wgmma.mma_async m64n64k16 and m64n48k16 with A in
-//   registers, B from shared memory, f32 accumulation;
+//   width), and wgmma.mma_async m64n64k16 and m64n48k16 (bf16) and
+//   m64n64k8 (tf32) with A in registers, B from shared memory, f32
+//   accumulation; the split of an f32 value into two tf32 parts;
+// - the bulk copy of a CTA's shared memory into another CTA's of the
+//   cluster (the f32 ResnetBlock kernel's exchange of h);
 // - the named barrier of the consumer warps;
 // - the scene-tile cluster shared by the bf16 ResnetBlock kernel
 //   (fused_resblock.cu) and the bf16 chain kernel (fused_chain.cu): a tile of
@@ -85,6 +88,13 @@ __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
                : "memory");
 }
 
+// one arrival on the mbarrier at cluster address `bar` (this CTA's or
+// another's), releasing this thread's prior accesses to the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
 // wait until the barrier's phase of parity `parity` has completed
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   asm volatile(
@@ -144,6 +154,10 @@ __device__ __forceinline__ void st_async(uint32_t dst, uint4 v, uint32_t bar) {
 // a barrier, another thread's) later bulk copies of the same bytes
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async;\n" ::: "memory");
+}
+// the same for this CTA's shared memory only
+__device__ __forceinline__ void fence_proxy_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---- cluster barrier -----------------------------------------------------
@@ -256,6 +270,66 @@ __device__ __forceinline__ void wgmma_m64n48k16(float (&d)[24], const uint32_t (
         "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
         "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ---- split TF32 ("3xTF32") on the tensor cores ---------------------------
+
+// v rounded to tf32 (nearest, ties away from zero) in a 32-bit register:
+// the low 13 mantissa bits are zero
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
+  return r;
+}
+
+// v as hi + lo, both tf32: hi = rna(v), lo = rna(v - hi), so that
+// |v - hi - lo| <= 2^-22 |v|; a product then runs as hi*hi + hi*lo + lo*hi
+// (never the one pass hi*hi alone, which keeps about 11 bits)
+__device__ __forceinline__ void tf32_split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// d[64 x 64] += A[64 x 8] @ B[8 x 64] in tf32 with f32 accumulation, by one
+// warpgroup.  A in registers: lane (g, t) of warp w holds rows 16w + g and
+// 16w + g + 8 at k = t and t + 4, as {(g, t), (g + 8, t), (g, t + 4),
+// (g + 8, t + 4)}.  B: K-major in shared memory, by descriptor (tf32 takes
+// no transposed operand).  Accumulator i of lane (g, t) of warp w: row
+// 16w + g (+8 when i & 2), column 8 (i / 4) + 2t (+1 when i & 1), as in
+// wgmma_m64n64k16.
+__device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32_t* a,
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// ---- the copy of a CTA's shared memory into a peer's -------------------------
+
+// `bytes` of this CTA's shared memory at `src` into cluster address `dst`
+// (another CTA's shared memory), completing on the mbarrier at cluster
+// address `bar` in that CTA; the writer of `src` fences
+// (fence_proxy_async_shared) before the copy is issued
+__device__ __forceinline__ void bulk_copy_to_peer(uint32_t dst, const void* src, uint32_t bytes,
+                                                  uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "r"(smem_u32(src)), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // 8 bytes from cluster address `src` (another CTA's shared memory)

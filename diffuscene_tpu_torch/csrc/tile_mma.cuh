@@ -1,16 +1,15 @@
-// Device helpers shared by the single-ResnetBlock kernel (fused_resblock.cu:
-// its f32 kernel, and ldmatrix and the conversions in its bf16 one) and the
-// set-attention kernel (set_attention.cu), for sm_90a:
+// Device helpers shared by the cluster kernels (fused_resblock.cu,
+// fused_chain.cu, set_attention.cu, through sm90.cuh) and the f32 kernels
+// of the chain (fused_chain.cu) and the set attention (set_attention.cu),
+// for sm_90a:
 //
 // - float <-> storage-type conversions and rounding;
 // - 16-byte row copies from device memory into padded shared-memory tiles;
-// - the bf16 product of a 32-row shared-memory tile with a weight matrix
-//   packed into mma.m16n8k16 B-fragment order (pack_mma_weights in
-//   ops/fused_level.py), on the tensor cores with f32 accumulation;
+// - ldmatrix of a bf16 A fragment;
 // - the f32 product of a shared-memory tile with a row-major weight matrix,
-//   on the FMA pipes.
+//   on the FMA pipes (the f32 chain and set-attention kernels).
 //
-// Every function here is called by all threads of the block, or (warp_mma)
+// Every function here is called by all threads of the block, or (ldmatrix)
 // by all lanes of a warp.
 #pragma once
 
@@ -81,52 +80,6 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// acc[m][j] += A[0:32, 0:K] @ W[0:K, n0 + 8j : n0 + 8j + 8] for j < NJ, by
-// one warp.  A: a bf16 shared tile of 32 rows, stride lda (a multiple of 8
-// elements).  Wp: the weight packed as (N, K), each 16-wide k block ordered
-// so that lane (g, t) finds its B fragment {k = 2t, 2t+1, 2t+8, 2t+9} of
-// column g as 8 contiguous bytes.  Accumulator (m, j, i) is row
-// 16m + g (+8 for i >= 2), column n0 + 8j + 2t (+1 for odd i).
-template <int NJ>
-__device__ __forceinline__ void warp_mma(float (&acc)[2][NJ][4], const __nv_bfloat16* A, int lda,
-                                         const __nv_bfloat16* __restrict__ Wp, int K, int n0) {
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const __nv_bfloat16* wb = Wp + (size_t)(n0 + g) * K + 4 * t;
-  const size_t jstride = (size_t)8 * K;
-  const __nv_bfloat16* ab = A + (lane & 15) * lda + (lane >> 4) * 8;
-  uint2 b[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) b[j] = __ldg(reinterpret_cast<const uint2*>(wb + j * jstride));
-#pragma unroll 1
-  for (int ks = 0; ks < K / 16; ++ks) {
-    uint32_t a0[4], a1[4];
-    ldmatrix_x4(a0, ab + ks * 16);
-    ldmatrix_x4(a1, ab + 16 * lda + ks * 16);
-    uint2 nb[NJ];
-    const bool more = ks + 1 < K / 16;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-      nb[j] = more ? __ldg(reinterpret_cast<const uint2*>(wb + j * jstride + (ks + 1) * 16)) : b[j];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      mma_bf16(acc[0][j], a0, b[j].x, b[j].y);
-      mma_bf16(acc[1][j], a1, b[j].x, b[j].y);
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) b[j] = nb[j];
-  }
 }
 
 // acc[r] += A[r, 0:K] @ W[0:K, col:col+2] for r < R, by one thread.  A: an

@@ -226,20 +226,6 @@ def apply_chain_reference(
 # the CUDA kernel: build at first use, bind with ctypes
 # ---------------------------------------------------------------------------
 
-def pack_mma_weights(W: torch.Tensor) -> torch.Tensor:
-    """(nW, K, N) (in, out) weights -> (nW, N, K), each 16-wide k block
-    reordered to k = [0,1,8,9, 2,3,10,11, 4,5,12,13, 6,7,14,15]: the
-    B-fragment order of mma.m16n8k16, so that lane (g, t) of a warp reads
-    its fragment {2t, 2t+1, 2t+8, 2t+9} of output column g as 8 contiguous
-    bytes.  The set-attention kernel's weights (ops/attention.py)."""
-    nW, K, N = W.shape
-    if K % 16:
-        raise ValueError(f"K={K} is not a multiple of 16")
-    Wt = W.transpose(1, 2)                                  # (nW, N, K)
-    blocks = Wt.reshape(nW, N, K // 16, 2, 4, 2)            # k = 8h + 2t + e
-    return blocks.permute(0, 1, 2, 4, 3, 5).contiguous().reshape(nW, N, K)
-
-
 class TilePlan(NamedTuple):
     scenes_per_tile: int
     clusters: int

@@ -29,18 +29,21 @@ Two input forms beside B1's own:
 the concatenation explicitly.  It never falls back: a CUDA tensor the kernel
 cannot take raises.
 
-The bf16 kernel is a cluster kernel for Hopper: a tile of whole scenes (at
-most ``TILE_ROWS`` rows) is one cluster of ``CLUSTER`` CTAs, CTA g owning
-GroupNorm group g's 64 output columns; it takes C = 512 in 8 groups and input
-widths of multiples of 64 that sum to a multiple of 128 (its K loop takes
-two 64-deep tiles a step).  :func:`tile_plan` is its launch and shared-memory
-plan and :func:`pack_group_tiles` the weight layout its bulk copies read.
+Both kernels are cluster kernels for Hopper: a tile of whole scenes (at
+most ``TILE_ROWS`` rows, the wgmma M) is one cluster of ``CLUSTER`` CTAs,
+CTA g owning GroupNorm group g's 64 output columns; they take C = 512 in 8
+groups and input widths of multiples of 64 (bf16: summing to a multiple of
+128, its K loop takes two 64-deep tiles a step).  The f32 kernel runs its
+products in split TF32: three tf32 products per f32 product, never one.
+:func:`tile_plan` is each kernel's launch and shared-memory plan, and
+:func:`pack_group_tiles` (bf16) and :func:`pack_tf32_tiles` (f32, split into
+tf32 hi and lo) the weight layouts their bulk copies read.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -48,16 +51,17 @@ import torch.nn.functional as F
 from . import build
 
 CSRC = build.CSRC_DIR / "fused_resblock.cu"
-# rows of one scene each kernel takes: the f32 kernel's 24-row tile (kRows),
-# the bf16 kernel's 64-row scene tile (kTileRows)
-MAX_ROWS = {torch.float32: 24, torch.bfloat16: 64}
+# the cluster kernels (csrc/fused_resblock.cu, csrc/sm90.cuh)
+TILE_ROWS = 64     # rows of a scene tile: the wgmma M (kTileRows)
+# rows of one scene each kernel takes: a scene tile's
+MAX_ROWS = {torch.float32: TILE_ROWS, torch.bfloat16: TILE_ROWS}
 MAX_IN = 1024      # x and skip widths together (kMaxIn)
-# the bf16 cluster kernel (csrc/fused_resblock.cu, csrc/sm90.cuh)
-TILE_ROWS = 64     # rows of a scene tile: the wgmma M
 CLUSTER = 8        # CTAs of a tile's cluster, one per GroupNorm group
 CHANNELS = 512     # C, so 64 columns per group
 K_TILE = 64        # depth of one weight chunk
-CHUNK_BYTES = K_TILE * (CHANNELS // CLUSTER) * 2
+CHUNK_BYTES = K_TILE * (CHANNELS // CLUSTER) * 2      # a bf16 weight chunk (64 deep)
+F32_STEP = 32                                         # depth of an f32 weight chunk
+F32_CHUNK_BYTES = 2 * F32_STEP * (CHANNELS // CLUSTER) * 4   # its tf32 hi and lo
 SMEM_LIMIT = 232448    # dynamic shared memory one CTA may use on an H100
 
 
@@ -69,22 +73,43 @@ class TilePlan(NamedTuple):
     smem_bytes: int     # dynamic shared memory of one CTA
 
 
-def tile_plan(B: int, n: int, kx: int, ks: int = 0) -> TilePlan:
-    """The bf16 kernel's launch for B scenes of n rows and [x | skip] inputs
-    of kx + ks columns; its shared-memory sum mirrors ``layout()`` in the
-    .cu (``fused_resblock_smem_bytes``): the weight ring, the [x | skip]
-    tile (which later holds the gathered (64, 512) h), the CTA's 64 columns
-    of the 7 vectors, row sums and squares, scene moments, 25 mbarriers (the
-    ring's full and empty ones, the x tile's, one for each CTA's slice of
-    the gathered h)."""
+def tile_plan(B: int, n: int, kx: int, ks: int = 0, dtype=torch.bfloat16) -> TilePlan:
+    """The ``dtype`` kernel's launch for B scenes of n rows and [x | skip]
+    inputs of kx + ks columns; its shared-memory sum mirrors ``layout()``
+    (bf16) or ``layout_f32()`` (f32) in the .cu (``fused_resblock_smem_bytes``).
+
+    bf16: the weight ring (4 stages, 8 past 512 input columns), the
+    [x | skip] tile (64 rows, padded by 8; later the gathered (64, 512) h),
+    the CTA's 64 columns of the 7 vectors, row sums and squares, scene
+    moments, 25 mbarriers (the ring's full and empty ones, the x tile's, one
+    for each CTA's slice of the gathered h).
+
+    f32 (the same for every width): the weight ring (5 stages of a 32-deep
+    chunk's tf32 hi and lo, 16 KB), 8 slots of 64 rows x 64 columns (rows
+    68 floats apart) that hold the [x | skip] tile's K tiles in turn and
+    then the slices of the gathered (64, 512) h, the vectors, row sums and
+    squares, scene moments, 34 mbarriers (the ring's full and empty ones,
+    the slots' full and empty ones, one for each CTA's slice of h)."""
     kin = kx + ks
-    ts = TILE_ROWS // n
-    tiles = -(-B // ts)
-    stages = 4 if kin <= CHANNELS else 8
     group = CHANNELS // CLUSTER
-    smem = (stages * CHUNK_BYTES + TILE_ROWS * (max(kin, CHANNELS) + 8) * 2 + 7 * group * 4
-            + 2 * TILE_ROWS * 4 + 2 * TILE_ROWS * 4 + (2 * 8 + 1 + CLUSTER) * 8)
+    rows = TILE_ROWS
+    if dtype == torch.float32:
+        stages = 5
+        smem = (stages * F32_CHUNK_BYTES + CLUSTER * rows * (group + 4) * 4 + 7 * group * 4
+                + 2 * rows * 4 + 2 * rows * 4 + (2 * stages + 3 * CLUSTER) * 8)
+    else:
+        stages = 4 if kin <= CHANNELS else 8
+        smem = (stages * CHUNK_BYTES + rows * (max(kin, CHANNELS) + 8) * 2 + 7 * group * 4
+                + 2 * rows * 4 + 2 * rows * 4 + (2 * 8 + 1 + CLUSTER) * 8)
+    ts = rows // n
+    tiles = -(-B // ts)
     return TilePlan(ts, tiles, CLUSTER * tiles, stages, smem)
+
+
+def _check_chunked(w: torch.Tensor, name: str) -> None:
+    K, C = w.shape
+    if K % K_TILE or C != CHANNELS:
+        raise ValueError(f"{name} takes ({K_TILE}k, {CHANNELS}) weights, got {(K, C)}")
 
 
 def pack_group_tiles(w: torch.Tensor) -> torch.Tensor:
@@ -95,12 +120,46 @@ def pack_group_tiles(w: torch.Tensor) -> torch.Tensor:
     ((k // 8) * 8 + n // 8) * 64 + (n % 8) * 8 + k % 8.  With K = kx + ks
     and kx a multiple of 64, the first kx / 64 chunks of a group are its x
     rows and the rest its skip rows.  Done once per weight set."""
+    _check_chunked(w, "pack_group_tiles")
     K, C = w.shape
-    if K % K_TILE or C != CHANNELS:
-        raise ValueError(f"pack_group_tiles takes ({K_TILE}k, {CHANNELS}) weights, got {(K, C)}")
     G = C // 64
     # (kt, kb, k8, g, nb, n8) -> (g, kt, kb, nb, n8, k8)
     return w.reshape(K // 64, 8, 8, G, 8, 8).permute(3, 0, 1, 4, 5, 2).contiguous().reshape(-1)
+
+
+def pack_tf32_tiles(w: torch.Tensor) -> torch.Tensor:
+    """A (K, 512) (in, out) f32 weight as the f32 kernel's chunks, flat:
+    chunk (g, st) holds rows [32 st, 32 st + 32) of group g's columns [64 g,
+    64 g + 64), 4096 values from (g * K / 32 + st) * 4096: their tf32 hi
+    parts (:func:`tf32_split`), then their lo parts, each in the wgmma
+    no-swizzle K-major core-matrix layout of tf32 (core matrices of 8
+    columns x 4 k, 128 bytes apart in n and 1024 in k): (kappa, n) at
+    ((kappa // 4) * 8 + n // 8) * 32 + (n % 8) * 4 + kappa % 4.  The step's
+    k is permuted so that each consumer thread reads its A fragments as
+    contiguous columns (``load_a`` in the .cu): kappa = 8 j + t + 4 h holds
+    row 32 st + 8 t + 2 j + h.  Done once per weight set."""
+    _check_chunked(w, "pack_tf32_tiles")
+    K, C = w.shape
+
+    def part(v):   # (st, t, j, h, g, nb, n8) -> (g, st, j, h, nb, n8, t)
+        return v.reshape(K // F32_STEP, 4, 4, 2, C // 64, 8, 8).permute(4, 0, 2, 3, 5, 6, 1)
+
+    hi, lo = tf32_split(w.float().contiguous())
+    return torch.stack([part(hi), part(lo)], dim=2).contiguous().reshape(-1)
+
+
+def tf32_split(v: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The f32 kernel's split of a finite f32 tensor into two tf32 parts, in
+    plain torch (``tf32_split`` in csrc/sm90.cuh): hi is v rounded to tf32,
+    to nearest with ties away from zero, as ``cvt.rna.tf32.f32`` rounds
+    (half of the 13 dropped mantissa bits' range added to the bits, then
+    those bits cleared), and lo is v - hi rounded the same way.  The kernel
+    forms each f32 product as hi*hi + hi*lo + lo*hi."""
+    def rna(t):
+        return ((t.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    hi = rna(v)
+    return hi, rna(v - hi)
 
 
 def standardize_kernel(kernel: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -178,26 +237,26 @@ def load_library() -> ctypes.CDLL:
     ]
     lib.fused_resblock_launch.restype = ci
     for fn, args in ((lib.fused_resblock_max_rows, [ci]), (lib.fused_resblock_max_in, []),
-                     (lib.fused_resblock_smem_bytes, [ci, ci]),
-                     (lib.fused_resblock_max_active_clusters, [ci, ci, ci])):
+                     (lib.fused_resblock_smem_bytes, [ci, ci, ci]),
+                     (lib.fused_resblock_max_active_clusters, [ci, ci, ci, ci])):
         fn.argtypes, fn.restype = args, ci
     limits = ({dt: lib.fused_resblock_max_rows(code) for dt, code in build.DTYPE_CODES.items()},
               lib.fused_resblock_max_in())
-    smem = {(kx, ks): lib.fused_resblock_smem_bytes(kx, ks)
-            for kx, ks in ((512, 0), (1024, 0), (512, 512))}
     if limits != (MAX_ROWS, MAX_IN) or any(
-            v != tile_plan(1, 1, kx, ks).smem_bytes for (kx, ks), v in smem.items()):
+            lib.fused_resblock_smem_bytes(code, kx, ks) != tile_plan(1, 1, kx, ks, dt).smem_bytes
+            for dt, code in build.DTYPE_CODES.items()
+            for kx, ks in ((512, 0), (1024, 0), (512, 512))):
         raise RuntimeError("csrc/fused_resblock.cu and ops/fused_resblock.py disagree on limits")
     return lib
 
 
 def _kernel_weights(w: Optional[torch.Tensor], dt) -> Optional[torch.Tensor]:
-    """An (in, out) weight as the kernel reads it: f32 as is; bf16 as
-    :func:`pack_group_tiles` chunks."""
+    """An (in, out) weight as the kernel reads it: :func:`pack_tf32_tiles`
+    (f32) or :func:`pack_group_tiles` (bf16) chunks."""
     if w is None:
         return None
     w = w.to(dt)
-    return w.contiguous() if dt == torch.float32 else pack_group_tiles(w)
+    return pack_tf32_tiles(w) if dt == torch.float32 else pack_group_tiles(w)
 
 
 def _launch_kernel(x, skip, film, w1, b1, g1s, g1b, w2, b2, g2s, g2b, w_res, b_res,
@@ -211,18 +270,12 @@ def _launch_kernel(x, skip, film, w1, b1, g1s, g1b, w2, b2, g2s, g2b, w_res, b_r
     if n > MAX_ROWS[dt]:
         raise ValueError(f"the {dt} resblock kernel takes at most {MAX_ROWS[dt]} rows per scene, "
                          f"got {n}")
-    if dt == torch.bfloat16:
-        if (C != CHANNELS or groups != CLUSTER or kx % K_TILE or ks % K_TILE
-                or (kx + ks) % (2 * K_TILE) or kx + ks > MAX_IN):
-            raise ValueError(f"the bf16 resblock kernel takes C={CHANNELS} in {CLUSTER} groups and "
-                             f"input widths of multiples of {K_TILE} summing to a multiple of "
-                             f"{2 * K_TILE} up to {MAX_IN}; got C={C}, groups={groups}, "
-                             f"C_x={kx}, C_skip={ks}")
-    elif (C % 64 or C > 512 or C % groups or (C // groups) % 2 or kx % 16 or ks % 16
-            or kx + ks > MAX_IN):
-        raise ValueError(f"the f32 resblock kernel takes C % 64 == 0, C <= 512, even groups of "
-                         f"channels and input widths of multiples of 16 up to {MAX_IN}; got "
-                         f"C={C}, groups={groups}, C_x={kx}, C_skip={ks}")
+    step = 2 * K_TILE if dt == torch.bfloat16 else K_TILE   # the K loop's step
+    if (C != CHANNELS or groups != CLUSTER or not kx or kx % K_TILE or ks % K_TILE
+            or (kx + ks) % step or kx + ks > MAX_IN):
+        raise ValueError(f"the {dt} resblock kernel takes C={CHANNELS} in {CLUSTER} groups and "
+                         f"input widths of multiples of {K_TILE} summing to a multiple of {step} "
+                         f"up to {MAX_IN}; got C={C}, groups={groups}, C_x={kx}, C_skip={ks}")
     dev = x.device
     build.check_operand("x", x, dev, dt, (M, kx))
     if skip is not None:

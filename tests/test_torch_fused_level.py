@@ -138,29 +138,6 @@ def test_wrapper_validates_and_counts_only_kernel_launches():
         tfl.ChainBlock(has_skip=True, film="scene", has_res_proj=False)
 
 
-def test_mma_weight_packing_matches_fragment_layout():
-    """The bf16 kernel's B fragments: lane (g, t) of the warp owning output
-    column n reads 4 contiguous values of the packed weight at k-step ks,
-    which must be W[k, n] for k = 16ks + (2t, 2t+1, 2t+8, 2t+9); summing
-    those fragments over every lane recovers the matmul."""
-    rng = np.random.default_rng(9)
-    W = torch.from_numpy(rng.normal(size=(2, 64, 128)).astype(np.float32))
-    P = tfl.pack_mma_weights(W)
-    assert P.shape == (2, 128, 64) and P.is_contiguous()
-    for ks in range(4):
-        for t in range(4):
-            ks_idx = [16 * ks + k for k in (2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)]
-            frag = P[:, :, 16 * ks + 4 * t: 16 * ks + 4 * t + 4]          # (2, N, 4)
-            torch.testing.assert_close(frag, W[:, ks_idx, :].transpose(1, 2), rtol=0, atol=0)
-    A = torch.from_numpy(rng.normal(size=(5, 64)).astype(np.float32))
-    acc = torch.zeros(2, 5, 128)
-    for ks in range(4):
-        for t in range(4):
-            ks_idx = [16 * ks + k for k in (2 * t, 2 * t + 1, 2 * t + 8, 2 * t + 9)]
-            acc += torch.einsum("mk,wnk->wmn", A[:, ks_idx], P[:, :, 16 * ks + 4 * t:16 * ks + 4 * t + 4])
-    torch.testing.assert_close(acc, torch.einsum("mk,wkn->wmn", A, W), rtol=1e-5, atol=1e-5)
-
-
 def _blocks(variant):
     return [tfl.ChainBlock(has_skip=s, film=f, has_res_proj=r) for f, s, r in VARIANTS[variant]]
 

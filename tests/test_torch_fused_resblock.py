@@ -241,26 +241,122 @@ def test_tile_plan_at_flagship_shapes(case):
     assert plan.smem_bytes <= trb.SMEM_LIMIT
 
 
+@pytest.mark.parametrize("name,K,kx", [("w1_x_skip", 1024, 512), ("w2", 512, 512),
+                                       ("w_res_x_skip", 1024, 512), ("w1_cat", 1024, 1024)])
+def test_tf32_tile_packing_matches_index_formula(name, K, kx):
+    """Element (group g, 32-deep step st, part, position p) of the f32
+    kernel's packed weight is the tf32 hi (part 0) or lo (part 1) of W[k,
+    col] with kappa = 4 (p // 256) + p % 4 the wgmma k of the chunk's
+    K-major core-matrix layout (core matrices 1024 bytes apart in k, 128 in
+    n), k = 32 st + 8 (kappa % 4) + 2 (kappa // 8) + (kappa // 4) % 2 (the
+    permuted step, so that a thread's A fragments are contiguous columns),
+    col = 64 g + 8 ((p // 32) % 8) + (p // 4) % 8.  With the skip split at
+    kx, a group's first kx / 32 chunks hold x rows and the rest skip rows."""
+    C = trb.CHANNELS
+    rng = np.random.default_rng(K + kx)
+    w = torch.from_numpy(rng.normal(size=(K, C)).astype(np.float32))
+    parts = [t.numpy() for t in trb.tf32_split(w)]
+    packed = trb.pack_tf32_tiles(w).reshape(C // 64, K // 32, 2, 2048).numpy()
+    g, st, p = np.meshgrid(np.arange(C // 64), np.arange(K // 32), np.arange(2048), indexing="ij")
+    kappa = 4 * (p // 256) + p % 4
+    k = 32 * st + 8 * (kappa % 4) + 2 * (kappa // 8) + (kappa // 4) % 2
+    col = 64 * g + 8 * ((p // 32) % 8) + (p // 4) % 8
+    for part in (0, 1):
+        assert np.array_equal(packed[:, :, part], parts[part][k, col])
+    assert (k[:, : kx // 32] < kx).all() and (k[:, kx // 32:] >= kx).all()
+    # every element once: hi + lo is W to within 2^-22
+    assert np.allclose(packed[:, :, 0] + packed[:, :, 1], w.numpy()[k, col], rtol=2.0 ** -22, atol=0)
+    with pytest.raises(ValueError):   # neither 64-deep tiles nor 512 columns
+        trb.pack_tf32_tiles(w[:, :256])
+
+
+def test_tf32_split_rounds_to_nearest_away_and_leaves_2e_22():
+    """The plain twin of the kernel's split (cvt.rna.tf32.f32 twice): hi and
+    lo keep 10 mantissa bits (the 13 low bits are zero), hi is v rounded to
+    nearest with ties away from zero, and |v - hi - lo| <= 2^-22 |v|."""
+    rng = np.random.default_rng(11)
+    v = (rng.normal(size=4096) * 10.0 ** rng.uniform(-20, 20, size=4096)).astype(np.float32)
+    ties = np.float32(1.0) + np.float32(2.0 ** -11) * np.arange(1, 64, 2, dtype=np.float32)
+    v = np.concatenate([v, ties, -ties, np.float32([0.1, -3.3, np.pi])])
+    hi, lo = trb.tf32_split(torch.from_numpy(v))
+    for part in (hi, lo):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    v64, hi64, lo64 = v.astype(np.float64), hi.double().numpy(), lo.double().numpy()
+    # hi against rounding in f64: |v| in units of its tf32 spacing, halves away
+    ulp = 2.0 ** (np.floor(np.log2(np.abs(v64))) - 10)
+    assert np.array_equal(hi64, np.sign(v64) * np.floor(np.abs(v64) / ulp + 0.5) * ulp)
+    assert (np.abs(v64 - hi64 - lo64) <= 2.0 ** -22 * np.abs(v64)).all()
+    # ties go away from zero: 1 + 2^-11 -> 1 + 2^-10
+    assert hi[4096].item() == 1.0 + 2.0 ** -10 and hi[4096 + 32].item() == -(1.0 + 2.0 ** -10)
+
+
+def test_three_tf32_products_hold_f32_accuracy_at_k1024():
+    """hi*hi + hi*lo + lo*hi, the kernel's product, against the f64 product
+    at K=1024 (the skip blocks' depth), each term exact in f64: its error
+    is at most 2^-20 sum_k |a_k b_k| (per term v w - (hi hi' + hi lo' +
+    lo hi') is at most about 3 x 2^-22 |v w|).  One pass, hi*hi alone,
+    errs about 2^-12 relative, hundreds of times more."""
+    rng = np.random.default_rng(12)
+    a = torch.from_numpy(rng.normal(size=(48, 1024)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(1024, 64)).astype(np.float32))
+    (ah, al), (bh, bl) = trb.tf32_split(a), trb.tf32_split(b)
+    d = lambda t: t.double()   # noqa: E731
+    exact = d(a) @ d(b)
+    scale = d(a).abs() @ d(b).abs()
+    split = d(ah) @ d(bh) + d(ah) @ d(bl) + d(al) @ d(bh)
+    assert ((split - exact).abs() / scale).max().item() <= 2.0 ** -20
+    one_pass = ((d(ah) @ d(bh) - exact).abs() / scale).max().item()
+    assert one_pass > 100 * ((split - exact).abs() / scale).max().item()
+
+
+# (N, kx, ks, B) -> (scenes per tile, clusters, CTAs); every width takes 5
+# ring stages and 224,272 bytes of shared memory a CTA
+F32_PLANS = {
+    (12, 512, 0, 64): (5, 13, 104), (12, 512, 512, 64): (5, 13, 104),
+    (12, 512, 0, 63): (5, 13, 104), (12, 512, 512, 63): (5, 13, 104),
+    (12, 512, 0, 256): (5, 52, 416), (12, 512, 512, 256): (5, 52, 416),
+    (12, 512, 0, 768): (5, 154, 1232), (12, 1024, 0, 768): (5, 154, 1232),
+    (21, 512, 0, 64): (3, 22, 176), (21, 512, 512, 64): (3, 22, 176),
+    (21, 512, 0, 63): (3, 21, 168), (21, 1024, 0, 63): (3, 21, 168),
+    (21, 512, 0, 256): (3, 86, 688), (21, 512, 512, 256): (3, 86, 688),
+    (21, 512, 0, 768): (3, 256, 2048), (21, 512, 512, 768): (3, 256, 2048),
+}
+
+
+@pytest.mark.parametrize("case", list(F32_PLANS))
+def test_f32_tile_plan_at_flagship_shapes(case):
+    """The f32 kernel's launch: whole scenes in 64-row tiles (the wgmma M),
+    one cluster of 8 CTAs a tile, and a CTA's shared memory (the ring of
+    split chunks, 8 slots of 64 rows) within the H100's 232,448 bytes (the
+    library checks the same sum against the .cu when it loads)."""
+    N, kx, ks, B = case
+    plan = trb.tile_plan(B, N, kx, ks, torch.float32)
+    assert tuple(plan) == F32_PLANS[case] + (5, 224272)
+    assert plan.scenes_per_tile * N <= trb.TILE_ROWS < (plan.scenes_per_tile + 1) * N
+    assert plan.clusters * plan.scenes_per_tile >= B > (plan.clusters - 1) * plan.scenes_per_tile
+    assert plan.smem_bytes <= trb.SMEM_LIMIT
+
+
 @pytest.mark.parametrize("case", ["c64", "groups16", "cx_not_64", "cin_not_128", "rows65",
-                                  "f32_rows25"])
+                                  "f32_rows65", "f32_c64", "f32_groups16", "f32_cx_not_64"])
 def test_kernel_path_refuses_shapes_it_does_not_take(case):
     """No fallback: what the kernels do not take raises before any launch
-    (the bf16 kernel: C=512 in 8 groups, input widths of multiples of 64
-    summing to a multiple of 128, scenes of at most 64 rows; the f32
-    kernel: scenes of at most 24 rows)."""
-    C, c_in, n, groups, dt = 512, 512, 12, 8, torch.bfloat16
-    if case == "c64":
+    (both: C=512 in 8 groups, input widths of multiples of 64 up to 1024,
+    scenes of at most 64 rows; bf16: widths summing to a multiple of
+    128)."""
+    C, c_in, n, groups = 512, 512, 12, 8
+    dt = torch.float32 if case.startswith("f32_") else torch.bfloat16
+    shape = case.removeprefix("f32_")
+    if shape == "c64":
         C, c_in = 64, 64
-    elif case == "groups16":
+    elif shape == "groups16":
         groups = 16
-    elif case == "cx_not_64":
+    elif shape == "cx_not_64":
         c_in = 528
-    elif case == "cin_not_128":
+    elif shape == "cin_not_128":
         c_in = 576
-    elif case == "rows65":
+    elif shape == "rows65":
         n = 65
-    else:
-        n, dt = 25, torch.float32
     x = torch.zeros(n, c_in, dtype=dt)
     w1, w2 = torch.zeros(c_in, C), torch.zeros(C, C)
     v = torch.zeros(C)
@@ -270,28 +366,35 @@ def test_kernel_path_refuses_shapes_it_does_not_take(case):
 
 
 @pytest.mark.gpu
-def test_cuda_library_agrees_with_the_plan():
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_cuda_library_agrees_with_the_plan(dtype):
     """The library's limits and shared-memory sums equal the wrapper's
-    (load_library raises otherwise), and enough clusters of the bf16 kernel
+    (load_library raises otherwise), and enough clusters of each kernel
     fit on the card to run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
+    from diffuscene_tpu_torch.ops import build
+
+    tdt = DTYPES[dtype][1]
+    code = build.DTYPE_CODES[tdt]
     lib = trb.load_library()
     for kx, ks in ((512, 0), (1024, 0), (512, 512)):
-        assert lib.fused_resblock_smem_bytes(kx, ks) == trb.tile_plan(64, 12, kx, ks).smem_bytes
-        assert lib.fused_resblock_max_active_clusters(kx, ks, int(kx + ks != 512)) >= 1
+        assert (lib.fused_resblock_smem_bytes(code, kx, ks)
+                == trb.tile_plan(64, 12, kx, ks, tdt).smem_bytes)
+        assert lib.fused_resblock_max_active_clusters(code, kx, ks, int(kx + ks != 512)) >= 1
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B", [7, 256])
 @pytest.mark.parametrize("N", [12, 21])
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("c_in,film", [(512, "row"), (512, "none"), (1024, "scene")])
-def test_cuda_kernel_matches_plain_version(c_in, film, dtype, N):
-    """The CUDA kernel against its plain version on the card, C=512, a
-    ragged last tile (7 scenes: tiles of 5 scenes of 12, of 3 of 21)."""
+def test_cuda_kernel_matches_plain_version(c_in, film, dtype, N, B):
+    """The CUDA kernel against its plain version on the card, C=512, at a
+    ragged last tile (7 scenes: tiles of 5 scenes of 12 or 3 of 21) and at
+    run/generate.sh's batch (256)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
-    B = 7
     d = _case(B, N, c_in, seed=6, c=512)
     tdt = DTYPES[dtype][1]
     dev = torch.device("cuda")
