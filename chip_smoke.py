@@ -11,21 +11,22 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    together, sm_90a) with its time;
 2. the chain kernel (B4) against its plain torch version on the card, at
    the flagship's shapes (C=512, B=64, N=12 and N=21), every chain variant,
-   in bf16 and f32, a ragged B=63, and the row_scene and row_skip chains at
-   B=768 (the JAX bench's batch) with their bound; the bf16 kernel's launch
-   plan (tile_plan against the library's shared-memory sum, clusters that
-   fit at once); each case's time as CUDA events around 20 eager calls,
-   beside a CUDA-graph replay of 20 calls, the profiler's device time and
-   the plain version's time; then the 19 chains of one flagship forward
-   (bf16, and f32 beside its FP32 bound);
+   in bf16 and f32 (chain_tf32, split TF32), a ragged B=63, and the
+   row_scene and row_skip chains at B=768 (the JAX bench's batch) in bf16
+   and at B=256 (run/generate.sh's) and B=768 in f32, with their bound;
+   each kernel's launch plan (tile_plan against the library's shared-memory
+   sum, clusters that fit at once); each case's time as CUDA events around
+   20 eager calls, beside a CUDA-graph replay of 20 calls, the profiler's
+   device time and the plain version's time; then the 19 chains of one
+   flagship forward (bf16, and f32 beside its split-TF32 and FP32 bounds);
 3. one full-width forward of the flagship bedroom denoiser (dim 512, 4
    levels, N=12, point_dim 62, random weights from a seed): the rows engine
    on the kernel against the plain Unet1D module forward, in f32 and bf16;
 4. a full 1000-step DDPM sample of 64 scenes through
-   SceneDiffusion.sample(fused="rows"), bf16: shape, finiteness, and 19
-   chain-kernel calls per step (apply_chain.launches); then torch.profiler
-   over 20 sampling steps (device busy time, idle share, top kernels, B4's
-   ms per step);
+   SceneDiffusion.sample(fused="rows"), bf16: shape, finiteness, and
+   exactly 19,000 chain-kernel calls (apply_chain.launches); then
+   torch.profiler over 20 sampling steps (device busy time, idle share, top
+   kernels, B4's ms per step);
 5. the chamfer nearest-neighbour kernel against its plain torch version on
    the card, distances bit for bit: the shape autoencoder's (16, 2048, 3)
    vs (16, 2025, 3), D=2 and D=5 at that size, a ragged (3, 1000) vs
@@ -71,12 +72,14 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    and B2's ms per step; a named kernel the profile does not show raises);
 11. a 20-step DPM-Solver++ sample of 64 scenes, fused=True, bf16: finite,
    exactly 560 B1 and 20 B2 launches, wall time;
-15. the flagship config's own dtype, f32, through the 3-D engine (the
-   scene phase 3 built): a 1000-step DDPM sample of 64 scenes (exactly
-   28,000 B1 and 1,000 B2 launches) with a 20-step profile against its
-   step time, a 20-step DPM-Solver++ sample at run/generate.sh's batch of
-   256 (exactly 560 and 20), and a 20-step profile of a B=256 step against
-   its host-clock time; each profile names the f32 kernels (resblock_tf32,
+15. the flagship config's own dtype, f32 (the scene phase 3 built):
+   through the rows engine, a 1000-step DDPM sample of 64 scenes (exactly
+   19,000 chain launches) with a 20-step profile naming chain_tf32; through
+   the 3-D engine, a 1000-step DDPM sample of 64 scenes (exactly 28,000 B1
+   and 1,000 B2 launches) with a 20-step profile against its step time, a
+   20-step DPM-Solver++ sample at run/generate.sh's batch of 256 (exactly
+   560 and 20), and a 20-step profile of a B=256 step against its
+   host-clock time; each profile names the f32 kernels (resblock_tf32,
    set_attention_f32) and gives their ms per step, busy time and idle
    share;
 12. the scene model's training path at the flagship's full width (the
@@ -104,17 +107,17 @@ models), 4, 10, 11, 15, 5, 6, 12, 13, 14.  TF32 is off for every matmul and
 convolution (the references are f32; the f32 B1 kernel's split TF32 is
 three tf32 products per f32 product, not TF32 matmul).
 Phase 1 prints each kernel's registers, stack and spills from ptxas, and
-raises if the f32 B1 kernel spills.
+raises if a split-TF32 kernel (f32 B1 or B4) spills.
 
     python3 chip_smoke.py --only-resblock
 
 runs phases 1 and 7 alone, the short check of a new B1 kernel (bf16 and
 f32), ``--only-f32-engine`` phases 1, 3 + 9 in f32 and 15 (the main path in
-its own dtype), and
+its own dtype, both engines), and
 
     python3 chip_smoke.py --only-chain
 
-phases 1 and 2 alone, the short check of a new chain kernel,
+phases 1 and 2 alone, the short check of a new chain kernel (bf16 and f32),
 ``--only-attention`` phases 1 and 8 (B2), ``--only-chamfer`` phases 1
 and 5 (B3) and ``--only-train`` phases 1 and 12-14 (with the train JSON
 line); none of them prints an ok line.
@@ -127,9 +130,9 @@ kernels line holds the launches on each main path, worst
 error, kernel, plain and library times of one forward's 19 chains and of
 its 28 ResnetBlocks, of one set attention and of one chamfer forward, each
 with its graph-replay time beside as "graph_ms", and each one's bound; the
-ResnetBlock entry also carries the f32 28 blocks ("f32_ms", "f32_graph_ms",
-"f32_plain_ms", "f32_bound_ms" on the split-TF32 route) and the f32 DDPM
-sample's launches ("f32_launches").  The
+chain and ResnetBlock entries also carry their f32 kernel's 19 chains and 28
+blocks ("f32_ms", "f32_graph_ms", "f32_plain_ms", "f32_bound_ms" on the
+split-TF32 route) and the f32 DDPM sample's launches ("f32_launches").  The
 last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -177,8 +180,6 @@ RB_CASES = {"row": ("row", C, False), "scene": ("scene", C, False),
             "zero": ("zero", C, False), "none": ("none", C, False)}
 # one flagship forward: 9 block0s, 10 time blocks, 9 skip-concat blocks
 RB_FORWARD_MIX = {"row": 9, "scene": 10, "skip": 9}
-# B4 and B1 at the JAX bench's batch (bench.py), bf16, N=12
-CHAIN_LARGE_B_CASES = ("row_scene", "row_skip")
 RB_LARGE_B, RB_LARGE_B_CASES = 768, ("scene", "skip")
 ATTN_HEADS, ATTN_DIM_HEAD, ATTN_LARGE_B = 4, 32, 768
 DPM_STEPS = 20
@@ -187,6 +188,15 @@ DPM_STEPS = 20
 GENERATE_B = 256
 # B1's large batches, bf16 and f32: run/generate.sh's and the JAX bench's
 RB_LARGE_BATCHES = (GENERATE_B, RB_LARGE_B)
+# B4's large batches, N=12: the JAX bench's (bench.py) in bf16, and
+# run/generate.sh's and the JAX bench's in f32
+CHAIN_LARGE_B_CASES = ("row_scene", "row_skip")
+CHAIN_LARGE_BATCHES = {"bfloat16": (RB_LARGE_B,), "float32": (GENERATE_B, RB_LARGE_B)}
+# the rows engine's chain kernel as the profiler names it, by compute dtype
+ROWS_KERNELS = {"bfloat16": (("B4", "chain_sm90"),), "float32": (("B4 f32", "chain_tf32"),)}
+# the split-TF32 kernels keep their A fragments in registers: ptxas must
+# report no spills for them
+NO_SPILL_KERNELS = ("resblock_tf32", "chain_tf32")
 # the 3-D engine's kernels as the profiler names them, by compute dtype
 ENGINE_KERNELS = {"bfloat16": (("B1", "resblock_sm90"), ("B2", "attention_sm90")),
                   "float32": (("B1 f32", "resblock_tf32"), ("B2 f32", "set_attention_f32"))}
@@ -393,18 +403,26 @@ def phase_kernels(fl, torch):
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             failures.append((12, dname, "row_skip B=63", err))
-    # the JAX bench's batch (B=768)
-    for variant in CHAIN_LARGE_B_CASES:
-        ok, err, tm, (flops, nbytes) = chain_check(fl, torch, variant, 12, torch.bfloat16,
-                                                   600 + len(variant), batch=RB_LARGE_B)
-        worst = max(worst, err)
-        b_ms, b_by = bound(flops, nbytes)
-        print(f"kernel fused_chain N=12 B={RB_LARGE_B} bfloat16 {variant:9s} max_abs_err={err:.3e} "
-              f"{'ok' if ok else 'FAIL'} kernel_ms={tm['ms']:.4f} graph_ms={tm['graph']:.4f} "
-              f"device_ms={tm['dev']:.4f} plain_ms={tm['plain']:.4f} bound_ms={b_ms:.4f} ({b_by}; "
-              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
-        if not ok:
-            failures.append((12, "bfloat16", f"{variant} B={RB_LARGE_B}", err))
+    # large batches: the JAX bench's (B=768) in bf16, and run/generate.sh's
+    # (B=256) and the JAX bench's in f32, with their bound
+    for dname, batches in CHAIN_LARGE_BATCHES.items():
+        dtype = getattr(torch, dname)
+        for batch in batches:
+            for variant in CHAIN_LARGE_B_CASES:
+                seed = 600 + len(variant) + (batch if dname == "float32" else 0)
+                ok, err, tm, (flops, nbytes) = chain_check(fl, torch, variant, 12, dtype, seed,
+                                                           batch=batch)
+                worst = max(worst, err)
+                b_ms, b_by, fp32_ms = kernel_bound(dname, flops, nbytes)
+                route = "" if fp32_ms is None else f" (3xTF32; FP32 rate {fp32_ms:.4f})"
+                print(f"kernel fused_chain N=12 B={batch} {dname:8s} {variant:9s} "
+                      f"max_abs_err={err:.3e} tol={KERNEL_TOL[dname]} {'ok' if ok else 'FAIL'} "
+                      f"kernel_ms={tm['ms']:.4f} graph_ms={tm['graph']:.4f} "
+                      f"device_ms={tm['dev']:.4f} plain_ms={tm['plain']:.4f} bound_ms={b_ms:.4f}"
+                      f"{route} ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)",
+                      flush=True)
+                if not ok:
+                    failures.append((12, dname, f"{variant} B={batch}", err))
     if failures:
         raise RuntimeError(f"chain kernel disagrees with its plain version: {failures}")
     return worst, results
@@ -413,8 +431,9 @@ def phase_kernels(fl, torch):
 def chain_forward(results):
     """The 19 chains of one flagship forward (N=12, B=64) from phase 2's
     cases, bf16 and f32: eager, graph-replay, device and plain times and the
-    bound (bf16 tensor cores; FP32 outside them).  Returns the bf16 sums and
-    bound."""
+    bound (bf16 tensor cores; f32 on the 3xTF32 route, with the FP32-rate
+    bound beside).  Returns {dtype name: (the sums, bound ms, what bounds
+    it)}."""
     out = {}
     for dname in ("bfloat16", "float32"):
         mix = {i: sum(results[(12, dname, v)][i] * k for v, k in FORWARD_MIX.items())
@@ -426,26 +445,35 @@ def chain_forward(results):
               f"{mix[5]:.3f} ms (profiler), plain {mix[2]:.3f} ms, bound {b_ms:.4f} ms{route} "
               f"({b_by}; {mix[3] / 1e9:.2f} GFLOP, {mix[4] / 1e6:.2f} MB)", flush=True)
         out[dname] = (mix, b_ms, b_by)
-    return out["bfloat16"]
+    return out
 
 
-def chain_plan(fl):
-    """The bf16 chain kernel's launch at the flagship's shapes and the JAX
-    bench's batch: clusters of 8 CTAs, stages, shared memory a CTA (the
-    plan's sum and the library's) and the clusters that fit at once."""
+def chain_plan(fl, torch):
+    """Each chain kernel's launch at the flagship's shapes and the large
+    batches: clusters of 8 CTAs, stages, shared memory a CTA (the plan's sum
+    and the library's) and the clusters that fit at once."""
+    from diffuscene_tpu_torch.ops import build
+
     lib = fl.load_library()
-    for n in (12, 21):
-        for batch in (B, RB_LARGE_B):
-            for variant in ("row_scene", "row_skip"):
-                blocks = [fl.ChainBlock(has_skip=sk, film=f, has_res_proj=r)
-                          for f, sk, r in VARIANTS[variant]]
-                p = fl.tile_plan(batch, n, blocks, lib)
-                skip = any(b.has_skip for b in blocks)
-                print(f"plan fused_chain bf16 N={n} B={batch} {variant}: {p.scenes_per_tile} "
-                      f"scenes a tile, {p.clusters} clusters of 8 = {p.ctas} CTAs, {p.stages} "
-                      f"stages, {p.smem_bytes} bytes of shared memory a CTA (library "
-                      f"{lib.fused_chain_smem_bytes(int(skip))}), {p.resident} clusters fit at "
-                      f"once", flush=True)
+    for dname, batches in CHAIN_LARGE_BATCHES.items():
+        dtype = getattr(torch, dname)
+        code = build.DTYPE_CODES[dtype]
+        for n in (12, 21):
+            for batch in (B, *batches):
+                for variant in ("row_scene", "row_skip"):
+                    blocks = [fl.ChainBlock(has_skip=sk, film=f, has_res_proj=r)
+                              for f, sk, r in VARIANTS[variant]]
+                    p = fl.tile_plan(batch, n, blocks, lib, dtype)
+                    skip = any(b.has_skip for b in blocks)
+                    print(f"plan fused_chain {dname} N={n} B={batch} {variant}: "
+                          f"{p.scenes_per_tile} scenes a tile, {p.clusters} clusters of 8 = "
+                          f"{p.ctas} CTAs, {p.stages} stages, {p.smem_bytes} bytes of shared "
+                          f"memory a CTA (library {lib.fused_chain_smem_bytes(code, int(skip))}; "
+                          f"the H100 allows 232448), {p.resident} clusters fit at once",
+                          flush=True)
+                    if p.resident is None or p.resident < 1:
+                        raise RuntimeError(f"no cluster of the {dname} B4 kernel fits "
+                                           f"({p.resident})")
 
 
 def flagship(torch, dtype):
@@ -852,13 +880,14 @@ def kernel_bound(dname, flops, nbytes):
     return (*bound(0, nbytes, tf32_flops=TF32_SPLIT * flops), bound(0, nbytes, flops)[0])
 
 
-def sampling_step(torch, scene, batch, gen):
-    """One DDPM step of the 3-D engine at t = T - 1 on fresh inputs (the
-    step a 1000-step sample runs T times), as a callable."""
+def sampling_step(torch, scene, batch, gen, fused=True):
+    """One DDPM step of the ``fused`` engine (True: the 3-D engine, "rows":
+    the rows engine) at t = T - 1 on fresh inputs (the step a 1000-step
+    sample runs T times), as a callable."""
     from diffuscene_tpu_torch.diffusion import p_sample_step
 
     cfg = scene.cfg
-    denoise = scene._denoise_fn(scene.make_condition(batch), fused=True)
+    denoise = scene._denoise_fn(scene.make_condition(batch), fused=fused)
     x_t = torch.randn(batch, 12, 62, generator=gen, device="cuda")
     noise = torch.randn(batch, 12, 62, generator=gen, device="cuda")
     t_last = torch.full((batch,), T - 1, dtype=torch.long, device="cuda")
@@ -876,6 +905,41 @@ def host_ms(torch, fn, n):
         fn()
     torch.cuda.synchronize()
     return 1e3 * (time.perf_counter() - t0) / n
+
+
+def phase_rows_sample(torch, scene, card):
+    """Phase 4 (bf16) or the rows part of 15 (f32): a 1000-step DDPM sample
+    of 64 scenes through SceneDiffusion.sample(fused="rows"), every chain on
+    B4: shape, finiteness, exactly 19 chain launches a step; then a 20-step
+    profile against the sample's step time, naming B4's kernel.  Returns the
+    chain launches."""
+    from diffuscene_tpu_torch.ops import fused_level as fl
+
+    dname = str(scene.denoiser.compute_dtype).split(".")[-1]
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    torch.cuda.synchronize()
+    fl.apply_chain.launches = 0
+    t0 = time.perf_counter()
+    out = scene.sample(B, generator=gen, clip_denoised=True, fused="rows")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = fl.apply_chain.launches
+    finite = bool(torch.isfinite(out).all())
+    print(f"sample: {T}-step DDPM, B={B}, {dname}, fused=rows: shape={tuple(out.shape)} "
+          f"finite={finite} chain_calls={launches} wall_s={wall:.3f} "
+          f"scenes_per_s={B / wall:.3f} | {card}", flush=True)
+    if tuple(out.shape) != (B, 12, 62) or not finite:
+        raise RuntimeError(f"the {dname} rows sample is malformed")
+    if launches != 19 * T:
+        raise RuntimeError(f"expected {19 * T} chain-kernel calls in the {dname} rows sample, "
+                           f"counted {launches}")
+    parts = scene.split_samples(out)
+    print(f"sample: empty-slot share {parts['is_empty'].float().mean().item():.3f}", flush=True)
+    # where one sampling step's time goes (the step the sample above ran T times)
+    print(f"profile: {dname} rows step, B={B}", flush=True)
+    profile_steps(torch, sampling_step(torch, scene, B, gen, fused="rows"), SAMPLE_PROFILE_STEPS,
+                  1e3 * wall / T, named=ROWS_KERNELS[dname])
+    return launches
 
 
 def phase_engine_samples(torch, scene, card, dpm_batch=B, profile_batches=()):
@@ -1460,8 +1524,8 @@ def main(argv):
         if ptxas.exists():
             for name, regs, spill in ptxas_summary(ptxas.read_text()):
                 print(f"ptxas {lib.name.rsplit('_', 1)[0]} {name}: {regs} | {spill}")
-                # the split-TF32 B1 kernel keeps its A fragments in registers
-                if "resblock_tf32" in name and " 0 bytes spill stores, 0 bytes spill loads" not in spill:
+                if (any(k in name for k in NO_SPILL_KERNELS)
+                        and " 0 bytes spill stores, 0 bytes spill loads" not in spill):
                     raise RuntimeError(f"ptxas spills in {name}: {spill}")
 
     if only == "--only-resblock":   # the short check of a new B1 kernel: phase 7 alone
@@ -1483,13 +1547,16 @@ def main(argv):
         return 0
     if only == "--only-f32-engine":  # the flagship config's own dtype: phases 3 + 9 and 15, f32
         scene32 = phase_forward(torch, torch.float32)
+        phase_rows_sample(torch, scene32, card)
         phase_engine_samples(torch, scene32, card, dpm_batch=GENERATE_B,
                              profile_batches=(GENERATE_B,))
         print(card_line())
         return 0
-    chain_plan(fl)
+    chain_plan(fl, torch)
     worst, results = phase_kernels(fl, torch)
-    fwd, chain_bound_ms, chain_bound_by = chain_forward(results)
+    chain_fwd = chain_forward(results)
+    fwd, chain_bound_ms, chain_bound_by = chain_fwd["bfloat16"]
+    fwd32, chain32_bound_ms, _ = chain_fwd["float32"]
     if only == "--only-chain":      # the short check of a new chain kernel: phase 2 alone
         print(card_line())
         return 0
@@ -1505,43 +1572,15 @@ def main(argv):
 
     # the first slice's main path: 1000-step DDPM sample, every chain
     # through the kernel
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
-    torch.cuda.synchronize()
-    fl.apply_chain.launches = 0
-    t0 = time.perf_counter()
-    out = scene.sample(B, generator=gen, clip_denoised=True, fused="rows")
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    chain_launches = fl.apply_chain.launches
-    finite = bool(torch.isfinite(out).all())
-    print(f"sample: {T}-step DDPM, B={B}, bf16, fused=rows: shape={tuple(out.shape)} "
-          f"finite={finite} chain_calls={chain_launches} wall_s={wall:.3f} "
-          f"scenes_per_s={B / wall:.3f} | {card}", flush=True)
-    if tuple(out.shape) != (B, 12, 62) or not finite:
-        raise RuntimeError("the sample is malformed")
-    if chain_launches != 19 * T:
-        raise RuntimeError(f"expected {19 * T} chain-kernel calls, counted {chain_launches}")
-    parts = scene.split_samples(out)
-    print(f"sample: empty-slot share {parts['is_empty'].float().mean().item():.3f}", flush=True)
-    # where one sampling step's time goes (the step the sample above ran T times)
-    from diffuscene_tpu_torch.diffusion import p_sample_step
-
-    cfg = scene.cfg
-    denoise = scene._denoise_fn(scene.make_condition(B), fused="rows")
-    x_t = torch.randn(B, 12, 62, generator=gen, device="cuda")
-    noise = torch.randn(B, 12, 62, generator=gen, device="cuda")
-    t_last = torch.full((B,), T - 1, dtype=torch.long, device="cuda")
-    profile_steps(torch, lambda: p_sample_step(scene.sched, cfg.model_mean_type,
-                                               cfg.model_var_type, denoise, x_t, t_last,
-                                               noise, True),
-                  SAMPLE_PROFILE_STEPS, 1e3 * wall / T, named=(("B4", "chain_sm90"),))
-    del out, parts, denoise
+    chain_launches = phase_rows_sample(torch, scene, card)
 
     # this slice's main path: the 3-D engine, every ResnetBlock on B1 and
     # mid_attn on B2
     rb_launches, at_launches = phase_engine_samples(torch, scene, card)
     del scene
-    # phase 15: the flagship config's own dtype, f32, through the 3-D engine
+    # phase 15: the flagship config's own dtype, f32, through the rows
+    # engine and the 3-D engine
+    chain32_launches = phase_rows_sample(torch, scene32, card)
     rb32_launches, _ = phase_engine_samples(torch, scene32, card, dpm_batch=GENERATE_B,
                                             profile_batches=(GENERATE_B,))
     del scene32
@@ -1569,6 +1608,11 @@ def main(argv):
         "bound_ms": chain_bound_ms,
         "bound_by": chain_bound_by,
         "library_ms": None,
+        "f32_launches": chain32_launches,
+        "f32_ms": fwd32[1],
+        "f32_graph_ms": fwd32[6],
+        "f32_plain_ms": fwd32[2],
+        "f32_bound_ms": chain32_bound_ms,
     }, {
         "name": "chamfer_nn",
         "route": "cuda",

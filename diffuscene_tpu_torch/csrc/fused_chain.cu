@@ -20,13 +20,13 @@
 // in the compute dtype, SiLU in f32, and the residual projection plus bres
 // is rounded before it is added.  Block 2's input is block 1's output.
 //
-// bfloat16 (the serving dtype; chain_sm90): C = 512 in 8 GroupNorm groups,
-// B1's cluster design (fused_resblock.cu, helpers in sm90.cuh) carried over
-// a chain.  A scene tile (at most 64 rows: 5 scenes of 12, 3 of 21) is one
-// thread-block cluster of 8 CTAs; CTA g owns output columns [64g, 64g + 64)
-// of every product of the chain, so every GroupNorm is CTA-local and reduced
-// in a fixed order.  At B=64 that is 13 clusters (104 CTAs) for n=12 and 22
-// for n=21.  In a CTA:
+// bfloat16 (the b512 recipes' serving dtype; chain_sm90): C = 512 in 8
+// GroupNorm groups, B1's cluster design (fused_resblock.cu, helpers in
+// sm90.cuh) carried over a chain.  A scene tile (at most 64 rows: 5 scenes
+// of 12, 3 of 21) is one thread-block cluster of 8 CTAs; CTA g owns output
+// columns [64g, 64g + 64) of every product of the chain, so every GroupNorm
+// is CTA-local and reduced in a fixed order.  At B=64 that is 13 clusters
+// (104 CTAs) for n=12 and 22 for n=21.  In a CTA:
 //
 // - one producer warp multicasts the x tile to the cluster (each CTA loads
 //   every 8th row into all 8), then the skip tile of the block that takes
@@ -59,18 +59,44 @@
 // arrives (release) once it is done reading a region there (the input tile,
 // G) and waits before anything is stored into the peers' copy.
 //
-// float32 (fused_chain_kernel, for parity): the first FMA kernel, a thread block
-// owning 2 scenes of 12 or 1 of 21, products on the FMA pipes in full f32.
+// float32 (chain_tf32; the serving dtype of 12 of the 15 diffusion
+// configs, the flagship's among them): the same scene tile, cluster of 8
+// CTAs and CTA-local GroupNorm, on the f32 ResnetBlock kernel's split-TF32
+// design (fused_resblock.cu, resblock_tf32; its pieces in sm90.cuh): every
+// product on wgmma m64n64k8 .tf32 as hi*lo + lo*hi + hi*hi of tf32 parts
+// with f32 accumulation, the weights split on the host (pack_tf32_tiles of
+// the chain's (nW * 512, 512) stack, so a CTA's chunks for the whole chain
+// are contiguous), the rows split in registers; never one pass of hi*hi.
+// Nothing is rounded: the compute dtype is f32.  In a CTA (192 threads):
 //
-// What bounds it.  The 19 chains of a B=64 flagship forward are 33.4 GFLOP,
-// 34 us at the bf16 tensor-core peak, well above their bytes.  A launch is
-// bound by latency along each CTA's chain of phases: the x tile's arrival,
-// the weight stream from L2 (each of the 13-22 row tiles reads every weight
-// of the chain, 0.5 MB a 512 x 512 weight), the epilogues on one warpgroup,
-// the exchanges of h through distributed shared memory and, between the
-// blocks of a chain, the round trip of block 1's output through L2.  The
-// next step is B1's: a 2-D cluster (row tiles x groups) that multicasts
-// each weight chunk to the row tiles that share it.
+// - 8 rolling slots of 64 rows x 64 columns take each block's input K
+//   tiles in turn (an input loader warp: CTA g bulk-copies rows g, g + 8,
+//   ... multicast into all 8 CTAs' slot, a slot released cluster-wide
+//   before its reuse), the skip's K tiles after the input's, and then the
+//   gathered h of the block; a producer warp streams the split chunks of
+//   every block of the chain in order through a ring of 5 stages;
+// - one consumer warpgroup runs the products (W1 and the residual
+//   projection share the A fragments), the epilogues in the chain's order
+//   (the one-pass variance clamped at 0, scene-FiLM folded into the affine,
+//   row-FiLM after it as z * (f + 1) + f), and the exchange of its f32
+//   slice of h by bulk copies into the other CTAs' slot;
+// - block 1's output goes through `out` (L2): each CTA stores its 64
+//   columns and, after a proxy fence and a cluster barrier, the loader warp
+//   streams that output's K tiles through the slots as it streamed x.  The
+//   identity residual (x, or block 1's output) is read from device memory,
+//   exact.  226,128 bytes of shared memory a CTA.
+//
+// What bounds it.  The 19 chains of a B=64 flagship forward are 33.4 GFLOP:
+// 34 us at the bf16 tensor-core peak, and in f32 0.2025 ms as three tf32
+// products each at the 495 TFLOP/s TF32 rate (0.4988 ms at the FP32 rate),
+// well above their bytes.  A launch is bound by latency along each CTA's
+// chain of phases: the input tile's arrival, the weight stream from L2
+// (each of the 13-22 row tiles reads every weight of the chain, 0.5 MB a
+// 512 x 512 weight in bf16, 1 MB split in f32), the epilogues on one
+// warpgroup, the exchanges of h and, between the blocks of a chain, the
+// round trip of block 1's output through L2.  The next step is B1's: a 2-D
+// cluster (row tiles x groups) that multicasts each weight chunk to the
+// row tiles that share it.
 #include <cooperative_groups.h>
 
 #include "sm90.cuh"
@@ -397,269 +423,342 @@ cudaError_t prepare_sm90() {   // once
 }
 
 // ---------------------------------------------------------------------------
-// float32: the parity kernel.  A thread block owns a tile of whole scenes
-// (at most kRows rows); the activation, the skip tile and both
-// intermediates stay in shared memory for the whole chain, and thread t
-// owns output columns 2t, 2t+1 of all rows: each weight element is read
-// once per block, each activation value is a shared-memory broadcast.
+// float32: the split-TF32 cluster kernel
 // ---------------------------------------------------------------------------
 
-constexpr int kRows = 24;       // valid rows per tile: 2 scenes of 12 or 1 of 21
-constexpr int kMaxScenes = 4;   // scenes per tile (bounds the reduction buffer)
-constexpr int kPad = 8;         // shared-memory row padding (elements)
+using sm90::kChunkPartF;
+using sm90::kLdF;
+using sm90::kSlotF;
+using sm90::kStagesF;
+using sm90::kThreadsF;
+constexpr int kStepsF = kC / sm90::kStepK;   // 32-deep K steps of one (C, C) weight: 16
 
-struct ArgsF32 {
-  const float* x;        // (M, C)
-  const float* skip[2];  // per block: (M, C) or null
-  const float* film[2];  // per block: (B, 2C) scene rows, (M, 2C) rows, or null
-  const float* W;        // (nW, C, C) (in, out)
-  const float* V;        // (nV, C): b1, g1s, g1b, b2, g2s, g2b [, bres]
-  float* out;            // (M, C)
-  int B, n, C, groups, ts, nblocks;
-  int spec[2];
+struct ArgsF {
+  const float* x;       // (M, C)
+  const float* skip;    // (M, C) for the one block that takes a skip, or null
+  const float* film[2]; // per block: (B, 2C) per scene, (M, 2C) per row, or null
+  const float* W;       // split chunks (pack_tf32_tiles of the (nW * C, C) stack)
+  const float* V;       // (nV, C): per block b1, g1s, g1b, b2, g2s, g2b [, bres]
+  float* out;           // (M, C): block 1's output on its way to block 2, then the chain's
+  int B, n, ts, nW, nV, nblocks;
+  int spec[2];          // as Args90's
   float eps;
 };
 
-// v[r] += A[r, :] @ W[:, col:col+2] for the kRows rows; A in smem (stride
-// lda), W (C, C) (in, out)
-__device__ __forceinline__ void mm_f32(float (&v)[kRows][2], const float* __restrict__ A, int lda,
-                                       const float* __restrict__ W, int C) {
-  const int col = 2 * threadIdx.x;
-  const float* wp = W + col;
-  auto ldg2 = [](const float* p) { return __ldg(reinterpret_cast<const float2*>(p)); };
-  // the next four weight rows are fetched while the current four are used
-  float2 n0 = ldg2(wp), n1 = ldg2(wp + C), n2 = ldg2(wp + 2 * C), n3 = ldg2(wp + 3 * C);
-#pragma unroll 1
-  for (int k = 0; k < C; k += 4) {
-    const float2 w0 = n0, w1 = n1, w2 = n2, w3 = n3;
-    if (k + 4 < C) {
-      const float* p = wp + (size_t)(k + 4) * C;
-      n0 = ldg2(p);
-      n1 = ldg2(p + C);
-      n2 = ldg2(p + 2 * C);
-      n3 = ldg2(p + 3 * C);
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float4 a = *reinterpret_cast<const float4*>(A + r * lda + k);
-      float s0 = v[r][0], s1 = v[r][1];
-      s0 = fmaf(a.x, w0.x, s0); s1 = fmaf(a.x, w0.y, s1);
-      s0 = fmaf(a.y, w1.x, s0); s1 = fmaf(a.y, w1.y, s1);
-      s0 = fmaf(a.z, w2.x, s0); s1 = fmaf(a.z, w2.y, s1);
-      s0 = fmaf(a.w, w3.x, s0); s1 = fmaf(a.w, w3.y, s1);
-      v[r][0] = s0; v[r][1] = s1;
-    }
-  }
-}
+constexpr sm90::LayoutF kLayoutF = sm90::layout_tf32(kMaxVectors, 2);
 
-// In place on the tile Z: GroupNorm with per-scene f32 moments over (n rows
-// x C/groups channels), the affine folded into per-scene coefficients a, b;
-// scene-FiLM folded into a, b, or row-FiLM applied after; then SiLU.  Thread
-// t owns columns 2t, 2t+1.  red: [2][ts][nthreads] partial sums, stat:
-// [2][ts][groups].
-__device__ void gn_film_silu(float* Z, int lda, const ArgsF32& args, const float* scale,
-                             const float* bias, int film_kind, const float* film, int scene0,
-                             int nsc, float* red, float* stat) {
-  const int C = args.C, n = args.n, ts = args.ts, groups = args.groups;
-  const int tid = threadIdx.x, nthr = blockDim.x, col = 2 * tid;
-  // 1. per-thread partial moments of its two columns, per scene
-  for (int s = 0; s < nsc; ++s) {
-    float sum = 0.f, sq = 0.f;
-    for (int i = 0; i < n; ++i) {
-      const float2 v = tile::ld2<float>(Z + (s * n + i) * lda + col);
-      sum += v.x + v.y;
-      sq += v.x * v.x + v.y * v.y;
-    }
-    red[s * nthr + tid] = sum;
-    red[(ts + s) * nthr + tid] = sq;
-  }
-  __syncthreads();
-  // 2. per (scene, group) moments, summed over the group's threads in order
-  const int gs = C / groups, tpg = gs / 2;
-  for (int idx = tid; idx < nsc * groups; idx += nthr) {
-    const int s = idx / groups, g = idx % groups;
-    float sum = 0.f, sq = 0.f;
-    for (int t = g * tpg; t < (g + 1) * tpg; ++t) {
-      sum += red[s * nthr + t];
-      sq += red[(ts + s) * nthr + t];
-    }
-    const float denom = 1.f / (float)(n * gs);
-    const float mean = sum * denom;
-    // one-pass variance can cancel slightly negative: clamp at 0
-    const float var = fmaxf(sq * denom - mean * mean, 0.f);
-    stat[s * groups + g] = mean;
-    stat[(ts + s) * groups + g] = rsqrtf(var + args.eps);
-  }
-  __syncthreads();
-  // 3. apply: z * a + b (+ row FiLM), SiLU
-  const int g = col / gs;
-  const float sc0 = scale[col], sc1 = scale[col + 1];
-  const float bi0 = bias[col], bi1 = bias[col + 1];
-  for (int s = 0; s < nsc; ++s) {
-    const float mean = stat[s * groups + g], inv = stat[(ts + s) * groups + g];
-    float a0 = inv * sc0, a1 = inv * sc1;
-    float b0 = bi0 - mean * inv * sc0, b1 = bi1 - mean * inv * sc1;
-    if (film_kind == 1) {
-      const float* f = film + (size_t)(scene0 + s) * 2 * C;
-      const float2 fs = tile::ld2<float>(f + col);
-      const float2 fb = tile::ld2<float>(f + C + col);
-      const float fs0 = fs.x + 1.f, fs1 = fs.y + 1.f;
-      a0 *= fs0; a1 *= fs1;
-      b0 = b0 * fs0 + fb.x; b1 = b1 * fs1 + fb.y;
-    }
-    for (int i = 0; i < n; ++i) {
-      const int r = s * n + i;
-      const float2 v = tile::ld2<float>(Z + r * lda + col);
-      float z0 = v.x * a0 + b0;
-      float z1 = v.y * a1 + b1;
-      if (film_kind == 2) {
-        const float* f = film + ((size_t)scene0 * n + r) * 2 * C;
-        const float2 fs = tile::ld2<float>(f + col);
-        const float2 fb = tile::ld2<float>(f + C + col);
-        z0 = z0 * (fs.x + 1.f) + fb.x;
-        z1 = z1 * (fs.y + 1.f) + fb.y;
-      }
-      tile::st2<float>(Z + r * lda + col, tile::silu(z0), tile::silu(z1));
-    }
-  }
-  __syncthreads();
-}
-
-__global__ void __launch_bounds__(256) fused_chain_kernel(ArgsF32 args) {
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreadsF, 1)
+    chain_tf32(const ArgsF a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int C = args.C, ts = args.ts;
-  const int lda = C + kPad;
-  const int col = 2 * threadIdx.x;
-  float* X = reinterpret_cast<float*>(smem);   // chain activation (block input, then output)
-  float* S = X + kRows * lda;                  // skip rows of the current block
-  float* Z = S + kRows * lda;                  // block1 intermediate
-  float* Z2 = Z + kRows * lda;                 // block2 intermediate
-  float* red = Z2 + kRows * lda;               // [2][ts][nthr]
-  float* stat = red + 2 * ts * blockDim.x;     // [2][ts][groups]
+  constexpr sm90::LayoutF L = kLayoutF;
+  float* ring = reinterpret_cast<float*>(smem + L.ring);
+  float* slots = reinterpret_cast<float*>(smem + L.slots);   // a block's input K tiles, then
+                                                             // the slices of its h
+  float* Vs = reinterpret_cast<float*>(smem + L.v);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  float* stat = reinterpret_cast<float*>(smem + L.stat);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + kStagesF;
+  uint64_t* xfull = empty + kStagesF;     // [q]: slot q holds its K tile
+  uint64_t* xempty = xfull + kCluster;    // [q]: every CTA's products are done with slot q
+  uint64_t* gbar = xempty + kCluster;     // [8b + q]: CTA q's slice of block b's h has landed
 
-  const int scene0 = blockIdx.x * ts;
-  const int nsc = min(ts, args.B - scene0);  // the last tile may be ragged
-  const int rows = nsc * args.n;
-  const size_t row0 = (size_t)scene0 * args.n;
+  const int grp = (int)cg::this_cluster().block_rank();   // GroupNorm group = column slice
+  const int scene0 = (blockIdx.x / kCluster) * a.ts;
+  const int nsc = min(a.ts, a.B - scene0);             // the last tile may be ragged
+  const int rows = nsc * a.n;
+  const size_t row0 = (size_t)scene0 * a.n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int col0 = grp * kGroup;
 
-  tile::load_rows<float>(X, lda, args.x + row0 * C, C, rows, kRows, C);
-  __syncthreads();
-
-  const float* W = args.W;
-  const float* V = args.V;
-  const size_t CC = (size_t)C * C;
-  int wi = 0, vi = 0;
-  float v[kRows][2];
-  auto zero = [&] {
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) v[r][0] = v[r][1] = 0.f;
-  };
-  for (int bi = 0; bi < args.nblocks; ++bi) {
-    const int spec = args.spec[bi];
-    const bool has_skip = spec & 1;
-    const int film_kind = (spec >> 1) & 3;
-    const bool has_res = (spec >> 3) & 1;
-    if (has_skip) {
-      tile::load_rows<float>(S, lda, args.skip[bi] + row0 * C, C, rows, kRows, C);
-      __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStagesF; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kConsumers);
     }
-    const float* b1 = V + (size_t)vi * C;
-
-    // block1: dense (split matmuls over the implicit skip concat)
-    zero();
-    mm_f32(v, X, lda, W + wi * CC, C);
-    int wj = wi + 1;
-    if (has_skip) mm_f32(v, S, lda, W + (wj++) * CC, C);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      tile::st2<float>(Z + r * lda + col, v[r][0] + b1[col], v[r][1] + b1[col + 1]);
-    __syncthreads();
-    gn_film_silu(Z, lda, args, b1 + C, b1 + 2 * C, film_kind, args.film[bi], scene0, nsc, red,
-                 stat);
-
-    // block2
-    zero();
-    mm_f32(v, Z, lda, W + (wj++) * CC, C);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-      tile::st2<float>(Z2 + r * lda + col, v[r][0] + b1[3 * C + col], v[r][1] + b1[3 * C + col + 1]);
-    __syncthreads();
-    gn_film_silu(Z2, lda, args, b1 + 4 * C, b1 + 5 * C, 0, nullptr, scene0, nsc, red, stat);
-
-    // residual
-    if (has_res) {
-      zero();
-      mm_f32(v, X, lda, W + (wj++) * CC, C);
-      if (has_skip) mm_f32(v, S, lda, W + (wj++) * CC, C);
-      __syncthreads();  // every thread is done reading X
-      const float bx = b1[6 * C + col], by = b1[6 * C + col + 1];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float2 z = tile::ld2<float>(Z2 + r * lda + col);
-        tile::st2<float>(X + r * lda + col, z.x + (v[r][0] + bx), z.y + (v[r][1] + by));
-      }
-    } else {
-      for (int r = 0; r < kRows; ++r) {
-        const float2 z = tile::ld2<float>(Z2 + r * lda + col);
-        const float2 x = tile::ld2<float>(X + r * lda + col);
-        tile::st2<float>(X + r * lda + col, z.x + x.x, z.y + x.y);
-      }
+    for (int q = 0; q < kCluster; ++q) {
+      sm90::mbar_init(&xfull[q], 1);
+      sm90::mbar_init(&xempty[q], kCluster);   // one arrival from each CTA
     }
-    __syncthreads();
-    wi = wj;
-    vi += has_res ? 7 : 6;
+    for (int q = 0; q < kCluster * a.nblocks; ++q) {
+      sm90::mbar_init(&gbar[q], 1);
+      // CTA q's slices land here; this CTA's own are local
+      if (q % kCluster != grp) sm90::mbar_expect_tx(&gbar[q], kSlotF * 4);
+    }
+    sm90::mbar_fence_init();
   }
-  const int per_row = C / 4;
-  for (int i = threadIdx.x; i < rows * per_row; i += blockDim.x) {
-    const int r = i / per_row, q = i % per_row;
-    reinterpret_cast<float4*>(args.out + (row0 + r) * C)[q] =
-        reinterpret_cast<const float4*>(X + r * lda)[q];
+  __syncthreads();
+  sm90::cluster_arrive();          // (0) every CTA's barriers are set up
+  sm90::cluster_wait();
+
+  // Cluster barrier phases after (0), as in chain_sm90: (2b + 1) after
+  // block b's first product (every CTA's slots are read), (2b + 2) after its
+  // output is stored (the slices are read; block 1's output is in `out`).
+  if (warp == kConsumers / 32) {
+    // ---- producer warp: this CTA's weight chunks, every block in order ----
+    if (lane == 0) {
+      sm90::RingF w{ring, full, empty, 0, 0};
+      const float* wg = a.W + (size_t)grp * a.nW * kStepsF * 2 * kChunkPartF;   // this CTA's
+      auto put = [&](int wi, int st) {   // 32-deep step st of weight wi of the stack
+        w.put(wg + (size_t)(wi * kStepsF + st) * 2 * kChunkPartF);
+      };
+      sm90::cluster_arrive_relaxed();   // (1)
+      int wi = 0;
+      for (int b = 0; b < a.nblocks; ++b) {
+        const int spec = b ? a.spec[1] : a.spec[0];
+        const bool skip = spec & 1, res = (spec >> 3) & 1;
+        // the block's weights in the stack: w1, [w1s], w2, [wres, [wres_s]]
+        const int w1 = wi, w1s = wi + 1, w2 = wi + 1 + skip, wr = w2 + 1, wrs = w2 + 2;
+        for (int st = 0; st < kStepsF; ++st) {
+          put(w1, st);
+          if (res) put(wr, st);
+        }
+        if (skip) {   // a skip block has a residual projection
+          for (int st = 0; st < kStepsF; ++st) {
+            put(w1s, st);
+            put(wrs, st);
+          }
+        }
+        if (b > 0) {
+          sm90::cluster_wait();             // (2b)
+          sm90::cluster_arrive_relaxed();   // (2b + 1)
+        }
+        // W2's K steps in the order the second product takes the slices
+        for (int kt = 0; kt < kCluster; ++kt)
+          for (int h = 0; h < 2; ++h) put(w2, 2 * ((grp + kt) % kCluster) + h);
+        sm90::cluster_wait();               // (2b + 1)
+        sm90::cluster_arrive_relaxed();     // (2b + 2)
+        wi = w2 + 1 + res + (skip && res);
+      }
+      sm90::cluster_wait();                 // (2 nblocks)
+    } else {
+      for (int p = 0; p < 2 * a.nblocks; ++p) {
+        sm90::cluster_arrive_relaxed();
+        sm90::cluster_wait();
+      }
+    }
+    return;
+  }
+
+  if (warp == kConsumers / 32 + 1) {
+    // ---- input loader warp: each block's [input | skip] K tiles through
+    // the slots (sm90::SlotsF); block 2's input is block 1's output, read
+    // back from `out` once the cluster barrier (2) says every CTA stored its
+    // columns ----
+    sm90::SlotsF in{slots, xfull, xempty, 0, 0};
+    for (int b = 0; b < a.nblocks; ++b) {
+      const int ntiles = kCluster * (1 + ((b ? a.spec[1] : a.spec[0]) & 1));
+      const float* src = b ? a.out : a.x;
+      if (b > 0) sm90::fence_proxy_async();   // the stores before (2) are read by bulk copies
+      in.load(ntiles, rows, grp, [&](int kt, int r) {
+        return (kt < kCluster ? src : a.skip) + (row0 + r) * kC + kGroup * (kt % kCluster);
+      });
+      in.advance(ntiles);
+      sm90::cluster_arrive_relaxed();   // (2b + 1)
+      sm90::cluster_wait();
+      sm90::cluster_arrive_relaxed();   // (2b + 2)
+      sm90::cluster_wait();
+    }
+    return;
+  }
+
+  // ---- consumer warpgroup ----
+  for (int i = threadIdx.x; i < a.nV * kGroup; i += kConsumers)   // this CTA's vectors
+    Vs[i] = a.V[(i / kGroup) * kC + col0 + i % kGroup];
+  const int t = lane & 3;
+  const int r0 = 16 * warp + (lane >> 2);    // this thread's rows: r0, r0 + 8
+  float acc[32], accR[32];
+  sm90::RingF w{ring, full, empty, 0, 0};
+  sm90::SlotsF in{slots, xfull, xempty, 0, 0};
+  const float* Vb = Vs;                      // this block's vectors
+#pragma unroll 1
+  for (int b = 0; b < a.nblocks; ++b) {
+    const int spec = b ? a.spec[1] : a.spec[0];
+    const bool skip = spec & 1, res = (spec >> 3) & 1;
+    const int film_kind = (spec >> 1) & 3;
+    const float* film = b ? a.film[1] : a.film[0];
+    const float* xin = b ? a.out : a.x;      // the block's input
+
+    // the first product: z = [input | skip] @ W1 (and the residual projection)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = accR[i] = 0.f;
+    sm90::input_products(res, acc, accR, kCluster * (1 + skip), in, w);
+    // (2b + 1) this CTA's reads of its slots are done (their values are in
+    // the finished products): the others may copy h into them
+    sm90::bar_sync<kConsumers>(1);   // and Vs is written by every consumer
+    sm90::cluster_arrive_relaxed();
+
+    // z = z + b1; GN1 (clamped one-pass variance) with scene-FiLM folded
+    // into its affine, row-FiLM after it, SiLU; this CTA's slice of h into
+    // slot grp
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += Vb[8 * (i / 4) + 2 * t + (i & 1)];
+    sm90::scene_moments<true>(acc, a.n, nsc, a.eps, red, stat);
+    float* mine = slots + grp * kSlotF;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+      if (r < rows) {
+        const int sc = r / a.n;
+        const float mean = stat[sc], inv = stat[kTileRows + sc];
+        const float* f = film_kind == 1 ? film + (size_t)(scene0 + sc) * 2 * kC + col0
+                                        : film + (row0 + r) * 2 * kC + col0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * j + 2 * t;
+          float z[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float ca = inv * Vb[kGroup + c + e];
+            float cb = Vb[2 * kGroup + c + e] - mean * inv * Vb[kGroup + c + e];
+            const float fs = film_kind ? f[c + e] + 1.f : 1.f;
+            const float fb = film_kind ? f[kC + c + e] : 0.f;
+            if (film_kind == 1) {
+              ca *= fs;
+              cb = cb * fs + fb;
+            }
+            float v = acc[4 * j + 2 * half + e] * ca + cb;
+            if (film_kind == 2) v = v * fs + fb;
+            z[e] = silu_fast(v);
+          }
+          *reinterpret_cast<float2*>(mine + r * kLdF + c) = make_float2(z[0], z[1]);
+        }
+      }
+    }
+    // the exchange: once every CTA is done with its slots (2b + 1), this
+    // slice into the other CTAs' slot grp
+    sm90::exchange_slice_f32(slots, grp, gbar + kCluster * b);
+
+    // the identity residual: the block input's values, exact, from device
+    // memory (block 2's: block 1's output, which this thread stored)
+    if (!res) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = r0 + 8 * ((i >> 1) & 1);
+        accR[i] = r < rows ? xin[(row0 + r) * kC + col0 + 8 * (i / 4) + 2 * t + (i & 1)] : 0.f;
+      }
+    }
+
+    // the second product: z2 = h @ W2, from this CTA's slice on, each other
+    // one as it lands
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    sm90::slice_products(acc, accR, slots, grp, gbar + kCluster * b, w);
+
+    // out = silu(GN2(z2 + b2)) + (the residual | its projection + bres),
+    // this CTA's 64 columns
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] += Vb[3 * kGroup + 8 * (i / 4) + 2 * t + (i & 1)];
+    sm90::scene_moments<true>(acc, a.n, nsc, a.eps, red, stat);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+      if (r < rows) {
+        const int sc = r / a.n;
+        const float mean = stat[sc], inv = stat[kTileRows + sc];
+        float* o = a.out + (row0 + r) * kC + col0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + 2 * t + e, i = 4 * j + 2 * half + e;
+            const float ca = inv * Vb[4 * kGroup + c];
+            const float cb = Vb[5 * kGroup + c] - mean * inv * Vb[4 * kGroup + c];
+            v[e] = silu_fast(acc[i] * ca + cb) + (res ? accR[i] + Vb[6 * kGroup + c] : accR[i]);
+          }
+          *reinterpret_cast<float2*>(o + 8 * j + 2 * t) = make_float2(v[0], v[1]);
+        }
+      }
+    }
+    // (2b + 2) every slice of this CTA's h has landed and is read, and its
+    // columns are stored.  Release, after a proxy fence: block 2's input
+    // tiles are read back from them by bulk copies (the async proxy).
+    // Block 2 stores into the same `out`, and no store of it can overtake
+    // a peer's load of block 1's output: a CTA stores only after it holds
+    // all 8 slices of block 2's h, which its peers send only once every CTA
+    // of the cluster has finished its first product (2b + 1 of block 2), so
+    // every K tile of block 1's output has landed in every CTA by then; the
+    // other clusters read and write other rows
+    sm90::fence_proxy_async();
+    sm90::cluster_arrive();
+    sm90::cluster_wait();
+    Vb += (res ? 7 : 6) * kGroup;
   }
 }
 
-int launch_f32(const ArgsF32& a, cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(   // once
-      fused_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
-  if (attr != cudaSuccess) return (int)attr;
-  const int threads = a.C / 2;
-  const size_t smem = 4 * (size_t)kRows * (a.C + kPad) * sizeof(float) +
-                      (2 * (size_t)a.ts * threads + 2 * (size_t)a.ts * a.groups) * sizeof(float);
-  const int grid = (a.B + a.ts - 1) / a.ts;
-  fused_chain_kernel<<<grid, threads, smem, stream>>>(a);
-  return (int)cudaGetLastError();
+cudaError_t prepare_tf32() {   // once
+  static const cudaError_t err = cudaFuncSetAttribute(
+      chain_tf32, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kLayoutF.total);
+  return err;
 }
 
 // weights and vectors of one block of `spec`
 int block_weights(int spec) { return 2 + (spec & 1) + ((spec >> 3) & 1) + ((spec & 9) == 9); }
 int block_vectors(int spec) { return 6 + ((spec >> 3) & 1); }
 
+// the kernel arguments of element type T (Args90 or ArgsF)
+template <class Args, class T>
+Args chain_args(const void* x, const void* skip, const void* film0, const void* film1,
+                const void* W, const float* V, void* out, int B, int n, float eps, int nblocks,
+                const int (&spec)[2]) {
+  Args a;
+  a.x = static_cast<const T*>(x);
+  a.skip = static_cast<const T*>(skip);
+  a.film[0] = static_cast<const T*>(film0);
+  a.film[1] = static_cast<const T*>(film1);
+  a.W = static_cast<const T*>(W);
+  a.V = V;
+  a.out = static_cast<T*>(out);
+  a.B = B;
+  a.n = n;
+  a.ts = kTileRows / n;
+  a.nW = a.nV = 0;
+  for (int b = 0; b < nblocks; ++b) {
+    a.nW += block_weights(spec[b]);
+    a.nV += block_vectors(spec[b]);
+  }
+  a.nblocks = nblocks;
+  a.spec[0] = spec[0];
+  a.spec[1] = spec[1];
+  a.eps = eps;
+  return a;
+}
+
+// dynamic shared memory of one CTA of the `dtype` kernel
+unsigned smem_bytes(int dtype, bool has_skip) {
+  return dtype == 1 ? layout(has_skip).total : kLayoutF.total;
+}
+
 }  // namespace
 
 extern "C" {
 
 // rows of one scene the kernel of `dtype` (0 float32, 1 bfloat16) takes
-int fused_chain_max_rows(int dtype) { return dtype == 1 ? kTileRows : kRows; }
-int fused_chain_max_channels() { return kC; }
-// dynamic shared memory of one bf16 CTA, for a chain with or without a skip
-int fused_chain_smem_bytes(int has_skip) { return (int)layout(has_skip != 0).total; }
+int fused_chain_max_rows(int dtype) { return kTileRows; }
+// dynamic shared memory of one CTA of the `dtype` kernel, for a chain with
+// or without a skip
+int fused_chain_smem_bytes(int dtype, int has_skip) { return (int)smem_bytes(dtype, has_skip); }
 
-// clusters of the bf16 kernel that fit on the card at once, or minus a
+// clusters of the `dtype` kernel that fit on the card at once, or minus a
 // cudaError_t code
-int fused_chain_max_active_clusters(int has_skip) {
-  const cudaError_t err = prepare_sm90();
+int fused_chain_max_active_clusters(int dtype, int has_skip) {
+  const cudaError_t err = dtype == 1 ? prepare_sm90() : prepare_tf32();
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kCluster * 64);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = layout(has_skip != 0).total;
+  cfg.blockDim = dim3(dtype == 1 ? kThreads : kThreadsF);
+  cfg.dynamicSmemBytes = smem_bytes(dtype, has_skip != 0);
   int clusters = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, chain_sm90, &cfg);
+  const cudaError_t e = dtype == 1 ? cudaOccupancyMaxActiveClusters(&clusters, chain_sm90, &cfg)
+                                   : cudaOccupancyMaxActiveClusters(&clusters, chain_tf32, &cfg);
   return e == cudaSuccess ? clusters : -(int)e;
 }
 
-// dtype: 0 float32 (W (nW, C, C) as is), 1 bfloat16 (W packed by
-// pack_group_tiles).  Returns a cudaError_t code (0 on success), or -1 for
-// arguments the kernel does not take.
+// dtype: 0 float32 (W packed by pack_tf32_tiles), 1 bfloat16 (by
+// pack_group_tiles).  Both take C = 512 in 8 groups, scenes of at most 64
+// rows and at most one skip a chain.  Returns a cudaError_t code (0 on
+// success), or -1 for arguments the kernel does not take.
 int fused_chain_launch(int dtype, const void* x, const void* skip0, const void* skip1,
                        const void* film0, const void* film1, const void* W, const float* V,
                        void* out, int B, int n, int C, int groups, float eps, int nblocks,
@@ -667,7 +766,9 @@ int fused_chain_launch(int dtype, const void* x, const void* skip0, const void* 
   const int spec[2] = {spec0, nblocks == 2 ? spec1 : 0};
   const void* skip[2] = {skip0, skip1};
   const void* film[2] = {film0, film1};
-  if (n < 1 || B < 1 || nblocks < 1 || nblocks > 2) return -1;
+  if (n < 1 || B < 1 || nblocks < 1 || nblocks > 2 || (dtype != 0 && dtype != 1) ||
+      n > kTileRows || C != kC || groups != kCluster || (skip0 && skip1))
+    return -1;
   for (int b = 0; b < nblocks; ++b) {
     const int film_kind = (spec[b] >> 1) & 3;
     if (((spec[b] & 1) != 0) != (skip[b] != nullptr) || film_kind > 2 ||
@@ -675,56 +776,17 @@ int fused_chain_launch(int dtype, const void* x, const void* skip0, const void* 
       return -1;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) {
-    if (n > kTileRows || C != kC || groups != kCluster || (skip0 && skip1)) return -1;
-    Args90 a;
-    a.x = static_cast<const bf16*>(x);
-    a.skip = static_cast<const bf16*>(skip0 ? skip0 : skip1);
-    a.film[0] = static_cast<const bf16*>(film0);
-    a.film[1] = static_cast<const bf16*>(film1);
-    a.W = static_cast<const bf16*>(W);
-    a.V = V;
-    a.out = static_cast<bf16*>(out);
-    a.B = B;
-    a.n = n;
-    a.ts = kTileRows / n;
-    a.nW = a.nV = 0;
-    for (int b = 0; b < nblocks; ++b) {
-      a.nW += block_weights(spec[b]);
-      a.nV += block_vectors(spec[b]);
-    }
-    a.nblocks = nblocks;
-    a.spec[0] = spec[0];
-    a.spec[1] = spec[1];
-    a.eps = eps;
-    const cudaError_t err = prepare_sm90();
-    if (err != cudaSuccess) return (int)err;
-    const unsigned grid = (unsigned)((B + a.ts - 1) / a.ts) * kCluster;
-    chain_sm90<<<grid, kThreads, layout(a.skip != nullptr).total, s>>>(a);
-    return (int)cudaGetLastError();
-  }
-  if (dtype != 0 || n > kRows || C % 64 != 0 || C > 512 || groups < 1 || C % groups != 0 ||
-      (C / groups) % 2 != 0)
-    return -1;
-  ArgsF32 a;
-  a.x = static_cast<const float*>(x);
-  a.skip[0] = static_cast<const float*>(skip0);
-  a.skip[1] = static_cast<const float*>(skip1);
-  a.film[0] = static_cast<const float*>(film0);
-  a.film[1] = static_cast<const float*>(film1);
-  a.W = static_cast<const float*>(W);
-  a.V = V;
-  a.out = static_cast<float*>(out);
-  a.B = B;
-  a.n = n;
-  a.C = C;
-  a.groups = groups;
-  a.ts = kRows / n < kMaxScenes ? kRows / n : kMaxScenes;
-  a.nblocks = nblocks;
-  a.spec[0] = spec[0];
-  a.spec[1] = spec[1];
-  a.eps = eps;
-  return launch_f32(a, s);
+  const void* sk = skip0 ? skip0 : skip1;
+  const unsigned grid = (unsigned)((B + kTileRows / n - 1) / (kTileRows / n)) * kCluster;
+  const cudaError_t err = dtype == 1 ? prepare_sm90() : prepare_tf32();
+  if (err != cudaSuccess) return (int)err;
+  if (dtype == 1)
+    chain_sm90<<<grid, kThreads, layout(sk != nullptr).total, s>>>(
+        chain_args<Args90, bf16>(x, sk, film0, film1, W, V, out, B, n, eps, nblocks, spec));
+  else
+    chain_tf32<<<grid, kThreadsF, kLayoutF.total, s>>>(
+        chain_args<ArgsF, float>(x, sk, film0, film1, W, V, out, B, n, eps, nblocks, spec));
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

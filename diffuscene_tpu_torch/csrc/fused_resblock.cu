@@ -90,6 +90,9 @@
 //   to shared::cluster, completing on the peer's barrier for the slice).
 //   The identity residual is read from device memory, exact.
 //
+// The slots, the ring, the split K step and the exchange are sm90.cuh's
+// split-TF32 scene tile, shared with the f32 chain kernel (fused_chain.cu).
+//
 // What bounds the f32 kernel.  The 28 blocks of a B=64, N=12 forward are
 // 33.42 GFLOP: 0.2025 ms as 3 x 33.42 GFLOP at the 495 TFLOP/s TF32 rate
 // (0.4988 ms at the 67 TFLOP/s FP32 rate).  Each CTA streams its group's
@@ -382,32 +385,11 @@ int launch_sm90(const Args90& a, cudaStream_t stream) {
 // float32: the split-TF32 cluster kernel
 // ---------------------------------------------------------------------------
 
-constexpr int kStepK = 32;                      // depth of one f32 weight chunk (a K step)
-constexpr int kStagesF = 5;                     // the weight ring
-constexpr int kThreadsF = kConsumers + 64;      // and a weight producer warp, an x loader warp
-constexpr int kChunkPartF = kStepK * kGroup;    // floats of a chunk's hi (or lo) part: 2048
-constexpr int kChunkBytesF = 2 * kChunkPartF * 4;        // hi and lo: 16 KB
-constexpr uint32_t kLboF = kGroup / 8 * 128;    // next core matrix in k: 1024 bytes
-constexpr uint32_t kKStepF = 2 * kLboF;         // next 8-deep k step: 2048 bytes
-constexpr int kLdF = kGroup + 4;                // row stride (floats) of a slot: 64 + 4
-constexpr int kSlotF = kTileRows * kLdF;        // floats of a slot: 64 rows x 64 columns
-
-// shared-memory layout of resblock_tf32 (the same for every input width)
-struct LayoutF {
-  unsigned ring, slots, v, red, stat, bars, total;
-};
-
-__host__ __device__ constexpr LayoutF layout_f32() {
-  LayoutF L{};
-  L.ring = 0;                                     // kStagesF x 16 KB of split weights
-  L.slots = L.ring + kStagesF * kChunkBytesF;     // 8 slots: x K tiles, later the slices of h
-  L.v = L.slots + kCluster * kSlotF * 4;          // this CTA's 7 vectors
-  L.red = L.v + 7 * kGroup * 4;                   // row sums, squares
-  L.stat = L.red + 2 * kTileRows * 4;             // scene mean, rsqrt
-  L.bars = L.stat + 2 * kTileRows * 4;            // ring full, empty; slot full, empty; slices
-  L.total = L.bars + (2 * kStagesF + 3 * kCluster) * 8;
-  return L;
-}
+using sm90::kChunkPartF;
+using sm90::kLdF;
+using sm90::kSlotF;
+using sm90::kStagesF;
+using sm90::kThreadsF;
 
 struct ArgsF {
   const float* x;      // (M, kx)
@@ -422,120 +404,11 @@ struct ArgsF {
   float eps;
 };
 
-// This thread's A fragments of one K step (32 deep) of a slot (64 rows x
-// 64 columns, rows kLdF apart), split into tf32 hi and lo.  The chunks are
-// packed with the step's k permuted (pack_tf32_tiles): fragment k = 8j +
-// t + 4h of k step j reads column 8t + 2j + h of the step, so lane (g, t)
-// reads 8 contiguous columns of rows 16w + g and + 8 as two 16-byte loads
-// each; rows 68 floats apart keep a quarter warp's loads on distinct banks.
-__device__ __forceinline__ void load_a(const float* slot, int half, uint32_t (&hi)[16],
-                                       uint32_t (&lo)[16]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* p = slot + (16 * warp + (lane >> 2)) * kLdF + kStepK * half + 8 * (lane & 3);
-  float v[2][8];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float4 u = *reinterpret_cast<const float4*>(p + 8 * r * kLdF);
-    const float4 w = *reinterpret_cast<const float4*>(p + 8 * r * kLdF + 4);
-    v[r][0] = u.x, v[r][1] = u.y, v[r][2] = u.z, v[r][3] = u.w;
-    v[r][4] = w.x, v[r][5] = w.y, v[r][6] = w.z, v[r][7] = w.w;
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {   // {(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)}
-    sm90::tf32_split(v[0][2 * j], hi[4 * j], lo[4 * j]);
-    sm90::tf32_split(v[1][2 * j], hi[4 * j + 1], lo[4 * j + 1]);
-    sm90::tf32_split(v[0][2 * j + 1], hi[4 * j + 2], lo[4 * j + 2]);
-    sm90::tf32_split(v[1][2 * j + 1], hi[4 * j + 3], lo[4 * j + 3]);
-  }
-}
-
-// d += A @ (the chunk at `chunk`: hi, then lo), as hi*lo + lo*hi + hi*hi in
-// each of the step's 4 k steps
-__device__ __forceinline__ void products_3x(float (&d)[32], const uint32_t (&ah)[16],
-                                            const uint32_t (&al)[16], const float* chunk) {
-  const uint64_t bh = sm90::kmajor_desc(chunk, kLboF);
-  const uint64_t bl = sm90::kmajor_desc(chunk + kChunkPartF, kLboF);
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    sm90::wgmma_m64n64k8_tf32(d, ah + 4 * j, sm90::desc_add(bl, j * kKStepF));
-    sm90::wgmma_m64n64k8_tf32(d, al + 4 * j, sm90::desc_add(bh, j * kKStepF));
-    sm90::wgmma_m64n64k8_tf32(d, ah + 4 * j, sm90::desc_add(bh, j * kKStepF));
-  }
-}
-
-// The consumers' side of the weight ring
-struct RingF {
-  const float* base;
-  uint64_t* full;
-  uint64_t* empty;
-  int s;
-  uint32_t ph;
-  __device__ __forceinline__ int take() {   // the next stage, once its chunk has landed
-    const int st = s;
-    sm90::mbar_wait(&full[st], ph);
-    if (++s == kStagesF) s = 0, ph ^= 1;
-    return st;
-  }
-  __device__ __forceinline__ const float* chunk(int st) const { return base + st * 2 * kChunkPartF; }
-  __device__ __forceinline__ void give(int st) { sm90::mbar_arrive_if(&empty[st], true); }
-};
-
-// Issue one K step's products: this thread's split A fragments times the
-// ring's next chunk into d (and the one after it into dr when kRes).
-// Returns the stages, which retire_step gives back once the products are
-// done.
-template <bool kRes>
-__device__ __forceinline__ int2 issue_step(float (&d)[32], float (&dr)[32],
-                                           const uint32_t (&ah)[16], const uint32_t (&al)[16],
-                                           RingF& w) {
-  const int s1 = w.take();
-  const int s2 = kRes ? w.take() : s1;
-  sm90::wgmma_fence();
-  products_3x(d, ah, al, w.chunk(s1));
-  if constexpr (kRes) products_3x(dr, ah, al, w.chunk(s2));
-  sm90::wgmma_commit();
-  return make_int2(s1, s2);
-}
-
-template <bool kRes>
-__device__ __forceinline__ void retire_step(float (&d)[32], float (&dr)[32], int2 st, RingF& w) {
-  sm90::wgmma_wait<0>();
-  sm90::fence_operand(d);
-  if constexpr (kRes) sm90::fence_operand(dr);
-  w.give(st.x);
-  if constexpr (kRes) w.give(st.y);
-}
-
-// One block's products over `ntiles` 64-deep K tiles of A, two 32-deep
-// steps a tile; the next step's A fragments are loaded and split while a
-// step's products run (two register sets).  tile(kt) waits for K tile kt
-// and returns its slot; done(kt) follows the last read of it.
-template <bool kRes, class Tile, class Done>
-__device__ __forceinline__ void block_products(float (&d)[32], float (&dr)[32], int ntiles,
-                                               Tile tile, Done done, RingF& w) {
-  uint32_t h0[16], l0[16], h1[16], l1[16];
-  const float* A = tile(0);
-  load_a(A, 0, h0, l0);
-#pragma unroll 1
-  for (int kt = 0; kt < ntiles; ++kt) {
-    int2 st = issue_step<kRes>(d, dr, h0, l0, w);
-    load_a(A, 1, h1, l1);
-    done(kt);
-    retire_step<kRes>(d, dr, st, w);
-    st = issue_step<kRes>(d, dr, h1, l1, w);
-    if (kt + 1 < ntiles) {
-      A = tile(kt + 1);
-      load_a(A, 0, h0, l0);
-    }
-    retire_step<kRes>(d, dr, st, w);
-  }
-}
-
 template <bool kRes>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreadsF, 1)
     resblock_tf32(const ArgsF a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  constexpr LayoutF L = layout_f32();
+  constexpr sm90::LayoutF L = sm90::layout_tf32(7, 1);
   float* ring = reinterpret_cast<float*>(smem + L.ring);
   float* slots = reinterpret_cast<float*>(smem + L.slots);   // slot q: x K tile q (mod 8),
                                                              // later slice q of h
@@ -556,7 +429,6 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreadsF, 1)
   const int nkt1 = (a.kx + a.ks) / sm90::kChunkK;      // 64-deep x K tiles
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int col0 = grp * kGroup;
-  constexpr uint32_t kSliceBytes = kSlotF * 4;
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStagesF; ++s) {
@@ -567,7 +439,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreadsF, 1)
       sm90::mbar_init(&xfull[q], 1);
       sm90::mbar_init(&xempty[q], kCluster);   // one arrival from each CTA
       sm90::mbar_init(&gbar[q], 1);
-      if (q != grp) sm90::mbar_expect_tx(&gbar[q], kSliceBytes);
+      if (q != grp) sm90::mbar_expect_tx(&gbar[q], kSlotF * 4);
     }
     sm90::mbar_fence_init();
   }
@@ -578,27 +450,20 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreadsF, 1)
   if (warp == kConsumers / 32) {
     // ---- producer warp: this CTA's weight chunks ----
     if (lane == 0) {
-      int s = 0;
-      uint32_t ph = 0;
-      auto put = [&](const float* src) {
-        sm90::mbar_wait(&empty[s], ph ^ 1);
-        sm90::mbar_expect_tx(&full[s], kChunkBytesF);
-        sm90::bulk_load(ring + s * 2 * kChunkPartF, src, kChunkBytesF, &full[s]);
-        if (++s == kStagesF) s = 0, ph ^= 1;
-      };
+      sm90::RingF w{ring, full, empty, 0, 0};
       const int nsteps = 2 * nkt1;
       const float* w1 = a.W1 + (size_t)grp * nsteps * 2 * kChunkPartF;
       const float* wr = kRes ? a.Wres + (size_t)grp * nsteps * 2 * kChunkPartF : nullptr;
       for (int st = 0; st < nsteps; ++st) {
-        put(w1 + (size_t)st * 2 * kChunkPartF);
-        if (kRes) put(wr + (size_t)st * 2 * kChunkPartF);
+        w.put(w1 + (size_t)st * 2 * kChunkPartF);
+        if (kRes) w.put(wr + (size_t)st * 2 * kChunkPartF);
       }
       sm90::cluster_arrive_relaxed();      // (1) before W2, which waits on the second product
       // W2's K steps in the order block2 takes the slices: this CTA's first
       const float* w2 = a.W2 + (size_t)grp * 2 * kCluster * 2 * kChunkPartF;
       for (int kt = 0; kt < kCluster; ++kt)
         for (int h = 0; h < 2; ++h)
-          put(w2 + (size_t)(2 * ((grp + kt) % kCluster) + h) * 2 * kChunkPartF);
+          w.put(w2 + (size_t)(2 * ((grp + kt) % kCluster) + h) * 2 * kChunkPartF);
     } else {
       sm90::cluster_arrive_relaxed();      // (1)
     }
@@ -609,25 +474,14 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreadsF, 1)
   }
 
   if (warp == kConsumers / 32 + 1) {
-    // ---- x loader warp: the [x | skip] tile, one K tile (64 columns) at a
-    // time into slot kt % 8 of every CTA of the cluster: CTA g copies rows
-    // g, g + 8, ... (256 bytes each, lane i the row g + 8i) into all 8 at
-    // once (bulk copies multicast to the cluster), once all 8 are done with
-    // the slot's previous K tile.  Rows past the tile are left as they are:
-    // they only ever reach rows of the products that are not stored. ----
-    for (int kt = 0; kt < nkt1; ++kt) {
-      const int q = kt % kCluster;
-      sm90::mbar_wait(&xempty[q], ((kt / kCluster) & 1) ^ 1);
-      if (lane == 0) sm90::mbar_expect_tx(&xfull[q], (uint32_t)(rows * kGroup * 4));
-      __syncwarp();
+    // ---- x loader warp: the [x | skip] tile's K tiles through the slots
+    // (sm90::SlotsF) ----
+    sm90::SlotsF in{slots, xfull, xempty, 0, 0};
+    in.load(nkt1, rows, grp, [&](int kt, int r) {
       const int c = sm90::kChunkK * kt;
-      const int r = grp + kCluster * lane;
-      if (r < rows) {
-        const size_t row = row0 + r;
-        const float* src = c < a.kx ? a.x + row * a.kx + c : a.skip + row * a.ks + (c - a.kx);
-        sm90::bulk_load_multicast(slots + q * kSlotF + r * kLdF, src, kGroup * 4, &xfull[q], 0xff);
-      }
-    }
+      const size_t row = row0 + r;
+      return c < a.kx ? a.x + row * a.kx + c : a.skip + row * a.ks + (c - a.kx);
+    });
     sm90::cluster_arrive_relaxed();        // (1)
     sm90::cluster_wait();
     sm90::cluster_arrive_relaxed();        // (2)
@@ -642,23 +496,11 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreadsF, 1)
   float acc[32], accR[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = accR[i] = 0.f;
-  RingF w{ring, full, empty, 0, 0};
+  sm90::RingF w{ring, full, empty, 0, 0};
+  sm90::SlotsF in{slots, xfull, xempty, 0, 0};
 
   // block1: h = [x | skip] @ W1 + b1 (and the residual projection), f32
-  block_products<kRes>(
-      acc, accR, nkt1,
-      [&](int kt) {
-        sm90::mbar_wait(&xfull[kt % kCluster], (kt / kCluster) & 1);
-        return (const float*)(slots + (kt % kCluster) * kSlotF);
-      },
-      [&](int kt) {
-        if (kt + kCluster < nkt1) {   // the slot takes another K tile: tell every CTA's loader
-          sm90::bar_sync<kConsumers>(1);
-          if (threadIdx.x < kCluster)
-            sm90::mbar_arrive_cluster(sm90::cluster_addr(&xempty[kt % kCluster], threadIdx.x));
-        }
-      },
-      w);
+  sm90::input_products(kRes, acc, accR, nkt1, in, w);
   // (1) this CTA's loads of its slots are done (their values are in the
   // finished products): the others may copy h into them
   sm90::bar_sync<kConsumers>(1);   // Vs written by every consumer
@@ -697,17 +539,9 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreadsF, 1)
     }
   }
 
-  // the exchange: once every CTA of the cluster is done with its slots, 7
-  // threads each bulk-copy this slice into one other CTA's slot grp,
-  // completing on that CTA's barrier for this slice
-  sm90::fence_proxy_async_shared();   // this slice's writes before the copies read it
-  sm90::bar_sync<kConsumers>(1);
-  sm90::cluster_wait();            // (1)
-  if (threadIdx.x < kCluster - 1) {
-    const int peer = (grp + 1 + threadIdx.x) % kCluster;
-    sm90::bulk_copy_to_peer(sm90::cluster_addr(mine, peer), mine, kSliceBytes,
-                            sm90::cluster_addr(&gbar[grp], peer));
-  }
+  // the exchange: once every CTA of the cluster is done with its slots,
+  // this slice into the other CTAs' slot grp
+  sm90::exchange_slice_f32(slots, grp, gbar);
 
   // the identity residual: this thread's x values, exact, from device memory
   float res[32];
@@ -722,14 +556,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreadsF, 1)
   // lands; then GroupNorm, SiLU, the residual, the store
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-  block_products<false>(
-      acc, accR, kCluster,
-      [&](int kt) {
-        const int q = (grp + kt) % kCluster;
-        if (q != grp) sm90::mbar_wait(&gbar[q], 0);
-        return (const float*)(slots + q * kSlotF);
-      },
-      [](int) {}, w);
+  sm90::slice_products(acc, accR, slots, grp, gbar, w);
   sm90::cluster_arrive_relaxed();  // (2) every slice of this CTA's G has landed
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] += Vs[3 * kGroup + 8 * (i / 4) + 2 * t + (i & 1)];
@@ -760,7 +587,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreadsF, 1)
   sm90::cluster_wait();            // (2) no CTA leaves before every slice has landed
 }
 
-constexpr int kSmemF = (int)layout_f32().total;
+constexpr int kSmemF = (int)sm90::layout_tf32(7, 1).total;
 
 template <bool kRes>
 cudaError_t prepare_tf32() {   // once per instantiation
@@ -790,7 +617,7 @@ int fused_resblock_max_in() { return kMaxIn; }
 // dynamic shared memory of one CTA of the `dtype` kernel for kx + ks input
 // columns
 int fused_resblock_smem_bytes(int dtype, int kx, int ks) {
-  return (int)(dtype == 1 ? layout(kx + ks).total : layout_f32().total);
+  return dtype == 1 ? (int)layout(kx + ks).total : kSmemF;
 }
 
 // clusters of the `dtype` kernel that fit on the card at once, or minus a

@@ -22,7 +22,12 @@
 //   GroupNorm group g's 64 output columns; its layout of a gathered (64, 512)
 //   activation (hslice), its K loop on wgmma fed by a ring of weight chunks
 //   (consume), the per-scene moments of its 64 columns (scene_moments), and
-//   the exchange of a CTA's slice with the other 7 (send_slice).
+//   the exchange of a CTA's slice with the other 7 (send_slice);
+// - the split-TF32 scene tile of the f32 ResnetBlock and chain kernels: the
+//   input's K tiles through 8 rolling slots (SlotsF), the ring of split
+//   weight chunks (RingF), the K step on wgmma m64n64k8 .tf32 with the rows
+//   split in registers (block_products), and the bulk-copy exchange of h
+//   (exchange_slice_f32, slice_products).
 //
 // The weight chunk layout.  A chunk is one 64-deep K tile of one group of 64
 // output columns, (k, n) in [0, 64)^2, stored as 8 x 8 core matrices of 8 n
@@ -503,6 +508,265 @@ __device__ __forceinline__ void send_slice(const __nv_bfloat16* G, int rank, int
 #pragma unroll
     for (int p = 0; p < kCluster - 1; ++p) st_async(dst[p] + 16 * i, v, bar[p]);
   }
+}
+
+// ---- the split-TF32 scene tile (the f32 kernels) ---------------------------
+//
+// The f32 ResnetBlock kernel (fused_resblock.cu, resblock_tf32) and the f32
+// chain kernel (fused_chain.cu, chain_tf32) share this design: the scene
+// tile's cluster of 8 CTAs above, with every product on the tensor cores in
+// split TF32 (an f32 value v is hi = rna_tf32(v) plus lo = rna_tf32(v - hi),
+// a product hi*lo + lo*hi + hi*hi with f32 accumulation on wgmma m64n64k8).
+// An f32 tile of 64 rows x 512 columns or more does not fit in shared memory
+// beside the weight ring, so 8 slots of 64 rows x 64 columns (rows kLdF
+// floats apart) take an input's 64-column K tiles in turn (SlotsF) and then
+// the slices of the gathered h (slot q = CTA q's slice); the ring holds
+// kStagesF chunks of 32 k x the CTA's 64 columns, split on the host into
+// tf32 hi and lo (pack_tf32_tiles in ops/fused_resblock.py).  A CTA has one
+// consumer warpgroup, a weight producer warp and an input loader warp.
+
+constexpr int kStepK = 32;                      // depth of one f32 weight chunk (a K step)
+constexpr int kStagesF = 5;                     // the weight ring
+constexpr int kThreadsF = kConsumers + 64;      // and a weight producer warp, an input loader warp
+constexpr int kChunkPartF = kStepK * kGroup;    // floats of a chunk's hi (or lo) part: 2048
+constexpr int kChunkBytesF = 2 * kChunkPartF * 4;        // hi and lo: 16 KB
+constexpr uint32_t kLboF = kGroup / 8 * 128;    // next core matrix in k: 1024 bytes
+constexpr uint32_t kKStepF = 2 * kLboF;         // next 8-deep k step: 2048 bytes
+constexpr int kLdF = kGroup + 4;                // row stride (floats) of a slot: 64 + 4
+constexpr int kSlotF = kTileRows * kLdF;        // floats of a slot: 64 rows x 64 columns
+
+// shared-memory layout of a split-TF32 kernel with `vectors` vectors of the
+// CTA's 64 columns and `slice_sets` sets of 8 barriers for the slices of h
+struct LayoutF {
+  unsigned ring, slots, v, red, stat, bars, total;
+};
+
+__host__ __device__ constexpr LayoutF layout_tf32(int vectors, int slice_sets) {
+  LayoutF L{};
+  L.ring = 0;                                     // kStagesF x 16 KB of split weights
+  L.slots = L.ring + kStagesF * kChunkBytesF;     // 8 slots: K tiles, later the slices of h
+  L.v = L.slots + kCluster * kSlotF * 4;          // this CTA's columns of the vectors
+  L.red = L.v + vectors * kGroup * 4;             // row sums, squares
+  L.stat = L.red + 2 * kTileRows * 4;             // scene mean, rsqrt
+  L.bars = L.stat + 2 * kTileRows * 4;            // ring full, empty; slot full, empty; slices
+  L.total = L.bars + (2 * kStagesF + 2 * kCluster + slice_sets * kCluster) * 8;
+  return L;
+}
+
+// This thread's A fragments of one K step (32 deep) of a slot (64 rows x
+// 64 columns, rows kLdF apart), split into tf32 hi and lo.  The chunks are
+// packed with the step's k permuted (pack_tf32_tiles): fragment k = 8j +
+// t + 4h of k step j reads column 8t + 2j + h of the step, so lane (g, t)
+// reads 8 contiguous columns of rows 16w + g and + 8 as two 16-byte loads
+// each; rows 68 floats apart keep a quarter warp's loads on distinct banks.
+__device__ __forceinline__ void load_a(const float* slot, int half, uint32_t (&hi)[16],
+                                       uint32_t (&lo)[16]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const float* p = slot + (16 * warp + (lane >> 2)) * kLdF + kStepK * half + 8 * (lane & 3);
+  float v[2][8];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float4 u = *reinterpret_cast<const float4*>(p + 8 * r * kLdF);
+    const float4 w = *reinterpret_cast<const float4*>(p + 8 * r * kLdF + 4);
+    v[r][0] = u.x, v[r][1] = u.y, v[r][2] = u.z, v[r][3] = u.w;
+    v[r][4] = w.x, v[r][5] = w.y, v[r][6] = w.z, v[r][7] = w.w;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {   // {(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)}
+    tf32_split(v[0][2 * j], hi[4 * j], lo[4 * j]);
+    tf32_split(v[1][2 * j], hi[4 * j + 1], lo[4 * j + 1]);
+    tf32_split(v[0][2 * j + 1], hi[4 * j + 2], lo[4 * j + 2]);
+    tf32_split(v[1][2 * j + 1], hi[4 * j + 3], lo[4 * j + 3]);
+  }
+}
+
+// d += A @ (the chunk at `chunk`: hi, then lo), as hi*lo + lo*hi + hi*hi in
+// each of the step's 4 k steps
+__device__ __forceinline__ void products_3x(float (&d)[32], const uint32_t (&ah)[16],
+                                            const uint32_t (&al)[16], const float* chunk) {
+  const uint64_t bh = kmajor_desc(chunk, kLboF);
+  const uint64_t bl = kmajor_desc(chunk + kChunkPartF, kLboF);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    wgmma_m64n64k8_tf32(d, ah + 4 * j, desc_add(bl, j * kKStepF));
+    wgmma_m64n64k8_tf32(d, al + 4 * j, desc_add(bh, j * kKStepF));
+    wgmma_m64n64k8_tf32(d, ah + 4 * j, desc_add(bh, j * kKStepF));
+  }
+}
+
+// The weight ring: the producer's side (put) and the consumers' (take,
+// give), each thread with its own position (s, ph)
+struct RingF {
+  float* base;
+  uint64_t* full;
+  uint64_t* empty;
+  int s;
+  uint32_t ph;
+  // producer: the split chunk at `src` into the next stage, once it is free
+  __device__ __forceinline__ void put(const float* src) {
+    mbar_wait(&empty[s], ph ^ 1);
+    mbar_expect_tx(&full[s], kChunkBytesF);
+    bulk_load(base + s * 2 * kChunkPartF, src, kChunkBytesF, &full[s]);
+    if (++s == kStagesF) s = 0, ph ^= 1;
+  }
+  __device__ __forceinline__ int take() {   // the next stage, once its chunk has landed
+    const int st = s;
+    mbar_wait(&full[st], ph);
+    if (++s == kStagesF) s = 0, ph ^= 1;
+    return st;
+  }
+  __device__ __forceinline__ const float* chunk(int st) const { return base + st * 2 * kChunkPartF; }
+  __device__ __forceinline__ void give(int st) { mbar_arrive_if(&empty[st], true); }
+};
+
+// Issue one K step's products: this thread's split A fragments times the
+// ring's next chunk into d (and the one after it into dr when kRes).
+// Returns the stages, which retire_step gives back once the products are
+// done.
+template <bool kRes>
+__device__ __forceinline__ int2 issue_step(float (&d)[32], float (&dr)[32],
+                                           const uint32_t (&ah)[16], const uint32_t (&al)[16],
+                                           RingF& w) {
+  const int s1 = w.take();
+  const int s2 = kRes ? w.take() : s1;
+  wgmma_fence();
+  products_3x(d, ah, al, w.chunk(s1));
+  if constexpr (kRes) products_3x(dr, ah, al, w.chunk(s2));
+  wgmma_commit();
+  return make_int2(s1, s2);
+}
+
+template <bool kRes>
+__device__ __forceinline__ void retire_step(float (&d)[32], float (&dr)[32], int2 st, RingF& w) {
+  wgmma_wait<0>();
+  fence_operand(d);
+  if constexpr (kRes) fence_operand(dr);
+  w.give(st.x);
+  if constexpr (kRes) w.give(st.y);
+}
+
+// One product over `ntiles` 64-deep K tiles of A, two 32-deep steps a
+// tile, into d (and, when kRes, the residual projection into dr from the
+// ring's interleaved chunks, sharing the A fragments); the next step's A
+// fragments are loaded and split while a step's products run (two register
+// sets).  tile(kt) waits for K tile kt and returns its slot; done(kt)
+// follows the last read of it.
+template <bool kRes, class Tile, class Done>
+__device__ __forceinline__ void block_products(float (&d)[32], float (&dr)[32], int ntiles,
+                                               Tile tile, Done done, RingF& w) {
+  uint32_t h0[16], l0[16], h1[16], l1[16];
+  const float* A = tile(0);
+  load_a(A, 0, h0, l0);
+#pragma unroll 1
+  for (int kt = 0; kt < ntiles; ++kt) {
+    int2 st = issue_step<kRes>(d, dr, h0, l0, w);
+    load_a(A, 1, h1, l1);
+    done(kt);
+    retire_step<kRes>(d, dr, st, w);
+    st = issue_step<kRes>(d, dr, h1, l1, w);
+    if (kt + 1 < ntiles) {
+      A = tile(kt + 1);
+      load_a(A, 0, h0, l0);
+    }
+    retire_step<kRes>(d, dr, st, w);
+  }
+}
+
+// An input's K tiles through the 8 slots: K tile kt of a pass (one
+// product's input, 8 or 16 K tiles) goes into slot kt % 8 of every CTA of
+// the cluster, CTA `rank` copying rows rank, rank + 8, ... (256 bytes each)
+// into all 8 at once (bulk copies multicast to the cluster).  Within a pass
+// a slot takes its next K tile once every CTA's products are done with the
+// one before (`empty`: one remote arrival from each CTA); between passes a
+// cluster barrier says so.  Rows past the tile are left as they are: they
+// only reach rows of the products that are not stored.  The loader warp and
+// the consumers each keep a copy and advance it after each pass.
+struct SlotsF {
+  float* base;
+  uint64_t* full;      // [q]: slot q holds its K tile
+  uint64_t* empty;     // [q]: every CTA's products are done with slot q's K tile
+  uint32_t loads;      // K tiles each slot took in the passes before
+  uint32_t reuses;     // of them, those that waited on `empty`
+
+  __device__ __forceinline__ float* slot(int q) const { return base + q * kSlotF; }
+
+  // the loader warp: the pass's `ntiles` K tiles; src(kt, r) is the device
+  // address of row r's 64 columns of K tile kt
+  template <class Src>
+  __device__ __forceinline__ void load(int ntiles, int rows, int rank, Src src) {
+    const int lane = threadIdx.x & 31;
+    for (int kt = 0; kt < ntiles; ++kt) {
+      const int q = kt % kCluster;
+      if (kt >= kCluster) mbar_wait(&empty[q], (reuses + kt / kCluster - 1) & 1);
+      if (lane == 0) mbar_expect_tx(&full[q], (uint32_t)(rows * kGroup * 4));
+      __syncwarp();
+      const int r = rank + kCluster * lane;
+      if (r < rows) bulk_load_multicast(slot(q) + r * kLdF, src(kt, r), kGroup * 4, &full[q], 0xff);
+    }
+  }
+  // the consumers: wait for K tile kt of this pass
+  __device__ __forceinline__ const float* tile(int kt) const {
+    mbar_wait(&full[kt % kCluster], (loads + kt / kCluster) & 1);
+    return slot(kt % kCluster);
+  }
+  // the consumers, after their last read of K tile kt: if the slot takes
+  // another K tile in this pass, tell every CTA's loader
+  __device__ __forceinline__ void release(int kt, int ntiles) const {
+    if (kt + kCluster < ntiles) {
+      bar_sync<kConsumers>(1);
+      if (threadIdx.x < kCluster)
+        mbar_arrive_cluster(cluster_addr(&empty[kt % kCluster], threadIdx.x));
+    }
+  }
+  __device__ __forceinline__ void advance(int ntiles) {   // after a pass
+    loads += ntiles / kCluster;
+    reuses += ntiles / kCluster - 1;
+  }
+};
+
+// A pass's product over the slots: acc (and accR when res) += the pass's
+// K tiles @ the ring's chunks
+__device__ __forceinline__ void input_products(bool res, float (&acc)[32], float (&accR)[32],
+                                               int ntiles, SlotsF& in, RingF& w) {
+  auto tile = [&](int kt) { return (const float*)in.tile(kt); };
+  auto done = [&](int kt) { in.release(kt, ntiles); };
+  if (res)
+    block_products<true>(acc, accR, ntiles, tile, done, w);
+  else
+    block_products<false>(acc, accR, ntiles, tile, done, w);
+  in.advance(ntiles);
+}
+
+// The exchange of h: this CTA's f32 slice is in its slot `rank` (the
+// consumers wrote it), and the caller has arrived at the cluster barrier
+// phase after its last read of its slots.  Once every CTA of the cluster
+// has (the phase's wait), 7 threads each bulk-copy the slice into one other
+// CTA's slot `rank`, completing on that CTA's bars[rank].
+__device__ __forceinline__ void exchange_slice_f32(float* slots, int rank, uint64_t* bars) {
+  fence_proxy_async_shared();   // this slice's writes before the copies read it
+  bar_sync<kConsumers>(1);
+  cluster_wait();
+  if (threadIdx.x < kCluster - 1) {
+    const int peer = (rank + 1 + threadIdx.x) % kCluster;
+    const float* mine = slots + rank * kSlotF;
+    bulk_copy_to_peer(cluster_addr(mine, peer), mine, kSlotF * 4, cluster_addr(&bars[rank], peer));
+  }
+}
+
+// acc += h @ the ring's next 16 chunks, h the gathered slices in the slots
+// (slot q = CTA q's), from this CTA's own slice on, each other one once it
+// has landed on bars[q]
+__device__ __forceinline__ void slice_products(float (&acc)[32], float (&unused)[32],
+                                               const float* slots, int rank, uint64_t* bars,
+                                               RingF& w) {
+  block_products<false>(
+      acc, unused, kCluster,
+      [&](int kt) {
+        const int q = (rank + kt) % kCluster;
+        if (q != rank) mbar_wait(&bars[q], 0);
+        return slots + q * kSlotF;
+      },
+      [](int) {}, w);
 }
 
 }  // namespace sm90

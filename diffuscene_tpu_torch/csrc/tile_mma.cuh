@@ -1,13 +1,11 @@
 // Device helpers shared by the cluster kernels (fused_resblock.cu,
-// fused_chain.cu, set_attention.cu, through sm90.cuh) and the f32 kernels
-// of the chain (fused_chain.cu) and the set attention (set_attention.cu),
-// for sm_90a:
+// fused_chain.cu, set_attention.cu, through sm90.cuh) and the f32
+// set-attention kernel (set_attention.cu), for sm_90a:
 //
 // - float <-> storage-type conversions and rounding;
-// - 16-byte row copies from device memory into padded shared-memory tiles;
 // - ldmatrix of a bf16 A fragment;
 // - the f32 product of a shared-memory tile with a row-major weight matrix,
-//   on the FMA pipes (the f32 chain and set-attention kernels).
+//   on the FMA pipes (the f32 set-attention kernel).
 //
 // Every function here is called by all threads of the block, or (ldmatrix)
 // by all lanes of a warp.
@@ -58,23 +56,6 @@ __device__ __forceinline__ void st2<__nv_bfloat16>(__nv_bfloat16* p, float a, fl
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-// Copy `rows` rows of width `width` from a row-major array with row stride
-// `ld_src` into a shared tile of `tile_rows` rows and stride `lda`, zeroing
-// rows [rows, tile_rows).  16-byte vectors: width, ld_src and lda are
-// multiples of 16 bytes' worth of T.
-template <typename T>
-__device__ void load_rows(T* dst, int lda, const T* src, int ld_src, int rows, int tile_rows,
-                          int width) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int per_row = width / kVec;
-  for (int i = threadIdx.x; i < tile_rows * per_row; i += blockDim.x) {
-    const int r = i / per_row, v = i % per_row;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) val = reinterpret_cast<const uint4*>(src + (size_t)r * ld_src)[v];
-    reinterpret_cast<uint4*>(dst + r * lda)[v] = val;
-  }
-}
-
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -108,8 +89,6 @@ __device__ __forceinline__ void fma_mm(float (&acc)[R][2], const float* A, int l
     }
   }
 }
-
-__device__ __forceinline__ float silu(float z) { return z / (1.f + expf(-z)); }
 
 // byte offset rounded up to 16
 __host__ __device__ __forceinline__ size_t align16(size_t b) { return (b + 15) & ~(size_t)15; }

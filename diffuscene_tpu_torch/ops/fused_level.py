@@ -25,13 +25,13 @@ a copy).
 the plain torch twin of the JAX ``apply_chain_xla``.  It never falls back:
 a CUDA tensor the kernel cannot take raises.
 
-The bf16 kernel is B1's cluster kernel carried over a chain: a tile of whole
+Both kernels are B1's cluster kernels carried over a chain: a tile of whole
 scenes (at most 64 rows) is one cluster of 8 CTAs, CTA g owning GroupNorm
-group g's 64 output columns of every product; it takes C = 512 in 8 groups
-and at most one skip a chain.  :func:`tile_plan` is its launch and
-shared-memory plan and :func:`pack_chain_weights` the weight layout its bulk
-copies read.  The f32 kernel takes C <= 512 (a multiple of 64)
-and scenes of at most 24 rows.
+group g's 64 output columns of every product; they take C = 512 in 8 groups
+and at most one skip a chain.  The f32 kernel runs its products in split
+TF32, three tf32 products per f32 product (never one), as B1's f32 kernel
+does.  :func:`tile_plan` is each kernel's launch and shared-memory plan and
+:func:`pack_chain_weights` the weight layout their bulk copies read.
 """
 from __future__ import annotations
 
@@ -43,14 +43,13 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from . import build
-from .fused_resblock import CHANNELS, CHUNK_BYTES, CLUSTER, TILE_ROWS, pack_group_tiles
+from .fused_resblock import (CHANNELS, CHUNK_BYTES, CLUSTER, F32_CHUNK_BYTES, TILE_ROWS,
+                             pack_group_tiles, pack_tf32_tiles)
 
 CSRC = build.CSRC_DIR / "fused_chain.cu"
-# rows of one scene each kernel takes: the f32 kernel's 24-row tile (kRows),
-# the bf16 kernel's 64-row scene tile (kTileRows)
-MAX_ROWS = {torch.float32: 24, torch.bfloat16: TILE_ROWS}
-MAX_CHANNELS = 512   # f32: C = 2 x threads per block, at most 256 threads
-MAX_VECTORS = 14     # bf16: vectors of a two-block chain staged in shared memory
+# rows of one scene each kernel takes: a scene tile's (kTileRows)
+MAX_ROWS = {torch.float32: TILE_ROWS, torch.bfloat16: TILE_ROWS}
+MAX_VECTORS = 14     # vectors of a two-block chain staged in shared memory
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,8 +83,8 @@ class ChainParams:
     V: torch.Tensor               # (nV, C) f32: per block b1,g1s,g1b,b2,g2s,g2b[,bres]
     n_w: Tuple[int, ...]          # per-block number of (C, C) weights
     n_v: Tuple[int, ...]          # per-block number of (C,) vectors
-    # W as the bf16 kernel's weight chunks (pack_chain_weights), packed at
-    # the first kernel launch
+    # W as the kernel's weight chunks (pack_chain_weights), packed at the
+    # first kernel launch
     W_packed: Optional[torch.Tensor] = None
 
 
@@ -235,43 +234,65 @@ class TilePlan(NamedTuple):
     resident: Optional[int]    # clusters that fit on the card at once (with ``lib``)
 
 
-def tile_plan(B: int, n: int, blocks: Sequence[ChainBlock], lib=None) -> TilePlan:
-    """The bf16 kernel's launch for B scenes of n rows and a chain of
-    ``blocks``; its shared-memory sum mirrors ``layout()`` in the .cu
-    (``fused_chain_smem_bytes``): the weight ring (8 stages with a skip, else
-    4), the x tile (later the gathered h and each block's gathered output),
-    the skip tile if a block takes one, the CTA's 64 columns of up to 14
-    vectors, row sums and squares, scene moments, and 35 mbarriers (the
-    ring's full and empty ones, the x and skip tiles', block 1's output
-    tile's, one for each CTA's slice of each block's h).  With ``lib``, the
-    loaded library, ``resident`` is cudaOccupancyMaxActiveClusters."""
+def tile_plan(B: int, n: int, blocks: Sequence[ChainBlock], lib=None,
+              dtype=torch.bfloat16) -> TilePlan:
+    """The ``dtype`` kernel's launch for B scenes of n rows and a chain of
+    ``blocks``; its shared-memory sum mirrors ``layout()`` (bf16) or
+    ``layout_tf32()`` (f32, csrc/sm90.cuh) in the .cu
+    (``fused_chain_smem_bytes``).
+
+    bf16: the weight ring (8 stages with a skip, else 4), the x tile (later
+    the gathered h and each block's gathered output), the skip tile if a
+    block takes one, the CTA's 64 columns of up to 14 vectors, row sums and
+    squares, scene moments, and 35 mbarriers (the ring's full and empty
+    ones, the x and skip tiles', block 1's output tile's, one for each
+    CTA's slice of each block's h).
+
+    f32 (the same for every chain): the weight ring (5 stages of a 32-deep
+    chunk's tf32 hi and lo, 16 KB), 8 slots of 64 rows x 64 columns (rows
+    68 floats apart) that hold each block's input K tiles in turn and then
+    the slices of its h, up to 14 vectors, row sums and squares, scene
+    moments, and 42 mbarriers (the ring's full and empty ones, the slots'
+    full and empty ones, one for each CTA's slice of each block's h).
+
+    With ``lib``, the loaded library, ``resident`` is
+    cudaOccupancyMaxActiveClusters."""
     skip = any(b.has_skip for b in blocks)
     ts = TILE_ROWS // n
     tiles = -(-B // ts)
-    stages = 8 if skip else 4
     group = CHANNELS // CLUSTER
-    tile = TILE_ROWS * (CHANNELS + 8) * 2
-    smem = (stages * CHUNK_BYTES + tile * (1 + skip) + MAX_VECTORS * group * 4
-            + 2 * TILE_ROWS * 4 + 2 * TILE_ROWS * 4 + (2 * 8 + 3 + 2 * CLUSTER) * 8)
-    resident = None if lib is None else lib.fused_chain_max_active_clusters(int(skip))
+    moments = 2 * TILE_ROWS * 4 + 2 * TILE_ROWS * 4
+    if dtype == torch.float32:
+        stages = 5
+        smem = (stages * F32_CHUNK_BYTES + CLUSTER * TILE_ROWS * (group + 4) * 4
+                + MAX_VECTORS * group * 4 + moments + (2 * stages + 4 * CLUSTER) * 8)
+    else:
+        stages = 8 if skip else 4
+        tile = TILE_ROWS * (CHANNELS + 8) * 2
+        smem = (stages * CHUNK_BYTES + tile * (1 + skip) + MAX_VECTORS * group * 4 + moments
+                + (2 * 8 + 3 + 2 * CLUSTER) * 8)
+    resident = (None if lib is None
+                else lib.fused_chain_max_active_clusters(build.DTYPE_CODES[dtype], int(skip)))
     return TilePlan(ts, tiles, CLUSTER * tiles, stages, smem, resident)
 
 
 def pack_chain_weights(W: torch.Tensor) -> torch.Tensor:
-    """A chain's stacked (nW, 512, 512) (in, out) weights as the bf16
-    kernel's chunks: :func:`pack_group_tiles` of the (nW * 512, 512) stack,
-    so K tile q of weight w for group g is chunk (g, 8 w + q), 4096 elements
-    from (g * 8 nW + 8 w + q) * 4096, and a CTA's chunks for the whole chain
-    are contiguous.  Done once per chain."""
-    return pack_group_tiles(W.reshape(-1, W.shape[-1]))
+    """A chain's stacked (nW, 512, 512) (in, out) weights as the kernel's
+    chunks, packed once per chain from the (nW * 512, 512) stack, so that a
+    CTA's chunks for the whole chain are contiguous.  f32:
+    :func:`pack_tf32_tiles`, 32-deep step st of weight w for group g is the
+    4096 floats (tf32 hi, then lo) from (g * 16 nW + 16 w + st) * 4096.
+    Otherwise :func:`pack_group_tiles`, K tile q of weight w for group g is
+    the 4096 elements from (g * 8 nW + 8 w + q) * 4096."""
+    flat = W.reshape(-1, W.shape[-1])
+    return pack_tf32_tiles(flat) if W.dtype == torch.float32 else pack_group_tiles(flat)
 
 
 def check_kernel_shapes(blocks: Sequence[ChainBlock], dt: torch.dtype, C: int, n: int,
                         groups: int) -> None:
     """Raise ValueError unless the kernel of ``dt`` takes a chain of ``blocks``
-    on scenes of n rows of C channels in ``groups`` groups (bf16: C = 512 in
-    8 groups, at most 64 rows a scene and one skip a chain; f32: C a multiple
-    of 64 up to 512 in groups of an even width, at most 24 rows a scene)."""
+    on scenes of n rows of C channels in ``groups`` groups (both kernels:
+    C = 512 in 8 groups, at most 64 rows a scene and one skip a chain)."""
     if dt not in build.DTYPE_CODES:
         raise ValueError(f"the chain kernel takes float32 or bfloat16, got {dt}")
     if not 1 <= len(blocks) <= 2:
@@ -279,14 +300,10 @@ def check_kernel_shapes(blocks: Sequence[ChainBlock], dt: torch.dtype, C: int, n
     if n > MAX_ROWS[dt]:
         raise ValueError(f"the {dt} chain kernel takes at most {MAX_ROWS[dt]} rows per scene, "
                          f"got {n}")
-    if dt == torch.bfloat16:
-        if C != CHANNELS or groups != CLUSTER or sum(b.has_skip for b in blocks) > 1:
-            raise ValueError(f"the bf16 chain kernel takes C={CHANNELS} in {CLUSTER} groups and "
-                             f"at most one skip a chain; got C={C}, groups={groups}, "
-                             f"{sum(b.has_skip for b in blocks)} skips")
-    elif C % 64 or C > MAX_CHANNELS or C % groups or (C // groups) % 2:
-        raise ValueError(f"the f32 chain kernel takes C % 64 == 0, C <= {MAX_CHANNELS} and "
-                         f"even groups of channels, got C={C}, groups={groups}")
+    skips = sum(b.has_skip for b in blocks)
+    if C != CHANNELS or groups != CLUSTER or skips > 1:
+        raise ValueError(f"the {dt} chain kernel takes C={CHANNELS} in {CLUSTER} groups and at "
+                         f"most one skip a chain; got C={C}, groups={groups}, {skips} skips")
 
 
 @functools.lru_cache(maxsize=None)
@@ -301,15 +318,15 @@ def load_library() -> ctypes.CDLL:
         ci, ci, ci, ci, ctypes.c_float, ci, ci, ci, vp,
     ]
     lib.fused_chain_launch.restype = ci
-    for fn, args in ((lib.fused_chain_max_rows, [ci]), (lib.fused_chain_max_channels, []),
-                     (lib.fused_chain_smem_bytes, [ci]),
-                     (lib.fused_chain_max_active_clusters, [ci])):
+    for fn, args in ((lib.fused_chain_max_rows, [ci]), (lib.fused_chain_smem_bytes, [ci, ci]),
+                     (lib.fused_chain_max_active_clusters, [ci, ci])):
         fn.argtypes, fn.restype = args, ci
     rows = {dt: lib.fused_chain_max_rows(code) for dt, code in build.DTYPE_CODES.items()}
-    plans = {skip: tile_plan(1, 1, [ChainBlock(has_skip=skip, has_res_proj=skip)]).smem_bytes
-             for skip in (False, True)}
-    if (rows != MAX_ROWS or lib.fused_chain_max_channels() != MAX_CHANNELS
-            or any(lib.fused_chain_smem_bytes(int(k)) != v for k, v in plans.items())):
+    plans = {(code, skip): tile_plan(1, 1, [ChainBlock(has_skip=skip, has_res_proj=skip)],
+                                     dtype=dt).smem_bytes
+             for dt, code in build.DTYPE_CODES.items() for skip in (False, True)}
+    if rows != MAX_ROWS or any(lib.fused_chain_smem_bytes(code, int(skip)) != v
+                               for (code, skip), v in plans.items()):
         raise RuntimeError("csrc/fused_chain.cu and ops/fused_level.py disagree on limits")
     return lib
 
@@ -331,11 +348,9 @@ def _launch_kernel(chain: ChainParams, x, films, skips, n: int, groups: int,
         if f is not None:
             build.check_operand(f"films[{i}]", f, dev, dt, f.shape)
             ptr_film[i] = f.data_ptr()
-    W = chain.W
-    if dt == torch.bfloat16:
-        if chain.W_packed is None:
-            chain.W_packed = pack_chain_weights(chain.W)
-        W = chain.W_packed
+    if chain.W_packed is None:
+        chain.W_packed = pack_chain_weights(chain.W)
+    W = chain.W_packed
     specs = [blk.spec for blk in chain.blocks] + [0]
     out = torch.empty_like(x)
     rc = load_library().fused_chain_launch(

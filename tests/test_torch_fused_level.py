@@ -200,19 +200,101 @@ def test_chain_weight_packing_matches_index_formula(variant):
     assert np.array_equal(packed.numpy()[0, :, 0, 0] // (C * C), np.arange(nW))
 
 
+@pytest.mark.parametrize("variant", ["skip", "row_skip"])
+def test_f32_chain_weight_packing_matches_index_formula(variant):
+    """The f32 kernel's packed chain weights: the 32-deep step st of weight w
+    for group g is the 4096 floats from (g * 16 nW + 16 w + st) * 4096, its
+    tf32 hi (part 0) then lo (part 1), each CTA's chunks of the whole chain
+    contiguous; within a part, position p holds W[w][32 st + k, col] with
+    kappa = 4 (p // 256) + p % 4, k = 8 (kappa % 4) + 2 (kappa // 8) +
+    (kappa // 4) % 2 and col = 64 g + 8 ((p // 32) % 8) + (p // 4) % 8, the
+    layout of pack_tf32_tiles (tests/test_torch_fused_resblock.py)."""
+    C = trb.CHANNELS
+    rng = np.random.default_rng(len(variant))
+    base = {k: torch.zeros(C) for k in ("b1", "b2", "gn1_bias", "gn2_bias", "gn1_scale",
+                                       "gn2_scale", "bres")}
+    weights = [dict(base, **{k: torch.from_numpy(rng.normal(size=(C, C)).astype(np.float32))
+                             for k in ("w1", "w1s", "w2", "wres", "wres_s")})
+               for _ in VARIANTS[variant]]
+    chain = tfl.build_chain(_blocks(variant), weights, compute_dtype=torch.float32)
+    nW = chain.W.shape[0]
+    packed = tfl.pack_chain_weights(chain.W)
+    assert packed.numel() == 2 * chain.W.numel()
+    packed = packed.reshape(C // 64, nW, 16, 2, 2048).numpy()
+    parts = [t.numpy() for t in trb.tf32_split(chain.W)]
+    g, w, st, p = np.meshgrid(np.arange(C // 64), np.arange(nW), np.arange(16), np.arange(2048),
+                              indexing="ij")
+    kappa = 4 * (p // 256) + p % 4
+    k = 32 * st + 8 * (kappa % 4) + 2 * (kappa // 8) + (kappa // 4) % 2
+    col = 64 * g + 8 * ((p // 32) % 8) + (p // 4) % 8
+    for part in (0, 1):
+        assert np.array_equal(packed[:, :, :, part], parts[part][w, k, col])
+
+
+# (N, B) -> (scenes per tile, clusters) of the f32 kernel; every chain takes
+# 5 ring stages and 226,128 bytes of shared memory a CTA
+F32_TILES = {(12, 64): (5, 13), (12, 256): (5, 52), (12, 768): (5, 154),
+             (21, 64): (3, 22), (21, 256): (3, 86), (21, 768): (3, 256)}
+
+
+@pytest.mark.parametrize("N,B", list(F32_TILES))
+@pytest.mark.parametrize("variant", ["row_scene", "row_skip"])
+def test_f32_tile_plan_at_flagship_shapes(variant, N, B):
+    """The f32 kernel's launch: whole scenes in 64-row tiles (the wgmma M),
+    one cluster of 8 CTAs a tile, and a CTA's shared memory (the ring of
+    split chunks, 8 slots of 64 rows, 14 vectors, 42 barriers) within the
+    H100's 232,448 bytes (the library checks the same sum when it loads)."""
+    plan = tfl.tile_plan(B, N, _blocks(variant), dtype=torch.float32)
+    ts, clusters = F32_TILES[(N, B)]
+    assert tuple(plan) == (ts, clusters, 8 * clusters, 5, 226128, None)
+    assert plan.scenes_per_tile * N <= trb.TILE_ROWS < (plan.scenes_per_tile + 1) * N
+    assert plan.clusters * plan.scenes_per_tile >= B > (plan.clusters - 1) * plan.scenes_per_tile
+    assert plan.smem_bytes <= trb.SMEM_LIMIT
+
+
+def test_split_tf32_chain_matches_f32_chain(monkeypatch):
+    """The f32 kernel's arithmetic before the card: the plain twin with
+    every product (its only torch.matmul calls) formed as hi*lo + lo*hi +
+    hi*hi of tf32 parts (both operands; each term an f32 product, summed in
+    f32), a two-block row_skip chain at the flagship's width (C=512, N=12,
+    B=8), within the card's kernel tolerance (chip_smoke.py KERNEL_TOL f32:
+    atol 1e-3, rtol 1e-4) of the plain f32 chain."""
+    x, blocks, weights, films, skips = _case("row_skip", 8, 12, seed=9, C=512)
+    chain = tfl.build_chain(
+        [tfl.ChainBlock(has_skip=s, film=f, has_res_proj=r) for f, s, r in blocks],
+        [{k: torch.from_numpy(v) for k, v in w.items()} for w in weights],
+        compute_dtype=torch.float32)
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    args = (chain, t(x), [t(f) for f in films], [t(s) for s in skips])
+    want = tfl.apply_chain_reference(*args, n_per_scene=12)
+    matmul = torch.matmul
+
+    def split_matmul(a, w):
+        (ah, al), (wh, wl) = trb.tf32_split(a), trb.tf32_split(w)
+        return matmul(ah, wl) + matmul(al, wh) + matmul(ah, wh)
+
+    monkeypatch.setattr(torch, "matmul", split_matmul)
+    got = tfl.apply_chain_reference(*args, n_per_scene=12)
+    monkeypatch.undo()
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+    assert not torch.equal(got, want)   # the products did go through the split
+
+
 REFUSED = {
     "bf16_c64": dict(C=64), "bf16_groups16": dict(groups=16), "bf16_rows65": dict(n=65),
-    "bf16_two_skips": dict(variant="two_skips"), "f32_rows25": dict(n=25, dt=torch.float32),
-    "f32_c576": dict(C=576, dt=torch.float32), "three_blocks": dict(variant="three"),
+    "bf16_two_skips": dict(variant="two_skips"), "f32_rows65": dict(n=65, dt=torch.float32),
+    "f32_c576": dict(C=576, dt=torch.float32), "f32_c448": dict(C=448, dt=torch.float32),
+    "f32_groups16": dict(groups=16, dt=torch.float32),
+    "f32_two_skips": dict(variant="two_skips", dt=torch.float32),
+    "three_blocks": dict(variant="three"),
 }
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_kernel_path_refuses_shapes_it_does_not_take(case):
     """No fallback: what the kernels do not take raises before any launch
-    (the bf16 kernel: C=512 in 8 groups, scenes of at most 64 rows, at most
-    one skip a chain; the f32 kernel: C a multiple of 64 up to 512, scenes of
-    at most 24 rows; both: chains of 1 or 2 blocks)."""
+    (both kernels: C=512 in 8 groups, scenes of at most 64 rows, at most one
+    skip a chain, chains of 1 or 2 blocks)."""
     kw = dict(C=512, groups=8, n=12, dt=torch.bfloat16, variant="row_skip")
     kw.update(REFUSED[case])
     blocks = {"two_skips": [("scene", True, True)] * 2, "three": [("none", False, False)] * 3,
@@ -231,20 +313,26 @@ def test_kernel_path_refuses_shapes_it_does_not_take(case):
     skips = [torch.zeros(n, C, dtype=dt) if b.has_skip else None for b in blocks]
     with pytest.raises(ValueError):
         tfl._launch_kernel(chain, x, films, skips, n, kw["groups"], 1e-6)
-    tfl.check_kernel_shapes(_blocks("row_skip"), torch.bfloat16, 512, 21, 8)   # taken
+    for dt in (torch.bfloat16, torch.float32):   # taken
+        tfl.check_kernel_shapes(_blocks("row_skip"), dt, 512, 21, 8)
+        tfl.check_kernel_shapes(_blocks("row_skip"), dt, 512, 64, 8)
 
 
 @pytest.mark.gpu
-def test_cuda_library_agrees_with_the_plan():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_library_agrees_with_the_plan(dtype):
     """The library's limits and shared-memory sums equal the wrapper's
-    (load_library raises otherwise), and enough clusters of the bf16 kernel
-    fit on the card to run."""
+    (load_library raises otherwise), and enough clusters of each kernel fit
+    on the card to run."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
+    from diffuscene_tpu_torch.ops import build
+
     lib = tfl.load_library()
     for variant in ("row_scene", "row_skip"):
-        plan = tfl.tile_plan(64, 12, _blocks(variant), lib)
-        assert lib.fused_chain_smem_bytes(int(variant == "row_skip")) == plan.smem_bytes
+        plan = tfl.tile_plan(64, 12, _blocks(variant), lib, dtype)
+        assert (lib.fused_chain_smem_bytes(build.DTYPE_CODES[dtype], int(variant == "row_skip"))
+                == plan.smem_bytes)
         assert plan.resident >= 1
 
 
