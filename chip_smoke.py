@@ -57,11 +57,15 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    calls (the kernel back to back), profiler device time and the plain
    version's time;
 8. the set-attention kernel (B2) against its plain torch version: (64, 12,
-   512) and (64, 21, 512), bf16 and f32, eps 1e-5 and 1e-3, and bf16
-   (768, 12, 512) with its bound; the bf16 kernel's launch plan (tiles,
-   clusters of 4, shared memory, clusters that fit at once); each case's
-   time as eager calls, graph replay, profiler device time and the plain
-   version's; bf16 shapes the kernel does not take must raise;
+   512) and (64, 21, 512), bf16 and f32 (attention_tf32, split TF32), eps
+   1e-5 and 1e-3, bf16 (768, 12, 512), and f32 (256, 12, 512)
+   (run/generate.sh's batch) and (768, 12, 512), each with its bound (f32
+   on the split-TF32 route, the FP32-rate figure beside); each kernel's
+   launch plan (tiles, clusters of 4, shared memory, clusters that fit at
+   once, the weight bytes a call reads); each case's time as eager calls,
+   graph replay, profiler device time and the plain version's; shapes the
+   kernels do not take (C=256, 8 heads of 16, N=25) must raise in both
+   dtypes;
 9. one full-width forward of the flagship through the 3-D engine
    (fused_unet1d_forward, 28 B1 and 1 B2 launches) against the plain Unet1D
    module in f32 and bf16 and against the rows engine, with each engine's
@@ -80,8 +84,12 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    20-step DPM-Solver++ sample at run/generate.sh's batch of 256 (exactly
    560 and 20), and a 20-step profile of a B=256 step against its
    host-clock time; each profile names the f32 kernels (resblock_tf32,
-   set_attention_f32) and gives their ms per step, busy time and idle
-   share;
+   attention_tf32) and gives their ms per step, busy time and idle share;
+   then DDPM-1000 at B=16 from one seeded generator: at every step of the
+   fused=True trajectory both engines (exact GELU) within FORWARD_TOL of
+   the module on that step's x_t (a breach fails and names the step), and
+   the three paths run free, their descaled boxes' relative L2 and max
+   difference and their class argmax agreement printed for each pair;
 12. the scene model's training path at the flagship's full width (the
    diffusion_bedrooms_instancond_lat32_v config: dim 512, 4 levels, N=12,
    v-prediction, loss_separate, loss_iou on the train bounds, clip + Adam,
@@ -107,7 +115,7 @@ models), 4, 10, 11, 15, 5, 6, 12, 13, 14.  TF32 is off for every matmul and
 convolution (the references are f32; the f32 B1 kernel's split TF32 is
 three tf32 products per f32 product, not TF32 matmul).
 Phase 1 prints each kernel's registers, stack and spills from ptxas, and
-raises if a split-TF32 kernel (f32 B1 or B4) spills.
+raises if a split-TF32 kernel (f32 B1, B4 or B2) spills.
 
     python3 chip_smoke.py --only-resblock
 
@@ -118,7 +126,7 @@ its own dtype, both engines), and
     python3 chip_smoke.py --only-chain
 
 phases 1 and 2 alone, the short check of a new chain kernel (bf16 and f32),
-``--only-attention`` phases 1 and 8 (B2), ``--only-chamfer`` phases 1
+``--only-attention`` phases 1 and 8 (B2, bf16 and f32), ``--only-chamfer`` phases 1
 and 5 (B3) and ``--only-train`` phases 1 and 12-14 (with the train JSON
 line); none of them prints an ok line.
 
@@ -130,9 +138,10 @@ kernels line holds the launches on each main path, worst
 error, kernel, plain and library times of one forward's 19 chains and of
 its 28 ResnetBlocks, of one set attention and of one chamfer forward, each
 with its graph-replay time beside as "graph_ms", and each one's bound; the
-chain and ResnetBlock entries also carry their f32 kernel's 19 chains and 28
-blocks ("f32_ms", "f32_graph_ms", "f32_plain_ms", "f32_bound_ms" on the
-split-TF32 route) and the f32 DDPM sample's launches ("f32_launches").  The
+chain, ResnetBlock and set-attention entries also carry their f32
+kernel's 19 chains, 28 blocks and one call ("f32_ms", "f32_graph_ms",
+"f32_plain_ms", "f32_bound_ms" on the split-TF32 route) and the f32 DDPM
+sample's launches ("f32_launches").  The
 last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -196,11 +205,24 @@ CHAIN_LARGE_BATCHES = {"bfloat16": (RB_LARGE_B,), "float32": (GENERATE_B, RB_LAR
 ROWS_KERNELS = {"bfloat16": (("B4", "chain_sm90"),), "float32": (("B4 f32", "chain_tf32"),)}
 # the split-TF32 kernels keep their A fragments in registers: ptxas must
 # report no spills for them
-NO_SPILL_KERNELS = ("resblock_tf32", "chain_tf32")
+NO_SPILL_KERNELS = ("resblock_tf32", "chain_tf32", "attention_tf32")
 # the 3-D engine's kernels as the profiler names them, by compute dtype
 ENGINE_KERNELS = {"bfloat16": (("B1", "resblock_sm90"), ("B2", "attention_sm90")),
-                  "float32": (("B1 f32", "resblock_tf32"), ("B2 f32", "set_attention_f32"))}
+                  "float32": (("B1 f32", "resblock_tf32"), ("B2 f32", "attention_tf32"))}
+# B2's cases beyond B=64, N=12: the bf16 kernel at the JAX bench's batch;
+# the f32 kernel at run/generate.sh's and the JAX bench's (eps 1e-5, the
+# f32 engine's)
+ATTN_LARGE_CASES = (("bfloat16", 1e-3, ATTN_LARGE_B),
+                    ("float32", 1e-5, GENERATE_B), ("float32", 1e-5, ATTN_LARGE_B))
 SAMPLE_PROFILE_STEPS = 20
+# phase 15's 1000-step f32 drift check: batch, the box bounds bench.py gives
+# the flagship (bench.py:274-279: a bedroom's translations and half-sizes
+# in metres) to descale the samples, and ROADMAP section C's bound on the
+# free-running drift between two paths (printed beside it, not gated)
+DRIFT_B = 16
+DRIFT_BOUNDS = {"translations": ((-3.0, 0.0, -3.0), (3.0, 4.0, 3.0)),
+                "sizes": ((0.04,) * 3, (2.0,) * 3)}
+DRIFT_BOUND = {"rel_l2": 1e-2, "agree": 0.99}
 # chamfer cases (B, N, M, D); "identical" compares a cloud with itself;
 # "dup" copies 8 y points of each slice of the kernel's M sweep into the
 # next slice and puts x points on them: exact ties that span two slices,
@@ -751,31 +773,42 @@ def ptxas_summary(text):
     return out
 
 
-def attention_plan(at):
-    """The bf16 B2 kernel's launch at the flagship's shapes and the JAX
-    bench's batch: tiles, clusters of 4 CTAs launched (at most those
-    resident at once; each walks its tiles), shared memory a CTA (the plan's
-    sum and the library's)."""
+def attention_plan(at, torch):
+    """Each B2 kernel's launch at the flagship's shapes and the large
+    batches: tiles, clusters of 4 CTAs launched (bf16: at most those
+    resident at once, each walking its tiles; f32: one a tile), the clusters
+    that fit at once, shared memory a CTA (the plan's sum and the
+    library's), and the weight bytes the CTAs of a call read (f32: each
+    CTA's split W_qkv columns and W_out block, once a tile)."""
+    from diffuscene_tpu_torch.ops import build
+
     lib = at.load_library()
-    resident = lib.set_attention_max_active_clusters()
-    if resident <= 0:
-        raise RuntimeError(f"set_attention_max_active_clusters failed ({resident})")
-    for n in (12, 21, 24):
-        for batch in (B, ATTN_LARGE_B):
-            p = at.tile_plan(batch, n, resident)
-            print(f"plan set_attention bf16 N={n} B={batch}: {p.scenes_per_tile} scenes a tile, "
-                  f"{p.tiles} tiles, {p.clusters} clusters of {at.HEADS} = {p.ctas} CTAs "
-                  f"({resident} clusters fit at once; {p.tiles / p.clusters:.2f} tiles a "
-                  f"cluster), {p.smem_bytes} bytes of shared memory a CTA (library "
-                  f"{lib.set_attention_smem_bytes()}), 288 threads a CTA (two consumer "
-                  f"warpgroups, a producer warp), W_qkv in 8 stages of 64 x 96", flush=True)
+    for dtype, batches in ((torch.bfloat16, (B, ATTN_LARGE_B)),
+                           (torch.float32, (B, GENERATE_B, ATTN_LARGE_B))):
+        code = build.DTYPE_CODES[dtype]
+        dname = "bf16" if dtype == torch.bfloat16 else "f32"
+        resident = lib.set_attention_max_active_clusters(code)
+        if resident <= 0:
+            raise RuntimeError(f"set_attention_max_active_clusters({dname}) failed ({resident})")
+        for n in (12, 21, 24):
+            for batch in batches:
+                p = at.tile_plan(batch, n, resident, dtype)
+                print(f"plan set_attention {dname} N={n} B={batch}: {p.scenes_per_tile} scenes a "
+                      f"tile, {p.tiles} tiles, {p.clusters} clusters of {at.HEADS} = {p.ctas} CTAs "
+                      f"({resident} clusters fit at once; {p.tiles / min(p.clusters, resident):.2f} "
+                      f"tiles a resident cluster), {p.smem_bytes} bytes of shared memory a CTA "
+                      f"(library {lib.set_attention_smem_bytes(code)}), 288 threads a CTA (two "
+                      f"consumer warpgroups, a producer warp), {p.weight_bytes / 1e6:.2f} MB of "
+                      f"{'split ' if dname == 'f32' else ''}weights read a call", flush=True)
 
 
 def phase_attention(at, torch):
     """Phase 8: B2 vs its plain version: (64, 12, 512) and (64, 21, 512) in
-    bf16 and f32 at eps 1e-5 and 1e-3, and bf16 (768, 12, 512); each with
-    eager, graph-replay, device and plain times; a bf16 shape the kernel
-    does not take must raise.  Returns (worst error, results)."""
+    bf16 and f32 at eps 1e-5 and 1e-3, bf16 (768, 12, 512), and f32
+    (256, 12, 512) and (768, 12, 512); each with eager, graph-replay, device
+    and plain times and its bound (f32 on the split-TF32 route, the FP32
+    rate beside); shapes the kernels do not take must raise.  Returns
+    (worst error, results)."""
     dev = torch.device("cuda")
     results, failures, worst = {}, [], 0.0
     hd = ATTN_HEADS * ATTN_DIM_HEAD
@@ -785,7 +818,8 @@ def phase_attention(at, torch):
         return base + scale * torch.randn(*shape, generator=g, device=dev)
 
     cases = [(n, dtype, eps, B) for n in (12, 21) for dtype in (torch.bfloat16, torch.float32)
-             for eps in (1e-5, 1e-3)] + [(12, torch.bfloat16, 1e-3, ATTN_LARGE_B)]
+             for eps in (1e-5, 1e-3)]
+    cases += [(12, getattr(torch, dname), eps, batch) for dname, eps, batch in ATTN_LARGE_CASES]
     for n, dtype, eps, batch in cases:
         dname = str(dtype).split(".")[-1]
         args = (rnd(batch, n, C).to(dtype), rnd(C, scale=0.2, base=1.0),
@@ -815,11 +849,12 @@ def phase_attention(at, torch):
         nbytes = (2 * args[0].numel() * args[0].element_size()
                   + sum(a.numel() * a.element_size() for a in args[1:]))
         route = ""
-        if dtype == torch.float32:   # every product on the FMA pipes
-            split_ms = bound(0, nbytes, attn_flops, tf32_flops=TF32_SPLIT * mm_flops)[0]
-            route = f" (FP32 rate; {split_ms:.5f} with the products on the 3xTF32 route)"
-            attn_flops, mm_flops = attn_flops + mm_flops, 0
-        b_ms, b_by = bound(mm_flops, nbytes, attn_flops)
+        if dtype == torch.float32:   # the products in split TF32, the FP32-rate bound beside
+            fp32_ms = bound(0, nbytes, attn_flops + mm_flops)[0]
+            b_ms, b_by = bound(0, nbytes, attn_flops, tf32_flops=TF32_SPLIT * mm_flops)
+            route = f" (3xTF32; FP32 rate {fp32_ms:.5f})"
+        else:
+            b_ms, b_by = bound(mm_flops, nbytes, attn_flops)
         results[(n, dname, eps, batch)] = dict(err=err, ms=ms, graph=graph, dev=dev_ms,
                                                plain=plain, bound=b_ms, bound_by=b_by,
                                                mm_flops=mm_flops, attn_flops=attn_flops,
@@ -830,34 +865,39 @@ def phase_attention(at, torch):
               f"bound_ms={b_ms:.5f}{route} ({b_by}; {nbytes / 1e6:.2f} MB)", flush=True)
         if not ok:
             failures.append((n, dname, eps, batch, err))
-    # the bf16 kernel takes C=512 and 4 heads of 32 only: anything else raises
-    for c, heads, dim_head in ((256, 4, 32), (512, 8, 16)):
-        hd2 = heads * dim_head
-        bad = (rnd(2, 12, c).to(torch.bfloat16), rnd(c), rnd(c, 3 * hd2).to(torch.bfloat16),
-               rnd(hd2, c).to(torch.bfloat16), rnd(c))
-        try:
-            at.fused_set_attention(*bad, heads=heads, dim_head=dim_head)
-        except ValueError as e:
-            print(f"kernel set_attention bf16 C={c} {heads} x {dim_head}: raises ({e}) ok",
-                  flush=True)
-        else:
-            failures.append(("bf16 shape not refused", c, heads, dim_head))
+    # both kernels take C=512, 4 heads of 32 and N <= 24 only: anything else raises
+    for dtype in (torch.bfloat16, torch.float32):
+        for c, heads, dim_head, n in ((256, 4, 32, 12), (512, 8, 16, 12), (512, 4, 32, 25)):
+            hd2 = heads * dim_head
+            bad = (rnd(2, n, c).to(dtype), rnd(c), rnd(c, 3 * hd2).to(dtype),
+                   rnd(hd2, c).to(dtype), rnd(c))
+            try:
+                at.fused_set_attention(*bad, heads=heads, dim_head=dim_head, compute_dtype=dtype)
+            except ValueError as e:
+                print(f"kernel set_attention {dtype} C={c} {heads} x {dim_head} N={n}: raises "
+                      f"({e}) ok", flush=True)
+            else:
+                failures.append((f"{dtype} shape not refused", c, heads, dim_head, n))
     if failures:
         raise RuntimeError(f"set-attention kernel disagrees with its plain version: {failures}")
     return worst, results
 
 
 def attention_phase(at, torch):
-    """Phase 8 with its plan and the summary of the bf16 engine's call;
-    returns (worst error, that call's results)."""
-    attention_plan(at)
+    """Phase 8 with its plans and the summary of each engine's call (bf16
+    eps 1e-3, f32 eps 1e-5, B=64, N=12); returns (worst error, {dtype name:
+    that call's results})."""
+    attention_plan(at, torch)
     worst, results = phase_attention(at, torch)
-    main = results[(12, "bfloat16", 1e-3, B)]    # the bf16 engine's call
-    print(f"set attention of one flagship forward (N=12, B={B}, bf16, eps 1e-3): kernel "
-          f"{main['ms']:.4f} ms (eager calls), graph replay {main['graph']:.4f} ms, device "
-          f"{main['dev']:.4f} ms, plain {main['plain']:.4f} ms, bound {main['bound']:.5f} ms "
-          f"({main['mm_flops'] / 1e9:.3f} GFLOP bf16 + {main['attn_flops'] / 1e9:.4f} GFLOP "
-          f"f32, {main['nbytes'] / 1e6:.2f} MB)", flush=True)
+    main = {"bfloat16": results[(12, "bfloat16", 1e-3, B)],
+            "float32": results[(12, "float32", 1e-5, B)]}
+    for dname, m in main.items():
+        route = "bf16" if dname == "bfloat16" else "tf32 x 3"
+        print(f"set attention of one flagship forward (N=12, B={B}, {dname}): kernel "
+              f"{m['ms']:.4f} ms (eager calls), graph replay {m['graph']:.4f} ms, device "
+              f"{m['dev']:.4f} ms, plain {m['plain']:.4f} ms, bound {m['bound']:.5f} ms "
+              f"({m['mm_flops'] / 1e9:.3f} GFLOP {route} + {m['attn_flops'] / 1e9:.4f} GFLOP "
+              f"f32, {m['nbytes'] / 1e6:.2f} MB)", flush=True)
     return worst, main
 
 
@@ -990,6 +1030,101 @@ def phase_engine_samples(torch, scene, card, dpm_batch=B, profile_batches=()):
               f"unprofiled)", flush=True)
         profile_steps(torch, step, SAMPLE_PROFILE_STEPS, step_ms, named=named)
     return counts["DDPM"]
+
+
+def phase_drift(torch, scene):
+    """The end of phase 15: DDPM-1000 of the flagship in f32 at B=16 from
+    one seeded generator.  The gate: along the fused=True trajectory, at
+    each of the T steps, x_t goes through the 3-D engine (B1 and B2 f32),
+    the rows engine (B4 f32) and the module; each engine's output must be
+    within FORWARD_TOL f32 of the module's (the maxima stay on the card and
+    are read once; a breach names the step).  The gated engine calls take
+    the module's exact GELU, as phase 9's do (the sampler's engines default
+    to the tanh form, about 1e-3 of its own).  The measurement: the three
+    paths also run free, each on its own trajectory from the same
+    generator; the relative L2 and the max abs difference of their descaled
+    boxes and the share of slots whose class argmax agrees, for each pair,
+    are printed beside DRIFT_BOUND and not gated (random weights may
+    amplify split TF32's per-forward differences over 1000 steps without a
+    fault)."""
+    from diffuscene_tpu_torch.diffusion import p_sample_loop
+    from diffuscene_tpu_torch.diffusion.gaussian import descale_to_origin
+    from diffuscene_tpu_torch.models import inference as inf
+    from diffuscene_tpu_torch.utils.convert import denoiser_tree
+
+    cfg, tol, net = scene.cfg, FORWARD_TOL["float32"], scene.denoiser
+    cond = scene.make_condition(DRIFT_B)
+    paths = {name: scene._denoise_fn(cond, fused=f)
+             for name, f in (("3-D", True), ("rows", "rows"), ("module", False))}
+    prep = inf.prepare_inference_params(net, denoiser_tree(net), num_timesteps=T)
+    ctx = inf.precompute_conditioning(net, prep, cond)
+    chains = inf.prepare_chain_params(net, prep, frozenset(ctx["film_c"]))
+    rows_ctx = {"film_c2": {k: v.reshape(-1, v.shape[-1]).contiguous()
+                            for k, v in ctx["film_c"].items()}}
+    exact = (lambda x, t: inf.fused_unet1d_forward(net, prep, x, t, cond_ctx=ctx, exact_gelu=True),
+             lambda x, t: inf.fused_unet1d_forward_rows(net, prep, chains, x, t, rows_ctx,
+                                                        exact_gelu=True))
+    errs = torch.zeros(T, 2, device="cuda")
+    step = 0
+
+    def gated(x, t):
+        nonlocal step
+        want = paths["module"](x, t)
+        for k, engine in enumerate(exact):
+            errs[step, k] = (engine(x, t) - want).abs().max()
+        step += 1
+        return paths["3-D"](x, t)
+
+    def sample(fn):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+        t0 = time.perf_counter()
+        out = p_sample_loop(scene.sched, cfg.model_mean_type, cfg.model_var_type, fn,
+                            (DRIFT_B, cfg.sample_num_points, cfg.point_dim), generator=gen,
+                            clip_denoised=True)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    free, walls = {}, {}
+    free["3-D"], walls["gated"] = sample(gated)
+    worst = errs.cpu()
+    for k, name in enumerate(("3-D", "rows")):
+        bad = (~(worst[:, k] <= tol)).nonzero()
+        print(f"drift: f32 DDPM-{T} B={DRIFT_B}, {name} engine vs module along the fused=True "
+              f"trajectory: worst max_abs_err {worst[:, k].max().item():.3e} at t="
+              f"{T - 1 - int(worst[:, k].argmax())}, tol={tol} at every step "
+              f"{'ok' if not len(bad) else 'FAIL'} ({walls['gated']:.1f} s, 4 forwards a step)",
+              flush=True)
+        if len(bad):
+            i = int(bad[0])
+            raise RuntimeError(f"the f32 {name} engine is {worst[i, k].item():.3e} from the module "
+                               f"at step {i} (t={T - 1 - i}) of the fused=True trajectory")
+    for name in ("rows", "module"):
+        free[name], walls[name] = sample(paths[name])
+    print(f"drift: free f32 DDPM-{T} B={DRIFT_B} wall s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in walls.items()), flush=True)
+    spec = scene.spec
+    lo, hi = ({k: torch.tensor(v[i], device="cuda") for k, v in DRIFT_BOUNDS.items()}
+              for i in (0, 1))
+
+    def boxes(x):
+        x = x.clamp(-1, 1)
+        return torch.cat([descale_to_origin(x[:, :, spec.trans_slice], lo["translations"],
+                                            hi["translations"]),
+                          descale_to_origin(x[:, :, spec.size_slice], lo["sizes"], hi["sizes"]),
+                          x[:, :, spec.angle_slice]], dim=-1)
+
+    for name, x in free.items():
+        if not bool(torch.isfinite(x).all()) or tuple(x.shape) != (DRIFT_B, 12, 62):
+            raise RuntimeError(f"the free f32 {name} sample is malformed")
+    for a, b in (("3-D", "module"), ("rows", "module"), ("3-D", "rows")):
+        ba, bb = boxes(free[a]), boxes(free[b])
+        rel = ((ba - bb).norm() / bb.norm()).item()
+        agree = (scene.split_samples(free[a])["class_labels"].argmax(-1)
+                 == scene.split_samples(free[b])["class_labels"].argmax(-1)).float().mean().item()
+        print(f"drift: free f32 DDPM-{T} B={DRIFT_B}, {a} vs {b}: descaled boxes rel_l2={rel:.3e} "
+              f"max_abs={(ba - bb).abs().max().item():.3e} m, class argmax agrees on "
+              f"{agree:.4f} of slots (ROADMAP bound: rel_l2 <= {DRIFT_BOUND['rel_l2']}, agree >= "
+              f"{DRIFT_BOUND['agree']}; measured, not gated)", flush=True)
 
 
 def chamfer_bound_ms(B, N, M, D):
@@ -1550,6 +1685,7 @@ def main(argv):
         phase_rows_sample(torch, scene32, card)
         phase_engine_samples(torch, scene32, card, dpm_batch=GENERATE_B,
                              profile_batches=(GENERATE_B,))
+        phase_drift(torch, scene32)
         print(card_line())
         return 0
     chain_plan(fl, torch)
@@ -1581,8 +1717,10 @@ def main(argv):
     # phase 15: the flagship config's own dtype, f32, through the rows
     # engine and the 3-D engine
     chain32_launches = phase_rows_sample(torch, scene32, card)
-    rb32_launches, _ = phase_engine_samples(torch, scene32, card, dpm_batch=GENERATE_B,
-                                            profile_batches=(GENERATE_B,))
+    rb32_launches, at32_launches = phase_engine_samples(torch, scene32, card,
+                                                        dpm_batch=GENERATE_B,
+                                                        profile_batches=(GENERATE_B,))
+    phase_drift(torch, scene32)
     del scene32
     torch.cuda.empty_cache()
 
@@ -1651,12 +1789,17 @@ def main(argv):
         "replaces": "diffuscene_tpu/ops/attention.py:35",
         "launches": at_launches,
         "max_abs_err": at_worst,
-        "ms": at_main["ms"],
-        "graph_ms": at_main["graph"],
-        "plain_ms": at_main["plain"],
-        "bound_ms": at_main["bound"],
-        "bound_by": at_main["bound_by"],
+        "ms": at_main["bfloat16"]["ms"],
+        "graph_ms": at_main["bfloat16"]["graph"],
+        "plain_ms": at_main["bfloat16"]["plain"],
+        "bound_ms": at_main["bfloat16"]["bound"],
+        "bound_by": at_main["bfloat16"]["bound_by"],
         "library_ms": None,
+        "f32_launches": at32_launches,
+        "f32_ms": at_main["float32"]["ms"],
+        "f32_graph_ms": at_main["float32"]["graph"],
+        "f32_plain_ms": at_main["float32"]["plain"],
+        "f32_bound_ms": at_main["float32"]["bound"],
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

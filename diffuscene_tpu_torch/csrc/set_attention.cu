@@ -13,7 +13,8 @@
 // where round() is the compute dtype (float32 or bfloat16), at the places
 // of the Pallas kernel and of the plain twin fused_set_attention_reference.
 //
-// bfloat16 (the serving dtype; attention_sm90): C = 512, 4 heads of 32.  A
+// bfloat16 (attention_sm90; the b512 recipes' serving dtype): C = 512, 4
+// heads of 32.  A
 // scene tile (at most 64 rows of whole scenes: 5 scenes of 12, 3 of 21, 2
 // of 24) is one thread-block cluster of 4 CTAs, and CTA h owns head h.  A
 // cluster is persistent: the launch holds at most as many clusters as fit
@@ -45,9 +46,47 @@
 //   x tile and o and waited at the tile's end: no CTA loads the next x tile
 //   or sends the next slice of o while another still reads its own.
 //
-// float32 (set_attention_f32, for parity): one scene per thread block, the
-// whole scene in shared memory in f32, every product on the FMA pipes (thread
-// t owns output columns 2t, 2t+1 of all 24 rows).
+// float32 (attention_tf32; the serving dtype of the flagship config and of
+// every diffusion config but the three b512 ones): the same scene tile,
+// cluster of 4 CTAs (CTA h owns head h) and thread roles, with both products
+// on the tensor cores in split TF32, as the f32 ResnetBlock and chain
+// kernels run theirs: an f32 value v is hi = rna_tf32(v) plus lo =
+// rna_tf32(v - hi), and a product runs as hi*lo + lo*hi + hi*hi with f32
+// accumulation, never the one pass hi*hi alone.  The weights are split once
+// on the host (pack_attention_weights_tf32 in ops/attention.py), the rows of
+// LN(x) and of o in registers (sm90::load_a).  In a CTA:
+//
+// - shared memory decides the layout.  The f32 x tile (64 x 516 floats,
+//   129 KB) sits whole, because the LayerNorm needs whole rows before the
+//   product starts, beside a ring of 3 stages of 32 KB; once the qkv
+//   product has read the tile, its bytes take q | k | v, the probabilities
+//   and the gathered o (64 x 128 f32 as 4 slices of 64 x 36, slice q from
+//   CTA q), 231,000 bytes a CTA in all.  The split weights (512 KB a CTA)
+//   cannot stay resident, so a cluster takes one tile and exits
+//   (not persistent): each tile streams its CTA's weights once, 13 tiles
+//   x 4 CTAs x 512 KB out of L2 at B=64, 52 x 4 at B=256;
+// - the producer warp multicasts the x tile as in bf16, then streams
+//   through the ring the CTA's 16 K steps of W_qkv (32 deep x 96 columns
+//   [q_h | k_h | v_h], hi then lo, 24 KB) and its 4 K steps of W_out (32
+//   deep x 128 output columns, 32 KB), in the order the output product
+//   takes the slices of o (this CTA's first);
+// - the consumer warpgroups take the f32 two-pass LayerNorm in place over
+//   the tile; warpgroup g runs its 48 columns of q | k | v on wgmma
+//   m64n48k8 .tf32 (the bf16 kernel's split of the 96 columns: both
+//   warpgroups run the whole K, so no partial sums meet), the next K step's
+//   A fragments loaded and split while a step's products run;
+// - a release cluster barrier says every CTA is done reading its x tile;
+//   q | k | v (q scaled by d^-1/2 after the product), the scores, the
+//   softmax and P v run in f32 on the FMA pipes as in bf16, o_h into this
+//   CTA's slice; then, with every CTA past the barrier, 3 threads
+//   bulk-copy the slice into the other CTAs' slice at the same offset,
+//   completing on their barrier for it (as the f32 ResnetBlock kernel
+//   exchanges h);
+// - warpgroup g runs output columns [128h + 64g, +64) as o @ W_out on
+//   wgmma m64n64k8 .tf32 from this CTA's slice on, each other slice once it
+//   has landed, and stores x + (acc + b_out), x read again from device
+//   memory (exact);
+// - a last cluster barrier keeps every CTA until every slice has landed.
 //
 // What bounds it.  At B=64, N=12 a bf16 call reads 0.8 MB of x and 0.5 MB of
 // weights and writes 0.8 MB: 0.6 us at the HBM rate; its 0.4 GFLOP take less
@@ -56,7 +95,10 @@
 // product, the per-scene attention, the exchange of o, the output product),
 // 13 clusters of 4 CTAs on 132 SMs; the f32 phases are issue-bound on one
 // SM's 8 consumer warps, hence two warpgroups.  At B=768 (154 tiles) the
-// persistent clusters take about 5 tiles each, back to back.
+// persistent bf16 clusters take about 5 tiles each, back to back.  In f32
+// the same 0.4 GFLOP are 1.2 GFLOP of tf32 products, 2.4 us on the whole card
+// at 495 TFLOP/s; but 13 tiles keep 52 SMs busy, and one CTA's share (25
+// MFLOP of tf32) takes 6.7 us at one SM's rate, before its other phases.
 #include <cooperative_groups.h>
 #include <math.h>
 
@@ -127,41 +169,86 @@ __device__ __forceinline__ uint32_t bf_pack(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-// This lane's 16 columns of the LayerNorm scale: 8l..8l+7, 256 + 8l..
+// This lane's 16 columns of the LayerNorm scale: in bf16 8l..8l+7 and
+// 256 + 8l.. (one 16-byte load of a bf16 row each), in f32 4l..4l+3, 128 +
+// 4l.., 256 + 4l.., 384 + 4l.. (one 16-byte load of an f32 row each)
+template <typename T>
 __device__ __forceinline__ void load_scale(float (&gv)[16], const float* g) {
+  constexpr int kPer = 16 / sizeof(T), kStride = kC / (16 / kPer);
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < 16 / kPer; ++h)
+#pragma unroll
+    for (int i = 0; i < kPer; i += 4) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(g + kStride * h + kPer * lane + i));
+      gv[kPer * h + i] = v.x, gv[kPer * h + i + 1] = v.y;
+      gv[kPer * h + i + 2] = v.z, gv[kPer * h + i + 3] = v.w;
+    }
+}
+
+// Row r of a T tile (stride ld) at this lane's 16 columns (load_scale's)
+// to and from f32 registers
+template <typename T>
+__device__ __forceinline__ void load_row(float (&v)[16], const T* X, int ld, int r);
+template <>
+__device__ __forceinline__ void load_row<bf16>(float (&v)[16], const bf16* X, int ld, int r) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const float4 g0 = __ldg(reinterpret_cast<const float4*>(g + 256 * h + 8 * lane));
-    const float4 g1 = __ldg(reinterpret_cast<const float4*>(g + 256 * h + 8 * lane + 4));
-    gv[8 * h + 0] = g0.x; gv[8 * h + 1] = g0.y; gv[8 * h + 2] = g0.z; gv[8 * h + 3] = g0.w;
-    gv[8 * h + 4] = g1.x; gv[8 * h + 5] = g1.y; gv[8 * h + 6] = g1.z; gv[8 * h + 7] = g1.w;
+    const uint4 w4 = *reinterpret_cast<const uint4*>(X + r * ld + 256 * h + 8 * lane);
+    const uint32_t w[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      v[8 * h + 2 * i] = bf_lo(w[i]);
+      v[8 * h + 2 * i + 1] = bf_hi(w[i]);
+    }
   }
 }
+template <>
+__device__ __forceinline__ void load_row<float>(float (&v)[16], const float* X, int ld, int r) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < 4; ++h) {
+    const float4 u = *reinterpret_cast<const float4*>(X + r * ld + 128 * h + 4 * lane);
+    v[4 * h] = u.x, v[4 * h + 1] = u.y, v[4 * h + 2] = u.z, v[4 * h + 3] = u.w;
+  }
+}
+template <typename T>
+__device__ __forceinline__ void store_row(T* X, int ld, int r, const float (&v)[16]);
+template <>
+__device__ __forceinline__ void store_row<bf16>(bf16* X, int ld, int r, const float (&v)[16]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    uint32_t w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) w[i] = bf_pack(v[8 * h + 2 * i], v[8 * h + 2 * i + 1]);
+    *reinterpret_cast<uint4*>(X + r * ld + 256 * h + 8 * lane) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+template <>
+__device__ __forceinline__ void store_row<float>(float* X, int ld, int r, const float (&v)[16]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int h = 0; h < 4; ++h)
+    *reinterpret_cast<float4*>(X + r * ld + 128 * h + 4 * lane) =
+        make_float4(v[4 * h], v[4 * h + 1], v[4 * h + 2], v[4 * h + 3]);
+}
 
-// LN(x) of rows [0, rows) in place over the x tile: worker warp w takes rows
-// w, w + 8, ..., four at a time (independent chains of sums and shuffles);
-// lane l holds columns 8l..8l+7 and 256 + 8l..256 + 8l + 7 of each row in
-// registers, and gv the scale at those columns.
-__device__ __forceinline__ void layernorm_rows(bf16* X, int rows, const float (&gv)[16],
+// LN(x) of rows [0, rows) in place over the x tile (T, stride ld), rounded
+// to T: worker warp w takes rows w, w + 8, ..., four at a time (independent
+// chains of sums and shuffles); each lane holds its 16 columns of each row
+// in registers, and gv the scale at those columns.
+template <typename T>
+__device__ __forceinline__ void layernorm_rows(T* X, int ld, int rows, const float (&gv)[16],
                                                float eps) {
   constexpr int kR = 4, kW = kWorkers / 32;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
   for (int base = warp; base < rows; base += kR * kW) {
     float v[kR][16], s[kR], q[kR];
 #pragma unroll
     for (int u = 0; u < kR; ++u) {
-      const int r = min(base + u * kW, rows - 1);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const uint4 w4 = *reinterpret_cast<const uint4*>(X + r * kLdx + 256 * h + 8 * lane);
-        const uint32_t w[4] = {w4.x, w4.y, w4.z, w4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          v[u][8 * h + 2 * i] = bf_lo(w[i]);
-          v[u][8 * h + 2 * i + 1] = bf_hi(w[i]);
-        }
-      }
+      load_row<T>(v[u], X, ld, min(base + u * kW, rows - 1));
       float t[8];
 #pragma unroll
       for (int i = 0; i < 8; ++i) t[i] = v[u][2 * i] + v[u][2 * i + 1];
@@ -191,26 +278,38 @@ __device__ __forceinline__ void layernorm_rows(bf16* X, int rows, const float (&
       if (r >= rows) continue;
       const float rstd = rsqrtf(q[u] / (float)kC + eps);
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        uint32_t w[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int j = 8 * h + 2 * i;
-          w[i] = bf_pack(v[u][j] * rstd * gv[j], v[u][j + 1] * rstd * gv[j + 1]);
-        }
-        *reinterpret_cast<uint4*>(X + r * kLdx + 256 * h + 8 * lane) =
-            make_uint4(w[0], w[1], w[2], w[3]);
-      }
+      for (int i = 0; i < 16; ++i) v[u][i] = v[u][i] * rstd * gv[i];
+      store_row<T>(X, ld, r, v[u]);
     }
   }
 }
 
-// Scores, softmax and P v of head `head` for the tile's nsc scenes of n rows,
-// in f32 with the f32 kernel's arithmetic (q was scaled by d^-1/2 when
-// stored); o_h rounded to bf16 into columns [32 head, 32 head + 32) of the
-// gathered o.  By the worker threads, each on several independent chains.
-__device__ __forceinline__ void attend(const float* QKV, float* P, bf16* O, int head, int nsc,
-                                       int n) {
+// This warpgroup's 48 columns of q | k | v (the wgmma accumulators) in f32
+// into rows r0 and r0 + 8 of QKV, q scaled by d^-1/2 (the scores' operand)
+__device__ __forceinline__ void store_qkv(float* QKV, const float (&acc)[kGroupQkv / 2], int wg,
+                                          int r0, float scale) {
+  const int t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < kGroupQkv / 8; ++j)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int c = wg * kGroupQkv + 8 * j + 2 * t;
+      float v0 = acc[4 * j + 2 * hh], v1 = acc[4 * j + 2 * hh + 1];
+      if (c < kDh) {
+        v0 *= scale;
+        v1 *= scale;
+      }
+      tile::st2<float>(QKV + (r0 + 8 * hh) * kLdq + c, v0, v1);
+    }
+}
+
+// Scores, softmax and P v of this CTA's head for the tile's nsc scenes of n
+// rows, in f32 (q was scaled by d^-1/2 when stored); o_h[r][d] handed to
+// store_o(r, d, value).  By the worker threads, each on several independent
+// chains.
+template <class StoreO>
+__device__ __forceinline__ void attend(const float* QKV, float* P, int nsc, int n,
+                                       StoreO store_o) {
   constexpr int kW = kWorkers / 32;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, rows = nsc * n;
   // scores: item i is (scene, query, key); kI items a thread at once
@@ -293,7 +392,7 @@ __device__ __forceinline__ void attend(const float* QKV, float* P, bf16* O, int 
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
       const int r = base + u * kW;
-      if (r < rows) O[r * kLdo + head * kDh + lane] = __float2bfloat16(acc[u]);
+      if (r < rows) store_o(r, lane, acc[u]);
     }
   }
 }
@@ -369,9 +468,9 @@ __global__ void __cluster_dims__(kHeads, 1, 1) __launch_bounds__(kThreads90, 1)
           if (q != head) sm90::mbar_expect_tx(&obar[q], (uint32_t)(rows * kDh * 2));
 
       float gv[16];
-      load_scale(gv, a.g);
+      load_scale<bf16>(gv, a.g);
       sm90::mbar_wait(xbar, par);
-      layernorm_rows(X, rows, gv, a.eps);
+      layernorm_rows<bf16>(X, kLdx, rows, gv, a.eps);
       sm90::bar_sync<kWorkers>(1);
 
       // this warpgroup's 48 columns of q | k | v = LN(x) @ W_qkv[:, cols],
@@ -405,22 +504,12 @@ __global__ void __cluster_dims__(kHeads, 1, 1) __launch_bounds__(kThreads90, 1)
         sm90::fence_operand(acc);
       }
       sm90::bar_sync<kWorkers>(1);     // the tile is read: its bytes take q | k | v
-      // q | k | v in f32 over the tile, q scaled by d^-1/2 (the scores' operand)
-#pragma unroll
-      for (int j = 0; j < kGroupQkv / 8; ++j)
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int c = wg * kGroupQkv + 8 * j + 2 * t;
-          float v0 = acc[4 * j + 2 * hh], v1 = acc[4 * j + 2 * hh + 1];
-          if (c < kDh) {
-            v0 *= a.scale;
-            v1 *= a.scale;
-          }
-          tile::st2<float>(QKV + (r0 + 8 * hh) * kLdq + c, v0, v1);
-        }
+      store_qkv(QKV, acc, wg, r0, a.scale);
       sm90::bar_sync<kWorkers>(1);
 
-      attend(QKV, P, O, head, nsc, a.n);
+      attend(QKV, P, nsc, a.n, [&](int r, int d, float v) {
+        O[r * kLdo + head * kDh + d] = __float2bfloat16(v);
+      });
       sm90::bar_sync<kWorkers>(1);
 
       // the exchange: this CTA's slice of o (rows x 32, 4 pieces of 16
@@ -531,153 +620,272 @@ int launch_sm90(const Args90& a, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// float32: the parity kernel
+// float32: the split-TF32 cluster kernel
 // ---------------------------------------------------------------------------
 
-constexpr int kPad = 8;      // shared-memory row padding (elements)
-constexpr int kThreadsF32 = 256;
+using sm90::kStepK;
+constexpr int kStepsQkv = kC / kStepK;                 // K steps of the qkv product: 16
+constexpr int kStepsOut = kHeads * kDh / kStepK;       // of the output product: 4, step q = slice q
+constexpr int kQkvPartT = kStepK * kQkvCols;           // floats of a qkv step's hi (or lo) part
+constexpr uint32_t kQkvBytesT = 2 * kQkvPartT * 4;     // a qkv step, hi and lo: 24 KB
+constexpr uint32_t kQkvLboT = kQkvCols / 8 * 128;      // next core matrix in k: 1536 bytes
+constexpr uint32_t kQkvKStepT = 2 * kQkvLboT;          // next 8-deep k step
+constexpr int kOutPartsT = kOutCols / sm90::kGroup;    // W_out chunks of a step: one a warpgroup
+constexpr int kOutChunkT = 2 * sm90::kChunkPartF;      // floats of one (pack_tf32_tiles)
+constexpr int kStagesT = 3;                            // the ring
+constexpr int kStageT = kOutPartsT * kOutChunkT;       // floats of a stage: a W_out step, 32 KB
+constexpr int kLdxT = kC + 4;                          // x / LN(x) tile stride (floats)
+constexpr int kLdoT = kDh + 4;                         // a slice of o: stride (floats)
+constexpr int kSliceT = kTileRows * kLdoT;             // floats of a slice
 
-struct Args {
-  const float* x;      // (B, N, C)
-  const float* g;      // (C,) LayerNorm scale
-  const float* Wqkv;   // (C, 3HD) (in, out)
-  const float* Wout;   // (HD, C)
-  const float* bout;   // (C,)
-  float* out;          // (B, N, C)
-  int B, N, C, heads, dh;
+// shared-memory layout of attention_tf32 (bytes); q | k | v, the
+// probabilities and the gathered o live in the x tile's space once the qkv
+// product has read it
+constexpr unsigned kRingT = 0;                                   // 3 x 32 KB
+constexpr unsigned kXT = kRingT + kStagesT * kStageT * 4;        // x, LN(x), then q | k | v
+constexpr unsigned kPT = kXT + kTileRows * kLdq * 4;             // the probabilities
+constexpr unsigned kOT = kPT + kTileRows * kLdp * 4;             // the gathered o: 4 slices
+constexpr unsigned kBoT = kXT + kTileRows * kLdxT * 4;           // this CTA's b_out
+constexpr unsigned kBarsT = kBoT + kOutCols * 4;                 // full[3], empty[3], x, o[4]
+constexpr unsigned kSmemT = kBarsT + (2 * kStagesT + 1 + kHeads) * 8;
+static_assert(kQkvBytesT <= kStageT * 4, "a qkv step fits in a stage");
+static_assert(kOT + kHeads * kSliceT * 4 <= kBoT, "q | k | v, P and o fit in the x tile's space");
+static_assert(kOT % 16 == 0 && kSliceT * 4 % 16 == 0 && kLdoT * 4 % 16 == 0,
+              "the slices of o move by bulk copy");
+static_assert(kSmemT <= 232448, "one CTA's shared memory");
+static_assert(kOutPartsT == kGroups && kStepsOut == kHeads, "a warpgroup a W_out chunk, a step a slice");
+
+struct ArgsT {
+  const float* x;      // (B, N, 512)
+  const float* g;      // (512,) LayerNorm scale
+  const float* Wqkv;   // (4 heads, 16 K steps, 2, 32 x 96) split (pack_attention_weights_tf32)
+  const float* Wout;   // (8 groups, 4 K steps, 2, 32 x 64) split (pack_tf32_tiles)
+  const float* bout;   // (512,)
+  float* out;          // (B, N, 512)
+  int B, n, ts;
   float eps, scale;
 };
 
-// Y[0:N, 0:ncol] = A[0:kMaxN, 0:K] @ W, handed to store(r, c, v0, v1) for
-// r < N, by the whole block: thread t owns columns 2t, 2t+1 (+ 2 blockDim).
-template <typename F>
-__device__ void block_mm(const float* A, int lda, const float* W, int K, int ncol, int N,
-                         F store) {
-  for (int c = 2 * threadIdx.x; c < ncol; c += 2 * blockDim.x) {
-    float acc[kMaxN][2] = {};
-    tile::fma_mm<kMaxN>(acc, A, lda, W, ncol, K, c);
-    for (int r = 0; r < N; ++r) store(r, c, acc[r][0], acc[r][1]);
+// d += A @ (this warpgroup's 48 columns of the qkv step at `chunk`: hi,
+// then lo), as hi*lo + lo*hi + hi*hi in each of the step's 4 k steps
+__device__ __forceinline__ void qkv_products(float (&d)[kGroupQkv / 2], const uint32_t (&ah)[16],
+                                             const uint32_t (&al)[16], const float* chunk, int wg) {
+  const uint32_t cols = wg * kGroupQkv * 16;   // 6 core matrices of 8 columns, 128 bytes apart
+  const uint64_t bh = sm90::desc_add(sm90::kmajor_desc(chunk, kQkvLboT), cols);
+  const uint64_t bl = sm90::desc_add(sm90::kmajor_desc(chunk + kQkvPartT, kQkvLboT), cols);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    sm90::wgmma_m64n48k8_tf32(d, ah + 4 * j, sm90::desc_add(bl, j * kQkvKStepT));
+    sm90::wgmma_m64n48k8_tf32(d, al + 4 * j, sm90::desc_add(bh, j * kQkvKStepT));
+    sm90::wgmma_m64n48k8_tf32(d, ah + 4 * j, sm90::desc_add(bh, j * kQkvKStepT));
   }
 }
 
-__global__ void __launch_bounds__(kThreadsF32) set_attention_f32(Args a) {
+using RingA = sm90::RingT<kStagesT, kStageT>;
+
+__global__ void __cluster_dims__(kHeads, 1, 1) __launch_bounds__(kThreads90, 1)
+    attention_tf32(const ArgsT a) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int N = a.N, C = a.C, H = a.heads, D = a.dh, HD = a.heads * a.dh, Q3 = 3 * HD;
-  const int tid = threadIdx.x, nthr = blockDim.x, lane = tid & 31, warp = tid >> 5;
-  const int ldx = C + 4, lda = C + kPad, ldq = Q3 + 4, ldo = HD + kPad, ldp = kMaxN + 1;
+  float* ring = reinterpret_cast<float*>(smem + kRingT);
+  float* X = reinterpret_cast<float*>(smem + kXT);
+  float* QKV = X;
+  float* P = reinterpret_cast<float*>(smem + kPT);
+  float* O = reinterpret_cast<float*>(smem + kOT);     // slice q: CTA q's o, 64 x 32
+  float* Bo = reinterpret_cast<float*>(smem + kBoT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarsT);
+  uint64_t* empty = full + kStagesT;
+  uint64_t* xbar = empty + kStagesT;   // the x tile
+  uint64_t* obar = xbar + 1;           // [q]: CTA q's slice of o has landed here
 
-  size_t off = 0;
-  float* X = reinterpret_cast<float*>(smem);                    // x
-  off += tile::align16((size_t)kMaxN * ldx * sizeof(float));
-  float* A = reinterpret_cast<float*>(smem + off);              // LN(x)
-  off += tile::align16((size_t)kMaxN * lda * sizeof(float));
-  float* Q = reinterpret_cast<float*>(smem + off);              // q | k | v
-  off += tile::align16((size_t)kMaxN * ldq * sizeof(float));
-  float* P = reinterpret_cast<float*>(smem + off);              // [H][N][N] scores, then probabilities
-  off += tile::align16((size_t)H * kMaxN * ldp * sizeof(float));
-  float* O = reinterpret_cast<float*>(smem + off);              // head outputs
-  off += tile::align16((size_t)kMaxN * ldo * sizeof(float));
-  float* stat = reinterpret_cast<float*>(smem + off);           // [2][N] mean, rsqrt
+  const int head = (int)cg::this_cluster().block_rank();
+  const int scene0 = (blockIdx.x / kHeads) * a.ts;
+  const int nsc = min(a.ts, a.B - scene0);   // the last tile may be ragged
+  const int rows = nsc * a.n;
+  const size_t row0 = (size_t)scene0 * a.n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  const float* x = a.x + (size_t)blockIdx.x * N * C;
-  float* out = a.out + (size_t)blockIdx.x * N * C;
-
-  for (int i = tid; i < N * C / 2; i += nthr) {
-    const int r = (2 * i) / C, c = (2 * i) % C;
-    const float2 v = tile::ld2<float>(x + (size_t)r * C + c);
-    tile::st2<float>(X + r * ldx + c, v.x, v.y);
-  }
-  // zero the padded rows of the two product operands
-  for (int i = tid; i < (kMaxN - N) * C; i += nthr) A[(N + i / C) * lda + i % C] = 0.f;
-  for (int i = tid; i < (kMaxN - N) * HD; i += nthr) O[(N + i / HD) * ldo + i % HD] = 0.f;
-  __syncthreads();
-
-  // two-pass LayerNorm statistics, one warp per row
-  for (int r = warp; r < N; r += nthr / 32) {
-    float s = 0.f;
-    for (int c = lane; c < C; c += 32) s += X[r * ldx + c];
-    for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float mean = s / (float)C;
-    float v = 0.f;
-    for (int c = lane; c < C; c += 32) {
-      const float d = X[r * ldx + c] - mean;
-      v += d * d;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStagesT; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kWorkers);
     }
-    for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    sm90::mbar_init(xbar, 1);
+    for (int q = 0; q < kHeads; ++q) {
+      sm90::mbar_init(&obar[q], 1);
+      if (q != head) sm90::mbar_expect_tx(&obar[q], (uint32_t)(rows * kLdoT * 4));
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  sm90::cluster_arrive();          // (0) every CTA's barriers are set up
+  sm90::cluster_wait();
+
+  if (warp == kWorkers / 32) {
+    // ---- producer warp: the x tile (CTA h loads rows h, h + 4, ... into
+    // all 4 CTAs), then this CTA's split weights through the ring ----
+    if (lane == 0) sm90::mbar_expect_tx(xbar, (uint32_t)(rows * kC * 4));
+    __syncwarp();
+    for (int r = head + kHeads * lane; r < rows; r += kHeads * 32)
+      sm90::bulk_load_multicast(X + r * kLdxT, a.x + (row0 + r) * kC, kC * 4, xbar,
+                                (1u << kHeads) - 1);
+    sm90::cluster_arrive_relaxed();      // (1) this warp reads no x tile
     if (lane == 0) {
-      stat[r] = mean;
-      stat[kMaxN + r] = rsqrtf(v / (float)C + a.eps);
+      RingA w{ring, full, empty, 0, 0};
+      const float* wq = a.Wqkv + (size_t)head * kStepsQkv * 2 * kQkvPartT;
+      for (int st = 0; st < kStepsQkv; ++st) w.put(wq + (size_t)st * 2 * kQkvPartT, kQkvBytesT);
+      // W_out's steps in the order the output product takes the slices:
+      // this CTA's first; step q holds groups 2h and 2h + 1's chunks of it
+      for (int i = 0; i < kStepsOut; ++i) {
+        const int q = (head + i) % kHeads;
+        w.put(a.Wout + (size_t)(kOutPartsT * head * kStepsOut + q) * kOutChunkT,
+              kOutChunkT * 4, kOutPartsT, (size_t)kStepsOut * kOutChunkT);
+      }
+    }
+    sm90::cluster_wait();            // (1)
+    sm90::cluster_arrive_relaxed();  // (2)
+    sm90::cluster_wait();            // (2)
+    return;
+  }
+
+  // ---- the two consumer warpgroups: warpgroup wg owns columns [48 wg,
+  // 48 wg + 48) of q | k | v and [64 wg, 64 wg + 64) of the CTA's outputs;
+  // all 256 threads share the f32 phases ----
+  const int wg = warp / 4;
+  const int t = lane & 3;
+  const int r0 = 16 * (warp % 4) + (lane >> 2);   // this thread's rows: r0, r0 + 8
+  if (threadIdx.x < kOutCols) Bo[threadIdx.x] = a.bout[head * kOutCols + threadIdx.x];
+  RingA w{ring, full, empty, 0, 0};
+
+  float gv[16];
+  load_scale<float>(gv, a.g);
+  sm90::mbar_wait(xbar, 0);
+  layernorm_rows<float>(X, kLdxT, rows, gv, a.eps);
+  sm90::bar_sync<kWorkers>(1);
+
+  // this warpgroup's 48 columns of q | k | v = LN(x) @ W_qkv[:, cols]; the
+  // next step's A fragments are loaded and split while a step's products run
+  float acc[kGroupQkv / 2];
+#pragma unroll
+  for (int i = 0; i < kGroupQkv / 2; ++i) acc[i] = 0.f;
+  {
+    uint32_t h0[16], l0[16], h1[16], l1[16];
+    sm90::load_a<kLdxT>(X, h0, l0);
+#pragma unroll 1
+    for (int st = 0; st < kStepsQkv; st += 2) {
+      int s = w.take();
+      sm90::wgmma_fence();
+      qkv_products(acc, h0, l0, w.chunk(s), wg);
+      sm90::wgmma_commit();
+      sm90::load_a<kLdxT>(X + (st + 1) * kStepK, h1, l1);
+      sm90::wgmma_wait<0>();
+      sm90::fence_operand(acc);
+      w.give(s);
+      s = w.take();
+      sm90::wgmma_fence();
+      qkv_products(acc, h1, l1, w.chunk(s), wg);
+      sm90::wgmma_commit();
+      if (st + 2 < kStepsQkv) sm90::load_a<kLdxT>(X + (st + 2) * kStepK, h0, l0);
+      sm90::wgmma_wait<0>();
+      sm90::fence_operand(acc);
+      w.give(s);
     }
   }
-  __syncthreads();
-  for (int i = tid; i < N * C; i += nthr) {
-    const int r = i / C, c = i % C;
-    A[r * lda + c] = (X[r * ldx + c] - stat[r]) * stat[kMaxN + r] * a.g[c];
-  }
-  __syncthreads();
+  sm90::bar_sync<kWorkers>(1);   // the tile is read: its bytes take q | k | v
+  // (1) this CTA is done reading its x tile: the others may copy o into it
+  sm90::cluster_arrive();
+  store_qkv(QKV, acc, wg, r0, a.scale);
+  sm90::bar_sync<kWorkers>(1);
 
-  // q | k | v = LN(x) @ W_qkv
-  block_mm(A, lda, a.Wqkv, C, Q3, N, [&](int r, int c, float v0, float v1) {
-    tile::st2<float>(Q + r * ldq + c, v0, v1);
-  });
-  __syncthreads();
+  attend(QKV, P, nsc, a.n,
+         [&](int r, int d, float v) { O[head * kSliceT + r * kLdoT + d] = v; });
 
-  // per head: scores of q * d^-1/2 against k
-  for (int i = tid; i < H * N * N; i += nthr) {
-    const int h = i / (N * N), qi = (i / N) % N, kj = i % N;
-    const float* q = Q + qi * ldq + h * D;
-    const float* k = Q + kj * ldq + HD + h * D;
-    float s = 0.f;
-    for (int d = 0; d < D; ++d) s = fmaf(q[d] * a.scale, k[d], s);
-    P[(h * kMaxN + qi) * ldp + kj] = s;
+  // the exchange: once every CTA is done with its x tile, 3 threads copy
+  // this CTA's slice into the same place in the other CTAs' o, completing on
+  // their barrier for it
+  sm90::fence_proxy_async_shared();   // the slice's writes before the copies read it
+  sm90::bar_sync<kWorkers>(1);
+  sm90::cluster_wait();               // (1)
+  if (threadIdx.x < kHeads - 1) {
+    const int peer = (head + 1 + threadIdx.x) % kHeads;
+    const float* mine = O + head * kSliceT;
+    sm90::bulk_copy_to_peer(sm90::cluster_addr(mine, peer), mine, (uint32_t)(rows * kLdoT * 4),
+                            sm90::cluster_addr(&obar[head], peer));
   }
-  __syncthreads();
-  // softmax over each row, in f32
-  for (int i = tid; i < H * N; i += nthr) {
-    float* p = P + ((i / N) * kMaxN + i % N) * ldp;
-    float m = p[0];
-    for (int j = 1; j < N; ++j) m = fmaxf(m, p[j]);
-    float sum = 0.f;
-    for (int j = 0; j < N; ++j) {
-      p[j] = expf(p[j] - m);
-      sum += p[j];
+
+  // this thread's residual pairs of x, exact, loaded while the slices land
+  const int col0 = head * kOutCols + wg * sm90::kGroup;   // this warpgroup's outputs
+  float2 xr[2][8];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const float* xrow = a.x + (row0 + min(r0 + 8 * hh, rows - 1)) * kC + col0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) xr[hh][j] = __ldg(reinterpret_cast<const float2*>(xrow + 8 * j + 2 * t));
+  }
+
+  // out[:, col0 + 0..63] = o @ W_out[:, those columns]: K step i takes slice
+  // (head + i) % 4, each other CTA's once it has landed
+  float acc2[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc2[i] = 0.f;
+  {
+    uint32_t h0[16], l0[16], h1[16], l1[16];
+    sm90::load_a<kLdoT>(O + head * kSliceT, h0, l0);
+#pragma unroll 1
+    for (int i = 0; i < kStepsOut; i += 2) {
+      int s = w.take();
+      sm90::wgmma_fence();
+      sm90::products_3x(acc2, h0, l0, w.chunk(s) + wg * kOutChunkT);
+      sm90::wgmma_commit();
+      int q = (head + i + 1) % kHeads;
+      sm90::mbar_wait(&obar[q], 0);
+      sm90::load_a<kLdoT>(O + q * kSliceT, h1, l1);
+      sm90::wgmma_wait<0>();
+      sm90::fence_operand(acc2);
+      w.give(s);
+      s = w.take();
+      sm90::wgmma_fence();
+      sm90::products_3x(acc2, h1, l1, w.chunk(s) + wg * kOutChunkT);
+      sm90::wgmma_commit();
+      if (i + 2 < kStepsOut) {
+        q = (head + i + 2) % kHeads;
+        sm90::mbar_wait(&obar[q], 0);
+        sm90::load_a<kLdoT>(O + q * kSliceT, h0, l0);
+      }
+      sm90::wgmma_wait<0>();
+      sm90::fence_operand(acc2);
+      w.give(s);
     }
-    for (int j = 0; j < N; ++j) p[j] = p[j] / sum;
   }
-  __syncthreads();
-  // o = P @ v, per head
-  for (int i = tid; i < N * HD; i += nthr) {
-    const int r = i / HD, c = i % HD, h = c / D;
-    const float* p = P + (h * kMaxN + r) * ldp;
-    float s = 0.f;
-    for (int j = 0; j < N; ++j) s = fmaf(p[j], Q[j * ldq + 2 * HD + c], s);
-    O[r * ldo + c] = s;
-  }
-  __syncthreads();
+  sm90::cluster_arrive_relaxed();   // (2) every slice of this CTA's o has landed
 
-  // out = x + (o @ W_out + b_out)
-  block_mm(O, ldo, a.Wout, HD, C, N, [&](int r, int c, float v0, float v1) {
-    const float2 xv = *reinterpret_cast<const float2*>(X + r * ldx + c);
-    tile::st2<float>(out + (size_t)r * C + c, xv.x + (v0 + a.bout[c]), xv.y + (v1 + a.bout[c + 1]));
-  });
+  const float* bo = Bo + wg * sm90::kGroup;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int r = r0 + 8 * hh;
+    if (r < rows) {
+      float* o = a.out + (row0 + r) * kC + col0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t, i = 4 * j + 2 * hh;
+        tile::st2<float>(o + c, xr[hh][j].x + (acc2[i] + bo[c]),
+                         xr[hh][j].y + (acc2[i + 1] + bo[c + 1]));
+      }
+    }
+  }
+  sm90::cluster_wait();             // (2) no CTA leaves before every slice has landed
 }
 
-size_t smem_bytes_f32(const Args& a) {
-  const int HD = a.heads * a.dh;
-  return tile::align16((size_t)kMaxN * (a.C + 4) * sizeof(float)) +
-         tile::align16((size_t)kMaxN * (a.C + kPad) * sizeof(float)) +
-         tile::align16((size_t)kMaxN * (3 * HD + 4) * sizeof(float)) +
-         tile::align16((size_t)a.heads * kMaxN * (kMaxN + 1) * sizeof(float)) +
-         tile::align16((size_t)kMaxN * (HD + kPad) * sizeof(float)) + 2 * kMaxN * sizeof(float);
+cudaError_t prepare_tf32() {   // once
+  static const cudaError_t err =
+      cudaFuncSetAttribute(attention_tf32, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemT);
+  return err;
 }
 
-int launch_f32(const Args& a, cudaStream_t stream) {
-  static const cudaError_t attr = cudaFuncSetAttribute(   // once
-      set_attention_f32, cudaFuncAttributeMaxDynamicSharedMemorySize, 232448);
-  if (attr != cudaSuccess) return (int)attr;
-  const size_t smem = smem_bytes_f32(a);
-  if (smem > 232448) return -1;
-  set_attention_f32<<<a.B, kThreadsF32, smem, stream>>>(a);
+int launch_tf32(const ArgsT& a, cudaStream_t stream) {
+  const cudaError_t err = prepare_tf32();
+  if (err != cudaSuccess) return (int)err;
+  const unsigned tiles = (unsigned)((a.B + a.ts - 1) / a.ts);
+  attention_tf32<<<tiles * kHeads, kThreads90, kSmemT, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -686,26 +894,35 @@ int launch_f32(const Args& a, cudaStream_t stream) {
 extern "C" {
 
 int set_attention_max_n() { return kMaxN; }
-// dynamic shared memory of one bf16 CTA
-int set_attention_smem_bytes() { return (int)kSmem90; }
-// clusters of 4 bf16 CTAs that fit on the card at once, or minus a
-// cudaError_t code
-int set_attention_max_active_clusters() { return resident_clusters(); }
+// dynamic shared memory of one CTA of the `dtype` kernel (0 float32, 1
+// bfloat16)
+int set_attention_smem_bytes(int dtype) { return (int)(dtype == 1 ? kSmem90 : kSmemT); }
+// clusters of 4 CTAs of the `dtype` kernel that fit on the card at once, or
+// minus a cudaError_t code
+int set_attention_max_active_clusters(int dtype) {
+  if (dtype == 1) return resident_clusters();
+  const cudaError_t err = prepare_tf32();
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kHeads * 64);
+  cfg.blockDim = dim3(kThreads90);
+  cfg.dynamicSmemBytes = kSmemT;
+  int clusters = 0;
+  const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, attention_tf32, &cfg);
+  return e == cudaSuccess ? clusters : -(int)e;
+}
 
-// dtype: 0 float32 (weights (in, out) as they are), 1 bfloat16 (C = 512,
-// 4 heads of 32; weights packed by pack_attention_weights).  Returns a
-// cudaError_t code (0 on success), or -1 for arguments the kernel does not
-// take.
+// dtype: 0 float32 (weights packed by pack_attention_weights_tf32), 1
+// bfloat16 (by pack_attention_weights).  Both take C = 512, 4 heads of 32
+// and N <= 24.  Returns a cudaError_t code (0 on success), or -1 for
+// arguments the kernel does not take.
 int set_attention_launch(int dtype, const void* x, const float* g, const void* Wqkv,
                          const void* Wout, const float* bout, void* out, int B, int N, int C,
                          int heads, int dh, float eps, void* stream) {
-  if (B < 1 || N < 1 || N > kMaxN || C < 16 || C % 16 != 0 || heads < 1 || dh < 1 ||
-      (heads * dh) % 16 != 0)
-    return -1;
+  if (B < 1 || N < 1 || N > kMaxN || C != kC || heads != kHeads || dh != kDh) return -1;
   const float scale = (float)pow((double)dh, -0.5);   // dim_head ** -0.5, as the twin
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    if (C != kC || heads != kHeads || dh != kDh) return -1;
     Args90 a;
     a.x = static_cast<const bf16*>(x);
     a.g = g;
@@ -722,7 +939,7 @@ int set_attention_launch(int dtype, const void* x, const float* g, const void* W
     return launch_sm90(a, s);
   }
   if (dtype != 0) return -1;
-  Args a;
+  ArgsT a;
   a.x = static_cast<const float*>(x);
   a.g = g;
   a.Wqkv = static_cast<const float*>(Wqkv);
@@ -730,13 +947,11 @@ int set_attention_launch(int dtype, const void* x, const float* g, const void* W
   a.bout = bout;
   a.out = static_cast<float*>(out);
   a.B = B;
-  a.N = N;
-  a.C = C;
-  a.heads = heads;
-  a.dh = dh;
+  a.n = N;
+  a.ts = kTileRows / N;
   a.eps = eps;
   a.scale = scale;
-  return launch_f32(a, s);
+  return launch_tf32(a, s);
 }
 
 }  // extern "C"

@@ -11,8 +11,8 @@
 // - warpgroup products: the shared-memory descriptor of a K-major operand in
 //   the no-swizzle core-matrix layout (a weight chunk's, or one of another
 //   width), and wgmma.mma_async m64n64k16 and m64n48k16 (bf16) and
-//   m64n64k8 (tf32) with A in registers, B from shared memory, f32
-//   accumulation; the split of an f32 value into two tf32 parts;
+//   m64n64k8 and m64n48k8 (tf32) with A in registers, B from shared memory,
+//   f32 accumulation; the split of an f32 value into two tf32 parts;
 // - the bulk copy of a CTA's shared memory into another CTA's of the
 //   cluster (the f32 ResnetBlock kernel's exchange of h);
 // - the named barrier of the consumer warps;
@@ -27,7 +27,9 @@
 //   input's K tiles through 8 rolling slots (SlotsF), the ring of split
 //   weight chunks (RingF), the K step on wgmma m64n64k8 .tf32 with the rows
 //   split in registers (block_products), and the bulk-copy exchange of h
-//   (exchange_slice_f32, slice_products).
+//   (exchange_slice_f32, slice_products); the f32 set-attention kernel
+//   (set_attention.cu) takes its split A fragments (load_a), its products
+//   (products_3x) and a ring of larger stages (RingT).
 //
 // The weight chunk layout.  A chunk is one 64-deep K tile of one group of 64
 // output columns, (k, n) in [0, 64)^2, stored as 8 x 8 core matrices of 8 n
@@ -322,6 +324,27 @@ __device__ __forceinline__ void wgmma_m64n64k8_tf32(float (&d)[32], const uint32
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
 }
 
+// d[64 x 48] += A[64 x 8] @ B[8 x 48] in tf32, as wgmma_m64n64k8_tf32 with
+// 48 columns: accumulator i < 24 of lane (g, t) of warp w is row 16w + g
+// (+8 when i & 2), column 8 (i / 4) + 2t (+1 when i & 1).
+__device__ __forceinline__ void wgmma_m64n48k8_tf32(float (&d)[24], const uint32_t* a,
+                                                    uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p, 1, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
 // ---- the copy of a CTA's shared memory into a peer's -------------------------
 
 // `bytes` of this CTA's shared memory at `src` into cluster address `dst`
@@ -553,21 +576,24 @@ __host__ __device__ constexpr LayoutF layout_tf32(int vectors, int slice_sets) {
   return L;
 }
 
-// This thread's A fragments of one K step (32 deep) of a slot (64 rows x
-// 64 columns, rows kLdF apart), split into tf32 hi and lo.  The chunks are
-// packed with the step's k permuted (pack_tf32_tiles): fragment k = 8j +
-// t + 4h of k step j reads column 8t + 2j + h of the step, so lane (g, t)
+// This thread's A fragments of one K step (32 deep) of 64 rows kLd floats
+// apart (a slot: rows 68 floats apart, the step at column 32 * half),
+// split into tf32 hi and lo, for warp w % 4 of its warpgroup.  The chunks
+// are packed with the step's k permuted (pack_tf32_tiles): fragment k = 8j
+// + t + 4h of k step j reads column 8t + 2j + h of the step, so lane (g, t)
 // reads 8 contiguous columns of rows 16w + g and + 8 as two 16-byte loads
-// each; rows 68 floats apart keep a quarter warp's loads on distinct banks.
-__device__ __forceinline__ void load_a(const float* slot, int half, uint32_t (&hi)[16],
-                                       uint32_t (&lo)[16]) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const float* p = slot + (16 * warp + (lane >> 2)) * kLdF + kStepK * half + 8 * (lane & 3);
+// each; rows kLd = 4 (mod 32) floats apart keep a quarter warp's loads on
+// distinct banks.
+template <int kLd = kLdF>
+__device__ __forceinline__ void load_a(const float* step, uint32_t (&hi)[16], uint32_t (&lo)[16]) {
+  static_assert(kLd % 32 == 4, "rows 4 banks apart");
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const float* p = step + (16 * warp + (lane >> 2)) * kLd + 8 * (lane & 3);
   float v[2][8];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    const float4 u = *reinterpret_cast<const float4*>(p + 8 * r * kLdF);
-    const float4 w = *reinterpret_cast<const float4*>(p + 8 * r * kLdF + 4);
+    const float4 u = *reinterpret_cast<const float4*>(p + 8 * r * kLd);
+    const float4 w = *reinterpret_cast<const float4*>(p + 8 * r * kLd + 4);
     v[r][0] = u.x, v[r][1] = u.y, v[r][2] = u.z, v[r][3] = u.w;
     v[r][4] = w.x, v[r][5] = w.y, v[r][6] = w.z, v[r][7] = w.w;
   }
@@ -594,30 +620,37 @@ __device__ __forceinline__ void products_3x(float (&d)[32], const uint32_t (&ah)
   }
 }
 
-// The weight ring: the producer's side (put) and the consumers' (take,
-// give), each thread with its own position (s, ph)
-struct RingF {
+// A weight ring of kStages stages of kStageFloats floats: the producer's
+// side (put) and the consumers' (take, give; every consumer thread gives),
+// each thread with its own position (s, ph)
+template <int kStages, int kStageFloats>
+struct RingT {
   float* base;
   uint64_t* full;
   uint64_t* empty;
   int s;
   uint32_t ph;
-  // producer: the split chunk at `src` into the next stage, once it is free
-  __device__ __forceinline__ void put(const float* src) {
+  // producer: `pieces` blocks of `bytes`, from src, src + stride, ..., back
+  // to back into the next stage, once it is free
+  __device__ __forceinline__ void put(const float* src, uint32_t bytes = kStageFloats * 4,
+                                      int pieces = 1, size_t stride = 0) {
     mbar_wait(&empty[s], ph ^ 1);
-    mbar_expect_tx(&full[s], kChunkBytesF);
-    bulk_load(base + s * 2 * kChunkPartF, src, kChunkBytesF, &full[s]);
-    if (++s == kStagesF) s = 0, ph ^= 1;
+    mbar_expect_tx(&full[s], bytes * pieces);
+    for (int i = 0; i < pieces; ++i)
+      bulk_load(base + s * kStageFloats + i * (bytes / 4), src + i * stride, bytes, &full[s]);
+    if (++s == kStages) s = 0, ph ^= 1;
   }
   __device__ __forceinline__ int take() {   // the next stage, once its chunk has landed
     const int st = s;
     mbar_wait(&full[st], ph);
-    if (++s == kStagesF) s = 0, ph ^= 1;
+    if (++s == kStages) s = 0, ph ^= 1;
     return st;
   }
-  __device__ __forceinline__ const float* chunk(int st) const { return base + st * 2 * kChunkPartF; }
+  __device__ __forceinline__ const float* chunk(int st) const { return base + st * kStageFloats; }
   __device__ __forceinline__ void give(int st) { mbar_arrive_if(&empty[st], true); }
 };
+// the f32 ResnetBlock and chain kernels' ring: a split chunk (16 KB) a stage
+using RingF = RingT<kStagesF, 2 * kChunkPartF>;
 
 // Issue one K step's products: this thread's split A fragments times the
 // ring's next chunk into d (and the one after it into dr when kRes).
@@ -656,17 +689,17 @@ __device__ __forceinline__ void block_products(float (&d)[32], float (&dr)[32], 
                                                Tile tile, Done done, RingF& w) {
   uint32_t h0[16], l0[16], h1[16], l1[16];
   const float* A = tile(0);
-  load_a(A, 0, h0, l0);
+  load_a(A, h0, l0);
 #pragma unroll 1
   for (int kt = 0; kt < ntiles; ++kt) {
     int2 st = issue_step<kRes>(d, dr, h0, l0, w);
-    load_a(A, 1, h1, l1);
+    load_a(A + kStepK, h1, l1);
     done(kt);
     retire_step<kRes>(d, dr, st, w);
     st = issue_step<kRes>(d, dr, h1, l1, w);
     if (kt + 1 < ntiles) {
       A = tile(kt + 1);
-      load_a(A, 0, h0, l0);
+      load_a(A, h0, l0);
     }
     retire_step<kRes>(d, dr, st, w);
   }

@@ -21,11 +21,14 @@ the model's eps.
 :func:`fused_set_attention_reference`.  It never falls back: a CUDA tensor
 the kernel cannot take raises.
 
-The bf16 kernel is a cluster kernel for Hopper: a tile of whole scenes (at
-most ``TILE_ROWS`` rows) is one cluster of ``HEADS`` CTAs, CTA h owning head
-h; it takes C = 512 and 4 heads of 32 only.  :func:`tile_plan` is its launch
-and shared-memory plan and :func:`pack_attention_weights` the weight layout
-its bulk copies read.  The f32 kernel takes other widths.
+Both kernels are cluster kernels for Hopper: a tile of whole scenes (at most
+``TILE_ROWS`` rows) is one cluster of ``HEADS`` CTAs, CTA h owning head h;
+they take C = 512, 4 heads of 32 and N <= 24 only
+(:func:`check_kernel_shapes`).  The f32 kernel runs both products in split
+TF32 (three tf32 products per f32 product, ``fused_resblock.tf32_split``).
+:func:`tile_plan` is each kernel's launch and shared-memory plan, and
+:func:`pack_attention_weights` (bf16) and :func:`pack_attention_weights_tf32`
+(f32) the weight layouts their bulk copies read.
 """
 from __future__ import annotations
 
@@ -36,41 +39,56 @@ from typing import NamedTuple, Optional
 import torch
 
 from . import build
-from .fused_resblock import TILE_ROWS, pack_group_tiles
+from .fused_resblock import F32_STEP, TILE_ROWS, pack_group_tiles, pack_tf32_tiles, tf32_split
 
 CSRC = build.CSRC_DIR / "set_attention.cu"
 MAX_N = 24        # objects per scene (kMaxN)
-# the bf16 cluster kernel (attention_sm90)
+# the widths both kernels take
 CHANNELS, HEADS, DIM_HEAD = 512, 4, 32
-K_TILE = 64       # depth of one W_qkv chunk
+K_TILE = 64       # depth of one bf16 W_qkv chunk
+F32_STAGES = 3    # the f32 kernel's ring of split weights, a W_out step (32 KB) a stage
 
 
 class TilePlan(NamedTuple):
     scenes_per_tile: int
     tiles: int
-    clusters: int       # clusters launched: the tiles, or those resident at once
+    clusters: int       # clusters launched: the tiles, or (bf16) those resident at once
     ctas: int
     smem_bytes: int     # dynamic shared memory of one CTA
+    weight_bytes: int   # W_qkv and W_out bytes the CTAs of a call read
 
 
-def tile_plan(B: int, n: int, resident: Optional[int] = None) -> TilePlan:
-    """The bf16 kernel's launch for B scenes of n rows: tiles of the most
-    whole scenes that fit in 64 rows, one cluster of 4 CTAs a tile, at most
-    ``resident`` clusters launched (each then walks several tiles).  Its
-    shared-memory sum mirrors the .cu (``set_attention_smem_bytes``): 8 W_qkv
-    chunks of 64 x 96, the (64, 520) x tile (which later holds q | k | v and
-    the probabilities in f32), the (128, 128) W_out block, the gathered
-    (64, 136) o, the CTA's 128 of b_out in f32, 14 mbarriers."""
+def tile_plan(B: int, n: int, resident: Optional[int] = None,
+              dtype=torch.bfloat16) -> TilePlan:
+    """The ``dtype`` kernel's launch for B scenes of n rows: tiles of the most
+    whole scenes that fit in 64 rows, one cluster of 4 CTAs a tile.  bf16:
+    at most ``resident`` clusters launched, each walking several tiles with
+    its weights loaded once; shared memory (``set_attention_smem_bytes``): 8
+    W_qkv chunks of 64 x 96, the (64, 520) x tile (which later holds q | k |
+    v and the probabilities in f32), the (128, 128) W_out block, the
+    gathered (64, 136) o, the CTA's 128 of b_out in f32, 14 mbarriers.
+    f32: one cluster a tile, each CTA streaming its split weights (16 W_qkv
+    steps of 24 KB, 4 W_out steps of 32 KB); shared memory: a ring of 3
+    stages of 32 KB, the (64, 516) f32 x tile (which later holds q | k | v,
+    the probabilities and the gathered o as 4 slices of (64, 36)), the 128
+    of b_out, 11 mbarriers."""
     if not 1 <= n <= MAX_N:
         raise ValueError(f"the set-attention kernel takes 1 <= N <= {MAX_N}, got {n}")
     ts = TILE_ROWS // n
     tiles = -(-B // ts)
+    hd, cols = HEADS * DIM_HEAD, CHANNELS // HEADS
+    if dtype == torch.float32:
+        stage = 2 * F32_STEP * cols * 4
+        smem = (F32_STAGES * stage + TILE_ROWS * (CHANNELS + 4) * 4 + cols * 4
+                + (2 * F32_STAGES + 1 + HEADS) * 8)
+        per_cta = 2 * CHANNELS * 3 * DIM_HEAD * 4 + 2 * hd * cols * 4
+        return TilePlan(ts, tiles, tiles, HEADS * tiles, smem, HEADS * tiles * per_cta)
     clusters = tiles if resident is None else min(tiles, resident)
-    hd = HEADS * DIM_HEAD
     smem = (CHANNELS * 3 * DIM_HEAD * 2 + TILE_ROWS * (CHANNELS + 8) * 2
-            + hd * (CHANNELS // HEADS) * 2 + TILE_ROWS * (hd + 8) * 2 + (CHANNELS // HEADS) * 4
+            + hd * cols * 2 + TILE_ROWS * (hd + 8) * 2 + cols * 4
             + (CHANNELS // K_TILE + 2 + HEADS) * 8)
-    return TilePlan(ts, tiles, clusters, HEADS * clusters, smem)
+    per_cta = CHANNELS * 3 * DIM_HEAD * 2 + hd * cols * 2
+    return TilePlan(ts, tiles, clusters, HEADS * clusters, smem, HEADS * clusters * per_cta)
 
 
 def pack_attention_weights(w_qkv: torch.Tensor, w_out: torch.Tensor):
@@ -94,6 +112,36 @@ def pack_attention_weights(w_qkv: torch.Tensor, w_out: torch.Tensor):
     # (h, kt, kb, k8, nb, n8) -> (h, kt, kb, nb, n8, k8)
     qkv = heads.reshape(HEADS, K // K_TILE, 8, 8, nb, 8).permute(0, 1, 2, 4, 5, 3)
     return qkv.contiguous().reshape(-1), pack_group_tiles(w_out)
+
+
+def pack_attention_weights_tf32(w_qkv: torch.Tensor, w_out: torch.Tensor):
+    """The f32 kernel's weights, flat, each value split into its tf32 hi and
+    lo parts (:func:`tf32_split`).  W_qkv (512, 384): for head h and 32-deep
+    K step st, rows [32 st, 32 st + 32) of head h's 96 columns [q_h | k_h |
+    v_h], 6144 values from (h * 16 + st) * 6144: the hi parts, then the lo
+    parts, each in the tf32 K-major core-matrix layout of csrc/sm90.cuh with
+    12 core matrices across, (kappa, n) at ((kappa // 4) * 12 + n // 8) * 32
+    + (n % 8) * 4 + kappa % 4, the step's k permuted as in
+    :func:`pack_tf32_tiles` (kappa = 8 j + t + 4 h holds row 32 st + 8 t +
+    2 j + h).  W_out (128, 512): :func:`pack_tf32_tiles`, so group g's
+    (columns [64 g, 64 g + 64)) 4 steps are the 16384 values from g * 16384,
+    and head h's output columns are groups 2h and 2h + 1.  Done once per
+    weight set."""
+    K, Q = w_qkv.shape
+    hd = HEADS * DIM_HEAD
+    if (K, Q) != (CHANNELS, 3 * hd) or tuple(w_out.shape) != (hd, CHANNELS):
+        raise ValueError(f"pack_attention_weights_tf32 takes ({CHANNELS}, {3 * hd}) and ({hd}, "
+                         f"{CHANNELS}) weights, got {tuple(w_qkv.shape)}, {tuple(w_out.shape)}")
+    heads = w_qkv.float().reshape(K, 3, HEADS, DIM_HEAD).permute(2, 0, 1, 3)
+    heads = heads.reshape(HEADS, K, 3 * DIM_HEAD).contiguous()
+
+    def part(v):   # (h, st, t, j, hh, nb, n8) -> (h, st, j, hh, nb, n8, t)
+        return v.reshape(HEADS, K // F32_STEP, 4, 4, 2, 3 * DIM_HEAD // 8, 8).permute(
+            0, 1, 3, 4, 5, 6, 2)
+
+    hi, lo = tf32_split(heads)
+    qkv = torch.stack([part(hi), part(lo)], dim=2).contiguous().reshape(-1)
+    return qkv, pack_tf32_tiles(w_out)
 
 
 def fused_set_attention_reference(
@@ -136,36 +184,42 @@ def load_library() -> ctypes.CDLL:
     lib.set_attention_launch.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                          ctypes.c_float, vp]
     lib.set_attention_launch.restype = ci
-    for fn in (lib.set_attention_max_n, lib.set_attention_smem_bytes,
-               lib.set_attention_max_active_clusters):
-        fn.argtypes, fn.restype = [], ci
-    if (lib.set_attention_max_n(), lib.set_attention_smem_bytes()) != (
-            MAX_N, tile_plan(1, 12).smem_bytes):
+    lib.set_attention_max_n.argtypes, lib.set_attention_max_n.restype = [], ci
+    for fn in (lib.set_attention_smem_bytes, lib.set_attention_max_active_clusters):
+        fn.argtypes, fn.restype = [ci], ci
+    if lib.set_attention_max_n() != MAX_N or any(
+            lib.set_attention_smem_bytes(code) != tile_plan(1, 12, dtype=dt).smem_bytes
+            for dt, code in build.DTYPE_CODES.items()):
         raise RuntimeError("csrc/set_attention.cu and ops/attention.py disagree on limits")
     return lib
 
 
+def check_kernel_shapes(n: int, C: int, heads: int, dim_head: int, dt) -> None:
+    """Raise ``ValueError`` unless the kernels take these shapes: x in
+    float32 or bfloat16, C = 512, 4 heads of 32, 1 <= N <= 24 (the
+    library's ``-1``).  Every config's ``mid_attn`` is 4 x 32 at dim 512."""
+    if dt not in build.DTYPE_CODES:
+        raise ValueError(f"the set-attention kernel takes float32 or bfloat16, got {dt}")
+    if (C, heads, dim_head) != (CHANNELS, HEADS, DIM_HEAD) or not 1 <= n <= MAX_N:
+        raise ValueError(f"the {dt} set-attention kernel takes C={CHANNELS}, {HEADS} heads of "
+                         f"{DIM_HEAD} and N <= {MAX_N}; got C={C}, {heads} x {dim_head}, N={n}")
+
+
 def _kernel_weights(w_qkv: torch.Tensor, w_out: torch.Tensor, dt):
-    """The weights as the kernel reads them: f32 (in, out) as they are, bf16
-    packed by :func:`pack_attention_weights`."""
-    w_qkv, w_out = w_qkv.to(dt), w_out.to(dt)
+    """The weights as the kernel reads them: bf16 packed by
+    :func:`pack_attention_weights`, f32 split and packed by
+    :func:`pack_attention_weights_tf32`."""
     if dt == torch.float32:
-        return w_qkv.contiguous(), w_out.contiguous()
-    return pack_attention_weights(w_qkv, w_out)
+        return pack_attention_weights_tf32(w_qkv.float(), w_out.float())
+    return pack_attention_weights(w_qkv.to(dt), w_out.to(dt))
 
 
 def _launch_kernel(x, g, w_qkv, w_out, b_out, heads, dim_head, eps, dt) -> torch.Tensor:
     B, N, C = x.shape
-    hd = heads * dim_head
-    if x.dtype != dt or dt not in build.DTYPE_CODES:
-        raise ValueError(f"the set-attention kernel takes x in the compute dtype, float32 or "
-                         f"bfloat16; got x {x.dtype}, compute dtype {dt}")
-    if N > MAX_N or C % 16 or hd % 16:
-        raise ValueError(f"the set-attention kernel takes N <= {MAX_N} and C, heads * dim_head "
-                         f"multiples of 16; got N={N}, C={C}, {heads} x {dim_head}")
-    if dt == torch.bfloat16 and (C, heads, dim_head) != (CHANNELS, HEADS, DIM_HEAD):
-        raise ValueError(f"the bf16 set-attention kernel takes C={CHANNELS} and {HEADS} heads "
-                         f"of {DIM_HEAD}; got C={C}, {heads} x {dim_head}")
+    check_kernel_shapes(N, C, heads, dim_head, dt)
+    if x.dtype != dt:
+        raise ValueError(f"the set-attention kernel takes x in the compute dtype; got x "
+                         f"{x.dtype}, compute dtype {dt}")
     dev = x.device
     build.check_operand("x", x, dev, dt, (B, N, C))
     Wqkv, Wout, V = build.prepared(b_out, (g, w_qkv, w_out), lambda: (

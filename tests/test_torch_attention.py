@@ -95,46 +95,149 @@ def _core_matrix_offsets(k_deep: int, n_wide: int) -> torch.Tensor:
     return ((k // 8) * (n_wide // 8) + n // 8) * 64 + (n % 8) * 8 + k % 8
 
 
+def _tf32_offsets(n_wide: int) -> torch.Tensor:
+    """Offset within one part of a 32-deep split step of the tf32 K-major
+    core-matrix layout, (row, n) of the step: kappa = 8 j + t + 4 h holds
+    row 8 t + 2 j + h, at ((kappa // 4) * (n_wide // 8) + n // 8) * 32 +
+    (n % 8) * 4 + kappa % 4."""
+    row = torch.arange(32)[:, None]
+    n = torch.arange(n_wide)[None, :]
+    t, j, h = row // 8, (row % 8) // 2, row % 2
+    kappa = 8 * j + t + 4 * h
+    return ((kappa // 4) * (n_wide // 8) + n // 8) * 32 + (n % 8) * 4 + kappa % 4
+
+
 @pytest.mark.parametrize("head", range(4))
-def test_attention_weight_packing_per_head(head):
-    """CTA ``head`` of the bf16 kernel reads 8 chunks of 64 deep x 96 that
-    hold its q, k and v columns of W_qkv, and the (128, 128) block of W_out
-    for its output columns, 4 chunks of 64 x 64."""
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_attention_weight_packing_per_head(dtype, head):
+    """CTA ``head`` reads the chunks that hold its q, k and v columns of
+    W_qkv and the (128, 128) block of W_out for its output columns.  bf16:
+    8 chunks of 64 deep x 96 and 4 chunks of 64 x 64.  f32: 16 steps of 32
+    deep x 96 and, per warpgroup u, group 2h + u's 4 steps of 32 x 64, each
+    step its tf32 hi then lo parts."""
+    from diffuscene_tpu_torch.ops.fused_resblock import tf32_split
+
     rng = np.random.default_rng(20 + head)
     w_qkv = torch.from_numpy(rng.normal(size=(512, 384)).astype(np.float32))
     w_out = torch.from_numpy(rng.normal(size=(128, 512)).astype(np.float32))
-    qkv, out = tat.pack_attention_weights(w_qkv, w_out)
-    assert qkv.shape == (4 * 8 * 64 * 96,) and out.shape == (128 * 512,)
     cols = torch.cat([torch.arange(32 * head, 32 * head + 32) + 128 * part for part in range(3)])
-    off = _core_matrix_offsets(64, 96)
-    for kt in range(8):
-        chunk = qkv[(head * 8 + kt) * 6144:(head * 8 + kt + 1) * 6144]
-        torch.testing.assert_close(chunk[off], w_qkv[64 * kt:64 * kt + 64, cols], rtol=0, atol=0)
-    block = out[head * 16384:(head + 1) * 16384]
-    off = _core_matrix_offsets(64, 64)
+    if dtype == "bf16":
+        qkv, out = tat.pack_attention_weights(w_qkv, w_out)
+        assert qkv.shape == (4 * 8 * 64 * 96,) and out.shape == (128 * 512,)
+        off = _core_matrix_offsets(64, 96)
+        for kt in range(8):
+            chunk = qkv[(head * 8 + kt) * 6144:(head * 8 + kt + 1) * 6144]
+            torch.testing.assert_close(chunk[off], w_qkv[64 * kt:64 * kt + 64, cols], rtol=0,
+                                       atol=0)
+        block = out[head * 16384:(head + 1) * 16384]
+        off = _core_matrix_offsets(64, 64)
+        for u in range(2):
+            for kt in range(2):
+                chunk = block[(2 * u + kt) * 4096:(2 * u + kt + 1) * 4096]
+                c0 = 128 * head + 64 * u
+                torch.testing.assert_close(chunk[off], w_out[64 * kt:64 * kt + 64, c0:c0 + 64],
+                                           rtol=0, atol=0)
+        with pytest.raises(ValueError):   # the kernel's widths only
+            tat.pack_attention_weights(w_qkv[:256], w_out[:, :256])
+        return
+    qkv, out = tat.pack_attention_weights_tf32(w_qkv, w_out)
+    assert qkv.shape == (2 * 512 * 384,) and out.shape == (2 * 128 * 512,)
+    parts_qkv, parts_out = tf32_split(w_qkv), tf32_split(w_out)
+    off = _tf32_offsets(96)
+    for st in range(16):
+        chunk = qkv[(head * 16 + st) * 6144:(head * 16 + st + 1) * 6144]
+        for part in range(2):
+            torch.testing.assert_close(chunk[3072 * part:][off],
+                                       parts_qkv[part][32 * st:32 * st + 32, cols], rtol=0, atol=0)
+    off = _tf32_offsets(64)
     for u in range(2):
-        for kt in range(2):
-            chunk = block[(2 * u + kt) * 4096:(2 * u + kt + 1) * 4096]
+        for st in range(4):
+            chunk = out[((2 * head + u) * 4 + st) * 4096:][:4096]
             c0 = 128 * head + 64 * u
-            torch.testing.assert_close(chunk[off], w_out[64 * kt:64 * kt + 64, c0:c0 + 64],
-                                       rtol=0, atol=0)
-    with pytest.raises(ValueError):   # the bf16 kernel's widths only
-        tat.pack_attention_weights(w_qkv[:256], w_out[:, :256])
+            for part in range(2):
+                torch.testing.assert_close(chunk[2048 * part:][off],
+                                           parts_out[part][32 * st:32 * st + 32, c0:c0 + 64],
+                                           rtol=0, atol=0)
+    with pytest.raises(ValueError):   # the kernel's widths only
+        tat.pack_attention_weights_tf32(w_qkv[:256], w_out[:, :256])
 
 
 @pytest.mark.parametrize("n,scenes,tiles_64", [(12, 5, 13), (21, 3, 22), (24, 2, 32)])
-def test_attention_tile_plan(n, scenes, tiles_64):
-    """Tiles of whole scenes in 64 rows, one cluster of 4 CTAs each, capped
-    at the clusters resident at once; one CTA's shared memory fits."""
-    plan = tat.tile_plan(64, n)
-    assert (plan.scenes_per_tile, plan.tiles, plan.clusters, plan.ctas) == (
-        scenes, tiles_64, tiles_64, 4 * tiles_64)
-    assert plan.scenes_per_tile * n <= 64 < (plan.scenes_per_tile + 1) * n
-    assert 200_000 < plan.smem_bytes <= 232_448
-    big = tat.tile_plan(768, n, resident=33)
-    assert big.tiles == -(-768 // scenes) and (big.clusters, big.ctas) == (33, 132)
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_attention_tile_plan(dtype, n, scenes, tiles_64):
+    """Tiles of whole scenes in 64 rows, one cluster of 4 CTAs each; one
+    CTA's shared memory fits.  bf16: capped at the clusters resident at
+    once, each loading its weights once.  f32: one cluster a tile at every
+    batch (run/generate.sh's 256, the JAX bench's 768), each CTA streaming
+    its 512 KB of split weights."""
+    if dtype == "bf16":
+        plan = tat.tile_plan(64, n)
+        assert (plan.scenes_per_tile, plan.tiles, plan.clusters, plan.ctas) == (
+            scenes, tiles_64, tiles_64, 4 * tiles_64)
+        assert plan.scenes_per_tile * n <= 64 < (plan.scenes_per_tile + 1) * n
+        assert 200_000 < plan.smem_bytes <= 232_448
+        big = tat.tile_plan(768, n, resident=33)
+        assert big.tiles == -(-768 // scenes) and (big.clusters, big.ctas) == (33, 132)
+        assert big.weight_bytes == 132 * (512 * 96 + 128 * 128) * 2
+        with pytest.raises(ValueError):
+            tat.tile_plan(64, 25)
+        return
+    for B in (64, 256, 768):
+        plan = tat.tile_plan(B, n, resident=33, dtype=torch.float32)
+        tiles = -(-B // scenes)
+        assert tuple(plan) == (scenes, tiles, tiles, 4 * tiles, 231_000, 4 * tiles * 524_288)
+        assert plan.clusters * plan.scenes_per_tile >= B > (plan.clusters - 1) * scenes
+    assert tat.tile_plan(64, n, dtype=torch.float32).tiles == tiles_64
+    assert tat.tile_plan(64, 12, dtype=torch.float32).weight_bytes == 13 * 4 * 2 ** 19   # 27.3 MB
     with pytest.raises(ValueError):
-        tat.tile_plan(64, 25)
+        tat.tile_plan(64, 25, dtype=torch.float32)
+
+
+@pytest.mark.parametrize("n", [12, 21])
+def test_split_tf32_attention_matches_f32_attention(monkeypatch, n):
+    """The f32 kernel's arithmetic before the card: the plain twin with its
+    two products (its only ``@``) formed as hi*lo + lo*hi + hi*hi of tf32
+    parts (both operands; each term an f32 product, summed in f32), at the
+    kernel's widths (C=512, 4 heads of 32, B=2), within the card's kernel
+    tolerance (chip_smoke.py KERNEL_TOL f32: atol 1e-3, rtol 1e-4) of the
+    plain f32 twin."""
+    from diffuscene_tpu_torch.ops.fused_resblock import tf32_split
+
+    d = _case(seed=40 + n, n=n, c=512)
+    args = [torch.from_numpy(d[k]) for k in ("x", "g", "w_qkv", "w_out", "b_out")]
+    kw = dict(heads=H, dim_head=D, eps=1e-5, compute_dtype=torch.float32)
+    want = tat.fused_set_attention_reference(*args, **kw)
+    matmul = torch.matmul
+
+    def split_matmul(a, w):
+        (ah, al), (wh, wl) = tf32_split(a.contiguous()), tf32_split(w.contiguous())
+        return matmul(ah, wl) + matmul(al, wh) + matmul(ah, wh)
+
+    monkeypatch.setattr(torch.Tensor, "__matmul__", split_matmul)
+    got = tat.fused_set_attention_reference(*args, **kw)
+    monkeypatch.undo()
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+    assert not torch.equal(got, want)   # the products did go through the split
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("case", ["c256", "heads8x16", "n25"])
+def test_kernel_path_refuses_shapes_it_does_not_take(case, dtype):
+    """No fallback: both kernels take C=512, 4 heads of 32 and N <= 24 only;
+    anything else raises before any launch, through the shape check the
+    launch path runs (here on CPU tensors, before it builds)."""
+    C, heads, dim_head, n = {"c256": (256, 4, 32, 12), "heads8x16": (512, 8, 16, 12),
+                             "n25": (512, 4, 32, 25)}[case]
+    tdt = DTYPES[dtype][1]
+    with pytest.raises(ValueError):
+        tat.check_kernel_shapes(n, C, heads, dim_head, tdt)
+    hd = heads * dim_head
+    x, v = torch.zeros(2, n, C, dtype=tdt), torch.zeros(C)
+    with pytest.raises(ValueError):
+        tat._launch_kernel(x, v, torch.zeros(C, 3 * hd), torch.zeros(hd, C), v, heads, dim_head,
+                           1e-5, tdt)
+    for n_ok in (1, 12, 21, 24):   # taken
+        tat.check_kernel_shapes(n_ok, 512, 4, 32, tdt)
 
 
 @pytest.mark.gpu
@@ -173,3 +276,30 @@ def test_cuda_kernel_bf16_at_bench_batch_and_refusals():
     with pytest.raises(ValueError):
         tat.fused_set_attention(x[:, :, :256].contiguous(), t["g"][:256], t["w_qkv"][:256],
                                 t["w_out"][:, :256], t["b_out"][:256])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch", [256, 768])
+def test_cuda_kernel_f32_at_large_batches_and_refusals(batch):
+    """The f32 cluster kernel at run/generate.sh's batch (256) and the JAX
+    bench's (768), one cluster a tile in several waves (where a race on the
+    reused bytes of the x tile would show), against its plain version; an
+    f32 shape it does not take raises on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
+    d = _case(seed=7, n=12, c=512)
+    t = {k: torch.from_numpy(v).cuda() for k, v in d.items()}
+    g = torch.Generator("cuda").manual_seed(batch)
+    x = t["x"].repeat(batch // 3, 1, 1)
+    x = x + 0.1 * torch.randn(x.shape, generator=g, device="cuda")
+    args = (x, t["g"], t["w_qkv"], t["w_out"], t["b_out"])
+    kw = dict(eps=1e-5, compute_dtype=torch.float32)
+    got = tat.fused_set_attention(*args, **kw)
+    want = tat.fused_set_attention_reference(*args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+    for bad in ((x[:, :, :256].contiguous(), t["g"][:256], t["w_qkv"][:256],
+                 t["w_out"][:, :256], t["b_out"][:256]),
+                (torch.cat([x[:, :12], x[:, :13]], dim=1), *args[1:])):
+        with pytest.raises(ValueError):
+            tat.fused_set_attention(*bad, **kw)
