@@ -108,10 +108,30 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    for 3 epochs of the synthetic dataset, writing checkpoints, then
    cli/generate_diffusion.py --fused --dpm on its checkpoint with the EMA
    weights: 64 scenes, exactly 560 B1 and 20 B2 launches, the categorical
-   KL in stats.json.
+   KL in stats.json;
+16. scene completion and re-arrangement in f32 at full width, random
+   weights from the seed, on a synthetic cached dataset: (a) DDPM-1000
+   completion on the flagship config at run/completion.sh's B=32 with 3
+   partial boxes of eval scenes and (b) DDPM-1000 re-arrangement on the
+   bedroom rearrange config (5 diffused channels, an instance + arrange
+   condition) at run/rearrange.sh's B=32 on eval scenes with N(0, 0.5)
+   noise on their translations and angles, both through
+   SceneDiffusion.sample(fused=True): exactly 28,000 B1 and 1,000 B2
+   launches each, the 3-D engine (exact GELU) within FORWARD_TOL of the
+   module on the spliced x_t of every 50th step (a breach names the step),
+   the partial slots and the kept channels bit-equal to the inputs, the
+   spread of the cond-FiLM rows across scenes printed (non-zero for the
+   rearrange model, or the phase fails), wall time and scenes/s, and a
+   20-step profile of each task step; (c) the rearrange config's train
+   step at its B=128 on the card against the CPU (loss and every
+   gradient), then 10 steps (median ms/step, peak memory); (d)
+   cli/train_diffusion.py on each config for 2 epochs, then
+   cli/completion_rearrange.py --arrange_objects and --num_partial 3, each
+   --fused --compute_intersec on one batch of 32: exactly 28,000 and 1,000
+   launches, 32 box files, a finite metrics.json.
 
 The phases run in the order 1, 2, 7, 8, 3 with 9 (one set of full-width
-models), 4, 10, 11, 15, 5, 6, 12, 13, 14.  TF32 is off for every matmul and
+models), 4, 10, 11, 15, 5, 6, 12, 13, 14, 16.  TF32 is off for every matmul and
 convolution (the references are f32; the f32 B1 kernel's split TF32 is
 three tf32 products per f32 product, not TF32 matmul).
 Phase 1 prints each kernel's registers, stack and spills from ptxas, and
@@ -127,11 +147,15 @@ its own dtype, both engines), and
 
 phases 1 and 2 alone, the short check of a new chain kernel (bf16 and f32),
 ``--only-attention`` phases 1 and 8 (B2, bf16 and f32), ``--only-chamfer`` phases 1
-and 5 (B3) and ``--only-train`` phases 1 and 12-14 (with the train JSON
-line); none of them prints an ok line.
+and 5 (B3), ``--only-train`` phases 1 and 12-14 (with the train JSON
+line) and ``--only-tasks`` phases 1 and 16 (with the tasks JSON line);
+none of them prints an ok line.
 
 The line before the last is the card's name and power limit again, the one
-before it a JSON summary of the kernels, and the one before that a JSON
+before it a JSON summary of the kernels, the one before that a JSON
+summary of phase 16 ("tasks": each task sample's wall time, launches,
+worst engine gap, FiLM-row spread, busy time and idle share; the rearrange
+train step; the CLIs' times and launches), and the one before that a JSON
 summary of phases 12-14 ("train": each recipe's ms/step, busy time, idle
 share, peak memory and agreement; the CLI pair's times and launches); the
 kernels line holds the launches on each main path, worst
@@ -141,7 +165,8 @@ with its graph-replay time beside as "graph_ms", and each one's bound; the
 chain, ResnetBlock and set-attention entries also carry their f32
 kernel's 19 chains, 28 blocks and one call ("f32_ms", "f32_graph_ms",
 "f32_plain_ms", "f32_bound_ms" on the split-TF32 route) and the f32 DDPM
-sample's launches ("f32_launches").  The
+sample's launches ("f32_launches"); the ResnetBlock and set-attention
+entries carry the task samples' launches ("task_launches").  The
 last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -263,9 +288,17 @@ TRAIN_STEP_TOL = {"loss": 1e-4, "gradnorm": 1e-4, "grad_rel_l2": 1e-3}
 # differences pass through the bf16 network: the loss within 1e-2 relative,
 # the whole gradient within 5e-2 in relative L2, each parameter's within 2e-1
 FAST_VJP_TOL = {"loss": 1e-2, "whole": 5e-2, "worst": 2e-1}
+# phase 16, scene completion and re-arrangement (run/completion.sh's and
+# run/rearrange.sh's B=32, 3 partial boxes, N(0, 0.5) noise on the inputs'
+# translations and angles), each sample's engine checked every 50 steps,
+# on a synthetic dataset as in phases 12-14
+REARRANGE_CONFIG = "configs/rearrange/diffusion_bedrooms_instancond_lat32_v_rearrange.yaml"
+TASK_B, TASK_PARTIAL, TASK_NOISE, TASK_CHECK_EVERY = 32, 3, 0.5, 50
+TASK_DATA, TASK_OUT = "build/smoke_tasks_data", "build/smoke_tasks"
+TASK_TRAIN_STEPS, TASK_CLI_EPOCHS = 10, 2
 # the short checks: phase 1 and one kernel's phase, no ok line
 ONLY = ("--only-resblock", "--only-chain", "--only-attention", "--only-chamfer", "--only-train",
-        "--only-f32-engine")
+        "--only-f32-engine", "--only-tasks")
 
 
 def card_line():
@@ -1508,28 +1541,35 @@ def phase_train_b512(torch, data_dir):
             "top_kernels": prof["top"]}
 
 
+def synthetic_config(config_path, data_dir, out_dir, name):
+    """A copy of a config at ``out_dir/name`` that reads the synthetic
+    dataset at ``data_dir``; returns its path."""
+    import re
+
+    with open(config_path) as f:
+        text = f.read()
+    text = re.sub(r"^(\s*dataset_directory:).*$", lambda m: f"{m.group(1)} {data_dir}", text,
+                  flags=re.M)
+    text = re.sub(r"^(\s*annotation_file:).*$",
+                  lambda m: f"{m.group(1)} {os.path.join(data_dir, 'splits.csv')}", text, flags=re.M)
+    path = os.path.join(out_dir, name)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
 def phase_cli(torch, data_dir, out_dir, card):
     """Phase 14: the entry points a user runs.  train_diffusion on the b512
     config (its EMA) for 3 epochs of the synthetic dataset, writing
     checkpoints; then generate_diffusion --fused --dpm on its checkpoint with
     the EMA weights: 64 scenes, exactly 560 B1 and 20 B2 launches, and the
     categorical KL in stats.json."""
-    import re
-
     from diffuscene_tpu_torch.cli import generate_diffusion, train_diffusion
     from diffuscene_tpu_torch.ops import attention as at
     from diffuscene_tpu_torch.ops import fused_resblock as rb
     from diffuscene_tpu_torch.utils.checkpoint import load_checkpoint
 
-    with open(B512_CONFIG) as f:
-        text = f.read()
-    text = re.sub(r"^(\s*dataset_directory:).*$", lambda m: f"{m.group(1)} {data_dir}", text,
-                  flags=re.M)
-    text = re.sub(r"^(\s*annotation_file:).*$",
-                  lambda m: f"{m.group(1)} {os.path.join(data_dir, 'splits.csv')}", text, flags=re.M)
-    cfg_path = os.path.join(out_dir, "b512_synthetic.yaml")
-    with open(cfg_path, "w") as f:
-        f.write(text)
+    cfg_path = synthetic_config(B512_CONFIG, data_dir, out_dir, "b512_synthetic.yaml")
     t0 = time.perf_counter()
     train_diffusion.main([cfg_path, out_dir, "--experiment_tag", "cli", "--seed", str(SEED),
                           "--epochs", str(CLI_EPOCHS)])
@@ -1581,6 +1621,300 @@ def phase_train(torch, card):
     out["b512"] = phase_train_b512(torch, TRAIN_DATA)
     torch.cuda.empty_cache()
     out["cli"] = phase_cli(torch, TRAIN_DATA, TRAIN_OUT, card)
+    return out
+
+
+def task_inputs(torch, data_dir):
+    """The CLI's inputs from the first TASK_B eval scenes of the synthetic
+    dataset (the eval split, encoded without permutation, packed as
+    cli/completion_rearrange.py packs them): the scenes (B, 12, 62) and
+    their copy with N(0, 0.5) noise on the translations and angles from
+    np.random.default_rng(SEED), on the card."""
+    import numpy as np
+
+    from diffuscene_tpu_torch.data.factory import get_dataset_raw_and_encoded
+    from diffuscene_tpu_torch.utils.config import load_config
+
+    data = dict(load_config(FLAGSHIP_CONFIG)["data"], dataset_directory=data_dir,
+                annotation_file=os.path.join(data_dir, "splits.csv"))
+    data["encoding_type"] += "_no_prm"
+    _, ds = get_dataset_raw_and_encoded(data, augmentations=None, split=["test"])
+    target = np.stack([np.concatenate([s["translations"], s["sizes"], s["angles"],
+                                       s["class_labels"], s["objfeats_32"]], axis=-1)
+                       for s in (ds[i] for i in range(TASK_B))]).astype(np.float32)
+    noisy = target.copy()
+    rng = np.random.default_rng(SEED)
+    noisy[:, :, :3] += rng.normal(0, TASK_NOISE, noisy[:, :, :3].shape)
+    noisy[:, :, 6:8] += rng.normal(0, TASK_NOISE, noisy[:, :, 6:8].shape)
+    return torch.from_numpy(target).to(DEV), torch.from_numpy(noisy).to(DEV)
+
+
+def task_model(torch, config_path):
+    """A shipped config's scene model on the card, f32, random weights from
+    the seed."""
+    from diffuscene_tpu_torch.models import SceneDiffusion, SceneModelConfig
+    from diffuscene_tpu_torch.utils.config import load_config
+
+    cfg = SceneModelConfig.from_config(load_config(config_path)["network"])
+    return SceneDiffusion(cfg, device=DEV).init(torch.Generator().manual_seed(SEED))
+
+
+def task_sample(torch, scene, label, card, **task):
+    """One DDPM-1000 task sample of TASK_B scenes through
+    ``scene.sample(fused=True, **task)``, every ResnetBlock on B1 and
+    mid_attn on B2: exactly 28,000 and 1,000 launches.  At every
+    TASK_CHECK_EVERY-th step the 3-D engine's forward (the module's exact
+    GELU, as phase 15's gate) on that step's x_t, spliced as the sampler
+    spliced it, is held against the module's: within FORWARD_TOL f32, or
+    the phase fails naming the step.  The check's launches are not counted
+    and its time (measured, synchronised) is taken out of the wall time.
+    Returns (the sample, a summary)."""
+    from diffuscene_tpu_torch.models import inference as inf
+    from diffuscene_tpu_torch.ops import attention as at
+    from diffuscene_tpu_torch.ops import fused_resblock as rb
+    from diffuscene_tpu_torch.utils.convert import denoiser_tree
+
+    net, tol = scene.denoiser, FORWARD_TOL["float32"]
+    make_fn = scene._denoise_fn
+    errs, info = [], {"step": 0, "check_s": 0.0}
+
+    def checked(condition, fused=False):
+        fn = make_fn(condition, fused=fused)
+        module = make_fn(condition, fused=False)
+        prep = inf.prepare_inference_params(net, denoiser_tree(net), num_timesteps=T)
+        ctx = inf.precompute_conditioning(net, prep, condition)
+        films = list(ctx["film_c"].values())
+        # the cond-FiLM rows B1 reads: materialized (B, N, 2C), and how far
+        # each scene's rows are from the first scene's
+        info["film_rows_materialized"] = all(f.is_contiguous() and 0 not in f.stride()
+                                             for f in films)
+        info["film_spread"] = max((f - f[:1]).abs().max().item() for f in films)
+
+        def gated(x, t):
+            step = info["step"]
+            info["step"] += 1
+            if step % TASK_CHECK_EVERY == 0:
+                counts = (rb.fused_resnet_block.launches, at.fused_set_attention.launches)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = inf.fused_unet1d_forward(net, prep, x, t, cond_ctx=ctx, exact_gelu=True)
+                errs.append((step, (got - module(x, t)).abs().max()))
+                torch.cuda.synchronize()
+                info["check_s"] += time.perf_counter() - t0
+                rb.fused_resnet_block.launches, at.fused_set_attention.launches = counts
+            return fn(x, t)
+
+        return gated
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    scene._denoise_fn = checked
+    try:
+        torch.cuda.synchronize()
+        rb.fused_resnet_block.launches = at.fused_set_attention.launches = 0
+        t0 = time.perf_counter()
+        out = scene.sample(TASK_B, generator=gen, clip_denoised=True, fused=True, **task)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0 - info["check_s"]
+        launches = (rb.fused_resnet_block.launches, at.fused_set_attention.launches)
+    finally:
+        del scene._denoise_fn
+    worst = torch.stack([e for _, e in errs]).cpu()
+    bad = [s for (s, _), e in zip(errs, worst.tolist()) if not e <= tol]
+    finite = bool(torch.isfinite(out).all())
+    summary = {"B": TASK_B, "steps": T, "wall_s": wall, "scenes_per_s": TASK_B / wall,
+               "check_s": info["check_s"], "launches": list(launches),
+               "checked_steps": len(errs), "worst_engine_vs_module": worst.max().item(),
+               "film_spread": info["film_spread"],
+               "film_rows_materialized": info["film_rows_materialized"]}
+    print(f"tasks: {label}: {T}-step DDPM, B={TASK_B}, f32, fused=True: shape="
+          f"{tuple(out.shape)} finite={finite} resblock_launches={launches[0]} "
+          f"attention_launches={launches[1]} wall_s={wall:.3f} scenes_per_s="
+          f"{TASK_B / wall:.3f} (the {len(errs)} checks' {info['check_s']:.3f} s taken out); "
+          f"3-D engine vs module every {TASK_CHECK_EVERY} steps: worst max_abs_err "
+          f"{worst.max().item():.3e} tol={tol} {'ok' if not bad else 'FAIL'}; cond-FiLM rows "
+          f"spread across scenes {info['film_spread']:.3e} (materialized: "
+          f"{info['film_rows_materialized']}) | {card}", flush=True)
+    if bad:
+        i = bad[0]
+        raise RuntimeError(f"{label}: the 3-D engine is {worst[i // TASK_CHECK_EVERY].item():.3e} "
+                           f"from the module at step {i} (t={T - 1 - i})")
+    if tuple(out.shape) != (TASK_B, 12, 62) or not finite:
+        raise RuntimeError(f"{label}: the sample is malformed")
+    if launches != (28 * T, T):
+        raise RuntimeError(f"{label}: expected {28 * T} B1 and {T} B2 launches, counted {launches}")
+    if not info["film_rows_materialized"]:
+        raise RuntimeError(f"{label}: the cond-FiLM rows are not materialized")
+    print(f"profile: f32 {label} step, B={TASK_B}", flush=True)
+    prof = profile_steps(torch, task_step(torch, scene, **task), SAMPLE_PROFILE_STEPS,
+                         1e3 * wall / T, named=ENGINE_KERNELS["float32"])
+    summary.update(busy_ms=prof["busy_ms"], idle_share=prof["idle_share"])
+    return out, summary
+
+
+def task_step(torch, scene, partial_boxes=None, input_boxes=None):
+    """One step of a task sample at t = T - 1 (the step it runs T times),
+    as a callable: completion splices the q-sampled partial boxes into the
+    first slots before the reverse step; re-arrangement steps the
+    (translation, angle) channels under its inputs' condition."""
+    from diffuscene_tpu_torch.diffusion import p_sample_step, q_sample
+
+    cfg, sched = scene.cfg, scene.sched
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
+    t = torch.full((TASK_B,), T - 1, dtype=torch.long, device=DEV)
+    if input_boxes is not None:
+        fn = scene._denoise_fn(scene.make_condition(
+            TASK_B, arrange_input=scene.arrange_input(input_boxes)), fused=True)
+        shape = (TASK_B, 12, cfg.translation_dim + cfg.angle_dim)
+        x, noise = (torch.randn(shape, generator=gen, device=DEV) for _ in range(2))
+        return lambda: p_sample_step(sched, cfg.model_mean_type, cfg.model_var_type, fn, x, t,
+                                     noise, True)
+    fn = scene._denoise_fn(scene.make_condition(TASK_B), fused=True)
+    shape = (TASK_B, 12, cfg.point_dim)
+    x, noise = (torch.randn(shape, generator=gen, device=DEV) for _ in range(2))
+    noise_p = torch.randn(partial_boxes.shape, generator=gen, device=DEV)
+    P = partial_boxes.shape[1]
+
+    def step():
+        x_t = torch.cat([q_sample(sched, partial_boxes, t, noise_p), x[:, P:]], dim=1)
+        return p_sample_step(sched, cfg.model_mean_type, cfg.model_var_type, fn, x_t, t, noise,
+                             True)
+
+    return step
+
+
+def phase_task_samples(torch, card, data_dir):
+    """Phase 16 (a) and (b): completion on the flagship config and
+    re-arrangement on the rearrange config, f32 at full width, random
+    weights from the seed, through task_sample; the spliced slots and
+    channels bit-equal to the inputs, and the rearrange model's cond-FiLM
+    rows different across scenes."""
+    target, noisy = task_inputs(torch, data_dir)
+    partial = target[:, :TASK_PARTIAL]
+    out, comp = task_sample(torch, task_model(torch, FLAGSHIP_CONFIG), "completion", card,
+                            partial_boxes=partial)
+    comp["partial_bit_equal"] = bool(torch.equal(out[:, :TASK_PARTIAL], partial))
+    print(f"tasks: completion: the first {TASK_PARTIAL} slots equal the partial boxes bit for "
+          f"bit: {comp['partial_bit_equal']}", flush=True)
+    if not comp["partial_bit_equal"]:
+        raise RuntimeError("completion: the first slots are not the partial boxes")
+    out, arr = task_sample(torch, task_model(torch, REARRANGE_CONFIG), "rearrange", card,
+                           input_boxes=noisy)
+    arr["kept_bit_equal"] = bool(torch.equal(out[:, :, 3:6], noisy[:, :, 3:6])
+                                 and torch.equal(out[:, :, 8:], noisy[:, :, 8:]))
+    moved = (out[:, :, :3] - noisy[:, :, :3]).abs().max().item()
+    print(f"tasks: rearrange: size, class and objfeat channels equal the input bit for bit: "
+          f"{arr['kept_bit_equal']}; translations moved by up to {moved:.3f}", flush=True)
+    if not arr["kept_bit_equal"]:
+        raise RuntimeError("rearrange: the kept channels differ from the input")
+    if not arr["film_spread"] > 0:
+        raise RuntimeError("rearrange: the cond-FiLM rows are the same in every scene, so the "
+                           "check proves nothing about per-row FiLM")
+    return {"completion": comp, "rearrange": arr}
+
+
+def phase_train_rearrange(torch, data_dir):
+    """Phase 16 (c): the rearrange config's train step at its B=128 on the
+    card against the same step on the CPU (one batch, t and noise: the loss
+    and every parameter's gradient), then TASK_TRAIN_STEPS steps on the
+    card (median ms/step, peak memory)."""
+    from diffuscene_tpu_torch.data.loader import DataLoader
+
+    ds, bsz, card = scene_trainer(torch, REARRANGE_CONFIG, DEV, data_dir)
+    _, _, cpu = scene_trainer(torch, REARRANGE_CONFIG, "cpu", data_dir)
+    batches = DataLoader(ds, bsz, shuffle=True, seed=SEED).infinite()
+    host = next(batches)
+    g = torch.Generator().manual_seed(SEED + 32)
+    t = torch.randint(0, T, (bsz,), generator=g)
+    noise = torch.randn(bsz, 12, 5, generator=g)
+    loss_c, grads_c = step_grads(torch, card, card.put_batch(host), t.to(DEV), noise.to(DEV))
+    loss_p, grads_p = step_grads(torch, cpu, cpu.put_batch(host), t, noise)
+    worst, at, whole = grad_rel_l2(grads_c, grads_p)
+    del grads_c, grads_p, cpu
+    loss_rel = abs(loss_c - loss_p) / abs(loss_p)
+    ok = loss_rel <= TRAIN_STEP_TOL["loss"] and worst <= TRAIN_STEP_TOL["grad_rel_l2"]
+    print(f"train rearrange, card vs cpu (B={bsz}, f32, TF32 off): loss {loss_c:.7f} vs "
+          f"{loss_p:.7f} (relative {loss_rel:.3e}), gradient relative L2: worst parameter "
+          f"{worst:.3e} ({card.names[at]}), whole {whole:.3e}; tol={TRAIN_STEP_TOL} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"the rearrange step disagrees between card and CPU: loss {loss_rel}, "
+                           f"gradients {worst} at {card.names[at]}")
+    _, step_ms, peak_gb, first, last = train_steps(torch, card, batches, TASK_TRAIN_STEPS,
+                                                   "train rearrange")
+    return {"config": REARRANGE_CONFIG, "B": bsz, "dtype": "float32", "steps": TASK_TRAIN_STEPS,
+            "ms_per_step": step_ms, "peak_mem_gb": peak_gb, "loss_first5": first,
+            "loss_last5": last, "card_vs_cpu": {"loss_rel": loss_rel, "grad_rel_l2_worst": worst,
+                                                "grad_rel_l2": whole}}
+
+
+def phase_task_cli(torch, data_dir, out_dir, card):
+    """Phase 16 (d): train_diffusion on the rearrange config for
+    TASK_CLI_EPOCHS epochs, then completion_rearrange --arrange_objects
+    --fused --compute_intersec on its checkpoint; train_diffusion on the
+    flagship config for as many epochs, then completion_rearrange
+    --num_partial 3 --fused --compute_intersec on that one.  Each CLI
+    samples one batch of TASK_B: exactly 28,000 B1 and 1,000 B2 launches,
+    TASK_B box files and a finite metrics.json."""
+    from diffuscene_tpu_torch.cli import completion_rearrange, train_diffusion
+    from diffuscene_tpu_torch.ops import attention as at
+    from diffuscene_tpu_torch.ops import fused_resblock as rb
+
+    out = {}
+    for label, config, task_flags in (
+            ("rearrange", REARRANGE_CONFIG, ["--arrange_objects"]),
+            ("completion", FLAGSHIP_CONFIG, ["--num_partial", str(TASK_PARTIAL)])):
+        cfg_path = synthetic_config(config, data_dir, out_dir, f"{label}.yaml")
+        t0 = time.perf_counter()
+        train_diffusion.main([cfg_path, out_dir, "--experiment_tag", label, "--seed", str(SEED),
+                              "--epochs", str(TASK_CLI_EPOCHS), "--device", DEV])
+        train_s = time.perf_counter() - t0
+        task_dir = os.path.join(out_dir, f"{label}_out")
+        torch.cuda.synchronize()
+        rb.fused_resnet_block.launches = at.fused_set_attention.launches = 0
+        t0 = time.perf_counter()
+        metrics = completion_rearrange.main(
+            [cfg_path, task_dir, "--weight_file", os.path.join(out_dir, label), *task_flags,
+             "--n_sequences", str(TASK_B), "--batch_size", str(TASK_B), "--clip_denoised",
+             "--fused", "--compute_intersec", "--seed", str(SEED), "--device", DEV])
+        torch.cuda.synchronize()
+        task_s = time.perf_counter() - t0
+        launches = (rb.fused_resnet_block.launches, at.fused_set_attention.launches)
+        n_boxes = len([f for f in os.listdir(task_dir) if f.endswith("_boxes.json")])
+        with open(os.path.join(task_dir, "metrics.json")) as f:
+            saved = json.load(f)
+        ok = (launches == (28 * T, T) and n_boxes == TASK_B and saved == metrics
+              and saved.get("n_scenes") == TASK_B
+              and all(math.isfinite(v) for v in saved.values()))
+        print(f"cli: train_diffusion {label} config {TASK_CLI_EPOCHS} epochs {train_s:.3f} s; "
+              f"completion_rearrange {' '.join(task_flags)} --fused {TASK_B} scenes (EMA "
+              f"weights) {task_s:.3f} s, launches B1={launches[0]} B2={launches[1]}, {n_boxes} "
+              f"box files, metrics {saved} {'ok' if ok else 'FAIL'} | {card}", flush=True)
+        if not ok:
+            raise RuntimeError(f"the {label} CLI pair failed: launches {launches}, "
+                               f"{n_boxes} box files, metrics {saved}")
+        out[label] = {"train_s": train_s, "task_s": task_s, "launches": list(launches)}
+    return out
+
+
+def phase_tasks(torch, card):
+    """Phase 16: scene completion and re-arrangement, f32 at full width, on
+    a synthetic cached dataset made from the seed."""
+    import shutil
+
+    from diffuscene_tpu_torch.data import make_synthetic_cached_dataset
+
+    for d in (TASK_DATA, TASK_OUT):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(TASK_OUT)
+    make_synthetic_cached_dataset(TASK_DATA, n_scenes=TRAIN_SCENES, seed=SEED)
+    t0 = time.perf_counter()
+    out = {"card": card, "samples": phase_task_samples(torch, card, TASK_DATA)}
+    torch.cuda.empty_cache()
+    out["train"] = phase_train_rearrange(torch, TASK_DATA)
+    torch.cuda.empty_cache()
+    out["cli"] = phase_task_cli(torch, TASK_DATA, TASK_OUT, card)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"tasks: phase 16 took {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -1680,6 +2014,10 @@ def main(argv):
         print(json.dumps({"train": phase_train(torch, card)}))
         print(card_line())
         return 0
+    if only == "--only-tasks":      # scene completion and re-arrangement alone: phase 16
+        print(json.dumps({"tasks": phase_tasks(torch, card)}))
+        print(card_line())
+        return 0
     if only == "--only-f32-engine":  # the flagship config's own dtype: phases 3 + 9 and 15, f32
         scene32 = phase_forward(torch, torch.float32)
         phase_rows_sample(torch, scene32, card)
@@ -1731,8 +2069,14 @@ def main(argv):
     # this slice's main path: the scene model's train steps and the train
     # and generate CLIs (B1 and B2 in generate)
     train = phase_train(torch, card)
+    torch.cuda.empty_cache()
+    # this slice's main paths: scene completion and re-arrangement, f32,
+    # through the 3-D engine (B1 and B2), and the rearrange training
+    tasks = phase_tasks(torch, card)
+    task_launches = {k: v["launches"] for k, v in tasks["samples"].items()}
 
     print(json.dumps({"train": train}))
+    print(json.dumps({"tasks": tasks}))
     print(json.dumps({"kernels": [{
         "name": "fused_chain",
         "route": "cuda",
@@ -1782,6 +2126,7 @@ def main(argv):
         "f32_graph_ms": rb32_fwd[6],
         "f32_plain_ms": rb32_fwd[2],
         "f32_bound_ms": rb32_bound_ms,
+        "task_launches": {k: v[0] for k, v in task_launches.items()},
     }, {
         "name": "set_attention",
         "route": "cuda",
@@ -1800,6 +2145,7 @@ def main(argv):
         "f32_graph_ms": at_main["float32"]["graph"],
         "f32_plain_ms": at_main["float32"]["plain"],
         "f32_bound_ms": at_main["float32"]["bound"],
+        "task_launches": {k: v[1] for k, v in task_launches.items()},
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

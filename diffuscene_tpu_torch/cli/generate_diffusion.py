@@ -94,9 +94,9 @@ def main(argv=None):
     import torch
 
     from ..data.factory import get_dataset_raw_and_encoded
-    from ..eval.metrics import categorical_kl, compute_intersection, compute_symmetry
-    from ..eval.metrics import scene_bboxes_from_params
+    from ..eval.metrics import categorical_kl
     from ..eval.postprocess import split_network_samples
+    from ._box_stats import append_iou_states, mean_box_stats, scene_box_stats
     from ..models.scene_model import SceneDiffusion, SceneModelConfig
     from ..utils.checkpoint import load_model_weights
     from ..utils.config import load_config
@@ -155,31 +155,15 @@ def main(argv=None):
         for c in cls.argmax(-1):
             class_freq_gen[c] += 1
         if args.compute_intersec:
-            bb = scene_bboxes_from_params(np.asarray(boxes["translations"]).reshape(-1, 3),
-                                          np.asarray(boxes["sizes"]).reshape(-1, 3))
-            n, pairs, avg_iou, avg_insec, ratio = compute_intersection(bb)
-            per_scene_stats.append((n, pairs, avg_iou, avg_insec, ratio,
-                                    compute_symmetry(bb, cls)))
-            arr = np.asarray(per_scene_stats, np.float64)
-            with open(os.path.join(args.output_directory, "iou_states.txt"), "a") as f:
-                f.write(
-                    f"num scenes: {len(arr)} - num objects avg: {arr[:, 0].mean():f}"
-                    f" - std: {arr[:, 0].std():f} - num pairs: {arr[:, 1].mean():f}"
-                    f" - box iou: {arr[:, 2].mean():f}"
-                    f" - box intersec: {arr[:, 3].mean():f}"
-                    f" - overlap ratio: {arr[:, 4].mean():f}"
-                    f" - total num symmetries: {int(arr[:, 5].sum())}\n")
+            per_scene_stats.append(scene_box_stats(boxes))
+            append_iou_states(os.path.join(args.output_directory, "iou_states.txt"),
+                              per_scene_stats)
     if class_freq_gen.sum() > 0:
         gt_freq = np.array([raw.class_frequencies[c] for c in raw.object_types], np.float64)
         stats["categorical_kl"] = categorical_kl(gt_freq / gt_freq.sum(),
                                                  class_freq_gen / class_freq_gen.sum())
     if per_scene_stats:
-        arr = np.asarray(per_scene_stats, np.float64)
-        stats.update(
-            avg_objects=float(arr[:, 0].mean()), avg_pair_iou=float(arr[:, 2].mean()),
-            avg_intersec=float(arr[:, 3].mean()), avg_overlap_ratio=float(arr[:, 4].mean()),
-            avg_symmetry=float(arr[:, 5].mean()),
-        )
+        stats.update(mean_box_stats(per_scene_stats))
     with open(os.path.join(args.output_directory, "stats.json"), "w") as f:
         json.dump(stats, f, indent=2)
     print(json.dumps(stats))

@@ -1,6 +1,6 @@
 """Gaussian diffusion core: the forward process, the parameterizations,
-the reverse-step mean/variance and the training loss with its IoU
-regularizer.
+the reverse-step mean/variance, the training loss with its IoU regularizer
+and the variational bound's terms in bits per dimension.
 
 Port of ``diffuscene_tpu/diffusion/gaussian.py`` (reference
 GaussianDiffusion, diffusion_ddpm.py:125-717).  ``x`` is (B, N, C) with C
@@ -9,6 +9,7 @@ packed as translation, size, angle, class (, objectness)(, objfeat).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -83,6 +84,14 @@ def q_sample(sched: DiffusionSchedule, x_start, t, noise):
         extract(sched.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
         + extract(sched.sqrt_one_minus_alphas_cumprod, t, x_start.ndim) * noise
     )
+
+
+def q_mean_variance(sched: DiffusionSchedule, x_start, t):
+    """Mean, variance and log-variance of q(x_t | x_0)."""
+    mean = extract(sched.sqrt_alphas_cumprod, t, x_start.ndim) * x_start
+    variance = extract(1.0 - sched.alphas_cumprod, t, x_start.ndim)
+    log_variance = extract(sched.log_one_minus_alphas_cumprod, t, x_start.ndim)
+    return mean, variance, log_variance
 
 
 def q_posterior_mean_variance(sched: DiffusionSchedule, x_start, x_t, t):
@@ -170,6 +179,12 @@ def p_mean_variance(
         raise NotImplementedError(model_var_type)
     model_mean, _, _ = q_posterior_mean_variance(sched, x_recon, x_t, t)
     return model_mean, model_log_variance, x_recon
+
+
+def normal_kl(mean1, logvar1, mean2, logvar2):
+    """KL between two diagonal gaussians.  (diffusion_ddpm.py:96-101)"""
+    return 0.5 * (-1.0 + logvar2 - logvar1 + torch.exp(logvar1 - logvar2)
+                  + (mean1 - mean2) ** 2 * torch.exp(-logvar2))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -319,3 +334,31 @@ def p_losses(
         "loss.liou": loss_iou_valid_avg.mean(),
         "loss.bbox_iou": bbox_iou_valid_avg.mean(),
     }
+
+
+def vb_terms_bpd(
+    sched: DiffusionSchedule,
+    model_mean_type: str,
+    model_var_type: str,
+    model_output: torch.Tensor,
+    data_start: torch.Tensor,
+    data_t: torch.Tensor,
+    t: torch.Tensor,
+    clip_denoised: bool,
+):
+    """Variational-bound KL term in bits/dim -> ((B,), pred_xstart).
+    (diffusion_ddpm.py:511-518)"""
+    true_mean, _, true_log_var = q_posterior_mean_variance(sched, data_start, data_t, t)
+    model_mean, model_log_var, pred_xstart = p_mean_variance(
+        sched, model_mean_type, model_var_type, model_output, data_t, t, clip_denoised)
+    kl = normal_kl(true_mean, true_log_var, model_mean, model_log_var)
+    return _mean_tail(kl) / math.log(2.0), pred_xstart
+
+
+def prior_bpd(sched: DiffusionSchedule, x_start: torch.Tensor) -> torch.Tensor:
+    """KL(q(x_T | x_0) || N(0, I)) in bits/dim -> (B,).  (diffusion_ddpm.py:679-688)"""
+    t = torch.full((x_start.shape[0],), sched.num_timesteps - 1, dtype=torch.long,
+                   device=x_start.device)
+    qt_mean, _, qt_log_var = q_mean_variance(sched, x_start, t)
+    kl = normal_kl(qt_mean, qt_log_var, torch.zeros_like(qt_mean), torch.zeros_like(qt_log_var))
+    return _mean_tail(kl) / math.log(2.0)

@@ -1,14 +1,25 @@
-"""Sampling loops: DDPM ancestral sampling, DDIM and DPM-Solver++(2M).
+"""Sampling loops: DDPM ancestral sampling (with its trajectory, scene
+completion and re-arrangement variants), DDIM, DPM-Solver++(2M) and the
+variational-bound sweep.
 
-Port of ``diffuscene_tpu/diffusion/samplers.py:26-70`` and ``:147-279``.  The
-JAX loops are ``lax.scan``s; here they are Python loops over eager torch ops,
-with every step-dependent scalar (DDIM's and DPM-Solver++'s coefficients)
-computed on the host in f32 up front, so a step sends no value back from the
-card.  Randomness comes from an explicit ``torch.Generator``, or from
+Port of ``diffuscene_tpu/diffusion/samplers.py``.  The JAX loops are
+``lax.scan``s; here they are Python loops over eager torch ops, with every
+step-dependent scalar (DDIM's and DPM-Solver++'s coefficients) computed on
+the host in f32 up front, so a step sends no value back from the card.
+Randomness comes from an explicit ``torch.Generator``, or from
 ``noise_fn(shape) -> tensor`` so a test can replay another framework's noise
-stream.  Each loop draws in the order of the JAX sampler's key splits: DDPM
-draws x_T and then one tensor per step (the t == 0 draw is masked out), DDIM
-x_T and then one tensor per step (even at eta 0), DPM-Solver++ x_T only.
+stream.  Each loop draws in the order of the JAX sampler's key splits:
+
+- DDPM (``p_sample_loop``, ``p_sample_loop_trajectory`` and
+  ``p_sample_loop_arrange``, the last on the (B, N, translation_dim +
+  angle_dim) sub-shape): x_T, then one tensor per step (the t == 0 draw is
+  masked out);
+- completion (``p_sample_loop_complete``): x_T, then per step the partial
+  boxes' noise at (B, P, D) first and the step noise at (B, N, D) second
+  (the JAX body's ``split(k, 3)``: k_noise, then k_step);
+- DDIM: x_T, then one tensor per step (even at eta 0);
+- DPM-Solver++: x_T only;
+- the bound sweep (``calc_bpd_loop``): no x_T, one tensor per step.
 
 ``denoise_fn(x, t) -> model_output`` closes over the network and the
 per-scene conditioning.
@@ -20,7 +31,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .gaussian import model_predictions, p_mean_variance
+from .gaussian import model_predictions, p_mean_variance, prior_bpd, q_sample, vb_terms_bpd
 from .schedule import DiffusionSchedule
 
 DenoiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -69,6 +80,114 @@ def p_sample_loop(
         x = p_sample_step(sched, model_mean_type, model_var_type, denoise_fn,
                           x, t, draw(shape), clip_denoised)
     return x
+
+
+def p_sample_loop_trajectory(
+    sched: DiffusionSchedule,
+    model_mean_type: str,
+    model_var_type: str,
+    denoise_fn: DenoiseFn,
+    shape: Tuple[int, ...],
+    freq: int,
+    generator: Optional[torch.Generator] = None,
+    clip_denoised: bool = True,
+    noise_fn: Optional[NoiseFn] = None,
+) -> torch.Tensor:
+    """DDPM sampling that also returns frames (diffusion_ddpm.py:373-398):
+    x_T, then x after every step whose t == T - 1 or t % freq == 0, stacked
+    -> (n_frames, *shape); (1 + T) frames for freq == 1, 2 + T // freq for
+    a freq > 1 that divides T."""
+    draw = _noise_source(sched, generator, noise_fn)
+    device = sched.betas.device
+    T = sched.num_timesteps
+    x = draw(shape)
+    frames = [x]
+    for t_scalar in range(T - 1, -1, -1):
+        t = torch.full((shape[0],), t_scalar, dtype=torch.long, device=device)
+        x = p_sample_step(sched, model_mean_type, model_var_type, denoise_fn,
+                          x, t, draw(shape), clip_denoised)
+        if t_scalar == T - 1 or t_scalar % freq == 0:
+            frames.append(x)
+    return torch.stack(frames)
+
+
+def p_sample_loop_complete(
+    sched: DiffusionSchedule,
+    model_mean_type: str,
+    model_var_type: str,
+    denoise_fn: DenoiseFn,
+    shape: Tuple[int, ...],
+    partial_boxes: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    clip_denoised: bool = True,
+    noise_fn: Optional[NoiseFn] = None,
+) -> torch.Tensor:
+    """RePaint-style scene completion (diffusion_ddpm.py:447-476): before
+    every reverse step the first P slots are overwritten with
+    ``q_sample(partial_boxes, t, noise)``; after the last step the clean
+    ``partial_boxes`` (B, P, D) are spliced in, bit for bit."""
+    draw = _noise_source(sched, generator, noise_fn)
+    device = sched.betas.device
+    P = partial_boxes.shape[1]
+    x = draw(shape)
+    for t_scalar in range(sched.num_timesteps - 1, -1, -1):
+        t = torch.full((shape[0],), t_scalar, dtype=torch.long, device=device)
+        partial_t = q_sample(sched, partial_boxes, t, draw(partial_boxes.shape))
+        x = torch.cat([partial_t, x[:, P:]], dim=1)
+        x = p_sample_step(sched, model_mean_type, model_var_type, denoise_fn,
+                          x, t, draw(shape), clip_denoised)
+    return torch.cat([partial_boxes, x[:, P:]], dim=1)
+
+
+def p_sample_loop_arrange(
+    sched: DiffusionSchedule,
+    model_mean_type: str,
+    model_var_type: str,
+    denoise_fn: DenoiseFn,
+    shape: Tuple[int, ...],
+    translation_dim: int,
+    angle_dim: int,
+    generator: Optional[torch.Generator] = None,
+    clip_denoised: bool = True,
+    noise_fn: Optional[NoiseFn] = None,
+) -> torch.Tensor:
+    """Re-arrangement (diffusion_ddpm.py:478-506): DDPM on the (translation,
+    angle) channels only.  ``shape`` is the full (B, N, point_dim) scene
+    shape; the result is (B, N, translation_dim + angle_dim), which the
+    caller splices into the conditioning boxes."""
+    return p_sample_loop(sched, model_mean_type, model_var_type, denoise_fn,
+                         (shape[0], shape[1], translation_dim + angle_dim),
+                         generator=generator, clip_denoised=clip_denoised, noise_fn=noise_fn)
+
+
+def calc_bpd_loop(
+    sched: DiffusionSchedule,
+    model_mean_type: str,
+    model_var_type: str,
+    denoise_fn: DenoiseFn,
+    x_start: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+    clip_denoised: bool = True,
+    noise_fn: Optional[NoiseFn] = None,
+):
+    """The variational bound in bits/dim over every timestep, t = T-1 down
+    to 0 (reference calc_bpd_loop, diffusion_ddpm.py:690-717) -> the means
+    of (total bpd, the vb terms, the prior bpd, the x_0 MSE)."""
+    draw = _noise_source(sched, generator, noise_fn)
+    device = sched.betas.device
+    B = x_start.shape[0]
+    vals, mses = [], []
+    for t_scalar in range(sched.num_timesteps - 1, -1, -1):
+        t = torch.full((B,), t_scalar, dtype=torch.long, device=device)
+        data_t = q_sample(sched, x_start, t, draw(x_start.shape))
+        vb, pred_xstart = vb_terms_bpd(sched, model_mean_type, model_var_type,
+                                       denoise_fn(data_t, t), x_start, data_t, t, clip_denoised)
+        vals.append(vb)
+        mses.append(((pred_xstart - x_start) ** 2).reshape(B, -1).mean(dim=-1))
+    vals_bt, mse_bt = torch.stack(vals), torch.stack(mses)   # (T, B) each
+    prior = prior_bpd(sched, x_start)
+    total = vals_bt.sum(dim=0) + prior
+    return total.mean(), vals_bt.mean(), prior.mean(), mse_bt.mean()
 
 
 def _noise_source(sched: DiffusionSchedule, generator: Optional[torch.Generator],

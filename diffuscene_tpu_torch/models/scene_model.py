@@ -6,14 +6,19 @@ DiffusionSceneLayout_DDPM, diffusion_scene_layout_ddpm.py:14-454).  The
 modules hold only networks and parameters; diffusion math and the sampling
 loops are plain functions from ``diffusion/``.
 
-Ported: the unconditional task with the learnable or the fixed one-hot
-instance embedding; the training loss (``get_loss``: q_sample, the module
-forward, ``p_losses`` with the IoU regularizer on the train-set bounds);
-``fused=False`` (module forward), ``fused=True`` (the 3-D engine on the
-ResnetBlock and set-attention kernels) and ``fused="rows"`` (rows engine on
-the chain kernel); DDPM, DDIM and DPM-Solver++ sampling.  Raising
-``NotImplementedError``: completion and arrangement (ROADMAP A6), text
-(ROADMAP A5) and room-mask conditions (ROADMAP A8).
+Ported: the instance condition (the learnable or the fixed one-hot
+embedding), the partial-scene head (``room_partial_condition``) and the
+arrange head (``room_arrange_condition``); the training loss (``get_loss``:
+q_sample, the module forward, ``p_losses`` with the IoU regularizer on the
+train-set bounds; with the arrange head the diffusion target is the
+(translation, angle) channels only); ``fused=False`` (module forward),
+``fused=True`` (the 3-D engine on the ResnetBlock and set-attention
+kernels) and ``fused="rows"`` (rows engine on the chain kernel); DDPM (with
+its trajectory), DDIM and DPM-Solver++ sampling, scene completion
+(``partial_boxes``, the RePaint splice) and re-arrangement
+(``input_boxes``), both DDPM only; the variational bound (``prior_kl``,
+``all_kl``).  Raising ``NotImplementedError``: text (ROADMAP A5) and
+room-mask conditions (ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -27,7 +32,7 @@ import torch
 from torch import nn
 
 from ..diffusion import (AttributeSpec, DiffusionSchedule, LossConfig, make_schedule, p_losses,
-                         q_sample)
+                         prior_bpd, q_sample)
 from ..diffusion import samplers as S
 from ..utils.config import as_dtype
 from ..utils.convert import denoiser_tree
@@ -171,17 +176,23 @@ def build_unet1d(cfg: SceneModelConfig, device=None) -> Unet1D:
     return Unet1D(**net_kwargs, device=device)
 
 
+def _head(d_in: int, d_out: int, device=None) -> nn.Sequential:
+    """Linear, LeakyReLU(0.1), Linear, no biases."""
+    return nn.Sequential(nn.Linear(d_in, d_out, bias=False, device=device), nn.LeakyReLU(0.1),
+                         nn.Linear(d_out, d_out, bias=False, device=device))
+
+
 class ConditionNets(nn.Module):
-    """Conditioning heads: the instance condition, as a learnable embedding
-    or as the fixed one-hot rows through ``fc_instance_condition``
-    (Linear, LeakyReLU(0.1), Linear, no biases;
-    diffusion_scene_layout_ddpm.py:27-129)."""
+    """Conditioning heads (diffusion_scene_layout_ddpm.py:27-129), each
+    Linear, LeakyReLU(0.1), Linear without biases: the instance condition,
+    as a learnable embedding or as the fixed one-hot rows through
+    ``fc_instance_condition``; the partial-scene head
+    ``fc_partial_condition`` (point_dim -> partial_emb_dim) and the arrange
+    head ``fc_arrange_condition`` (size, class, objectness and objfeat
+    channels -> arrange_emb_dim)."""
 
     def __init__(self, cfg: SceneModelConfig, device=None):
         super().__init__()
-        if cfg.room_partial_condition or cfg.room_arrange_condition:
-            raise NotImplementedError(
-                "completion and arrange conditions are not ported yet (ROADMAP A6)")
         if cfg.text_condition:
             raise NotImplementedError("text conditions are not ported yet (ROADMAP A5)")
         if cfg.room_mask_condition:
@@ -190,26 +201,51 @@ class ConditionNets(nn.Module):
         self.cfg = cfg
         self.positional_embedding = None
         self.fc_instance_condition = None
+        self.fc_partial_condition = None
+        self.fc_arrange_condition = None
         n, e = cfg.sample_num_points, cfg.instance_emb_dim
         if cfg.instance_condition and cfg.learnable_embedding:
             self.positional_embedding = nn.Parameter(torch.empty(n, e, device=device))
         elif cfg.instance_condition:
-            self.fc_instance_condition = nn.Sequential(
-                nn.Linear(n, e, bias=False, device=device), nn.LeakyReLU(0.1),
-                nn.Linear(e, e, bias=False, device=device))
+            self.fc_instance_condition = _head(n, e, device)
+        if cfg.room_partial_condition:
+            self.fc_partial_condition = _head(cfg.point_dim, cfg.partial_emb_dim, device)
+        if cfg.room_arrange_condition:
+            arrange_dim = cfg.size_dim + cfg.class_dim + cfg.objectness_dim + cfg.objfeat_dim
+            self.fc_arrange_condition = _head(arrange_dim, cfg.arrange_emb_dim, device)
 
-    def forward(self, batch_size: int, num_points: int) -> Optional[torch.Tensor]:
-        """-> condition (B, N, instance_emb_dim) f32, or None."""
+    def heads(self):
+        """The Linear-LeakyReLU-Linear heads this config has."""
+        return [h for h in (self.fc_instance_condition, self.fc_partial_condition,
+                            self.fc_arrange_condition) if h is not None]
+
+    def forward(self, batch_size: int, num_points: int,
+                partial_input: Optional[torch.Tensor] = None,
+                arrange_input: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+        """-> condition (B, N, instance + partial + arrange widths) f32, or
+        None.  ``partial_input`` (B, N, point_dim) is the partial scene
+        zero-padded to N slots and ``arrange_input`` (B, N, arrange width)
+        the channels an arrangement keeps; each head's part is there when
+        the config has the head and its input is given, concatenated in the
+        JAX order: instance, partial, arrange."""
         e = self.cfg.instance_emb_dim
+        parts = []
         if self.positional_embedding is not None:
-            return self.positional_embedding[None, :num_points, :].expand(batch_size, num_points, e)
-        if self.fc_instance_condition is not None:
+            parts.append(self.positional_embedding[None, :num_points, :].expand(
+                batch_size, num_points, e))
+        elif self.fc_instance_condition is not None:
             # the one-hot rows of every slot (the JAX package feeds the
             # (B, N, N) identity; each scene's rows are the same)
             n = self.cfg.sample_num_points
             eye = torch.eye(n, device=self.fc_instance_condition[0].weight.device)
-            return self.fc_instance_condition(eye)[None].expand(batch_size, n, e)
-        return None
+            parts.append(self.fc_instance_condition(eye)[None].expand(batch_size, n, e))
+        if self.fc_partial_condition is not None and partial_input is not None:
+            parts.append(self.fc_partial_condition(partial_input))
+        if self.fc_arrange_condition is not None and arrange_input is not None:
+            parts.append(self.fc_arrange_condition(arrange_input))
+        if not parts:
+            return None
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
 
 
 class SceneDiffusion:
@@ -260,14 +296,36 @@ class SceneDiffusion:
         if self.conditioner.positional_embedding is not None:
             pe = self.conditioner.positional_embedding
             pe.copy_(torch.randn(pe.shape, generator=generator))
-        if self.conditioner.fc_instance_condition is not None:
-            for lin in self.conditioner.fc_instance_condition[::2]:
+        for head in self.conditioner.heads():
+            for lin in head[::2]:
                 w = torch.randn(lin.weight.shape, generator=generator) / math.sqrt(lin.in_features)
                 lin.weight.copy_(w)
         return self
 
-    def make_condition(self, batch_size: int) -> Optional[torch.Tensor]:
-        return self.conditioner(batch_size, self.cfg.sample_num_points)
+    def make_condition(self, batch_size: int, partial_input: Optional[torch.Tensor] = None,
+                       arrange_input: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+        return self.conditioner(batch_size, self.cfg.sample_num_points, partial_input,
+                                arrange_input)
+
+    def arrange_input(self, boxes: torch.Tensor) -> torch.Tensor:
+        """The channels an arrangement keeps: sizes, then class, objectness
+        and objfeat, of (B, N, point_dim) ``boxes``."""
+        td, sd, bd = self.cfg.translation_dim, self.cfg.size_dim, self.cfg.bbox_dim
+        return torch.cat([boxes[:, :, td: td + sd], boxes[:, :, bd:]], dim=-1)
+
+    def condition_from_target(self, target: torch.Tensor) -> Optional[torch.Tensor]:
+        """The condition of a training batch from its packed (B, N,
+        point_dim) target (the JAX ``_conditions_from_batch``): the partial
+        input is the target's first ``partial_num_points`` slots with the
+        rest zeroed, the arrange input its kept channels."""
+        cfg = self.cfg
+        partial_input = arrange_input = None
+        if cfg.room_partial_condition:
+            keep = torch.arange(target.shape[1], device=target.device) < cfg.partial_num_points
+            partial_input = target * keep.to(target.dtype)[None, :, None]
+        if cfg.room_arrange_condition:
+            arrange_input = self.arrange_input(target)
+        return self.make_condition(target.shape[0], partial_input, arrange_input)
 
     def get_loss(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
                  t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
@@ -275,12 +333,16 @@ class SceneDiffusion:
         + diffusion_ddpm.py:758-772) -> (0-d loss, dict of 0-d terms).
         ``batch`` holds the attribute tensors (or the ``packed`` target) on
         this model's device.  The timesteps ``t`` (B,) and the ``noise``
-        (B, N, point_dim) are used when given, else drawn from
-        ``generator`` (on this model's device)."""
+        (B, N, D) are used when given, else drawn from ``generator`` (on this
+        model's device); D is point_dim, or translation_dim + angle_dim with
+        the arrange head, whose model diffuses those channels only."""
         cfg = self.cfg
         target = batch["packed"] if "packed" in batch else pack_target(cfg, batch)
+        condition = self.condition_from_target(target)
+        if cfg.room_arrange_condition:
+            td, sd, bd = cfg.translation_dim, cfg.size_dim, cfg.bbox_dim
+            target = torch.cat([target[:, :, :td], target[:, :, td + sd: bd]], dim=-1)
         B = target.shape[0]
-        condition = self.conditioner(B, cfg.sample_num_points)
         if t is None:
             t = torch.randint(0, self.sched.num_timesteps, (B,), generator=generator,
                               device=target.device)
@@ -344,29 +406,81 @@ class SceneDiffusion:
         ddim_eta: float = 0.0,
         dpm: bool = False,
         dpm_steps: int = 20,
-        partial_boxes=None,
-        input_boxes=None,
+        partial_boxes: Optional[torch.Tensor] = None,
+        input_boxes: Optional[torch.Tensor] = None,
+        ret_traj: bool = False,
+        freq: int = 100,
     ) -> torch.Tensor:
         """Sample ``batch_size`` scenes -> (B, N, point_dim)
-        (diffusion_scene_layout_ddpm.py:228-310): DPM-Solver++ with ``dpm``,
-        else DDIM with ``ddim``, else DDPM ancestral sampling.  Noise comes
+        (diffusion_scene_layout_ddpm.py:228-310).  With ``input_boxes``
+        (B, N, point_dim), re-arrangement: DDPM on the (translation, angle)
+        channels, conditioned on (and spliced into) the other channels of
+        the input.  With ``partial_boxes`` (B, P, point_dim), completion:
+        the RePaint splice, the first P slots the partial boxes.  Both run
+        the ancestral chain only.  Else DPM-Solver++ with ``dpm``, DDIM with
+        ``ddim``, the DDPM trajectory (n_frames, B, N, point_dim) with
+        ``ret_traj`` (a frame every ``freq`` steps), or DDPM.  Noise comes
         from ``generator`` (on this model's device) or from ``noise_fn``."""
-        if partial_boxes is not None or input_boxes is not None:
-            raise NotImplementedError("completion and arrangement are not ported yet (ROADMAP A6)")
+        if (partial_boxes is not None or input_boxes is not None) and (ddim or dpm):
+            raise ValueError(
+                "ddim/dpm fast sampling is not supported for completion (partial_boxes) or "
+                "re-arrangement (input_boxes): those tasks run their own ancestral splice chains")
         cfg = self.cfg
-        condition = self.make_condition(batch_size)
+        N = cfg.sample_num_points
+        partial_input = arrange_input = None
+        if cfg.room_partial_condition and partial_boxes is not None:
+            pad = partial_boxes.new_zeros(batch_size, N - partial_boxes.shape[1],
+                                          partial_boxes.shape[2])
+            partial_input = torch.cat([partial_boxes, pad], dim=1)
+        if cfg.room_arrange_condition and input_boxes is not None:
+            arrange_input = self.arrange_input(input_boxes)
+        condition = self.make_condition(batch_size, partial_input, arrange_input)
         fn = self._denoise_fn(condition, fused=fused)
-        shape = (batch_size, cfg.sample_num_points, cfg.point_dim)
+        shape = (batch_size, N, cfg.point_dim)
         noise = dict(generator=generator, noise_fn=noise_fn)
-        mmt = cfg.model_mean_type
+        mmt, mvt = cfg.model_mean_type, cfg.model_var_type
+        if input_boxes is not None:
+            sub = S.p_sample_loop_arrange(self.sched, mmt, mvt, fn, shape, cfg.translation_dim,
+                                          cfg.angle_dim, clip_denoised=clip_denoised, **noise)
+            # the predicted (translation, angle) into the input's other channels
+            td, sd, bd = cfg.translation_dim, cfg.size_dim, cfg.bbox_dim
+            return torch.cat([sub[:, :, :td], input_boxes[:, :, td: td + sd], sub[:, :, td:],
+                              input_boxes[:, :, bd:]], dim=-1)
+        if partial_boxes is not None:
+            return S.p_sample_loop_complete(self.sched, mmt, mvt, fn, shape, partial_boxes,
+                                            clip_denoised=clip_denoised, **noise)
         if dpm:
             return S.dpm_solver_sample_loop(self.sched, mmt, fn, shape, dpm_steps,
                                             clip_denoised, **noise)
         if ddim:
             return S.ddim_sample_loop(self.sched, mmt, fn, shape, ddim_steps, ddim_eta,
                                       clip_denoised, **noise)
-        return S.p_sample_loop(self.sched, mmt, cfg.model_var_type, fn, shape,
+        if ret_traj:
+            return S.p_sample_loop_trajectory(self.sched, mmt, mvt, fn, shape, freq,
+                                              clip_denoised=clip_denoised, **noise)
+        return S.p_sample_loop(self.sched, mmt, mvt, fn, shape,
                                clip_denoised=clip_denoised, **noise)
+
+    def prior_kl(self, x0: torch.Tensor) -> torch.Tensor:
+        """KL(q(x_T | x_0) || N(0, I)) in bits/dim, (B,).  (diffusion_ddpm.py:735-736)"""
+        return prior_bpd(self.sched, x0)
+
+    @torch.no_grad()
+    def all_kl(self, x0: torch.Tensor, generator: Optional[torch.Generator] = None,
+               condition: Optional[torch.Tensor] = None, clip_denoised: bool = True,
+               noise_fn=None) -> Dict[str, torch.Tensor]:
+        """The whole variational-bound sweep on the module forward
+        (DiffusionPoint.all_kl, diffusion_ddpm.py:738-746) -> the means of
+        the total bpd, the vb terms, the prior bpd and the x_0 MSE.
+        ``condition`` defaults to ``make_condition`` without task inputs;
+        pass ``condition_from_target(x0)`` for a batch's own."""
+        if condition is None:
+            condition = self.make_condition(x0.shape[0])
+        total, terms, prior, mse = S.calc_bpd_loop(
+            self.sched, self.cfg.model_mean_type, self.cfg.model_var_type,
+            self._denoise_fn(condition), x0, generator=generator, clip_denoised=clip_denoised,
+            noise_fn=noise_fn)
+        return {"total_bpd_b": total, "terms_bpd": terms, "prior_bpd_b": prior, "mse_bt": mse}
 
     def split_samples(self, samples: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Split packed samples into an attribute dict + empty-slot mask

@@ -188,8 +188,10 @@ class Trainer:
 
     def train_step(self, batch: Dict[str, torch.Tensor], t: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None) -> Dict[str, float]:
-        """One train step on a device batch; ``t`` (B,) and ``noise``
-        (B, N, point_dim) replace the generator's draws.  Returns the loss
+        """One train step on a device batch; ``t`` (B,) and ``noise`` (the
+        diffusion target's shape: (B, N, point_dim), or (B, N,
+        translation_dim + angle_dim) for a rearrange config) replace the
+        generator's draws.  Returns the loss
         terms, "loss" and "gradnorm" (of this micro-batch's gradients,
         before the clip), fetched in one host transfer."""
         return self._to_host(self._train_step(batch, t, noise))

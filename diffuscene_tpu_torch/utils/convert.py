@@ -208,14 +208,20 @@ _CONDITIONER = {
     "positional_embedding": (("positional_embedding",), "vec"),
     "fc_instance_condition.0.weight": (("fc_instance_0", "kernel"), "linear"),
     "fc_instance_condition.2.weight": (("fc_instance_1", "kernel"), "linear"),
+    "fc_partial_condition.0.weight": (("fc_partial_0", "kernel"), "linear"),
+    "fc_partial_condition.2.weight": (("fc_partial_1", "kernel"), "linear"),
+    "fc_arrange_condition.0.weight": (("fc_arrange_0", "kernel"), "linear"),
+    "fc_arrange_condition.2.weight": (("fc_arrange_1", "kernel"), "linear"),
 }
 
 
 def load_jax_params(scene, np_params: Dict[str, Any]) -> None:
     """Load a JAX ``SceneNetworks`` variable tree (numpy leaves:
     ``params.denoiser`` and ``params.conditioner``, the learnable
-    ``positional_embedding`` or the one-hot heads ``fc_instance_0/1``) into
-    a port ``SceneDiffusion``, so both packages compute the same thing."""
+    ``positional_embedding`` or the one-hot heads ``fc_instance_0/1``, and
+    the partial and arrange heads ``fc_partial_0/1``, ``fc_arrange_0/1``)
+    into a port ``SceneDiffusion``, so both packages compute the same
+    thing."""
     p = np_params["params"]
     scene.denoiser.load_state_dict(flax_to_torch_denoiser(p["denoiser"]), strict=True)
     cond = p.get("conditioner", {})
@@ -311,9 +317,9 @@ def load_jax_autoencoder(model: torch.nn.Module, variables: Dict[str, Any]) -> N
 def reference_to_scene_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """A reference DiffusionSceneLayout_DDPM state_dict -> ``scene.networks``
     keys: ``diffusion.model.*`` -> ``denoiser.*`` (the port's Unet1D carries
-    the reference names), the instance heads -> ``conditioner.*``.  Other
-    keys (room-mask extractor, text encoders) raise: those conditions are
-    not ported."""
+    the reference names), the instance, partial and arrange heads ->
+    ``conditioner.*``.  Other keys (room-mask extractor, text encoders)
+    raise: those conditions are not ported."""
     out = {}
     for key, val in state_dict.items():
         if key.startswith("diffusion.model."):

@@ -169,9 +169,11 @@ def test_sampler_needs_one_noise_source_and_rejects_unported_paths():
     out = scene.sample(2, generator=torch.Generator().manual_seed(1))
     again = scene.sample(2, generator=torch.Generator().manual_seed(1))
     assert torch.equal(out, again)
-    boxes = torch.zeros(2, 3, 62)
-    for kwargs in (dict(partial_boxes=boxes), dict(input_boxes=boxes)):  # completion, arrangement
-        with pytest.raises(NotImplementedError):
-            scene.sample(2, generator=torch.Generator(), **kwargs)
+    # completion and arrangement run their own ancestral chains only
+    tasks = (dict(partial_boxes=torch.zeros(2, 3, 62)), dict(input_boxes=torch.zeros(2, 12, 62)))
+    for task in tasks:
+        for fast in (dict(ddim=True), dict(dpm=True)):
+            with pytest.raises(ValueError, match="ancestral"):
+                scene.sample(2, generator=torch.Generator(), **task, **fast)
     with pytest.raises(NotImplementedError):  # text conditioning
         SceneDiffusion(dataclasses.replace(cfg, text_condition=True), device="cpu")
