@@ -128,10 +128,32 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    cli/train_diffusion.py on each config for 2 epochs, then
    cli/completion_rearrange.py --arrange_objects and --num_partial 3, each
    --fused --compute_intersec on one batch of 32: exactly 28,000 and 1,000
-   launches, 32 box files, a finite metrics.json.
+   launches, 32 box files, a finite metrics.json;
+17. text-conditioned generation in f32 at full width on the bedroom text
+   config (dim 512, 9 linear cross-attention blocks over 50 tokens of 768
+   through fc_text_f to 512), random weights from the seed, the tokens from
+   the port's text pipeline (textfix, the hashed table) over the eval
+   scenes of a synthetic cached dataset: (a) DDPM-1000 through
+   SceneDiffusion.sample(fused=True) at run/generate_text.sh's B=256,
+   exactly 28,000 B1 and 1,000 B2 launches and 9 cross-attention contexts,
+   the 3-D engine (exact GELU) within FORWARD_TOL of the module every 50th
+   step, wall time and scenes/s, a 20-step profile (busy time, idle share,
+   B1 and B2 ms per step) and the 9 cross blocks' device time in such a
+   step; (b) DDPM-1000 through fused="rows" at B=64, exactly 19,000 B4
+   launches and 9 contexts, the rows engine within FORWARD_TOL of the
+   module every 50th step; (c) one step at B=256 on one x_t in every
+   scene with the text rolled by one scene: the unrolled output rolled by
+   one scene (1e-5), and more than 1e-3 from the unrolled output; (d) the
+   text config's train step at B=128 on the card against the CPU (loss and
+   every gradient; every cross-attention parameter and fc_text_f with a
+   non-zero gradient), then 10 steps (median ms/step, peak memory); (e)
+   cli/train_diffusion.py on the text config for 2 epochs, then
+   cli/generate_diffusion.py --fused with --fix_order and with --scene_id:
+   64 scenes each, exactly 28,000 B1 and 1,000 B2 launches, a box file and
+   a sentence file a scene.
 
 The phases run in the order 1, 2, 7, 8, 3 with 9 (one set of full-width
-models), 4, 10, 11, 15, 5, 6, 12, 13, 14, 16.  TF32 is off for every matmul and
+models), 4, 10, 11, 15, 5, 6, 12, 13, 14, 16, 17.  TF32 is off for every matmul and
 convolution (the references are f32; the f32 B1 kernel's split TF32 is
 three tf32 products per f32 product, not TF32 matmul).
 Phase 1 prints each kernel's registers, stack and spills from ptxas, and
@@ -148,11 +170,16 @@ its own dtype, both engines), and
 phases 1 and 2 alone, the short check of a new chain kernel (bf16 and f32),
 ``--only-attention`` phases 1 and 8 (B2, bf16 and f32), ``--only-chamfer`` phases 1
 and 5 (B3), ``--only-train`` phases 1 and 12-14 (with the train JSON
-line) and ``--only-tasks`` phases 1 and 16 (with the tasks JSON line);
-none of them prints an ok line.
+line), ``--only-tasks`` phases 1 and 16 (with the tasks JSON line) and
+``--only-text`` phases 1 and 17 (with the text JSON line); none of them
+prints an ok line.
 
 The line before the last is the card's name and power limit again, the one
 before it a JSON summary of the kernels, the one before that a JSON
+summary of phase 17 ("text": each text sample's wall time, launches,
+contexts, worst engine gap, busy time, idle share and kernel ms per step,
+the cross blocks' device time and share, the roll check, the text train
+step, the CLIs' times and launches), the one before that a JSON
 summary of phase 16 ("tasks": each task sample's wall time, launches,
 worst engine gap, FiLM-row spread, busy time and idle share; the rearrange
 train step; the CLIs' times and launches), and the one before that a JSON
@@ -166,7 +193,9 @@ chain, ResnetBlock and set-attention entries also carry their f32
 kernel's 19 chains, 28 blocks and one call ("f32_ms", "f32_graph_ms",
 "f32_plain_ms", "f32_bound_ms" on the split-TF32 route) and the f32 DDPM
 sample's launches ("f32_launches"); the ResnetBlock and set-attention
-entries carry the task samples' launches ("task_launches").  The
+entries carry the task samples' launches ("task_launches"), and the
+chain, ResnetBlock and set-attention entries the text samples' launches
+("text_launches").  The
 last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -296,9 +325,23 @@ REARRANGE_CONFIG = "configs/rearrange/diffusion_bedrooms_instancond_lat32_v_rear
 TASK_B, TASK_PARTIAL, TASK_NOISE, TASK_CHECK_EVERY = 32, 3, 0.5, 50
 TASK_DATA, TASK_OUT = "build/smoke_tasks_data", "build/smoke_tasks"
 TASK_TRAIN_STEPS, TASK_CLI_EPOCHS = 10, 2
+# phase 17, text-conditioned generation on the bedroom text config (768-wide
+# hashed token embeddings of eval scenes' textfix descriptions, through
+# fc_text_f to 512): DDPM-1000 through the 3-D engine at
+# run/generate_text.sh's B=256 and through the rows engine at B=64, each
+# checked every TASK_CHECK_EVERY steps; the train step at the config's
+# B=128; the CLIs on a 2-epoch checkpoint, 64 scenes
+TEXT_CONFIG = "configs/text/diffusion_bedrooms_instancond_lat32_v_bert.yaml"
+TEXT_B, TEXT_ROWS_B, TEXT_TRAIN_STEPS, TEXT_CLI_EPOCHS = GENERATE_B, 64, 10, 2
+TEXT_DATA, TEXT_OUT = "build/smoke_text_data", "build/smoke_text"
+# a text model's cross-attention contexts a sampling call: 4 down, 1 mid, 4 up
+TEXT_CONTEXTS = 9
+# the scene-roll check: equal to the rolled output up to rounding, and the
+# text must move the output by more than its noise
+ROLL_TOL, ROLL_MIN_DIFF = 1e-5, 1e-3
 # the short checks: phase 1 and one kernel's phase, no ok line
 ONLY = ("--only-resblock", "--only-chain", "--only-attention", "--only-chamfer", "--only-train",
-        "--only-f32-engine", "--only-tasks")
+        "--only-f32-engine", "--only-tasks", "--only-text")
 
 
 def card_line():
@@ -564,7 +607,7 @@ def phase_forward(torch, dtype):
     g = torch.Generator(device="cuda").manual_seed(SEED + 1)
     x = torch.randn(B, 12, 62, generator=g, device="cuda")
     t = torch.randint(0, T, (B,), generator=g, device="cuda")
-    cond = scene.make_condition(B)
+    cond, _ = scene.make_condition(B)
     t0 = time.perf_counter()
     prep = inf.prepare_inference_params(net, denoiser_tree(net), num_timesteps=T)
     ctx = inf.precompute_conditioning(net, prep, cond)
@@ -953,17 +996,18 @@ def kernel_bound(dname, flops, nbytes):
     return (*bound(0, nbytes, tf32_flops=TF32_SPLIT * flops), bound(0, nbytes, flops)[0])
 
 
-def sampling_step(torch, scene, batch, gen, fused=True):
+def sampling_step(torch, scene, batch, gen, fused=True, text_emb=None):
     """One DDPM step of the ``fused`` engine (True: the 3-D engine, "rows":
     the rows engine) at t = T - 1 on fresh inputs (the step a 1000-step
-    sample runs T times), as a callable."""
+    sample runs T times), as a callable; a text model's step with the
+    contexts of ``text_emb``."""
     from diffuscene_tpu_torch.diffusion import p_sample_step
 
     cfg = scene.cfg
-    denoise = scene._denoise_fn(scene.make_condition(batch), fused=fused)
-    x_t = torch.randn(batch, 12, 62, generator=gen, device="cuda")
-    noise = torch.randn(batch, 12, 62, generator=gen, device="cuda")
-    t_last = torch.full((batch,), T - 1, dtype=torch.long, device="cuda")
+    denoise = scene._denoise_fn(*scene.make_condition(batch, text_emb=text_emb), fused=fused)
+    x_t = torch.randn(batch, 12, 62, generator=gen, device=DEV)
+    noise = torch.randn(batch, 12, 62, generator=gen, device=DEV)
+    t_last = torch.full((batch,), T - 1, dtype=torch.long, device=DEV)
     return lambda: p_sample_step(scene.sched, cfg.model_mean_type, cfg.model_var_type, denoise,
                                  x_t, t_last, noise, True)
 
@@ -1086,7 +1130,7 @@ def phase_drift(torch, scene):
     from diffuscene_tpu_torch.utils.convert import denoiser_tree
 
     cfg, tol, net = scene.cfg, FORWARD_TOL["float32"], scene.denoiser
-    cond = scene.make_condition(DRIFT_B)
+    cond, _ = scene.make_condition(DRIFT_B)
     paths = {name: scene._denoise_fn(cond, fused=f)
              for name, f in (("3-D", True), ("rows", "rows"), ("module", False))}
     prep = inf.prepare_inference_params(net, denoiser_tree(net), num_timesteps=T)
@@ -1386,12 +1430,13 @@ def scene_trainer(torch, config_path, device, data_dir):
     """A config's scene model and Trainer on ``device``, weights from the
     seed, and its train split of the synthetic dataset at ``data_dir``
     through the copied data pipeline."""
-    from diffuscene_tpu_torch.data.factory import get_dataset_raw_and_encoded
+    from diffuscene_tpu_torch.data.factory import (apply_text_emb_dim_default,
+                                                   get_dataset_raw_and_encoded)
     from diffuscene_tpu_torch.models import SceneDiffusion, SceneModelConfig
     from diffuscene_tpu_torch.train.trainer import Trainer
     from diffuscene_tpu_torch.utils.config import load_config
 
-    cfg = load_config(config_path)
+    cfg = apply_text_emb_dim_default(load_config(config_path))
     data = dict(cfg["data"], dataset_directory=data_dir,
                 annotation_file=os.path.join(data_dir, "splits.csv"))
     _, ds = get_dataset_raw_and_encoded(data, augmentations=data.get("augmentations"),
@@ -1659,49 +1704,69 @@ def task_model(torch, config_path):
     return SceneDiffusion(cfg, device=DEV).init(torch.Generator().manual_seed(SEED))
 
 
-def task_sample(torch, scene, label, card, **task):
-    """One DDPM-1000 task sample of TASK_B scenes through
-    ``scene.sample(fused=True, **task)``, every ResnetBlock on B1 and
-    mid_attn on B2: exactly 28,000 and 1,000 launches.  At every
-    TASK_CHECK_EVERY-th step the 3-D engine's forward (the module's exact
+def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=None, **task):
+    """One DDPM-1000 sample of ``batch`` scenes through
+    ``scene.sample(fused=fused, **task)``: with ``fused=True`` every
+    ResnetBlock on B1 and mid_attn on B2, exactly 28,000 and 1,000
+    launches; with ``fused="rows"`` every chain on B4, exactly 19,000.  At
+    every TASK_CHECK_EVERY-th step the engine's forward (the module's exact
     GELU, as phase 15's gate) on that step's x_t, spliced as the sampler
     spliced it, is held against the module's: within FORWARD_TOL f32, or
-    the phase fails naming the step.  The check's launches are not counted
-    and its time (measured, synchronised) is taken out of the wall time.
-    Returns (the sample, a summary)."""
+    the phase fails naming the step.  The check's launches and
+    cross-attention contexts are not counted and its time (measured,
+    synchronised) is taken out of the wall time.  ``step`` (default: the
+    task's step, task_step) is the step a 20-step profile times.  Returns
+    (the sample, a summary with the cross-attention contexts made)."""
     from diffuscene_tpu_torch.models import inference as inf
     from diffuscene_tpu_torch.ops import attention as at
+    from diffuscene_tpu_torch.ops import fused_level as fl
     from diffuscene_tpu_torch.ops import fused_resblock as rb
     from diffuscene_tpu_torch.utils.convert import denoiser_tree
 
     net, tol = scene.denoiser, FORWARD_TOL["float32"]
+    counters = ((fl.apply_chain,) if fused == "rows"
+                else (rb.fused_resnet_block, at.fused_set_attention))
+    expected = (19 * T,) if fused == "rows" else (28 * T, T)
     make_fn = scene._denoise_fn
     errs, info = [], {"step": 0, "check_s": 0.0}
 
-    def checked(condition, fused=False):
-        fn = make_fn(condition, fused=fused)
-        module = make_fn(condition, fused=False)
+    def checked(condition, condition_cross=None, fused=False):
+        fn = make_fn(condition, condition_cross, fused=fused)
+        module = make_fn(condition, condition_cross, fused=False)
+        made = inf.cross_context.calls
         prep = inf.prepare_inference_params(net, denoiser_tree(net), num_timesteps=T)
-        ctx = inf.precompute_conditioning(net, prep, condition)
+        ctx = inf.precompute_conditioning(net, prep, condition, condition_cross)
+        inf.cross_context.calls = made
         films = list(ctx["film_c"].values())
         # the cond-FiLM rows B1 reads: materialized (B, N, 2C), and how far
         # each scene's rows are from the first scene's
         info["film_rows_materialized"] = all(f.is_contiguous() and 0 not in f.stride()
                                              for f in films)
         info["film_spread"] = max((f - f[:1]).abs().max().item() for f in films)
+        if fused == "rows":
+            chains = inf.prepare_chain_params(net, prep, frozenset(ctx["film_c"]))
+            rows = {"film_c2": {k: v.reshape(-1, v.shape[-1]).contiguous()
+                                for k, v in ctx["film_c"].items()}, "cross": ctx["cross"]}
+
+            def engine(x, t):
+                return inf.fused_unet1d_forward_rows(net, prep, chains, x, t, rows,
+                                                     exact_gelu=True)
+        else:
+            def engine(x, t):
+                return inf.fused_unet1d_forward(net, prep, x, t, cond_ctx=ctx, exact_gelu=True)
 
         def gated(x, t):
             step = info["step"]
             info["step"] += 1
             if step % TASK_CHECK_EVERY == 0:
-                counts = (rb.fused_resnet_block.launches, at.fused_set_attention.launches)
+                counts = [c.launches for c in counters]
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                got = inf.fused_unet1d_forward(net, prep, x, t, cond_ctx=ctx, exact_gelu=True)
-                errs.append((step, (got - module(x, t)).abs().max()))
+                errs.append((step, (engine(x, t) - module(x, t)).abs().max()))
                 torch.cuda.synchronize()
                 info["check_s"] += time.perf_counter() - t0
-                rb.fused_resnet_block.launches, at.fused_set_attention.launches = counts
+                for c, n in zip(counters, counts):
+                    c.launches = n
             return fn(x, t)
 
         return gated
@@ -1710,44 +1775,52 @@ def task_sample(torch, scene, label, card, **task):
     scene._denoise_fn = checked
     try:
         torch.cuda.synchronize()
-        rb.fused_resnet_block.launches = at.fused_set_attention.launches = 0
+        for c in counters:
+            c.launches = 0
+        inf.cross_context.calls = 0
         t0 = time.perf_counter()
-        out = scene.sample(TASK_B, generator=gen, clip_denoised=True, fused=True, **task)
+        out = scene.sample(batch, generator=gen, clip_denoised=True, fused=fused, **task)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0 - info["check_s"]
-        launches = (rb.fused_resnet_block.launches, at.fused_set_attention.launches)
+        launches = tuple(c.launches for c in counters)
+        contexts = inf.cross_context.calls
     finally:
         del scene._denoise_fn
     worst = torch.stack([e for _, e in errs]).cpu()
     bad = [s for (s, _), e in zip(errs, worst.tolist()) if not e <= tol]
     finite = bool(torch.isfinite(out).all())
-    summary = {"B": TASK_B, "steps": T, "wall_s": wall, "scenes_per_s": TASK_B / wall,
+    engine = "rows engine" if fused == "rows" else "3-D engine"
+    summary = {"B": batch, "steps": T, "wall_s": wall, "scenes_per_s": batch / wall,
                "check_s": info["check_s"], "launches": list(launches),
-               "checked_steps": len(errs), "worst_engine_vs_module": worst.max().item(),
+               "cross_contexts": contexts, "checked_steps": len(errs),
+               "worst_engine_vs_module": worst.max().item(),
                "film_spread": info["film_spread"],
                "film_rows_materialized": info["film_rows_materialized"]}
-    print(f"tasks: {label}: {T}-step DDPM, B={TASK_B}, f32, fused=True: shape="
-          f"{tuple(out.shape)} finite={finite} resblock_launches={launches[0]} "
-          f"attention_launches={launches[1]} wall_s={wall:.3f} scenes_per_s="
-          f"{TASK_B / wall:.3f} (the {len(errs)} checks' {info['check_s']:.3f} s taken out); "
-          f"3-D engine vs module every {TASK_CHECK_EVERY} steps: worst max_abs_err "
+    print(f"{label}: {T}-step DDPM, B={batch}, f32, fused={fused!r}: shape="
+          f"{tuple(out.shape)} finite={finite} launches={list(launches)} (expected "
+          f"{list(expected)}) cross_contexts={contexts} wall_s={wall:.3f} scenes_per_s="
+          f"{batch / wall:.3f} (the {len(errs)} checks' {info['check_s']:.3f} s taken out); "
+          f"{engine} vs module every {TASK_CHECK_EVERY} steps: worst max_abs_err "
           f"{worst.max().item():.3e} tol={tol} {'ok' if not bad else 'FAIL'}; cond-FiLM rows "
           f"spread across scenes {info['film_spread']:.3e} (materialized: "
           f"{info['film_rows_materialized']}) | {card}", flush=True)
     if bad:
         i = bad[0]
-        raise RuntimeError(f"{label}: the 3-D engine is {worst[i // TASK_CHECK_EVERY].item():.3e} "
+        raise RuntimeError(f"{label}: the {engine} is {worst[i // TASK_CHECK_EVERY].item():.3e} "
                            f"from the module at step {i} (t={T - 1 - i})")
-    if tuple(out.shape) != (TASK_B, 12, 62) or not finite:
+    if tuple(out.shape) != (batch, 12, 62) or not finite:
         raise RuntimeError(f"{label}: the sample is malformed")
-    if launches != (28 * T, T):
-        raise RuntimeError(f"{label}: expected {28 * T} B1 and {T} B2 launches, counted {launches}")
+    if launches != expected:
+        raise RuntimeError(f"{label}: expected {list(expected)} launches, counted {launches}")
     if not info["film_rows_materialized"]:
         raise RuntimeError(f"{label}: the cond-FiLM rows are not materialized")
-    print(f"profile: f32 {label} step, B={TASK_B}", flush=True)
-    prof = profile_steps(torch, task_step(torch, scene, **task), SAMPLE_PROFILE_STEPS,
-                         1e3 * wall / T, named=ENGINE_KERNELS["float32"])
-    summary.update(busy_ms=prof["busy_ms"], idle_share=prof["idle_share"])
+    print(f"profile: f32 {label} step, B={batch}", flush=True)
+    prof = profile_steps(torch, step or task_step(torch, scene, **task), SAMPLE_PROFILE_STEPS,
+                         1e3 * wall / T,
+                         named=ROWS_KERNELS["float32"] if fused == "rows"
+                         else ENGINE_KERNELS["float32"])
+    summary.update(busy_ms=prof["busy_ms"], idle_share=prof["idle_share"],
+                   kernels_ms=prof["named_ms"])
     return out, summary
 
 
@@ -1762,13 +1835,13 @@ def task_step(torch, scene, partial_boxes=None, input_boxes=None):
     gen = torch.Generator(device=DEV).manual_seed(SEED + 7)
     t = torch.full((TASK_B,), T - 1, dtype=torch.long, device=DEV)
     if input_boxes is not None:
-        fn = scene._denoise_fn(scene.make_condition(
+        fn = scene._denoise_fn(*scene.make_condition(
             TASK_B, arrange_input=scene.arrange_input(input_boxes)), fused=True)
         shape = (TASK_B, 12, cfg.translation_dim + cfg.angle_dim)
         x, noise = (torch.randn(shape, generator=gen, device=DEV) for _ in range(2))
         return lambda: p_sample_step(sched, cfg.model_mean_type, cfg.model_var_type, fn, x, t,
                                      noise, True)
-    fn = scene._denoise_fn(scene.make_condition(TASK_B), fused=True)
+    fn = scene._denoise_fn(*scene.make_condition(TASK_B), fused=True)
     shape = (TASK_B, 12, cfg.point_dim)
     x, noise = (torch.randn(shape, generator=gen, device=DEV) for _ in range(2))
     noise_p = torch.randn(partial_boxes.shape, generator=gen, device=DEV)
@@ -1785,20 +1858,20 @@ def task_step(torch, scene, partial_boxes=None, input_boxes=None):
 def phase_task_samples(torch, card, data_dir):
     """Phase 16 (a) and (b): completion on the flagship config and
     re-arrangement on the rearrange config, f32 at full width, random
-    weights from the seed, through task_sample; the spliced slots and
+    weights from the seed, through checked_sample; the spliced slots and
     channels bit-equal to the inputs, and the rearrange model's cond-FiLM
     rows different across scenes."""
     target, noisy = task_inputs(torch, data_dir)
     partial = target[:, :TASK_PARTIAL]
-    out, comp = task_sample(torch, task_model(torch, FLAGSHIP_CONFIG), "completion", card,
-                            partial_boxes=partial)
+    out, comp = checked_sample(torch, task_model(torch, FLAGSHIP_CONFIG), "tasks: completion",
+                               card, partial_boxes=partial)
     comp["partial_bit_equal"] = bool(torch.equal(out[:, :TASK_PARTIAL], partial))
     print(f"tasks: completion: the first {TASK_PARTIAL} slots equal the partial boxes bit for "
           f"bit: {comp['partial_bit_equal']}", flush=True)
     if not comp["partial_bit_equal"]:
         raise RuntimeError("completion: the first slots are not the partial boxes")
-    out, arr = task_sample(torch, task_model(torch, REARRANGE_CONFIG), "rearrange", card,
-                           input_boxes=noisy)
+    out, arr = checked_sample(torch, task_model(torch, REARRANGE_CONFIG), "tasks: rearrange",
+                              card, input_boxes=noisy)
     arr["kept_bit_equal"] = bool(torch.equal(out[:, :, 3:6], noisy[:, :, 3:6])
                                  and torch.equal(out[:, :, 8:], noisy[:, :, 8:]))
     moved = (out[:, :, :3] - noisy[:, :, :3]).abs().max().item()
@@ -1918,6 +1991,225 @@ def phase_tasks(torch, card):
     return out
 
 
+def text_inputs(torch, data_dir, batch):
+    """The token embeddings of ``batch`` eval scenes (the port's pipeline:
+    the text config's encoding with generate's rewrite, textfix and no
+    permutation, 768-wide hashed tokens), the scenes taken in order and
+    cycled, as a (batch, 50, 768) tensor on the card."""
+    import numpy as np
+
+    from diffuscene_tpu_torch.data.factory import (apply_text_emb_dim_default,
+                                                   get_dataset_raw_and_encoded)
+    from diffuscene_tpu_torch.utils.config import load_config
+
+    cfg = apply_text_emb_dim_default(load_config(TEXT_CONFIG))
+    data = dict(cfg["data"], dataset_directory=data_dir,
+                annotation_file=os.path.join(data_dir, "splits.csv"))
+    data["encoding_type"] = data["encoding_type"].replace("text", "textfix") + "_no_prm"
+    _, ds = get_dataset_raw_and_encoded(data, augmentations=None, split=["test"])
+    embs = [ds[i]["desc_emb"] for i in range(len(ds))]
+    emb = np.stack([embs[i % len(embs)] for i in range(batch)])
+    return torch.from_numpy(emb).to(DEV)
+
+
+def phase_text_samples(torch, card, data_dir):
+    """Phase 17 (a)-(c): the bedroom text model, f32 at full width, random
+    weights from the seed.  (a) DDPM-1000 at TEXT_B through the 3-D engine
+    and (b) at TEXT_ROWS_B through the rows engine, both by checked_sample
+    (exact launch counts, the engine held to the module every
+    TASK_CHECK_EVERY steps, TEXT_CONTEXTS contexts a sample, a 20-step
+    profile), then the cross blocks' device time in a TEXT_B step; (c) the
+    text reaches its own scene: one step of the 3-D engine on one x_t
+    repeated in every scene, with the text rolled by one scene, is the
+    unrolled step's output rolled by one scene (ROLL_TOL) and differs from
+    it (ROLL_MIN_DIFF)."""
+    from diffuscene_tpu_torch.models import inference as inf
+    from diffuscene_tpu_torch.utils.convert import denoiser_tree
+
+    scene = task_model(torch, TEXT_CONFIG)
+    text = text_inputs(torch, data_dir, TEXT_B)
+    out = {}
+    for key, batch, fused in (("ddpm_3d", TEXT_B, True), ("ddpm_rows", TEXT_ROWS_B, "rows")):
+        te = text[:batch]
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
+        _, summary = checked_sample(
+            torch, scene, f"text: {key}", card, batch=batch, fused=fused, text_emb=te,
+            step=sampling_step(torch, scene, batch, gen, fused=fused, text_emb=te))
+        if summary["cross_contexts"] != TEXT_CONTEXTS:
+            raise RuntimeError(f"text: {key}: {summary['cross_contexts']} cross-attention "
+                               f"contexts a sample, expected {TEXT_CONTEXTS}")
+        out[key] = summary
+
+    # the 9 cross blocks of one TEXT_B step alone: their device time
+    net, dt = scene.denoiser, torch.float32
+    prep = inf.prepare_inference_params(net, denoiser_tree(net), num_timesteps=T)
+    cond, cross = scene.make_condition(TEXT_B, text_emb=text)
+    ctx = inf.precompute_conditioning(net, prep, cond, cross)
+    h = torch.randn(TEXT_B * 12, C, generator=torch.Generator(device=DEV).manual_seed(SEED + 9),
+                    device=DEV)
+
+    def cross_blocks():
+        for name in ctx["cross"]:
+            inf._cross_block(prep["misc"], ctx["cross"], name, h, dt, TEXT_B, 12)
+
+    cross_ms = device_ms(torch, cross_blocks, "", SAMPLE_PROFILE_STEPS)
+    busy = out["ddpm_3d"]["busy_ms"]
+    out["ddpm_3d"]["cross_blocks_ms"] = cross_ms
+    out["ddpm_3d"]["cross_blocks_share"] = cross_ms / busy if busy else None
+    print(f"text: the {len(ctx['cross'])} cross-attention blocks of a B={TEXT_B} step: "
+          f"{cross_ms:.3f} ms of device time (profiler, {SAMPLE_PROFILE_STEPS} steps), "
+          f"{cross_ms / busy if busy else float('nan'):.1%} of the step's busy "
+          f"{busy} ms | {card}", flush=True)
+
+    # (c) one x_t in every scene: the outputs differ only by the text
+    g = torch.Generator(device=DEV).manual_seed(SEED + 10)
+    x = torch.randn(1, 12, 62, generator=g, device=DEV).expand(TEXT_B, 12, 62).contiguous()
+    t = torch.full((TEXT_B,), T - 1, dtype=torch.long, device=DEV)
+    step = scene._denoise_fn(*scene.make_condition(TEXT_B, text_emb=text), fused=True)
+    rolled = scene._denoise_fn(*scene.make_condition(TEXT_B, text_emb=text.roll(1, 0)),
+                               fused=True)
+    base, moved = step(x, t), rolled(x, t)
+    roll_err = (moved - base.roll(1, 0)).abs().max().item()
+    diff = (moved - base).abs().max().item()
+    ok = roll_err <= ROLL_TOL and diff > ROLL_MIN_DIFF
+    print(f"text: scene roll, B={TEXT_B}, one x_t in every scene, the text rolled by one scene: "
+          f"output vs the rolled output max_abs_err {roll_err:.3e} (tol {ROLL_TOL}), vs the "
+          f"unrolled output {diff:.3e} (must exceed {ROLL_MIN_DIFF}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"text: the text does not reach its own scene: roll error "
+                           f"{roll_err}, difference {diff}")
+    out["roll"] = {"max_abs_err": roll_err, "diff_from_unrolled": diff}
+    return out
+
+
+def phase_train_text(torch, data_dir):
+    """Phase 17 (d): the text config's train step at its B=128 on the card
+    against the same step on the CPU (one batch with its 768-wide token
+    embeddings, t and noise: the loss and every parameter's gradient),
+    every cross-attention parameter and fc_text_f with a non-zero gradient;
+    then TEXT_TRAIN_STEPS steps on the card (median ms/step, peak memory)."""
+    from diffuscene_tpu_torch.data.loader import DataLoader
+
+    ds, bsz, card = scene_trainer(torch, TEXT_CONFIG, DEV, data_dir)
+    _, _, cpu = scene_trainer(torch, TEXT_CONFIG, "cpu", data_dir)
+    batches = DataLoader(ds, bsz, shuffle=True, seed=SEED).infinite()
+    host = next(batches)
+    g = torch.Generator().manual_seed(SEED + 33)
+    t = torch.randint(0, T, (bsz,), generator=g)
+    noise = torch.randn(bsz, 12, 62, generator=g)
+    dev_batch = card.put_batch(host)
+    if tuple(dev_batch["text_emb"].shape) != (bsz, 50, 768):
+        raise RuntimeError(f"text train: the batch's text_emb is {dev_batch['text_emb'].shape}")
+    loss_c, grads_c = step_grads(torch, card, dev_batch, t.to(DEV), noise.to(DEV))
+    loss_p, grads_p = step_grads(torch, cpu, cpu.put_batch(host), t, noise)
+    worst, at, whole = grad_rel_l2(grads_c, grads_p)
+    text_params = [i for i, n in enumerate(card.names) if "attn_cross" in n or ".2.fn." in n
+                   or "fc_text_f" in n]
+    zero = [card.names[i] for i in text_params if not grads_c[i].abs().max().item() > 0]
+    del grads_c, grads_p, cpu
+    loss_rel = abs(loss_c - loss_p) / abs(loss_p)
+    ok = (loss_rel <= TRAIN_STEP_TOL["loss"] and worst <= TRAIN_STEP_TOL["grad_rel_l2"]
+          and len(text_params) == TEXT_CONTEXTS * 6 + 2 and not zero)
+    print(f"train text, card vs cpu (B={bsz}, f32, TF32 off): loss {loss_c:.7f} vs "
+          f"{loss_p:.7f} (relative {loss_rel:.3e}), gradient relative L2: worst parameter "
+          f"{worst:.3e} ({card.names[at]}), whole {whole:.3e}; tol={TRAIN_STEP_TOL}; "
+          f"{len(text_params)} text parameters, {len(zero)} with a zero gradient "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"the text step disagrees between card and CPU: loss {loss_rel}, "
+                           f"gradients {worst} at {card.names[at]}; zero gradients: {zero}")
+    _, step_ms, peak_gb, first, last = train_steps(torch, card, batches, TEXT_TRAIN_STEPS,
+                                                   "train text")
+    return {"config": TEXT_CONFIG, "B": bsz, "dtype": "float32", "steps": TEXT_TRAIN_STEPS,
+            "ms_per_step": step_ms, "peak_mem_gb": peak_gb, "loss_first5": first,
+            "loss_last5": last, "text_parameters": len(text_params),
+            "card_vs_cpu": {"loss_rel": loss_rel, "grad_rel_l2_worst": worst,
+                            "grad_rel_l2": whole}}
+
+
+def phase_text_cli(torch, data_dir, out_dir, card):
+    """Phase 17 (e): train_diffusion on the text config for TEXT_CLI_EPOCHS
+    epochs, then generate_diffusion --fused (DDPM-1000) on its checkpoint,
+    once with --fix_order and once with --scene_id: GEN_SCENES scenes in
+    one batch, exactly 28,000 B1 and 1,000 B2 launches, a box file and a
+    sentence file a scene (every --scene_id sentence of one room, the
+    --fix_order ones of several)."""
+    from diffuscene_tpu_torch.cli import generate_diffusion, train_diffusion
+    from diffuscene_tpu_torch.data.factory import get_raw_dataset
+    from diffuscene_tpu_torch.ops import attention as at
+    from diffuscene_tpu_torch.ops import fused_resblock as rb
+    from diffuscene_tpu_torch.utils.config import load_config
+
+    cfg_path = synthetic_config(TEXT_CONFIG, data_dir, out_dir, "text.yaml")
+    t0 = time.perf_counter()
+    train_diffusion.main([cfg_path, out_dir, "--experiment_tag", "text", "--seed", str(SEED),
+                          "--epochs", str(TEXT_CLI_EPOCHS), "--device", DEV])
+    out = {"train_s": time.perf_counter() - t0}
+    scene_id = get_raw_dataset(load_config(cfg_path)["data"], split=["test"]).scene_ids[0]
+    for label, flags in (("fix_order", ["--fix_order"]), ("scene_id", ["--scene_id", scene_id])):
+        gen_dir = os.path.join(out_dir, f"generated_{label}")
+        torch.cuda.synchronize()
+        rb.fused_resnet_block.launches = at.fused_set_attention.launches = 0
+        t0 = time.perf_counter()
+        stats = generate_diffusion.main(
+            [cfg_path, gen_dir, "--weight_file", os.path.join(out_dir, "text"), "--n_sequences",
+             str(GEN_SCENES), "--batch_size", str(GEN_SCENES), "--clip_denoised", "--fused",
+             "--seed", str(SEED), "--device", DEV, *flags])
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        launches = (rb.fused_resnet_block.launches, at.fused_set_attention.launches)
+        files = os.listdir(gen_dir)
+        n_boxes = len([f for f in files if f.endswith("_boxes.npz")])
+        texts = []
+        for f in sorted(files):
+            if f.endswith(".txt") and f != "iou_states.txt":
+                with open(os.path.join(gen_dir, f)) as fh:
+                    texts.append(fh.read())
+        # the first sentence lists the scene's objects; the relations after
+        # it follow the eval set's fixed rotation, drawn at each read
+        rooms = {w.split(" . ")[0] for w in texts}
+        ok = (launches == (28 * T, T) and n_boxes == len(texts) == GEN_SCENES
+              and stats.get("n_scenes") == GEN_SCENES
+              and all(w.startswith("The room has ") for w in texts)
+              and (len(rooms) == 1) == (label == "scene_id"))
+        print(f"cli: generate_diffusion --fused {' '.join(flags)} {GEN_SCENES} scenes (text, EMA "
+              f"weights) {gen_s:.3f} s, launches B1={launches[0]} B2={launches[1]}, {n_boxes} "
+              f"box files, {len(texts)} sentence files ({len(rooms)} distinct rooms, "
+              f"{len(set(texts))} distinct sentences), stats {stats} {'ok' if ok else 'FAIL'} "
+              f"| {card}", flush=True)
+        if not ok:
+            raise RuntimeError(f"the text CLI ({label}) failed: launches {launches}, {n_boxes} "
+                               f"box files, {len(texts)} sentence files, {len(rooms)} rooms")
+        out[label] = {"generate_s": gen_s, "launches": list(launches),
+                      "distinct_rooms": len(rooms), "distinct_sentences": len(set(texts))}
+    print(f"cli: train_diffusion text config {TEXT_CLI_EPOCHS} epochs {out['train_s']:.3f} s",
+          flush=True)
+    return out
+
+
+def phase_text(torch, card):
+    """Phase 17: text-conditioned generation, f32 at full width, on a
+    synthetic cached dataset made from the seed."""
+    import shutil
+
+    from diffuscene_tpu_torch.data import make_synthetic_cached_dataset
+
+    for d in (TEXT_DATA, TEXT_OUT):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(TEXT_OUT)
+    make_synthetic_cached_dataset(TEXT_DATA, n_scenes=TRAIN_SCENES, seed=SEED)
+    t0 = time.perf_counter()
+    out = {"card": card, "samples": phase_text_samples(torch, card, TEXT_DATA)}
+    torch.cuda.empty_cache()
+    out["train"] = phase_train_text(torch, TEXT_DATA)
+    torch.cuda.empty_cache()
+    out["cli"] = phase_text_cli(torch, TEXT_DATA, TEXT_OUT, card)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"text: phase 17 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def profile_steps(torch, step, n, step_ms, named=()):
     """Where a step's time goes: torch.profiler over ``n`` steady steps;
     device busy time (the sum of the kernels' times, one stream), the idle
@@ -1938,7 +2230,7 @@ def profile_steps(torch, step, n, step_ms, named=()):
     busy_us = sum(e.self_device_time_total for e in kernels)
     if not busy_us:
         print("profile: the profiler saw no device time (not measured)", flush=True)
-        return {"busy_ms": None, "idle_share": None, "top": []}
+        return {"busy_ms": None, "idle_share": None, "top": [], "named_ms": {}}
     busy_ms = busy_us / n / 1e3
     print(f"profile: {n} steps, device busy {busy_ms:.3f} ms/step; unprofiled step {step_ms:.3f} "
           f"ms, idle share {1 - busy_ms / step_ms:.3f}; profiled wall {wall_us / n / 1e3:.3f} "
@@ -1948,16 +2240,19 @@ def profile_steps(torch, step, n, step_ms, named=()):
         print(f"profile:   {e.self_device_time_total / busy_us:6.1%} "
               f"{e.self_device_time_total / n / 1e3:8.3f} ms/step {e.count // n:4d} calls/step "
               f"{e.key[:90]}", flush=True)
+    named_ms = {}
     for label, match in named:
         mine = [e for e in kernels if match in e.key]
         us = sum(e.self_device_time_total for e in mine)
         if not us:
             raise RuntimeError(f"the profile shows no device time of {label} ({match})")
+        named_ms[label] = us / n / 1e3
         print(f"profile: {label} ({match}) {us / n / 1e3:.3f} ms/step, "
               f"{sum(e.count for e in mine) // n} calls/step, {us / busy_us:.1%} of the device "
               f"time", flush=True)
     return {"busy_ms": busy_ms, "idle_share": 1 - busy_ms / step_ms,
-            "top": [[e.key[:60], e.self_device_time_total / n / 1e3] for e in top[:5]]}
+            "top": [[e.key[:60], e.self_device_time_total / n / 1e3] for e in top[:5]],
+            "named_ms": named_ms}
 
 
 def main(argv):
@@ -2018,6 +2313,10 @@ def main(argv):
         print(json.dumps({"tasks": phase_tasks(torch, card)}))
         print(card_line())
         return 0
+    if only == "--only-text":       # text-conditioned generation alone: phase 17
+        print(json.dumps({"text": phase_text(torch, card)}))
+        print(card_line())
+        return 0
     if only == "--only-f32-engine":  # the flagship config's own dtype: phases 3 + 9 and 15, f32
         scene32 = phase_forward(torch, torch.float32)
         phase_rows_sample(torch, scene32, card)
@@ -2074,9 +2373,15 @@ def main(argv):
     # through the 3-D engine (B1 and B2), and the rearrange training
     tasks = phase_tasks(torch, card)
     task_launches = {k: v["launches"] for k, v in tasks["samples"].items()}
+    torch.cuda.empty_cache()
+    # this slice's main path: text-conditioned generation through both
+    # engines (B1 and B2, B4), the text train step and the text CLIs
+    text = phase_text(torch, card)
+    text_launches = {k: v["launches"] for k, v in text["samples"].items() if k != "roll"}
 
     print(json.dumps({"train": train}))
     print(json.dumps({"tasks": tasks}))
+    print(json.dumps({"text": text}))
     print(json.dumps({"kernels": [{
         "name": "fused_chain",
         "route": "cuda",
@@ -2095,6 +2400,7 @@ def main(argv):
         "f32_graph_ms": fwd32[6],
         "f32_plain_ms": fwd32[2],
         "f32_bound_ms": chain32_bound_ms,
+        "text_launches": text_launches["ddpm_rows"][0],
     }, {
         "name": "chamfer_nn",
         "route": "cuda",
@@ -2127,6 +2433,7 @@ def main(argv):
         "f32_plain_ms": rb32_fwd[2],
         "f32_bound_ms": rb32_bound_ms,
         "task_launches": {k: v[0] for k, v in task_launches.items()},
+        "text_launches": text_launches["ddpm_3d"][0],
     }, {
         "name": "set_attention",
         "route": "cuda",
@@ -2146,6 +2453,7 @@ def main(argv):
         "f32_plain_ms": at_main["float32"]["plain"],
         "f32_bound_ms": at_main["float32"]["bound"],
         "task_launches": {k: v[1] for k, v in task_launches.items()},
+        "text_launches": text_launches["ddpm_3d"][1],
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -13,16 +13,25 @@ statistics, with ``iou_states.txt`` as the JAX CLI writes it).  The JAX CLI
 names that file metrics.json.  ``--device`` picks the card (default) or
 ``--device cpu``.
 
+A text model (``configs/text/*``) is conditioned on eval scenes'
+descriptions: the eval encoding's ``text`` becomes ``textfix`` (the
+sentence templates without random draws; the eval set keeps the config's
+augmentations, as the JAX CLI's does, so a scene's relation words follow the
+fixed rotation drawn at each read), ``--scene_id`` pins every sequence to one
+named eval scene, ``--fix_order`` walks the eval set in order, and otherwise
+the scenes are drawn from ``np.random.default_rng(seed)`` (the JAX CLI's
+draws).  Each batch's ``desc_emb`` is its ``text_emb``, and each scene's
+sentence goes to ``{idx:05d}.txt``.
+
     python -m diffuscene_tpu_torch.cli.generate_diffusion CONFIG OUT \\
         --weight_file out/<tag> --n_sequences 64 --fused --dpm
 
-The flags that need a render, the mesh catalog or an eval scene's
-conditions raise: ``--render``, ``--render_perspective``,
-``--with_rotating_camera``, ``--save_mesh``, ``--judge_mesh_intersec`` and a
-catalog for retrieval (``eval/render.py`` and ``eval/retrieval.py`` are not
-ported, ROADMAP A8), ``--scene_id`` / ``--fix_order`` (they choose the
-scene whose text, room mask or floor plan conditions a sample; none of
-those is ported, ROADMAP A5, A8) and ``--profile_dir``.  The JAX CLI's
+The flags that need a render or the mesh catalog raise: ``--render``,
+``--render_perspective``, ``--with_rotating_camera``, ``--save_mesh``,
+``--judge_mesh_intersec`` and a catalog for retrieval (``eval/render.py``
+and ``eval/retrieval.py`` are not ported, ROADMAP A8), as do
+``--profile_dir`` and a room-mask config (its feature extractor is not
+ported, ROADMAP A8).  The JAX CLI's
 flags that only shape those outputs (camera, texture, floor, mesh format)
 are not taken.
 """
@@ -41,10 +50,6 @@ _REFUSED = {
     "save_mesh": "mesh export needs eval/retrieval.py, not ported yet (ROADMAP A8)",
     "judge_mesh_intersec": "mesh intersection needs eval/retrieval.py (ROADMAP A8)",
     "path_to_pickled_3d_futute_models": "mesh retrieval needs eval/retrieval.py (ROADMAP A8)",
-    "scene_id": "it picks an eval scene's text / room mask / floor plan; none is ported "
-                "(ROADMAP A5, A8)",
-    "fix_order": "it orders the eval scenes whose text / room mask / floor plan condition "
-                 "a sample; none is ported (ROADMAP A5, A8)",
     "profile_dir": "use torch.profiler around SceneDiffusion.sample (chip_smoke.py does)",
 }
 
@@ -72,8 +77,10 @@ def main(argv=None):
                         help="the 3-D serving engine: ResnetBlocks on B1, mid_attn on B2")
     parser.add_argument("--compute_intersec", action="store_true")
     parser.add_argument("--judge_mesh_intersec", action="store_true", help="not ported (A8)")
-    parser.add_argument("--scene_id", default=None, help="not ported (A5, A8)")
-    parser.add_argument("--fix_order", action="store_true", help="not ported (A5, A8)")
+    parser.add_argument("--scene_id", default=None,
+                        help="condition every sequence on this eval scene (text models)")
+    parser.add_argument("--fix_order", action="store_true",
+                        help="condition the sequences on the eval scenes in order (text models)")
     parser.add_argument("--render", action="store_true", help="not ported (A8)")
     parser.add_argument("--render_top2down", dest="render", action="store_true",
                         help="alias for --render")
@@ -93,7 +100,7 @@ def main(argv=None):
 
     import torch
 
-    from ..data.factory import get_dataset_raw_and_encoded
+    from ..data.factory import apply_text_emb_dim_default, get_dataset_raw_and_encoded
     from ..eval.metrics import categorical_kl
     from ..eval.postprocess import split_network_samples
     from ._box_stats import append_iou_states, mean_box_stats, scene_box_stats
@@ -105,10 +112,14 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     config = load_config(args.config_file)
+    apply_text_emb_dim_default(config)
     os.makedirs(args.output_directory, exist_ok=True)
 
-    # eval-time encoding (generate_diffusion.py:201-208): no permutation
+    # eval-time encoding (generate_diffusion.py:201-208): text -> textfix,
+    # no permutation
     enc = config["data"]["encoding_type"]
+    if "textfix" not in enc and "text" in enc:
+        enc = enc.replace("text", "textfix")
     if "no_prm" not in enc:
         enc = enc + "_no_prm"
     raw, eval_ds = get_dataset_raw_and_encoded(
@@ -129,20 +140,48 @@ def main(argv=None):
         print(f"loaded weights from {args.weight_file}"
               + ("" if args.no_ema else " (the EMA weights when the checkpoint has them)"))
 
+    # the scene that conditions each sequence (generate_diffusion.py:268-301)
+    given_scene_id = None
+    if args.scene_id is not None:
+        ids = list(raw.scene_ids)
+        if args.scene_id not in ids:
+            raise SystemExit(f"--scene_id {args.scene_id!r} not in the eval split "
+                             f"({len(ids)} scenes)")
+        given_scene_id = ids.index(args.scene_id)
+        print(f"conditioning all sequences on scene {args.scene_id!r} (index {given_scene_id})")
+    idx_rng = np.random.default_rng(args.seed)
+
+    def cond_index(i: int) -> int:
+        if given_scene_id is not None:
+            return given_scene_id
+        if args.fix_order:
+            return i % len(eval_ds)
+        return int(idx_rng.integers(len(eval_ds)))
+
     gen = torch.Generator(device=scene.device).manual_seed(args.seed)
     all_boxes = []
     n_done = 0
     while n_done < args.n_sequences:
+        batch_indices = [cond_index(n_done + i) for i in range(args.batch_size)]
+        text_emb, descriptions = None, []
+        if cfg.text_condition:
+            conds = [eval_ds[idx] for idx in batch_indices]
+            descriptions = [c["description"] for c in conds]
+            text_emb = torch.from_numpy(np.stack([c["desc_emb"] for c in conds])).to(scene.device)
         samples = scene.sample(args.batch_size, generator=gen, clip_denoised=args.clip_denoised,
                                fused=args.fused, ddim=args.ddim, ddim_steps=args.ddim_steps,
-                               dpm=args.dpm, dpm_steps=args.dpm_steps)
+                               dpm=args.dpm, dpm_steps=args.dpm_steps, text_emb=text_emb)
         take = min(args.batch_size, args.n_sequences - n_done)
         for i, boxes in enumerate(split_network_samples(scene.spec,
                                                         samples[:take].float().cpu().numpy())):
             boxes = eval_ds.post_process(boxes)
             all_boxes.append(boxes)
-            np.savez(os.path.join(args.output_directory, f"{n_done + i:05d}_boxes.npz"),
+            idx = n_done + i
+            np.savez(os.path.join(args.output_directory, f"{idx:05d}_boxes.npz"),
                      **{k: np.asarray(v) for k, v in boxes.items()})
+            if descriptions:
+                with open(os.path.join(args.output_directory, f"{idx:05d}.txt"), "w") as f:
+                    f.write(descriptions[i])
         n_done += take
         print(f"sampled {n_done}/{args.n_sequences}")
 

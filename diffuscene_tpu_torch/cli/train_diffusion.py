@@ -70,7 +70,8 @@ def main(argv=None):
 
     import torch
 
-    from ..data.factory import get_dataset_raw_and_encoded, get_encoded_dataset
+    from ..data.factory import (apply_text_emb_dim_default, get_dataset_raw_and_encoded,
+                                get_encoded_dataset)
     from ..data.loader import DataLoader
     from ..models.scene_model import SceneDiffusion, SceneModelConfig
     from ..train.trainer import Trainer
@@ -83,6 +84,9 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     config = load_config(args.config_file)
+    # a text model's token width (768 BERT-style, 50 GloVe, 512 CLIP) for
+    # the data pipeline, so it matches fc_text_f
+    apply_text_emb_dim_default(config)
     np.random.seed(args.seed)
 
     experiment_tag = args.experiment_tag or os.path.basename(args.config_file).rsplit(".", 1)[0]

@@ -1,8 +1,9 @@
 """Host-side encoding pipeline: raw cached rooms -> fixed-shape training arrays.
 
 Copy of ``diffuscene_tpu/data/encoding.py`` (numpy only), so the port does
-not import the JAX package.  The text encodings raise: ``data/text.py`` is
-not ported yet (ROADMAP A5).
+not import the JAX package.  The ``text`` / ``textfix`` encodings run the
+port's ``data/text.py`` on the pipeline's own generator, after the
+augmentations and before scaling, as the JAX pipeline does.
 
 Functional re-design of the reference decorator stack
 (`scene_synthesis/datasets/threed_front_dataset.py:228-1072`).  Instead of a
@@ -341,8 +342,12 @@ class EncodingPipeline:
             self.permute_keys.append("objfeats_32" if self.lat32 else "objfeats")
         self._text_encoder = None
         if self.add_text:
-            raise NotImplementedError(
-                "text encodings (data/text.py) are not ported yet (ROADMAP A5)")
+            from .text import TextDescriptionGenerator
+
+            self._text_encoder = TextDescriptionGenerator(
+                self.class_labels, eval=self.text_eval,
+                emb_dim=self.text_emb_dim, glove_path=self.glove_path,
+            )
 
     def reseed(self, seed: int):
         self._rng = np.random.default_rng(seed)

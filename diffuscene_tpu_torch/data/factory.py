@@ -68,23 +68,12 @@ def get_dataset_raw_and_encoded(
     return raw, EncodedDataset(raw, encoding, keep_room_layout=keep_room_layout)
 
 
-def text_emb_dim_for_network(network: Dict) -> int:
-    """Token-embedding width implied by the network's text flags, so the data
-    pipeline and the model's fc_text_f projection agree (the reference embeds
-    with GloVe-50 at train time and runs frozen BERT-768 in the model,
-    diffusion_scene_layout_ddpm.py:47-52,210-221; here both are precomputed
-    host-side)."""
-    if network.get("text_glove_embedding"):
-        return 50
-    if network.get("text_clip_embedding"):
-        return 512
-    return 768  # BERT-style token embeddings
-
-
 def apply_text_emb_dim_default(config: Dict) -> Dict:
     """Derive ``data.text_emb_dim`` from the network's text flags on a full
     (reference-format) config, in place.  Single entry point for every CLI so
     the data pipeline and fc_text_f can never disagree."""
+    from ..models.scene_model import text_emb_dim_for_network
+
     if config.get("network", {}).get("text_condition"):
         config.setdefault("data", {}).setdefault(
             "text_emb_dim", text_emb_dim_for_network(config["network"]))

@@ -20,9 +20,13 @@ ChannelLayerNorm eps is 1e-5 for float32 activations and 1e-3 otherwise.
 ``Unet1D(ws_fast_vjp=True)`` gives every WSDense the JAX package's
 residual-light backward (``_WSStandardizeFast``, an autograd Function).
 
-Not ported yet: the text cross-attention blocks (ROADMAP A5), the
-learned/random Fourier time embedding and unequal ``dim_mults`` (ROADMAP
-A9).
+``Unet1D(text_condition=True)`` has the text models' 9 linear
+cross-attention blocks (``LinearAttentionCross``): one between block1 and
+block2 of every down and up level (slot 2 of the level's ModuleList, the
+reference's ``attncross``) and ``mid_attn_cross`` before ``mid_attn``.
+
+Not ported yet: the learned/random Fourier time embedding and unequal
+``dim_mults`` (ROADMAP A9).
 """
 from __future__ import annotations
 
@@ -286,14 +290,41 @@ class Attention(nn.Module):
         return self.to_out(out)
 
 
+class LinearAttentionCross(nn.Module):
+    """Linear cross-attention from the objects to text tokens
+    (denoise_net.py:261-332): q = ``to_q``(x) softmaxed over each head's
+    features and scaled by dim_head^-1/2; k, v = ``to_kv``(context), k
+    softmaxed over the tokens (pads included, no mask); the per-head
+    (D x D) contexts as the diagonal blocks of one (H*D, H*D) matrix a
+    scene; then ``to_out`` and the output LayerNorm."""
+
+    def __init__(self, dim: int, context_dim: int, heads: int = 4, dim_head: int = 32,
+                 dtype=torch.float32, device=None):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        hidden = heads * dim_head
+        self.to_q = Conv1x1(dim, hidden, bias=False, dtype=dtype, device=device)
+        self.to_kv = Conv1x1(context_dim, hidden * 2, bias=False, dtype=dtype, device=device)
+        self.to_out = nn.Sequential(Conv1x1(hidden, dim, dtype=dtype, device=device),
+                                    ChannelLayerNorm(dim, device=device))
+
+    def forward(self, x, context):
+        q = seg_softmax_heads(self.to_q(x), self.heads, self.dim_head) * (self.dim_head ** -0.5)
+        k, v = self.to_kv(context).chunk(2, dim=-1)   # (B, L, H*D) each
+        k = torch.softmax(k, dim=1)                   # over the tokens
+        ctx = torch.einsum("blx,bly->bxy", k, v)
+        ctx = ctx * head_blockmask(self.heads, self.dim_head, ctx.dtype, ctx.device)
+        return self.to_out(torch.einsum("bnx,bxy->bny", q, ctx))
+
+
 class PreNorm(nn.Module):
     def __init__(self, dim: int, fn: nn.Module, device=None):
         super().__init__()
         self.fn = fn
         self.norm = ChannelLayerNorm(dim, device=device)
 
-    def forward(self, x):
-        return self.fn(self.norm(x))
+    def forward(self, x, *context):
+        return self.fn(self.norm(x), *context)
 
 
 class Residual(nn.Module):
@@ -301,8 +332,8 @@ class Residual(nn.Module):
         super().__init__()
         self.fn = fn
 
-    def forward(self, x):
-        return x + self.fn(x)
+    def forward(self, x, *context):
+        return x + self.fn(x, *context)
 
 
 def _mlp(widths: Sequence[int], exact_gelu: bool, dtype, device) -> nn.Sequential:
@@ -331,8 +362,9 @@ class Unet1D(nn.Module):
     """Permutation-equivariant set denoiser (reference Unet1D,
     denoise_net.py:335-593): per-attribute encoder MLPs summed into one
     feature, an init projection, ``len(dim_mults)`` levels of [cond-ResBlock,
-    time-ResBlock, time-ResBlock, linear self-attention, level projection],
-    a middle stack with full attention, the mirrored up path with skip
+    time-ResBlock, (text cross-attention), time-ResBlock, linear
+    self-attention, level projection], a middle stack with (text
+    cross-attention and) full attention, the mirrored up path with skip
     concatenations, a final residual block on [x, r], and per-attribute
     decoder MLPs."""
 
@@ -351,6 +383,7 @@ class Unet1D(nn.Module):
         instanclass_dim: int = 128,
         seperate_all: bool = True,
         text_condition: bool = False,
+        text_dim: int = 512,
         resnet_block_groups: int = 8,
         learned_sinusoidal_cond: bool = False,
         random_fourier_features: bool = False,
@@ -363,9 +396,6 @@ class Unet1D(nn.Module):
         super().__init__()
         if len(set(dim_mults)) != 1:
             raise NotImplementedError("unequal dim_mults are not ported yet (ROADMAP A9)")
-        if text_condition:
-            raise NotImplementedError(
-                "text cross-attention is not ported yet (ROADMAP A5)")
         if learned_sinusoidal_cond or random_fourier_features:
             raise NotImplementedError(
                 "learned/random Fourier time embeddings are not ported yet (ROADMAP A9)")
@@ -382,6 +412,7 @@ class Unet1D(nn.Module):
         self.instanclass_dim = instanclass_dim
         self.seperate_all = seperate_all
         self.text_condition = text_condition
+        self.text_dim = text_dim
         self.resnet_block_groups = resnet_block_groups
         self.out_dim = out_dim
         self.compute_dtype = compute_dtype
@@ -410,11 +441,17 @@ class Unet1D(nn.Module):
         n_levels = len(self.dim_mults)
         C = dim * self.dim_mults[0]
 
+        def cross() -> nn.Module:
+            if not text_condition:
+                return nn.Identity()
+            return Residual(PreNorm(C, LinearAttentionCross(C, text_dim, dtype=dt, device=dev),
+                                    dev))
+
         def level(is_last: bool) -> nn.ModuleList:
             return nn.ModuleList([
                 ResnetBlock(C, C, cond_dim, g, dt, dev),
                 ResnetBlock(C, C, time_dim, g, dt, dev),
-                nn.Identity(),  # text cross-attention slot
+                cross(),
                 ResnetBlock(C, C, time_dim, g, dt, dev),
                 Residual(PreNorm(C, LinearAttention(C, dtype=dt, device=dev), dev)),
                 Conv1x1(C, C, dtype=dt, device=dev) if is_last else nn.Identity(),
@@ -424,7 +461,7 @@ class Unet1D(nn.Module):
             return nn.ModuleList([
                 ResnetBlock(C, C, cond_dim, g, dt, dev),
                 ResnetBlock(2 * C, C, time_dim, g, dt, dev),
-                nn.Identity(),
+                cross(),
                 ResnetBlock(2 * C, C, time_dim, g, dt, dev),
                 Residual(PreNorm(C, LinearAttention(C, dtype=dt, device=dev), dev)),
                 Conv1x1(C, C, dtype=dt, device=dev) if is_last else nn.Identity(),
@@ -433,6 +470,8 @@ class Unet1D(nn.Module):
         self.downs = nn.ModuleList([level(i == n_levels - 1) for i in range(n_levels)])
         self.mid_block0 = ResnetBlock(C, C, cond_dim, g, dt, dev)
         self.mid_block1 = ResnetBlock(C, C, time_dim, g, dt, dev)
+        if text_condition:
+            self.mid_attn_cross = cross()
         self.mid_attn = Residual(PreNorm(C, Attention(C, dtype=dt, device=dev), dev))
         self.mid_block2 = ResnetBlock(C, C, time_dim, g, dt, dev)
         self.ups = nn.ModuleList([up_level(j == n_levels - 1) for j in range(n_levels)])
@@ -456,13 +495,16 @@ class Unet1D(nn.Module):
     def bbox_dim(self) -> int:
         return self.translation_dim + self.size_dim + self.angle_dim
 
-    def forward(self, x, beta, context=None):
+    def forward(self, x, beta, context=None, context_cross=None):
         """x (B, N, point_dim), beta (B,) integer timesteps, context
-        (B, N, context_dim + instanclass_dim) -> (B, N, out) float32."""
+        (B, N, context_dim + instanclass_dim), context_cross (B, L, text_dim)
+        text tokens (text models) -> (B, N, out) float32."""
         dt = self.compute_dtype
         x = x.to(dt)
         if context is not None:
             context = context.to(dt)
+        if self.text_condition:
+            context_cross = context_cross.to(dt)
 
         if self.seperate_all:
             bd = self.bbox_dim
@@ -479,10 +521,12 @@ class Unet1D(nn.Module):
         t_emb = self.time_mlp(beta)
 
         skips = []
-        for i, (block0, block1, _, block2, attn, proj) in enumerate(self.downs):
+        for block0, block1, cross, block2, attn, proj in self.downs:
             x = block0(x, context)
             x = block1(x, t_emb)
             skips.append(x)
+            if self.text_condition:
+                x = cross(x, context_cross)
             x = block2(x, t_emb)
             x = attn(x)
             skips.append(x)
@@ -490,12 +534,16 @@ class Unet1D(nn.Module):
 
         x = self.mid_block0(x, context)
         x = self.mid_block1(x, t_emb)
+        if self.text_condition:
+            x = self.mid_attn_cross(x, context_cross)
         x = self.mid_attn(x)
         x = self.mid_block2(x, t_emb)
 
-        for block0, block1, _, block2, attn, proj in self.ups:
+        for block0, block1, cross, block2, attn, proj in self.ups:
             x = block0(x, context)
             x = block1(torch.cat([x, skips.pop()], dim=-1), t_emb)
+            if self.text_condition:
+                x = cross(x, context_cross)
             x = block2(torch.cat([x, skips.pop()], dim=-1), t_emb)
             x = attn(x)
             x = proj(x)

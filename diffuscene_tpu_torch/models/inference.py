@@ -9,7 +9,11 @@ sample is prepared once per sampling call:
 - the per-ResnetBlock time-FiLM rows ``mlp(silu(t_emb(t)))`` depend only on
   the integer timestep, so they are tabulated for all T steps as (T, 2C)
   tables and gathered per step;
-- the cond-FiLM rows (from the per-object condition) are computed once.
+- the cond-FiLM rows (from the per-object condition) are computed once;
+- a text model's 9 cross-attention contexts (softmaxed keys times values,
+  from the text tokens) are computed once, as block-diagonal
+  (B, H*D, H*D) matrices (:func:`precompute_conditioning`); each step's
+  cross-attention is then its queries against them.
 
 Two forwards share that preparation:
 
@@ -28,8 +32,9 @@ flat (B*N, C) rows; attention views its narrow (M, H*D) head tensors as
 (B, N, H*D) for the per-scene contractions.
 
 Parameters come in the Flax tree layout ((in, out) kernels), from
-``utils/convert.denoiser_tree``.  Not ported yet: the text cross-attention
-(ROADMAP A5).
+``utils/convert.denoiser_tree``.  The cross-attention blocks fall between
+two chains of the rows engine (``downA``/``upA`` end at block1,
+``downB``/``upB`` begin at block2), so the chains are the same with text.
 """
 from __future__ import annotations
 
@@ -136,7 +141,7 @@ def prepare_inference_params(
     for name in list(p.keys()):
         if name in prep["blocks"] or name in ("time_mlp_1", "time_mlp_2"):
             continue
-        if name.endswith("_attn_norm"):
+        if name.endswith(("_attn_norm", "_attncross_norm")):
             prep["misc"][name] = p[name]  # LayerNorm g stays f32
         else:
             prep["misc"][name] = _cast(p[name], dt)
@@ -156,23 +161,51 @@ def prepare_inference_params(
     return prep
 
 
+def _cross_names(n_levels: int):
+    names = [f"down{i}_attncross" for i in range(n_levels)]
+    names += ["mid_attncross"]
+    names += [f"up{j}_attncross" for j in range(n_levels)]
+    return names
+
+
 @torch.no_grad()
 def precompute_conditioning(
     net: Unet1D,
     prep: Dict[str, Any],
-    condition: Optional[torch.Tensor],        # (B, N, cond_dim)
+    condition: Optional[torch.Tensor],              # (B, N, cond_dim)
+    condition_cross: Optional[torch.Tensor] = None,  # (B, L, text_dim)
 ) -> Dict[str, Any]:
-    """Per-sampling-call cond-FiLM rows {name: (B, N, 2C)}."""
+    """Per-sampling-call cond-FiLM rows {name: (B, N, 2C)} and, for a text
+    model, its cross-attention contexts {name: (B, H*D, H*D)}."""
     dt = net.compute_dtype
-    ctx: Dict[str, Any] = {"film_c": {}}
+    n_levels = len(net.dim_mults)
+    ctx: Dict[str, Any] = {"film_c": {}, "cross": {}}
     if condition is not None:
         c_act = F.silu(condition.to(dt))
-        for name in _cond_block_names(len(net.dim_mults)):
+        for name in _cond_block_names(n_levels):
             mlp = prep["blocks"][name].get("mlp")
             if mlp is None:
                 continue
             ctx["film_c"][name] = c_act @ mlp["kernel"] + mlp["bias"]
+    if net.text_condition:
+        cc = condition_cross.to(dt)
+        for name in _cross_names(n_levels):
+            ctx["cross"][name] = cross_context(prep["misc"][name], cc)
     return ctx
+
+
+def cross_context(p, cc, heads=4, dim_head=32):
+    """The step-invariant half of a linear cross-attention block: the keys
+    softmaxed over the text tokens (pads included) times the values, as the
+    block-diagonal (B, H*D, H*D) context matrix.  ``cross_context.calls``
+    counts the contexts made (9 a sampling call of a text model)."""
+    k, v = (cc @ p["to_kv"]["kernel"]).chunk(2, dim=-1)   # (B, L, H*D)
+    ctx = torch.einsum("blx,bly->bxy", torch.softmax(k, dim=1), v)
+    cross_context.calls += 1
+    return ctx * head_blockmask(heads, dim_head, ctx.dtype, ctx.device)
+
+
+cross_context.calls = 0
 
 
 # ---------------------------------------------------------------------------
@@ -300,6 +333,23 @@ def _linear_attention_rows(p, x2, dt, B, N, heads=4, dim_head=32):
     return _channel_layernorm(p["out_norm"]["g"], out, dt)
 
 
+def _cross_attention_rows(p, x2, ctx_mat, dt, B, N, heads=4, dim_head=32):
+    """A linear cross-attention block's per-step half on flat (M, C) rows:
+    q = to_q(x) softmaxed within each head, the (M, H*D) queries viewed as
+    (B, N, H*D) against the scene's precomputed context, then to_out and the
+    output LayerNorm."""
+    hd = heads * dim_head
+    q = seg_softmax_heads(x2 @ p["to_q"]["kernel"], heads, dim_head) * (dim_head ** -0.5)
+    out = torch.bmm(q.reshape(B, N, hd), ctx_mat).reshape(B * N, hd)
+    return _channel_layernorm(p["out_norm"]["g"], _dense(p["to_out"], out), dt)
+
+
+def _cross_block(misc, cross, name, h, dt, B, N):
+    """h + LinearAttentionCross(LN(h), text) of the block ``name``."""
+    return h + _cross_attention_rows(
+        misc[name], _channel_layernorm(misc[f"{name}_norm"]["g"], h, dt), cross[name], dt, B, N)
+
+
 def _full_attention_rows(p, x2, B, N, heads=4, dim_head=32):
     H, D = heads, dim_head
     q, k, v = ((x2 @ p["to_qkv"]["kernel"]).chunk(3, dim=-1))
@@ -358,6 +408,7 @@ def fused_unet1d_forward(
     x: torch.Tensor,                        # (B, N, point_dim)
     t: torch.Tensor,                        # (B,) integer timesteps
     condition: Optional[torch.Tensor] = None,   # (B, N, cond_dim)
+    condition_cross: Optional[torch.Tensor] = None,  # (B, L, text_dim)
     cond_ctx: Optional[Dict[str, Any]] = None,  # precompute_conditioning output
     exact_gelu: bool = False,
 ) -> torch.Tensor:
@@ -366,9 +417,8 @@ def fused_unet1d_forward(
     block0s with per-object rows, 19 time-FiLM blocks with per-scene rows, 9
     of them over a skip concat) and ``mid_attn`` one ``fused_set_attention``
     call.  A block0 without cond-FiLM rows (the unconditioned model) runs
-    with zero film."""
-    if net.text_condition:
-        raise NotImplementedError("text cross-attention is not ported yet (ROADMAP A5)")
+    with zero film.  A text model's 9 cross-attention blocks are torch ops
+    on the contexts of ``cond_ctx``; the mid one runs before ``mid_attn``."""
     B, N, _ = x.shape
     M = B * N
     dt = net.compute_dtype
@@ -376,8 +426,8 @@ def fused_unet1d_forward(
     n_levels = len(net.dim_mults)
     groups = net.resnet_block_groups
     if cond_ctx is None:
-        cond_ctx = precompute_conditioning(net, prep, condition)
-    film_c = cond_ctx["film_c"]
+        cond_ctx = precompute_conditioning(net, prep, condition, condition_cross)
+    film_c, cross = cond_ctx["film_c"], cond_ctx["cross"]
 
     def resblock(name, h, film, skip=None):
         bp = blocks[name]
@@ -405,6 +455,8 @@ def fused_unet1d_forward(
         h = cond_block(f"down{i}_block0", h)
         h = time_block(f"down{i}_block1", h)
         skips.append(h)
+        if net.text_condition:
+            h = _cross_block(misc, cross, f"down{i}_attncross", h, dt, B, N)
         h = time_block(f"down{i}_block2", h)
         h = h + _linear_attention_rows(
             misc[f"down{i}_attn"],
@@ -415,6 +467,8 @@ def fused_unet1d_forward(
 
     h = cond_block("mid_block0", h)
     h = time_block("mid_block1", h)
+    if net.text_condition:
+        h = _cross_block(misc, cross, "mid_attncross", h, dt, B, N)
     # x + Attention(LN(x)), with the model's pre-norm eps for this dtype
     ap = misc["mid_attn"]
     h = fused_set_attention(
@@ -426,6 +480,8 @@ def fused_unet1d_forward(
     for j in range(n_levels):
         h = cond_block(f"up{j}_block0", h)
         h = time_block(f"up{j}_block1", h, skips.pop())
+        if net.text_condition:
+            h = _cross_block(misc, cross, f"up{j}_attncross", h, dt, B, N)
         h = time_block(f"up{j}_block2", h, skips.pop())
         h = h + _linear_attention_rows(
             misc[f"up{j}_attn"],
@@ -444,12 +500,13 @@ def fused_unet1d_forward_rows(
     chains: Dict[str, Any],   # prepare_chain_params output
     x: torch.Tensor,          # (B, N, point_dim)
     t: torch.Tensor,          # (B,) integer timesteps
-    cond_ctx_rows: Dict[str, Any],  # {"film_c2": {name: (M, 2C)}}
+    cond_ctx_rows: Dict[str, Any],  # {"film_c2": {name: (M, 2C)}, "cross": {...}}
     exact_gelu: bool = False,
 ) -> torch.Tensor:
     """Functionally ``Unet1D.forward`` on configs with equal level dims;
     activations stay flat (B*N, C) and the resblock chains run through
-    ``apply_chain``."""
+    ``apply_chain``.  A text model's cross-attention blocks run between the
+    chains, on the contexts ``cond_ctx_rows["cross"]``."""
     B, N, _ = x.shape
     M = B * N
     dt = net.compute_dtype
@@ -457,6 +514,7 @@ def fused_unet1d_forward_rows(
     n_levels = len(net.dim_mults)
     groups = net.resnet_block_groups
     film_c2 = cond_ctx_rows["film_c2"]
+    cross = cond_ctx_rows.get("cross", {})
 
     h = _encode(net, prep, x.to(dt).reshape(M, -1), exact_gelu)
     r = h
@@ -483,6 +541,8 @@ def fused_unet1d_forward_rows(
     for i in range(n_levels):
         h = run_chain(f"downA{i}", h)
         skips.append(h)
+        if net.text_condition:
+            h = _cross_block(misc, cross, f"down{i}_attncross", h, dt, B, N)
         h = run_chain(f"downB{i}", h)
         h = h + _linear_attention_rows(
             misc[f"down{i}_attn"],
@@ -492,12 +552,16 @@ def fused_unet1d_forward_rows(
             h = _dense(misc[f"down{i}_proj"], h)
 
     h = run_chain("midA", h)
+    if net.text_condition:
+        h = _cross_block(misc, cross, "mid_attncross", h, dt, B, N)
     h = h + _full_attention_rows(
         misc["mid_attn"], _channel_layernorm(misc["mid_attn_norm"]["g"], h, dt), B, N)
     h = run_chain("midB", h)
 
     for j in range(n_levels):
         h = run_chain(f"upA{j}", h, (skips.pop(),))
+        if net.text_condition:
+            h = _cross_block(misc, cross, f"up{j}_attncross", h, dt, B, N)
         h = run_chain(f"upB{j}", h, (skips.pop(),))
         h = h + _linear_attention_rows(
             misc[f"up{j}_attn"],

@@ -7,8 +7,11 @@ modules hold only networks and parameters; diffusion math and the sampling
 loops are plain functions from ``diffusion/``.
 
 Ported: the instance condition (the learnable or the fixed one-hot
-embedding), the partial-scene head (``room_partial_condition``) and the
-arrange head (``room_arrange_condition``); the training loss (``get_loss``:
+embedding), the partial-scene head (``room_partial_condition``), the
+arrange head (``room_arrange_condition``) and the text condition
+(``text_condition``: token embeddings through ``fc_text_f``, or a CLIP
+sentence vector as one token, into the denoiser's cross-attention); the
+training loss (``get_loss``:
 q_sample, the module forward, ``p_losses`` with the IoU regularizer on the
 train-set bounds; with the arrange head the diffusion target is the
 (translation, angle) channels only); ``fused=False`` (module forward),
@@ -17,8 +20,8 @@ kernels) and ``fused="rows"`` (rows engine on the chain kernel); DDPM (with
 its trajectory), DDIM and DPM-Solver++ sampling, scene completion
 (``partial_boxes``, the RePaint splice) and re-arrangement
 (``input_boxes``), both DDPM only; the variational bound (``prior_kl``,
-``all_kl``).  Raising ``NotImplementedError``: text (ROADMAP A5) and
-room-mask conditions (ROADMAP A8).
+``all_kl``).  Raising ``NotImplementedError``: room-mask conditions
+(ROADMAP A8).
 """
 from __future__ import annotations
 
@@ -182,6 +185,19 @@ def _head(d_in: int, d_out: int, device=None) -> nn.Sequential:
                          nn.Linear(d_out, d_out, bias=False, device=device))
 
 
+def text_emb_dim_for_network(network: Dict) -> int:
+    """Token-embedding width implied by the network's text flags, so the data
+    pipeline and the model's fc_text_f projection agree (the reference embeds
+    with GloVe-50 at train time and runs frozen BERT-768 in the model,
+    diffusion_scene_layout_ddpm.py:47-52,210-221; here both are precomputed
+    host-side)."""
+    if network.get("text_glove_embedding"):
+        return 50
+    if network.get("text_clip_embedding"):
+        return 512
+    return 768  # BERT-style token embeddings
+
+
 class ConditionNets(nn.Module):
     """Conditioning heads (diffusion_scene_layout_ddpm.py:27-129), each
     Linear, LeakyReLU(0.1), Linear without biases: the instance condition,
@@ -189,12 +205,13 @@ class ConditionNets(nn.Module):
     ``fc_instance_condition``; the partial-scene head
     ``fc_partial_condition`` (point_dim -> partial_emb_dim) and the arrange
     head ``fc_arrange_condition`` (size, class, objectness and objfeat
-    channels -> arrange_emb_dim)."""
+    channels -> arrange_emb_dim).  A text model with token embeddings
+    (768-wide BERT-style, or 50-wide GloVe) projects them through
+    ``fc_text_f``, one Linear with a bias, to text_embed_dim; with CLIP the
+    512-wide sentence vector is the one token itself."""
 
     def __init__(self, cfg: SceneModelConfig, device=None):
         super().__init__()
-        if cfg.text_condition:
-            raise NotImplementedError("text conditions are not ported yet (ROADMAP A5)")
         if cfg.room_mask_condition:
             raise NotImplementedError(
                 "room-mask conditions (the feature extractors) are not ported yet (ROADMAP A8)")
@@ -203,6 +220,7 @@ class ConditionNets(nn.Module):
         self.fc_instance_condition = None
         self.fc_partial_condition = None
         self.fc_arrange_condition = None
+        self.fc_text_f = None
         n, e = cfg.sample_num_points, cfg.instance_emb_dim
         if cfg.instance_condition and cfg.learnable_embedding:
             self.positional_embedding = nn.Parameter(torch.empty(n, e, device=device))
@@ -213,6 +231,9 @@ class ConditionNets(nn.Module):
         if cfg.room_arrange_condition:
             arrange_dim = cfg.size_dim + cfg.class_dim + cfg.objectness_dim + cfg.objfeat_dim
             self.fc_arrange_condition = _head(arrange_dim, cfg.arrange_emb_dim, device)
+        if cfg.text_condition and not cfg.text_clip_embedding:
+            width = text_emb_dim_for_network({"text_glove_embedding": cfg.text_glove_embedding})
+            self.fc_text_f = nn.Linear(width, cfg.text_embed_dim, device=device)
 
     def heads(self):
         """The Linear-LeakyReLU-Linear heads this config has."""
@@ -221,13 +242,27 @@ class ConditionNets(nn.Module):
 
     def forward(self, batch_size: int, num_points: int,
                 partial_input: Optional[torch.Tensor] = None,
-                arrange_input: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
-        """-> condition (B, N, instance + partial + arrange widths) f32, or
-        None.  ``partial_input`` (B, N, point_dim) is the partial scene
-        zero-padded to N slots and ``arrange_input`` (B, N, arrange width)
-        the channels an arrangement keeps; each head's part is there when
-        the config has the head and its input is given, concatenated in the
-        JAX order: instance, partial, arrange."""
+                arrange_input: Optional[torch.Tensor] = None,
+                text_emb: Optional[torch.Tensor] = None):
+        """-> (condition, condition_cross).  condition (B, N, instance +
+        partial + arrange widths) f32, or None: ``partial_input``
+        (B, N, point_dim) is the partial scene zero-padded to N slots and
+        ``arrange_input`` (B, N, arrange width) the channels an arrangement
+        keeps; each head's part is there when the config has the head and
+        its input is given, concatenated in the JAX order: instance,
+        partial, arrange.  condition_cross (B, L, text_embed_dim), or None:
+        a text model's ``text_emb``, the (B, L, 768 | 50) token embeddings
+        through ``fc_text_f`` or the CLIP (B, 512) sentence vector as one
+        token.  A text model raises ValueError without ``text_emb``."""
+        cross = None
+        if self.cfg.text_condition:
+            if text_emb is None:
+                raise ValueError("a text-conditioned model needs text_emb, the token "
+                                 "embeddings of one description a scene")
+            if self.fc_text_f is not None:
+                cross = self.fc_text_f(text_emb)
+            else:
+                cross = text_emb if text_emb.ndim == 3 else text_emb[:, None, :]
         e = self.cfg.instance_emb_dim
         parts = []
         if self.positional_embedding is not None:
@@ -244,8 +279,8 @@ class ConditionNets(nn.Module):
         if self.fc_arrange_condition is not None and arrange_input is not None:
             parts.append(self.fc_arrange_condition(arrange_input))
         if not parts:
-            return None
-        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+            return None, cross
+        return (parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)), cross
 
 
 class SceneDiffusion:
@@ -296,16 +331,22 @@ class SceneDiffusion:
         if self.conditioner.positional_embedding is not None:
             pe = self.conditioner.positional_embedding
             pe.copy_(torch.randn(pe.shape, generator=generator))
-        for head in self.conditioner.heads():
-            for lin in head[::2]:
-                w = torch.randn(lin.weight.shape, generator=generator) / math.sqrt(lin.in_features)
-                lin.weight.copy_(w)
+        linears = [lin for head in self.conditioner.heads() for lin in head[::2]]
+        if self.conditioner.fc_text_f is not None:
+            linears.append(self.conditioner.fc_text_f)
+        for lin in linears:
+            w = torch.randn(lin.weight.shape, generator=generator) / math.sqrt(lin.in_features)
+            lin.weight.copy_(w)
+            if lin.bias is not None:
+                lin.bias.zero_()
         return self
 
     def make_condition(self, batch_size: int, partial_input: Optional[torch.Tensor] = None,
-                       arrange_input: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+                       arrange_input: Optional[torch.Tensor] = None,
+                       text_emb: Optional[torch.Tensor] = None):
+        """-> (condition, condition_cross), as ``ConditionNets.forward``."""
         return self.conditioner(batch_size, self.cfg.sample_num_points, partial_input,
-                                arrange_input)
+                                arrange_input, text_emb)
 
     def arrange_input(self, boxes: torch.Tensor) -> torch.Tensor:
         """The channels an arrangement keeps: sizes, then class, objectness
@@ -313,32 +354,36 @@ class SceneDiffusion:
         td, sd, bd = self.cfg.translation_dim, self.cfg.size_dim, self.cfg.bbox_dim
         return torch.cat([boxes[:, :, td: td + sd], boxes[:, :, bd:]], dim=-1)
 
-    def condition_from_target(self, target: torch.Tensor) -> Optional[torch.Tensor]:
-        """The condition of a training batch from its packed (B, N,
-        point_dim) target (the JAX ``_conditions_from_batch``): the partial
-        input is the target's first ``partial_num_points`` slots with the
-        rest zeroed, the arrange input its kept channels."""
+    def condition_from_target(self, target: torch.Tensor,
+                              batch: Optional[Dict[str, torch.Tensor]] = None):
+        """(condition, condition_cross) of a training batch from its packed
+        (B, N, point_dim) target and, for a text model, the batch's
+        ``text_emb`` (the JAX ``_conditions_from_batch``): the partial input
+        is the target's first ``partial_num_points`` slots with the rest
+        zeroed, the arrange input its kept channels."""
         cfg = self.cfg
+        text_emb = batch.get("text_emb") if batch is not None else None
         partial_input = arrange_input = None
         if cfg.room_partial_condition:
             keep = torch.arange(target.shape[1], device=target.device) < cfg.partial_num_points
             partial_input = target * keep.to(target.dtype)[None, :, None]
         if cfg.room_arrange_condition:
             arrange_input = self.arrange_input(target)
-        return self.make_condition(target.shape[0], partial_input, arrange_input)
+        return self.make_condition(target.shape[0], partial_input, arrange_input, text_emb)
 
     def get_loss(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
                  t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
         """Training loss of one batch (diffusion_scene_layout_ddpm.py:131-226
         + diffusion_ddpm.py:758-772) -> (0-d loss, dict of 0-d terms).
-        ``batch`` holds the attribute tensors (or the ``packed`` target) on
-        this model's device.  The timesteps ``t`` (B,) and the ``noise``
-        (B, N, D) are used when given, else drawn from ``generator`` (on this
-        model's device); D is point_dim, or translation_dim + angle_dim with
-        the arrange head, whose model diffuses those channels only."""
+        ``batch`` holds the attribute tensors (or the ``packed`` target), and
+        a text model's ``text_emb``, on this model's device.  The timesteps
+        ``t`` (B,) and the ``noise`` (B, N, D) are used when given, else
+        drawn from ``generator`` (on this model's device); D is point_dim,
+        or translation_dim + angle_dim with the arrange head, whose model
+        diffuses those channels only."""
         cfg = self.cfg
         target = batch["packed"] if "packed" in batch else pack_target(cfg, batch)
-        condition = self.condition_from_target(target)
+        condition, condition_cross = self.condition_from_target(target, batch)
         if cfg.room_arrange_condition:
             td, sd, bd = cfg.translation_dim, cfg.size_dim, cfg.bbox_dim
             target = torch.cat([target[:, :, :td], target[:, :, td + sd: bd]], dim=-1)
@@ -349,20 +394,22 @@ class SceneDiffusion:
         if noise is None:
             noise = torch.randn(target.shape, generator=generator, device=target.device)
         data_t = q_sample(self.sched, target, t, noise)
-        denoise_out = self.denoiser(data_t, t, condition)
+        denoise_out = self.denoiser(data_t, t, condition, condition_cross)
         losses, loss_dict = p_losses(self.sched, self.spec, self.loss_cfg, denoise_out,
                                      target, data_t, t, noise, bounds=self.bounds)
         return losses.mean(), loss_dict
 
-    def _denoise_fn(self, condition, fused=False):
+    def _denoise_fn(self, condition, condition_cross=None, fused=False):
         """``fused`` is False (module forward), True (the 3-D engine, each
         ResnetBlock on the ResnetBlock kernel and mid_attn on the
         set-attention kernel) or ``"rows"`` (flat-row engine, its resblock
-        chains on the chain kernel)."""
+        chains on the chain kernel).  The engines' step-invariant parts
+        (weights, FiLM rows, a text model's 9 cross-attention contexts) are
+        made here, once a sampling call."""
         if fused is False:
             def fn(x, t):
                 with torch.no_grad():
-                    return self.denoiser(x, t, condition)
+                    return self.denoiser(x, t, condition, condition_cross)
             return fn
         if fused is not True and fused != "rows":
             raise ValueError(f"fused must be False, True or 'rows', got {fused!r}")
@@ -377,7 +424,7 @@ class SceneDiffusion:
         net = self.denoiser
         prep = prepare_inference_params(net, denoiser_tree(net),
                                         num_timesteps=self.sched.num_timesteps)
-        cond_ctx = precompute_conditioning(net, prep, condition)
+        cond_ctx = precompute_conditioning(net, prep, condition, condition_cross)
         if fused is True:
             def fn(x, t):
                 return fused_unet1d_forward(net, prep, x, t, cond_ctx=cond_ctx)
@@ -386,7 +433,7 @@ class SceneDiffusion:
         chains = prepare_chain_params(net, prep, frozenset(cond_ctx["film_c"]))
         film_c2 = {name: v.reshape(-1, v.shape[-1]).contiguous()
                    for name, v in cond_ctx["film_c"].items()}
-        ctx_rows = {"film_c2": film_c2}
+        ctx_rows = {"film_c2": film_c2, "cross": cond_ctx["cross"]}
 
         def fn(x, t):
             return fused_unet1d_forward_rows(net, prep, chains, x, t, ctx_rows)
@@ -410,6 +457,7 @@ class SceneDiffusion:
         input_boxes: Optional[torch.Tensor] = None,
         ret_traj: bool = False,
         freq: int = 100,
+        text_emb: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Sample ``batch_size`` scenes -> (B, N, point_dim)
         (diffusion_scene_layout_ddpm.py:228-310).  With ``input_boxes``
@@ -419,8 +467,10 @@ class SceneDiffusion:
         the RePaint splice, the first P slots the partial boxes.  Both run
         the ancestral chain only.  Else DPM-Solver++ with ``dpm``, DDIM with
         ``ddim``, the DDPM trajectory (n_frames, B, N, point_dim) with
-        ``ret_traj`` (a frame every ``freq`` steps), or DDPM.  Noise comes
-        from ``generator`` (on this model's device) or from ``noise_fn``."""
+        ``ret_traj`` (a frame every ``freq`` steps), or DDPM.  A text model
+        takes ``text_emb``, one description's token embeddings a scene
+        ((B, L, 768 | 50), or CLIP's (B, 512)).  Noise comes from
+        ``generator`` (on this model's device) or from ``noise_fn``."""
         if (partial_boxes is not None or input_boxes is not None) and (ddim or dpm):
             raise ValueError(
                 "ddim/dpm fast sampling is not supported for completion (partial_boxes) or "
@@ -434,8 +484,9 @@ class SceneDiffusion:
             partial_input = torch.cat([partial_boxes, pad], dim=1)
         if cfg.room_arrange_condition and input_boxes is not None:
             arrange_input = self.arrange_input(input_boxes)
-        condition = self.make_condition(batch_size, partial_input, arrange_input)
-        fn = self._denoise_fn(condition, fused=fused)
+        condition, condition_cross = self.make_condition(batch_size, partial_input, arrange_input,
+                                                         text_emb)
+        fn = self._denoise_fn(condition, condition_cross, fused=fused)
         shape = (batch_size, N, cfg.point_dim)
         noise = dict(generator=generator, noise_fn=noise_fn)
         mmt, mvt = cfg.model_mean_type, cfg.model_var_type
@@ -467,19 +518,23 @@ class SceneDiffusion:
 
     @torch.no_grad()
     def all_kl(self, x0: torch.Tensor, generator: Optional[torch.Generator] = None,
-               condition: Optional[torch.Tensor] = None, clip_denoised: bool = True,
+               batch: Optional[Dict[str, torch.Tensor]] = None, clip_denoised: bool = True,
                noise_fn=None) -> Dict[str, torch.Tensor]:
         """The whole variational-bound sweep on the module forward
         (DiffusionPoint.all_kl, diffusion_ddpm.py:738-746) -> the means of
-        the total bpd, the vb terms, the prior bpd and the x_0 MSE.
-        ``condition`` defaults to ``make_condition`` without task inputs;
-        pass ``condition_from_target(x0)`` for a batch's own."""
-        if condition is None:
-            condition = self.make_condition(x0.shape[0])
+        the total bpd, the vb terms, the prior bpd and the x_0 MSE.  With a
+        ``batch`` the conditions are the batch's own
+        (``condition_from_target(x0, batch)``: its task inputs from x0, a
+        text model's ``text_emb``), else ``make_condition`` without
+        inputs."""
+        if batch is not None:
+            condition, condition_cross = self.condition_from_target(x0, batch)
+        else:
+            condition, condition_cross = self.make_condition(x0.shape[0])
         total, terms, prior, mse = S.calc_bpd_loop(
             self.sched, self.cfg.model_mean_type, self.cfg.model_var_type,
-            self._denoise_fn(condition), x0, generator=generator, clip_denoised=clip_denoised,
-            noise_fn=noise_fn)
+            self._denoise_fn(condition, condition_cross), x0, generator=generator,
+            clip_denoised=clip_denoised, noise_fn=noise_fn)
         return {"total_bpd_b": total, "terms_bpd": terms, "prior_bpd_b": prior, "mse_bt": mse}
 
     def split_samples(self, samples: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -92,6 +92,12 @@ def _flax_to_torch_key(path: Path) -> Tuple[str, str]:
     if name == "mid_attn":
         key, kind = _attn_to_torch(sub, full=True)
         return f"mid_attn.fn.fn.{key}", kind
+    # the text models' mid cross-attention (reference name mid_attn_cross)
+    if name == "mid_attncross_norm":
+        return "mid_attn_cross.fn.norm.g", "g"
+    if name == "mid_attncross":
+        key, kind = _attn_to_torch(sub, full=False)
+        return f"mid_attn_cross.fn.fn.{key}", kind
     raise KeyError(f"unmapped flax denoiser path: {path}")
 
 
@@ -113,9 +119,10 @@ def _torch_to_flax_key(key: str) -> Tuple[Path, str]:
         slot = _SLOT_NAMES[int(parts[2])]
         name = f"{prefix}{parts[1]}_{slot}"
         rest = parts[3:]
-    elif parts[0] in ("mid_block0", "mid_block1", "mid_block2", "final_res_block", "mid_attn"):
-        slot = "attn" if parts[0] == "mid_attn" else "block"
-        name = parts[0]
+    elif parts[0] in ("mid_block0", "mid_block1", "mid_block2", "final_res_block", "mid_attn",
+                      "mid_attn_cross"):
+        slot = "block" if parts[0].startswith(("mid_block", "final")) else "attn"
+        name = "mid_attncross" if parts[0] == "mid_attn_cross" else parts[0]
         rest = parts[1:]
     else:
         raise KeyError(f"unmapped torch denoiser key: {key}")
@@ -212,14 +219,17 @@ _CONDITIONER = {
     "fc_partial_condition.2.weight": (("fc_partial_1", "kernel"), "linear"),
     "fc_arrange_condition.0.weight": (("fc_arrange_0", "kernel"), "linear"),
     "fc_arrange_condition.2.weight": (("fc_arrange_1", "kernel"), "linear"),
+    "fc_text_f.weight": (("fc_text_f", "kernel"), "linear"),
+    "fc_text_f.bias": (("fc_text_f", "bias"), "vec"),
 }
 
 
 def load_jax_params(scene, np_params: Dict[str, Any]) -> None:
     """Load a JAX ``SceneNetworks`` variable tree (numpy leaves:
     ``params.denoiser`` and ``params.conditioner``, the learnable
-    ``positional_embedding`` or the one-hot heads ``fc_instance_0/1``, and
-    the partial and arrange heads ``fc_partial_0/1``, ``fc_arrange_0/1``)
+    ``positional_embedding`` or the one-hot heads ``fc_instance_0/1``, the
+    partial and arrange heads ``fc_partial_0/1``, ``fc_arrange_0/1``, and
+    the text projection ``fc_text_f``)
     into a port ``SceneDiffusion``, so both packages compute the same
     thing."""
     p = np_params["params"]
@@ -317,9 +327,10 @@ def load_jax_autoencoder(model: torch.nn.Module, variables: Dict[str, Any]) -> N
 def reference_to_scene_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """A reference DiffusionSceneLayout_DDPM state_dict -> ``scene.networks``
     keys: ``diffusion.model.*`` -> ``denoiser.*`` (the port's Unet1D carries
-    the reference names), the instance, partial and arrange heads ->
-    ``conditioner.*``.  Other keys (room-mask extractor, text encoders)
-    raise: those conditions are not ported."""
+    the reference names), the instance, partial and arrange heads and the
+    text projection ``fc_text_f`` -> ``conditioner.*``.  Other keys
+    (room-mask extractor, frozen text encoders) raise: those are not
+    ported."""
     out = {}
     for key, val in state_dict.items():
         if key.startswith("diffusion.model."):

@@ -100,5 +100,5 @@ def test_attention_helpers_match_jax():
 def test_unsupported_configs_raise():
     with pytest.raises(NotImplementedError):
         Unet1D(**{**KW, "dim_mults": (1, 2)})
-    with pytest.raises(NotImplementedError):
-        Unet1D(**KW, text_condition=True)
+    with pytest.raises(NotImplementedError, match="A9"):
+        Unet1D(**KW, learned_sinusoidal_cond=True)

@@ -47,6 +47,6 @@ def test_port_sources_found():
                    "data/splits.py", "data/encoding.py", "data/threed_front.py",
                    "data/filters.py", "data/loader.py", "data/factory.py", "data/synthetic.py",
                    "eval/postprocess.py", "eval/metrics.py", "cli/train_diffusion.py",
-                   "cli/generate_diffusion.py"):
+                   "cli/generate_diffusion.py", "data/text.py"):
         assert f"diffuscene_tpu_torch/{module}" in paths, module
     assert len(paths) >= 44

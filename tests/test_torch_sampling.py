@@ -175,5 +175,5 @@ def test_sampler_needs_one_noise_source_and_rejects_unported_paths():
         for fast in (dict(ddim=True), dict(dpm=True)):
             with pytest.raises(ValueError, match="ancestral"):
                 scene.sample(2, generator=torch.Generator(), **task, **fast)
-    with pytest.raises(NotImplementedError):  # text conditioning
-        SceneDiffusion(dataclasses.replace(cfg, text_condition=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="A8"):  # room-mask conditioning
+        SceneDiffusion(dataclasses.replace(cfg, room_mask_condition=True), device="cpu")

@@ -80,15 +80,9 @@ def test_pipeline_batches_equal_jax(tmp_path, split):
         assert np.array_equal(np.asarray(pt[k]), np.asarray(pj[k])), k
 
 
-def test_unported_loaders_raise(tmp_path):
-    data_dir = str(tmp_path / "cached")
-    make_synthetic_cached_dataset(data_dir, n_scenes=4, seed=0)
-    cfg = _data_config(data_dir)
+def test_unported_loaders_raise():
     with pytest.raises(NotImplementedError, match="A11"):
         PackedDataLoader(None, None, 12, 23, 2)
-    with pytest.raises(NotImplementedError, match="A5"):
-        get_dataset_raw_and_encoded(dict(cfg, encoding_type=ENCODING.replace("cached_",
-                                                                             "cached_text_")))
 
 
 def _cli_config(root, ema_decay):

@@ -153,7 +153,7 @@ def test_arrange_matches_jax(fused):
     assert np.array_equal(got[:, :, 8:], boxes[:, :, 8:])
     np.testing.assert_allclose(got, want, atol=SAMPLE_ATOL, rtol=0)
     # the arrange head gives every scene its own condition
-    cond = scene.make_condition(B, arrange_input=scene.arrange_input(torch.from_numpy(boxes)))
+    cond, _ = scene.make_condition(B, arrange_input=scene.arrange_input(torch.from_numpy(boxes)))
     assert (cond[1:] - cond[:1]).abs().max().item() > 0
 
 
@@ -189,7 +189,7 @@ def test_task_heads_condition_loss_and_gradients_match_jax():
     noise = rng.normal(size=(B, N, 5)).astype(np.float32)
 
     want_c, _ = jscene._conditions_from_batch(params, {}, jnp.asarray(target))
-    got_c = scene.condition_from_target(torch.from_numpy(target))
+    got_c, _ = scene.condition_from_target(torch.from_numpy(target))
     assert got_c.shape == want_c.shape == (B, N, 32 + 16 + 48)
     np.testing.assert_allclose(got_c.detach().numpy(), np.asarray(want_c), atol=1e-6, rtol=0)
 
