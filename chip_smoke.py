@@ -108,7 +108,7 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    for 3 epochs of the synthetic dataset, writing checkpoints, then
    cli/generate_diffusion.py --fused --dpm on its checkpoint with the EMA
    weights: 64 scenes, exactly 560 B1 and 20 B2 launches, the categorical
-   KL in stats.json;
+   KL in metrics.json;
 16. scene completion and re-arrangement in f32 at full width, random
    weights from the seed, on a synthetic cached dataset: (a) DDPM-1000
    completion on the flagship config at run/completion.sh's B=32 with 3
@@ -150,10 +150,34 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    cli/train_diffusion.py on the text config for 2 epochs, then
    cli/generate_diffusion.py --fused with --fix_order and with --scene_id:
    64 scenes each, exactly 28,000 B1 and 1,000 B2 launches, a box file and
-   a sentence file a scene.
+   a sentence file a scene;
+18. the evaluation path, on a synthetic cached dataset of 2560 rooms (an
+   eval split of 256) and a checkpoint of the flagship model's seeded
+   weights written by the port's checkpoint module: (a) run/generate.sh's
+   own command, cli/generate_diffusion.py on the flagship config with
+   --n_sequences 256 --batch_size 256 --clip_denoised --fused --render
+   --compute_intersec (the script's 1000 scenes cut to one batch): exactly
+   28,000 B1 and 1,000 B2 launches, 256 renders that the port's PNG reader
+   decodes to (256, 256, 3) uint8, iou_states.txt and a finite
+   metrics.json, the wall time split into sampling, rendering and metrics;
+   (b) a textured-box catalog per class (data.make_synthetic_catalog), then
+   generate at B=64 through DPM-Solver++-20 with it, --render
+   --render_perspective --save_mesh --compute_intersec
+   --judge_mesh_intersec: catalog texels in the renders, 512x512
+   perspective renders, the mesh files, every manifest jid from the
+   catalog, the judged intersection no larger than the boxes'; then
+   cli/completion_rearrange.py --num_partial 3 --render --render_gt at
+   B=32 (28,000 and 1,000 launches); (c) the eval split's boxes through
+   render_to_folder as the real set, cli/compute_fid_scores.py with
+   --features inception (a random InceptionV3 as .npz) and pixel, and
+   cli/improved_precision_recall.py with --features vgg (a random VGG16)
+   and pixel, on the card, against (a)'s renders (random weights: the
+   numbers are not paper-comparable); the pixel, InceptionV3 and VGG16
+   features of 8 renders on the card against the CPU within
+   EVAL_FEATURE_TOL, and each extractor's images/s on the card.
 
 The phases run in the order 1, 2, 7, 8, 3 with 9 (one set of full-width
-models), 4, 10, 11, 15, 5, 6, 12, 13, 14, 16, 17.  TF32 is off for every matmul and
+models), 4, 10, 11, 15, 5, 6, 12, 13, 14, 16, 17, 18.  TF32 is off for every matmul and
 convolution (the references are f32; the f32 B1 kernel's split TF32 is
 three tf32 products per f32 product, not TF32 matmul).
 Phase 1 prints each kernel's registers, stack and spills from ptxas, and
@@ -171,12 +195,17 @@ phases 1 and 2 alone, the short check of a new chain kernel (bf16 and f32),
 ``--only-attention`` phases 1 and 8 (B2, bf16 and f32), ``--only-chamfer`` phases 1
 and 5 (B3), ``--only-train`` phases 1 and 12-14 (with the train JSON
 line), ``--only-tasks`` phases 1 and 16 (with the tasks JSON line) and
-``--only-text`` phases 1 and 17 (with the text JSON line); none of them
+``--only-text`` phases 1 and 17 (with the text JSON line) and
+``--only-eval`` phases 1 and 18 (with the eval JSON line); none of them
 prints an ok line.
 
 The line before the last is the card's name and power limit again, the one
 before it a JSON summary of the kernels, the one before that a JSON
-summary of phase 17 ("text": each text sample's wall time, launches,
+summary of phase 18 ("eval": the card, each CLI run's wall time and
+launches, the generate command's sampling, rendering and metrics seconds,
+the mesh path's checks, FID/KID and precision/recall with their times, and
+each extractor's card-vs-CPU agreement and images/s), the one before that
+a JSON summary of phase 17 ("text": each text sample's wall time, launches,
 contexts, worst engine gap, busy time, idle share and kernel ms per step,
 the cross blocks' device time and share, the roll check, the text train
 step, the CLIs' times and launches), the one before that a JSON
@@ -195,7 +224,8 @@ kernel's 19 chains, 28 blocks and one call ("f32_ms", "f32_graph_ms",
 sample's launches ("f32_launches"); the ResnetBlock and set-attention
 entries carry the task samples' launches ("task_launches"), and the
 chain, ResnetBlock and set-attention entries the text samples' launches
-("text_launches").  The
+("text_launches"), and the ResnetBlock and set-attention entries the
+generate command's launches of phase 18 ("eval_launches").  The
 last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -339,9 +369,25 @@ TEXT_CONTEXTS = 9
 # the scene-roll check: equal to the rolled output up to rounding, and the
 # text must move the output by more than its noise
 ROLL_TOL, ROLL_MIN_DIFF = 1e-5, 1e-3
+# phase 18, the evaluation path: run/generate.sh's own command on the
+# flagship config (DDPM-1000, --fused, f32) at its B=256, one batch (the
+# script's 1000 scenes cut to one batch), with --render --compute_intersec;
+# the mesh path (a synthetic textured-box catalog) at B=64 through
+# DPM-Solver++-20 and completion at run/completion.sh's B=32 with
+# --render --render_gt; then FID/KID and precision/recall between the
+# generated renders and the eval split's, the backbones on random weights.
+# 2560 rooms give an eval split of 256, as many real renders as fake ones.
+EVAL_DATA, EVAL_OUT, EVAL_SCENES = "build/smoke_eval_data", "build/smoke_eval", 2560
+EVAL_MESH_B, EVAL_CHECK_IMAGES = 64, 8
+# the backbones' features of 8 renders on the card against the same modules
+# on the CPU, f32 with TF32 off (cuDNN's and oneDNN's f32 convolutions sum
+# in other orders, ~94 layers deep): relative L2 of the whole feature
+# matrix; the pixel features round to 8 bits after each resize pass, so one
+# level (1/255) may flip where the two devices' sums straddle a half
+EVAL_FEATURE_TOL = {"pixel": 1.0 / 255 + 1e-6, "inception": 1e-4, "vgg": 1e-4}
 # the short checks: phase 1 and one kernel's phase, no ok line
 ONLY = ("--only-resblock", "--only-chain", "--only-attention", "--only-chamfer", "--only-train",
-        "--only-f32-engine", "--only-tasks", "--only-text")
+        "--only-f32-engine", "--only-tasks", "--only-text", "--only-eval")
 
 
 def card_line():
@@ -1608,7 +1654,7 @@ def phase_cli(torch, data_dir, out_dir, card):
     config (its EMA) for 3 epochs of the synthetic dataset, writing
     checkpoints; then generate_diffusion --fused --dpm on its checkpoint with
     the EMA weights: 64 scenes, exactly 560 B1 and 20 B2 launches, and the
-    categorical KL in stats.json."""
+    categorical KL in metrics.json."""
     from diffuscene_tpu_torch.cli import generate_diffusion, train_diffusion
     from diffuscene_tpu_torch.ops import attention as at
     from diffuscene_tpu_torch.ops import fused_resblock as rb
@@ -1636,9 +1682,9 @@ def phase_cli(torch, data_dir, out_dir, card):
     gen_s = time.perf_counter() - t0
     launches = (rb.fused_resnet_block.launches, at.fused_set_attention.launches)
     n_boxes = len([f for f in os.listdir(gen_dir) if f.endswith("_boxes.npz")])
-    with open(os.path.join(gen_dir, "stats.json")) as f:
+    with open(os.path.join(gen_dir, "metrics.json")) as f:
         saved = json.load(f)
-    ok = (launches == (28 * DPM_STEPS, DPM_STEPS) and n_boxes == GEN_SCENES
+    ok = (saved == stats and launches == (28 * DPM_STEPS, DPM_STEPS) and n_boxes == GEN_SCENES
           and saved.get("n_scenes") == GEN_SCENES
           and math.isfinite(saved.get("categorical_kl", float("nan"))))
     print(f"cli: train_diffusion {CLI_EPOCHS} epochs ({state['step']} steps, B=512 bf16) "
@@ -2169,8 +2215,10 @@ def phase_text_cli(torch, data_dir, out_dir, card):
         # the first sentence lists the scene's objects; the relations after
         # it follow the eval set's fixed rotation, drawn at each read
         rooms = {w.split(" . ")[0] for w in texts}
+        with open(os.path.join(gen_dir, "metrics.json")) as f:
+            saved = json.load(f)
         ok = (launches == (28 * T, T) and n_boxes == len(texts) == GEN_SCENES
-              and stats.get("n_scenes") == GEN_SCENES
+              and saved == stats and stats.get("n_scenes") == GEN_SCENES
               and all(w.startswith("The room has ") for w in texts)
               and (len(rooms) == 1) == (label == "scene_id"))
         print(f"cli: generate_diffusion --fused {' '.join(flags)} {GEN_SCENES} scenes (text, EMA "
@@ -2207,6 +2255,272 @@ def phase_text(torch, card):
     out["cli"] = phase_text_cli(torch, TEXT_DATA, TEXT_OUT, card)
     out["phase_s"] = time.perf_counter() - t0
     print(f"text: phase 17 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def check_launches(label, got, want):
+    """A CLI run's B1 and B2 launches must be exactly the sampler's count."""
+    if tuple(got) != tuple(want):
+        raise RuntimeError(f"{label}: launches B1={got[0]} B2={got[1]}, expected {want}")
+
+
+def eval_cli_run(torch, cli, argv):
+    """One CLI call with the B1 and B2 counts set to 0 just before it:
+    (its return, (B1, B2) launches, wall seconds)."""
+    from diffuscene_tpu_torch.ops import attention as at
+    from diffuscene_tpu_torch.ops import fused_resblock as rb
+
+    torch.cuda.synchronize()
+    rb.fused_resnet_block.launches = at.fused_set_attention.launches = 0
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    torch.cuda.synchronize()
+    return out, (rb.fused_resnet_block.launches, at.fused_set_attention.launches), \
+        time.perf_counter() - t0
+
+
+def eval_pngs(folder, n, shape):
+    """Exactly ``n`` PNGs {i:05d}.png in ``folder``, each decoded by the
+    port's reader to ``shape`` uint8; returns the images."""
+    import numpy as np
+
+    from diffuscene_tpu_torch.eval.png import read_png
+
+    names = sorted(f for f in os.listdir(folder) if f.endswith(".png") and len(f) == 9)
+    if names != [f"{i:05d}.png" for i in range(n)]:
+        raise RuntimeError(f"{folder}: {len(names)} renders, expected {n}")
+    imgs = [read_png(os.path.join(folder, f)) for f in names]
+    if any(im.shape != shape or im.dtype != np.uint8 for im in imgs):
+        raise RuntimeError(f"{folder}: a render is not {shape} uint8")
+    return np.stack(imgs)
+
+
+def phase_eval_generate(torch, cfg_path, exp, out_dir, card):
+    """Phase 18 (a): run/generate.sh's command, one batch of GENERATE_B:
+    generate_diffusion --n_sequences 256 --batch_size 256 --clip_denoised
+    --fused --render --compute_intersec on the seed's checkpoint; exactly
+    28,000 B1 and 1,000 B2 launches, 256 renders the port's reader decodes
+    to (256, 256, 3) uint8, iou_states.txt and a finite metrics.json, and
+    the wall time split into sampling, rendering and metrics."""
+    from diffuscene_tpu_torch.cli import generate_diffusion
+
+    gen_dir = os.path.join(out_dir, "generated")
+    stats, launches, wall_s = eval_cli_run(torch, generate_diffusion, [
+        cfg_path, gen_dir, "--weight_file", exp, "--n_sequences", str(GENERATE_B),
+        "--batch_size", str(GENERATE_B), "--clip_denoised", "--fused", "--render",
+        "--compute_intersec", "--seed", str(SEED), "--device", DEV])
+    check_launches("eval: generate", launches, (28 * T, T))
+    eval_pngs(gen_dir, GENERATE_B, (256, 256, 3))
+    with open(os.path.join(gen_dir, "metrics.json")) as f:
+        saved = json.load(f)
+    with open(os.path.join(gen_dir, "iou_states.txt")) as f:
+        iou_lines = len(f.read().splitlines())
+    with open(os.path.join(gen_dir, "timing.json")) as f:
+        split = json.load(f)
+    ok = (saved == stats and saved.get("n_scenes") == GENERATE_B and iou_lines == GENERATE_B
+          and all(math.isfinite(v) for v in saved.values()))
+    print(f"eval: generate_diffusion --n_sequences {GENERATE_B} --batch_size {GENERATE_B} "
+          f"--clip_denoised --fused --render --compute_intersec: {wall_s:.3f} s (sampling "
+          f"{split['sample_s']:.3f} s, rendering {split['render_s']:.3f} s, metrics "
+          f"{split['metrics_s']:.3f} s), launches B1={launches[0]} B2={launches[1]}, "
+          f"{GENERATE_B} renders (256, 256, 3) uint8, {iou_lines} iou_states lines, metrics "
+          f"{saved} {'ok' if ok else 'FAIL'} | {card}", flush=True)
+    if not ok:
+        raise RuntimeError(f"the generate command's outputs are wrong: metrics {saved}")
+    return gen_dir, {"wall_s": wall_s, **split, "launches": list(launches),
+                     "render_share": split["render_s"] / wall_s, "metrics": saved}
+
+
+def phase_eval_mesh(torch, cfg_path, exp, out_dir, card):
+    """Phase 18 (b): a textured-box catalog per class of the dataset
+    (data.make_synthetic_catalog), then generate_diffusion with it at
+    B=EVAL_MESH_B through DPM-Solver++-20, --render --render_perspective
+    --save_mesh --compute_intersec --judge_mesh_intersec: catalog texels in
+    the renders, the perspective renders, the merged mesh and the objects'
+    files, each manifest's jids from the catalog, and the judged
+    intersection no larger than the boxes'; then completion_rearrange
+    --num_partial 3 --render --render_gt at run/completion.sh's B=32."""
+    import numpy as np
+
+    from diffuscene_tpu_torch.cli import completion_rearrange, generate_diffusion
+    from diffuscene_tpu_torch.cli._box_stats import mean_box_stats, scene_box_stats
+    from diffuscene_tpu_torch.data import ThreedFutureDataset, make_synthetic_catalog
+    from diffuscene_tpu_torch.data.factory import get_raw_dataset
+    from diffuscene_tpu_torch.eval.png import read_png
+    from diffuscene_tpu_torch.utils.config import load_config
+
+    raw = get_raw_dataset(load_config(cfg_path)["data"], split=["test"])
+    catalog = make_synthetic_catalog(os.path.join(out_dir, "catalog"), raw.class_labels, seed=SEED)
+    objects = ThreedFutureDataset.from_pickled_dataset(catalog).objects
+    jids = {o.model_jid for o in objects}
+    texels = set()
+    for o in objects:
+        tex = read_png(o.texture_image_path).reshape(-1, 3)
+        texels |= {tuple(int(c) for c in px) for px in np.unique(tex, axis=0)}
+
+    mesh_dir = os.path.join(out_dir, "generated_mesh")
+    stats, launches, wall_s = eval_cli_run(torch, generate_diffusion, [
+        cfg_path, mesh_dir, catalog, "--weight_file", exp, "--n_sequences", str(EVAL_MESH_B),
+        "--batch_size", str(EVAL_MESH_B), "--clip_denoised", "--fused", "--dpm",
+        "--dpm_steps", str(DPM_STEPS), "--render", "--render_perspective", "--save_mesh",
+        "--compute_intersec", "--judge_mesh_intersec", "--seed", str(SEED), "--device", DEV])
+    check_launches("eval: generate with the catalog", launches, (28 * DPM_STEPS, DPM_STEPS))
+    renders = eval_pngs(mesh_dir, EVAL_MESH_B, (256, 256, 3))
+    packed = renders.reshape(-1, 3).astype(np.int64) @ np.array([65536, 256, 1])
+    textured = int(np.isin(packed, [r * 65536 + g * 256 + b for r, g, b in texels]).sum())
+    persp = [read_png(os.path.join(mesh_dir, f"{i:05d}_persp.png")).shape
+             for i in range(EVAL_MESH_B)]
+    scene_mesh = os.path.join(mesh_dir, "scene_mesh")
+    merged = [f"{i:05d}.obj" for i in range(EVAL_MESH_B)]
+    n_objects, bad_jids, unjudged = 0, 0, []
+    for i in range(EVAL_MESH_B):
+        with open(os.path.join(mesh_dir, f"{i:05d}_scene.json")) as f:
+            manifest = json.load(f)
+        n_objects += len(manifest)
+        bad_jids += sum(m["model_jid"] not in jids for m in manifest)
+        objs = [f for f in os.listdir(os.path.join(scene_mesh, f"{i:05d}")) if f.endswith(".obj")]
+        if len(objs) != len(manifest):
+            raise RuntimeError(f"eval: scene {i}: {len(objs)} object files, {len(manifest)} "
+                               f"manifest entries")
+        with np.load(os.path.join(mesh_dir, f"{i:05d}_boxes.npz")) as d:
+            unjudged.append(scene_box_stats(dict(d)))
+    boxes_only = mean_box_stats(unjudged)
+    ok = (textured > 0 and all(p == (512, 512, 3) for p in persp) and bad_jids == 0
+          and all(os.path.isfile(os.path.join(scene_mesh, m)) for m in merged)
+          and stats["avg_intersec"] <= boxes_only["avg_intersec"]
+          and stats["avg_pair_iou"] <= boxes_only["avg_pair_iou"])
+    print(f"eval: generate_diffusion with the catalog ({len(objects)} textured boxes) "
+          f"--dpm --render --render_perspective --save_mesh --judge_mesh_intersec: "
+          f"{EVAL_MESH_B} scenes {wall_s:.3f} s, launches B1={launches[0]} B2={launches[1]}, "
+          f"{textured} render pixels of catalog texels, {len(persp)} perspective renders "
+          f"512x512, {n_objects} objects in the manifests ({bad_jids} jids outside the "
+          f"catalog), judged avg_intersec {stats['avg_intersec']:.6f} <= boxes' "
+          f"{boxes_only['avg_intersec']:.6f} {'ok' if ok else 'FAIL'} | {card}", flush=True)
+    if not ok:
+        raise RuntimeError("the mesh path's outputs are wrong")
+    out = {"wall_s": wall_s, "launches": list(launches), "textured_pixels": textured,
+           "objects": n_objects, "judged_avg_intersec": stats["avg_intersec"],
+           "box_avg_intersec": boxes_only["avg_intersec"]}
+
+    comp_dir = os.path.join(out_dir, "completed")
+    metrics, launches, wall_s = eval_cli_run(torch, completion_rearrange, [
+        cfg_path, comp_dir, "--weight_file", exp, "--num_partial", str(TASK_PARTIAL),
+        "--n_sequences", str(TASK_B), "--batch_size", str(TASK_B), "--clip_denoised",
+        "--fused", "--render", "--render_gt", "--compute_intersec", "--seed", str(SEED),
+        "--device", DEV])
+    check_launches("eval: completion", launches, (28 * T, T))
+    for sub in ("", "partial", "groundtruth"):
+        eval_pngs(os.path.join(comp_dir, sub), TASK_B, (256, 256, 3))
+    print(f"eval: completion_rearrange --num_partial {TASK_PARTIAL} --render --render_gt "
+          f"{TASK_B} scenes {wall_s:.3f} s, launches B1={launches[0]} B2={launches[1]}, "
+          f"{TASK_B} renders each of the results, partial/ and groundtruth/, metrics "
+          f"{metrics} ok | {card}", flush=True)
+    out["completion"] = {"wall_s": wall_s, "launches": list(launches)}
+    return out
+
+
+def phase_eval_metrics(torch, cfg_path, gen_dir, out_dir, card):
+    """Phase 18 (c): the real set is the eval split's boxes through
+    render_to_folder; compute_fid_scores --features inception (a random
+    InceptionV3 state dict as .npz) and --features pixel, and
+    improved_precision_recall --features vgg (a random VGG16) and --features
+    pixel, between it and phase (a)'s renders, on the card; the three
+    extractors' features of EVAL_CHECK_IMAGES renders on the card against
+    the same modules on the CPU, and each backbone's images/s on the card."""
+    import numpy as np
+
+    from diffuscene_tpu_torch.cli import compute_fid_scores, improved_precision_recall
+    from diffuscene_tpu_torch.data.factory import get_raw_dataset
+    from diffuscene_tpu_torch.eval.backbones import (random_inception_state_dict,
+                                                     random_vgg16_state_dict)
+    from diffuscene_tpu_torch.eval.fid import (InceptionFeatures, PixelFeatures, VGG16Features,
+                                               load_image_folder)
+    from diffuscene_tpu_torch.eval.render import render_to_folder
+    from diffuscene_tpu_torch.utils.config import load_config
+
+    t0 = time.perf_counter()
+    raw = get_raw_dataset(load_config(cfg_path)["data"], split=["test"])
+    real_dir = os.path.join(out_dir, "real")
+    render_to_folder([raw[i] for i in range(len(raw))], real_dir)
+    real_s = time.perf_counter() - t0
+    weights = {}
+    for name, make in (("inception", random_inception_state_dict), ("vgg", random_vgg16_state_dict)):
+        weights[name] = os.path.join(out_dir, f"random_{name}.npz")
+        np.savez(weights[name], **make(SEED))
+    print(f"eval: {len(raw)} real renders of the eval split {real_s:.3f} s; the backbones' "
+          f"weights are RANDOM (InceptionV3 and VGG16 from the seed), so FID, KID and "
+          f"precision/recall below are NOT paper-comparable", flush=True)
+
+    out = {"real_renders": len(raw), "weights": "random, not paper-comparable"}
+    for label, cli, flags in (
+            ("fid_inception", compute_fid_scores, ["--features", "inception",
+                                                   "--inception_weights", weights["inception"]]),
+            ("fid_pixel", compute_fid_scores, ["--features", "pixel"]),
+            ("ipr_vgg", improved_precision_recall, ["--features", "vgg",
+                                                    "--vgg_weights", weights["vgg"]]),
+            ("ipr_pixel", improved_precision_recall, ["--features", "pixel"])):
+        t0 = time.perf_counter()
+        res = cli.main([real_dir, gen_dir, *flags, "--device", DEV])
+        res_s = time.perf_counter() - t0
+        nums = {k: v for k, v in res.items() if k in ("fid", "kid", "precision", "recall")}
+        if not nums or not all(math.isfinite(v) for v in nums.values()):
+            raise RuntimeError(f"eval: {label} gave {res}")
+        print(f"eval: {cli.__name__.rsplit('.', 1)[1]} {' '.join(flags[:2])}: {nums} "
+              f"{res_s:.3f} s (random weights) | {card}", flush=True)
+        out[label] = {**nums, "s": res_s}
+
+    images = load_image_folder(gen_dir)
+    agree = {}
+    for name, make in (("pixel", lambda d: PixelFeatures(device=d)),
+                       ("inception", lambda d: InceptionFeatures(weights["inception"], device=d)),
+                       ("vgg", lambda d: VGG16Features(weights["vgg"], device=d))):
+        card_fn, cpu_fn = make(DEV), make("cpu")
+        a = card_fn(images[:EVAL_CHECK_IMAGES])
+        b = cpu_fn(images[:EVAL_CHECK_IMAGES])
+        if name == "pixel":
+            err = float(np.abs(a - b).max())
+        else:
+            err = float(np.linalg.norm(a - b) / np.linalg.norm(b))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card_fn(images)
+        ips = len(images) / (time.perf_counter() - t0)
+        ok = err <= EVAL_FEATURE_TOL[name]
+        print(f"eval: {name} features of {EVAL_CHECK_IMAGES} renders, card vs CPU: "
+              f"{'max abs' if name == 'pixel' else 'relative L2'} {err:.3e} (tol "
+              f"{EVAL_FEATURE_TOL[name]:.3e}) {'ok' if ok else 'FAIL'}; {ips:.1f} images/s on "
+              f"the card over {len(images)} renders | {card}", flush=True)
+        if not ok:
+            raise RuntimeError(f"eval: {name} features disagree between the card and the CPU")
+        agree[name] = {"err": err, "tol": EVAL_FEATURE_TOL[name], "images_per_s": ips}
+    out["features"] = agree
+    return out
+
+
+def phase_eval(torch, card):
+    """Phase 18: the evaluation path on a synthetic cached dataset made from
+    the seed, and a checkpoint of the flagship model's seeded weights
+    written by the port's checkpoint module."""
+    import shutil
+
+    from diffuscene_tpu_torch.data import make_synthetic_cached_dataset
+    from diffuscene_tpu_torch.utils.checkpoint import save_checkpoint
+
+    for d in (EVAL_DATA, EVAL_OUT):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(EVAL_OUT)
+    t0 = time.perf_counter()
+    make_synthetic_cached_dataset(EVAL_DATA, n_scenes=EVAL_SCENES, seed=SEED)
+    cfg_path = synthetic_config(FLAGSHIP_CONFIG, EVAL_DATA, EVAL_OUT, "flagship_eval.yaml")
+    exp = os.path.join(EVAL_OUT, "seeded")
+    save_checkpoint({"step": 0, "model": task_model(torch, FLAGSHIP_CONFIG).networks.state_dict(),
+                     "ema": None}, exp, 0)
+    out = {"card": card, "setup_s": time.perf_counter() - t0}
+    gen_dir, out["generate"] = phase_eval_generate(torch, cfg_path, exp, EVAL_OUT, card)
+    out["mesh"] = phase_eval_mesh(torch, cfg_path, exp, EVAL_OUT, card)
+    out["metrics"] = phase_eval_metrics(torch, cfg_path, gen_dir, EVAL_OUT, card)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"eval: phase 18 took {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -2317,6 +2631,10 @@ def main(argv):
         print(json.dumps({"text": phase_text(torch, card)}))
         print(card_line())
         return 0
+    if only == "--only-eval":       # the evaluation path alone: phase 18
+        print(json.dumps({"eval": phase_eval(torch, card)}))
+        print(card_line())
+        return 0
     if only == "--only-f32-engine":  # the flagship config's own dtype: phases 3 + 9 and 15, f32
         scene32 = phase_forward(torch, torch.float32)
         phase_rows_sample(torch, scene32, card)
@@ -2378,10 +2696,16 @@ def main(argv):
     # engines (B1 and B2, B4), the text train step and the text CLIs
     text = phase_text(torch, card)
     text_launches = {k: v["launches"] for k, v in text["samples"].items() if k != "roll"}
+    torch.cuda.empty_cache()
+    # this slice's main path: run/generate.sh's command with its renders and
+    # box metrics (B1 and B2), the mesh path, FID/KID and precision/recall
+    ev = phase_eval(torch, card)
+    eval_launches = ev["generate"]["launches"]
 
     print(json.dumps({"train": train}))
     print(json.dumps({"tasks": tasks}))
     print(json.dumps({"text": text}))
+    print(json.dumps({"eval": ev}))
     print(json.dumps({"kernels": [{
         "name": "fused_chain",
         "route": "cuda",
@@ -2434,6 +2758,7 @@ def main(argv):
         "f32_bound_ms": rb32_bound_ms,
         "task_launches": {k: v[0] for k, v in task_launches.items()},
         "text_launches": text_launches["ddpm_3d"][0],
+        "eval_launches": eval_launches[0],
     }, {
         "name": "set_attention",
         "route": "cuda",
@@ -2454,6 +2779,7 @@ def main(argv):
         "f32_bound_ms": at_main["float32"]["bound"],
         "task_launches": {k: v[1] for k, v in task_launches.items()},
         "text_launches": text_launches["ddpm_3d"][1],
+        "eval_launches": eval_launches[1],
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

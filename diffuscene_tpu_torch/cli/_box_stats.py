@@ -4,21 +4,26 @@ line of ``iou_states.txt`` and their means (reference
 completion_rearrange.py:430-446, generate_diffusion.py:394-429)."""
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
 from ..eval.metrics import compute_intersection, compute_symmetry, scene_bboxes_from_params
 
 
-def scene_box_stats(boxes: Dict[str, np.ndarray]) -> Tuple[float, ...]:
+def scene_box_stats(boxes: Dict[str, np.ndarray],
+                    pair_intersects: Optional[Callable[[int, int], bool]] = None
+                    ) -> Tuple[float, ...]:
     """A post-processed scene -> (objects, pairs, mean pair IoU, mean
-    intersection, overlap ratio, symmetric pairs)."""
+    intersection, overlap ratio, symmetric pairs).  ``pair_intersects``
+    (``eval/mesh_intersect.py``) judges each box pair with a positive IoU
+    by its retrieved meshes."""
     bb = scene_bboxes_from_params(np.asarray(boxes["translations"]).reshape(-1, 3),
                                   np.asarray(boxes["sizes"]).reshape(-1, 3))
     cls = np.asarray(boxes["class_labels"])
     cls = cls[0] if cls.ndim == 3 else cls
-    return (*compute_intersection(bb), compute_symmetry(bb, cls))
+    return (*compute_intersection(bb, pair_intersects=pair_intersects),
+            compute_symmetry(bb, cls))
 
 
 def append_iou_states(path: str, per_scene_stats: Sequence[Tuple[float, ...]]) -> None:

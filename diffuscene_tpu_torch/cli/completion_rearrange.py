@@ -17,7 +17,16 @@ and mid_attn on the B2 kernel.  The sampler's noise comes from a
 trainer's checkpoint (its EMA unless ``--no_ema``) or a reference ``.pt``.
 It writes each scene's boxes (``{idx:05d}_boxes.json``), and with
 ``--compute_intersec`` the running ``iou_states.txt`` and ``metrics.json``
-(box intersection and symmetry statistics), as the JAX CLI does.
+(box intersection and symmetry statistics), as the JAX CLI does.  Renders
+and meshes go through ``cli/_scene_output.py`` as in the JAX CLI:
+``--render`` (alias ``--render_top2down``) writes ``{idx:05d}.png`` and the
+input scene's render into ``partial/`` (completion) or ``noisy/``
+(re-arrangement), ``--render_gt`` (or the config's ``validation.gen_gt``)
+the eval scene's into ``groundtruth/``; a catalog (the third positional or
+``--path_to_pickled_3d_futute_models``) renders the retrieved textured
+meshes, and ``--render_perspective``, ``--with_rotating_camera``,
+``--save_mesh`` and ``--judge_mesh_intersec`` work as in
+``cli/generate_diffusion.py``.
 
     python -m diffuscene_tpu_torch.cli.completion_rearrange \\
         configs/uncond/diffusion_bedrooms_instancond_lat32_v.yaml completed \\
@@ -28,11 +37,6 @@ It writes each scene's boxes (``{idx:05d}_boxes.json``), and with
         --weight_file out/<tag> --arrange_objects --n_sequences 100 --batch_size 32 \\
         --clip_denoised --fused
 
-The flags that need a render or the mesh catalog raise (``eval/render.py``
-and ``eval/retrieval.py`` are not ported, ROADMAP A8): ``--render`` and
-``--render_top2down``, ``--render_gt`` (or the config's
-``validation.gen_gt``), ``--render_perspective``, ``--with_rotating_camera``,
-``--save_mesh``, ``--judge_mesh_intersec`` and a catalog for retrieval.
 ``--device`` picks the card (default) or ``--device cpu``.
 """
 from __future__ import annotations
@@ -43,26 +47,13 @@ import os
 
 import numpy as np
 
-_A8 = "not ported yet (ROADMAP A8)"
-_REFUSED = {
-    "render": f"renders need eval/render.py, {_A8}",
-    "render_gt": f"renders need eval/render.py, {_A8}",
-    "render_perspective": f"renders need eval/render.py, {_A8}",
-    "with_rotating_camera": f"renders need eval/render.py, {_A8}",
-    "save_mesh": f"mesh export needs eval/retrieval.py, {_A8}",
-    "judge_mesh_intersec": f"mesh intersection needs eval/retrieval.py, {_A8}",
-    "path_to_pickled_3d_futute_models": f"mesh retrieval needs eval/retrieval.py, {_A8}",
-}
+def build_parser() -> argparse.ArgumentParser:
+    from ._scene_output import add_scene_output_args
 
-
-def main(argv=None):
     parser = argparse.ArgumentParser(description="Scene completion / re-arrangement "
                                      "(PyTorch port)")
     parser.add_argument("config_file")
     parser.add_argument("output_directory")
-    parser.add_argument("pickled_models_pos", nargs="?", default=None,
-                        metavar="path_to_pickled_3d_futute_models",
-                        help="mesh catalog for retrieval: not ported (ROADMAP A8)")
     parser.add_argument("--no_ema", action="store_true",
                         help="use the raw weights even when the checkpoint has an EMA")
     parser.add_argument("--weight_file", default=None,
@@ -77,30 +68,44 @@ def main(argv=None):
     parser.add_argument("--scene_id", default=None,
                         help="complete/arrange this named eval scene in every sequence; the "
                         "re-arrangement noise is then seeded by the scene's index")
+    parser.add_argument("--scene_texture", action="store_true",
+                        help="accepted as the reference parses it (completion_rearrange.py:171) "
+                        "and unused; textures follow --no_texture")
     parser.add_argument("--clip_denoised", action="store_true")
     parser.add_argument("--fused", action="store_true",
                         help="the 3-D serving engine: ResnetBlocks on B1, mid_attn on B2")
-    parser.add_argument("--compute_intersec", action="store_true",
-                        help="box IoU / intersection / symmetry statistics per scene")
-    parser.add_argument("--render", action="store_true", help="not ported (A8)")
     parser.add_argument("--render_top2down", dest="render", action="store_true",
                         help="alias for --render")
-    parser.add_argument("--render_gt", action="store_true", help="not ported (A8)")
-    parser.add_argument("--judge_mesh_intersec", action="store_true", help="not ported (A8)")
-    parser.add_argument("--path_to_pickled_3d_futute_models", default=None,
-                        help="not ported (A8)")
-    parser.add_argument("--save_mesh", action="store_true", help="not ported (A8)")
-    parser.add_argument("--render_perspective", action="store_true", help="not ported (A8)")
-    parser.add_argument("--with_rotating_camera", action="store_true", help="not ported (A8)")
+    parser.add_argument("--render", action="store_true",
+                        help="render the results, and the input scenes into partial/ "
+                        "(completion) or noisy/ (re-arrangement)")
+    parser.add_argument("--render_gt", action="store_true",
+                        help="also render the eval scenes into groundtruth/ (on when the "
+                        "config sets validation.gen_gt)")
+    parser.add_argument("--compute_intersec", action="store_true",
+                        help="box IoU / intersection / symmetry statistics per scene")
+    parser.add_argument("--judge_mesh_intersec", action="store_true",
+                        help="with --compute_intersec and a catalog, count a positive box IoU "
+                        "only when the retrieved meshes' surfaces cross")
+    add_scene_output_args(parser)
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
-    args = parser.parse_args(argv)
-    args.path_to_pickled_3d_futute_models = (args.path_to_pickled_3d_futute_models
-                                             or args.pickled_models_pos)
+    return parser
+
+
+def main(argv=None):
+    from ._scene_output import SceneOutput, resolve_scene_output_args
+
+    args = resolve_scene_output_args(build_parser().parse_args(argv))
+    if (args.compute_intersec and args.judge_mesh_intersec
+            and not args.path_to_pickled_3d_futute_models):
+        raise SystemExit("--judge_mesh_intersec needs a retrieved catalog "
+                         "(--path_to_pickled_3d_futute_models)")
 
     import torch
 
     from ..data.factory import get_dataset_raw_and_encoded
     from ..eval.postprocess import split_network_samples
+    from ..eval.render import save_image
     from ..models.scene_model import SceneDiffusion, SceneModelConfig
     from ..utils.checkpoint import load_model_weights
     from ..utils.config import load_config
@@ -111,9 +116,6 @@ def main(argv=None):
     # the reference renders the ground truth when the config sets
     # validation.gen_gt (completion_rearrange.py:499)
     args.render_gt = args.render_gt or bool(config.get("validation", {}).get("gen_gt", False))
-    for flag, why in _REFUSED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag}: {why}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -142,6 +144,8 @@ def main(argv=None):
         print(f"loaded weights from {args.weight_file}"
               + ("" if args.no_ema else " (the EMA weights when the checkpoint has them)"))
 
+    scene_out = SceneOutput(args, raw, seed=args.seed)
+
     # --scene_id pins every sequence to one named eval scene, whose index
     # then seeds the re-arrangement noise (completion_rearrange.py:264-268,
     # 312-322)
@@ -156,6 +160,14 @@ def main(argv=None):
     rng = np.random.default_rng(args.seed if given_scene_id is None else given_scene_id)
     gen = torch.Generator(device=scene.device).manual_seed(args.seed)
     td, sd_, bd = cfg.translation_dim, cfg.size_dim, cfg.bbox_dim
+
+    def render_aux(arr, subdir, idx):
+        """Render an encoded scene into a subfolder (the reference's
+        render_to_folder side renders, completion_rearrange.py:332-337)."""
+        aux = eval_ds.post_process(split_network_samples(scene.spec, arr[None])[0])
+        out_dir = os.path.join(args.output_directory, subdir)
+        os.makedirs(out_dir, exist_ok=True)
+        save_image(scene_out.render(aux, idx), os.path.join(out_dir, f"{idx:05d}.png"))
 
     n_done = 0
     per_scene_stats = []
@@ -183,14 +195,30 @@ def main(argv=None):
             out = scene.sample(len(batch), generator=gen, clip_denoised=args.clip_denoised,
                                fused=args.fused, partial_boxes=partial)
         take = min(args.batch_size, args.n_sequences - n_done)
+
+        inputs = noisy if args.arrange_objects else target[:, : args.num_partial]
         for i, boxes in enumerate(split_network_samples(scene.spec,
                                                         out[:take].float().cpu().numpy())):
             boxes = eval_ds.post_process(boxes)
             idx = n_done + i
             with open(os.path.join(args.output_directory, f"{idx:05d}_boxes.json"), "w") as f:
                 json.dump({k: np.asarray(v).tolist() for k, v in boxes.items()}, f)
+            if args.render:
+                save_image(scene_out.render(boxes, idx),
+                           os.path.join(args.output_directory, f"{idx:05d}.png"))
+                render_aux(inputs[i], "noisy" if args.arrange_objects else "partial", idx)
+            scene_out.perspective_outputs(boxes, idx, args.output_directory)
+            if args.render_gt:
+                render_aux(target[i], "groundtruth", idx)
+            if args.save_mesh:
+                scene_out.export(boxes, idx, args.output_directory)
             if args.compute_intersec:
-                per_scene_stats.append(scene_box_stats(boxes))
+                pair_fn = None
+                if args.judge_mesh_intersec:
+                    from ..eval.mesh_intersect import make_pair_intersects
+
+                    pair_fn = make_pair_intersects(scene_out.retrieve(boxes))
+                per_scene_stats.append(scene_box_stats(boxes, pair_intersects=pair_fn))
                 append_iou_states(os.path.join(args.output_directory, "iou_states.txt"),
                                   per_scene_stats)
         n_done += take

@@ -112,3 +112,58 @@ def make_synthetic_cached_dataset(
         for sid, split in scene_rows:
             f.write(f"{sid},{split}\n")
     return out_dir
+
+
+def _write_box_obj(model_dir: str, half: np.ndarray, colour: np.ndarray) -> None:
+    """A textured box: raw_model.obj (6 quads with UVs), model.mtl and a
+    16x16 checker texture.png in ``colour``."""
+    from ..eval.png import write_png
+
+    corners = np.array([[x, y, z] for x in (-1, 1) for y in (-1, 1) for z in (-1, 1)],
+                       np.float64) * half
+    quads = [(0, 1, 3, 2), (4, 6, 7, 5), (0, 4, 5, 1), (2, 3, 7, 6), (0, 2, 6, 4), (1, 5, 7, 3)]
+    lines = ["mtllib model.mtl"]
+    lines += [f"v {x:.6f} {y:.6f} {z:.6f}" for x, y, z in corners]
+    lines += ["vt 0 0", "vt 1 0", "vt 1 1", "vt 0 1", "usemtl box"]
+    lines += ["f " + " ".join(f"{v + 1}/{k + 1}" for k, v in enumerate(q)) for q in quads]
+    with open(os.path.join(model_dir, "raw_model.obj"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    with open(os.path.join(model_dir, "model.mtl"), "w") as f:
+        f.write("newmtl box\nKd 1 1 1\nmap_Kd texture.png\n")
+    checker = (np.indices((16, 16)).sum(0) // 4) % 2
+    tex = np.where(checker[..., None] == 1, colour, colour // 2).astype(np.uint8)
+    write_png(os.path.join(model_dir, "texture.png"), tex)
+
+
+def make_synthetic_catalog(out_dir: str, labels: List[str], per_label: int = 2,
+                           seed: int = 0) -> str:
+    """A 3D-FUTURE-style furniture catalog for mesh retrieval: for each label,
+    ``per_label`` textured boxes of random half-extents (``<jid>/raw_model.obj``,
+    ``model.mtl``, ``texture.png``, a 32-d ``raw_model_norm_pc_lat32.npz``),
+    their sizes computed and kept, pickled as a ``ThreedFutureDataset`` at
+    ``out_dir/threed_future_model.pkl``; returns the pickle's path."""
+    from .raw import Asset, ThreedFutureModel
+    from .threed_future import ThreedFutureDataset
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(out_dir, exist_ok=True)
+    objects = []
+    for li, label in enumerate(labels):
+        colour = rng.integers(64, 256, 3)
+        for k in range(per_label):
+            jid = f"synth-{li:03d}-{k:02d}"
+            model_dir = os.path.join(out_dir, jid)
+            os.makedirs(model_dir, exist_ok=True)
+            _write_box_obj(model_dir, rng.uniform(0.1, 1.0, 3), colour)
+            np.savez(os.path.join(model_dir, "raw_model_norm_pc_lat32.npz"),
+                     latent=rng.normal(0, 1, 32).astype(np.float32))
+            model = ThreedFutureModel(
+                model_uid=f"{jid}-uid", model_jid=jid,
+                model_info=Asset(label, label, None, None, None),
+                position=np.zeros(3), rotation=np.array([0.0, 0.0, 0.0, 1.0]),
+                scale=np.ones(3), path_to_models=out_dir)
+            model.size                              # computed once, kept in the pickle
+            objects.append(model)
+    path = os.path.join(out_dir, "threed_future_model.pkl")
+    ThreedFutureDataset(objects).pickle(path)
+    return path

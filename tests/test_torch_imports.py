@@ -1,6 +1,8 @@
-"""The port stands alone on the card's machine, which has no JAX, flax or
-pyyaml: no file of diffuscene_tpu_torch/ (nor chip_smoke.py) imports them or
-the JAX package."""
+"""The port stands alone on the card's machine, which has no JAX, flax,
+pyyaml or Pillow: no file of diffuscene_tpu_torch/ (nor chip_smoke.py)
+imports them or the JAX package, and none imports Pillow at module level
+(it is tried only inside a function, for an image the port's PNG codec
+does not read)."""
 import ast
 import os
 
@@ -36,6 +38,17 @@ def test_port_imports_no_jax_yaml_or_jax_package(path):
     assert not bad, f"{path} imports {bad}"
 
 
+@pytest.mark.parametrize("path", list(_sources()))
+def test_port_imports_no_pillow_at_module_level(path):
+    with open(os.path.join(REPO, path)) as f:
+        tree = ast.parse(f.read(), filename=path)
+    top = [n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))]
+    roots = {a.name.split(".")[0] for n in top if isinstance(n, ast.Import) for a in n.names}
+    roots |= {n.module.split(".")[0] for n in top
+              if isinstance(n, ast.ImportFrom) and n.level == 0 and n.module}
+    assert "PIL" not in roots, f"{path} imports PIL at module level"
+
+
 def test_port_sources_found():
     paths = list(_sources())
     for module in ("ops/fused_level.py", "ops/build.py", "ops/chamfer.py", "ops/knn.py",
@@ -47,6 +60,10 @@ def test_port_sources_found():
                    "data/splits.py", "data/encoding.py", "data/threed_front.py",
                    "data/filters.py", "data/loader.py", "data/factory.py", "data/synthetic.py",
                    "eval/postprocess.py", "eval/metrics.py", "cli/train_diffusion.py",
-                   "cli/generate_diffusion.py", "data/text.py"):
+                   "cli/generate_diffusion.py", "data/text.py", "cli/completion_rearrange.py",
+                   "cli/_scene_output.py", "cli/compute_fid_scores.py",
+                   "cli/improved_precision_recall.py", "eval/png.py", "eval/render.py",
+                   "eval/retrieval.py", "eval/mesh_intersect.py", "eval/backbones.py",
+                   "eval/fid.py", "eval/ipr.py"):
         assert f"diffuscene_tpu_torch/{module}" in paths, module
-    assert len(paths) >= 44
+    assert len(paths) >= 56

@@ -119,7 +119,8 @@ def _cli_config(root, ema_decay):
 def test_train_then_generate_cli_on_cpu(tmp_path):
     """train_diffusion (2 epochs, EMA, checkpoints, bounds, stats) then
     generate_diffusion on its checkpoint (EMA weights, DPM-Solver++ through
-    the 3-D engine, --compute_intersec), both with --device cpu; a rerun of
+    the 3-D engine, --compute_intersec, metrics.json; then --render, a PNG
+    a scene), both with --device cpu; a rerun of
     train resumes from the last checkpoint, trains one more epoch and keeps
     only the last checkpoint."""
     from diffuscene_tpu_torch.cli.generate_diffusion import main as gen_main
@@ -149,7 +150,7 @@ def test_train_then_generate_cli_on_cpu(tmp_path):
     stats = gen_main([cfg, gen, "--weight_file", exp, "--n_sequences", "3", "--batch_size", "2",
                       "--fused", "--dpm", "--dpm_steps", "3", "--compute_intersec",
                       "--device", "cpu"])
-    with open(os.path.join(gen, "stats.json")) as f:
+    with open(os.path.join(gen, "metrics.json")) as f:
         assert json.load(f) == stats
     assert stats["n_scenes"] == 3 and np.isfinite(stats["categorical_kl"])
     assert "avg_overlap_ratio" in stats
@@ -157,7 +158,12 @@ def test_train_then_generate_cli_on_cpu(tmp_path):
     assert boxes == ["00000_boxes.npz", "00001_boxes.npz", "00002_boxes.npz"]
     with np.load(os.path.join(gen, boxes[0])) as d:
         assert d["translations"].shape[-1] == 3 and np.isfinite(d["sizes"]).all()
-    with pytest.raises(SystemExit, match="A8"):
-        gen_main([cfg, gen, "--weight_file", exp, "--render", "--device", "cpu"])
+    gen_main([cfg, gen, "--weight_file", exp, "--n_sequences", "3", "--batch_size", "2",
+              "--fused", "--dpm", "--dpm_steps", "3", "--render", "--device", "cpu"])
+    pngs = sorted(f for f in os.listdir(gen) if f.endswith(".png"))
+    assert pngs == ["00000.png", "00001.png", "00002.png"]
+    from diffuscene_tpu_torch.eval.png import read_png
+
+    assert all(read_png(os.path.join(gen, f)).shape == (256, 256, 3) for f in pngs)
     with pytest.raises(SystemExit, match="A11"):
         train_main([cfg, out, "--native_loader", "--device", "cpu"])

@@ -2,8 +2,9 @@
 synthetic cached dataset: the train CLI on a tiny rearrange config (the
 arrange head, 5 diffused channels through init_conv/final_conv) then
 re-arrangement on its checkpoint, completion on a tiny unconditional model
-from a reference-format ``.pt``, and the render and mesh flags raising
-with ROADMAP A8 named.  Tiny sizes: dim 32, 2 levels, 4 steps.
+from a reference-format ``.pt``, and each render and mesh flag with its
+outputs (a synthetic textured-box catalog where the flag needs one).  Tiny
+sizes: dim 32, 2 levels, 4 steps.
 """
 import json
 import os
@@ -13,7 +14,7 @@ import pytest
 import torch
 import yaml
 
-from diffuscene_tpu_torch.data import make_synthetic_cached_dataset
+from diffuscene_tpu_torch.data import make_synthetic_cached_dataset, make_synthetic_catalog
 
 ENCODING = "cached_diffusion_cosin_angle_objfeatsnorm_lat32_wocm"
 
@@ -129,16 +130,82 @@ def test_completion_cli_from_reference_weights(tmp_path):
     assert _outputs(completed, 3) == metrics
 
 
+@pytest.fixture(scope="module")
+def flag_setup(tmp_path_factory):
+    """A tiny unconditional config over a synthetic dataset and a textured-box
+    catalog of its classes (data.make_synthetic_catalog)."""
+    from diffuscene_tpu_torch.data.factory import get_raw_dataset
+    from diffuscene_tpu_torch.utils.config import load_config
+
+    root = tmp_path_factory.mktemp("flags")
+    cfg = _config(root, arrange=False)
+    raw = get_raw_dataset(load_config(cfg)["data"], split=["test"])
+    return cfg, make_synthetic_catalog(str(root / "catalog"), raw.class_labels, seed=0)
+
+
+def _png_names(folder):
+    return sorted(f for f in os.listdir(folder) if f.endswith(".png"))
+
+
+# flags that need the catalog get it as the flag form; the last two cases
+# are the catalog itself, as the flag and as the third positional
+_NEEDS_CATALOG = {"--render_perspective", "--with_rotating_camera", "--save_mesh",
+                  "--judge_mesh_intersec"}
+
+
 @pytest.mark.parametrize("flags", [
     ["--render"], ["--render_top2down"], ["--render_gt"], ["--render_perspective"],
     ["--with_rotating_camera"], ["--save_mesh"], ["--judge_mesh_intersec"],
     ["--path_to_pickled_3d_futute_models", "catalog.pkl"], ["catalog.pkl"],
 ])
-def test_render_and_mesh_flags_raise_naming_a8(tmp_path, flags):
-    """Every flag that needs a render or the mesh catalog raises SystemExit
-    naming ROADMAP A8, before any data is read."""
+def test_render_and_mesh_flags_write_their_outputs(flag_setup, tmp_path, flags):
+    """Each render and mesh flag of completion_rearrange (refused before the
+    evaluation path was ported) writes its output on 2 completed scenes:
+    the renders with the partial inputs' in partial/, the ground truth's in
+    groundtruth/, the perspective renders, the orbit frames, the mesh files
+    and manifests, the judged intersection statistics, and the catalog's
+    jids in the manifests (flag and positional)."""
     from diffuscene_tpu_torch.cli.completion_rearrange import main as task_main
+    from diffuscene_tpu_torch.data import ThreedFutureDataset
 
-    cfg = _config(tmp_path, arrange=False, data_dir=str(tmp_path / "absent"))
-    with pytest.raises(SystemExit, match="ROADMAP A8"):
-        task_main([cfg, str(tmp_path / "out"), *flags, "--device", "cpu"])
+    cfg, catalog = flag_setup
+    flags = [catalog if f == "catalog.pkl" else f for f in flags]
+    extra = ["--path_to_pickled_3d_futute_models", catalog] if flags[0] in _NEEDS_CATALOG else []
+    out = str(tmp_path / "out")
+    metrics = task_main([cfg, out, *flags, *extra, "--n_sequences", "2", "--batch_size", "2",
+                         "--compute_intersec", "--n_frames", "2", "--window_size", "40,32",
+                         "--device", "cpu"])
+    names = ["00000.png", "00001.png"]
+    with open(os.path.join(out, "metrics.json")) as f:
+        assert json.load(f) == metrics and metrics["n_scenes"] == 2
+    if flags[0] in ("--render", "--render_top2down"):
+        assert _png_names(out) == names == _png_names(os.path.join(out, "partial"))
+    elif flags[0] == "--render_gt":
+        assert _png_names(os.path.join(out, "groundtruth")) == names
+        assert _png_names(out) == []
+    elif flags[0] == "--render_perspective":
+        assert _png_names(out) == ["00000_persp.png", "00001_persp.png"]
+    elif flags[0] == "--with_rotating_camera":
+        for i in range(2):
+            assert _png_names(os.path.join(out, "frames", f"{i:05d}")) == names
+    elif flags[0] == "--save_mesh":
+        mesh = os.path.join(out, "scene_mesh")
+        assert sorted(f for f in os.listdir(mesh) if f.endswith(".obj")) == ["00000.obj",
+                                                                              "00001.obj"]
+        for i in range(2):
+            with open(os.path.join(out, f"{i:05d}_scene.json")) as f:
+                n = len(json.load(f))
+            assert len([f for f in os.listdir(os.path.join(mesh, f"{i:05d}"))
+                        if f.endswith(".obj")]) == n
+    elif flags[0] == "--judge_mesh_intersec":
+        boxes_only = task_main([cfg, str(tmp_path / "boxes"), "--n_sequences", "2",
+                                "--batch_size", "2", "--compute_intersec", "--device", "cpu"])
+        assert metrics["avg_intersec"] <= boxes_only["avg_intersec"]
+        assert metrics["avg_pair_iou"] <= boxes_only["avg_pair_iou"]
+    else:   # the catalog, as the flag or the positional: with --save_mesh, its jids
+        task_main([cfg, out, *flags, "--save_mesh", "--n_sequences", "1", "--device", "cpu"])
+        jids = {o.model_jid for o in ThreedFutureDataset.from_pickled_dataset(catalog)}
+        with open(os.path.join(out, "00000_scene.json")) as f:
+            assert {m["model_jid"] for m in json.load(f)} <= jids
+    with pytest.raises(SystemExit, match="needs a retrieved catalog"):
+        task_main([cfg, out, "--compute_intersec", "--judge_mesh_intersec", "--device", "cpu"])
