@@ -174,10 +174,34 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    and pixel, on the card, against (a)'s renders (random weights: the
    numbers are not paper-comparable); the pixel, InceptionV3 and VGG16
    features of 8 renders on the card against the CPU within
-   EVAL_FEATURE_TOL, and each extractor's images/s on the card.
+   EVAL_FEATURE_TOL, and each extractor's images/s on the card;
+19. the data pipeline and room-mask conditioning: (a) a synthetic raw
+   3D-FRONT / 3D-FUTURE tree of DATA_ROOMS bedrooms
+   (data.make_synthetic_raw_front) through the port's CLIs in the
+   README's order, each timed: pickle_threed_future_dataset,
+   pickle_threed_future_pointcloud, train_objautoencoder on the card
+   (exactly 2 B3 launches a step), generate_objautoencoder, preprocess_data
+   --add_objfeats --room_mask_size 512; every room's boxes.npz,
+   room_mask.png and render, the out-of-range room dropped, finite bounds,
+   no empty 64x64 mask, the first 12 masks' levels as the CPU tests get
+   them; (b) the flagship at full width as a room-mask model
+   (room_mask_config: latent_dim and context_dim 64, a ResNet18 of 64
+   features over 64x64 masks), its train step at B=128 on the card
+   against the CPU (the loss and the denoiser's and heads' gradients; the
+   extractor's gradients against the CPU's f64, in f64 and in f32), the
+   extractor's share of a step's device time, then cli/train_diffusion.py
+   for DATA_TRAIN_EPOCHS steps (ms/step, peak memory) and its checkpoint's
+   frozen statistics bit for bit as initialized; (c) from that checkpoint,
+   cli/generate_diffusion.py --fused --clip_denoised --fix_order at B=256
+   (exactly 28,000 B1 and 1,000 B2 launches, one extractor call), DDPM-1000
+   at B=64 through fused="rows" (exactly 19,000 B4) and fused=True, each
+   engine within FORWARD_TOL of the module every 50th step, the
+   extractor's features card vs CPU within DATA_FEATURE_TOL, and
+   DPM-Solver++-20 from the same noise with the masks inverted giving
+   other samples.
 
 The phases run in the order 1, 2, 7, 8, 3 with 9 (one set of full-width
-models), 4, 10, 11, 15, 5, 6, 12, 13, 14, 16, 17, 18.  TF32 is off for every matmul and
+models), 4, 10, 11, 15, 5, 6, 12, 13, 14, 16, 17, 18, 19.  TF32 is off for every matmul and
 convolution (the references are f32; the f32 B1 kernel's split TF32 is
 three tf32 products per f32 product, not TF32 matmul).
 Phase 1 prints each kernel's registers, stack and spills from ptxas, and
@@ -195,13 +219,17 @@ phases 1 and 2 alone, the short check of a new chain kernel (bf16 and f32),
 ``--only-attention`` phases 1 and 8 (B2, bf16 and f32), ``--only-chamfer`` phases 1
 and 5 (B3), ``--only-train`` phases 1 and 12-14 (with the train JSON
 line), ``--only-tasks`` phases 1 and 16 (with the tasks JSON line) and
-``--only-text`` phases 1 and 17 (with the text JSON line) and
-``--only-eval`` phases 1 and 18 (with the eval JSON line); none of them
+``--only-text`` phases 1 and 17 (with the text JSON line),
+``--only-eval`` phases 1 and 18 (with the eval JSON line) and
+``--only-data`` phases 1 and 19 (with the data JSON line); none of them
 prints an ok line.
 
 The line before the last is the card's name and power limit again, the one
 before it a JSON summary of the kernels, the one before that a JSON
-summary of phase 18 ("eval": the card, each CLI run's wall time and
+summary of phase 19 ("data": each pipeline CLI's seconds, the AE's
+launches, the room-mask step's card-vs-CPU agreement, ms/step, busy time,
+the extractor's share, peak memory, each sample's wall time, launches and
+worst engine gap), the one before that a JSON summary of phase 18 ("eval": the card, each CLI run's wall time and
 launches, the generate command's sampling, rendering and metrics seconds,
 the mesh path's checks, FID/KID and precision/recall with their times, and
 each extractor's card-vs-CPU agreement and images/s), the one before that
@@ -225,7 +253,8 @@ sample's launches ("f32_launches"); the ResnetBlock and set-attention
 entries carry the task samples' launches ("task_launches"), and the
 chain, ResnetBlock and set-attention entries the text samples' launches
 ("text_launches"), and the ResnetBlock and set-attention entries the
-generate command's launches of phase 18 ("eval_launches").  The
+generate command's launches of phase 18 ("eval_launches"); every entry
+carries its launches in phase 19 ("data_launches").  The
 last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -385,9 +414,44 @@ EVAL_MESH_B, EVAL_CHECK_IMAGES = 64, 8
 # matrix; the pixel features round to 8 bits after each resize pass, so one
 # level (1/255) may flip where the two devices' sums straddle a half
 EVAL_FEATURE_TOL = {"pixel": 1.0 / 255 + 1e-6, "inception": 1e-4, "vgg": 1e-4}
+# phase 19, the data pipeline and room-mask conditioning: a synthetic raw
+# 3D-FRONT tree of DATA_ROOMS bedrooms (3-12 textured boxes each, rectangles
+# and L shapes, one room out of range) through the port's CLIs in the
+# README's order (the shape AE for DATA_AE_EPOCHS epochs), then the
+# flagship at full width as a room-mask model (latent_dim and context_dim
+# 64, a ResNet18 of 64 features over 64x64 masks): the train CLI for
+# DATA_TRAIN_EPOCHS steps at the flagship's B=128 (the train + val rooms,
+# 144, make one batch an epoch: the loader drops the rest), its step card
+# vs CPU, then DDPM-1000 through generate --fused at B=256 and through
+# fused="rows" at B=64.  160 rooms, not fewer, so that a batch of 128 exists.
+DATA_RAW, DATA_OUT, DATA_ROOMS = "build/smoke_data_raw", "build/smoke_data", 160
+DATA_AE_EPOCHS, DATA_TRAIN_EPOCHS, DATA_ROWS_B, DATA_INVERT_B = 2, 10, 64, 64
+DATA_CACHE = os.path.join(DATA_OUT, "cached")
+# the 64x64 masks of the first 12 rooms (the same rooms at any DATA_ROOMS)
+# through CachedThreedFront, each summed in levels (x 255): what the CPU
+# tests get (tests/test_torch_raw_pipeline.py), with Pillow installed or
+# blocked.  Another host's f32 rounding in a resize pass may flip a level
+# where a value straddles a half, so each room may differ by
+# DATA_MASK_LEVEL_TOL
+DATA_MASK_LEVELS = (374659, 529344, 376416, 317399, 626734, 711472, 437512, 500983, 301722,
+                    595264, 616244, 401681)
+DATA_MASK_LEVEL_TOL = 2
+# the room-mask extractor's features of the 256 masks, card vs CPU, f32 with
+# TF32 off: relative L2 of the feature matrix (cuDNN's and oneDNN's
+# convolutions sum in other orders, 17 deep)
+DATA_FEATURE_TOL = 1e-5
+# the extractor's parameter gradients, each against the CPU's in f64
+# (relative L2): the card's in f64 within DATA_EXTRACTOR_F64_TOL (the same
+# function); the card's f32 within DATA_EXTRACTOR_GRAD_TOL.  ReLU's
+# subgradient at pre-activations that are rounding noise around 0 (the
+# rotated masks' spline ringing over the empty floor) follows the
+# summation order, so an f32 run in another order than the CPU's (whose
+# f32 tracks its f64 to 1e-6) moves the gradients of the parameters below
+# such ReLUs by about 1e-3 (11 to 30e-4 on an H100 in this phase)
+DATA_EXTRACTOR_F64_TOL, DATA_EXTRACTOR_GRAD_TOL = 1e-10, 1e-2
 # the short checks: phase 1 and one kernel's phase, no ok line
 ONLY = ("--only-resblock", "--only-chain", "--only-attention", "--only-chamfer", "--only-train",
-        "--only-f32-engine", "--only-tasks", "--only-text", "--only-eval")
+        "--only-f32-engine", "--only-tasks", "--only-text", "--only-eval", "--only-data")
 
 
 def card_line():
@@ -1042,15 +1106,16 @@ def kernel_bound(dname, flops, nbytes):
     return (*bound(0, nbytes, tf32_flops=TF32_SPLIT * flops), bound(0, nbytes, flops)[0])
 
 
-def sampling_step(torch, scene, batch, gen, fused=True, text_emb=None):
+def sampling_step(torch, scene, batch, gen, fused=True, **cond):
     """One DDPM step of the ``fused`` engine (True: the 3-D engine, "rows":
     the rows engine) at t = T - 1 on fresh inputs (the step a 1000-step
     sample runs T times), as a callable; a text model's step with the
-    contexts of ``text_emb``."""
+    contexts of ``text_emb``, a room-mask model's with the features of
+    ``room_layout`` (``cond``)."""
     from diffuscene_tpu_torch.diffusion import p_sample_step
 
     cfg = scene.cfg
-    denoise = scene._denoise_fn(*scene.make_condition(batch, text_emb=text_emb), fused=fused)
+    denoise = scene._denoise_fn(*scene.make_condition(batch, **cond), fused=fused)
     x_t = torch.randn(batch, 12, 62, generator=gen, device=DEV)
     noise = torch.randn(batch, 12, 62, generator=gen, device=DEV)
     t_last = torch.full((batch,), T - 1, dtype=torch.long, device=DEV)
@@ -1485,10 +1550,12 @@ def scene_trainer(torch, config_path, device, data_dir):
     cfg = apply_text_emb_dim_default(load_config(config_path))
     data = dict(cfg["data"], dataset_directory=data_dir,
                 annotation_file=os.path.join(data_dir, "splits.csv"))
-    _, ds = get_dataset_raw_and_encoded(data, augmentations=data.get("augmentations"),
-                                        split=cfg["training"]["splits"], seed=SEED)
+    _, ds = get_dataset_raw_and_encoded(
+        data, augmentations=data.get("augmentations"), split=cfg["training"]["splits"],
+        seed=SEED, keep_room_layout=bool(cfg["network"].get("room_mask_condition")))
     batch = int(cfg["training"]["batch_size"])
-    scene = SceneDiffusion(SceneModelConfig.from_config(cfg["network"]),
+    scene = SceneDiffusion(SceneModelConfig.from_config(cfg["network"],
+                                                        cfg.get("feature_extractor")),
                            bounds=ds.bounds.as_device_bounds(), device=device)
     trainer = Trainer(scene, cfg["training"], steps_per_epoch=max(len(ds) // batch, 1),
                       device=device).init(SEED)
@@ -2524,6 +2591,409 @@ def phase_eval(torch, card):
     return out
 
 
+def cli_timed(torch, timings, label, cli, argv):
+    """One CLI call, its wall seconds (ending in a synchronize) into
+    ``timings[label]``; returns the CLI's return."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = cli.main(argv)
+    torch.cuda.synchronize()
+    timings[label] = time.perf_counter() - t0
+    print(f"data: {label} {timings[label]:.3f} s", flush=True)
+    return out
+
+
+def phase_data_pipeline(torch, ch, card):
+    """Phase 19 (a): the raw-to-cache pipeline on a synthetic raw 3D-FRONT
+    tree of DATA_ROOMS bedrooms, through the port's CLIs in the README's
+    order, each timed: pickle_threed_future_dataset,
+    pickle_threed_future_pointcloud, train_objautoencoder (DATA_AE_EPOCHS
+    epochs on the card, exactly 2 B3 launches a step),
+    generate_objautoencoder (the 32-d latents, then the same AE's under
+    the 64-d name the preprocessing also reads), preprocess_data
+    --add_objfeats --room_mask_size 512.  Every valid room has boxes.npz,
+    room_mask.png and its render, the out-of-range room is dropped, the
+    dataset_stats.txt bounds are finite, every 64x64 mask that
+    CachedThreedFront returns is non-empty, and the first 12 rooms' masks
+    sum to the CPU tests' levels (DATA_MASK_LEVELS)."""
+    import importlib.util
+    import shutil
+
+    import numpy as np
+
+    from diffuscene_tpu_torch.cli import (generate_objautoencoder, pickle_threed_future_dataset,
+                                          pickle_threed_future_pointcloud, preprocess_data,
+                                          train_objautoencoder)
+    from diffuscene_tpu_torch.data import make_synthetic_raw_front
+    from diffuscene_tpu_torch.data.threed_front import CachedThreedFront
+    from diffuscene_tpu_torch.data.threed_future import ThreedFutureNormPCDataset
+    from diffuscene_tpu_torch.utils.config import load_config
+
+    for d in (DATA_RAW, DATA_OUT):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(DATA_OUT)
+    t = {}
+    t0 = time.perf_counter()
+    raw = make_synthetic_raw_front(DATA_RAW, n_rooms=DATA_ROOMS, seed=SEED)
+    t["make_synthetic_raw_front"] = time.perf_counter() - t0
+    args = [raw["front"], raw["future"], raw["model_info"], "--annotation_file", raw["splits"]]
+    cli_timed(torch, t, "pickle_threed_future_dataset", pickle_threed_future_dataset,
+              [DATA_OUT, *args])
+    pkl = os.path.join(DATA_OUT, "threed_future_model_bedroom.pkl")
+    cli_timed(torch, t, "pickle_threed_future_pointcloud", pickle_threed_future_pointcloud,
+              [DATA_OUT, *args, "--seed", str(SEED)])
+    n_models = len(ThreedFutureNormPCDataset.from_pickled_dataset(pkl))
+    ae_steps = DATA_AE_EPOCHS * max(n_models // int(load_config(AE_CONFIG)["training"]
+                                                    ["batch_size"]), 1)
+    torch.cuda.synchronize()
+    ch.directed_nn.launches = 0
+    cli_timed(torch, t, "train_objautoencoder", train_objautoencoder,
+              [AE_CONFIG, DATA_OUT, "--experiment_tag", "ae", "--path_to_pickled_dataset", pkl,
+               "--epochs", str(DATA_AE_EPOCHS), "--seed", str(SEED), "--device", DEV])
+    ae_launches = ch.directed_nn.launches
+    print(f"data: the shape AE on {n_models} catalog models: {ae_steps} steps, "
+          f"{ae_launches} B3 launches (expected {2 * ae_steps})", flush=True)
+    if ae_launches != 2 * ae_steps:
+        raise RuntimeError(f"train_objautoencoder launched B3 {ae_launches} times in {ae_steps} "
+                           f"steps, expected {2 * ae_steps}")
+    for lat in ("lat32", "lat"):
+        cli_timed(torch, t, f"generate_objautoencoder_{lat}", generate_objautoencoder,
+                  [AE_CONFIG, os.path.join(DATA_OUT, "ae"), "--path_to_pickled_dataset", pkl,
+                   "--lat_name", lat, "--device", DEV])
+    cli_timed(torch, t, "preprocess_data", preprocess_data,
+              [DATA_CACHE, *args, "--add_objfeats", "--room_mask_size", "512"])
+    shutil.copy(raw["splits"], os.path.join(DATA_CACHE, "splits.csv"))
+
+    dirs = sorted(d for d in os.listdir(DATA_CACHE) if os.path.isdir(os.path.join(DATA_CACHE, d)))
+    files = ("boxes.npz", "room_mask.png", "rendered_scene_256.png")
+    missing = [d for d in dirs if not all(os.path.isfile(os.path.join(DATA_CACHE, d, f))
+                                          for f in files)]
+    with open(os.path.join(DATA_CACHE, "dataset_stats.txt")) as f:
+        stats = json.load(f)
+    bounds = [v for k, vs in stats.items() if k.startswith("bounds_") for v in vs]
+    ds = CachedThreedFront(DATA_CACHE, {"room_layout_size": "64,64"},
+                           [d.split("_")[1] for d in dirs])
+    masks = np.stack([ds[i]["room_layout"] for i in range(len(ds))])
+    empty = int((masks.reshape(len(masks), -1).max(1) <= 0).sum())
+    levels = [int(round(float(m.astype(np.float64).sum() * 255))) for m in masks[:12]]
+    level_diff = max(abs(a - b) for a, b in zip(levels, DATA_MASK_LEVELS))
+    pillow = importlib.util.find_spec("PIL") is not None
+    ok = (len(dirs) == DATA_ROOMS and not missing and not any("bad" in d for d in dirs)
+          and bounds and all(math.isfinite(v) for v in bounds) and not empty
+          and masks.shape[1:] == (1, 64, 64) and level_diff <= DATA_MASK_LEVEL_TOL)
+    print(f"data: {len(dirs)} room directories (expected {DATA_ROOMS}; the out-of-range room "
+          f"dropped), {len(missing)} missing a file of {files}; {len(bounds)} finite bounds in "
+          f"dataset_stats.txt, {len(stats['object_types'])} object types; {len(masks)} 64x64 "
+          f"masks, {empty} empty; the first 12 masks' levels {levels}, worst difference from "
+          f"the CPU tests' {level_diff} (tol {DATA_MASK_LEVEL_TOL}; Pillow importable here: "
+          f"{pillow}) {'ok' if ok else 'FAIL'} | {card}", flush=True)
+    if not ok:
+        raise RuntimeError(f"the data pipeline's output is malformed: {len(dirs)} rooms, missing "
+                           f"{missing[:3]}, {empty} empty masks, level difference {level_diff}")
+    return {"rooms": len(dirs), "catalog_models": n_models, "ae_steps": ae_steps,
+            "ae_launches": ae_launches, "object_types": len(stats["object_types"]),
+            "mask_level_diff": level_diff, "pillow": pillow, "seconds": t}
+
+
+def room_mask_config(out_dir):
+    """The flagship config as a room-mask model (room_mask_condition true,
+    latent_dim 64, the Unet's context_dim 64) over DATA_CACHE, written to
+    ``out_dir``; its path."""
+    import re
+
+    path = synthetic_config(FLAGSHIP_CONFIG, DATA_CACHE, out_dir, "flagship_room_mask.yaml")
+    with open(path) as f:
+        text = f.read()
+    for key, old, new in (("room_mask_condition", "false", "true"), ("latent_dim", "0", "64"),
+                          ("context_dim", "0", "64")):
+        text, n = re.subn(rf"^(\s*{key}:) {old}$", rf"\1 {new}", text, flags=re.M)
+        if n != 1:
+            raise RuntimeError(f"{FLAGSHIP_CONFIG}: no single '{key}: {old}' to set")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def room_step_grads(torch, trainer, batch, t, noise):
+    """The loss, every parameter's gradient and the gradient of the loss
+    with respect to the room features of one batch (its room_layout through
+    the extractor, then as room_feat)."""
+    scene = trainer.scene
+    feat = scene.feature_extractor(batch["room_layout"])
+    loss, _ = scene.get_loss({**batch, "room_feat": feat}, t=t, noise=noise)
+    *grads, up = torch.autograd.grad(loss, [*trainer.params, feat])
+    return loss.item(), grads, up
+
+
+def extractor_grad_check(torch, ext_card, ext_cpu, rl, up):
+    """The extractor's parameter gradients for the upstream gradient ``up``
+    (the CPU step's, with respect to the room features), each against the
+    CPU's in f64 (relative L2): the card's in f64 within
+    DATA_EXTRACTOR_F64_TOL (the card's kernels compute the same function),
+    the card's in f32 within DATA_EXTRACTOR_GRAD_TOL; the CPU's f32 printed
+    beside."""
+    import copy
+
+    def vjp(ext, x, u):
+        params = list(ext.parameters())
+        return [g.double().cpu() for g in torch.autograd.grad(ext(x), params, u)]
+
+    f64 = vjp(copy.deepcopy(ext_cpu).double(), rl.cpu().double(), up.double())
+    runs = {"card_f32": vjp(ext_card, rl, up.to(rl.device)),
+            "card_f64": vjp(copy.deepcopy(ext_card).double(), rl.double(),
+                            up.double().to(rl.device)),
+            "cpu_f32": vjp(ext_cpu, rl.cpu(), up)}
+    names = [n for n, _ in ext_cpu.named_parameters()]
+    rel = {k: [((a - w).norm() / w.norm().clamp_min(1e-300)).item() for a, w in zip(got, f64)]
+           for k, got in runs.items()}
+    worst = {k: max(zip(r, names)) for k, r in rel.items()}
+    tol = {"card_f32": DATA_EXTRACTOR_GRAD_TOL, "card_f64": DATA_EXTRACTOR_F64_TOL}
+    ok = all(worst[k][0] <= t for k, t in tol.items())
+    print(f"data train: the extractor's gradients against the cpu's f64, relative L2, worst "
+          f"parameter: card f32 {worst['card_f32'][0]:.3e} ({worst['card_f32'][1]}; "
+          f"{sum(r > 1e-3 for r in rel['card_f32'])} of {len(names)} above 1e-3), card f64 "
+          f"{worst['card_f64'][0]:.3e} ({worst['card_f64'][1]}), cpu f32 "
+          f"{worst['cpu_f32'][0]:.3e} ({worst['cpu_f32'][1]}); tol {tol} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return {"ok": ok, "bad": {k: worst[k] for k in tol if worst[k][0] > tol[k]},
+            "summary": {k: {"worst": w, "param": n} for k, (w, n) in worst.items()}}
+
+
+def phase_data_train(torch, cfg_path, card):
+    """Phase 19 (b): the room-mask flagship's train step at B=128 on the card
+    against the same step on the CPU (one batch with its masks, t and
+    noise: the loss and every parameter's gradient, the extractor's and
+    fc_room_f's non-zero), the extractor's share of a card step's device
+    time; then cli/train_diffusion.py for DATA_TRAIN_EPOCHS steps (median
+    ms/step around each train_step, peak memory) and its checkpoint's
+    frozen BatchNorm statistics bit for bit as initialized."""
+    from diffuscene_tpu_torch.cli import train_diffusion
+    from diffuscene_tpu_torch.data.loader import DataLoader
+    from diffuscene_tpu_torch.train.trainer import Trainer
+    from diffuscene_tpu_torch.utils.checkpoint import load_checkpoint
+
+    ds, bsz, dev = scene_trainer(torch, cfg_path, DEV, DATA_CACHE)
+    _, _, cpu = scene_trainer(torch, cfg_path, "cpu", DATA_CACHE)
+    batches = DataLoader(ds, bsz, shuffle=True, seed=SEED).infinite()
+    host = next(batches)
+    g = torch.Generator().manual_seed(SEED + 40)
+    t = torch.randint(0, T, (bsz,), generator=g)
+    noise = torch.randn(bsz, 12, 62, generator=g)
+    dev_batch = dev.put_batch(host)
+    if tuple(dev_batch["room_layout"].shape) != (bsz, 1, 64, 64):
+        raise RuntimeError(f"data train: the batch's room_layout is "
+                           f"{dev_batch['room_layout'].shape}")
+    loss_c, grads_c, _ = room_step_grads(torch, dev, dev_batch, t.to(DEV), noise.to(DEV))
+    loss_p, grads_p, up = room_step_grads(torch, cpu, cpu.put_batch(host), t, noise)
+    ext = [i for i, n in enumerate(dev.names) if n.startswith("feature_extractor.")]
+    rest = [i for i in range(len(dev.names)) if i not in ext]
+    worst, at, whole = grad_rel_l2([grads_c[i] for i in rest], [grads_p[i] for i in rest])
+    at = rest[at]
+    ext_card_cpu = grad_rel_l2([grads_c[i] for i in ext], [grads_p[i] for i in ext])
+    room = ext + [i for i, n in enumerate(dev.names) if "fc_room_f" in n]
+    zero = [dev.names[i] for i in room if not grads_c[i].abs().max().item() > 0]
+    del grads_c, grads_p
+    # the extractor's gradients, from the CPU step's upstream gradient, are
+    # held to the CPU's f64 ones (extractor_grad_check)
+    ext_tol = extractor_grad_check(torch, dev.scene.feature_extractor,
+                                   cpu.scene.feature_extractor, dev_batch["room_layout"], up)
+    del cpu
+    loss_rel = abs(loss_c - loss_p) / abs(loss_p)
+    ok = (loss_rel <= TRAIN_STEP_TOL["loss"] and worst <= TRAIN_STEP_TOL["grad_rel_l2"]
+          and whole <= TRAIN_STEP_TOL["grad_rel_l2"] and not zero and ext_tol["ok"])
+    print(f"data train, card vs cpu (room-mask flagship, B={bsz}, f32, TF32 off): loss "
+          f"{loss_c:.7f} vs {loss_p:.7f} (relative {loss_rel:.3e}), gradient relative L2 of the "
+          f"denoiser and heads: worst parameter {worst:.3e} ({dev.names[at]}), whole "
+          f"{whole:.3e}; tol={TRAIN_STEP_TOL}; the extractor's, card vs cpu: worst "
+          f"{ext_card_cpu[0]:.3e} ({dev.names[ext[ext_card_cpu[1]]]}), whole "
+          f"{ext_card_cpu[2]:.3e}; {len(room)} extractor and fc_room_f parameters, {len(zero)} "
+          f"with a zero gradient {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"the room-mask step disagrees between card and CPU: loss {loss_rel}, "
+                           f"gradients {worst} at {dev.names[at]}, whole {whole}; the extractor's "
+                           f"{ext_tol['bad']}; zero gradients: {zero}")
+    # a card step's device time, and the extractor's share of it
+    step_ms = host_ms(torch, lambda: dev.train_step(dev_batch), 3)
+    prof = profile_steps(torch, lambda: dev.train_step(dev_batch), TRAIN_PROFILE_STEPS, step_ms)
+    rl = dev_batch["room_layout"]
+
+    def extractor_step():
+        dev.scene.feature_extractor(rl).sum().backward()
+
+    ext_ms = device_ms(torch, extractor_step, "", TRAIN_PROFILE_STEPS)
+    dev.opt.zero_grad()
+    share = ext_ms / prof["busy_ms"] if prof["busy_ms"] else None
+    print(f"data train: the ResNet18's forward and backward at B={bsz} on 64x64 masks "
+          f"{ext_ms:.3f} ms of device time, {share if share is None else f'{share:.1%}'} of the "
+          f"step's busy {prof['busy_ms']} ms | {card}", flush=True)
+    del dev
+
+    step_fn, times = Trainer.train_step, []
+
+    def timed(self, *a, **k):
+        t0 = time.perf_counter()
+        out = step_fn(self, *a, **k)           # ends in its one metrics transfer
+        times.append(time.perf_counter() - t0)
+        return out
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    Trainer.train_step = timed
+    t0 = time.perf_counter()
+    try:
+        train_diffusion.main([cfg_path, DATA_OUT, "--experiment_tag", "room_mask", "--seed",
+                              str(SEED), "--epochs", str(DATA_TRAIN_EPOCHS), "--device", DEV])
+    finally:
+        Trainer.train_step = step_fn
+    train_s = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    exp = os.path.join(DATA_OUT, "room_mask")
+    state, _ = load_checkpoint(exp)
+    stats = [(n, v) for which in ("model", "ema") if state.get(which) is not None
+             for n, v in state[which].items() if n.endswith(("running_mean", "running_var"))]
+    frozen = bool(stats) and all(
+        torch.equal(v, torch.full_like(v, 1.0 if n.endswith("running_var") else 0.0))
+        for n, v in stats)
+    cli_ms = 1e3 * sorted(times)[len(times) // 2] if times else float("nan")
+    ok = len(times) == state["step"] == DATA_TRAIN_EPOCHS and frozen
+    print(f"data train: train_diffusion {DATA_TRAIN_EPOCHS} epochs = {len(times)} steps at "
+          f"B={bsz} {train_s:.3f} s, ms_per_step={cli_ms:.3f} (median; first "
+          f"{1e3 * times[0]:.3f} ms), peak_mem_gb={peak_gb:.3f}; {len(stats)} frozen statistics "
+          f"in the checkpoint (model and EMA) bit for bit as initialized: {frozen} "
+          f"{'ok' if ok else 'FAIL'} | {card}", flush=True)
+    if not ok:
+        raise RuntimeError(f"the room-mask train CLI: {len(times)} steps (state {state['step']}), "
+                           f"frozen statistics unchanged: {frozen}")
+    return exp, {"B": bsz, "card_vs_cpu": {"loss_rel": loss_rel, "grad_rel_l2_worst": worst,
+                                           "grad_rel_l2": whole,
+                                           "extractor_grad_rel_l2_worst": ext_card_cpu[0],
+                                           "extractor_grad_rel_l2": ext_card_cpu[2]},
+                 "extractor_grads_vs_f64": ext_tol["summary"],
+                 "step_ms": step_ms, "busy_ms": prof["busy_ms"], "idle_share": prof["idle_share"],
+                 "extractor_ms": ext_ms, "extractor_share": share, "cli_steps": len(times),
+                 "cli_ms_per_step": cli_ms, "cli_train_s": train_s, "peak_mem_gb": peak_gb,
+                 "frozen_stats_unchanged": frozen}
+
+
+def room_inputs(torch, cfg_path, batch):
+    """The room masks of ``batch`` eval scenes (the eval split as
+    generate_diffusion reads it, taken in order and cycled), as a
+    (batch, 1, 64, 64) tensor on the card."""
+    import numpy as np
+
+    from diffuscene_tpu_torch.data.factory import get_dataset_raw_and_encoded
+    from diffuscene_tpu_torch.utils.config import load_config
+
+    cfg = load_config(cfg_path)
+    data = dict(cfg["data"], encoding_type=cfg["data"]["encoding_type"] + "_no_prm")
+    _, ds = get_dataset_raw_and_encoded(data, augmentations=None,
+                                        split=cfg["validation"]["splits"], keep_room_layout=True)
+    masks = [ds[i % len(ds)]["room_layout"] for i in range(batch)]
+    return torch.from_numpy(np.stack(masks).astype(np.float32)).to(DEV)
+
+
+def phase_data_samples(torch, cfg_path, exp, card):
+    """Phase 19 (c), from (b)'s checkpoint: generate_diffusion --fused
+    --clip_denoised --fix_order, DDPM-1000 at B=256 (exactly 28,000 B1 and
+    1,000 B2 launches, the extractor once a batch); DDPM-1000 at
+    DATA_ROWS_B through fused="rows" (exactly 19,000 B4) and through
+    fused=True, each engine within FORWARD_TOL of the module every 50th
+    step (checked_sample); the extractor's features of the 256 masks card
+    vs CPU within DATA_FEATURE_TOL; DPM-Solver++-20 from the same noise
+    with the masks inverted (1 - mask) gives other samples."""
+    from diffuscene_tpu_torch.cli import generate_diffusion
+    from diffuscene_tpu_torch.models import SceneDiffusion, SceneModelConfig
+    from diffuscene_tpu_torch.models import feature_extractors as fe
+    from diffuscene_tpu_torch.utils.checkpoint import load_model_weights
+    from diffuscene_tpu_torch.utils.config import load_config
+
+    out = {}
+    forward, calls = fe.ResNet18.forward, []
+
+    def counted(self, x):
+        calls.append(int(x.shape[0]))
+        return forward(self, x)
+
+    gen_dir = os.path.join(DATA_OUT, "generated")
+    fe.ResNet18.forward = counted
+    try:
+        stats, launches, wall = eval_cli_run(torch, generate_diffusion, [
+            cfg_path, gen_dir, "--weight_file", exp, "--n_sequences", str(GENERATE_B),
+            "--batch_size", str(GENERATE_B), "--clip_denoised", "--fused", "--fix_order",
+            "--seed", str(SEED), "--device", DEV])
+    finally:
+        fe.ResNet18.forward = forward
+    n_boxes = len([f for f in os.listdir(gen_dir) if f.endswith("_boxes.npz")])
+    with open(os.path.join(gen_dir, "timing.json")) as f:
+        timing = json.load(f)
+    ok = (tuple(launches) == (28 * T, T) and calls == [GENERATE_B] and n_boxes == GENERATE_B
+          and stats.get("n_scenes") == GENERATE_B
+          and math.isfinite(stats.get("categorical_kl", float("nan"))))
+    print(f"data: generate_diffusion --fused --clip_denoised --fix_order {GENERATE_B} scenes "
+          f"(room-mask flagship, EMA weights) {wall:.3f} s (sampling {timing['sample_s']:.3f} s), "
+          f"launches B1={launches[0]} B2={launches[1]}, extractor calls {calls}, {n_boxes} box "
+          f"files, stats {stats} {'ok' if ok else 'FAIL'} | {card}", flush=True)
+    if not ok:
+        raise RuntimeError(f"the room-mask generate CLI: launches {launches}, extractor calls "
+                           f"{calls}, {n_boxes} box files")
+    out["generate"] = {"wall_s": wall, "sample_s": timing["sample_s"],
+                       "launches": list(launches), "extractor_calls": len(calls),
+                       "categorical_kl": stats["categorical_kl"]}
+
+    cfg = load_config(cfg_path)
+    scfg = SceneModelConfig.from_config(cfg["network"], cfg.get("feature_extractor"))
+    scene = SceneDiffusion(scfg, device=DEV)
+    scene.networks.load_state_dict(load_model_weights(exp))
+    masks = room_inputs(torch, cfg_path, GENERATE_B)
+    for key, fused in (("ddpm_rows", "rows"), ("ddpm_3d", True)):
+        rl = masks[:DATA_ROWS_B]
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 41)
+        _, summary = checked_sample(
+            torch, scene, f"data: {key}", card, batch=DATA_ROWS_B, fused=fused, room_layout=rl,
+            step=sampling_step(torch, scene, DATA_ROWS_B, gen, fused=fused, room_layout=rl))
+        out[key] = summary
+
+    cpu = SceneDiffusion(scfg, device="cpu")
+    cpu.networks.load_state_dict(scene.networks.state_dict())
+    with torch.no_grad():
+        feat_c = scene.feature_extractor(masks).cpu()
+        feat_p = cpu.feature_extractor(masks.cpu())
+    rel = ((feat_c - feat_p).norm() / feat_p.norm()).item()
+    g = torch.Generator(device=DEV)
+    rl = masks[:DATA_INVERT_B]
+    a, b = (scene.sample(DATA_INVERT_B, generator=g.manual_seed(SEED + 42), clip_denoised=True,
+                         fused=True, dpm=True, dpm_steps=DPM_STEPS, room_layout=m)
+            for m in (rl, 1.0 - rl))
+    moved = (a - b).abs().max().item()
+    finite = bool(torch.isfinite(a).all() and torch.isfinite(b).all())
+    ok = rel <= DATA_FEATURE_TOL and moved > ROLL_MIN_DIFF and finite
+    print(f"data: the extractor's features of {GENERATE_B} masks, card vs cpu (f32, TF32 off): "
+          f"relative L2 {rel:.3e} (tol {DATA_FEATURE_TOL}); DPM-Solver++-{DPM_STEPS} at "
+          f"B={DATA_INVERT_B} from the same noise with the masks inverted: samples differ by up "
+          f"to {moved:.3e} (must exceed {ROLL_MIN_DIFF}), finite={finite} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError(f"room-mask checks: features card vs cpu {rel}, inverted masks "
+                           f"moved the samples by {moved}, finite {finite}")
+    out["extractor_card_vs_cpu_rel_l2"] = rel
+    out["inverted_mask_max_diff"] = moved
+    return out
+
+
+def phase_data(torch, ch, card):
+    """Phase 19: the data pipeline from a synthetic raw tree, then the
+    room-mask flagship trained and sampled on its cache."""
+    t0 = time.perf_counter()
+    out = {"card": card, "pipeline": phase_data_pipeline(torch, ch, card)}
+    cfg_path = room_mask_config(DATA_OUT)
+    exp, out["train"] = phase_data_train(torch, cfg_path, card)
+    torch.cuda.empty_cache()
+    out["samples"] = phase_data_samples(torch, cfg_path, exp, card)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"data: phase 19 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def profile_steps(torch, step, n, step_ms, named=()):
     """Where a step's time goes: torch.profiler over ``n`` steady steps;
     device busy time (the sum of the kernels' times, one stream), the idle
@@ -2635,6 +3105,10 @@ def main(argv):
         print(json.dumps({"eval": phase_eval(torch, card)}))
         print(card_line())
         return 0
+    if only == "--only-data":       # the data pipeline and room-mask model alone: phase 19
+        print(json.dumps({"data": phase_data(torch, ch, card)}))
+        print(card_line())
+        return 0
     if only == "--only-f32-engine":  # the flagship config's own dtype: phases 3 + 9 and 15, f32
         scene32 = phase_forward(torch, torch.float32)
         phase_rows_sample(torch, scene32, card)
@@ -2701,11 +3175,18 @@ def main(argv):
     # box metrics (B1 and B2), the mesh path, FID/KID and precision/recall
     ev = phase_eval(torch, card)
     eval_launches = ev["generate"]["launches"]
+    torch.cuda.empty_cache()
+    # this slice's main path: the raw-data pipeline (B3 in the AE's steps),
+    # then the room-mask flagship trained and sampled on its cache (B1 and
+    # B2 in generate, B4 through the rows engine)
+    data = phase_data(torch, ch, card)
+    data_samples = data["samples"]
 
     print(json.dumps({"train": train}))
     print(json.dumps({"tasks": tasks}))
     print(json.dumps({"text": text}))
     print(json.dumps({"eval": ev}))
+    print(json.dumps({"data": data}))
     print(json.dumps({"kernels": [{
         "name": "fused_chain",
         "route": "cuda",
@@ -2725,6 +3206,7 @@ def main(argv):
         "f32_plain_ms": fwd32[2],
         "f32_bound_ms": chain32_bound_ms,
         "text_launches": text_launches["ddpm_rows"][0],
+        "data_launches": data_samples["ddpm_rows"]["launches"][0],
     }, {
         "name": "chamfer_nn",
         "route": "cuda",
@@ -2738,6 +3220,7 @@ def main(argv):
         "bound_ms": cham["bound_ms"],
         "bound_by": cham["bound_by"],
         "library_ms": cham["library_ms"],
+        "data_launches": data["pipeline"]["ae_launches"],
     }, {
         "name": "fused_resblock",
         "route": "cuda",
@@ -2759,6 +3242,7 @@ def main(argv):
         "task_launches": {k: v[0] for k, v in task_launches.items()},
         "text_launches": text_launches["ddpm_3d"][0],
         "eval_launches": eval_launches[0],
+        "data_launches": data_samples["generate"]["launches"][0],
     }, {
         "name": "set_attention",
         "route": "cuda",
@@ -2780,6 +3264,7 @@ def main(argv):
         "task_launches": {k: v[1] for k, v in task_launches.items()},
         "text_launches": text_launches["ddpm_3d"][1],
         "eval_launches": eval_launches[1],
+        "data_launches": data_samples["generate"]["launches"][1],
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -34,7 +34,11 @@ fixed rotation drawn at each read), ``--scene_id`` pins every sequence to one
 named eval scene, ``--fix_order`` walks the eval set in order, and otherwise
 the scenes are drawn from ``np.random.default_rng(seed)`` (the JAX CLI's
 draws).  Each batch's ``desc_emb`` is its ``text_emb``, and each scene's
-sentence goes to ``{idx:05d}.txt``.  The same draws pick each render's floor
+sentence goes to ``{idx:05d}.txt``.  A room-mask model
+(``room_mask_condition``) is conditioned the same way on the eval scenes'
+(1, H, W) ``room_layout`` masks, rotated with their scenes by the eval
+set's augmentations as in the JAX CLI; its extractor is the config's
+``feature_extractor`` section.  The same draws pick each render's floor
 plan.
 
     python -m diffuscene_tpu_torch.cli.generate_diffusion CONFIG OUT \\
@@ -42,8 +46,7 @@ plan.
         --clip_denoised --fused --render --compute_intersec
 
 ``--profile_dir`` raises (use torch.profiler around ``SceneDiffusion.sample``,
-as chip_smoke.py does), as does a room-mask config (its feature extractor is
-not ported, ROADMAP A8).
+as chip_smoke.py does).
 """
 from __future__ import annotations
 
@@ -84,7 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
                         help="with --compute_intersec and a catalog, count a positive box IoU "
                         "only when the retrieved meshes' surfaces cross")
     parser.add_argument("--scene_id", default=None,
-                        help="condition every sequence on this eval scene (text models)")
+                        help="condition every sequence on this eval scene (text and room-mask "
+                        "models)")
     parser.add_argument("--fix_order", action="store_true",
                         help="condition the sequences on the eval scenes in order")
     parser.add_argument("--render", action="store_true", help="save top-down renders")
@@ -140,7 +144,7 @@ def main(argv=None):
 
     net_cfg = dict(config["network"])
     net_cfg.setdefault("sample_num_points", eval_ds.max_length)
-    cfg = SceneModelConfig.from_config(net_cfg)
+    cfg = SceneModelConfig.from_config(net_cfg, config.get("feature_extractor"))
     scene = SceneDiffusion(cfg, device=args.device).init(torch.Generator().manual_seed(args.seed))
     if args.weight_file:
         if args.weight_file.endswith((".pt", ".pth")):
@@ -177,15 +181,27 @@ def main(argv=None):
     n_done = 0
     while n_done < args.n_sequences:
         batch_indices = [cond_index(n_done + i) for i in range(args.batch_size)]
-        text_emb, descriptions = None, []
-        if cfg.text_condition:
+        text_emb = room_layout = None
+        descriptions = []
+        if cfg.text_condition or cfg.room_mask_condition:
+            # one read of each conditioning scene (the eval set's rotations
+            # draw at each read), as the JAX CLI reads them
             conds = [eval_ds[idx] for idx in batch_indices]
-            descriptions = [c["description"] for c in conds]
-            text_emb = torch.from_numpy(np.stack([c["desc_emb"] for c in conds])).to(scene.device)
+
+            def stacked(key):
+                host = np.stack([np.asarray(c[key], np.float32) for c in conds])
+                return torch.from_numpy(host).to(scene.device)
+
+            if cfg.text_condition:
+                descriptions = [c["description"] for c in conds]
+                text_emb = stacked("desc_emb")
+            if cfg.room_mask_condition:
+                room_layout = stacked("room_layout")
         t0 = time.perf_counter()
         samples = scene.sample(args.batch_size, generator=gen, clip_denoised=args.clip_denoised,
                                fused=args.fused, ddim=args.ddim, ddim_steps=args.ddim_steps,
-                               dpm=args.dpm, dpm_steps=args.dpm_steps, text_emb=text_emb)
+                               dpm=args.dpm, dpm_steps=args.dpm_steps, text_emb=text_emb,
+                               room_layout=room_layout)
         take = min(args.batch_size, args.n_sequences - n_done)
         samples = samples[:take].float().cpu().numpy()
         t1 = time.perf_counter()

@@ -9,9 +9,13 @@ log.  The same flags, plus ``--device`` (the card unless ``--device cpu``).
     python -m diffuscene_tpu_torch.cli.train_diffusion \\
         configs/uncond/diffusion_bedrooms_instancond_lat32_v.yaml out
 
-The f32 configs train with TF32 off (the JAX package's f32 matmuls are
-full f32); the bf16 configs (``compute_dtype: bfloat16``) run their
-matmuls in bf16 either way.  Flags of the JAX CLI that the port does not
+A room-mask model (``network.room_mask_condition: true``) trains on each
+batch's (B, 1, H, W) ``room_layout``; its extractor is the config's
+``feature_extractor`` section (name, feature_size, input_channels), which
+the JAX CLI ignores for a ResNet18 of 64 features over 1 channel (the
+shipped values).  The f32 configs train with TF32 off for matmuls and cuDNN
+convolutions (the JAX package's f32 products are full f32); the bf16
+configs (``compute_dtype: bfloat16``) run their matmuls in bf16 either way.  Flags of the JAX CLI that the port does not
 have raise: ``--native_loader`` (ROADMAP A11), ``--with_wandb_logger`` (W&B
 needs a network), ``--mixed_precision`` (measured slower in the JAX
 package; not ported), ``--async_checkpoints`` and ``--profile_dir``.  A
@@ -107,7 +111,7 @@ def main(argv=None):
 
     net_cfg = dict(config["network"])
     net_cfg.setdefault("sample_num_points", train_ds.max_length)
-    cfg = SceneModelConfig.from_config(net_cfg)
+    cfg = SceneModelConfig.from_config(net_cfg, config.get("feature_extractor"))
     scene = SceneDiffusion(cfg, bounds=bounds if cfg.loss_iou else None, device=args.device)
 
     batch_size = int(config["training"].get("batch_size", 128))

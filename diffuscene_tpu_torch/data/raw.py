@@ -1,21 +1,35 @@
-"""The 3D-FUTURE furniture records that a pickled catalog holds, and the OBJ
-reader the renders and mesh retrieval use.
+"""Raw 3D-FRONT/3D-FUTURE parsing: the furniture records, the rooms and the
+JSON walkers (numpy only, no trimesh).
 
-Copy of the mesh and furniture parts of ``diffuscene_tpu/data/raw.py``
-(reference ``scene_synthesis/datasets/threed_front_scene.py:21-448`` and
-``scene_synthesis/utils.py:10-77``): the numpy OBJ/MTL reader
-(``load_obj_vertices_faces``, ``load_obj_mesh``), ``Asset``,
-``BaseThreedFutureModel``, ``ThreedFutureModel`` (paths, the cached point
-cloud and latents, the raw and transformed mesh, bounding-box corners,
-size, centroid, z angle) and ``ThreedFutureExtra``.  ``ModelInfo``,
-``Room`` and the 3D-FRONT scene parsers are not copied yet
-(``cli/preprocess_data.py`` and ``cli/pickle_threed_future_*.py`` stay
-queued, ROADMAP A7/A8).
+Copy of ``diffuscene_tpu/data/raw.py`` (reference
+``scene_synthesis/datasets/threed_front_scene.py:21-666`` and
+``scene_synthesis/datasets/utils.py:12-198``), so the port does not import
+the JAX package: the OBJ/MTL reader (``load_obj_vertices_faces``,
+``load_obj_mesh``), ``Asset``, ``ModelInfo``, ``BaseThreedFutureModel``,
+``ThreedFutureModel`` (paths, the cached point cloud and latents, the raw
+and transformed mesh, bounding-box corners, size, centroid, z angle),
+``ThreedFutureExtra``, ``Room`` (floor plan, centroid, bboxes, uid, the
+room-mask path), ``parse_threed_front_scenes``,
+``parse_threed_future_models`` and ``ThreedFront`` (bounds, class labels
+and frequencies, ``count_furniture``, ``from_dataset_directory``).  The
+parsed lists short-circuit through the same ``PATH_TO_SCENES`` /
+``PATH_TO_3D_FUTURE_OBJECTS`` pickles; a pickle the JAX package wrote loads
+through the catalog's unpickler (``data/threed_future.py``), which maps the
+JAX package's classes to these copies.
+
+Left out: ``Room.room_mask_rotated`` and ``Room.room_mask``, which read the
+mask through Pillow (which the port does not depend on) and which no code of
+either package calls; the cached pipeline reads ``boxes.npz``'s
+``room_layout`` instead (``data/threed_front.py``).
 """
 from __future__ import annotations
 
+import json
 import os
+import pickle
+from collections import Counter
 from dataclasses import dataclass
+from functools import reduce
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -220,6 +234,50 @@ class Asset:
         return self.category
 
 
+class ModelInfo:
+    """All 3D-FUTURE model metadata, keyed by model id.
+    (threed_front_scene.py:47-131)"""
+
+    def __init__(self, model_info_data: List[Dict]):
+        self.model_info_data = model_info_data
+        self._model_info: Optional[Dict[str, Asset]] = None
+        self._styles, self._themes = [], []
+        self._categories, self._super_categories, self._materials = [], [], []
+
+    @property
+    def model_info(self) -> Dict[str, Asset]:
+        if self._model_info is None:
+            self._model_info = {}
+            for m in self.model_info_data:
+                for key, store in [("style", self._styles), ("theme", self._themes),
+                                   ("super-category", self._super_categories),
+                                   ("category", self._categories),
+                                   ("material", self._materials)]:
+                    if m.get(key) is not None and m[key] not in store:
+                        store.append(m[key])
+                super_cat = (m["super-category"].lower().replace(" / ", "/")
+                             if m.get("super-category") else "unknown_super-category")
+                cat = (m["category"].lower().replace(" / ", "/")
+                       if m.get("category") else "unknown_category")
+                self._model_info[m["model_id"]] = Asset(
+                    super_cat, cat, m.get("style"), m.get("theme"), m.get("material")
+                )
+        return self._model_info
+
+    @property
+    def categories(self):
+        return set(s.lower().replace(" / ", "/") for s in self._categories)
+
+    @property
+    def super_categories(self):
+        return set(s.lower().replace(" / ", "/") for s in self._super_categories)
+
+    @classmethod
+    def from_file(cls, path: str) -> "ModelInfo":
+        with open(path, "rb") as f:
+            return cls(json.load(f))
+
+
 class BaseThreedFutureModel:
     """(threed_front_scene.py:134-184)"""
 
@@ -341,6 +399,10 @@ class ThreedFutureModel(BaseThreedFutureModel):
         return np.array([centroid[0], centroid[1] - self.size[1], centroid[2]])
 
     @property
+    def bottom_size(self):
+        return self.size * [1, 2, 1]
+
+    @property
     def z_angle(self) -> float:
         """Rotation about +y in (-pi, pi].  (threed_front_scene.py:313-330)"""
         ref = [0, 0, 1]
@@ -363,6 +425,12 @@ class ThreedFutureModel(BaseThreedFutureModel):
     @label.setter
     def label(self, value):
         self._label = value
+
+    def one_hot_label(self, all_labels):
+        return np.eye(len(all_labels))[self.int_label(all_labels)]
+
+    def int_label(self, all_labels):
+        return all_labels.index(self.label)
 
     def copy_from_other_model(self, other_model: "ThreedFutureModel") -> "ThreedFutureModel":
         """(threed_front_scene.py:408-420)"""
@@ -391,3 +459,401 @@ class ThreedFutureExtra(BaseThreedFutureModel):
 
     def raw_model_transformed(self, offset=(0.0, 0.0, 0.0)):
         return self._transform(np.array(self.xyz)) + np.asarray(offset), np.array(self.faces)
+
+
+class Room:
+    """A parsed 3D-FRONT room.  (threed_front_scene.py:451-666)"""
+
+    def __init__(self, scene_id, scene_type, bboxes, extras, json_path,
+                 path_to_room_masks_dir=None):
+        self.scene_id = scene_id
+        self.scene_type = scene_type
+        self.bboxes = bboxes
+        self.extras = extras
+        self.json_path = json_path
+        self.uid = "_".join([json_path, scene_id])
+        self.path_to_room_masks_dir = path_to_room_masks_dir
+        self.path_to_room_mask = (
+            os.path.join(path_to_room_masks_dir, self.uid, "room_mask.png")
+            if path_to_room_masks_dir is not None else None
+        )
+
+    def __len__(self):
+        return len(self.bboxes)
+
+    @property
+    def floor(self):
+        return [e for e in self.extras if e.model_type == "Floor"][0]
+
+    @property
+    def bbox(self):
+        corners = np.vstack([f.corners() for f in self.bboxes])
+        return np.min(corners, axis=0), np.max(corners, axis=0)
+
+    @property
+    def bboxes_centroid(self):
+        a, b = self.bbox
+        return (a + b) / 2
+
+    @property
+    def furniture_in_room(self):
+        return [f.label for f in self.bboxes]
+
+    @property
+    def count_furniture_in_room(self):
+        return Counter(self.furniture_in_room)
+
+    @property
+    def floor_plan(self):
+        """Concatenated floor meshes (vertices, faces).
+        (threed_front_scene.py:491-505)"""
+        def cat_mesh(m1, m2):
+            v1, f1 = m1
+            v2, f2 = m2
+            return np.vstack([v1, v2]), np.vstack([f1, f2 + len(v1)])
+
+        vertices, faces = reduce(
+            cat_mesh,
+            ((e.xyz, e.faces) for e in self.extras if e.model_type == "Floor"),
+        )
+        return np.copy(vertices), np.copy(faces)
+
+    @property
+    def floor_plan_bbox(self):
+        v, _ = self.floor_plan
+        return np.min(v, axis=0), np.max(v, axis=0)
+
+    @property
+    def floor_plan_centroid(self):
+        a, b = self.floor_plan_bbox
+        return (a + b) / 2
+
+    @property
+    def centroid(self):
+        return self.floor_plan_centroid
+
+    def category_counts(self, class_labels):
+        if "start" in class_labels and "end" in class_labels:
+            class_labels = class_labels[:-2]
+        counts = [0] * len(class_labels)
+        for label in self.furniture_in_room:
+            counts[class_labels.index(label)] += 1
+        return counts
+
+    def ordered_bboxes_with_centroid(self):
+        centroids = np.array([f.centroid(-self.centroid) for f in self.bboxes])
+        ordering = np.lexsort(centroids.T)
+        return [self.bboxes[i] for i in ordering]
+
+    def ordered_bboxes_with_class_labels(self, all_labels):
+        centroids = np.array([f.centroid(-self.centroid) for f in self.bboxes])
+        int_labels = np.array([[f.int_label(all_labels)] for f in self.bboxes])
+        ordering = np.lexsort(np.hstack([centroids, int_labels]).T)
+        return [self.bboxes[i] for i in ordering]
+
+    def ordered_bboxes_with_class_frequencies(self, class_order):
+        centroids = np.array([f.centroid(-self.centroid) for f in self.bboxes])
+        label_order = np.array([[class_order[f.label]] for f in self.bboxes])
+        ordering = np.lexsort(np.hstack([centroids, label_order]).T)
+        return [self.bboxes[i] for i in ordering[::-1]]
+
+    def augment_room(self, objects_dataset, rng: Optional[np.random.Generator] = None):
+        """Swap one random object for its nearest-by-size catalog neighbor.
+        (threed_front_scene.py:639-666)"""
+        rng = rng or np.random.default_rng()
+        bi = self.bboxes[int(rng.integers(len(self.bboxes)))]
+        furniture = objects_dataset.get_closest_furniture_to_box(
+            bi.label, bi.size + rng.normal(0, 0.02)
+        )
+        new_bboxes = [b for b in self.bboxes if b is not bi] + [bi.copy_from_other_model(furniture)]
+        return Room(
+            scene_id=self.scene_id + "_augm",
+            scene_type=self.scene_type,
+            bboxes=new_bboxes,
+            extras=self.extras,
+            json_path=self.json_path,
+            path_to_room_masks_dir=self.path_to_room_masks_dir,
+        )
+
+
+# ---------------------------------------------------------------------------
+# dataset walkers (scene_synthesis/datasets/utils.py:12-198)
+# ---------------------------------------------------------------------------
+
+def _load_pickle(path: str):
+    """A pickled list of parsed records, written by this package or the JAX
+    one.  Unpickle only files you made."""
+    from .threed_future import _PortUnpickler
+
+    with open(path, "rb") as f:
+        return _PortUnpickler(f).load()
+
+
+def _valid_scale(scale) -> bool:
+    return not (any(s < 1e-5 for s in scale) or any(s > 5 for s in scale))
+
+
+def parse_threed_front_scenes(dataset_directory, path_to_model_info,
+                              path_to_models, path_to_room_masks_dir=None,
+                              pickle_output: Optional[str] = None) -> List[Room]:
+    if os.getenv("PATH_TO_SCENES"):
+        return _load_pickle(os.environ["PATH_TO_SCENES"])
+
+    model_info = ModelInfo.from_file(path_to_model_info).model_info
+    layouts = [
+        os.path.join(dataset_directory, f)
+        for f in sorted(os.listdir(dataset_directory)) if f.endswith(".json")
+    ]
+    scenes: List[Room] = []
+    unique_room_ids = set()
+    for m in layouts:
+        with open(m) as f:
+            data = json.load(f)
+        furniture_in_scene = {}
+        for ff in data["furniture"]:
+            if ff.get("valid") and ff["jid"] in model_info:
+                furniture_in_scene[ff["uid"]] = dict(
+                    model_uid=ff["uid"], model_jid=ff["jid"],
+                    model_info=model_info[ff["jid"]],
+                )
+        meshes_in_scene = {
+            mm["uid"]: dict(
+                mesh_uid=mm["uid"], mesh_jid=mm["jid"],
+                mesh_xyz=np.asarray(mm["xyz"]).reshape(-1, 3),
+                mesh_faces=np.asarray(mm["faces"]).reshape(-1, 3),
+                mesh_type=mm["type"],
+            )
+            for mm in data["mesh"]
+        }
+        for rr in data["scene"]["room"]:
+            furniture_in_room, extras = [], []
+            is_valid_scene = True
+            for cc in rr["children"]:
+                if cc["ref"] in furniture_in_scene:
+                    if not _valid_scale(cc["scale"]):
+                        is_valid_scene = False
+                        break
+                    tf = furniture_in_scene[cc["ref"]]
+                    furniture_in_room.append(ThreedFutureModel(
+                        tf["model_uid"], tf["model_jid"], tf["model_info"],
+                        cc["pos"], cc["rot"], cc["scale"], path_to_models,
+                    ))
+                elif cc["ref"] in meshes_in_scene:
+                    mf = meshes_in_scene[cc["ref"]]
+                    extras.append(ThreedFutureExtra(
+                        mf["mesh_uid"], mf["mesh_jid"], mf["mesh_xyz"],
+                        mf["mesh_faces"], mf["mesh_type"],
+                        cc["pos"], cc["rot"], cc["scale"],
+                    ))
+            if len(furniture_in_room) > 1 and is_valid_scene \
+                    and rr["instanceid"] not in unique_room_ids:
+                unique_room_ids.add(rr["instanceid"])
+                scenes.append(Room(
+                    rr["instanceid"], rr["type"].lower(), furniture_in_room,
+                    extras, os.path.basename(m).split(".")[0], path_to_room_masks_dir,
+                ))
+    if pickle_output:
+        with open(pickle_output, "wb") as f:
+            pickle.dump(scenes, f)
+    return scenes
+
+
+def parse_threed_future_models(dataset_directory, path_to_models,
+                               path_to_model_info,
+                               pickle_output: Optional[str] = None) -> List[ThreedFutureModel]:
+    if os.getenv("PATH_TO_3D_FUTURE_OBJECTS"):
+        return _load_pickle(os.environ["PATH_TO_3D_FUTURE_OBJECTS"])
+
+    model_info = ModelInfo.from_file(path_to_model_info).model_info
+    layouts = [
+        os.path.join(dataset_directory, f)
+        for f in sorted(os.listdir(dataset_directory)) if f.endswith(".json")
+    ]
+    furnitures: List[ThreedFutureModel] = []
+    unique_ids = set()
+    for m in layouts:
+        with open(m) as f:
+            data = json.load(f)
+        furniture_in_scene = {
+            ff["uid"]: dict(model_uid=ff["uid"], model_jid=ff["jid"],
+                            model_info=model_info[ff["jid"]])
+            for ff in data["furniture"] if ff.get("valid") and ff["jid"] in model_info
+        }
+        for rr in data["scene"]["room"]:
+            for cc in rr["children"]:
+                if cc["ref"] not in furniture_in_scene:
+                    continue
+                if not _valid_scale(cc["scale"]):
+                    break
+                tf = furniture_in_scene[cc["ref"]]
+                if tf["model_uid"] not in unique_ids:
+                    unique_ids.add(tf["model_uid"])
+                    furnitures.append(ThreedFutureModel(
+                        tf["model_uid"], tf["model_jid"], tf["model_info"],
+                        cc["pos"], cc["rot"], cc["scale"], path_to_models,
+                    ))
+    if pickle_output:
+        with open(pickle_output, "wb") as f:
+            pickle.dump(furnitures, f)
+    return furnitures
+
+
+class ThreedFront:
+    """Container over parsed Rooms with dataset-level bounds/statistics.
+
+    (threed_front.py:16-216).  Bounds are computed over room-centered object
+    centroids, sizes, z-angles, and the latent objfeats of every object.
+    """
+
+    def __init__(self, scenes: List[Room], bounds: Optional[Dict] = None):
+        assert len(scenes) > 0
+        self.scenes = scenes
+        self._object_types = None
+        self._count_furniture = None
+        self._sizes = self._centroids = self._angles = None
+        self._objfeats = self._objfeats_32 = None
+        if bounds is not None:
+            self._centroids = bounds["translations"]
+            self._sizes = bounds["sizes"]
+            self._angles = bounds["angles"]
+            self._objfeats = bounds.get(
+                "objfeats", (np.array([1]), np.array([-1]), np.array([1])))
+            self._objfeats_32 = bounds.get(
+                "objfeats_32", (np.array([1]), np.array([-1]), np.array([1])))
+
+    def __len__(self):
+        return len(self.scenes)
+
+    def __getitem__(self, i):
+        return self.scenes[i]
+
+    def _compute_bounds(self):
+        c_min, c_max = np.full(3, np.inf), np.full(3, -np.inf)
+        s_min, s_max = np.full(3, np.inf), np.full(3, -np.inf)
+        a_min, a_max = np.inf, -np.inf
+        feats, feats32 = [], []
+        for s in self.scenes:
+            for f in s.bboxes:
+                centroid = f.centroid(-s.centroid)
+                c_min, c_max = np.minimum(centroid, c_min), np.maximum(centroid, c_max)
+                s_min, s_max = np.minimum(f.size, s_min), np.maximum(f.size, s_max)
+                a_min, a_max = min(f.z_angle, a_min), max(f.z_angle, a_max)
+                try:
+                    feats.append(f.raw_model_norm_pc_lat())
+                except (FileNotFoundError, OSError):
+                    pass
+                try:
+                    feats32.append(f.raw_model_norm_pc_lat32())
+                except (FileNotFoundError, OSError):
+                    pass
+        self._centroids = (c_min, c_max)
+        self._sizes = (s_min, s_max)
+        self._angles = (np.array([a_min]), np.array([a_max]))
+        for attr, arr in [("_objfeats", feats), ("_objfeats_32", feats32)]:
+            if arr:
+                a = np.stack(arr, axis=0)
+                setattr(self, attr, (np.array([a.flatten().std()]),
+                                     np.array([a.min()]), np.array([a.max()])))
+            else:
+                setattr(self, attr, (np.array([1]), np.array([-1]), np.array([1])))
+
+    @property
+    def bounds(self) -> Dict:
+        return {
+            "translations": self.centroids,
+            "sizes": self.sizes,
+            "angles": self.angles,
+            "objfeats": self.objfeats,
+            "objfeats_32": self.objfeats_32,
+        }
+
+    @property
+    def centroids(self):
+        if self._centroids is None:
+            self._compute_bounds()
+        return self._centroids
+
+    @property
+    def sizes(self):
+        if self._sizes is None:
+            self._compute_bounds()
+        return self._sizes
+
+    @property
+    def angles(self):
+        if self._angles is None:
+            self._compute_bounds()
+        return self._angles
+
+    @property
+    def objfeats(self):
+        if self._objfeats is None:
+            self._compute_bounds()
+        return self._objfeats
+
+    @property
+    def objfeats_32(self):
+        if self._objfeats_32 is None:
+            self._compute_bounds()
+        return self._objfeats_32
+
+    @property
+    def count_furniture(self):
+        if self._count_furniture is None:
+            counts = Counter(sum((s.furniture_in_room for s in self.scenes), []))
+            self._count_furniture = dict(sorted(counts.items(), key=lambda x: -x[1]))
+        return self._count_furniture
+
+    @property
+    def class_order(self):
+        return dict(zip(self.count_furniture.keys(), range(len(self.count_furniture))))
+
+    @property
+    def class_frequencies(self):
+        counts = self.count_furniture
+        total = sum(counts.values())
+        return {k: v / total for k, v in counts.items()}
+
+    @property
+    def object_types(self):
+        if self._object_types is None:
+            types = set()
+            for s in self.scenes:
+                types |= set(b.label for b in s.bboxes)
+            self._object_types = sorted(types)
+        return self._object_types
+
+    @property
+    def room_types(self):
+        return set(s.scene_type for s in self.scenes)
+
+    @property
+    def class_labels(self):
+        return self.object_types + ["start", "end"]
+
+    @property
+    def max_length(self) -> int:
+        """(threed_front.py:204-216)"""
+        room_types = set(str(s.scene_type) for s in self.scenes)
+        if any("bed" in r for r in room_types):
+            return 12
+        if any("living" in r for r in room_types):
+            return 21
+        if any("dining" in r for r in room_types):
+            return 21
+        if any("library" in r for r in room_types):
+            return 11
+        return 12
+
+    @classmethod
+    def from_dataset_directory(cls, dataset_directory, path_to_model_info,
+                               path_to_models, path_to_room_masks_dir=None,
+                               path_to_bounds=None, filter_fn=lambda s: s):
+        scenes = parse_threed_front_scenes(
+            dataset_directory, path_to_model_info, path_to_models,
+            path_to_room_masks_dir,
+        )
+        bounds = None
+        if path_to_bounds:
+            bounds = np.load(path_to_bounds, allow_pickle=True)
+        return cls([s for s in map(filter_fn, scenes) if s], bounds)

@@ -7,13 +7,17 @@ Writes a directory tree byte-compatible with the reference preprocessing
 output (boxes.npz per room + dataset_stats.txt, see
 `scripts/preprocess_data.py:180-294`), populated with plausible random
 bedrooms, so that the full train/sample/eval pipeline can run without the
-(licensed, non-redistributable) 3D-FRONT download.
+(licensed, non-redistributable) 3D-FRONT download.  ``make_synthetic_catalog``
+writes a furniture catalog of textured boxes for mesh retrieval, and
+``make_synthetic_raw_front`` a raw 3D-FRONT / 3D-FUTURE tree for the
+pickle and preprocessing CLIs; the port's own fixture writers, which the
+tests feed to both packages.
 """
 from __future__ import annotations
 
 import json
 import os
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -167,3 +171,121 @@ def make_synthetic_catalog(out_dir: str, labels: List[str], per_label: int = 2,
     path = os.path.join(out_dir, "threed_future_model.pkl")
     ThreedFutureDataset(objects).pickle(path)
     return path
+
+
+def _floor_mesh(rng: np.random.Generator, centre: np.ndarray):
+    """A floor of at most 6 x 6 m around ``centre`` (x, z): a rectangle or
+    an L (the rectangle less one corner), as flat 3D-FRONT ``xyz`` and
+    ``faces`` lists, and the rectangle's (x0, z0, x1, z1)."""
+    w, d = rng.uniform(3.0, 5.8, 2)
+    x0, z0 = centre[0] - w / 2, centre[1] - d / 2
+    x1, z1 = x0 + w, z0 + d
+    if rng.random() < 0.5:
+        rects = [(x0, z0, x1, z1)]
+    else:   # an L: a full-depth strip and the part of the rest away from the cut
+        xm = x0 + w * rng.uniform(0.5, 0.7)
+        zm = z0 + d * rng.uniform(0.3, 0.5)
+        rects = [(x0, z0, xm, z1), (xm, zm, x1, z1)]
+    xyz, faces = [], []
+    for a0, b0, a1, b1 in rects:
+        base = len(xyz) // 3
+        xyz += [a0, 0.0, b0, a1, 0.0, b0, a1, 0.0, b1, a0, 0.0, b1]
+        faces += [base, base + 1, base + 2, base, base + 2, base + 3]
+    return [float(v) for v in xyz], faces, (x0, z0, x1, z1)
+
+
+def make_synthetic_raw_front(out_dir: str, n_rooms: int = 8, seed: int = 0,
+                             max_objects: int = 12, models_per_category: int = 2,
+                             rooms_per_file: int = 4) -> Dict[str, str]:
+    """A small raw 3D-FRONT / 3D-FUTURE tree, the input of the pickle and
+    preprocessing CLIs, made from ``seed``:
+
+    - ``3D-FUTURE-model/``: ``models_per_category`` textured boxes (OBJ,
+      MTL, texture) for each 3D-FUTURE category of the bedroom furniture
+      map, and ``model_info.json``;
+    - ``3D-FRONT/*.json``: ``n_rooms`` bedrooms, ``rooms_per_file`` a
+      scene file, each with a floor mesh (a rectangle or an L shape, at
+      most 6 x 6 m, off the origin) and 3 to ``max_objects`` pieces of
+      furniture standing on it, a bed first, the others walking every
+      category in a seeded order (so the train rooms hold every bedroom
+      class once they hold 30 pieces besides their beds); plus one room
+      with a furniture scale out of range, which the parsers drop;
+    - ``splits.csv``: the rooms 80/10/10 in train, val and test.
+
+    Returns the paths: ``root``, ``front``, ``future``, ``model_info``,
+    ``splits``."""
+    from .filters import load_furniture_map
+
+    rng = np.random.default_rng(seed)
+    front = os.path.join(out_dir, "3D-FRONT")
+    future = os.path.join(out_dir, "3D-FUTURE-model")
+    os.makedirs(front, exist_ok=True)
+    os.makedirs(future, exist_ok=True)
+
+    categories = sorted(load_furniture_map("bedroom"))
+    beds = [c for c in categories if c.endswith(" bed")]
+    models: Dict[str, List[tuple]] = {}       # category -> [(jid, half extents)]
+    model_info = []
+    for ci, cat in enumerate(categories):
+        colour = rng.integers(64, 256, 3)
+        for k in range(models_per_category):
+            jid = f"{ci:04x}{k:04x}-0000-4000-8000-{seed:012x}"
+            half = rng.uniform([0.15, 0.1, 0.15], [1.0, 1.0, 1.1])
+            os.makedirs(os.path.join(future, jid), exist_ok=True)
+            _write_box_obj(os.path.join(future, jid), half, colour)
+            models.setdefault(cat, []).append((jid, half))
+            model_info.append({"model_id": jid, "super-category": "Furniture",
+                               "category": cat, "style": "Modern", "theme": None,
+                               "material": "Wood"})
+    with open(os.path.join(future, "model_info.json"), "w") as f:
+        json.dump(model_info, f)
+
+    def child(ref, pos, angle=0.0, scale=(1.0, 1.0, 1.0)):
+        rot = [0.0, float(np.sin(angle / 2)), 0.0, float(np.cos(angle / 2))]
+        return {"ref": ref, "pos": [float(p) for p in pos], "rot": rot,
+                "scale": [float(s) for s in scale]}
+
+    # the furniture after each room's bed walks every category in a seeded
+    # order, so the first rooms (the train split) hold every class
+    order, n_drawn = rng.permutation(len(categories)), 0
+    splits = []
+    n_files = -(-n_rooms // rooms_per_file)
+    for fi in range(n_files):
+        name = f"{fi:08x}-{seed:04x}-4000-8000-000000000000"
+        furniture, meshes, rooms = {}, [], []
+        room_ids = range(fi * rooms_per_file, min((fi + 1) * rooms_per_file, n_rooms))
+        for r in (*room_ids, *((-1,) if fi == 0 else ())):
+            centre = rng.uniform(-4.0, 4.0, 2)
+            xyz, faces, (x0, z0, x1, z1) = _floor_mesh(rng, centre)
+            floor_uid = f"{name}/floor{len(meshes)}"
+            meshes.append({"uid": floor_uid, "jid": "", "type": "Floor", "xyz": xyz,
+                           "faces": faces})
+            n_obj = int(rng.integers(3, max_objects + 1))
+            cats = [beds[int(rng.integers(len(beds)))]]
+            for _ in range(n_obj - 1):
+                cats.append(categories[order[n_drawn % len(order)]])
+                n_drawn += 1
+            children = [child(floor_uid, (0.0, 0.0, 0.0))]
+            for k, cat in enumerate(cats):
+                jid, half = models[cat][int(rng.integers(models_per_category))]
+                uid = f"{name}/{jid}"
+                furniture[uid] = {"uid": uid, "jid": jid, "valid": True}
+                pos = (rng.uniform(x0, x1), half[1], rng.uniform(z0, z1))
+                angle = float(rng.choice([0.0, 0.5, 1.0, -0.5])) * np.pi
+                # the out-of-range room: its first piece scaled 9x
+                scale = (9.0, 9.0, 9.0) if r < 0 and k == 0 else (1.0, 1.0, 1.0)
+                children.append(child(uid, pos, angle, scale))
+            room_id = f"Bedroom-{r:04d}" if r >= 0 else f"Bedroom-bad{fi}"
+            rooms.append({"instanceid": room_id, "type": "Bedroom", "children": children})
+            split = ("train" if r < 0 or r < int(0.8 * n_rooms)
+                     else "val" if r < int(0.9 * n_rooms) else "test")
+            splits.append(f"{room_id},{split}")
+        scene = {"furniture": list(furniture.values()), "mesh": meshes,
+                 "scene": {"room": rooms}}
+        with open(os.path.join(front, name + ".json"), "w") as f:
+            json.dump(scene, f)
+    path_splits = os.path.join(out_dir, "splits.csv")
+    with open(path_splits, "w") as f:
+        f.write("\n".join(splits) + "\n")
+    return {"root": out_dir, "front": front, "future": future,
+            "model_info": os.path.join(future, "model_info.json"), "splits": path_splits}

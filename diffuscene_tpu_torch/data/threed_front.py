@@ -1,7 +1,8 @@
 """Cached 3D-FRONT dataset reader (on-disk compatible with the reference).
 
-Copy of ``diffuscene_tpu/data/threed_front.py`` (numpy only), so the port does not
-import the JAX package.
+Copy of ``diffuscene_tpu/data/threed_front.py``, so the port does not import
+the JAX package; the room mask's resize is Pillow's BILINEAR without
+Pillow (``utils/image.py``).
 
 Reads the preprocessed per-room directories produced by `preprocess_data.py`
 (reference `scripts/preprocess_data.py:257-294`): each room dir holds
@@ -17,7 +18,9 @@ import os
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
 
+from ..utils.image import pillow_bilinear_resize
 from .encoding import Bounds
 
 MAX_LENGTH_BY_ROOM = {"bed": 12, "living": 21, "dining": 21, "library": 11}
@@ -102,20 +105,14 @@ class CachedThreedFront:
 
     # ------------------------------------------------------------------
     def _room_layout(self, room_layout: np.ndarray) -> np.ndarray:
-        """Resize the binary mask to `room_layout_size` (threed_front.py:311-319)."""
+        """Resize the (H, W, 1) 8-bit mask to ``room_layout_size`` as the
+        JAX package does, Pillow's BILINEAR then / 255
+        (threed_front.py:311-319), through ``utils/image.py`` (the same
+        computation with or without Pillow): within one level of Pillow's
+        result."""
         size = tuple(int(x) for x in self.config.get("room_layout_size", "64,64").split(","))
-        try:
-            from PIL import Image
-
-            img = Image.fromarray(room_layout[:, :, 0])
-            img = img.resize(size, resample=Image.BILINEAR)
-            return np.asarray(img).astype(np.float32) / np.float32(255)
-        except ImportError:
-            # nearest-neighbor numpy fallback
-            h, w = room_layout.shape[:2]
-            yi = (np.arange(size[1]) * h / size[1]).astype(int)
-            xi = (np.arange(size[0]) * w / size[0]).astype(int)
-            return room_layout[yi][:, xi, 0].astype(np.float32) / np.float32(255)
+        img = torch.from_numpy(np.ascontiguousarray(room_layout[:, :, 0]))
+        return pillow_bilinear_resize(img, size).numpy() / np.float32(255)
 
     def get_room_params(self, i: int) -> Dict[str, np.ndarray]:
         """(threed_front.py:349-373)"""

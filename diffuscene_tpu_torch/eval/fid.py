@@ -36,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..utils.image import pillow_bilinear_resize
 from .png import read_image_rgb
 
 FeatureFn = Callable[[np.ndarray], np.ndarray]  # (B, H, W, C) uint8 -> (B, D)
@@ -122,14 +123,7 @@ class PixelFeatures:
             x = x.to(self.device).to(torch.int32)
             # Pillow's convert("L"): (19595 R + 38470 G + 7471 B + 2^15) >> 16
             luma = (x[..., 0] * 19595 + x[..., 1] * 38470 + x[..., 2] * 7471 + 0x8000) >> 16
-            # Pillow resizes rows first, then columns, rounding each pass
-            # to 8 bits
-            y = luma[:, None].float()
-            for size in ((y.shape[2], self.size), (self.size, self.size)):
-                y = F.interpolate(y, size=size, mode="bilinear", align_corners=False,
-                                  antialias=True)
-                y = torch.floor(y + 0.5).clamp(0, 255)
-            y = y / 255.0
+            y = pillow_bilinear_resize(luma, (self.size, self.size)) / 255.0
             out.append(y.reshape(len(y), -1).cpu().numpy())
         return np.concatenate(out).astype(np.float32)
 

@@ -6,13 +6,15 @@ DiffusionSceneLayout_DDPM, diffusion_scene_layout_ddpm.py:14-454).  The
 modules hold only networks and parameters; diffusion math and the sampling
 loops are plain functions from ``diffusion/``.
 
-Ported: the instance condition (the learnable or the fixed one-hot
-embedding), the partial-scene head (``room_partial_condition``), the
-arrange head (``room_arrange_condition``) and the text condition
-(``text_condition``: token embeddings through ``fc_text_f``, or a CLIP
-sentence vector as one token, into the denoiser's cross-attention); the
-training loss (``get_loss``:
-q_sample, the module forward, ``p_losses`` with the IoU regularizer on the
+Ported: the room-mask condition (``room_mask_condition``: the frozen-BN
+ResNet18 or AlexNet of ``models/feature_extractors.py`` over each scene's
+(1, H, W) room layout, then ``fc_room_f``), the instance condition (the
+learnable or the fixed one-hot embedding), the partial-scene head
+(``room_partial_condition``), the arrange head
+(``room_arrange_condition``) and the text condition (``text_condition``:
+token embeddings through ``fc_text_f``, or a CLIP sentence vector as one
+token, into the denoiser's cross-attention); the training loss
+(``get_loss``: q_sample, the module forward, ``p_losses`` with the IoU regularizer on the
 train-set bounds; with the arrange head the diffusion target is the
 (translation, angle) channels only); ``fused=False`` (module forward),
 ``fused=True`` (the 3-D engine on the ResnetBlock and set-attention
@@ -20,8 +22,14 @@ kernels) and ``fused="rows"`` (rows engine on the chain kernel); DDPM (with
 its trajectory), DDIM and DPM-Solver++ sampling, scene completion
 (``partial_boxes``, the RePaint splice) and re-arrangement
 (``input_boxes``), both DDPM only; the variational bound (``prior_kl``,
-``all_kl``).  Raising ``NotImplementedError``: room-mask conditions
-(ROADMAP A8).
+``all_kl``).
+
+Departures from the JAX package: a room-mask model given neither
+``room_layout`` nor ``room_feat`` raises ``ValueError`` (the JAX package
+drops the part silently and then fails on the condition's width), and the
+extractor is the config's ``feature_extractor`` section (name,
+feature_size, input_channels), where the JAX package always builds a
+ResNet18 with 64 features over 1 channel (the shipped values).
 """
 from __future__ import annotations
 
@@ -40,6 +48,7 @@ from ..diffusion import samplers as S
 from ..utils.config import as_dtype
 from ..utils.convert import denoiser_tree
 from .denoiser import Unet1D, init_parameters
+from .feature_extractors import FrozenBatchNorm, get_feature_extractor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,6 +67,9 @@ class SceneModelConfig:
     sample_num_points: int = 12
     room_mask_condition: bool = False
     latent_dim: int = 0
+    feature_extractor: str = "resnet18"
+    room_feature_size: int = 64
+    room_input_channels: int = 1
     instance_condition: bool = True
     learnable_embedding: bool = True
     instance_emb_dim: int = 128
@@ -110,10 +122,17 @@ class SceneModelConfig:
         )
 
     @classmethod
-    def from_config(cls, network: Dict[str, Any]) -> "SceneModelConfig":
+    def from_config(cls, network: Dict[str, Any],
+                    feature_extractor: Optional[Dict[str, Any]] = None) -> "SceneModelConfig":
         """Build from a reference-format ``network`` config dict (already
-        parsed: this package reads no YAML)."""
+        parsed: this package reads no YAML) and the config's
+        ``feature_extractor`` section (name, feature_size, input_channels;
+        ``freeze_bn: false`` raises), which a room-mask model reads."""
         dk = network.get("diffusion_kwargs", {})
+        fe = dict(feature_extractor or {})
+        if not fe.get("freeze_bn", True):
+            raise ValueError("feature_extractor.freeze_bn: false is not supported: the "
+                             "extractor's BatchNorm statistics are frozen")
         fields = dict(
             point_dim=network.get("point_dim", 62),
             translation_dim=network.get("translation_dim", 3),
@@ -125,6 +144,9 @@ class SceneModelConfig:
             sample_num_points=network.get("sample_num_points", 12),
             room_mask_condition=network.get("room_mask_condition", True),
             latent_dim=network.get("latent_dim", 0),
+            feature_extractor=fe.get("name", "resnet18"),
+            room_feature_size=int(fe.get("feature_size", 64)),
+            room_input_channels=int(fe.get("input_channels", 1)),
             instance_condition=network.get("instance_condition", False),
             learnable_embedding=network.get("learnable_embedding", False),
             instance_emb_dim=network.get("instance_emb_dim", 64),
@@ -199,8 +221,10 @@ def text_emb_dim_for_network(network: Dict) -> int:
 
 
 class ConditionNets(nn.Module):
-    """Conditioning heads (diffusion_scene_layout_ddpm.py:27-129), each
-    Linear, LeakyReLU(0.1), Linear without biases: the instance condition,
+    """Conditioning heads (diffusion_scene_layout_ddpm.py:27-129).  A
+    room-mask model projects its (B, F) room features through
+    ``fc_room_f``, one Linear with a bias, to latent_dim.  The others are
+    each Linear, LeakyReLU(0.1), Linear without biases: the instance condition,
     as a learnable embedding or as the fixed one-hot rows through
     ``fc_instance_condition``; the partial-scene head
     ``fc_partial_condition`` (point_dim -> partial_emb_dim) and the arrange
@@ -212,10 +236,15 @@ class ConditionNets(nn.Module):
 
     def __init__(self, cfg: SceneModelConfig, device=None):
         super().__init__()
-        if cfg.room_mask_condition:
-            raise NotImplementedError(
-                "room-mask conditions (the feature extractors) are not ported yet (ROADMAP A8)")
         self.cfg = cfg
+        self.fc_room_f = None
+        if cfg.room_mask_condition:
+            if cfg.latent_dim <= 0:
+                raise ValueError(
+                    "room_mask_condition=True needs network.latent_dim > 0 (the fc_room_f "
+                    "width, diffusion_scene_layout_ddpm.py:30); the Unet's net_kwargs "
+                    "context_dim must grow by the same amount so the condition vector fits")
+            self.fc_room_f = nn.Linear(cfg.room_feature_size, cfg.latent_dim, device=device)
         self.positional_embedding = None
         self.fc_instance_condition = None
         self.fc_partial_condition = None
@@ -243,14 +272,18 @@ class ConditionNets(nn.Module):
     def forward(self, batch_size: int, num_points: int,
                 partial_input: Optional[torch.Tensor] = None,
                 arrange_input: Optional[torch.Tensor] = None,
-                text_emb: Optional[torch.Tensor] = None):
-        """-> (condition, condition_cross).  condition (B, N, instance +
-        partial + arrange widths) f32, or None: ``partial_input``
+                text_emb: Optional[torch.Tensor] = None,
+                room_feat: Optional[torch.Tensor] = None):
+        """-> (condition, condition_cross).  condition (B, N, room +
+        instance + partial + arrange widths) f32, or None: a room-mask
+        model's ``room_feat`` (B, F) through ``fc_room_f``, the same for
+        every slot of a scene; ``partial_input``
         (B, N, point_dim) is the partial scene zero-padded to N slots and
         ``arrange_input`` (B, N, arrange width) the channels an arrangement
         keeps; each head's part is there when the config has the head and
-        its input is given, concatenated in the JAX order: instance,
-        partial, arrange.  condition_cross (B, L, text_embed_dim), or None:
+        its input is given, concatenated in the JAX order: room, instance,
+        partial, arrange.  A room-mask model raises ValueError without
+        ``room_feat``.  condition_cross (B, L, text_embed_dim), or None:
         a text model's ``text_emb``, the (B, L, 768 | 50) token embeddings
         through ``fc_text_f`` or the CLIP (B, 512) sentence vector as one
         token.  A text model raises ValueError without ``text_emb``."""
@@ -265,6 +298,12 @@ class ConditionNets(nn.Module):
                 cross = text_emb if text_emb.ndim == 3 else text_emb[:, None, :]
         e = self.cfg.instance_emb_dim
         parts = []
+        if self.fc_room_f is not None:
+            if room_feat is None:
+                raise ValueError("a room-mask model needs room_layout (B, 1, H, W) or "
+                                 "room_feat (B, F), one room a scene")
+            room = self.fc_room_f(room_feat)
+            parts.append(room[:, None, :].expand(batch_size, num_points, room.shape[-1]))
         if self.positional_embedding is not None:
             parts.append(self.positional_embedding[None, :num_points, :].expand(
                 batch_size, num_points, e))
@@ -288,9 +327,11 @@ class SceneDiffusion:
     DiffusionPoint, diffusion_scene_layout_ddpm.py:131-347).  Built on the
     card unless ``device`` says otherwise.  ``bounds`` are the train set's
     (``Bounds.as_device_bounds()``), which the IoU regularizer needs; they
-    live on the model's device.  ``networks`` holds the denoiser and the
-    conditioning heads as one module (state_dict keys ``denoiser.*`` and
-    ``conditioner.*``)."""
+    live on the model's device.  ``networks`` holds the denoiser, the
+    conditioning heads and a room-mask model's feature extractor as one
+    module (state_dict keys ``denoiser.*``, ``conditioner.*`` and
+    ``feature_extractor.*``, the extractor's frozen BatchNorm statistics
+    among them as buffers)."""
 
     def __init__(self, cfg: SceneModelConfig, bounds: Optional[Dict[str, np.ndarray]] = None,
                  device: torch.device | str = "cuda"):
@@ -301,6 +342,12 @@ class SceneDiffusion:
         self.denoiser = build_unet1d(cfg, device=self.device)
         self.conditioner = ConditionNets(cfg, device=self.device)
         self.networks = nn.ModuleDict({"denoiser": self.denoiser, "conditioner": self.conditioner})
+        self.feature_extractor = None
+        if cfg.room_mask_condition:
+            self.feature_extractor = get_feature_extractor(
+                cfg.feature_extractor, input_channels=cfg.room_input_channels,
+                feature_size=cfg.room_feature_size, device=self.device)
+            self.networks["feature_extractor"] = self.feature_extractor
         self.sched: DiffusionSchedule = make_schedule(
             cfg.schedule_type, cfg.beta_start, cfg.beta_end, cfg.time_num,
             model_mean_type=cfg.model_mean_type, device=self.device,
@@ -332,21 +379,43 @@ class SceneDiffusion:
             pe = self.conditioner.positional_embedding
             pe.copy_(torch.randn(pe.shape, generator=generator))
         linears = [lin for head in self.conditioner.heads() for lin in head[::2]]
-        if self.conditioner.fc_text_f is not None:
-            linears.append(self.conditioner.fc_text_f)
+        for lin in (self.conditioner.fc_text_f, self.conditioner.fc_room_f):
+            if lin is not None:
+                linears.append(lin)
+        if self.feature_extractor is not None:
+            linears += [m for m in self.feature_extractor.modules() if isinstance(m, nn.Linear)]
         for lin in linears:
             w = torch.randn(lin.weight.shape, generator=generator) / math.sqrt(lin.in_features)
             lin.weight.copy_(w)
             if lin.bias is not None:
                 lin.bias.zero_()
+        if self.feature_extractor is not None:
+            # He-scaled convolutions; the frozen BatchNorms the identity
+            for m in self.feature_extractor.modules():
+                if isinstance(m, nn.Conv2d):
+                    fan_in = m.weight[0].numel()
+                    m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
+                                   * math.sqrt(2.0 / fan_in))
+                    if m.bias is not None:
+                        m.bias.zero_()
+                elif isinstance(m, FrozenBatchNorm):
+                    for t, v in ((m.weight, 1.0), (m.bias, 0.0), (m.running_mean, 0.0),
+                                 (m.running_var, 1.0)):
+                        t.fill_(v)
         return self
 
     def make_condition(self, batch_size: int, partial_input: Optional[torch.Tensor] = None,
                        arrange_input: Optional[torch.Tensor] = None,
-                       text_emb: Optional[torch.Tensor] = None):
-        """-> (condition, condition_cross), as ``ConditionNets.forward``."""
+                       text_emb: Optional[torch.Tensor] = None,
+                       room_layout: Optional[torch.Tensor] = None,
+                       room_feat: Optional[torch.Tensor] = None):
+        """-> (condition, condition_cross), as ``ConditionNets.forward``; a
+        room-mask model's ``room_feat`` is the feature extractor's output
+        on ``room_layout`` (B, 1, H, W) unless it is given."""
+        if room_feat is None and room_layout is not None and self.feature_extractor is not None:
+            room_feat = self.feature_extractor(room_layout)
         return self.conditioner(batch_size, self.cfg.sample_num_points, partial_input,
-                                arrange_input, text_emb)
+                                arrange_input, text_emb, room_feat)
 
     def arrange_input(self, boxes: torch.Tensor) -> torch.Tensor:
         """The channels an arrangement keeps: sizes, then class, objectness
@@ -358,25 +427,31 @@ class SceneDiffusion:
                               batch: Optional[Dict[str, torch.Tensor]] = None):
         """(condition, condition_cross) of a training batch from its packed
         (B, N, point_dim) target and, for a text model, the batch's
-        ``text_emb`` (the JAX ``_conditions_from_batch``): the partial input
-        is the target's first ``partial_num_points`` slots with the rest
-        zeroed, the arrange input its kept channels."""
+        ``text_emb``, for a room-mask model its ``room_feat`` or else its
+        ``room_layout`` (the JAX ``_conditions_from_batch``): the partial
+        input is the target's first ``partial_num_points`` slots with the
+        rest zeroed, the arrange input its kept channels."""
         cfg = self.cfg
-        text_emb = batch.get("text_emb") if batch is not None else None
+        batch = batch or {}
+        text_emb = batch.get("text_emb")
+        room_feat = batch.get("room_feat")
+        room_layout = None if room_feat is not None else batch.get("room_layout")
         partial_input = arrange_input = None
         if cfg.room_partial_condition:
             keep = torch.arange(target.shape[1], device=target.device) < cfg.partial_num_points
             partial_input = target * keep.to(target.dtype)[None, :, None]
         if cfg.room_arrange_condition:
             arrange_input = self.arrange_input(target)
-        return self.make_condition(target.shape[0], partial_input, arrange_input, text_emb)
+        return self.make_condition(target.shape[0], partial_input, arrange_input, text_emb,
+                                   room_layout, room_feat)
 
     def get_loss(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
                  t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
         """Training loss of one batch (diffusion_scene_layout_ddpm.py:131-226
         + diffusion_ddpm.py:758-772) -> (0-d loss, dict of 0-d terms).
-        ``batch`` holds the attribute tensors (or the ``packed`` target), and
-        a text model's ``text_emb``, on this model's device.  The timesteps
+        ``batch`` holds the attribute tensors (or the ``packed`` target), a
+        text model's ``text_emb`` and a room-mask model's ``room_layout``
+        (B, 1, H, W) or ``room_feat``, on this model's device.  The timesteps
         ``t`` (B,) and the ``noise`` (B, N, D) are used when given, else
         drawn from ``generator`` (on this model's device); D is point_dim,
         or translation_dim + angle_dim with the arrange head, whose model
@@ -458,6 +533,8 @@ class SceneDiffusion:
         ret_traj: bool = False,
         freq: int = 100,
         text_emb: Optional[torch.Tensor] = None,
+        room_layout: Optional[torch.Tensor] = None,
+        room_feat: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Sample ``batch_size`` scenes -> (B, N, point_dim)
         (diffusion_scene_layout_ddpm.py:228-310).  With ``input_boxes``
@@ -469,7 +546,10 @@ class SceneDiffusion:
         ``ddim``, the DDPM trajectory (n_frames, B, N, point_dim) with
         ``ret_traj`` (a frame every ``freq`` steps), or DDPM.  A text model
         takes ``text_emb``, one description's token embeddings a scene
-        ((B, L, 768 | 50), or CLIP's (B, 512)).  Noise comes from
+        ((B, L, 768 | 50), or CLIP's (B, 512)); a room-mask model
+        ``room_layout``, one (1, H, W) floor mask a scene, or their
+        features ``room_feat`` (B, F): the extractor runs once a call,
+        before the engines prepare their FiLM rows.  Noise comes from
         ``generator`` (on this model's device) or from ``noise_fn``."""
         if (partial_boxes is not None or input_boxes is not None) and (ddim or dpm):
             raise ValueError(
@@ -485,7 +565,7 @@ class SceneDiffusion:
         if cfg.room_arrange_condition and input_boxes is not None:
             arrange_input = self.arrange_input(input_boxes)
         condition, condition_cross = self.make_condition(batch_size, partial_input, arrange_input,
-                                                         text_emb)
+                                                         text_emb, room_layout, room_feat)
         fn = self._denoise_fn(condition, condition_cross, fused=fused)
         shape = (batch_size, N, cfg.point_dim)
         noise = dict(generator=generator, noise_fn=noise_fn)

@@ -21,13 +21,24 @@ Config keys, as in the JAX package:
 - ``grads_dtype: bfloat16``: the gradients are rounded to bf16 after the
   backward (autograd gives f32 gradients of the f32 master weights).
 
+A room-mask model's feature extractor trains with the rest; its frozen
+BatchNorm statistics are buffers, so they stay out of the flat parameter
+buffer, the clip, Adam and the EMA (the JAX package zeroes their updates
+with an optax mask before the clip, ``diffuscene_tpu/train/trainer.py:
+121-135``), and they go into and out of every checkpoint, the EMA weights'
+included.
+
 Departures from the JAX package, where its behaviour is a fault:
 
 - with ``ema_dtype: float32`` the JAX EMA aliases the parameters
   (``diffuscene_tpu/train/trainer.py:246``); here the EMA is always a copy;
 - with bf16 gradients and ``grad_accum`` > 1 the JAX package accumulates in
   bf16 (``diffuscene_tpu/train/trainer.py:163``); here the accumulator is
-  f32.
+  f32;
+- the logged "gradnorm" is the norm the clip uses.  The JAX package logs the
+  norm of the whole variables tree's gradients (``trainer.py:167``), the
+  frozen statistics' included, before the mask zeroes them, so for a
+  room-mask model its logged norm is not its clip's norm.
 
 ``Trainer(mixed_precision=True)`` of the JAX package (an opt-in that
 measured slower) is not ported.  The trainer runs on the card unless it is
@@ -226,9 +237,12 @@ class Trainer:
 
     def ema_or_params(self) -> Dict[str, torch.Tensor]:
         """The weights a sampler should use: the EMA when there is one,
-        keyed as ``scene.networks``' state_dict."""
+        keyed as ``scene.networks``' state_dict, with the networks' buffers
+        (a room-mask extractor's frozen statistics)."""
         values = self.ema if self.ema is not None else [p.detach() for p in self.params]
-        return dict(zip(self.names, values))
+        out = dict(zip(self.names, values))
+        out.update((n, b.detach()) for n, b in self.scene.networks.named_buffers())
+        return out
 
     # ------------------------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:
@@ -237,7 +251,8 @@ class Trainer:
         return {
             "step": self.step,
             "model": self.scene.networks.state_dict(),
-            "ema": None if self.ema is None else {n: e.clone() for n, e in zip(self.names, self.ema)},
+            "ema": None if self.ema is None else {
+                n: e.clone() for n, e in self.ema_or_params().items()},
             "optimizer": self.opt.state_dict(),
             "acc": None if self.acc is None else self.acc.clone(),
             "mini_step": self.mini_step,

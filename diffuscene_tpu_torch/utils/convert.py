@@ -12,14 +12,18 @@ turns into the Flax ``Unet1D`` tree.  This module is its inverse:
 - :func:`load_jax_params` loads a JAX ``SceneNetworks`` variable tree, as
   numpy arrays, into a port ``SceneDiffusion``, and :func:`scene_tree` maps
   a port ``SceneDiffusion``'s parameters (or any tensors named like them,
-  such as their gradients) the other way;
+  such as their gradients) the other way, a room-mask model's feature
+  extractor among them (its frozen BatchNorm statistics in the
+  ``batch_stats`` collection);
 - :func:`flax_to_torch_autoencoder` is the inverse of
   ``convert_autoencoder`` for the shape autoencoder, and
   :func:`load_jax_autoencoder` loads JAX variables into a port
   ``KLAutoEncoder``.
 
 Tensor rules: Conv1d (O, I, 1) <-> Dense kernel (I, O); Linear (O, I) <->
-(I, O); GroupNorm weight/bias <-> scale/bias; LayerNorm g (1, C, 1) <-> (C,).
+(I, O); GroupNorm weight/bias <-> scale/bias; LayerNorm g (1, C, 1) <-> (C,);
+Conv2d (O, I, kH, kW) <-> (kH, kW, I, O); FrozenBatchNorm weight/bias <->
+params scale/bias, running_mean/running_var <-> batch_stats mean/var.
 """
 from __future__ import annotations
 
@@ -221,7 +225,57 @@ _CONDITIONER = {
     "fc_arrange_condition.2.weight": (("fc_arrange_1", "kernel"), "linear"),
     "fc_text_f.weight": (("fc_text_f", "kernel"), "linear"),
     "fc_text_f.bias": (("fc_text_f", "bias"), "vec"),
+    "fc_room_f.weight": (("fc_room_f", "kernel"), "linear"),
+    "fc_room_f.bias": (("fc_room_f", "bias"), "vec"),
 }
+
+_BN_LEAVES = {"weight": ("params", "scale"), "bias": ("params", "bias"),
+              "running_mean": ("batch_stats", "mean"), "running_var": ("batch_stats", "var")}
+
+
+def _extractor_key(key: str) -> Tuple[str, Path, str]:
+    """A port feature-extractor state_dict key -> (flax collection, path,
+    kind): the module names of ``models/feature_extractors.py`` against
+    the JAX modules' (``layer1.0.downsample.1`` <-> ``layer1_0/downsample_bn``,
+    ``fc.2`` <-> ``fc_2``, AlexNet's ``features.6`` <-> ``conv3``)."""
+    parts = key.split(".")
+    leaf = parts[-1]
+    if parts[0] == "features":                                  # AlexNet
+        name = f"conv{(0, 3, 6, 8, 10).index(int(parts[1])) + 1}"
+        return "params", (name, "kernel" if leaf == "weight" else "bias"), \
+            "conv2d" if leaf == "weight" else "vec"
+    if parts[0] == "fc":                   # ResNet18's fc.0 / fc.2, AlexNet's fc
+        name = "fc" if len(parts) == 2 else f"fc_{parts[1]}"
+        return "params", (name, "kernel" if leaf == "weight" else "bias"), \
+            "linear" if leaf == "weight" else "vec"
+    if parts[0].startswith("layer"):                            # layerL.b.<module>
+        block, rest = f"{parts[0]}_{parts[1]}", parts[2:-1]
+        if rest[0] == "downsample":
+            rest = ["downsample_conv" if rest[1] == "0" else "downsample_bn"]
+        path = (block, *rest)
+    else:
+        path = tuple(parts[:-1])
+    if path[-1].startswith(("conv", "downsample_conv")):
+        return "params", (*path, "kernel"), "conv2d"
+    collection, name = _BN_LEAVES[leaf]
+    return collection, (*path, name), "vec"
+
+
+def _conv2d_to_torch(a):
+    return np.transpose(a, (3, 2, 0, 1))
+
+
+def load_jax_extractor(extractor: torch.nn.Module, variables: Dict[str, Any]) -> None:
+    """JAX feature-extractor variables (``{"params": ..., "batch_stats":
+    ...}``, numpy leaves; AlexNet has no statistics) into a port
+    ``ResNet18`` or ``AlexNet``."""
+    sd = {}
+    for key in extractor.state_dict():
+        collection, path, kind = _extractor_key(key)
+        a = np.asarray(_get(variables[collection], path), np.float32)
+        a = _conv2d_to_torch(a) if kind == "conv2d" else _to_torch_layout(a, kind)
+        sd[key] = torch.from_numpy(np.ascontiguousarray(a))
+    extractor.load_state_dict(sd, strict=True)
 
 
 def load_jax_params(scene, np_params: Dict[str, Any]) -> None:
@@ -229,9 +283,10 @@ def load_jax_params(scene, np_params: Dict[str, Any]) -> None:
     ``params.denoiser`` and ``params.conditioner``, the learnable
     ``positional_embedding`` or the one-hot heads ``fc_instance_0/1``, the
     partial and arrange heads ``fc_partial_0/1``, ``fc_arrange_0/1``, and
-    the text projection ``fc_text_f``)
-    into a port ``SceneDiffusion``, so both packages compute the same
-    thing."""
+    the text projection ``fc_text_f``, the room projection ``fc_room_f``;
+    and a room-mask model's ``params.feature_extractor`` with its
+    ``batch_stats.feature_extractor``) into a port ``SceneDiffusion``, so
+    both packages compute the same thing."""
     p = np_params["params"]
     scene.denoiser.load_state_dict(flax_to_torch_denoiser(p["denoiser"]), strict=True)
     cond = p.get("conditioner", {})
@@ -241,14 +296,20 @@ def load_jax_params(scene, np_params: Dict[str, Any]) -> None:
             a = np.asarray(_get(cond, path), np.float32)
             sd[key] = torch.from_numpy(np.ascontiguousarray(_to_torch_layout(a, kind)))
     scene.conditioner.load_state_dict(sd, strict=True)
+    if scene.feature_extractor is not None:
+        load_jax_extractor(scene.feature_extractor, {
+            c: np_params[c]["feature_extractor"] for c in ("params", "batch_stats")
+            if "feature_extractor" in np_params.get(c, {})})
 
 
 def scene_tree(scene, values: Optional[Mapping[str, torch.Tensor]] = None) -> Dict[str, Any]:
     """A port ``SceneDiffusion``'s parameters as the JAX ``SceneNetworks``
-    params tree ({"denoiser": ..., "conditioner": ...}, Flax layouts).
-    ``values`` (keyed by ``scene.networks`` state_dict names, e.g.
-    ``{n: p.grad for n, p in scene.networks.named_parameters()}``) replaces
-    the parameters, so gradients can be held against ``jax.grad``'s."""
+    params tree ({"denoiser": ..., "conditioner": ...}, with a room-mask
+    model's {"feature_extractor": ...}; Flax layouts).  ``values`` (keyed
+    by ``scene.networks`` state_dict names, e.g. ``{n: p.grad for n, p in
+    scene.networks.named_parameters()}``) replaces the parameters, so
+    gradients can be held against ``jax.grad``'s.  The extractor's frozen
+    statistics are not parameters: :func:`scene_batch_stats` gives them."""
     if values is None:
         values = scene.networks.state_dict()
     den = {k[len("denoiser."):]: v for k, v in values.items() if k.startswith("denoiser.")}
@@ -257,6 +318,25 @@ def scene_tree(scene, values: Optional[Mapping[str, torch.Tensor]] = None) -> Di
         if k.startswith("conditioner."):
             path, kind = _CONDITIONER[k[len("conditioner."):]]
             _set(tree["conditioner"], path, _to_flax_layout(v.detach(), kind))
+        elif k.startswith("feature_extractor."):
+            collection, path, kind = _extractor_key(k[len("feature_extractor."):])
+            if collection == "params":
+                a = v.detach().permute(2, 3, 1, 0) if kind == "conv2d" else \
+                    _to_flax_layout(v.detach(), kind)
+                _set(tree.setdefault("feature_extractor", {}), path, a)
+    return tree
+
+
+def scene_batch_stats(scene) -> Dict[str, Any]:
+    """A port room-mask model's frozen BatchNorm statistics as the JAX
+    ``batch_stats`` collection ({"feature_extractor": {...: {"mean",
+    "var"}}}); empty without an extractor."""
+    tree: Dict[str, Any] = {}
+    if scene.feature_extractor is not None:
+        for k, v in scene.feature_extractor.state_dict().items():
+            collection, path, _ = _extractor_key(k)
+            if collection == "batch_stats":
+                _set(tree.setdefault("feature_extractor", {}), path, v.detach())
     return tree
 
 
@@ -324,12 +404,25 @@ def load_jax_autoencoder(model: torch.nn.Module, variables: Dict[str, Any]) -> N
     model.load_state_dict(sd, strict=True)
 
 
+# FrozenBatchNorm2d.freeze bakes the BatchNorm eps into running_var and the
+# reference's frozen forward adds none; the port's forward adds 1e-5
+_FBN_EPS = 1e-5
+
+
 def reference_to_scene_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """A reference DiffusionSceneLayout_DDPM state_dict -> ``scene.networks``
     keys: ``diffusion.model.*`` -> ``denoiser.*`` (the port's Unet1D carries
     the reference names), the instance, partial and arrange heads and the
-    text projection ``fc_text_f`` -> ``conditioner.*``.  Other keys
-    (room-mask extractor, frozen text encoders) raise: those are not
+    text and room projections ``fc_text_f``, ``fc_room_f`` ->
+    ``conditioner.*``, and the room-mask extractor's
+    ``feature_extractor._feature_extractor.*`` (ResNet18; AlexNet's
+    ``features.*``) and ``feature_extractor._fc.*`` (AlexNet) ->
+    ``feature_extractor.*``.  Each frozen ``running_var`` has the eps its
+    freeze baked in taken out (minus 1e-5 in f64, clamped at 0, as the JAX
+    package's ``convert_feature_extractor`` does), so the port's forward,
+    which adds 1e-5, computes the reference's affine.  The extractor's
+    ``num_batches_tracked`` and torchvision's unused AlexNet ``classifier``
+    are dropped.  Other keys (frozen text encoders) raise: those are not
     ported."""
     out = {}
     for key, val in state_dict.items():
@@ -337,6 +430,16 @@ def reference_to_scene_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, to
             out["denoiser." + key[len("diffusion.model."):]] = val
         elif key in _CONDITIONER:
             out["conditioner." + key] = val
+        elif key.startswith("feature_extractor."):
+            sub = key[len("feature_extractor."):]
+            sub = sub[len("_feature_extractor."):] if sub.startswith("_feature_extractor.") \
+                else sub.replace("_fc.", "fc.", 1)
+            if sub.endswith("num_batches_tracked") or sub.startswith("classifier."):
+                continue
+            if sub.endswith("running_var"):
+                var = np.asarray(torch.as_tensor(val).cpu().numpy(), np.float64) - _FBN_EPS
+                val = torch.from_numpy(np.maximum(var, 0.0).astype(np.float32))
+            out["feature_extractor." + sub] = val
         else:
             raise KeyError(f"unmapped scene-model key: {key}")
     return out

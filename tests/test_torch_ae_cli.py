@@ -105,11 +105,14 @@ def test_jax_pickled_catalog_loads_through_the_port(catalog):
 
 
 def test_unpickler_refuses_other_jax_package_classes(tmp_path):
-    from diffuscene_tpu.data.raw import ModelInfo
+    """A JAX-package class outside data/raw.py and data/threed_future.py (here
+    the encoding's Bounds) has no copy the unpickler maps to: refused."""
+    from diffuscene_tpu.data.encoding import Bounds
 
     path = tmp_path / "other.pkl"
     with open(path, "wb") as f:
-        pickle.dump(ModelInfo([]), f)
+        pickle.dump(Bounds(translations=(np.zeros(3), np.ones(3)), sizes=(np.zeros(3), np.ones(3)),
+                           angles=(np.zeros(1), np.ones(1))), f)
     with pytest.raises(pickle.UnpicklingError):
         ThreedFutureNormPCDataset.from_pickled_dataset(str(path))
 

@@ -64,6 +64,22 @@ def test_port_sources_found():
                    "cli/_scene_output.py", "cli/compute_fid_scores.py",
                    "cli/improved_precision_recall.py", "eval/png.py", "eval/render.py",
                    "eval/retrieval.py", "eval/mesh_intersect.py", "eval/backbones.py",
-                   "eval/fid.py", "eval/ipr.py"):
+                   "eval/fid.py", "eval/ipr.py", "models/feature_extractors.py",
+                   "utils/image.py", "data/utils_io.py", "cli/preprocess_data.py",
+                   "cli/pickle_threed_future_dataset.py",
+                   "cli/pickle_threed_future_pointcloud.py"):
         assert f"diffuscene_tpu_torch/{module}" in paths, module
-    assert len(paths) >= 56
+    assert len(paths) >= 62
+
+
+# the raw-data pipeline and the room-mask path compute the same with or
+# without Pillow, so they import it nowhere, not even inside a function
+PILLOW_FREE = ("data/raw.py", "data/threed_front.py", "data/synthetic.py", "data/utils_io.py",
+               "utils/image.py", "models/feature_extractors.py", "cli/preprocess_data.py",
+               "cli/pickle_threed_future_dataset.py", "cli/pickle_threed_future_pointcloud.py")
+
+
+@pytest.mark.parametrize("module", PILLOW_FREE)
+def test_data_pipeline_imports_no_pillow(module):
+    roots = set(_imported_roots(os.path.join("diffuscene_tpu_torch", module)))
+    assert "PIL" not in roots, f"{module} imports PIL"

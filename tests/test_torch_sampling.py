@@ -158,7 +158,12 @@ def test_scene_config_from_flagship_yaml_matches_jax():
     got = SceneModelConfig.from_config(network)
     for field in want.__dataclass_fields__:
         assert getattr(got, field) == getattr(want, field), field
-    assert got.__dataclass_fields__.keys() == want.__dataclass_fields__.keys()
+    # the port also keeps the config's feature_extractor section, which the
+    # JAX package does not read (it always builds resnet18, 64, 1)
+    extractor = {"feature_extractor", "room_feature_size", "room_input_channels"}
+    assert got.__dataclass_fields__.keys() == want.__dataclass_fields__.keys() | extractor
+    assert (got.feature_extractor, got.room_feature_size, got.room_input_channels) == \
+        ("resnet18", 64, 1)
 
 
 def test_sampler_needs_one_noise_source_and_rejects_unported_paths():
@@ -175,5 +180,6 @@ def test_sampler_needs_one_noise_source_and_rejects_unported_paths():
         for fast in (dict(ddim=True), dict(dpm=True)):
             with pytest.raises(ValueError, match="ancestral"):
                 scene.sample(2, generator=torch.Generator(), **task, **fast)
-    with pytest.raises(NotImplementedError, match="A8"):  # room-mask conditioning
+    # room-mask conditioning needs fc_room_f's width, as in the JAX package
+    with pytest.raises(ValueError, match="latent_dim"):
         SceneDiffusion(dataclasses.replace(cfg, room_mask_condition=True), device="cpu")
