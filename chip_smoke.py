@@ -198,10 +198,33 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    engine within FORWARD_TOL of the module every 50th step, the
    extractor's features card vs CPU within DATA_FEATURE_TOL, and
    DPM-Solver++-20 from the same noise with the masks inverted giving
-   other samples.
+   other samples;
+20. the single-card modules ported last, on a synthetic cached dataset of
+   REST_SCENES rooms: (a) the flagship at full width (B=128, f32) trained
+   through cli/train_diffusion.py --native_loader (the C++ batcher) with
+   RAdam + warmup_cosine for 12 steps, --async_checkpoints and a
+   --profile_dir window of REST_PROFILE_STEPS steps (its epoch-1
+   checkpoint written by the background thread, the trace's bytes and
+   kernel events), then SGD + lambda and AdamW + step for 4 steps each
+   (median ms/step, peak memory); each loader's batches/s alone; an async
+   save of a card trainer's state equal to a blocking one while the next
+   step updates it; (b) cli/generate_diffusion.py --fused --dpm at B=256
+   from (a)'s checkpoint with --profile_dir: exactly 560 B1 and 20 B2
+   launches, every one in the trace; (c) the flagship with a learned
+   Fourier time embedding, DDPM over a REST_FOURIER_STEPS-step schedule at
+   B=64 through the 3-D engine (exactly 28 B1 and 1 B2 a step) and the
+   rows engine (19 B4 a step), each within FORWARD_TOL of the module every
+   50th step, with a 20-step profile; (d) a dim_mults (1, 2) model of dim
+   64 sampled through the module on the card, fused=True raising the
+   card's width error (naming fused=False) and fused="rows" falling back
+   to the 3-D engine and raising the same, with no launch; (e) (a)'s
+   checkpoint, a shape AE and a ResNet18 extractor with random frozen
+   statistics, on the card, through utils/export.py to the reference
+   layout and back: every tensor bit-equal.  The chamfer kernel's count,
+   set to 0 as the phase starts, must read 0 at its end.
 
 The phases run in the order 1, 2, 7, 8, 3 with 9 (one set of full-width
-models), 4, 10, 11, 15, 5, 6, 12, 13, 14, 16, 17, 18, 19.  TF32 is off for every matmul and
+models), 4, 10, 11, 15, 5, 6, 12, 13, 14, 16, 17, 18, 19, 20.  TF32 is off for every matmul and
 convolution (the references are f32; the f32 B1 kernel's split TF32 is
 three tf32 products per f32 product, not TF32 matmul).
 Phase 1 prints each kernel's registers, stack and spills from ptxas, and
@@ -221,12 +244,16 @@ and 5 (B3), ``--only-train`` phases 1 and 12-14 (with the train JSON
 line), ``--only-tasks`` phases 1 and 16 (with the tasks JSON line) and
 ``--only-text`` phases 1 and 17 (with the text JSON line),
 ``--only-eval`` phases 1 and 18 (with the eval JSON line) and
-``--only-data`` phases 1 and 19 (with the data JSON line); none of them
+``--only-data`` phases 1 and 19 (with the data JSON line) and
+``--only-rest`` phases 1 and 20 (with the rest JSON line); none of them
 prints an ok line.
 
 The line before the last is the card's name and power limit again, the one
 before it a JSON summary of the kernels, the one before that a JSON
-summary of phase 19 ("data": each pipeline CLI's seconds, the AE's
+summary of phase 20 ("rest": each optimizer's run, the loaders' batches/s,
+the async check, the traced generate, the Fourier samples, the dim_mults
+check, the export round trips), the one before that a JSON summary of
+phase 19 ("data": each pipeline CLI's seconds, the AE's
 launches, the room-mask step's card-vs-CPU agreement, ms/step, busy time,
 the extractor's share, peak memory, each sample's wall time, launches and
 worst engine gap), the one before that a JSON summary of phase 18 ("eval": the card, each CLI run's wall time and
@@ -254,7 +281,8 @@ entries carry the task samples' launches ("task_launches"), and the
 chain, ResnetBlock and set-attention entries the text samples' launches
 ("text_launches"), and the ResnetBlock and set-attention entries the
 generate command's launches of phase 18 ("eval_launches"); every entry
-carries its launches in phase 19 ("data_launches").  The
+carries its launches in phase 19 ("data_launches") and in phase 20
+("rest_launches").  The
 last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -449,9 +477,32 @@ DATA_FEATURE_TOL = 1e-5
 # f32 tracks its f64 to 1e-6) moves the gradients of the parameters below
 # such ReLUs by about 1e-3 (11 to 30e-4 on an H100 in this phase)
 DATA_EXTRACTOR_F64_TOL, DATA_EXTRACTOR_GRAD_TOL = 1e-10, 1e-2
+# phase 20, the single-card modules ported last: the flagship at full width
+# trained through cli/train_diffusion.py --native_loader on REST_SCENES
+# synthetic rooms (576 in train + val: 4 batches of 128 an epoch) with each
+# optimizer and schedule no shipped config selects: RAdam + warmup_cosine
+# for 3 epochs (12 steps) with --async_checkpoints and a --profile_dir
+# window of REST_PROFILE_STEPS steps, SGD + lambda and AdamW + step for one
+# epoch each; generate --fused --dpm at B=256 from its checkpoint with a
+# trace; the flagship with a learned Fourier time embedding sampled by
+# DDPM over a REST_FOURIER_STEPS-step schedule at B=64 through both
+# engines; a dim_mults (1, 2) model of dim 64 through the module forward;
+# the weights' export to the reference layout and back
+REST_DATA, REST_OUT, REST_SCENES = "build/smoke_rest_data", "build/smoke_rest", 640
+REST_OPTIMIZERS = (
+    ("radam", {"optimizer": "RAdam", "schedule": "warmup_cosine", "warmup_epochs": 1,
+               "min_lr": 1e-6}, 3),
+    ("sgd", {"optimizer": "SGD", "momentum": 0.9, "schedule": "lambda", "start_epoch": 1,
+             "lr_decay": 0.9}, 1),
+    ("adamw", {"optimizer": "Adam", "weight_decay": 0.01}, 1),
+)
+REST_PROFILE_STEPS, REST_LOADER_EPOCHS = 3, 2
+REST_FOURIER_STEPS, REST_FOURIER_B = 250, 64
+REST_MULTS_DIM, REST_MULTS_STEPS, REST_MULTS_B = 64, 50, 16
 # the short checks: phase 1 and one kernel's phase, no ok line
 ONLY = ("--only-resblock", "--only-chain", "--only-attention", "--only-chamfer", "--only-train",
-        "--only-f32-engine", "--only-tasks", "--only-text", "--only-eval", "--only-data")
+        "--only-f32-engine", "--only-tasks", "--only-text", "--only-eval", "--only-data",
+        "--only-rest")
 
 
 def card_line():
@@ -1108,8 +1159,8 @@ def kernel_bound(dname, flops, nbytes):
 
 def sampling_step(torch, scene, batch, gen, fused=True, **cond):
     """One DDPM step of the ``fused`` engine (True: the 3-D engine, "rows":
-    the rows engine) at t = T - 1 on fresh inputs (the step a 1000-step
-    sample runs T times), as a callable; a text model's step with the
+    the rows engine) at the schedule's last t on fresh inputs (the step a
+    sample runs as many times as the schedule has steps), as a callable; a text model's step with the
     contexts of ``text_emb``, a room-mask model's with the features of
     ``room_layout`` (``cond``)."""
     from diffuscene_tpu_torch.diffusion import p_sample_step
@@ -1118,7 +1169,7 @@ def sampling_step(torch, scene, batch, gen, fused=True, **cond):
     denoise = scene._denoise_fn(*scene.make_condition(batch, **cond), fused=fused)
     x_t = torch.randn(batch, 12, 62, generator=gen, device=DEV)
     noise = torch.randn(batch, 12, 62, generator=gen, device=DEV)
-    t_last = torch.full((batch,), T - 1, dtype=torch.long, device=DEV)
+    t_last = torch.full((batch,), scene.sched.num_timesteps - 1, dtype=torch.long, device=DEV)
     return lambda: p_sample_step(scene.sched, cfg.model_mean_type, cfg.model_var_type, denoise,
                                  x_t, t_last, noise, True)
 
@@ -1817,7 +1868,8 @@ def task_model(torch, config_path):
     return SceneDiffusion(cfg, device=DEV).init(torch.Generator().manual_seed(SEED))
 
 
-def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=None, **task):
+def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=None, steps=T,
+                   **task):
     """One DDPM-1000 sample of ``batch`` scenes through
     ``scene.sample(fused=fused, **task)``: with ``fused=True`` every
     ResnetBlock on B1 and mid_attn on B2, exactly 28,000 and 1,000
@@ -1828,8 +1880,10 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
     the phase fails naming the step.  The check's launches and
     cross-attention contexts are not counted and its time (measured,
     synchronised) is taken out of the wall time.  ``step`` (default: the
-    task's step, task_step) is the step a 20-step profile times.  Returns
-    (the sample, a summary with the cross-attention contexts made)."""
+    task's step, task_step) is the step a 20-step profile times; ``steps``
+    is the model's schedule length (T unless its config says otherwise).
+    Returns (the sample, a summary with the cross-attention contexts
+    made)."""
     from diffuscene_tpu_torch.models import inference as inf
     from diffuscene_tpu_torch.ops import attention as at
     from diffuscene_tpu_torch.ops import fused_level as fl
@@ -1839,7 +1893,7 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
     net, tol = scene.denoiser, FORWARD_TOL["float32"]
     counters = ((fl.apply_chain,) if fused == "rows"
                 else (rb.fused_resnet_block, at.fused_set_attention))
-    expected = (19 * T,) if fused == "rows" else (28 * T, T)
+    expected = (19 * steps,) if fused == "rows" else (28 * steps, steps)
     make_fn = scene._denoise_fn
     errs, info = [], {"step": 0, "check_s": 0.0}
 
@@ -1847,7 +1901,7 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
         fn = make_fn(condition, condition_cross, fused=fused)
         module = make_fn(condition, condition_cross, fused=False)
         made = inf.cross_context.calls
-        prep = inf.prepare_inference_params(net, denoiser_tree(net), num_timesteps=T)
+        prep = inf.prepare_inference_params(net, denoiser_tree(net), num_timesteps=steps)
         ctx = inf.precompute_conditioning(net, prep, condition, condition_cross)
         inf.cross_context.calls = made
         films = list(ctx["film_c"].values())
@@ -1903,13 +1957,13 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
     bad = [s for (s, _), e in zip(errs, worst.tolist()) if not e <= tol]
     finite = bool(torch.isfinite(out).all())
     engine = "rows engine" if fused == "rows" else "3-D engine"
-    summary = {"B": batch, "steps": T, "wall_s": wall, "scenes_per_s": batch / wall,
+    summary = {"B": batch, "steps": steps, "wall_s": wall, "scenes_per_s": batch / wall,
                "check_s": info["check_s"], "launches": list(launches),
                "cross_contexts": contexts, "checked_steps": len(errs),
                "worst_engine_vs_module": worst.max().item(),
                "film_spread": info["film_spread"],
                "film_rows_materialized": info["film_rows_materialized"]}
-    print(f"{label}: {T}-step DDPM, B={batch}, f32, fused={fused!r}: shape="
+    print(f"{label}: {steps}-step DDPM, B={batch}, f32, fused={fused!r}: shape="
           f"{tuple(out.shape)} finite={finite} launches={list(launches)} (expected "
           f"{list(expected)}) cross_contexts={contexts} wall_s={wall:.3f} scenes_per_s="
           f"{batch / wall:.3f} (the {len(errs)} checks' {info['check_s']:.3f} s taken out); "
@@ -1920,7 +1974,7 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
     if bad:
         i = bad[0]
         raise RuntimeError(f"{label}: the {engine} is {worst[i // TASK_CHECK_EVERY].item():.3e} "
-                           f"from the module at step {i} (t={T - 1 - i})")
+                           f"from the module at step {i} (t={steps - 1 - i})")
     if tuple(out.shape) != (batch, 12, 62) or not finite:
         raise RuntimeError(f"{label}: the sample is malformed")
     if launches != expected:
@@ -1929,7 +1983,7 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
         raise RuntimeError(f"{label}: the cond-FiLM rows are not materialized")
     print(f"profile: f32 {label} step, B={batch}", flush=True)
     prof = profile_steps(torch, step or task_step(torch, scene, **task), SAMPLE_PROFILE_STEPS,
-                         1e3 * wall / T,
+                         1e3 * wall / steps,
                          named=ROWS_KERNELS["float32"] if fused == "rows"
                          else ENGINE_KERNELS["float32"])
     summary.update(busy_ms=prof["busy_ms"], idle_share=prof["idle_share"],
@@ -2994,6 +3048,377 @@ def phase_data(torch, ch, card):
     return out
 
 
+def rest_config(name, training=None, net_kwargs=None, diffusion=None):
+    """The flagship config over REST_DATA with ``training``, ``net_kwargs``
+    and ``diffusion_kwargs`` keys set (replaced where the file has them,
+    added under the section where it does not), written to REST_OUT; its
+    path.  The card's machine has no YAML writer: the keys are scalars, set
+    line by line."""
+    import re
+
+    path = synthetic_config(FLAGSHIP_CONFIG, REST_DATA, REST_OUT, name)
+    with open(path) as f:
+        text = f.read()
+    for section, indent, keys in (("training", "  ", training), ("net_kwargs", "    ", net_kwargs),
+                                  ("diffusion_kwargs", "    ", diffusion)):
+        for key, value in (keys or {}).items():
+            value = str(value).lower() if isinstance(value, bool) else value
+            text, n = re.subn(rf"^({indent}{key}:).*$", rf"\g<1> {value}", text, flags=re.M)
+            if n == 0:
+                text, n = re.subn(rf"^(\s*{section}:)$", rf"\g<1>\n{indent}{key}: {value}", text,
+                                  flags=re.M)
+            if n != 1:
+                raise RuntimeError(f"{FLAGSHIP_CONFIG}: cannot set {section}.{key}")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def trace_kernels(folder):
+    """The one Chrome trace in ``folder``: (its bytes, {kernel name: events})."""
+    names = [f for f in os.listdir(folder) if f.endswith(".pt.trace.json")]
+    if len(names) != 1:
+        raise RuntimeError(f"{folder}: expected one trace, found {names}")
+    path = os.path.join(folder, names[0])
+    with open(path) as f:
+        events = json.load(f).get("traceEvents", [])
+    counts = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            counts[e["name"]] = counts.get(e["name"], 0) + 1
+    return os.path.getsize(path), counts
+
+
+def phase_rest_train(torch, card, numpy_ms=None):
+    """Phase 20 (a): the flagship at full width (B=128, f32) trained by
+    cli/train_diffusion.py --native_loader with each REST_OPTIMIZERS entry;
+    the RAdam run also with --async_checkpoints and --profile_dir /
+    --profile_steps: its median ms/step outside the trace window, peak
+    memory, the trace's size and kernels, its epoch-1 checkpoint written by
+    the background thread; the native loader's batches/s alone beside the
+    numpy DataLoader's; then an async save of a card trainer's state
+    against a blocking one while the next step updates it."""
+    from diffuscene_tpu_torch.cli import train_diffusion
+    from diffuscene_tpu_torch.data.factory import get_dataset_raw_and_encoded
+    from diffuscene_tpu_torch.data.loader import DataLoader, PackedDataLoader
+    from diffuscene_tpu_torch.train.trainer import Trainer
+    from diffuscene_tpu_torch.utils import checkpoint as ckpt
+    from diffuscene_tpu_torch.utils.config import load_config
+
+    out = {}
+    step_s = []
+    orig = Trainer.train_step
+
+    def timed(self, *a, **k):
+        t0 = time.perf_counter()
+        m = orig(self, *a, **k)             # ends in its one metrics transfer
+        step_s.append(time.perf_counter() - t0)
+        return m
+
+    Trainer.train_step = timed
+    try:
+        for tag, keys, epochs in REST_OPTIMIZERS:
+            cfg_path = rest_config(f"rest_{tag}.yaml", dict(keys, save_frequency=1))
+            argv = [cfg_path, REST_OUT, "--experiment_tag", tag, "--seed", str(SEED), "--epochs",
+                    str(epochs), "--native_loader"]
+            prof = os.path.join(REST_OUT, f"trace_{tag}")
+            if tag == "radam":
+                argv += ["--async_checkpoints", "--profile_dir", prof,
+                         "--profile_steps", str(REST_PROFILE_STEPS)]
+            del step_s[:]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            train_diffusion.main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            exp = os.path.join(REST_OUT, tag)
+            state, epoch = ckpt.load_checkpoint(exp)
+            steps = 4 * epochs
+            ok = (epoch == epochs - 1 and state["step"] == steps and len(step_s) == steps
+                  and state["optimizer"]["count"] == steps
+                  and all(bool(torch.isfinite(v).all()) for v in state["model"].values()))
+            # the steps the trace window saw (ticks start .. start + length) ran slower
+            window = range(4, 4 + REST_PROFILE_STEPS) if tag == "radam" else range(0)
+            kept = sorted(v for i, v in enumerate(step_s) if i not in window and i > 0)
+            info = {"keys": keys, "epochs": epochs, "steps": steps, "wall_s": wall,
+                    "ms_per_step": 1e3 * kept[len(kept) // 2],
+                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 2 ** 30}
+            if tag == "radam":
+                early, _ = ckpt.load_checkpoint(exp, epoch=1)
+                size, kernels = trace_kernels(prof)
+                top = sorted(kernels.items(), key=lambda kv: -kv[1])[:6]
+                info.update(async_epoch1_step=early["step"], trace_bytes=size,
+                            trace_kernel_events=sum(kernels.values()),
+                            trace_top=[[k[:60], v] for k, v in top])
+                ok = ok and early["step"] == 8 and sum(kernels.values()) > 0
+                out["exp"] = exp
+            print(f"rest train {tag} ({keys}): train_diffusion --native_loader "
+                  f"{' '.join(argv[9:])}: {steps} steps in {wall:.3f} s, ms/step "
+                  f"{info['ms_per_step']:.3f} (median, host clock, the trace window and the "
+                  f"first step left out; phase 12's numpy-loader flagship {numpy_ms}), peak "
+                  f"{info['peak_mem_gb']:.3f} GB, final loss finite; "
+                  + (f"async epoch-1 checkpoint at step {info['async_epoch1_step']}, trace "
+                     f"{info['trace_bytes']} bytes with {info['trace_kernel_events']} kernel "
+                     f"events, most {info['trace_top'][:3]} " if tag == "radam" else "")
+                  + f"{'ok' if ok else 'FAIL'} | {card}", flush=True)
+            if not ok:
+                raise RuntimeError(f"rest train {tag}: {info}, checkpoint epoch {epoch} step "
+                                   f"{state['step']}, {len(step_s)} timed steps")
+            out[tag] = info
+    finally:
+        Trainer.train_step = orig
+
+    # the loader alone: batches/s over REST_LOADER_EPOCHS epochs, native vs numpy
+    cfg = load_config(rest_config("rest_loader.yaml"))
+    raw, ds = get_dataset_raw_and_encoded(cfg["data"], augmentations=cfg["data"]["augmentations"],
+                                          split=cfg["training"]["splits"], seed=SEED)
+    rates, bsz = {}, int(cfg["training"]["batch_size"])
+    for name, loader in (("native", PackedDataLoader(raw, ds.bounds, ds.max_length, ds.n_classes,
+                                                     bsz, seed=SEED)),
+                         ("numpy", DataLoader(ds, bsz, shuffle=True, seed=SEED))):
+        n, t0 = 0, time.perf_counter()
+        for _ in range(REST_LOADER_EPOCHS):
+            n += sum(1 for _ in loader)
+        rates[name] = n / (time.perf_counter() - t0)
+    out["loader_batches_per_s"] = rates
+    print(f"rest loader (B={bsz}, this host): native {rates['native']:.2f} batches/s, numpy "
+          f"{rates['numpy']:.2f} batches/s; a RAdam step takes {out['radam']['ms_per_step']:.1f} "
+          f"ms, so the native loader needs {1e3 / rates['native']:.1f} ms a batch", flush=True)
+
+    # an async save against a blocking one, the trainer stepping on meanwhile
+    _, bsz, tr = scene_trainer(torch, rest_config("rest_async.yaml", REST_OPTIMIZERS[2][1]),
+                               DEV, REST_DATA)
+    batches = PackedDataLoader(raw, ds.bounds, ds.max_length, ds.n_classes, bsz,
+                               seed=SEED).infinite()
+    tr.train_step(tr.put_batch(next(batches)))
+    state = tr.state_dict()
+    a, b = os.path.join(REST_OUT, "async_a"), os.path.join(REST_OUT, "async_b")
+    ckpt.save_checkpoint(state, b, 0, blocking=True)
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(state, a, 0, blocking=False)
+    returned_ms = 1e3 * (time.perf_counter() - t0)
+    tr.train_step(tr.put_batch(next(batches)))          # updates the saved tensors in place
+    ckpt.wait_for_checkpoints()
+    sa, _ = ckpt.load_checkpoint(a)
+    sb, _ = ckpt.load_checkpoint(b)
+    same = all(torch.equal(sa["model"][k], v) for k, v in sb["model"].items()) and all(
+        torch.equal(x, y) for sx, sy in zip(sa["optimizer"]["slots"], sb["optimizer"]["slots"])
+        for x, y in zip(sx, sy)) and sa["step"] == sb["step"] == 1
+    moved = not torch.equal(sa["model"][tr.names[0]], tr.params[0].detach().cpu())
+    print(f"rest async checkpoint: returned after {returned_ms:.1f} ms, the file equals a "
+          f"blocking save tensor for tensor: {same}, the trainer moved on meanwhile: {moved} "
+          f"{'ok' if same and moved else 'FAIL'}", flush=True)
+    if not (same and moved):
+        raise RuntimeError("rest: the async checkpoint differs from the blocking one")
+    out["async_equal"], out["async_return_ms"] = same, returned_ms
+    del tr
+    return out
+
+
+def phase_rest_generate(torch, exp, card):
+    """Phase 20 (b): cli/generate_diffusion.py --fused --dpm at B=256 from
+    (a)'s RAdam checkpoint with --profile_dir: exactly 560 B1 and 20 B2
+    launches, and the trace holds every one of them."""
+    from diffuscene_tpu_torch.cli import generate_diffusion
+
+    cfg_path = rest_config("rest_generate.yaml")
+    gen_dir, prof = os.path.join(REST_OUT, "generated"), os.path.join(REST_OUT, "trace_generate")
+    stats, launches, wall = eval_cli_run(torch, generate_diffusion, [
+        cfg_path, gen_dir, "--weight_file", exp, "--n_sequences", str(GENERATE_B),
+        "--batch_size", str(GENERATE_B), "--fused", "--dpm", "--dpm_steps", str(DPM_STEPS),
+        "--profile_dir", prof])
+    check_launches("rest generate", launches, (28 * DPM_STEPS, DPM_STEPS))
+    size, kernels = trace_kernels(prof)
+    traced = tuple(sum(v for k, v in kernels.items() if match in k)
+                   for _, match in ENGINE_KERNELS["float32"])
+    with open(os.path.join(gen_dir, "timing.json")) as f:
+        timing = json.load(f)
+    ok = traced == launches and stats["n_scenes"] == GENERATE_B
+    print(f"rest generate --fused --dpm --profile_dir, B={GENERATE_B}: wall {wall:.3f} s "
+          f"(sampling {timing['sample_s']:.3f} s, traced), launches B1={launches[0]} "
+          f"B2={launches[1]}, the trace ({size} bytes) holds B1 {traced[0]} and B2 {traced[1]} "
+          f"{'ok' if ok else 'FAIL'} | {card}", flush=True)
+    if not ok:
+        raise RuntimeError(f"rest generate: traced {traced}, launched {launches}")
+    return {"wall_s": wall, "sample_s": timing["sample_s"], "launches": list(launches),
+            "traced": list(traced), "trace_bytes": size}
+
+
+def rest_scene(torch, net_kwargs, time_num):
+    """The flagship network with ``net_kwargs`` and a ``time_num``-step
+    schedule, on the card, weights from the seed."""
+    from diffuscene_tpu_torch.models import SceneDiffusion, SceneModelConfig
+    from diffuscene_tpu_torch.utils.config import load_config
+
+    net = load_config(FLAGSHIP_CONFIG)["network"]
+    net = dict(net, net_kwargs=dict(net["net_kwargs"], **net_kwargs),
+               diffusion_kwargs=dict(net["diffusion_kwargs"], time_num=time_num))
+    return SceneDiffusion(SceneModelConfig.from_config(net), device=DEV).init(
+        torch.Generator().manual_seed(SEED))
+
+
+def phase_rest_models(torch, card):
+    """Phase 20 (c) and (d): the flagship with learned_sinusoidal_cond
+    sampled by DDPM over a REST_FOURIER_STEPS-step schedule at B=64 through
+    the 3-D engine (exactly 28 B1 and 1 B2 a step) and the rows engine (19
+    B4 a step), each within FORWARD_TOL of the module every
+    TASK_CHECK_EVERY steps; then a dim_mults (1, 2) model of dim 64 samples
+    through the module forward, fused=True raises the narrowing error
+    naming fused=False, and fused="rows" raises the same (its chains do not
+    take unequal widths, so it falls back to the 3-D engine, as in JAX),
+    with no kernel launched."""
+    from diffuscene_tpu_torch.ops import attention as at
+    from diffuscene_tpu_torch.ops import fused_level as fl
+    from diffuscene_tpu_torch.ops import fused_resblock as rb
+
+    out = {}
+    scene = rest_scene(torch, {"learned_sinusoidal_cond": True}, REST_FOURIER_STEPS)
+    if tuple(scene.denoiser.sinu_pos_emb.weights.shape) != (8,):
+        raise RuntimeError("rest: the Fourier model has no learned embedding")
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 50)
+    for label, fused in (("fourier_3d", True), ("fourier_rows", "rows")):
+        _, out[label] = checked_sample(
+            torch, scene, f"rest {label}", card, batch=REST_FOURIER_B, fused=fused,
+            step=sampling_step(torch, scene, REST_FOURIER_B, gen, fused=fused),
+            steps=REST_FOURIER_STEPS)
+    del scene
+    small = rest_scene(torch, {"dim": REST_MULTS_DIM, "dim_mults": [1, 2]}, REST_MULTS_STEPS)
+    counters = (rb.fused_resnet_block, at.fused_set_attention, fl.apply_chain)
+    for c in counters:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x = small.sample(REST_MULTS_B, generator=torch.Generator(device=DEV).manual_seed(SEED),
+                     fused=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    errors = {}
+    for fused in (True, "rows"):
+        try:
+            small.sample(REST_MULTS_B, generator=torch.Generator(device=DEV).manual_seed(SEED),
+                         fused=fused)
+        except ValueError as e:
+            errors[str(fused)] = str(e)
+    launched = [c.launches for c in counters]
+    ok = (tuple(x.shape) == (REST_MULTS_B, 12, 62) and bool(torch.isfinite(x).all())
+          and len(errors) == 2 and all("fused=False" in e for e in errors.values())
+          and errors["True"] == errors["rows"] and launched == [0, 0, 0])
+    print(f"rest dim_mults (1, 2), dim {REST_MULTS_DIM}: {REST_MULTS_STEPS}-step DDPM of "
+          f"{REST_MULTS_B} scenes through the module on the card in {wall:.3f} s, finite; "
+          f"fused=True raises {errors.get('True')!r}; fused='rows' falls back to the 3-D engine "
+          f"and raises the same: {errors.get('True') == errors.get('rows')}; launches "
+          f"{launched} {'ok' if ok else 'FAIL'} | {card}", flush=True)
+    if not ok:
+        raise RuntimeError(f"rest dim_mults: {errors}, launches {launched}")
+    out["mults12"] = {"wall_s": wall, "error": errors["True"]}
+    return out
+
+
+def reference_layout(torch, sd, kind):
+    """A reference-layout template of a port state_dict: the scene model's
+    ``diffusion.model.*`` and head keys, or a ResNet18 wrapper's
+    ``_feature_extractor.*`` with each frozen running_var's eps baked in;
+    torch's num_batches_tracked beside each BatchNorm of the autoencoder and
+    the extractor (the export passes those through)."""
+    out = {}
+    for k, v in sd.items():
+        v = v.detach().cpu()
+        if kind == "scene":
+            k = ("diffusion.model." + k[len("denoiser."):] if k.startswith("denoiser.")
+                 else k[len("conditioner."):])
+        elif kind == "resnet18":
+            k = "_feature_extractor." + k
+            v = v + 1e-5 if k.endswith("running_var") else v
+        out[k] = v
+        if kind != "scene" and k.endswith("running_var"):
+            out[k[: -len("running_var")] + "num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+    return out
+
+
+def phase_rest_export(torch, exp, card):
+    """Phase 20 (e): (a)'s RAdam checkpoint, a shape autoencoder and a
+    ResNet18 extractor with random frozen statistics, each on the card,
+    through utils/export.py to the reference layout and back through the
+    port's loaders: every tensor bit-equal."""
+    from diffuscene_tpu_torch.models import KLAutoEncoder, SceneDiffusion, SceneModelConfig
+    from diffuscene_tpu_torch.models.autoencoder import init_parameters as ae_init
+    from diffuscene_tpu_torch.models.feature_extractors import get_feature_extractor
+    from diffuscene_tpu_torch.utils import export
+    from diffuscene_tpu_torch.utils.checkpoint import load_model_weights
+    from diffuscene_tpu_torch.utils.config import load_config
+    from diffuscene_tpu_torch.utils.convert import (reference_to_extractor_state_dict,
+                                                    reference_to_scene_state_dict)
+
+    scene = SceneDiffusion(SceneModelConfig.from_config(load_config(FLAGSHIP_CONFIG)["network"]),
+                           device=DEV)
+    scene.networks.load_state_dict(load_model_weights(exp, ema=False))
+    ae = KLAutoEncoder(latent_dim=32, device=DEV)
+    ae_init(ae, torch.Generator().manual_seed(SEED))
+    ext = get_feature_extractor("resnet18", feature_size=64, input_channels=1, device=DEV)
+    g = torch.Generator().manual_seed(SEED + 60)
+    with torch.no_grad():
+        for m in (ae, ext):
+            for k, v in m.state_dict().items():
+                if k.endswith("running_var"):
+                    v.copy_(0.5 + torch.rand(v.shape, generator=g))
+                elif k.endswith("running_mean") or (m is ext and v.is_floating_point()):
+                    v.copy_(0.1 * torch.randn(v.shape, generator=g))
+    cases = (("scene", scene.networks.state_dict(), export.export_scene_model,
+              reference_to_scene_state_dict),
+             ("autoencoder", ae.state_dict(), export.export_autoencoder,
+              lambda sd: {k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")}),
+             ("resnet18", ext.state_dict(), export.export_feature_extractor,
+              reference_to_extractor_state_dict))
+    out = {}
+    for name, sd, fwd_export, load in cases:
+        t0 = time.perf_counter()
+        ref = fwd_export(sd, reference_layout(torch, sd, name))
+        back = load(ref)
+        wall = time.perf_counter() - t0
+        keys = [k for k in sd if not k.endswith("num_batches_tracked")]
+        same = sorted(back) == sorted(keys) and all(
+            torch.equal(back[k].to(DEV), sd[k]) for k in keys)
+        print(f"rest export {name}: {len(keys)} tensors on the card -> reference layout "
+              f"({len(ref)} keys) -> back, bit-equal: {same} ({wall:.3f} s) "
+              f"{'ok' if same else 'FAIL'} | {card}", flush=True)
+        if not same:
+            bad = [k for k in keys if k not in back or not torch.equal(back[k].to(DEV), sd[k])]
+            raise RuntimeError(f"rest export {name}: {bad[:5]} differ")
+        out[name] = {"tensors": len(keys), "reference_keys": len(ref), "s": wall}
+    return out
+
+
+def phase_rest(torch, card, numpy_ms=None):
+    """Phase 20: the single-card modules ported last, on a synthetic cached
+    dataset made from the seed."""
+    import shutil
+
+    from diffuscene_tpu_torch.data import make_synthetic_cached_dataset
+    from diffuscene_tpu_torch.ops import chamfer as ch
+
+    t0 = time.perf_counter()
+    ch.directed_nn.launches = 0     # no scene-model path of phase 20 runs the chamfer
+    for d in (REST_DATA, REST_OUT):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(REST_OUT)
+    make_synthetic_cached_dataset(REST_DATA, n_scenes=REST_SCENES, seed=SEED)
+    out = {"card": card, "train": phase_rest_train(torch, card, numpy_ms)}
+    exp = out["train"].pop("exp")
+    torch.cuda.empty_cache()
+    out["generate"] = phase_rest_generate(torch, exp, card)
+    torch.cuda.empty_cache()
+    out["samples"] = phase_rest_models(torch, card)
+    torch.cuda.empty_cache()
+    out["export"] = phase_rest_export(torch, exp, card)
+    out["chamfer_launches"] = ch.directed_nn.launches
+    if out["chamfer_launches"] != 0:
+        raise RuntimeError(f"rest: {out['chamfer_launches']} chamfer-kernel launches, expected 0")
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"rest: phase 20 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def profile_steps(torch, step, n, step_ms, named=()):
     """Where a step's time goes: torch.profiler over ``n`` steady steps;
     device busy time (the sum of the kernels' times, one stream), the idle
@@ -3109,6 +3534,10 @@ def main(argv):
         print(json.dumps({"data": phase_data(torch, ch, card)}))
         print(card_line())
         return 0
+    if only == "--only-rest":       # the single-card modules ported last alone: phase 20
+        print(json.dumps({"rest": phase_rest(torch, card)}))
+        print(card_line())
+        return 0
     if only == "--only-f32-engine":  # the flagship config's own dtype: phases 3 + 9 and 15, f32
         scene32 = phase_forward(torch, torch.float32)
         phase_rows_sample(torch, scene32, card)
@@ -3181,12 +3610,20 @@ def main(argv):
     # B2 in generate, B4 through the rows engine)
     data = phase_data(torch, ch, card)
     data_samples = data["samples"]
+    torch.cuda.empty_cache()
+    # this slice's main paths: the native loader, the optimizers, the trace
+    # windows and async checkpoints in the CLIs (B1 and B2 in generate), the
+    # Fourier time embedding through both engines (B1, B2 and B4), unequal
+    # dim_mults, the export
+    rest = phase_rest(torch, card, numpy_ms=train["flagship"]["ms_per_step"])
+    rest_samples = rest["samples"]
 
     print(json.dumps({"train": train}))
     print(json.dumps({"tasks": tasks}))
     print(json.dumps({"text": text}))
     print(json.dumps({"eval": ev}))
     print(json.dumps({"data": data}))
+    print(json.dumps({"rest": rest}))
     print(json.dumps({"kernels": [{
         "name": "fused_chain",
         "route": "cuda",
@@ -3207,6 +3644,7 @@ def main(argv):
         "f32_bound_ms": chain32_bound_ms,
         "text_launches": text_launches["ddpm_rows"][0],
         "data_launches": data_samples["ddpm_rows"]["launches"][0],
+        "rest_launches": {"fourier_rows": rest_samples["fourier_rows"]["launches"][0]},
     }, {
         "name": "chamfer_nn",
         "route": "cuda",
@@ -3221,6 +3659,7 @@ def main(argv):
         "bound_by": cham["bound_by"],
         "library_ms": cham["library_ms"],
         "data_launches": data["pipeline"]["ae_launches"],
+        "rest_launches": rest["chamfer_launches"],
     }, {
         "name": "fused_resblock",
         "route": "cuda",
@@ -3243,6 +3682,8 @@ def main(argv):
         "text_launches": text_launches["ddpm_3d"][0],
         "eval_launches": eval_launches[0],
         "data_launches": data_samples["generate"]["launches"][0],
+        "rest_launches": {"generate": rest["generate"]["launches"][0],
+                          "fourier_3d": rest_samples["fourier_3d"]["launches"][0]},
     }, {
         "name": "set_attention",
         "route": "cuda",
@@ -3265,6 +3706,8 @@ def main(argv):
         "text_launches": text_launches["ddpm_3d"][1],
         "eval_launches": eval_launches[1],
         "data_launches": data_samples["generate"]["launches"][1],
+        "rest_launches": {"generate": rest["generate"]["launches"][1],
+                          "fourier_3d": rest_samples["fourier_3d"]["launches"][1]},
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -45,8 +45,10 @@ plan.
         --weight_file out/<tag> --n_sequences 1000 --batch_size 256 \\
         --clip_denoised --fused --render --compute_intersec
 
-``--profile_dir`` raises (use torch.profiler around ``SceneDiffusion.sample``,
-as chip_smoke.py does).
+``--profile_dir DIR`` writes a ``torch.profiler`` trace (host and CUDA
+activity, ``utils/profiling.py:TraceWindow``) of every sampling batch from
+the second on into DIR, or of the only batch when there is one, as the JAX
+CLI captures from its first batch past the compile.
 """
 from __future__ import annotations
 
@@ -56,11 +58,6 @@ import os
 import time
 
 import numpy as np
-
-_REFUSED = {
-    "profile_dir": "use torch.profiler around SceneDiffusion.sample (chip_smoke.py does)",
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     from ._scene_output import add_scene_output_args
@@ -95,7 +92,9 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--render_top2down", dest="render", action="store_true",
                         help="alias for --render")
     add_scene_output_args(parser)
-    parser.add_argument("--profile_dir", default=None, help="raises: use torch.profiler")
+    parser.add_argument("--profile_dir", default=None,
+                        help="write a torch.profiler trace of the sampling batches from the "
+                        "second on (of the only one when there is one) to this directory")
     parser.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     return parser
 
@@ -104,9 +103,6 @@ def main(argv=None):
     from ._scene_output import SceneOutput, resolve_scene_output_args
 
     args = resolve_scene_output_args(build_parser().parse_args(argv))
-    for flag, why in _REFUSED.items():
-        if getattr(args, flag):
-            raise SystemExit(f"--{flag}: {why}")
     if (args.compute_intersec and args.judge_mesh_intersec
             and not args.path_to_pickled_3d_futute_models):
         raise SystemExit("--judge_mesh_intersec needs a retrieved catalog "
@@ -123,6 +119,7 @@ def main(argv=None):
     from ..utils.checkpoint import load_model_weights
     from ..utils.config import load_config
     from ..utils.convert import reference_to_scene_state_dict
+    from ..utils.profiling import TraceWindow
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -176,9 +173,12 @@ def main(argv=None):
         return int(idx_rng.integers(len(eval_ds)))
 
     gen = torch.Generator(device=scene.device).manual_seed(args.seed)
+    total_batches = -(-args.n_sequences // args.batch_size)
+    trace_window = (TraceWindow(args.profile_dir, start=min(1, total_batches - 1), length=10**9)
+                    if args.profile_dir else None)
     wall = {"sample_s": 0.0, "render_s": 0.0, "metrics_s": 0.0}
     all_boxes = []
-    n_done = 0
+    n_done = n_batches = 0
     while n_done < args.n_sequences:
         batch_indices = [cond_index(n_done + i) for i in range(args.batch_size)]
         text_emb = room_layout = None
@@ -197,6 +197,8 @@ def main(argv=None):
                 text_emb = stacked("desc_emb")
             if cfg.room_mask_condition:
                 room_layout = stacked("room_layout")
+        if trace_window is not None:
+            trace_window.tick(n_batches)
         t0 = time.perf_counter()
         samples = scene.sample(args.batch_size, generator=gen, clip_denoised=args.clip_denoised,
                                fused=args.fused, ddim=args.ddim, ddim_steps=args.ddim_steps,
@@ -206,6 +208,7 @@ def main(argv=None):
         samples = samples[:take].float().cpu().numpy()
         t1 = time.perf_counter()
         wall["sample_s"] += t1 - t0
+        n_batches += 1
         for i, boxes in enumerate(split_network_samples(scene.spec, samples)):
             boxes = eval_ds.post_process(boxes)
             all_boxes.append(boxes)
@@ -228,6 +231,8 @@ def main(argv=None):
         wall["render_s"] += time.perf_counter() - t1
         n_done += take
         print(f"sampled {n_done}/{args.n_sequences}")
+    if trace_window is not None:
+        trace_window.close()
 
     # metrics (generate_diffusion.py:394-429 + the categorical KL at :44)
     t0 = time.perf_counter()

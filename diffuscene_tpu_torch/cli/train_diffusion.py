@@ -15,12 +15,19 @@ batch's (B, 1, H, W) ``room_layout``; its extractor is the config's
 the JAX CLI ignores for a ResNet18 of 64 features over 1 channel (the
 shipped values).  The f32 configs train with TF32 off for matmuls and cuDNN
 convolutions (the JAX package's f32 products are full f32); the bf16
-configs (``compute_dtype: bfloat16``) run their matmuls in bf16 either way.  Flags of the JAX CLI that the port does not
-have raise: ``--native_loader`` (ROADMAP A11), ``--with_wandb_logger`` (W&B
-needs a network), ``--mixed_precision`` (measured slower in the JAX
-package; not ported), ``--async_checkpoints`` and ``--profile_dir``.  A
-warm start from a reference ``.pt`` starts the EMA from the loaded weights
-(the JAX CLI leaves it at the random init).
+configs (``compute_dtype: bfloat16``) run their matmuls in bf16 either way.
+
+``--native_loader`` feeds packed targets from the native C++ batcher
+(``data/loader.py:PackedDataLoader``; not for text encodings), as the JAX
+CLI does; ``--async_checkpoints`` writes each epoch's checkpoint from a
+background thread after copying the state to host memory, and the CLI
+joins it before it exits; ``--profile_dir DIR`` writes a ``torch.profiler``
+trace (host and CUDA activity) of ``--profile_steps`` steps, from the step
+after the fourth (``utils/profiling.py:TraceWindow``), into DIR.  Two flags
+of the JAX CLI raise: ``--with_wandb_logger`` (W&B needs a network) and
+``--mixed_precision`` (ROADMAP).  A warm start from a reference ``.pt``
+starts the EMA from the loaded weights (the JAX CLI leaves it at the
+random init).
 """
 from __future__ import annotations
 
@@ -31,15 +38,13 @@ import os
 import numpy as np
 
 _REFUSED = {
-    "native_loader": "the native C++ batcher is not ported yet (ROADMAP A11)",
     "with_wandb_logger": "W&B needs a network; the port logs to stats.txt",
-    "mixed_precision": "the JAX package's mixed_precision opt-in (measured slower) is not ported",
-    "async_checkpoints": "checkpoints are written synchronously by torch.save",
-    "profile_dir": "use torch.profiler around Trainer.train_step (chip_smoke.py does)",
+    "mixed_precision": "the JAX package's bf16 cast of the parameters each step is not ported "
+                       "yet (ROADMAP); no card measurement of it exists",
 }
 
 
-def main(argv=None):
+def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(description="Train a scene diffusion model (PyTorch port)")
     parser.add_argument("config_file", help="Path to the YAML config")
     parser.add_argument("output_directory", help="Where to save checkpoints/logs")
@@ -54,20 +59,31 @@ def main(argv=None):
     parser.add_argument("--seed", type=int, default=27)
     parser.add_argument("--epochs", type=int, default=None, help="override config epochs")
     parser.add_argument("--with_wandb_logger", action="store_true", help="not available")
-    parser.add_argument("--native_loader", action="store_true", help="not ported (ROADMAP A11)")
+    parser.add_argument("--native_loader", action="store_true",
+                        help="packed batches from the native C++ batcher (not for text "
+                        "encodings)")
     parser.add_argument("--log_every", type=int, default=10,
                         help="fetch metrics to the host every N steps")
-    parser.add_argument("--mixed_precision", action="store_true", help="not ported")
-    parser.add_argument("--async_checkpoints", action="store_true", help="not ported")
+    parser.add_argument("--mixed_precision", action="store_true", help="not ported yet")
+    parser.add_argument("--async_checkpoints", action="store_true",
+                        help="write epoch checkpoints from a background thread")
     parser.add_argument("--keep_last_checkpoints", type=int, default=None,
                         help="retain only the N highest-epoch checkpoints (default: keep all)")
     parser.add_argument("--steps_per_dispatch", type=int, default=1,
                         help="run N train steps per call (Trainer.train_step_scan); logging "
                         "then advances once per call")
-    parser.add_argument("--profile_dir", default=None, help="not ported")
+    parser.add_argument("--profile_dir", default=None,
+                        help="write a torch.profiler trace of steady-state train steps to this "
+                        "directory")
+    parser.add_argument("--profile_steps", type=int, default=20,
+                        help="how many steps the --profile_dir capture spans")
     parser.add_argument("--device", default="cuda",
                         help="cuda (default) or cpu; f32 matmuls run with TF32 off")
-    args = parser.parse_args(argv)
+    return parser
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
     for flag, why in _REFUSED.items():
         if getattr(args, flag):
             raise SystemExit(f"--{flag}: {why}")
@@ -76,13 +92,14 @@ def main(argv=None):
 
     from ..data.factory import (apply_text_emb_dim_default, get_dataset_raw_and_encoded,
                                 get_encoded_dataset)
-    from ..data.loader import DataLoader
+    from ..data.loader import DataLoader, PackedDataLoader
     from ..models.scene_model import SceneDiffusion, SceneModelConfig
     from ..train.trainer import Trainer
-    from ..utils.checkpoint import (load_checkpoint, load_model_weights, prune_checkpoints,
-                                    save_bounds, save_checkpoint)
+    from ..utils.checkpoint import (load_checkpoint, load_model_weights, save_bounds,
+                                    save_checkpoint, wait_for_checkpoints)
     from ..utils.config import load_config, save_experiment_params
     from ..utils.convert import reference_to_scene_state_dict
+    from ..utils.profiling import TraceWindow
     from ..utils.stats_logger import StatsLogger
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -115,7 +132,17 @@ def main(argv=None):
     scene = SceneDiffusion(cfg, bounds=bounds if cfg.loss_iou else None, device=args.device)
 
     batch_size = int(config["training"].get("batch_size", 128))
-    train_loader = DataLoader(train_ds, batch_size, shuffle=True, seed=args.seed)
+    if args.native_loader:
+        if "text" in config["data"]["encoding_type"]:
+            raise SystemExit("--native_loader does not cover text encodings")
+        train_loader = PackedDataLoader(
+            train_raw, train_ds.bounds, max_length=train_ds.max_length,
+            n_classes=train_ds.n_classes, batch_size=batch_size,
+            rotation="fixed_rotations" if "fixed_rotations" in
+            (config["data"].get("augmentations") or []) else None,
+            seed=args.seed)
+    else:
+        train_loader = DataLoader(train_ds, batch_size, shuffle=True, seed=args.seed)
     val_loader = DataLoader(val_ds, int(config["validation"].get("batch_size", batch_size)),
                             shuffle=False, drop_last=True)
     steps_per_epoch = max(len(train_loader), 1)
@@ -137,10 +164,9 @@ def main(argv=None):
         trainer.load_state_dict(state)
     start_epoch = (resumed + 1) if resumed is not None else args.continue_from_epoch
 
-    def save(epoch):
-        save_checkpoint(trainer.state_dict(), experiment_dir, epoch)
-        if args.keep_last_checkpoints:
-            prune_checkpoints(experiment_dir, args.keep_last_checkpoints, protect=epoch)
+    def save(epoch, blocking=True):
+        save_checkpoint(trainer.state_dict(), experiment_dir, epoch, blocking=blocking,
+                        keep_last=args.keep_last_checkpoints)
 
     logger = StatsLogger.instance()
     stats_file = open(os.path.join(experiment_dir, "stats.txt"), "a")
@@ -152,6 +178,9 @@ def main(argv=None):
         spd = max(args.steps_per_dispatch, 1)
         log_every = max(args.log_every, 1)
         since_log = log_every      # the first call of a run always logs
+        trace_window = (TraceWindow(args.profile_dir, length=args.profile_steps)
+                        if args.profile_dir else None)
+        gstep = 0
         for epoch in range(start_epoch, epochs):
             pending = []
             n_batches = len(train_loader)
@@ -163,6 +192,9 @@ def main(argv=None):
                     metrics = trainer.train_step(trainer.put_batch(pending[0]))
                 else:
                     metrics = trainer.train_step_scan(trainer.put_batches(pending))
+                if trace_window is not None:
+                    trace_window.tick(gstep)
+                gstep += len(pending)
                 since_log += len(pending)
                 pending = []
                 if since_log >= log_every:
@@ -179,16 +211,19 @@ def main(argv=None):
             logger.clear()
 
             if (epoch % save_every) == 0 and epoch > start_epoch:
-                save(epoch)
+                save(epoch, blocking=not args.async_checkpoints)
             if (epoch % val_every) == 0:
                 for b, batch in enumerate(val_loader):
                     metrics = trainer.eval_step(trainer.put_batch(batch))
                     logger.update(metrics)
                     logger.print_progress(-1, b + 1, metrics["loss"])
                 logger.clear()
+        if trace_window is not None:
+            trace_window.close()
         save(epochs - 1)
         print(f"\ndone: {epochs - start_epoch} epochs, final step {trainer.step}")
     finally:
+        wait_for_checkpoints()     # commit a save still in flight before exit
         logger.remove_output_file(stats_file)
 
 

@@ -1,12 +1,12 @@
 """Batched host-side data loading: fixed-shape numpy batches.
 
-Copy of ``diffuscene_tpu/data/loader.py`` (numpy only).  The native C++
-batcher (``PackedDataLoader``) is not ported yet (ROADMAP A11) and raises.
+Copy of ``diffuscene_tpu/data/loader.py`` (numpy, and the native batcher of
+``native/``).
 
 Replaces the reference's torch DataLoader + per-sample decorator chain
 (`scripts/train_diffusion.py:150-163`).  Encoding runs in the host Python
-process (optionally via the native C++ batcher in `diffuscene_tpu/native`),
-producing (B, N, C) float32 arrays ready for a zero-copy device put.
+process (or, with :class:`PackedDataLoader`, in the native C++ batcher),
+producing (B, N, C) float32 arrays ready for a device put.
 """
 from __future__ import annotations
 
@@ -133,9 +133,48 @@ class DataLoader:
 
 
 class PackedDataLoader:
-    """The JAX package's loader on its native C++ batch encoder
-    (``diffuscene_tpu/native/batcher.cpp``); not ported yet."""
+    """Loader on the native C++ batch encoder (``native/batcher.cpp``).
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "PackedDataLoader and native/batcher.cpp are not ported yet (ROADMAP A11)")
+    Yields {'packed': (B, N, point_dim) float32} batches: the whole
+    augmentation/scaling/permutation/padding/packing pipeline runs as one
+    multithreaded native pass a batch, and ``SceneDiffusion.get_loss``
+    takes the packed target directly.  Covers the
+    ``cached_diffusion_cosin_angle_objfeatsnorm_lat32`` family (no text);
+    use :class:`DataLoader` otherwise.  Batch b of epoch e draws from seed
+    e * 1000003 + b, as the JAX package's does.
+    """
+
+    def __init__(self, raw_dataset, bounds, max_length: int, n_classes: int,
+                 batch_size: int, objfeat_dim: int = 32, shuffle: bool = True,
+                 permute: bool = True, rotation: Optional[str] = "fixed_rotations",
+                 seed: int = 0, drop_last: bool = True):
+        from ..native import NativeBatchEncoder
+
+        self.raw = raw_dataset
+        self.encoder = NativeBatchEncoder(
+            bounds, max_length, n_classes, objfeat_dim,
+            permute=permute, rotation=rotation, seed=seed,
+        )
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self._rng = np.random.default_rng(seed)
+        self._epoch = 0
+
+    def __len__(self):
+        n = len(self.raw)
+        return n // self.batch_size if self.drop_last else (n + self.batch_size - 1) // self.batch_size
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        idx = np.arange(len(self.raw))
+        if self.shuffle:
+            self._rng.shuffle(idx)
+        self._epoch += 1
+        for b in range(len(self)):
+            rows = idx[b * self.batch_size: (b + 1) * self.batch_size]
+            raw = [self.raw[int(i)] for i in rows]
+            yield {"packed": self.encoder(raw, seed=self._epoch * 1_000_003 + b)}
+
+    def infinite(self) -> Iterator[Dict[str, np.ndarray]]:
+        while True:
+            yield from iter(self)

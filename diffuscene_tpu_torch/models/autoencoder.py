@@ -183,6 +183,21 @@ def diagonal_gaussian_kl(mean: torch.Tensor, logvar: torch.Tensor) -> torch.Tens
     return 0.5 * (mean ** 2 + logvar.exp() - 1.0 - logvar).mean(dim=1)
 
 
+class AutoEncoder(nn.Module):
+    """The plain (non-KL) encoder/decoder pair (foldingnet_autoencoder.py:
+    285-295): (B, N, 3) -> 512-d codeword -> (B, 2025, 3).  Built on the
+    card unless ``device`` says otherwise."""
+
+    def __init__(self, device: torch.device | str = "cuda"):
+        super().__init__()
+        self.encoder = Encoder()
+        self.decoder = Decoder()
+        self.to(device)
+
+    def forward(self, pc: torch.Tensor) -> torch.Tensor:
+        return self.decoder(self.encoder(pc))
+
+
 class KLAutoEncoder(nn.Module):
     """KL-regularized shape autoencoder (foldingnet_autoencoder.py:337-390).
     ``latent_dim=32`` and ``kl_weight=0.001`` in the shipped configs.  Built

@@ -25,8 +25,18 @@ cross-attention blocks (``LinearAttentionCross``): one between block1 and
 block2 of every down and up level (slot 2 of the level's ModuleList, the
 reference's ``attncross``) and ``mid_attn_cross`` before ``mid_attn``.
 
-Not ported yet: the learned/random Fourier time embedding and unequal
-``dim_mults`` (ROADMAP A9).
+``Unet1D(learned_sinusoidal_cond=True)`` (or ``random_fourier_features``)
+embeds the timestep with learned (or fixed random) Fourier features,
+``sinu_pos_emb.weights``: [t, sin(2 pi t w), cos(2 pi t w)],
+``learned_sinusoidal_dim`` + 1 wide.  The random weights take no gradient
+(the JAX package's ``stop_gradient``) but stay parameters, so an optimizer
+keeps them among its buffers as optax keeps them in its tree.
+
+Unequal ``dim_mults`` follow the Flax module's widths: level i's blocks are
+dim * dim_mults[i - 1] wide (dim at level 0) and read whatever width comes
+in (a ``res_conv`` where the two differ), only the last down level projects
+to dim * dim_mults[-1] and the last up level back to dim, and an up block
+whose skip concatenation is as wide as the block has an identity residual.
 """
 from __future__ import annotations
 
@@ -179,13 +189,21 @@ def sinusoidal_pos_emb(t: torch.Tensor, dim: int) -> torch.Tensor:
     return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
 
 
-class SinusoidalPosEmb(nn.Module):
-    def __init__(self, dim: int):
+class RandomOrLearnedSinusoidalPosEmb(nn.Module):
+    """Fourier features of the timestep (denoise_net.py:141-156):
+    (B,) -> (B, dim + 1) f32, [t, sin(2 pi t w), cos(2 pi t w)] with
+    ``weights`` w of dim // 2, learned, or fixed when ``is_random``."""
+
+    def __init__(self, dim: int, is_random: bool = False, device=None):
         super().__init__()
-        self.dim = dim
+        self.is_random = is_random
+        self.weights = nn.Parameter(torch.empty(dim // 2, device=device))
 
     def forward(self, t):
-        return sinusoidal_pos_emb(t, self.dim)
+        w = self.weights.detach() if self.is_random else self.weights
+        t = t.float()[:, None]
+        freqs = t * w[None, :] * 2 * math.pi
+        return torch.cat([t, torch.sin(freqs), torch.cos(freqs)], dim=-1)
 
 
 def head_blockmask(heads: int, dim_head: int, dtype, device=None) -> torch.Tensor:
@@ -387,6 +405,7 @@ class Unet1D(nn.Module):
         resnet_block_groups: int = 8,
         learned_sinusoidal_cond: bool = False,
         random_fourier_features: bool = False,
+        learned_sinusoidal_dim: int = 16,
         out_dim: Optional[int] = None,
         compute_dtype: torch.dtype = torch.float32,
         exact_gelu: bool = True,
@@ -394,11 +413,6 @@ class Unet1D(nn.Module):
         device=None,
     ):
         super().__init__()
-        if len(set(dim_mults)) != 1:
-            raise NotImplementedError("unequal dim_mults are not ported yet (ROADMAP A9)")
-        if learned_sinusoidal_cond or random_fourier_features:
-            raise NotImplementedError(
-                "learned/random Fourier time embeddings are not ported yet (ROADMAP A9)")
         self.dim = dim
         self.dim_mults = tuple(dim_mults)
         self.channels = channels
@@ -414,6 +428,9 @@ class Unet1D(nn.Module):
         self.text_condition = text_condition
         self.text_dim = text_dim
         self.resnet_block_groups = resnet_block_groups
+        self.learned_sinusoidal_cond = learned_sinusoidal_cond
+        self.random_fourier_features = random_fourier_features
+        self.learned_sinusoidal_dim = learned_sinusoidal_dim
         self.out_dim = out_dim
         self.compute_dtype = compute_dtype
         self.exact_gelu = exact_gelu
@@ -432,50 +449,63 @@ class Unet1D(nn.Module):
             self.init_conv = Conv1x1(dim, dim, dtype=dt, device=dev)
         else:
             self.init_conv = Conv1x1(channels, dim, dtype=dt, device=dev)
+        fourier = learned_sinusoidal_cond or random_fourier_features
+        self.sinu_pos_emb = (RandomOrLearnedSinusoidalPosEmb(
+            learned_sinusoidal_dim, random_fourier_features, dev) if fourier else None)
+        t_feat = learned_sinusoidal_dim + 1 if fourier else dim
+        # slot 0 is the embedding, applied in forward (sinu_pos_emb keeps
+        # the Fourier weights under the name the JAX converter reads)
         self.time_mlp = nn.Sequential(
-            SinusoidalPosEmb(dim), Linear(dim, time_dim, dtype=dt, device=dev),
+            nn.Identity(), Linear(t_feat, time_dim, dtype=dt, device=dev),
             nn.GELU(approximate="none" if exact_gelu else "tanh"),
             Linear(time_dim, time_dim, dtype=dt, device=dev),
         )
 
         n_levels = len(self.dim_mults)
-        C = dim * self.dim_mults[0]
+        # level i's blocks are level_dim[i] wide; each reads what comes in
+        level_dim = [dim * (1 if i == 0 else self.dim_mults[i - 1]) for i in range(n_levels)]
+        mid_dim = dim * self.dim_mults[-1]
 
-        def cross() -> nn.Module:
+        def res(c_in, c_out, emb):
+            return ResnetBlock(c_in, c_out, emb, g, dt, dev)
+
+        def attn(c):
+            return Residual(PreNorm(c, LinearAttention(c, dtype=dt, device=dev), dev))
+
+        def cross(c) -> nn.Module:
             if not text_condition:
                 return nn.Identity()
-            return Residual(PreNorm(C, LinearAttentionCross(C, text_dim, dtype=dt, device=dev),
+            return Residual(PreNorm(c, LinearAttentionCross(c, text_dim, dtype=dt, device=dev),
                                     dev))
 
-        def level(is_last: bool) -> nn.ModuleList:
-            return nn.ModuleList([
-                ResnetBlock(C, C, cond_dim, g, dt, dev),
-                ResnetBlock(C, C, time_dim, g, dt, dev),
-                cross(),
-                ResnetBlock(C, C, time_dim, g, dt, dev),
-                Residual(PreNorm(C, LinearAttention(C, dtype=dt, device=dev), dev)),
-                Conv1x1(C, C, dtype=dt, device=dev) if is_last else nn.Identity(),
-            ])
-
-        def up_level(is_last: bool) -> nn.ModuleList:
-            return nn.ModuleList([
-                ResnetBlock(C, C, cond_dim, g, dt, dev),
-                ResnetBlock(2 * C, C, time_dim, g, dt, dev),
-                cross(),
-                ResnetBlock(2 * C, C, time_dim, g, dt, dev),
-                Residual(PreNorm(C, LinearAttention(C, dtype=dt, device=dev), dev)),
-                Conv1x1(C, C, dtype=dt, device=dev) if is_last else nn.Identity(),
-            ])
-
-        self.downs = nn.ModuleList([level(i == n_levels - 1) for i in range(n_levels)])
-        self.mid_block0 = ResnetBlock(C, C, cond_dim, g, dt, dev)
-        self.mid_block1 = ResnetBlock(C, C, time_dim, g, dt, dev)
+        self.downs = nn.ModuleList()
+        w = dim
+        for i, c in enumerate(level_dim):
+            last = i == n_levels - 1
+            self.downs.append(nn.ModuleList([
+                res(w, c, cond_dim), res(c, c, time_dim), cross(c), res(c, c, time_dim), attn(c),
+                Conv1x1(c, mid_dim, dtype=dt, device=dev) if last else nn.Identity(),
+            ]))
+            w = mid_dim if last else c
+        self.mid_block0 = res(w, mid_dim, cond_dim)
+        self.mid_block1 = res(mid_dim, mid_dim, time_dim)
         if text_condition:
-            self.mid_attn_cross = cross()
-        self.mid_attn = Residual(PreNorm(C, Attention(C, dtype=dt, device=dev), dev))
-        self.mid_block2 = ResnetBlock(C, C, time_dim, g, dt, dev)
-        self.ups = nn.ModuleList([up_level(j == n_levels - 1) for j in range(n_levels)])
-        self.final_res_block = ResnetBlock(2 * dim, dim, time_dim, g, dt, dev)
+            self.mid_attn_cross = cross(mid_dim)
+        self.mid_attn = Residual(PreNorm(mid_dim, Attention(mid_dim, dtype=dt, device=dev), dev))
+        self.mid_block2 = res(mid_dim, mid_dim, time_dim)
+        self.ups = nn.ModuleList()
+        w = mid_dim
+        for j in range(n_levels):
+            i = n_levels - 1 - j
+            c_in, c_out = level_dim[i], dim * self.dim_mults[i]
+            last = j == n_levels - 1
+            self.ups.append(nn.ModuleList([
+                res(w, c_in, cond_dim), res(2 * c_in, c_out, time_dim), cross(c_out),
+                res(c_out + c_in, c_out, time_dim), attn(c_out),
+                Conv1x1(c_out, c_in, dtype=dt, device=dev) if last else nn.Identity(),
+            ]))
+            w = c_in if last else c_out
+        self.final_res_block = res(w + dim, dim, time_dim)
 
         if seperate_all:
             self.bbox_hidden2output = _MLPDec(dim, self.bbox_dim, exact_gelu, dt, dev)
@@ -518,7 +548,9 @@ class Unet1D(nn.Module):
             x = h
         x = self.init_conv(x)
         r = x
-        t_emb = self.time_mlp(beta)
+        t_feat = (sinusoidal_pos_emb(beta, self.dim) if self.sinu_pos_emb is None
+                  else self.sinu_pos_emb(beta))
+        t_emb = self.time_mlp(t_feat)
 
         skips = []
         for block0, block1, cross, block2, attn, proj in self.downs:
@@ -579,3 +611,5 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             m.bias.zero_()
         elif isinstance(m, ChannelLayerNorm):
             m.g.fill_(1.0)
+        elif isinstance(m, RandomOrLearnedSinusoidalPosEmb):
+            m.weights.copy_(torch.randn(m.weights.shape, generator=generator))

@@ -38,6 +38,7 @@ two chains of the rows engine (``downA``/``upA`` end at block1,
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional
 
 import torch
@@ -45,6 +46,8 @@ import torch.nn.functional as F
 
 from ..ops.attention import fused_set_attention
 from ..ops.fused_level import ChainBlock, apply_chain, build_chain
+from ..ops.fused_resblock import CHANNELS as CARD_CHANNELS
+from ..ops.fused_resblock import CLUSTER as CARD_GROUPS
 from ..ops.fused_resblock import fused_resnet_block, standardize_kernel
 from .denoiser import Unet1D, head_blockmask, seg_softmax_heads, sinusoidal_pos_emb
 
@@ -118,7 +121,12 @@ def prepare_inference_params(
 
     # time embedding table for all T steps; this MLP uses exact GELU
     ts = torch.arange(num_timesteps, device=device)
-    t_feat = sinusoidal_pos_emb(ts, net.dim).to(dt)
+    if "sinu_pos_emb" in p:                     # learned / random Fourier features
+        tf = ts.float()[:, None]
+        freqs = tf * p["sinu_pos_emb"]["weights"][None, :] * 2 * math.pi
+        t_feat = torch.cat([tf, torch.sin(freqs), torch.cos(freqs)], dim=-1).to(dt)
+    else:
+        t_feat = sinusoidal_pos_emb(ts, net.dim).to(dt)
     t_emb = t_feat @ p["time_mlp_1"]["kernel"].to(dt) + p["time_mlp_1"]["bias"].to(dt)
     t_emb = F.gelu(t_emb, approximate="none")
     t_emb = t_emb @ p["time_mlp_2"]["kernel"].to(dt) + p["time_mlp_2"]["bias"].to(dt)
@@ -139,7 +147,7 @@ def prepare_inference_params(
             prep["blocks"][name]["mlp"] = _cast(blk["mlp"], dt)
 
     for name in list(p.keys()):
-        if name in prep["blocks"] or name in ("time_mlp_1", "time_mlp_2"):
+        if name in prep["blocks"] or name in ("time_mlp_1", "time_mlp_2", "sinu_pos_emb"):
             continue
         if name.endswith(("_attn_norm", "_attncross_norm")):
             prep["misc"][name] = p[name]  # LayerNorm g stays f32
@@ -271,9 +279,12 @@ def _wd_from_engine_block(bp: Dict[str, Any], C: int, has_skip: bool) -> Dict[st
 def prepare_chain_params(net: Unet1D, prep: Dict[str, Any],
                          cond_names: frozenset) -> Dict[str, Any]:
     """Stack the weights of the 19 resblock chains (once per sampling call).
-    ``cond_names`` lists the block0 names that get cond-FiLM rows."""
+    ``cond_names`` lists the block0 names that get cond-FiLM rows.  Raises
+    ``ValueError`` for unequal level dims, which the chains do not cover
+    (``SceneDiffusion.sample(fused="rows")`` then serves the 3-D engine, as
+    the JAX package does)."""
     if len(set(net.dim_mults)) != 1:
-        raise NotImplementedError("rows-layout chains need equal level dims (ROADMAP A9)")
+        raise ValueError("rows-layout chains need equal level dims")
     C = net.dim * net.dim_mults[0]
     n_levels = len(net.dim_mults)
     dt = net.compute_dtype
@@ -399,6 +410,19 @@ def _decode(net: Unet1D, prep: Dict[str, Any], h: torch.Tensor, exact_gelu: bool
         ofs += w
         outs.append(_dense(pdec["fc2"], hi))
     return torch.cat(outs, dim=-1).float()
+
+
+def check_card_widths(net: Unet1D) -> None:
+    """Raise ``ValueError`` unless the card's ResnetBlock and set-attention
+    kernels (B1, B2) take every block of ``net``: C = 512 in 8 groups at
+    every level (ROADMAP §C, "Known narrowing").  A model of other widths
+    samples on the card through the module forward, ``fused=False``."""
+    widths = sorted({net.dim} | {net.dim * m for m in net.dim_mults})
+    if widths != [CARD_CHANNELS] or net.resnet_block_groups != CARD_GROUPS:
+        raise ValueError(
+            f"the card's B1/B2 kernels take C={CARD_CHANNELS} in {CARD_GROUPS} groups; this "
+            f"model's blocks are {widths} wide in {net.resnet_block_groups} groups: sample it "
+            f"with fused=False")
 
 
 @torch.no_grad()

@@ -480,7 +480,10 @@ class SceneDiffusion:
         set-attention kernel) or ``"rows"`` (flat-row engine, its resblock
         chains on the chain kernel).  The engines' step-invariant parts
         (weights, FiLM rows, a text model's 9 cross-attention contexts) are
-        made here, once a sampling call."""
+        made here, once a sampling call.  ``"rows"`` on unequal level dims
+        serves the 3-D engine, as the JAX package does; on the card the
+        3-D engine takes only the widths of its kernels
+        (``inference.check_card_widths`` raises otherwise)."""
         if fused is False:
             def fn(x, t):
                 with torch.no_grad():
@@ -489,6 +492,7 @@ class SceneDiffusion:
         if fused is not True and fused != "rows":
             raise ValueError(f"fused must be False, True or 'rows', got {fused!r}")
         from .inference import (
+            check_card_widths,
             fused_unet1d_forward,
             fused_unet1d_forward_rows,
             precompute_conditioning,
@@ -500,12 +504,17 @@ class SceneDiffusion:
         prep = prepare_inference_params(net, denoiser_tree(net),
                                         num_timesteps=self.sched.num_timesteps)
         cond_ctx = precompute_conditioning(net, prep, condition, condition_cross)
-        if fused is True:
+        chains = None
+        if fused == "rows" and len(set(net.dim_mults)) == 1:
+            chains = prepare_chain_params(net, prep, frozenset(cond_ctx["film_c"]))
+        if chains is None:          # unequal level dims serve the 3-D engine, as in JAX
+            if self.device.type == "cuda":
+                check_card_widths(net)
+
             def fn(x, t):
                 return fused_unet1d_forward(net, prep, x, t, cond_ctx=cond_ctx)
             return fn
 
-        chains = prepare_chain_params(net, prep, frozenset(cond_ctx["film_c"]))
         film_c2 = {name: v.reshape(-1, v.shape[-1]).contiguous()
                    for name, v in cond_ctx["film_c"].items()}
         ctx_rows = {"film_c2": film_c2, "cross": cond_ctx["cross"]}

@@ -1,3 +1,4 @@
-from .optim import Optimizer, f32_global_norm, lr_schedule_factory, optimizer_factory
+from .optim import (Optimizer, f32_global_norm, freeze_mask, lr_schedule_factory,
+                    optimizer_factory)
 from .ae_trainer import AETrainer
 from .trainer import Trainer

@@ -1,16 +1,26 @@
-"""Optimizer and learning-rate schedule, with optax's arithmetic.
+"""Optimizers and learning-rate schedules, with optax's arithmetic.
 
-Port of the part of ``diffuscene_tpu/train/optim.py`` (reference
-``scene_synthesis/networks/__init__.py:15-34,127-137``) that the shipped
-configs select: global-norm clipping, then Adam, with the "step" epoch
-schedule applied per step (epoch = step // steps_per_epoch).  The update
-repeats optax's formulas (``clip_by_global_norm``, ``scale_by_adam``) so
-that one step matches the JAX package:
+Port of ``diffuscene_tpu/train/optim.py`` (reference
+``scene_synthesis/networks/__init__.py:15-34,78-168``): global-norm
+clipping, then SGD with momentum, Adam (AdamW with a weight decay) or
+RAdam, with the "step", "lambda" and "warmup_cosine" epoch schedules applied
+per step (epoch = step // steps_per_epoch).  The updates repeat optax's
+formulas so that a step matches the JAX package's chain:
 
 - the clip scales the gradients by max_norm / norm only when the norm is
   not below the cap, with no epsilon;
-- Adam: mu_hat / (sqrt(nu_hat) + eps), with the learning rate of the step
-  count before the increment.
+- SGD is optax's ``trace`` (t = g + momentum * t) then -lr * t;
+- Adam: mu_hat / (sqrt(nu_hat) + eps); AdamW adds ``weight_decay * p`` to
+  that (optax ``add_decayed_weights``, every parameter) before the
+  learning rate;
+- RAdam (``scale_by_radam``, threshold 5): r * mu_hat / (sqrt(nu_hat) +
+  eps) once the rectification term ro reaches the threshold, mu_hat
+  before.  ro and r are Python floats: optax forms ro = ro_inf -
+  2 t b2^t / (1 - b2^t) in f32, where the two terms nearly cancel near
+  the threshold (ROADMAP §C), so the port's r is the exact one and differs
+  from optax's by up to 1e-4 relative there;
+- the learning rate is the schedule's at the step count before the
+  increment; the schedules are Python floats.
 
 ``training.fused_adam`` / ``training.adam_moment_dtype`` select the JAX
 package's ``fused_clip_adam`` (``diffuscene_tpu/train/optim.py:75``): the
@@ -21,12 +31,13 @@ arithmetic).  Departure: the JAX package drops ``fused_adam`` silently when
 the optimizer is not Adam or the weight decay is not 0
 (``diffuscene_tpu/train/optim.py:181``); the port raises.
 
-The JAX package's other choices (SGD, RAdam, AdamW by weight decay, the
-"lambda" and "warmup_cosine" schedules) are selected by no shipped config;
-they are not ported (ROADMAP A10) and raise here.
+:func:`freeze_mask` is the JAX package's ``optax.masked(set_to_zero())``
+before the chain: the named parameters' gradients become zeros before the
+clip, so they take no gradient step (AdamW still decays them, as in optax).
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -34,20 +45,45 @@ import torch
 
 from ..utils.config import as_dtype
 
+OPTIMIZERS = ("SGD", "Adam", "RAdam")
+RADAM_THRESHOLD = 5.0
+
 
 def lr_schedule_factory(training_cfg: Dict[str, Any]) -> Callable[[int], float]:
-    """epoch -> learning rate of the "step" schedule (networks/__init__.py:
-    127-137): lr * lr_decay ** (epoch // lr_step)."""
+    """epoch -> learning rate (networks/__init__.py:127-168): "step",
+    lr * lr_decay ** (epoch // lr_step); "lambda", lr until ``start_epoch``,
+    then lr * lr_decay ** (epoch - start_epoch); "warmup_cosine", a linear
+    warm-up over ``warmup_epochs`` then a cosine from lr to ``min_lr`` at
+    ``epochs``."""
     name = training_cfg.get("schedule", "lambda")
-    if name != "step":
-        raise NotImplementedError(f"the {name!r} LR schedule is not ported yet (ROADMAP A10)")
     lr = float(training_cfg.get("lr", 1e-3))
-    lr_step = int(training_cfg.get("lr_step", 10000))
-    lr_decay = float(training_cfg.get("lr_decay", 0.5))
+    if name == "step":
+        lr_step = int(training_cfg.get("lr_step", 10000))
+        lr_decay = float(training_cfg.get("lr_decay", 0.5))
 
-    def sched(epoch):
-        return lr * (lr_decay ** (epoch // lr_step))
+        def sched(epoch):
+            return lr * (lr_decay ** (epoch // lr_step))
 
+    elif name == "lambda":
+        start_epoch = int(training_cfg.get("start_epoch", 1000))
+        lr_decay = float(training_cfg.get("lr_decay", 0.999))
+
+        def sched(epoch):
+            return lr if epoch < start_epoch else lr * (lr_decay ** max(epoch - start_epoch, 0))
+
+    elif name == "warmup_cosine":
+        warmup = int(training_cfg.get("warmup_epochs", 500))
+        total = int(training_cfg.get("epochs", 10000))
+        min_lr = float(training_cfg.get("min_lr", 1e-6))
+
+        def sched(epoch):
+            if epoch < warmup:
+                return lr * epoch / max(warmup, 1)
+            p = (epoch - warmup) / max(total - warmup, 1)
+            return min_lr + 0.5 * (lr - min_lr) * (1 + math.cos(math.pi * p))
+
+    else:
+        raise NotImplementedError(f"LR schedule {name!r} (step, lambda or warmup_cosine)")
     return sched
 
 
@@ -81,32 +117,59 @@ def _clip(g: torch.Tensor, max_norm: float) -> Tuple[torch.Tensor, torch.Tensor]
     return torch.where(gnorm < max_norm, g, (g / gnorm) * max_norm), gnorm
 
 
+def freeze_mask(names: Sequence[str], frozen_prefixes: Sequence[str]) -> List[bool]:
+    """Which of the parameters ``names`` (dotted, as ``named_parameters``
+    gives them) lie under one of ``frozen_prefixes``: a name any of whose
+    components starts with a prefix, as the JAX package matches the
+    components of a tree path.  Pass it to :class:`Optimizer` as
+    ``frozen``."""
+    prefixes = tuple(frozen_prefixes)
+    return [any(part.startswith(prefixes) for part in n.split(".")) for n in names]
+
+
 class Optimizer:
-    """Global-norm clip + Adam over a list of parameters.  :meth:`step`
-    applies one update in place, from the given gradients (a list, or all
-    of them flattened into one 1-D tensor) or from ``p.grad``, and returns
-    the gradients' global norm before the clip (a 0-d tensor).  ``fused``
-    selects the arithmetic of the JAX package's ``fused_clip_adam``, with
-    the moments stored in ``moment_dtype``.
+    """Global-norm clip + SGD, Adam (AdamW with ``weight_decay``) or RAdam
+    over a list of parameters.  :meth:`step` applies one update in place,
+    from the given gradients (a list, or all of them flattened into one 1-D
+    tensor) or from ``p.grad``, and returns the gradients' global norm
+    before the clip (a 0-d tensor).  ``fused`` selects the arithmetic of the
+    JAX package's ``fused_clip_adam``, with the moments stored in
+    ``moment_dtype``.  ``frozen`` (one bool a parameter, :func:`freeze_mask`)
+    zeroes those parameters' gradients first.
 
     The moments live in one flat buffer (``slots`` are per-parameter views
-    of it) and every step works on the flattened gradient, so an update is
-    a few kernels over all parameters, not a few per parameter; the
-    arithmetic of each element is the per-leaf formula's."""
+    of it: SGD's trace, or Adam's and RAdam's mu and nu) and every step
+    works on the flattened gradient, so an update is a few kernels over all
+    parameters, not a few per parameter; the arithmetic of each element is
+    the per-leaf formula's."""
 
     def __init__(self, params: Sequence[torch.Tensor], lr_fn: Callable[[int], float],
                  max_grad_norm: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 fused: bool = False, moment_dtype: Optional[torch.dtype] = None):
+                 fused: bool = False, moment_dtype: Optional[torch.dtype] = None,
+                 name: str = "Adam", weight_decay: float = 0.0, momentum: float = 0.9,
+                 frozen: Optional[Sequence[bool]] = None):
+        if name not in OPTIMIZERS:
+            raise NotImplementedError(f"optimizer {name!r} ({', '.join(OPTIMIZERS)})")
         self.params: List[torch.Tensor] = list(params)
         self.lr_fn = lr_fn
         self.max_grad_norm = float(max_grad_norm)
         self.b1, self.b2, self.eps = b1, b2, eps
+        self.name = name
+        self.weight_decay = float(weight_decay or 0.0)
+        self.momentum = float(momentum)
         self.fused = fused or moment_dtype is not None
+        if self.fused and (name != "Adam" or self.weight_decay):
+            raise ValueError("the fused update is Adam's without weight decay")
         self.count = 0
+        device = self.params[0].device
         n = sum(p.numel() for p in self.params)
-        self._moments = torch.zeros(2, n, dtype=moment_dtype or torch.float32,
-                                    device=self.params[0].device)
-        self.slots = [unflatten(m, self.params) for m in self._moments]   # mu, nu
+        self._moments = torch.zeros(1 if name == "SGD" else 2, n,
+                                    dtype=moment_dtype or torch.float32, device=device)
+        self.slots = [unflatten(m, self.params) for m in self._moments]
+        self._keep = None
+        if frozen is not None and any(frozen):
+            self._keep = flatten([torch.full((p.numel(),), not f, dtype=torch.bool, device=device)
+                                  for p, f in zip(self.params, frozen)])
 
     def zero_grad(self) -> None:
         for p in self.params:
@@ -117,20 +180,42 @@ class Optimizer:
         if grads is None:
             grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         g = grads if isinstance(grads, torch.Tensor) else flatten(grads)
-        mu, nu = self._moments
+        if self._keep is not None:
+            g = torch.where(self._keep, g, torch.zeros_like(g))
         lr = self.lr_fn(self.count)
         self.count += 1
         if self.fused:
-            upd, gnorm = self._fused_update(g, mu, nu, lr)
+            upd, gnorm = self._fused_update(g, *self._moments, lr)
         else:
             g, gnorm = _clip(g, self.max_grad_norm)
-            b1, b2 = self.b1, self.b2
-            bc1, bc2 = 1.0 - b1 ** self.count, 1.0 - b2 ** self.count
-            mu.copy_((1.0 - b1) * g + b1 * mu)
-            nu.copy_((1.0 - b2) * (g * g) + b2 * nu)
-            upd = -lr * ((mu / bc1) / (torch.sqrt(nu / bc2) + self.eps))
+            upd = self._update(g, lr)
         torch._foreach_add_(self.params, unflatten(upd, self.params))
         return gnorm
+
+    def _update(self, g: torch.Tensor, lr: float) -> torch.Tensor:
+        """The update of the clipped flat gradient ``g`` (optax's chains)."""
+        if self.name == "SGD":
+            (tr,) = self._moments
+            tr.copy_(g + self.momentum * tr)
+            return -lr * tr
+        mu, nu = self._moments
+        b1, b2, t = self.b1, self.b2, self.count
+        mu.copy_((1.0 - b1) * g + b1 * mu)
+        nu.copy_((1.0 - b2) * (g * g) + b2 * nu)
+        bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
+        mu_hat = mu / bc1
+        if self.name == "RAdam":
+            ro_inf = 2.0 / (1.0 - b2) - 1.0
+            ro = ro_inf - 2.0 * t * b2 ** t / bc2
+            if ro < RADAM_THRESHOLD:
+                return -lr * mu_hat
+            r = math.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf
+                          / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
+            return -lr * (r * mu_hat / (torch.sqrt(nu / bc2) + self.eps))
+        upd = mu_hat / (torch.sqrt(nu / bc2) + self.eps)
+        if self.weight_decay:
+            upd = upd + self.weight_decay * flatten(self.params)
+        return -lr * upd
 
     def _fused_update(self, g, mu, nu, lr):
         """``fused_clip_adam`` (diffuscene_tpu/train/optim.py:75-140): the
@@ -167,9 +252,11 @@ class Optimizer:
 
 def optimizer_factory(params: Sequence[torch.Tensor], training_cfg: Dict[str, Any],
                       steps_per_epoch: int = 1) -> Optimizer:
-    """The clip + Adam + step schedule of a config's ``training`` section
-    (networks/__init__.py:15-34), fused with ``fused_adam`` or
-    ``adam_moment_dtype`` (diffuscene_tpu/train/optim.py:158-183)."""
+    """The clip + optimizer + epoch schedule of a config's ``training``
+    section (networks/__init__.py:15-34): ``optimizer`` SGD (``momentum``,
+    default 0.9), Adam (AdamW when ``weight_decay`` is not 0) or RAdam,
+    fused with ``fused_adam`` or ``adam_moment_dtype``
+    (diffuscene_tpu/train/optim.py:158-200)."""
     name = training_cfg.get("optimizer", "Adam")
     wd = training_cfg.get("weight_decay")
     moment_dtype = as_dtype(training_cfg.get("adam_moment_dtype"))
@@ -178,12 +265,10 @@ def optimizer_factory(params: Sequence[torch.Tensor], training_cfg: Dict[str, An
         raise ValueError(
             f"fused_adam / adam_moment_dtype need the Adam optimizer without weight decay "
             f"(got {name!r}, weight_decay={wd!r}); the JAX package ignores them silently there")
-    if name != "Adam":
-        raise NotImplementedError(f"the {name!r} optimizer is not ported yet (ROADMAP A10)")
-    if wd:
-        raise NotImplementedError("weight decay (AdamW) is not ported yet (ROADMAP A10)")
     epoch_sched = lr_schedule_factory(training_cfg)
     spe = max(int(steps_per_epoch), 1)
     return Optimizer(params, lambda step: epoch_sched(step // spe),
                      max_grad_norm=training_cfg.get("max_grad_norm", 10.0),
-                     fused=fused, moment_dtype=moment_dtype)
+                     fused=fused, moment_dtype=moment_dtype, name=name,
+                     weight_decay=float(wd or 0.0),
+                     momentum=float(training_cfg.get("momentum", 0.9)))

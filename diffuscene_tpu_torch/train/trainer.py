@@ -40,11 +40,11 @@ Departures from the JAX package, where its behaviour is a fault:
   frozen statistics' included, before the mask zeroes them, so for a
   room-mask model its logged norm is not its clip's norm.
 
-``Trainer(mixed_precision=True)`` of the JAX package (an opt-in that
-measured slower) is not ported.  The trainer runs on the card unless it is
-asked for the CPU, and moves the model there.  Timesteps and noise come from
-the trainer's generator unless a step is given them; each step's metrics
-come back in one host transfer.
+``Trainer(mixed_precision=True)`` of the JAX package (the parameters cast
+to bf16 once a step) is not ported yet (ROADMAP A14).  The trainer runs on
+the card unless it is asked for the CPU, and moves the model there.
+Timesteps and noise come from the trainer's generator unless a step is
+given them; each step's metrics come back in one host transfer.
 """
 from __future__ import annotations
 

@@ -7,13 +7,18 @@ Port of ``diffuscene_tpu/utils/checkpoint.py`` (reference
 trainer state: step, model, EMA, optimizer moments in their dtypes,
 accumulator, generator), and resume picks the highest epoch.  The
 train-set bounds go beside them as ``bounds.npz``
-(train_diffusion.py:128-137).  The JAX package's asynchronous saves are
-not ported; its pruning (``--keep_last_checkpoints``) is.
+(train_diffusion.py:128-137).  ``save_checkpoint(blocking=False)`` copies
+the state to host memory and writes it from a background thread (the JAX
+package's orbax AsyncCheckpointer): one save in flight at a time, and
+:func:`wait_for_checkpoints` joins it (and raises its error) before the
+process exits or reads a checkpoint back.  ``keep_last`` prunes after a
+save has been written.
 """
 from __future__ import annotations
 
 import os
 import re
+import threading
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -35,15 +40,68 @@ def latest_epoch(experiment_dir: str) -> Optional[int]:
     return max(ids) if ids else None
 
 
-def save_checkpoint(state: Any, experiment_dir: str, epoch: int) -> str:
-    """Write ``state`` to model_{epoch:05d}, through a temporary file so that
-    an interrupted save leaves no partial checkpoint."""
-    os.makedirs(experiment_dir, exist_ok=True)
-    path = checkpoint_path(experiment_dir, epoch)
+_IN_FLIGHT: Optional[threading.Thread] = None
+_ERRORS: list = []
+
+
+def _to_host(obj: Any) -> Any:
+    """A copy of ``obj`` with every tensor copied to host memory (so the
+    caller may go on updating its tensors in place)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().to("cpu", copy=True)
+    if isinstance(obj, dict):
+        return {k: _to_host(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_host(v) for v in obj)
+    return obj
+
+
+def _write(state: Any, path: str, experiment_dir: str, epoch: int,
+           keep_last: Optional[int]) -> None:
     tmp = path + ".tmp"
     torch.save(state, tmp)
     os.replace(tmp, path)
+    if keep_last:
+        prune_checkpoints(experiment_dir, keep_last, protect=epoch)
+
+
+def _write_in_background(*args) -> None:
+    try:
+        _write(*args)
+    except BaseException as e:  # raised again by wait_for_checkpoints
+        _ERRORS.append(e)
+
+
+def save_checkpoint(state: Any, experiment_dir: str, epoch: int, blocking: bool = True,
+                    keep_last: Optional[int] = None) -> str:
+    """Write ``state`` to model_{epoch:05d}, through a temporary file so that
+    an interrupted save leaves no partial checkpoint, then keep only the
+    ``keep_last`` highest epochs when it is given.  ``blocking=False``
+    copies the state to host memory, returns, and writes it from a
+    background thread, after any save still in flight."""
+    global _IN_FLIGHT
+    os.makedirs(experiment_dir, exist_ok=True)
+    path = checkpoint_path(experiment_dir, epoch)
+    if blocking:
+        wait_for_checkpoints()
+        _write(state, path, experiment_dir, epoch, keep_last)
+        return path
+    snapshot = _to_host(state)
+    wait_for_checkpoints()
+    _IN_FLIGHT = threading.Thread(target=_write_in_background, daemon=False,
+                                  args=(snapshot, path, experiment_dir, epoch, keep_last))
+    _IN_FLIGHT.start()
     return path
+
+
+def wait_for_checkpoints() -> None:
+    """Join the save in flight, if any; raise the error a background save hit."""
+    global _IN_FLIGHT
+    if _IN_FLIGHT is not None:
+        _IN_FLIGHT.join()
+        _IN_FLIGHT = None
+    if _ERRORS:
+        raise _ERRORS.pop()
 
 
 def prune_checkpoints(experiment_dir: str, keep_last: int, protect: Optional[int] = None) -> list:
@@ -62,7 +120,9 @@ def prune_checkpoints(experiment_dir: str, keep_last: int, protect: Optional[int
 def load_checkpoint(experiment_dir: str, epoch: Optional[int] = None,
                     map_location: Any = "cpu") -> Tuple[Optional[Any], Optional[int]]:
     """The latest (or given-epoch) checkpoint: (state, epoch), or (None, None)
-    when there is none, the reference's silent no-op resume."""
+    when there is none, the reference's silent no-op resume.  A save still
+    in flight is joined first."""
+    wait_for_checkpoints()
     if epoch is None:
         epoch = latest_epoch(experiment_dir)
     if epoch is None:

@@ -75,6 +75,8 @@ def _flax_to_torch_key(path: Path) -> Tuple[str, str]:
         return f"{name}.{leaf}", "conv"
     if name in ("time_mlp_1", "time_mlp_2"):
         return f"time_mlp.{1 if name == 'time_mlp_1' else 3}.{leaf}", "linear"
+    if name == "sinu_pos_emb":                      # the Fourier time features
+        return "sinu_pos_emb.weights", "vec"
     m = re.match(r"(down|up)(\d+)_(block[012]|proj|attn|attncross)(_norm)?$", name)
     if m:
         stack, lvl, slot, norm = m.groups()
@@ -118,6 +120,8 @@ def _torch_to_flax_key(key: str) -> Tuple[Path, str]:
     if parts[0] == "time_mlp":
         name = "time_mlp_1" if parts[1] == "1" else "time_mlp_2"
         return (name, "kernel" if leaf == "weight" else "bias"), "linear"
+    if parts[0] == "sinu_pos_emb":
+        return ("sinu_pos_emb", "weights"), "vec"
     if parts[0] in ("downs", "ups"):
         prefix = "down" if parts[0] == "downs" else "up"
         slot = _SLOT_NAMES[int(parts[2])]
@@ -368,10 +372,11 @@ def _get(tree: Dict[str, Any], path: Path):
 
 
 def flax_to_torch_autoencoder(variables: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-    """Flax ``KLAutoEncoder`` variables (``params`` and ``batch_stats``,
-    numpy leaves) -> port ``KLAutoEncoder`` state_dict (CPU float32 tensors;
-    ``num_batches_tracked`` 0).  ``convert_autoencoder`` of the result gives
-    the variables back, bit for bit."""
+    """Flax ``KLAutoEncoder`` or ``AutoEncoder`` variables (``params`` and
+    ``batch_stats``, numpy leaves) -> the port module's state_dict (CPU
+    float32 tensors; ``num_batches_tracked`` 0); the plain ``AutoEncoder``
+    has no ``mean_fc``, ``logvar_fc`` or ``fc``.  ``convert_autoencoder``
+    of a KL result gives the variables back, bit for bit."""
     params, stats = variables["params"], variables["batch_stats"]
     out: Dict[str, torch.Tensor] = {}
 
@@ -379,6 +384,8 @@ def flax_to_torch_autoencoder(variables: Dict[str, Any]) -> Dict[str, torch.Tens
         out[key] = torch.from_numpy(np.array(a, np.float32, order="C"))
 
     for path, prefix, kind in _autoencoder_layers():
+        if path[0] not in params:           # the plain AutoEncoder's missing heads
+            continue
         p = _get(params, path)
         if kind == "bn":
             s = _get(stats, path)
@@ -395,8 +402,9 @@ def flax_to_torch_autoencoder(variables: Dict[str, Any]) -> Dict[str, torch.Tens
 
 
 def load_jax_autoencoder(model: torch.nn.Module, variables: Dict[str, Any]) -> None:
-    """Load JAX ``KLAutoEncoder`` variables (numpy leaves) into a port
-    ``KLAutoEncoder``; num_batches_tracked is kept as the module has it."""
+    """Load JAX ``KLAutoEncoder`` (or ``AutoEncoder``) variables (numpy
+    leaves) into the port's module of that name; num_batches_tracked is
+    kept as the module has it."""
     sd = flax_to_torch_autoencoder(variables)
     for k, v in model.state_dict().items():
         if k.endswith("num_batches_tracked"):
@@ -409,6 +417,34 @@ def load_jax_autoencoder(model: torch.nn.Module, variables: Dict[str, Any]) -> N
 _FBN_EPS = 1e-5
 
 
+def reference_to_extractor_state_dict(state_dict: Mapping[str, Any],
+                                      frozen_source: bool = True) -> Dict[str, Any]:
+    """A reference room-mask extractor wrapper's state_dict
+    (feature_extractors.py:19-68: ResNet18's ``_feature_extractor.*``,
+    AlexNet's ``_feature_extractor.features.*`` and ``_fc.*``; keys may carry
+    a scene checkpoint's ``feature_extractor.`` prefix) -> the port
+    extractor's keys.  With ``frozen_source`` each ``running_var`` has the
+    eps its freeze baked in taken out (minus 1e-5 in f64, clamped at 0, as
+    the JAX package's ``convert_feature_extractor`` does; float64 values
+    stay float64, others come out float32), so the port's forward, which
+    adds 1e-5, computes the reference's affine.  ``num_batches_tracked``
+    and torchvision's unused AlexNet ``classifier`` are dropped."""
+    out = {}
+    for key, val in state_dict.items():
+        sub = key[len("feature_extractor."):] if key.startswith("feature_extractor.") else key
+        sub = sub[len("_feature_extractor."):] if sub.startswith("_feature_extractor.") \
+            else sub.replace("_fc.", "fc.", 1)
+        if sub.endswith("num_batches_tracked") or sub.startswith("classifier."):
+            continue
+        if frozen_source and sub.endswith("running_var"):
+            src = torch.as_tensor(val).cpu().numpy()
+            var = np.asarray(src, np.float64) - _FBN_EPS
+            dtype = np.float64 if src.dtype == np.float64 else np.float32
+            val = torch.from_numpy(np.maximum(var, 0.0).astype(dtype))
+        out[sub] = val
+    return out
+
+
 def reference_to_scene_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """A reference DiffusionSceneLayout_DDPM state_dict -> ``scene.networks``
     keys: ``diffusion.model.*`` -> ``denoiser.*`` (the port's Unet1D carries
@@ -417,29 +453,20 @@ def reference_to_scene_state_dict(state_dict: Mapping[str, Any]) -> Dict[str, to
     ``conditioner.*``, and the room-mask extractor's
     ``feature_extractor._feature_extractor.*`` (ResNet18; AlexNet's
     ``features.*``) and ``feature_extractor._fc.*`` (AlexNet) ->
-    ``feature_extractor.*``.  Each frozen ``running_var`` has the eps its
-    freeze baked in taken out (minus 1e-5 in f64, clamped at 0, as the JAX
-    package's ``convert_feature_extractor`` does), so the port's forward,
-    which adds 1e-5, computes the reference's affine.  The extractor's
-    ``num_batches_tracked`` and torchvision's unused AlexNet ``classifier``
-    are dropped.  Other keys (frozen text encoders) raise: those are not
-    ported."""
+    ``feature_extractor.*`` through :func:`reference_to_extractor_state_dict`
+    (the frozen eps taken out of each ``running_var``).  Other keys (frozen
+    text encoders) raise: those are not ported."""
     out = {}
+    extractor = {}
     for key, val in state_dict.items():
         if key.startswith("diffusion.model."):
             out["denoiser." + key[len("diffusion.model."):]] = val
         elif key in _CONDITIONER:
             out["conditioner." + key] = val
         elif key.startswith("feature_extractor."):
-            sub = key[len("feature_extractor."):]
-            sub = sub[len("_feature_extractor."):] if sub.startswith("_feature_extractor.") \
-                else sub.replace("_fc.", "fc.", 1)
-            if sub.endswith("num_batches_tracked") or sub.startswith("classifier."):
-                continue
-            if sub.endswith("running_var"):
-                var = np.asarray(torch.as_tensor(val).cpu().numpy(), np.float64) - _FBN_EPS
-                val = torch.from_numpy(np.maximum(var, 0.0).astype(np.float32))
-            out["feature_extractor." + sub] = val
+            extractor[key] = val
         else:
             raise KeyError(f"unmapped scene-model key: {key}")
+    for key, val in reference_to_extractor_state_dict(extractor).items():
+        out["feature_extractor." + key] = val
     return out

@@ -23,6 +23,8 @@ from diffuscene_tpu_torch.data import ThreedFutureModel, ThreedFutureNormPCDatas
 from diffuscene_tpu_torch.models import SceneDiffusion, autoencoder
 from diffuscene_tpu_torch.train import AETrainer
 from diffuscene_tpu_torch.utils import checkpoint, config
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "**", "*.yaml"), recursive=True))

@@ -18,6 +18,8 @@ import torch
 from diffuscene_tpu.ops import attention as jat
 from diffuscene_tpu_torch.models.denoiser import Attention, PreNorm, Residual
 from diffuscene_tpu_torch.ops import attention as tat
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 B, N, C, H, D = 3, 12, 128, 4, 32
 TOL = {"f32": dict(atol=3e-5, rtol=0), "bf16": dict(atol=3e-2, rtol=0)}

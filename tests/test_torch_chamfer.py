@@ -22,6 +22,8 @@ from diffuscene_tpu.ops import chamfer as jch
 from diffuscene_tpu.ops import knn as jknn
 from diffuscene_tpu_torch.ops import chamfer as tch
 from diffuscene_tpu_torch.ops import knn as tknn
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 DIST_ATOL = 1e-5
 

@@ -27,6 +27,8 @@ from diffuscene_tpu_torch.ops import fused_resblock as trb
 from diffuscene_tpu_torch.utils.convert import denoiser_tree, flax_to_torch_denoiser
 
 from test_torch_denoiser import KW, N, _flax_params
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 B, T = 4, 6
 UNCOND = {**KW, "instanclass_dim": 0}

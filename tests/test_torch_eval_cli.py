@@ -18,7 +18,6 @@ JAX package's where the two can see the same inputs.
 - Flag parity: the port's parsers take every option of the JAX CLIs.
 """
 import argparse
-import contextlib
 import functools
 import json
 import os
@@ -30,25 +29,10 @@ import yaml
 from PIL import Image
 
 from diffuscene_tpu_torch.data import make_synthetic_cached_dataset, make_synthetic_catalog
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 ENCODING = "cached_diffusion_cosin_angle_objfeatsnorm_lat32_wocm"
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """torch and the BLAS under numpy/scipy on one thread: the tests run
-    with several workers a machine, and a thread a core per worker
-    oversubscribes the cores (scipy's ``sqrtm`` of a 2048x2048 product
-    takes 11.6 s on 8 threads and 16.5 s on one)."""
-    try:
-        from threadpoolctl import threadpool_limits
-    except ImportError:                 # the BLAS keeps its threads
-        threadpool_limits = contextlib.nullcontext
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpool_limits(1):
-        yield
-    torch.set_num_threads(n)
 
 
 def _config(root, data_dir):
@@ -158,8 +142,12 @@ def test_generate_sh_command_then_mesh_flags(setup, tmp_path):
     with pytest.raises(SystemExit, match="needs a retrieved catalog"):
         gen_main([setup["config"], mesh, "--compute_intersec", "--judge_mesh_intersec",
                   "--device", "cpu"])
-    with pytest.raises(SystemExit, match="profile_dir"):
-        gen_main([setup["config"], mesh, "--profile_dir", str(tmp_path), "--device", "cpu"])
+    # --profile_dir: a torch.profiler trace of the only batch
+    trace = str(tmp_path / "trace")
+    gen_main([setup["config"], str(tmp_path / "prof"), "--n_sequences", "1", "--batch_size", "1",
+              "--profile_dir", trace, "--device", "cpu"])
+    traces = [f for f in os.listdir(trace) if f.endswith(".pt.trace.json")]
+    assert len(traces) == 1 and os.path.getsize(os.path.join(trace, traces[0])) > 0
 
 
 def _scene_output_args(pkg, argv):
@@ -366,11 +354,12 @@ def _jax_parser(main):
 
 
 # options of the JAX CLIs that the port takes and refuses at run time
-REFUSED = {"generate_diffusion": {"--profile_dir"}}
+REFUSED = {"train_diffusion": {"--with_wandb_logger", "--mixed_precision"}}
 
 
 @pytest.mark.parametrize("module", ["generate_diffusion", "completion_rearrange",
-                                    "compute_fid_scores", "improved_precision_recall"])
+                                    "compute_fid_scores", "improved_precision_recall",
+                                    "train_diffusion"])
 def test_flag_parity_with_jax(module):
     """The port's parser accepts every option and positional of the JAX
     CLI with the same default and the same choices; the options it refuses
@@ -397,5 +386,6 @@ def test_flag_parity_with_jax(module):
              {o for a in jax_parser._actions for o in a.option_strings}}
     assert extra == {"--device"}
     for opt in REFUSED.get(module, ()):
+        value = [] if port_opts[opt].nargs == 0 else ["x"]
         with pytest.raises(SystemExit, match=opt.lstrip("-")):
-            port_mod.main(["config.yaml", "out", opt, "x", "--device", "cpu"])
+            port_mod.main(["config.yaml", "out", opt, *value, "--device", "cpu"])

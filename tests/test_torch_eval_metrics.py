@@ -16,7 +16,6 @@ Stated tolerances:
   scores are f64 through matrix products whose summation order differs
   between the two BLAS calls: rtol 1e-12.
 """
-import contextlib
 import os
 
 import numpy as np
@@ -29,25 +28,10 @@ from diffuscene_tpu.eval import ipr as jipr
 from diffuscene_tpu_torch.eval import backbones as pb
 from diffuscene_tpu_torch.eval import fid as pfid
 from diffuscene_tpu_torch.eval import ipr as pipr
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 FEATURE_REL_L2, FEATURE_RTOL, FEATURE_ATOL = 1e-5, 1e-4, 1e-6
-
-
-@pytest.fixture(autouse=True)
-def one_thread():
-    """torch and the BLAS under numpy/scipy on one thread: the tests run
-    with several workers a machine, and a thread a core per worker
-    oversubscribes the cores (scipy's ``sqrtm`` of a 2048x2048 product
-    takes 11.6 s on 8 threads and 16.5 s on one)."""
-    try:
-        from threadpoolctl import threadpool_limits
-    except ImportError:                 # the BLAS keeps its threads
-        threadpool_limits = contextlib.nullcontext
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    with threadpool_limits(1):
-        yield
-    torch.set_num_threads(n)
 
 
 def _close_features(a, b):

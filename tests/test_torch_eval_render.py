@@ -29,6 +29,8 @@ from diffuscene_tpu_torch.data.raw import load_obj_mesh
 from diffuscene_tpu_torch.eval import png
 from diffuscene_tpu_torch.eval import render as pr
 from diffuscene_tpu_torch.eval.retrieval import SceneMesh
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 MODES = {1: "L", 2: "LA", 3: "RGB", 4: "RGBA"}
 

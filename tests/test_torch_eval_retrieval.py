@@ -23,6 +23,8 @@ from diffuscene_tpu_torch.data import raw as praw
 from diffuscene_tpu_torch.data.threed_future import ThreedFutureDataset
 from diffuscene_tpu_torch.eval import mesh_intersect as pmi
 from diffuscene_tpu_torch.eval import retrieval as pret
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 OBJ_MULTI = """mtllib m.mtl
 v 0 0 0

@@ -18,6 +18,8 @@ import torch
 from diffuscene_tpu.ops import fused_level as jfl
 from diffuscene_tpu_torch.ops import fused_level as tfl
 from diffuscene_tpu_torch.ops import fused_resblock as trb
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 GROUPS = 8
 C = 64

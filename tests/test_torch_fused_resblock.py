@@ -21,6 +21,8 @@ import torch
 from diffuscene_tpu.ops import fused_resblock as jrb
 from diffuscene_tpu_torch.models.denoiser import ResnetBlock, init_parameters
 from diffuscene_tpu_torch.ops import fused_resblock as trb
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 C, GROUPS = 64, 8
 TOL = {"f32": dict(atol=2e-5, rtol=0), "bf16": dict(atol=5e-2, rtol=2e-2)}

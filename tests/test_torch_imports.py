@@ -67,16 +67,18 @@ def test_port_sources_found():
                    "eval/fid.py", "eval/ipr.py", "models/feature_extractors.py",
                    "utils/image.py", "data/utils_io.py", "cli/preprocess_data.py",
                    "cli/pickle_threed_future_dataset.py",
-                   "cli/pickle_threed_future_pointcloud.py"):
+                   "cli/pickle_threed_future_pointcloud.py", "utils/profiling.py",
+                   "utils/export.py", "models/factory.py", "native/__init__.py"):
         assert f"diffuscene_tpu_torch/{module}" in paths, module
-    assert len(paths) >= 62
+    assert len(paths) >= 66
 
 
 # the raw-data pipeline and the room-mask path compute the same with or
 # without Pillow, so they import it nowhere, not even inside a function
 PILLOW_FREE = ("data/raw.py", "data/threed_front.py", "data/synthetic.py", "data/utils_io.py",
                "utils/image.py", "models/feature_extractors.py", "cli/preprocess_data.py",
-               "cli/pickle_threed_future_dataset.py", "cli/pickle_threed_future_pointcloud.py")
+               "cli/pickle_threed_future_dataset.py", "cli/pickle_threed_future_pointcloud.py",
+               "native/__init__.py")
 
 
 @pytest.mark.parametrize("module", PILLOW_FREE)

@@ -20,6 +20,8 @@ from diffuscene_tpu_torch.models import inference as tinf
 from diffuscene_tpu_torch.utils.convert import denoiser_tree, flax_to_torch_denoiser
 
 from test_torch_denoiser import KW, N, _flax_params
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 B, T = 4, 6
 

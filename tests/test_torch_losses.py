@@ -29,6 +29,8 @@ from diffuscene_tpu_torch.models import SceneDiffusion, SceneModelConfig
 from diffuscene_tpu_torch.models.denoiser import ws_standardize_fast
 from diffuscene_tpu_torch.ops.iou3d import axis_aligned_bbox_overlaps_3d
 from diffuscene_tpu_torch.utils.convert import load_jax_params, scene_tree
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 B, N, T = 4, 12, 1000
 BOUNDS = {"translations_min": np.array([-2.7, 0.0, -2.7], np.float32),

@@ -1,0 +1,196 @@
+"""The port's learned/random Fourier time embedding and unequal ``dim_mults``
+(diffuscene_tpu_torch/models/denoiser.py, models/inference.py), and its
+plain ``AutoEncoder`` (models/autoencoder.py), against the JAX package.
+
+Weights are made by the port from a seed and carried to the Flax tree by
+``diffuscene_tpu.utils.convert.convert_denoiser`` / ``convert_autoencoder``
+(the bridge's inverse, ``flax_to_torch_denoiser``, must give them back bit
+for bit).  Tolerances, on outputs of O(1):
+
+- Unet1D forward against Flax: f32 atol 2e-4 (the port's denoiser tests'
+  bound); bf16, which rounds every layer in both frameworks in another
+  order, within 5e-2 relative L2 and atol 0.25 (the bf16 text forward's
+  0.15 holds there too but for single entries: 0.156 at t=700, where the
+  Fourier features' large arguments feed the bf16 time MLP);
+- both serving engines' CPU paths (exact GELU) against the Flax forward:
+  f32 atol 2e-4;
+- a learned-embedding model's loss rtol 1e-5 and its gradients within 1e-4
+  relative L2 a tensor (tests/test_torch_losses.py's f32 bounds);
+- the AutoEncoder at B=4, 128 points (tests/test_torch_autoencoder.py's
+  reason: at B=2 the train-mode BatchNorm variance cancels): outputs and
+  running statistics atol 1e-4.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from diffuscene_tpu.models import SceneDiffusion as JSceneDiffusion
+from diffuscene_tpu.models import SceneModelConfig as JSceneModelConfig
+from diffuscene_tpu.models.autoencoder import AutoEncoder as JAutoEncoder
+from diffuscene_tpu.models.denoiser import Unet1D as JUnet1D
+from diffuscene_tpu.utils.convert import convert_denoiser
+from diffuscene_tpu_torch.models import AutoEncoder, SceneDiffusion, SceneModelConfig, Unet1D
+from diffuscene_tpu_torch.models.denoiser import init_parameters
+from diffuscene_tpu_torch.models.inference import (check_card_widths, fused_unet1d_forward,
+                                                   fused_unet1d_forward_rows,
+                                                   precompute_conditioning,
+                                                   prepare_chain_params,
+                                                   prepare_inference_params)
+from diffuscene_tpu_torch.utils.convert import (denoiser_tree, flax_to_torch_denoiser,
+                                                load_jax_autoencoder, scene_tree)
+from test_torch_losses import BOUNDS, _flat, _scene_batch, jax_loss_fn
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
+
+BASE = dict(dim=32, channels=62, objectness_dim=0, class_dim=22, angle_dim=2, objfeat_dim=32,
+            context_dim=0, instanclass_dim=16)
+CONFIGS = {"learned": dict(dim_mults=(1,), learned_sinusoidal_cond=True),
+           "random": dict(dim_mults=(1,), random_fourier_features=True),
+           "mults12": dict(dim_mults=(1, 2))}
+TOL = {torch.float32: 2e-4, torch.bfloat16: 0.25}
+
+
+def _inputs(seed=0, B=2):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, 12, 62)).astype(np.float32), np.array([3, 700][:B]),
+            rng.normal(size=(B, 12, 16)).astype(np.float32))
+
+
+def _nets(name, dtype=torch.float32):
+    kw = {**BASE, **CONFIGS[name]}
+    net = Unet1D(**kw, compute_dtype=dtype, device="cpu")
+    init_parameters(net, torch.Generator().manual_seed(1))
+    sd = {k: v.numpy() for k, v in net.state_dict().items()}
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    return net, JUnet1D(**kw, compute_dtype=jdt), convert_denoiser(sd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("name", list(CONFIGS))
+def test_unet_forward_and_engines_match_flax(name, dtype):
+    """The module forward against Flax (the Flax init tree's shapes equal the
+    bridged tree's, leaf for leaf; the bridge's inverse gives the port's
+    weights back bit for bit); in f32 both engines' CPU paths too: the
+    rows engine on equal level widths, and on unequal ones its chains
+    raise ValueError (SceneDiffusion then serves the 3-D engine)."""
+    net, jnet, params = _nets(name, dtype)
+    x, t, ctx = _inputs()
+    shapes = jax.eval_shape(jnet.init, jax.random.PRNGKey(0), x, t, ctx)["params"]
+    assert jax.tree.map(lambda s: s.shape, shapes) == jax.tree.map(np.shape, params)
+    back = flax_to_torch_denoiser(params)
+    assert back.keys() == net.state_dict().keys()
+    assert all(torch.equal(back[k], v) for k, v in net.state_dict().items())
+    want = np.asarray(jax.jit(jnet.apply)({"params": params}, x, t, ctx))
+    xt, tt, ct = torch.from_numpy(x), torch.from_numpy(t), torch.from_numpy(ctx)
+    with torch.no_grad():
+        got = net(xt, tt, ct).numpy()
+    np.testing.assert_allclose(got, want, atol=TOL[dtype], rtol=0)
+    if dtype != torch.float32:
+        assert np.linalg.norm(got - want) / np.linalg.norm(want) <= 5e-2
+        return
+    prep = prepare_inference_params(net, denoiser_tree(net), num_timesteps=1000)
+    got3 = fused_unet1d_forward(net, prep, xt, tt, ct, exact_gelu=True).numpy()
+    np.testing.assert_allclose(got3, want, atol=TOL[dtype], rtol=0)
+    cc = precompute_conditioning(net, prep, ct)
+    if name == "mults12":
+        with pytest.raises(ValueError, match="equal level dims"):
+            prepare_chain_params(net, prep, frozenset(cc["film_c"]))
+        with pytest.raises(ValueError, match="fused=False"):
+            check_card_widths(net)
+        return
+    chains = prepare_chain_params(net, prep, frozenset(cc["film_c"]))
+    film_c2 = {n: v.reshape(-1, v.shape[-1]) for n, v in cc["film_c"].items()}
+    got_rows = fused_unet1d_forward_rows(net, prep, chains, xt, tt, {"film_c2": film_c2},
+                                         exact_gelu=True).numpy()
+    np.testing.assert_allclose(got_rows, want, atol=TOL[dtype], rtol=0)
+
+
+def _scene_cfgs(net_extra, time_num=50):
+    nk = {**BASE, "dim_mults": (1,), "seperate_all": True, **net_extra}
+    kw = dict(point_dim=62, class_dim=22, angle_dim=2, objectness_dim=0, objfeat_dim=32,
+              sample_num_points=12, room_mask_condition=False, instance_condition=True,
+              learnable_embedding=True, instance_emb_dim=16, model_mean_type="v",
+              time_num=time_num, loss_separate=True, loss_iou=True,
+              net_kwargs=tuple(sorted(nk.items())))
+    return JSceneModelConfig(**kw), SceneModelConfig(**kw)
+
+
+def test_learned_embedding_loss_gradients_and_sampling():
+    """get_loss and every gradient of a learned-Fourier model against
+    jax.grad (the Fourier weights' among them); a random-Fourier model's
+    weights take no gradient but stay parameters; sample(fused="rows") on
+    unequal level dims serves the 3-D engine, as in JAX."""
+    jcfg, cfg = _scene_cfgs({"learned_sinusoidal_cond": True})
+    scene = SceneDiffusion(cfg, bounds=BOUNDS, device="cpu").init(torch.Generator().manual_seed(3))
+    params = {"params": jax.tree.map(lambda a: np.asarray(a.float().numpy()),
+                                     scene_tree(scene))}
+    rng = np.random.default_rng(5)
+    batch = _scene_batch(rng)
+    t = rng.integers(0, 50, 4).astype(np.int32)
+    noise = rng.normal(size=(4, 12, 62)).astype(np.float32)
+    jscene = JSceneDiffusion(jcfg, bounds=BOUNDS)
+    (want, _), want_g = jax.jit(jax.value_and_grad(jax_loss_fn(jscene), has_aux=True))(
+        params, batch, t, noise)
+    loss, _ = scene.get_loss({k: torch.from_numpy(v) for k, v in batch.items()},
+                             t=torch.from_numpy(t).long(), noise=torch.from_numpy(noise))
+    np.testing.assert_allclose(loss.item(), float(want), rtol=1e-5)
+    names = [n for n, _ in scene.networks.named_parameters()]
+    grads = torch.autograd.grad(loss, [p for _, p in scene.networks.named_parameters()])
+    got_g = _flat(jax.tree.map(lambda a: a.numpy(), scene_tree(scene, dict(zip(names, grads)))))
+    want_g = _flat(want_g["params"])
+    assert got_g.keys() == want_g.keys()
+    assert "['denoiser']['sinu_pos_emb']['weights']" in want_g
+    for k in want_g:
+        err = np.linalg.norm(got_g[k] - want_g[k]) / max(np.linalg.norm(want_g[k]), 1e-12)
+        assert err <= 1e-4, (k, err)
+
+    _, rcfg = _scene_cfgs({"random_fourier_features": True})
+    rscene = SceneDiffusion(rcfg, bounds=BOUNDS, device="cpu").init(torch.Generator().manual_seed(3))
+    rloss, _ = rscene.get_loss({k: torch.from_numpy(v) for k, v in batch.items()},
+                               t=torch.from_numpy(t).long(), noise=torch.from_numpy(noise))
+    w = rscene.denoiser.sinu_pos_emb.weights
+    assert w.requires_grad and torch.autograd.grad(rloss, w, allow_unused=True)[0] is None
+
+    _, ucfg = _scene_cfgs({"dim_mults": (1, 2)}, time_num=4)
+    uscene = SceneDiffusion(ucfg, device="cpu").init(torch.Generator().manual_seed(4))
+    a = uscene.sample(2, generator=torch.Generator().manual_seed(0), fused="rows")
+    b = uscene.sample(2, generator=torch.Generator().manual_seed(0), fused=True)
+    assert torch.equal(a, b)
+
+
+def test_autoencoder_matches_flax_in_eval_and_train_mode():
+    """The plain encoder/decoder pair on the JAX variables (running moments
+    moved off their init), B=4 and 128 points: eval-mode outputs, then
+    train-mode outputs and the updated running statistics."""
+    rng = np.random.default_rng(0)
+    pc = rng.uniform(-0.5, 0.5, (4, 128, 3)).astype(np.float32)
+    jmodel = JAutoEncoder()
+    variables = jax.tree.map(lambda a: np.array(a, np.float32),
+                             jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.asarray(pc)))
+    for leaf in jax.tree.leaves(variables["batch_stats"]):
+        leaf += 0.3 * rng.uniform(size=leaf.shape).astype(np.float32)
+    model = AutoEncoder(device="cpu")
+    load_jax_autoencoder(model, variables)
+    assert not any(k.startswith(("mean_fc", "logvar_fc", "fc.")) for k in model.state_dict())
+
+    @jax.jit
+    def run(v, pc):
+        eval_out = jmodel.apply(v, pc)
+        train_out, upd = jmodel.apply(v, pc, train=True, mutable=["batch_stats"])
+        return eval_out, train_out, upd["batch_stats"]
+
+    want_eval, want_train, stats = jax.tree.map(np.asarray, run(variables, jnp.asarray(pc)))
+    with torch.no_grad():
+        got_eval = model.eval()(torch.from_numpy(pc)).numpy()
+        got_train = model.train()(torch.from_numpy(pc)).numpy()
+    assert got_eval.shape == (4, 2025, 3)
+    np.testing.assert_allclose(got_eval, want_eval, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got_train, want_train, atol=1e-4, rtol=0)
+    want_sd = AutoEncoder(device="cpu")
+    load_jax_autoencoder(want_sd, {"params": variables["params"], "batch_stats": stats})
+    for k, v in want_sd.state_dict().items():
+        if "running" in k:
+            np.testing.assert_allclose(model.state_dict()[k].numpy(), v.numpy(), atol=1e-4,
+                                       rtol=0, err_msg=k)

@@ -37,18 +37,11 @@ from diffuscene_tpu_torch.data.threed_future import ThreedFutureDataset
 from diffuscene_tpu_torch.eval.png import read_png
 
 from test_torch_tasks import _ddpm_stream, _replay
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 N_ROOMS = 12
 ENCODING = "cached_diffusion_cosin_angle_objfeatsnorm_lat32_wocm"
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """torch on one thread, as the other port tests run it under workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

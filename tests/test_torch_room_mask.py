@@ -39,21 +39,14 @@ from diffuscene_tpu_torch.utils.convert import (load_jax_extractor, load_jax_par
 from test_room_mask import _random_resnet18_state_dict, _torch_resnet18_forward
 from test_torch_losses import _flat, _scene_batch, jax_loss_fn
 from test_torch_tasks import _ddpm_stream, _replay
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 B, N, T = 4, 12, 5
 EXTRACTOR_TOL = dict(atol=1e-4, rtol=1e-4)
 LOSS_RTOL, GRAD_REL_L2, SAMPLE_ATOL = 1e-5, 1e-4, 1e-4
 TRAINING = {"optimizer": "Adam", "lr": 1e-4, "schedule": "step", "lr_step": 1000,
             "lr_decay": 0.5, "max_grad_norm": 10.0}
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """torch on one thread, as the other port tests run it under workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _fill(shapes, seed):

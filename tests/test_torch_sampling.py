@@ -26,6 +26,8 @@ from diffuscene_tpu_torch.diffusion import gaussian as tg
 from diffuscene_tpu_torch.diffusion import make_schedule
 from diffuscene_tpu_torch.models import SceneDiffusion, SceneModelConfig
 from diffuscene_tpu_torch.utils.convert import load_jax_params
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAGSHIP_YAML = os.path.join(REPO, "configs/uncond/diffusion_bedrooms_instancond_lat32_v.yaml")

@@ -28,6 +28,8 @@ from diffuscene_tpu_torch.models import SceneDiffusion, SceneModelConfig
 from diffuscene_tpu_torch.utils.convert import (load_jax_params, reference_to_scene_state_dict,
                                                 scene_tree)
 from test_torch_losses import F32_GRAD_TOL, F32_LOSS_RTOL, _flat, _scene_batch, jax_params
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 B, N, P = 4, 12, 3
 SAMPLE_ATOL = 1e-4

@@ -15,6 +15,8 @@ import torch
 import yaml
 
 from diffuscene_tpu_torch.data import make_synthetic_cached_dataset, make_synthetic_catalog
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 ENCODING = "cached_diffusion_cosin_angle_objfeatsnorm_lat32_wocm"
 

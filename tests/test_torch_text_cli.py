@@ -25,20 +25,11 @@ from diffuscene_tpu.data.factory import get_dataset_raw_and_encoded as j_get_dat
 from diffuscene_tpu_torch.data import make_synthetic_cached_dataset
 from diffuscene_tpu_torch.models import SceneDiffusion, SceneModelConfig
 from diffuscene_tpu_torch.utils.config import load_config
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENCODING = "cached_diffusion_text_cosin_angle_objfeatsnorm_lat32_wocm"
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """torch on one thread: the tests run with several workers a machine,
-    and torch's default of a thread a core per worker oversubscribes the
-    cores (the full-width cases then ran about 40 times slower than alone)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _text_config(root):

@@ -24,6 +24,8 @@ from diffuscene_tpu.data import text as jt
 from diffuscene_tpu.data.factory import get_dataset_raw_and_encoded as j_get_dataset
 from diffuscene_tpu_torch.data import text as tt
 from diffuscene_tpu_torch.data.factory import get_dataset_raw_and_encoded
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ENCODING = "cached_diffusion_text_cosin_angle_objfeatsnorm_lat32_wocm"

@@ -47,23 +47,14 @@ from diffuscene_tpu_torch.utils.convert import (denoiser_tree, flax_to_torch_den
 
 from test_torch_losses import F32_GRAD_TOL, F32_LOSS_RTOL, _flat, _scene_batch
 from test_torch_tasks import _ddpm_stream, _normal, _replay
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 B, N, L, TEXT_DIM, T = 4, 12, 10, 24, 6
 KW = dict(dim=64, dim_mults=(1, 1, 1, 1), channels=62, objectness_dim=0, class_dim=22,
           angle_dim=2, objfeat_dim=32, context_dim=0, instanclass_dim=32,
           text_condition=True, text_dim=TEXT_DIM)
-
-
-@pytest.fixture(autouse=True)
-def one_torch_thread():
-    """torch on one thread: the tests run with several workers a machine,
-    and torch's default of a thread a core per worker oversubscribes the
-    cores (tests/test_torch_text_cli.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _randomize(shapes, seed):

@@ -29,6 +29,8 @@ from diffuscene_tpu_torch.utils.checkpoint import (load_checkpoint, load_model_w
 from diffuscene_tpu_torch.utils.config import as_dtype, load_config
 from diffuscene_tpu_torch.utils.convert import load_jax_params, scene_tree
 from test_torch_losses import BOUNDS, _configs, _flat, _scene_batch, jax_loss_fn, jax_params
+from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RECIPES = {"flagship": "configs/uncond/diffusion_bedrooms_instancond_lat32_v.yaml",
