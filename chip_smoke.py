@@ -88,8 +88,8 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    then DDPM-1000 at B=16 from one seeded generator: at every step of the
    fused=True trajectory both engines (exact GELU) within FORWARD_TOL of
    the module on that step's x_t (a breach fails and names the step), and
-   the three paths run free, their descaled boxes' relative L2 and max
-   difference and their class argmax agreement printed for each pair;
+   the two engines run free, their descaled boxes' relative L2 and max
+   difference and their class argmax agreement printed;
 12. the scene model's training path at the flagship's full width (the
    diffusion_bedrooms_instancond_lat32_v config: dim 512, 4 levels, N=12,
    v-prediction, loss_separate, loss_iou on the train bounds, clip + Adam,
@@ -221,10 +221,29 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    checkpoint, a shape AE and a ResNet18 extractor with random frozen
    statistics, on the card, through utils/export.py to the reference
    layout and back: every tensor bit-equal.  The chamfer kernel's count,
-   set to 0 as the phase starts, must read 0 at its end.
+   set to 0 as the phase starts, must read 0 at its end;
+21. the communication layer (parallel/*) and mixed precision, on random
+   encoded bedrooms from the seed: (a) an NCCL group of one rank on the
+   card: the flagship's data-parallel train step (Trainer(mesh=make_mesh()),
+   B=128, f32) and ShardedSampler(fused=True) DPM-Solver++-20 at B=64 bit
+   for bit equal to the step and SceneDiffusion.sample without a process
+   group (exactly 560 B1 and 20 B2); (b) two gloo ranks on the one card,
+   spawned (parallel_rank): the data-parallel (2 x 1) and tensor-parallel
+   (1 x 2) flagship steps against the one-rank step, ShardedSampler through
+   the 3-D engine and the rows engine, 32 scenes a rank (exactly 560 B1 and
+   20 B2, and 380 B4, a rank), the gathered samples within FORWARD_TOL of
+   the one-rank ones with every argmax class equal, and the data-parallel
+   AE step at B=16 (2 B3 launches a rank) against the one-rank step; NCCL
+   asked for two ranks on the one card must refuse them; (c) the b512
+   recipe's bf16 step at B=512 with mixed_precision against its plain step
+   from one state (the CPU tests' bounds), and each one's median ms/step
+   over 2 x PAR_MP_STEPS steps, in turns (plain, mixed, mixed, plain), and
+   peak memory, beside phase 13's; then
+   cli/train_diffusion.py --mixed_precision under torchrun (one process)
+   for PAR_CLI_EPOCHS epochs of the flagship config on synthetic rooms.
 
 The phases run in the order 1, 2, 7, 8, 3 with 9 (one set of full-width
-models), 4, 10, 11, 15, 5, 6, 12, 13, 14, 16, 17, 18, 19, 20.  TF32 is off for every matmul and
+models), 4, 10, 11, 15, 5, 6, 12, 13, 14, 21, 16, 17, 18, 19, 20.  TF32 is off for every matmul and
 convolution (the references are f32; the f32 B1 kernel's split TF32 is
 three tf32 products per f32 product, not TF32 matmul).
 Phase 1 prints each kernel's registers, stack and spills from ptxas, and
@@ -245,11 +264,15 @@ line), ``--only-tasks`` phases 1 and 16 (with the tasks JSON line) and
 ``--only-text`` phases 1 and 17 (with the text JSON line),
 ``--only-eval`` phases 1 and 18 (with the eval JSON line) and
 ``--only-data`` phases 1 and 19 (with the data JSON line) and
-``--only-rest`` phases 1 and 20 (with the rest JSON line); none of them
-prints an ok line.
+``--only-rest`` phases 1 and 20 (with the rest JSON line) and
+``--only-parallel`` phases 1 and 21 (with the parallel JSON line); none of
+them prints an ok line.
 
 The line before the last is the card's name and power limit again, the one
 before it a JSON summary of the kernels, the one before that a JSON
+summary of phase 21 ("parallel": the one-rank NCCL checks, each two-rank
+path's agreement and launches a rank, the NCCL refusal, each b512 step's
+ms/step and peak memory), the one before that a JSON
 summary of phase 20 ("rest": each optimizer's run, the loaders' batches/s,
 the async check, the traced generate, the Fourier samples, the dim_mults
 check, the export round trips), the one before that a JSON summary of
@@ -281,8 +304,8 @@ entries carry the task samples' launches ("task_launches"), and the
 chain, ResnetBlock and set-attention entries the text samples' launches
 ("text_launches"), and the ResnetBlock and set-attention entries the
 generate command's launches of phase 18 ("eval_launches"); every entry
-carries its launches in phase 19 ("data_launches") and in phase 20
-("rest_launches").  The
+carries its launches in phase 19 ("data_launches"), in phase 20
+("rest_launches") and in phase 21 a rank ("parallel_launches").  The
 last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -499,10 +522,46 @@ REST_OPTIMIZERS = (
 REST_PROFILE_STEPS, REST_LOADER_EPOCHS = 3, 2
 REST_FOURIER_STEPS, REST_FOURIER_B = 250, 64
 REST_MULTS_DIM, REST_MULTS_STEPS, REST_MULTS_B = 64, 50, 16
+# phase 21, the communication layer (parallel/*) and mixed precision, on
+# random encoded bedroom batches made from the seed: the flagship's train
+# step at its B=128 (f32) and DPM-Solver++-20 samples of PAR_SAMPLE_B scenes
+# through both engines; the shape AE's step at its B=16; the b512 recipe's
+# bf16 step at B=512 with and without mixed_precision, PAR_MP_STEPS timed
+# steps each.  Bounds of the IoU loss: bench.py's bedroom box bounds
+# (DRIFT_BOUNDS).
+PAR_SAMPLE_B, PAR_MP_STEPS, PAR_TIMEOUT = 64, 10, 300
+# the train CLI with --mixed_precision under torchrun: the flagship config
+# on 160 synthetic rooms (one batch of 128 an epoch)
+PAR_CLI_SCENES, PAR_CLI_EPOCHS = 160, 1
+PAR_DIR = "build/smoke_parallel"
+# stated tolerances.  One NCCL rank: all-reduce over one rank is the
+# identity, so the data-parallel step and the sharded sample equal the
+# non-distributed ones bit for bit.  Two ranks (each its half of the batch,
+# f32, TF32 off): the loss is a mean of two halves and the matmuls run at
+# another M, so the loss, its terms and the gradient norm within 1e-5
+# relative; after one Adam step every parameter within 2.05 lr of the
+# one-rank step, all but 1e-3 of them within 1e-2 lr (an entry whose
+# gradient is rounding noise may step the other way).  Tensor parallelism
+# sees the whole batch on each rank with the gathered kernels: the same
+# bounds.  The gathered samples within FORWARD_TOL of the one-rank sample
+# with every argmax class equal.  The AE step: two ranks of 8 clouds sum
+# each BatchNorm's moments and the gradients in another order than one rank
+# of 16, and f32 rounding of a reordered sum moves its loss and gradient
+# norm by as much as the one-rank step on the same clouds in reverse order
+# does (that witness is printed beside it): the loss within 1e-4 and the
+# gradient norm within 5e-4 relative, bounds that the fault of each rank's
+# own moments must exceed (it runs too).  mixed_precision vs the plain bf16
+# step from one state (the CPU tests' bounds,
+# tests/test_torch_mixed_precision.py): the loss within 2e-2 relative,
+# every parameter within 2.05 lr, under 2% of them more than 0.5 lr apart,
+# and neither equal (a step without the bf16 cast would equal the plain one).
+PAR_STEP_TOL = {"loss": 1e-5, "max_lr": 2.05, "loose_lr": 1e-2, "loose_share": 1e-3}
+PAR_AE_TOL = {"loss": 1e-4, "gradnorm": 5e-4}
+PAR_MP_TOL = {"loss": 2e-2, "max_lr": 2.05, "loose_lr": 0.5, "loose_share": 0.02}
 # the short checks: phase 1 and one kernel's phase, no ok line
 ONLY = ("--only-resblock", "--only-chain", "--only-attention", "--only-chamfer", "--only-train",
         "--only-f32-engine", "--only-tasks", "--only-text", "--only-eval", "--only-data",
-        "--only-rest")
+        "--only-rest", "--only-parallel")
 
 
 def card_line():
@@ -1279,13 +1338,13 @@ def phase_drift(torch, scene):
     within FORWARD_TOL f32 of the module's (the maxima stay on the card and
     are read once; a breach names the step).  The gated engine calls take
     the module's exact GELU, as phase 9's do (the sampler's engines default
-    to the tanh form, about 1e-3 of its own).  The measurement: the three
-    paths also run free, each on its own trajectory from the same
+    to the tanh form, about 1e-3 of its own).  The measurement: the two
+    engines also run free, each on its own trajectory from the same
     generator; the relative L2 and the max abs difference of their descaled
-    boxes and the share of slots whose class argmax agrees, for each pair,
-    are printed beside DRIFT_BOUND and not gated (random weights may
-    amplify split TF32's per-forward differences over 1000 steps without a
-    fault)."""
+    boxes and the share of slots whose class argmax agrees are printed
+    beside DRIFT_BOUND and not gated (random weights may amplify split
+    TF32's per-forward differences over 1000 steps without a fault).  The
+    module's own free run (38-50 s) is left out for the script's time."""
     from diffuscene_tpu_torch.diffusion import p_sample_loop
     from diffuscene_tpu_torch.diffusion.gaussian import descale_to_origin
     from diffuscene_tpu_torch.models import inference as inf
@@ -1337,8 +1396,7 @@ def phase_drift(torch, scene):
             i = int(bad[0])
             raise RuntimeError(f"the f32 {name} engine is {worst[i, k].item():.3e} from the module "
                                f"at step {i} (t={T - 1 - i}) of the fused=True trajectory")
-    for name in ("rows", "module"):
-        free[name], walls[name] = sample(paths[name])
+    free["rows"], walls["rows"] = sample(paths["rows"])
     print(f"drift: free f32 DDPM-{T} B={DRIFT_B} wall s: " + ", ".join(
         f"{k} {v:.1f}" for k, v in walls.items()), flush=True)
     spec = scene.spec
@@ -1355,7 +1413,7 @@ def phase_drift(torch, scene):
     for name, x in free.items():
         if not bool(torch.isfinite(x).all()) or tuple(x.shape) != (DRIFT_B, 12, 62):
             raise RuntimeError(f"the free f32 {name} sample is malformed")
-    for a, b in (("3-D", "module"), ("rows", "module"), ("3-D", "rows")):
+    for a, b in (("3-D", "rows"),):
         ba, bb = boxes(free[a]), boxes(free[b])
         rel = ((ba - bb).norm() / bb.norm()).item()
         agree = (scene.split_samples(free[a])["class_labels"].argmax(-1)
@@ -3419,6 +3477,453 @@ def phase_rest(torch, card, numpy_ms=None):
     return out
 
 
+def par_bounds():
+    import numpy as np
+
+    (t_lo, t_hi), (s_lo, s_hi) = DRIFT_BOUNDS["translations"], DRIFT_BOUNDS["sizes"]
+    return {"translations_min": np.array(t_lo, np.float32),
+            "translations_max": np.array(t_hi, np.float32),
+            "sizes_min": np.array(s_lo, np.float32), "sizes_max": np.array(s_hi, np.float32)}
+
+
+def par_batch(torch, n, seed):
+    """``n`` random encoded bedrooms (attributes in [-1, 1], {-1, +1} class
+    one-hots with the last three slots empty), the global batch's t and
+    noise: the same on every rank."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cls = rng.integers(0, 22, (n, 12))
+    cls[:, -3:] = 21
+    batch = {"translations": rng.uniform(-1, 1, (n, 12, 3)).astype(np.float32),
+             "sizes": rng.uniform(-1, 1, (n, 12, 3)).astype(np.float32),
+             "angles": rng.uniform(-1, 1, (n, 12, 2)).astype(np.float32),
+             "class_labels": (np.eye(22)[cls] * 2 - 1).astype(np.float32),
+             "objfeats_32": rng.normal(0, 1, (n, 12, 32)).astype(np.float32)}
+    t = torch.from_numpy(rng.integers(0, T, n)).to(DEV)
+    noise = torch.from_numpy(rng.normal(size=(n, 12, 62)).astype(np.float32)).to(DEV)
+    return batch, t, noise
+
+
+def par_trainer(torch, config_path, mesh, **kw):
+    """A config's scene Trainer on the card over ``mesh``, weights from the
+    seed."""
+    from diffuscene_tpu_torch.models import SceneDiffusion, SceneModelConfig
+    from diffuscene_tpu_torch.train.trainer import Trainer
+    from diffuscene_tpu_torch.utils.config import load_config
+
+    cfg = load_config(config_path)
+    net = dict(cfg["network"], sample_num_points=12)
+    scene = SceneDiffusion(SceneModelConfig.from_config(net), bounds=par_bounds(), device=DEV)
+    return Trainer(scene, cfg["training"], device=DEV, mesh=mesh, **kw).init(SEED)
+
+
+def par_step(torch, trainer, seed=SEED + 40):
+    batch, t, noise = par_batch(torch, 128, seed)
+    return trainer.train_step(trainer.put_batch(batch), t=t, noise=noise)
+
+
+def par_params(trainer):
+    """The trainer's full parameters on the host (a collective call under
+    tensor parallelism)."""
+    return {n: v.detach().float().cpu() for n, v in trainer.state_dict()["model"].items()}
+
+
+def par_apart(got, want, lr, tol):
+    """(the largest difference in lr, the share more than tol's loose_lr *
+    lr apart) of two parameter dicts on the host."""
+    import numpy as np
+
+    d = np.concatenate([(got[k] - want[k]).abs().numpy().ravel() for k in want])
+    return float(d.max() / lr), float((d > tol["loose_lr"] * lr).mean())
+
+
+def par_check(label, worst, loose, tol):
+    if worst > tol["max_lr"] or loose >= tol["loose_share"]:
+        raise RuntimeError(f"{label}: parameters apart by up to {worst} lr, {loose} of them more "
+                           f"than {tol['loose_lr']} lr (tolerance {tol})")
+
+
+def par_sample(torch, scene, fused, sampler=None):
+    """DPM-Solver++-20 of PAR_SAMPLE_B scenes from the seed, through
+    ``sampler`` (a ShardedSampler) or SceneDiffusion.sample."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 41)
+    if sampler is not None:
+        return sampler.sample(PAR_SAMPLE_B, gen)
+    return scene.sample(PAR_SAMPLE_B, generator=gen, clip_denoised=True, fused=fused, dpm=True,
+                        dpm_steps=DPM_STEPS)
+
+
+def par_ae(torch, mesh):
+    """The shape AE's trainer at full width over ``mesh``, its clouds and
+    noise (the global batch's)."""
+    from diffuscene_tpu_torch.models.autoencoder import build_autoencoder
+    from diffuscene_tpu_torch.train.ae_trainer import AETrainer
+    from diffuscene_tpu_torch.utils.config import load_config
+
+    cfg = load_config(AE_CONFIG)
+    batch = int(cfg["training"]["batch_size"])
+    model = build_autoencoder(cfg["network"], device=DEV)
+    trainer = AETrainer(model, cfg["training"], device=DEV, mesh=mesh,
+                        steps_per_epoch=int(cfg["training"]["steps_per_epoch"])).init(SEED)
+    eps = torch.randn(batch, model.latent_dim, generator=torch.Generator().manual_seed(SEED + 42))
+    return trainer, box_clouds(batch, AE_POINTS, SEED + 43), eps.to(DEV)
+
+
+def launch_counts():
+    from diffuscene_tpu_torch.ops import attention as at
+    from diffuscene_tpu_torch.ops import chamfer as ch
+    from diffuscene_tpu_torch.ops import fused_level as fl
+    from diffuscene_tpu_torch.ops import fused_resblock as rb
+
+    return {"B1": rb.fused_resnet_block.launches, "B2": at.fused_set_attention.launches,
+            "B3": ch.directed_nn.launches, "B4": fl.apply_chain.launches}
+
+
+def zero_launches():
+    from diffuscene_tpu_torch.ops import attention as at
+    from diffuscene_tpu_torch.ops import chamfer as ch
+    from diffuscene_tpu_torch.ops import fused_level as fl
+    from diffuscene_tpu_torch.ops import fused_resblock as rb
+
+    rb.fused_resnet_block.launches = at.fused_set_attention.launches = 0
+    ch.directed_nn.launches = fl.apply_chain.launches = 0
+
+
+def counted(fn):
+    """(fn(), the kernel launches it made)."""
+    zero_launches()
+    out = fn()
+    return out, launch_counts()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def parallel_rank(workdir, rank, world, port, backend):
+    """One rank of phase 21(b) on the one card (a process of its own):
+    gloo: the data- and tensor-parallel flagship steps, the sharded samples
+    through both engines and the data-parallel AE step, each path's launches
+    counted from 0; nccl: only the start, which must raise."""
+    import torch
+
+    from diffuscene_tpu_torch.models.autoencoder import BatchNorm
+    from diffuscene_tpu_torch.ops import attention as at
+    from diffuscene_tpu_torch.ops import chamfer as ch
+    from diffuscene_tpu_torch.ops import fused_level as fl
+    from diffuscene_tpu_torch.ops import fused_resblock as rb
+    from diffuscene_tpu_torch.parallel import ShardedSampler, initialize, make_mesh, shutdown
+    from diffuscene_tpu_torch.utils.config import load_config
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    initialize(backend=backend, device="cuda:0", init_method=f"tcp://127.0.0.1:{port}",
+               world_size=world, rank=rank, timeout_s=PAR_TIMEOUT)
+    try:
+        for mod in (fl, ch, rb, at):
+            mod.load_library()
+        out = {}
+        ref = torch.load(os.path.join(workdir, "ref_step.pt"), weights_only=False)
+        lr = float(load_config(FLAGSHIP_CONFIG)["training"]["lr"])
+        for label, shape, tp in (("dp", (2, 1), False), ("tp", (1, 2), True)):
+            tr = par_trainer(torch, FLAGSHIP_CONFIG, make_mesh(*shape), tensor_parallel=tp)
+            m, launches = counted(lambda: par_step(torch, tr))
+            worst, loose = par_apart(par_params(tr), ref, lr, PAR_STEP_TOL)
+            out[label] = {"metrics": m, "param_max_lr": worst, "param_loose": loose,
+                          "launches": launches, "sharded": len(tr._sharded),
+                          "rank_numel": sum(p.numel() for p in tr.params)}
+            del tr
+            torch.cuda.empty_cache()
+        scene = flagship(torch, torch.float32)
+        mesh = make_mesh()
+        for fused in (True, "rows"):
+            sampler = ShardedSampler(scene, mesh, dpm=True, dpm_steps=DPM_STEPS,
+                                     fused=fused).put_params()
+            x, launches = counted(lambda: par_sample(torch, scene, fused, sampler))
+            out[f"sample_{fused}"] = {"x": x.cpu(), "launches": launches}
+        del scene
+        ae, clouds, eps = par_ae(torch, mesh)
+        m, launches = counted(lambda: ae.train_step(ae.put_batch(clouds), eps=eps))
+        out["ae"] = {"metrics": m, "launches": launches}
+        # the fault the AE bound must catch: each rank's BatchNorm moments
+        # over its own 8 clouds
+        ae, clouds, eps = par_ae(torch, mesh)
+        for mod in ae.model.modules():
+            if isinstance(mod, BatchNorm):
+                mod.sync = None
+        out["ae_local_moments"] = ae.train_step(ae.put_batch(clouds), eps=eps)
+        torch.save(out, os.path.join(workdir, f"rank{rank}.pt"))
+    finally:
+        shutdown()
+
+
+def spawn_ranks(workdir, backend, world=2):
+    """Start ``world`` ranks of parallel_rank on the card -> [(exit code,
+    stderr)], each killed at PAR_TIMEOUT."""
+    port = free_port()
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = ("import sys, chip_smoke as s; "
+            "s.parallel_rank(sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), int(sys.argv[4]), "
+            "sys.argv[5])")
+    procs = [subprocess.Popen([sys.executable, "-c", code, workdir, str(r), str(world), str(port),
+                               backend], cwd=here, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(world)]
+    out = []
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=PAR_TIMEOUT)
+            out.append((p.returncode, err))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return out
+
+
+def par_cli(torch):
+    """train_diffusion --mixed_precision under torchrun (one process, the
+    card), PAR_CLI_EPOCHS epochs of the flagship config on PAR_CLI_SCENES
+    synthetic rooms: an NCCL group of one rank (the CLI says so), every
+    step's gradient all-reduced over it, exit 0, a final checkpoint with
+    f32 weights."""
+    from diffuscene_tpu_torch.data import make_synthetic_cached_dataset
+    from diffuscene_tpu_torch.utils.checkpoint import load_checkpoint
+
+    data, out = os.path.join(PAR_DIR, "data"), os.path.join(PAR_DIR, "cli")
+    os.makedirs(out)
+    make_synthetic_cached_dataset(data, n_scenes=PAR_CLI_SCENES, seed=SEED)
+    cfg = synthetic_config(FLAGSHIP_CONFIG, os.path.abspath(data), out, "flagship.yaml")
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--nproc_per_node=1",
+                          "-m", "diffuscene_tpu_torch.cli.train_diffusion", cfg, out,
+                          "--experiment_tag", "mp", "--epochs", str(PAR_CLI_EPOCHS),
+                          "--mixed_precision"], cwd=here, capture_output=True, text=True,
+                         timeout=PAR_TIMEOUT)
+    wall_s = time.perf_counter() - t0
+    state, epoch = load_checkpoint(os.path.join(out, "mp")) if run.returncode == 0 else (None, None)
+    grouped = "data-parallel over 1 rank(s), nccl" in run.stdout
+    ok = (grouped and state is not None and epoch == PAR_CLI_EPOCHS - 1
+          and {v.dtype for v in state["model"].values()} == {torch.float32})
+    print(f"parallel: torchrun --nproc_per_node=1 train_diffusion --mixed_precision, "
+          f"{PAR_CLI_EPOCHS} epochs of {PAR_CLI_SCENES} rooms: exit {run.returncode}, "
+          f"{wall_s:.1f} s, NCCL group of one rank {grouped}, final step "
+          f"{state and state['step']} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise RuntimeError(f"the mixed-precision train CLI failed:\n{run.stderr[-3000:]}")
+    return {"wall_s": wall_s, "steps": state["step"], "nccl_group": grouped}
+
+
+def phase_parallel(torch, card, b512_plain=None):
+    """Phase 21: parallel/* on the card: (a) an NCCL group of one rank, (b)
+    two gloo ranks on the one card (and NCCL refusing them), (c) the b512
+    recipe's step with mixed_precision beside its plain bf16 step."""
+    import shutil
+
+    import numpy as np
+
+    from diffuscene_tpu_torch.parallel import Mesh, ShardedSampler, initialize, make_mesh, shutdown
+    from diffuscene_tpu_torch.utils.config import load_config
+
+    import gc
+    import resource
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"parallel: at the start, host max RSS "
+          f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20:.2f} GB, card "
+          f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GB allocated, "
+          f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GB reserved", flush=True)
+    shutil.rmtree(PAR_DIR, ignore_errors=True)
+    os.makedirs(PAR_DIR)
+    out = {"card": card}
+
+    # (a) one NCCL rank against no process group, bit for bit
+    initialize(backend="nccl", device="cuda:0", init_method=f"tcp://127.0.0.1:{free_port()}",
+               world_size=1, rank=0)
+    try:
+        mesh = make_mesh()
+        if not mesh.distributed:
+            raise RuntimeError("the one-rank NCCL mesh is not distributed")
+        one = par_trainer(torch, FLAGSHIP_CONFIG, mesh)
+        m_one, launches = counted(lambda: par_step(torch, one))
+        p_one = par_params(one)
+        del one
+        ref = par_trainer(torch, FLAGSHIP_CONFIG, Mesh(1, 1))
+        m_ref = par_step(torch, ref)
+        p_ref = par_params(ref)
+        n_params = sum(p.numel() for p in ref.params)
+        del ref
+        torch.save(p_ref, os.path.join(PAR_DIR, "ref_step.pt"))     # for the two ranks
+        torch.cuda.empty_cache()
+        equal = m_one == m_ref and all(torch.equal(p_one[k], p_ref[k]) for k in p_ref)
+        print(f"parallel: one NCCL rank vs no group, flagship step B=128 f32: loss "
+              f"{m_one['loss']:.7f} vs {m_ref['loss']:.7f}, gradnorm {m_one['gradnorm']:.6f} vs "
+              f"{m_ref['gradnorm']:.6f}, parameters bit-equal {equal}, launches {launches}",
+              flush=True)
+        if not equal:
+            raise RuntimeError("the one-rank NCCL step differs from the non-distributed step")
+        scene = flagship(torch, torch.float32)
+        sampler = ShardedSampler(scene, mesh, dpm=True, dpm_steps=DPM_STEPS, fused=True)
+        x_one, launches = counted(lambda: par_sample(torch, scene, True, sampler))
+        x_ref = {fused: par_sample(torch, scene, fused).cpu() for fused in (True, "rows")}
+        del scene
+        same = torch.equal(x_one.cpu(), x_ref[True])
+        want = {"B1": 28 * DPM_STEPS, "B2": DPM_STEPS, "B3": 0, "B4": 0}
+        print(f"parallel: one NCCL rank, ShardedSampler(fused=True) DPM-Solver++-{DPM_STEPS} "
+              f"B={PAR_SAMPLE_B} vs SceneDiffusion.sample: bit-equal {same}, launches "
+              f"{launches}", flush=True)
+        if not same or launches != want:
+            raise RuntimeError(f"the one-rank sharded sample differs ({same}) or launched "
+                               f"{launches}, expected {want}")
+        out["nccl_one_rank"] = {"step_equal": equal, "sample_equal": same, "launches": launches}
+        ae, clouds, eps = par_ae(torch, Mesh(1, 1))
+        m_ae = ae.train_step(ae.put_batch(clouds), eps=eps)
+        # the witness of f32 reordering noise: the same step on the clouds
+        # in reverse order (the same loss and gradients in exact arithmetic)
+        ae, clouds, eps = par_ae(torch, Mesh(1, 1))
+        m_ae_rev = ae.train_step(ae.put_batch(clouds[::-1].copy()), eps=eps.flip(0))
+        del ae
+    finally:
+        shutdown()
+    torch.cuda.empty_cache()
+
+    # (b) two gloo ranks on the one card, each its half of every batch
+    t1 = time.perf_counter()
+    results = spawn_ranks(PAR_DIR, "gloo")
+    for r, (code, err) in enumerate(results):
+        if code != 0:
+            raise RuntimeError(f"gloo rank {r} exited {code}:\n{err[-4000:]}")
+    ranks = [torch.load(os.path.join(PAR_DIR, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    spawn_s = time.perf_counter() - t1
+    two = {"spawn_s": spawn_s}
+    for label in ("dp", "tp"):
+        for r, res in enumerate(ranks):
+            m = res[label]["metrics"]
+            rel = {k: abs(m[k] - m_ref[k]) / max(abs(m_ref[k]), 1e-12) for k in m_ref}
+            worst_rel = max(rel.values())
+            worst, loose = res[label]["param_max_lr"], res[label]["param_loose"]
+            print(f"parallel: 2 gloo ranks {label} rank {r} vs one rank, flagship step B=128: "
+                  f"loss {m['loss']:.7f} vs {m_ref['loss']:.7f}, worst relative metric "
+                  f"{worst_rel:.3e}, parameters up to {worst:.3f} lr, {loose:.2e} beyond "
+                  f"{PAR_STEP_TOL['loose_lr']} lr, sharded kernels {res[label]['sharded']}, "
+                  f"{res[label]['rank_numel']} of {n_params} parameters on the rank, launches "
+                  f"{res[label]['launches']}", flush=True)
+            if worst_rel > PAR_STEP_TOL["loss"]:
+                raise RuntimeError(f"the {label} step's metrics differ: {rel}")
+            par_check(f"the {label} step", worst, loose, PAR_STEP_TOL)
+            if label == "tp" and not res[label]["rank_numel"] < n_params:
+                raise RuntimeError("tensor parallelism sharded no kernel")
+        two[label] = {"loss_rel": worst_rel, "param_max_lr": worst, "param_loose": loose,
+                      "rank_numel": res[label]["rank_numel"], "numel": n_params}
+    engines = {True: ("B1", "B2"), "rows": ("B4",)}
+    for fused, names in engines.items():
+        want = {"B1": 0, "B2": 0, "B3": 0, "B4": 0}
+        if fused is True:
+            want.update(B1=28 * DPM_STEPS, B2=DPM_STEPS)
+        else:
+            want.update(B4=19 * DPM_STEPS)
+        x = ranks[0][f"sample_{fused}"]["x"]
+        err = (x - x_ref[fused]).abs().max().item()
+        agree = bool((x[..., 8:30].argmax(-1) == x_ref[fused][..., 8:30].argmax(-1)).all())
+        counts = [res[f"sample_{fused}"]["launches"] for res in ranks]
+        print(f"parallel: 2 gloo ranks, ShardedSampler(fused={fused!r}) DPM-Solver++-{DPM_STEPS} "
+              f"B={PAR_SAMPLE_B} (32 a rank) vs one rank: max abs {err:.3e} (tol "
+              f"{FORWARD_TOL['float32']}), argmax classes equal {agree}, launches a rank "
+              f"{counts}", flush=True)
+        if err > FORWARD_TOL["float32"] or not agree or any(c != want for c in counts) or \
+                not torch.equal(x, ranks[1][f"sample_{fused}"]["x"]):
+            raise RuntimeError(f"the two-rank sample (fused={fused!r}) is off: {err}, {agree}, "
+                               f"launches {counts} (expected {want} a rank)")
+        two[f"sample_{fused}"] = {"max_abs": err, "launches": counts[0]}
+    ae_rel = lambda m: {k: abs(m[k] - m_ae[k]) / abs(m_ae[k]) for k in PAR_AE_TOL}
+    rel_rev = ae_rel(m_ae_rev)
+    print(f"parallel: one rank, AE step B=16 on the clouds reversed vs in order (f32 "
+          f"reordering noise): relative {rel_rev}", flush=True)
+    for r, res in enumerate(ranks):
+        m = res["ae"]["metrics"]
+        rel, rel_local = ae_rel(m), ae_rel(res["ae_local_moments"])
+        print(f"parallel: 2 gloo ranks, AE step B=16 (8 a rank) rank {r} vs one rank: loss "
+              f"{m['loss']:.7f} vs {m_ae['loss']:.7f}, relative {rel}, launches "
+              f"{res['ae']['launches']}; with each rank's own BatchNorm moments (the fault): "
+              f"relative {rel_local}", flush=True)
+        if any(rel[k] > PAR_AE_TOL[k] for k in PAR_AE_TOL) or res["ae"]["launches"]["B3"] != 2:
+            raise RuntimeError(f"the two-rank AE step is off: {rel}, {res['ae']['launches']}")
+        if all(rel_local[k] <= PAR_AE_TOL[k] for k in PAR_AE_TOL):
+            raise RuntimeError(f"the AE bound does not catch local BatchNorm moments: "
+                               f"{rel_local}")
+    two["ae"] = {"rel": rel, "rel_reversed_one_rank": rel_rev, "rel_local_moments": rel_local,
+                 "launches": ranks[0]["ae"]["launches"]}
+    nccl = spawn_ranks(PAR_DIR, "nccl")
+    refused = all(code != 0 and "same device" in err for code, err in nccl)
+    print(f"parallel: NCCL asked for 2 ranks on the one card: exit codes "
+          f"{[c for c, _ in nccl]}, refused {refused}", flush=True)
+    if not refused:
+        raise RuntimeError(f"NCCL took two ranks on one card: {[e[-600:] for _, e in nccl]}")
+    two["nccl_two_ranks_refused"] = refused
+    out["two_ranks"] = two
+
+    # (c) mixed precision on the b512 recipe, beside its plain bf16 step, in
+    # turns (plain, mixed, mixed, plain), each from a fresh trainer
+    mp = {"plain": {"ms": [], "peak_mem_gb": []}, "mixed_precision": {"ms": [], "peak_mem_gb": []}}
+    b512_lr = float(load_config(B512_CONFIG)["training"]["lr"])
+    batch, t, noise = par_batch(torch, 512, SEED + 44)
+    for label in ("plain", "mixed_precision", "mixed_precision", "plain"):
+        tr = par_trainer(torch, B512_CONFIG, Mesh(1, 1), mixed_precision=label != "plain")
+        dev_batch = tr.put_batch(batch)
+        first = tr.train_step(dev_batch, t=t, noise=noise)
+        if "first" not in mp[label]:
+            mp[label].update(first=first, params=par_params(tr))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(PAR_MP_STEPS):
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            m = tr.train_step(dev_batch)
+            mp[label]["ms"].append(1e3 * (time.perf_counter() - t2))
+            if not math.isfinite(m["loss"]):
+                raise RuntimeError(f"the {label} b512 step's loss is not finite")
+        mp[label]["peak_mem_gb"].append(torch.cuda.max_memory_allocated() / 2 ** 30)
+        del tr
+        torch.cuda.empty_cache()
+    for side in mp.values():
+        side["ms_per_step"] = sorted(side["ms"])[len(side["ms"]) // 2]
+    worst, loose = par_apart(mp["mixed_precision"].pop("params"), mp["plain"].pop("params"),
+                             b512_lr, PAR_MP_TOL)
+    par_check("mixed_precision vs plain", worst, loose, PAR_MP_TOL)
+    l_mp, l_plain = mp["mixed_precision"]["first"]["loss"], mp["plain"]["first"]["loss"]
+    rel_loss = abs(l_mp - l_plain) / abs(l_plain)
+    print(f"parallel: b512 recipe B=512 bf16, mixed_precision vs plain from one state: loss "
+          f"{l_mp:.6f} vs {l_plain:.6f} (relative {rel_loss:.3e}), parameters up to "
+          f"{worst:.3f} lr, {loose:.2e} beyond {PAR_MP_TOL['loose_lr']} lr; ms/step "
+          f"{mp['mixed_precision']['ms_per_step']:.3f} vs {mp['plain']['ms_per_step']:.3f} "
+          f"(medians of {2 * PAR_MP_STEPS} steps each, in turns; phase 13: {b512_plain}), peak "
+          f"memory {mp['mixed_precision']['peak_mem_gb']} vs {mp['plain']['peak_mem_gb']} GB",
+          flush=True)
+    if rel_loss > PAR_MP_TOL["loss"]:
+        raise RuntimeError(f"the mixed-precision step is off: loss {rel_loss}")
+    # and it must have cast: a step on the same weights that did not round
+    # them to bf16 would equal the plain step
+    if rel_loss == 0.0 or worst == 0.0:
+        raise RuntimeError(f"the mixed-precision step equals the plain one (loss gap "
+                           f"{rel_loss}, parameters up to {worst} lr apart): no bf16 cast")
+    mp.update(loss_rel=rel_loss, param_max_lr=worst, param_loose=loose,
+              phase13_ms_per_step=b512_plain, cli=par_cli(torch))
+    out["mixed_precision"] = mp
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"parallel: phase 21 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def profile_steps(torch, step, n, step_ms, named=()):
     """Where a step's time goes: torch.profiler over ``n`` steady steps;
     device busy time (the sum of the kernels' times, one stream), the idle
@@ -3486,7 +3991,11 @@ def main(argv):
     print(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
           f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
 
-    t0 = time.perf_counter()
+    t0 = t_run = time.perf_counter()
+
+    def mark(label):
+        print(f"time: {label} done at {time.perf_counter() - t_run:.1f} s", flush=True)
+
     libs = build.build([fl.CSRC, ch.CSRC, rb.CSRC, at.CSRC])
     for mod in (fl, ch, rb, at):
         mod.load_library()
@@ -3538,6 +4047,10 @@ def main(argv):
         print(json.dumps({"rest": phase_rest(torch, card)}))
         print(card_line())
         return 0
+    if only == "--only-parallel":   # parallel/* and mixed precision alone: phase 21
+        print(json.dumps({"parallel": phase_parallel(torch, card)}))
+        print(card_line())
+        return 0
     if only == "--only-f32-engine":  # the flagship config's own dtype: phases 3 + 9 and 15, f32
         scene32 = phase_forward(torch, torch.float32)
         phase_rows_sample(torch, scene32, card)
@@ -3554,61 +4067,86 @@ def main(argv):
     if only == "--only-chain":      # the short check of a new chain kernel: phase 2 alone
         print(card_line())
         return 0
+    mark("phases 1-2")
 
     resblock_plan(rb, torch)
     rb_worst, rb_out = resblock_forward(*phase_resblock(rb, torch))
     rb_fwd, rb_bound_ms, rb_bound_by = rb_out["bfloat16"]
     rb32_fwd, rb32_bound_ms, _ = rb_out["float32"]
     at_worst, at_main = attention_phase(at, torch)
+    mark("phases 7-8")
 
     scene32 = phase_forward(torch, torch.float32)
     scene = phase_forward(torch, torch.bfloat16)
+    mark("phases 3, 9")
 
     # the first slice's main path: 1000-step DDPM sample, every chain
     # through the kernel
     chain_launches = phase_rows_sample(torch, scene, card)
+    mark("phase 4")
 
     # this slice's main path: the 3-D engine, every ResnetBlock on B1 and
     # mid_attn on B2
     rb_launches, at_launches = phase_engine_samples(torch, scene, card)
     del scene
+    mark("phases 10-11")
     # phase 15: the flagship config's own dtype, f32, through the rows
     # engine and the 3-D engine
     chain32_launches = phase_rows_sample(torch, scene32, card)
     rb32_launches, at32_launches = phase_engine_samples(torch, scene32, card,
                                                         dpm_batch=GENERATE_B,
                                                         profile_batches=(GENERATE_B,))
+    mark("phase 15 samples")
     phase_drift(torch, scene32)
     del scene32
+    mark("phase 15 drift")
     torch.cuda.empty_cache()
 
     cham = phase_chamfer(ch, torch)
     # the second slice's main path: AE training steps, every chamfer on the kernel
     cham_launches = phase_autoencoder(ch, torch)
+    mark("phases 5-6")
     torch.cuda.empty_cache()
     # this slice's main path: the scene model's train steps and the train
     # and generate CLIs (B1 and B2 in generate)
     train = phase_train(torch, card)
     torch.cuda.empty_cache()
+    mark("phases 12-14")
+    # this slice's main paths: the data- and tensor-parallel trainers and
+    # the sharded sampler over torch.distributed (B1 and B2, B4 in the
+    # samples, B3 in the AE step), and mixed precision beside phase 13's
+    # step; run before the later phases grow this process
+    par = phase_parallel(torch, card, b512_plain=train["b512"]["ms_per_step"])
+    mark("phase 21")
+    par_two = par["two_ranks"]
+    par_launches = {"nccl_one_rank": par["nccl_one_rank"]["launches"],
+                    "gloo_rank": {"sample_3d": par_two["sample_True"]["launches"],
+                                  "sample_rows": par_two["sample_rows"]["launches"],
+                                  "ae_step": par_two["ae"]["launches"]}}
+    torch.cuda.empty_cache()
     # this slice's main paths: scene completion and re-arrangement, f32,
     # through the 3-D engine (B1 and B2), and the rearrange training
     tasks = phase_tasks(torch, card)
+    mark("phase 16")
     task_launches = {k: v["launches"] for k, v in tasks["samples"].items()}
     torch.cuda.empty_cache()
     # this slice's main path: text-conditioned generation through both
     # engines (B1 and B2, B4), the text train step and the text CLIs
     text = phase_text(torch, card)
+    mark("phase 17")
     text_launches = {k: v["launches"] for k, v in text["samples"].items() if k != "roll"}
     torch.cuda.empty_cache()
     # this slice's main path: run/generate.sh's command with its renders and
     # box metrics (B1 and B2), the mesh path, FID/KID and precision/recall
     ev = phase_eval(torch, card)
+    mark("phase 18")
     eval_launches = ev["generate"]["launches"]
     torch.cuda.empty_cache()
     # this slice's main path: the raw-data pipeline (B3 in the AE's steps),
     # then the room-mask flagship trained and sampled on its cache (B1 and
     # B2 in generate, B4 through the rows engine)
     data = phase_data(torch, ch, card)
+    mark("phase 19")
     data_samples = data["samples"]
     torch.cuda.empty_cache()
     # this slice's main paths: the native loader, the optimizers, the trace
@@ -3616,6 +4154,7 @@ def main(argv):
     # Fourier time embedding through both engines (B1, B2 and B4), unequal
     # dim_mults, the export
     rest = phase_rest(torch, card, numpy_ms=train["flagship"]["ms_per_step"])
+    mark("phase 20")
     rest_samples = rest["samples"]
 
     print(json.dumps({"train": train}))
@@ -3624,6 +4163,7 @@ def main(argv):
     print(json.dumps({"eval": ev}))
     print(json.dumps({"data": data}))
     print(json.dumps({"rest": rest}))
+    print(json.dumps({"parallel": par}))
     print(json.dumps({"kernels": [{
         "name": "fused_chain",
         "route": "cuda",
@@ -3645,6 +4185,7 @@ def main(argv):
         "text_launches": text_launches["ddpm_rows"][0],
         "data_launches": data_samples["ddpm_rows"]["launches"][0],
         "rest_launches": {"fourier_rows": rest_samples["fourier_rows"]["launches"][0]},
+        "parallel_launches": {"rank_sample_rows": par_launches["gloo_rank"]["sample_rows"]["B4"]},
     }, {
         "name": "chamfer_nn",
         "route": "cuda",
@@ -3660,6 +4201,7 @@ def main(argv):
         "library_ms": cham["library_ms"],
         "data_launches": data["pipeline"]["ae_launches"],
         "rest_launches": rest["chamfer_launches"],
+        "parallel_launches": {"rank_ae_step": par_launches["gloo_rank"]["ae_step"]["B3"]},
     }, {
         "name": "fused_resblock",
         "route": "cuda",
@@ -3684,6 +4226,8 @@ def main(argv):
         "data_launches": data_samples["generate"]["launches"][0],
         "rest_launches": {"generate": rest["generate"]["launches"][0],
                           "fourier_3d": rest_samples["fourier_3d"]["launches"][0]},
+        "parallel_launches": {"nccl_one_rank_sample": par_launches["nccl_one_rank"]["B1"],
+                              "rank_sample_3d": par_launches["gloo_rank"]["sample_3d"]["B1"]},
     }, {
         "name": "set_attention",
         "route": "cuda",
@@ -3708,6 +4252,8 @@ def main(argv):
         "data_launches": data_samples["generate"]["launches"][1],
         "rest_launches": {"generate": rest["generate"]["launches"][1],
                           "fourier_3d": rest_samples["fourier_3d"]["launches"][1]},
+        "parallel_launches": {"nccl_one_rank_sample": par_launches["nccl_one_rank"]["B2"],
+                              "rank_sample_3d": par_launches["gloo_rank"]["sample_3d"]["B2"]},
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -23,11 +23,23 @@ CLI does; ``--async_checkpoints`` writes each epoch's checkpoint from a
 background thread after copying the state to host memory, and the CLI
 joins it before it exits; ``--profile_dir DIR`` writes a ``torch.profiler``
 trace (host and CUDA activity) of ``--profile_steps`` steps, from the step
-after the fourth (``utils/profiling.py:TraceWindow``), into DIR.  Two flags
-of the JAX CLI raise: ``--with_wandb_logger`` (W&B needs a network) and
-``--mixed_precision`` (ROADMAP).  A warm start from a reference ``.pt``
-starts the EMA from the loaded weights (the JAX CLI leaves it at the
-random init).
+after the fourth (``utils/profiling.py:TraceWindow``), into DIR.
+``--mixed_precision`` casts the f32 parameters to bf16 once a step, outside
+the gradient (``Trainer(mixed_precision=True)``).  One flag of the JAX CLI
+raises: ``--with_wandb_logger`` (W&B needs a network).  A warm start from a
+reference ``.pt`` starts the EMA from the loaded weights (the JAX CLI
+leaves it at the random init).
+
+Launched by ``torchrun`` it joins a process group (of one rank too) and
+trains data-parallel over its ranks, one card
+a rank (``cuda:LOCAL_RANK``, NCCL; gloo with ``--device cpu``), as the JAX
+CLI's trainer spreads its batch over every local device: every rank reads
+the same batches and keeps its rows of each (``batch_size`` is the global
+batch and must divide over the ranks), the gradients are averaged, and
+rank 0 alone writes the bounds, checkpoints and ``stats.txt``; every rank
+loads.
+
+    torchrun --nproc_per_node=2 -m diffuscene_tpu_torch.cli.train_diffusion CONFIG OUT
 """
 from __future__ import annotations
 
@@ -39,8 +51,6 @@ import numpy as np
 
 _REFUSED = {
     "with_wandb_logger": "W&B needs a network; the port logs to stats.txt",
-    "mixed_precision": "the JAX package's bf16 cast of the parameters each step is not ported "
-                       "yet (ROADMAP); no card measurement of it exists",
 }
 
 
@@ -64,7 +74,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "encodings)")
     parser.add_argument("--log_every", type=int, default=10,
                         help="fetch metrics to the host every N steps")
-    parser.add_argument("--mixed_precision", action="store_true", help="not ported yet")
+    parser.add_argument("--mixed_precision", action="store_true",
+                        help="cast the f32 parameters to bf16 once a step, outside the "
+                        "gradient; parameters, optimizer state and EMA stay f32")
     parser.add_argument("--async_checkpoints", action="store_true",
                         help="write epoch checkpoints from a background thread")
     parser.add_argument("--keep_last_checkpoints", type=int, default=None,
@@ -90,6 +102,22 @@ def main(argv=None):
 
     import torch
 
+    from ..parallel import launch, make_mesh, shutdown
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device, rank, _ = launch(args.device)       # the process group under torchrun
+    try:
+        mesh = make_mesh()
+        if mesh.distributed and rank == 0:
+            print(f"data-parallel over {mesh.n_data} rank(s), "
+                  f"{torch.distributed.get_backend()}", flush=True)
+        _train(args, device, rank, mesh)
+    finally:
+        shutdown()
+
+
+def _train(args, device, rank, mesh):
     from ..data.factory import (apply_text_emb_dim_default, get_dataset_raw_and_encoded,
                                 get_encoded_dataset)
     from ..data.loader import DataLoader, PackedDataLoader
@@ -102,8 +130,7 @@ def main(argv=None):
     from ..utils.profiling import TraceWindow
     from ..utils.stats_logger import StatsLogger
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    main_rank = rank == 0      # rank 0 alone writes
     config = load_config(args.config_file)
     # a text model's token width (768 BERT-style, 50 GloVe, 512 CLIP) for
     # the data pipeline, so it matches fc_text_f
@@ -113,7 +140,8 @@ def main(argv=None):
     experiment_tag = args.experiment_tag or os.path.basename(args.config_file).rsplit(".", 1)[0]
     experiment_dir = os.path.join(args.output_directory, experiment_tag)
     os.makedirs(experiment_dir, exist_ok=True)
-    save_experiment_params(args, experiment_tag, experiment_dir)
+    if main_rank:
+        save_experiment_params(args, experiment_tag, experiment_dir)
 
     keep_rl = bool(config["network"].get("room_mask_condition", True))
     train_raw, train_ds = get_dataset_raw_and_encoded(
@@ -124,12 +152,13 @@ def main(argv=None):
         config["data"], augmentations=None, split=config["validation"].get("splits", ["test"]),
         seed=args.seed, keep_room_layout=keep_rl)
     bounds = train_ds.bounds.as_device_bounds()
-    save_bounds(experiment_dir, bounds)
+    if main_rank:
+        save_bounds(experiment_dir, bounds)
 
     net_cfg = dict(config["network"])
     net_cfg.setdefault("sample_num_points", train_ds.max_length)
     cfg = SceneModelConfig.from_config(net_cfg, config.get("feature_extractor"))
-    scene = SceneDiffusion(cfg, bounds=bounds if cfg.loss_iou else None, device=args.device)
+    scene = SceneDiffusion(cfg, bounds=bounds if cfg.loss_iou else None, device=device)
 
     batch_size = int(config["training"].get("batch_size", 128))
     if args.native_loader:
@@ -147,7 +176,8 @@ def main(argv=None):
                             shuffle=False, drop_last=True)
     steps_per_epoch = max(len(train_loader), 1)
     trainer = Trainer(scene, config["training"], steps_per_epoch=steps_per_epoch,
-                      device=args.device).init(args.seed)
+                      device=device, mesh=mesh,
+                      mixed_precision=args.mixed_precision).init(args.seed)
 
     # warm start (train_diffusion.py:181): weights (and an experiment's
     # EMA) only, the optimizer starts fresh
@@ -157,7 +187,8 @@ def main(argv=None):
         else:
             warm = load_model_weights(args.weight_file, ema=False)
             trainer.set_weights(warm, load_model_weights(args.weight_file, ema=True))
-        print(f"warm-started weights from {args.weight_file}")
+        if main_rank:
+            print(f"warm-started weights from {args.weight_file}")
 
     state, resumed = load_checkpoint(experiment_dir)
     if state is not None:
@@ -165,12 +196,19 @@ def main(argv=None):
     start_epoch = (resumed + 1) if resumed is not None else args.continue_from_epoch
 
     def save(epoch, blocking=True):
-        save_checkpoint(trainer.state_dict(), experiment_dir, epoch, blocking=blocking,
-                        keep_last=args.keep_last_checkpoints)
+        if main_rank:
+            save_checkpoint(trainer.state_dict(), experiment_dir, epoch, blocking=blocking,
+                            keep_last=args.keep_last_checkpoints)
 
     logger = StatsLogger.instance()
-    stats_file = open(os.path.join(experiment_dir, "stats.txt"), "a")
-    logger.add_output_file(stats_file)
+    stats_file = open(os.path.join(experiment_dir, "stats.txt"), "a") if main_rank else None
+    if stats_file is not None:
+        logger.add_output_file(stats_file)
+
+    def log(metrics, epoch, b):
+        if main_rank:
+            logger.update(metrics)
+            logger.print_progress(epoch, b, metrics["loss"])
     try:
         epochs = args.epochs if args.epochs is not None else int(config["training"].get("epochs", 1000))
         save_every = int(config["training"].get("save_frequency", 10))
@@ -201,30 +239,32 @@ def main(argv=None):
                     since_log = 0
                     if not math.isfinite(metrics["loss"]):
                         # a recoverable state on disk instead of NaN updates
-                        save_checkpoint(trainer.state_dict(), experiment_dir, epoch)
+                        save(epoch)
                         raise RuntimeError(
                             f"non-finite loss at epoch {epoch} batch {b}; checkpoint saved to "
                             f"{experiment_dir}: resume with a lower lr or smaller max_grad_norm")
-                    logger.update(metrics)
-                    logger.print_progress(epoch, b + 1, metrics["loss"])
-            logger["lr"].value = trainer.current_lr()
-            logger.clear()
+                    log(metrics, epoch, b + 1)
+            if main_rank:
+                logger["lr"].value = trainer.current_lr()
+                logger.clear()
 
             if (epoch % save_every) == 0 and epoch > start_epoch:
                 save(epoch, blocking=not args.async_checkpoints)
             if (epoch % val_every) == 0:
                 for b, batch in enumerate(val_loader):
                     metrics = trainer.eval_step(trainer.put_batch(batch))
-                    logger.update(metrics)
-                    logger.print_progress(-1, b + 1, metrics["loss"])
-                logger.clear()
+                    log(metrics, -1, b + 1)
+                if main_rank:
+                    logger.clear()
         if trace_window is not None:
             trace_window.close()
         save(epochs - 1)
-        print(f"\ndone: {epochs - start_epoch} epochs, final step {trainer.step}")
+        if main_rank:
+            print(f"\ndone: {epochs - start_epoch} epochs, final step {trainer.step}")
     finally:
         wait_for_checkpoints()     # commit a save still in flight before exit
-        logger.remove_output_file(stats_file)
+        if stats_file is not None:
+            logger.remove_output_file(stats_file)
 
 
 if __name__ == "__main__":

@@ -26,7 +26,7 @@ The training loss runs the chamfer kernel of ``ops/chamfer.py``.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -56,10 +56,17 @@ class Conv1x1(nn.Module):
 class BatchNorm(nn.Module):
     """BatchNorm over every axis but the last, with flax's statistics (see
     the module docstring).  Train mode normalises with the batch moments
-    and updates the running ones; eval mode uses the running moments."""
+    and updates the running ones; eval mode uses the running moments.
+
+    ``sync`` (set by a data-parallel trainer): (a differentiable sum over
+    the data ranks, their number).  Train mode then sums each channel's
+    values and squares over the ranks, so the moments, and the running
+    ones after them, are those of the global batch, as under the JAX
+    package's sharded batch (every rank holds as many rows)."""
 
     def __init__(self, channels: int, momentum: float = BN_MOMENTUM, eps: float = BN_EPS):
         super().__init__()
+        self.sync: Optional[Tuple[Callable[[torch.Tensor], torch.Tensor], int]] = None
         self.momentum = momentum
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(channels))
@@ -71,8 +78,14 @@ class BatchNorm(nn.Module):
     def forward(self, x):
         if self.training:
             rows = x.reshape(-1, x.shape[-1])
-            mean = rows.mean(dim=0)
-            var = ((rows * rows).mean(dim=0) - mean * mean).clamp_min(0.0)
+            if self.sync is None:
+                mean = rows.mean(dim=0)
+                var = ((rows * rows).mean(dim=0) - mean * mean).clamp_min(0.0)
+            else:
+                total, n_ranks = self.sync
+                sums = total(torch.cat([rows.sum(dim=0), (rows * rows).sum(dim=0)]))
+                mean, mean2 = (sums / (rows.shape[0] * n_ranks)).chunk(2)
+                var = (mean2 - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1.0 - m) * mean)

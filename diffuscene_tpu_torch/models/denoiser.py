@@ -128,12 +128,17 @@ def ws_standardize_fast(kernel: torch.Tensor, eps: float, dtype: torch.dtype) ->
 class WSConv1x1(Conv1x1):
     """WSDense: k=1 conv with weight standardization over the input axis
     (per output unit, biased variance) in f32, then cast to ``dtype``;
-    ``fast_vjp`` switches to :func:`ws_standardize_fast`."""
+    ``fast_vjp`` switches to :func:`ws_standardize_fast`.  A bf16 weight
+    (a mixed-precision step's copy) is standardized in bf16, each moment
+    summed in f32 and rounded, as the JAX WSDense computes on a bf16
+    kernel."""
 
     fast_vjp = False
 
     def forward(self, x):
-        k = self.kernel().float()
+        k = self.kernel()
+        if k.dtype != torch.bfloat16:
+            k = k.float()
         eps = _dtype_eps(x.dtype)
         if self.fast_vjp:
             w = ws_standardize_fast(k, eps, self.dtype)

@@ -446,7 +446,8 @@ class SceneDiffusion:
                                    room_layout, room_feat)
 
     def get_loss(self, batch: Dict[str, torch.Tensor], generator: Optional[torch.Generator] = None,
-                 t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None):
+                 t: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+                 shard: Tuple[int, int] = (0, 1)):
         """Training loss of one batch (diffusion_scene_layout_ddpm.py:131-226
         + diffusion_ddpm.py:758-772) -> (0-d loss, dict of 0-d terms).
         ``batch`` holds the attribute tensors (or the ``packed`` target), a
@@ -455,19 +456,29 @@ class SceneDiffusion:
         ``t`` (B,) and the ``noise`` (B, N, D) are used when given, else
         drawn from ``generator`` (on this model's device); D is point_dim,
         or translation_dim + angle_dim with the arrange head, whose model
-        diffuses those channels only."""
+        diffuses those channels only.
+
+        ``shard`` (index, count): ``batch`` is the index-th of ``count``
+        equal row blocks of a global batch (a data rank's rows).  ``t`` and
+        ``noise`` are then the global batch's, drawn for all of it in the
+        order above when not given, and this block's rows are kept, so the
+        draws do not depend on the split."""
         cfg = self.cfg
         target = batch["packed"] if "packed" in batch else pack_target(cfg, batch)
         condition, condition_cross = self.condition_from_target(target, batch)
         if cfg.room_arrange_condition:
             td, sd, bd = cfg.translation_dim, cfg.size_dim, cfg.bbox_dim
             target = torch.cat([target[:, :, :td], target[:, :, td + sd: bd]], dim=-1)
+        index, count = shard
         B = target.shape[0]
         if t is None:
-            t = torch.randint(0, self.sched.num_timesteps, (B,), generator=generator,
+            t = torch.randint(0, self.sched.num_timesteps, (B * count,), generator=generator,
                               device=target.device)
         if noise is None:
-            noise = torch.randn(target.shape, generator=generator, device=target.device)
+            noise = torch.randn((B * count, *target.shape[1:]), generator=generator,
+                                device=target.device)
+        if count > 1:
+            t, noise = t[index * B:(index + 1) * B], noise[index * B:(index + 1) * B]
         data_t = q_sample(self.sched, target, t, noise)
         denoise_out = self.denoiser(data_t, t, condition, condition_cross)
         losses, loss_dict = p_losses(self.sched, self.spec, self.loss_cfg, denoise_out,

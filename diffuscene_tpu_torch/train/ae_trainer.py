@@ -7,6 +7,15 @@ and updates its running ones), chamfer + KL loss, backward, global-norm
 clip + Adam.  The chamfer of every step runs the CUDA kernel on the card
 (two directed launches).
 
+Over a mesh (``parallel/mesh.py``, one process a card) the step is the
+JAX step on the global batch, whose batch is sharded over ``data``:
+:meth:`AETrainer.put_batch` keeps this data rank's clouds of the global
+batch, the posterior noise is drawn for the global batch and sliced, the
+train-mode BatchNorm moments are summed over the data ranks (so the
+running moments follow the global batch's), each rank's chamfer runs on its
+own clouds, and one all-reduce averages the flat gradient and the metrics
+before the clip.
+
 The trainer owns the model and the optimizer state; it runs on the card
 unless it is asked for the CPU, and moves the model there.
 """
@@ -17,17 +26,24 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
-from ..models.autoencoder import KLAutoEncoder, init_parameters, kl_autoencoder_loss
-from .optim import optimizer_factory
+from ..models.autoencoder import BatchNorm, KLAutoEncoder, init_parameters, kl_autoencoder_loss
+from ..parallel.mesh import Mesh, all_reduce_mean_, all_reduce_sum, make_mesh, rows_of
+from .optim import flatten, optimizer_factory
 
 METRICS = ("loss", "loss.cd", "loss.kl", "gradnorm")
 
 
 class AETrainer:
     def __init__(self, model: KLAutoEncoder, training_cfg: Dict[str, Any],
-                 steps_per_epoch: int = 500, device: torch.device | str = "cuda"):
+                 steps_per_epoch: int = 500, device: torch.device | str = "cuda",
+                 mesh: Optional[Mesh] = None):
         self.device = torch.device(device)
         self.model = model.to(self.device)
+        self.mesh = mesh if mesh is not None else make_mesh()
+        if self.mesh.distributed:
+            for m in model.modules():
+                if isinstance(m, BatchNorm):
+                    m.sync = (lambda t: all_reduce_sum(t, self.mesh), self.mesh.n_data)
         self.opt = optimizer_factory(list(model.parameters()), training_cfg, steps_per_epoch)
         self.generator = torch.Generator(device=self.device)
 
@@ -47,32 +63,55 @@ class AETrainer:
         return self.opt.count
 
     def put_batch(self, pc: np.ndarray) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(pc, np.float32)).to(self.device)
+        """A global (B, N, 3) host batch -> this data rank's clouds on the
+        device."""
+        pc = np.asarray(pc, np.float32)
+        return torch.as_tensor(pc[rows_of(len(pc), self.mesh)]).to(self.device)
+
+    def _eps(self, pc: torch.Tensor, eps: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """This data rank's rows of the global batch's posterior noise (drawn
+        where it is not given); with one data rank the model draws it."""
+        if self.mesh.n_data == 1:
+            return eps
+        total = pc.shape[0] * self.mesh.n_data
+        if eps is None:
+            eps = torch.randn((total, self.model.latent_dim), generator=self.generator,
+                              device=self.device)
+        return eps[rows_of(total, self.mesh)]
 
     def train_step(self, pc: torch.Tensor, eps: Optional[torch.Tensor] = None
                    ) -> Dict[str, float]:
-        """One optimizer step on a (B, N, 3) batch.  ``eps`` (B, latent_dim)
+        """One optimizer step on a (B, N, 3) batch (this data rank's clouds,
+        :meth:`put_batch`).  ``eps`` (the global batch's (B, latent_dim))
         replaces the posterior sample's noise, else the trainer's generator
-        draws it.  Returns the metrics, fetched in one host transfer."""
+        draws it.  Returns the global batch's metrics, fetched in one host
+        transfer."""
         self.model.train()
-        kl, _, recon = self.model(pc, eps=eps, generator=self.generator)
+        kl, _, recon = self.model(pc, eps=self._eps(pc, eps), generator=self.generator)
         loss, parts = kl_autoencoder_loss(kl, recon, pc, self.model.kl_weight)
         self.opt.zero_grad()
         loss.backward()
-        gnorm = self.opt.step()
-        values = torch.stack([loss.detach(), parts["loss.cd"].detach(),
-                              parts["loss.kl"].detach(), gnorm]).tolist()
-        return dict(zip(METRICS, values))
+        values = torch.stack([loss.detach(), parts["loss.cd"].detach(), parts["loss.kl"].detach()])
+        if self.mesh.distributed:
+            # one all-reduce: the flat gradient and the metrics, averaged
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.opt.params]
+            buf = all_reduce_mean_(torch.cat([flatten(grads), values]), self.mesh)
+            gnorm = self.opt.step(buf[:-len(values)])
+            values = buf[-len(values):]
+        else:
+            gnorm = self.opt.step()
+        return dict(zip(METRICS, torch.cat([values, gnorm[None]]).tolist()))
 
     @torch.no_grad()
     def eval_step(self, pc: torch.Tensor) -> Dict[str, float]:
         """Loss in eval mode with the posterior mean (running BatchNorm
-        moments)."""
+        moments), averaged over the data ranks."""
         self.model.eval()
         kl, _, recon = self.model(pc, deterministic=True)
         loss, parts = kl_autoencoder_loss(kl, recon, pc, self.model.kl_weight)
-        values = torch.stack([loss, parts["loss.cd"], parts["loss.kl"]]).tolist()
-        return dict(zip(METRICS, values))
+        values = all_reduce_mean_(torch.stack([loss, parts["loss.cd"], parts["loss.kl"]]),
+                                  self.mesh)
+        return dict(zip(METRICS, values.tolist()))
 
     @torch.no_grad()
     def encode(self, pc: torch.Tensor) -> torch.Tensor:

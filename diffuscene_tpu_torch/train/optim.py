@@ -112,8 +112,9 @@ def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float
     return unflatten(flat, grads), gnorm
 
 
-def _clip(g: torch.Tensor, max_norm: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    gnorm = torch.sqrt((g * g).sum())
+def _clip(g: torch.Tensor, max_norm: float, sq_norm: Optional[Callable] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    gnorm = torch.sqrt((g * g).sum() if sq_norm is None else sq_norm(g))
     return torch.where(gnorm < max_norm, g, (g / gnorm) * max_norm), gnorm
 
 
@@ -135,7 +136,10 @@ class Optimizer:
     before the clip (a 0-d tensor).  ``fused`` selects the arithmetic of the
     JAX package's ``fused_clip_adam``, with the moments stored in
     ``moment_dtype``.  ``frozen`` (one bool a parameter, :func:`freeze_mask`)
-    zeroes those parameters' gradients first.
+    zeroes those parameters' gradients first.  ``sq_norm`` (flat gradient ->
+    its global sum of squares, f32), when set, replaces the local sum of
+    squares of the clip's norm: a tensor-parallel trainer's blocks are
+    parts of one global gradient.
 
     The moments live in one flat buffer (``slots`` are per-parameter views
     of it: SGD's trace, or Adam's and RAdam's mu and nu) and every step
@@ -161,6 +165,7 @@ class Optimizer:
         if self.fused and (name != "Adam" or self.weight_decay):
             raise ValueError("the fused update is Adam's without weight decay")
         self.count = 0
+        self.sq_norm: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
         device = self.params[0].device
         n = sum(p.numel() for p in self.params)
         self._moments = torch.zeros(1 if name == "SGD" else 2, n,
@@ -187,7 +192,7 @@ class Optimizer:
         if self.fused:
             upd, gnorm = self._fused_update(g, *self._moments, lr)
         else:
-            g, gnorm = _clip(g, self.max_grad_norm)
+            g, gnorm = _clip(g, self.max_grad_norm, self.sq_norm)
             upd = self._update(g, lr)
         torch._foreach_add_(self.params, unflatten(upd, self.params))
         return gnorm
@@ -224,7 +229,7 @@ class Optimizer:
         ``eps_eff`` (host scalars in f32, as the JAX package forms them),
         the moments read and written in their dtype, all arithmetic f32.
         Returns (the update, the norm)."""
-        gnorm = f32_global_norm(g)
+        gnorm = f32_global_norm(g) if self.sq_norm is None else torch.sqrt(self.sq_norm(g))
         cap = self.max_grad_norm
         scale = torch.where(gnorm < cap, torch.ones_like(gnorm), cap / gnorm)
         f32 = np.float32

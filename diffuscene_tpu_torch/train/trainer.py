@@ -40,11 +40,47 @@ Departures from the JAX package, where its behaviour is a fault:
   frozen statistics' included, before the mask zeroes them, so for a
   room-mask model its logged norm is not its clip's norm.
 
-``Trainer(mixed_precision=True)`` of the JAX package (the parameters cast
-to bf16 once a step) is not ported yet (ROADMAP A14).  The trainer runs on
-the card unless it is asked for the CPU, and moves the model there.
-Timesteps and noise come from the trainer's generator unless a step is
-given them; each step's metrics come back in one host transfer.
+``mixed_precision`` (``diffuscene_tpu/train/trainer.py:150-160``) casts
+the f32 master parameters to bf16 once a step, outside the gradient: the
+loss runs on those copies (``torch.func.functional_call``).  What the JAX
+step computes then, for a bf16 config and an f32 one alike: flax promotes a
+bf16 parameter to the module's dtype, so the port's modules see each copy
+in its parameter's dtype (bf16 values in f32 for an f32 config), except
+the weight-standardized kernels, which the JAX WSDense standardizes in
+bf16 arithmetic (its moments summed in f32 and rounded): those stay bf16
+(``WSConv1x1`` standardizes a bf16 kernel in bf16).  The gradients are taken with respect to the
+bf16 copies, so they are rounded to bf16 as the JAX gradients of bf16
+leaves are, and come back to f32.  The parameters, the optimizer slots and
+the EMA stay f32.
+
+Over a mesh (``parallel/mesh.py``, one process a card) the step computes
+what the JAX step computes on the *global* batch, whatever the world size:
+
+- :meth:`put_batch` takes the global host batch and keeps this data rank's
+  rows (B must divide over the data ranks);
+- the timesteps and noise are drawn for the global batch from the
+  trainer's generator (seeded alike on every rank) and sliced
+  (``SceneDiffusion.get_loss(shard=)``), and a step's given ``t`` and
+  ``noise`` are the global batch's too;
+- the loss is a per-scene mean, so the mean over the data group of the
+  ranks' losses is the global loss: one all-reduce of the flat gradient
+  and the metrics averages them over the data group, before the clip's
+  norm, so the logged "gradnorm" is the global one (with ``grad_accum``,
+  at every micro-step, as the JAX step logs each micro-step's norm);
+- ``tensor_parallel`` keeps this model rank's column block of each large
+  kernel (``parallel/tp.py``: the JAX rule and default size,
+  ``shard_params``) as its f32 master copy, with its Adam moments and EMA;
+  each step all-gathers the full kernels for the forward, and the clip's
+  norm counts each sharded element once and each replicated one once.  It
+  shards the optimizer state and the EMA only: every rank still holds the
+  module's full parameters (brought up to date from the blocks when they
+  are read: ``eval_step``, ``state_dict``) and runs the whole forward and
+  backward on its data rank's rows, so it saves no compute against data
+  parallelism.
+
+The trainer runs on the card unless it is asked for the CPU, and moves the
+model there.  Timesteps and noise come from the trainer's generator unless
+a step is given them; each step's metrics come back in one host transfer.
 """
 from __future__ import annotations
 
@@ -52,8 +88,13 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
 
+from ..models.denoiser import WSConv1x1
 from ..models.scene_model import SceneDiffusion
+from ..parallel.mesh import Mesh, all_reduce_mean_, make_mesh, shard_batch
+from ..parallel.tp import gather_full, param_shardings, shard_params
 from ..utils.config import as_dtype
 from .optim import f32_global_norm, flatten, lr_schedule_factory, optimizer_factory, unflatten
 
@@ -71,14 +112,33 @@ def _device_name(key: str) -> Optional[str]:
     return name if name in _DEVICE_BATCH_KEYS else None
 
 
+class _SceneLoss(nn.Module):
+    """``SceneDiffusion.get_loss`` as a module over ``scene.networks``, so
+    that ``functional_call`` can run it on other parameter values."""
+
+    def __init__(self, scene: SceneDiffusion):
+        super().__init__()
+        self.networks = scene.networks
+        self.__dict__["scene"] = scene          # not a submodule
+
+    def forward(self, batch, generator, t, noise, shard):
+        return self.scene.get_loss(batch, generator, t, noise, shard)
+
+
 class Trainer:
     """Owns the optimizer state, the EMA and the gradient accumulator of a
-    :class:`SceneDiffusion` model."""
+    :class:`SceneDiffusion` model; over ``mesh`` (default: every rank of
+    the process group, or none), data-parallel, and with
+    ``tensor_parallel`` the large kernels split over the model group."""
 
     def __init__(self, scene: SceneDiffusion, training_cfg: Dict[str, Any],
-                 steps_per_epoch: int = 500, device: torch.device | str = "cuda"):
+                 steps_per_epoch: int = 500, device: torch.device | str = "cuda",
+                 mesh: Optional[Mesh] = None, tensor_parallel: bool = False,
+                 mixed_precision: bool = False):
         self.device = torch.device(device)
         self.scene = scene.to(self.device)
+        self.mesh = mesh if mesh is not None else make_mesh()
+        self.mixed_precision = mixed_precision
         self.training_cfg = training_cfg
         self.steps_per_epoch = steps_per_epoch
         self.ema_decay = float(training_cfg.get("ema_decay", 0.0) or 0.0)
@@ -91,8 +151,31 @@ class Trainer:
         self.ema_dtype = as_dtype(training_cfg.get("ema_dtype"))
         named = list(scene.networks.named_parameters())
         self.names: List[str] = [n for n, _ in named]
-        self.params: List[torch.Tensor] = [p for _, p in named]
+        self._module_params: List[torch.Tensor] = [p for _, p in named]
+        self.shardings = (param_shardings(scene.networks, self.mesh) if tensor_parallel
+                          else dict.fromkeys(self.names))
+        self._sharded = [i for i, n in enumerate(self.names) if self.shardings[n] is not None]
+        self._dims = [self.shardings[self.names[i]] for i in self._sharded]
+        # the master tensors: the module's parameters, or this model rank's
+        # column block of a sharded kernel
+        self.params: List[torch.Tensor] = list(self._module_params)
+        blocks = self._shard([p.detach() for p in self._module_params])
+        for i in self._sharded:
+            self.params[i] = nn.Parameter(blocks[i])
+        self._sharded_mask = None
+        if self._sharded:
+            self._sharded_mask = flatten([
+                torch.full((p.numel(),), i in self._sharded, dtype=torch.bool, device=self.device)
+                for i, p in enumerate(self.params)])
+        self._loss_module = _SceneLoss(self.scene)
+        # under mixed precision the weight-standardized kernels are seen in
+        # bf16 (standardized in bf16, as the JAX WSDense does on a bf16
+        # kernel), every other bf16 copy in its parameter's dtype
+        self._bf16_seen = {f"{m_name}.weight" for m_name, m in scene.networks.named_modules()
+                           if isinstance(m, WSConv1x1)}
         self.opt = optimizer_factory(self.params, training_cfg, steps_per_epoch)
+        if self._sharded:
+            self.opt.sq_norm = self._sq_norm
         self.lr_schedule = lr_schedule_factory(training_cfg)
         self.generator = torch.Generator(device=self.device)
         self.step = 0          # micro-steps taken (the JAX TrainState.step)
@@ -122,6 +205,7 @@ class Trainer:
         optimizer state, the EMA a copy of the parameters, and the
         generator of timesteps and noise seeded."""
         self.scene.init(torch.Generator().manual_seed(seed))
+        self._blocks_from_module()
         self._reset_state()
         self.generator.manual_seed(seed + 1)
         return self
@@ -129,43 +213,121 @@ class Trainer:
     @torch.no_grad()
     def set_weights(self, params: Dict[str, torch.Tensor],
                     ema: Optional[Dict[str, torch.Tensor]] = None) -> None:
-        """Load ``scene.networks`` weights (a warm start); the EMA becomes
-        ``ema`` when given, else a copy of the loaded weights."""
+        """Load ``scene.networks`` weights (a warm start; full tensors); the
+        EMA becomes ``ema`` when given, else a copy of the loaded weights."""
         self.scene.networks.load_state_dict(params)
+        self._blocks_from_module()
         if self.ema is not None:
-            for n, e, p in zip(self.names, self.ema, self.params):
-                e.copy_(ema[n] if ema is not None else p)
+            src = self.params if ema is None else self._shard([ema[n] for n in self.names])
+            for e, v in zip(self.ema, src):
+                e.copy_(v)
+
+    # -- tensor parallelism: this rank's blocks and the full tensors --------
+    def _shard(self, full: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """This model rank's blocks of per-parameter full tensors
+        (parameters, EMA or slots); replicated ones as they are."""
+        return list(shard_params(dict(zip(self.names, full)), self.shardings,
+                                 self.mesh).values())
+
+    def _full(self, local: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+        """Full tensors of per-parameter ``local`` values (parameters, EMA or
+        slots): one all-gather over the model group.  A collective call."""
+        out = list(local)
+        if self._sharded:
+            blocks = gather_full([local[i] for i in self._sharded], self._dims, self.mesh)
+            for i, t in zip(self._sharded, blocks):
+                out[i] = t
+        return out
+
+    @torch.no_grad()
+    def _blocks_from_module(self) -> None:
+        if self._sharded:
+            blocks = self._shard(self._module_params)
+            for i in self._sharded:
+                self.params[i].copy_(blocks[i])
+
+    @torch.no_grad()
+    def _module_from_blocks(self) -> None:
+        if self._sharded:
+            for p, full in zip(self._module_params, self._full(self.params)):
+                if full is not p:
+                    p.copy_(full)
+
+    def _sq_norm(self, g: torch.Tensor) -> torch.Tensor:
+        """The global sum of squares of the flat gradient in f32: each
+        replicated element once, each model rank's block once."""
+        gg = g.float() * g.float()
+        sharded = gg[self._sharded_mask].sum()
+        if self.mesh.distributed:
+            dist.all_reduce(sharded, group=self.mesh.model_group)
+        return gg[~self._sharded_mask].sum() + sharded
 
     # ------------------------------------------------------------------
     def put_batch(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """A host batch of numpy arrays -> float32 tensors on the device."""
+        """A global host batch of numpy arrays -> this data rank's rows as
+        float32 tensors on the device."""
         out = {}
-        for k, v in batch.items():
+        for k, v in shard_batch(batch, self.mesh).items():
             name = _device_name(k)
             if name is not None:
                 out[name] = torch.as_tensor(np.asarray(v, np.float32)).to(self.device)
         return out
 
     def put_batches(self, batches: Sequence[Dict[str, Any]]) -> Dict[str, torch.Tensor]:
-        """k host batches stacked into (k, B, ...) tensors for :meth:`train_step_scan`."""
+        """k global host batches stacked into (k, B, ...) tensors (this data
+        rank's rows) for :meth:`train_step_scan`."""
         out = {}
         for k in batches[0]:
             name = _device_name(k)
             if name is not None:
                 host = np.stack([np.asarray(b[k], np.float32) for b in batches])
-                out[name] = torch.as_tensor(host).to(self.device)
+                out[name] = torch.as_tensor(
+                    shard_batch({k: host}, self.mesh, axis=1)[k]).to(self.device)
         return out
 
     # ------------------------------------------------------------------
+    def _loss(self, batch, t, noise, differentiable: bool = True):
+        """(loss, terms, the tensors to differentiate): the module's own
+        parameters, or (mixed precision, tensor parallelism) the forward
+        through ``functional_call`` on their bf16 copies or full kernels."""
+        shard = (self.mesh.data_rank, self.mesh.n_data)
+        if not (self.mixed_precision or self._sharded):
+            loss, terms = self.scene.get_loss(batch, self.generator, t, noise, shard)
+            return loss, terms, self.params
+        leaves = [p.detach().to(torch.bfloat16).requires_grad_(differentiable)
+                  if self.mixed_precision and p.dtype == torch.float32 else p
+                  for p in self.params]
+        full = list(leaves)
+        if self._sharded:
+            blocks = gather_full([leaves[i] for i in self._sharded], self._dims, self.mesh,
+                                 differentiable=differentiable)
+            for i, b in zip(self._sharded, blocks):
+                full[i] = b
+        values = {f"networks.{n}": v if n in self._bf16_seen else v.to(p.dtype)
+                  for n, v, p in zip(self.names, full, self._module_params)}
+        loss, terms = torch.func.functional_call(self._loss_module, values,
+                                                 (batch, self.generator, t, noise, shard))
+        return loss, terms, leaves
+
     def _train_step(self, batch, t=None, noise=None) -> Dict[str, torch.Tensor]:
         """One micro-step; the metrics stay on the device."""
-        loss, loss_dict = self.scene.get_loss(batch, self.generator, t, noise)
-        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
-        g = flatten([torch.zeros_like(p) if g is None else g for g, p in zip(grads, self.params)])
+        loss, loss_dict, leaves = self._loss(batch, t, noise)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        g = flatten([torch.zeros_like(p) if g is None else g.to(p.dtype)
+                     for g, p in zip(grads, self.params)])
         del grads
+        metrics = {k: v.detach() for k, v in loss_dict.items()}
+        metrics["loss"] = loss.detach()
+        if self.mesh.distributed:
+            # one all-reduce: the flat gradient and the metrics, averaged
+            # over the data group
+            buf = torch.cat([g.float(), torch.stack([v.float() for v in metrics.values()])])
+            all_reduce_mean_(buf, self.mesh)
+            g = buf[:g.numel()]
+            metrics = dict(zip(metrics, buf[g.numel():]))
         if self.grads_dtype is not None and g.dtype == torch.float32:
             g = g.to(self.grads_dtype)
-        gnorm = f32_global_norm(g)
+        gnorm = torch.sqrt(self._sq_norm(g)) if self._sharded else f32_global_norm(g)
         with torch.no_grad():
             if self.acc is None:
                 self.opt.step(g)
@@ -180,8 +342,6 @@ class Trainer:
                     self.acc.zero_()
                     self.mini_step = 0
         self.step += 1
-        metrics = {k: v.detach() for k, v in loss_dict.items()}
-        metrics["loss"] = loss.detach()
         metrics["gradnorm"] = gnorm
         return metrics
 
@@ -199,12 +359,13 @@ class Trainer:
 
     def train_step(self, batch: Dict[str, torch.Tensor], t: Optional[torch.Tensor] = None,
                    noise: Optional[torch.Tensor] = None) -> Dict[str, float]:
-        """One train step on a device batch; ``t`` (B,) and ``noise`` (the
-        diffusion target's shape: (B, N, point_dim), or (B, N,
-        translation_dim + angle_dim) for a rearrange config) replace the
-        generator's draws.  Returns the loss
-        terms, "loss" and "gradnorm" (of this micro-batch's gradients,
-        before the clip), fetched in one host transfer."""
+        """One train step on a device batch (this data rank's rows,
+        :meth:`put_batch`); ``t`` (B,) and ``noise`` (the diffusion target's
+        shape: (B, N, point_dim), or (B, N, translation_dim + angle_dim) for
+        a rearrange config), both of the global batch, replace the
+        generator's draws.  Returns the loss terms, "loss" and "gradnorm"
+        (of this micro-batch's gradients, before the clip), of the global
+        batch, fetched in one host transfer."""
         return self._to_host(self._train_step(batch, t, noise))
 
     def train_step_scan(self, batches: Dict[str, torch.Tensor], t: Optional[torch.Tensor] = None,
@@ -224,10 +385,17 @@ class Trainer:
     @torch.no_grad()
     def eval_step(self, batch: Dict[str, torch.Tensor], t: Optional[torch.Tensor] = None,
                   noise: Optional[torch.Tensor] = None) -> Dict[str, float]:
-        """The loss of a batch with the current (not EMA) parameters."""
-        loss, loss_dict = self.scene.get_loss(batch, self.generator, t, noise)
+        """The loss of a batch with the current (not EMA) f32 parameters,
+        averaged over the data group."""
+        self._module_from_blocks()
+        loss, loss_dict = self.scene.get_loss(batch, self.generator, t, noise,
+                                              (self.mesh.data_rank, self.mesh.n_data))
         metrics = dict(loss_dict)
         metrics["loss"] = loss
+        if self.mesh.distributed:
+            values = all_reduce_mean_(torch.stack([v.float() for v in metrics.values()]),
+                                      self.mesh)
+            metrics = dict(zip(metrics, values))
         return self._to_host(metrics)
 
     def current_lr(self, step: Optional[int] = None) -> float:
@@ -238,33 +406,47 @@ class Trainer:
     def ema_or_params(self) -> Dict[str, torch.Tensor]:
         """The weights a sampler should use: the EMA when there is one,
         keyed as ``scene.networks``' state_dict, with the networks' buffers
-        (a room-mask extractor's frozen statistics)."""
+        (a room-mask extractor's frozen statistics); full tensors (under
+        tensor parallelism a collective call)."""
         values = self.ema if self.ema is not None else [p.detach() for p in self.params]
-        out = dict(zip(self.names, values))
+        out = dict(zip(self.names, self._full(values)))
         out.update((n, b.detach()) for n, b in self.scene.networks.named_buffers())
         return out
 
     # ------------------------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:
         """The whole training state: step, parameters, EMA, Adam count and
-        moments in their dtypes, the accumulator and the generator."""
+        moments in their dtypes, the accumulator and the generator; full
+        tensors (under tensor parallelism a collective call)."""
+        self._module_from_blocks()
+        opt = self.opt.state_dict()
+        acc = None if self.acc is None else self.acc.clone()
+        if self._sharded:
+            opt["slots"] = [self._full(slot) for slot in opt["slots"]]
+            if acc is not None:
+                acc = flatten(self._full(unflatten(acc, self.params)))
         return {
             "step": self.step,
             "model": self.scene.networks.state_dict(),
             "ema": None if self.ema is None else {
                 n: e.clone() for n, e in self.ema_or_params().items()},
-            "optimizer": self.opt.state_dict(),
-            "acc": None if self.acc is None else self.acc.clone(),
+            "optimizer": opt,
+            "acc": acc,
             "mini_step": self.mini_step,
             "generator": self.generator.get_state(),
         }
 
     @torch.no_grad()
     def load_state_dict(self, state: Dict[str, Any]) -> None:
-        self.opt.load_state_dict(state["optimizer"])
+        opt, acc = state["optimizer"], state.get("acc")
+        if self._sharded:
+            opt = dict(opt, slots=[self._shard(slot) for slot in opt["slots"]])
+            if acc is not None:
+                acc = flatten(self._shard(unflatten(acc.to(self.device), self._module_params)))
+        self.opt.load_state_dict(opt)
         self.step = int(state["step"])
         self.mini_step = int(state.get("mini_step", 0))
         self.set_weights(state["model"], state.get("ema"))
-        if self.acc is not None and state.get("acc") is not None:
-            self.acc.copy_(state["acc"])
+        if self.acc is not None and acc is not None:
+            self.acc.copy_(acc)
         self.generator.set_state(state["generator"].cpu())

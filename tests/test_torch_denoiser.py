@@ -4,6 +4,8 @@ the Flax Unet1D, through the weight bridge (diffuscene_tpu_torch/utils/convert.p
 Small sizes (dim 64, 4 levels, B=4); inputs from numpy with a fixed seed;
 f32 atol 2e-4 on the forward (the same f32 math, summed in another order).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -25,13 +27,20 @@ KW = dict(dim=64, dim_mults=(1, 1, 1, 1), channels=62, objectness_dim=0, class_d
 B, N = 4, 12
 
 
+@functools.lru_cache(maxsize=None)
+def _flax_shapes(seperate_all):
+    """The Flax Unet1D init tree's shapes, traced once a process."""
+    return jax.eval_shape(JUnet1D(seperate_all=seperate_all, **KW).init, jax.random.PRNGKey(0),
+                          jnp.zeros((2, N, 62)), jnp.zeros((2,), jnp.int32),
+                          jnp.zeros((2, N, 32)))["params"]
+
+
 def _flax_params(seperate_all=True, seed=0):
     """Random Flax Unet1D params with every leaf randomized (biases and norm
     scales too, so every tensor kind of the bridge is exercised), in the tree
     structure and shapes of the Flax module's own init."""
     net = JUnet1D(seperate_all=seperate_all, **KW)
-    shapes = jax.eval_shape(net.init, jax.random.PRNGKey(0), jnp.zeros((2, N, 62)),
-                            jnp.zeros((2,), jnp.int32), jnp.zeros((2, N, 32)))["params"]
+    shapes = _flax_shapes(seperate_all)
     rng = np.random.default_rng(seed)
 
     def leaf(path, a):

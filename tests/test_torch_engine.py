@@ -12,6 +12,8 @@ differ from the engine's plain ops by summation order only; bf16 atol
 at other places in the two (B1 keeps the dense output in f32 where the JAX
 engine rounds it) and the differences add up over 28 blocks.
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -34,11 +36,17 @@ B, T = 4, 6
 UNCOND = {**KW, "instanclass_dim": 0}
 
 
+@functools.lru_cache(maxsize=None)
+def _uncond_shapes():
+    """The unconditioned Unet1D's init tree shapes, traced once a process."""
+    return jax.eval_shape(JUnet1D(**UNCOND).init, jax.random.PRNGKey(0), jnp.zeros((2, N, 62)),
+                          jnp.zeros((2,), jnp.int32))["params"]
+
+
 def _uncond_params(seed):
     """Random Flax params of the unconditioned Unet1D (no cond-FiLM mlps)."""
     net = JUnet1D(**UNCOND)
-    shapes = jax.eval_shape(net.init, jax.random.PRNGKey(0), jnp.zeros((2, N, 62)),
-                            jnp.zeros((2,), jnp.int32))["params"]
+    shapes = _uncond_shapes()
     rng = np.random.default_rng(seed)
 
     def leaf(path, a):

@@ -354,7 +354,7 @@ def _jax_parser(main):
 
 
 # options of the JAX CLIs that the port takes and refuses at run time
-REFUSED = {"train_diffusion": {"--with_wandb_logger", "--mixed_precision"}}
+REFUSED = {"train_diffusion": {"--with_wandb_logger"}}
 
 
 @pytest.mark.parametrize("module", ["generate_diffusion", "completion_rearrange",

@@ -68,9 +68,11 @@ def test_port_sources_found():
                    "utils/image.py", "data/utils_io.py", "cli/preprocess_data.py",
                    "cli/pickle_threed_future_dataset.py",
                    "cli/pickle_threed_future_pointcloud.py", "utils/profiling.py",
-                   "utils/export.py", "models/factory.py", "native/__init__.py"):
+                   "utils/export.py", "models/factory.py", "native/__init__.py",
+                   "parallel/__init__.py", "parallel/distributed.py", "parallel/mesh.py",
+                   "parallel/sampler.py", "parallel/tp.py"):
         assert f"diffuscene_tpu_torch/{module}" in paths, module
-    assert len(paths) >= 66
+    assert len(paths) >= 71
 
 
 # the raw-data pipeline and the room-mask path compute the same with or

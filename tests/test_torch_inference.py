@@ -20,6 +20,7 @@ from diffuscene_tpu_torch.models import inference as tinf
 from diffuscene_tpu_torch.utils.convert import denoiser_tree, flax_to_torch_denoiser
 
 from test_torch_denoiser import KW, N, _flax_params
+from test_torch_threads import below_the_longest_file  # noqa: F401 (autouse)
 from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
 
 

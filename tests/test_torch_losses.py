@@ -237,11 +237,18 @@ def _configs(dtype):
     return JSceneModelConfig(**kw), SceneModelConfig(**kw)
 
 
+# the JAX init tree's shapes by config: traced once a process, since a
+# trace of the Flax init costs seconds and the tests reuse configs
+_INIT_SHAPES = {}
+
+
 def jax_params(jscene, seed):
     """Random numpy leaves in the shapes of the JAX init tree (traced, not
     run): kernels N(0, 1/fan_in), other leaves around their init value (1
     for norm scales, 0 else) with noise, so every tensor kind is exercised."""
-    shapes = jax.eval_shape(jscene.init, jax.random.PRNGKey(0))
+    if jscene.cfg not in _INIT_SHAPES:
+        _INIT_SHAPES[jscene.cfg] = jax.eval_shape(jscene.init, jax.random.PRNGKey(0))
+    shapes = _INIT_SHAPES[jscene.cfg]
     rng = np.random.default_rng(seed)
 
     def leaf(path, a):

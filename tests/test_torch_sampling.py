@@ -9,6 +9,7 @@ and DPM-Solver++; the port replays the JAX sampler's noise stream through
 1e-4: f32 math summed in another order, over 4-5 steps.
 """
 import dataclasses
+import functools
 import os
 
 import jax
@@ -82,8 +83,14 @@ def _cfgs(time_num=5):
     return JSceneModelConfig(**kw), SceneModelConfig(**kw)
 
 
+@functools.lru_cache(maxsize=None)
+def _init_shapes(jcfg):
+    """The JAX init tree's shapes of a config, traced once a process."""
+    return jax.eval_shape(JSceneDiffusion(jcfg).init, jax.random.PRNGKey(0))
+
+
 def _random_params(jscene):
-    shapes = jax.eval_shape(jscene.init, jax.random.PRNGKey(0))
+    shapes = _init_shapes(jscene.cfg)
     rng = np.random.default_rng(11)
 
     def leaf(path, a):

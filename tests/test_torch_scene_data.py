@@ -189,6 +189,5 @@ def test_train_then_generate_cli_on_cpu(tmp_path):
     from diffuscene_tpu_torch.eval.png import read_png
 
     assert all(read_png(os.path.join(gen, f)).shape == (256, 256, 3) for f in pngs)
-    for flag in ("--with_wandb_logger", "--mixed_precision"):      # still refused
-        with pytest.raises(SystemExit, match=flag.lstrip("-")):
-            train_main([cfg, out, flag, "--device", "cpu"])
+    with pytest.raises(SystemExit, match="with_wandb_logger"):      # still refused
+        train_main([cfg, out, "--with_wandb_logger", "--device", "cpu"])

@@ -4,6 +4,7 @@ compile on the CPU).  The recipe: a bf16 net with ws_fast_vjp and tanh
 GELU, fused clip + Adam with bf16 moments, bf16 gradients, a bf16 EMA; the
 tolerances are stated in tests/test_torch_train.py."""
 from test_torch_train import two_trainer_steps_against_jax
+from test_torch_threads import below_the_longest_file  # noqa: F401 (autouse)
 from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
 
 
