@@ -64,8 +64,8 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    launch plan (tiles, clusters of 4, shared memory, clusters that fit at
    once, the weight bytes a call reads); each case's time as eager calls,
    graph replay, profiler device time and the plain version's; shapes the
-   kernels do not take (C=256, 8 heads of 16, N=25) must raise in both
-   dtypes;
+   kernels do not take (C=256 in bf16 and 384 in f32, 8 heads of 16, N=25)
+   must raise in both dtypes;
 9. one full-width forward of the flagship through the 3-D engine
    (fused_unet1d_forward, 28 B1 and 1 B2 launches) against the plain Unet1D
    module in f32 and bf16 and against the rows engine, with each engine's
@@ -85,9 +85,10 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    560 and 20), and a 20-step profile of a B=256 step against its
    host-clock time; each profile names the f32 kernels (resblock_tf32,
    attention_tf32) and gives their ms per step, busy time and idle share;
-   then DDPM-1000 at B=16 from one seeded generator: at every step of the
-   fused=True trajectory both engines (exact GELU) within FORWARD_TOL of
-   the module on that step's x_t (a breach fails and names the step), and
+   then DDPM-1000 at B=16 from one seeded generator: at every other step
+   of the fused=True trajectory both engines (exact GELU) within
+   FORWARD_TOL of the module on that step's x_t (a breach fails and names
+   the step), and
    the two engines run free, their descaled boxes' relative L2 and max
    difference and their class argmax agreement printed;
 12. the scene model's training path at the flagship's full width (the
@@ -95,7 +96,8 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    v-prediction, loss_separate, loss_iou on the train bounds, clip + Adam,
    B=128, f32), on a synthetic cached dataset of 640 rooms made from the
    seed and read through the copied data pipeline: one Trainer step on the
-   card against the same step on the CPU (the loss, every loss term, the
+   card against the same step on the CPU on the first CARD_CPU_B (32)
+   scenes of a batch (the loss, every loss term, the
    gradient norm and every parameter's gradient, same t and noise), then
    30 steps on the card (finite, falling loss, the median host-clock
    ms/step around train_step and its one metrics transfer, peak memory),
@@ -123,8 +125,8 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    spread of the cond-FiLM rows across scenes printed (non-zero for the
    rearrange model, or the phase fails), wall time and scenes/s, and a
    20-step profile of each task step; (c) the rearrange config's train
-   step at its B=128 on the card against the CPU (loss and every
-   gradient), then 10 steps (median ms/step, peak memory); (d)
+   step on CARD_CPU_B scenes on the card against the CPU (loss and every
+   gradient), then 10 steps at its B=128 (median ms/step, peak memory); (d)
    cli/train_diffusion.py on each config for 2 epochs, then
    cli/completion_rearrange.py --arrange_objects and --num_partial 3, each
    --fused --compute_intersec on one batch of 32: exactly 28,000 and 1,000
@@ -144,13 +146,13 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    module every 50th step; (c) one step at B=256 on one x_t in every
    scene with the text rolled by one scene: the unrolled output rolled by
    one scene (1e-5), and more than 1e-3 from the unrolled output; (d) the
-   text config's train step at B=128 on the card against the CPU (loss and
-   every gradient; every cross-attention parameter and fc_text_f with a
-   non-zero gradient), then 10 steps (median ms/step, peak memory); (e)
-   cli/train_diffusion.py on the text config for 2 epochs, then
-   cli/generate_diffusion.py --fused with --fix_order and with --scene_id:
-   64 scenes each, exactly 28,000 B1 and 1,000 B2 launches, a box file and
-   a sentence file a scene;
+   text config's train step on CARD_CPU_B scenes on the card against the
+   CPU (loss and every gradient; every cross-attention parameter and
+   fc_text_f with a non-zero gradient), then 10 steps at B=128 (median
+   ms/step, peak memory); (e) cli/train_diffusion.py on the text config
+   for 2 epochs, then cli/generate_diffusion.py --fused --dpm with
+   --fix_order and with --scene_id: 64 scenes each, exactly 560 B1 and 20
+   B2 launches, a box file and a sentence file a scene;
 18. the evaluation path, on a synthetic cached dataset of 2560 rooms (an
    eval split of 256) and a checkpoint of the flagship model's seeded
    weights written by the port's checkpoint module: (a) run/generate.sh's
@@ -186,14 +188,14 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    no empty 64x64 mask, the first 12 masks' levels as the CPU tests get
    them; (b) the flagship at full width as a room-mask model
    (room_mask_config: latent_dim and context_dim 64, a ResNet18 of 64
-   features over 64x64 masks), its train step at B=128 on the card
-   against the CPU (the loss and the denoiser's and heads' gradients; the
+   features over 64x64 masks), its train step on CARD_CPU_B scenes on the
+   card against the CPU (the loss and the denoiser's and heads' gradients; the
    extractor's gradients against the CPU's f64, in f64 and in f32), the
    extractor's share of a step's device time, then cli/train_diffusion.py
    for DATA_TRAIN_EPOCHS steps (ms/step, peak memory) and its checkpoint's
    frozen statistics bit for bit as initialized; (c) from that checkpoint,
-   cli/generate_diffusion.py --fused --clip_denoised --fix_order at B=256
-   (exactly 28,000 B1 and 1,000 B2 launches, one extractor call), DDPM-1000
+   cli/generate_diffusion.py --fused --dpm --clip_denoised --fix_order at
+   B=256 (exactly 560 B1 and 20 B2 launches, one extractor call), DDPM-1000
    at B=64 through fused="rows" (exactly 19,000 B4) and fused=True, each
    engine within FORWARD_TOL of the module every 50th step, the
    extractor's features card vs CPU within DATA_FEATURE_TOL, and
@@ -240,10 +242,32 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    over 2 x PAR_MP_STEPS steps, in turns (plain, mixed, mixed, plain), and
    peak memory, beside phase 13's; then
    cli/train_diffusion.py --mixed_precision under torchrun (one process)
-   for PAR_CLI_EPOCHS epochs of the flagship config on synthetic rooms.
+   for PAR_CLI_EPOCHS epochs of the flagship config on synthetic rooms;
+22. the f32 B1 and B2 kernels at the widths and GroupNorm groupings the JAX
+   engine serves (f32 only; bf16 and B4 keep C=512 in 8 groups): (a) B1 at
+   every (C, groups) of its set (C = 256, 512, 1024 in 4, 8, 16, 32 groups
+   of at least 16 channels) with film rows, per scene and none, identity
+   residuals over x and over [x | skip] and projections, inputs up to 2048
+   wide, B in (7, 256), N in (12, 21); B2 at C = 256, 512, 1024, N in (12,
+   21, 24), B in (7, 64, 256); each against its plain version within
+   KERNEL_TOL, with its launch plan, the wide kernels' ptxas report, and
+   the times (eager, graph replay, device, plain, bound) of the 28 blocks
+   of the wide flagship's (dim_mults [1, 1, 2, 2]) and the 4-, 8- and
+   16-group flagships' forwards and of B2 at (64, 12, C); (b) the wide
+   flagship's DDPM-1000 at B=64, f32, fused=True: exactly 28,000 B1, 1,000
+   B2 and no B4, the engine within FORWARD_TOL of the module every 50th
+   call, a 20-step profile with B1 split into its C=512 and C=1024 blocks;
+   (c) the flagship in 4 and in 16 groups, DPM-Solver++-20 at B=64 through
+   fused=True: 560 B1 and 20 B2, held every WIDE_DPM_EVERY calls;
+   fused="rows" on the 16-group model raising B4's error with nothing
+   launched; (d) the wide flagship in bf16 raising the width error naming
+   fused=False with nothing launched, and cli/generate_diffusion.py --fused
+   on the wide config at B=64 (exactly 28,000 B1 and 1,000 B2); (e) this
+   run's C=512 8-group figures (the flagship's 28 blocks and B2, graph
+   replay) beside PERF.md's.
 
 The phases run in the order 1, 2, 7, 8, 3 with 9 (one set of full-width
-models), 4, 10, 11, 15, 5, 6, 12, 13, 14, 21, 16, 17, 18, 19, 20.  TF32 is off for every matmul and
+models), 4, 10, 11, 15, 22, 5, 6, 12, 13, 14, 21, 16, 17, 18, 19, 20.  TF32 is off for every matmul and
 convolution (the references are f32; the f32 B1 kernel's split TF32 is
 three tf32 products per f32 product, not TF32 matmul).
 Phase 1 prints each kernel's registers, stack and spills from ptxas, and
@@ -265,11 +289,16 @@ line), ``--only-tasks`` phases 1 and 16 (with the tasks JSON line) and
 ``--only-eval`` phases 1 and 18 (with the eval JSON line) and
 ``--only-data`` phases 1 and 19 (with the data JSON line) and
 ``--only-rest`` phases 1 and 20 (with the rest JSON line) and
-``--only-parallel`` phases 1 and 21 (with the parallel JSON line); none of
-them prints an ok line.
+``--only-parallel`` phases 1 and 21 (with the parallel JSON line) and
+``--only-wide`` phases 1 and 22 (with the wide JSON line); none of them
+prints an ok line.
 
 The line before the last is the card's name and power limit again, the one
 before it a JSON summary of the kernels, the one before that a JSON
+summary of phase 22 ("wide": each kernel case's error, the forwards' and
+B2's times, the C=512 8-group figures, each wide sample's wall time,
+launches, worst engine gap, busy time, idle share and kernel ms per step,
+the refusals, the generate CLI's run), the one before that a JSON
 summary of phase 21 ("parallel": the one-rank NCCL checks, each two-rank
 path's agreement and launches a rank, the NCCL refusal, each b512 step's
 ms/step and peak memory), the one before that a JSON
@@ -305,7 +334,11 @@ chain, ResnetBlock and set-attention entries the text samples' launches
 ("text_launches"), and the ResnetBlock and set-attention entries the
 generate command's launches of phase 18 ("eval_launches"); every entry
 carries its launches in phase 19 ("data_launches"), in phase 20
-("rest_launches") and in phase 21 a rank ("parallel_launches").  The
+("rest_launches") and in phase 21 a rank ("parallel_launches"), and the
+ResnetBlock and set-attention entries their phase 22 samples' launches
+("wide_launches"), worst error and the wide flagship's 28 blocks' and
+B2's (C=1024) times ("wide_ms", "wide_graph_ms", "wide_plain_ms",
+"wide_bound_ms").  The
 last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -348,9 +381,9 @@ FORWARD_MIX = {"row_scene": 5, "scene": 5, "row_skip": 4, "skip": 5}
 # (the block0s), "scene" per-scene time rows, "zero" zero rows, "none" no
 # film (must equal "zero" exactly); C_in 1024 as x and skip (the engine's
 # up blocks) or as one (M, 1024) x (B1's own form)
-RB_CASES = {"row": ("row", C, False), "scene": ("scene", C, False),
-            "skip": ("scene", 2 * C, True), "cat": ("row", 2 * C, False),
-            "zero": ("zero", C, False), "none": ("none", C, False)}
+RB_CASES = {"row": ("row", C, 0, C, 8), "scene": ("scene", C, 0, C, 8),
+            "skip": ("scene", C, C, C, 8), "cat": ("row", 2 * C, 0, C, 8),
+            "zero": ("zero", C, 0, C, 8), "none": ("none", C, 0, C, 8)}
 # one flagship forward: 9 block0s, 10 time blocks, 9 skip-concat blocks
 RB_FORWARD_MIX = {"row": 9, "scene": 10, "skip": 9}
 RB_LARGE_B, RB_LARGE_B_CASES = 768, ("scene", "skip")
@@ -384,6 +417,7 @@ SAMPLE_PROFILE_STEPS = 20
 # in metres) to descale the samples, and ROADMAP section C's bound on the
 # free-running drift between two paths (printed beside it, not gated)
 DRIFT_B = 16
+DRIFT_EVERY = 2    # the gated steps: every other one
 DRIFT_BOUNDS = {"translations": ((-3.0, 0.0, -3.0), (3.0, 4.0, 3.0)),
                 "sizes": ((0.04,) * 3, (2.0,) * 3)}
 DRIFT_BOUND = {"rel_l2": 1e-2, "agree": 0.99}
@@ -421,6 +455,10 @@ FLAGSHIP_STEPS, B512_STEPS, TRAIN_PROFILE_STEPS, CLI_EPOCHS, GEN_SCENES = 30, 20
 # gradient norm within 1e-4 relative, each parameter's gradient within 1e-3
 # in relative L2
 TRAIN_STEP_TOL = {"loss": 1e-4, "gradnorm": 1e-4, "grad_rel_l2": 1e-3}
+# the card-vs-CPU train steps (phases 12, 16, 17, 19) take the first 32
+# scenes of a batch of the config's size (128): the full-width CPU step is
+# most of their time, cut for the script's time limit
+CARD_CPU_B = 32
 # ws_fast_vjp vs autograd through the exact standardization, bf16, B=512:
 # the forward differs by one-pass vs two-pass moments rounded to bf16, the
 # backward's projection term uses the bf16 w (2^-9 relative), and both
@@ -558,10 +596,36 @@ PAR_DIR = "build/smoke_parallel"
 PAR_STEP_TOL = {"loss": 1e-5, "max_lr": 2.05, "loose_lr": 1e-2, "loose_share": 1e-3}
 PAR_AE_TOL = {"loss": 1e-4, "gradnorm": 5e-4}
 PAR_MP_TOL = {"loss": 2e-2, "max_lr": 2.05, "loose_lr": 0.5, "loose_share": 0.02}
+# phase 22, the f32 B1 and B2 kernels at the widths and GroupNorm
+# groupings the JAX engine serves: B1 at every (C, groups) of its set and
+# B2 at every C of its set against their plain versions; the flagship with
+# dim_mults [1, 1, 2, 2] (the wide flagship: 17 blocks at C=512 on
+# resblock_tf32, 11 at C=1024 and mid_attn on the wide kernels),
+# DDPM-1000 at B=64 through fused=True, held to the module every
+# TASK_CHECK_EVERY calls; the flagship with 4 and with 16 groups (every
+# block on resblock_tf32_wide), DPM-Solver++-20 at B=64, held every
+# WIDE_DPM_EVERY calls; what stays narrow (bf16, B4) raising with nothing
+# launched; generate_diffusion --fused on the wide config; the C=512
+# 8-group figures beside PERF.md's
+WIDE_B1_SET = tuple((c, g) for c in (256, 512, 1024) for g in (4, 8, 16, 32) if c // g >= 16)
+WIDE_B2_C = (256, 512, 1024)
+WIDE_MULTS = (1, 1, 2, 2)
+WIDE_GROUPINGS = (4, 16)
+WIDE_DPM_EVERY = 5
+WIDE_DATA, WIDE_OUT, WIDE_SCENES = "build/smoke_wide_data", "build/smoke_wide", 640
+# the wide flagship's step profile: B1 split by kernel (its C=512 and
+# C=1024 blocks), and B2
+WIDE_KERNELS = (("B1 C=512 (resblock_tf32)", "resblock_tf32<"),
+                ("B1 C=1024 (resblock_tf32_wide)", "resblock_tf32_wide"),
+                ("B2 C=1024 (attention_tf32_wide)", "attention_tf32_wide"))
+# PERF.md section 6's figures of the C=512, 8-group f32 kernels at B=64,
+# N=12, graph replay (NVIDIA H100 80GB HBM3, 700.00 W): the flagship's 28
+# blocks, B2
+WIDE_EARLIER_MS = {"b1_28": 0.855, "b2": 0.0228}
 # the short checks: phase 1 and one kernel's phase, no ok line
 ONLY = ("--only-resblock", "--only-chain", "--only-attention", "--only-chamfer", "--only-train",
         "--only-f32-engine", "--only-tasks", "--only-text", "--only-eval", "--only-data",
-        "--only-rest", "--only-parallel")
+        "--only-rest", "--only-parallel", "--only-wide")
 
 
 def card_line():
@@ -570,21 +634,58 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def device_ms(torch, fn, match, iters=20):
+# device_ms's sessions so far: taken, and those that left launches
+# unrecorded (with the fewest recorded of the most expected)
+PROFILER_TALLY = {"sessions": 0, "short": 0, "fewest": None}
+
+
+def device_ms(torch, fn, match, iters=20, launches=1, tries=3):
     """Mean device time per call of ``fn`` of the kernels whose name holds
     ``match`` (torch.profiler over ``iters`` calls after a warm-up); NaN if
-    the profiler saw none (not measured)."""
+    the profiler saw none (not measured).  Late in a long process the
+    profiler leaves some of a session's kernel launches unrecorded (on an
+    H100 after phase 15, some sessions recorded none or a few of 20 B1
+    launches, others all 20, each recorded one of the right length), so
+    with ``launches`` (the matching kernels one call launches) a session that
+    recorded fewer than launches x iters is counted in PROFILER_TALLY and
+    taken again, up to ``tries`` sessions; if none recorded them all, the
+    mean of the recorded launches times ``launches`` is returned, with a
+    line saying so.  ``launches=None`` (calls of many kernels) sums what
+    one session recorded."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key)
-    return us / iters / 1e3 if us else float("nan")
+    for _ in range(tries if launches else 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        mine = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and match in e.key]
+        us, seen = sum(e.self_device_time_total for e in mine), sum(e.count for e in mine)
+        PROFILER_TALLY["sessions"] += 1
+        if not launches or seen == launches * iters:
+            return us / iters / 1e3 if us else float("nan")
+        PROFILER_TALLY["short"] += 1
+        fewest = PROFILER_TALLY["fewest"]
+        if fewest is None or seen / (launches * iters) < fewest[0] / fewest[1]:
+            PROFILER_TALLY["fewest"] = (seen, launches * iters)
+    if not seen:
+        return float("nan")
+    print(f"device_ms: the profiler recorded {seen} of the {launches * iters} launches of "
+          f"{match!r} in each of {tries} sessions; the last session's mean a launch x "
+          f"{launches}", flush=True)
+    return us / seen * launches / 1e3
+
+
+def profiler_tally(label):
+    """Print PROFILER_TALLY after ``label``."""
+    t = PROFILER_TALLY
+    worst = "" if t["fewest"] is None else (f"; the fewest recorded {t['fewest'][0]} of "
+                                           f"{t['fewest'][1]}")
+    print(f"profiler: {t['sessions']} device_ms sessions by the end of {label}, {t['short']} of "
+          f"them with launches unrecorded and taken again{worst}", flush=True)
 
 
 def graph_ms(torch, fn, iters=20, replays=5):
@@ -884,33 +985,35 @@ def phase_forward(torch, dtype):
     return scene
 
 
-def rb_case(torch, name, n, dtype, seed, batch=B):
-    """Random B1 inputs on the card, as the flagship's prepared weights are
-    scaled: standardized W1/W2 (unit variance per output column)."""
+def rb_case(torch, case, n, dtype, seed, batch=B):
+    """Random B1 inputs on the card for ``case`` = (film, C_x, C_skip, C,
+    groups) (a residual projection where C_x + C_skip != C), as the
+    flagship's prepared weights are scaled: standardized W1/W2 (unit
+    variance per output column)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
 
     def rnd(*shape, scale=1.0, base=0.0):
         return base + scale * torch.randn(*shape, generator=g, device=dev)
 
-    film, c_in, skip_form = RB_CASES[name]
-    M = batch * n
-    kw = dict(w1=rnd(c_in, C, scale=0.7 if c_in > C else 1.0), b1=rnd(C, scale=0.1),
-              gn1_scale=rnd(C, scale=0.1, base=1.0), gn1_bias=rnd(C, scale=0.1),
-              w2=rnd(C, C), b2=rnd(C, scale=0.1),
-              gn2_scale=rnd(C, scale=0.1, base=1.0), gn2_bias=rnd(C, scale=0.1))
-    if c_in != C:
-        kw.update(w_res=rnd(c_in, C, scale=c_in ** -0.5), b_res=rnd(C, scale=0.1))
+    film, kx, ks, c, groups = case
+    c_in, M = kx + ks, batch * n
+    kw = dict(w1=rnd(c_in, c, scale=0.7 if c_in > c else 1.0), b1=rnd(c, scale=0.1),
+              gn1_scale=rnd(c, scale=0.1, base=1.0), gn1_bias=rnd(c, scale=0.1),
+              w2=rnd(c, c), b2=rnd(c, scale=0.1),
+              gn2_scale=rnd(c, scale=0.1, base=1.0), gn2_bias=rnd(c, scale=0.1))
+    if c_in != c:
+        kw.update(w_res=rnd(c_in, c, scale=c_in ** -0.5), b_res=rnd(c, scale=0.1))
     kw = {k: (v.to(dtype) if k in ("w1", "w2", "w_res") else v) for k, v in kw.items()}
     x = rnd(M, c_in).to(dtype)
     skip = None
-    if skip_form:
-        x, skip = x[:, :C].contiguous(), x[:, C:].contiguous()
-    f = {"row": lambda: rnd(M, 2 * C, scale=0.2).to(dtype),
-         "scene": lambda: rnd(batch, 2 * C, scale=0.2).to(dtype),
-         "zero": lambda: torch.zeros(M, 2 * C, dtype=dtype, device=dev),
+    if ks:
+        x, skip = x[:, :kx].contiguous(), x[:, kx:].contiguous()
+    f = {"row": lambda: rnd(M, 2 * c, scale=0.2).to(dtype),
+         "scene": lambda: rnd(batch, 2 * c, scale=0.2).to(dtype),
+         "zero": lambda: torch.zeros(M, 2 * c, dtype=dtype, device=dev),
          "none": lambda: None}[film]()
-    return (x, f), dict(kw, skip=skip, n_per_scene=n, compute_dtype=dtype)
+    return (x, f), dict(kw, skip=skip, n_per_scene=n, groups=groups, compute_dtype=dtype)
 
 
 def rb_work(args, kw):
@@ -918,30 +1021,30 @@ def rb_work(args, kw):
     and the output written once.  Returns (flops, bytes)."""
     x, f = args
     M = x.shape[0]
-    c_in = kw["w1"].shape[0]
-    k_total = c_in + C + (c_in if kw.get("w_res") is not None else 0)
-    flops = 2 * M * C * k_total
+    c_in, c = kw["w1"].shape
+    k_total = c_in + c + (c_in if kw.get("w_res") is not None else 0)
+    flops = 2 * M * c * k_total
     tensors = [x, f, kw["skip"], kw["w1"], kw["w2"], kw.get("w_res")]
     nbytes = sum(t.numel() * t.element_size() for t in tensors if t is not None)
-    nbytes += 7 * C * 4 + M * C * x.element_size()
+    nbytes += 7 * c * 4 + M * c * x.element_size()
     return flops, nbytes
 
 
-def rb_check(rb, torch, name, n, dtype, seed, batch=B, timed=True):
-    """One B1 case: kernel vs plain version ("none" must also equal zero
-    film rows exactly); with ``timed``, the eager (CUDA events),
+def rb_check(rb, torch, case, n, dtype, seed, batch=B, timed=True):
+    """One B1 case (rb_case): kernel vs plain version (no film must also
+    equal zero film rows exactly); with ``timed``, the eager (CUDA events),
     graph-replay, profiler-device and plain times.  Returns (ok, error,
     times or None, (flops, bytes))."""
     dname = str(dtype).split(".")[-1]
-    args, kw = rb_case(torch, name, n, dtype, seed, batch=batch)
+    args, kw = rb_case(torch, case, n, dtype, seed, batch=batch)
     got = rb.fused_resnet_block(*args, **kw)
     want = rb.fused_resnet_block_reference(*args, **kw)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     ok = (bool(torch.isfinite(got.float()).all())
           and torch.allclose(got.float(), want.float(), **KERNEL_TOL[dname]))
-    if name == "none":   # no film is zero film rows, exactly
-        zero = torch.zeros(args[0].shape[0], 2 * C, dtype=dtype, device="cuda")
+    if case[0] == "none":   # no film is zero film rows, exactly
+        zero = torch.zeros(args[0].shape[0], 2 * case[3], dtype=dtype, device="cuda")
         ok = ok and torch.equal(got, rb.fused_resnet_block(args[0], zero, **kw))
     times = None
     if timed:
@@ -964,7 +1067,7 @@ def phase_resblock(rb, torch):
             dname = str(dtype).split(".")[-1]
             for name in RB_CASES:
                 seed += 1
-                ok, err, tm, (flops, nbytes) = rb_check(rb, torch, name, n, dtype, seed)
+                ok, err, tm, (flops, nbytes) = rb_check(rb, torch, RB_CASES[name], n, dtype, seed)
                 worst = max(worst, err)
                 results[(n, dname, name)] = (err, tm["ms"], tm["plain"], flops, nbytes, tm["dev"],
                                              tm["graph"])
@@ -979,7 +1082,8 @@ def phase_resblock(rb, torch):
     # a ragged last tile: 63 scenes of 12 rows
     for dtype in (torch.bfloat16, torch.float32):
         dname = str(dtype).split(".")[-1]
-        ok, err, _, _ = rb_check(rb, torch, "skip", 12, dtype, 7, batch=63, timed=False)
+        ok, err, _, _ = rb_check(rb, torch, RB_CASES["skip"], 12, dtype, 7, batch=63,
+                                timed=False)
         worst = max(worst, err)
         print(f"kernel fused_resblock N=12 B=63 {dname:8s} skip  max_abs_err={err:.3e} "
               f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -991,7 +1095,7 @@ def phase_resblock(rb, torch):
         for dtype in (torch.bfloat16, torch.float32):
             dname = str(dtype).split(".")[-1]
             for name in RB_LARGE_B_CASES:
-                ok, err, tm, (flops, nbytes) = rb_check(rb, torch, name, 12, dtype,
+                ok, err, tm, (flops, nbytes) = rb_check(rb, torch, RB_CASES[name], 12, dtype,
                                                         500 + batch + len(name), batch=batch)
                 worst = max(worst, err)
                 b_ms, b_by, fp32_ms = kernel_bound(dname, flops, nbytes)
@@ -1044,12 +1148,12 @@ def resblock_plan(rb, torch):
         for n in (12, 21):
             for kx, ks in ((C, 0), (C, C)):
                 p = rb.tile_plan(B, n, kx, ks, dtype)
-                fit = lib.fused_resblock_max_active_clusters(code, kx, ks, int(ks > 0))
+                fit = lib.fused_resblock_max_active_clusters(code, C, 8, kx, ks, int(ks > 0))
                 print(f"plan fused_resblock {dname} N={n} B={B} C_in={kx}+{ks}: "
                       f"{p.scenes_per_tile} scenes a tile, {p.clusters} clusters of 8 = {p.ctas} "
                       f"CTAs, {p.stages} stages, {p.smem_bytes} bytes of shared memory a CTA "
-                      f"(library {lib.fused_resblock_smem_bytes(code, kx, ks)}), {fit} clusters fit "
-                      f"at once", flush=True)
+                      f"(library {lib.fused_resblock_smem_bytes(code, C, 8, kx, ks, int(ks > 0))}), "
+                      f"{fit} clusters fit at once", flush=True)
                 if fit < 1:
                     raise RuntimeError(f"no cluster of the {dname} B1 kernel fits ({fit})")
 
@@ -1083,7 +1187,7 @@ def attention_plan(at, torch):
                            (torch.float32, (B, GENERATE_B, ATTN_LARGE_B))):
         code = build.DTYPE_CODES[dtype]
         dname = "bf16" if dtype == torch.bfloat16 else "f32"
-        resident = lib.set_attention_max_active_clusters(code)
+        resident = lib.set_attention_max_active_clusters(code, C)
         if resident <= 0:
             raise RuntimeError(f"set_attention_max_active_clusters({dname}) failed ({resident})")
         for n in (12, 21, 24):
@@ -1093,7 +1197,7 @@ def attention_plan(at, torch):
                       f"tile, {p.tiles} tiles, {p.clusters} clusters of {at.HEADS} = {p.ctas} CTAs "
                       f"({resident} clusters fit at once; {p.tiles / min(p.clusters, resident):.2f} "
                       f"tiles a resident cluster), {p.smem_bytes} bytes of shared memory a CTA "
-                      f"(library {lib.set_attention_smem_bytes(code)}), 288 threads a CTA (two "
+                      f"(library {lib.set_attention_smem_bytes(code, C)}), 288 threads a CTA (two "
                       f"consumer warpgroups, a producer warp), {p.weight_bytes / 1e6:.2f} MB of "
                       f"{'split ' if dname == 'f32' else ''}weights read a call", flush=True)
 
@@ -1161,9 +1265,11 @@ def phase_attention(at, torch):
               f"bound_ms={b_ms:.5f}{route} ({b_by}; {nbytes / 1e6:.2f} MB)", flush=True)
         if not ok:
             failures.append((n, dname, eps, batch, err))
-    # both kernels take C=512, 4 heads of 32 and N <= 24 only: anything else raises
+    # the kernels take 4 heads of 32, N <= 24 and C=512 (bf16) or C in
+    # (256, 512, 1024) (f32) only: anything else raises
     for dtype in (torch.bfloat16, torch.float32):
-        for c, heads, dim_head, n in ((256, 4, 32, 12), (512, 8, 16, 12), (512, 4, 32, 25)):
+        c_out = 256 if dtype == torch.bfloat16 else 384
+        for c, heads, dim_head, n in ((c_out, 4, 32, 12), (512, 8, 16, 12), (512, 4, 32, 25)):
             hd2 = heads * dim_head
             bad = (rnd(2, n, c).to(dtype), rnd(c), rnd(c, 3 * hd2).to(dtype),
                    rnd(hd2, c).to(dtype), rnd(c))
@@ -1333,7 +1439,9 @@ def phase_engine_samples(torch, scene, card, dpm_batch=B, profile_batches=()):
 def phase_drift(torch, scene):
     """The end of phase 15: DDPM-1000 of the flagship in f32 at B=16 from
     one seeded generator.  The gate: along the fused=True trajectory, at
-    each of the T steps, x_t goes through the 3-D engine (B1 and B2 f32),
+    every DRIFT_EVERY-th of the T steps (every step until the script's
+    time limit called for the cut), x_t goes through the 3-D engine (B1
+    and B2 f32),
     the rows engine (B4 f32) and the module; each engine's output must be
     within FORWARD_TOL f32 of the module's (the maxima stay on the card and
     are read once; a breach names the step).  The gated engine calls take
@@ -1367,9 +1475,10 @@ def phase_drift(torch, scene):
 
     def gated(x, t):
         nonlocal step
-        want = paths["module"](x, t)
-        for k, engine in enumerate(exact):
-            errs[step, k] = (engine(x, t) - want).abs().max()
+        if step % DRIFT_EVERY == 0:
+            want = paths["module"](x, t)
+            for k, engine in enumerate(exact):
+                errs[step, k] = (engine(x, t) - want).abs().max()
         step += 1
         return paths["3-D"](x, t)
 
@@ -1389,8 +1498,9 @@ def phase_drift(torch, scene):
         bad = (~(worst[:, k] <= tol)).nonzero()
         print(f"drift: f32 DDPM-{T} B={DRIFT_B}, {name} engine vs module along the fused=True "
               f"trajectory: worst max_abs_err {worst[:, k].max().item():.3e} at t="
-              f"{T - 1 - int(worst[:, k].argmax())}, tol={tol} at every step "
-              f"{'ok' if not len(bad) else 'FAIL'} ({walls['gated']:.1f} s, 4 forwards a step)",
+              f"{T - 1 - int(worst[:, k].argmax())}, tol={tol} at every {DRIFT_EVERY}nd step "
+              f"{'ok' if not len(bad) else 'FAIL'} ({walls['gated']:.1f} s, 4 forwards a "
+              f"checked step)",
               flush=True)
         if len(bad):
             i = int(bad[0])
@@ -1535,7 +1645,7 @@ def phase_chamfer(ch, torch):
 
     out["ms"], out["plain_ms"], out["library_ms"] = cuda_ms(kernel), cuda_ms(plain), cuda_ms(library)
     out["graph_ms"] = graph_ms(torch, kernel)
-    out["device_ms"] = device_ms(torch, kernel, "chamfer_nn_sm90")
+    out["device_ms"] = device_ms(torch, kernel, "chamfer_nn_sm90", launches=2)
     out["bound_ms"], out["bound_by"] = chamfer_bound_ms(nb, n, m, d)
     out["max_abs_err"] = worst
     print(f"chamfer forward, both directions, {tuple(x0.shape)}/{tuple(y0.shape)}: kernel "
@@ -1677,6 +1787,16 @@ def step_grads(torch, trainer, batch, t, noise):
     return loss.item(), torch.autograd.grad(loss, trainer.params)
 
 
+def card_cpu_inputs(torch, host, seed, width):
+    """The card-vs-CPU step's inputs: the first CARD_CPU_B scenes of the
+    host batch ``host``, and their timesteps and noise (``width`` channels)
+    from a CPU generator seeded ``seed``."""
+    host = {k: v[:CARD_CPU_B] for k, v in host.items()}
+    g = torch.Generator().manual_seed(seed)
+    t = torch.randint(0, T, (CARD_CPU_B,), generator=g)
+    return host, t, torch.randn(CARD_CPU_B, 12, width, generator=g)
+
+
 def grad_rel_l2(a, b):
     """(the worst parameter's relative L2 difference and its name index,
     the whole gradient's)."""
@@ -1716,16 +1836,14 @@ def train_steps(torch, trainer, batches, n, label):
 
 def phase_train_flagship(torch, data_dir):
     """Phase 12: the flagship's train step on the card against the same step
-    on the CPU, then 30 steps on the card and a profile of 5."""
+    on the CPU (CARD_CPU_B scenes), then 30 steps at B=128 on the card and
+    a profile of 5."""
     from diffuscene_tpu_torch.data.loader import DataLoader
 
     ds, bsz, card = scene_trainer(torch, FLAGSHIP_CONFIG, DEV, data_dir)
     _, _, cpu = scene_trainer(torch, FLAGSHIP_CONFIG, "cpu", data_dir)
     batches = DataLoader(ds, bsz, shuffle=True, seed=SEED).infinite()
-    host = next(batches)
-    g = torch.Generator().manual_seed(SEED + 30)
-    t = torch.randint(0, T, (bsz,), generator=g)
-    noise = torch.randn(bsz, 12, 62, generator=g)
+    host, t, noise = card_cpu_inputs(torch, next(batches), SEED + 30, 62)
     dev_args = (card.put_batch(host), t.to(DEV), noise.to(DEV))
     cpu_args = (cpu.put_batch(host), t, noise)
     loss_c, grads_c = step_grads(torch, card, *dev_args)
@@ -1738,7 +1856,7 @@ def phase_train_flagship(torch, data_dir):
     rel_loss = max(v for k, v in rel.items() if k.startswith("loss"))
     ok = (rel_loss <= TRAIN_STEP_TOL["loss"] and rel["gradnorm"] <= TRAIN_STEP_TOL["gradnorm"]
           and worst <= TRAIN_STEP_TOL["grad_rel_l2"])
-    print(f"train flagship, card vs cpu (B={bsz}, f32, TF32 off): loss {m_c['loss']:.7f} vs "
+    print(f"train flagship, card vs cpu (B={CARD_CPU_B}, f32, TF32 off): loss {m_c['loss']:.7f} vs "
           f"{m_p['loss']:.7f} (get_loss {loss_c:.7f} vs {loss_p:.7f}), gradnorm "
           f"{m_c['gradnorm']:.6f} vs {m_p['gradnorm']:.6f}, worst relative loss-term "
           f"difference {rel_loss:.3e}, gradient relative L2: worst parameter {worst:.3e} "
@@ -1927,7 +2045,7 @@ def task_model(torch, config_path):
 
 
 def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=None, steps=T,
-                   **task):
+                   calls=None, every=TASK_CHECK_EVERY, named=None, **task):
     """One DDPM-1000 sample of ``batch`` scenes through
     ``scene.sample(fused=fused, **task)``: with ``fused=True`` every
     ResnetBlock on B1 and mid_attn on B2, exactly 28,000 and 1,000
@@ -1938,10 +2056,12 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
     the phase fails naming the step.  The check's launches and
     cross-attention contexts are not counted and its time (measured,
     synchronised) is taken out of the wall time.  ``step`` (default: the
-    task's step, task_step) is the step a 20-step profile times; ``steps``
-    is the model's schedule length (T unless its config says otherwise).
-    Returns (the sample, a summary with the cross-attention contexts
-    made)."""
+    task's step, task_step) is the step a 20-step profile times, naming
+    ``named`` (default: the engine's kernels); ``steps`` is the model's
+    schedule length (T unless its config says otherwise), ``calls`` the
+    sampler's denoiser calls (``steps`` for DDPM) and ``every`` how often a
+    call is checked.  Returns (the sample, a summary with the
+    cross-attention contexts made)."""
     from diffuscene_tpu_torch.models import inference as inf
     from diffuscene_tpu_torch.ops import attention as at
     from diffuscene_tpu_torch.ops import fused_level as fl
@@ -1951,7 +2071,8 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
     net, tol = scene.denoiser, FORWARD_TOL["float32"]
     counters = ((fl.apply_chain,) if fused == "rows"
                 else (rb.fused_resnet_block, at.fused_set_attention))
-    expected = (19 * steps,) if fused == "rows" else (28 * steps, steps)
+    calls = steps if calls is None else calls
+    expected = (19 * calls,) if fused == "rows" else (28 * calls, calls)
     make_fn = scene._denoise_fn
     errs, info = [], {"step": 0, "check_s": 0.0}
 
@@ -1983,7 +2104,7 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
         def gated(x, t):
             step = info["step"]
             info["step"] += 1
-            if step % TASK_CHECK_EVERY == 0:
+            if step % every == 0:
                 counts = [c.launches for c in counters]
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -2015,24 +2136,26 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
     bad = [s for (s, _), e in zip(errs, worst.tolist()) if not e <= tol]
     finite = bool(torch.isfinite(out).all())
     engine = "rows engine" if fused == "rows" else "3-D engine"
-    summary = {"B": batch, "steps": steps, "wall_s": wall, "scenes_per_s": batch / wall,
+    summary = {"B": batch, "steps": steps, "calls": calls, "wall_s": wall,
+               "scenes_per_s": batch / wall,
                "check_s": info["check_s"], "launches": list(launches),
                "cross_contexts": contexts, "checked_steps": len(errs),
                "worst_engine_vs_module": worst.max().item(),
                "film_spread": info["film_spread"],
                "film_rows_materialized": info["film_rows_materialized"]}
-    print(f"{label}: {steps}-step DDPM, B={batch}, f32, fused={fused!r}: shape="
+    sampler = f"{steps}-step DDPM" if calls == steps else f"{calls}-call sampler"
+    print(f"{label}: {sampler}, B={batch}, f32, fused={fused!r}: shape="
           f"{tuple(out.shape)} finite={finite} launches={list(launches)} (expected "
           f"{list(expected)}) cross_contexts={contexts} wall_s={wall:.3f} scenes_per_s="
           f"{batch / wall:.3f} (the {len(errs)} checks' {info['check_s']:.3f} s taken out); "
-          f"{engine} vs module every {TASK_CHECK_EVERY} steps: worst max_abs_err "
+          f"{engine} vs module every {every} calls: worst max_abs_err "
           f"{worst.max().item():.3e} tol={tol} {'ok' if not bad else 'FAIL'}; cond-FiLM rows "
           f"spread across scenes {info['film_spread']:.3e} (materialized: "
           f"{info['film_rows_materialized']}) | {card}", flush=True)
     if bad:
         i = bad[0]
-        raise RuntimeError(f"{label}: the {engine} is {worst[i // TASK_CHECK_EVERY].item():.3e} "
-                           f"from the module at step {i} (t={steps - 1 - i})")
+        raise RuntimeError(f"{label}: the {engine} is {worst[i // every].item():.3e} "
+                           f"from the module at call {i}")
     if tuple(out.shape) != (batch, 12, 62) or not finite:
         raise RuntimeError(f"{label}: the sample is malformed")
     if launches != expected:
@@ -2040,10 +2163,10 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
     if not info["film_rows_materialized"]:
         raise RuntimeError(f"{label}: the cond-FiLM rows are not materialized")
     print(f"profile: f32 {label} step, B={batch}", flush=True)
+    if named is None:
+        named = ROWS_KERNELS["float32"] if fused == "rows" else ENGINE_KERNELS["float32"]
     prof = profile_steps(torch, step or task_step(torch, scene, **task), SAMPLE_PROFILE_STEPS,
-                         1e3 * wall / steps,
-                         named=ROWS_KERNELS["float32"] if fused == "rows"
-                         else ENGINE_KERNELS["float32"])
+                         1e3 * wall / calls, named=named)
     summary.update(busy_ms=prof["busy_ms"], idle_share=prof["idle_share"],
                    kernels_ms=prof["named_ms"])
     return out, summary
@@ -2111,26 +2234,23 @@ def phase_task_samples(torch, card, data_dir):
 
 
 def phase_train_rearrange(torch, data_dir):
-    """Phase 16 (c): the rearrange config's train step at its B=128 on the
-    card against the same step on the CPU (one batch, t and noise: the loss
-    and every parameter's gradient), then TASK_TRAIN_STEPS steps on the
-    card (median ms/step, peak memory)."""
+    """Phase 16 (c): the rearrange config's train step on the card against
+    the same step on the CPU (CARD_CPU_B scenes of one batch, t and noise:
+    the loss and every parameter's gradient), then TASK_TRAIN_STEPS steps at
+    its B=128 on the card (median ms/step, peak memory)."""
     from diffuscene_tpu_torch.data.loader import DataLoader
 
     ds, bsz, card = scene_trainer(torch, REARRANGE_CONFIG, DEV, data_dir)
     _, _, cpu = scene_trainer(torch, REARRANGE_CONFIG, "cpu", data_dir)
     batches = DataLoader(ds, bsz, shuffle=True, seed=SEED).infinite()
-    host = next(batches)
-    g = torch.Generator().manual_seed(SEED + 32)
-    t = torch.randint(0, T, (bsz,), generator=g)
-    noise = torch.randn(bsz, 12, 5, generator=g)
+    host, t, noise = card_cpu_inputs(torch, next(batches), SEED + 32, 5)
     loss_c, grads_c = step_grads(torch, card, card.put_batch(host), t.to(DEV), noise.to(DEV))
     loss_p, grads_p = step_grads(torch, cpu, cpu.put_batch(host), t, noise)
     worst, at, whole = grad_rel_l2(grads_c, grads_p)
     del grads_c, grads_p, cpu
     loss_rel = abs(loss_c - loss_p) / abs(loss_p)
     ok = loss_rel <= TRAIN_STEP_TOL["loss"] and worst <= TRAIN_STEP_TOL["grad_rel_l2"]
-    print(f"train rearrange, card vs cpu (B={bsz}, f32, TF32 off): loss {loss_c:.7f} vs "
+    print(f"train rearrange, card vs cpu (B={CARD_CPU_B}, f32, TF32 off): loss {loss_c:.7f} vs "
           f"{loss_p:.7f} (relative {loss_rel:.3e}), gradient relative L2: worst parameter "
           f"{worst:.3e} ({card.names[at]}), whole {whole:.3e}; tol={TRAIN_STEP_TOL} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
@@ -2277,7 +2397,7 @@ def phase_text_samples(torch, card, data_dir):
         for name in ctx["cross"]:
             inf._cross_block(prep["misc"], ctx["cross"], name, h, dt, TEXT_B, 12)
 
-    cross_ms = device_ms(torch, cross_blocks, "", SAMPLE_PROFILE_STEPS)
+    cross_ms = device_ms(torch, cross_blocks, "", SAMPLE_PROFILE_STEPS, launches=None)
     busy = out["ddpm_3d"]["busy_ms"]
     out["ddpm_3d"]["cross_blocks_ms"] = cross_ms
     out["ddpm_3d"]["cross_blocks_share"] = cross_ms / busy if busy else None
@@ -2309,22 +2429,19 @@ def phase_text_samples(torch, card, data_dir):
 
 
 def phase_train_text(torch, data_dir):
-    """Phase 17 (d): the text config's train step at its B=128 on the card
-    against the same step on the CPU (one batch with its 768-wide token
-    embeddings, t and noise: the loss and every parameter's gradient),
+    """Phase 17 (d): the text config's train step on the card against the
+    same step on the CPU (CARD_CPU_B scenes of one batch with their 768-wide
+    token embeddings, t and noise: the loss and every parameter's gradient),
     every cross-attention parameter and fc_text_f with a non-zero gradient;
-    then TEXT_TRAIN_STEPS steps on the card (median ms/step, peak memory)."""
+    then TEXT_TRAIN_STEPS steps at its B=128 on the card (median ms/step, peak memory)."""
     from diffuscene_tpu_torch.data.loader import DataLoader
 
     ds, bsz, card = scene_trainer(torch, TEXT_CONFIG, DEV, data_dir)
     _, _, cpu = scene_trainer(torch, TEXT_CONFIG, "cpu", data_dir)
     batches = DataLoader(ds, bsz, shuffle=True, seed=SEED).infinite()
-    host = next(batches)
-    g = torch.Generator().manual_seed(SEED + 33)
-    t = torch.randint(0, T, (bsz,), generator=g)
-    noise = torch.randn(bsz, 12, 62, generator=g)
+    host, t, noise = card_cpu_inputs(torch, next(batches), SEED + 33, 62)
     dev_batch = card.put_batch(host)
-    if tuple(dev_batch["text_emb"].shape) != (bsz, 50, 768):
+    if tuple(dev_batch["text_emb"].shape) != (CARD_CPU_B, 50, 768):
         raise RuntimeError(f"text train: the batch's text_emb is {dev_batch['text_emb'].shape}")
     loss_c, grads_c = step_grads(torch, card, dev_batch, t.to(DEV), noise.to(DEV))
     loss_p, grads_p = step_grads(torch, cpu, cpu.put_batch(host), t, noise)
@@ -2336,7 +2453,7 @@ def phase_train_text(torch, data_dir):
     loss_rel = abs(loss_c - loss_p) / abs(loss_p)
     ok = (loss_rel <= TRAIN_STEP_TOL["loss"] and worst <= TRAIN_STEP_TOL["grad_rel_l2"]
           and len(text_params) == TEXT_CONTEXTS * 6 + 2 and not zero)
-    print(f"train text, card vs cpu (B={bsz}, f32, TF32 off): loss {loss_c:.7f} vs "
+    print(f"train text, card vs cpu (B={CARD_CPU_B}, f32, TF32 off): loss {loss_c:.7f} vs "
           f"{loss_p:.7f} (relative {loss_rel:.3e}), gradient relative L2: worst parameter "
           f"{worst:.3e} ({card.names[at]}), whole {whole:.3e}; tol={TRAIN_STEP_TOL}; "
           f"{len(text_params)} text parameters, {len(zero)} with a zero gradient "
@@ -2355,9 +2472,10 @@ def phase_train_text(torch, data_dir):
 
 def phase_text_cli(torch, data_dir, out_dir, card):
     """Phase 17 (e): train_diffusion on the text config for TEXT_CLI_EPOCHS
-    epochs, then generate_diffusion --fused (DDPM-1000) on its checkpoint,
+    epochs, then generate_diffusion --fused --dpm (DPM-Solver++-20; (a)
+    holds the text DDPM-1000 through the same engine) on its checkpoint,
     once with --fix_order and once with --scene_id: GEN_SCENES scenes in
-    one batch, exactly 28,000 B1 and 1,000 B2 launches, a box file and a
+    one batch, exactly 560 B1 and 20 B2 launches, a box file and a
     sentence file a scene (every --scene_id sentence of one room, the
     --fix_order ones of several)."""
     from diffuscene_tpu_torch.cli import generate_diffusion, train_diffusion
@@ -2380,7 +2498,7 @@ def phase_text_cli(torch, data_dir, out_dir, card):
         stats = generate_diffusion.main(
             [cfg_path, gen_dir, "--weight_file", os.path.join(out_dir, "text"), "--n_sequences",
              str(GEN_SCENES), "--batch_size", str(GEN_SCENES), "--clip_denoised", "--fused",
-             "--seed", str(SEED), "--device", DEV, *flags])
+             "--dpm", "--seed", str(SEED), "--device", DEV, *flags])
         torch.cuda.synchronize()
         gen_s = time.perf_counter() - t0
         launches = (rb.fused_resnet_block.launches, at.fused_set_attention.launches)
@@ -2396,11 +2514,11 @@ def phase_text_cli(torch, data_dir, out_dir, card):
         rooms = {w.split(" . ")[0] for w in texts}
         with open(os.path.join(gen_dir, "metrics.json")) as f:
             saved = json.load(f)
-        ok = (launches == (28 * T, T) and n_boxes == len(texts) == GEN_SCENES
+        ok = (launches == (28 * DPM_STEPS, DPM_STEPS) and n_boxes == len(texts) == GEN_SCENES
               and saved == stats and stats.get("n_scenes") == GEN_SCENES
               and all(w.startswith("The room has ") for w in texts)
               and (len(rooms) == 1) == (label == "scene_id"))
-        print(f"cli: generate_diffusion --fused {' '.join(flags)} {GEN_SCENES} scenes (text, EMA "
+        print(f"cli: generate_diffusion --fused --dpm {' '.join(flags)} {GEN_SCENES} scenes (text, EMA "
               f"weights) {gen_s:.3f} s, launches B1={launches[0]} B2={launches[1]}, {n_boxes} "
               f"box files, {len(texts)} sentence files ({len(rooms)} distinct rooms, "
               f"{len(set(texts))} distinct sentences), stats {stats} {'ok' if ok else 'FAIL'} "
@@ -2872,11 +2990,11 @@ def extractor_grad_check(torch, ext_card, ext_cpu, rl, up):
 
 
 def phase_data_train(torch, cfg_path, card):
-    """Phase 19 (b): the room-mask flagship's train step at B=128 on the card
-    against the same step on the CPU (one batch with its masks, t and
-    noise: the loss and every parameter's gradient, the extractor's and
+    """Phase 19 (b): the room-mask flagship's train step on the card against
+    the same step on the CPU (CARD_CPU_B scenes of one batch with their
+    masks, t and noise: the loss and every parameter's gradient, the extractor's and
     fc_room_f's non-zero), the extractor's share of a card step's device
-    time; then cli/train_diffusion.py for DATA_TRAIN_EPOCHS steps (median
+    time at B=128; then cli/train_diffusion.py for DATA_TRAIN_EPOCHS steps (median
     ms/step around each train_step, peak memory) and its checkpoint's
     frozen BatchNorm statistics bit for bit as initialized."""
     from diffuscene_tpu_torch.cli import train_diffusion
@@ -2887,12 +3005,10 @@ def phase_data_train(torch, cfg_path, card):
     ds, bsz, dev = scene_trainer(torch, cfg_path, DEV, DATA_CACHE)
     _, _, cpu = scene_trainer(torch, cfg_path, "cpu", DATA_CACHE)
     batches = DataLoader(ds, bsz, shuffle=True, seed=SEED).infinite()
-    host = next(batches)
-    g = torch.Generator().manual_seed(SEED + 40)
-    t = torch.randint(0, T, (bsz,), generator=g)
-    noise = torch.randn(bsz, 12, 62, generator=g)
+    full = next(batches)
+    host, t, noise = card_cpu_inputs(torch, full, SEED + 40, 62)
     dev_batch = dev.put_batch(host)
-    if tuple(dev_batch["room_layout"].shape) != (bsz, 1, 64, 64):
+    if tuple(dev_batch["room_layout"].shape) != (CARD_CPU_B, 1, 64, 64):
         raise RuntimeError(f"data train: the batch's room_layout is "
                            f"{dev_batch['room_layout'].shape}")
     loss_c, grads_c, _ = room_step_grads(torch, dev, dev_batch, t.to(DEV), noise.to(DEV))
@@ -2913,7 +3029,7 @@ def phase_data_train(torch, cfg_path, card):
     loss_rel = abs(loss_c - loss_p) / abs(loss_p)
     ok = (loss_rel <= TRAIN_STEP_TOL["loss"] and worst <= TRAIN_STEP_TOL["grad_rel_l2"]
           and whole <= TRAIN_STEP_TOL["grad_rel_l2"] and not zero and ext_tol["ok"])
-    print(f"data train, card vs cpu (room-mask flagship, B={bsz}, f32, TF32 off): loss "
+    print(f"data train, card vs cpu (room-mask flagship, B={CARD_CPU_B}, f32, TF32 off): loss "
           f"{loss_c:.7f} vs {loss_p:.7f} (relative {loss_rel:.3e}), gradient relative L2 of the "
           f"denoiser and heads: worst parameter {worst:.3e} ({dev.names[at]}), whole "
           f"{whole:.3e}; tol={TRAIN_STEP_TOL}; the extractor's, card vs cpu: worst "
@@ -2924,7 +3040,8 @@ def phase_data_train(torch, cfg_path, card):
         raise RuntimeError(f"the room-mask step disagrees between card and CPU: loss {loss_rel}, "
                            f"gradients {worst} at {dev.names[at]}, whole {whole}; the extractor's "
                            f"{ext_tol['bad']}; zero gradients: {zero}")
-    # a card step's device time, and the extractor's share of it
+    # a card step's device time at B=bsz, and the extractor's share of it
+    dev_batch = dev.put_batch(full)
     step_ms = host_ms(torch, lambda: dev.train_step(dev_batch), 3)
     prof = profile_steps(torch, lambda: dev.train_step(dev_batch), TRAIN_PROFILE_STEPS, step_ms)
     rl = dev_batch["room_layout"]
@@ -2932,7 +3049,7 @@ def phase_data_train(torch, cfg_path, card):
     def extractor_step():
         dev.scene.feature_extractor(rl).sum().backward()
 
-    ext_ms = device_ms(torch, extractor_step, "", TRAIN_PROFILE_STEPS)
+    ext_ms = device_ms(torch, extractor_step, "", TRAIN_PROFILE_STEPS, launches=None)
     dev.opt.zero_grad()
     share = ext_ms / prof["busy_ms"] if prof["busy_ms"] else None
     print(f"data train: the ResNet18's forward and backward at B={bsz} on 64x64 masks "
@@ -3005,9 +3122,9 @@ def room_inputs(torch, cfg_path, batch):
 
 
 def phase_data_samples(torch, cfg_path, exp, card):
-    """Phase 19 (c), from (b)'s checkpoint: generate_diffusion --fused
-    --clip_denoised --fix_order, DDPM-1000 at B=256 (exactly 28,000 B1 and
-    1,000 B2 launches, the extractor once a batch); DDPM-1000 at
+    """Phase 19 (c), from (b)'s checkpoint: generate_diffusion --fused --dpm
+    --clip_denoised --fix_order, DPM-Solver++-20 at B=256 (exactly 560 B1
+    and 20 B2 launches, the extractor once a batch); DDPM-1000 at
     DATA_ROWS_B through fused="rows" (exactly 19,000 B4) and through
     fused=True, each engine within FORWARD_TOL of the module every 50th
     step (checked_sample); the extractor's features of the 256 masks card
@@ -3031,17 +3148,18 @@ def phase_data_samples(torch, cfg_path, exp, card):
     try:
         stats, launches, wall = eval_cli_run(torch, generate_diffusion, [
             cfg_path, gen_dir, "--weight_file", exp, "--n_sequences", str(GENERATE_B),
-            "--batch_size", str(GENERATE_B), "--clip_denoised", "--fused", "--fix_order",
+            "--batch_size", str(GENERATE_B), "--clip_denoised", "--fused", "--dpm", "--fix_order",
             "--seed", str(SEED), "--device", DEV])
     finally:
         fe.ResNet18.forward = forward
     n_boxes = len([f for f in os.listdir(gen_dir) if f.endswith("_boxes.npz")])
     with open(os.path.join(gen_dir, "timing.json")) as f:
         timing = json.load(f)
-    ok = (tuple(launches) == (28 * T, T) and calls == [GENERATE_B] and n_boxes == GENERATE_B
+    ok = (tuple(launches) == (28 * DPM_STEPS, DPM_STEPS) and calls == [GENERATE_B]
+          and n_boxes == GENERATE_B
           and stats.get("n_scenes") == GENERATE_B
           and math.isfinite(stats.get("categorical_kl", float("nan"))))
-    print(f"data: generate_diffusion --fused --clip_denoised --fix_order {GENERATE_B} scenes "
+    print(f"data: generate_diffusion --fused --dpm --clip_denoised --fix_order {GENERATE_B} scenes "
           f"(room-mask flagship, EMA weights) {wall:.3f} s (sampling {timing['sample_s']:.3f} s), "
           f"launches B1={launches[0]} B2={launches[1]}, extractor calls {calls}, {n_boxes} box "
           f"files, stats {stats} {'ok' if ok else 'FAIL'} | {card}", flush=True)
@@ -3106,15 +3224,16 @@ def phase_data(torch, ch, card):
     return out
 
 
-def rest_config(name, training=None, net_kwargs=None, diffusion=None):
-    """The flagship config over REST_DATA with ``training``, ``net_kwargs``
+def rest_config(name, training=None, net_kwargs=None, diffusion=None, data=REST_DATA,
+                out=REST_OUT):
+    """The flagship config over ``data`` with ``training``, ``net_kwargs``
     and ``diffusion_kwargs`` keys set (replaced where the file has them,
-    added under the section where it does not), written to REST_OUT; its
+    added under the section where it does not), written to ``out``; its
     path.  The card's machine has no YAML writer: the keys are scalars, set
     line by line."""
     import re
 
-    path = synthetic_config(FLAGSHIP_CONFIG, REST_DATA, REST_OUT, name)
+    path = synthetic_config(FLAGSHIP_CONFIG, data, out, name)
     with open(path) as f:
         text = f.read()
     for section, indent, keys in (("training", "  ", training), ("net_kwargs", "    ", net_kwargs),
@@ -3924,6 +4043,331 @@ def phase_parallel(torch, card, b512_plain=None):
     return out
 
 
+def wide_ptxas(lib_path, match):
+    """The ptxas registers and spills of the kernels whose name holds ``match``."""
+    ptxas = lib_path.with_suffix(".ptxas.txt")
+    for name, regs, spill in ptxas_summary(ptxas.read_text() if ptxas.exists() else ""):
+        if match in name:
+            print(f"ptxas {name}: {regs} | {spill}", flush=True)
+
+
+def wide_forward(rb, torch, mults, groups, seed):
+    """The 28 f32 B1 blocks of one forward of the flagship with ``mults``
+    and ``groups`` at B=64, N=12 (inference.block_shapes; block0s with
+    per-object film rows, the rest per-scene), each block shape timed once
+    and counted as often as the forward runs it: eager, graph-replay,
+    device, plain and bound ms, the sums by C.  Returns (worst error,
+    sums)."""
+    from diffuscene_tpu_torch.models import Unet1D
+    from diffuscene_tpu_torch.models.inference import block_shapes
+
+    shapes = block_shapes(Unet1D(dim=512, dim_mults=mults, resnet_block_groups=groups,
+                                 device="meta"))
+    counts = {}
+    for i, (c, kx, ks) in enumerate(shapes):
+        key = (c, kx, ks, "row" if i % 3 == 0 and i < len(shapes) - 1 else "scene")
+        counts[key] = counts.get(key, 0) + 1
+    sums, worst, bad = {}, 0.0, []
+    for (c, kx, ks, film), k in sorted(counts.items()):
+        case = (film, kx, ks, c, groups)
+        seed += 1
+        ok, err, tm, (flops, nbytes) = rb_check(rb, torch, case, 12, torch.float32, seed)
+        worst = max(worst, err)
+        if not ok:
+            bad.append((case, err))
+        b_ms = kernel_bound("float32", flops, nbytes)[0]
+        kernel = rb.f32_kernel(c, groups, ks, kx + ks != c)
+        print(f"kernel fused_resblock f32 {kernel} C={c} groups={groups} C_in={kx}+{ks} "
+              f"film={film} x{k} a forward, N=12 B={B}: max_abs_err={err:.3e} "
+              f"{'ok' if ok else 'FAIL'} kernel_ms={tm['ms']:.4f} graph_ms={tm['graph']:.4f} "
+              f"device_ms={tm['dev']:.4f} plain_ms={tm['plain']:.4f} bound_ms={b_ms:.4f} "
+              f"({flops / 1e9:.3f} GFLOP)", flush=True)
+        for part in ("all", f"C={c}"):
+            s = sums.setdefault(part, dict(ms=0.0, graph=0.0, dev=0.0, plain=0.0, flops=0,
+                                           bytes=0, blocks=0))
+            for f in ("ms", "graph", "dev", "plain"):
+                s[f] += k * tm[f]
+            s["flops"] += k * flops
+            s["bytes"] += k * nbytes
+            s["blocks"] += k
+    if bad:
+        raise RuntimeError(f"wide: B1 disagrees with its plain version: {bad}")
+    for part, s in sums.items():
+        s["bound_ms"], s["bound_by"], s["fp32_ms"] = kernel_bound("float32", s["flops"], s["bytes"])
+        print(f"ResnetBlocks of one forward, dim_mults {list(mults)}, {groups} groups, f32, "
+              f"N=12, B={B}, {part} ({s['blocks']} blocks): kernel {s['ms']:.3f} ms (eager), "
+              f"graph replay {s['graph']:.3f} ms, device {s['dev']:.3f} ms, plain "
+              f"{s['plain']:.3f} ms, bound {s['bound_ms']:.4f} ms on the split-TF32 route "
+              f"({s['fp32_ms']:.4f} at the FP32 rate; {s['flops'] / 1e9:.2f} GFLOP, "
+              f"{s['bytes'] / 1e6:.2f} MB)", flush=True)
+    return worst, sums
+
+
+def wide_kernels(rb, at, torch):
+    """Phase 22 (a) and (e): f32 B1 at every (C, groups) of its set with
+    film rows, per scene and none, identity residuals (over x, and over
+    [x | skip]) and projections, inputs up to 2048 wide, B in (7, 256) and
+    N in (12, 21); f32 B2 at every C of its set, N in (12, 21, 24) and B in
+    (7, 64, 256); each kernel's plan and ptxas report; the 28 blocks of the
+    wide flagship's and of the 4-, 8- and 16-group flagships' forwards and
+    B2 at (64, 12, C) timed; the C=512 8-group figures against PERF.md's.
+    Returns the summary."""
+    from diffuscene_tpu_torch.ops import build
+
+    rlib, alib = rb.load_library(), at.load_library()
+    wide_ptxas(build.library_path(rb.CSRC), "wide")
+    wide_ptxas(build.library_path(at.CSRC), "wide")
+    out, bad, worst, seed = {"b1": {}, "b2": {}}, [], 0.0, 700
+    for C, groups in WIDE_B1_SET:
+        for film, kx, ks, batch, n in (("row", C, 0, 7, 12), ("scene", C, 2048 - C, 256, 21),
+                                       ("none", C // 2, C // 2, 7, 21),
+                                       ("scene", 2 * C if C < 1024 else 512, 0, 256, 12)):
+            seed += 1
+            case, res = (film, kx, ks, C, groups), kx + ks != C
+            p = rb.tile_plan(batch, n, kx, ks, torch.float32, C, groups, res)
+            fit = rlib.fused_resblock_max_active_clusters(0, C, groups, kx, ks, int(res))
+            lib_smem = rlib.fused_resblock_smem_bytes(0, C, groups, kx, ks, int(res))
+            ok, err, _, _ = rb_check(rb, torch, case, n, torch.float32, seed, batch=batch,
+                                     timed=False)
+            ok = ok and fit >= 1 and lib_smem == p.smem_bytes
+            worst = max(worst, err)
+            print(f"kernel fused_resblock f32 {rb.f32_kernel(C, groups, ks, res)} C={C} "
+                  f"groups={groups} C_in={kx}+{ks} {'projection' if res else 'identity'} "
+                  f"film={film} N={n} B={batch}: {p.scenes_per_tile} scenes ({p.scenes_per_tile * n} "
+                  f"rows) a tile, {p.clusters} clusters of {p.ctas // p.clusters} CTAs, "
+                  f"{p.smem_bytes} bytes of shared memory a CTA (library {lib_smem}), {fit} "
+                  f"clusters fit at once; max_abs_err={err:.3e} tol={KERNEL_TOL['float32']} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                bad.append((case, n, batch, err, fit))
+    out["b1_set_worst"] = worst
+    for label, mults, groups in (("wide", WIDE_MULTS, 8), ("groups8", (1, 1, 1, 1), 8),
+                                 ("groups4", (1, 1, 1, 1), 4), ("groups16", (1, 1, 1, 1), 16)):
+        w, out["b1"][label] = wide_forward(rb, torch, mults, groups, seed)
+        seed += 100
+        worst = max(worst, w)
+    hd = ATTN_HEADS * ATTN_DIM_HEAD
+    g = torch.Generator(device=DEV).manual_seed(SEED + 70)
+
+    def rnd(*shape, scale=1.0, base=0.0):
+        return base + scale * torch.randn(*shape, generator=g, device=DEV)
+
+    for C in WIDE_B2_C:
+        p = at.tile_plan(B, 12, dtype=torch.float32, C=C)
+        print(f"plan set_attention f32 C={C} N=12 B={B}: {p.tiles} tiles, {p.clusters} clusters "
+              f"of {at.HEADS} = {p.ctas} CTAs, {p.smem_bytes} bytes of shared memory a CTA "
+              f"(library {alib.set_attention_smem_bytes(0, C)}), "
+              f"{alib.set_attention_max_active_clusters(0, C)} clusters fit at once, "
+              f"{p.weight_bytes / 1e6:.2f} MB of split weights read a call", flush=True)
+        for n in (12, 21, 24):
+            for batch in (7, B, GENERATE_B):
+                args = (rnd(batch, n, C), rnd(C, scale=0.2, base=1.0),
+                        rnd(C, 3 * hd, scale=C ** -0.5), rnd(hd, C, scale=hd ** -0.5),
+                        rnd(C, scale=0.1))
+                kw = dict(eps=1e-5, compute_dtype=torch.float32)
+                got = at.fused_set_attention(*args, **kw)
+                want = at.fused_set_attention_reference(*args, **kw)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                ok = bool(torch.isfinite(got).all()) and torch.allclose(got, want,
+                                                                         **KERNEL_TOL["float32"])
+                worst = max(worst, err)
+                line = (f"kernel set_attention f32 C={C} N={n} B={batch}: max_abs_err={err:.3e} "
+                        f"{'ok' if ok else 'FAIL'}")
+                if not ok:
+                    bad.append(("B2", C, n, batch, err))
+                if (n, batch) == (12, B):
+                    def call():
+                        return at.fused_set_attention(*args, **kw)
+
+                    M = batch * n
+                    mm = 2 * M * C * 3 * hd + 2 * M * hd * C
+                    attn = 4 * batch * ATTN_HEADS * n * n * ATTN_DIM_HEAD
+                    nbytes = 2 * M * C * 4 + sum(a.numel() * 4 for a in args[1:])
+                    b_ms = bound(0, nbytes, attn, tf32_flops=TF32_SPLIT * mm)[0]
+                    tm = dict(ms=cuda_ms(call), graph=graph_ms(torch, call),
+                              dev=device_ms(torch, call, "attention"),
+                              plain=cuda_ms(lambda: at.fused_set_attention_reference(*args, **kw)),
+                              bound_ms=b_ms, gflop=(mm + attn) / 1e9)
+                    out["b2"][f"C={C}"] = tm
+                    line += (f" kernel_ms={tm['ms']:.4f} graph_ms={tm['graph']:.4f} "
+                             f"device_ms={tm['dev']:.4f} plain_ms={tm['plain']:.4f} "
+                             f"bound_ms={b_ms:.5f} (3xTF32; {mm / 1e9:.3f} GFLOP of products)")
+                    if C == at.CHANNELS:
+                        print(line, flush=True)
+                        line, wide = wide_b2_at_512(at, torch, args, kw, want, tm)
+                        out["b2"]["C=512 attention_tf32_wide"] = wide
+                        if not wide["ok"]:
+                            bad.append(("B2 attention_tf32_wide", C, n, batch, wide["err"]))
+                print(line, flush=True)
+    if bad:
+        raise RuntimeError(f"wide: the f32 kernels disagree with their plain versions: {bad}")
+    out["worst"] = worst
+    # (e) the C=512, 8-group figures, this run against PERF.md's
+    now = {"b1_28": out["b1"]["groups8"]["all"]["graph"], "b2": out["b2"]["C=512"]["graph"]}
+    for k, before in WIDE_EARLIER_MS.items():
+        print(f"wide: C=512 8-group f32 {k} graph replay {now[k]:.4f} ms, PERF.md {before} ms "
+              f"({now[k] / before:.3f}x)", flush=True)
+    out["c512_g8_now_ms"] = now
+    return out
+
+
+def wide_b2_at_512(at, torch, args, kw, want, tm):
+    """attention_tf32_wide at C=512 (the library's set_attention_launch_wide;
+    the wrapper sends C=512 to attention_tf32) on the inputs ``args`` of
+    attention_tf32's timed case: held against the plain version's ``want``
+    within KERNEL_TOL and timed as eager calls, graph replay and device
+    time beside attention_tf32's ``tm``.  Not a launch of the main path, so
+    not counted.  Returns (its line, its summary)."""
+    from diffuscene_tpu_torch.ops import build
+
+    x, g_ln, w_qkv, w_out, b_out = args
+    B_, n, C = x.shape
+    w_q, w_o = at.pack_attention_weights_tf32(w_qkv, w_out)
+    v = torch.stack([g_ln.float(), b_out.float()])
+    out = torch.empty_like(x)
+    lib = at.load_library()
+
+    def call():
+        rc = lib.set_attention_launch_wide(
+            x.data_ptr(), v[0].data_ptr(), w_q.data_ptr(), w_o.data_ptr(), v[1].data_ptr(),
+            out.data_ptr(), B_, n, C, at.HEADS, at.DIM_HEAD, kw["eps"], build.stream_ptr(x.device))
+        if rc != 0:
+            raise RuntimeError(f"set_attention_launch_wide failed with code {rc}")
+        return out
+
+    call()
+    torch.cuda.synchronize()
+    err = (out - want).abs().max().item()
+    ok = bool(torch.isfinite(out).all()) and torch.allclose(out, want, **KERNEL_TOL["float32"])
+    wide = dict(err=err, ok=ok, ms=cuda_ms(call), graph=graph_ms(torch, call),
+                dev=device_ms(torch, call, "attention_tf32_wide"))
+    line = (f"kernel set_attention f32 attention_tf32_wide C={C} N={n} B={B_}: max_abs_err="
+            f"{err:.3e} {'ok' if ok else 'FAIL'} kernel_ms={wide['ms']:.4f} graph_ms="
+            f"{wide['graph']:.4f} device_ms={wide['dev']:.4f}; attention_tf32 on the same inputs "
+            f"graph_ms={tm['graph']:.4f} ({wide['graph'] / tm['graph']:.3f}x)")
+    return line, wide
+
+
+def wide_samples(torch, card):
+    """Phase 22 (b) and (c): the wide flagship's DDPM-1000 at B=64, f32,
+    fused=True (exactly 28,000 B1, 1,000 B2, no B4), held to the module
+    every TASK_CHECK_EVERY calls, its step profiled with B1 split by
+    kernel; the 4- and 16-group flagships' DPM-Solver++-20 at B=64 (560 B1,
+    20 B2), held every WIDE_DPM_EVERY calls; fused="rows" on the 16-group
+    model raising B4's error with nothing launched."""
+    from diffuscene_tpu_torch.ops import attention as at
+    from diffuscene_tpu_torch.ops import fused_level as fl
+    from diffuscene_tpu_torch.ops import fused_resblock as rb
+
+    out = {}
+    scene = rest_scene(torch, {"dim_mults": list(WIDE_MULTS)}, T)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 60)
+    fl.apply_chain.launches = 0
+    _, out["wide_ddpm"] = checked_sample(
+        torch, scene, "wide ddpm", card, batch=B, fused=True,
+        step=sampling_step(torch, scene, B, gen), named=WIDE_KERNELS)
+    if fl.apply_chain.launches:
+        raise RuntimeError(f"wide ddpm: {fl.apply_chain.launches} B4 launches, expected 0")
+    out["wide_ddpm"]["b4_launches"] = 0
+    del scene
+    torch.cuda.empty_cache()
+    for groups in WIDE_GROUPINGS:
+        scene = rest_scene(torch, {"resnet_block_groups": groups}, T)
+        label = f"groups{groups}_dpm"
+        _, out[label] = checked_sample(
+            torch, scene, f"wide {label}", card, batch=B, fused=True,
+            step=sampling_step(torch, scene, B, gen), calls=DPM_STEPS, every=WIDE_DPM_EVERY,
+            dpm=True, dpm_steps=DPM_STEPS)
+        if groups == 16:
+            counters = (rb.fused_resnet_block, at.fused_set_attention, fl.apply_chain)
+            for c in counters:
+                c.launches = 0
+            err = None
+            try:
+                scene.sample(B, generator=gen, fused="rows", dpm=True, dpm_steps=DPM_STEPS)
+            except ValueError as e:
+                err = str(e)
+            launched = [c.launches for c in counters]
+            ok = err is not None and "chain kernel" in err and launched == [0, 0, 0]
+            print(f"wide groups16 fused='rows': raises {err!r}, launches {launched} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise RuntimeError(f"wide: fused='rows' on 16 groups: {err}, {launched}")
+            out[label]["rows_error"] = err
+        del scene
+        torch.cuda.empty_cache()
+    return out
+
+
+def wide_narrow_and_cli(torch, card):
+    """Phase 22 (d): the wide flagship in bf16 raises naming fused=False
+    with nothing launched; generate_diffusion --fused on the wide config
+    (f32) at B=64, exactly 28,000 B1 and 1,000 B2 launches."""
+    import re
+    import shutil
+
+    from diffuscene_tpu_torch.cli import generate_diffusion
+    from diffuscene_tpu_torch.data import make_synthetic_cached_dataset
+    from diffuscene_tpu_torch.ops import attention as at
+    from diffuscene_tpu_torch.ops import fused_level as fl
+    from diffuscene_tpu_torch.ops import fused_resblock as rb
+
+    scene = rest_scene(torch, {"dim_mults": list(WIDE_MULTS), "compute_dtype": "bfloat16"}, T)
+    counters = (rb.fused_resnet_block, at.fused_set_attention, fl.apply_chain)
+    for c in counters:
+        c.launches = 0
+    err = None
+    try:
+        scene.sample(B, generator=torch.Generator(device=DEV).manual_seed(SEED), fused=True)
+    except ValueError as e:
+        err = str(e)
+    launched = [c.launches for c in counters]
+    ok = err is not None and "fused=False" in err and launched == [0, 0, 0]
+    print(f"wide bf16 fused=True: raises {err!r}, launches {launched} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise RuntimeError(f"wide: the bf16 wide flagship: {err}, {launched}")
+    del scene
+    torch.cuda.empty_cache()
+    for d in (WIDE_DATA, WIDE_OUT):
+        shutil.rmtree(d, ignore_errors=True)
+    os.makedirs(WIDE_OUT)
+    make_synthetic_cached_dataset(WIDE_DATA, n_scenes=WIDE_SCENES, seed=SEED)
+    cfg_path = rest_config("wide_generate.yaml", data=WIDE_DATA, out=WIDE_OUT)
+    with open(cfg_path) as f:
+        text = f.read()
+    text, n = re.subn(r"(\n    dim_mults:\n    - 1\n    - 1\n)    - 1\n    - 1\n",
+                      r"\g<1>    - 2\n    - 2\n", text)
+    if n != 1:
+        raise RuntimeError(f"{cfg_path}: cannot set dim_mults")
+    with open(cfg_path, "w") as f:
+        f.write(text)
+    gen_dir = os.path.join(WIDE_OUT, "generated")
+    stats, launches, wall = eval_cli_run(torch, generate_diffusion, [
+        cfg_path, gen_dir, "--n_sequences", str(B), "--batch_size", str(B), "--fused"])
+    check_launches("wide generate", launches, (28 * T, T))
+    with open(os.path.join(gen_dir, "timing.json")) as f:
+        timing = json.load(f)
+    print(f"wide generate --fused, dim_mults {list(WIDE_MULTS)}, B={B}: wall {wall:.3f} s "
+          f"(sampling {timing['sample_s']:.3f} s), {stats['n_scenes']} scenes, launches "
+          f"B1={launches[0]} B2={launches[1]} ok | {card}", flush=True)
+    return {"bf16_error": err, "generate": {"wall_s": wall, "sample_s": timing["sample_s"],
+                                            "launches": list(launches)}}
+
+
+def phase_wide(rb, at, torch, card):
+    """Phase 22: the f32 B1 and B2 kernels widened (see WIDE_B1_SET)."""
+    t0 = time.perf_counter()
+    out = {"card": card, "kernels": wide_kernels(rb, at, torch)}
+    torch.cuda.empty_cache()
+    out["samples"] = wide_samples(torch, card)
+    out.update(wide_narrow_and_cli(torch, card))
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"wide: phase 22 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
 def profile_steps(torch, step, n, step_ms, named=()):
     """Where a step's time goes: torch.profiler over ``n`` steady steps;
     device busy time (the sum of the kernels' times, one stream), the idle
@@ -4051,6 +4495,10 @@ def main(argv):
         print(json.dumps({"parallel": phase_parallel(torch, card)}))
         print(card_line())
         return 0
+    if only == "--only-wide":       # the f32 B1 and B2 kernels widened alone: phase 22
+        print(json.dumps({"wide": phase_wide(rb, at, torch, card)}))
+        print(card_line())
+        return 0
     if only == "--only-f32-engine":  # the flagship config's own dtype: phases 3 + 9 and 15, f32
         scene32 = phase_forward(torch, torch.float32)
         phase_rows_sample(torch, scene32, card)
@@ -4074,6 +4522,7 @@ def main(argv):
     rb_fwd, rb_bound_ms, rb_bound_by = rb_out["bfloat16"]
     rb32_fwd, rb32_bound_ms, _ = rb_out["float32"]
     at_worst, at_main = attention_phase(at, torch)
+    profiler_tally("phases 7-8")
     mark("phases 7-8")
 
     scene32 = phase_forward(torch, torch.float32)
@@ -4101,10 +4550,20 @@ def main(argv):
     del scene32
     mark("phase 15 drift")
     torch.cuda.empty_cache()
+    # this slice's main path: the f32 B1 and B2 kernels at the other widths
+    # and groupings, the wide flagship and the 4- and 16-group flagships
+    # sampled through fused=True
+    wide = phase_wide(rb, at, torch, card)
+    profiler_tally("phase 22")
+    mark("phase 22")
+    wide_samples = wide["samples"]
+    wide_b1, wide_b2 = wide["kernels"]["b1"]["wide"], wide["kernels"]["b2"]
+    torch.cuda.empty_cache()
 
     cham = phase_chamfer(ch, torch)
     # the second slice's main path: AE training steps, every chamfer on the kernel
     cham_launches = phase_autoencoder(ch, torch)
+    profiler_tally("phases 5-6")
     mark("phases 5-6")
     torch.cuda.empty_cache()
     # this slice's main path: the scene model's train steps and the train
@@ -4154,6 +4613,7 @@ def main(argv):
     # Fourier time embedding through both engines (B1, B2 and B4), unequal
     # dim_mults, the export
     rest = phase_rest(torch, card, numpy_ms=train["flagship"]["ms_per_step"])
+    profiler_tally("phase 20")
     mark("phase 20")
     rest_samples = rest["samples"]
 
@@ -4164,6 +4624,7 @@ def main(argv):
     print(json.dumps({"data": data}))
     print(json.dumps({"rest": rest}))
     print(json.dumps({"parallel": par}))
+    print(json.dumps({"wide": wide}))
     print(json.dumps({"kernels": [{
         "name": "fused_chain",
         "route": "cuda",
@@ -4223,11 +4684,18 @@ def main(argv):
         "task_launches": {k: v[0] for k, v in task_launches.items()},
         "text_launches": text_launches["ddpm_3d"][0],
         "eval_launches": eval_launches[0],
-        "data_launches": data_samples["generate"]["launches"][0],
+        "data_launches": {"generate": data_samples["generate"]["launches"][0],
+                          "ddpm_3d": data_samples["ddpm_3d"]["launches"][0]},
         "rest_launches": {"generate": rest["generate"]["launches"][0],
                           "fourier_3d": rest_samples["fourier_3d"]["launches"][0]},
         "parallel_launches": {"nccl_one_rank_sample": par_launches["nccl_one_rank"]["B1"],
                               "rank_sample_3d": par_launches["gloo_rank"]["sample_3d"]["B1"]},
+        "wide_launches": {k: v["launches"][0] for k, v in wide_samples.items()},
+        "wide_max_abs_err": wide["kernels"]["worst"],
+        "wide_ms": wide_b1["all"]["ms"],
+        "wide_graph_ms": wide_b1["all"]["graph"],
+        "wide_plain_ms": wide_b1["all"]["plain"],
+        "wide_bound_ms": wide_b1["all"]["bound_ms"],
     }, {
         "name": "set_attention",
         "route": "cuda",
@@ -4249,11 +4717,17 @@ def main(argv):
         "task_launches": {k: v[1] for k, v in task_launches.items()},
         "text_launches": text_launches["ddpm_3d"][1],
         "eval_launches": eval_launches[1],
-        "data_launches": data_samples["generate"]["launches"][1],
+        "data_launches": {"generate": data_samples["generate"]["launches"][1],
+                          "ddpm_3d": data_samples["ddpm_3d"]["launches"][1]},
         "rest_launches": {"generate": rest["generate"]["launches"][1],
                           "fourier_3d": rest_samples["fourier_3d"]["launches"][1]},
         "parallel_launches": {"nccl_one_rank_sample": par_launches["nccl_one_rank"]["B2"],
                               "rank_sample_3d": par_launches["gloo_rank"]["sample_3d"]["B2"]},
+        "wide_launches": {k: v["launches"][1] for k, v in wide_samples.items()},
+        "wide_ms": wide_b2["C=1024"]["ms"],
+        "wide_graph_ms": wide_b2["C=1024"]["graph"],
+        "wide_plain_ms": wide_b2["C=1024"]["plain"],
+        "wide_bound_ms": wide_b2["C=1024"]["bound_ms"],
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

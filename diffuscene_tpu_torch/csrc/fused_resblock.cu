@@ -58,8 +58,10 @@
 // share it, and launches that overlap one block's prologue with the
 // previous block's tail.
 //
-// float32 (resblock_tf32; the serving dtype of every diffusion config but
-// the three b512 ones): the same scene tile (at most 64 rows, the wgmma M),
+// float32 (resblock_tf32 at C = 512 in 8 groups, inputs up to 2048 wide;
+// resblock_tf32_wide, below, at the other widths and groupings; the serving
+// dtype of every diffusion config but the three b512 ones): the same scene
+// tile (at most 64 rows, the wgmma M),
 // cluster of 8 CTAs and CTA-local GroupNorm, with every product on the
 // tensor cores in split TF32: an f32 value v is hi = rna_tf32(v) plus
 // lo = rna_tf32(v - hi), and a product runs as hi*lo + lo*hi + hi*hi with
@@ -113,7 +115,8 @@ namespace {
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
-constexpr int kMaxIn = 1024;    // x and skip widths together
+constexpr int kMaxIn = 1024;    // x and skip widths together, bfloat16
+constexpr int kMaxInF = 2048;   // and float32 (either kernel)
 
 // ---------------------------------------------------------------------------
 // bfloat16: the cluster kernel
@@ -607,29 +610,455 @@ int launch_tf32(const ArgsF& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// float32 at the other widths and groupings: the wide split-TF32 kernel
+// ---------------------------------------------------------------------------
+//
+// resblock_tf32_wide takes every f32 block resblock_tf32 does not: C = 256,
+// 512 or 1024, GroupNorm groups of 16 to 256 channels, an identity residual
+// over [x | skip].  The scene tile (at most 64 rows) is again one cluster,
+// now of C / (64 kWG) CTAs (4 or 8), and CTA c owns output columns
+// [64 kWG c, 64 kWG (c + 1)): kWG consumer warpgroups (1, or 2 at C =
+// 1024), each running one 64-column chunk of both products on wgmma
+// m64n64k8 .tf32 in split TF32 as resblock_tf32 does.  What changes:
+//
+// - shared memory holds no activation: at C = 1024 one tile's h (64 x 1024
+//   f32) is 256 KB, beyond a CTA's 227 KB, and so is the [x | skip] tile
+//   of a 2048-wide input.  Each consumer thread reads its A fragments (8
+//   columns of its 2 rows a K step) from device memory through L2, the next
+//   step's while a step's products run; shared memory holds the ring of
+//   split weight chunks (4 stages, each one chunk per warpgroup: 16 or 32
+//   KB), the CTA's vectors and the moments;
+// - h goes through device memory: each CTA writes its columns of h into a
+//   (M, C) scratch, and a cluster barrier (release, then acquire) orders
+//   every CTA's writes before any CTA's reads of the second product.  No
+//   byte moves CTA to CTA through distributed shared memory but the
+//   moments below;
+// - a GroupNorm group is no longer a CTA's columns.  Each warpgroup sums
+//   its rows' values and squares in 8-column blocks (a fixed order: a
+//   thread's pair, the row's 4 threads by shuffles), then each scene's rows
+//   and the blocks of each of its groups (16 to 64 channels) in turn; a
+//   group of 128 or 256 channels spans 2 or 4 warpgroups, of this CTA or of
+//   the cluster's next ones, and after a cluster barrier every CTA of the
+//   group sums their partial sums in the same order (ld.shared::cluster, as
+//   the chamfer kernel merges its partials), so all agree.  The moments
+//   stay one-pass, f32, unclamped: B1's.
+//
+// Four cluster barriers order a launch: (A) the GN1 partials, (B) h in
+// device memory, (C) the GN2 partials, (D) no CTA leaves while another reads
+// its partials.  The producer warp streams W1 (and Wres) of each K step,
+// then W2's, and passes each barrier in turn; between (A) and (B) the ring
+// is empty, so it may put W2's first stages before it waits.
+//
+// What bounds it.  A CTA streams its columns' split weights from L2: at C
+// = 1024 and a 2048-wide input with a projection, 5 MB a CTA (W1, Wres,
+// W2), 520 MB of L2 reads a launch at B=64, N=12 (13 tiles x 8 CTAs); A
+// fragments come through L2 too, each tile's rows once per CTA, and the
+// four cluster barriers serialise the phases.  It is a simple kernel that
+// is right, 3-4x its split-TF32 bound (PERF.md, section 6); making it fast
+// (weights multicast to the row tiles that share them, A tiles in shared
+// memory) is later work.
+
+constexpr int kStagesW = 4;     // the ring
+constexpr int kMaxLocal = 4;    // groups within a warpgroup's 64 columns at most (16 channels)
+
+struct LayoutW {
+  unsigned ring, v, red, part, stat, bars, total;
+};
+
+// shared-memory layout of resblock_tf32_wide with `wg` consumer warpgroups
+__host__ __device__ constexpr LayoutW layout_wide(int wg) {
+  LayoutW L{};
+  L.ring = 0;                                                 // stages x wg split chunks
+  L.v = L.ring + kStagesW * wg * sm90::kChunkBytesF;          // this CTA's columns of 7 vectors
+  L.red = L.v + 7 * wg * kGroup * 4;                          // row x 8-column block sums, squares
+  L.part = L.red + 2 * wg * kTileRows * 8 * 4;                // per-scene partial sums (float2)
+  L.stat = L.part + wg * kMaxLocal * kTileRows * 8;           // per-scene mean, rsqrt (float2)
+  L.bars = L.stat + wg * kMaxLocal * kTileRows * 8;           // ring full, empty
+  L.total = L.bars + 2 * kStagesW * 8;
+  return L;
+}
+
+struct ArgsW {
+  const float* x;      // (M, kx)
+  const float* skip;   // (M, ks) or null
+  const float* film;   // (B, 2C) per scene, (M, 2C) per row, or null
+  const float* W1;     // (C / 64, (kx + ks) / 32, 2, 2048) split chunks (pack_tf32_tiles)
+  const float* W2;     // (C / 64, C / 32, 2, 2048)
+  const float* Wres;   // like W1, or null (identity residual over [x | skip])
+  const float* V;      // (7, C): b1, g1 scale, g1 bias, b2, g2 scale, g2 bias, bres
+  float* h;            // (M, C) scratch: block1's output
+  float* out;          // (M, C)
+  int B, n, kx, ks, C, gw, ts, film_kind;
+  float eps;
+};
+
+template <int kWG>
+using RingW = sm90::RingT<kStagesW, kWG * 2 * kChunkPartF>;
+
+// The per-scene moments of the groups of this thread's warpgroup `u`: acc
+// (its 64 columns, bias added) -> red -> part[u][q][s] = (sum, sum of
+// squares) of scene s over group-part q (a group, or a 64-column part of a
+// wider one).  By the kCons consumer threads; red and part are this CTA's.
+template <int kCons>
+__device__ __forceinline__ void wide_partials(const float (&acc)[32], int u, int n, int nsc,
+                                              int gwl, float* red, float2* part) {
+  constexpr int kWG = kCons / kConsumers;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int r0 = 16 * (warp & 3) + (lane >> 2);
+  float s[2][8], q[2][8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
+      s[h][j] = a0 + a1;
+      q[h][j] = a0 * a0 + a1 * a1;
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        s[h][j] += __shfl_xor_sync(0xffffffffu, s[h][j], off);
+        q[h][j] += __shfl_xor_sync(0xffffffffu, q[h][j], off);
+      }
+  if (t == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        red[(u * kTileRows + r0 + 8 * h) * 8 + j] = s[h][j];
+        red[((kWG + u) * kTileRows + r0 + 8 * h) * 8 + j] = q[h][j];
+      }
+  sm90::bar_sync<kCons>(1);
+  const int local = kGroup / gwl, blocks = gwl / 8;
+  for (int task = threadIdx.x; task < kWG * local * nsc; task += kCons) {
+    const int sc = task % nsc, g = (task / nsc) % local, w = task / (nsc * local);
+    float sum = 0.f, sq = 0.f;
+    for (int i = 0; i < n; ++i) {
+      const float* rs = red + (w * kTileRows + sc * n + i) * 8 + g * blocks;
+      const float* rq = rs + kWG * kTileRows * 8;
+      for (int b = 0; b < blocks; ++b) {
+        sum += rs[b];
+        sq += rq[b];
+      }
+    }
+    part[(w * kMaxLocal + g) * kTileRows + sc] = make_float2(sum, sq);
+  }
+}
+
+// After the cluster barrier that follows wide_partials: each scene's mean
+// and rsqrt(var + eps) of every group-part of this CTA into stat, a group
+// of gw > 64 channels summed over the partials of its gw / 64 warpgroups
+// (warpgroup k of the cluster is warpgroup k % kWG of CTA k / kWG) in
+// ascending order, wherever they are
+template <int kCons>
+__device__ __forceinline__ void wide_stats(int rank, int n, int nsc, int gw, float eps,
+                                           float2* part, float2* stat) {
+  constexpr int kWG = kCons / kConsumers;
+  const int gwl = min(gw, kGroup), local = kGroup / gwl;
+  const float denom = 1.f / (float)(n * gw);
+  for (int task = threadIdx.x; task < kWG * local * nsc; task += kCons) {
+    const int sc = task % nsc, g = (task / nsc) % local, w = task / (nsc * local);
+    float2 m = part[(w * kMaxLocal + g) * kTileRows + sc];
+    if (gw > kGroup) {
+      const int span = gw / kGroup, first = (rank * kWG + w) / span * span;
+      m = make_float2(0.f, 0.f);
+      for (int k = first; k < first + span; ++k) {
+        const uint2 v = sm90::ld_cluster_u2(
+            sm90::cluster_addr(&part[(k % kWG) * kMaxLocal * kTileRows + sc], k / kWG));
+        m.x += __uint_as_float(v.x);
+        m.y += __uint_as_float(v.y);
+      }
+    }
+    const float mean = m.x * denom;
+    stat[(w * kMaxLocal + g) * kTileRows + sc] = make_float2(mean, rsqrtf(m.y * denom - mean * mean + eps));
+  }
+}
+
+template <int kWG, bool kRes>
+__global__ void __launch_bounds__(kWG * kConsumers + 32, 1) resblock_tf32_wide(const ArgsW a) {
+  constexpr int kCons = kWG * kConsumers;   // consumer threads
+  constexpr int kCols = kWG * kGroup;       // this CTA's output columns
+  constexpr int kPart = 2 * kChunkPartF;    // floats of one warpgroup's split chunk
+  constexpr LayoutW L = layout_wide(kWG);
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem + L.ring);
+  float* Vs = reinterpret_cast<float*>(smem + L.v);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  float2* part = reinterpret_cast<float2*>(smem + L.part);
+  float2* stat = reinterpret_cast<float2*>(smem + L.stat);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + kStagesW;
+
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), ncta = (int)cluster.num_blocks();
+  const int scene0 = (blockIdx.x / ncta) * a.ts;
+  const int nsc = min(a.ts, a.B - scene0);   // the last tile may be ragged
+  const int rows = nsc * a.n;
+  const size_t row0 = (size_t)scene0 * a.n;
+  const int nst1 = (a.kx + a.ks) / sm90::kStepK, nst2 = a.C / sm90::kStepK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cta0 = rank * kCols;            // this CTA's first output column
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStagesW; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kCons);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kCons / 32) {
+    // ---- producer warp: W1 (and Wres) of each K step, a chunk for each
+    // warpgroup (group 64-column chunks rank kWG + u), then W2's ----
+    RingW<kWG> w{ring, full, empty, 0, 0};
+    const size_t g0 = (size_t)rank * kWG;
+    if (lane == 0) {
+      const float* w1 = a.W1 + g0 * nst1 * kPart;
+      const float* wr = kRes ? a.Wres + g0 * nst1 * kPart : nullptr;
+      for (int st = 0; st < nst1; ++st) {
+        w.put(w1 + (size_t)st * kPart, kPart * 4, kWG, (size_t)nst1 * kPart);
+        if (kRes) w.put(wr + (size_t)st * kPart, kPart * 4, kWG, (size_t)nst1 * kPart);
+      }
+    }
+    sm90::cluster_arrive_relaxed();   // (A)
+    sm90::cluster_wait();
+    sm90::cluster_arrive_relaxed();   // (B): the ring is empty now, W2's first stages go in
+    if (lane == 0) {
+      const float* w2 = a.W2 + g0 * nst2 * kPart;
+      for (int st = 0; st < nst2; ++st)
+        w.put(w2 + (size_t)st * kPart, kPart * 4, kWG, (size_t)nst2 * kPart);
+    }
+    sm90::cluster_wait();
+    sm90::cluster_arrive_relaxed();   // (C)
+    sm90::cluster_wait();
+    sm90::cluster_arrive_relaxed();   // (D)
+    sm90::cluster_wait();
+    return;
+  }
+
+  // ---- the consumer warpgroups: warpgroup u owns columns [64 u, 64 u +
+  // 64) of this CTA's ----
+  const int u = warp / 4, t = lane & 3;
+  const int r0 = 16 * (warp & 3) + (lane >> 2);   // this thread's rows: r0, r0 + 8
+  const int col0 = cta0 + u * kGroup;             // this warpgroup's first output column
+  const size_t ra = row0 + min(r0, rows - 1), rb = row0 + min(r0 + 8, rows - 1);
+  const int gwl = min(a.gw, kGroup);
+  for (int i = threadIdx.x; i < 7 * kCols; i += kCons)
+    Vs[i] = a.V[(i / kCols) * a.C + cta0 + i % kCols];
+  const float* vec = Vs + u * kGroup;   // vector k of this warpgroup's columns at vec[k * kCols]
+  float acc[32], accR[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = accR[i] = 0.f;
+  RingW<kWG> w{ring, full, empty, 0, 0};
+
+  // block1: h = [x | skip] @ W1 + b1 (and the residual projection), f32
+  sm90::stream_products<kRes>(
+      acc, accR, nst1,
+      [&](int st, uint32_t (&hi)[16], uint32_t (&lo)[16]) {
+        int c = sm90::kStepK * st + 8 * t, ld = a.kx;
+        const float* base = a.x;
+        if (c >= a.kx) base = a.skip, ld = a.ks, c -= a.kx;
+        sm90::load_a_global(base + ra * ld + c, base + rb * ld + c, hi, lo);
+      },
+      w, u * kPart);
+  sm90::bar_sync<kCons>(1);   // Vs written by every consumer
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] += vec[8 * (i / 4) + 2 * t + (i & 1)];
+  wide_partials<kCons>(acc, u, a.n, nsc, gwl, red, part);
+  sm90::cluster_arrive();         // (A) every partial of the cluster is written
+  sm90::cluster_wait();
+  wide_stats<kCons>(rank, a.n, nsc, a.gw, a.eps, part, stat);
+  sm90::bar_sync<kCons>(1);
+
+  // GN1, FiLM, SiLU; this warpgroup's columns of h into the scratch
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r < rows) {
+      const int sc = r / a.n;
+      const float* f = a.film_kind == 1 ? a.film + (size_t)(scene0 + sc) * 2 * a.C + col0
+                                        : a.film + (row0 + r) * 2 * a.C + col0;
+      float* hr = a.h + (row0 + r) * a.C + col0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        const float2 m = stat[(u * kMaxLocal + 8 * j / gwl) * kTileRows + sc];
+        float z0 = (acc[4 * j + 2 * half] - m.x) * m.y * vec[kCols + c] + vec[2 * kCols + c];
+        float z1 = (acc[4 * j + 2 * half + 1] - m.x) * m.y * vec[kCols + c + 1] +
+                   vec[2 * kCols + c + 1];
+        if (a.film_kind) {
+          const float2 fs = *reinterpret_cast<const float2*>(f + c);
+          const float2 fb = *reinterpret_cast<const float2*>(f + a.C + c);
+          z0 = z0 * (fs.x + 1.f) + fb.x;
+          z1 = z1 * (fs.y + 1.f) + fb.y;
+        }
+        *reinterpret_cast<float2*>(hr + c) = make_float2(silu_fast(z0), silu_fast(z1));
+      }
+    }
+  }
+  sm90::cluster_arrive();         // (B) this CTA's columns of h are written (release)
+
+  // the identity residual: this thread's [x | skip] values, exact
+  float res[32];
+  {
+    const bool in_x = col0 < a.kx;
+    const float* base = in_x ? a.x : a.skip;
+    const int ld = in_x ? a.kx : a.ks, c0 = in_x ? col0 : col0 - a.kx;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = r0 + 8 * ((i >> 1) & 1);
+      res[i] = !kRes && r < rows ? base[(row0 + r) * ld + c0 + 8 * (i / 4) + 2 * t + (i & 1)] : 0.f;
+    }
+  }
+  sm90::cluster_wait();           // (B) every CTA's columns of h are written (acquire)
+
+  // block2: h @ W2 + b2 from the scratch; then GroupNorm, SiLU, the
+  // residual, the store
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+  sm90::stream_products<false>(
+      acc, accR, nst2,
+      [&](int st, uint32_t (&hi)[16], uint32_t (&lo)[16]) {
+        const int c = sm90::kStepK * st + 8 * t;
+        sm90::load_a_global(a.h + ra * a.C + c, a.h + rb * a.C + c, hi, lo);
+      },
+      w, u * kPart);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] += vec[3 * kCols + 8 * (i / 4) + 2 * t + (i & 1)];
+  wide_partials<kCons>(acc, u, a.n, nsc, gwl, red, part);
+  sm90::cluster_arrive();         // (C)
+  sm90::cluster_wait();
+  wide_stats<kCons>(rank, a.n, nsc, a.gw, a.eps, part, stat);
+  sm90::cluster_arrive();         // (D) this CTA is done reading the others' partials
+  sm90::bar_sync<kCons>(1);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + 8 * half;
+    if (r < rows) {
+      const int sc = r / a.n;
+      float* o = a.out + (row0 + r) * a.C + col0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int c = 8 * j + 2 * t;
+        const int i = 4 * j + 2 * half;
+        const float2 m = stat[(u * kMaxLocal + 8 * j / gwl) * kTileRows + sc];
+        const float h0 =
+            silu_fast((acc[i] - m.x) * m.y * vec[4 * kCols + c] + vec[5 * kCols + c]);
+        const float h1 =
+            silu_fast((acc[i + 1] - m.x) * m.y * vec[4 * kCols + c + 1] + vec[5 * kCols + c + 1]);
+        float res0 = res[i], res1 = res[i + 1];
+        if constexpr (kRes) {
+          res0 = accR[i] + vec[6 * kCols + c];
+          res1 = accR[i + 1] + vec[6 * kCols + c + 1];
+        }
+        *reinterpret_cast<float2*>(o + c) = make_float2(h0 + res0, h1 + res1);
+      }
+    }
+  }
+  sm90::cluster_wait();           // (D) no CTA leaves while another reads its partials
+}
+
+// consumer warpgroups of the wide kernel at C channels
+int wide_groups(int C) { return C > 512 ? 2 : 1; }
+
+template <int kWG, bool kRes>
+cudaError_t prepare_wide() {   // once per instantiation
+  static const cudaError_t err =
+      cudaFuncSetAttribute(resblock_tf32_wide<kWG, kRes>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)layout_wide(kWG).total);
+  return err;
+}
+
+// the launch configuration of the wide kernel: one cluster of C / (64 kWG)
+// CTAs a tile of `tiles`
+template <int kWG>
+cudaLaunchConfig_t wide_config(int C, int tiles, cudaStream_t stream, cudaLaunchAttribute* attr) {
+  const int ncta = C / (kWG * kGroup);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tiles * ncta));
+  cfg.blockDim = dim3(kWG * kConsumers + 32);
+  cfg.dynamicSmemBytes = layout_wide(kWG).total;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = ncta;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int kWG, bool kRes>
+int launch_wide_as(const ArgsW& a, cudaStream_t stream) {
+  const cudaError_t err = prepare_wide<kWG, kRes>();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = wide_config<kWG>(a.C, (a.B + a.ts - 1) / a.ts, stream, &attr);
+  return (int)cudaLaunchKernelEx(&cfg, resblock_tf32_wide<kWG, kRes>, a);
+}
+
+int launch_wide(const ArgsW& a, cudaStream_t stream) {
+  if (wide_groups(a.C) == 2)
+    return a.Wres ? launch_wide_as<2, true>(a, stream) : launch_wide_as<2, false>(a, stream);
+  return a.Wres ? launch_wide_as<1, true>(a, stream) : launch_wide_as<1, false>(a, stream);
+}
+
+template <int kWG, bool kRes>
+int wide_active_clusters_as(int C) {
+  const cudaError_t err = prepare_wide<kWG, kRes>();
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = wide_config<kWG>(C, 64, nullptr, &attr);
+  int clusters = 0;
+  const cudaError_t e =
+      cudaOccupancyMaxActiveClusters(&clusters, resblock_tf32_wide<kWG, kRes>, &cfg);
+  return e == cudaSuccess ? clusters : -(int)e;
+}
+
+int wide_active_clusters(int C, bool has_res) {
+  if (wide_groups(C) == 2)
+    return has_res ? wide_active_clusters_as<2, true>(C) : wide_active_clusters_as<2, false>(C);
+  return has_res ? wide_active_clusters_as<1, true>(C) : wide_active_clusters_as<1, false>(C);
+}
+
+// Whether resblock_tf32 (C = 512 in 8 groups, identity residual over x
+// alone) takes the block; the wide kernel takes the rest of the f32 set
+bool f32_cluster8(int C, int groups, int ks, bool has_res) {
+  return C == kC && groups == kCluster && (has_res || ks == 0);
+}
+
 }  // namespace
 
 extern "C" {
 
 // rows of one scene the kernel of `dtype` (0 float32, 1 bfloat16) takes
 int fused_resblock_max_rows(int dtype) { return kTileRows; }
-int fused_resblock_max_in() { return kMaxIn; }
-// dynamic shared memory of one CTA of the `dtype` kernel for kx + ks input
-// columns
-int fused_resblock_smem_bytes(int dtype, int kx, int ks) {
-  return dtype == 1 ? (int)layout(kx + ks).total : kSmemF;
+// x and skip widths together
+int fused_resblock_max_in(int dtype) { return dtype == 1 ? kMaxIn : kMaxInF; }
+// dynamic shared memory of one CTA of the kernel that takes a `dtype`
+// block of C channels in `groups` groups, kx + ks input columns and a
+// residual projection (has_res) or not
+int fused_resblock_smem_bytes(int dtype, int C, int groups, int kx, int ks, int has_res) {
+  if (dtype == 1) return (int)layout(kx + ks).total;
+  return f32_cluster8(C, groups, ks, has_res) ? kSmemF : (int)layout_wide(wide_groups(C)).total;
 }
 
-// clusters of the `dtype` kernel that fit on the card at once, or minus a
+// clusters of that kernel that fit on the card at once, or minus a
 // cudaError_t code
-int fused_resblock_max_active_clusters(int dtype, int kx, int ks, int has_res) {
+int fused_resblock_max_active_clusters(int dtype, int C, int groups, int kx, int ks, int has_res) {
+  if (dtype == 0 && !f32_cluster8(C, groups, ks, has_res)) return wide_active_clusters(C, has_res);
   const cudaError_t err = dtype == 1 ? (has_res ? prepare_sm90<true>() : prepare_sm90<false>())
                                      : (has_res ? prepare_tf32<true>() : prepare_tf32<false>());
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kCluster * 64);
   cfg.blockDim = dim3(dtype == 1 ? kThreads : kThreadsF);
-  cfg.dynamicSmemBytes = fused_resblock_smem_bytes(dtype, kx, ks);
+  cfg.dynamicSmemBytes = fused_resblock_smem_bytes(dtype, C, groups, kx, ks, has_res);
   int clusters = 0;
   cudaError_t e;
   if (dtype == 1)
@@ -642,21 +1071,28 @@ int fused_resblock_max_active_clusters(int dtype, int kx, int ks, int has_res) {
 }
 
 // dtype: 0 float32 (weights packed by pack_tf32_tiles), 1 bfloat16 (by
-// pack_group_tiles).  Both take C = 512 in 8 groups and input widths of
-// multiples of 64.  Returns a cudaError_t code (0 on success), or -1 for
-// arguments the kernel does not take.
+// pack_group_tiles).  bfloat16 takes C = 512 in 8 groups and input widths
+// of multiples of 64 summing to a multiple of 128, at most 1024, with an
+// identity residual over x alone; float32 takes C = 256, 512 or 1024 in 4,
+// 8, 16 or 32 groups of at least 16 channels and input widths of multiples
+// of 64 up to 2048 together, an identity residual over [x | skip] (h: an
+// (M, C) f32 scratch the wide kernel writes, unused at C = 512 in 8
+// groups).  Returns a cudaError_t code (0 on success), or -1 for arguments
+// the kernels do not take.
 int fused_resblock_launch(int dtype, const void* x, const void* skip, const void* film,
                           int film_kind, const void* W1, const void* W2, const void* Wres,
-                          const float* V, void* out, int B, int n, int C, int kx, int ks,
+                          const float* V, void* h, void* out, int B, int n, int C, int kx, int ks,
                           int groups, float eps, void* stream) {
-  if (n < 1 || B < 1 || ks < 0 || kx + ks > kMaxIn || (ks > 0) != (skip != nullptr) ||
+  if (n < 1 || n > kTileRows || B < 1 || ks < 0 || (ks > 0) != (skip != nullptr) ||
       film_kind < 0 || film_kind > 2 || (film_kind != 0) != (film != nullptr) ||
-      (Wres == nullptr && (kx != C || ks != 0)) || C != kC || groups != kCluster ||
-      kx < sm90::kChunkK || kx % sm90::kChunkK != 0 || ks % sm90::kChunkK != 0)
+      (Wres == nullptr && kx + ks != C) || kx < sm90::kChunkK || kx % sm90::kChunkK != 0 ||
+      ks % sm90::kChunkK != 0)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    if (n > kTileRows || (kx + ks) % (2 * sm90::kChunkK) != 0) return -1;
+    if (C != kC || groups != kCluster || ks + kx > kMaxIn || (Wres == nullptr && ks != 0) ||
+        (kx + ks) % (2 * sm90::kChunkK) != 0)
+      return -1;
     Args90 a;
     a.x = static_cast<const bf16*>(x);
     a.skip = static_cast<const bf16*>(skip);
@@ -675,7 +1111,33 @@ int fused_resblock_launch(int dtype, const void* x, const void* skip, const void
     a.eps = eps;
     return launch_sm90(a, s);
   }
-  if (dtype != 0 || n > kTileRows) return -1;
+  if (dtype != 0 || (C != 256 && C != 512 && C != 1024) ||
+      (groups != 4 && groups != 8 && groups != 16 && groups != 32) || C / groups < 16 ||
+      kx + ks > kMaxInF)
+    return -1;
+  if (!f32_cluster8(C, groups, ks, Wres != nullptr)) {
+    if (h == nullptr) return -1;
+    ArgsW a;
+    a.x = static_cast<const float*>(x);
+    a.skip = static_cast<const float*>(skip);
+    a.film = static_cast<const float*>(film);
+    a.W1 = static_cast<const float*>(W1);
+    a.W2 = static_cast<const float*>(W2);
+    a.Wres = static_cast<const float*>(Wres);
+    a.V = V;
+    a.h = static_cast<float*>(h);
+    a.out = static_cast<float*>(out);
+    a.B = B;
+    a.n = n;
+    a.kx = kx;
+    a.ks = ks;
+    a.C = C;
+    a.gw = C / groups;
+    a.ts = kTileRows / n;
+    a.film_kind = film_kind;
+    a.eps = eps;
+    return launch_wide(a, s);
+  }
   ArgsF a;
   a.x = static_cast<const float*>(x);
   a.skip = static_cast<const float*>(skip);

@@ -46,8 +46,9 @@
 //   x tile and o and waited at the tile's end: no CTA loads the next x tile
 //   or sends the next slice of o while another still reads its own.
 //
-// float32 (attention_tf32; the serving dtype of the flagship config and of
-// every diffusion config but the three b512 ones): the same scene tile,
+// float32 (attention_tf32 at C = 512, attention_tf32_wide below at C = 256
+// and 1024; the serving dtype of the flagship config and of every
+// diffusion config but the three b512 ones): the same scene tile,
 // cluster of 4 CTAs (CTA h owns head h) and thread roles, with both products
 // on the tensor cores in split TF32, as the f32 ResnetBlock and chain
 // kernels run theirs: an f32 value v is hi = rna_tf32(v) plus lo =
@@ -683,6 +684,35 @@ __device__ __forceinline__ void qkv_products(float (&d)[kGroupQkv / 2], const ui
 
 using RingA = sm90::RingT<kStagesT, kStageT>;
 
+// acc += this warpgroup's 48 columns of q | k | v over the ring's next
+// `nst` (even) qkv steps, A from load(st, hi, lo) (split); the next step's
+// A fragments are loaded and split while a step's products run
+template <class Load>
+__device__ __forceinline__ void qkv_steps(float (&acc)[kGroupQkv / 2], int nst, Load load,
+                                          RingA& w, int wg) {
+  uint32_t h0[16], l0[16], h1[16], l1[16];
+  load(0, h0, l0);
+#pragma unroll 1
+  for (int st = 0; st < nst; st += 2) {
+    int s = w.take();
+    sm90::wgmma_fence();
+    qkv_products(acc, h0, l0, w.chunk(s), wg);
+    sm90::wgmma_commit();
+    load(st + 1, h1, l1);
+    sm90::wgmma_wait<0>();
+    sm90::fence_operand(acc);
+    w.give(s);
+    s = w.take();
+    sm90::wgmma_fence();
+    qkv_products(acc, h1, l1, w.chunk(s), wg);
+    sm90::wgmma_commit();
+    if (st + 2 < nst) load(st + 2, h0, l0);
+    sm90::wgmma_wait<0>();
+    sm90::fence_operand(acc);
+    w.give(s);
+  }
+}
+
 __global__ void __cluster_dims__(kHeads, 1, 1) __launch_bounds__(kThreads90, 1)
     attention_tf32(const ArgsT a) {
   extern __shared__ __align__(128) unsigned char smem[];
@@ -762,34 +792,16 @@ __global__ void __cluster_dims__(kHeads, 1, 1) __launch_bounds__(kThreads90, 1)
   layernorm_rows<float>(X, kLdxT, rows, gv, a.eps);
   sm90::bar_sync<kWorkers>(1);
 
-  // this warpgroup's 48 columns of q | k | v = LN(x) @ W_qkv[:, cols]; the
-  // next step's A fragments are loaded and split while a step's products run
+  // this warpgroup's 48 columns of q | k | v = LN(x) @ W_qkv[:, cols]
   float acc[kGroupQkv / 2];
 #pragma unroll
   for (int i = 0; i < kGroupQkv / 2; ++i) acc[i] = 0.f;
-  {
-    uint32_t h0[16], l0[16], h1[16], l1[16];
-    sm90::load_a<kLdxT>(X, h0, l0);
-#pragma unroll 1
-    for (int st = 0; st < kStepsQkv; st += 2) {
-      int s = w.take();
-      sm90::wgmma_fence();
-      qkv_products(acc, h0, l0, w.chunk(s), wg);
-      sm90::wgmma_commit();
-      sm90::load_a<kLdxT>(X + (st + 1) * kStepK, h1, l1);
-      sm90::wgmma_wait<0>();
-      sm90::fence_operand(acc);
-      w.give(s);
-      s = w.take();
-      sm90::wgmma_fence();
-      qkv_products(acc, h1, l1, w.chunk(s), wg);
-      sm90::wgmma_commit();
-      if (st + 2 < kStepsQkv) sm90::load_a<kLdxT>(X + (st + 2) * kStepK, h0, l0);
-      sm90::wgmma_wait<0>();
-      sm90::fence_operand(acc);
-      w.give(s);
-    }
-  }
+  qkv_steps(
+      acc, kStepsQkv,
+      [&](int st, uint32_t (&hi)[16], uint32_t (&lo)[16]) {
+        sm90::load_a<kLdxT>(X + st * kStepK, hi, lo);
+      },
+      w, wg);
   sm90::bar_sync<kWorkers>(1);   // the tile is read: its bytes take q | k | v
   // (1) this CTA is done reading its x tile: the others may copy o into it
   sm90::cluster_arrive();
@@ -889,40 +901,319 @@ int launch_tf32(const ArgsT& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// float32 at C = 256 and 1024: the wide split-TF32 kernel
+// ---------------------------------------------------------------------------
+//
+// attention_tf32_wide takes the f32 widths attention_tf32 does not (C = 256
+// or 1024; it takes 512 too, but attention_tf32 serves that).  The same
+// scene tile, cluster of 4 CTAs (CTA h owns head h), thread roles, split
+// TF32 products, attention arithmetic and exchange of o; what changes is
+// where LN(x) comes from.  An f32 x tile of 64 x 1024 is 256 KB, beyond a
+// CTA's 227 KB, so no x tile is held: the consumer warps first take each
+// row's two-pass LayerNorm statistics (mean, then the variance around it,
+// the row's values in registers) from device memory into shared memory,
+// and the qkv product then reads its A fragments from device memory (L2),
+// normalising them on the way: (x - mean) * rstd * g, the plain version's
+// order.  q | k | v, the probabilities and the gathered o keep their own
+// shared memory (no reuse of bytes, so no barrier before the exchange
+// beyond the one after the mbarriers' set-up).  The CTA's C / 4 output
+// columns run as 64-column chunks, warpgroup g taking chunks g, g + 2, ...
+// (at C = 256 the second warpgroup has none and only passes the ring's
+// stages back).  What bounds it: as attention_tf32, the latency of a CTA's
+// chain of phases, with the weights (C x 96 and 128 x C / 4, split, a CTA)
+// streamed from L2 once per tile.
+
+constexpr int kMaxCW = 1024;                       // C at most
+constexpr int kLdsW = 2;                           // a row's LayerNorm mean, rstd
+// shared-memory layout of attention_tf32_wide (bytes)
+constexpr unsigned kRingW = 0;                                   // 3 x 32 KB
+constexpr unsigned kQkvW = kRingW + kStagesT * kStageT * 4;      // q | k | v
+constexpr unsigned kPW = kQkvW + kTileRows * kLdq * 4;           // the probabilities
+constexpr unsigned kOW = kPW + kTileRows * kLdp * 4;             // the gathered o: 4 slices
+constexpr unsigned kGW = kOW + kHeads * kSliceT * 4;             // the LayerNorm scale
+constexpr unsigned kBoW = kGW + kMaxCW * 4;                      // this CTA's b_out
+constexpr unsigned kStatW = kBoW + kMaxCW / kHeads * 4;          // each row's mean, rstd
+constexpr unsigned kBarsW = kStatW + kTileRows * kLdsW * 4;      // full[3], empty[3], o[4]
+constexpr unsigned kSmemW = kBarsW + (2 * kStagesT + kHeads) * 8;
+static_assert(kOW % 16 == 0 && kGW % 16 == 0, "the slices of o move by bulk copy");
+static_assert(kSmemW <= 232448, "one CTA's shared memory");
+
+struct ArgsW {
+  const float* x;      // (B, N, C)
+  const float* g;      // (C,) LayerNorm scale
+  const float* Wqkv;   // (4 heads, C / 32 K steps, 2, 32 x 96) split (pack_attention_weights_tf32)
+  const float* Wout;   // (C / 64 chunks, 4 K steps, 2, 32 x 64) split (pack_tf32_tiles)
+  const float* bout;   // (C,)
+  float* out;          // (B, N, C)
+  int B, n, C, ts;
+  float eps, scale;
+};
+
+__global__ void __cluster_dims__(kHeads, 1, 1) __launch_bounds__(kThreads90, 1)
+    attention_tf32_wide(const ArgsW a) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem + kRingW);
+  float* QKV = reinterpret_cast<float*>(smem + kQkvW);
+  float* P = reinterpret_cast<float*>(smem + kPW);
+  float* O = reinterpret_cast<float*>(smem + kOW);     // slice q: CTA q's o, 64 x 32
+  float* G = reinterpret_cast<float*>(smem + kGW);
+  float* Bo = reinterpret_cast<float*>(smem + kBoW);
+  float2* stat = reinterpret_cast<float2*>(smem + kStatW);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarsW);
+  uint64_t* empty = full + kStagesT;
+  uint64_t* obar = empty + kStagesT;   // [q]: CTA q's slice of o has landed here
+
+  const int head = (int)cg::this_cluster().block_rank();
+  const int scene0 = (blockIdx.x / kHeads) * a.ts;
+  const int nsc = min(a.ts, a.B - scene0);   // the last tile may be ragged
+  const int rows = nsc * a.n;
+  const size_t row0 = (size_t)scene0 * a.n;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cols = a.C / kHeads;              // this CTA's output columns
+  const int nchunk = cols / sm90::kGroup;     // as 64-column chunks: 1, 2 or 4
+  const int nst = a.C / kStepK;               // K steps of the qkv product
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStagesT; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kWorkers);
+    }
+    for (int q = 0; q < kHeads; ++q) {
+      sm90::mbar_init(&obar[q], 1);
+      if (q != head) sm90::mbar_expect_tx(&obar[q], (uint32_t)(rows * kLdoT * 4));
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+  sm90::cluster_arrive();          // (0) every CTA's barriers are set up
+  sm90::cluster_wait();
+
+  if (warp == kWorkers / 32) {
+    // ---- producer warp: this CTA's split weights through the ring: the
+    // qkv steps, then for each pair of output chunks W_out's 4 steps in the
+    // order the output product takes the slices (this CTA's first) ----
+    if (lane == 0) {
+      RingA w{ring, full, empty, 0, 0};
+      const float* wq = a.Wqkv + (size_t)head * nst * 2 * kQkvPartT;
+      for (int st = 0; st < nst; ++st) w.put(wq + (size_t)st * 2 * kQkvPartT, kQkvBytesT);
+      for (int c = 0; c < nchunk; c += kGroups) {
+        const int pieces = min(kGroups, nchunk - c);
+        for (int i = 0; i < kStepsOut; ++i) {
+          const int q = (head + i) % kHeads;
+          w.put(a.Wout + ((size_t)(head * nchunk + c) * kStepsOut + q) * kOutChunkT,
+                kOutChunkT * 4, pieces, (size_t)kStepsOut * kOutChunkT);
+        }
+      }
+    }
+    sm90::cluster_arrive_relaxed();  // (1)
+    sm90::cluster_wait();
+    return;
+  }
+
+  // ---- the two consumer warpgroups ----
+  const int wg = warp / 4;
+  const int t = lane & 3;
+  const int r0 = 16 * (warp % 4) + (lane >> 2);   // this thread's rows: r0, r0 + 8
+  for (int i = threadIdx.x; i < a.C; i += kWorkers) G[i] = a.g[i];
+  for (int i = threadIdx.x; i < cols; i += kWorkers) Bo[i] = a.bout[head * cols + i];
+  RingA w{ring, full, empty, 0, 0};
+
+  // each row's two-pass LayerNorm statistics: warp w takes rows w, w + 8,
+  // ..., lane l its columns 4l + 128i (16-byte loads)
+  for (int r = warp; r < rows; r += kWorkers / 32) {
+    const float* xr = a.x + (row0 + r) * a.C;
+    float v[kMaxCW / 32];
+    float s = 0.f;
+#pragma unroll
+    for (int i = 0; i < kMaxCW / 128; ++i)
+      if (128 * i < a.C) {
+        const float4 u = __ldg(reinterpret_cast<const float4*>(xr + 128 * i + 4 * lane));
+        v[4 * i] = u.x, v[4 * i + 1] = u.y, v[4 * i + 2] = u.z, v[4 * i + 3] = u.w;
+        s += (u.x + u.y) + (u.z + u.w);
+      }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    const float mean = s / (float)a.C;
+    float q = 0.f;
+#pragma unroll
+    for (int i = 0; i < kMaxCW / 128; ++i)
+      if (128 * i < a.C)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float d = v[4 * i + e] - mean;
+          q += d * d;
+        }
+#pragma unroll
+    for (int o = 16; o; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
+    if (lane == 0) stat[r] = make_float2(mean, rsqrtf(q / (float)a.C + a.eps));
+  }
+  sm90::bar_sync<kWorkers>(1);
+
+  // this warpgroup's 48 columns of q | k | v = LN(x) @ W_qkv[:, cols]; A
+  // fragments of rows ra, rb from device memory, normalised
+  const int ra = min(r0, rows - 1), rb = min(r0 + 8, rows - 1);
+  const float2 sa = stat[ra], sb = stat[rb];
+  auto load_ln = [&](int st, uint32_t (&hi)[16], uint32_t (&lo)[16]) {
+    const int c = kStepK * st + 8 * t;
+    float v[2][8];
+    const float* p[2] = {a.x + (row0 + ra) * a.C + c, a.x + (row0 + rb) * a.C + c};
+    const float2 m[2] = {sa, sb};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const float4 u0 = __ldg(reinterpret_cast<const float4*>(p[r]));
+      const float4 u1 = __ldg(reinterpret_cast<const float4*>(p[r]) + 1);
+      const float x8[8] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) v[r][e] = (x8[e] - m[r].x) * m[r].y * G[c + e];
+    }
+    sm90::split_a(v, hi, lo);
+  };
+  float acc[kGroupQkv / 2];
+#pragma unroll
+  for (int i = 0; i < kGroupQkv / 2; ++i) acc[i] = 0.f;
+  qkv_steps(acc, nst, load_ln, w, wg);
+  store_qkv(QKV, acc, wg, r0, a.scale);
+  sm90::bar_sync<kWorkers>(1);
+
+  attend(QKV, P, nsc, a.n,
+         [&](int r, int d, float v) { O[head * kSliceT + r * kLdoT + d] = v; });
+
+  // the exchange: 3 threads copy this CTA's slice into the same place in
+  // the other CTAs' o, completing on their barrier for it
+  sm90::fence_proxy_async_shared();   // the slice's writes before the copies read it
+  sm90::bar_sync<kWorkers>(1);
+  if (threadIdx.x < kHeads - 1) {
+    const int peer = (head + 1 + threadIdx.x) % kHeads;
+    const float* mine = O + head * kSliceT;
+    sm90::bulk_copy_to_peer(sm90::cluster_addr(mine, peer), mine, (uint32_t)(rows * kLdoT * 4),
+                            sm90::cluster_addr(&obar[head], peer));
+  }
+  for (int q = 0; q < kHeads; ++q)
+    if (q != head) sm90::mbar_wait(&obar[q], 0);
+
+  // out[:, chunk] = x + (o @ W_out[:, chunk] + b_out): warpgroup wg takes
+  // chunks wg, wg + 2, ...; K step i takes slice (head + i) % 4
+  for (int c = 0; c < nchunk; c += kGroups) {
+    const int chunk = c + wg;
+    const bool mine = chunk < nchunk;   // the same for the whole warpgroup
+    float acc2[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc2[i] = 0.f;
+    for (int i = 0; i < kStepsOut; ++i) {
+      const int s = w.take();
+      if (mine) {
+        uint32_t h0[16], l0[16];
+        sm90::load_a<kLdoT>(O + ((head + i) % kHeads) * kSliceT, h0, l0);
+        sm90::wgmma_fence();
+        sm90::products_3x(acc2, h0, l0, w.chunk(s) + wg * kOutChunkT);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_operand(acc2);
+      }
+      w.give(s);
+    }
+    if (!mine) continue;
+    const int col0 = head * cols + chunk * sm90::kGroup;
+    const float* bo = Bo + chunk * sm90::kGroup;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = r0 + 8 * hh;
+      if (r < rows) {
+        const float* xrow = a.x + (row0 + r) * a.C + col0;
+        float* o = a.out + (row0 + r) * a.C + col0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int cc = 8 * j + 2 * t, i = 4 * j + 2 * hh;
+          const float2 xv = __ldg(reinterpret_cast<const float2*>(xrow + cc));
+          tile::st2<float>(o + cc, xv.x + (acc2[i] + bo[cc]), xv.y + (acc2[i + 1] + bo[cc + 1]));
+        }
+      }
+    }
+  }
+  sm90::cluster_arrive_relaxed();   // (1) every slice of this CTA's o has landed
+  sm90::cluster_wait();             // (1) no CTA leaves before every slice has landed
+}
+
+cudaError_t prepare_wide() {   // once
+  static const cudaError_t err = cudaFuncSetAttribute(
+      attention_tf32_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemW);
+  return err;
+}
+
+int launch_wide(const ArgsW& a, cudaStream_t stream) {
+  const cudaError_t err = prepare_wide();
+  if (err != cudaSuccess) return (int)err;
+  const unsigned tiles = (unsigned)((a.B + a.ts - 1) / a.ts);
+  attention_tf32_wide<<<tiles * kHeads, kThreads90, kSmemW, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 int set_attention_max_n() { return kMaxN; }
-// dynamic shared memory of one CTA of the `dtype` kernel (0 float32, 1
-// bfloat16)
-int set_attention_smem_bytes(int dtype) { return (int)(dtype == 1 ? kSmem90 : kSmemT); }
-// clusters of 4 CTAs of the `dtype` kernel that fit on the card at once, or
-// minus a cudaError_t code
-int set_attention_max_active_clusters(int dtype) {
+// dynamic shared memory of one CTA of the kernel that takes the `dtype` (0
+// float32, 1 bfloat16) call at C channels
+int set_attention_smem_bytes(int dtype, int C) {
+  return (int)(dtype == 1 ? kSmem90 : C == kC ? kSmemT : kSmemW);
+}
+// clusters of 4 CTAs of that kernel that fit on the card at once, or minus
+// a cudaError_t code
+int set_attention_max_active_clusters(int dtype, int C) {
   if (dtype == 1) return resident_clusters();
-  const cudaError_t err = prepare_tf32();
+  const bool wide = C != kC;
+  const cudaError_t err = wide ? prepare_wide() : prepare_tf32();
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kHeads * 64);
   cfg.blockDim = dim3(kThreads90);
-  cfg.dynamicSmemBytes = kSmemT;
+  cfg.dynamicSmemBytes = wide ? kSmemW : kSmemT;
   int clusters = 0;
-  const cudaError_t e = cudaOccupancyMaxActiveClusters(&clusters, attention_tf32, &cfg);
+  const cudaError_t e = wide ? cudaOccupancyMaxActiveClusters(&clusters, attention_tf32_wide, &cfg)
+                             : cudaOccupancyMaxActiveClusters(&clusters, attention_tf32, &cfg);
   return e == cudaSuccess ? clusters : -(int)e;
 }
 
+// float32 through attention_tf32_wide at C = 256, 512 or 1024 (weights
+// packed by pack_attention_weights_tf32); set_attention_launch sends C = 512
+// to attention_tf32, and calls this at the other widths.  Returns as
+// set_attention_launch.
+int set_attention_launch_wide(const void* x, const float* g, const void* Wqkv, const void* Wout,
+                              const float* bout, void* out, int B, int N, int C, int heads,
+                              int dh, float eps, void* stream) {
+  if (B < 1 || N < 1 || N > kMaxN || heads != kHeads || dh != kDh) return -1;
+  if (C != 256 && C != kC && C != kMaxCW) return -1;
+  ArgsW a;
+  a.x = static_cast<const float*>(x);
+  a.g = g;
+  a.Wqkv = static_cast<const float*>(Wqkv);
+  a.Wout = static_cast<const float*>(Wout);
+  a.bout = bout;
+  a.out = static_cast<float*>(out);
+  a.B = B;
+  a.n = N;
+  a.C = C;
+  a.ts = kTileRows / N;
+  a.eps = eps;
+  a.scale = (float)pow((double)dh, -0.5);
+  return launch_wide(a, static_cast<cudaStream_t>(stream));
+}
+
 // dtype: 0 float32 (weights packed by pack_attention_weights_tf32), 1
-// bfloat16 (by pack_attention_weights).  Both take C = 512, 4 heads of 32
-// and N <= 24.  Returns a cudaError_t code (0 on success), or -1 for
-// arguments the kernel does not take.
+// bfloat16 (by pack_attention_weights).  Both take 4 heads of 32 and N <=
+// 24; bfloat16 C = 512, float32 C = 256, 512 or 1024 (attention_tf32 at
+// 512, attention_tf32_wide at the others).  Returns a cudaError_t code (0
+// on success), or -1 for arguments the kernels do not take.
 int set_attention_launch(int dtype, const void* x, const float* g, const void* Wqkv,
                          const void* Wout, const float* bout, void* out, int B, int N, int C,
                          int heads, int dh, float eps, void* stream) {
-  if (B < 1 || N < 1 || N > kMaxN || C != kC || heads != kHeads || dh != kDh) return -1;
+  if (B < 1 || N < 1 || N > kMaxN || heads != kHeads || dh != kDh) return -1;
   const float scale = (float)pow((double)dh, -0.5);   // dim_head ** -0.5, as the twin
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
+    if (C != kC) return -1;
     Args90 a;
     a.x = static_cast<const bf16*>(x);
     a.g = g;
@@ -938,7 +1229,9 @@ int set_attention_launch(int dtype, const void* x, const float* g, const void* W
     a.scale = scale;
     return launch_sm90(a, s);
   }
-  if (dtype != 0) return -1;
+  if (dtype != 0 || (C != 256 && C != kC && C != kMaxCW)) return -1;
+  if (C != kC) return set_attention_launch_wide(x, g, Wqkv, Wout, bout, out, B, N, C, heads, dh,
+                                                eps, stream);
   ArgsT a;
   a.x = static_cast<const float*>(x);
   a.g = g;

@@ -27,9 +27,11 @@
 //   input's K tiles through 8 rolling slots (SlotsF), the ring of split
 //   weight chunks (RingF), the K step on wgmma m64n64k8 .tf32 with the rows
 //   split in registers (block_products), and the bulk-copy exchange of h
-//   (exchange_slice_f32, slice_products); the f32 set-attention kernel
-//   (set_attention.cu) takes its split A fragments (load_a), its products
-//   (products_3x) and a ring of larger stages (RingT).
+//   (exchange_slice_f32, slice_products); the f32 set-attention kernels
+//   (set_attention.cu) take its split A fragments (load_a), its products
+//   (products_3x) and a ring of larger stages (RingT); the wide f32
+//   ResnetBlock kernel its K step with A from device memory
+//   (load_a_global, stream_products) and a ring of two warpgroups' chunks.
 //
 // The weight chunk layout.  A chunk is one 64-deep K tile of one group of 64
 // output columns, (k, n) in [0, 64)^2, stored as 8 x 8 core matrices of 8 n
@@ -576,6 +578,19 @@ __host__ __device__ constexpr LayoutF layout_tf32(int vectors, int slice_sets) {
   return L;
 }
 
+// A lane's 8 columns of its two rows (v[0] row g, v[1] row g + 8) as its
+// A fragments' tf32 hi and lo parts (load_a's order below)
+__device__ __forceinline__ void split_a(const float (&v)[2][8], uint32_t (&hi)[16],
+                                        uint32_t (&lo)[16]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {   // {(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)}
+    tf32_split(v[0][2 * j], hi[4 * j], lo[4 * j]);
+    tf32_split(v[1][2 * j], hi[4 * j + 1], lo[4 * j + 1]);
+    tf32_split(v[0][2 * j + 1], hi[4 * j + 2], lo[4 * j + 2]);
+    tf32_split(v[1][2 * j + 1], hi[4 * j + 3], lo[4 * j + 3]);
+  }
+}
+
 // This thread's A fragments of one K step (32 deep) of 64 rows kLd floats
 // apart (a slot: rows 68 floats apart, the step at column 32 * half),
 // split into tf32 hi and lo, for warp w % 4 of its warpgroup.  The chunks
@@ -597,13 +612,25 @@ __device__ __forceinline__ void load_a(const float* step, uint32_t (&hi)[16], ui
     v[r][0] = u.x, v[r][1] = u.y, v[r][2] = u.z, v[r][3] = u.w;
     v[r][4] = w.x, v[r][5] = w.y, v[r][6] = w.z, v[r][7] = w.w;
   }
+  split_a(v, hi, lo);
+}
+
+// The same fragments from device memory: p0 and p1 point at this thread's 8
+// columns (8 (lane % 4) on from the K step's first) of its rows g and g + 8,
+// read through L2 only (ld.global.cg: the bytes may have been written by
+// another CTA of the cluster in this launch)
+__device__ __forceinline__ void load_a_global(const float* p0, const float* p1,
+                                              uint32_t (&hi)[16], uint32_t (&lo)[16]) {
+  float v[2][8];
+  const float* p[2] = {p0, p1};
 #pragma unroll
-  for (int j = 0; j < 4; ++j) {   // {(g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)}
-    tf32_split(v[0][2 * j], hi[4 * j], lo[4 * j]);
-    tf32_split(v[1][2 * j], hi[4 * j + 1], lo[4 * j + 1]);
-    tf32_split(v[0][2 * j + 1], hi[4 * j + 2], lo[4 * j + 2]);
-    tf32_split(v[1][2 * j + 1], hi[4 * j + 3], lo[4 * j + 3]);
+  for (int r = 0; r < 2; ++r) {
+    const float4 u = __ldcg(reinterpret_cast<const float4*>(p[r]));
+    const float4 w = __ldcg(reinterpret_cast<const float4*>(p[r]) + 1);
+    v[r][0] = u.x, v[r][1] = u.y, v[r][2] = u.z, v[r][3] = u.w;
+    v[r][4] = w.x, v[r][5] = w.y, v[r][6] = w.z, v[r][7] = w.w;
   }
+  split_a(v, hi, lo);
 }
 
 // d += A @ (the chunk at `chunk`: hi, then lo), as hi*lo + lo*hi + hi*hi in
@@ -653,24 +680,25 @@ struct RingT {
 using RingF = RingT<kStagesF, 2 * kChunkPartF>;
 
 // Issue one K step's products: this thread's split A fragments times the
-// ring's next chunk into d (and the one after it into dr when kRes).
+// ring's next chunk into d (and the one after it into dr when kRes); `part`
+// (floats) picks this warpgroup's chunk in a stage that holds several.
 // Returns the stages, which retire_step gives back once the products are
 // done.
-template <bool kRes>
+template <bool kRes, class Ring>
 __device__ __forceinline__ int2 issue_step(float (&d)[32], float (&dr)[32],
                                            const uint32_t (&ah)[16], const uint32_t (&al)[16],
-                                           RingF& w) {
+                                           Ring& w, int part = 0) {
   const int s1 = w.take();
   const int s2 = kRes ? w.take() : s1;
   wgmma_fence();
-  products_3x(d, ah, al, w.chunk(s1));
-  if constexpr (kRes) products_3x(dr, ah, al, w.chunk(s2));
+  products_3x(d, ah, al, w.chunk(s1) + part);
+  if constexpr (kRes) products_3x(dr, ah, al, w.chunk(s2) + part);
   wgmma_commit();
   return make_int2(s1, s2);
 }
 
-template <bool kRes>
-__device__ __forceinline__ void retire_step(float (&d)[32], float (&dr)[32], int2 st, RingF& w) {
+template <bool kRes, class Ring>
+__device__ __forceinline__ void retire_step(float (&d)[32], float (&dr)[32], int2 st, Ring& w) {
   wgmma_wait<0>();
   fence_operand(d);
   if constexpr (kRes) fence_operand(dr);
@@ -678,31 +706,46 @@ __device__ __forceinline__ void retire_step(float (&d)[32], float (&dr)[32], int
   if constexpr (kRes) w.give(st.y);
 }
 
-// One product over `ntiles` 64-deep K tiles of A, two 32-deep steps a
-// tile, into d (and, when kRes, the residual projection into dr from the
-// ring's interleaved chunks, sharing the A fragments); the next step's A
-// fragments are loaded and split while a step's products run (two register
-// sets).  tile(kt) waits for K tile kt and returns its slot; done(kt)
+// One product over `nsteps` (even) 32-deep K steps into d (and, when
+// kRes, the residual projection into dr from the ring's interleaved
+// chunks, sharing the A fragments): load(st, hi, lo) loads and splits K
+// step st's A fragments, the next step's while a step's products run (two
+// register sets); `part` picks this warpgroup's chunk in a stage.
+template <bool kRes, class Ring, class Load>
+__device__ __forceinline__ void stream_products(float (&d)[32], float (&dr)[32], int nsteps,
+                                                Load load, Ring& w, int part = 0) {
+  uint32_t h0[16], l0[16], h1[16], l1[16];
+  load(0, h0, l0);
+#pragma unroll 1
+  for (int st = 0; st < nsteps; st += 2) {
+    int2 s = issue_step<kRes>(d, dr, h0, l0, w, part);
+    load(st + 1, h1, l1);
+    retire_step<kRes>(d, dr, s, w);
+    s = issue_step<kRes>(d, dr, h1, l1, w, part);
+    if (st + 2 < nsteps) load(st + 2, h0, l0);
+    retire_step<kRes>(d, dr, s, w);
+  }
+}
+
+// The same over `ntiles` 64-deep K tiles of A in shared memory, two steps
+// a tile: tile(kt) waits for K tile kt and returns its slot; done(kt)
 // follows the last read of it.
 template <bool kRes, class Tile, class Done>
 __device__ __forceinline__ void block_products(float (&d)[32], float (&dr)[32], int ntiles,
                                                Tile tile, Done done, RingF& w) {
-  uint32_t h0[16], l0[16], h1[16], l1[16];
-  const float* A = tile(0);
-  load_a(A, h0, l0);
-#pragma unroll 1
-  for (int kt = 0; kt < ntiles; ++kt) {
-    int2 st = issue_step<kRes>(d, dr, h0, l0, w);
-    load_a(A + kStepK, h1, l1);
-    done(kt);
-    retire_step<kRes>(d, dr, st, w);
-    st = issue_step<kRes>(d, dr, h1, l1, w);
-    if (kt + 1 < ntiles) {
-      A = tile(kt + 1);
-      load_a(A, h0, l0);
-    }
-    retire_step<kRes>(d, dr, st, w);
-  }
+  const float* A = nullptr;
+  stream_products<kRes>(
+      d, dr, 2 * ntiles,
+      [&](int st, uint32_t (&hi)[16], uint32_t (&lo)[16]) {
+        if (st % 2 == 0) {
+          A = tile(st / 2);
+          load_a(A, hi, lo);
+        } else {
+          load_a(A + kStepK, hi, lo);
+          done(st / 2);
+        }
+      },
+      w);
 }
 
 // An input's K tiles through the 8 slots: K tile kt of a pass (one

@@ -44,10 +44,10 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops import attention as _attention
+from ..ops import fused_resblock as _resblock
 from ..ops.attention import fused_set_attention
 from ..ops.fused_level import ChainBlock, apply_chain, build_chain
-from ..ops.fused_resblock import CHANNELS as CARD_CHANNELS
-from ..ops.fused_resblock import CLUSTER as CARD_GROUPS
 from ..ops.fused_resblock import fused_resnet_block, standardize_kernel
 from .denoiser import Unet1D, head_blockmask, seg_softmax_heads, sinusoidal_pos_emb
 
@@ -412,17 +412,44 @@ def _decode(net: Unet1D, prep: Dict[str, Any], h: torch.Tensor, exact_gelu: bool
     return torch.cat(outs, dim=-1).float()
 
 
+def block_shapes(net: Unet1D):
+    """(C, C_x, C_skip) of each of the 28 ResnetBlocks of ``net`` in the
+    order of a forward (``fused_unet1d_forward``), read from the blocks'
+    weights: C and C_x + C_skip are block1's projection's widths, C_skip
+    the width of the skip the forward passes (an up level's block1 the
+    mirrored down level's block2 output, its block2 that level's block1
+    output, the final block the encoder's output)."""
+    def widths(blk, skip=0):
+        c, c_in = blk.block1.proj.weight.shape[:2]
+        return (c, c_in - skip, skip)
+
+    shapes = []
+    for down in net.downs:
+        shapes += [widths(down[0]), widths(down[1]), widths(down[3])]
+    shapes += [widths(net.mid_block0), widths(net.mid_block1), widths(net.mid_block2)]
+    for up, down in zip(net.ups, reversed(net.downs)):
+        shapes += [widths(up[0]), widths(up[1], down[3].dim_out), widths(up[3], down[1].dim_out)]
+    return shapes + [widths(net.final_res_block, net.init_conv.weight.shape[0])]
+
+
 def check_card_widths(net: Unet1D) -> None:
     """Raise ``ValueError`` unless the card's ResnetBlock and set-attention
-    kernels (B1, B2) take every block of ``net``: C = 512 in 8 groups at
-    every level (ROADMAP §C, "Known narrowing").  A model of other widths
-    samples on the card through the module forward, ``fused=False``."""
-    widths = sorted({net.dim} | {net.dim * m for m in net.dim_mults})
-    if widths != [CARD_CHANNELS] or net.resnet_block_groups != CARD_GROUPS:
+    kernels (B1, B2) in the model's compute dtype take every block of
+    ``net`` (:func:`block_shapes`) and its ``mid_attn``: in f32 C = 256, 512
+    or 1024 in 4, 8, 16 or 32 GroupNorm groups of at least 16 channels,
+    inputs up to 2048 wide; in bf16 C = 512 in 8 groups (ROADMAP §C, "Known
+    narrowing").  A model outside samples on the card through the module
+    forward, ``fused=False``; nothing is launched before this raises."""
+    dt, groups = net.compute_dtype, net.resnet_block_groups
+    try:
+        for C, kx, ks in block_shapes(net):
+            _resblock.check_kernel_shapes(C, groups, kx, ks, 1, kx + ks != C, dt)
+        _attention.check_kernel_shapes(1, net.mid_block2.dim_out, 4, 32, dt)
+    except ValueError as e:
+        widths = sorted({net.dim} | {net.dim * m for m in net.dim_mults})
         raise ValueError(
-            f"the card's B1/B2 kernels take C={CARD_CHANNELS} in {CARD_GROUPS} groups; this "
-            f"model's blocks are {widths} wide in {net.resnet_block_groups} groups: sample it "
-            f"with fused=False")
+            f"the card's {dt} B1/B2 kernels do not take this model ({widths} wide in "
+            f"{groups} groups): {e}; sample it with fused=False") from None
 
 
 @torch.no_grad()

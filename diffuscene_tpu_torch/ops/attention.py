@@ -21,11 +21,13 @@ the model's eps.
 :func:`fused_set_attention_reference`.  It never falls back: a CUDA tensor
 the kernel cannot take raises.
 
-Both kernels are cluster kernels for Hopper: a tile of whole scenes (at most
+The kernels are cluster kernels for Hopper: a tile of whole scenes (at most
 ``TILE_ROWS`` rows) is one cluster of ``HEADS`` CTAs, CTA h owning head h;
-they take C = 512, 4 heads of 32 and N <= 24 only
-(:func:`check_kernel_shapes`).  The f32 kernel runs both products in split
-TF32 (three tf32 products per f32 product, ``fused_resblock.tf32_split``).
+they take 4 heads of 32 and N <= 24, bf16 at C = 512, f32 at C = 256, 512
+or 1024 (:func:`check_kernel_shapes`; ``attention_tf32`` at 512,
+``attention_tf32_wide`` at the others).  The f32 kernels run both products
+in split TF32 (three tf32 products per f32 product,
+``fused_resblock.tf32_split``).
 :func:`tile_plan` is each kernel's launch and shared-memory plan, and
 :func:`pack_attention_weights` (bf16) and :func:`pack_attention_weights_tf32`
 (f32) the weight layouts their bulk copies read.
@@ -43,8 +45,9 @@ from .fused_resblock import F32_STEP, TILE_ROWS, pack_group_tiles, pack_tf32_til
 
 CSRC = build.CSRC_DIR / "set_attention.cu"
 MAX_N = 24        # objects per scene (kMaxN)
-# the widths both kernels take
+# the widths the kernels take: bf16 C, f32 C, heads of dim_head
 CHANNELS, HEADS, DIM_HEAD = 512, 4, 32
+F32_CHANNELS = (256, 512, 1024)
 K_TILE = 64       # depth of one bf16 W_qkv chunk
 F32_STAGES = 3    # the f32 kernel's ring of split weights, a W_out step (32 KB) a stage
 
@@ -59,29 +62,41 @@ class TilePlan(NamedTuple):
 
 
 def tile_plan(B: int, n: int, resident: Optional[int] = None,
-              dtype=torch.bfloat16) -> TilePlan:
-    """The ``dtype`` kernel's launch for B scenes of n rows: tiles of the most
-    whole scenes that fit in 64 rows, one cluster of 4 CTAs a tile.  bf16:
-    at most ``resident`` clusters launched, each walking several tiles with
-    its weights loaded once; shared memory (``set_attention_smem_bytes``): 8
-    W_qkv chunks of 64 x 96, the (64, 520) x tile (which later holds q | k |
-    v and the probabilities in f32), the (128, 128) W_out block, the
-    gathered (64, 136) o, the CTA's 128 of b_out in f32, 14 mbarriers.
-    f32: one cluster a tile, each CTA streaming its split weights (16 W_qkv
-    steps of 24 KB, 4 W_out steps of 32 KB); shared memory: a ring of 3
-    stages of 32 KB, the (64, 516) f32 x tile (which later holds q | k | v,
-    the probabilities and the gathered o as 4 slices of (64, 36)), the 128
-    of b_out, 11 mbarriers."""
+              dtype=torch.bfloat16, C: int = CHANNELS) -> TilePlan:
+    """The ``dtype`` kernel's launch for B scenes of n rows of C channels:
+    tiles of the most whole scenes that fit in 64 rows, one cluster of 4
+    CTAs a tile.  bf16: at most ``resident`` clusters launched, each walking
+    several tiles with its weights loaded once; shared memory
+    (``set_attention_smem_bytes``): 8 W_qkv chunks of 64 x 96, the (64,
+    520) x tile (which later holds q | k | v and the probabilities in f32),
+    the (128, 128) W_out block, the gathered (64, 136) o, the CTA's 128 of
+    b_out in f32, 14 mbarriers.  f32: one cluster a tile, each CTA
+    streaming its split weights (C / 32 W_qkv steps of 24 KB, W_out's 4
+    steps of 16 KB for each 64 of its C / 4 output columns).  Shared memory
+    at C = 512 (attention_tf32): a ring of 3 stages of 32 KB, the (64, 516)
+    f32 x tile (which later holds q | k | v, the probabilities and the
+    gathered o as 4 slices of (64, 36)), the 128 of b_out, 11 mbarriers; at
+    C = 256 and 1024 (attention_tf32_wide, no x tile): the ring, q | k | v
+    (64, 100), the probabilities (64, 25), the gathered o, the LayerNorm
+    scale and b_out (room for C = 1024), each row's mean and rstd, 10
+    mbarriers."""
     if not 1 <= n <= MAX_N:
         raise ValueError(f"the set-attention kernel takes 1 <= N <= {MAX_N}, got {n}")
     ts = TILE_ROWS // n
     tiles = -(-B // ts)
-    hd, cols = HEADS * DIM_HEAD, CHANNELS // HEADS
+    hd, cols = HEADS * DIM_HEAD, C // HEADS
     if dtype == torch.float32:
-        stage = 2 * F32_STEP * cols * 4
-        smem = (F32_STAGES * stage + TILE_ROWS * (CHANNELS + 4) * 4 + cols * 4
-                + (2 * F32_STAGES + 1 + HEADS) * 8)
-        per_cta = 2 * CHANNELS * 3 * DIM_HEAD * 4 + 2 * hd * cols * 4
+        stage = 2 * F32_STEP * (CHANNELS // HEADS) * 4
+        per_cta = 2 * C * 3 * DIM_HEAD * 4 + 2 * hd * cols * 4
+        if C == CHANNELS:
+            smem = (F32_STAGES * stage + TILE_ROWS * (CHANNELS + 4) * 4 + cols * 4
+                    + (2 * F32_STAGES + 1 + HEADS) * 8)
+        else:
+            cmax = F32_CHANNELS[-1]
+            smem = (F32_STAGES * stage + TILE_ROWS * (3 * DIM_HEAD + 4) * 4
+                    + TILE_ROWS * (MAX_N + 1) * 4 + HEADS * TILE_ROWS * (DIM_HEAD + 4) * 4
+                    + cmax * 4 + cmax // HEADS * 4 + TILE_ROWS * 2 * 4
+                    + (2 * F32_STAGES + HEADS) * 8)
         return TilePlan(ts, tiles, tiles, HEADS * tiles, smem, HEADS * tiles * per_cta)
     clusters = tiles if resident is None else min(tiles, resident)
     smem = (CHANNELS * 3 * DIM_HEAD * 2 + TILE_ROWS * (CHANNELS + 8) * 2
@@ -115,23 +130,25 @@ def pack_attention_weights(w_qkv: torch.Tensor, w_out: torch.Tensor):
 
 
 def pack_attention_weights_tf32(w_qkv: torch.Tensor, w_out: torch.Tensor):
-    """The f32 kernel's weights, flat, each value split into its tf32 hi and
-    lo parts (:func:`tf32_split`).  W_qkv (512, 384): for head h and 32-deep
-    K step st, rows [32 st, 32 st + 32) of head h's 96 columns [q_h | k_h |
-    v_h], 6144 values from (h * 16 + st) * 6144: the hi parts, then the lo
+    """The f32 kernels' weights, flat, each value split into its tf32 hi and
+    lo parts (:func:`tf32_split`).  W_qkv (C, 384), C in F32_CHANNELS: for
+    head h and 32-deep K step st, rows [32 st, 32 st + 32) of head h's 96
+    columns [q_h | k_h | v_h], 6144 values from (h * C / 32 + st) * 6144:
+    the hi parts, then the lo
     parts, each in the tf32 K-major core-matrix layout of csrc/sm90.cuh with
     12 core matrices across, (kappa, n) at ((kappa // 4) * 12 + n // 8) * 32
     + (n % 8) * 4 + kappa % 4, the step's k permuted as in
     :func:`pack_tf32_tiles` (kappa = 8 j + t + 4 h holds row 32 st + 8 t +
-    2 j + h).  W_out (128, 512): :func:`pack_tf32_tiles`, so group g's
+    2 j + h).  W_out (128, C): :func:`pack_tf32_tiles`, so chunk g's
     (columns [64 g, 64 g + 64)) 4 steps are the 16384 values from g * 16384,
-    and head h's output columns are groups 2h and 2h + 1.  Done once per
-    weight set."""
+    and head h's output columns are chunks h C / 256 to (h + 1) C / 256 - 1.
+    Done once per weight set."""
     K, Q = w_qkv.shape
     hd = HEADS * DIM_HEAD
-    if (K, Q) != (CHANNELS, 3 * hd) or tuple(w_out.shape) != (hd, CHANNELS):
-        raise ValueError(f"pack_attention_weights_tf32 takes ({CHANNELS}, {3 * hd}) and ({hd}, "
-                         f"{CHANNELS}) weights, got {tuple(w_qkv.shape)}, {tuple(w_out.shape)}")
+    if K not in F32_CHANNELS or Q != 3 * hd or tuple(w_out.shape) != (hd, K):
+        raise ValueError(f"pack_attention_weights_tf32 takes (C, {3 * hd}) and ({hd}, C) "
+                         f"weights with C in {F32_CHANNELS}, got {tuple(w_qkv.shape)}, "
+                         f"{tuple(w_out.shape)}")
     heads = w_qkv.float().reshape(K, 3, HEADS, DIM_HEAD).permute(2, 0, 1, 3)
     heads = heads.reshape(HEADS, K, 3 * DIM_HEAD).contiguous()
 
@@ -184,24 +201,30 @@ def load_library() -> ctypes.CDLL:
     lib.set_attention_launch.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
                                          ctypes.c_float, vp]
     lib.set_attention_launch.restype = ci
+    lib.set_attention_launch_wide.argtypes = [vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                              ctypes.c_float, vp]
+    lib.set_attention_launch_wide.restype = ci
     lib.set_attention_max_n.argtypes, lib.set_attention_max_n.restype = [], ci
     for fn in (lib.set_attention_smem_bytes, lib.set_attention_max_active_clusters):
-        fn.argtypes, fn.restype = [ci], ci
+        fn.argtypes, fn.restype = [ci, ci], ci
+    shapes = [(torch.bfloat16, CHANNELS)] + [(torch.float32, C) for C in F32_CHANNELS]
     if lib.set_attention_max_n() != MAX_N or any(
-            lib.set_attention_smem_bytes(code) != tile_plan(1, 12, dtype=dt).smem_bytes
-            for dt, code in build.DTYPE_CODES.items()):
+            lib.set_attention_smem_bytes(build.DTYPE_CODES[dt], C)
+            != tile_plan(1, 12, dtype=dt, C=C).smem_bytes for dt, C in shapes):
         raise RuntimeError("csrc/set_attention.cu and ops/attention.py disagree on limits")
     return lib
 
 
 def check_kernel_shapes(n: int, C: int, heads: int, dim_head: int, dt) -> None:
     """Raise ``ValueError`` unless the kernels take these shapes: x in
-    float32 or bfloat16, C = 512, 4 heads of 32, 1 <= N <= 24 (the
-    library's ``-1``).  Every config's ``mid_attn`` is 4 x 32 at dim 512."""
+    float32 with C in F32_CHANNELS or bfloat16 with C = 512, 4 heads of 32,
+    1 <= N <= 24 (the library's ``-1``).  Every config's ``mid_attn`` is 4
+    x 32."""
     if dt not in build.DTYPE_CODES:
         raise ValueError(f"the set-attention kernel takes float32 or bfloat16, got {dt}")
-    if (C, heads, dim_head) != (CHANNELS, HEADS, DIM_HEAD) or not 1 <= n <= MAX_N:
-        raise ValueError(f"the {dt} set-attention kernel takes C={CHANNELS}, {HEADS} heads of "
+    widths = F32_CHANNELS if dt == torch.float32 else (CHANNELS,)
+    if C not in widths or (heads, dim_head) != (HEADS, DIM_HEAD) or not 1 <= n <= MAX_N:
+        raise ValueError(f"the {dt} set-attention kernel takes C in {widths}, {HEADS} heads of "
                          f"{DIM_HEAD} and N <= {MAX_N}; got C={C}, {heads} x {dim_head}, N={n}")
 
 

@@ -29,15 +29,19 @@ Two input forms beside B1's own:
 the concatenation explicitly.  It never falls back: a CUDA tensor the kernel
 cannot take raises.
 
-Both kernels are cluster kernels for Hopper: a tile of whole scenes (at
-most ``TILE_ROWS`` rows, the wgmma M) is one cluster of ``CLUSTER`` CTAs,
-CTA g owning GroupNorm group g's 64 output columns; they take C = 512 in 8
-groups and input widths of multiples of 64 (bf16: summing to a multiple of
-128, its K loop takes two 64-deep tiles a step).  The f32 kernel runs its
-products in split TF32: three tf32 products per f32 product, never one.
-:func:`tile_plan` is each kernel's launch and shared-memory plan, and
-:func:`pack_group_tiles` (bf16) and :func:`pack_tf32_tiles` (f32, split into
-tf32 hi and lo) the weight layouts their bulk copies read.
+The kernels are cluster kernels for Hopper: a tile of whole scenes (at most
+``TILE_ROWS`` rows, the wgmma M) is one cluster of CTAs, each owning 64 or
+128 output columns.  bf16 takes C = 512 in 8 groups and input widths of
+multiples of 64 summing to a multiple of 128, at most 1024 (its K loop
+takes two 64-deep tiles a step).  f32 takes the set of :func:`f32_takes`:
+C = 256, 512 or 1024 in 4, 8, 16 or 32 groups of at least 16 channels,
+input widths of multiples of 64 up to 2048 together; C = 512 in 8 groups
+runs ``resblock_tf32`` (CTA g owning group g's 64 columns), every other
+shape the wide kernel ``resblock_tf32_wide`` (:func:`f32_kernel`).  Both
+run their products in split TF32: three tf32 products per f32 product,
+never one.  :func:`tile_plan` is each kernel's launch and shared-memory
+plan, and :func:`pack_group_tiles` (bf16) and :func:`pack_tf32_tiles` (f32,
+split into tf32 hi and lo) the weight layouts their bulk copies read.
 """
 from __future__ import annotations
 
@@ -55,13 +59,19 @@ CSRC = build.CSRC_DIR / "fused_resblock.cu"
 TILE_ROWS = 64     # rows of a scene tile: the wgmma M (kTileRows)
 # rows of one scene each kernel takes: a scene tile's
 MAX_ROWS = {torch.float32: TILE_ROWS, torch.bfloat16: TILE_ROWS}
-MAX_IN = 1024      # x and skip widths together (kMaxIn)
-CLUSTER = 8        # CTAs of a tile's cluster, one per GroupNorm group
-CHANNELS = 512     # C, so 64 columns per group
+# x and skip widths together (kMaxIn, kMaxInF)
+MAX_IN = {torch.float32: 2048, torch.bfloat16: 1024}
+CLUSTER = 8        # bf16 (and the f32 C=512 kernel): CTAs of a tile's cluster, one per group
+CHANNELS = 512     # bf16: C, so 64 columns per group
+# the f32 set: widths, GroupNorm groups, the fewest channels a group
+F32_CHANNELS = (256, 512, 1024)
+F32_GROUPS = (4, 8, 16, 32)
+F32_MIN_GROUP = 16
 K_TILE = 64        # depth of one weight chunk
 CHUNK_BYTES = K_TILE * (CHANNELS // CLUSTER) * 2      # a bf16 weight chunk (64 deep)
 F32_STEP = 32                                         # depth of an f32 weight chunk
 F32_CHUNK_BYTES = 2 * F32_STEP * (CHANNELS // CLUSTER) * 4   # its tf32 hi and lo
+WIDE_STAGES = 4    # the wide f32 kernel's ring (kStagesW)
 SMEM_LIMIT = 232448    # dynamic shared memory one CTA may use on an H100
 
 
@@ -73,10 +83,40 @@ class TilePlan(NamedTuple):
     smem_bytes: int     # dynamic shared memory of one CTA
 
 
-def tile_plan(B: int, n: int, kx: int, ks: int = 0, dtype=torch.bfloat16) -> TilePlan:
-    """The ``dtype`` kernel's launch for B scenes of n rows and [x | skip]
-    inputs of kx + ks columns; its shared-memory sum mirrors ``layout()``
-    (bf16) or ``layout_f32()`` (f32) in the .cu (``fused_resblock_smem_bytes``).
+def f32_takes(C: int, groups: int, kx: int, ks: int = 0, n: int = 1) -> bool:
+    """Whether the f32 kernels take a block of C channels in ``groups``
+    GroupNorm groups, [x | skip] inputs of kx + ks columns and scenes of n
+    rows: C in F32_CHANNELS, groups in F32_GROUPS with at least
+    F32_MIN_GROUP channels each, kx and ks multiples of 64 (kx > 0) up to
+    2048 together, n <= 64."""
+    return (C in F32_CHANNELS and groups in F32_GROUPS and C // groups >= F32_MIN_GROUP
+            and kx > 0 and not kx % K_TILE and not ks % K_TILE
+            and kx + ks <= MAX_IN[torch.float32] and 1 <= n <= TILE_ROWS)
+
+
+def f32_kernel(C: int, groups: int, ks: int = 0, has_res: bool = True) -> str:
+    """The f32 kernel of a block: ``resblock_tf32`` at C = 512 in 8 groups
+    (with a residual projection, or an identity residual over x alone),
+    ``resblock_tf32_wide`` for the rest of the set."""
+    if C == CHANNELS and groups == CLUSTER and (has_res or not ks):
+        return "resblock_tf32"
+    return "resblock_tf32_wide"
+
+
+def wide_warpgroups(C: int) -> int:
+    """Consumer warpgroups (64 output columns each) of a wide-kernel CTA: 2
+    at C = 1024, else 1, so a cluster is 4 or 8 CTAs."""
+    return 2 if C > 512 else 1
+
+
+def tile_plan(B: int, n: int, kx: int, ks: int = 0, dtype=torch.bfloat16, C: int = CHANNELS,
+              groups: int = CLUSTER, has_res: Optional[bool] = None) -> TilePlan:
+    """The launch of the ``dtype`` kernel that takes the block (C channels
+    in ``groups`` groups, [x | skip] inputs of kx + ks columns, a residual
+    projection when ``has_res``, by default when kx + ks != C) for B
+    scenes of n rows; its shared-memory sum mirrors ``layout()`` (bf16),
+    ``layout_tf32()`` (resblock_tf32) or ``layout_wide()``
+    (resblock_tf32_wide) in the .cu (``fused_resblock_smem_bytes``).
 
     bf16: the weight ring (4 stages, 8 past 512 input columns), the
     [x | skip] tile (64 rows, padded by 8; later the gathered (64, 512) h),
@@ -84,16 +124,33 @@ def tile_plan(B: int, n: int, kx: int, ks: int = 0, dtype=torch.bfloat16) -> Til
     moments, 25 mbarriers (the ring's full and empty ones, the x tile's, one
     for each CTA's slice of the gathered h).
 
-    f32 (the same for every width): the weight ring (5 stages of a 32-deep
-    chunk's tf32 hi and lo, 16 KB), 8 slots of 64 rows x 64 columns (rows
-    68 floats apart) that hold the [x | skip] tile's K tiles in turn and
-    then the slices of the gathered (64, 512) h, the vectors, row sums and
-    squares, scene moments, 34 mbarriers (the ring's full and empty ones,
-    the slots' full and empty ones, one for each CTA's slice of h)."""
+    resblock_tf32 (the same for every width): the weight ring (5 stages of
+    a 32-deep chunk's tf32 hi and lo, 16 KB), 8 slots of 64 rows x 64
+    columns (rows 68 floats apart) that hold the [x | skip] tile's K tiles
+    in turn and then the slices of the gathered (64, 512) h, the vectors,
+    row sums and squares, scene moments, 34 mbarriers (the ring's full and
+    empty ones, the slots' full and empty ones, one for each CTA's slice of
+    h).
+
+    resblock_tf32_wide (one or two consumer warpgroups, :func:`wide_warpgroups`;
+    a cluster of C / 64 / warpgroups CTAs): the weight ring (4 stages of one
+    16 KB chunk a warpgroup), the CTA's columns of the 7 vectors, each
+    row's sums and squares in 8-column blocks, each scene's partial sums
+    and its mean and rsqrt for up to 4 groups a warpgroup (float2), 8
+    mbarriers."""
     kin = kx + ks
     group = CHANNELS // CLUSTER
     rows = TILE_ROWS
-    if dtype == torch.float32:
+    if has_res is None:
+        has_res = kin != C
+    ctas = CLUSTER
+    if dtype == torch.float32 and f32_kernel(C, groups, ks, has_res) == "resblock_tf32_wide":
+        wg = wide_warpgroups(C)
+        stages = WIDE_STAGES
+        smem = (stages * wg * F32_CHUNK_BYTES + 7 * wg * group * 4 + 2 * wg * rows * 8 * 4
+                + 2 * wg * 4 * rows * 8 + 2 * stages * 8)
+        ctas = C // (group * wg)
+    elif dtype == torch.float32:
         stages = 5
         smem = (stages * F32_CHUNK_BYTES + CLUSTER * rows * (group + 4) * 4 + 7 * group * 4
                 + 2 * rows * 4 + 2 * rows * 4 + (2 * stages + 3 * CLUSTER) * 8)
@@ -103,13 +160,13 @@ def tile_plan(B: int, n: int, kx: int, ks: int = 0, dtype=torch.bfloat16) -> Til
                 + 2 * rows * 4 + 2 * rows * 4 + (2 * 8 + 1 + CLUSTER) * 8)
     ts = rows // n
     tiles = -(-B // ts)
-    return TilePlan(ts, tiles, CLUSTER * tiles, stages, smem)
+    return TilePlan(ts, tiles, ctas * tiles, stages, smem)
 
 
-def _check_chunked(w: torch.Tensor, name: str) -> None:
+def _check_chunked(w: torch.Tensor, name: str, widths=(CHANNELS,)) -> None:
     K, C = w.shape
-    if K % K_TILE or C != CHANNELS:
-        raise ValueError(f"{name} takes ({K_TILE}k, {CHANNELS}) weights, got {(K, C)}")
+    if K % K_TILE or C not in widths:
+        raise ValueError(f"{name} takes ({K_TILE}k, C) weights with C in {widths}, got {(K, C)}")
 
 
 def pack_group_tiles(w: torch.Tensor) -> torch.Tensor:
@@ -128,9 +185,11 @@ def pack_group_tiles(w: torch.Tensor) -> torch.Tensor:
 
 
 def pack_tf32_tiles(w: torch.Tensor) -> torch.Tensor:
-    """A (K, 512) (in, out) f32 weight as the f32 kernel's chunks, flat:
-    chunk (g, st) holds rows [32 st, 32 st + 32) of group g's columns [64 g,
-    64 g + 64), 4096 values from (g * K / 32 + st) * 4096: their tf32 hi
+    """A (K, C) (in, out) f32 weight, C in F32_CHANNELS, as the f32
+    kernels' chunks, flat: chunk (g, st) holds rows [32 st, 32 st + 32) of
+    the 64 columns [64 g, 64 g + 64) (a GroupNorm group's at C = 512 in 8
+    groups; a CTA's, or one warpgroup's of it, in the wide kernel), 4096
+    values from (g * K / 32 + st) * 4096: their tf32 hi
     parts (:func:`tf32_split`), then their lo parts, each in the wgmma
     no-swizzle K-major core-matrix layout of tf32 (core matrices of 8
     columns x 4 k, 128 bytes apart in n and 1024 in k): (kappa, n) at
@@ -138,7 +197,7 @@ def pack_tf32_tiles(w: torch.Tensor) -> torch.Tensor:
     k is permuted so that each consumer thread reads its A fragments as
     contiguous columns (``load_a`` in the .cu): kappa = 8 j + t + 4 h holds
     row 32 st + 8 t + 2 j + h.  Done once per weight set."""
-    _check_chunked(w, "pack_tf32_tiles")
+    _check_chunked(w, "pack_tf32_tiles", F32_CHANNELS)
     K, C = w.shape
 
     def part(v):   # (st, t, j, h, g, nb, n8) -> (g, st, j, h, nb, n8, t)
@@ -233,21 +292,55 @@ def load_library() -> ctypes.CDLL:
     lib = build.load(CSRC)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.fused_resblock_launch.argtypes = [
-        ci, vp, vp, vp, ci, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_float, vp,
+        ci, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_float, vp,
     ]
     lib.fused_resblock_launch.restype = ci
-    for fn, args in ((lib.fused_resblock_max_rows, [ci]), (lib.fused_resblock_max_in, []),
-                     (lib.fused_resblock_smem_bytes, [ci, ci, ci]),
-                     (lib.fused_resblock_max_active_clusters, [ci, ci, ci, ci])):
+    for fn, args in ((lib.fused_resblock_max_rows, [ci]), (lib.fused_resblock_max_in, [ci]),
+                     (lib.fused_resblock_smem_bytes, [ci] * 6),
+                     (lib.fused_resblock_max_active_clusters, [ci] * 6)):
         fn.argtypes, fn.restype = args, ci
-    limits = ({dt: lib.fused_resblock_max_rows(code) for dt, code in build.DTYPE_CODES.items()},
-              lib.fused_resblock_max_in())
+    codes = build.DTYPE_CODES.items()
+    limits = ({dt: lib.fused_resblock_max_rows(code) for dt, code in codes},
+              {dt: lib.fused_resblock_max_in(code) for dt, code in codes})
+    shapes = [(dt, code, CHANNELS, CLUSTER, kx, ks) for dt, code in codes
+              for kx, ks in ((512, 0), (1024, 0), (512, 512))]
+    shapes += [(torch.float32, 0, C, groups, kx, ks) for C, groups, kx, ks in (
+        (256, 8, 256, 0), (512, 4, 512, 0), (512, 8, 256, 256), (1024, 8, 1024, 1024))]
     if limits != (MAX_ROWS, MAX_IN) or any(
-            lib.fused_resblock_smem_bytes(code, kx, ks) != tile_plan(1, 1, kx, ks, dt).smem_bytes
-            for dt, code in build.DTYPE_CODES.items()
-            for kx, ks in ((512, 0), (1024, 0), (512, 512))):
+            lib.fused_resblock_smem_bytes(code, C, groups, kx, ks, int(kx + ks != C))
+            != tile_plan(1, 1, kx, ks, dt, C, groups).smem_bytes
+            for dt, code, C, groups, kx, ks in shapes):
         raise RuntimeError("csrc/fused_resblock.cu and ops/fused_resblock.py disagree on limits")
     return lib
+
+
+def check_kernel_shapes(C: int, groups: int, kx: int, ks: int, n: int, has_res: bool,
+                        dt) -> None:
+    """Raise ``ValueError`` unless the ``dt`` kernels take the block (the
+    library's ``-1``): f32, the set of :func:`f32_takes`; bf16, C=512 in 8
+    groups, input widths of multiples of 64 summing to a multiple of 128 up
+    to 1024, an identity residual over x alone, scenes of at most 64
+    rows."""
+    if dt not in build.DTYPE_CODES:
+        raise ValueError(f"the resblock kernel takes float32 or bfloat16, got {dt}")
+    if dt == torch.float32:
+        if not f32_takes(C, groups, kx, ks, n):
+            raise ValueError(
+                f"the {dt} resblock kernel takes C in {F32_CHANNELS} in {F32_GROUPS} groups of "
+                f"at least {F32_MIN_GROUP} channels, input widths of multiples of {K_TILE} up "
+                f"to {MAX_IN[dt]} together and at most {TILE_ROWS} rows per scene; got C={C}, "
+                f"groups={groups}, C_x={kx}, C_skip={ks}, N={n}")
+        return
+    if n > MAX_ROWS[dt]:
+        raise ValueError(f"the {dt} resblock kernel takes at most {MAX_ROWS[dt]} rows per scene, "
+                         f"got {n}")
+    step = 2 * K_TILE
+    if (C != CHANNELS or groups != CLUSTER or not kx or kx % K_TILE or ks % K_TILE
+            or (kx + ks) % step or kx + ks > MAX_IN[dt] or (ks and not has_res)):
+        raise ValueError(f"the {dt} resblock kernel takes C={CHANNELS} in {CLUSTER} groups and "
+                         f"input widths of multiples of {K_TILE} summing to a multiple of {step} "
+                         f"up to {MAX_IN[dt]}, an identity residual over x alone; got C={C}, "
+                         f"groups={groups}, C_x={kx}, C_skip={ks}")
 
 
 def _kernel_weights(w: Optional[torch.Tensor], dt) -> Optional[torch.Tensor]:
@@ -267,15 +360,7 @@ def _launch_kernel(x, skip, film, w1, b1, g1s, g1b, w2, b2, g2s, g2b, w_res, b_r
     if x.dtype != dt or dt not in build.DTYPE_CODES:
         raise ValueError(f"the resblock kernel takes x in the compute dtype, float32 or "
                          f"bfloat16; got x {x.dtype}, compute dtype {dt}")
-    if n > MAX_ROWS[dt]:
-        raise ValueError(f"the {dt} resblock kernel takes at most {MAX_ROWS[dt]} rows per scene, "
-                         f"got {n}")
-    step = 2 * K_TILE if dt == torch.bfloat16 else K_TILE   # the K loop's step
-    if (C != CHANNELS or groups != CLUSTER or not kx or kx % K_TILE or ks % K_TILE
-            or (kx + ks) % step or kx + ks > MAX_IN):
-        raise ValueError(f"the {dt} resblock kernel takes C={CHANNELS} in {CLUSTER} groups and "
-                         f"input widths of multiples of {K_TILE} summing to a multiple of {step} "
-                         f"up to {MAX_IN}; got C={C}, groups={groups}, C_x={kx}, C_skip={ks}")
+    check_kernel_shapes(C, groups, kx, ks, n, w_res is not None, dt)
     dev = x.device
     build.check_operand("x", x, dev, dt, (M, kx))
     if skip is not None:
@@ -301,9 +386,13 @@ def _launch_kernel(x, skip, film, w1, b1, g1s, g1b, w2, b2, g2s, g2b, w_res, b_r
     if wdev != dev:
         raise ValueError(f"the weights are on {wdev}, x on {dev}")
     out = x.new_empty((M, C))
+    # the wide kernel's block1 output goes through device memory
+    wide = dt == torch.float32 and f32_kernel(C, groups, ks, w_res is not None) != "resblock_tf32"
+    h = x.new_empty((M, C)) if wide else None
     rc = load_library().fused_resblock_launch(
         build.DTYPE_CODES[dt], x.data_ptr(), None if skip is None else skip.data_ptr(),
-        None if film is None else film.data_ptr(), film_kind, w1p, w2p, wresp, vp, out.data_ptr(),
+        None if film is None else film.data_ptr(), film_kind, w1p, w2p, wresp, vp,
+        None if h is None else h.data_ptr(), out.data_ptr(),
         M // n, n, C, kx, ks, groups, eps, build.stream_ptr(dev),
     )
     if rc != 0:

@@ -55,6 +55,19 @@ def test_attention_matches_jax_pallas(dtype, eps):
                                **TOL[dtype])
 
 
+@pytest.mark.parametrize("n", [12, 24])
+@pytest.mark.parametrize("c", [256, 1024])
+def test_attention_matches_jax_pallas_at_the_set_widths(c, n):
+    """The plain f32 B2, which the card's wide kernel is held to, against
+    the JAX Pallas B2 (interpret mode) at the f32 set's other widths, up to
+    the most objects a scene the kernels take."""
+    d = _case(seed=c + n, n=n, c=c)
+    want = jat.fused_set_attention(*(jnp.asarray(d[k]) for k in ("x", "g", "w_qkv", "w_out",
+                                                                  "b_out")),
+                                   heads=H, dim_head=D, eps=1e-5, compute_dtype=jnp.float32)
+    np.testing.assert_allclose(_run_torch(d, "f32", 1e-5), np.asarray(want), **TOL["f32"])
+
+
 def test_attention_permutation_equivariance():
     d = _case(seed=1)
     perm = np.random.default_rng(2).permutation(N)
@@ -160,8 +173,56 @@ def test_attention_weight_packing_per_head(dtype, head):
                 torch.testing.assert_close(chunk[2048 * part:][off],
                                            parts_out[part][32 * st:32 * st + 32, c0:c0 + 64],
                                            rtol=0, atol=0)
-    with pytest.raises(ValueError):   # the kernel's widths only
-        tat.pack_attention_weights_tf32(w_qkv[:256], w_out[:, :256])
+    with pytest.raises(ValueError):   # the kernels' widths only
+        tat.pack_attention_weights_tf32(w_qkv[:384], w_out[:, :384])
+
+
+@pytest.mark.parametrize("c", [256, 1024])
+def test_attention_weight_packing_tf32_at_the_set_widths(c):
+    """The f32 kernels' weights at C = 256 and 1024: head h's C / 32 steps
+    of W_qkv from h * C / 32 * 6144, and its C / 256 chunks of W_out
+    (output columns [h C / 4, (h + 1) C / 4)), each chunk's 4 steps from
+    (h C / 256 + u) * 16384, every step its tf32 hi then lo parts."""
+    from diffuscene_tpu_torch.ops.fused_resblock import tf32_split
+
+    rng = np.random.default_rng(c)
+    w_qkv = torch.from_numpy(rng.normal(size=(c, 384)).astype(np.float32))
+    w_out = torch.from_numpy(rng.normal(size=(128, c)).astype(np.float32))
+    qkv, out = tat.pack_attention_weights_tf32(w_qkv, w_out)
+    assert qkv.shape == (2 * c * 384,) and out.shape == (2 * 128 * c,)
+    parts_qkv, parts_out = tf32_split(w_qkv), tf32_split(w_out)
+    steps, chunks = c // 32, c // 256
+    for head in range(4):
+        cols = torch.cat([torch.arange(32 * head, 32 * head + 32) + 128 * p for p in range(3)])
+        for st in (0, steps - 1):
+            chunk = qkv[(head * steps + st) * 6144:][:6144]
+            for part in range(2):
+                torch.testing.assert_close(chunk[3072 * part:][_tf32_offsets(96)],
+                                           parts_qkv[part][32 * st:32 * st + 32, cols],
+                                           rtol=0, atol=0)
+        for u in range(chunks):
+            for st in range(4):
+                chunk = out[((head * chunks + u) * 4 + st) * 4096:][:4096]
+                c0 = c // 4 * head + 64 * u
+                for part in range(2):
+                    torch.testing.assert_close(chunk[2048 * part:][_tf32_offsets(64)],
+                                               parts_out[part][32 * st:32 * st + 32, c0:c0 + 64],
+                                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("c", [256, 1024])
+def test_attention_tile_plan_f32_at_the_set_widths(c):
+    """The wide f32 kernel's launch at C = 256 and 1024: one cluster of 4
+    CTAs a tile, no x tile in shared memory (172,880 bytes a CTA at every
+    width, within the H100's 232,448), each CTA streaming its split W_qkv
+    columns (C x 96) and W_out block (128 x C / 4) once a tile."""
+    for n, scenes in ((12, 5), (21, 3), (24, 2)):
+        for B in (7, 64, 256):
+            plan = tat.tile_plan(B, n, dtype=torch.float32, C=c)
+            tiles = -(-B // scenes)
+            per_cta = 2 * 4 * (c * 96 + 128 * c // 4)
+            assert tuple(plan) == (scenes, tiles, tiles, 4 * tiles, 172_880, 4 * tiles * per_cta)
+    assert tat.tile_plan(64, 12, dtype=torch.float32, C=c).smem_bytes <= 232_448
 
 
 @pytest.mark.parametrize("n,scenes,tiles_64", [(12, 5, 13), (21, 3, 22), (24, 2, 32)])
@@ -223,14 +284,22 @@ def test_split_tf32_attention_matches_f32_attention(monkeypatch, n):
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
-@pytest.mark.parametrize("case", ["c256", "heads8x16", "n25"])
+@pytest.mark.parametrize("case", ["c256", "c384", "c1024", "c2048", "heads8x16", "n25",
+                                  "n25_c1024"])
 def test_kernel_path_refuses_shapes_it_does_not_take(case, dtype):
-    """No fallback: both kernels take C=512, 4 heads of 32 and N <= 24 only;
-    anything else raises before any launch, through the shape check the
-    launch path runs (here on CPU tensors, before it builds)."""
-    C, heads, dim_head, n = {"c256": (256, 4, 32, 12), "heads8x16": (512, 8, 16, 12),
-                             "n25": (512, 4, 32, 25)}[case]
+    """No fallback: the kernels take 4 heads of 32, N <= 24 and C=512 (bf16)
+    or C in (256, 512, 1024) (f32) only; anything else raises before any
+    launch, through the shape check the launch path runs (here on CPU
+    tensors, before it builds).  C=256 and 1024 joined the f32 set with the
+    wide kernel: in f32 they pass that check."""
+    C, heads, dim_head, n = {"c256": (256, 4, 32, 12), "c384": (384, 4, 32, 12),
+                             "c1024": (1024, 4, 32, 12), "c2048": (2048, 4, 32, 12),
+                             "heads8x16": (512, 8, 16, 12), "n25": (512, 4, 32, 25),
+                             "n25_c1024": (1024, 4, 32, 25)}[case]
     tdt = DTYPES[dtype][1]
+    if dtype == "f32" and case in ("c256", "c1024"):
+        tat.check_kernel_shapes(n, C, heads, dim_head, tdt)
+        return
     with pytest.raises(ValueError):
         tat.check_kernel_shapes(n, C, heads, dim_head, tdt)
     hd = heads * dim_head
@@ -300,8 +369,25 @@ def test_cuda_kernel_f32_at_large_batches_and_refusals(batch):
     want = tat.fused_set_attention_reference(*args, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
-    for bad in ((x[:, :, :256].contiguous(), t["g"][:256], t["w_qkv"][:256],
-                 t["w_out"][:, :256], t["b_out"][:256]),
+    for bad in ((x[:, :, :384].contiguous(), t["g"][:384], t["w_qkv"][:384],
+                 t["w_out"][:, :384], t["b_out"][:384]),
                 (torch.cat([x[:, :12], x[:, :13]], dim=1), *args[1:])):
         with pytest.raises(ValueError):
             tat.fused_set_attention(*bad, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [256, 1024])
+@pytest.mark.parametrize("n", [12, 24])
+def test_cuda_wide_kernel_matches_plain_version(n, c):
+    """The wide f32 kernel against its plain version on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
+    d = _case(seed=8, n=n, c=c)
+    t = {k: torch.from_numpy(v).cuda() for k, v in d.items()}
+    args = (t["x"], t["g"], t["w_qkv"], t["w_out"], t["b_out"])
+    kw = dict(eps=1e-5, compute_dtype=torch.float32)
+    got = tat.fused_set_attention(*args, **kw)
+    want = tat.fused_set_attention_reference(*args, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)

@@ -48,17 +48,17 @@ def _case(B, N, c_in, seed=0, c=C):
 _WEIGHTS = ("w1", "b1", "gn1_scale", "gn1_bias", "w2", "b2", "gn2_scale", "gn2_bias")
 
 
-def _run_jax(d, N, dtype):
+def _run_jax(d, N, dtype, groups=GROUPS):
     jdt = DTYPES[dtype][0]
     kw = {k: jnp.asarray(d[k]) for k in _WEIGHTS}
     if "w_res" in d:
         kw.update(w_res=jnp.asarray(d["w_res"]), b_res=jnp.asarray(d["b_res"]))
     out = jrb.fused_resnet_block(jnp.asarray(d["x"]).astype(jdt), jnp.asarray(d["film"]),
-                                 n_per_scene=N, groups=GROUPS, compute_dtype=jdt, **kw)
+                                 n_per_scene=N, groups=groups, compute_dtype=jdt, **kw)
     return np.asarray(out.astype(jnp.float32))
 
 
-def _run_torch(d, N, dtype, film=None, skip_split=None):
+def _run_torch(d, N, dtype, film=None, skip_split=None, groups=GROUPS):
     """The port on CPU tensors; ``film`` replaces d["film"]; ``skip_split``
     passes x as two tensors, x[:, :k] and the skip x[:, k:]."""
     tdt = DTYPES[dtype][1]
@@ -70,9 +70,9 @@ def _run_torch(d, N, dtype, film=None, skip_split=None):
     if skip_split is not None:
         x, skip = x[:, :skip_split].contiguous(), x[:, skip_split:].contiguous()
     film = torch.from_numpy(d["film"]) if film is None else film
-    out = trb.fused_resnet_block(x, film, n_per_scene=N, groups=GROUPS, compute_dtype=tdt,
+    out = trb.fused_resnet_block(x, film, n_per_scene=N, groups=groups, compute_dtype=tdt,
                                  skip=skip, **kw)
-    assert out.dtype == tdt and out.shape == (d["x"].shape[0], C)
+    assert out.dtype == tdt and out.shape == (d["x"].shape[0], d["w1"].shape[1])
     return out.float().numpy()
 
 
@@ -84,6 +84,31 @@ def test_block_matches_jax_pallas(N, c_in, dtype):
     its residual projection."""
     d = _case(2, N, c_in, seed=N + c_in)
     np.testing.assert_allclose(_run_torch(d, N, dtype), _run_jax(d, N, dtype), **TOL[dtype])
+
+
+# (C, groups, x width, skip width): the f32 kernels' set at its edges,
+# groups of 32, 128, 32 and 128 channels, inputs up to 2048 wide
+SET_CASES = {"c256_g8": (256, 8, 256, 0), "c512_g4": (512, 4, 512, 512),
+             "c512_g16": (512, 16, 512, 0), "c1024_g8": (1024, 8, 1024, 1024)}
+
+
+@pytest.mark.parametrize("N", [12, 21])
+@pytest.mark.parametrize("case", list(SET_CASES))
+def test_block_matches_jax_pallas_at_the_set_widths(case, N):
+    """The plain f32 B1, which the card's kernels are held to, against the
+    JAX Pallas B1 (interpret mode) at the widths and groupings the f32
+    kernels take beyond C=512 in 8 groups: per-scene film on skip inputs
+    through the projection, per-row film on an identity residual."""
+    c, groups, kx, ks = SET_CASES[case]
+    d = _case(3, N, kx + ks, seed=c + groups, c=c)
+    if ks:
+        scene_film = d["film"][::N].copy()
+        d["film"] = np.repeat(scene_film, N, axis=0)
+        got = _run_torch(d, N, "f32", film=torch.from_numpy(scene_film), skip_split=kx,
+                         groups=groups)
+    else:
+        got = _run_torch(d, N, "f32", groups=groups)
+    np.testing.assert_allclose(got, _run_jax(d, N, "f32", groups=groups), **TOL["f32"])
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])
@@ -268,8 +293,30 @@ def test_tf32_tile_packing_matches_index_formula(name, K, kx):
     assert (k[:, : kx // 32] < kx).all() and (k[:, kx // 32:] >= kx).all()
     # every element once: hi + lo is W to within 2^-22
     assert np.allclose(packed[:, :, 0] + packed[:, :, 1], w.numpy()[k, col], rtol=2.0 ** -22, atol=0)
-    with pytest.raises(ValueError):   # neither 64-deep tiles nor 512 columns
-        trb.pack_tf32_tiles(w[:, :256])
+    with pytest.raises(ValueError):   # neither 64-deep tiles nor a width of the set
+        trb.pack_tf32_tiles(w[:, :384])
+    with pytest.raises(ValueError):
+        trb.pack_tf32_tiles(w[:-32])
+
+
+@pytest.mark.parametrize("C,K,kx", [(256, 2048, 256), (1024, 2048, 1024), (1024, 1536, 1024)])
+def test_tf32_tile_packing_at_the_set_widths(C, K, kx):
+    """The same index formula at the f32 set's other widths and its widest
+    inputs: chunk (g, st) of the 64 columns [64 g, 64 g + 64) (a CTA's, or
+    one warpgroup's of it, in the wide kernel), with the skip rows after
+    the x rows of every chunk column."""
+    rng = np.random.default_rng(C + K)
+    w = torch.from_numpy(rng.normal(size=(K, C)).astype(np.float32))
+    parts = [t.numpy() for t in trb.tf32_split(w)]
+    packed = trb.pack_tf32_tiles(w).reshape(C // 64, K // 32, 2, 2048).numpy()
+    g, st, p = np.meshgrid(np.arange(C // 64), np.arange(K // 32), np.arange(2048), indexing="ij")
+    kappa = 4 * (p // 256) + p % 4
+    k = 32 * st + 8 * (kappa % 4) + 2 * (kappa // 8) + (kappa // 4) % 2
+    col = 64 * g + 8 * ((p // 32) % 8) + (p // 4) % 8
+    for part in (0, 1):
+        assert np.array_equal(packed[:, :, part], parts[part][k, col])
+    assert (k[:, : kx // 32] < kx).all() and (k[:, kx // 32:] >= kx).all()
+    assert np.unique(k * C + col).size == K * C   # every element once
 
 
 def test_tf32_split_rounds_to_nearest_away_and_leaves_2e_22():
@@ -339,32 +386,110 @@ def test_f32_tile_plan_at_flagship_shapes(case):
     assert plan.smem_bytes <= trb.SMEM_LIMIT
 
 
-@pytest.mark.parametrize("case", ["c64", "groups16", "cx_not_64", "cin_not_128", "rows65",
-                                  "f32_rows65", "f32_c64", "f32_groups16", "f32_cx_not_64"])
+@pytest.mark.parametrize("C", trb.F32_CHANNELS)
+def test_f32_plans_of_the_set_fit(C):
+    """Every plan of the f32 set: C=512 in 8 groups (with a projection, or
+    an identity residual over x) on resblock_tf32, every other (C, groups)
+    and an identity residual over [x | skip] on the wide kernel, whose
+    cluster is C / 64 / warpgroups CTAs (4 or 8); one CTA's shared memory
+    within the H100's 232,448 bytes at every width (the library checks the
+    same sums against the .cu when it loads)."""
+    for groups in trb.F32_GROUPS:
+        if C // groups < trb.F32_MIN_GROUP:
+            assert not trb.f32_takes(C, groups, C)
+            continue
+        for kx, ks in ((C, 0), (C // 2, C // 2), (C, 2048 - C), (64, 0)):
+            res = kx + ks != C
+            assert trb.f32_takes(C, groups, kx, ks, 12)
+            plan = trb.tile_plan(64, 12, kx, ks, torch.float32, C, groups, res)
+            kernel = trb.f32_kernel(C, groups, ks, res)
+            if kernel == "resblock_tf32":
+                assert (C, groups) == (512, 8) and (res or not ks)
+                assert tuple(plan) == (5, 13, 104, 5, 224272)
+            else:
+                wg = trb.wide_warpgroups(C)
+                assert wg == (2 if C == 1024 else 1)
+                assert tuple(plan) == (5, 13, 13 * C // 64 // wg, trb.WIDE_STAGES,
+                                       75584 if wg == 1 else 151104)
+            assert plan.smem_bytes <= trb.SMEM_LIMIT
+    assert not trb.f32_takes(C, 8, C, 2112 - C) and not trb.f32_takes(C, 8, C, 0, 65)
+
+
+# Unet1D widths and the compute dtype -> whether the card's 3-D engine
+# takes the model (models/inference.py:check_card_widths)
+CARD_MODELS = {"f32_wide": (dict(dim_mults=(1, 1, 2, 2)), torch.float32, True),
+               "f32_groups16": (dict(resnet_block_groups=16), torch.float32, True),
+               "bf16_wide": (dict(dim_mults=(1, 1, 2, 2)), torch.bfloat16, False),
+               "f32_dim64": (dict(dim=64), torch.float32, False)}
+
+
+@pytest.mark.parametrize("case", list(CARD_MODELS))
+def test_card_width_check_is_per_dtype(case):
+    """The 3-D engine's check on the card, per dtype: an f32 model inside
+    the f32 kernels' set passes (the [1, 1, 2, 2] flagship's 28 blocks and
+    mid_attn at C=1024; the flagship in 16 groups); a bf16 model wider than
+    C=512 in 8 groups, or any model outside the set, raises the ValueError
+    naming fused=False.  The [1, 1, 2, 2] flagship's blocks are the 28 of
+    the JAX Unet1D: 10 at C=512 over 512 inputs, 7 at C=512 over 1024
+    (projections), 8 at C=1024 over at most 1024, 3 at C=1024 over wider
+    skip inputs."""
+    from diffuscene_tpu_torch.models import Unet1D
+    from diffuscene_tpu_torch.models.inference import block_shapes, check_card_widths
+
+    kw, dt, taken = CARD_MODELS[case]
+    net = Unet1D(**{"dim": 512, "channels": 62, "objfeat_dim": 32, **kw}, compute_dtype=dt,
+                 device="meta")
+    if taken:
+        check_card_widths(net)
+    else:
+        with pytest.raises(ValueError, match="fused=False"):
+            check_card_widths(net)
+    if kw.get("dim_mults") == (1, 1, 2, 2):
+        shapes = block_shapes(net)
+        kinds = {"512 over 512": sum(s == (512, 512, 0) for s in shapes),
+                 "512 over 1024": sum(c == 512 and x + k == 1024 for c, x, k in shapes),
+                 "1024 over <=1024": sum(c == 1024 and x + k <= 1024 for c, x, k in shapes),
+                 "1024 over wider": sum(c == 1024 and x + k > 1024 for c, x, k in shapes)}
+        assert kinds == {"512 over 512": 10, "512 over 1024": 7, "1024 over <=1024": 8,
+                         "1024 over wider": 3}
+
+
+# (C, x width, skip width, rows a scene, groups); f32_groups16 is in the
+# f32 set since the wide kernel, and each case that left the refused set
+# has one beside it that is still outside
+REFUSED = {"c64": (64, 64, 0, 12, 8), "groups16": (512, 512, 0, 12, 16),
+           "cx_not_64": (512, 528, 0, 12, 8), "cin_not_128": (512, 576, 0, 12, 8),
+           "rows65": (512, 512, 0, 65, 8), "c1024": (1024, 1024, 0, 12, 8),
+           "identity_skip": (512, 256, 256, 12, 8),
+           "f32_rows65": (512, 512, 0, 65, 8), "f32_c64": (64, 64, 0, 12, 8),
+           "f32_groups16": (512, 512, 0, 12, 16), "f32_cx_not_64": (512, 528, 0, 12, 8),
+           "f32_c384": (384, 384, 0, 12, 8), "f32_c256_groups32": (256, 256, 0, 12, 32),
+           "f32_cin2112": (1024, 1024, 1088, 12, 8)}
+TAKEN = {"f32_groups16"}
+
+
+@pytest.mark.parametrize("case", list(REFUSED))
 def test_kernel_path_refuses_shapes_it_does_not_take(case):
-    """No fallback: what the kernels do not take raises before any launch
-    (both: C=512 in 8 groups, input widths of multiples of 64 up to 1024,
-    scenes of at most 64 rows; bf16: widths summing to a multiple of
-    128)."""
-    C, c_in, n, groups = 512, 512, 12, 8
+    """No fallback: what the kernels do not take raises before any launch.
+    bf16: C=512 in 8 groups, input widths of multiples of 64 summing to a
+    multiple of 128 up to 1024, an identity residual over x alone, scenes
+    of at most 64 rows.  f32: C in (256, 512, 1024) in 4, 8, 16 or 32
+    groups of at least 16 channels, input widths of multiples of 64 up to
+    2048 together, scenes of at most 64 rows; a case of the set (TAKEN)
+    passes the shape check that the launch path runs."""
+    C, kx, ks, n, groups = REFUSED[case]
     dt = torch.float32 if case.startswith("f32_") else torch.bfloat16
-    shape = case.removeprefix("f32_")
-    if shape == "c64":
-        C, c_in = 64, 64
-    elif shape == "groups16":
-        groups = 16
-    elif shape == "cx_not_64":
-        c_in = 528
-    elif shape == "cin_not_128":
-        c_in = 576
-    elif shape == "rows65":
-        n = 65
-    x = torch.zeros(n, c_in, dtype=dt)
-    w1, w2 = torch.zeros(c_in, C), torch.zeros(C, C)
+    has_res = kx + ks != C
+    if case in TAKEN:
+        trb.check_kernel_shapes(C, groups, kx, ks, n, has_res, dt)
+        return
+    x = torch.zeros(n, kx, dtype=dt)
+    skip = torch.zeros(n, ks, dtype=dt) if ks else None
+    w1, w2 = torch.zeros(kx + ks, C), torch.zeros(C, C)
     v = torch.zeros(C)
-    w_res = None if c_in == C else torch.zeros(c_in, C)
+    w_res = torch.zeros(kx + ks, C) if has_res else None
     with pytest.raises(ValueError):
-        trb._launch_kernel(x, None, None, w1, v, v, v, w2, v, v, v, w_res, v, n, groups, 1e-6, dt)
+        trb._launch_kernel(x, skip, None, w1, v, v, v, w2, v, v, v, w_res, v, n, groups, 1e-6, dt)
 
 
 @pytest.mark.gpu
@@ -380,10 +505,15 @@ def test_cuda_library_agrees_with_the_plan(dtype):
     tdt = DTYPES[dtype][1]
     code = build.DTYPE_CODES[tdt]
     lib = trb.load_library()
-    for kx, ks in ((512, 0), (1024, 0), (512, 512)):
-        assert (lib.fused_resblock_smem_bytes(code, kx, ks)
-                == trb.tile_plan(64, 12, kx, ks, tdt).smem_bytes)
-        assert lib.fused_resblock_max_active_clusters(code, kx, ks, int(kx + ks != 512)) >= 1
+    shapes = [(512, 8, kx, ks) for kx, ks in ((512, 0), (1024, 0), (512, 512))]
+    if dtype == "f32":
+        shapes += [(C, g, C, ks) for C in trb.F32_CHANNELS for g in trb.F32_GROUPS
+                   for ks in (0, 2048 - C) if C // g >= trb.F32_MIN_GROUP]
+    for C, g, kx, ks in shapes:
+        res = int(kx + ks != C)
+        assert (lib.fused_resblock_smem_bytes(code, C, g, kx, ks, res)
+                == trb.tile_plan(64, 12, kx, ks, tdt, C, g).smem_bytes)
+        assert lib.fused_resblock_max_active_clusters(code, C, g, kx, ks, res) >= 1
 
 
 @pytest.mark.gpu
@@ -413,3 +543,27 @@ def test_cuda_kernel_matches_plain_version(c_in, film, dtype, N, B):
     torch.cuda.synchronize()
     tol = dict(atol=1e-3, rtol=1e-4) if dtype == "f32" else dict(atol=1e-1, rtol=5e-2)
     torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,groups", [(256, 8), (512, 4), (512, 16), (1024, 8)])
+def test_cuda_wide_kernel_matches_plain_version(C, groups):
+    """The wide f32 kernel against its plain version on the card, at a
+    ragged last tile: an identity residual over [x | skip] with per-row
+    film, and a 2048-wide skip input through the projection with
+    per-scene film."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
+    dev = torch.device("cuda")
+    for kx, ks, film, N in ((C // 2, C // 2, "row", 12), (C, 2048 - C, "scene", 21)):
+        d = _case(7, N, kx + ks, seed=C + groups + ks, c=C)
+        t = {k: torch.from_numpy(v).to(dev) for k, v in d.items()}
+        f = t["film"] if film == "row" else t["film"][::N].contiguous()
+        x, skip = t["x"][:, :kx].contiguous(), t["x"][:, kx:].contiguous()
+        kw = dict(w_res=t.get("w_res"), b_res=t.get("b_res"), n_per_scene=N, groups=groups,
+                  compute_dtype=torch.float32, skip=skip)
+        args = (x, f, *(t[k] for k in _WEIGHTS))
+        got = trb.fused_resnet_block(*args, **kw)
+        want = trb.fused_resnet_block_reference(*args, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)

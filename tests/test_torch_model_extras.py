@@ -107,6 +107,57 @@ def test_unet_forward_and_engines_match_flax(name, dtype):
     np.testing.assert_allclose(got_rows, want, atol=TOL[dtype], rtol=0)
 
 
+# the widths and groupings the card's f32 kernels took on in their
+# widening, at small size: the [1, 1, 2, 2] Unet1D at dim 64 (levels 64
+# and 128 wide), the [1, 1, 1, 1] one at dim 128 in 4 and in 16 groups
+WIDE = {"mults1122": dict(dim=64, dim_mults=(1, 1, 2, 2)),
+        "groups4": dict(dim=128, resnet_block_groups=4),
+        "groups16": dict(dim=128, resnet_block_groups=16)}
+
+
+@pytest.mark.parametrize("name", list(WIDE))
+def test_wide_models_match_the_jax_3d_engine(name):
+    """A scene model of WIDE's widths, weights from one seed carried from
+    the Flax tree by the port's utils/convert.py (load_jax_params): the
+    port's 3-D engine (on the CPU, the plain B1 and B2) against the JAX 3-D
+    engine, f32 atol 1e-4 (the same f32 math summed in another order), on
+    one forward at 4 timesteps; its 28 blocks at the shapes
+    inference.block_shapes gives; then a 5-step DDPM through
+    SceneDiffusion.sample(fused=True) on both, the JAX noise stream
+    replayed, atol 1e-4."""
+    from diffuscene_tpu.models import inference as jinf
+    from diffuscene_tpu_torch.models import inference as tinf
+    from test_torch_sampling import _random_params, _sample_matches_jax
+
+    scene, jscene, _ = _sample_matches_jax(5, True, 5, net=WIDE[name])
+    jparams = _random_params(jscene)["params"]["denoiser"]
+    net = scene.denoiser
+    rng = np.random.default_rng(21)
+    x = rng.normal(size=(4, 12, 62)).astype(np.float32)
+    t = np.array([0, 1, 3, 4], np.int32)
+    cond = rng.normal(size=(4, 12, 32)).astype(np.float32)
+    jnet = JUnet1D(**dict(scene.cfg.net_kwargs))
+    jprep = jinf.prepare_inference_params(jnet, jparams, num_timesteps=5)
+    want = np.asarray(jax.jit(lambda x, t, c: jinf.fused_unet1d_forward(
+        jnet, jprep, x, t, c, None, exact_gelu=True))(x, t, cond))
+    prep = prepare_inference_params(net, denoiser_tree(net), num_timesteps=5)
+    shapes = []
+    rb = tinf.fused_resnet_block
+
+    def recorded(h, film, w1, *a, skip=None, **k):
+        shapes.append((w1.shape[1], h.shape[1], 0 if skip is None else skip.shape[1]))
+        return rb(h, film, w1, *a, skip=skip, **k)
+
+    tinf.fused_resnet_block = recorded
+    try:
+        got = fused_unet1d_forward(net, prep, torch.from_numpy(x), torch.from_numpy(t).long(),
+                                   torch.from_numpy(cond), exact_gelu=True).numpy()
+    finally:
+        tinf.fused_resnet_block = rb
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    assert shapes == tinf.block_shapes(net)
+
+
 def _scene_cfgs(net_extra, time_num=50):
     nk = {**BASE, "dim_mults": (1,), "seperate_all": True, **net_extra}
     kw = dict(point_dim=62, class_dim=22, angle_dim=2, objectness_dim=0, objfeat_dim=32,

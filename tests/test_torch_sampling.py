@@ -70,10 +70,12 @@ def test_p_mean_variance_matches_jax(mean_type, var_type, clip):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5)
 
 
-def _cfgs(time_num=5):
-    nk = dict(dim=64, dim_mults=(1, 1, 1, 1), channels=62, objectness_dim=0, class_dim=22,
-              angle_dim=2, objfeat_dim=32, context_dim=0, instanclass_dim=32,
-              seperate_all=True)
+def _cfgs(time_num=5, **net):
+    """The JAX and port scene configs at small size; ``net`` overrides the
+    network's keyword arguments."""
+    nk = {**dict(dim=64, dim_mults=(1, 1, 1, 1), channels=62, objectness_dim=0, class_dim=22,
+                 angle_dim=2, objfeat_dim=32, context_dim=0, instanclass_dim=32,
+                 seperate_all=True), **net}
     kw = dict(point_dim=62, class_dim=22, angle_dim=2, objectness_dim=0, objfeat_dim=32,
               sample_num_points=12, room_mask_condition=False, instance_condition=True,
               learnable_embedding=True, instance_emb_dim=32, model_mean_type="v",
@@ -115,8 +117,8 @@ def _jax_noise(key, shape, n_draws):
     return noises
 
 
-def _sample_matches_jax(time_num, fused, n_draws, **kwargs):
-    jcfg, cfg = _cfgs(time_num=time_num)
+def _sample_matches_jax(time_num, fused, n_draws, net=None, **kwargs):
+    jcfg, cfg = _cfgs(time_num=time_num, **(net or {}))
     jscene = JSceneDiffusion(jcfg)
     params = _random_params(jscene)
     B, shape = 4, (4, 12, 62)
