@@ -82,15 +82,13 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    the 3-D engine, a 1000-step DDPM sample of 64 scenes (exactly 28,000 B1
    and 1,000 B2 launches) with a 20-step profile against its step time, a
    20-step DPM-Solver++ sample at run/generate.sh's batch of 256 (exactly
-   560 and 20), and a 20-step profile of a B=256 step against its
-   host-clock time; each profile names the f32 kernels (resblock_tf32,
-   attention_tf32) and gives their ms per step, busy time and idle share;
-   then DDPM-1000 at B=16 from one seeded generator: at every other step
-   of the fused=True trajectory both engines (exact GELU) within
-   FORWARD_TOL of the module on that step's x_t (a breach fails and names
-   the step), and
-   the two engines run free, their descaled boxes' relative L2 and max
-   difference and their class argmax agreement printed;
+   560 and 20); each profile names the f32 kernels (resblock_tf32,
+   attention_tf32) and gives their ms per step, busy time and idle share
+   (``--only-f32-engine`` also profiles a B=256 step against its
+   host-clock time); then DDPM-1000 at B=16 from one seeded generator: at
+   every other step of the fused=True trajectory both engines (exact GELU)
+   within FORWARD_TOL of the module on that step's x_t (a breach fails and
+   names the step);
 12. the scene model's training path at the flagship's full width (the
    diffusion_bedrooms_instancond_lat32_v config: dim 512, 4 levels, N=12,
    v-prediction, loss_separate, loss_iou on the train bounds, clip + Adam,
@@ -129,8 +127,9 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    gradient), then 10 steps at its B=128 (median ms/step, peak memory); (d)
    cli/train_diffusion.py on each config for 2 epochs, then
    cli/completion_rearrange.py --arrange_objects and --num_partial 3, each
-   --fused --compute_intersec on one batch of 32: exactly 28,000 and 1,000
-   launches, 32 box files, a finite metrics.json;
+   --fused --compute_intersec on one batch of 32, the configs' schedules
+   cut to TASK_CLI_STEPS (100) steps: exactly 28 B1 and 1 B2 launches a
+   step, 32 box files, a finite metrics.json;
 17. text-conditioned generation in f32 at full width on the bedroom text
    config (dim 512, 9 linear cross-attention blocks over 50 tokens of 768
    through fc_text_f to 512), random weights from the seed, the tokens from
@@ -243,35 +242,45 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    peak memory, beside phase 13's; then
    cli/train_diffusion.py --mixed_precision under torchrun (one process)
    for PAR_CLI_EPOCHS epochs of the flagship config on synthetic rooms;
-22. the f32 B1 and B2 kernels at the widths and GroupNorm groupings the JAX
-   engine serves (f32 only; bf16 and B4 keep C=512 in 8 groups): (a) B1 at
-   every (C, groups) of its set (C = 256, 512, 1024 in 4, 8, 16, 32 groups
-   of at least 16 channels) with film rows, per scene and none, identity
-   residuals over x and over [x | skip] and projections, inputs up to 2048
-   wide, B in (7, 256), N in (12, 21); B2 at C = 256, 512, 1024, N in (12,
-   21, 24), B in (7, 64, 256); each against its plain version within
-   KERNEL_TOL, with its launch plan, the wide kernels' ptxas report, and
-   the times (eager, graph replay, device, plain, bound) of the 28 blocks
-   of the wide flagship's (dim_mults [1, 1, 2, 2]) and the 4-, 8- and
-   16-group flagships' forwards and of B2 at (64, 12, C); (b) the wide
-   flagship's DDPM-1000 at B=64, f32, fused=True: exactly 28,000 B1, 1,000
-   B2 and no B4, the engine within FORWARD_TOL of the module every 50th
-   call, a 20-step profile with B1 split into its C=512 and C=1024 blocks;
-   (c) the flagship in 4 and in 16 groups, DPM-Solver++-20 at B=64 through
-   fused=True: 560 B1 and 20 B2, held every WIDE_DPM_EVERY calls;
-   fused="rows" on the 16-group model raising B4's error with nothing
-   launched; (d) the wide flagship in bf16 raising the width error naming
-   fused=False with nothing launched, and cli/generate_diffusion.py --fused
-   on the wide config at B=64 (exactly 28,000 B1 and 1,000 B2); (e) this
-   run's C=512 8-group figures (the flagship's 28 blocks and B2, graph
-   replay) beside PERF.md's.
+22. the B1 and B2 kernels at the widths and GroupNorm groupings the JAX
+   engine serves, one set for both dtypes (B4 keeps C=512 in 8 groups):
+   (a) B1 in f32 and in bf16 at every (C, groups) of the set (C = 256,
+   512, 1024 in 4, 8, 16, 32 groups of at least 16 channels) with film
+   rows, per scene and none, identity residuals over x and over [x | skip]
+   and projections, inputs up to 2048 wide, B in (7, 256), N in (12, 21);
+   B2 in both dtypes at C = 256, 512, 1024, N in (12, 21, 24), B in (7,
+   64, 256); each against its plain version within KERNEL_TOL, with its
+   launch plan, the wide kernels' ptxas report, and the times (eager,
+   graph replay, device, plain, bound) of the 28 blocks of the wide
+   flagship's (dim_mults [1, 1, 2, 2]) and the 4-, 8- and 16-group
+   flagships' forwards and of B2 at (64, 12, C), in each dtype; (b) the
+   wide model at B=64 through fused=True: in bf16 (the b512 recipe's
+   network) DDPM-1000, exactly 28,000 B1, 1,000 B2 and no B4 (17,000 on
+   resblock_sm90 and 11,000 on resblock_bf16_wide, 1,000 on
+   attention_bf16_wide), the engine within FORWARD_TOL of the module every
+   50th call; in f32 (the flagship's network) DPM-Solver++-20, 560 B1, 20
+   B2, no B4, held every WIDE_DPM_EVERY calls; each with a 20-step profile
+   with B1 split by kernel; (c) the
+   flagship and the b512 recipe's network in 4 and in 16 groups,
+   DPM-Solver++-20 at B=64 through fused=True: 560 B1 and 20 B2, held
+   every WIDE_DPM_EVERY calls; fused="rows" on the 16-group models raising
+   B4's error with nothing launched, and on the bf16 wide model falling
+   back to the 3-D engine (560 B1, 20 B2, no B4); (d) a dim 64 model in
+   each dtype raising the width error naming fused=False with nothing
+   launched, and cli/generate_diffusion.py --fused --dpm on the wide
+   flagship config and on the wide b512 config at B=64 (exactly 560 B1 and
+   20 B2 each); (e) this run's C=512 8-group figures in each dtype (the
+   flagship's 28 blocks and B2, graph replay) beside PERF.md's, and each
+   dtype's wide B2 at C=512 (uncounted) beside its C=512 kernel.  The
+   phase prints its own time.
 
 The phases run in the order 1, 2, 7, 8, 3 with 9 (one set of full-width
 models), 4, 10, 11, 15, 22, 5, 6, 12, 13, 14, 21, 16, 17, 18, 19, 20.  TF32 is off for every matmul and
 convolution (the references are f32; the f32 B1 kernel's split TF32 is
 three tf32 products per f32 product, not TF32 matmul).
 Phase 1 prints each kernel's registers, stack and spills from ptxas, and
-raises if a split-TF32 kernel (f32 B1, B4 or B2) spills.
+raises if a split-TF32 kernel (f32 B1, B4 or B2) or a bf16 wide kernel
+spills.
 
     python3 chip_smoke.py --only-resblock
 
@@ -296,9 +305,10 @@ prints an ok line.
 The line before the last is the card's name and power limit again, the one
 before it a JSON summary of the kernels, the one before that a JSON
 summary of phase 22 ("wide": each kernel case's error, the forwards' and
-B2's times, the C=512 8-group figures, each wide sample's wall time,
-launches, worst engine gap, busy time, idle share and kernel ms per step,
-the refusals, the generate CLI's run), the one before that a JSON
+B2's times in each dtype, the C=512 8-group figures, each wide sample's
+wall time, launches (also by kernel), worst engine gap, busy time, idle
+share and kernel ms per step, the refusals, the generate CLIs' runs), the
+one before that a JSON
 summary of phase 21 ("parallel": the one-rank NCCL checks, each two-rank
 path's agreement and launches a rank, the NCCL refusal, each b512 step's
 ms/step and peak memory), the one before that a JSON
@@ -338,7 +348,10 @@ carries its launches in phase 19 ("data_launches"), in phase 20
 ResnetBlock and set-attention entries their phase 22 samples' launches
 ("wide_launches"), worst error and the wide flagship's 28 blocks' and
 B2's (C=1024) times ("wide_ms", "wide_graph_ms", "wide_plain_ms",
-"wide_bound_ms").  The
+"wide_bound_ms"), f32; the bf16 wide kernels, resblock_bf16_wide and
+attention_bf16_wide, have entries of their own, their launches on the
+bf16 wide flagship's DDPM-1000 (by kernel) and their times in the wide
+flagship's forward (the 11 C=1024 blocks, B2 at (64, 12, 1024)).  The
 last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -400,9 +413,10 @@ CHAIN_LARGE_B_CASES = ("row_scene", "row_skip")
 CHAIN_LARGE_BATCHES = {"bfloat16": (RB_LARGE_B,), "float32": (GENERATE_B, RB_LARGE_B)}
 # the rows engine's chain kernel as the profiler names it, by compute dtype
 ROWS_KERNELS = {"bfloat16": (("B4", "chain_sm90"),), "float32": (("B4 f32", "chain_tf32"),)}
-# the split-TF32 kernels keep their A fragments in registers: ptxas must
-# report no spills for them
-NO_SPILL_KERNELS = ("resblock_tf32", "chain_tf32", "attention_tf32")
+# the split-TF32 kernels and the bf16 wide kernels keep their A fragments
+# in registers: ptxas must report no spills for them
+NO_SPILL_KERNELS = ("resblock_tf32", "chain_tf32", "attention_tf32", "resblock_bf16_wide",
+                    "attention_bf16_wide")
 # the 3-D engine's kernels as the profiler names them, by compute dtype
 ENGINE_KERNELS = {"bfloat16": (("B1", "resblock_sm90"), ("B2", "attention_sm90")),
                   "float32": (("B1 f32", "resblock_tf32"), ("B2 f32", "attention_tf32"))}
@@ -412,15 +426,13 @@ ENGINE_KERNELS = {"bfloat16": (("B1", "resblock_sm90"), ("B2", "attention_sm90")
 ATTN_LARGE_CASES = (("bfloat16", 1e-3, ATTN_LARGE_B),
                     ("float32", 1e-5, GENERATE_B), ("float32", 1e-5, ATTN_LARGE_B))
 SAMPLE_PROFILE_STEPS = 20
-# phase 15's 1000-step f32 drift check: batch, the box bounds bench.py gives
-# the flagship (bench.py:274-279: a bedroom's translations and half-sizes
-# in metres) to descale the samples, and ROADMAP section C's bound on the
-# free-running drift between two paths (printed beside it, not gated)
+# phase 15's 1000-step f32 drift check: batch, the gated steps; the box
+# bounds bench.py gives the flagship (bench.py:274-279: a bedroom's
+# translations and half-sizes in metres), phase 21's IoU-loss bounds
 DRIFT_B = 16
 DRIFT_EVERY = 2    # the gated steps: every other one
 DRIFT_BOUNDS = {"translations": ((-3.0, 0.0, -3.0), (3.0, 4.0, 3.0)),
                 "sizes": ((0.04,) * 3, (2.0,) * 3)}
-DRIFT_BOUND = {"rel_l2": 1e-2, "agree": 0.99}
 # chamfer cases (B, N, M, D); "identical" compares a cloud with itself;
 # "dup" copies 8 y points of each slice of the kernel's M sweep into the
 # next slice and puts x points on them: exact ties that span two slices,
@@ -473,6 +485,10 @@ REARRANGE_CONFIG = "configs/rearrange/diffusion_bedrooms_instancond_lat32_v_rear
 TASK_B, TASK_PARTIAL, TASK_NOISE, TASK_CHECK_EVERY = 32, 3, 0.5, 50
 TASK_DATA, TASK_OUT = "build/smoke_tasks_data", "build/smoke_tasks"
 TASK_TRAIN_STEPS, TASK_CLI_EPOCHS = 10, 2
+# the schedule of the two task CLIs' configs (completion_rearrange has no
+# --dpm, as the JAX CLI has none): cut from the configs' 1000 for the
+# script's time; the task samples of (a) and (b) keep DDPM-1000
+TASK_CLI_STEPS = 100
 # phase 17, text-conditioned generation on the bedroom text config (768-wide
 # hashed token embeddings of eval scenes' textfix descriptions, through
 # fc_text_f to 512): DDPM-1000 through the 3-D engine at
@@ -596,32 +612,46 @@ PAR_DIR = "build/smoke_parallel"
 PAR_STEP_TOL = {"loss": 1e-5, "max_lr": 2.05, "loose_lr": 1e-2, "loose_share": 1e-3}
 PAR_AE_TOL = {"loss": 1e-4, "gradnorm": 5e-4}
 PAR_MP_TOL = {"loss": 2e-2, "max_lr": 2.05, "loose_lr": 0.5, "loose_share": 0.02}
-# phase 22, the f32 B1 and B2 kernels at the widths and GroupNorm
-# groupings the JAX engine serves: B1 at every (C, groups) of its set and
-# B2 at every C of its set against their plain versions; the flagship with
-# dim_mults [1, 1, 2, 2] (the wide flagship: 17 blocks at C=512 on
-# resblock_tf32, 11 at C=1024 and mid_attn on the wide kernels),
-# DDPM-1000 at B=64 through fused=True, held to the module every
-# TASK_CHECK_EVERY calls; the flagship with 4 and with 16 groups (every
-# block on resblock_tf32_wide), DPM-Solver++-20 at B=64, held every
-# WIDE_DPM_EVERY calls; what stays narrow (bf16, B4) raising with nothing
-# launched; generate_diffusion --fused on the wide config; the C=512
-# 8-group figures beside PERF.md's
+# phase 22, the B1 and B2 kernels at the widths and GroupNorm groupings
+# the JAX engine serves, one set for both dtypes: B1 at every (C, groups)
+# of the set and B2 at every C of it against their plain versions, in f32
+# and bf16; the flagship with dim_mults [1, 1, 2, 2] (the wide flagship: 17
+# blocks at C=512 on the cluster-of-8 kernel, 11 at C=1024 and mid_attn on
+# the wide kernels) through fused=True at B=64, in bf16 (the b512 recipe's
+# network) DDPM-1000 held to the module every TASK_CHECK_EVERY calls, in
+# f32 (the flagship config) DPM-Solver++-20; both in 4 and in 16 groups (every
+# block on the wide kernel), DPM-Solver++-20 at B=64, held every
+# WIDE_DPM_EVERY calls; what stays narrow (B4) raising with nothing
+# launched, and a model outside the set (dim 64) in each dtype;
+# generate_diffusion --fused --dpm on the wide configs; the C=512 8-group
+# figures beside PERF.md's
 WIDE_B1_SET = tuple((c, g) for c in (256, 512, 1024) for g in (4, 8, 16, 32) if c // g >= 16)
 WIDE_B2_C = (256, 512, 1024)
 WIDE_MULTS = (1, 1, 2, 2)
 WIDE_GROUPINGS = (4, 16)
 WIDE_DPM_EVERY = 5
 WIDE_DATA, WIDE_OUT, WIDE_SCENES = "build/smoke_wide_data", "build/smoke_wide", 640
-# the wide flagship's step profile: B1 split by kernel (its C=512 and
-# C=1024 blocks), and B2
-WIDE_KERNELS = (("B1 C=512 (resblock_tf32)", "resblock_tf32<"),
-                ("B1 C=1024 (resblock_tf32_wide)", "resblock_tf32_wide"),
-                ("B2 C=1024 (attention_tf32_wide)", "attention_tf32_wide"))
-# PERF.md section 6's figures of the C=512, 8-group f32 kernels at B=64,
-# N=12, graph replay (NVIDIA H100 80GB HBM3, 700.00 W): the flagship's 28
-# blocks, B2
-WIDE_EARLIER_MS = {"b1_28": 0.855, "b2": 0.0228}
+# each dtype's network config: the flagship's (f32) and the b512 recipe's
+WIDE_CONFIG = {"float32": FLAGSHIP_CONFIG, "bfloat16": B512_CONFIG}
+# the wide flagship's step profile, by dtype: B1 split by kernel (its C=512
+# and C=1024 blocks), and B2
+WIDE_KERNELS = {"float32": (("B1 C=512 (resblock_tf32)", "resblock_tf32<"),
+                            ("B1 C=1024 (resblock_tf32_wide)", "resblock_tf32_wide"),
+                            ("B2 C=1024 (attention_tf32_wide)", "attention_tf32_wide")),
+                "bfloat16": (("B1 C=512 (resblock_sm90)", "resblock_sm90"),
+                             ("B1 C=1024 (resblock_bf16_wide)", "resblock_bf16_wide"),
+                             ("B2 C=1024 (attention_bf16_wide)", "attention_bf16_wide"))}
+# the 4- and 16-group models' step profile, by dtype: every B1 on the wide
+# kernel, B2 on the C=512 kernel
+WIDE_GROUP_KERNELS = {"float32": (("B1 (resblock_tf32_wide)", "resblock_tf32_wide"),
+                                  ("B2 (attention_tf32)", "attention_tf32")),
+                      "bfloat16": (("B1 (resblock_bf16_wide)", "resblock_bf16_wide"),
+                                   ("B2 (attention_sm90)", "attention_sm90"))}
+# PERF.md section 6's figures of the C=512, 8-group kernels at B=64, N=12,
+# graph replay (NVIDIA H100 80GB HBM3, 700.00 W): the flagship's 28 blocks,
+# B2; f32 PR 18, bf16 PR 5-7
+WIDE_EARLIER_MS = {"float32": {"b1_28": 0.855, "b2": 0.0228},
+                   "bfloat16": {"b1_28": 0.365, "b2": 0.0120}}
 # the short checks: phase 1 and one kernel's phase, no ok line
 ONLY = ("--only-resblock", "--only-chain", "--only-attention", "--only-chamfer", "--only-train",
         "--only-f32-engine", "--only-tasks", "--only-text", "--only-eval", "--only-data",
@@ -1265,11 +1295,10 @@ def phase_attention(at, torch):
               f"bound_ms={b_ms:.5f}{route} ({b_by}; {nbytes / 1e6:.2f} MB)", flush=True)
         if not ok:
             failures.append((n, dname, eps, batch, err))
-    # the kernels take 4 heads of 32, N <= 24 and C=512 (bf16) or C in
-    # (256, 512, 1024) (f32) only: anything else raises
+    # the kernels take 4 heads of 32, N <= 24 and C in (256, 512, 1024)
+    # only, in either dtype: anything else raises
     for dtype in (torch.bfloat16, torch.float32):
-        c_out = 256 if dtype == torch.bfloat16 else 384
-        for c, heads, dim_head, n in ((c_out, 4, 32, 12), (512, 8, 16, 12), (512, 4, 32, 25)):
+        for c, heads, dim_head, n in ((384, 4, 32, 12), (512, 8, 16, 12), (512, 4, 32, 25)):
             hd2 = heads * dim_head
             bad = (rnd(2, n, c).to(dtype), rnd(c), rnd(c, 3 * hd2).to(dtype),
                    rnd(hd2, c).to(dtype), rnd(c))
@@ -1441,27 +1470,21 @@ def phase_drift(torch, scene):
     one seeded generator.  The gate: along the fused=True trajectory, at
     every DRIFT_EVERY-th of the T steps (every step until the script's
     time limit called for the cut), x_t goes through the 3-D engine (B1
-    and B2 f32),
-    the rows engine (B4 f32) and the module; each engine's output must be
-    within FORWARD_TOL f32 of the module's (the maxima stay on the card and
-    are read once; a breach names the step).  The gated engine calls take
-    the module's exact GELU, as phase 9's do (the sampler's engines default
-    to the tanh form, about 1e-3 of its own).  The measurement: the two
-    engines also run free, each on its own trajectory from the same
-    generator; the relative L2 and the max abs difference of their descaled
-    boxes and the share of slots whose class argmax agrees are printed
-    beside DRIFT_BOUND and not gated (random weights may amplify split
-    TF32's per-forward differences over 1000 steps without a fault).  The
-    module's own free run (38-50 s) is left out for the script's time."""
+    and B2 f32), the rows engine (B4 f32) and the module; each engine's
+    output must be within FORWARD_TOL f32 of the module's (the maxima stay
+    on the card and are read once; a breach names the step).  The gated
+    engine calls take the module's exact GELU, as phase 9's do (the
+    sampler's engines default to the tanh form, about 1e-3 of its own).
+    The free runs of the engines and the module beside it (the drift
+    measurement, not gated) are left out for the script's time."""
     from diffuscene_tpu_torch.diffusion import p_sample_loop
-    from diffuscene_tpu_torch.diffusion.gaussian import descale_to_origin
     from diffuscene_tpu_torch.models import inference as inf
     from diffuscene_tpu_torch.utils.convert import denoiser_tree
 
     cfg, tol, net = scene.cfg, FORWARD_TOL["float32"], scene.denoiser
     cond, _ = scene.make_condition(DRIFT_B)
     paths = {name: scene._denoise_fn(cond, fused=f)
-             for name, f in (("3-D", True), ("rows", "rows"), ("module", False))}
+             for name, f in (("3-D", True), ("module", False))}
     prep = inf.prepare_inference_params(net, denoiser_tree(net), num_timesteps=T)
     ctx = inf.precompute_conditioning(net, prep, cond)
     chains = inf.prepare_chain_params(net, prep, frozenset(ctx["film_c"]))
@@ -1482,56 +1505,27 @@ def phase_drift(torch, scene):
         step += 1
         return paths["3-D"](x, t)
 
-    def sample(fn):
-        gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
-        t0 = time.perf_counter()
-        out = p_sample_loop(scene.sched, cfg.model_mean_type, cfg.model_var_type, fn,
-                            (DRIFT_B, cfg.sample_num_points, cfg.point_dim), generator=gen,
-                            clip_denoised=True)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t0
-
-    free, walls = {}, {}
-    free["3-D"], walls["gated"] = sample(gated)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    t0 = time.perf_counter()
+    out = p_sample_loop(scene.sched, cfg.model_mean_type, cfg.model_var_type, gated,
+                        (DRIFT_B, cfg.sample_num_points, cfg.point_dim), generator=gen,
+                        clip_denoised=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if not bool(torch.isfinite(out).all()) or tuple(out.shape) != (DRIFT_B, 12, 62):
+        raise RuntimeError("the gated f32 sample is malformed")
     worst = errs.cpu()
     for k, name in enumerate(("3-D", "rows")):
         bad = (~(worst[:, k] <= tol)).nonzero()
         print(f"drift: f32 DDPM-{T} B={DRIFT_B}, {name} engine vs module along the fused=True "
               f"trajectory: worst max_abs_err {worst[:, k].max().item():.3e} at t="
               f"{T - 1 - int(worst[:, k].argmax())}, tol={tol} at every {DRIFT_EVERY}nd step "
-              f"{'ok' if not len(bad) else 'FAIL'} ({walls['gated']:.1f} s, 4 forwards a "
-              f"checked step)",
+              f"{'ok' if not len(bad) else 'FAIL'} ({wall:.1f} s, 4 forwards a checked step)",
               flush=True)
         if len(bad):
             i = int(bad[0])
             raise RuntimeError(f"the f32 {name} engine is {worst[i, k].item():.3e} from the module "
                                f"at step {i} (t={T - 1 - i}) of the fused=True trajectory")
-    free["rows"], walls["rows"] = sample(paths["rows"])
-    print(f"drift: free f32 DDPM-{T} B={DRIFT_B} wall s: " + ", ".join(
-        f"{k} {v:.1f}" for k, v in walls.items()), flush=True)
-    spec = scene.spec
-    lo, hi = ({k: torch.tensor(v[i], device="cuda") for k, v in DRIFT_BOUNDS.items()}
-              for i in (0, 1))
-
-    def boxes(x):
-        x = x.clamp(-1, 1)
-        return torch.cat([descale_to_origin(x[:, :, spec.trans_slice], lo["translations"],
-                                            hi["translations"]),
-                          descale_to_origin(x[:, :, spec.size_slice], lo["sizes"], hi["sizes"]),
-                          x[:, :, spec.angle_slice]], dim=-1)
-
-    for name, x in free.items():
-        if not bool(torch.isfinite(x).all()) or tuple(x.shape) != (DRIFT_B, 12, 62):
-            raise RuntimeError(f"the free f32 {name} sample is malformed")
-    for a, b in (("3-D", "rows"),):
-        ba, bb = boxes(free[a]), boxes(free[b])
-        rel = ((ba - bb).norm() / bb.norm()).item()
-        agree = (scene.split_samples(free[a])["class_labels"].argmax(-1)
-                 == scene.split_samples(free[b])["class_labels"].argmax(-1)).float().mean().item()
-        print(f"drift: free f32 DDPM-{T} B={DRIFT_B}, {a} vs {b}: descaled boxes rel_l2={rel:.3e} "
-              f"max_abs={(ba - bb).abs().max().item():.3e} m, class argmax agrees on "
-              f"{agree:.4f} of slots (ROADMAP bound: rel_l2 <= {DRIFT_BOUND['rel_l2']}, agree >= "
-              f"{DRIFT_BOUND['agree']}; measured, not gated)", flush=True)
 
 
 def chamfer_bound_ms(B, N, M, D):
@@ -2044,6 +2038,14 @@ def task_model(torch, config_path):
     return SceneDiffusion(cfg, device=DEV).init(torch.Generator().manual_seed(SEED))
 
 
+def zero_counts(counters):
+    """Every count of the wrappers ``counters`` to 0 (by kernel too)."""
+    for c in counters:
+        c.launches = 0
+        if hasattr(c, "by_kernel"):
+            c.by_kernel = {}
+
+
 def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=None, steps=T,
                    calls=None, every=TASK_CHECK_EVERY, named=None, **task):
     """One DDPM-1000 sample of ``batch`` scenes through
@@ -2052,8 +2054,8 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
     launches; with ``fused="rows"`` every chain on B4, exactly 19,000.  At
     every TASK_CHECK_EVERY-th step the engine's forward (the module's exact
     GELU, as phase 15's gate) on that step's x_t, spliced as the sampler
-    spliced it, is held against the module's: within FORWARD_TOL f32, or
-    the phase fails naming the step.  The check's launches and
+    spliced it, is held against the module's: within FORWARD_TOL of the
+    model's dtype, or the phase fails naming the step.  The check's launches and
     cross-attention contexts are not counted and its time (measured,
     synchronised) is taken out of the wall time.  ``step`` (default: the
     task's step, task_step) is the step a 20-step profile times, naming
@@ -2068,7 +2070,9 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
     from diffuscene_tpu_torch.ops import fused_resblock as rb
     from diffuscene_tpu_torch.utils.convert import denoiser_tree
 
-    net, tol = scene.denoiser, FORWARD_TOL["float32"]
+    net = scene.denoiser
+    dname = str(net.compute_dtype).split(".")[-1]
+    tol = FORWARD_TOL[dname]
     counters = ((fl.apply_chain,) if fused == "rows"
                 else (rb.fused_resnet_block, at.fused_set_attention))
     calls = steps if calls is None else calls
@@ -2105,14 +2109,16 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
             step = info["step"]
             info["step"] += 1
             if step % every == 0:
-                counts = [c.launches for c in counters]
+                counts = [(c.launches, dict(getattr(c, "by_kernel", {}))) for c in counters]
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 errs.append((step, (engine(x, t) - module(x, t)).abs().max()))
                 torch.cuda.synchronize()
                 info["check_s"] += time.perf_counter() - t0
-                for c, n in zip(counters, counts):
+                for c, (n, by) in zip(counters, counts):
                     c.launches = n
+                    if hasattr(c, "by_kernel"):
+                        c.by_kernel = by
             return fn(x, t)
 
         return gated
@@ -2121,14 +2127,14 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
     scene._denoise_fn = checked
     try:
         torch.cuda.synchronize()
-        for c in counters:
-            c.launches = 0
+        zero_counts(counters)
         inf.cross_context.calls = 0
         t0 = time.perf_counter()
         out = scene.sample(batch, generator=gen, clip_denoised=True, fused=fused, **task)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0 - info["check_s"]
         launches = tuple(c.launches for c in counters)
+        by_kernel = {k: v for c in counters for k, v in getattr(c, "by_kernel", {}).items()}
         contexts = inf.cross_context.calls
     finally:
         del scene._denoise_fn
@@ -2136,15 +2142,15 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
     bad = [s for (s, _), e in zip(errs, worst.tolist()) if not e <= tol]
     finite = bool(torch.isfinite(out).all())
     engine = "rows engine" if fused == "rows" else "3-D engine"
-    summary = {"B": batch, "steps": steps, "calls": calls, "wall_s": wall,
+    summary = {"B": batch, "dtype": dname, "steps": steps, "calls": calls, "wall_s": wall,
                "scenes_per_s": batch / wall,
-               "check_s": info["check_s"], "launches": list(launches),
+               "check_s": info["check_s"], "launches": list(launches), "by_kernel": by_kernel,
                "cross_contexts": contexts, "checked_steps": len(errs),
                "worst_engine_vs_module": worst.max().item(),
                "film_spread": info["film_spread"],
                "film_rows_materialized": info["film_rows_materialized"]}
     sampler = f"{steps}-step DDPM" if calls == steps else f"{calls}-call sampler"
-    print(f"{label}: {sampler}, B={batch}, f32, fused={fused!r}: shape="
+    print(f"{label}: {sampler}, B={batch}, {dname}, fused={fused!r}: shape="
           f"{tuple(out.shape)} finite={finite} launches={list(launches)} (expected "
           f"{list(expected)}) cross_contexts={contexts} wall_s={wall:.3f} scenes_per_s="
           f"{batch / wall:.3f} (the {len(errs)} checks' {info['check_s']:.3f} s taken out); "
@@ -2162,9 +2168,9 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
         raise RuntimeError(f"{label}: expected {list(expected)} launches, counted {launches}")
     if not info["film_rows_materialized"]:
         raise RuntimeError(f"{label}: the cond-FiLM rows are not materialized")
-    print(f"profile: f32 {label} step, B={batch}", flush=True)
+    print(f"profile: {dname} {label} step, B={batch}", flush=True)
     if named is None:
-        named = ROWS_KERNELS["float32"] if fused == "rows" else ENGINE_KERNELS["float32"]
+        named = ROWS_KERNELS[dname] if fused == "rows" else ENGINE_KERNELS[dname]
     prof = profile_steps(torch, step or task_step(torch, scene, **task), SAMPLE_PROFILE_STEPS,
                          1e3 * wall / calls, named=named)
     summary.update(busy_ms=prof["busy_ms"], idle_share=prof["idle_share"],
@@ -2270,9 +2276,12 @@ def phase_task_cli(torch, data_dir, out_dir, card):
     TASK_CLI_EPOCHS epochs, then completion_rearrange --arrange_objects
     --fused --compute_intersec on its checkpoint; train_diffusion on the
     flagship config for as many epochs, then completion_rearrange
-    --num_partial 3 --fused --compute_intersec on that one.  Each CLI
-    samples one batch of TASK_B: exactly 28,000 B1 and 1,000 B2 launches,
-    TASK_B box files and a finite metrics.json."""
+    --num_partial 3 --fused --compute_intersec on that one; each config's
+    schedule cut to TASK_CLI_STEPS steps.  Each CLI samples one batch of
+    TASK_B: exactly 28 B1 and 1 B2 launches a step, TASK_B box files and a
+    finite metrics.json."""
+    import re
+
     from diffuscene_tpu_torch.cli import completion_rearrange, train_diffusion
     from diffuscene_tpu_torch.ops import attention as at
     from diffuscene_tpu_torch.ops import fused_resblock as rb
@@ -2282,6 +2291,13 @@ def phase_task_cli(torch, data_dir, out_dir, card):
             ("rearrange", REARRANGE_CONFIG, ["--arrange_objects"]),
             ("completion", FLAGSHIP_CONFIG, ["--num_partial", str(TASK_PARTIAL)])):
         cfg_path = synthetic_config(config, data_dir, out_dir, f"{label}.yaml")
+        with open(cfg_path) as f:
+            text, n = re.subn(r"^(\s*time_num:) 1000$", rf"\g<1> {TASK_CLI_STEPS}", f.read(),
+                              flags=re.M)
+        if n != 1:
+            raise RuntimeError(f"{cfg_path}: cannot set time_num")
+        with open(cfg_path, "w") as f:
+            f.write(text)
         t0 = time.perf_counter()
         train_diffusion.main([cfg_path, out_dir, "--experiment_tag", label, "--seed", str(SEED),
                               "--epochs", str(TASK_CLI_EPOCHS), "--device", DEV])
@@ -2300,12 +2316,13 @@ def phase_task_cli(torch, data_dir, out_dir, card):
         n_boxes = len([f for f in os.listdir(task_dir) if f.endswith("_boxes.json")])
         with open(os.path.join(task_dir, "metrics.json")) as f:
             saved = json.load(f)
-        ok = (launches == (28 * T, T) and n_boxes == TASK_B and saved == metrics
+        ok = (launches == (28 * TASK_CLI_STEPS, TASK_CLI_STEPS) and n_boxes == TASK_B
+              and saved == metrics
               and saved.get("n_scenes") == TASK_B
               and all(math.isfinite(v) for v in saved.values()))
         print(f"cli: train_diffusion {label} config {TASK_CLI_EPOCHS} epochs {train_s:.3f} s; "
               f"completion_rearrange {' '.join(task_flags)} --fused {TASK_B} scenes (EMA "
-              f"weights) {task_s:.3f} s, launches B1={launches[0]} B2={launches[1]}, {n_boxes} "
+              f"weights, {TASK_CLI_STEPS} steps) {task_s:.3f} s, launches B1={launches[0]} B2={launches[1]}, {n_boxes} "
               f"box files, metrics {saved} {'ok' if ok else 'FAIL'} | {card}", flush=True)
         if not ok:
             raise RuntimeError(f"the {label} CLI pair failed: launches {launches}, "
@@ -3225,15 +3242,15 @@ def phase_data(torch, ch, card):
 
 
 def rest_config(name, training=None, net_kwargs=None, diffusion=None, data=REST_DATA,
-                out=REST_OUT):
-    """The flagship config over ``data`` with ``training``, ``net_kwargs``
-    and ``diffusion_kwargs`` keys set (replaced where the file has them,
-    added under the section where it does not), written to ``out``; its
-    path.  The card's machine has no YAML writer: the keys are scalars, set
-    line by line."""
+                out=REST_OUT, base=FLAGSHIP_CONFIG):
+    """The ``base`` config (the flagship's by default) over ``data`` with
+    ``training``, ``net_kwargs`` and ``diffusion_kwargs`` keys set
+    (replaced where the file has them, added under the section where it
+    does not), written to ``out``; its path.  The card's machine has no
+    YAML writer: the keys are scalars, set line by line."""
     import re
 
-    path = synthetic_config(FLAGSHIP_CONFIG, data, out, name)
+    path = synthetic_config(base, data, out, name)
     with open(path) as f:
         text = f.read()
     for section, indent, keys in (("training", "  ", training), ("net_kwargs", "    ", net_kwargs),
@@ -3245,7 +3262,7 @@ def rest_config(name, training=None, net_kwargs=None, diffusion=None, data=REST_
                 text, n = re.subn(rf"^(\s*{section}:)$", rf"\g<1>\n{indent}{key}: {value}", text,
                                   flags=re.M)
             if n != 1:
-                raise RuntimeError(f"{FLAGSHIP_CONFIG}: cannot set {section}.{key}")
+                raise RuntimeError(f"{base}: cannot set {section}.{key}")
     with open(path, "w") as f:
         f.write(text)
     return path
@@ -3422,13 +3439,14 @@ def phase_rest_generate(torch, exp, card):
             "traced": list(traced), "trace_bytes": size}
 
 
-def rest_scene(torch, net_kwargs, time_num):
-    """The flagship network with ``net_kwargs`` and a ``time_num``-step
-    schedule, on the card, weights from the seed."""
+def rest_scene(torch, net_kwargs, time_num, config=FLAGSHIP_CONFIG):
+    """The network of ``config`` (the flagship's by default) with
+    ``net_kwargs`` and a ``time_num``-step schedule, on the card, weights
+    from the seed."""
     from diffuscene_tpu_torch.models import SceneDiffusion, SceneModelConfig
     from diffuscene_tpu_torch.utils.config import load_config
 
-    net = load_config(FLAGSHIP_CONFIG)["network"]
+    net = load_config(config)["network"]
     net = dict(net, net_kwargs=dict(net["net_kwargs"], **net_kwargs),
                diffusion_kwargs=dict(net["diffusion_kwargs"], time_num=time_num))
     return SceneDiffusion(SceneModelConfig.from_config(net), device=DEV).init(
@@ -4051,16 +4069,17 @@ def wide_ptxas(lib_path, match):
             print(f"ptxas {name}: {regs} | {spill}", flush=True)
 
 
-def wide_forward(rb, torch, mults, groups, seed):
-    """The 28 f32 B1 blocks of one forward of the flagship with ``mults``
-    and ``groups`` at B=64, N=12 (inference.block_shapes; block0s with
-    per-object film rows, the rest per-scene), each block shape timed once
-    and counted as often as the forward runs it: eager, graph-replay,
+def wide_forward(rb, torch, mults, groups, seed, dtype):
+    """The 28 B1 blocks of one forward of the flagship with ``mults`` and
+    ``groups`` in ``dtype`` at B=64, N=12 (inference.block_shapes; block0s
+    with per-object film rows, the rest per-scene), each block shape timed
+    once and counted as often as the forward runs it: eager, graph-replay,
     device, plain and bound ms, the sums by C.  Returns (worst error,
     sums)."""
     from diffuscene_tpu_torch.models import Unet1D
     from diffuscene_tpu_torch.models.inference import block_shapes
 
+    dname = str(dtype).split(".")[-1]
     shapes = block_shapes(Unet1D(dim=512, dim_mults=mults, resnet_block_groups=groups,
                                  device="meta"))
     counts = {}
@@ -4071,13 +4090,13 @@ def wide_forward(rb, torch, mults, groups, seed):
     for (c, kx, ks, film), k in sorted(counts.items()):
         case = (film, kx, ks, c, groups)
         seed += 1
-        ok, err, tm, (flops, nbytes) = rb_check(rb, torch, case, 12, torch.float32, seed)
+        ok, err, tm, (flops, nbytes) = rb_check(rb, torch, case, 12, dtype, seed)
         worst = max(worst, err)
         if not ok:
             bad.append((case, err))
-        b_ms = kernel_bound("float32", flops, nbytes)[0]
-        kernel = rb.f32_kernel(c, groups, ks, kx + ks != c)
-        print(f"kernel fused_resblock f32 {kernel} C={c} groups={groups} C_in={kx}+{ks} "
+        b_ms = kernel_bound(dname, flops, nbytes)[0]
+        kernel = rb.kernel_name(dtype, c, groups, kx, ks, kx + ks != c)
+        print(f"kernel fused_resblock {dname} {kernel} C={c} groups={groups} C_in={kx}+{ks} "
               f"film={film} x{k} a forward, N=12 B={B}: max_abs_err={err:.3e} "
               f"{'ok' if ok else 'FAIL'} kernel_ms={tm['ms']:.4f} graph_ms={tm['graph']:.4f} "
               f"device_ms={tm['dev']:.4f} plain_ms={tm['plain']:.4f} bound_ms={b_ms:.4f} "
@@ -4091,91 +4110,97 @@ def wide_forward(rb, torch, mults, groups, seed):
             s["bytes"] += k * nbytes
             s["blocks"] += k
     if bad:
-        raise RuntimeError(f"wide: B1 disagrees with its plain version: {bad}")
+        raise RuntimeError(f"wide: {dname} B1 disagrees with its plain version: {bad}")
     for part, s in sums.items():
-        s["bound_ms"], s["bound_by"], s["fp32_ms"] = kernel_bound("float32", s["flops"], s["bytes"])
-        print(f"ResnetBlocks of one forward, dim_mults {list(mults)}, {groups} groups, f32, "
+        s["bound_ms"], s["bound_by"], s["fp32_ms"] = kernel_bound(dname, s["flops"], s["bytes"])
+        route = ("on the bf16 tensor cores" if s["fp32_ms"] is None else
+                 f"on the split-TF32 route ({s['fp32_ms']:.4f} at the FP32 rate)")
+        print(f"ResnetBlocks of one forward, dim_mults {list(mults)}, {groups} groups, {dname}, "
               f"N=12, B={B}, {part} ({s['blocks']} blocks): kernel {s['ms']:.3f} ms (eager), "
               f"graph replay {s['graph']:.3f} ms, device {s['dev']:.3f} ms, plain "
-              f"{s['plain']:.3f} ms, bound {s['bound_ms']:.4f} ms on the split-TF32 route "
-              f"({s['fp32_ms']:.4f} at the FP32 rate; {s['flops'] / 1e9:.2f} GFLOP, "
-              f"{s['bytes'] / 1e6:.2f} MB)", flush=True)
+              f"{s['plain']:.3f} ms, bound {s['bound_ms']:.4f} ms {route} ({s['bound_by']}; "
+              f"{s['flops'] / 1e9:.2f} GFLOP, {s['bytes'] / 1e6:.2f} MB)", flush=True)
     return worst, sums
 
 
-def wide_kernels(rb, at, torch):
-    """Phase 22 (a) and (e): f32 B1 at every (C, groups) of its set with
-    film rows, per scene and none, identity residuals (over x, and over
-    [x | skip]) and projections, inputs up to 2048 wide, B in (7, 256) and
-    N in (12, 21); f32 B2 at every C of its set, N in (12, 21, 24) and B in
-    (7, 64, 256); each kernel's plan and ptxas report; the 28 blocks of the
-    wide flagship's and of the 4-, 8- and 16-group flagships' forwards and
-    B2 at (64, 12, C) timed; the C=512 8-group figures against PERF.md's.
-    Returns the summary."""
+def wide_b1_set(rb, torch, dtype, seed):
+    """Phase 22 (a), B1: every (C, groups) of the set in ``dtype`` with film
+    rows, per scene and none, identity residuals (over x, and over [x |
+    skip]) and projections, inputs up to 2048 wide, B in (7, 256) and N in
+    (12, 21), against the plain version, with each launch plan.  Returns
+    (worst error, the failures)."""
     from diffuscene_tpu_torch.ops import build
 
-    rlib, alib = rb.load_library(), at.load_library()
-    wide_ptxas(build.library_path(rb.CSRC), "wide")
-    wide_ptxas(build.library_path(at.CSRC), "wide")
-    out, bad, worst, seed = {"b1": {}, "b2": {}}, [], 0.0, 700
+    rlib, code = rb.load_library(), build.DTYPE_CODES[dtype]
+    dname = str(dtype).split(".")[-1]
+    worst, bad = 0.0, []
     for C, groups in WIDE_B1_SET:
         for film, kx, ks, batch, n in (("row", C, 0, 7, 12), ("scene", C, 2048 - C, 256, 21),
                                        ("none", C // 2, C // 2, 7, 21),
                                        ("scene", 2 * C if C < 1024 else 512, 0, 256, 12)):
             seed += 1
             case, res = (film, kx, ks, C, groups), kx + ks != C
-            p = rb.tile_plan(batch, n, kx, ks, torch.float32, C, groups, res)
-            fit = rlib.fused_resblock_max_active_clusters(0, C, groups, kx, ks, int(res))
-            lib_smem = rlib.fused_resblock_smem_bytes(0, C, groups, kx, ks, int(res))
-            ok, err, _, _ = rb_check(rb, torch, case, n, torch.float32, seed, batch=batch,
-                                     timed=False)
+            p = rb.tile_plan(batch, n, kx, ks, dtype, C, groups, res)
+            fit = rlib.fused_resblock_max_active_clusters(code, C, groups, kx, ks, int(res))
+            lib_smem = rlib.fused_resblock_smem_bytes(code, C, groups, kx, ks, int(res))
+            ok, err, _, _ = rb_check(rb, torch, case, n, dtype, seed, batch=batch, timed=False)
             ok = ok and fit >= 1 and lib_smem == p.smem_bytes
             worst = max(worst, err)
-            print(f"kernel fused_resblock f32 {rb.f32_kernel(C, groups, ks, res)} C={C} "
-                  f"groups={groups} C_in={kx}+{ks} {'projection' if res else 'identity'} "
+            print(f"kernel fused_resblock {dname} {rb.kernel_name(dtype, C, groups, kx, ks, res)} "
+                  f"C={C} groups={groups} C_in={kx}+{ks} {'projection' if res else 'identity'} "
                   f"film={film} N={n} B={batch}: {p.scenes_per_tile} scenes ({p.scenes_per_tile * n} "
                   f"rows) a tile, {p.clusters} clusters of {p.ctas // p.clusters} CTAs, "
                   f"{p.smem_bytes} bytes of shared memory a CTA (library {lib_smem}), {fit} "
-                  f"clusters fit at once; max_abs_err={err:.3e} tol={KERNEL_TOL['float32']} "
+                  f"clusters fit at once; max_abs_err={err:.3e} tol={KERNEL_TOL[dname]} "
                   f"{'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
-                bad.append((case, n, batch, err, fit))
-    out["b1_set_worst"] = worst
-    for label, mults, groups in (("wide", WIDE_MULTS, 8), ("groups8", (1, 1, 1, 1), 8),
-                                 ("groups4", (1, 1, 1, 1), 4), ("groups16", (1, 1, 1, 1), 16)):
-        w, out["b1"][label] = wide_forward(rb, torch, mults, groups, seed)
-        seed += 100
-        worst = max(worst, w)
+                bad.append((dname, case, n, batch, err, fit))
+    return worst, bad
+
+
+def wide_b2_set(at, torch, dtype, out):
+    """Phase 22 (a), B2: every C of the set in ``dtype`` (eps: the engine's,
+    1e-5 f32, 1e-3 bf16), N in (12, 21, 24) and B in (7, 64, 256), against
+    the plain version, with each plan; the call at (64, 12, C) timed into
+    ``out``, and at C=512 the dtype's wide kernel beside its C=512 kernel
+    (wide_b2_at_512).  Returns (worst error, the failures)."""
+    from diffuscene_tpu_torch.ops import build
+
+    alib, code = at.load_library(), build.DTYPE_CODES[dtype]
+    dname = str(dtype).split(".")[-1]
+    f32 = dtype == torch.float32
     hd = ATTN_HEADS * ATTN_DIM_HEAD
-    g = torch.Generator(device=DEV).manual_seed(SEED + 70)
+    g = torch.Generator(device=DEV).manual_seed(SEED + 70 + code)
+    worst, bad = 0.0, []
 
     def rnd(*shape, scale=1.0, base=0.0):
         return base + scale * torch.randn(*shape, generator=g, device=DEV)
 
     for C in WIDE_B2_C:
-        p = at.tile_plan(B, 12, dtype=torch.float32, C=C)
-        print(f"plan set_attention f32 C={C} N=12 B={B}: {p.tiles} tiles, {p.clusters} clusters "
-              f"of {at.HEADS} = {p.ctas} CTAs, {p.smem_bytes} bytes of shared memory a CTA "
-              f"(library {alib.set_attention_smem_bytes(0, C)}), "
-              f"{alib.set_attention_max_active_clusters(0, C)} clusters fit at once, "
-              f"{p.weight_bytes / 1e6:.2f} MB of split weights read a call", flush=True)
+        p = at.tile_plan(B, 12, dtype=dtype, C=C)
+        print(f"plan set_attention {dname} {at.kernel_name(dtype, C)} C={C} N=12 B={B}: "
+              f"{p.tiles} tiles, {p.clusters} clusters of {at.HEADS} = {p.ctas} CTAs, "
+              f"{p.smem_bytes} bytes of shared memory a CTA (library "
+              f"{alib.set_attention_smem_bytes(code, C)}), "
+              f"{alib.set_attention_max_active_clusters(code, C)} clusters fit at once, "
+              f"{p.weight_bytes / 1e6:.2f} MB of weights read a call", flush=True)
         for n in (12, 21, 24):
             for batch in (7, B, GENERATE_B):
-                args = (rnd(batch, n, C), rnd(C, scale=0.2, base=1.0),
-                        rnd(C, 3 * hd, scale=C ** -0.5), rnd(hd, C, scale=hd ** -0.5),
-                        rnd(C, scale=0.1))
-                kw = dict(eps=1e-5, compute_dtype=torch.float32)
+                args = (rnd(batch, n, C).to(dtype), rnd(C, scale=0.2, base=1.0),
+                        rnd(C, 3 * hd, scale=C ** -0.5).to(dtype),
+                        rnd(hd, C, scale=hd ** -0.5).to(dtype), rnd(C, scale=0.1))
+                kw = dict(eps=1e-5 if f32 else 1e-3, compute_dtype=dtype)
                 got = at.fused_set_attention(*args, **kw)
                 want = at.fused_set_attention_reference(*args, **kw)
                 torch.cuda.synchronize()
-                err = (got - want).abs().max().item()
-                ok = bool(torch.isfinite(got).all()) and torch.allclose(got, want,
-                                                                         **KERNEL_TOL["float32"])
+                err = (got.float() - want.float()).abs().max().item()
+                ok = (bool(torch.isfinite(got.float()).all())
+                      and torch.allclose(got.float(), want.float(), **KERNEL_TOL[dname]))
                 worst = max(worst, err)
-                line = (f"kernel set_attention f32 C={C} N={n} B={batch}: max_abs_err={err:.3e} "
-                        f"{'ok' if ok else 'FAIL'}")
+                line = (f"kernel set_attention {dname} C={C} N={n} B={batch}: max_abs_err="
+                        f"{err:.3e} {'ok' if ok else 'FAIL'}")
                 if not ok:
-                    bad.append(("B2", C, n, batch, err))
+                    bad.append(("B2", dname, C, n, batch, err))
                 if (n, batch) == (12, B):
                     def call():
                         return at.fused_set_attention(*args, **kw)
@@ -4183,127 +4208,199 @@ def wide_kernels(rb, at, torch):
                     M = batch * n
                     mm = 2 * M * C * 3 * hd + 2 * M * hd * C
                     attn = 4 * batch * ATTN_HEADS * n * n * ATTN_DIM_HEAD
-                    nbytes = 2 * M * C * 4 + sum(a.numel() * 4 for a in args[1:])
-                    b_ms = bound(0, nbytes, attn, tf32_flops=TF32_SPLIT * mm)[0]
+                    nbytes = (2 * args[0].numel() * args[0].element_size()
+                              + sum(a.numel() * a.element_size() for a in args[1:]))
+                    b_ms, b_by = (bound(0, nbytes, attn, tf32_flops=TF32_SPLIT * mm) if f32
+                                  else bound(mm, nbytes, attn))
                     tm = dict(ms=cuda_ms(call), graph=graph_ms(torch, call),
                               dev=device_ms(torch, call, "attention"),
                               plain=cuda_ms(lambda: at.fused_set_attention_reference(*args, **kw)),
-                              bound_ms=b_ms, gflop=(mm + attn) / 1e9)
-                    out["b2"][f"C={C}"] = tm
+                              bound_ms=b_ms, bound_by=b_by, gflop=(mm + attn) / 1e9,
+                              mbytes=nbytes / 1e6)
+                    out[C] = tm
                     line += (f" kernel_ms={tm['ms']:.4f} graph_ms={tm['graph']:.4f} "
                              f"device_ms={tm['dev']:.4f} plain_ms={tm['plain']:.4f} "
-                             f"bound_ms={b_ms:.5f} (3xTF32; {mm / 1e9:.3f} GFLOP of products)")
+                             f"bound_ms={b_ms:.5f} ({b_by}; {'3xTF32; ' if f32 else ''}"
+                             f"{mm / 1e9:.3f} GFLOP of products, {nbytes / 1e6:.2f} MB)")
                     if C == at.CHANNELS:
                         print(line, flush=True)
                         line, wide = wide_b2_at_512(at, torch, args, kw, want, tm)
-                        out["b2"]["C=512 attention_tf32_wide"] = wide
+                        out["512 wide"] = wide
                         if not wide["ok"]:
-                            bad.append(("B2 attention_tf32_wide", C, n, batch, wide["err"]))
+                            bad.append(("B2 wide at 512", dname, C, n, batch, wide["err"]))
                 print(line, flush=True)
+    return worst, bad
+
+
+def wide_kernels(rb, at, torch):
+    """Phase 22 (a) and (e), in f32 and in bf16: B1 at every (C, groups) of
+    the set (wide_b1_set), B2 at every C of it (wide_b2_set); the wide
+    kernels' ptxas report; the 28 blocks of the wide flagship's and of the
+    4-, 8- and 16-group flagships' forwards timed (wide_forward); the
+    C=512 8-group figures against PERF.md's.  Returns the summary."""
+    from diffuscene_tpu_torch.ops import build
+
+    wide_ptxas(build.library_path(rb.CSRC), "wide")
+    wide_ptxas(build.library_path(at.CSRC), "wide")
+    out, bad, seed = {}, [], 700
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        w1, b = wide_b1_set(rb, torch, dtype, seed)
+        seed += 100
+        bad += b
+        mine = out[dname] = {"b1": {}, "b2": {}, "b1_set_worst": w1}
+        for label, mults, groups in (("wide", WIDE_MULTS, 8), ("groups8", (1, 1, 1, 1), 8),
+                                     ("groups4", (1, 1, 1, 1), 4), ("groups16", (1, 1, 1, 1), 16)):
+            w, mine["b1"][label] = wide_forward(rb, torch, mults, groups, seed, dtype)
+            seed += 100
+            w1 = max(w1, w)
+        w2, b = wide_b2_set(at, torch, dtype, mine["b2"])
+        mine["b1_worst"], mine["b2_worst"] = w1, w2
+        bad += b
     if bad:
-        raise RuntimeError(f"wide: the f32 kernels disagree with their plain versions: {bad}")
-    out["worst"] = worst
+        raise RuntimeError(f"wide: the kernels disagree with their plain versions: {bad}")
     # (e) the C=512, 8-group figures, this run against PERF.md's
-    now = {"b1_28": out["b1"]["groups8"]["all"]["graph"], "b2": out["b2"]["C=512"]["graph"]}
-    for k, before in WIDE_EARLIER_MS.items():
-        print(f"wide: C=512 8-group f32 {k} graph replay {now[k]:.4f} ms, PERF.md {before} ms "
-              f"({now[k] / before:.3f}x)", flush=True)
-    out["c512_g8_now_ms"] = now
+    for dname, before in WIDE_EARLIER_MS.items():
+        now = {"b1_28": out[dname]["b1"]["groups8"]["all"]["graph"],
+               "b2": out[dname]["b2"][512]["graph"]}
+        for k, ms in before.items():
+            print(f"wide: C=512 8-group {dname} {k} graph replay {now[k]:.4f} ms, PERF.md {ms} ms "
+                  f"({now[k] / ms:.3f}x)", flush=True)
+        out[dname]["c512_g8_now_ms"] = now
+        out[dname]["b2"] = {f"C={k}": v for k, v in out[dname]["b2"].items()}
     return out
 
 
 def wide_b2_at_512(at, torch, args, kw, want, tm):
-    """attention_tf32_wide at C=512 (the library's set_attention_launch_wide;
-    the wrapper sends C=512 to attention_tf32) on the inputs ``args`` of
-    attention_tf32's timed case: held against the plain version's ``want``
-    within KERNEL_TOL and timed as eager calls, graph replay and device
-    time beside attention_tf32's ``tm``.  Not a launch of the main path, so
-    not counted.  Returns (its line, its summary)."""
+    """The wide B2 kernel of the dtype at C=512 (the library's
+    set_attention_launch_wide; the wrapper sends C=512 to attention_sm90 or
+    attention_tf32) on the inputs ``args`` of that kernel's timed case:
+    held against the plain version's ``want`` within KERNEL_TOL and timed
+    as eager calls, graph replay and device time beside the C=512 kernel's
+    ``tm``.  Not a launch of the main path, so not counted.  Returns (its
+    line, its summary)."""
     from diffuscene_tpu_torch.ops import build
 
     x, g_ln, w_qkv, w_out, b_out = args
     B_, n, C = x.shape
-    w_q, w_o = at.pack_attention_weights_tf32(w_qkv, w_out)
+    dtype = kw["compute_dtype"]
+    dname = str(dtype).split(".")[-1]
+    if dtype == torch.float32:
+        w_q, w_o = at.pack_attention_weights_tf32(w_qkv, w_out)
+    else:
+        w_q, w_o = at.pack_attention_weights(w_qkv.to(dtype), w_out.to(dtype), permuted=True)
+    name = "attention_tf32_wide" if dtype == torch.float32 else "attention_bf16_wide"
     v = torch.stack([g_ln.float(), b_out.float()])
     out = torch.empty_like(x)
     lib = at.load_library()
 
     def call():
         rc = lib.set_attention_launch_wide(
-            x.data_ptr(), v[0].data_ptr(), w_q.data_ptr(), w_o.data_ptr(), v[1].data_ptr(),
-            out.data_ptr(), B_, n, C, at.HEADS, at.DIM_HEAD, kw["eps"], build.stream_ptr(x.device))
+            build.DTYPE_CODES[dtype], x.data_ptr(), v[0].data_ptr(), w_q.data_ptr(),
+            w_o.data_ptr(), v[1].data_ptr(), out.data_ptr(), B_, n, C, at.HEADS, at.DIM_HEAD,
+            kw["eps"], build.stream_ptr(x.device))
         if rc != 0:
             raise RuntimeError(f"set_attention_launch_wide failed with code {rc}")
         return out
 
     call()
     torch.cuda.synchronize()
-    err = (out - want).abs().max().item()
-    ok = bool(torch.isfinite(out).all()) and torch.allclose(out, want, **KERNEL_TOL["float32"])
+    err = (out.float() - want.float()).abs().max().item()
+    ok = (bool(torch.isfinite(out.float()).all())
+          and torch.allclose(out.float(), want.float(), **KERNEL_TOL[dname]))
     wide = dict(err=err, ok=ok, ms=cuda_ms(call), graph=graph_ms(torch, call),
-                dev=device_ms(torch, call, "attention_tf32_wide"))
-    line = (f"kernel set_attention f32 attention_tf32_wide C={C} N={n} B={B_}: max_abs_err="
+                dev=device_ms(torch, call, name))
+    line = (f"kernel set_attention {dname} {name} C={C} N={n} B={B_}: max_abs_err="
             f"{err:.3e} {'ok' if ok else 'FAIL'} kernel_ms={wide['ms']:.4f} graph_ms="
-            f"{wide['graph']:.4f} device_ms={wide['dev']:.4f}; attention_tf32 on the same inputs "
-            f"graph_ms={tm['graph']:.4f} ({wide['graph'] / tm['graph']:.3f}x)")
+            f"{wide['graph']:.4f} device_ms={wide['dev']:.4f}; {at.kernel_name(dtype, C)} on the "
+            f"same inputs graph_ms={tm['graph']:.4f} ({wide['graph'] / tm['graph']:.3f}x)")
     return line, wide
 
 
 def wide_samples(torch, card):
-    """Phase 22 (b) and (c): the wide flagship's DDPM-1000 at B=64, f32,
-    fused=True (exactly 28,000 B1, 1,000 B2, no B4), held to the module
-    every TASK_CHECK_EVERY calls, its step profiled with B1 split by
-    kernel; the 4- and 16-group flagships' DPM-Solver++-20 at B=64 (560 B1,
-    20 B2), held every WIDE_DPM_EVERY calls; fused="rows" on the 16-group
-    model raising B4's error with nothing launched."""
+    """Phase 22 (b) and (c), f32 (the flagship's network) and then bf16 (the
+    b512 recipe's): the wide model sampled at B=64 through fused=True, in
+    bf16 by DDPM-1000 (exactly 28,000 B1, 1,000 B2, no B4; the launches by
+    kernel) held to the module every TASK_CHECK_EVERY calls, in f32 by
+    DPM-Solver++-20 (560, 20, no B4) held every WIDE_DPM_EVERY calls; its
+    step profiled with B1 split by kernel; in bf16 fused="rows" on it
+    falling back to the 3-D
+    engine (560 B1, 20 B2, no B4 in a DPM-Solver++-20); the 4- and
+    16-group models' DPM-Solver++-20 at B=64 (560 B1, 20 B2), held every
+    WIDE_DPM_EVERY calls; fused="rows" on the 16-group models raising B4's
+    error with nothing launched."""
     from diffuscene_tpu_torch.ops import attention as at
     from diffuscene_tpu_torch.ops import fused_level as fl
     from diffuscene_tpu_torch.ops import fused_resblock as rb
 
     out = {}
-    scene = rest_scene(torch, {"dim_mults": list(WIDE_MULTS)}, T)
+    counters = (rb.fused_resnet_block, at.fused_set_attention, fl.apply_chain)
     gen = torch.Generator(device=DEV).manual_seed(SEED + 60)
-    fl.apply_chain.launches = 0
-    _, out["wide_ddpm"] = checked_sample(
-        torch, scene, "wide ddpm", card, batch=B, fused=True,
-        step=sampling_step(torch, scene, B, gen), named=WIDE_KERNELS)
-    if fl.apply_chain.launches:
-        raise RuntimeError(f"wide ddpm: {fl.apply_chain.launches} B4 launches, expected 0")
-    out["wide_ddpm"]["b4_launches"] = 0
-    del scene
-    torch.cuda.empty_cache()
-    for groups in WIDE_GROUPINGS:
-        scene = rest_scene(torch, {"resnet_block_groups": groups}, T)
-        label = f"groups{groups}_dpm"
-        _, out[label] = checked_sample(
-            torch, scene, f"wide {label}", card, batch=B, fused=True,
-            step=sampling_step(torch, scene, B, gen), calls=DPM_STEPS, every=WIDE_DPM_EVERY,
-            dpm=True, dpm_steps=DPM_STEPS)
-        if groups == 16:
-            counters = (rb.fused_resnet_block, at.fused_set_attention, fl.apply_chain)
-            for c in counters:
-                c.launches = 0
-            err = None
-            try:
-                scene.sample(B, generator=gen, fused="rows", dpm=True, dpm_steps=DPM_STEPS)
-            except ValueError as e:
-                err = str(e)
+    for dname, config in WIDE_CONFIG.items():
+        pre = "" if dname == "float32" else "bf16_"
+        scene = rest_scene(torch, {"dim_mults": list(WIDE_MULTS)}, T, config=config)
+        if str(scene.denoiser.compute_dtype).split(".")[-1] != dname:
+            raise RuntimeError(f"wide: {config} is not a {dname} network")
+        # this slice's main path, bf16: DDPM-1000; f32 (PR 18's) cut to
+        # DPM-Solver++-20 for the script's time, held every WIDE_DPM_EVERY calls
+        label = f"{pre}wide_ddpm" if dname == "bfloat16" else "wide_dpm"
+        sampler = ({} if dname == "bfloat16" else
+                   dict(calls=DPM_STEPS, every=WIDE_DPM_EVERY, dpm=True, dpm_steps=DPM_STEPS))
+        fl.apply_chain.launches = 0
+        _, res = checked_sample(torch, scene, f"wide {label}", card, batch=B, fused=True,
+                                step=sampling_step(torch, scene, B, gen),
+                                named=WIDE_KERNELS[dname], **sampler)
+        if fl.apply_chain.launches:
+            raise RuntimeError(f"wide {label}: {fl.apply_chain.launches} B4 launches, "
+                               f"expected 0")
+        res["b4_launches"] = 0
+        print(f"wide {label}: launches by kernel {res['by_kernel']}", flush=True)
+        out[label] = res
+        if dname == "bfloat16":   # fused="rows" on unequal dim_mults: the 3-D engine, as in JAX
+            zero_counts(counters)
+            rows = scene.sample(B, generator=gen, fused="rows", dpm=True, dpm_steps=DPM_STEPS)
+            torch.cuda.synchronize()
             launched = [c.launches for c in counters]
-            ok = err is not None and "chain kernel" in err and launched == [0, 0, 0]
-            print(f"wide groups16 fused='rows': raises {err!r}, launches {launched} "
-                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            ok = launched == [28 * DPM_STEPS, DPM_STEPS, 0] and bool(torch.isfinite(rows).all())
+            print(f"wide {dname} fused='rows' DPM-Solver++-{DPM_STEPS}: the 3-D engine, launches "
+                  f"{launched} {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
-                raise RuntimeError(f"wide: fused='rows' on 16 groups: {err}, {launched}")
-            out[label]["rows_error"] = err
+                raise RuntimeError(f"wide: fused='rows' on the bf16 wide model: {launched}")
+            out[label]["rows_launches"] = launched
         del scene
         torch.cuda.empty_cache()
+        for groups in WIDE_GROUPINGS:
+            scene = rest_scene(torch, {"resnet_block_groups": groups}, T, config=config)
+            label = f"{pre}groups{groups}_dpm"
+            _, out[label] = checked_sample(
+                torch, scene, f"wide {label}", card, batch=B, fused=True,
+                step=sampling_step(torch, scene, B, gen), calls=DPM_STEPS, every=WIDE_DPM_EVERY,
+                named=WIDE_GROUP_KERNELS[dname], dpm=True, dpm_steps=DPM_STEPS)
+            if groups == 16:
+                zero_counts(counters)
+                err = None
+                try:
+                    scene.sample(B, generator=gen, fused="rows", dpm=True, dpm_steps=DPM_STEPS)
+                except ValueError as e:
+                    err = str(e)
+                launched = [c.launches for c in counters]
+                ok = err is not None and "chain kernel" in err and launched == [0, 0, 0]
+                print(f"wide {dname} groups16 fused='rows': raises {err!r}, launches {launched} "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    raise RuntimeError(f"wide: fused='rows' on 16 groups: {err}, {launched}")
+                out[label]["rows_error"] = err
+            del scene
+            torch.cuda.empty_cache()
     return out
 
 
 def wide_narrow_and_cli(torch, card):
-    """Phase 22 (d): the wide flagship in bf16 raises naming fused=False
-    with nothing launched; generate_diffusion --fused on the wide config
-    (f32) at B=64, exactly 28,000 B1 and 1,000 B2 launches."""
+    """Phase 22 (d): a model outside the set (dim 64) raises naming
+    fused=False with nothing launched, in each dtype;
+    generate_diffusion --fused --dpm on the wide flagship config (f32) and
+    on the wide b512 config (bf16) at B=64, exactly 560 B1 and 20 B2
+    launches each."""
     import re
     import shutil
 
@@ -4313,51 +4410,61 @@ def wide_narrow_and_cli(torch, card):
     from diffuscene_tpu_torch.ops import fused_level as fl
     from diffuscene_tpu_torch.ops import fused_resblock as rb
 
-    scene = rest_scene(torch, {"dim_mults": list(WIDE_MULTS), "compute_dtype": "bfloat16"}, T)
+    out = {"outside": {}, "generate": {}}
     counters = (rb.fused_resnet_block, at.fused_set_attention, fl.apply_chain)
-    for c in counters:
-        c.launches = 0
-    err = None
-    try:
-        scene.sample(B, generator=torch.Generator(device=DEV).manual_seed(SEED), fused=True)
-    except ValueError as e:
-        err = str(e)
-    launched = [c.launches for c in counters]
-    ok = err is not None and "fused=False" in err and launched == [0, 0, 0]
-    print(f"wide bf16 fused=True: raises {err!r}, launches {launched} {'ok' if ok else 'FAIL'}",
-          flush=True)
-    if not ok:
-        raise RuntimeError(f"wide: the bf16 wide flagship: {err}, {launched}")
-    del scene
+    for dname, config in WIDE_CONFIG.items():
+        scene = rest_scene(torch, {"dim": 64}, T, config=config)
+        zero_counts(counters)
+        err = None
+        try:
+            scene.sample(B, generator=torch.Generator(device=DEV).manual_seed(SEED), fused=True)
+        except ValueError as e:
+            err = str(e)
+        launched = [c.launches for c in counters]
+        ok = err is not None and "fused=False" in err and launched == [0, 0, 0]
+        print(f"wide {dname} dim 64 fused=True: raises {err!r}, launches {launched} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise RuntimeError(f"wide: the {dname} dim 64 model: {err}, {launched}")
+        out["outside"][dname] = err
+        del scene
     torch.cuda.empty_cache()
     for d in (WIDE_DATA, WIDE_OUT):
         shutil.rmtree(d, ignore_errors=True)
     os.makedirs(WIDE_OUT)
     make_synthetic_cached_dataset(WIDE_DATA, n_scenes=WIDE_SCENES, seed=SEED)
-    cfg_path = rest_config("wide_generate.yaml", data=WIDE_DATA, out=WIDE_OUT)
-    with open(cfg_path) as f:
-        text = f.read()
-    text, n = re.subn(r"(\n    dim_mults:\n    - 1\n    - 1\n)    - 1\n    - 1\n",
-                      r"\g<1>    - 2\n    - 2\n", text)
-    if n != 1:
-        raise RuntimeError(f"{cfg_path}: cannot set dim_mults")
-    with open(cfg_path, "w") as f:
-        f.write(text)
-    gen_dir = os.path.join(WIDE_OUT, "generated")
-    stats, launches, wall = eval_cli_run(torch, generate_diffusion, [
-        cfg_path, gen_dir, "--n_sequences", str(B), "--batch_size", str(B), "--fused"])
-    check_launches("wide generate", launches, (28 * T, T))
-    with open(os.path.join(gen_dir, "timing.json")) as f:
-        timing = json.load(f)
-    print(f"wide generate --fused, dim_mults {list(WIDE_MULTS)}, B={B}: wall {wall:.3f} s "
-          f"(sampling {timing['sample_s']:.3f} s), {stats['n_scenes']} scenes, launches "
-          f"B1={launches[0]} B2={launches[1]} ok | {card}", flush=True)
-    return {"bf16_error": err, "generate": {"wall_s": wall, "sample_s": timing["sample_s"],
-                                            "launches": list(launches)}}
+    for dname, config in WIDE_CONFIG.items():
+        cfg_path = rest_config(f"wide_generate_{dname}.yaml", data=WIDE_DATA, out=WIDE_OUT,
+                               base=config)
+        with open(cfg_path) as f:
+            text = f.read()
+        text, n = re.subn(r"(\n    dim_mults:\n    - 1\n    - 1\n)    - 1\n    - 1\n",
+                          r"\g<1>    - 2\n    - 2\n", text)
+        if n != 1:
+            raise RuntimeError(f"{cfg_path}: cannot set dim_mults")
+        with open(cfg_path, "w") as f:
+            f.write(text)
+        gen_dir = os.path.join(WIDE_OUT, f"generated_{dname}")
+        zero_counts(counters)
+        stats, launches, wall = eval_cli_run(torch, generate_diffusion, [
+            cfg_path, gen_dir, "--n_sequences", str(B), "--batch_size", str(B), "--fused",
+            "--dpm"])
+        check_launches(f"wide {dname} generate", launches, (28 * DPM_STEPS, DPM_STEPS))
+        by_kernel = {**rb.fused_resnet_block.by_kernel, **at.fused_set_attention.by_kernel}
+        with open(os.path.join(gen_dir, "timing.json")) as f:
+            timing = json.load(f)
+        print(f"wide {dname} generate --fused --dpm ({os.path.basename(config)}, dim_mults "
+              f"{list(WIDE_MULTS)}), B={B}: wall {wall:.3f} s (sampling {timing['sample_s']:.3f} "
+              f"s), {stats['n_scenes']} scenes, launches B1={launches[0]} B2={launches[1]} "
+              f"{by_kernel} ok | {card}", flush=True)
+        out["generate"][dname] = {"wall_s": wall, "sample_s": timing["sample_s"],
+                                  "launches": list(launches), "by_kernel": by_kernel}
+    return out
 
 
 def phase_wide(rb, at, torch, card):
-    """Phase 22: the f32 B1 and B2 kernels widened (see WIDE_B1_SET)."""
+    """Phase 22: the B1 and B2 kernels widened, one set for both dtypes
+    (see WIDE_B1_SET)."""
     t0 = time.perf_counter()
     out = {"card": card, "kernels": wide_kernels(rb, at, torch)}
     torch.cuda.empty_cache()
@@ -4543,21 +4650,22 @@ def main(argv):
     # engine and the 3-D engine
     chain32_launches = phase_rows_sample(torch, scene32, card)
     rb32_launches, at32_launches = phase_engine_samples(torch, scene32, card,
-                                                        dpm_batch=GENERATE_B,
-                                                        profile_batches=(GENERATE_B,))
+                                                        dpm_batch=GENERATE_B)
     mark("phase 15 samples")
     phase_drift(torch, scene32)
     del scene32
     mark("phase 15 drift")
     torch.cuda.empty_cache()
-    # this slice's main path: the f32 B1 and B2 kernels at the other widths
-    # and groupings, the wide flagship and the 4- and 16-group flagships
-    # sampled through fused=True
+    # this slice's main path: the B1 and B2 kernels at the other widths and
+    # groupings in both dtypes, the wide models and the 4- and 16-group
+    # ones sampled through fused=True, f32 and bf16
     wide = phase_wide(rb, at, torch, card)
     profiler_tally("phase 22")
     mark("phase 22")
-    wide_samples = wide["samples"]
-    wide_b1, wide_b2 = wide["kernels"]["b1"]["wide"], wide["kernels"]["b2"]
+    wide_samples, wk = wide["samples"], wide["kernels"]
+    wide_b1, wide_b2 = wk["float32"]["b1"]["wide"], wk["float32"]["b2"]
+    bf_b1, bf_b2 = wk["bfloat16"]["b1"]["wide"], wk["bfloat16"]["b2"]
+    bf_ddpm = wide_samples["bf16_wide_ddpm"]["by_kernel"]
     torch.cuda.empty_cache()
 
     cham = phase_chamfer(ch, torch)
@@ -4691,7 +4799,7 @@ def main(argv):
         "parallel_launches": {"nccl_one_rank_sample": par_launches["nccl_one_rank"]["B1"],
                               "rank_sample_3d": par_launches["gloo_rank"]["sample_3d"]["B1"]},
         "wide_launches": {k: v["launches"][0] for k, v in wide_samples.items()},
-        "wide_max_abs_err": wide["kernels"]["worst"],
+        "wide_max_abs_err": wk["float32"]["b1_worst"],
         "wide_ms": wide_b1["all"]["ms"],
         "wide_graph_ms": wide_b1["all"]["graph"],
         "wide_plain_ms": wide_b1["all"]["plain"],
@@ -4728,6 +4836,38 @@ def main(argv):
         "wide_graph_ms": wide_b2["C=1024"]["graph"],
         "wide_plain_ms": wide_b2["C=1024"]["plain"],
         "wide_bound_ms": wide_b2["C=1024"]["bound_ms"],
+    }, {
+        "name": "resblock_bf16_wide",
+        "route": "cuda",
+        "source": "diffuscene_tpu_torch/csrc/fused_resblock.cu",
+        "replaces": "diffuscene_tpu/ops/fused_resblock.py:89",
+        "launches": bf_ddpm["resblock_bf16_wide"],
+        "max_abs_err": wk["bfloat16"]["b1_worst"],
+        "ms": bf_b1["C=1024"]["ms"],
+        "graph_ms": bf_b1["C=1024"]["graph"],
+        "plain_ms": bf_b1["C=1024"]["plain"],
+        "bound_ms": bf_b1["C=1024"]["bound_ms"],
+        "bound_by": bf_b1["C=1024"]["bound_by"],
+        "library_ms": None,
+        "wide_launches": {k: v["by_kernel"].get("resblock_bf16_wide", 0)
+                          for k, v in wide_samples.items() if k.startswith("bf16_")},
+        "forward_28_graph_ms": {k: wk["bfloat16"]["b1"][k]["all"]["graph"]
+                                for k in ("wide", "groups4", "groups16")},
+    }, {
+        "name": "attention_bf16_wide",
+        "route": "cuda",
+        "source": "diffuscene_tpu_torch/csrc/set_attention.cu",
+        "replaces": "diffuscene_tpu/ops/attention.py:35",
+        "launches": bf_ddpm["attention_bf16_wide"],
+        "max_abs_err": wk["bfloat16"]["b2_worst"],
+        "ms": bf_b2["C=1024"]["ms"],
+        "graph_ms": bf_b2["C=1024"]["graph"],
+        "plain_ms": bf_b2["C=1024"]["plain"],
+        "bound_ms": bf_b2["C=1024"]["bound_ms"],
+        "bound_by": bf_b2["C=1024"]["bound_by"],
+        "library_ms": None,
+        "c256_graph_ms": bf_b2["C=256"]["graph"],
+        "c512_graph_ms": bf_b2["C=512 wide"]["graph"],
     }]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

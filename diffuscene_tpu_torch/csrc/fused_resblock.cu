@@ -17,8 +17,10 @@
 // second product's operand.  The skip concat is never built: W1 and Wres are
 // split into their x and skip rows.
 //
-// bfloat16 (the b512 recipe's serving dtype; resblock_sm90): C = 512 in 8 GroupNorm groups
-// of 64 channels.  A scene tile (at most 64 rows: 5 scenes of 12, 3 of 21;
+// bfloat16 (the b512 recipe's serving dtype; resblock_sm90 at C = 512 in 8
+// GroupNorm groups of 64 channels, inputs of a multiple of 128 columns up to
+// 1024, an identity residual over x alone; resblock_bf16_wide, below, at
+// the rest of the set both dtypes take).  A scene tile (at most 64 rows: 5 scenes of 12, 3 of 21;
 // always the most whole scenes that fit, since every CTA runs the same K
 // loop whatever its rows) is one thread-block cluster of 8 CTAs, and CTA g
 // owns output columns [64g, 64g + 64) of both products, so each GroupNorm is
@@ -108,6 +110,8 @@
 //
 #include <cooperative_groups.h>
 
+#include <type_traits>
+
 #include "sm90.cuh"
 
 namespace {
@@ -115,8 +119,8 @@ namespace {
 namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
 
-constexpr int kMaxIn = 1024;    // x and skip widths together, bfloat16
-constexpr int kMaxInF = 2048;   // and float32 (either kernel)
+constexpr int kMaxIn = 2048;     // x and skip widths together, the set of both dtypes
+constexpr int kMaxIn90 = 1024;   // resblock_sm90's (its x tile sits whole)
 
 // ---------------------------------------------------------------------------
 // bfloat16: the cluster kernel
@@ -363,7 +367,7 @@ __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
   sm90::cluster_wait();            // (2) no CTA leaves before every slice has landed
 }
 
-constexpr int kSmemMax = (int)layout(kMaxIn).total;
+constexpr int kSmemMax = (int)layout(kMaxIn90).total;
 
 template <bool kRes>
 cudaError_t prepare_sm90() {   // once per instantiation
@@ -611,29 +615,39 @@ int launch_tf32(const ArgsF& a, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// float32 at the other widths and groupings: the wide split-TF32 kernel
+// the other widths and groupings: the wide kernels, f32 and bf16
 // ---------------------------------------------------------------------------
 //
-// resblock_tf32_wide takes every f32 block resblock_tf32 does not: C = 256,
-// 512 or 1024, GroupNorm groups of 16 to 256 channels, an identity residual
-// over [x | skip].  The scene tile (at most 64 rows) is again one cluster,
-// now of C / (64 kWG) CTAs (4 or 8), and CTA c owns output columns
-// [64 kWG c, 64 kWG (c + 1)): kWG consumer warpgroups (1, or 2 at C =
-// 1024), each running one 64-column chunk of both products on wgmma
-// m64n64k8 .tf32 in split TF32 as resblock_tf32 does.  What changes:
+// resblock_tf32_wide takes every f32 block resblock_tf32 does not, and
+// resblock_bf16_wide every bf16 block resblock_sm90 does not: C = 256, 512
+// or 1024, GroupNorm groups of 16 to 256 channels, inputs up to 2048 wide
+// (bf16: any multiple of 64), an identity residual over [x | skip].  Both
+// are one body (resblock_wide) over the element type.  The scene tile (at
+// most 64 rows) is again one cluster, now of C / (64 kWG) CTAs (4 or 8),
+// and CTA c owns output columns [64 kWG c, 64 kWG (c + 1)): kWG consumer
+// warpgroups (1, or 2 at C = 1024), each running one 64-column chunk of
+// both products, in f32 on wgmma m64n64k8 .tf32 in split TF32 as
+// resblock_tf32 does (32-deep K steps), in bf16 on wgmma m64n64k16 (64-deep
+// K steps, f32 accumulation).  What changes:
 //
 // - shared memory holds no activation: at C = 1024 one tile's h (64 x 1024
 //   f32) is 256 KB, beyond a CTA's 227 KB, and so is the [x | skip] tile
-//   of a 2048-wide input.  Each consumer thread reads its A fragments (8
-//   columns of its 2 rows a K step) from device memory through L2, the next
-//   step's while a step's products run; shared memory holds the ring of
-//   split weight chunks (4 stages, each one chunk per warpgroup: 16 or 32
-//   KB), the CTA's vectors and the moments;
+//   of a 2048-wide input (f32, or bf16 with the ring beside it).  Each
+//   consumer thread reads its A fragments (8 f32 or 16 bf16 columns of its
+//   2 rows a K step, two 16-byte loads a row) from device memory through
+//   L2, the next step's while a step's products run; shared memory holds
+//   the ring of weight chunks (4 stages, each one chunk per warpgroup: 16
+//   or 32 KB split f32, 8 or 16 KB bf16), the CTA's vectors and the
+//   moments.  bf16 could keep a tile of at most 1024 columns in rolling
+//   K-tile slots, as resblock_tf32 does; it reads from L2 like the f32 body
+//   instead, so that both dtypes are one kernel body and take 2048-wide
+//   inputs;
 // - h goes through device memory: each CTA writes its columns of h into a
-//   (M, C) scratch, and a cluster barrier (release, then acquire) orders
-//   every CTA's writes before any CTA's reads of the second product.  No
-//   byte moves CTA to CTA through distributed shared memory but the
-//   moments below;
+//   (M, C) scratch of the element type, and a cluster barrier (release,
+//   then acquire) orders every CTA's writes before any CTA's reads of the
+//   second product.  The bf16 scratch is h rounded to bf16, which is B1's
+//   one rounding of h, as the second product's operand.  No byte moves CTA
+//   to CTA through distributed shared memory but the moments below;
 // - a GroupNorm group is no longer a CTA's columns.  Each warpgroup sums
 //   its rows' values and squares in 8-column blocks (a fixed order: a
 //   thread's pair, the row's 4 threads by shuffles), then each scene's rows
@@ -642,7 +656,9 @@ int launch_tf32(const ArgsF& a, cudaStream_t stream) {
 //   the cluster's next ones, and after a cluster barrier every CTA of the
 //   group sums their partial sums in the same order (ld.shared::cluster, as
 //   the chamfer kernel merges its partials), so all agree.  The moments
-//   stay one-pass, f32, unclamped: B1's.
+//   stay one-pass, f32, unclamped, over the unrounded dense output: B1's.
+//   FiLM (bf16: (scale + 1) rounded to bf16, as the plain version adds in
+//   bf16), SiLU and the residual run in f32; the output is rounded once.
 //
 // Four cluster barriers order a launch: (A) the GN1 partials, (B) h in
 // device memory, (C) the GN2 partials, (D) no CTA leaves while another reads
@@ -650,27 +666,44 @@ int launch_tf32(const ArgsF& a, cudaStream_t stream) {
 // then W2's, and passes each barrier in turn; between (A) and (B) the ring
 // is empty, so it may put W2's first stages before it waits.
 //
-// What bounds it.  A CTA streams its columns' split weights from L2: at C
-// = 1024 and a 2048-wide input with a projection, 5 MB a CTA (W1, Wres,
-// W2), 520 MB of L2 reads a launch at B=64, N=12 (13 tiles x 8 CTAs); A
-// fragments come through L2 too, each tile's rows once per CTA, and the
-// four cluster barriers serialise the phases.  It is a simple kernel that
-// is right, 3-4x its split-TF32 bound (PERF.md, section 6); making it fast
-// (weights multicast to the row tiles that share them, A tiles in shared
-// memory) is later work.
+// What bounds it.  A CTA streams its columns' weights from L2: at C = 1024
+// and a 2048-wide input with a projection, 5 MB a CTA in split f32 (W1,
+// Wres, W2), 1.25 MB in bf16, 520 and 130 MB of L2 reads a launch at B=64,
+// N=12 (13 tiles x 8 CTAs); A fragments come through L2 too, each tile's
+// rows once per CTA, and the four cluster barriers serialise the phases.
+// They are simple kernels that are right, the f32 one 3-4x its split-TF32
+// bound (PERF.md, section 6); making them fast (weights multicast to the
+// row tiles that share them, A tiles in shared memory) is later work.
 
 constexpr int kStagesW = 4;     // the ring
 constexpr int kMaxLocal = 4;    // groups within a warpgroup's 64 columns at most (16 channels)
+
+// what the element type decides: the depth of a K step and the elements of
+// one warpgroup's weight chunk of it (f32: a split chunk's tf32 hi and lo,
+// pack_tf32_tiles; bf16: a chunk of pack_group_tiles with the k permuted)
+template <typename T>
+struct Wide;
+template <>
+struct Wide<float> {
+  static constexpr int kStep = sm90::kStepK;
+  static constexpr int kPart = 2 * kChunkPartF;
+};
+template <>
+struct Wide<bf16> {
+  static constexpr int kStep = sm90::kChunkK;
+  static constexpr int kPart = sm90::kChunkElems;
+};
 
 struct LayoutW {
   unsigned ring, v, red, part, stat, bars, total;
 };
 
-// shared-memory layout of resblock_tf32_wide with `wg` consumer warpgroups
-__host__ __device__ constexpr LayoutW layout_wide(int wg) {
+// shared-memory layout of a wide kernel with `wg` consumer warpgroups and
+// weight chunks of `chunk_bytes`
+__host__ __device__ constexpr LayoutW layout_wide(int wg, int chunk_bytes) {
   LayoutW L{};
-  L.ring = 0;                                                 // stages x wg split chunks
-  L.v = L.ring + kStagesW * wg * sm90::kChunkBytesF;          // this CTA's columns of 7 vectors
+  L.ring = 0;                                                 // stages x wg chunks
+  L.v = L.ring + kStagesW * wg * chunk_bytes;                 // this CTA's columns of 7 vectors
   L.red = L.v + 7 * wg * kGroup * 4;                          // row x 8-column block sums, squares
   L.part = L.red + 2 * wg * kTileRows * 8 * 4;                // per-scene partial sums (float2)
   L.stat = L.part + wg * kMaxLocal * kTileRows * 8;           // per-scene mean, rsqrt (float2)
@@ -679,22 +712,28 @@ __host__ __device__ constexpr LayoutW layout_wide(int wg) {
   return L;
 }
 
+template <typename T>
+__host__ __device__ constexpr LayoutW layout_wide_of(int wg) {
+  return layout_wide(wg, Wide<T>::kPart * (int)sizeof(T));
+}
+
+template <typename T>
 struct ArgsW {
-  const float* x;      // (M, kx)
-  const float* skip;   // (M, ks) or null
-  const float* film;   // (B, 2C) per scene, (M, 2C) per row, or null
-  const float* W1;     // (C / 64, (kx + ks) / 32, 2, 2048) split chunks (pack_tf32_tiles)
-  const float* W2;     // (C / 64, C / 32, 2, 2048)
-  const float* Wres;   // like W1, or null (identity residual over [x | skip])
-  const float* V;      // (7, C): b1, g1 scale, g1 bias, b2, g2 scale, g2 bias, bres
-  float* h;            // (M, C) scratch: block1's output
-  float* out;          // (M, C)
+  const T* x;      // (M, kx)
+  const T* skip;   // (M, ks) or null
+  const T* film;   // (B, 2C) per scene, (M, 2C) per row, or null
+  const T* W1;     // (C / 64, (kx + ks) / kStep, kPart) chunks (Wide<T>)
+  const T* W2;     // (C / 64, C / kStep, kPart)
+  const T* Wres;   // like W1, or null (identity residual over [x | skip])
+  const float* V;  // (7, C): b1, g1 scale, g1 bias, b2, g2 scale, g2 bias, bres
+  T* h;            // (M, C) scratch: block1's output
+  T* out;          // (M, C)
   int B, n, kx, ks, C, gw, ts, film_kind;
   float eps;
 };
 
-template <int kWG>
-using RingW = sm90::RingT<kStagesW, kWG * 2 * kChunkPartF>;
+template <typename T, int kWG>
+using RingW = sm90::RingT<kStagesW, kWG * Wide<T>::kPart, T>;
 
 // The per-scene moments of the groups of this thread's warpgroup `u`: acc
 // (its 64 columns, bias added) -> red -> part[u][q][s] = (sum, sum of
@@ -778,14 +817,35 @@ __device__ __forceinline__ void wide_stats(int rank, int n, int nsc, int gw, flo
   }
 }
 
-template <int kWG, bool kRes>
-__global__ void __launch_bounds__(kWG * kConsumers + 32, 1) resblock_tf32_wide(const ArgsW a) {
+// acc (and accR when kRes) += A @ the ring's next `nsteps` chunks, A's K
+// step st of row r at src(st, r) (this thread's first column of the step;
+// rows ra and rb): split TF32 in f32, bf16 products in bf16
+template <typename T, bool kRes, class Ring, class Src>
+__device__ __forceinline__ void wide_products(float (&acc)[32], float (&accR)[32], int nsteps,
+                                              Src src, size_t ra, size_t rb, Ring& w, int part) {
+  if constexpr (std::is_same<T, float>::value)
+    sm90::stream_products<kRes>(
+        acc, accR, nsteps,
+        [&](int st, uint32_t (&hi)[16], uint32_t (&lo)[16]) {
+          sm90::load_a_global(src(st, ra), src(st, rb), hi, lo);
+        },
+        w, part);
+  else
+    sm90::stream_products_bf16<kRes>(
+        acc, accR, nsteps,
+        [&](int st, uint32_t (&af)[4][4]) { sm90::load_a_global_bf16(src(st, ra), src(st, rb), af); },
+        w, part);
+}
+
+template <typename T, int kWG, bool kRes>
+__device__ __forceinline__ void resblock_wide(const ArgsW<T>& a) {
   constexpr int kCons = kWG * kConsumers;   // consumer threads
   constexpr int kCols = kWG * kGroup;       // this CTA's output columns
-  constexpr int kPart = 2 * kChunkPartF;    // floats of one warpgroup's split chunk
-  constexpr LayoutW L = layout_wide(kWG);
+  constexpr int kStep = Wide<T>::kStep;     // depth of a K step
+  constexpr int kPart = Wide<T>::kPart;     // elements of one warpgroup's chunk
+  constexpr LayoutW L = layout_wide_of<T>(kWG);
   extern __shared__ __align__(128) unsigned char smem[];
-  float* ring = reinterpret_cast<float*>(smem + L.ring);
+  T* ring = reinterpret_cast<T*>(smem + L.ring);
   float* Vs = reinterpret_cast<float*>(smem + L.v);
   float* red = reinterpret_cast<float*>(smem + L.red);
   float2* part = reinterpret_cast<float2*>(smem + L.part);
@@ -799,7 +859,7 @@ __global__ void __launch_bounds__(kWG * kConsumers + 32, 1) resblock_tf32_wide(c
   const int nsc = min(a.ts, a.B - scene0);   // the last tile may be ragged
   const int rows = nsc * a.n;
   const size_t row0 = (size_t)scene0 * a.n;
-  const int nst1 = (a.kx + a.ks) / sm90::kStepK, nst2 = a.C / sm90::kStepK;
+  const int nst1 = (a.kx + a.ks) / kStep, nst2 = a.C / kStep;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int cta0 = rank * kCols;            // this CTA's first output column
 
@@ -815,23 +875,24 @@ __global__ void __launch_bounds__(kWG * kConsumers + 32, 1) resblock_tf32_wide(c
   if (warp == kCons / 32) {
     // ---- producer warp: W1 (and Wres) of each K step, a chunk for each
     // warpgroup (group 64-column chunks rank kWG + u), then W2's ----
-    RingW<kWG> w{ring, full, empty, 0, 0};
+    RingW<T, kWG> w{ring, full, empty, 0, 0};
     const size_t g0 = (size_t)rank * kWG;
+    constexpr uint32_t kBytes = kPart * sizeof(T);
     if (lane == 0) {
-      const float* w1 = a.W1 + g0 * nst1 * kPart;
-      const float* wr = kRes ? a.Wres + g0 * nst1 * kPart : nullptr;
+      const T* w1 = a.W1 + g0 * nst1 * kPart;
+      const T* wr = kRes ? a.Wres + g0 * nst1 * kPart : nullptr;
       for (int st = 0; st < nst1; ++st) {
-        w.put(w1 + (size_t)st * kPart, kPart * 4, kWG, (size_t)nst1 * kPart);
-        if (kRes) w.put(wr + (size_t)st * kPart, kPart * 4, kWG, (size_t)nst1 * kPart);
+        w.put(w1 + (size_t)st * kPart, kBytes, kWG, (size_t)nst1 * kPart);
+        if (kRes) w.put(wr + (size_t)st * kPart, kBytes, kWG, (size_t)nst1 * kPart);
       }
     }
     sm90::cluster_arrive_relaxed();   // (A)
     sm90::cluster_wait();
     sm90::cluster_arrive_relaxed();   // (B): the ring is empty now, W2's first stages go in
     if (lane == 0) {
-      const float* w2 = a.W2 + g0 * nst2 * kPart;
+      const T* w2 = a.W2 + g0 * nst2 * kPart;
       for (int st = 0; st < nst2; ++st)
-        w.put(w2 + (size_t)st * kPart, kPart * 4, kWG, (size_t)nst2 * kPart);
+        w.put(w2 + (size_t)st * kPart, kBytes, kWG, (size_t)nst2 * kPart);
     }
     sm90::cluster_wait();
     sm90::cluster_arrive_relaxed();   // (C)
@@ -854,18 +915,18 @@ __global__ void __launch_bounds__(kWG * kConsumers + 32, 1) resblock_tf32_wide(c
   float acc[32], accR[32];
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = accR[i] = 0.f;
-  RingW<kWG> w{ring, full, empty, 0, 0};
+  RingW<T, kWG> w{ring, full, empty, 0, 0};
 
   // block1: h = [x | skip] @ W1 + b1 (and the residual projection), f32
-  sm90::stream_products<kRes>(
+  wide_products<T, kRes>(
       acc, accR, nst1,
-      [&](int st, uint32_t (&hi)[16], uint32_t (&lo)[16]) {
-        int c = sm90::kStepK * st + 8 * t, ld = a.kx;
-        const float* base = a.x;
+      [&](int st, size_t r) {
+        int c = kStep * st + kStep / 4 * t, ld = a.kx;
+        const T* base = a.x;
         if (c >= a.kx) base = a.skip, ld = a.ks, c -= a.kx;
-        sm90::load_a_global(base + ra * ld + c, base + rb * ld + c, hi, lo);
+        return base + r * ld + c;
       },
-      w, u * kPart);
+      ra, rb, w, u * kPart);
   sm90::bar_sync<kCons>(1);   // Vs written by every consumer
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] += vec[8 * (i / 4) + 2 * t + (i & 1)];
@@ -881,9 +942,9 @@ __global__ void __launch_bounds__(kWG * kConsumers + 32, 1) resblock_tf32_wide(c
     const int r = r0 + 8 * half;
     if (r < rows) {
       const int sc = r / a.n;
-      const float* f = a.film_kind == 1 ? a.film + (size_t)(scene0 + sc) * 2 * a.C + col0
-                                        : a.film + (row0 + r) * 2 * a.C + col0;
-      float* hr = a.h + (row0 + r) * a.C + col0;
+      const T* f = a.film_kind == 1 ? a.film + (size_t)(scene0 + sc) * 2 * a.C + col0
+                                    : a.film + (row0 + r) * 2 * a.C + col0;
+      T* hr = a.h + (row0 + r) * a.C + col0;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = 8 * j + 2 * t;
@@ -892,12 +953,11 @@ __global__ void __launch_bounds__(kWG * kConsumers + 32, 1) resblock_tf32_wide(c
         float z1 = (acc[4 * j + 2 * half + 1] - m.x) * m.y * vec[kCols + c + 1] +
                    vec[2 * kCols + c + 1];
         if (a.film_kind) {
-          const float2 fs = *reinterpret_cast<const float2*>(f + c);
-          const float2 fb = *reinterpret_cast<const float2*>(f + a.C + c);
-          z0 = z0 * (fs.x + 1.f) + fb.x;
-          z1 = z1 * (fs.y + 1.f) + fb.y;
+          const float2 fs = tile::ld2<T>(f + c), fb = tile::ld2<T>(f + a.C + c);
+          z0 = z0 * tile::rnd<T>(fs.x + 1.f) + fb.x;
+          z1 = z1 * tile::rnd<T>(fs.y + 1.f) + fb.y;
         }
-        *reinterpret_cast<float2*>(hr + c) = make_float2(silu_fast(z0), silu_fast(z1));
+        tile::st2<T>(hr + c, silu_fast(z0), silu_fast(z1));
       }
     }
   }
@@ -907,12 +967,14 @@ __global__ void __launch_bounds__(kWG * kConsumers + 32, 1) resblock_tf32_wide(c
   float res[32];
   {
     const bool in_x = col0 < a.kx;
-    const float* base = in_x ? a.x : a.skip;
+    const T* base = in_x ? a.x : a.skip;
     const int ld = in_x ? a.kx : a.ks, c0 = in_x ? col0 : col0 - a.kx;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
       const int r = r0 + 8 * ((i >> 1) & 1);
-      res[i] = !kRes && r < rows ? base[(row0 + r) * ld + c0 + 8 * (i / 4) + 2 * t + (i & 1)] : 0.f;
+      res[i] = !kRes && r < rows
+                   ? tile::to_f<T>(base[(row0 + r) * ld + c0 + 8 * (i / 4) + 2 * t + (i & 1)])
+                   : 0.f;
     }
   }
   sm90::cluster_wait();           // (B) every CTA's columns of h are written (acquire)
@@ -921,13 +983,10 @@ __global__ void __launch_bounds__(kWG * kConsumers + 32, 1) resblock_tf32_wide(c
   // residual, the store
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] = 0.f;
-  sm90::stream_products<false>(
+  wide_products<T, false>(
       acc, accR, nst2,
-      [&](int st, uint32_t (&hi)[16], uint32_t (&lo)[16]) {
-        const int c = sm90::kStepK * st + 8 * t;
-        sm90::load_a_global(a.h + ra * a.C + c, a.h + rb * a.C + c, hi, lo);
-      },
-      w, u * kPart);
+      [&](int st, size_t r) { return a.h + r * a.C + kStep * st + kStep / 4 * t; }, ra, rb, w,
+      u * kPart);
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc[i] += vec[3 * kCols + 8 * (i / 4) + 2 * t + (i & 1)];
   wide_partials<kCons>(acc, u, a.n, nsc, gwl, red, part);
@@ -941,7 +1000,7 @@ __global__ void __launch_bounds__(kWG * kConsumers + 32, 1) resblock_tf32_wide(c
     const int r = r0 + 8 * half;
     if (r < rows) {
       const int sc = r / a.n;
-      float* o = a.out + (row0 + r) * a.C + col0;
+      T* o = a.out + (row0 + r) * a.C + col0;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
         const int c = 8 * j + 2 * t;
@@ -956,33 +1015,54 @@ __global__ void __launch_bounds__(kWG * kConsumers + 32, 1) resblock_tf32_wide(c
           res0 = accR[i] + vec[6 * kCols + c];
           res1 = accR[i + 1] + vec[6 * kCols + c + 1];
         }
-        *reinterpret_cast<float2*>(o + c) = make_float2(h0 + res0, h1 + res1);
+        tile::st2<T>(o + c, h0 + res0, h1 + res1);
       }
     }
   }
   sm90::cluster_wait();           // (D) no CTA leaves while another reads its partials
 }
 
+template <int kWG, bool kRes>
+__global__ void __launch_bounds__(kWG * kConsumers + 32, 1)
+    resblock_tf32_wide(const ArgsW<float> a) {
+  resblock_wide<float, kWG, kRes>(a);
+}
+
+template <int kWG, bool kRes>
+__global__ void __launch_bounds__(kWG * kConsumers + 32, 1)
+    resblock_bf16_wide(const ArgsW<bf16> a) {
+  resblock_wide<bf16, kWG, kRes>(a);
+}
+
+// the wide kernel of element type T
+template <typename T, int kWG, bool kRes>
+auto wide_kernel() {
+  if constexpr (std::is_same<T, float>::value)
+    return resblock_tf32_wide<kWG, kRes>;
+  else
+    return resblock_bf16_wide<kWG, kRes>;
+}
+
 // consumer warpgroups of the wide kernel at C channels
 int wide_groups(int C) { return C > 512 ? 2 : 1; }
 
-template <int kWG, bool kRes>
+template <typename T, int kWG, bool kRes>
 cudaError_t prepare_wide() {   // once per instantiation
   static const cudaError_t err =
-      cudaFuncSetAttribute(resblock_tf32_wide<kWG, kRes>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)layout_wide(kWG).total);
+      cudaFuncSetAttribute(wide_kernel<T, kWG, kRes>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)layout_wide_of<T>(kWG).total);
   return err;
 }
 
 // the launch configuration of the wide kernel: one cluster of C / (64 kWG)
 // CTAs a tile of `tiles`
-template <int kWG>
+template <typename T, int kWG>
 cudaLaunchConfig_t wide_config(int C, int tiles, cudaStream_t stream, cudaLaunchAttribute* attr) {
   const int ncta = C / (kWG * kGroup);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(tiles * ncta));
   cfg.blockDim = dim3(kWG * kConsumers + 32);
-  cfg.dynamicSmemBytes = layout_wide(kWG).total;
+  cfg.dynamicSmemBytes = layout_wide_of<T>(kWG).total;
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
   attr->val.clusterDim.x = ncta;
@@ -993,65 +1073,110 @@ cudaLaunchConfig_t wide_config(int C, int tiles, cudaStream_t stream, cudaLaunch
   return cfg;
 }
 
-template <int kWG, bool kRes>
-int launch_wide_as(const ArgsW& a, cudaStream_t stream) {
-  const cudaError_t err = prepare_wide<kWG, kRes>();
+template <typename T, int kWG, bool kRes>
+int launch_wide_as(const ArgsW<T>& a, cudaStream_t stream) {
+  const cudaError_t err = prepare_wide<T, kWG, kRes>();
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = wide_config<kWG>(a.C, (a.B + a.ts - 1) / a.ts, stream, &attr);
-  return (int)cudaLaunchKernelEx(&cfg, resblock_tf32_wide<kWG, kRes>, a);
+  const cudaLaunchConfig_t cfg = wide_config<T, kWG>(a.C, (a.B + a.ts - 1) / a.ts, stream, &attr);
+  return (int)cudaLaunchKernelEx(&cfg, wide_kernel<T, kWG, kRes>(), a);
 }
 
-int launch_wide(const ArgsW& a, cudaStream_t stream) {
+template <typename T>
+int launch_wide(const ArgsW<T>& a, cudaStream_t stream) {
   if (wide_groups(a.C) == 2)
-    return a.Wres ? launch_wide_as<2, true>(a, stream) : launch_wide_as<2, false>(a, stream);
-  return a.Wres ? launch_wide_as<1, true>(a, stream) : launch_wide_as<1, false>(a, stream);
+    return a.Wres ? launch_wide_as<T, 2, true>(a, stream) : launch_wide_as<T, 2, false>(a, stream);
+  return a.Wres ? launch_wide_as<T, 1, true>(a, stream) : launch_wide_as<T, 1, false>(a, stream);
 }
 
-template <int kWG, bool kRes>
+template <typename T, int kWG, bool kRes>
 int wide_active_clusters_as(int C) {
-  const cudaError_t err = prepare_wide<kWG, kRes>();
+  const cudaError_t err = prepare_wide<T, kWG, kRes>();
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = wide_config<kWG>(C, 64, nullptr, &attr);
+  const cudaLaunchConfig_t cfg = wide_config<T, kWG>(C, 64, nullptr, &attr);
   int clusters = 0;
   const cudaError_t e =
-      cudaOccupancyMaxActiveClusters(&clusters, resblock_tf32_wide<kWG, kRes>, &cfg);
+      cudaOccupancyMaxActiveClusters(&clusters, wide_kernel<T, kWG, kRes>(), &cfg);
   return e == cudaSuccess ? clusters : -(int)e;
 }
 
+template <typename T>
 int wide_active_clusters(int C, bool has_res) {
   if (wide_groups(C) == 2)
-    return has_res ? wide_active_clusters_as<2, true>(C) : wide_active_clusters_as<2, false>(C);
-  return has_res ? wide_active_clusters_as<1, true>(C) : wide_active_clusters_as<1, false>(C);
+    return has_res ? wide_active_clusters_as<T, 2, true>(C) : wide_active_clusters_as<T, 2, false>(C);
+  return has_res ? wide_active_clusters_as<T, 1, true>(C) : wide_active_clusters_as<T, 1, false>(C);
 }
 
-// Whether resblock_tf32 (C = 512 in 8 groups, identity residual over x
-// alone) takes the block; the wide kernel takes the rest of the f32 set
-bool f32_cluster8(int C, int groups, int ks, bool has_res) {
-  return C == kC && groups == kCluster && (has_res || ks == 0);
+// The set both dtypes take: C = 256, 512 or 1024 in 4, 8, 16 or 32 groups
+// of at least 16 channels, x and skip widths of multiples of 64 (x > 0) up
+// to kMaxIn together
+bool takes(int C, int groups, int kx, int ks) {
+  return (C == 256 || C == 512 || C == 1024) &&
+         (groups == 4 || groups == 8 || groups == 16 || groups == 32) && C / groups >= 16 &&
+         kx >= sm90::kChunkK && kx % sm90::kChunkK == 0 && ks >= 0 && ks % sm90::kChunkK == 0 &&
+         kx + ks <= kMaxIn;
+}
+
+// Whether the cluster-of-8 kernel of `dtype` (0 resblock_tf32, 1
+// resblock_sm90) takes a block of the set: C = 512 in 8 groups with a
+// projection or an identity residual over x alone, in bf16 with inputs of
+// a multiple of 128 columns up to kMaxIn90; the dtype's wide kernel takes
+// the rest
+bool cluster8(int dtype, int C, int groups, int kx, int ks, bool has_res) {
+  return C == kC && groups == kCluster && (has_res || ks == 0) &&
+         (dtype == 0 || ((kx + ks) % (2 * sm90::kChunkK) == 0 && kx + ks <= kMaxIn90));
+}
+
+template <typename T>
+ArgsW<T> wide_args(const void* x, const void* skip, const void* film, int film_kind,
+                   const void* W1, const void* W2, const void* Wres, const float* V, void* h,
+                   void* out, int B, int n, int C, int kx, int ks, int groups, float eps) {
+  ArgsW<T> a;
+  a.x = static_cast<const T*>(x);
+  a.skip = static_cast<const T*>(skip);
+  a.film = static_cast<const T*>(film);
+  a.W1 = static_cast<const T*>(W1);
+  a.W2 = static_cast<const T*>(W2);
+  a.Wres = static_cast<const T*>(Wres);
+  a.V = V;
+  a.h = static_cast<T*>(h);
+  a.out = static_cast<T*>(out);
+  a.B = B;
+  a.n = n;
+  a.kx = kx;
+  a.ks = ks;
+  a.C = C;
+  a.gw = C / groups;
+  a.ts = kTileRows / n;
+  a.film_kind = film_kind;
+  a.eps = eps;
+  return a;
 }
 
 }  // namespace
 
 extern "C" {
 
-// rows of one scene the kernel of `dtype` (0 float32, 1 bfloat16) takes
-int fused_resblock_max_rows(int dtype) { return kTileRows; }
+// rows of one scene the kernels (either dtype) take
+int fused_resblock_max_rows() { return kTileRows; }
 // x and skip widths together
-int fused_resblock_max_in(int dtype) { return dtype == 1 ? kMaxIn : kMaxInF; }
+int fused_resblock_max_in() { return kMaxIn; }
 // dynamic shared memory of one CTA of the kernel that takes a `dtype`
 // block of C channels in `groups` groups, kx + ks input columns and a
 // residual projection (has_res) or not
 int fused_resblock_smem_bytes(int dtype, int C, int groups, int kx, int ks, int has_res) {
-  if (dtype == 1) return (int)layout(kx + ks).total;
-  return f32_cluster8(C, groups, ks, has_res) ? kSmemF : (int)layout_wide(wide_groups(C)).total;
+  if (cluster8(dtype, C, groups, kx, ks, has_res)) return dtype == 1 ? (int)layout(kx + ks).total : kSmemF;
+  return dtype == 1 ? (int)layout_wide_of<bf16>(wide_groups(C)).total
+                    : (int)layout_wide_of<float>(wide_groups(C)).total;
 }
 
 // clusters of that kernel that fit on the card at once, or minus a
 // cudaError_t code
 int fused_resblock_max_active_clusters(int dtype, int C, int groups, int kx, int ks, int has_res) {
-  if (dtype == 0 && !f32_cluster8(C, groups, ks, has_res)) return wide_active_clusters(C, has_res);
+  if (!cluster8(dtype, C, groups, kx, ks, has_res))
+    return dtype == 1 ? wide_active_clusters<bf16>(C, has_res)
+                      : wide_active_clusters<float>(C, has_res);
   const cudaError_t err = dtype == 1 ? (has_res ? prepare_sm90<true>() : prepare_sm90<false>())
                                      : (has_res ? prepare_tf32<true>() : prepare_tf32<false>());
   if (err != cudaSuccess) return -(int)err;
@@ -1071,28 +1196,35 @@ int fused_resblock_max_active_clusters(int dtype, int C, int groups, int kx, int
 }
 
 // dtype: 0 float32 (weights packed by pack_tf32_tiles), 1 bfloat16 (by
-// pack_group_tiles).  bfloat16 takes C = 512 in 8 groups and input widths
-// of multiples of 64 summing to a multiple of 128, at most 1024, with an
-// identity residual over x alone; float32 takes C = 256, 512 or 1024 in 4,
-// 8, 16 or 32 groups of at least 16 channels and input widths of multiples
-// of 64 up to 2048 together, an identity residual over [x | skip] (h: an
-// (M, C) f32 scratch the wide kernel writes, unused at C = 512 in 8
-// groups).  Returns a cudaError_t code (0 on success), or -1 for arguments
-// the kernels do not take.
+// pack_group_tiles; for resblock_bf16_wide with the k permuted).  Both take
+// C = 256, 512 or 1024 in 4, 8, 16 or 32 groups of at least 16 channels
+// and input widths of multiples of 64 up to 2048 together, an identity
+// residual over [x | skip]; C = 512 in 8 groups runs the cluster-of-8
+// kernel where it takes the block (cluster8), the rest the wide kernel (h:
+// an (M, C) scratch of the dtype that the wide kernel writes, unused
+// otherwise).  Returns a cudaError_t code (0 on success), or -1 for
+// arguments the kernels do not take.
 int fused_resblock_launch(int dtype, const void* x, const void* skip, const void* film,
                           int film_kind, const void* W1, const void* W2, const void* Wres,
                           const float* V, void* h, void* out, int B, int n, int C, int kx, int ks,
                           int groups, float eps, void* stream) {
   if (n < 1 || n > kTileRows || B < 1 || ks < 0 || (ks > 0) != (skip != nullptr) ||
       film_kind < 0 || film_kind > 2 || (film_kind != 0) != (film != nullptr) ||
-      (Wres == nullptr && kx + ks != C) || kx < sm90::kChunkK || kx % sm90::kChunkK != 0 ||
-      ks % sm90::kChunkK != 0)
+      (Wres == nullptr && kx + ks != C) || (dtype != 0 && dtype != 1) ||
+      !takes(C, groups, kx, ks))
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!cluster8(dtype, C, groups, kx, ks, Wres != nullptr)) {
+    if (h == nullptr) return -1;
+    if (dtype == 1)
+      return launch_wide(wide_args<bf16>(x, skip, film, film_kind, W1, W2, Wres, V, h, out, B, n,
+                                         C, kx, ks, groups, eps),
+                         s);
+    return launch_wide(wide_args<float>(x, skip, film, film_kind, W1, W2, Wres, V, h, out, B, n,
+                                        C, kx, ks, groups, eps),
+                       s);
+  }
   if (dtype == 1) {
-    if (C != kC || groups != kCluster || ks + kx > kMaxIn || (Wres == nullptr && ks != 0) ||
-        (kx + ks) % (2 * sm90::kChunkK) != 0)
-      return -1;
     Args90 a;
     a.x = static_cast<const bf16*>(x);
     a.skip = static_cast<const bf16*>(skip);
@@ -1110,33 +1242,6 @@ int fused_resblock_launch(int dtype, const void* x, const void* skip, const void
     a.film_kind = film_kind;
     a.eps = eps;
     return launch_sm90(a, s);
-  }
-  if (dtype != 0 || (C != 256 && C != 512 && C != 1024) ||
-      (groups != 4 && groups != 8 && groups != 16 && groups != 32) || C / groups < 16 ||
-      kx + ks > kMaxInF)
-    return -1;
-  if (!f32_cluster8(C, groups, ks, Wres != nullptr)) {
-    if (h == nullptr) return -1;
-    ArgsW a;
-    a.x = static_cast<const float*>(x);
-    a.skip = static_cast<const float*>(skip);
-    a.film = static_cast<const float*>(film);
-    a.W1 = static_cast<const float*>(W1);
-    a.W2 = static_cast<const float*>(W2);
-    a.Wres = static_cast<const float*>(Wres);
-    a.V = V;
-    a.h = static_cast<float*>(h);
-    a.out = static_cast<float*>(out);
-    a.B = B;
-    a.n = n;
-    a.kx = kx;
-    a.ks = ks;
-    a.C = C;
-    a.gw = C / groups;
-    a.ts = kTileRows / n;
-    a.film_kind = film_kind;
-    a.eps = eps;
-    return launch_wide(a, s);
   }
   ArgsF a;
   a.x = static_cast<const float*>(x);

@@ -13,8 +13,8 @@
 // where round() is the compute dtype (float32 or bfloat16), at the places
 // of the Pallas kernel and of the plain twin fused_set_attention_reference.
 //
-// bfloat16 (attention_sm90; the b512 recipes' serving dtype): C = 512, 4
-// heads of 32.  A
+// bfloat16 (the b512 recipes' serving dtype; attention_sm90 at C = 512,
+// attention_bf16_wide below at C = 256 and 1024): 4 heads of 32.  A
 // scene tile (at most 64 rows of whole scenes: 5 scenes of 12, 3 of 21, 2
 // of 24) is one thread-block cluster of 4 CTAs, and CTA h owns head h.  A
 // cluster is persistent: the launch holds at most as many clusters as fit
@@ -102,6 +102,8 @@
 // MFLOP of tf32) takes 6.7 us at one SM's rate, before its other phases.
 #include <cooperative_groups.h>
 #include <math.h>
+
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -902,65 +904,190 @@ int launch_tf32(const ArgsT& a, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// float32 at C = 256 and 1024: the wide split-TF32 kernel
+// C = 256 and 1024: the wide kernels, f32 and bf16
 // ---------------------------------------------------------------------------
 //
-// attention_tf32_wide takes the f32 widths attention_tf32 does not (C = 256
-// or 1024; it takes 512 too, but attention_tf32 serves that).  The same
-// scene tile, cluster of 4 CTAs (CTA h owns head h), thread roles, split
-// TF32 products, attention arithmetic and exchange of o; what changes is
-// where LN(x) comes from.  An f32 x tile of 64 x 1024 is 256 KB, beyond a
-// CTA's 227 KB, so no x tile is held: the consumer warps first take each
-// row's two-pass LayerNorm statistics (mean, then the variance around it,
-// the row's values in registers) from device memory into shared memory,
-// and the qkv product then reads its A fragments from device memory (L2),
-// normalising them on the way: (x - mean) * rstd * g, the plain version's
-// order.  q | k | v, the probabilities and the gathered o keep their own
-// shared memory (no reuse of bytes, so no barrier before the exchange
-// beyond the one after the mbarriers' set-up).  The CTA's C / 4 output
-// columns run as 64-column chunks, warpgroup g taking chunks g, g + 2, ...
-// (at C = 256 the second warpgroup has none and only passes the ring's
-// stages back).  What bounds it: as attention_tf32, the latency of a CTA's
-// chain of phases, with the weights (C x 96 and 128 x C / 4, split, a CTA)
-// streamed from L2 once per tile.
+// attention_tf32_wide and attention_bf16_wide take the widths
+// attention_tf32 and attention_sm90 do not (C = 256 or 1024; they take 512
+// too, but the C = 512 kernels serve that).  They are one body
+// (attention_wide) over the element type: the same scene tile, cluster of
+// 4 CTAs (CTA h owns head h), thread roles, attention arithmetic and
+// exchange of o as the C = 512 kernels; what changes is where LN(x) comes
+// from.  An f32 x tile of 64 x 1024 is 256 KB, beyond a CTA's 227 KB, and
+// a bf16 one (128 KB) leaves no room beside W_qkv (C x 96 bf16, 196 KB), so
+// no x tile is held: the consumer warps first take each row's two-pass
+// LayerNorm statistics (mean, then the variance around it, the row's
+// values in registers) from device memory into shared memory, and the qkv
+// product then reads its A fragments from device memory (L2), normalising
+// them on the way: (x - mean) * rstd * g, the plain version's order (bf16:
+// rounded to bf16, the product's operand).  q | k | v, the probabilities
+// and the gathered o keep their own shared memory (no reuse of bytes, so no
+// barrier before the exchange beyond the one after the mbarriers' set-up).
+// The CTA's C / 4 output columns run as 64-column chunks, warpgroup g
+// taking chunks g, g + 2, ... (at C = 256 the second warpgroup has none and
+// only passes the ring's stages back).  The weights stream through a ring
+// of 3 stages.  f32: split TF32 on wgmma m64n48k8 and m64n64k8 as
+// attention_tf32.  bf16: the qkv product on wgmma m64n48k16 over 64-deep K
+// steps (the chunks of pack_attention_weights with the k permuted as
+// sm90::load_a_global_bf16 reads its rows); o is rounded to bf16 as it is
+// written into its f32 slice (so the exchange is the f32 one), and each
+// 32-deep step of the output product (one slice) is two wgmma m64n64k16 on
+// the half of a W_out chunk (pack_group_tiles) that holds it.  What bounds
+// it: as the C = 512 kernels, the latency of a CTA's chain of phases, with
+// the weights (C x 96 and 128 x C / 4 a CTA) streamed from L2 once per
+// tile.
 
 constexpr int kMaxCW = 1024;                       // C at most
 constexpr int kLdsW = 2;                           // a row's LayerNorm mean, rstd
-// shared-memory layout of attention_tf32_wide (bytes)
-constexpr unsigned kRingW = 0;                                   // 3 x 32 KB
-constexpr unsigned kQkvW = kRingW + kStagesT * kStageT * 4;      // q | k | v
-constexpr unsigned kPW = kQkvW + kTileRows * kLdq * 4;           // the probabilities
-constexpr unsigned kOW = kPW + kTileRows * kLdp * 4;             // the gathered o: 4 slices
-constexpr unsigned kGW = kOW + kHeads * kSliceT * 4;             // the LayerNorm scale
-constexpr unsigned kBoW = kGW + kMaxCW * 4;                      // this CTA's b_out
-constexpr unsigned kStatW = kBoW + kMaxCW / kHeads * 4;          // each row's mean, rstd
-constexpr unsigned kBarsW = kStatW + kTileRows * kLdsW * 4;      // full[3], empty[3], o[4]
-constexpr unsigned kSmemW = kBarsW + (2 * kStagesT + kHeads) * 8;
-static_assert(kOW % 16 == 0 && kGW % 16 == 0, "the slices of o move by bulk copy");
-static_assert(kSmemW <= 232448, "one CTA's shared memory");
 
+// what the element type decides: the depth of a qkv K step, the elements of
+// a qkv step and of one output chunk's W_out step (a slice's 32 rows), and
+// of a ring stage
+template <typename T>
+struct WideA;
+template <>
+struct WideA<float> {
+  static constexpr int kStep = kStepK;
+  static constexpr int kQkvStep = 2 * kQkvPartT;   // hi and lo
+  static constexpr int kOutStep = kOutChunkT;
+  static constexpr int kStage = kStageT;
+};
+template <>
+struct WideA<bf16> {
+  static constexpr int kStep = sm90::kChunkK;
+  static constexpr int kQkvStep = kQkvChunkElems;
+  static constexpr int kOutStep = sm90::kChunkElems / 2;   // half a 64-deep chunk
+  static constexpr int kStage = kQkvChunkElems;
+};
+static_assert(kGroups * WideA<bf16>::kOutStep <= WideA<bf16>::kStage, "a W_out step fits a stage");
+
+// shared-memory layout of a wide kernel with ring stages of `stage_bytes`
+struct LayoutAW {
+  unsigned ring, qkv, p, o, g, bo, stat, bars, total;
+};
+
+__host__ __device__ constexpr LayoutAW layout_attention_wide(unsigned stage_bytes) {
+  LayoutAW L{};
+  L.ring = 0;                                      // 3 stages
+  L.qkv = L.ring + kStagesT * stage_bytes;         // q | k | v
+  L.p = L.qkv + kTileRows * kLdq * 4;              // the probabilities
+  L.o = L.p + kTileRows * kLdp * 4;                // the gathered o: 4 slices
+  L.g = L.o + kHeads * kSliceT * 4;                // the LayerNorm scale
+  L.bo = L.g + kMaxCW * 4;                         // this CTA's b_out
+  L.stat = L.bo + kMaxCW / kHeads * 4;             // each row's mean, rstd
+  L.bars = L.stat + kTileRows * kLdsW * 4;         // full[3], empty[3], o[4]
+  L.total = L.bars + (2 * kStagesT + kHeads) * 8;
+  return L;
+}
+
+template <typename T>
+__host__ __device__ constexpr LayoutAW layout_attention_wide_of() {
+  return layout_attention_wide(WideA<T>::kStage * sizeof(T));
+}
+
+constexpr unsigned kSmemW = layout_attention_wide_of<float>().total;
+constexpr unsigned kSmemWB = layout_attention_wide_of<bf16>().total;
+static_assert(layout_attention_wide_of<float>().o % 16 == 0 &&
+                  layout_attention_wide_of<bf16>().o % 16 == 0,
+              "the slices of o move by bulk copy");
+static_assert(kSmemW <= 232448 && kSmemWB <= 232448, "one CTA's shared memory");
+
+template <typename T>
 struct ArgsW {
-  const float* x;      // (B, N, C)
+  const T* x;          // (B, N, C)
   const float* g;      // (C,) LayerNorm scale
-  const float* Wqkv;   // (4 heads, C / 32 K steps, 2, 32 x 96) split (pack_attention_weights_tf32)
-  const float* Wout;   // (C / 64 chunks, 4 K steps, 2, 32 x 64) split (pack_tf32_tiles)
+  const T* Wqkv;       // (4 heads, C / kStep K steps, kQkvStep) (pack_attention_weights[_tf32])
+  const T* Wout;       // (C / 64 chunks, 4 K steps, kOutStep) (pack_tf32_tiles, pack_group_tiles)
   const float* bout;   // (C,)
-  float* out;          // (B, N, C)
+  T* out;              // (B, N, C)
   int B, n, C, ts;
   float eps, scale;
 };
 
-__global__ void __cluster_dims__(kHeads, 1, 1) __launch_bounds__(kThreads90, 1)
-    attention_tf32_wide(const ArgsW a) {
+// 16 bytes of T at p as floats
+template <typename T>
+__device__ __forceinline__ void load16(const T* p, float (&v)[16 / sizeof(T)]);
+template <>
+__device__ __forceinline__ void load16<float>(const float* p, float (&v)[4]) {
+  const float4 u = __ldg(reinterpret_cast<const float4*>(p));
+  v[0] = u.x, v[1] = u.y, v[2] = u.z, v[3] = u.w;
+}
+template <>
+__device__ __forceinline__ void load16<bf16>(const bf16* p, float (&v)[8]) {
+  const uint4 u = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) v[2 * i] = bf_lo(w[i]), v[2 * i + 1] = bf_hi(w[i]);
+}
+
+// d += A @ (this warpgroup's 48 columns of the bf16 qkv chunk at `chunk`),
+// the step's 4 k16 steps
+__device__ __forceinline__ void qkv_products_bf16(float (&d)[kGroupQkv / 2],
+                                                  const uint32_t (&af)[4][4], const bf16* chunk,
+                                                  int wg) {
+  const uint64_t b = sm90::desc_add(sm90::kmajor_desc(chunk, kQkvLbo), wg * kGroupQkv * 16);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) sm90::wgmma_m64n48k16(d, af[j], sm90::desc_add(b, j * kQkvKStep));
+}
+
+// qkv_steps in bf16: load(st, af) loads 64-deep step st's fragments
+template <class Load, class Ring>
+__device__ __forceinline__ void qkv_steps_bf16(float (&acc)[kGroupQkv / 2], int nst, Load load,
+                                               Ring& w, int wg) {
+  uint32_t a0[4][4], a1[4][4];
+  load(0, a0);
+#pragma unroll 1
+  for (int st = 0; st < nst; st += 2) {
+    int s = w.take();
+    sm90::wgmma_fence();
+    qkv_products_bf16(acc, a0, w.chunk(s), wg);
+    sm90::wgmma_commit();
+    load(st + 1, a1);
+    sm90::wgmma_wait<0>();
+    sm90::fence_operand(acc);
+    w.give(s);
+    s = w.take();
+    sm90::wgmma_fence();
+    qkv_products_bf16(acc, a1, w.chunk(s), wg);
+    sm90::wgmma_commit();
+    if (st + 2 < nst) load(st + 2, a0);
+    sm90::wgmma_wait<0>();
+    sm90::fence_operand(acc);
+    w.give(s);
+  }
+}
+
+// This thread's A fragments of one slice of o (64 x 32, f32 values already
+// rounded to bf16, rows kLdoT floats apart) for wgmma m64n64k16: k16 step
+// j's {(g, 16 j + 2 t), (g + 8, ..), (g, 16 j + 8 + 2 t), (g + 8, ..)}
+__device__ __forceinline__ void load_o_bf16(const float* slice, uint32_t (&af)[2][4]) {
+  const int warp = (threadIdx.x >> 5) & 3, lane = threadIdx.x & 31;
+  const float* p = slice + (16 * warp + (lane >> 2)) * kLdoT + 2 * (lane & 3);
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float2 v0 = *reinterpret_cast<const float2*>(p + 16 * j + 8 * h);
+      const float2 v1 = *reinterpret_cast<const float2*>(p + 8 * kLdoT + 16 * j + 8 * h);
+      af[j][2 * h] = bf_pack(v0.x, v0.y);
+      af[j][2 * h + 1] = bf_pack(v1.x, v1.y);
+    }
+}
+
+template <typename T>
+__device__ __forceinline__ void attention_wide(const ArgsW<T>& a) {
+  using W = WideA<T>;
+  using Ring = sm90::RingT<kStagesT, W::kStage, T>;
+  constexpr LayoutAW L = layout_attention_wide_of<T>();
   extern __shared__ __align__(128) unsigned char smem[];
-  float* ring = reinterpret_cast<float*>(smem + kRingW);
-  float* QKV = reinterpret_cast<float*>(smem + kQkvW);
-  float* P = reinterpret_cast<float*>(smem + kPW);
-  float* O = reinterpret_cast<float*>(smem + kOW);     // slice q: CTA q's o, 64 x 32
-  float* G = reinterpret_cast<float*>(smem + kGW);
-  float* Bo = reinterpret_cast<float*>(smem + kBoW);
-  float2* stat = reinterpret_cast<float2*>(smem + kStatW);
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarsW);
+  T* ring = reinterpret_cast<T*>(smem + L.ring);
+  float* QKV = reinterpret_cast<float*>(smem + L.qkv);
+  float* P = reinterpret_cast<float*>(smem + L.p);
+  float* O = reinterpret_cast<float*>(smem + L.o);     // slice q: CTA q's o, 64 x 32
+  float* G = reinterpret_cast<float*>(smem + L.g);
+  float* Bo = reinterpret_cast<float*>(smem + L.bo);
+  float2* stat = reinterpret_cast<float2*>(smem + L.stat);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
   uint64_t* empty = full + kStagesT;
   uint64_t* obar = empty + kStagesT;   // [q]: CTA q's slice of o has landed here
 
@@ -972,7 +1099,7 @@ __global__ void __cluster_dims__(kHeads, 1, 1) __launch_bounds__(kThreads90, 1)
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int cols = a.C / kHeads;              // this CTA's output columns
   const int nchunk = cols / sm90::kGroup;     // as 64-column chunks: 1, 2 or 4
-  const int nst = a.C / kStepK;               // K steps of the qkv product
+  const int nst = a.C / W::kStep;             // K steps of the qkv product
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < kStagesT; ++s) {
@@ -990,19 +1117,20 @@ __global__ void __cluster_dims__(kHeads, 1, 1) __launch_bounds__(kThreads90, 1)
   sm90::cluster_wait();
 
   if (warp == kWorkers / 32) {
-    // ---- producer warp: this CTA's split weights through the ring: the
-    // qkv steps, then for each pair of output chunks W_out's 4 steps in the
+    // ---- producer warp: this CTA's weights through the ring: the qkv
+    // steps, then for each pair of output chunks W_out's 4 steps in the
     // order the output product takes the slices (this CTA's first) ----
     if (lane == 0) {
-      RingA w{ring, full, empty, 0, 0};
-      const float* wq = a.Wqkv + (size_t)head * nst * 2 * kQkvPartT;
-      for (int st = 0; st < nst; ++st) w.put(wq + (size_t)st * 2 * kQkvPartT, kQkvBytesT);
+      Ring w{ring, full, empty, 0, 0};
+      const T* wq = a.Wqkv + (size_t)head * nst * W::kQkvStep;
+      for (int st = 0; st < nst; ++st)
+        w.put(wq + (size_t)st * W::kQkvStep, W::kQkvStep * sizeof(T));
       for (int c = 0; c < nchunk; c += kGroups) {
         const int pieces = min(kGroups, nchunk - c);
         for (int i = 0; i < kStepsOut; ++i) {
           const int q = (head + i) % kHeads;
-          w.put(a.Wout + ((size_t)(head * nchunk + c) * kStepsOut + q) * kOutChunkT,
-                kOutChunkT * 4, pieces, (size_t)kStepsOut * kOutChunkT);
+          w.put(a.Wout + ((size_t)(head * nchunk + c) * kStepsOut + q) * W::kOutStep,
+                W::kOutStep * sizeof(T), pieces, (size_t)kStepsOut * W::kOutStep);
         }
       }
     }
@@ -1017,36 +1145,45 @@ __global__ void __cluster_dims__(kHeads, 1, 1) __launch_bounds__(kThreads90, 1)
   const int r0 = 16 * (warp % 4) + (lane >> 2);   // this thread's rows: r0, r0 + 8
   for (int i = threadIdx.x; i < a.C; i += kWorkers) G[i] = a.g[i];
   for (int i = threadIdx.x; i < cols; i += kWorkers) Bo[i] = a.bout[head * cols + i];
-  RingA w{ring, full, empty, 0, 0};
+  Ring w{ring, full, empty, 0, 0};
 
   // each row's two-pass LayerNorm statistics: warp w takes rows w, w + 8,
-  // ..., lane l its columns 4l + 128i (16-byte loads)
-  for (int r = warp; r < rows; r += kWorkers / 32) {
-    const float* xr = a.x + (row0 + r) * a.C;
-    float v[kMaxCW / 32];
-    float s = 0.f;
+  // ..., lane l its columns kVec l + 32 kVec i (16-byte loads)
+  {
+    constexpr int kVec = 16 / sizeof(T), kSpan = 32 * kVec;
+    for (int r = warp; r < rows; r += kWorkers / 32) {
+      const T* xr = a.x + (row0 + r) * a.C;
+      float v[kMaxCW / 32];
+      float s = 0.f;
 #pragma unroll
-    for (int i = 0; i < kMaxCW / 128; ++i)
-      if (128 * i < a.C) {
-        const float4 u = __ldg(reinterpret_cast<const float4*>(xr + 128 * i + 4 * lane));
-        v[4 * i] = u.x, v[4 * i + 1] = u.y, v[4 * i + 2] = u.z, v[4 * i + 3] = u.w;
-        s += (u.x + u.y) + (u.z + u.w);
-      }
+      for (int i = 0; i < kMaxCW / kSpan; ++i)
+        if (kSpan * i < a.C) {
+          float u[kVec];
+          load16<T>(xr + kSpan * i + kVec * lane, u);
 #pragma unroll
-    for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-    const float mean = s / (float)a.C;
-    float q = 0.f;
+          for (int e = 0; e < kVec; ++e) v[kVec * i + e] = u[e];
 #pragma unroll
-    for (int i = 0; i < kMaxCW / 128; ++i)
-      if (128 * i < a.C)
+          for (int w2 = 1; w2 < kVec; w2 *= 2)   // pairwise: (u0 + u1) + (u2 + u3) ...
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float d = v[4 * i + e] - mean;
-          q += d * d;
+            for (int e = 0; e < kVec; e += 2 * w2) u[e] += u[e + w2];
+          s += u[0];
         }
 #pragma unroll
-    for (int o = 16; o; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
-    if (lane == 0) stat[r] = make_float2(mean, rsqrtf(q / (float)a.C + a.eps));
+      for (int o = 16; o; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      const float mean = s / (float)a.C;
+      float q = 0.f;
+#pragma unroll
+      for (int i = 0; i < kMaxCW / kSpan; ++i)
+        if (kSpan * i < a.C)
+#pragma unroll
+          for (int e = 0; e < kVec; ++e) {
+            const float d = v[kVec * i + e] - mean;
+            q += d * d;
+          }
+#pragma unroll
+      for (int o = 16; o; o >>= 1) q += __shfl_xor_sync(0xffffffffu, q, o);
+      if (lane == 0) stat[r] = make_float2(mean, rsqrtf(q / (float)a.C + a.eps));
+    }
   }
   sm90::bar_sync<kWorkers>(1);
 
@@ -1054,30 +1191,70 @@ __global__ void __cluster_dims__(kHeads, 1, 1) __launch_bounds__(kThreads90, 1)
   // fragments of rows ra, rb from device memory, normalised
   const int ra = min(r0, rows - 1), rb = min(r0 + 8, rows - 1);
   const float2 sa = stat[ra], sb = stat[rb];
-  auto load_ln = [&](int st, uint32_t (&hi)[16], uint32_t (&lo)[16]) {
-    const int c = kStepK * st + 8 * t;
-    float v[2][8];
-    const float* p[2] = {a.x + (row0 + ra) * a.C + c, a.x + (row0 + rb) * a.C + c};
-    const float2 m[2] = {sa, sb};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float4 u0 = __ldg(reinterpret_cast<const float4*>(p[r]));
-      const float4 u1 = __ldg(reinterpret_cast<const float4*>(p[r]) + 1);
-      const float x8[8] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
-#pragma unroll
-      for (int e = 0; e < 8; ++e) v[r][e] = (x8[e] - m[r].x) * m[r].y * G[c + e];
-    }
-    sm90::split_a(v, hi, lo);
-  };
+  const T* pa = a.x + (row0 + ra) * a.C;
+  const T* pb = a.x + (row0 + rb) * a.C;
   float acc[kGroupQkv / 2];
 #pragma unroll
   for (int i = 0; i < kGroupQkv / 2; ++i) acc[i] = 0.f;
-  qkv_steps(acc, nst, load_ln, w, wg);
+  if constexpr (std::is_same<T, float>::value) {
+    qkv_steps(
+        acc, nst,
+        [&](int st, uint32_t (&hi)[16], uint32_t (&lo)[16]) {
+          const int c = kStepK * st + 8 * t;
+          float v[2][8];
+          const float* p[2] = {pa + c, pb + c};
+          const float2 m[2] = {sa, sb};
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const float4 u0 = __ldg(reinterpret_cast<const float4*>(p[r]));
+            const float4 u1 = __ldg(reinterpret_cast<const float4*>(p[r]) + 1);
+            const float x8[8] = {u0.x, u0.y, u0.z, u0.w, u1.x, u1.y, u1.z, u1.w};
+#pragma unroll
+            for (int e = 0; e < 8; ++e) v[r][e] = (x8[e] - m[r].x) * m[r].y * G[c + e];
+          }
+          sm90::split_a(v, hi, lo);
+        },
+        w, wg);
+  } else {
+    // thread t's 16 columns [16 t, 16 t + 16) of the 64-deep step, rounded
+    // to bf16 in pairs; the chunks' k is permuted to match
+    // (sm90::load_a_global_bf16)
+    qkv_steps_bf16(
+        acc, nst,
+        [&](int st, uint32_t (&af)[4][4]) {
+          const int c = sm90::kChunkK * st + 16 * t;
+          const T* p[2] = {pa + c, pb + c};
+          const float2 m[2] = {sa, sb};
+          uint32_t wd[2][8];
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              float x8[8];
+              load16<T>(p[r] + 8 * hh, x8);
+#pragma unroll
+              for (int i = 0; i < 4; ++i) {
+                const int e = 8 * hh + 2 * i;
+                wd[r][4 * hh + i] = bf_pack((x8[2 * i] - m[r].x) * m[r].y * G[c + e],
+                                            (x8[2 * i + 1] - m[r].x) * m[r].y * G[c + e + 1]);
+              }
+            }
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            af[j][0] = wd[0][2 * j];
+            af[j][1] = wd[1][2 * j];
+            af[j][2] = wd[0][2 * j + 1];
+            af[j][3] = wd[1][2 * j + 1];
+          }
+        },
+        w, wg);
+  }
   store_qkv(QKV, acc, wg, r0, a.scale);
   sm90::bar_sync<kWorkers>(1);
 
+  // o_h into this CTA's slice, rounded to T (the output product's operand)
   attend(QKV, P, nsc, a.n,
-         [&](int r, int d, float v) { O[head * kSliceT + r * kLdoT + d] = v; });
+         [&](int r, int d, float v) { O[head * kSliceT + r * kLdoT + d] = tile::rnd<T>(v); });
 
   // the exchange: 3 threads copy this CTA's slice into the same place in
   // the other CTAs' o, completing on their barrier for it
@@ -1103,10 +1280,22 @@ __global__ void __cluster_dims__(kHeads, 1, 1) __launch_bounds__(kThreads90, 1)
     for (int i = 0; i < kStepsOut; ++i) {
       const int s = w.take();
       if (mine) {
-        uint32_t h0[16], l0[16];
-        sm90::load_a<kLdoT>(O + ((head + i) % kHeads) * kSliceT, h0, l0);
-        sm90::wgmma_fence();
-        sm90::products_3x(acc2, h0, l0, w.chunk(s) + wg * kOutChunkT);
+        const float* slice = O + ((head + i) % kHeads) * kSliceT;
+        const T* b = w.chunk(s) + wg * W::kOutStep;
+        if constexpr (std::is_same<T, float>::value) {
+          uint32_t h0[16], l0[16];
+          sm90::load_a<kLdoT>(slice, h0, l0);
+          sm90::wgmma_fence();
+          sm90::products_3x(acc2, h0, l0, b);
+        } else {
+          uint32_t af[2][4];
+          load_o_bf16(slice, af);
+          const uint64_t d = sm90::chunk_desc(b);
+          sm90::wgmma_fence();
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            sm90::wgmma_m64n64k16(acc2, af[j], sm90::desc_add(d, j * sm90::kChunkKStep));
+        }
         sm90::wgmma_commit();
         sm90::wgmma_wait<0>();
         sm90::fence_operand(acc2);
@@ -1120,13 +1309,13 @@ __global__ void __cluster_dims__(kHeads, 1, 1) __launch_bounds__(kThreads90, 1)
     for (int hh = 0; hh < 2; ++hh) {
       const int r = r0 + 8 * hh;
       if (r < rows) {
-        const float* xrow = a.x + (row0 + r) * a.C + col0;
-        float* o = a.out + (row0 + r) * a.C + col0;
+        const T* xrow = a.x + (row0 + r) * a.C + col0;
+        T* o = a.out + (row0 + r) * a.C + col0;
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const int cc = 8 * j + 2 * t, i = 4 * j + 2 * hh;
-          const float2 xv = __ldg(reinterpret_cast<const float2*>(xrow + cc));
-          tile::st2<float>(o + cc, xv.x + (acc2[i] + bo[cc]), xv.y + (acc2[i + 1] + bo[cc + 1]));
+          const float2 xv = tile::ld2<T>(xrow + cc);
+          tile::st2<T>(o + cc, xv.x + (acc2[i] + bo[cc]), xv.y + (acc2[i + 1] + bo[cc + 1]));
         }
       }
     }
@@ -1135,18 +1324,55 @@ __global__ void __cluster_dims__(kHeads, 1, 1) __launch_bounds__(kThreads90, 1)
   sm90::cluster_wait();             // (1) no CTA leaves before every slice has landed
 }
 
-cudaError_t prepare_wide() {   // once
-  static const cudaError_t err = cudaFuncSetAttribute(
-      attention_tf32_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemW);
-  return err;
+__global__ void __cluster_dims__(kHeads, 1, 1) __launch_bounds__(kThreads90, 1)
+    attention_tf32_wide(const ArgsW<float> a) {
+  attention_wide<float>(a);
 }
 
-int launch_wide(const ArgsW& a, cudaStream_t stream) {
-  const cudaError_t err = prepare_wide();
+__global__ void __cluster_dims__(kHeads, 1, 1) __launch_bounds__(kThreads90, 1)
+    attention_bf16_wide(const ArgsW<bf16> a) {
+  attention_wide<bf16>(a);
+}
+
+cudaError_t prepare_wide(int dtype) {   // once per dtype
+  static const cudaError_t f32 = cudaFuncSetAttribute(
+      attention_tf32_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemW);
+  static const cudaError_t b16 = cudaFuncSetAttribute(
+      attention_bf16_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemWB);
+  return dtype == 1 ? b16 : f32;
+}
+
+template <typename T>
+int launch_wide(const ArgsW<T>& a, cudaStream_t stream) {
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  const cudaError_t err = prepare_wide(kBf16 ? 1 : 0);
   if (err != cudaSuccess) return (int)err;
   const unsigned tiles = (unsigned)((a.B + a.ts - 1) / a.ts);
-  attention_tf32_wide<<<tiles * kHeads, kThreads90, kSmemW, stream>>>(a);
+  if constexpr (kBf16)
+    attention_bf16_wide<<<tiles * kHeads, kThreads90, kSmemWB, stream>>>(a);
+  else
+    attention_tf32_wide<<<tiles * kHeads, kThreads90, kSmemW, stream>>>(a);
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_wide_as(const void* x, const float* g, const void* Wqkv, const void* Wout,
+                   const float* bout, void* out, int B, int N, int C, float eps, float scale,
+                   cudaStream_t stream) {
+  ArgsW<T> a;
+  a.x = static_cast<const T*>(x);
+  a.g = g;
+  a.Wqkv = static_cast<const T*>(Wqkv);
+  a.Wout = static_cast<const T*>(Wout);
+  a.bout = bout;
+  a.out = static_cast<T*>(out);
+  a.B = B;
+  a.n = N;
+  a.C = C;
+  a.ts = kTileRows / N;
+  a.eps = eps;
+  a.scale = scale;
+  return launch_wide(a, stream);
 }
 
 }  // namespace
@@ -1157,63 +1383,59 @@ int set_attention_max_n() { return kMaxN; }
 // dynamic shared memory of one CTA of the kernel that takes the `dtype` (0
 // float32, 1 bfloat16) call at C channels
 int set_attention_smem_bytes(int dtype, int C) {
-  return (int)(dtype == 1 ? kSmem90 : C == kC ? kSmemT : kSmemW);
+  if (C != kC) return (int)(dtype == 1 ? kSmemWB : kSmemW);
+  return (int)(dtype == 1 ? kSmem90 : kSmemT);
 }
 // clusters of 4 CTAs of that kernel that fit on the card at once, or minus
 // a cudaError_t code
 int set_attention_max_active_clusters(int dtype, int C) {
-  if (dtype == 1) return resident_clusters();
   const bool wide = C != kC;
-  const cudaError_t err = wide ? prepare_wide() : prepare_tf32();
+  if (dtype == 1 && !wide) return resident_clusters();
+  const cudaError_t err = wide ? prepare_wide(dtype) : prepare_tf32();
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(kHeads * 64);
   cfg.blockDim = dim3(kThreads90);
-  cfg.dynamicSmemBytes = wide ? kSmemW : kSmemT;
+  cfg.dynamicSmemBytes = set_attention_smem_bytes(dtype, C);
   int clusters = 0;
-  const cudaError_t e = wide ? cudaOccupancyMaxActiveClusters(&clusters, attention_tf32_wide, &cfg)
-                             : cudaOccupancyMaxActiveClusters(&clusters, attention_tf32, &cfg);
+  const cudaError_t e =
+      !wide         ? cudaOccupancyMaxActiveClusters(&clusters, attention_tf32, &cfg)
+      : dtype == 1 ? cudaOccupancyMaxActiveClusters(&clusters, attention_bf16_wide, &cfg)
+                    : cudaOccupancyMaxActiveClusters(&clusters, attention_tf32_wide, &cfg);
   return e == cudaSuccess ? clusters : -(int)e;
 }
 
-// float32 through attention_tf32_wide at C = 256, 512 or 1024 (weights
-// packed by pack_attention_weights_tf32); set_attention_launch sends C = 512
-// to attention_tf32, and calls this at the other widths.  Returns as
-// set_attention_launch.
-int set_attention_launch_wide(const void* x, const float* g, const void* Wqkv, const void* Wout,
-                              const float* bout, void* out, int B, int N, int C, int heads,
-                              int dh, float eps, void* stream) {
+// The wide kernel of `dtype` at C = 256, 512 or 1024 (weights packed by
+// pack_attention_weights_tf32, or by pack_attention_weights with the k
+// permuted); set_attention_launch sends C = 512 to the C = 512 kernels, and
+// calls this at the other widths.  Returns as set_attention_launch.
+int set_attention_launch_wide(int dtype, const void* x, const float* g, const void* Wqkv,
+                              const void* Wout, const float* bout, void* out, int B, int N, int C,
+                              int heads, int dh, float eps, void* stream) {
   if (B < 1 || N < 1 || N > kMaxN || heads != kHeads || dh != kDh) return -1;
-  if (C != 256 && C != kC && C != kMaxCW) return -1;
-  ArgsW a;
-  a.x = static_cast<const float*>(x);
-  a.g = g;
-  a.Wqkv = static_cast<const float*>(Wqkv);
-  a.Wout = static_cast<const float*>(Wout);
-  a.bout = bout;
-  a.out = static_cast<float*>(out);
-  a.B = B;
-  a.n = N;
-  a.C = C;
-  a.ts = kTileRows / N;
-  a.eps = eps;
-  a.scale = (float)pow((double)dh, -0.5);
-  return launch_wide(a, static_cast<cudaStream_t>(stream));
+  if ((C != 256 && C != kC && C != kMaxCW) || (dtype != 0 && dtype != 1)) return -1;
+  const float scale = (float)pow((double)dh, -0.5);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 1) return launch_wide_as<bf16>(x, g, Wqkv, Wout, bout, out, B, N, C, eps, scale, s);
+  return launch_wide_as<float>(x, g, Wqkv, Wout, bout, out, B, N, C, eps, scale, s);
 }
 
 // dtype: 0 float32 (weights packed by pack_attention_weights_tf32), 1
-// bfloat16 (by pack_attention_weights).  Both take 4 heads of 32 and N <=
-// 24; bfloat16 C = 512, float32 C = 256, 512 or 1024 (attention_tf32 at
-// 512, attention_tf32_wide at the others).  Returns a cudaError_t code (0
-// on success), or -1 for arguments the kernels do not take.
+// bfloat16 (by pack_attention_weights, the k permuted for the wide
+// kernel).  Both take 4 heads of 32, N <= 24 and C = 256, 512 or 1024
+// (attention_tf32 or attention_sm90 at 512, the dtype's wide kernel at the
+// others).  Returns a cudaError_t code (0 on success), or -1 for arguments
+// the kernels do not take.
 int set_attention_launch(int dtype, const void* x, const float* g, const void* Wqkv,
                          const void* Wout, const float* bout, void* out, int B, int N, int C,
                          int heads, int dh, float eps, void* stream) {
   if (B < 1 || N < 1 || N > kMaxN || heads != kHeads || dh != kDh) return -1;
+  if ((dtype != 0 && dtype != 1) || (C != 256 && C != kC && C != kMaxCW)) return -1;
+  if (C != kC) return set_attention_launch_wide(dtype, x, g, Wqkv, Wout, bout, out, B, N, C, heads,
+                                                dh, eps, stream);
   const float scale = (float)pow((double)dh, -0.5);   // dim_head ** -0.5, as the twin
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) {
-    if (C != kC) return -1;
     Args90 a;
     a.x = static_cast<const bf16*>(x);
     a.g = g;
@@ -1229,9 +1451,6 @@ int set_attention_launch(int dtype, const void* x, const float* g, const void* W
     a.scale = scale;
     return launch_sm90(a, s);
   }
-  if (dtype != 0 || (C != 256 && C != kC && C != kMaxCW)) return -1;
-  if (C != kC) return set_attention_launch_wide(x, g, Wqkv, Wout, bout, out, B, N, C, heads, dh,
-                                                eps, stream);
   ArgsT a;
   a.x = static_cast<const float*>(x);
   a.g = g;

@@ -31,7 +31,10 @@
 //   (set_attention.cu) take its split A fragments (load_a), its products
 //   (products_3x) and a ring of larger stages (RingT); the wide f32
 //   ResnetBlock kernel its K step with A from device memory
-//   (load_a_global, stream_products) and a ring of two warpgroups' chunks.
+//   (load_a_global, stream_products) and a ring of two warpgroups' chunks;
+//   the bf16 wide ResnetBlock and set-attention kernels its bf16 counterpart
+//   (load_a_global_bf16, stream_products_bf16: A fragments of a 64-deep K
+//   step from device memory, the weights' k permuted to match).
 //
 // The weight chunk layout.  A chunk is one 64-deep K tile of one group of 64
 // output columns, (k, n) in [0, 64)^2, stored as 8 x 8 core matrices of 8 n
@@ -647,24 +650,26 @@ __device__ __forceinline__ void products_3x(float (&d)[32], const uint32_t (&ah)
   }
 }
 
-// A weight ring of kStages stages of kStageFloats floats: the producer's
-// side (put) and the consumers' (take, give; every consumer thread gives),
-// each thread with its own position (s, ph)
-template <int kStages, int kStageFloats>
+// A weight ring of kStages stages of kStageElems elements of E (float, or
+// bf16 for the bf16 wide kernels): the producer's side (put) and the
+// consumers' (take, give; every consumer thread gives), each thread with
+// its own position (s, ph)
+template <int kStages, int kStageElems, class E = float>
 struct RingT {
-  float* base;
+  E* base;
   uint64_t* full;
   uint64_t* empty;
   int s;
   uint32_t ph;
   // producer: `pieces` blocks of `bytes`, from src, src + stride, ..., back
   // to back into the next stage, once it is free
-  __device__ __forceinline__ void put(const float* src, uint32_t bytes = kStageFloats * 4,
+  __device__ __forceinline__ void put(const E* src, uint32_t bytes = kStageElems * sizeof(E),
                                       int pieces = 1, size_t stride = 0) {
     mbar_wait(&empty[s], ph ^ 1);
     mbar_expect_tx(&full[s], bytes * pieces);
     for (int i = 0; i < pieces; ++i)
-      bulk_load(base + s * kStageFloats + i * (bytes / 4), src + i * stride, bytes, &full[s]);
+      bulk_load(base + s * kStageElems + i * (bytes / sizeof(E)), src + i * stride, bytes,
+                &full[s]);
     if (++s == kStages) s = 0, ph ^= 1;
   }
   __device__ __forceinline__ int take() {   // the next stage, once its chunk has landed
@@ -673,7 +678,7 @@ struct RingT {
     if (++s == kStages) s = 0, ph ^= 1;
     return st;
   }
-  __device__ __forceinline__ const float* chunk(int st) const { return base + st * kStageFloats; }
+  __device__ __forceinline__ const E* chunk(int st) const { return base + st * kStageElems; }
   __device__ __forceinline__ void give(int st) { mbar_arrive_if(&empty[st], true); }
 };
 // the f32 ResnetBlock and chain kernels' ring: a split chunk (16 KB) a stage
@@ -723,6 +728,82 @@ __device__ __forceinline__ void stream_products(float (&d)[32], float (&dr)[32],
     retire_step<kRes>(d, dr, s, w);
     s = issue_step<kRes>(d, dr, h1, l1, w, part);
     if (st + 2 < nsteps) load(st + 2, h0, l0);
+    retire_step<kRes>(d, dr, s, w);
+  }
+}
+
+// ---- the bf16 K step with A from device memory (the bf16 wide kernels) ----
+//
+// A thread's A fragments of one 64-deep K step of wgmma m64n64k16 are 16
+// values of each of its rows g and g + 8.  The wide kernels' bf16 weights
+// are packed with the step's k permuted (pack_group_tiles(..., permuted) in
+// ops/fused_resblock.py): fragment k = 16 j + 8 h + 2 t + e of k16 step j
+// holds row 16 t + 4 j + 2 h + e of the step, so lane (g, t) reads the 16
+// contiguous columns [16 t, 16 t + 16) of each row as two 16-byte loads,
+// 32-bit word 2 j + h of them its fragment of k16 step j, half h.
+
+// The fragments of one step from device memory: p0 and p1 point at this
+// thread's 16 columns (16 (lane % 4) on from the step's first) of its rows
+// g and g + 8, read through L2 only (ld.global.cg: the bytes may have been
+// written by another CTA of the cluster in this launch).  af[j]: k16 step
+// j's {(g, 2j), (g + 8, 2j), (g, 2j + 1), (g + 8, 2j + 1)} in words.
+__device__ __forceinline__ void load_a_global_bf16(const __nv_bfloat16* p0,
+                                                   const __nv_bfloat16* p1,
+                                                   uint32_t (&af)[4][4]) {
+  const uint4* q[2] = {reinterpret_cast<const uint4*>(p0), reinterpret_cast<const uint4*>(p1)};
+  uint32_t w[2][8];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const uint4 u = __ldcg(q[r]), v = __ldcg(q[r] + 1);
+    w[r][0] = u.x, w[r][1] = u.y, w[r][2] = u.z, w[r][3] = u.w;
+    w[r][4] = v.x, w[r][5] = v.y, w[r][6] = v.z, w[r][7] = v.w;
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    af[j][0] = w[0][2 * j];
+    af[j][1] = w[1][2 * j];
+    af[j][2] = w[0][2 * j + 1];
+    af[j][3] = w[1][2 * j + 1];
+  }
+}
+
+// Issue one bf16 K step's products: the fragments times the ring's next
+// chunk (a 64-deep chunk of pack_group_tiles, at `part` elements into the
+// stage) into d, and the one after it into dr when kRes.  Returns the
+// stages for retire_step.
+template <bool kRes, class Ring>
+__device__ __forceinline__ int2 issue_step_bf16(float (&d)[32], float (&dr)[32],
+                                                const uint32_t (&af)[4][4], Ring& w,
+                                                int part = 0) {
+  const int s1 = w.take();
+  const int s2 = kRes ? w.take() : s1;
+  const uint64_t b1 = chunk_desc(w.chunk(s1) + part), b2 = chunk_desc(w.chunk(s2) + part);
+  wgmma_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    wgmma_m64n64k16(d, af[j], desc_add(b1, j * kChunkKStep));
+    if constexpr (kRes) wgmma_m64n64k16(dr, af[j], desc_add(b2, j * kChunkKStep));
+  }
+  wgmma_commit();
+  return make_int2(s1, s2);
+}
+
+// stream_products in bf16: `nsteps` (any count) 64-deep K steps,
+// load(st, af) loading K step st's fragments (load_a_global_bf16), the next
+// step's while a step's products run
+template <bool kRes, class Ring, class Load>
+__device__ __forceinline__ void stream_products_bf16(float (&d)[32], float (&dr)[32], int nsteps,
+                                                     Load load, Ring& w, int part = 0) {
+  uint32_t a0[4][4], a1[4][4];
+  load(0, a0);
+#pragma unroll 1
+  for (int st = 0; st < nsteps; st += 2) {
+    int2 s = issue_step_bf16<kRes>(d, dr, a0, w, part);
+    if (st + 1 < nsteps) load(st + 1, a1);
+    retire_step<kRes>(d, dr, s, w);
+    if (st + 1 == nsteps) break;
+    s = issue_step_bf16<kRes>(d, dr, a1, w, part);
+    if (st + 2 < nsteps) load(st + 2, a0);
     retire_step<kRes>(d, dr, s, w);
   }
 }

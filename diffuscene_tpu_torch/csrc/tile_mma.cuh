@@ -1,7 +1,7 @@
 // Device helpers shared by the cluster kernels (fused_resblock.cu,
 // fused_chain.cu, set_attention.cu, through sm90.cuh), for sm_90a:
 //
-// - float <-> storage-type conversions and rounding;
+// - float <-> storage-type conversions, rounding and pair loads;
 // - ldmatrix of a bf16 A fragment (by all lanes of a warp).
 #pragma once
 
@@ -39,6 +39,18 @@ __device__ __forceinline__ void st2<float>(float* p, float a, float b) {
 template <>
 __device__ __forceinline__ void st2<__nv_bfloat16>(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// two adjacent elements to float
+template <typename T>
+__device__ __forceinline__ float2 ld2(const T* p);
+template <>
+__device__ __forceinline__ float2 ld2<float>(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+template <>
+__device__ __forceinline__ float2 ld2<__nv_bfloat16>(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {

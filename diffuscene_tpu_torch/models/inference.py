@@ -434,12 +434,12 @@ def block_shapes(net: Unet1D):
 
 def check_card_widths(net: Unet1D) -> None:
     """Raise ``ValueError`` unless the card's ResnetBlock and set-attention
-    kernels (B1, B2) in the model's compute dtype take every block of
-    ``net`` (:func:`block_shapes`) and its ``mid_attn``: in f32 C = 256, 512
-    or 1024 in 4, 8, 16 or 32 GroupNorm groups of at least 16 channels,
-    inputs up to 2048 wide; in bf16 C = 512 in 8 groups (ROADMAP §C, "Known
-    narrowing").  A model outside samples on the card through the module
-    forward, ``fused=False``; nothing is launched before this raises."""
+    kernels (B1, B2) take every block of ``net`` (:func:`block_shapes`) and
+    its ``mid_attn``: one set for both dtypes, C = 256, 512 or 1024 in 4,
+    8, 16 or 32 GroupNorm groups of at least 16 channels, inputs up to 2048
+    wide (ROADMAP §C, "Known narrowing").  A model outside samples on the
+    card through the module forward, ``fused=False``; nothing is launched
+    before this raises."""
     dt, groups = net.compute_dtype, net.resnet_block_groups
     try:
         for C, kx, ks in block_shapes(net):
@@ -448,8 +448,8 @@ def check_card_widths(net: Unet1D) -> None:
     except ValueError as e:
         widths = sorted({net.dim} | {net.dim * m for m in net.dim_mults})
         raise ValueError(
-            f"the card's {dt} B1/B2 kernels do not take this model ({widths} wide in "
-            f"{groups} groups): {e}; sample it with fused=False") from None
+            f"the card's B1/B2 kernels do not take this model ({widths} wide in {groups} "
+            f"groups): {e}; sample it with fused=False") from None
 
 
 @torch.no_grad()

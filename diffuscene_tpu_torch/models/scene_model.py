@@ -493,8 +493,8 @@ class SceneDiffusion:
         (weights, FiLM rows, a text model's 9 cross-attention contexts) are
         made here, once a sampling call.  ``"rows"`` on unequal level dims
         serves the 3-D engine, as the JAX package does; on the card the
-        3-D engine takes only the widths and groupings its kernels take in
-        the model's dtype (``inference.check_card_widths`` raises
+        3-D engine takes only the widths and groupings its kernels take,
+        one set for both dtypes (``inference.check_card_widths`` raises
         otherwise, before any launch)."""
         if fused is False:
             def fn(x, t):

@@ -31,17 +31,20 @@ cannot take raises.
 
 The kernels are cluster kernels for Hopper: a tile of whole scenes (at most
 ``TILE_ROWS`` rows, the wgmma M) is one cluster of CTAs, each owning 64 or
-128 output columns.  bf16 takes C = 512 in 8 groups and input widths of
-multiples of 64 summing to a multiple of 128, at most 1024 (its K loop
-takes two 64-deep tiles a step).  f32 takes the set of :func:`f32_takes`:
-C = 256, 512 or 1024 in 4, 8, 16 or 32 groups of at least 16 channels,
-input widths of multiples of 64 up to 2048 together; C = 512 in 8 groups
-runs ``resblock_tf32`` (CTA g owning group g's 64 columns), every other
-shape the wide kernel ``resblock_tf32_wide`` (:func:`f32_kernel`).  Both
-run their products in split TF32: three tf32 products per f32 product,
-never one.  :func:`tile_plan` is each kernel's launch and shared-memory
-plan, and :func:`pack_group_tiles` (bf16) and :func:`pack_tf32_tiles` (f32,
-split into tf32 hi and lo) the weight layouts their bulk copies read.
+128 output columns.  Both dtypes take one set (:func:`takes`): C = 256, 512
+or 1024 in 4, 8, 16 or 32 groups of at least 16 channels, x and skip widths
+of multiples of 64 up to 2048 together, scenes of at most 64 rows.  Within
+it :func:`kernel_name` routes a block: C = 512 in 8 groups to the
+cluster-of-8 kernels (``resblock_sm90``, bf16, where its whole x tile fits:
+inputs of a multiple of 128 columns up to 1024 and an identity residual
+over x alone; ``resblock_tf32``, f32), every other block to the dtype's
+wide kernel (``resblock_bf16_wide``, ``resblock_tf32_wide``; one body, A
+fragments from L2, h through a device scratch).  The f32 kernels run their
+products in split TF32: three tf32 products per f32 product, never one.
+:func:`tile_plan` is each kernel's launch and shared-memory plan, and
+:func:`pack_group_tiles` (bf16; ``permuted`` for the wide kernel) and
+:func:`pack_tf32_tiles` (f32, split into tf32 hi and lo) the weight layouts
+their bulk copies read.
 """
 from __future__ import annotations
 
@@ -56,22 +59,21 @@ from . import build
 
 CSRC = build.CSRC_DIR / "fused_resblock.cu"
 # the cluster kernels (csrc/fused_resblock.cu, csrc/sm90.cuh)
-TILE_ROWS = 64     # rows of a scene tile: the wgmma M (kTileRows)
-# rows of one scene each kernel takes: a scene tile's
-MAX_ROWS = {torch.float32: TILE_ROWS, torch.bfloat16: TILE_ROWS}
-# x and skip widths together (kMaxIn, kMaxInF)
-MAX_IN = {torch.float32: 2048, torch.bfloat16: 1024}
-CLUSTER = 8        # bf16 (and the f32 C=512 kernel): CTAs of a tile's cluster, one per group
-CHANNELS = 512     # bf16: C, so 64 columns per group
-# the f32 set: widths, GroupNorm groups, the fewest channels a group
-F32_CHANNELS = (256, 512, 1024)
-F32_GROUPS = (4, 8, 16, 32)
-F32_MIN_GROUP = 16
+TILE_ROWS = 64     # rows of a scene tile: the wgmma M (kTileRows), the most of one scene
+# the set both dtypes take: widths, GroupNorm groups, the fewest channels a
+# group, x and skip widths together (kMaxIn)
+SET_CHANNELS = (256, 512, 1024)
+SET_GROUPS = (4, 8, 16, 32)
+MIN_GROUP = 16
+MAX_IN = 2048
+MAX_IN_90 = 1024   # resblock_sm90's inputs (kMaxIn90: its x tile sits whole)
+CLUSTER = 8        # the C=512 kernels (and B4): CTAs of a tile's cluster, one per group
+CHANNELS = 512     # their C, so 64 columns per group
 K_TILE = 64        # depth of one weight chunk
 CHUNK_BYTES = K_TILE * (CHANNELS // CLUSTER) * 2      # a bf16 weight chunk (64 deep)
 F32_STEP = 32                                         # depth of an f32 weight chunk
 F32_CHUNK_BYTES = 2 * F32_STEP * (CHANNELS // CLUSTER) * 4   # its tf32 hi and lo
-WIDE_STAGES = 4    # the wide f32 kernel's ring (kStagesW)
+WIDE_STAGES = 4    # the wide kernels' ring (kStagesW)
 SMEM_LIMIT = 232448    # dynamic shared memory one CTA may use on an H100
 
 
@@ -83,24 +85,31 @@ class TilePlan(NamedTuple):
     smem_bytes: int     # dynamic shared memory of one CTA
 
 
-def f32_takes(C: int, groups: int, kx: int, ks: int = 0, n: int = 1) -> bool:
-    """Whether the f32 kernels take a block of C channels in ``groups``
-    GroupNorm groups, [x | skip] inputs of kx + ks columns and scenes of n
-    rows: C in F32_CHANNELS, groups in F32_GROUPS with at least
-    F32_MIN_GROUP channels each, kx and ks multiples of 64 (kx > 0) up to
-    2048 together, n <= 64."""
-    return (C in F32_CHANNELS and groups in F32_GROUPS and C // groups >= F32_MIN_GROUP
+def takes(C: int, groups: int, kx: int, ks: int = 0, n: int = 1) -> bool:
+    """Whether the kernels (either dtype) take a block of C channels in
+    ``groups`` GroupNorm groups, [x | skip] inputs of kx + ks columns and
+    scenes of n rows: C in SET_CHANNELS, groups in SET_GROUPS with at least
+    MIN_GROUP channels each, kx and ks multiples of 64 (kx > 0) up to
+    MAX_IN together, n <= 64."""
+    return (C in SET_CHANNELS and groups in SET_GROUPS and C // groups >= MIN_GROUP
             and kx > 0 and not kx % K_TILE and not ks % K_TILE
-            and kx + ks <= MAX_IN[torch.float32] and 1 <= n <= TILE_ROWS)
+            and kx + ks <= MAX_IN and 1 <= n <= TILE_ROWS)
 
 
-def f32_kernel(C: int, groups: int, ks: int = 0, has_res: bool = True) -> str:
-    """The f32 kernel of a block: ``resblock_tf32`` at C = 512 in 8 groups
-    (with a residual projection, or an identity residual over x alone),
-    ``resblock_tf32_wide`` for the rest of the set."""
+def kernel_name(dt, C: int, groups: int, kx: int, ks: int = 0, has_res: bool = True) -> str:
+    """The kernel of a block of the set in ``dt``: at C = 512 in 8 groups
+    with a residual projection or an identity residual over x alone the
+    cluster-of-8 kernel (bf16 ``resblock_sm90`` only where its whole x tile
+    fits: inputs of a multiple of 128 columns up to 1024; f32
+    ``resblock_tf32``), else the dtype's wide kernel (the library's
+    ``cluster8``)."""
+    kin = kx + ks
     if C == CHANNELS and groups == CLUSTER and (has_res or not ks):
-        return "resblock_tf32"
-    return "resblock_tf32_wide"
+        if dt == torch.float32:
+            return "resblock_tf32"
+        if not kin % (2 * K_TILE) and kin <= MAX_IN_90:
+            return "resblock_sm90"
+    return "resblock_tf32_wide" if dt == torch.float32 else "resblock_bf16_wide"
 
 
 def wide_warpgroups(C: int) -> int:
@@ -111,16 +120,17 @@ def wide_warpgroups(C: int) -> int:
 
 def tile_plan(B: int, n: int, kx: int, ks: int = 0, dtype=torch.bfloat16, C: int = CHANNELS,
               groups: int = CLUSTER, has_res: Optional[bool] = None) -> TilePlan:
-    """The launch of the ``dtype`` kernel that takes the block (C channels
-    in ``groups`` groups, [x | skip] inputs of kx + ks columns, a residual
-    projection when ``has_res``, by default when kx + ks != C) for B
-    scenes of n rows; its shared-memory sum mirrors ``layout()`` (bf16),
-    ``layout_tf32()`` (resblock_tf32) or ``layout_wide()``
-    (resblock_tf32_wide) in the .cu (``fused_resblock_smem_bytes``).
+    """The launch of the kernel that takes the block (C channels in
+    ``groups`` groups, [x | skip] inputs of kx + ks columns, a residual
+    projection when ``has_res``, by default when kx + ks != C) in
+    ``dtype`` (:func:`kernel_name`) for B scenes of n rows; its
+    shared-memory sum mirrors ``layout()`` (resblock_sm90),
+    ``layout_tf32()`` (resblock_tf32) or ``layout_wide()`` (the wide
+    kernels) in the .cu (``fused_resblock_smem_bytes``).
 
-    bf16: the weight ring (4 stages, 8 past 512 input columns), the
-    [x | skip] tile (64 rows, padded by 8; later the gathered (64, 512) h),
-    the CTA's 64 columns of the 7 vectors, row sums and squares, scene
+    resblock_sm90: the weight ring (4 stages, 8 past 512 input columns),
+    the [x | skip] tile (64 rows, padded by 8; later the gathered (64, 512)
+    h), the CTA's 64 columns of the 7 vectors, row sums and squares, scene
     moments, 25 mbarriers (the ring's full and empty ones, the x tile's, one
     for each CTA's slice of the gathered h).
 
@@ -132,25 +142,28 @@ def tile_plan(B: int, n: int, kx: int, ks: int = 0, dtype=torch.bfloat16, C: int
     empty ones, the slots' full and empty ones, one for each CTA's slice of
     h).
 
-    resblock_tf32_wide (one or two consumer warpgroups, :func:`wide_warpgroups`;
-    a cluster of C / 64 / warpgroups CTAs): the weight ring (4 stages of one
-    16 KB chunk a warpgroup), the CTA's columns of the 7 vectors, each
-    row's sums and squares in 8-column blocks, each scene's partial sums
-    and its mean and rsqrt for up to 4 groups a warpgroup (float2), 8
-    mbarriers."""
+    resblock_tf32_wide and resblock_bf16_wide (one or two consumer
+    warpgroups, :func:`wide_warpgroups`; a cluster of C / 64 / warpgroups
+    CTAs): the weight ring (4 stages of one chunk a warpgroup: a 32-deep
+    split f32 chunk of 16 KB, or a 64-deep bf16 chunk of 8 KB), the CTA's
+    columns of the 7 vectors, each row's sums and squares in 8-column
+    blocks, each scene's partial sums and its mean and rsqrt for up to 4
+    groups a warpgroup (float2), 8 mbarriers."""
     kin = kx + ks
     group = CHANNELS // CLUSTER
     rows = TILE_ROWS
     if has_res is None:
         has_res = kin != C
+    kernel = kernel_name(dtype, C, groups, kx, ks, has_res)
     ctas = CLUSTER
-    if dtype == torch.float32 and f32_kernel(C, groups, ks, has_res) == "resblock_tf32_wide":
+    if kernel.endswith("_wide"):
         wg = wide_warpgroups(C)
         stages = WIDE_STAGES
-        smem = (stages * wg * F32_CHUNK_BYTES + 7 * wg * group * 4 + 2 * wg * rows * 8 * 4
+        chunk = F32_CHUNK_BYTES if dtype == torch.float32 else CHUNK_BYTES
+        smem = (stages * wg * chunk + 7 * wg * group * 4 + 2 * wg * rows * 8 * 4
                 + 2 * wg * 4 * rows * 8 + 2 * stages * 8)
         ctas = C // (group * wg)
-    elif dtype == torch.float32:
+    elif kernel == "resblock_tf32":
         stages = 5
         smem = (stages * F32_CHUNK_BYTES + CLUSTER * rows * (group + 4) * 4 + 7 * group * 4
                 + 2 * rows * 4 + 2 * rows * 4 + (2 * stages + 3 * CLUSTER) * 8)
@@ -163,29 +176,37 @@ def tile_plan(B: int, n: int, kx: int, ks: int = 0, dtype=torch.bfloat16, C: int
     return TilePlan(ts, tiles, ctas * tiles, stages, smem)
 
 
-def _check_chunked(w: torch.Tensor, name: str, widths=(CHANNELS,)) -> None:
+def _check_chunked(w: torch.Tensor, name: str) -> None:
     K, C = w.shape
-    if K % K_TILE or C not in widths:
-        raise ValueError(f"{name} takes ({K_TILE}k, C) weights with C in {widths}, got {(K, C)}")
+    if K % K_TILE or C not in SET_CHANNELS:
+        raise ValueError(f"{name} takes ({K_TILE}k, C) weights with C in {SET_CHANNELS}, "
+                         f"got {(K, C)}")
 
 
-def pack_group_tiles(w: torch.Tensor) -> torch.Tensor:
-    """A (K, 512) (in, out) weight as the bf16 kernel's chunks, flat: chunk
-    (g, kt) holds rows [64 kt, 64 kt + 64) of group g's columns [64 g,
-    64 g + 64), 4096 elements from (g * K / 64 + kt) * 4096, in the wgmma
-    no-swizzle core-matrix layout of csrc/sm90.cuh: (k, n) of the chunk at
-    ((k // 8) * 8 + n // 8) * 64 + (n % 8) * 8 + k % 8.  With K = kx + ks
-    and kx a multiple of 64, the first kx / 64 chunks of a group are its x
-    rows and the rest its skip rows.  Done once per weight set."""
+def pack_group_tiles(w: torch.Tensor, permuted: bool = False) -> torch.Tensor:
+    """A (K, C) (in, out) weight, C in SET_CHANNELS, as the bf16 kernels'
+    chunks, flat: chunk (g, kt) holds rows [64 kt, 64 kt + 64) of the 64
+    columns [64 g, 64 g + 64) (a GroupNorm group's in resblock_sm90; a CTA's,
+    or one warpgroup's of it, in the wide kernel), 4096 elements from (g *
+    K / 64 + kt) * 4096, in the wgmma no-swizzle core-matrix layout of
+    csrc/sm90.cuh: (k, n) of the chunk at ((k // 8) * 8 + n // 8) * 64 + (n
+    % 8) * 8 + k % 8.  ``permuted`` (resblock_bf16_wide, which reads its A
+    fragments from device memory, ``load_a_global_bf16``): the chunk's k =
+    16 j + 8 h + 2 t + e holds row 16 t + 4 j + 2 h + e of the K tile, so
+    that each thread's fragments are 16 contiguous columns.  With K = kx +
+    ks and kx a multiple of 64, the first kx / 64 chunks of a column block
+    are its x rows and the rest its skip rows.  Done once per weight set."""
     _check_chunked(w, "pack_group_tiles")
     K, C = w.shape
+    if permuted:   # (kt, t, j, h, e) -> (kt, j, h, t, e)
+        w = w.reshape(K // 64, 4, 4, 2, 2, C).permute(0, 2, 3, 1, 4, 5).reshape(K, C)
     G = C // 64
     # (kt, kb, k8, g, nb, n8) -> (g, kt, kb, nb, n8, k8)
     return w.reshape(K // 64, 8, 8, G, 8, 8).permute(3, 0, 1, 4, 5, 2).contiguous().reshape(-1)
 
 
 def pack_tf32_tiles(w: torch.Tensor) -> torch.Tensor:
-    """A (K, C) (in, out) f32 weight, C in F32_CHANNELS, as the f32
+    """A (K, C) (in, out) f32 weight, C in SET_CHANNELS, as the f32
     kernels' chunks, flat: chunk (g, st) holds rows [32 st, 32 st + 32) of
     the 64 columns [64 g, 64 g + 64) (a GroupNorm group's at C = 512 in 8
     groups; a CTA's, or one warpgroup's of it, in the wide kernel), 4096
@@ -197,7 +218,7 @@ def pack_tf32_tiles(w: torch.Tensor) -> torch.Tensor:
     k is permuted so that each consumer thread reads its A fragments as
     contiguous columns (``load_a`` in the .cu): kappa = 8 j + t + 4 h holds
     row 32 st + 8 t + 2 j + h.  Done once per weight set."""
-    _check_chunked(w, "pack_tf32_tiles", F32_CHANNELS)
+    _check_chunked(w, "pack_tf32_tiles")
     K, C = w.shape
 
     def part(v):   # (st, t, j, h, g, nb, n8) -> (g, st, j, h, nb, n8, t)
@@ -295,18 +316,15 @@ def load_library() -> ctypes.CDLL:
         ci, vp, vp, vp, ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_float, vp,
     ]
     lib.fused_resblock_launch.restype = ci
-    for fn, args in ((lib.fused_resblock_max_rows, [ci]), (lib.fused_resblock_max_in, [ci]),
+    for fn, args in ((lib.fused_resblock_max_rows, []), (lib.fused_resblock_max_in, []),
                      (lib.fused_resblock_smem_bytes, [ci] * 6),
                      (lib.fused_resblock_max_active_clusters, [ci] * 6)):
         fn.argtypes, fn.restype = args, ci
-    codes = build.DTYPE_CODES.items()
-    limits = ({dt: lib.fused_resblock_max_rows(code) for dt, code in codes},
-              {dt: lib.fused_resblock_max_in(code) for dt, code in codes})
-    shapes = [(dt, code, CHANNELS, CLUSTER, kx, ks) for dt, code in codes
-              for kx, ks in ((512, 0), (1024, 0), (512, 512))]
-    shapes += [(torch.float32, 0, C, groups, kx, ks) for C, groups, kx, ks in (
-        (256, 8, 256, 0), (512, 4, 512, 0), (512, 8, 256, 256), (1024, 8, 1024, 1024))]
-    if limits != (MAX_ROWS, MAX_IN) or any(
+    shapes = [(dt, code, C, groups, kx, ks) for dt, code in build.DTYPE_CODES.items()
+              for C, groups, kx, ks in (
+                  (512, 8, 512, 0), (512, 8, 1024, 0), (512, 8, 512, 512), (256, 8, 256, 0),
+                  (512, 4, 512, 0), (512, 8, 256, 256), (512, 8, 576, 0), (1024, 8, 1024, 1024))]
+    if (lib.fused_resblock_max_rows(), lib.fused_resblock_max_in()) != (TILE_ROWS, MAX_IN) or any(
             lib.fused_resblock_smem_bytes(code, C, groups, kx, ks, int(kx + ks != C))
             != tile_plan(1, 1, kx, ks, dt, C, groups).smem_bytes
             for dt, code, C, groups, kx, ks in shapes):
@@ -316,40 +334,50 @@ def load_library() -> ctypes.CDLL:
 
 def check_kernel_shapes(C: int, groups: int, kx: int, ks: int, n: int, has_res: bool,
                         dt) -> None:
-    """Raise ``ValueError`` unless the ``dt`` kernels take the block (the
-    library's ``-1``): f32, the set of :func:`f32_takes`; bf16, C=512 in 8
-    groups, input widths of multiples of 64 summing to a multiple of 128 up
-    to 1024, an identity residual over x alone, scenes of at most 64
-    rows."""
+    """Raise ``ValueError`` unless the kernels take the block (the
+    library's ``-1``): float32 or bfloat16, and the set of :func:`takes`,
+    the same for both dtypes."""
     if dt not in build.DTYPE_CODES:
         raise ValueError(f"the resblock kernel takes float32 or bfloat16, got {dt}")
-    if dt == torch.float32:
-        if not f32_takes(C, groups, kx, ks, n):
-            raise ValueError(
-                f"the {dt} resblock kernel takes C in {F32_CHANNELS} in {F32_GROUPS} groups of "
-                f"at least {F32_MIN_GROUP} channels, input widths of multiples of {K_TILE} up "
-                f"to {MAX_IN[dt]} together and at most {TILE_ROWS} rows per scene; got C={C}, "
-                f"groups={groups}, C_x={kx}, C_skip={ks}, N={n}")
-        return
-    if n > MAX_ROWS[dt]:
-        raise ValueError(f"the {dt} resblock kernel takes at most {MAX_ROWS[dt]} rows per scene, "
-                         f"got {n}")
-    step = 2 * K_TILE
-    if (C != CHANNELS or groups != CLUSTER or not kx or kx % K_TILE or ks % K_TILE
-            or (kx + ks) % step or kx + ks > MAX_IN[dt] or (ks and not has_res)):
-        raise ValueError(f"the {dt} resblock kernel takes C={CHANNELS} in {CLUSTER} groups and "
-                         f"input widths of multiples of {K_TILE} summing to a multiple of {step} "
-                         f"up to {MAX_IN[dt]}, an identity residual over x alone; got C={C}, "
-                         f"groups={groups}, C_x={kx}, C_skip={ks}")
+    if not takes(C, groups, kx, ks, n):
+        raise ValueError(
+            f"the resblock kernel takes C in {SET_CHANNELS} in {SET_GROUPS} groups of at least "
+            f"{MIN_GROUP} channels, input widths of multiples of {K_TILE} up to {MAX_IN} "
+            f"together and at most {TILE_ROWS} rows per scene; got C={C}, groups={groups}, "
+            f"C_x={kx}, C_skip={ks}, N={n}")
 
 
-def _kernel_weights(w: Optional[torch.Tensor], dt) -> Optional[torch.Tensor]:
-    """An (in, out) weight as the kernel reads it: :func:`pack_tf32_tiles`
-    (f32) or :func:`pack_group_tiles` (bf16) chunks."""
+def _kernel_weights(w: Optional[torch.Tensor], dt, kernel: str) -> Optional[torch.Tensor]:
+    """An (in, out) weight as ``kernel`` reads it: :func:`pack_tf32_tiles`
+    (f32) or :func:`pack_group_tiles` (bf16, ``permuted`` for the wide
+    kernel) chunks."""
     if w is None:
         return None
     w = w.to(dt)
-    return pack_tf32_tiles(w) if dt == torch.float32 else pack_group_tiles(w)
+    if dt == torch.float32:
+        return pack_tf32_tiles(w)
+    return pack_group_tiles(w, permuted=kernel == "resblock_bf16_wide")
+
+
+def kernel_operands(w1, b1, g1s, g1b, w2, b2, g2s, g2b, w_res, b_res, dt, kernel: str):
+    """The block's operands for ``kernel`` in ``dt``: its packed weights
+    (W1, W2, Wres or None) and its 7 vectors (b1, the GN1 scale and bias,
+    b2, the GN2 scale and bias, b_res) in f32, with their device and data
+    pointers; made once per weight set and dtype and kept on b1
+    (``build.prepared``; the kernel follows from the weights' shapes)."""
+    C = w1.shape[-1]
+
+    def make():
+        ops = (_kernel_weights(w1, dt, kernel), _kernel_weights(w2, dt, kernel),
+               _kernel_weights(w_res, dt, kernel),
+               torch.stack([v.float() for v in (b1, g1s, g1b, b2, g2s, g2b,
+                                                 b1.new_zeros(C) if b_res is None else b_res)]))
+        for name, w in zip(("w1", "w2", "w_res", "vectors"), ops):
+            if w is not None and w.data_ptr() % 16:
+                raise ValueError(f"{name} must be 16-byte aligned")
+        return ops, ops[3].device, tuple(None if w is None else w.data_ptr() for w in ops)
+
+    return build.prepared(b1, (w1, g1s, g1b, w2, b2, g2s, g2b, w_res, b_res), make, key=dt)
 
 
 def _launch_kernel(x, skip, film, w1, b1, g1s, g1b, w2, b2, g2s, g2b, w_res, b_res,
@@ -371,24 +399,14 @@ def _launch_kernel(x, skip, film, w1, b1, g1s, g1b, w2, b2, g2s, g2b, w_res, b_r
             film = film.to(dt)
         build.check_operand("film", film, dev, dt, film.shape)
         film_kind = 2 if film.shape[0] == M else 1
-
-    def make():
-        ops = (_kernel_weights(w1, dt), _kernel_weights(w2, dt), _kernel_weights(w_res, dt),
-               torch.stack([v.float() for v in (b1, g1s, g1b, b2, g2s, g2b,
-                                                 b1.new_zeros(C) if b_res is None else b_res)]))
-        for name, w in zip(("w1", "w2", "w_res", "vectors"), ops):
-            if w is not None and (w.device != dev or w.data_ptr() % 16):
-                raise ValueError(f"{name} must be 16-byte aligned on {dev}")
-        return ops, dev, tuple(None if w is None else w.data_ptr() for w in ops)
-
-    _, wdev, (w1p, w2p, wresp, vp) = build.prepared(
-        b1, (w1, g1s, g1b, w2, b2, g2s, g2b, w_res, b_res), make, key=dt)
+    kernel = kernel_name(dt, C, groups, kx, ks, w_res is not None)
+    _, wdev, (w1p, w2p, wresp, vp) = kernel_operands(w1, b1, g1s, g1b, w2, b2, g2s, g2b, w_res,
+                                                     b_res, dt, kernel)
     if wdev != dev:
         raise ValueError(f"the weights are on {wdev}, x on {dev}")
     out = x.new_empty((M, C))
-    # the wide kernel's block1 output goes through device memory
-    wide = dt == torch.float32 and f32_kernel(C, groups, ks, w_res is not None) != "resblock_tf32"
-    h = x.new_empty((M, C)) if wide else None
+    # the wide kernels' block1 output goes through device memory
+    h = x.new_empty((M, C)) if kernel.endswith("_wide") else None
     rc = load_library().fused_resblock_launch(
         build.DTYPE_CODES[dt], x.data_ptr(), None if skip is None else skip.data_ptr(),
         None if film is None else film.data_ptr(), film_kind, w1p, w2p, wresp, vp,
@@ -397,6 +415,7 @@ def _launch_kernel(x, skip, film, w1, b1, g1s, g1b, w2, b2, g2s, g2b, w_res, b_r
     )
     if rc != 0:
         raise RuntimeError(f"fused_resblock_launch failed with code {rc}")
+    fused_resnet_block.by_kernel[kernel] = fused_resnet_block.by_kernel.get(kernel, 0) + 1
     return out
 
 
@@ -420,7 +439,8 @@ def fused_resnet_block(
     """One ResnetBlock over all rows: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  Any number of whole scenes works (the
     kernel masks a ragged last tile).  ``fused_resnet_block.launches`` counts
-    the kernel launches."""
+    the kernel launches, ``fused_resnet_block.by_kernel`` them by kernel
+    name (:func:`kernel_name`)."""
     M = x.shape[0]
     n = n_per_scene
     C = w1.shape[-1]
@@ -447,3 +467,4 @@ def fused_resnet_block(
 
 
 fused_resnet_block.launches = 0
+fused_resnet_block.by_kernel = {}

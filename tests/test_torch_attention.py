@@ -68,6 +68,21 @@ def test_attention_matches_jax_pallas_at_the_set_widths(c, n):
     np.testing.assert_allclose(_run_torch(d, "f32", 1e-5), np.asarray(want), **TOL["f32"])
 
 
+@pytest.mark.parametrize("n", [12, 24])
+@pytest.mark.parametrize("c", [256, 1024])
+def test_bf16_attention_matches_jax_pallas_at_the_set_widths(c, n):
+    """The plain bf16 B2, which the card's bf16 wide kernel is held to,
+    against the JAX Pallas B2 (interpret mode) in bf16 at the set's other
+    widths (the same set as f32), up to the most objects a scene the
+    kernels take; the bf16 engine's eps (1e-3)."""
+    d = _case(seed=c + n + 1, n=n, c=c)
+    want = jat.fused_set_attention(jnp.asarray(d["x"]).astype(jnp.bfloat16),
+                                   *(jnp.asarray(d[k]) for k in ("g", "w_qkv", "w_out", "b_out")),
+                                   heads=H, dim_head=D, eps=1e-3, compute_dtype=jnp.bfloat16)
+    np.testing.assert_allclose(_run_torch(d, "bf16", 1e-3), np.asarray(want.astype(jnp.float32)),
+                               **TOL["bf16"])
+
+
 def test_attention_permutation_equivariance():
     d = _case(seed=1)
     perm = np.random.default_rng(2).permutation(N)
@@ -152,8 +167,8 @@ def test_attention_weight_packing_per_head(dtype, head):
                 c0 = 128 * head + 64 * u
                 torch.testing.assert_close(chunk[off], w_out[64 * kt:64 * kt + 64, c0:c0 + 64],
                                            rtol=0, atol=0)
-        with pytest.raises(ValueError):   # the kernel's widths only
-            tat.pack_attention_weights(w_qkv[:256], w_out[:, :256])
+        with pytest.raises(ValueError):   # the kernels' widths only
+            tat.pack_attention_weights(w_qkv[:384], w_out[:, :384])
         return
     qkv, out = tat.pack_attention_weights_tf32(w_qkv, w_out)
     assert qkv.shape == (2 * 512 * 384,) and out.shape == (2 * 128 * 512,)
@@ -208,6 +223,53 @@ def test_attention_weight_packing_tf32_at_the_set_widths(c):
                     torch.testing.assert_close(chunk[2048 * part:][_tf32_offsets(64)],
                                                parts_out[part][32 * st:32 * st + 32, c0:c0 + 64],
                                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("permuted", [False, True], ids=["plain", "wide"])
+@pytest.mark.parametrize("c", [256, 1024])
+def test_attention_weight_packing_bf16_at_the_set_widths(c, permuted):
+    """The bf16 kernels' weights at C = 256 and 1024: head h's C / 64
+    chunks of W_qkv from h * C / 64 * 6144 (``permuted``, the wide
+    kernel's: chunk row k = 16 j + 8 h + 2 t + e holds row 16 t + 4 j + 2 h
+    + e of the K tile, as pack_group_tiles(permuted=True)), and W_out's
+    chunk g (columns [64 g, 64 g + 64)) as its two 64-deep K tiles from g *
+    8192, each 32-deep half (one head's rows) 2048 elements."""
+    rng = np.random.default_rng(c + 1)
+    w_qkv = torch.from_numpy(rng.normal(size=(c, 384)).astype(np.float32))
+    w_out = torch.from_numpy(rng.normal(size=(128, c)).astype(np.float32))
+    qkv, out = tat.pack_attention_weights(w_qkv, w_out, permuted=permuted)
+    assert qkv.shape == (c * 384,) and out.shape == (128 * c,)
+    kappa = torch.arange(64)
+    if permuted:
+        j, h, t, e = kappa // 16, (kappa // 8) % 2, (kappa // 2) % 4, kappa % 2
+        kappa = 16 * t + 4 * j + 2 * h + e
+    tiles, off = c // 64, _core_matrix_offsets(64, 96)
+    for head in range(4):
+        cols = torch.cat([torch.arange(32 * head, 32 * head + 32) + 128 * p for p in range(3)])
+        for kt in (0, tiles - 1):
+            chunk = qkv[(head * tiles + kt) * 6144:][:6144]
+            torch.testing.assert_close(chunk[off], w_qkv[64 * kt + kappa][:, cols], rtol=0, atol=0)
+    off = _core_matrix_offsets(64, 64)
+    for g in range(c // 64):
+        for q in range(4):   # head q's 32 rows: half q % 2 of K tile q // 2
+            half = out[g * 8192 + q * 2048:][:2048]
+            torch.testing.assert_close(half[off[:32]], w_out[32 * q:32 * q + 32, 64 * g:64 * g + 64],
+                                       rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("c", [256, 1024])
+def test_attention_tile_plan_bf16_at_the_set_widths(c):
+    """The bf16 wide kernel's launch at C = 256 and 1024: one cluster of 4
+    CTAs a tile, no x tile in shared memory (a ring of 3 stages of 12 KB,
+    111,440 bytes a CTA at every width, within the H100's 232,448), each
+    CTA streaming its W_qkv columns (C x 96) and W_out block (128 x C / 4)
+    in bf16 once a tile."""
+    for n, scenes in ((12, 5), (21, 3), (24, 2)):
+        for B in (7, 64, 256):
+            plan = tat.tile_plan(B, n, dtype=torch.bfloat16, C=c)
+            tiles = -(-B // scenes)
+            per_cta = 2 * (c * 96 + 128 * c // 4)
+            assert tuple(plan) == (scenes, tiles, tiles, 4 * tiles, 111_440, 4 * tiles * per_cta)
 
 
 @pytest.mark.parametrize("c", [256, 1024])
@@ -287,17 +349,17 @@ def test_split_tf32_attention_matches_f32_attention(monkeypatch, n):
 @pytest.mark.parametrize("case", ["c256", "c384", "c1024", "c2048", "heads8x16", "n25",
                                   "n25_c1024"])
 def test_kernel_path_refuses_shapes_it_does_not_take(case, dtype):
-    """No fallback: the kernels take 4 heads of 32, N <= 24 and C=512 (bf16)
-    or C in (256, 512, 1024) (f32) only; anything else raises before any
+    """No fallback: the kernels take 4 heads of 32, N <= 24 and C in (256,
+    512, 1024), one set for both dtypes; anything else raises before any
     launch, through the shape check the launch path runs (here on CPU
-    tensors, before it builds).  C=256 and 1024 joined the f32 set with the
-    wide kernel: in f32 they pass that check."""
+    tensors, before it builds).  C=256 and 1024 joined the set with the
+    wide kernels (f32, then bf16): in either dtype they pass that check."""
     C, heads, dim_head, n = {"c256": (256, 4, 32, 12), "c384": (384, 4, 32, 12),
                              "c1024": (1024, 4, 32, 12), "c2048": (2048, 4, 32, 12),
                              "heads8x16": (512, 8, 16, 12), "n25": (512, 4, 32, 25),
                              "n25_c1024": (1024, 4, 32, 25)}[case]
     tdt = DTYPES[dtype][1]
-    if dtype == "f32" and case in ("c256", "c1024"):
+    if case in ("c256", "c1024"):
         tat.check_kernel_shapes(n, C, heads, dim_head, tdt)
         return
     with pytest.raises(ValueError):
@@ -345,8 +407,8 @@ def test_cuda_kernel_bf16_at_bench_batch_and_refusals():
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), atol=1e-1, rtol=5e-2)
     with pytest.raises(ValueError):
-        tat.fused_set_attention(x[:, :, :256].contiguous(), t["g"][:256], t["w_qkv"][:256],
-                                t["w_out"][:, :256], t["b_out"][:256])
+        tat.fused_set_attention(x[:, :, :384].contiguous(), t["g"][:384], t["w_qkv"][:384],
+                                t["w_out"][:, :384], t["b_out"][:384])
 
 
 @pytest.mark.gpu
@@ -377,17 +439,21 @@ def test_cuda_kernel_f32_at_large_batches_and_refusals(batch):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
 @pytest.mark.parametrize("c", [256, 1024])
 @pytest.mark.parametrize("n", [12, 24])
-def test_cuda_wide_kernel_matches_plain_version(n, c):
-    """The wide f32 kernel against its plain version on the card."""
+def test_cuda_wide_kernel_matches_plain_version(n, c, dtype):
+    """The wide kernel of each dtype against its plain version on the card
+    (eps 1e-5 in f32, the bf16 engine's 1e-3 in bf16)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
     d = _case(seed=8, n=n, c=c)
+    tdt = DTYPES[dtype][1]
     t = {k: torch.from_numpy(v).cuda() for k, v in d.items()}
-    args = (t["x"], t["g"], t["w_qkv"], t["w_out"], t["b_out"])
-    kw = dict(eps=1e-5, compute_dtype=torch.float32)
+    args = (t["x"].to(tdt), t["g"], t["w_qkv"], t["w_out"], t["b_out"])
+    kw = dict(eps=1e-5 if dtype == "f32" else 1e-3, compute_dtype=tdt)
     got = tat.fused_set_attention(*args, **kw)
     want = tat.fused_set_attention_reference(*args, **kw)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, atol=1e-3, rtol=1e-4)
+    tol = dict(atol=1e-3, rtol=1e-4) if dtype == "f32" else dict(atol=1e-1, rtol=5e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)

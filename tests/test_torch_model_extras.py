@@ -107,12 +107,18 @@ def test_unet_forward_and_engines_match_flax(name, dtype):
     np.testing.assert_allclose(got_rows, want, atol=TOL[dtype], rtol=0)
 
 
-# the widths and groupings the card's f32 kernels took on in their
-# widening, at small size: the [1, 1, 2, 2] Unet1D at dim 64 (levels 64
-# and 128 wide), the [1, 1, 1, 1] one at dim 128 in 4 and in 16 groups
+# the widths and groupings the card's kernels took on in their widening,
+# at small size: the [1, 1, 2, 2] Unet1D at dim 64 (levels 64 and 128
+# wide), the [1, 1, 1, 1] one at dim 128 in 4 and in 16 groups, in f32 and
+# (the "bf16_" cases, the b512 recipes' serving dtype) in bf16
 WIDE = {"mults1122": dict(dim=64, dim_mults=(1, 1, 2, 2)),
         "groups4": dict(dim=128, resnet_block_groups=4),
-        "groups16": dict(dim=128, resnet_block_groups=16)}
+        "groups16": dict(dim=128, resnet_block_groups=16),
+        "bf16_mults1122": dict(dim=64, dim_mults=(1, 1, 2, 2), compute_dtype="bfloat16"),
+        "bf16_groups16": dict(dim=128, resnet_block_groups=16, compute_dtype="bfloat16")}
+# engine vs the JAX engine: f32 the same math summed in another order; bf16
+# tests/test_torch_engine.py's bf16 bound (the two round at other places)
+WIDE_TOL = {"f32": 1e-4, "bf16": 1.5e-1}
 
 
 @pytest.mark.parametrize("name", list(WIDE))
@@ -120,23 +126,26 @@ def test_wide_models_match_the_jax_3d_engine(name):
     """A scene model of WIDE's widths, weights from one seed carried from
     the Flax tree by the port's utils/convert.py (load_jax_params): the
     port's 3-D engine (on the CPU, the plain B1 and B2) against the JAX 3-D
-    engine, f32 atol 1e-4 (the same f32 math summed in another order), on
-    one forward at 4 timesteps; its 28 blocks at the shapes
-    inference.block_shapes gives; then a 5-step DDPM through
-    SceneDiffusion.sample(fused=True) on both, the JAX noise stream
-    replayed, atol 1e-4."""
+    engine, within WIDE_TOL of the model's dtype, on one forward at 4
+    timesteps; its 28 blocks at the shapes inference.block_shapes gives;
+    then a 5-step DDPM through SceneDiffusion.sample(fused=True) on both,
+    the JAX noise stream replayed, within the same bound."""
     from diffuscene_tpu.models import inference as jinf
     from diffuscene_tpu_torch.models import inference as tinf
     from test_torch_sampling import _random_params, _sample_matches_jax
 
-    scene, jscene, _ = _sample_matches_jax(5, True, 5, net=WIDE[name])
+    atol = WIDE_TOL["bf16" if name.startswith("bf16_") else "f32"]
+    scene, jscene, _ = _sample_matches_jax(5, True, 5, net=WIDE[name], atol=atol)
     jparams = _random_params(jscene)["params"]["denoiser"]
     net = scene.denoiser
     rng = np.random.default_rng(21)
     x = rng.normal(size=(4, 12, 62)).astype(np.float32)
     t = np.array([0, 1, 3, 4], np.int32)
     cond = rng.normal(size=(4, 12, 32)).astype(np.float32)
-    jnet = JUnet1D(**dict(scene.cfg.net_kwargs))
+    kw = dict(scene.cfg.net_kwargs)
+    if "compute_dtype" in kw:
+        kw["compute_dtype"] = jnp.bfloat16
+    jnet = JUnet1D(**kw)
     jprep = jinf.prepare_inference_params(jnet, jparams, num_timesteps=5)
     want = np.asarray(jax.jit(lambda x, t, c: jinf.fused_unet1d_forward(
         jnet, jprep, x, t, c, None, exact_gelu=True))(x, t, cond))
@@ -154,7 +163,7 @@ def test_wide_models_match_the_jax_3d_engine(name):
                                    torch.from_numpy(cond), exact_gelu=True).numpy()
     finally:
         tinf.fused_resnet_block = rb
-    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)
     assert shapes == tinf.block_shapes(net)
 
 

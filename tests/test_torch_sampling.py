@@ -117,7 +117,7 @@ def _jax_noise(key, shape, n_draws):
     return noises
 
 
-def _sample_matches_jax(time_num, fused, n_draws, net=None, **kwargs):
+def _sample_matches_jax(time_num, fused, n_draws, net=None, atol=1e-4, **kwargs):
     jcfg, cfg = _cfgs(time_num=time_num, **(net or {}))
     jscene = JSceneDiffusion(jcfg)
     params = _random_params(jscene)
@@ -137,7 +137,7 @@ def _sample_matches_jax(time_num, fused, n_draws, net=None, **kwargs):
     got = scene.sample(B, clip_denoised=True, fused=fused, noise_fn=noise_fn, **kwargs).numpy()
     assert not noises  # the port drew exactly the JAX stream
     assert got.shape == shape and np.isfinite(got).all()
-    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=0)
     return scene, jscene, got
 
 
