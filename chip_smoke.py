@@ -70,15 +70,17 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    (fused_unet1d_forward, 28 B1 and 1 B2 launches) against the plain Unet1D
    module in f32 and bf16 and against the rows engine, with each engine's
    ms per forward;
-10. a full 1000-step DDPM sample of 64 scenes through
-   SceneDiffusion.sample(fused=True), bf16: shape, finiteness, exactly
-   28,000 B1 and 1,000 B2 launches; torch.profiler over 20 steps (B1's
+10. the 3-D engine, bf16, B=64 (SceneDiffusion.sample(fused=True)):
+   torch.profiler over 20 steps against the step's host-clock time (B1's
    and B2's ms per step; a named kernel the profile does not show raises);
+   its 1000-step DDPM sample (28,000 B1, 1,000 B2) is cut for the script's
+   time: phase 22 holds a bf16 DDPM-1000 through the same engine;
 11. a 20-step DPM-Solver++ sample of 64 scenes, fused=True, bf16: finite,
    exactly 560 B1 and 20 B2 launches, wall time;
 15. the flagship config's own dtype, f32 (the scene phase 3 built):
-   through the rows engine, a 1000-step DDPM sample of 64 scenes (exactly
-   19,000 chain launches) with a 20-step profile naming chain_tf32; through
+   through the rows engine, a DPM-Solver++-20 sample of 64 scenes (exactly
+   380 chain launches; ``--only-f32-engine`` a 1000-step DDPM sample, 19,000)
+   with a 20-step profile naming chain_tf32; through
    the 3-D engine, a 1000-step DDPM sample of 64 scenes (exactly 28,000 B1
    and 1,000 B2 launches) with a 20-step profile against its step time, a
    20-step DPM-Solver++ sample at run/generate.sh's batch of 256 (exactly
@@ -263,24 +265,51 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    with B1 split by kernel; (c) the
    flagship and the b512 recipe's network in 4 and in 16 groups,
    DPM-Solver++-20 at B=64 through fused=True: 560 B1 and 20 B2, held
-   every WIDE_DPM_EVERY calls; fused="rows" on the 16-group models raising
-   B4's error with nothing launched, and on the bf16 wide model falling
-   back to the 3-D engine (560 B1, 20 B2, no B4); (d) a dim 64 model in
+   every WIDE_DPM_EVERY calls; fused="rows" on the 16-group models running
+   every chain on the wide B4 kernel (380 B4, no B1 or B2), and on the bf16
+   wide model falling back to the 3-D engine (560 B1, 20 B2, no B4); (d) a
+   dim 64 model in
    each dtype raising the width error naming fused=False with nothing
    launched, and cli/generate_diffusion.py --fused --dpm on the wide
    flagship config and on the wide b512 config at B=64 (exactly 560 B1 and
    20 B2 each); (e) this run's C=512 8-group figures in each dtype (the
    flagship's 28 blocks and B2, graph replay) beside PERF.md's, and each
    dtype's wide B2 at C=512 (uncounted) beside its C=512 kernel.  The
-   phase prints its own time.
+   phase prints its own time;
+23. the chain kernel (B4) at B1's widths and groupings, both dtypes: (a) in
+   f32 and in bf16, every chain variant (none, scene_res, row_scene,
+   scene, row_skip, skip) at every (C, groups) of WIDE_CHAIN_SET (C = 256
+   in 8 and 16 groups, 512 in 4, 16 and 32, 1024 in 4, 8 and 16; C=512 in 8
+   groups stays on chain_tf32 / chain_sm90) on the wide kernels
+   (chain_tf32_wide, chain_bf16_wide) against the plain version within
+   KERNEL_TOL at N=12 and N=21 (B=64) and a ragged B=63, each case's
+   launch plan against the library's, the N=12 B=64 case timed (eager,
+   graph replay, device, plain, bound), the 19 chains of an equal-width
+   forward at each (C, groups) summed from them; the wide kernel at C=512
+   in 8 groups (uncounted) beside chain_tf32 / chain_sm90 on the same
+   inputs, in turns, and those two against PERF.md's figures; the chain
+   kernels' ptxas report; (b) the rows engine at full width on the dim-1024
+   [1, 1, 1, 1] model (19 C=1024 chains a forward) at B=64: the b512
+   recipe's network (bf16) by DDPM-1000 (exactly 19,000 B4, all on
+   chain_bf16_wide, no B1 or B2), held to the module every
+   TASK_CHECK_EVERY calls, and through fused=True by DPM-Solver++-20 (560
+   B1, 20 B2, no B4) beside it; the flagship's (f32) by DPM-Solver++-20
+   (380 on chain_tf32_wide), held every WIDE_DPM_EVERY calls; each with a
+   20-step profile (B4, or B1 and B2); the flagship networks in 4 and in
+   16 groups and a dim-256 model in each dtype through fused="rows" by
+   DPM-Solver++-20 (380 B4 on the wide kernel, none of B1 or B2, held every
+   WIDE_DPM_EVERY calls, unprofiled); a dim 64 model in each dtype refused
+   by fused="rows" naming fused=False with nothing launched.  The phase
+   prints each sample's time and its own.
 
 The phases run in the order 1, 2, 7, 8, 3 with 9 (one set of full-width
-models), 4, 10, 11, 15, 22, 5, 6, 12, 13, 14, 21, 16, 17, 18, 19, 20.  TF32 is off for every matmul and
+models), 4, 10, 11, 15, 22, 23, 5, 6, 12, 13, 14, 21, 16, 17, 18, 19, 20.
+TF32 is off for every matmul and
 convolution (the references are f32; the f32 B1 kernel's split TF32 is
 three tf32 products per f32 product, not TF32 matmul).
 Phase 1 prints each kernel's registers, stack and spills from ptxas, and
 raises if a split-TF32 kernel (f32 B1, B4 or B2) or a bf16 wide kernel
-spills.
+(B1, B2 or B4) spills.
 
     python3 chip_smoke.py --only-resblock
 
@@ -299,11 +328,17 @@ line), ``--only-tasks`` phases 1 and 16 (with the tasks JSON line) and
 ``--only-data`` phases 1 and 19 (with the data JSON line) and
 ``--only-rest`` phases 1 and 20 (with the rest JSON line) and
 ``--only-parallel`` phases 1 and 21 (with the parallel JSON line) and
-``--only-wide`` phases 1 and 22 (with the wide JSON line); none of them
-prints an ok line.
+``--only-wide`` phases 1 and 22 (with the wide JSON line) and
+``--only-wide-chain`` phases 1 and 23 (with the wide_chain JSON line);
+none of them prints an ok line.
 
 The line before the last is the card's name and power limit again, the one
 before it a JSON summary of the kernels, the one before that a JSON
+summary of phase 23 ("wide_chain": each dtype's worst error, the 19
+chains' times and bound at each (C, groups), the C=512 8-group chains on
+both kernels, each rows and 3-D sample's wall time, launches (by kernel),
+worst engine gap, busy time, idle share and kernel ms per step, the dim 64
+refusals), the one before that a JSON
 summary of phase 22 ("wide": each kernel case's error, the forwards' and
 B2's times in each dtype, the C=512 8-group figures, each wide sample's
 wall time, launches (also by kernel), worst engine gap, busy time, idle
@@ -351,7 +386,13 @@ B2's (C=1024) times ("wide_ms", "wide_graph_ms", "wide_plain_ms",
 "wide_bound_ms"), f32; the bf16 wide kernels, resblock_bf16_wide and
 attention_bf16_wide, have entries of their own, their launches on the
 bf16 wide flagship's DDPM-1000 (by kernel) and their times in the wide
-flagship's forward (the 11 C=1024 blocks, B2 at (64, 12, 1024)).  The
+flagship's forward (the 11 C=1024 blocks, B2 at (64, 12, 1024)); so do
+the wide chain kernels, chain_tf32_wide and chain_bf16_wide: their
+launches on the dim-1024 model's rows samples (f32 DPM-Solver++-20, bf16
+DDPM-1000) and on phase 23's other samples, their worst error, the times
+and bound of the dim-1024 model's 19 chains (8 groups), the 19 chains'
+graph-replay time at each (C, groups) of the set and the C=512 8-group
+chains on both kernels.  The
 last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -416,7 +457,7 @@ ROWS_KERNELS = {"bfloat16": (("B4", "chain_sm90"),), "float32": (("B4 f32", "cha
 # the split-TF32 kernels and the bf16 wide kernels keep their A fragments
 # in registers: ptxas must report no spills for them
 NO_SPILL_KERNELS = ("resblock_tf32", "chain_tf32", "attention_tf32", "resblock_bf16_wide",
-                    "attention_bf16_wide")
+                    "attention_bf16_wide", "chain_bf16_wide")
 # the 3-D engine's kernels as the profiler names them, by compute dtype
 ENGINE_KERNELS = {"bfloat16": (("B1", "resblock_sm90"), ("B2", "attention_sm90")),
                   "float32": (("B1 f32", "resblock_tf32"), ("B2 f32", "attention_tf32"))}
@@ -460,7 +501,7 @@ AE_STEPS, AE_POINTS, AE_ENCODE, AE_PROFILE_STEPS = 30, 2048, 64, 5
 FLAGSHIP_CONFIG = "configs/uncond/diffusion_bedrooms_instancond_lat32_v.yaml"
 B512_CONFIG = "configs/uncond/diffusion_bedrooms_instancond_lat32_v_b512_tpu.yaml"
 TRAIN_DATA, TRAIN_OUT, TRAIN_SCENES = "build/smoke_scenes", "build/smoke_train", 640
-FLAGSHIP_STEPS, B512_STEPS, TRAIN_PROFILE_STEPS, CLI_EPOCHS, GEN_SCENES = 30, 20, 5, 3, 64
+FLAGSHIP_STEPS, B512_STEPS, TRAIN_PROFILE_STEPS, CLI_EPOCHS, GEN_SCENES = 20, 20, 5, 3, 64
 # stated tolerances, the flagship step (f32, TF32 off) on the card vs the CPU:
 # the same f32 arithmetic summed in other orders through 28 ResnetBlocks and
 # 9 attentions, forward and backward: the loss, each loss term and the
@@ -527,8 +568,9 @@ EVAL_FEATURE_TOL = {"pixel": 1.0 / 255 + 1e-6, "inception": 1e-4, "vgg": 1e-4}
 # 64, a ResNet18 of 64 features over 64x64 masks): the train CLI for
 # DATA_TRAIN_EPOCHS steps at the flagship's B=128 (the train + val rooms,
 # 144, make one batch an epoch: the loader drops the rest), its step card
-# vs CPU, then DDPM-1000 through generate --fused at B=256 and through
-# fused="rows" at B=64.  160 rooms, not fewer, so that a batch of 128 exists.
+# vs CPU, then DPM-Solver++-20 through generate --fused at B=256 and
+# DDPM-1000 through both engines at B=64.  160 rooms, not fewer, so that a
+# batch of 128 exists.
 DATA_RAW, DATA_OUT, DATA_ROOMS = "build/smoke_data_raw", "build/smoke_data", 160
 DATA_AE_EPOCHS, DATA_TRAIN_EPOCHS, DATA_ROWS_B, DATA_INVERT_B = 2, 10, 64, 64
 DATA_CACHE = os.path.join(DATA_OUT, "cached")
@@ -617,12 +659,12 @@ PAR_MP_TOL = {"loss": 2e-2, "max_lr": 2.05, "loose_lr": 0.5, "loose_share": 0.02
 # of the set and B2 at every C of it against their plain versions, in f32
 # and bf16; the flagship with dim_mults [1, 1, 2, 2] (the wide flagship: 17
 # blocks at C=512 on the cluster-of-8 kernel, 11 at C=1024 and mid_attn on
-# the wide kernels) through fused=True at B=64, in bf16 (the b512 recipe's
-# network) DDPM-1000 held to the module every TASK_CHECK_EVERY calls, in
-# f32 (the flagship config) DPM-Solver++-20; both in 4 and in 16 groups (every
-# block on the wide kernel), DPM-Solver++-20 at B=64, held every
-# WIDE_DPM_EVERY calls; what stays narrow (B4) raising with nothing
-# launched, and a model outside the set (dim 64) in each dtype;
+# the wide kernels) through fused=True at B=64 by DPM-Solver++-20 in bf16
+# (the b512 recipe's network) and f32 (the flagship config); both in 4 and
+# in 16 groups (every block on the wide kernel), DPM-Solver++-20 at B=64,
+# each held every WIDE_DPM_EVERY calls; the 16-group models through the
+# rows engine (B4's wide kernel), and a model outside the set (dim 64) in
+# each dtype;
 # generate_diffusion --fused --dpm on the wide configs; the C=512 8-group
 # figures beside PERF.md's
 WIDE_B1_SET = tuple((c, g) for c in (256, 512, 1024) for g in (4, 8, 16, 32) if c // g >= 16)
@@ -652,10 +694,37 @@ WIDE_GROUP_KERNELS = {"float32": (("B1 (resblock_tf32_wide)", "resblock_tf32_wid
 # B2; f32 PR 18, bf16 PR 5-7
 WIDE_EARLIER_MS = {"float32": {"b1_28": 0.855, "b2": 0.0228},
                    "bfloat16": {"b1_28": 0.365, "b2": 0.0120}}
+# phase 23, the chain kernel (B4) widened to B1's set in both dtypes: every
+# chain variant at WIDE_CHAIN_SET's widths and groupings (C=512 in 8 groups
+# stays on chain_tf32 / chain_sm90, timed beside the wide kernel) against
+# the plain version; the rows engine at full width on the widest
+# equal-width model of the set, dim WIDE_CHAIN_DIM with dim_mults [1, 1, 1,
+# 1] (19 C=1024 chains a forward): the b512 recipe's network (bf16)
+# DDPM-1000 at B=64, held every TASK_CHECK_EVERY calls, the flagship's (f32)
+# DPM-Solver++-20, both also through fused=True; the flagship networks in
+# 4 and 16 groups (dim 512) and a dim-WIDE_CHAIN_SMALL_DIM model through
+# fused="rows", DPM-Solver++-20, held every WIDE_DPM_EVERY calls; a dim-64
+# model refused
+WIDE_CHAIN_SET = ((256, 8), (256, 16), (512, 4), (512, 16), (512, 32), (1024, 4), (1024, 8),
+                  (1024, 16))
+WIDE_CHAIN_VARIANTS = ("none", "scene_res", "row_scene", "scene", "row_skip", "skip")
+WIDE_CHAIN_DIM, WIDE_CHAIN_SMALL_DIM = 1024, 256
+# the wide chain kernel as the profiler names it, by compute dtype
+WIDE_CHAIN_KERNELS = {"float32": (("B4 (chain_tf32_wide)", "chain_tf32_wide"),),
+                      "bfloat16": (("B4 (chain_bf16_wide)", "chain_bf16_wide"),)}
+# the dim-1024 model through fused=True: every B1 and B2 on the wide kernels
+WIDE_CHAIN_3D_KERNELS = {"float32": (("B1 (resblock_tf32_wide)", "resblock_tf32_wide"),
+                                     ("B2 (attention_tf32_wide)", "attention_tf32_wide")),
+                         "bfloat16": (("B1 (resblock_bf16_wide)", "resblock_bf16_wide"),
+                                      ("B2 (attention_bf16_wide)", "attention_bf16_wide"))}
+# PERF.md section 6's figures of the C=512 8-group chain kernels at B=64,
+# N=12, graph replay, the 19 chains of a forward (NVIDIA H100 80GB HBM3,
+# 700.00 W; its B4 row): f32 chain_tf32, bf16 chain_sm90
+WIDE_CHAIN_EARLIER_MS = {"float32": 0.843, "bfloat16": 0.460}
 # the short checks: phase 1 and one kernel's phase, no ok line
 ONLY = ("--only-resblock", "--only-chain", "--only-attention", "--only-chamfer", "--only-train",
         "--only-f32-engine", "--only-tasks", "--only-text", "--only-eval", "--only-data",
-        "--only-rest", "--only-parallel", "--only-wide")
+        "--only-rest", "--only-parallel", "--only-wide", "--only-wide-chain")
 
 
 def card_line():
@@ -752,9 +821,9 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def chain_case(fl, torch, variant, n, dtype, seed, batch=B):
-    """Random chain inputs on the card: standardized-scale W1/W2 (unit
-    variance per output column, as after weight standardization)."""
+def chain_case(fl, torch, variant, n, dtype, seed, batch=B, C=C):
+    """Random chain inputs on the card, C channels: standardized-scale W1/W2
+    (unit variance per output column, as after weight standardization)."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
 
@@ -791,21 +860,22 @@ def chain_case(fl, torch, variant, n, dtype, seed, batch=B):
 def chain_work(chain, x, films, skips):
     """The least work of one chain call: every (M, C) x (C, C) product, each
     operand read once and the output written once.  Returns (flops, bytes)."""
-    flops = 2 * x.shape[0] * C * C * chain.W.shape[0]
+    flops = 2 * x.shape[0] * x.shape[1] ** 2 * chain.W.shape[0]
     nbytes = (chain.W.numel() * chain.W.element_size() + chain.V.numel() * 4
               + 2 * x.numel() * x.element_size()
               + sum(t.numel() * t.element_size() for t in films + skips if t is not None))
     return flops, nbytes
 
 
-def chain_check(fl, torch, variant, n, dtype, seed, batch=B, timed=True):
-    """One chain case: kernel vs plain version; with ``timed``, the eager
-    (CUDA events), graph-replay, profiler-device and plain times.  Returns
-    (ok, error, times or None, work)."""
+def chain_check(fl, torch, variant, n, dtype, seed, batch=B, timed=True, width=C, groups=8):
+    """One chain case (``width`` channels in ``groups`` groups): kernel vs
+    plain version; with ``timed``, the eager (CUDA events), graph-replay,
+    profiler-device and plain times.  Returns (ok, error, times or None,
+    work)."""
     dname = str(dtype).split(".")[-1]
-    chain, x, films, skips = chain_case(fl, torch, variant, n, dtype, seed, batch=batch)
-    got = fl.apply_chain(chain, x, films, skips, n_per_scene=n)
-    want = fl.apply_chain_reference(chain, x, films, skips, n_per_scene=n)
+    chain, x, films, skips = chain_case(fl, torch, variant, n, dtype, seed, batch=batch, C=width)
+    got = fl.apply_chain(chain, x, films, skips, n_per_scene=n, groups=groups)
+    want = fl.apply_chain_reference(chain, x, films, skips, n_per_scene=n, groups=groups)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     ok = (bool(torch.isfinite(got.float()).all())
@@ -813,12 +883,12 @@ def chain_check(fl, torch, variant, n, dtype, seed, batch=B, timed=True):
     times = None
     if timed:
         def call():
-            return fl.apply_chain(chain, x, films, skips, n_per_scene=n)
+            return fl.apply_chain(chain, x, films, skips, n_per_scene=n, groups=groups)
 
         times = dict(ms=cuda_ms(call), graph=graph_ms(torch, call),
                      dev=device_ms(torch, call, "chain"),
                      plain=cuda_ms(lambda: fl.apply_chain_reference(chain, x, films, skips,
-                                                                    n_per_scene=n),
+                                                                    n_per_scene=n, groups=groups),
                                    iters=20 if batch == B else 5))
     return ok, err, times, chain_work(chain, x, films, skips)
 
@@ -910,14 +980,14 @@ def chain_plan(fl, torch):
         for n in (12, 21):
             for batch in (B, *batches):
                 for variant in ("row_scene", "row_skip"):
-                    blocks = [fl.ChainBlock(has_skip=sk, film=f, has_res_proj=r)
-                              for f, sk, r in VARIANTS[variant]]
+                    blocks = chain_blocks(fl, variant)
                     p = fl.tile_plan(batch, n, blocks, lib, dtype)
                     skip = any(b.has_skip for b in blocks)
+                    lib_smem = lib.fused_chain_smem_bytes(code, int(skip), C, 8)
                     print(f"plan fused_chain {dname} N={n} B={batch} {variant}: "
                           f"{p.scenes_per_tile} scenes a tile, {p.clusters} clusters of 8 = "
                           f"{p.ctas} CTAs, {p.stages} stages, {p.smem_bytes} bytes of shared "
-                          f"memory a CTA (library {lib.fused_chain_smem_bytes(code, int(skip))}; "
+                          f"memory a CTA (library {lib_smem}; "
                           f"the H100 allows 232448), {p.resident} clusters fit at once",
                           flush=True)
                     if p.resident is None or p.resident < 1:
@@ -1380,57 +1450,62 @@ def host_ms(torch, fn, n):
     return 1e3 * (time.perf_counter() - t0) / n
 
 
-def phase_rows_sample(torch, scene, card):
+def phase_rows_sample(torch, scene, card, dpm=False):
     """Phase 4 (bf16) or the rows part of 15 (f32): a 1000-step DDPM sample
-    of 64 scenes through SceneDiffusion.sample(fused="rows"), every chain on
-    B4: shape, finiteness, exactly 19 chain launches a step; then a 20-step
-    profile against the sample's step time, naming B4's kernel.  Returns the
-    chain launches."""
+    (with ``dpm``, a DPM-Solver++-20 sample) of 64 scenes through
+    SceneDiffusion.sample(fused="rows"), every chain on B4: shape,
+    finiteness, exactly 19 chain launches a step; then a 20-step profile
+    against the sample's step time, naming B4's kernel.  Returns the chain
+    launches."""
     from diffuscene_tpu_torch.ops import fused_level as fl
 
     dname = str(scene.denoiser.compute_dtype).split(".")[-1]
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    steps, name = (DPM_STEPS, "DPM-Solver++") if dpm else (T, "DDPM")
+    kw = dict(dpm=True, dpm_steps=DPM_STEPS) if dpm else {}
     torch.cuda.synchronize()
     fl.apply_chain.launches = 0
     t0 = time.perf_counter()
-    out = scene.sample(B, generator=gen, clip_denoised=True, fused="rows")
+    out = scene.sample(B, generator=gen, clip_denoised=True, fused="rows", **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = fl.apply_chain.launches
     finite = bool(torch.isfinite(out).all())
-    print(f"sample: {T}-step DDPM, B={B}, {dname}, fused=rows: shape={tuple(out.shape)} "
+    print(f"sample: {steps}-step {name}, B={B}, {dname}, fused=rows: shape={tuple(out.shape)} "
           f"finite={finite} chain_calls={launches} wall_s={wall:.3f} "
           f"scenes_per_s={B / wall:.3f} | {card}", flush=True)
     if tuple(out.shape) != (B, 12, 62) or not finite:
         raise RuntimeError(f"the {dname} rows sample is malformed")
-    if launches != 19 * T:
-        raise RuntimeError(f"expected {19 * T} chain-kernel calls in the {dname} rows sample, "
+    if launches != 19 * steps:
+        raise RuntimeError(f"expected {19 * steps} chain-kernel calls in the {dname} rows sample, "
                            f"counted {launches}")
     parts = scene.split_samples(out)
     print(f"sample: empty-slot share {parts['is_empty'].float().mean().item():.3f}", flush=True)
     # where one sampling step's time goes (the step the sample above ran T times)
     print(f"profile: {dname} rows step, B={B}", flush=True)
     profile_steps(torch, sampling_step(torch, scene, B, gen, fused="rows"), SAMPLE_PROFILE_STEPS,
-                  1e3 * wall / T, named=ROWS_KERNELS[dname])
+                  1e3 * wall / steps, named=ROWS_KERNELS[dname])
     return launches
 
 
-def phase_engine_samples(torch, scene, card, dpm_batch=B, profile_batches=()):
-    """Phases 10 and 11 (bf16) or 15 (f32): DDPM-1000 at B=64 and
-    DPM-Solver++-20 at ``dpm_batch`` through the 3-D engine, every
-    ResnetBlock on B1 and mid_attn on B2, with exact launch counts; a
-    20-step profile at B=64 against the DDPM sample's step time, and one at
-    each batch of ``profile_batches`` against that step's host time.
-    Returns the DDPM-1000 launch counts."""
+def phase_engine_samples(torch, scene, card, dpm_batch=B, profile_batches=(), ddpm=True):
+    """Phases 10 and 11 (bf16) or 15 (f32): DDPM-1000 at B=64 (with
+    ``ddpm``) and DPM-Solver++-20 at ``dpm_batch`` through the 3-D engine,
+    every ResnetBlock on B1 and mid_attn on B2, with exact launch counts; a
+    20-step profile at B=64 against the DDPM sample's step time (without
+    ``ddpm``, against that step's host time), and one at each batch of
+    ``profile_batches`` against that step's host time.  Returns the launch
+    counts of the DDPM-1000 sample, or without ``ddpm`` of the
+    DPM-Solver++-20 one."""
     from diffuscene_tpu_torch.ops import attention as at
     from diffuscene_tpu_torch.ops import fused_resblock as rb
 
     dname = str(scene.denoiser.compute_dtype).split(".")[-1]
     named = ENGINE_KERNELS[dname]
     counts = {}
-    for name, batch, kw, steps in (("DDPM", B, {}, T),
-                                   ("DPM-Solver++", dpm_batch, dict(dpm=True, dpm_steps=DPM_STEPS),
-                                    DPM_STEPS)):
+    samplers = (("DDPM", B, {}, T),) if ddpm else ()
+    for name, batch, kw, steps in samplers + (
+            ("DPM-Solver++", dpm_batch, dict(dpm=True, dpm_steps=DPM_STEPS), DPM_STEPS),):
         gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
         torch.cuda.synchronize()
         rb.fused_resnet_block.launches = at.fused_set_attention.launches = 0
@@ -1456,13 +1531,13 @@ def phase_engine_samples(torch, scene, card, dpm_batch=B, profile_batches=()):
             print(f"profile: {dname} 3-D step, B={B}", flush=True)
             profile_steps(torch, sampling_step(torch, scene, B, gen), SAMPLE_PROFILE_STEPS,
                           1e3 * wall / T, named=named)
-    for batch in profile_batches:
+    for batch in profile_batches if ddpm else (B,) + tuple(profile_batches):
         step = sampling_step(torch, scene, batch, torch.Generator(device="cuda").manual_seed(SEED + 4))
         step_ms = host_ms(torch, step, SAMPLE_PROFILE_STEPS)
         print(f"profile: {dname} 3-D step, B={batch} (host clock {step_ms:.3f} ms/step "
               f"unprofiled)", flush=True)
         profile_steps(torch, step, SAMPLE_PROFILE_STEPS, step_ms, named=named)
-    return counts["DDPM"]
+    return counts["DDPM" if ddpm else "DPM-Solver++"]
 
 
 def phase_drift(torch, scene):
@@ -2047,7 +2122,7 @@ def zero_counts(counters):
 
 
 def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=None, steps=T,
-                   calls=None, every=TASK_CHECK_EVERY, named=None, **task):
+                   calls=None, every=TASK_CHECK_EVERY, named=None, profile=True, **task):
     """One DDPM-1000 sample of ``batch`` scenes through
     ``scene.sample(fused=fused, **task)``: with ``fused=True`` every
     ResnetBlock on B1 and mid_attn on B2, exactly 28,000 and 1,000
@@ -2062,8 +2137,8 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
     ``named`` (default: the engine's kernels); ``steps`` is the model's
     schedule length (T unless its config says otherwise), ``calls`` the
     sampler's denoiser calls (``steps`` for DDPM) and ``every`` how often a
-    call is checked.  Returns (the sample, a summary with the
-    cross-attention contexts made)."""
+    call is checked; ``profile=False`` leaves the profile out.  Returns
+    (the sample, a summary with the cross-attention contexts made)."""
     from diffuscene_tpu_torch.models import inference as inf
     from diffuscene_tpu_torch.ops import attention as at
     from diffuscene_tpu_torch.ops import fused_level as fl
@@ -2168,6 +2243,8 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
         raise RuntimeError(f"{label}: expected {list(expected)} launches, counted {launches}")
     if not info["film_rows_materialized"]:
         raise RuntimeError(f"{label}: the cond-FiLM rows are not materialized")
+    if not profile:
+        return out, summary
     print(f"profile: {dname} {label} step, B={batch}", flush=True)
     if named is None:
         named = ROWS_KERNELS[dname] if fused == "rows" else ENGINE_KERNELS[dname]
@@ -4327,8 +4404,9 @@ def wide_samples(torch, card):
     falling back to the 3-D
     engine (560 B1, 20 B2, no B4 in a DPM-Solver++-20); the 4- and
     16-group models' DPM-Solver++-20 at B=64 (560 B1, 20 B2), held every
-    WIDE_DPM_EVERY calls; fused="rows" on the 16-group models raising B4's
-    error with nothing launched."""
+    WIDE_DPM_EVERY calls; fused="rows" on the 16-group models running every
+    chain on the wide B4 kernel (380 B4, no B1 or B2; phase 23 holds it to
+    the module)."""
     from diffuscene_tpu_torch.ops import attention as at
     from diffuscene_tpu_torch.ops import fused_level as fl
     from diffuscene_tpu_torch.ops import fused_resblock as rb
@@ -4341,7 +4419,7 @@ def wide_samples(torch, card):
         scene = rest_scene(torch, {"dim_mults": list(WIDE_MULTS)}, T, config=config)
         if str(scene.denoiser.compute_dtype).split(".")[-1] != dname:
             raise RuntimeError(f"wide: {config} is not a {dname} network")
-        # this slice's main path, bf16: DDPM-1000; f32 (PR 18's) cut to
+        # the bf16 wide kernels' main path: DDPM-1000; f32 cut to
         # DPM-Solver++-20 for the script's time, held every WIDE_DPM_EVERY calls
         label = f"{pre}wide_ddpm" if dname == "bfloat16" else "wide_dpm"
         sampler = ({} if dname == "bfloat16" else
@@ -4376,20 +4454,19 @@ def wide_samples(torch, card):
                 torch, scene, f"wide {label}", card, batch=B, fused=True,
                 step=sampling_step(torch, scene, B, gen), calls=DPM_STEPS, every=WIDE_DPM_EVERY,
                 named=WIDE_GROUP_KERNELS[dname], dpm=True, dpm_steps=DPM_STEPS)
-            if groups == 16:
+            if groups == 16:   # the rows engine on it: every chain on the wide B4 kernel
                 zero_counts(counters)
-                err = None
-                try:
-                    scene.sample(B, generator=gen, fused="rows", dpm=True, dpm_steps=DPM_STEPS)
-                except ValueError as e:
-                    err = str(e)
+                rows = scene.sample(B, generator=gen, fused="rows", dpm=True, dpm_steps=DPM_STEPS)
+                torch.cuda.synchronize()
                 launched = [c.launches for c in counters]
-                ok = err is not None and "chain kernel" in err and launched == [0, 0, 0]
-                print(f"wide {dname} groups16 fused='rows': raises {err!r}, launches {launched} "
-                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                ok = (launched == [0, 0, 19 * DPM_STEPS] and bool(torch.isfinite(rows).all())
+                      and tuple(rows.shape) == (B, 12, 62))
+                print(f"wide {dname} groups16 fused='rows' DPM-Solver++-{DPM_STEPS}: launches "
+                      f"{launched} ({fl.apply_chain.by_kernel}) {'ok' if ok else 'FAIL'}",
+                      flush=True)
                 if not ok:
-                    raise RuntimeError(f"wide: fused='rows' on 16 groups: {err}, {launched}")
-                out[label]["rows_error"] = err
+                    raise RuntimeError(f"wide: fused='rows' on 16 groups: {launched}")
+                out[label]["rows_launches"] = launched
             del scene
             torch.cuda.empty_cache()
     return out
@@ -4472,6 +4549,308 @@ def phase_wide(rb, at, torch, card):
     out.update(wide_narrow_and_cli(torch, card))
     out["phase_s"] = time.perf_counter() - t0
     print(f"wide: phase 22 took {out['phase_s']:.1f} s", flush=True)
+    return out
+
+
+def chain_blocks(fl, variant):
+    """The ChainBlocks of a VARIANTS chain."""
+    return [fl.ChainBlock(has_skip=sk, film=f, has_res_proj=r) for f, sk, r in VARIANTS[variant]]
+
+
+def forward_sums(cases, width, groups):
+    """The 19 chains of one forward of an equal-width model (FORWARD_MIX)
+    from phase 23's timed cases at (width, groups): summed times and work."""
+    return {f: sum(cases[(width, groups, v)][f] * k for v, k in FORWARD_MIX.items())
+            for f in ("ms", "graph", "dev", "plain", "flops", "bytes")}
+
+
+def wide_chain_set(fl, torch, dtype, seed):
+    """Phase 23 (a), one dtype: every WIDE_CHAIN_VARIANTS chain at every
+    (C, groups) of WIDE_CHAIN_SET against the plain version, at N=12 and
+    B=64 (timed: eager, graph replay, device, plain, bound), N=21 at B=64
+    and a ragged B=63 of N=12; each launch plan against the library's.
+    Returns (worst error, the timed cases, the failures)."""
+    from diffuscene_tpu_torch.ops import build
+
+    lib, code = fl.load_library(), build.DTYPE_CODES[dtype]
+    dname = str(dtype).split(".")[-1]
+    worst, cases, bad = 0.0, {}, []
+    for width, groups in WIDE_CHAIN_SET:
+        kernel = fl.kernel_name(dtype, width, groups)
+        for variant in WIDE_CHAIN_VARIANTS:
+            blocks = chain_blocks(fl, variant)
+            skip = int(any(b.has_skip for b in blocks))
+            p = fl.tile_plan(B, 12, blocks, lib, dtype, width, groups)
+            lib_smem = lib.fused_chain_smem_bytes(code, skip, width, groups)
+            seed += 1
+            ok, err, tm, (flops, nbytes) = chain_check(fl, torch, variant, 12, dtype, seed,
+                                                       width=width, groups=groups)
+            for n, batch in ((21, B), (12, 63)):
+                seed += 1
+                more, e, _, _ = chain_check(fl, torch, variant, n, dtype, seed, batch=batch,
+                                            timed=False, width=width, groups=groups)
+                ok, err = ok and more, max(err, e)
+            ok = ok and p.resident >= 1 and lib_smem == p.smem_bytes
+            worst = max(worst, err)
+            b_ms, b_by, _ = kernel_bound(dname, flops, nbytes)
+            cases[(width, groups, variant)] = dict(tm, flops=flops, bytes=nbytes, err=err)
+            print(f"kernel fused_chain {dname} {kernel} C={width} groups={groups} {variant:9s} "
+                  f"N=12/21 B=64, N=12 B=63: max_abs_err={err:.3e} tol={KERNEL_TOL[dname]} "
+                  f"{'ok' if ok else 'FAIL'}; N=12 B={B}: kernel_ms={tm['ms']:.4f} graph_ms="
+                  f"{tm['graph']:.4f} device_ms={tm['dev']:.4f} plain_ms={tm['plain']:.4f} "
+                  f"bound_ms={b_ms:.4f} ({b_by}; {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); "
+                  f"plan {p.scenes_per_tile} scenes a tile, {p.clusters} clusters of "
+                  f"{p.ctas // p.clusters} CTAs, {p.stages} stages, {p.smem_bytes} bytes of "
+                  f"shared memory a CTA (library {lib_smem}), {p.resident} clusters fit at once",
+                  flush=True)
+            if not ok:
+                bad.append((dname, width, groups, variant, err, p.resident, lib_smem))
+    return worst, cases, bad
+
+
+def wide_chain_at_512(fl, torch, dtype, seed):
+    """Phase 23 (a), one dtype: the wide kernel at C=512 in 8 groups, not on
+    a main path (the library's fused_chain_launch_wide; uncounted), on the
+    inputs of the cluster-of-8 kernel's (chain_tf32, chain_sm90) forward-mix
+    chains at N=12, B=64, each held to the plain version within KERNEL_TOL,
+    both kernels timed as graph replay in turns (cluster-of-8, wide, wide,
+    cluster-of-8) in this call.  Returns the 19 chains' sums (both kernels,
+    graph ms) and the worst error."""
+    from diffuscene_tpu_torch.ops import build
+
+    lib = fl.load_library()
+    dname = str(dtype).split(".")[-1]
+    narrow = fl.kernel_name(dtype, C, 8)
+    sums, worst, bad = {"narrow": 0.0, "wide": 0.0}, 0.0, []
+    for variant, k in FORWARD_MIX.items():
+        seed += 1
+        chain, x, films, skips = chain_case(fl, torch, variant, 12, dtype, seed)
+        wp = fl.pack_chain_weights(chain.W, permuted=True)
+        h, mid, out = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        specs = [b.spec for b in chain.blocks] + [0]
+
+        def wide():
+            rc = lib.fused_chain_launch_wide(
+                build.DTYPE_CODES[dtype], x.data_ptr(), ptr(skips[0]),
+                ptr(skips[1] if len(skips) > 1 else None), ptr(films[0]),
+                ptr(films[1] if len(films) > 1 else None), wp.data_ptr(), chain.V.data_ptr(),
+                h.data_ptr(), mid.data_ptr(), out.data_ptr(), B, 12, C, 8, 1e-6,
+                len(chain.blocks), specs[0], specs[1], build.stream_ptr(x.device))
+            if rc != 0:
+                raise RuntimeError(f"fused_chain_launch_wide failed with code {rc}")
+            return out
+
+        def cluster8():
+            return fl.apply_chain(chain, x, films, skips, n_per_scene=12)
+
+        want = fl.apply_chain_reference(chain, x, films, skips, n_per_scene=12).float()
+        got = [cluster8().float(), wide().float()]
+        torch.cuda.synchronize()
+        errs = [(g - want).abs().max().item() for g in got]
+        ok = all(bool(torch.isfinite(g).all()) and torch.allclose(g, want, **KERNEL_TOL[dname])
+                 for g in got)
+        worst = max(worst, *errs)
+        g8 = [graph_ms(torch, cluster8)]
+        gw = [graph_ms(torch, wide), graph_ms(torch, wide)]
+        g8.append(graph_ms(torch, cluster8))
+        a, b = sum(g8) / 2, sum(gw) / 2
+        sums["narrow"] += k * a
+        sums["wide"] += k * b
+        print(f"kernel fused_chain {dname} C=512 groups=8 {variant:9s} x{k} a forward, N=12 B={B}: "
+              f"{narrow} graph_ms={g8[0]:.4f}/{g8[1]:.4f}, {WIDE_CHAIN_KERNELS[dname][0][1]} "
+              f"(uncounted) "
+              f"graph_ms={gw[0]:.4f}/{gw[1]:.4f} ({b / a:.3f}x); max_abs_err {errs[0]:.3e} / "
+              f"{errs[1]:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append((dname, variant, errs))
+    print(f"chains of one flagship forward (C=512, 8 groups, {dname}, 19 chains), graph replay: "
+          f"{narrow} {sums['narrow']:.4f} ms (PERF.md {WIDE_CHAIN_EARLIER_MS[dname]} ms, "
+          f"{sums['narrow'] / WIDE_CHAIN_EARLIER_MS[dname]:.3f}x), the wide kernel "
+          f"{sums['wide']:.4f} ms ({sums['wide'] / sums['narrow']:.3f}x)", flush=True)
+    return sums, worst, bad
+
+
+def wide_chain_kernels(fl, torch):
+    """Phase 23 (a), f32 then bf16: wide_chain_set, the 19 chains of an
+    equal-width forward at each (C, groups) of the set summed from its
+    cases (FORWARD_MIX), and wide_chain_at_512; the chain kernels' ptxas
+    report.  Returns the summary."""
+    from diffuscene_tpu_torch.ops import build
+
+    wide_ptxas(build.library_path(fl.CSRC), "chain_")
+    out, bad, seed = {}, [], 900
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        worst, cases, b = wide_chain_set(fl, torch, dtype, seed)
+        seed += 1000
+        bad += b
+        mine = out[dname] = {"worst": worst, "forward_19": {}}
+        for width, groups in WIDE_CHAIN_SET:
+            s = forward_sums(cases, width, groups)
+            s["bound_ms"], s["bound_by"], fp32 = kernel_bound(dname, s["flops"], s["bytes"])
+            route = ("on the bf16 tensor cores" if fp32 is None else
+                     f"on the split-TF32 route ({fp32:.4f} at the FP32 rate)")
+            print(f"chains of one forward, dim {width} dim_mults [1, 1, 1, 1], {groups} groups, "
+                  f"{dname}, N=12, B={B} (19 chains, {fl.kernel_name(dtype, width, groups)}): "
+                  f"kernel "
+                  f"{s['ms']:.3f} ms (eager), graph replay {s['graph']:.3f} ms, device "
+                  f"{s['dev']:.3f} ms, plain {s['plain']:.3f} ms, bound {s['bound_ms']:.4f} ms "
+                  f"{route} ({s['bound_by']}; {s['flops'] / 1e9:.2f} GFLOP, "
+                  f"{s['bytes'] / 1e6:.2f} MB)", flush=True)
+            mine["forward_19"][f"C={width} groups={groups}"] = s
+        mine["c512_g8"], w, b = wide_chain_at_512(fl, torch, dtype, seed)
+        mine["c512_g8_worst"] = w
+        bad += b
+        seed += 100
+    if bad:
+        raise RuntimeError(f"wide chain: the kernels disagree with their plain versions: {bad}")
+    return out
+
+
+def rows_sample(torch, scene, label, card, gen, **kw):
+    """checked_sample through fused="rows" at B=64 with B1 and B2 counted
+    too: the chain launches by kernel, exactly none of B1 and B2.  Returns
+    the summary, its launches as [B1, B2, B4]."""
+    from diffuscene_tpu_torch.ops import attention as at
+    from diffuscene_tpu_torch.ops import fused_resblock as rb
+
+    zero_counts((rb.fused_resnet_block, at.fused_set_attention))
+    step = sampling_step(torch, scene, B, gen, fused="rows") if kw.get("profile", True) else None
+    _, res = checked_sample(torch, scene, label, card, batch=B, fused="rows", step=step, **kw)
+    other = [rb.fused_resnet_block.launches, at.fused_set_attention.launches]
+    print(f"{label}: launches by kernel {res['by_kernel']}, B1 and B2 {other}", flush=True)
+    if other != [0, 0]:
+        raise RuntimeError(f"{label}: B1 and B2 launched {other} times in a rows sample")
+    res["launches"] = [other[0], other[1], res["launches"][0]]
+    return res
+
+
+def wide_chain_samples(torch, card):
+    """Phase 23 (b): the rows engine at full width.  The dim-1024 [1, 1, 1,
+    1] model: the b512 recipe's network (bf16) by DDPM-1000 at B=64 through
+    fused="rows" (exactly 19,000 B4 on chain_bf16_wide, no B1 or B2) held
+    to the module every TASK_CHECK_EVERY calls, then through fused=True by
+    DPM-Solver++-20 (560 B1, 20 B2, no B4), the flagship's (f32) by
+    DPM-Solver++-20 through fused="rows" (380 B4 on chain_tf32_wide) held
+    every WIDE_DPM_EVERY calls, each with a 20-step profile; the 4- and
+    16-group flagship networks and a dim-256 model in each dtype through
+    fused="rows" by DPM-Solver++-20 (380 B4 on the wide kernel), held every
+    WIDE_DPM_EVERY calls, unprofiled; a dim-64 model refused by
+    fused="rows" naming fused=False, nothing launched.  Each sample's time,
+    its model's set-up included, is printed."""
+    from diffuscene_tpu_torch.ops import attention as at
+    from diffuscene_tpu_torch.ops import fused_level as fl
+    from diffuscene_tpu_torch.ops import fused_resblock as rb
+
+    out = {}
+    counters = (rb.fused_resnet_block, at.fused_set_attention, fl.apply_chain)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 80)
+    dpm = dict(calls=DPM_STEPS, every=WIDE_DPM_EVERY, dpm=True, dpm_steps=DPM_STEPS)
+    for dname, config in (("bfloat16", B512_CONFIG), ("float32", FLAGSHIP_CONFIG)):
+        pre = "bf16_" if dname == "bfloat16" else ""
+        kernel = WIDE_CHAIN_KERNELS[dname][0][1]
+        t0 = time.perf_counter()
+        scene = rest_scene(torch, {"dim": WIDE_CHAIN_DIM}, T, config=config)
+        if str(scene.denoiser.compute_dtype).split(".")[-1] != dname:
+            raise RuntimeError(f"wide chain: {config} is not a {dname} network")
+        # this slice's main path: bf16 DDPM-1000; f32 DPM-Solver++-20
+        label = f"{pre}dim{WIDE_CHAIN_DIM}_rows_" + ("ddpm" if dname == "bfloat16" else "dpm")
+        out[label] = rows_sample(torch, scene, f"wide chain {label}", card, gen=gen,
+                                 named=WIDE_CHAIN_KERNELS[dname],
+                                 **({} if dname == "bfloat16" else dpm))
+        calls = T if dname == "bfloat16" else DPM_STEPS
+        if out[label]["by_kernel"] != {kernel: 19 * calls}:
+            raise RuntimeError(f"wide chain {label}: launches by kernel {out[label]['by_kernel']}")
+        if dname == "bfloat16":   # the same model through the 3-D engine, beside it
+            label3 = f"{pre}dim{WIDE_CHAIN_DIM}_3d_dpm"
+            fl.apply_chain.launches = 0
+            _, out[label3] = checked_sample(
+                torch, scene, f"wide chain {label3}", card, batch=B, fused=True,
+                step=sampling_step(torch, scene, B, gen), named=WIDE_CHAIN_3D_KERNELS[dname],
+                **dpm)
+            if fl.apply_chain.launches:
+                raise RuntimeError(f"wide chain {label3}: {fl.apply_chain.launches} B4 launches")
+            print(f"wide chain dim {WIDE_CHAIN_DIM} {dname}, B={B}: device busy "
+                  f"{out[label]['busy_ms']:.3f} ms/step through fused='rows', "
+                  f"{out[label3]['busy_ms']:.3f} through fused=True", flush=True)
+        print(f"wide chain dim {WIDE_CHAIN_DIM} {dname}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        del scene
+        torch.cuda.empty_cache()
+        for key, kw in ((f"{pre}groups4_rows_dpm", {"resnet_block_groups": 4}),
+                        (f"{pre}groups16_rows_dpm", {"resnet_block_groups": 16}),
+                        (f"{pre}dim{WIDE_CHAIN_SMALL_DIM}_rows_dpm",
+                         {"dim": WIDE_CHAIN_SMALL_DIM})):
+            t0 = time.perf_counter()
+            scene = rest_scene(torch, kw, T, config=config)
+            out[key] = rows_sample(torch, scene, f"wide chain {key}", card, gen=gen,
+                                   profile=False, **dpm)
+            if out[key]["by_kernel"] != {kernel: 19 * DPM_STEPS}:
+                raise RuntimeError(f"wide chain {key}: launches by kernel {out[key]['by_kernel']}")
+            print(f"wide chain {key}: {time.perf_counter() - t0:.1f} s", flush=True)
+            del scene
+            torch.cuda.empty_cache()
+        # outside the set: nothing launched
+        scene = rest_scene(torch, {"dim": 64}, T, config=config)
+        zero_counts(counters)
+        err = None
+        try:
+            scene.sample(B, generator=torch.Generator(device=DEV).manual_seed(SEED), fused="rows")
+        except ValueError as e:
+            err = str(e)
+        launched = [c.launches for c in counters]
+        ok = err is not None and "fused=False" in err and launched == [0, 0, 0]
+        print(f"wide chain {dname} dim 64 fused='rows': raises {err!r}, launches {launched} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise RuntimeError(f"wide chain: the {dname} dim 64 model through fused='rows': {err}, "
+                               f"{launched}")
+        out[f"{pre}dim64_rows_error"] = err
+        del scene
+    return out
+
+
+def wide_chain_entry(dname, kernels, samples):
+    """The kernels line's entry of the ``dname`` wide chain kernel: its
+    launches on the slice's main path (the dim-1024 model's bf16 DDPM-1000;
+    f32 DPM-Solver++-20) and on the other phase 23 samples, its worst error
+    over phase 23 (a), and the times and bound of the dim-1024 model's 19
+    chains at B=64 (8 groups)."""
+    pre = "bf16_" if dname == "bfloat16" else ""
+    kernel = WIDE_CHAIN_KERNELS[dname][0][1]
+    main = f"{pre}dim{WIDE_CHAIN_DIM}_rows_" + ("ddpm" if dname == "bfloat16" else "dpm")
+    fwd = kernels[dname]["forward_19"][f"C={WIDE_CHAIN_DIM} groups=8"]
+    return {
+        "name": kernel,
+        "route": "cuda",
+        "source": "diffuscene_tpu_torch/csrc/fused_chain.cu",
+        "replaces": "diffuscene_tpu/ops/fused_level.py:165",
+        "launches": samples[main]["by_kernel"][kernel],
+        "max_abs_err": kernels[dname]["worst"],
+        "ms": fwd["ms"],
+        "graph_ms": fwd["graph"],
+        "plain_ms": fwd["plain"],
+        "bound_ms": fwd["bound_ms"],
+        "bound_by": fwd["bound_by"],
+        "library_ms": None,
+        "wide_chain_launches": {k: v["by_kernel"].get(kernel, 0) for k, v in samples.items()
+                                if isinstance(v, dict) and "by_kernel" in v},
+        "forward_19_graph_ms": {k: v["graph"] for k, v in kernels[dname]["forward_19"].items()},
+        "c512_g8_graph_ms": kernels[dname]["c512_g8"],
+    }
+
+
+def phase_wide_chain(fl, torch, card):
+    """Phase 23: the chain kernel (B4) widened to B1's set, both dtypes."""
+    t0 = time.perf_counter()
+    out = {"card": card, "kernels": wide_chain_kernels(fl, torch)}
+    out["kernels_s"] = time.perf_counter() - t0
+    print(f"wide chain: phase 23 (a) took {out['kernels_s']:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+    out["samples"] = wide_chain_samples(torch, card)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"wide chain: phase 23 took {out['phase_s']:.1f} s", flush=True)
     return out
 
 
@@ -4606,6 +4985,10 @@ def main(argv):
         print(json.dumps({"wide": phase_wide(rb, at, torch, card)}))
         print(card_line())
         return 0
+    if only == "--only-wide-chain":  # B4 widened alone: phase 23
+        print(json.dumps({"wide_chain": phase_wide_chain(fl, torch, card)}))
+        print(card_line())
+        return 0
     if only == "--only-f32-engine":  # the flagship config's own dtype: phases 3 + 9 and 15, f32
         scene32 = phase_forward(torch, torch.float32)
         phase_rows_sample(torch, scene32, card)
@@ -4641,14 +5024,16 @@ def main(argv):
     chain_launches = phase_rows_sample(torch, scene, card)
     mark("phase 4")
 
-    # this slice's main path: the 3-D engine, every ResnetBlock on B1 and
-    # mid_attn on B2
-    rb_launches, at_launches = phase_engine_samples(torch, scene, card)
+    # the 3-D engine's slice's main path: every ResnetBlock on B1 and
+    # mid_attn on B2, by DPM-Solver++-20 (phase 22 holds a bf16 3-D
+    # DDPM-1000, 17,000 of its B1 launches on resblock_sm90)
+    rb_launches, at_launches = phase_engine_samples(torch, scene, card, ddpm=False)
     del scene
     mark("phases 10-11")
     # phase 15: the flagship config's own dtype, f32, through the rows
-    # engine and the 3-D engine
-    chain32_launches = phase_rows_sample(torch, scene32, card)
+    # engine (DPM-Solver++-20 here, for the script's time; DDPM-1000 in
+    # --only-f32-engine) and the 3-D engine
+    chain32_launches = phase_rows_sample(torch, scene32, card, dpm=True)
     rb32_launches, at32_launches = phase_engine_samples(torch, scene32, card,
                                                         dpm_batch=GENERATE_B)
     mark("phase 15 samples")
@@ -4666,6 +5051,15 @@ def main(argv):
     wide_b1, wide_b2 = wk["float32"]["b1"]["wide"], wk["float32"]["b2"]
     bf_b1, bf_b2 = wk["bfloat16"]["b1"]["wide"], wk["bfloat16"]["b2"]
     bf_ddpm = wide_samples["bf16_wide_ddpm"]["by_kernel"]
+    torch.cuda.empty_cache()
+    # this slice's main path: the chain kernel (B4) at B1's widths and
+    # groupings in both dtypes, the dim-1024 equal-width model through the
+    # rows engine (bf16 DDPM-1000, f32 DPM-Solver++-20) beside the 3-D
+    # engine, the 4- and 16-group and dim-256 models through the rows engine
+    wchain = phase_wide_chain(fl, torch, card)
+    profiler_tally("phase 23")
+    mark("phase 23")
+    wc_k, wc_s = wchain["kernels"], wchain["samples"]
     torch.cuda.empty_cache()
 
     cham = phase_chamfer(ch, torch)
@@ -4733,6 +5127,7 @@ def main(argv):
     print(json.dumps({"rest": rest}))
     print(json.dumps({"parallel": par}))
     print(json.dumps({"wide": wide}))
+    print(json.dumps({"wide_chain": wchain}))
     print(json.dumps({"kernels": [{
         "name": "fused_chain",
         "route": "cuda",
@@ -4868,7 +5263,7 @@ def main(argv):
         "library_ms": None,
         "c256_graph_ms": bf_b2["C=256"]["graph"],
         "c512_graph_ms": bf_b2["C=512 wide"]["graph"],
-    }]}))
+    }] + [wide_chain_entry(dname, wc_k, wc_s) for dname in ("float32", "bfloat16")]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -86,6 +86,12 @@
 //   identity residual (x, or block 1's output) is read from device memory,
 //   exact.  226,128 bytes of shared memory a CTA.
 //
+// The other widths and groupings (chain_tf32_wide, chain_bf16_wide, one
+// body, below): C = 256, 512 or 1024 in 4, 8, 16 or 32 groups of at least
+// 16 channels, every chain the two kernels above do not take (they take C
+// = 512 in 8 groups), on the wide ResnetBlock kernel's design with the
+// chain's roundings.
+//
 // What bounds it.  The 19 chains of a B=64 flagship forward are 33.4 GFLOP:
 // 34 us at the bf16 tensor-core peak, and in f32 0.2025 ms as three tf32
 // products each at the 495 TFLOP/s TF32 rate (0.4988 ms at the FP32 rate),
@@ -98,6 +104,8 @@
 // cluster (row tiles x groups) that multicasts each weight chunk to the
 // row tiles that share it.
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "sm90.cuh"
 
@@ -693,6 +701,380 @@ cudaError_t prepare_tf32() {   // once
   return err;
 }
 
+// ---------------------------------------------------------------------------
+// the other widths and groupings: the wide chain kernels, f32 and bf16
+// ---------------------------------------------------------------------------
+//
+// chain_tf32_wide takes every f32 chain chain_tf32 does not, and
+// chain_bf16_wide every bf16 chain chain_sm90 does not: C = 256, 512 or
+// 1024 in 4, 8, 16 or 32 GroupNorm groups of at least 16 channels (the set
+// the wide ResnetBlock kernels take), scenes of at most 64 rows, 1-2 blocks
+// and at most one skip a chain.  Both are one body (chain_wide) over the
+// element type: the wide ResnetBlock kernel's design (fused_resblock.cu,
+// resblock_wide; its pieces in sm90.cuh) carried over a chain, as
+// chain_sm90 carries resblock_sm90's.  A scene tile is one cluster of
+// C / (64 kWG) CTAs (4 or 8) of kWG consumer warpgroups (1, or 2 at
+// C = 1024) and a producer warp; warpgroup u of CTA c owns output columns
+// [64 (kWG c + u), 64 (kWG c + u) + 64) of every product of the chain, in
+// f32 on wgmma m64n64k8 .tf32 in split TF32 (32-deep K steps), in bf16 on
+// wgmma m64n64k16 (64-deep K steps), f32 accumulation.  For each block:
+//
+// - the products take their A fragments from device memory through L2
+//   (in f32 the next K step's wait as raw values and are split once the
+//   step before retires, stream_products_late: a CTA of two warpgroups and
+//   a producer warp has 168 registers a thread, and one warpgroup's CTA
+//   measured no faster with two split sets); the first product
+//   reads the block input (x, or block 1's output), and for a skip block
+//   [input | skip] against the (2C, C) [w1; w1s] and [wres; wres_s]
+//   weights, which the chain's stack holds as consecutive (C, C) weights;
+//   W1 and the residual projection share the fragments;
+// - the epilogues are the chain's (chain_sm90's and chain_tf32's), not
+//   B1's: each dense output rounded to the compute dtype before its f32
+//   moments, the one-pass variance clamped at 0, scene-FiLM folded into the
+//   affine in f32 before a and b are rounded, row-FiLM after it as
+//   z * (f + 1) + f in the compute dtype, SiLU in f32 then rounded, the
+//   residual projection plus bres rounded before the add, the identity
+//   residual read exact;
+// - a GroupNorm group of 16 to 256 channels is merged from the
+//   warpgroups' partial sums in ascending order, across the cluster where
+//   it spans CTAs (wide_partials, wide_stats: C = 1024 in 4 groups spans
+//   two CTAs of 128 columns);
+// - h goes through the device scratch `h`: each CTA writes its columns, a
+//   cluster barrier (release, then acquire) orders them before any CTA's
+//   reads of the second product;
+// - block 1's output goes to the device scratch `mid`, and after a cluster
+//   barrier (release, then acquire) block 2 reads it as its A fragments
+//   and identity residual; no activation moves CTA to CTA through
+//   distributed shared memory (an exchange of block 1's output that way
+//   faulted on the card, see chain_sm90).  The chain's output goes to
+//   `out`, which no CTA reads, so no store can overwrite rows a peer still
+//   reads.
+//
+// Four cluster barriers a block order a launch: (A) the GN1 partials, (B)
+// h in device memory, (C) the GN2 partials, (E) the block's output stored
+// and every CTA done reading the others' partials.  The producer warp
+// streams W1 (and Wres) of each K step of a block, then W2's, every block
+// in order, and passes each barrier in turn: it puts a block's W1 chunks
+// once it has arrived at the barrier before them, so that it never waits
+// on a stage that the consumers take only after that barrier.
+//
+// What bounds it.  A CTA streams its columns' weights of the whole chain
+// from L2 (at C = 1024 a two-block chain with a skip: 7 (C, C) weights,
+// 7 MiB a CTA in split f32, 1.75 MiB in bf16), and every row tile reads them
+// again; A fragments come through L2, each tile's rows once per CTA; the
+// cluster barriers serialise each block's phases.  The 19 chains of a
+// B=64 forward of a dim-1024 equal-width model are 133.7 GFLOP: 0.135 ms at
+// the bf16 tensor-core peak, 0.81 ms as three tf32 products each at the
+// 495 TFLOP/s TF32 rate.
+
+using sm90::kMaxLocal;
+using sm90::kStagesW;
+using sm90::Wide;
+using sm90::wide_groups;
+
+template <typename T>
+struct ArgsCW {
+  const T* x;           // (M, C)
+  const T* skip;        // (M, C) for the one block that takes a skip, or null
+  const T* film[2];     // per block: (B, 2C) per scene, (M, 2C) per row, or null
+  const T* W;           // chunks (pack_chain_weights of the (nW * C, C) stack, Wide<T>)
+  const float* V;       // (nV, C): per block b1, g1s, g1b, b2, g2s, g2b [, bres]
+  T* h;                 // (M, C) scratch: a block's h
+  T* mid;               // (M, C) scratch: block 1's output, block 2's input
+  T* out;               // (M, C)
+  int B, n, ts, C, gw, nW, nV, nblocks;
+  int spec[2];          // as Args90's
+  float eps;
+};
+
+template <typename T, int kWG>
+__device__ __forceinline__ void chain_wide(const ArgsCW<T>& a) {
+  constexpr int kCons = kWG * kConsumers;   // consumer threads
+  constexpr int kCols = kWG * kGroup;       // this CTA's output columns
+  constexpr int kStep = Wide<T>::kStep;     // depth of a K step
+  constexpr int kPart = Wide<T>::kPart;     // elements of one warpgroup's chunk
+  constexpr sm90::LayoutW L = sm90::layout_wide_of<T>(kWG, kMaxVectors);
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* ring = reinterpret_cast<T*>(smem + L.ring);
+  float* Vs = reinterpret_cast<float*>(smem + L.v);
+  float* red = reinterpret_cast<float*>(smem + L.red);
+  float2* part = reinterpret_cast<float2*>(smem + L.part);
+  float2* stat = reinterpret_cast<float2*>(smem + L.stat);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L.bars);
+  uint64_t* empty = full + kStagesW;
+
+  const cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank(), ncta = (int)cluster.num_blocks();
+  const int scene0 = (blockIdx.x / ncta) * a.ts;
+  const int nsc = min(a.ts, a.B - scene0);   // the last tile may be ragged
+  const int rows = nsc * a.n;
+  const int row0 = scene0 * a.n;          // the tile's first row
+  const int steps = a.C / kStep;            // K steps of one (C, C) weight
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int cta0 = rank * kCols;            // this CTA's first output column
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStagesW; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], kCons);
+    }
+    sm90::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (warp == kCons / 32) {
+    // ---- producer warp: each block's W1 (and Wres) of each K step, a
+    // chunk for each warpgroup, then its W2's ----
+    sm90::RingW<T, kWG> w{ring, full, empty, 0, 0};
+    constexpr uint32_t kBytes = kPart * sizeof(T);
+    const size_t group = (size_t)a.nW * steps * kPart;     // one 64-column group's chunks
+    const T* mine = a.W + (size_t)rank * kWG * group;      // this CTA's
+    auto put = [&](int wi, int st) {   // K step st from weight wi of the stack on
+      w.put(mine + ((size_t)wi * steps + st) * kPart, kBytes, kWG, group);
+    };
+    int wi = 0;
+    for (int b = 0; b < a.nblocks; ++b) {
+      const int spec = b ? a.spec[1] : a.spec[0];
+      const bool skip = spec & 1, res = (spec >> 3) & 1;
+      // the block's weights in the stack: w1, [w1s], w2, [wres, [wres_s]]
+      const int w1 = wi, w2 = wi + 1 + skip, wr = w2 + 1;
+      if (lane == 0) {
+        for (int st = 0; st < steps * (1 + skip); ++st) {
+          put(w1, st);
+          if (res) put(wr, st);
+        }
+      }
+      if (b > 0) sm90::cluster_wait();   // (E) of the block before
+      sm90::cluster_arrive_relaxed();    // (A)
+      sm90::cluster_wait();
+      sm90::cluster_arrive_relaxed();    // (B): the ring is empty now, W2's first stages go in
+      if (lane == 0) {
+        for (int st = 0; st < steps; ++st) put(w2, st);
+      }
+      sm90::cluster_wait();
+      sm90::cluster_arrive_relaxed();    // (C)
+      sm90::cluster_wait();
+      sm90::cluster_arrive_relaxed();    // (E)
+      wi = w2 + 1 + res + (skip && res);
+    }
+    sm90::cluster_wait();                // (E) of the last block
+    return;
+  }
+
+  // ---- the consumer warpgroups: warpgroup u owns columns [64 u, 64 u +
+  // 64) of this CTA's ----
+  const int u = warp / 4, t = lane & 3;
+  const int r0 = 16 * (warp & 3) + (lane >> 2);   // this thread's rows: r0, r0 + 8
+  const int col0 = cta0 + u * kGroup;             // this warpgroup's first output column
+  // this thread's rows of the tile's (clamped: rows past a ragged tile
+  // repeat its last, and their results are not stored)
+  const int ra = row0 + min(r0, rows - 1), rb = row0 + min(r0 + 8, rows - 1);
+  const int gwl = min(a.gw, kGroup);
+  for (int i = threadIdx.x; i < a.nV * kCols; i += kCons)
+    Vs[i] = a.V[(i / kCols) * a.C + cta0 + i % kCols];
+  float acc[32], accR[32];
+  sm90::RingW<T, kWG> w{ring, full, empty, 0, 0};
+
+  // Block kb of the chain (a compile-time index: its spec, film, input and
+  // output come from the kernel's parameters, not from registers that
+  // would stay live across the products)
+  auto block = [&](auto kb) {
+    constexpr int b = decltype(kb)::value;
+    const bool skip = a.spec[b] & 1, res = (a.spec[b] >> 3) & 1;
+    const int film_kind = (a.spec[b] >> 1) & 3;
+    // this block's vector k at vec[k * kCols]: block 1's follow block 0's 6 or 7
+    const float* vec = Vs + u * kGroup + (b ? (a.spec[0] & 8 ? 7 : 6) * kCols : 0);
+    const T* xin = b ? a.mid : a.x;    // the block's input
+
+    // the first product: z = [input | skip] @ W1 (and the residual projection)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = accR[i] = 0.f;
+    auto src = [&](int st, int r) {
+      int c = kStep * st + kStep / 4 * t;
+      const T* base = xin;
+      if (c >= a.C) base = a.skip, c -= a.C;
+      return base + (size_t)r * a.C + c;
+    };
+    if (res)
+      sm90::wide_products<T, true, true>(acc, accR, steps * (1 + skip), src, ra, rb, w,
+                                            u * kPart);
+    else
+      sm90::wide_products<T, false, true>(acc, accR, steps, src, ra, rb, w, u * kPart);
+    sm90::bar_sync<kCons>(1);   // Vs written by every consumer
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = tile::rnd<T>(acc[i] + vec[8 * (i / 4) + 2 * t + (i & 1)]);
+    sm90::wide_partials<kCons>(acc, u, a.n, nsc, gwl, red, part);
+    sm90::cluster_arrive();     // (A) every partial of the cluster is written
+    sm90::cluster_wait();
+    sm90::wide_stats<kCons, true>(rank, a.n, nsc, a.gw, a.eps, part, stat);
+    sm90::bar_sync<kCons>(1);
+
+    // GN1 with scene-FiLM folded into its affine, row-FiLM after it, SiLU;
+    // this warpgroup's columns of h into the scratch
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+      if (r < rows) {
+        const int sc = r / a.n;
+        const T* f = film_kind == 1 ? a.film[b] + (size_t)(scene0 + sc) * 2 * a.C + col0
+                                    : a.film[b] + (size_t)(row0 + r) * 2 * a.C + col0;
+        T* hr = a.h + (size_t)(row0 + r) * a.C + col0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * j + 2 * t;
+          const float2 m = stat[(u * kMaxLocal + 8 * j / gwl) * kTileRows + sc];
+          const float2 fs = film_kind ? tile::ld2<T>(f + c) : make_float2(0.f, 0.f);
+          const float2 fb = film_kind ? tile::ld2<T>(f + a.C + c) : make_float2(0.f, 0.f);
+          float z[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float s = e ? fs.y : fs.x, sh = e ? fb.y : fb.x;
+            float ca = m.y * vec[kCols + c + e];
+            float cb = vec[2 * kCols + c + e] - m.x * m.y * vec[kCols + c + e];
+            if (film_kind == 1) {
+              ca *= s + 1.f;
+              cb = cb * (s + 1.f) + sh;
+            }
+            ca = tile::rnd<T>(ca);
+            cb = tile::rnd<T>(cb);
+            float v = tile::rnd<T>(tile::rnd<T>(acc[4 * j + 2 * half + e] * ca) + cb);
+            if (film_kind == 2) v = tile::rnd<T>(tile::rnd<T>(v * tile::rnd<T>(s + 1.f)) + sh);
+            z[e] = silu_fast(v);
+          }
+          tile::st2<T>(hr + c, z[0], z[1]);
+        }
+      }
+    }
+    sm90::cluster_arrive();     // (B) this CTA's columns of h are written (release)
+
+    // the identity residual: the block input's values, exact (block 2's:
+    // block 1's output, which this thread stored)
+    if (!res) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = r0 + 8 * ((i >> 1) & 1);
+        const size_t at = (size_t)(row0 + r) * a.C + col0 + 8 * (i / 4) + 2 * t + (i & 1);
+        accR[i] = r < rows ? tile::to_f<T>(xin[at]) : 0.f;
+      }
+    }
+    sm90::cluster_wait();       // (B) every CTA's columns of h are written (acquire)
+
+    // the second product: z2 = h @ W2 from the scratch
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[i] = 0.f;
+    sm90::wide_products<T, false, true>(
+        acc, accR, steps,
+        [&](int st, int r) { return a.h + (size_t)r * a.C + kStep * st + kStep / 4 * t; }, ra, rb,
+        w, u * kPart);
+
+    // out = round(silu(GN2(round(z2 + b2))) + res), this warpgroup's columns
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      acc[i] = tile::rnd<T>(acc[i] + vec[3 * kCols + 8 * (i / 4) + 2 * t + (i & 1)]);
+    sm90::wide_partials<kCons>(acc, u, a.n, nsc, gwl, red, part);
+    sm90::cluster_arrive();     // (C)
+    sm90::cluster_wait();
+    sm90::wide_stats<kCons, true>(rank, a.n, nsc, a.gw, a.eps, part, stat);
+    sm90::bar_sync<kCons>(1);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+      if (r < rows) {
+        const int sc = r / a.n;
+        T* o = (b + 1 == a.nblocks ? a.out : a.mid) + (size_t)(row0 + r) * a.C + col0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int c = 8 * j + 2 * t;
+          const float2 m = stat[(u * kMaxLocal + 8 * j / gwl) * kTileRows + sc];
+          float v[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int i = 4 * j + 2 * half + e;
+            const float ca = tile::rnd<T>(m.y * vec[4 * kCols + c + e]);
+            const float cb =
+                tile::rnd<T>(vec[5 * kCols + c + e] - m.x * m.y * vec[4 * kCols + c + e]);
+            const float z = tile::rnd<T>(silu_fast(tile::rnd<T>(tile::rnd<T>(acc[i] * ca) + cb)));
+            v[e] = z + (res ? tile::rnd<T>(accR[i] + vec[6 * kCols + c + e]) : accR[i]);
+          }
+          tile::st2<T>(o + c, v[0], v[1]);
+        }
+      }
+    }
+    // (E) this CTA's columns of the block's output are stored (release; block
+    // 2 reads them from `mid`) and it is done reading the others' partials
+    sm90::cluster_arrive();
+    sm90::cluster_wait();
+  };
+  block(std::integral_constant<int, 0>{});
+  if (a.nblocks == 2) block(std::integral_constant<int, 1>{});
+}
+
+template <int kWG>
+__global__ void __launch_bounds__(kWG * kConsumers + 32, 1) chain_tf32_wide(const ArgsCW<float> a) {
+  chain_wide<float, kWG>(a);
+}
+
+template <int kWG>
+__global__ void __launch_bounds__(kWG * kConsumers + 32, 1) chain_bf16_wide(const ArgsCW<bf16> a) {
+  chain_wide<bf16, kWG>(a);
+}
+
+// the wide chain kernel of element type T
+template <typename T, int kWG>
+auto chain_wide_kernel() {
+  if constexpr (std::is_same<T, float>::value)
+    return chain_tf32_wide<kWG>;
+  else
+    return chain_bf16_wide<kWG>;
+}
+
+template <typename T>
+unsigned smem_wide(int C) {
+  return sm90::layout_wide_of<T>(wide_groups(C), kMaxVectors).total;
+}
+
+template <typename T, int kWG>
+cudaError_t prepare_wide() {   // once per instantiation
+  static const cudaError_t err =
+      cudaFuncSetAttribute(chain_wide_kernel<T, kWG>(), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)sm90::layout_wide_of<T>(kWG, kMaxVectors).total);
+  return err;
+}
+
+template <typename T, int kWG>
+int launch_wide_as(const ArgsCW<T>& a, cudaStream_t stream) {
+  const cudaError_t err = prepare_wide<T, kWG>();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = sm90::wide_config(
+      a.C, kWG, sm90::layout_wide_of<T>(kWG, kMaxVectors).total, (a.B + a.ts - 1) / a.ts, stream,
+      &attr);
+  return (int)cudaLaunchKernelEx(&cfg, chain_wide_kernel<T, kWG>(), a);
+}
+
+template <typename T>
+int launch_wide(const ArgsCW<T>& a, cudaStream_t stream) {
+  return wide_groups(a.C) == 2 ? launch_wide_as<T, 2>(a, stream) : launch_wide_as<T, 1>(a, stream);
+}
+
+template <typename T, int kWG>
+int wide_active_clusters_as(int C) {
+  const cudaError_t err = prepare_wide<T, kWG>();
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = sm90::wide_config(
+      C, kWG, sm90::layout_wide_of<T>(kWG, kMaxVectors).total, 64, nullptr, &attr);
+  int clusters = 0;
+  const cudaError_t e =
+      cudaOccupancyMaxActiveClusters(&clusters, chain_wide_kernel<T, kWG>(), &cfg);
+  return e == cudaSuccess ? clusters : -(int)e;
+}
+
+template <typename T>
+int wide_active_clusters(int C) {
+  return wide_groups(C) == 2 ? wide_active_clusters_as<T, 2>(C) : wide_active_clusters_as<T, 1>(C);
+}
+
 // weights and vectors of one block of `spec`
 int block_weights(int spec) { return 2 + (spec & 1) + ((spec >> 3) & 1) + ((spec & 9) == 9); }
 int block_vectors(int spec) { return 6 + ((spec >> 3) & 1); }
@@ -725,49 +1107,68 @@ Args chain_args(const void* x, const void* skip, const void* film0, const void* 
   return a;
 }
 
-// dynamic shared memory of one CTA of the `dtype` kernel
-unsigned smem_bytes(int dtype, bool has_skip) {
+// The set the kernels take (both dtypes): C = 256, 512 or 1024 in 4, 8, 16
+// or 32 groups of at least 16 channels, the set of the wide ResnetBlock
+// kernels
+bool takes(int C, int groups) {
+  return (C == 256 || C == 512 || C == 1024) &&
+         (groups == 4 || groups == 8 || groups == 16 || groups == 32) && C / groups >= 16;
+}
+
+// Whether the cluster-of-8 kernel of the dtype (chain_tf32, chain_sm90)
+// takes a chain of the set: C = 512 in 8 groups; the dtype's wide kernel
+// takes the rest
+bool cluster8(int C, int groups) { return C == kC && groups == kCluster; }
+
+// dynamic shared memory of one CTA of the `dtype` kernel that takes a chain
+// of C channels in `groups` groups, with or without a skip
+unsigned smem_bytes(int dtype, bool has_skip, int C, int groups) {
+  if (!cluster8(C, groups)) return dtype == 1 ? smem_wide<bf16>(C) : smem_wide<float>(C);
   return dtype == 1 ? layout(has_skip).total : kLayoutF.total;
 }
 
-}  // namespace
-
-extern "C" {
-
-// rows of one scene the kernel of `dtype` (0 float32, 1 bfloat16) takes
-int fused_chain_max_rows(int dtype) { return kTileRows; }
-// dynamic shared memory of one CTA of the `dtype` kernel, for a chain with
-// or without a skip
-int fused_chain_smem_bytes(int dtype, int has_skip) { return (int)smem_bytes(dtype, has_skip); }
-
-// clusters of the `dtype` kernel that fit on the card at once, or minus a
-// cudaError_t code
-int fused_chain_max_active_clusters(int dtype, int has_skip) {
-  const cudaError_t err = dtype == 1 ? prepare_sm90() : prepare_tf32();
-  if (err != cudaSuccess) return -(int)err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(kCluster * 64);
-  cfg.blockDim = dim3(dtype == 1 ? kThreads : kThreadsF);
-  cfg.dynamicSmemBytes = smem_bytes(dtype, has_skip != 0);
-  int clusters = 0;
-  const cudaError_t e = dtype == 1 ? cudaOccupancyMaxActiveClusters(&clusters, chain_sm90, &cfg)
-                                   : cudaOccupancyMaxActiveClusters(&clusters, chain_tf32, &cfg);
-  return e == cudaSuccess ? clusters : -(int)e;
+template <typename T>
+ArgsCW<T> wide_args(const void* x, const void* skip, const void* film0, const void* film1,
+                    const void* W, const float* V, void* h, void* mid, void* out, int B, int n,
+                    int C, int groups, float eps, int nblocks, const int (&spec)[2]) {
+  ArgsCW<T> a;
+  a.x = static_cast<const T*>(x);
+  a.skip = static_cast<const T*>(skip);
+  a.film[0] = static_cast<const T*>(film0);
+  a.film[1] = static_cast<const T*>(film1);
+  a.W = static_cast<const T*>(W);
+  a.V = V;
+  a.h = static_cast<T*>(h);
+  a.mid = static_cast<T*>(mid);
+  a.out = static_cast<T*>(out);
+  a.B = B;
+  a.n = n;
+  a.ts = kTileRows / n;
+  a.C = C;
+  a.gw = C / groups;
+  a.nW = a.nV = 0;
+  for (int b = 0; b < nblocks; ++b) {
+    a.nW += block_weights(spec[b]);
+    a.nV += block_vectors(spec[b]);
+  }
+  a.nblocks = nblocks;
+  a.spec[0] = spec[0];
+  a.spec[1] = spec[1];
+  a.eps = eps;
+  return a;
 }
 
-// dtype: 0 float32 (W packed by pack_tf32_tiles), 1 bfloat16 (by
-// pack_group_tiles).  Both take C = 512 in 8 groups, scenes of at most 64
-// rows and at most one skip a chain.  Returns a cudaError_t code (0 on
-// success), or -1 for arguments the kernel does not take.
-int fused_chain_launch(int dtype, const void* x, const void* skip0, const void* skip1,
-                       const void* film0, const void* film1, const void* W, const float* V,
-                       void* out, int B, int n, int C, int groups, float eps, int nblocks,
-                       int spec0, int spec1, void* stream) {
+// fused_chain_launch's body: the wide kernel when `wide`, else the
+// cluster-of-8 kernel of the dtype (C = 512 in 8 groups only)
+int launch(bool wide, int dtype, const void* x, const void* skip0, const void* skip1,
+           const void* film0, const void* film1, const void* W, const float* V, void* h,
+           void* mid, void* out, int B, int n, int C, int groups, float eps, int nblocks,
+           int spec0, int spec1, void* stream) {
   const int spec[2] = {spec0, nblocks == 2 ? spec1 : 0};
   const void* skip[2] = {skip0, skip1};
   const void* film[2] = {film0, film1};
   if (n < 1 || B < 1 || nblocks < 1 || nblocks > 2 || (dtype != 0 && dtype != 1) ||
-      n > kTileRows || C != kC || groups != kCluster || (skip0 && skip1))
+      n > kTileRows || !takes(C, groups) || (!wide && !cluster8(C, groups)) || (skip0 && skip1))
     return -1;
   for (int b = 0; b < nblocks; ++b) {
     const int film_kind = (spec[b] >> 1) & 3;
@@ -777,6 +1178,16 @@ int fused_chain_launch(int dtype, const void* x, const void* skip0, const void* 
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const void* sk = skip0 ? skip0 : skip1;
+  if (wide) {
+    if (h == nullptr || (nblocks == 2 && mid == nullptr)) return -1;
+    if (dtype == 1)
+      return launch_wide(wide_args<bf16>(x, sk, film0, film1, W, V, h, mid, out, B, n, C, groups,
+                                         eps, nblocks, spec),
+                         s);
+    return launch_wide(wide_args<float>(x, sk, film0, film1, W, V, h, mid, out, B, n, C, groups,
+                                        eps, nblocks, spec),
+                       s);
+  }
   const unsigned grid = (unsigned)((B + kTileRows / n - 1) / (kTileRows / n)) * kCluster;
   const cudaError_t err = dtype == 1 ? prepare_sm90() : prepare_tf32();
   if (err != cudaSuccess) return (int)err;
@@ -787,6 +1198,66 @@ int fused_chain_launch(int dtype, const void* x, const void* skip0, const void* 
     chain_tf32<<<grid, kThreadsF, kLayoutF.total, s>>>(
         chain_args<ArgsF, float>(x, sk, film0, film1, W, V, out, B, n, eps, nblocks, spec));
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// rows of one scene the kernel of `dtype` (0 float32, 1 bfloat16) takes
+int fused_chain_max_rows(int dtype) { return kTileRows; }
+// dynamic shared memory of one CTA of the `dtype` kernel that takes a chain
+// of C channels in `groups` groups, with or without a skip
+int fused_chain_smem_bytes(int dtype, int has_skip, int C, int groups) {
+  return (int)smem_bytes(dtype, has_skip != 0, C, groups);
+}
+// whether a chain of C channels in `groups` groups runs the dtype's wide
+// kernel (chain_tf32_wide, chain_bf16_wide), 1, or its cluster-of-8 kernel,
+// 0; -1 outside the set
+int fused_chain_wide(int C, int groups) { return takes(C, groups) ? !cluster8(C, groups) : -1; }
+
+// clusters of that kernel that fit on the card at once, or minus a
+// cudaError_t code
+int fused_chain_max_active_clusters(int dtype, int has_skip, int C, int groups) {
+  if (!cluster8(C, groups))
+    return dtype == 1 ? wide_active_clusters<bf16>(C) : wide_active_clusters<float>(C);
+  const cudaError_t err = dtype == 1 ? prepare_sm90() : prepare_tf32();
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kCluster * 64);
+  cfg.blockDim = dim3(dtype == 1 ? kThreads : kThreadsF);
+  cfg.dynamicSmemBytes = smem_bytes(dtype, has_skip != 0, C, groups);
+  int clusters = 0;
+  const cudaError_t e = dtype == 1 ? cudaOccupancyMaxActiveClusters(&clusters, chain_sm90, &cfg)
+                                   : cudaOccupancyMaxActiveClusters(&clusters, chain_tf32, &cfg);
+  return e == cudaSuccess ? clusters : -(int)e;
+}
+
+// dtype: 0 float32 (W packed by pack_tf32_tiles), 1 bfloat16 (by
+// pack_group_tiles; for chain_bf16_wide with the k permuted).  Both take C
+// = 256, 512 or 1024 in 4, 8, 16 or 32 groups of at least 16 channels,
+// scenes of at most 64 rows and at most one skip a chain; C = 512 in 8
+// groups runs the cluster-of-8 kernel, the rest the wide kernel (h and mid:
+// (M, C) scratches of the dtype that the wide kernel writes, mid for a
+// two-block chain; unused otherwise).  Returns a cudaError_t code (0 on
+// success), or -1 for arguments the kernels do not take.
+int fused_chain_launch(int dtype, const void* x, const void* skip0, const void* skip1,
+                       const void* film0, const void* film1, const void* W, const float* V,
+                       void* h, void* mid, void* out, int B, int n, int C, int groups, float eps,
+                       int nblocks, int spec0, int spec1, void* stream) {
+  return launch(!cluster8(C, groups), dtype, x, skip0, skip1, film0, film1, W, V, h, mid, out, B,
+                n, C, groups, eps, nblocks, spec0, spec1, stream);
+}
+
+// The same on the dtype's wide kernel at any C and grouping of the set, C =
+// 512 in 8 groups too (W packed for the wide kernel): for measuring it
+// beside the cluster-of-8 kernel.
+int fused_chain_launch_wide(int dtype, const void* x, const void* skip0, const void* skip1,
+                            const void* film0, const void* film1, const void* W, const float* V,
+                            void* h, void* mid, void* out, int B, int n, int C, int groups,
+                            float eps, int nblocks, int spec0, int spec1, void* stream) {
+  return launch(true, dtype, x, skip0, skip1, film0, film1, W, V, h, mid, out, B, n, C, groups,
+                eps, nblocks, spec0, spec1, stream);
 }
 
 }  // extern "C"

@@ -675,47 +675,16 @@ int launch_tf32(const ArgsF& a, cudaStream_t stream) {
 // bound (PERF.md, section 6); making them fast (weights multicast to the
 // row tiles that share them, A tiles in shared memory) is later work.
 
-constexpr int kStagesW = 4;     // the ring
-constexpr int kMaxLocal = 4;    // groups within a warpgroup's 64 columns at most (16 channels)
-
-// what the element type decides: the depth of a K step and the elements of
-// one warpgroup's weight chunk of it (f32: a split chunk's tf32 hi and lo,
-// pack_tf32_tiles; bf16: a chunk of pack_group_tiles with the k permuted)
-template <typename T>
-struct Wide;
-template <>
-struct Wide<float> {
-  static constexpr int kStep = sm90::kStepK;
-  static constexpr int kPart = 2 * kChunkPartF;
-};
-template <>
-struct Wide<bf16> {
-  static constexpr int kStep = sm90::kChunkK;
-  static constexpr int kPart = sm90::kChunkElems;
-};
-
-struct LayoutW {
-  unsigned ring, v, red, part, stat, bars, total;
-};
-
-// shared-memory layout of a wide kernel with `wg` consumer warpgroups and
-// weight chunks of `chunk_bytes`
-__host__ __device__ constexpr LayoutW layout_wide(int wg, int chunk_bytes) {
-  LayoutW L{};
-  L.ring = 0;                                                 // stages x wg chunks
-  L.v = L.ring + kStagesW * wg * chunk_bytes;                 // this CTA's columns of 7 vectors
-  L.red = L.v + 7 * wg * kGroup * 4;                          // row x 8-column block sums, squares
-  L.part = L.red + 2 * wg * kTileRows * 8 * 4;                // per-scene partial sums (float2)
-  L.stat = L.part + wg * kMaxLocal * kTileRows * 8;           // per-scene mean, rsqrt (float2)
-  L.bars = L.stat + wg * kMaxLocal * kTileRows * 8;           // ring full, empty
-  L.total = L.bars + 2 * kStagesW * 8;
-  return L;
-}
-
-template <typename T>
-__host__ __device__ constexpr LayoutW layout_wide_of(int wg) {
-  return layout_wide(wg, Wide<T>::kPart * (int)sizeof(T));
-}
+using sm90::kMaxLocal;
+using sm90::kStagesW;
+using sm90::layout_wide_of;
+using sm90::LayoutW;
+using sm90::RingW;
+using sm90::Wide;
+using sm90::wide_groups;
+using sm90::wide_partials;
+using sm90::wide_products;
+using sm90::wide_stats;
 
 template <typename T>
 struct ArgsW {
@@ -731,111 +700,6 @@ struct ArgsW {
   int B, n, kx, ks, C, gw, ts, film_kind;
   float eps;
 };
-
-template <typename T, int kWG>
-using RingW = sm90::RingT<kStagesW, kWG * Wide<T>::kPart, T>;
-
-// The per-scene moments of the groups of this thread's warpgroup `u`: acc
-// (its 64 columns, bias added) -> red -> part[u][q][s] = (sum, sum of
-// squares) of scene s over group-part q (a group, or a 64-column part of a
-// wider one).  By the kCons consumer threads; red and part are this CTA's.
-template <int kCons>
-__device__ __forceinline__ void wide_partials(const float (&acc)[32], int u, int n, int nsc,
-                                              int gwl, float* red, float2* part) {
-  constexpr int kWG = kCons / kConsumers;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
-  const int r0 = 16 * (warp & 3) + (lane >> 2);
-  float s[2][8], q[2][8];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const float a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
-      s[h][j] = a0 + a1;
-      q[h][j] = a0 * a0 + a1 * a1;
-    }
-#pragma unroll
-  for (int off = 1; off < 4; off <<= 1)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        s[h][j] += __shfl_xor_sync(0xffffffffu, s[h][j], off);
-        q[h][j] += __shfl_xor_sync(0xffffffffu, q[h][j], off);
-      }
-  if (t == 0)
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        red[(u * kTileRows + r0 + 8 * h) * 8 + j] = s[h][j];
-        red[((kWG + u) * kTileRows + r0 + 8 * h) * 8 + j] = q[h][j];
-      }
-  sm90::bar_sync<kCons>(1);
-  const int local = kGroup / gwl, blocks = gwl / 8;
-  for (int task = threadIdx.x; task < kWG * local * nsc; task += kCons) {
-    const int sc = task % nsc, g = (task / nsc) % local, w = task / (nsc * local);
-    float sum = 0.f, sq = 0.f;
-    for (int i = 0; i < n; ++i) {
-      const float* rs = red + (w * kTileRows + sc * n + i) * 8 + g * blocks;
-      const float* rq = rs + kWG * kTileRows * 8;
-      for (int b = 0; b < blocks; ++b) {
-        sum += rs[b];
-        sq += rq[b];
-      }
-    }
-    part[(w * kMaxLocal + g) * kTileRows + sc] = make_float2(sum, sq);
-  }
-}
-
-// After the cluster barrier that follows wide_partials: each scene's mean
-// and rsqrt(var + eps) of every group-part of this CTA into stat, a group
-// of gw > 64 channels summed over the partials of its gw / 64 warpgroups
-// (warpgroup k of the cluster is warpgroup k % kWG of CTA k / kWG) in
-// ascending order, wherever they are
-template <int kCons>
-__device__ __forceinline__ void wide_stats(int rank, int n, int nsc, int gw, float eps,
-                                           float2* part, float2* stat) {
-  constexpr int kWG = kCons / kConsumers;
-  const int gwl = min(gw, kGroup), local = kGroup / gwl;
-  const float denom = 1.f / (float)(n * gw);
-  for (int task = threadIdx.x; task < kWG * local * nsc; task += kCons) {
-    const int sc = task % nsc, g = (task / nsc) % local, w = task / (nsc * local);
-    float2 m = part[(w * kMaxLocal + g) * kTileRows + sc];
-    if (gw > kGroup) {
-      const int span = gw / kGroup, first = (rank * kWG + w) / span * span;
-      m = make_float2(0.f, 0.f);
-      for (int k = first; k < first + span; ++k) {
-        const uint2 v = sm90::ld_cluster_u2(
-            sm90::cluster_addr(&part[(k % kWG) * kMaxLocal * kTileRows + sc], k / kWG));
-        m.x += __uint_as_float(v.x);
-        m.y += __uint_as_float(v.y);
-      }
-    }
-    const float mean = m.x * denom;
-    stat[(w * kMaxLocal + g) * kTileRows + sc] = make_float2(mean, rsqrtf(m.y * denom - mean * mean + eps));
-  }
-}
-
-// acc (and accR when kRes) += A @ the ring's next `nsteps` chunks, A's K
-// step st of row r at src(st, r) (this thread's first column of the step;
-// rows ra and rb): split TF32 in f32, bf16 products in bf16
-template <typename T, bool kRes, class Ring, class Src>
-__device__ __forceinline__ void wide_products(float (&acc)[32], float (&accR)[32], int nsteps,
-                                              Src src, size_t ra, size_t rb, Ring& w, int part) {
-  if constexpr (std::is_same<T, float>::value)
-    sm90::stream_products<kRes>(
-        acc, accR, nsteps,
-        [&](int st, uint32_t (&hi)[16], uint32_t (&lo)[16]) {
-          sm90::load_a_global(src(st, ra), src(st, rb), hi, lo);
-        },
-        w, part);
-  else
-    sm90::stream_products_bf16<kRes>(
-        acc, accR, nsteps,
-        [&](int st, uint32_t (&af)[4][4]) { sm90::load_a_global_bf16(src(st, ra), src(st, rb), af); },
-        w, part);
-}
 
 template <typename T, int kWG, bool kRes>
 __device__ __forceinline__ void resblock_wide(const ArgsW<T>& a) {
@@ -1043,9 +907,6 @@ auto wide_kernel() {
     return resblock_bf16_wide<kWG, kRes>;
 }
 
-// consumer warpgroups of the wide kernel at C channels
-int wide_groups(int C) { return C > 512 ? 2 : 1; }
-
 template <typename T, int kWG, bool kRes>
 cudaError_t prepare_wide() {   // once per instantiation
   static const cudaError_t err =
@@ -1054,31 +915,13 @@ cudaError_t prepare_wide() {   // once per instantiation
   return err;
 }
 
-// the launch configuration of the wide kernel: one cluster of C / (64 kWG)
-// CTAs a tile of `tiles`
-template <typename T, int kWG>
-cudaLaunchConfig_t wide_config(int C, int tiles, cudaStream_t stream, cudaLaunchAttribute* attr) {
-  const int ncta = C / (kWG * kGroup);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)(tiles * ncta));
-  cfg.blockDim = dim3(kWG * kConsumers + 32);
-  cfg.dynamicSmemBytes = layout_wide_of<T>(kWG).total;
-  cfg.stream = stream;
-  attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = ncta;
-  attr->val.clusterDim.y = 1;
-  attr->val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  return cfg;
-}
-
 template <typename T, int kWG, bool kRes>
 int launch_wide_as(const ArgsW<T>& a, cudaStream_t stream) {
   const cudaError_t err = prepare_wide<T, kWG, kRes>();
   if (err != cudaSuccess) return (int)err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = wide_config<T, kWG>(a.C, (a.B + a.ts - 1) / a.ts, stream, &attr);
+  const cudaLaunchConfig_t cfg = sm90::wide_config(a.C, kWG, layout_wide_of<T>(kWG).total,
+                                                   (a.B + a.ts - 1) / a.ts, stream, &attr);
   return (int)cudaLaunchKernelEx(&cfg, wide_kernel<T, kWG, kRes>(), a);
 }
 
@@ -1094,7 +937,8 @@ int wide_active_clusters_as(int C) {
   const cudaError_t err = prepare_wide<T, kWG, kRes>();
   if (err != cudaSuccess) return -(int)err;
   cudaLaunchAttribute attr;
-  const cudaLaunchConfig_t cfg = wide_config<T, kWG>(C, 64, nullptr, &attr);
+  const cudaLaunchConfig_t cfg =
+      sm90::wide_config(C, kWG, layout_wide_of<T>(kWG).total, 64, nullptr, &attr);
   int clusters = 0;
   const cudaError_t e =
       cudaOccupancyMaxActiveClusters(&clusters, wide_kernel<T, kWG, kRes>(), &cfg);

@@ -34,7 +34,12 @@
 //   (load_a_global, stream_products) and a ring of two warpgroups' chunks;
 //   the bf16 wide ResnetBlock and set-attention kernels its bf16 counterpart
 //   (load_a_global_bf16, stream_products_bf16: A fragments of a 64-deep K
-//   step from device memory, the weights' k permuted to match).
+//   step from device memory, the weights' k permuted to match);
+// - the wide kernels' pieces, shared by the wide ResnetBlock and chain
+//   kernels (fused_resblock.cu, fused_chain.cu): their layout (layout_wide),
+//   ring (RingW), K loop with A from device memory (wide_products), the
+//   GroupNorm moments of groups of 16 to 256 channels merged across the
+//   cluster (wide_partials, wide_stats) and the launch (wide_config).
 //
 // The weight chunk layout.  A chunk is one 64-deep K tile of one group of 64
 // output columns, (k, n) in [0, 64)^2, stored as 8 x 8 core matrices of 8 n
@@ -51,6 +56,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tile_mma.cuh"
 
@@ -622,9 +629,7 @@ __device__ __forceinline__ void load_a(const float* step, uint32_t (&hi)[16], ui
 // columns (8 (lane % 4) on from the K step's first) of its rows g and g + 8,
 // read through L2 only (ld.global.cg: the bytes may have been written by
 // another CTA of the cluster in this launch)
-__device__ __forceinline__ void load_a_global(const float* p0, const float* p1,
-                                              uint32_t (&hi)[16], uint32_t (&lo)[16]) {
-  float v[2][8];
+__device__ __forceinline__ void load_a_raw(const float* p0, const float* p1, float (&v)[2][8]) {
   const float* p[2] = {p0, p1};
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -633,6 +638,12 @@ __device__ __forceinline__ void load_a_global(const float* p0, const float* p1,
     v[r][0] = u.x, v[r][1] = u.y, v[r][2] = u.z, v[r][3] = u.w;
     v[r][4] = w.x, v[r][5] = w.y, v[r][6] = w.z, v[r][7] = w.w;
   }
+}
+// ... split into tf32 hi and lo
+__device__ __forceinline__ void load_a_global(const float* p0, const float* p1,
+                                              uint32_t (&hi)[16], uint32_t (&lo)[16]) {
+  float v[2][8];
+  load_a_raw(p0, p1, v);
   split_a(v, hi, lo);
 }
 
@@ -729,6 +740,31 @@ __device__ __forceinline__ void stream_products(float (&d)[32], float (&dr)[32],
     s = issue_step<kRes>(d, dr, h1, l1, w, part);
     if (st + 2 < nsteps) load(st + 2, h0, l0);
     retire_step<kRes>(d, dr, s, w);
+  }
+}
+
+// stream_products with A from device memory for a kernel short of
+// registers (the wide chain kernel's CTA of two warpgroups and a producer
+// warp has 168 a thread): the next K step's fragments wait as raw f32
+// values (16 registers, load_a_raw) while a step's products run, and are
+// split into tf32 hi and lo once those retire (the products read hi and lo
+// from registers until then): 48 registers of A fragments where
+// stream_products holds two split sets, 64.  src(st, r): this thread's 8
+// columns of K step st of row r (load_a_global's p0, p1); any nsteps.
+template <bool kRes, class Ring, class Src, class Row>
+__device__ __forceinline__ void stream_products_late(float (&d)[32], float (&dr)[32], int nsteps,
+                                                     Src src, Row ra, Row rb, Ring& w,
+                                                     int part) {
+  float v[2][8];
+  uint32_t hi[16], lo[16];
+  load_a_raw(src(0, ra), src(0, rb), v);
+  split_a(v, hi, lo);
+#pragma unroll 1
+  for (int st = 0; st < nsteps; ++st) {
+    const int2 s = issue_step<kRes>(d, dr, hi, lo, w, part);
+    if (st + 1 < nsteps) load_a_raw(src(st + 1, ra), src(st + 1, rb), v);
+    retire_step<kRes>(d, dr, s, w);
+    if (st + 1 < nsteps) split_a(v, hi, lo);
   }
 }
 
@@ -924,6 +960,195 @@ __device__ __forceinline__ void slice_products(float (&acc)[32], float (&unused)
         return slots + q * kSlotF;
       },
       [](int) {}, w);
+}
+
+// ---- the wide kernels' pieces (fused_resblock.cu, fused_chain.cu) ----------
+//
+// The wide ResnetBlock and chain kernels hold no activation in shared
+// memory: a scene tile (at most 64 rows) is one cluster of C / (64 wg) CTAs
+// of wg consumer warpgroups (1, or 2 at C = 1024) and a producer warp, each
+// warpgroup owning 64 output columns; A fragments come from device memory
+// through L2, the weights through a ring of kStagesW stages of one chunk a
+// warpgroup, and a GroupNorm group (16 to 256 channels) is merged from the
+// warpgroups' partial sums in a fixed order, across the cluster where it
+// spans CTAs.
+
+constexpr int kStagesW = 4;     // the ring
+constexpr int kMaxLocal = 4;    // groups within a warpgroup's 64 columns at most (16 channels)
+
+// what the element type decides: the depth of a K step and the elements of
+// one warpgroup's weight chunk of it (f32: a split chunk's tf32 hi and lo,
+// pack_tf32_tiles; bf16: a chunk of pack_group_tiles with the k permuted)
+template <typename T>
+struct Wide;
+template <>
+struct Wide<float> {
+  static constexpr int kStep = kStepK;
+  static constexpr int kPart = 2 * kChunkPartF;
+};
+template <>
+struct Wide<__nv_bfloat16> {
+  static constexpr int kStep = kChunkK;
+  static constexpr int kPart = kChunkElems;
+};
+
+struct LayoutW {
+  unsigned ring, v, red, part, stat, bars, total;
+};
+
+// shared-memory layout of a wide kernel with `wg` consumer warpgroups,
+// weight chunks of `chunk_bytes` and `vectors` vectors of the CTA's columns
+__host__ __device__ constexpr LayoutW layout_wide(int wg, int chunk_bytes, int vectors) {
+  LayoutW L{};
+  L.ring = 0;                                                 // stages x wg chunks
+  L.v = L.ring + kStagesW * wg * chunk_bytes;                 // this CTA's columns of the vectors
+  L.red = L.v + vectors * wg * kGroup * 4;                    // row x 8-column block sums, squares
+  L.part = L.red + 2 * wg * kTileRows * 8 * 4;                // per-scene partial sums (float2)
+  L.stat = L.part + wg * kMaxLocal * kTileRows * 8;           // per-scene mean, rsqrt (float2)
+  L.bars = L.stat + wg * kMaxLocal * kTileRows * 8;           // ring full, empty
+  L.total = L.bars + 2 * kStagesW * 8;
+  return L;
+}
+
+template <typename T>
+__host__ __device__ constexpr LayoutW layout_wide_of(int wg, int vectors = 7) {
+  return layout_wide(wg, Wide<T>::kPart * (int)sizeof(T), vectors);
+}
+
+template <typename T, int kWG>
+using RingW = RingT<kStagesW, kWG * Wide<T>::kPart, T>;
+
+// The per-scene moments of the groups of this thread's warpgroup `u`: acc
+// (its 64 columns, bias added) -> red -> part[u][q][s] = (sum, sum of
+// squares) of scene s over group-part q (a group, or a 64-column part of a
+// wider one).  By the kCons consumer threads; red and part are this CTA's.
+template <int kCons>
+__device__ __forceinline__ void wide_partials(const float (&acc)[32], int u, int n, int nsc,
+                                              int gwl, float* red, float2* part) {
+  constexpr int kWG = kCons / kConsumers;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, t = lane & 3;
+  const int r0 = 16 * (warp & 3) + (lane >> 2);
+  float s[2][8], q[2][8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float a0 = acc[4 * j + 2 * h], a1 = acc[4 * j + 2 * h + 1];
+      s[h][j] = a0 + a1;
+      q[h][j] = a0 * a0 + a1 * a1;
+    }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        s[h][j] += __shfl_xor_sync(0xffffffffu, s[h][j], off);
+        q[h][j] += __shfl_xor_sync(0xffffffffu, q[h][j], off);
+      }
+  if (t == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        red[(u * kTileRows + r0 + 8 * h) * 8 + j] = s[h][j];
+        red[((kWG + u) * kTileRows + r0 + 8 * h) * 8 + j] = q[h][j];
+      }
+  bar_sync<kCons>(1);
+  const int local = kGroup / gwl, blocks = gwl / 8;
+  for (int task = threadIdx.x; task < kWG * local * nsc; task += kCons) {
+    const int sc = task % nsc, g = (task / nsc) % local, w = task / (nsc * local);
+    float sum = 0.f, sq = 0.f;
+    for (int i = 0; i < n; ++i) {
+      const float* rs = red + (w * kTileRows + sc * n + i) * 8 + g * blocks;
+      const float* rq = rs + kWG * kTileRows * 8;
+      for (int b = 0; b < blocks; ++b) {
+        sum += rs[b];
+        sq += rq[b];
+      }
+    }
+    part[(w * kMaxLocal + g) * kTileRows + sc] = make_float2(sum, sq);
+  }
+}
+
+// After the cluster barrier that follows wide_partials: each scene's mean
+// and rsqrt(var + eps) of every group-part of this CTA into stat, a group
+// of gw > 64 channels summed over the partials of its gw / 64 warpgroups
+// (warpgroup k of the cluster is warpgroup k % kWG of CTA k / kWG) in
+// ascending order, wherever they are; the one-pass variance clamped at 0
+// when kClamp (the chain's GroupNorm) or not (B1's)
+template <int kCons, bool kClamp = false>
+__device__ __forceinline__ void wide_stats(int rank, int n, int nsc, int gw, float eps,
+                                           float2* part, float2* stat) {
+  constexpr int kWG = kCons / kConsumers;
+  const int gwl = min(gw, kGroup), local = kGroup / gwl;
+  const float denom = 1.f / (float)(n * gw);
+  for (int task = threadIdx.x; task < kWG * local * nsc; task += kCons) {
+    const int sc = task % nsc, g = (task / nsc) % local, w = task / (nsc * local);
+    float2 m = part[(w * kMaxLocal + g) * kTileRows + sc];
+    if (gw > kGroup) {
+      const int span = gw / kGroup, first = (rank * kWG + w) / span * span;
+      m = make_float2(0.f, 0.f);
+      for (int k = first; k < first + span; ++k) {
+        const uint2 v = ld_cluster_u2(
+            cluster_addr(&part[(k % kWG) * kMaxLocal * kTileRows + sc], k / kWG));
+        m.x += __uint_as_float(v.x);
+        m.y += __uint_as_float(v.y);
+      }
+    }
+    const float mean = m.x * denom, var = m.y * denom - mean * mean;
+    stat[(w * kMaxLocal + g) * kTileRows + sc] =
+        make_float2(mean, rsqrtf((kClamp ? fmaxf(var, 0.f) : var) + eps));
+  }
+}
+
+// acc (and accR when kRes) += A @ the ring's next `nsteps` chunks, A's K
+// step st of row r at src(st, r) (this thread's first column of the step;
+// rows ra and rb): split TF32 in f32 (with kLate, stream_products_late),
+// bf16 products in bf16.  The wide B1 kernel keeps two split sets: with
+// the late loop its f32 blocks at C=512 took 2-4% longer on the H100; the
+// wide chain kernel takes the late loop to fit two warpgroups' registers.
+template <typename T, bool kRes, bool kLate = false, class Ring, class Src, class Row>
+__device__ __forceinline__ void wide_products(float (&acc)[32], float (&accR)[32], int nsteps,
+                                              Src src, Row ra, Row rb, Ring& w, int part) {
+  if constexpr (std::is_same<T, float>::value && kLate)
+    stream_products_late<kRes>(acc, accR, nsteps, src, ra, rb, w, part);
+  else if constexpr (std::is_same<T, float>::value)
+    stream_products<kRes>(
+        acc, accR, nsteps,
+        [&](int st, uint32_t (&hi)[16], uint32_t (&lo)[16]) {
+          load_a_global(src(st, ra), src(st, rb), hi, lo);
+        },
+        w, part);
+  else
+    stream_products_bf16<kRes>(
+        acc, accR, nsteps,
+        [&](int st, uint32_t (&af)[4][4]) { load_a_global_bf16(src(st, ra), src(st, rb), af); },
+        w, part);
+}
+
+// consumer warpgroups of a wide kernel's CTA at C channels (a cluster of 4
+// or 8 CTAs)
+inline int wide_groups(int C) { return C > 512 ? 2 : 1; }
+
+// the launch configuration of a wide kernel: one cluster of C / (64 wg)
+// CTAs (wg consumer warpgroups and a producer warp each) a tile of `tiles`,
+// `smem` bytes of dynamic shared memory a CTA
+inline cudaLaunchConfig_t wide_config(int C, int wg, unsigned smem, int tiles,
+                                      cudaStream_t stream, cudaLaunchAttribute* attr) {
+  const int ncta = C / (wg * kGroup);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(tiles * ncta));
+  cfg.blockDim = dim3(wg * kConsumers + 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = ncta;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
 }
 
 }  // namespace sm90

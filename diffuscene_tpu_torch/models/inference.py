@@ -45,6 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops import attention as _attention
+from ..ops import fused_level as _level
 from ..ops import fused_resblock as _resblock
 from ..ops.attention import fused_set_attention
 from ..ops.fused_level import ChainBlock, apply_chain, build_chain
@@ -450,6 +451,22 @@ def check_card_widths(net: Unet1D) -> None:
         raise ValueError(
             f"the card's B1/B2 kernels do not take this model ({widths} wide in {groups} "
             f"groups): {e}; sample it with fused=False") from None
+
+
+def check_rows_widths(net: Unet1D) -> None:
+    """Raise ``ValueError`` unless the card's chain kernel (B4) takes every
+    chain of ``net``'s rows engine: its level width C = dim * dim_mults[0]
+    (equal ``dim_mults``) in ``resnet_block_groups`` groups within the set
+    of ``ops/fused_level.py:takes``, both dtypes (C = 256, 512 or 1024 in
+    4, 8, 16 or 32 groups of at least 16 channels).  A model outside
+    samples on the card through the module forward, ``fused=False``;
+    nothing is launched before this raises."""
+    C, groups = net.dim * net.dim_mults[0], net.resnet_block_groups
+    if not _level.takes(C, groups, 1):
+        raise ValueError(
+            f"the card's B4 chain kernel does not take this model ({C} wide in {groups} "
+            f"groups; it takes C in {_resblock.SET_CHANNELS} in {_resblock.SET_GROUPS} groups "
+            f"of at least {_resblock.MIN_GROUP} channels); sample it with fused=False")
 
 
 @torch.no_grad()

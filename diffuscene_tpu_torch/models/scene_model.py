@@ -492,10 +492,11 @@ class SceneDiffusion:
         chains on the chain kernel).  The engines' step-invariant parts
         (weights, FiLM rows, a text model's 9 cross-attention contexts) are
         made here, once a sampling call.  ``"rows"`` on unequal level dims
-        serves the 3-D engine, as the JAX package does; on the card the
-        3-D engine takes only the widths and groupings its kernels take,
-        one set for both dtypes (``inference.check_card_widths`` raises
-        otherwise, before any launch)."""
+        serves the 3-D engine, as the JAX package does; on the card each
+        engine takes only the widths and groupings its kernels take, one
+        set for both dtypes (``inference.check_card_widths`` and, for the
+        rows engine, ``inference.check_rows_widths`` raise otherwise,
+        before any launch)."""
         if fused is False:
             def fn(x, t):
                 with torch.no_grad():
@@ -505,6 +506,7 @@ class SceneDiffusion:
             raise ValueError(f"fused must be False, True or 'rows', got {fused!r}")
         from .inference import (
             check_card_widths,
+            check_rows_widths,
             fused_unet1d_forward,
             fused_unet1d_forward_rows,
             precompute_conditioning,
@@ -518,6 +520,8 @@ class SceneDiffusion:
         cond_ctx = precompute_conditioning(net, prep, condition, condition_cross)
         chains = None
         if fused == "rows" and len(set(net.dim_mults)) == 1:
+            if self.device.type == "cuda":
+                check_rows_widths(net)
             chains = prepare_chain_params(net, prep, frozenset(cond_ctx["film_c"]))
         if chains is None:          # unequal level dims serve the 3-D engine, as in JAX
             if self.device.type == "cuda":

@@ -25,12 +25,18 @@ a copy).
 the plain torch twin of the JAX ``apply_chain_xla``.  It never falls back:
 a CUDA tensor the kernel cannot take raises.
 
-Both kernels are B1's cluster kernels carried over a chain: a tile of whole
-scenes (at most 64 rows) is one cluster of 8 CTAs, CTA g owning GroupNorm
-group g's 64 output columns of every product; they take C = 512 in 8 groups
-and at most one skip a chain.  The f32 kernel runs its products in split
-TF32, three tf32 products per f32 product (never one), as B1's f32 kernel
-does.  :func:`tile_plan` is each kernel's launch and shared-memory plan and
+The kernels are B1's cluster kernels carried over a chain: a tile of whole
+scenes (at most 64 rows) is one cluster of CTAs, each owning 64 or 128
+output columns of every product.  Both dtypes take B1's set (:func:`takes`):
+C = 256, 512 or 1024 in 4, 8, 16 or 32 groups of at least 16 channels,
+scenes of at most 64 rows, 1-2 blocks and at most one skip a chain.  Within
+it :func:`kernel_name` routes a chain: C = 512 in 8 groups to the
+cluster-of-8 kernels (``chain_sm90``, bf16; ``chain_tf32``, f32), every other
+chain to the dtype's wide kernel (``chain_bf16_wide``, ``chain_tf32_wide``;
+one body, A fragments from L2, h and block 1's output through device
+scratches).  The f32 kernels run their products in split TF32, three tf32
+products per f32 product (never one), as B1's f32 kernels do.
+:func:`tile_plan` is each kernel's launch and shared-memory plan and
 :func:`pack_chain_weights` the weight layout their bulk copies read.
 """
 from __future__ import annotations
@@ -43,13 +49,14 @@ from typing import Any, Dict, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from . import build
-from .fused_resblock import (CHANNELS, CHUNK_BYTES, CLUSTER, F32_CHUNK_BYTES, TILE_ROWS,
-                             pack_group_tiles, pack_tf32_tiles)
+from .fused_resblock import (CHANNELS, CHUNK_BYTES, CLUSTER, F32_CHUNK_BYTES, MIN_GROUP,
+                             SET_CHANNELS, SET_GROUPS, TILE_ROWS, WIDE_STAGES, pack_group_tiles,
+                             pack_tf32_tiles, wide_smem_bytes, wide_warpgroups)
 
 CSRC = build.CSRC_DIR / "fused_chain.cu"
 # rows of one scene each kernel takes: a scene tile's (kTileRows)
 MAX_ROWS = {torch.float32: TILE_ROWS, torch.bfloat16: TILE_ROWS}
-MAX_VECTORS = 14     # vectors of a two-block chain staged in shared memory
+MAX_VECTORS = 14     # vectors of a two-block chain staged in shared memory (kMaxVectors)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,9 +90,9 @@ class ChainParams:
     V: torch.Tensor               # (nV, C) f32: per block b1,g1s,g1b,b2,g2s,g2b[,bres]
     n_w: Tuple[int, ...]          # per-block number of (C, C) weights
     n_v: Tuple[int, ...]          # per-block number of (C,) vectors
-    # W as the kernel's weight chunks (pack_chain_weights), packed at the
-    # first kernel launch
-    W_packed: Optional[torch.Tensor] = None
+    # W as each kernel's weight chunks (pack_chain_weights), by kernel name,
+    # packed at the kernel's first launch
+    W_packed: Dict[str, torch.Tensor] = dataclasses.field(default_factory=dict)
 
 
 def build_chain(blocks: Sequence[ChainBlock], weights: Sequence[Dict[str, Any]],
@@ -234,26 +241,51 @@ class TilePlan(NamedTuple):
     resident: Optional[int]    # clusters that fit on the card at once (with ``lib``)
 
 
+def takes(C: int, groups: int, n: int) -> bool:
+    """Whether the kernels (either dtype) take chains of C channels in
+    ``groups`` GroupNorm groups on scenes of n rows: B1's set
+    (``fused_resblock.takes``), C in SET_CHANNELS, groups in SET_GROUPS with
+    at least MIN_GROUP channels each, n <= 64."""
+    return (C in SET_CHANNELS and groups in SET_GROUPS and C // groups >= MIN_GROUP
+            and 1 <= n <= TILE_ROWS)
+
+
+def kernel_name(dt, C: int, groups: int) -> str:
+    """The kernel of a chain of the set in ``dt``: at C = 512 in 8 groups
+    the cluster-of-8 kernel (``chain_tf32``, ``chain_sm90``), else the
+    dtype's wide kernel (the library's ``fused_chain_wide``)."""
+    if C == CHANNELS and groups == CLUSTER:
+        return "chain_tf32" if dt == torch.float32 else "chain_sm90"
+    return "chain_tf32_wide" if dt == torch.float32 else "chain_bf16_wide"
+
+
 def tile_plan(B: int, n: int, blocks: Sequence[ChainBlock], lib=None,
-              dtype=torch.bfloat16) -> TilePlan:
-    """The ``dtype`` kernel's launch for B scenes of n rows and a chain of
-    ``blocks``; its shared-memory sum mirrors ``layout()`` (bf16) or
-    ``layout_tf32()`` (f32, csrc/sm90.cuh) in the .cu
+              dtype=torch.bfloat16, C: int = CHANNELS, groups: int = CLUSTER) -> TilePlan:
+    """The launch of the kernel that takes a chain of ``blocks`` on C
+    channels in ``groups`` groups in ``dtype`` (:func:`kernel_name`) for B
+    scenes of n rows; its shared-memory sum mirrors ``layout()``
+    (chain_sm90), ``layout_tf32()`` (chain_tf32, csrc/sm90.cuh) or
+    ``layout_wide()`` (the wide kernels, csrc/sm90.cuh) in the .cu
     (``fused_chain_smem_bytes``).
 
-    bf16: the weight ring (8 stages with a skip, else 4), the x tile (later
-    the gathered h and each block's gathered output), the skip tile if a
-    block takes one, the CTA's 64 columns of up to 14 vectors, row sums and
-    squares, scene moments, and 35 mbarriers (the ring's full and empty
-    ones, the x and skip tiles', block 1's output tile's, one for each
+    chain_sm90: the weight ring (8 stages with a skip, else 4), the x tile
+    (later the gathered h and each block's gathered output), the skip tile
+    if a block takes one, the CTA's 64 columns of up to 14 vectors, row
+    sums and squares, scene moments, and 35 mbarriers (the ring's full and
+    empty ones, the x and skip tiles', block 1's output tile's, one for each
     CTA's slice of each block's h).
 
-    f32 (the same for every chain): the weight ring (5 stages of a 32-deep
-    chunk's tf32 hi and lo, 16 KB), 8 slots of 64 rows x 64 columns (rows
-    68 floats apart) that hold each block's input K tiles in turn and then
-    the slices of its h, up to 14 vectors, row sums and squares, scene
+    chain_tf32 (the same for every chain): the weight ring (5 stages of a
+    32-deep chunk's tf32 hi and lo, 16 KB), 8 slots of 64 rows x 64 columns
+    (rows 68 floats apart) that hold each block's input K tiles in turn and
+    then the slices of its h, up to 14 vectors, row sums and squares, scene
     moments, and 42 mbarriers (the ring's full and empty ones, the slots'
     full and empty ones, one for each CTA's slice of each block's h).
+
+    chain_tf32_wide and chain_bf16_wide (one or two consumer warpgroups,
+    ``fused_resblock.wide_warpgroups``; a cluster of C / 64 / warpgroups
+    CTAs; the same for every chain): ``fused_resblock.wide_smem_bytes``
+    with up to 14 vectors.
 
     With ``lib``, the loaded library, ``resident`` is
     cudaOccupancyMaxActiveClusters."""
@@ -262,7 +294,12 @@ def tile_plan(B: int, n: int, blocks: Sequence[ChainBlock], lib=None,
     tiles = -(-B // ts)
     group = CHANNELS // CLUSTER
     moments = 2 * TILE_ROWS * 4 + 2 * TILE_ROWS * 4
-    if dtype == torch.float32:
+    ctas = CLUSTER
+    if kernel_name(dtype, C, groups).endswith("_wide"):
+        wg = wide_warpgroups(C)
+        stages, smem = WIDE_STAGES, wide_smem_bytes(wg, dtype, MAX_VECTORS)
+        ctas = C // (group * wg)
+    elif dtype == torch.float32:
         stages = 5
         smem = (stages * F32_CHUNK_BYTES + CLUSTER * TILE_ROWS * (group + 4) * 4
                 + MAX_VECTORS * group * 4 + moments + (2 * stages + 4 * CLUSTER) * 8)
@@ -271,62 +308,81 @@ def tile_plan(B: int, n: int, blocks: Sequence[ChainBlock], lib=None,
         tile = TILE_ROWS * (CHANNELS + 8) * 2
         smem = (stages * CHUNK_BYTES + tile * (1 + skip) + MAX_VECTORS * group * 4 + moments
                 + (2 * 8 + 3 + 2 * CLUSTER) * 8)
-    resident = (None if lib is None
-                else lib.fused_chain_max_active_clusters(build.DTYPE_CODES[dtype], int(skip)))
-    return TilePlan(ts, tiles, CLUSTER * tiles, stages, smem, resident)
+    resident = (None if lib is None else lib.fused_chain_max_active_clusters(
+        build.DTYPE_CODES[dtype], int(skip), C, groups))
+    return TilePlan(ts, tiles, ctas * tiles, stages, smem, resident)
 
 
-def pack_chain_weights(W: torch.Tensor) -> torch.Tensor:
-    """A chain's stacked (nW, 512, 512) (in, out) weights as the kernel's
-    chunks, packed once per chain from the (nW * 512, 512) stack, so that a
-    CTA's chunks for the whole chain are contiguous.  f32:
-    :func:`pack_tf32_tiles`, 32-deep step st of weight w for group g is the
-    4096 floats (tf32 hi, then lo) from (g * 16 nW + 16 w + st) * 4096.
-    Otherwise :func:`pack_group_tiles`, K tile q of weight w for group g is
-    the 4096 elements from (g * 8 nW + 8 w + q) * 4096."""
+def pack_chain_weights(W: torch.Tensor, permuted: bool = False) -> torch.Tensor:
+    """A chain's stacked (nW, C, C) (in, out) weights as the kernels'
+    chunks, packed once per chain from the (nW * C, C) stack, so that each
+    64-column group's chunks for the whole chain are contiguous, and a
+    CTA's (its one or two groups') too.  With S = C / 32 (f32) or C / 64
+    (bf16) K steps a weight: f32, :func:`pack_tf32_tiles`, the 32-deep step
+    st of weight w for group g is the 4096 floats (tf32 hi, then lo) from
+    (g * S nW + S w + st) * 4096, for every kernel; bf16,
+    :func:`pack_group_tiles`, K tile st of weight w for group g is the 4096
+    elements from (g * S nW + S w + st) * 4096, with each K tile's rows
+    permuted for the wide kernel (``permuted``).  A skip block's w1 and w1s
+    (wres and wres_s) are consecutive weights: the (2C, C) [x | skip]
+    weight, whose K steps the wide kernel streams in one run."""
     flat = W.reshape(-1, W.shape[-1])
-    return pack_tf32_tiles(flat) if W.dtype == torch.float32 else pack_group_tiles(flat)
+    if W.dtype == torch.float32:
+        return pack_tf32_tiles(flat)
+    return pack_group_tiles(flat, permuted=permuted)
 
 
 def check_kernel_shapes(blocks: Sequence[ChainBlock], dt: torch.dtype, C: int, n: int,
                         groups: int) -> None:
-    """Raise ValueError unless the kernel of ``dt`` takes a chain of ``blocks``
-    on scenes of n rows of C channels in ``groups`` groups (both kernels:
-    C = 512 in 8 groups, at most 64 rows a scene and one skip a chain)."""
+    """Raise ValueError unless the kernels take a chain of ``blocks`` in
+    ``dt`` on scenes of n rows of C channels in ``groups`` groups: float32
+    or bfloat16, the set of :func:`takes`, 1-2 blocks and at most one skip a
+    chain (no JAX chain has two, ``models/inference.py:prepare_chain_params``)."""
     if dt not in build.DTYPE_CODES:
         raise ValueError(f"the chain kernel takes float32 or bfloat16, got {dt}")
     if not 1 <= len(blocks) <= 2:
         raise ValueError("the chain kernel runs chains of 1 or 2 blocks")
-    if n > MAX_ROWS[dt]:
-        raise ValueError(f"the {dt} chain kernel takes at most {MAX_ROWS[dt]} rows per scene, "
-                         f"got {n}")
     skips = sum(b.has_skip for b in blocks)
-    if C != CHANNELS or groups != CLUSTER or skips > 1:
-        raise ValueError(f"the {dt} chain kernel takes C={CHANNELS} in {CLUSTER} groups and at "
-                         f"most one skip a chain; got C={C}, groups={groups}, {skips} skips")
+    if not takes(C, groups, n) or skips > 1:
+        raise ValueError(
+            f"the {dt} chain kernel takes C in {SET_CHANNELS} in {SET_GROUPS} groups of at "
+            f"least {MIN_GROUP} channels, at most {MAX_ROWS[dt]} rows per scene and at most one "
+            f"skip a chain; got C={C}, groups={groups}, N={n}, {skips} skips")
+
+
+# (C, groups) of the set whose plans load_library holds against the library
+PLAN_CHECKS = ((512, 8), (256, 8), (256, 16), (512, 4), (512, 32), (1024, 4), (1024, 8))
 
 
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Compile ``csrc/fused_chain.cu`` for sm_90a (unless this source was
-    built already, see ``ops/build.py``), load it, and check its limits
-    against this module's."""
+    built already, see ``ops/build.py``), load it, and check its limits,
+    routes and shared-memory sums against this module's."""
     lib = build.load(CSRC)
     vp, ci = ctypes.c_void_p, ctypes.c_int
     lib.fused_chain_launch.argtypes = [
-        ci, vp, vp, vp, vp, vp, vp, vp, vp,
+        ci, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp,
         ci, ci, ci, ci, ctypes.c_float, ci, ci, ci, vp,
     ]
     lib.fused_chain_launch.restype = ci
-    for fn, args in ((lib.fused_chain_max_rows, [ci]), (lib.fused_chain_smem_bytes, [ci, ci]),
-                     (lib.fused_chain_max_active_clusters, [ci, ci])):
+    lib.fused_chain_launch_wide.argtypes = lib.fused_chain_launch.argtypes
+    lib.fused_chain_launch_wide.restype = ci
+    for fn, args in ((lib.fused_chain_max_rows, [ci]), (lib.fused_chain_smem_bytes, [ci] * 4),
+                     (lib.fused_chain_wide, [ci, ci]),
+                     (lib.fused_chain_max_active_clusters, [ci] * 4)):
         fn.argtypes, fn.restype = args, ci
     rows = {dt: lib.fused_chain_max_rows(code) for dt, code in build.DTYPE_CODES.items()}
-    plans = {(code, skip): tile_plan(1, 1, [ChainBlock(has_skip=skip, has_res_proj=skip)],
-                                     dtype=dt).smem_bytes
-             for dt, code in build.DTYPE_CODES.items() for skip in (False, True)}
-    if rows != MAX_ROWS or any(lib.fused_chain_smem_bytes(code, int(skip)) != v
-                               for (code, skip), v in plans.items()):
+    plans = {(code, skip, C, g): tile_plan(1, 1, [ChainBlock(has_skip=skip, has_res_proj=skip)],
+                                           dtype=dt, C=C, groups=g).smem_bytes
+             for dt, code in build.DTYPE_CODES.items() for skip in (False, True)
+             for C, g in PLAN_CHECKS}
+    routes = {(C, g): lib.fused_chain_wide(C, g) for C in (*SET_CHANNELS, 2048)
+              for g in (2, *SET_GROUPS, 64)}
+    want = {(C, g): (int(kernel_name(torch.float32, C, g).endswith("_wide"))
+                     if takes(C, g, 1) else -1) for C, g in routes}
+    if rows != MAX_ROWS or routes != want or any(
+            lib.fused_chain_smem_bytes(*key) != v for key, v in plans.items()):
         raise RuntimeError("csrc/fused_chain.cu and ops/fused_level.py disagree on limits")
     return lib
 
@@ -348,19 +404,26 @@ def _launch_kernel(chain: ChainParams, x, films, skips, n: int, groups: int,
         if f is not None:
             build.check_operand(f"films[{i}]", f, dev, dt, f.shape)
             ptr_film[i] = f.data_ptr()
-    if chain.W_packed is None:
-        chain.W_packed = pack_chain_weights(chain.W)
-    W = chain.W_packed
+    kernel = kernel_name(dt, C, groups)
+    wide = kernel.endswith("_wide")
+    W = chain.W_packed.get(kernel)
+    if W is None:
+        W = chain.W_packed[kernel] = pack_chain_weights(chain.W, permuted=wide)
     specs = [blk.spec for blk in chain.blocks] + [0]
     out = torch.empty_like(x)
+    # the wide kernels' h and block 1's output go through device memory
+    h = torch.empty_like(x) if wide else None
+    mid = torch.empty_like(x) if wide and len(chain.blocks) == 2 else None
     rc = load_library().fused_chain_launch(
         build.DTYPE_CODES[dt], x.data_ptr(), ptr_skip[0], ptr_skip[1], ptr_film[0], ptr_film[1],
-        W.data_ptr(), chain.V.data_ptr(), out.data_ptr(),
+        W.data_ptr(), chain.V.data_ptr(), None if h is None else h.data_ptr(),
+        None if mid is None else mid.data_ptr(), out.data_ptr(),
         M // n, n, C, groups, eps, len(chain.blocks), specs[0], specs[1],
         build.stream_ptr(dev),
     )
     if rc != 0:
         raise RuntimeError(f"fused_chain_launch failed with code {rc}")
+    apply_chain.by_kernel[kernel] = apply_chain.by_kernel.get(kernel, 0) + 1
     return out
 
 
@@ -376,7 +439,8 @@ def apply_chain(
     """Run the chain over all rows: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  Any B works (the kernel masks a ragged
     last tile).  ``apply_chain.launches`` counts the chains sent to the
-    kernel, one per call."""
+    kernel, one per call, ``apply_chain.by_kernel`` them by kernel name
+    (:func:`kernel_name`)."""
     M, C = x.shape
     n = n_per_scene
     B = M // n
@@ -403,3 +467,4 @@ def apply_chain(
 
 
 apply_chain.launches = 0
+apply_chain.by_kernel = {}

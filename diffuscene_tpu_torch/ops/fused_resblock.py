@@ -118,6 +118,20 @@ def wide_warpgroups(C: int) -> int:
     return 2 if C > 512 else 1
 
 
+def wide_smem_bytes(wg: int, dtype, vectors: int = 7) -> int:
+    """Dynamic shared memory of one CTA of a wide kernel (B1's, or B4's with
+    14 vectors) with ``wg`` consumer warpgroups in ``dtype``, mirroring
+    ``layout_wide`` in csrc/sm90.cuh: the weight ring (WIDE_STAGES stages of
+    one chunk a warpgroup: a 32-deep split f32 chunk of 16 KB, or a 64-deep
+    bf16 chunk of 8 KB), the CTA's columns of the vectors, each row's sums
+    and squares in 8-column blocks, each scene's partial sums and its mean
+    and rsqrt for up to 4 groups a warpgroup (float2), 8 mbarriers."""
+    chunk = F32_CHUNK_BYTES if dtype == torch.float32 else CHUNK_BYTES
+    group, rows = CHANNELS // CLUSTER, TILE_ROWS
+    return (WIDE_STAGES * wg * chunk + vectors * wg * group * 4 + 2 * wg * rows * 8 * 4
+            + 2 * wg * 4 * rows * 8 + 2 * WIDE_STAGES * 8)
+
+
 def tile_plan(B: int, n: int, kx: int, ks: int = 0, dtype=torch.bfloat16, C: int = CHANNELS,
               groups: int = CLUSTER, has_res: Optional[bool] = None) -> TilePlan:
     """The launch of the kernel that takes the block (C channels in
@@ -144,11 +158,7 @@ def tile_plan(B: int, n: int, kx: int, ks: int = 0, dtype=torch.bfloat16, C: int
 
     resblock_tf32_wide and resblock_bf16_wide (one or two consumer
     warpgroups, :func:`wide_warpgroups`; a cluster of C / 64 / warpgroups
-    CTAs): the weight ring (4 stages of one chunk a warpgroup: a 32-deep
-    split f32 chunk of 16 KB, or a 64-deep bf16 chunk of 8 KB), the CTA's
-    columns of the 7 vectors, each row's sums and squares in 8-column
-    blocks, each scene's partial sums and its mean and rsqrt for up to 4
-    groups a warpgroup (float2), 8 mbarriers."""
+    CTAs): :func:`wide_smem_bytes` with the 7 vectors."""
     kin = kx + ks
     group = CHANNELS // CLUSTER
     rows = TILE_ROWS
@@ -159,9 +169,7 @@ def tile_plan(B: int, n: int, kx: int, ks: int = 0, dtype=torch.bfloat16, C: int
     if kernel.endswith("_wide"):
         wg = wide_warpgroups(C)
         stages = WIDE_STAGES
-        chunk = F32_CHUNK_BYTES if dtype == torch.float32 else CHUNK_BYTES
-        smem = (stages * wg * chunk + 7 * wg * group * 4 + 2 * wg * rows * 8 * 4
-                + 2 * wg * 4 * rows * 8 + 2 * stages * 8)
+        smem = wide_smem_bytes(wg, dtype)
         ctas = C // (group * wg)
     elif kernel == "resblock_tf32":
         stages = 5

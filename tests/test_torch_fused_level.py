@@ -67,7 +67,7 @@ def _case(variant, B, N, seed=0, C=C):
     return x, blocks, weights, films, skips
 
 
-def _run_jax(case, N, dtype, backend):
+def _run_jax(case, N, dtype, backend, groups=GROUPS):
     x, blocks, weights, films, skips = case
     jdt = jnp.float32 if dtype == "f32" else jnp.bfloat16
     chain = jfl.build_chain(
@@ -76,11 +76,11 @@ def _run_jax(case, N, dtype, backend):
     cast = lambda a: None if a is None else jnp.asarray(a).astype(jdt)  # noqa: E731
     B = x.shape[0] // N
     out = jfl.apply_chain(chain, cast(x), [cast(f) for f in films], [cast(s) for s in skips],
-                          n_per_scene=N, groups=GROUPS, tile_scenes=B, backend=backend)
+                          n_per_scene=N, groups=groups, tile_scenes=B, backend=backend)
     return np.asarray(out.astype(jnp.float32))
 
 
-def _run_torch(case, N, dtype):
+def _run_torch(case, N, dtype, groups=GROUPS):
     x, blocks, weights, films, skips = case
     tdt = torch.float32 if dtype == "f32" else torch.bfloat16
     chain = tfl.build_chain(
@@ -88,7 +88,7 @@ def _run_torch(case, N, dtype):
         [{k: torch.from_numpy(v) for k, v in w.items()} for w in weights], compute_dtype=tdt)
     cast = lambda a: None if a is None else torch.from_numpy(a).to(tdt)  # noqa: E731
     out = tfl.apply_chain(chain, cast(x), [cast(f) for f in films], [cast(s) for s in skips],
-                          n_per_scene=N, groups=GROUPS)
+                          n_per_scene=N, groups=groups)
     return out.float().numpy()
 
 
@@ -104,6 +104,23 @@ def test_chain_matches_jax_pallas(variant, N, B, dtype):
     case = _case(variant, B, N, seed=list(VARIANTS).index(variant) + N)
     want = _run_jax(case, N, dtype, backend="pallas")
     got = _run_torch(case, N, dtype)
+    np.testing.assert_allclose(got, want, **TOL[dtype])
+
+
+# the edges of the set the card's kernels take (tfl.takes: C 256, 512,
+# 1024 in 4-32 groups of at least 16 channels): (C, groups)
+SET_EDGES = [(256, 16), (512, 4), (512, 32), (1024, 4)]
+
+
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("width,groups", SET_EDGES)
+def test_chain_set_edges_match_jax_pallas(width, groups, dtype):
+    """The plain chain at the set's edges against the JAX Pallas chain: a
+    two-block row_skip chain, B=4 scenes of 12 rows (one tile of 48 rows,
+    a multiple of 16 as the Pallas tiling needs)."""
+    case = _case("row_skip", 4, 12, seed=width + groups, C=width)
+    want = _run_jax(case, 12, dtype, backend="pallas", groups=groups)
+    got = _run_torch(case, 12, dtype, groups=groups)
     np.testing.assert_allclose(got, want, **TOL[dtype])
 
 
@@ -233,6 +250,84 @@ def test_f32_chain_weight_packing_matches_index_formula(variant):
         assert np.array_equal(packed[:, :, :, part], parts[part][w, k, col])
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["bf16_layout", "f32"])
+def test_wide_chain_weight_packing_matches_index_formula(dtype):
+    """The wide kernels' packed chain weights at C=256 (a row_skip chain, 5
+    weights): with S = C / 32 (f32) or C / 64 (bf16) K steps a weight, the
+    step st of weight w for group g is the 4096 values from (g * S nW + S w
+    + st) * 4096.  bf16 (the layout checked in f64, every value exact):
+    position p holds W[w][64 st + 16 t + 4 j + 2 h + e, col], k = 8 (p //
+    512) + p % 8 = 16 j + 8 h + 2 t + e (the K tile's rows permuted) and col
+    = 64 g + 8 ((p // 64) % 8) + (p // 8) % 8.  f32: the pack_tf32_tiles
+    layout at this C, tf32 hi then lo.  A skip block's w1 and w1s (wres and
+    wres_s) are consecutive, the (2C, C) [x | skip] weight's K steps in
+    one run."""
+    C = 256
+    base = {k: torch.zeros(C) for k in ("b1", "b2", "gn1_bias", "gn2_bias", "gn1_scale",
+                                       "gn2_scale", "bres")}
+    weights, i = [], 0
+    for _, has_skip, res in VARIANTS["row_skip"]:
+        wd = dict(base)
+        names = ["w1"] + ["w1s"] * has_skip + ["w2"] + ["wres"] * res
+        for k in names + ["wres_s"] * (has_skip and res):
+            wd[k] = (torch.arange(C * C, dtype=torch.float64).reshape(C, C) + i * C * C) / (C * C)
+            i += 1
+        weights.append(wd)
+    chain = tfl.build_chain(_blocks("row_skip"), weights, compute_dtype=dtype)
+    nW = chain.W.shape[0]
+    packed = tfl.pack_chain_weights(chain.W, permuted=True)
+    if dtype == torch.float32:
+        S = C // 32
+        packed = packed.reshape(C // 64, nW, S, 2, 2048).numpy()
+        parts = [t.numpy() for t in trb.tf32_split(chain.W)]
+        g, w, st, p = np.meshgrid(np.arange(C // 64), np.arange(nW), np.arange(S),
+                                  np.arange(2048), indexing="ij")
+        kappa = 4 * (p // 256) + p % 4
+        k = 32 * st + 8 * (kappa % 4) + 2 * (kappa // 8) + (kappa // 4) % 2
+        col = 64 * g + 8 * ((p // 32) % 8) + (p // 4) % 8
+        for part in (0, 1):
+            assert np.array_equal(packed[:, :, :, part], parts[part][w, k, col])
+        return
+    S = C // 64
+    packed = packed.reshape(C // 64, nW, S, 4096).numpy()
+    g, w, st, p = np.meshgrid(np.arange(C // 64), np.arange(nW), np.arange(S), np.arange(4096),
+                              indexing="ij")
+    k = 8 * (p // 512) + p % 8
+    j, h, t, e = k // 16, (k // 8) % 2, (k // 2) % 4, k % 2
+    col = 64 * g + 8 * ((p // 64) % 8) + (p // 8) % 8
+    assert np.array_equal(packed, chain.W.numpy()[w, 64 * st + 16 * t + 4 * j + 2 * h + e, col])
+    # the stack's order: weight w holds the values made w-th
+    assert np.array_equal(np.floor(packed[0, :, 0, 0]), np.arange(nW))
+
+
+# (C, groups) -> (CTAs a cluster, f32 and bf16 shared memory a CTA) of the
+# wide kernels: 1 consumer warpgroup a CTA, 2 at C=1024; the same for every
+# chain and grouping
+WIDE_PLANS = {(256, 8): (4, 77376, 44608), (256, 16): (4, 77376, 44608),
+              (512, 4): (8, 77376, 44608), (512, 32): (8, 77376, 44608),
+              (1024, 4): (8, 154688, 89152), (1024, 16): (8, 154688, 89152)}
+
+
+@pytest.mark.parametrize("width,groups", list(WIDE_PLANS))
+def test_wide_tile_plan(width, groups):
+    """The wide kernels' launch (every chain but C=512 in 8 groups): whole
+    scenes in 64-row tiles, one cluster of C / 64 / warpgroups CTAs a tile,
+    4 ring stages, a CTA's shared memory (the ring, 14 vectors, the
+    moments' partial sums) within the H100's 232,448 bytes, the library
+    checks the same sum when it loads."""
+    ctas, f32, bf16 = WIDE_PLANS[(width, groups)]
+    for dtype, smem, kernel in ((torch.float32, f32, "chain_tf32_wide"),
+                                (torch.bfloat16, bf16, "chain_bf16_wide")):
+        assert tfl.kernel_name(dtype, width, groups) == kernel
+        for variant in ("row_scene", "row_skip"):
+            for (N, B), (ts, clusters) in TILES.items():
+                plan = tfl.tile_plan(B, N, _blocks(variant), dtype=dtype, C=width, groups=groups)
+                assert tuple(plan) == (ts, clusters, ctas * clusters, 4, smem, None)
+                assert plan.smem_bytes <= trb.SMEM_LIMIT
+    assert tfl.kernel_name(torch.float32, 512, 8) == "chain_tf32"
+    assert tfl.kernel_name(torch.bfloat16, 512, 8) == "chain_sm90"
+
+
 # (N, B) -> (scenes per tile, clusters) of the f32 kernel; every chain takes
 # 5 ring stages and 226,128 bytes of shared memory a CTA
 F32_TILES = {(12, 64): (5, 13), (12, 256): (5, 52), (12, 768): (5, 154),
@@ -283,10 +378,13 @@ def test_split_tf32_chain_matches_f32_chain(monkeypatch):
 
 
 REFUSED = {
-    "bf16_c64": dict(C=64), "bf16_groups16": dict(groups=16), "bf16_rows65": dict(n=65),
+    "bf16_c64": dict(C=64), "bf16_c2048": dict(C=2048), "bf16_rows65": dict(n=65),
+    "bf16_groups2": dict(groups=2), "bf16_groups64": dict(groups=64),
     "bf16_two_skips": dict(variant="two_skips"), "f32_rows65": dict(n=65, dt=torch.float32),
     "f32_c576": dict(C=576, dt=torch.float32), "f32_c448": dict(C=448, dt=torch.float32),
-    "f32_groups16": dict(groups=16, dt=torch.float32),
+    "f32_c2048": dict(C=2048, dt=torch.float32),
+    "f32_groups_of_8": dict(C=256, groups=32, dt=torch.float32),
+    "f32_rows65_c1024": dict(C=1024, groups=4, n=65, dt=torch.float32),
     "f32_two_skips": dict(variant="two_skips", dt=torch.float32),
     "three_blocks": dict(variant="three"),
 }
@@ -295,8 +393,9 @@ REFUSED = {
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_kernel_path_refuses_shapes_it_does_not_take(case):
     """No fallback: what the kernels do not take raises before any launch
-    (both kernels: C=512 in 8 groups, scenes of at most 64 rows, at most one
-    skip a chain, chains of 1 or 2 blocks)."""
+    (both dtypes: C = 256, 512 or 1024 in 4-32 groups of at least 16
+    channels, scenes of at most 64 rows, at most one skip a chain, chains of
+    1 or 2 blocks)."""
     kw = dict(C=512, groups=8, n=12, dt=torch.bfloat16, variant="row_skip")
     kw.update(REFUSED[case])
     blocks = {"two_skips": [("scene", True, True)] * 2, "three": [("none", False, False)] * 3,
@@ -318,6 +417,9 @@ def test_kernel_path_refuses_shapes_it_does_not_take(case):
     for dt in (torch.bfloat16, torch.float32):   # taken
         tfl.check_kernel_shapes(_blocks("row_skip"), dt, 512, 21, 8)
         tfl.check_kernel_shapes(_blocks("row_skip"), dt, 512, 64, 8)
+        for C, groups in ((512, 16), (256, 16), (1024, 4), (1024, 32)):
+            tfl.check_kernel_shapes(_blocks("row_skip"), dt, C, 64, groups)
+            assert tfl.takes(C, groups, 64) and not tfl.takes(C, groups, 65)
 
 
 @pytest.mark.gpu
@@ -332,10 +434,12 @@ def test_cuda_library_agrees_with_the_plan(dtype):
 
     lib = tfl.load_library()
     for variant in ("row_scene", "row_skip"):
-        plan = tfl.tile_plan(64, 12, _blocks(variant), lib, dtype)
-        assert (lib.fused_chain_smem_bytes(build.DTYPE_CODES[dtype], int(variant == "row_skip"))
-                == plan.smem_bytes)
-        assert plan.resident >= 1
+        for C, groups in ((512, 8), (256, 16), (1024, 4)):
+            plan = tfl.tile_plan(64, 12, _blocks(variant), lib, dtype, C, groups)
+            assert (lib.fused_chain_smem_bytes(build.DTYPE_CODES[dtype],
+                                               int(variant == "row_skip"), C, groups)
+                    == plan.smem_bytes)
+            assert plan.resident >= 1
 
 
 @pytest.mark.gpu
@@ -360,4 +464,33 @@ def test_cuda_kernel_matches_plain_version(variant, dtype, N):
     want = tfl.apply_chain_reference(*args, n_per_scene=N)
     torch.cuda.synchronize()
     tol = dict(atol=1e-3, rtol=0) if dtype == "f32" else dict(atol=1e-1, rtol=5e-2)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("width,groups", SET_EDGES + [(1024, 16)])
+@pytest.mark.parametrize("variant", ["row_scene", "row_skip", "skip"])
+def test_cuda_wide_kernel_matches_plain_version(variant, width, groups, dtype):
+    """The wide kernels (chain_tf32_wide, chain_bf16_wide) against the plain
+    version on the card at the set's edges, a ragged last tile (7 scenes of
+    12 rows), within chip_smoke.py's KERNEL_TOL."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (run chip_smoke.py on the card)")
+    x, blocks, weights, films, skips = _case(variant, 7, 12, seed=width + groups, C=width)
+    tdt = torch.float32 if dtype == "f32" else torch.bfloat16
+    dev = torch.device("cuda")
+    chain = tfl.build_chain(
+        [tfl.ChainBlock(has_skip=s, film=f, has_res_proj=r) for f, s, r in blocks],
+        [{k: torch.from_numpy(v).to(dev) for k, v in w.items()} for w in weights],
+        compute_dtype=tdt)
+    cast = lambda a: None if a is None else torch.from_numpy(a).to(dev, tdt)  # noqa: E731
+    args = (chain, cast(x), [cast(f) for f in films], [cast(s) for s in skips])
+    before = dict(tfl.apply_chain.by_kernel)
+    got = tfl.apply_chain(*args, n_per_scene=12, groups=groups)
+    want = tfl.apply_chain_reference(*args, n_per_scene=12, groups=groups)
+    torch.cuda.synchronize()
+    kernel = tfl.kernel_name(tdt, width, groups)
+    assert tfl.apply_chain.by_kernel[kernel] == before.get(kernel, 0) + 1
+    tol = dict(atol=1e-3, rtol=1e-4) if dtype == "f32" else dict(atol=1e-1, rtol=5e-2)
     torch.testing.assert_close(got.float(), want.float(), **tol)
