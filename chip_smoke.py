@@ -23,7 +23,8 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    levels, N=12, point_dim 62, random weights from a seed): the rows engine
    on the kernel against the plain Unet1D module forward, in f32 and bf16;
 4. a full 1000-step DDPM sample of 64 scenes through
-   SceneDiffusion.sample(fused="rows"), bf16: shape, finiteness, and
+   SceneDiffusion.sample(fused="rows", graph=False; phase 24 holds its
+   graph to it), bf16: shape, finiteness, and
    exactly 19,000 chain-kernel calls (apply_chain.launches); then
    torch.profiler over 20 sampling steps (device busy time, idle share, top
    kernels, B4's ms per step);
@@ -82,7 +83,8 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    380 chain launches; ``--only-f32-engine`` a 1000-step DDPM sample, 19,000)
    with a 20-step profile naming chain_tf32; through
    the 3-D engine, a 1000-step DDPM sample of 64 scenes (exactly 28,000 B1
-   and 1,000 B2 launches) with a 20-step profile against its step time, a
+   and 1,000 B2 launches; eagerly, graph=False, phase 24 holding its graph
+   to it) with a 20-step profile against its step time, a
    20-step DPM-Solver++ sample at run/generate.sh's batch of 256 (exactly
    560 and 20); each profile names the f32 kernels (resblock_tf32,
    attention_tf32) and gives their ms per step, busy time and idle share
@@ -300,10 +302,32 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    DPM-Solver++-20 (380 B4 on the wide kernel, none of B1 or B2, held every
    WIDE_DPM_EVERY calls, unprofiled); a dim 64 model in each dtype refused
    by fused="rows" naming fused=False with nothing launched.  The phase
-   prints each sample's time and its own.
+   prints each sample's time and its own;
+24. every sampler from a CUDA graph (the default of SceneDiffusion.sample
+   on the card: one eager step, the step captured once and replayed),
+   each held to the same sample with graph=False from one seed: bit-equal
+   expected, within GRAPH_TOL with a line saying so, beyond it the phase
+   fails; the f32 flagship through the 3-D engine by DDPM-1000 at B=64
+   and at run/generate.sh's B=256 (exactly 28,000 B1 and 1,000 B2 in each
+   run), DPM-Solver++-20 at B=256 (560, 20) and DDIM-50 at eta 0.5 at B=64
+   (1,400, 50); the bf16 flagship through the rows engine by DDPM-1000 at
+   B=64 (19,000 B4); completion and re-arrangement DDPM-1000 at B=32 and
+   the text model through the rows engine by DDPM-1000 at B=64 (19,000 B4,
+   9 contexts): in the whole run each of these three is the graphed twin of
+   phase 16's and 17's gated sample (the gate draws no noise, so the gated
+   loop is the eager loop), with ``--only-graph`` on random inputs beside
+   an eager run of its own, and the f32 3-D and bf16 rows DDPM-1000 at
+   B=64 are held to phases 15's and 4's samples, which run eagerly for it
+   (not repeated); each case's wall times, the warm step's and the
+   capture's seconds, peak memory, and the graphed and eager step against
+   the step's device-busy time (the step replayed from a graph of 20): the
+   idle share each leaves.
 
 The phases run in the order 1, 2, 7, 8, 3 with 9 (one set of full-width
-models), 4, 10, 11, 15, 22, 23, 5, 6, 12, 13, 14, 21, 16, 17, 18, 19, 20.
+models), 4, 10, 11, 15, 24, 22, 23, 5, 6, 12, 13, 14, 21, 16, 17, 18, 19,
+20 (phase 24's task and text cases in 16 and 17).  The samples of the
+other phases whose steps are not gated run from graphs too, with the same
+launch counts.
 TF32 is off for every matmul and
 convolution (the references are f32; the f32 B1 kernel's split TF32 is
 three tf32 products per f32 product, not TF32 matmul).
@@ -329,11 +353,15 @@ line), ``--only-tasks`` phases 1 and 16 (with the tasks JSON line) and
 ``--only-rest`` phases 1 and 20 (with the rest JSON line) and
 ``--only-parallel`` phases 1 and 21 (with the parallel JSON line) and
 ``--only-wide`` phases 1 and 22 (with the wide JSON line) and
-``--only-wide-chain`` phases 1 and 23 (with the wide_chain JSON line);
+``--only-wide-chain`` phases 1 and 23 (with the wide_chain JSON line) and
+``--only-graph`` phases 1 and 24 (with the graph JSON line);
 none of them prints an ok line.
 
 The line before the last is the card's name and power limit again, the one
 before it a JSON summary of the kernels, the one before that a JSON
+summary of phase 24 ("graph": each case's launches, bit-equality and
+largest difference, wall times, warm and capture seconds, step times,
+busy time, idle shares and peak memory), the one before that a JSON
 summary of phase 23 ("wide_chain": each dtype's worst error, the 19
 chains' times and bound at each (C, groups), the C=512 8-group chains on
 both kernels, each rows and 3-D sample's wall time, launches (by kernel),
@@ -392,7 +420,8 @@ launches on the dim-1024 model's rows samples (f32 DPM-Solver++-20, bf16
 DDPM-1000) and on phase 23's other samples, their worst error, the times
 and bound of the dim-1024 model's 19 chains (8 groups), the 19 chains'
 graph-replay time at each (C, groups) of the set and the C=512 8-group
-chains on both kernels.  The
+chains on both kernels; the chain, ResnetBlock and set-attention entries
+carry phase 24's graphed samples' launches ("graph_launches").  The
 last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -721,10 +750,22 @@ WIDE_CHAIN_3D_KERNELS = {"float32": (("B1 (resblock_tf32_wide)", "resblock_tf32_
 # N=12, graph replay, the 19 chains of a forward (NVIDIA H100 80GB HBM3,
 # 700.00 W; its B4 row): f32 chain_tf32, bf16 chain_sm90
 WIDE_CHAIN_EARLIER_MS = {"float32": 0.843, "bfloat16": 0.460}
+# phase 24, the samplers from CUDA graphs: a graphed sample is expected to
+# equal its eager twin bit for bit; a library kernel that chose another
+# algorithm under capture may move it by these, the f32 figure the f32
+# rounding of a step, bf16 the engines' FORWARD_TOL; DDIM at eta 0.5 draws
+# noise every step
+GRAPH_TOL = {"float32": 1e-6, "bfloat16": FORWARD_TOL["bfloat16"]}
+GRAPH_DDIM_STEPS, GRAPH_DDIM_ETA = 50, 0.5
+# the seed of checked_sample's generator, which the full run's phase 24
+# task and text cases share to hold their graphs to the gated samples
+CHECKED_SEED = SEED + 6
+# the seeds of phase 4's and 15's samples (phase 24's eager twins there)
+ROWS_SAMPLE_SEED, ENGINE_SAMPLE_SEED = SEED + 2, SEED + 3
 # the short checks: phase 1 and one kernel's phase, no ok line
 ONLY = ("--only-resblock", "--only-chain", "--only-attention", "--only-chamfer", "--only-train",
         "--only-f32-engine", "--only-tasks", "--only-text", "--only-eval", "--only-data",
-        "--only-rest", "--only-parallel", "--only-wide", "--only-wide-chain")
+        "--only-rest", "--only-parallel", "--only-wide", "--only-wide-chain", "--only-graph")
 
 
 def card_line():
@@ -790,13 +831,18 @@ def profiler_tally(label):
 def graph_ms(torch, fn, iters=20, replays=5):
     """Mean time per call of ``fn`` replayed from a CUDA graph of ``iters``
     calls: the kernels back to back on the card, without the host's cost of
-    each call (CUDA events around ``replays`` replays after a warm one)."""
+    each call (CUDA events around ``replays`` replays after a warm one).
+    The kernel counters count what the card runs: the capture's launches
+    once a replay (build.launch_tally)."""
+    from diffuscene_tpu_torch.ops import build
+
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+    with build.launch_tally() as tally:
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                fn()
     graph.replay()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -804,6 +850,7 @@ def graph_ms(torch, fn, iters=20, replays=5):
         graph.replay()
     end.record()
     torch.cuda.synchronize()
+    build.add_tally(tally, 1 + replays)
     return start.elapsed_time(end) / (replays * iters)
 
 
@@ -1450,25 +1497,29 @@ def host_ms(torch, fn, n):
     return 1e3 * (time.perf_counter() - t0) / n
 
 
-def phase_rows_sample(torch, scene, card, dpm=False):
+def phase_rows_sample(torch, scene, card, dpm=False, graph=None, record=None):
     """Phase 4 (bf16) or the rows part of 15 (f32): a 1000-step DDPM sample
     (with ``dpm``, a DPM-Solver++-20 sample) of 64 scenes through
-    SceneDiffusion.sample(fused="rows"), every chain on B4: shape,
-    finiteness, exactly 19 chain launches a step; then a 20-step profile
-    against the sample's step time, naming B4's kernel.  Returns the chain
-    launches."""
+    SceneDiffusion.sample(fused="rows", graph=graph), every chain on B4:
+    shape, finiteness, exactly 19 chain launches a step; then a 20-step
+    profile against the sample's step time, naming B4's kernel.  Returns
+    the chain launches; ``record`` (a dict) gets the sample, its wall time
+    and peak memory (phase 24's eager twin in the whole run)."""
     from diffuscene_tpu_torch.ops import fused_level as fl
 
     dname = str(scene.denoiser.compute_dtype).split(".")[-1]
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    gen = torch.Generator(device="cuda").manual_seed(ROWS_SAMPLE_SEED)
     steps, name = (DPM_STEPS, "DPM-Solver++") if dpm else (T, "DDPM")
     kw = dict(dpm=True, dpm_steps=DPM_STEPS) if dpm else {}
     torch.cuda.synchronize()
     fl.apply_chain.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    out = scene.sample(B, generator=gen, clip_denoised=True, fused="rows", **kw)
+    out = scene.sample(B, generator=gen, clip_denoised=True, fused="rows", graph=graph, **kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    if record is not None:
+        record.update(out=out, wall_s=wall, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     launches = fl.apply_chain.launches
     finite = bool(torch.isfinite(out).all())
     print(f"sample: {steps}-step {name}, B={B}, {dname}, fused=rows: shape={tuple(out.shape)} "
@@ -1488,15 +1539,18 @@ def phase_rows_sample(torch, scene, card, dpm=False):
     return launches
 
 
-def phase_engine_samples(torch, scene, card, dpm_batch=B, profile_batches=(), ddpm=True):
+def phase_engine_samples(torch, scene, card, dpm_batch=B, profile_batches=(), ddpm=True,
+                         graph=None, record=None):
     """Phases 10 and 11 (bf16) or 15 (f32): DDPM-1000 at B=64 (with
     ``ddpm``) and DPM-Solver++-20 at ``dpm_batch`` through the 3-D engine,
     every ResnetBlock on B1 and mid_attn on B2, with exact launch counts; a
     20-step profile at B=64 against the DDPM sample's step time (without
     ``ddpm``, against that step's host time), and one at each batch of
-    ``profile_batches`` against that step's host time.  Returns the launch
-    counts of the DDPM-1000 sample, or without ``ddpm`` of the
-    DPM-Solver++-20 one."""
+    ``profile_batches`` against that step's host time.  The samples run
+    SceneDiffusion.sample(graph=graph).  Returns the launch counts of the
+    DDPM-1000 sample, or without ``ddpm`` of the DPM-Solver++-20 one;
+    ``record`` (a dict) gets the DDPM-1000 sample, its wall time and peak
+    memory (phase 24's eager twin in the whole run)."""
     from diffuscene_tpu_torch.ops import attention as at
     from diffuscene_tpu_torch.ops import fused_resblock as rb
 
@@ -1506,13 +1560,17 @@ def phase_engine_samples(torch, scene, card, dpm_batch=B, profile_batches=(), dd
     samplers = (("DDPM", B, {}, T),) if ddpm else ()
     for name, batch, kw, steps in samplers + (
             ("DPM-Solver++", dpm_batch, dict(dpm=True, dpm_steps=DPM_STEPS), DPM_STEPS),):
-        gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+        gen = torch.Generator(device="cuda").manual_seed(ENGINE_SAMPLE_SEED)
         torch.cuda.synchronize()
         rb.fused_resnet_block.launches = at.fused_set_attention.launches = 0
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        out = scene.sample(batch, generator=gen, clip_denoised=True, fused=True, **kw)
+        out = scene.sample(batch, generator=gen, clip_denoised=True, fused=True, graph=graph,
+                           **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        if record is not None and name == "DDPM":
+            record.update(out=out, wall_s=wall, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         counts[name] = (rb.fused_resnet_block.launches, at.fused_set_attention.launches)
         finite = bool(torch.isfinite(out).all())
         print(f"sample: {steps}-step {name}, B={batch}, {dname}, fused=True: "
@@ -1551,7 +1609,8 @@ def phase_drift(torch, scene):
     engine calls take the module's exact GELU, as phase 9's do (the
     sampler's engines default to the tanh form, about 1e-3 of its own).
     The free runs of the engines and the module beside it (the drift
-    measurement, not gated) are left out for the script's time."""
+    measurement, not gated) are left out for the script's time.  The gate
+    is host code a step, so the loop runs eagerly (graph=False)."""
     from diffuscene_tpu_torch.diffusion import p_sample_loop
     from diffuscene_tpu_torch.models import inference as inf
     from diffuscene_tpu_torch.utils.convert import denoiser_tree
@@ -1584,7 +1643,7 @@ def phase_drift(torch, scene):
     t0 = time.perf_counter()
     out = p_sample_loop(scene.sched, cfg.model_mean_type, cfg.model_var_type, gated,
                         (DRIFT_B, cfg.sample_num_points, cfg.point_dim), generator=gen,
-                        clip_denoised=True)
+                        clip_denoised=True, graph=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     if not bool(torch.isfinite(out).all()) or tuple(out.shape) != (DRIFT_B, 12, 62):
@@ -2137,7 +2196,9 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
     ``named`` (default: the engine's kernels); ``steps`` is the model's
     schedule length (T unless its config says otherwise), ``calls`` the
     sampler's denoiser calls (``steps`` for DDPM) and ``every`` how often a
-    call is checked; ``profile=False`` leaves the profile out.  Returns
+    call is checked; ``profile=False`` leaves the profile out.  The check
+    is host code a step, so the sampler runs eagerly (graph=False; phase
+    24 holds the graphed loops to the eager ones).  Returns
     (the sample, a summary with the cross-attention contexts made)."""
     from diffuscene_tpu_torch.models import inference as inf
     from diffuscene_tpu_torch.ops import attention as at
@@ -2198,16 +2259,19 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
 
         return gated
 
-    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    gen = torch.Generator(device=DEV).manual_seed(CHECKED_SEED)
     scene._denoise_fn = checked
     try:
         torch.cuda.synchronize()
         zero_counts(counters)
         inf.cross_context.calls = 0
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        out = scene.sample(batch, generator=gen, clip_denoised=True, fused=fused, **task)
+        out = scene.sample(batch, generator=gen, clip_denoised=True, fused=fused, graph=False,
+                           **task)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0 - info["check_s"]
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
         launches = tuple(c.launches for c in counters)
         by_kernel = {k: v for c in counters for k, v in getattr(c, "by_kernel", {}).items()}
         contexts = inf.cross_context.calls
@@ -2220,6 +2284,7 @@ def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=Non
     summary = {"B": batch, "dtype": dname, "steps": steps, "calls": calls, "wall_s": wall,
                "scenes_per_s": batch / wall,
                "check_s": info["check_s"], "launches": list(launches), "by_kernel": by_kernel,
+               "peak_gb": peak_gb,
                "cross_contexts": contexts, "checked_steps": len(errs),
                "worst_engine_vs_module": worst.max().item(),
                "film_spread": info["film_spread"],
@@ -2286,23 +2351,36 @@ def task_step(torch, scene, partial_boxes=None, input_boxes=None):
     return step
 
 
-def phase_task_samples(torch, card, data_dir):
+def phase_task_samples(torch, card, data_dir, graphs=None):
     """Phase 16 (a) and (b): completion on the flagship config and
     re-arrangement on the rearrange config, f32 at full width, random
     weights from the seed, through checked_sample; the spliced slots and
     channels bit-equal to the inputs, and the rearrange model's cond-FiLM
-    rows different across scenes."""
+    rows different across scenes.  With ``graphs`` (a dict), phase 24's
+    task cases too: each checked sample's graphed twin, into ``graphs``."""
     target, noisy = task_inputs(torch, data_dir)
     partial = target[:, :TASK_PARTIAL]
-    out, comp = checked_sample(torch, task_model(torch, FLAGSHIP_CONFIG), "tasks: completion",
-                               card, partial_boxes=partial)
+    scene = task_model(torch, FLAGSHIP_CONFIG)
+    out, comp = checked_sample(torch, scene, "tasks: completion", card, partial_boxes=partial)
+    if graphs is not None:
+        graphs["complete_b32"] = graph_case(
+            torch, scene, f"completion DDPM-{T}", card, TASK_B, graph_counters(),
+            [28 * T, T, 0], task_step(torch, scene, partial_boxes=partial), seed=CHECKED_SEED,
+            eager={"out": out, "wall_s": comp["wall_s"], "peak_gb": comp["peak_gb"]},
+            fused=True, partial_boxes=partial)
     comp["partial_bit_equal"] = bool(torch.equal(out[:, :TASK_PARTIAL], partial))
     print(f"tasks: completion: the first {TASK_PARTIAL} slots equal the partial boxes bit for "
           f"bit: {comp['partial_bit_equal']}", flush=True)
     if not comp["partial_bit_equal"]:
         raise RuntimeError("completion: the first slots are not the partial boxes")
-    out, arr = checked_sample(torch, task_model(torch, REARRANGE_CONFIG), "tasks: rearrange",
-                              card, input_boxes=noisy)
+    scene = task_model(torch, REARRANGE_CONFIG)
+    out, arr = checked_sample(torch, scene, "tasks: rearrange", card, input_boxes=noisy)
+    if graphs is not None:
+        graphs["arrange_b32"] = graph_case(
+            torch, scene, f"rearrange DDPM-{T}", card, TASK_B, graph_counters(), [28 * T, T, 0],
+            task_step(torch, scene, input_boxes=noisy), seed=CHECKED_SEED,
+            eager={"out": out, "wall_s": arr["wall_s"], "peak_gb": arr["peak_gb"]},
+            fused=True, input_boxes=noisy)
     arr["kept_bit_equal"] = bool(torch.equal(out[:, :, 3:6], noisy[:, :, 3:6])
                                  and torch.equal(out[:, :, 8:], noisy[:, :, 8:]))
     moved = (out[:, :, :3] - noisy[:, :, :3]).abs().max().item()
@@ -2408,9 +2486,10 @@ def phase_task_cli(torch, data_dir, out_dir, card):
     return out
 
 
-def phase_tasks(torch, card):
+def phase_tasks(torch, card, graphs=None):
     """Phase 16: scene completion and re-arrangement, f32 at full width, on
-    a synthetic cached dataset made from the seed."""
+    a synthetic cached dataset made from the seed (with ``graphs``, phase
+    24's task cases, phase_task_samples)."""
     import shutil
 
     from diffuscene_tpu_torch.data import make_synthetic_cached_dataset
@@ -2420,7 +2499,7 @@ def phase_tasks(torch, card):
     os.makedirs(TASK_OUT)
     make_synthetic_cached_dataset(TASK_DATA, n_scenes=TRAIN_SCENES, seed=SEED)
     t0 = time.perf_counter()
-    out = {"card": card, "samples": phase_task_samples(torch, card, TASK_DATA)}
+    out = {"card": card, "samples": phase_task_samples(torch, card, TASK_DATA, graphs)}
     torch.cuda.empty_cache()
     out["train"] = phase_train_rearrange(torch, TASK_DATA)
     torch.cuda.empty_cache()
@@ -2451,7 +2530,7 @@ def text_inputs(torch, data_dir, batch):
     return torch.from_numpy(emb).to(DEV)
 
 
-def phase_text_samples(torch, card, data_dir):
+def phase_text_samples(torch, card, data_dir, graphs=None):
     """Phase 17 (a)-(c): the bedroom text model, f32 at full width, random
     weights from the seed.  (a) DDPM-1000 at TEXT_B through the 3-D engine
     and (b) at TEXT_ROWS_B through the rows engine, both by checked_sample
@@ -2461,7 +2540,8 @@ def phase_text_samples(torch, card, data_dir):
     text reaches its own scene: one step of the 3-D engine on one x_t
     repeated in every scene, with the text rolled by one scene, is the
     unrolled step's output rolled by one scene (ROLL_TOL) and differs from
-    it (ROLL_MIN_DIFF)."""
+    it (ROLL_MIN_DIFF).  With ``graphs`` (a dict), phase 24's text case
+    too: the rows sample's graphed twin, into ``graphs``."""
     from diffuscene_tpu_torch.models import inference as inf
     from diffuscene_tpu_torch.utils.convert import denoiser_tree
 
@@ -2471,13 +2551,19 @@ def phase_text_samples(torch, card, data_dir):
     for key, batch, fused in (("ddpm_3d", TEXT_B, True), ("ddpm_rows", TEXT_ROWS_B, "rows")):
         te = text[:batch]
         gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
-        _, summary = checked_sample(
-            torch, scene, f"text: {key}", card, batch=batch, fused=fused, text_emb=te,
-            step=sampling_step(torch, scene, batch, gen, fused=fused, text_emb=te))
+        step = sampling_step(torch, scene, batch, gen, fused=fused, text_emb=te)
+        sample, summary = checked_sample(torch, scene, f"text: {key}", card, batch=batch,
+                                         fused=fused, text_emb=te, step=step)
         if summary["cross_contexts"] != TEXT_CONTEXTS:
             raise RuntimeError(f"text: {key}: {summary['cross_contexts']} cross-attention "
                                f"contexts a sample, expected {TEXT_CONTEXTS}")
         out[key] = summary
+        if graphs is not None and fused == "rows":
+            graphs["text_rows_b64"] = graph_case(
+                torch, scene, f"text rows DDPM-{T}", card, batch, graph_counters(),
+                [0, 0, 19 * T], step, contexts=TEXT_CONTEXTS, seed=CHECKED_SEED,
+                eager={"out": sample, "wall_s": summary["wall_s"], "peak_gb": summary["peak_gb"]},
+                fused=fused, text_emb=te)
 
     # the 9 cross blocks of one TEXT_B step alone: their device time
     net, dt = scene.denoiser, torch.float32
@@ -2627,9 +2713,10 @@ def phase_text_cli(torch, data_dir, out_dir, card):
     return out
 
 
-def phase_text(torch, card):
+def phase_text(torch, card, graphs=None):
     """Phase 17: text-conditioned generation, f32 at full width, on a
-    synthetic cached dataset made from the seed."""
+    synthetic cached dataset made from the seed (with ``graphs``, phase
+    24's text case, phase_text_samples)."""
     import shutil
 
     from diffuscene_tpu_torch.data import make_synthetic_cached_dataset
@@ -2639,7 +2726,7 @@ def phase_text(torch, card):
     os.makedirs(TEXT_OUT)
     make_synthetic_cached_dataset(TEXT_DATA, n_scenes=TRAIN_SCENES, seed=SEED)
     t0 = time.perf_counter()
-    out = {"card": card, "samples": phase_text_samples(torch, card, TEXT_DATA)}
+    out = {"card": card, "samples": phase_text_samples(torch, card, TEXT_DATA, graphs)}
     torch.cuda.empty_cache()
     out["train"] = phase_train_text(torch, TEXT_DATA)
     torch.cuda.empty_cache()
@@ -4854,6 +4941,175 @@ def phase_wide_chain(fl, torch, card):
     return out
 
 
+def graph_counters():
+    """The counters phase 24 reads: B1, B2 and B4."""
+    from diffuscene_tpu_torch.ops import attention as at
+    from diffuscene_tpu_torch.ops import fused_level as fl
+    from diffuscene_tpu_torch.ops import fused_resblock as rb
+
+    return rb.fused_resnet_block, at.fused_set_attention, fl.apply_chain
+
+
+def graph_case(torch, scene, label, card, batch, counters, want, step, calls=T, contexts=0,
+               seed=SEED + 24, eager=None, **kw):
+    """Phase 24, one case: ``scene.sample(batch, **kw)`` from one seeded
+    generator twice, eagerly (graph=False) and by default (a CUDA graph on
+    the card: one eager step, the step captured once and replayed), each
+    with the launches of ``counters`` exactly ``want`` (and ``contexts``
+    text contexts), its wall time and peak device memory, the graph's warm
+    step, capture and replay seconds (samplers.run_steps.last; none for
+    the eager run); the largest difference of the two samples: bit-equal
+    expected, within GRAPH_TOL of the model's dtype passed with a line
+    saying so, beyond it the phase fails.  Then the step's device-busy
+    time, ``step`` (the sampler's denoiser step at the first t) replayed
+    from a graph of 20 (graph_ms), against the graphed and the eager step:
+    the idle share each leaves.  ``calls`` is the sampler's steps.
+    ``eager`` (the sample, wall time and peak memory of an eager run of
+    the same model, inputs and ``seed`` in another phase: phase 4's or
+    15's, or a checked_sample run, whose checks draw no noise) stands for
+    the eager run, which is then not repeated."""
+    from diffuscene_tpu_torch.diffusion import samplers
+    from diffuscene_tpu_torch.models import inference as inf
+
+    dname = str(scene.denoiser.compute_dtype).split(".")[-1]
+    reused = eager is not None
+    runs = {"eager": {**eager, "launches": want, "graph": None}} if reused else {}
+    for mode, graph in (("eager", False), ("graph", None)):
+        if mode in runs:
+            continue
+        gen = torch.Generator(device=DEV).manual_seed(seed)
+        zero_counts(counters)
+        inf.cross_context.calls = 0
+        samplers.run_steps.last = None
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = scene.sample(batch, generator=gen, clip_denoised=True, graph=graph, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = [c.launches for c in counters]
+        runs[mode] = {"out": out, "wall_s": wall, "launches": launched,
+                      "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                      "graph": samplers.run_steps.last}
+        if launched != want or inf.cross_context.calls != contexts:
+            raise RuntimeError(f"graph {label} ({mode}): launches {launched}, expected {want}; "
+                               f"text contexts {inf.cross_context.calls}, expected {contexts}")
+        if (runs[mode]["graph"] is None) != (mode == "eager"):
+            raise RuntimeError(f"graph {label} ({mode}): the sampler ran "
+                               f"{'eagerly' if mode == 'graph' else 'from a graph'}")
+        if not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"graph {label} ({mode}): the sample is not finite")
+    eager, graphed = runs["eager"], runs["graph"]
+    g = graphed["graph"]
+    diff = (graphed["out"] - eager["out"]).abs().max().item()
+    bit_equal = bool(torch.equal(graphed["out"], eager["out"]))
+    tol = GRAPH_TOL[dname]
+    step_ms = 1e3 * g["replay_s"] / g["replays"]
+    eager_step_ms = 1e3 * eager["wall_s"] / calls
+    busy_ms = graph_ms(torch, step)
+    zero_counts(counters)
+    res = {"B": batch, "dtype": dname, "calls": calls, "launches": graphed["launches"],
+           "bit_equal": bit_equal, "max_abs_diff": diff, "eager_wall_s": eager["wall_s"],
+           "graph_wall_s": graphed["wall_s"], "warm_s": g["warm_s"], "capture_s": g["capture_s"],
+           "graph_step_ms": step_ms, "eager_step_ms": eager_step_ms, "busy_ms": busy_ms,
+           "graph_idle_share": 1 - busy_ms / step_ms,
+           "eager_idle_share": 1 - busy_ms / eager_step_ms,
+           "eager_peak_gb": eager["peak_gb"], "graph_peak_gb": graphed["peak_gb"]}
+    verdict = ("bit-equal" if bit_equal else
+               f"NOT bit-equal, within {tol}" if diff <= tol else f"FAIL (tol {tol})")
+    res["eager_reused"] = reused
+    print(f"graph {label}, B={batch}, {dname}: graphed vs eager"
+          f"{' (an earlier eager sample)' if reused else ''} max_abs_diff {diff:.3e} "
+          f"{verdict}; launches {graphed['launches']} in each; wall eager {eager['wall_s']:.3f} s, "
+          f"graphed {graphed['wall_s']:.3f} s (warm step {g['warm_s']:.3f} s, capture and "
+          f"instantiate {g['capture_s']:.3f} s, {g['replays']} replays "
+          f"{g['replay_s']:.3f} s); step eager {eager_step_ms:.3f} ms, graphed {step_ms:.3f} ms, "
+          f"device busy {busy_ms:.3f} ms (graph replay of the step): idle share eager "
+          f"{res['eager_idle_share']:.3f}, graphed {res['graph_idle_share']:.3f}; peak memory "
+          f"eager {eager['peak_gb']:.2f} GB, graphed {graphed['peak_gb']:.2f} GB | {card}",
+          flush=True)
+    if not diff <= tol:
+        raise RuntimeError(f"graph {label}: the graphed sample is {diff:.3e} from the eager one")
+    return res
+
+
+def phase_graph(torch, card, tasks=True, eager=None):
+    """Phase 24: every sampler of SceneDiffusion.sample from a CUDA graph,
+    each held to its eager loop from the same seed (graph_case): the f32
+    flagship through the 3-D engine by DDPM-1000 at B=64 and at
+    run/generate.sh's B=256 (28,000 B1, 1,000 B2), by DPM-Solver++-20 at
+    B=256 (560, 20) and by DDIM-50 at eta 0.5 at B=64 (1,400, 50); the
+    bf16 flagship through the rows engine by DDPM-1000 at B=64 (19,000
+    B4); completion (3 partial boxes) and re-arrangement DDPM-1000 at
+    TASK_B (28,000, 1,000 each) on random inputs; the bedroom text model
+    through the rows engine by DDPM-1000 at TEXT_ROWS_B on random token
+    embeddings (19,000 B4, TEXT_CONTEXTS contexts).  Without ``tasks`` the
+    task and text cases are left to phases 16 and 17, which hold a graph of
+    each of their gated samples to it (the whole run).  ``eager`` maps a
+    case to a sample of phase 4 or 15 that stands for its eager run
+    (graph_case), the f32 3-D DDPM-1000 at B=64 and the bf16 rows one in
+    the whole run.  Returns each case's summary."""
+    eager = eager or {}
+    seeds = {"ddpm_3d_b64": ENGINE_SAMPLE_SEED, "ddpm_rows_bf16_b64": ROWS_SAMPLE_SEED}
+
+    def twin(key):
+        return {"eager": eager[key], "seed": seeds[key]} if key in eager else {}
+
+    t0 = time.perf_counter()
+    engine = graph_counters()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 25)
+    out = {}
+    scene = flagship(torch, torch.float32)
+    for batch in (B, GENERATE_B):
+        key = f"ddpm_3d_b{batch}"
+        out[key] = graph_case(
+            torch, scene, f"f32 3-D DDPM-{T}", card, batch, engine, [28 * T, T, 0],
+            sampling_step(torch, scene, batch, gen), fused=True, **twin(key))
+    out["dpm_3d_b256"] = graph_case(
+        torch, scene, f"f32 3-D DPM-Solver++-{DPM_STEPS}", card, GENERATE_B, engine,
+        [28 * DPM_STEPS, DPM_STEPS, 0], sampling_step(torch, scene, GENERATE_B, gen),
+        calls=DPM_STEPS, fused=True, dpm=True, dpm_steps=DPM_STEPS)
+    out["ddim_3d_b64"] = graph_case(
+        torch, scene, f"f32 3-D DDIM-{GRAPH_DDIM_STEPS} eta {GRAPH_DDIM_ETA}", card, B, engine,
+        [28 * GRAPH_DDIM_STEPS, GRAPH_DDIM_STEPS, 0], sampling_step(torch, scene, B, gen),
+        calls=GRAPH_DDIM_STEPS, fused=True, ddim=True, ddim_steps=GRAPH_DDIM_STEPS,
+        ddim_eta=GRAPH_DDIM_ETA)
+    del scene
+    scene = flagship(torch, torch.bfloat16)
+    out["ddpm_rows_bf16_b64"] = graph_case(
+        torch, scene, f"bf16 rows DDPM-{T}", card, B, engine, [0, 0, 19 * T],
+        sampling_step(torch, scene, B, gen, fused="rows"), fused="rows",
+        **twin("ddpm_rows_bf16_b64"))
+    del scene
+    torch.cuda.empty_cache()
+    if not tasks:
+        out["phase_s"] = time.perf_counter() - t0
+        print(f"graph: phase 24 without its task and text cases took {out['phase_s']:.1f} s | "
+              f"{card}", flush=True)
+        return out
+    boxes = torch.rand(TASK_B, 12, 62, generator=gen, device=DEV) * 2 - 1
+    partial = boxes[:, :TASK_PARTIAL].contiguous()
+    scene = task_model(torch, FLAGSHIP_CONFIG)
+    out["complete_b32"] = graph_case(
+        torch, scene, f"completion DDPM-{T}", card, TASK_B, engine, [28 * T, T, 0],
+        task_step(torch, scene, partial_boxes=partial), fused=True, partial_boxes=partial)
+    scene = task_model(torch, REARRANGE_CONFIG)
+    out["arrange_b32"] = graph_case(
+        torch, scene, f"rearrange DDPM-{T}", card, TASK_B, engine, [28 * T, T, 0],
+        task_step(torch, scene, input_boxes=boxes), fused=True, input_boxes=boxes)
+    scene = task_model(torch, TEXT_CONFIG)
+    text = torch.randn(TEXT_ROWS_B, 50, 768, generator=gen, device=DEV)
+    out["text_rows_b64"] = graph_case(
+        torch, scene, f"text rows DDPM-{T}", card, TEXT_ROWS_B, engine, [0, 0, 19 * T],
+        sampling_step(torch, scene, TEXT_ROWS_B, gen, fused="rows", text_emb=text),
+        contexts=TEXT_CONTEXTS, fused="rows", text_emb=text)
+    del scene
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"graph: phase 24 took {out['phase_s']:.1f} s | {card}", flush=True)
+    return out
+
+
 def profile_steps(torch, step, n, step_ms, named=()):
     """Where a step's time goes: torch.profiler over ``n`` steady steps;
     device busy time (the sum of the kernels' times, one stream), the idle
@@ -4989,6 +5245,10 @@ def main(argv):
         print(json.dumps({"wide_chain": phase_wide_chain(fl, torch, card)}))
         print(card_line())
         return 0
+    if only == "--only-graph":      # the samplers from CUDA graphs alone: phase 24
+        print(json.dumps({"graph": phase_graph(torch, card)}))
+        print(card_line())
+        return 0
     if only == "--only-f32-engine":  # the flagship config's own dtype: phases 3 + 9 and 15, f32
         scene32 = phase_forward(torch, torch.float32)
         phase_rows_sample(torch, scene32, card)
@@ -5021,7 +5281,9 @@ def main(argv):
 
     # the first slice's main path: 1000-step DDPM sample, every chain
     # through the kernel
-    chain_launches = phase_rows_sample(torch, scene, card)
+    # (eagerly: phase 24 holds a graph of the same sample to it)
+    rows_eager = {}
+    chain_launches = phase_rows_sample(torch, scene, card, graph=False, record=rows_eager)
     mark("phase 4")
 
     # the 3-D engine's slice's main path: every ResnetBlock on B1 and
@@ -5034,12 +5296,20 @@ def main(argv):
     # engine (DPM-Solver++-20 here, for the script's time; DDPM-1000 in
     # --only-f32-engine) and the 3-D engine
     chain32_launches = phase_rows_sample(torch, scene32, card, dpm=True)
+    engine_eager = {}
     rb32_launches, at32_launches = phase_engine_samples(torch, scene32, card,
-                                                        dpm_batch=GENERATE_B)
+                                                        dpm_batch=GENERATE_B, graph=False,
+                                                        record=engine_eager)
     mark("phase 15 samples")
     phase_drift(torch, scene32)
     del scene32
     mark("phase 15 drift")
+    torch.cuda.empty_cache()
+    # this slice's main path: every sampler from a CUDA graph, held to its
+    # eager loop (B1 and B2, B4)
+    graphs = phase_graph(torch, card, tasks=False,
+                         eager={"ddpm_3d_b64": engine_eager, "ddpm_rows_bf16_b64": rows_eager})
+    mark("phase 24")
     torch.cuda.empty_cache()
     # this slice's main path: the B1 and B2 kernels at the other widths and
     # groupings in both dtypes, the wide models and the 4- and 16-group
@@ -5087,13 +5357,13 @@ def main(argv):
     torch.cuda.empty_cache()
     # this slice's main paths: scene completion and re-arrangement, f32,
     # through the 3-D engine (B1 and B2), and the rearrange training
-    tasks = phase_tasks(torch, card)
+    tasks = phase_tasks(torch, card, graphs)
     mark("phase 16")
     task_launches = {k: v["launches"] for k, v in tasks["samples"].items()}
     torch.cuda.empty_cache()
     # this slice's main path: text-conditioned generation through both
     # engines (B1 and B2, B4), the text train step and the text CLIs
-    text = phase_text(torch, card)
+    text = phase_text(torch, card, graphs)
     mark("phase 17")
     text_launches = {k: v["launches"] for k, v in text["samples"].items() if k != "roll"}
     torch.cuda.empty_cache()
@@ -5128,6 +5398,8 @@ def main(argv):
     print(json.dumps({"parallel": par}))
     print(json.dumps({"wide": wide}))
     print(json.dumps({"wide_chain": wchain}))
+    print(json.dumps({"graph": graphs}))
+    graph_launches = {k: v["launches"] for k, v in graphs.items() if k != "phase_s"}
     print(json.dumps({"kernels": [{
         "name": "fused_chain",
         "route": "cuda",
@@ -5150,6 +5422,7 @@ def main(argv):
         "data_launches": data_samples["ddpm_rows"]["launches"][0],
         "rest_launches": {"fourier_rows": rest_samples["fourier_rows"]["launches"][0]},
         "parallel_launches": {"rank_sample_rows": par_launches["gloo_rank"]["sample_rows"]["B4"]},
+        "graph_launches": {k: v[2] for k, v in graph_launches.items() if v[2]},
     }, {
         "name": "chamfer_nn",
         "route": "cuda",
@@ -5194,6 +5467,7 @@ def main(argv):
         "parallel_launches": {"nccl_one_rank_sample": par_launches["nccl_one_rank"]["B1"],
                               "rank_sample_3d": par_launches["gloo_rank"]["sample_3d"]["B1"]},
         "wide_launches": {k: v["launches"][0] for k, v in wide_samples.items()},
+        "graph_launches": {k: v[0] for k, v in graph_launches.items() if v[0]},
         "wide_max_abs_err": wk["float32"]["b1_worst"],
         "wide_ms": wide_b1["all"]["ms"],
         "wide_graph_ms": wide_b1["all"]["graph"],
@@ -5227,6 +5501,7 @@ def main(argv):
         "parallel_launches": {"nccl_one_rank_sample": par_launches["nccl_one_rank"]["B2"],
                               "rank_sample_3d": par_launches["gloo_rank"]["sample_3d"]["B2"]},
         "wide_launches": {k: v["launches"][1] for k, v in wide_samples.items()},
+        "graph_launches": {k: v[1] for k, v in graph_launches.items() if v[1]},
         "wide_ms": wide_b2["C=1024"]["ms"],
         "wide_graph_ms": wide_b2["C=1024"]["graph"],
         "wide_plain_ms": wide_b2["C=1024"]["plain"],

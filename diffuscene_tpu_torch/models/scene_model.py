@@ -560,6 +560,8 @@ class SceneDiffusion:
         text_emb: Optional[torch.Tensor] = None,
         room_layout: Optional[torch.Tensor] = None,
         room_feat: Optional[torch.Tensor] = None,
+        graph: Optional[bool] = None,
+        shard: Tuple[int, int] = (0, 1),
     ) -> torch.Tensor:
         """Sample ``batch_size`` scenes -> (B, N, point_dim)
         (diffusion_scene_layout_ddpm.py:228-310).  With ``input_boxes``
@@ -575,7 +577,17 @@ class SceneDiffusion:
         ``room_layout``, one (1, H, W) floor mask a scene, or their
         features ``room_feat`` (B, F): the extractor runs once a call,
         before the engines prepare their FiLM rows.  Noise comes from
-        ``generator`` (on this model's device) or from ``noise_fn``."""
+        ``generator`` (on this model's device) or from ``noise_fn``.
+
+        ``graph``: None runs the sampler's step from a CUDA graph on a CUDA
+        device (captured once a call after one eager step, replayed for the
+        rest; the port's counterpart of the JAX loops' ``lax.scan``) and
+        eagerly on the CPU or with ``noise_fn``; False runs it eagerly;
+        True asks for the graph and raises where it cannot run
+        (``diffusion/samplers.py``).  ``shard`` (index, count): draw the
+        noise for ``count`` times ``batch_size`` scenes and keep the
+        index-th block of rows (a data rank's share of a global batch, as
+        in ``get_loss``)."""
         if (partial_boxes is not None or input_boxes is not None) and (ddim or dpm):
             raise ValueError(
                 "ddim/dpm fast sampling is not supported for completion (partial_boxes) or "
@@ -593,7 +605,7 @@ class SceneDiffusion:
                                                          text_emb, room_layout, room_feat)
         fn = self._denoise_fn(condition, condition_cross, fused=fused)
         shape = (batch_size, N, cfg.point_dim)
-        noise = dict(generator=generator, noise_fn=noise_fn)
+        noise = dict(generator=generator, noise_fn=noise_fn, graph=graph, shard=shard)
         mmt, mvt = cfg.model_mean_type, cfg.model_var_type
         if input_boxes is not None:
             sub = S.p_sample_loop_arrange(self.sched, mmt, mvt, fn, shape, cfg.translation_dim,
@@ -624,14 +636,14 @@ class SceneDiffusion:
     @torch.no_grad()
     def all_kl(self, x0: torch.Tensor, generator: Optional[torch.Generator] = None,
                batch: Optional[Dict[str, torch.Tensor]] = None, clip_denoised: bool = True,
-               noise_fn=None) -> Dict[str, torch.Tensor]:
+               noise_fn=None, graph: Optional[bool] = None) -> Dict[str, torch.Tensor]:
         """The whole variational-bound sweep on the module forward
         (DiffusionPoint.all_kl, diffusion_ddpm.py:738-746) -> the means of
         the total bpd, the vb terms, the prior bpd and the x_0 MSE.  With a
         ``batch`` the conditions are the batch's own
         (``condition_from_target(x0, batch)``: its task inputs from x0, a
         text model's ``text_emb``), else ``make_condition`` without
-        inputs."""
+        inputs.  ``graph`` as in :meth:`sample`."""
         if batch is not None:
             condition, condition_cross = self.condition_from_target(x0, batch)
         else:
@@ -639,7 +651,7 @@ class SceneDiffusion:
         total, terms, prior, mse = S.calc_bpd_loop(
             self.sched, self.cfg.model_mean_type, self.cfg.model_var_type,
             self._denoise_fn(condition, condition_cross), x0, generator=generator,
-            clip_denoised=clip_denoised, noise_fn=noise_fn)
+            clip_denoised=clip_denoised, noise_fn=noise_fn, graph=graph)
         return {"total_bpd_b": total, "terms_bpd": terms, "prior_bpd_b": prior, "mse_bt": mse}
 
     def split_samples(self, samples: torch.Tensor) -> Dict[str, torch.Tensor]:

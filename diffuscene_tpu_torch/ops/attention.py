@@ -278,7 +278,7 @@ def _launch_kernel(x, g, w_qkv, w_out, b_out, heads, dim_head, eps, dt) -> torch
     if rc != 0:
         raise RuntimeError(f"set_attention_launch failed with code {rc}")
     kernel = kernel_name(dt, C)
-    fused_set_attention.by_kernel[kernel] = fused_set_attention.by_kernel.get(kernel, 0) + 1
+    build.count_launch(fused_set_attention, kernel)
     return out
 
 
@@ -296,7 +296,9 @@ def fused_set_attention(
     """x + Attention(LN(x)) per scene: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  ``fused_set_attention.launches`` counts
     the kernel launches, ``fused_set_attention.by_kernel`` them by kernel
-    name (:func:`kernel_name`)."""
+    name (:func:`kernel_name`).  They count the launches the card runs: a call
+    captured into a CUDA graph counts nothing itself, and each replay of the
+    graph adds its launches (``build.count_launch``)."""
     B, N, C = x.shape
     hd = heads * dim_head
     if tuple(g_prenorm.shape) != (C,) or tuple(b_out.shape) != (C,):
@@ -308,9 +310,7 @@ def fused_set_attention(
         return fused_set_attention_reference(*args, compute_dtype=compute_dtype)
     if x.device.type != "cuda":
         raise ValueError(f"fused_set_attention runs on cpu or cuda tensors, got {x.device}")
-    out = _launch_kernel(*args, compute_dtype)
-    fused_set_attention.launches += 1
-    return out
+    return _launch_kernel(*args, compute_dtype)
 
 
 fused_set_attention.launches = 0

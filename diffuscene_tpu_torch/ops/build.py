@@ -9,6 +9,8 @@ shared-memory report goes to ``<lib>.ptxas.txt`` beside each library.
 """
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -126,5 +128,54 @@ def prepared(owner: torch.Tensor, deps: Sequence[Optional[torch.Tensor]],
             and all(a is b for a, b in zip(hit[1], deps))):
         return hit[2]
     value = make()
+    prepared.made += 1
     owner._kernel_operands = (versions, tuple(deps), value)
     return value
+
+
+# operands made by ``prepared`` (and the chain kernel's packed weights): a
+# capture that makes one would keep it in the graph's memory and make it
+# again at every replay, so a CUDA graph of a step checks it made none
+prepared.made = 0
+
+# the tallies of the CUDA graphs being captured, innermost last
+_TALLIES: List[collections.Counter] = []
+
+
+def count_launch(counter: Callable, kernel: Optional[str] = None) -> None:
+    """One launch of ``kernel`` by the wrapper ``counter``: added to
+    ``counter.launches`` (and ``counter.by_kernel[kernel]``), or, while the
+    current stream is captured into a CUDA graph, to that capture's tally
+    (:func:`launch_tally`), which each replay adds (:func:`add_tally`): the
+    counts are what the card runs.  A capture outside ``launch_tally``
+    raises."""
+    if torch.cuda.is_current_stream_capturing():
+        if not _TALLIES:
+            raise RuntimeError("a kernel launch is captured into a CUDA graph outside "
+                               "build.launch_tally(): its replays would go uncounted")
+        _TALLIES[-1][(counter, kernel)] += 1
+        return
+    counter.launches += 1
+    if kernel is not None:
+        counter.by_kernel[kernel] = counter.by_kernel.get(kernel, 0) + 1
+
+
+@contextlib.contextmanager
+def launch_tally():
+    """Collect the kernel launches captured inside the block into a tally,
+    {(wrapper, kernel name): launches}, instead of counting them."""
+    tally: collections.Counter = collections.Counter()
+    _TALLIES.append(tally)
+    try:
+        yield tally
+    finally:
+        _TALLIES.pop()
+
+
+def add_tally(tally: collections.Counter, replays: int = 1) -> None:
+    """Count the launches of ``replays`` replays of a graph whose capture
+    made ``tally``, on the wrappers' counters as they are now."""
+    for (counter, kernel), n in tally.items():
+        counter.launches += n * replays
+        if kernel is not None:
+            counter.by_kernel[kernel] = counter.by_kernel.get(kernel, 0) + n * replays

@@ -122,13 +122,16 @@ def _launch_kernel(x: torch.Tensor, y: torch.Tensor):
         build.stream_ptr(x.device))
     if rc != 0:
         raise RuntimeError(f"chamfer_nn_launch failed with code {rc}")
+    build.count_launch(directed_nn)
     return dist, idx
 
 
 def directed_nn(x: torch.Tensor, y: torch.Tensor):
     """Nearest neighbour in y of every point of x: (dist (B, N), idx (B, N)
     int32).  The CUDA kernel for CUDA tensors, the plain version for CPU
-    tensors; ``directed_nn.launches`` counts kernel launches."""
+    tensors.  ``directed_nn.launches`` counts the kernel launches the card
+    runs: a call captured into a CUDA graph counts nothing itself, and each
+    replay of the graph adds its launches (``build.count_launch``)."""
     if x.dim() != 3 or y.dim() != 3 or x.shape[0] != y.shape[0] or x.shape[2] != y.shape[2]:
         raise ValueError(f"expected (B, N, D) and (B, M, D), got {tuple(x.shape)} "
                          f"and {tuple(y.shape)}")
@@ -138,9 +141,7 @@ def directed_nn(x: torch.Tensor, y: torch.Tensor):
         return directed_nn_reference(x, y)
     if x.device.type != "cuda":
         raise ValueError(f"directed_nn runs on cpu or cuda tensors, got {x.device} and {y.device}")
-    out = _launch_kernel(x, y)
-    directed_nn.launches += 1
-    return out
+    return _launch_kernel(x, y)
 
 
 directed_nn.launches = 0

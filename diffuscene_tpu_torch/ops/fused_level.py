@@ -409,6 +409,7 @@ def _launch_kernel(chain: ChainParams, x, films, skips, n: int, groups: int,
     W = chain.W_packed.get(kernel)
     if W is None:
         W = chain.W_packed[kernel] = pack_chain_weights(chain.W, permuted=wide)
+        build.prepared.made += 1
     specs = [blk.spec for blk in chain.blocks] + [0]
     out = torch.empty_like(x)
     # the wide kernels' h and block 1's output go through device memory
@@ -423,7 +424,7 @@ def _launch_kernel(chain: ChainParams, x, films, skips, n: int, groups: int,
     )
     if rc != 0:
         raise RuntimeError(f"fused_chain_launch failed with code {rc}")
-    apply_chain.by_kernel[kernel] = apply_chain.by_kernel.get(kernel, 0) + 1
+    build.count_launch(apply_chain, kernel)
     return out
 
 
@@ -439,8 +440,10 @@ def apply_chain(
     """Run the chain over all rows: the CUDA kernel for CUDA tensors, the
     plain version for CPU tensors.  Any B works (the kernel masks a ragged
     last tile).  ``apply_chain.launches`` counts the chains sent to the
-    kernel, one per call, ``apply_chain.by_kernel`` them by kernel name
-    (:func:`kernel_name`)."""
+    kernel, one per launch, ``apply_chain.by_kernel`` them by kernel name
+    (:func:`kernel_name`).  They count the launches the card runs: a call
+    captured into a CUDA graph counts nothing itself, and each replay of the
+    graph adds its launches (``build.count_launch``)."""
     M, C = x.shape
     n = n_per_scene
     B = M // n
@@ -461,9 +464,7 @@ def apply_chain(
         return apply_chain_reference(chain, x, films, skips, n, groups=groups, eps=eps)
     if x.device.type != "cuda":
         raise ValueError(f"apply_chain runs on cpu or cuda tensors, got {x.device}")
-    out = _launch_kernel(chain, x, films, skips, n, groups, eps)
-    apply_chain.launches += 1
-    return out
+    return _launch_kernel(chain, x, films, skips, n, groups, eps)
 
 
 apply_chain.launches = 0

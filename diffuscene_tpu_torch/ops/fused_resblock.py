@@ -423,7 +423,7 @@ def _launch_kernel(x, skip, film, w1, b1, g1s, g1b, w2, b2, g2s, g2b, w_res, b_r
     )
     if rc != 0:
         raise RuntimeError(f"fused_resblock_launch failed with code {rc}")
-    fused_resnet_block.by_kernel[kernel] = fused_resnet_block.by_kernel.get(kernel, 0) + 1
+    build.count_launch(fused_resnet_block, kernel)
     return out
 
 
@@ -448,7 +448,9 @@ def fused_resnet_block(
     plain version for CPU tensors.  Any number of whole scenes works (the
     kernel masks a ragged last tile).  ``fused_resnet_block.launches`` counts
     the kernel launches, ``fused_resnet_block.by_kernel`` them by kernel
-    name (:func:`kernel_name`)."""
+    name (:func:`kernel_name`).  They count the launches the card runs: a call
+    captured into a CUDA graph counts nothing itself, and each replay of the
+    graph adds its launches (``build.count_launch``)."""
     M = x.shape[0]
     n = n_per_scene
     C = w1.shape[-1]
@@ -469,9 +471,7 @@ def fused_resnet_block(
                                             compute_dtype=compute_dtype, skip=skip)
     if not x.is_cuda:
         raise ValueError(f"fused_resnet_block runs on cpu or cuda tensors, got {x.device}")
-    out = _launch_kernel(x, skip, *args[1:], n, groups, eps, compute_dtype)
-    fused_resnet_block.launches += 1
-    return out
+    return _launch_kernel(x, skip, *args[1:], n, groups, eps, compute_dtype)
 
 
 fused_resnet_block.launches = 0

@@ -10,9 +10,11 @@ returns the global array.  Sampling needs no other communication.
 
 The noise does not depend on the split: every draw of the sampling loop
 (x_T and each step's noise, in the eager loop's order) is made for the
-whole batch from the caller's generator and sliced to this rank's rows, so
-the gathered sample equals ``SceneDiffusion.sample`` of the whole batch
-from the same seed.  The weights must be equal on every rank
+whole batch from the caller's generator and sliced to this rank's rows
+(``sample(shard=...)``), so the gathered sample equals
+``SceneDiffusion.sample`` of the whole batch from the same seed.  On a
+card each rank's loop runs from a CUDA graph, as ``SceneDiffusion.sample``
+does by default.  The weights must be equal on every rank
 (:meth:`ShardedSampler.put_params` broadcasts rank 0's).
 """
 from __future__ import annotations
@@ -56,18 +58,13 @@ class ShardedSampler:
         conditioning tensors are global (B, ...).  ``generator`` (on the
         scene's device) is seeded alike on every rank."""
         rows = rows_of(batch_size, self.mesh)
-        n_data = self.n_data
-
-        def noise_fn(shape):
-            full = torch.randn((shape[0] * n_data, *shape[1:]), generator=generator,
-                               device=generator.device, dtype=torch.float32)
-            return full[rows]
 
         def mine(x):
             return None if x is None else x[rows]
 
         local = self.scene.sample(
-            rows.stop - rows.start, noise_fn=noise_fn, clip_denoised=self.clip_denoised,
+            rows.stop - rows.start, generator=generator, shard=(self.mesh.data_rank, self.n_data),
+            clip_denoised=self.clip_denoised,
             fused=self.fused, ddim=self.ddim, ddim_steps=self.ddim_steps, dpm=self.dpm,
             dpm_steps=self.dpm_steps, text_emb=mine(text_emb),
             partial_boxes=mine(partial_boxes), input_boxes=mine(input_boxes))

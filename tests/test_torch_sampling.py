@@ -141,27 +141,6 @@ def _sample_matches_jax(time_num, fused, n_draws, net=None, atol=1e-4, **kwargs)
     return scene, jscene, got
 
 
-def test_rows_sample_chain_matches_jax():
-    scene, jscene, got = _sample_matches_jax(5, "rows", 5)
-    parts = scene.split_samples(torch.from_numpy(got))
-    jparts = jscene.split_samples(jnp.asarray(got))
-    assert parts.keys() == jparts.keys()
-    for k_ in parts:
-        assert np.array_equal(parts[k_].numpy(), np.asarray(jparts[k_])), k_
-
-
-@pytest.mark.parametrize("sampler,time_num,n_draws,kwargs", [
-    ("ddpm", 5, 5, {}),
-    # DDIM walks a strided subsequence: the FiLM-table gather at
-    # non-contiguous t (JAX tests/test_fused_engine.py:134); one draw a step
-    ("ddim", 8, 4, dict(ddim=True, ddim_steps=4)),
-    # DPM-Solver++ draws x_T only
-    ("dpm", 8, 0, dict(dpm=True, dpm_steps=4)),
-])
-def test_engine_samplers_match_jax(sampler, time_num, n_draws, kwargs):
-    _sample_matches_jax(time_num, True, n_draws, **kwargs)
-
-
 def test_scene_config_from_flagship_yaml_matches_jax():
     with open(FLAGSHIP_YAML) as f:
         network = yaml.safe_load(f)["network"]

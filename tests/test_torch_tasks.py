@@ -1,6 +1,7 @@
 """Parity of the port's scene completion and re-arrangement with the JAX
 package: the partial and arrange condition heads, the task samplers
-(``SceneDiffusion.sample(partial_boxes=..., input_boxes=...)``), the
+(``SceneDiffusion.sample(partial_boxes=..., input_boxes=...)``; completion
+in tests/test_torch_task_completion.py, on this file's models), the
 trajectory loop, the variational-bound sweep, the task losses with their
 gradients and the weight bridge of the new heads.
 
@@ -109,28 +110,6 @@ def _complete_stream(key, shape, partial_shape, steps):
         k, k_noise, k_step = jax.random.split(k, 3)
         out += [_normal(k_noise, partial_shape), _normal(k_step, shape)]
     return out
-
-
-@pytest.mark.parametrize("fused,task", [(False, None), (True, None), (True, "partial")])
-def test_completion_matches_jax(fused, task):
-    """The RePaint splice chain on the same weights and noise stream, the
-    unconditional model through the module and the 3-D engine, and the
-    partial head's model (its zero-padded partial input) through the
-    engine: atol 1e-4, the first P slots the partial boxes bit for bit."""
-    T = 4
-    jscene, params, scene = _models(task, T)
-    partial = _packed(np.random.default_rng(1))[:, :P]
-    key = jax.random.PRNGKey(5)
-    want = np.asarray(jax.jit(lambda p, k, pb: jscene.sample(
-        p, k, batch_size=B, partial_boxes=pb, clip_denoised=True, fused=fused))(
-            params, key, partial))
-    noises = _complete_stream(key, (B, N, 62), partial.shape, T)
-    got = scene.sample(B, clip_denoised=True, fused=fused, noise_fn=_replay(noises),
-                       partial_boxes=torch.from_numpy(partial)).numpy()
-    assert not noises
-    assert got.shape == (B, N, 62) and np.isfinite(got).all()
-    assert np.array_equal(got[:, :P], partial)
-    np.testing.assert_allclose(got, want, atol=SAMPLE_ATOL, rtol=0)
 
 
 @pytest.mark.parametrize("fused", [False, True])

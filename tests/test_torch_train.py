@@ -166,12 +166,6 @@ def two_trainer_steps_against_jax(recipe):
         assert ((diff > 1e-2 * lr + slack + 1e-6).mean()) <= FLIP_SHARE[recipe]
 
 
-def test_two_trainer_steps_match_jax():
-    """The flagship's training block: f32, clip + Adam, step schedule
-    (the b512 recipe's in tests/test_torch_train_b512.py)."""
-    two_trainer_steps_against_jax("flagship")
-
-
 def _tiny(**training):
     """A small scene model (dim 32, 2 levels) on the CPU and its trainer."""
     nk = dict(dim=32, dim_mults=(1, 1), channels=62, objectness_dim=0, class_dim=22,
