@@ -38,9 +38,10 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    torch.cdist times;
 6. the shape autoencoder's training path at full width (the
    bed_living_diningrooms_lat32 config: latent 32, B=16, 2048 points, Adam
-   1e-4, clip 10): one step with the kernel against the same step with the
-   plain version, then 30 train steps on 16 synthetic box-surface clouds
-   from the seed (finite, falling loss, 2 chamfer-kernel launches a step,
+   1e-4, clip 10), eagerly (graph=False: phase 25 holds the graphed step
+   to it): one step with the kernel against the same step with the plain
+   version, then 30 train steps on 16 synthetic box-surface clouds from
+   the seed (finite, falling loss, 2 chamfer-kernel launches a step,
    directed_nn.launches), then encoding 64 clouds, then torch.profiler over
    5 more steps (device busy time, idle share, the kernels that take most,
    B3's share);
@@ -101,13 +102,15 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    card against the same step on the CPU on the first CARD_CPU_B (32)
    scenes of a batch (the loss, every loss term, the
    gradient norm and every parameter's gradient, same t and noise), then
-   30 steps on the card (finite, falling loss, the median host-clock
+   20 steps on the card (finite, falling loss, the median host-clock
    ms/step around train_step and its one metrics transfer, peak memory),
    then torch.profiler over 5 steps (busy time, idle share, top kernels);
+   the trainer runs eagerly (graph=False), and phase 25 holds a graphed
+   trainer to these steps;
 13. the b512 recipe (bf16, ws_fast_vjp, fused Adam with bf16 moments, bf16
    gradients and EMA, B=512): one step's gradients with ws_fast_vjp against
    the same step without it, then 20 finite steps, ms/step, peak memory and
-   the profile as in 12;
+   the profile as in 12, eagerly (phase 25's twin as in 12);
 14. the entry points: cli/train_diffusion.py on the b512 config (its EMA)
    for 3 epochs of the synthetic dataset, writing checkpoints, then
    cli/generate_diffusion.py --fused --dpm on its checkpoint with the EMA
@@ -210,10 +213,11 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    RAdam + warmup_cosine for 12 steps, --async_checkpoints and a
    --profile_dir window of REST_PROFILE_STEPS steps (its epoch-1
    checkpoint written by the background thread, the trace's bytes and
-   kernel events), then SGD + lambda and AdamW + step for 4 steps each
-   (median ms/step, peak memory); each loader's batches/s alone; an async
-   save of a card trainer's state equal to a blocking one while the next
-   step updates it; (b) cli/generate_diffusion.py --fused --dpm at B=256
+   kernel events), then SGD + lambda for 4 steps (median ms/step, peak
+   memory; AdamW + step, cut here for the script's time, takes the
+   async-save trainer's steps); each loader's batches/s alone; an async
+   save of a card trainer's state (AdamW + step) equal to a blocking one
+   while the next step updates it; (b) cli/generate_diffusion.py --fused --dpm at B=256
    from (a)'s checkpoint with --profile_dir: exactly 560 B1 and 20 B2
    launches, every one in the trace; (c) the flagship with a learned
    Fourier time embedding, DDPM over a REST_FOURIER_STEPS-step schedule at
@@ -321,13 +325,38 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    (not repeated); each case's wall times, the warm step's and the
    capture's seconds, peak memory, and the graphed and eager step against
    the step's device-busy time (the step replayed from a graph of 20): the
-   idle share each leaves.
+   idle share each leaves;
+25. every train step from a CUDA graph (the default of Trainer and
+   AETrainer on the card: a step's first call of a batch shape eagerly on
+   a side stream, its second captured, replays after), each held to a
+   graph=False twin from the same seed and state: the flagship at B=128
+   f32 and the b512 recipe at B=512 bf16 through phases 12's and 13's
+   calls (their eager runs are the twins: the given-t step, then each
+   batch of the data pipeline); the flagship's calls again through
+   train_step_scan in chunks of GRAPH_SCAN_K, and through a checkpoint
+   written after GRAPH_RESUME_AT graphed steps and loaded into a new
+   trainer; parameters, EMA, Adam moments and generator state after the
+   last step bit-equal expected (GRAPH_TOL the gate, as in 24), every
+   step's metrics equal; the shape AE at B=16 on phase 6's clouds, the
+   graphed trainer loading phase 6's eager state before each of its first
+   AE_GRAPH_STEPS steps (its backward's atomics part two trajectories;
+   AE_GRAPH_TOL states the bounds of one step, and a second eager trainer
+   from the same states is printed beside it), exactly 2 chamfer-kernel
+   launches a step under replay; the room-mask flagship at B=128 and the
+   flagship with grad_accum 2 against eager twins of their own over
+   GRAPH_TRAIN_STEPS steps of random encoded scenes (random rectangles as
+   masks); no prepared kernel operand made in any case.  Each case prints
+   the graphed and eager ms/step, the warm step's and each capture's
+   seconds and peak memory; the flagship, b512, AE and room-mask cases a
+   profile of 5 graphed steps: busy time, and the idle share of the
+   graphed and of the eager step.
 
 The phases run in the order 1, 2, 7, 8, 3 with 9 (one set of full-width
-models), 4, 10, 11, 15, 24, 22, 23, 5, 6, 12, 13, 14, 21, 16, 17, 18, 19,
-20 (phase 24's task and text cases in 16 and 17).  The samples of the
+models), 4, 10, 11, 15, 24, 22, 23, 5, 6, 12, 13, 14, 25, 21, 16, 17, 18,
+19, 20 (phase 24's task and text cases in 16 and 17).  The samples of the
 other phases whose steps are not gated run from graphs too, with the same
-launch counts.
+launch counts, and so do the train steps of every phase but 6, 12 and 13
+(and the distributed ones of 21, which run eagerly).
 TF32 is off for every matmul and
 convolution (the references are f32; the f32 B1 kernel's split TF32 is
 three tf32 products per f32 product, not TF32 matmul).
@@ -354,11 +383,16 @@ line), ``--only-tasks`` phases 1 and 16 (with the tasks JSON line) and
 ``--only-parallel`` phases 1 and 21 (with the parallel JSON line) and
 ``--only-wide`` phases 1 and 22 (with the wide JSON line) and
 ``--only-wide-chain`` phases 1 and 23 (with the wide_chain JSON line) and
-``--only-graph`` phases 1 and 24 (with the graph JSON line);
+``--only-graph`` phases 1 and 24 (with the graph JSON line) and
+``--only-train-graph`` phases 1, 6, 12, 13 (its eager twins) and 25 (with
+the train_graph JSON line);
 none of them prints an ok line.
 
 The line before the last is the card's name and power limit again, the one
 before it a JSON summary of the kernels, the one before that a JSON
+summary of phase 25 ("train_graph": each case's agreement with its twin,
+graphed and eager ms/step, warm and capture seconds, peak memory, busy
+time and idle shares, the AE's launches), the one before that a JSON
 summary of phase 24 ("graph": each case's launches, bit-equality and
 largest difference, wall times, warm and capture seconds, step times,
 busy time, idle shares and peak memory), the one before that a JSON
@@ -421,7 +455,8 @@ DDPM-1000) and on phase 23's other samples, their worst error, the times
 and bound of the dim-1024 model's 19 chains (8 groups), the 19 chains'
 graph-replay time at each (C, groups) of the set and the C=512 8-group
 chains on both kernels; the chain, ResnetBlock and set-attention entries
-carry phase 24's graphed samples' launches ("graph_launches").  The
+carry phase 24's graphed samples' launches ("graph_launches"), the
+chamfer entry phase 25's graphed AE steps' ("graph_launches").  The
 last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -630,9 +665,11 @@ DATA_EXTRACTOR_F64_TOL, DATA_EXTRACTOR_GRAD_TOL = 1e-10, 1e-2
 # synthetic rooms (576 in train + val: 4 batches of 128 an epoch) with each
 # optimizer and schedule no shipped config selects: RAdam + warmup_cosine
 # for 3 epochs (12 steps) with --async_checkpoints and a --profile_dir
-# window of REST_PROFILE_STEPS steps, SGD + lambda and AdamW + step for one
-# epoch each; generate --fused --dpm at B=256 from its checkpoint with a
-# trace; the flagship with a learned Fourier time embedding sampled by
+# window of REST_PROFILE_STEPS steps, SGD + lambda for one epoch (AdamW +
+# step trained one epoch here too until it was cut for the script's time;
+# it takes the async-save trainer's steps); generate --fused --dpm at
+# B=256 from its checkpoint with a trace; the flagship with a learned
+# Fourier time embedding sampled by
 # DDPM over a REST_FOURIER_STEPS-step schedule at B=64 through both
 # engines; a dim_mults (1, 2) model of dim 64 through the module forward;
 # the weights' export to the reference layout and back
@@ -642,8 +679,8 @@ REST_OPTIMIZERS = (
                "min_lr": 1e-6}, 3),
     ("sgd", {"optimizer": "SGD", "momentum": 0.9, "schedule": "lambda", "start_epoch": 1,
              "lr_decay": 0.9}, 1),
-    ("adamw", {"optimizer": "Adam", "weight_decay": 0.01}, 1),
 )
+REST_ASYNC_TRAINING = {"optimizer": "Adam", "weight_decay": 0.01}
 REST_PROFILE_STEPS, REST_LOADER_EPOCHS = 3, 2
 REST_FOURIER_STEPS, REST_FOURIER_B = 250, 64
 REST_MULTS_DIM, REST_MULTS_STEPS, REST_MULTS_B = 64, 50, 16
@@ -757,6 +794,25 @@ WIDE_CHAIN_EARLIER_MS = {"float32": 0.843, "bfloat16": 0.460}
 # noise every step
 GRAPH_TOL = {"float32": 1e-6, "bfloat16": FORWARD_TOL["bfloat16"]}
 GRAPH_DDIM_STEPS, GRAPH_DDIM_ETA = 50, 0.5
+# phase 25, the train steps from CUDA graphs, each held to a graph=False twin
+# from the same seed and state (the phase's docstring above): the scene
+# steps run the same kernels on the same inputs, so GRAPH_TOL gates them
+# (bit-equal expected); GRAPH_SCAN_K steps a train_step_scan call, the
+# checkpoint after GRAPH_RESUME_AT steps, GRAPH_TRAIN_STEPS steps of the
+# room-mask and grad_accum twins, AE_GRAPH_STEPS lockstep AE steps.  The
+# AE's backward sums with index_add_ atomics in a varying order, so one
+# step from one state differs between two runs, eager or graphed: the
+# forward's values (the loss terms, the BatchNorm running moments) within
+# 1e-6 relative (bit-equal expected: the forward has no atomics), the
+# gradient norm and each Adam moment (mu, nu: the whole buffer) within 1e-5
+# relative (L2), every parameter within 2.05 lr and all but 5e-3 of them
+# within 1e-2 lr (an element whose gradient is rounding noise moves by up to
+# lr either way, as PAR_STEP_TOL says of one Adam step; the AE's first steps
+# have more such elements than the flagship's)
+GRAPH_SCAN_K, GRAPH_RESUME_AT, GRAPH_TRAIN_STEPS, AE_GRAPH_STEPS = 4, 5, 10, 10
+AE_GRAPH_TOL = {"loss": 1e-6, "buffers": 1e-6, "gradnorm": 1e-5, "moments": 1e-5,
+                "max_lr": 2.05, "loose_lr": 1e-2, "loose_share": 5e-3}
+TRAIN_GRAPH_OUT = "build/smoke_train_graph"
 # the seed of checked_sample's generator, which the full run's phase 24
 # task and text cases share to hold their graphs to the gated samples
 CHECKED_SEED = SEED + 6
@@ -765,7 +821,8 @@ ROWS_SAMPLE_SEED, ENGINE_SAMPLE_SEED = SEED + 2, SEED + 3
 # the short checks: phase 1 and one kernel's phase, no ok line
 ONLY = ("--only-resblock", "--only-chain", "--only-attention", "--only-chamfer", "--only-train",
         "--only-f32-engine", "--only-tasks", "--only-text", "--only-eval", "--only-data",
-        "--only-rest", "--only-parallel", "--only-wide", "--only-wide-chain", "--only-graph")
+        "--only-rest", "--only-parallel", "--only-wide", "--only-wide-chain", "--only-graph",
+        "--only-train-graph")
 
 
 def card_line():
@@ -1802,19 +1859,51 @@ def box_clouds(n_clouds, n_points, seed):
     return out
 
 
-def phase_autoencoder(ch, torch):
-    """The shape autoencoder's training path at full width on the card."""
-    import copy
-
+def ae_trainer(torch, graph=None):
+    """The shape AE's trainer at full width on the card, weights from the
+    seed, and its config."""
     from diffuscene_tpu_torch.models.autoencoder import build_autoencoder
     from diffuscene_tpu_torch.train.ae_trainer import AETrainer
     from diffuscene_tpu_torch.utils.config import load_config
 
     cfg = load_config(AE_CONFIG)
-    batch = int(cfg["training"]["batch_size"])
     model = build_autoencoder(cfg["network"], device=DEV)
-    trainer = AETrainer(model, cfg["training"], device=DEV,
+    trainer = AETrainer(model, cfg["training"], device=DEV, graph=graph,
                         steps_per_epoch=int(cfg["training"]["steps_per_epoch"])).init(SEED)
+    return trainer, cfg
+
+
+def ae_steps(torch, trainer, clouds, n, twin=None):
+    """``n`` AE train steps on ``clouds`` -> (each step's metrics, host-clock
+    seconds); with ``twin`` (a dict), the trainer's state before and after
+    each of the first AE_GRAPH_STEPS steps (device copies, taken outside the
+    timed region) and their metrics go into it, for phase 25."""
+    import copy
+
+    out, times = [], []
+    if twin is not None:
+        twin.update(clouds=clouds, before=[], after=[], metrics=[])
+    for i in range(n):
+        kept = twin is not None and i < AE_GRAPH_STEPS
+        if kept:
+            twin["before"].append(copy.deepcopy(trainer.state_dict()))
+        t0 = time.perf_counter()
+        m = trainer.train_step(clouds)           # ends in one host transfer
+        times.append(time.perf_counter() - t0)
+        out.append(m)
+        if kept:
+            twin["after"].append(copy.deepcopy(trainer.state_dict()))
+            twin["metrics"].append(m)
+    return out, times
+
+
+def phase_autoencoder(ch, torch, twin=None):
+    """The shape autoencoder's training path at full width on the card,
+    eagerly; ``twin`` (a dict) receives phase 25's twin (ae_steps)."""
+    import copy
+
+    trainer, cfg = ae_trainer(torch, graph=False)
+    model, batch = trainer.model, int(cfg["training"]["batch_size"])
     clouds = trainer.put_batch(box_clouds(batch, AE_POINTS, SEED + 20))
 
     # one step with the kernel vs the same step with the plain version
@@ -1848,12 +1937,8 @@ def phase_autoencoder(ch, torch):
     # the main path: 30 full-width train steps, every chamfer on the kernel
     torch.cuda.synchronize()
     ch.directed_nn.launches = 0
-    losses, times = [], []
-    for _ in range(AE_STEPS):
-        t0 = time.perf_counter()
-        m = trainer.train_step(clouds)           # ends in one host transfer
-        times.append(time.perf_counter() - t0)
-        losses.append(m["loss"])
+    ms, times = ae_steps(torch, trainer, clouds, AE_STEPS, twin)
+    losses, m = [v["loss"] for v in ms], ms[-1]
     launches = ch.directed_nn.launches
     finite = all(math.isfinite(v) for v in losses)
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
@@ -1881,13 +1966,17 @@ def phase_autoencoder(ch, torch):
         raise RuntimeError("the encoded latents are malformed")
     profile_steps(torch, lambda: trainer.train_step(clouds), AE_PROFILE_STEPS, step_ms,
                   named=(("B3", "chamfer_nn_sm90"),))
+    if twin is not None:
+        twin["ms_per_step"] = step_ms
     return launches
 
 
-def scene_trainer(torch, config_path, device, data_dir):
-    """A config's scene model and Trainer on ``device``, weights from the
+def scene_trainer(torch, config_path, device, data_dir, graph=None, ds=None, training=None):
+    """A config's scene model and Trainer (``graph`` as Trainer takes it;
+    ``training`` keys over the config's) on ``device``, weights from the
     seed, and its train split of the synthetic dataset at ``data_dir``
-    through the copied data pipeline."""
+    through the copied data pipeline (``ds``, when given, is that split,
+    made already)."""
     from diffuscene_tpu_torch.data.factory import (apply_text_emb_dim_default,
                                                    get_dataset_raw_and_encoded)
     from diffuscene_tpu_torch.models import SceneDiffusion, SceneModelConfig
@@ -1897,15 +1986,17 @@ def scene_trainer(torch, config_path, device, data_dir):
     cfg = apply_text_emb_dim_default(load_config(config_path))
     data = dict(cfg["data"], dataset_directory=data_dir,
                 annotation_file=os.path.join(data_dir, "splits.csv"))
-    _, ds = get_dataset_raw_and_encoded(
-        data, augmentations=data.get("augmentations"), split=cfg["training"]["splits"],
-        seed=SEED, keep_room_layout=bool(cfg["network"].get("room_mask_condition")))
+    if ds is None:
+        _, ds = get_dataset_raw_and_encoded(
+            data, augmentations=data.get("augmentations"), split=cfg["training"]["splits"],
+            seed=SEED, keep_room_layout=bool(cfg["network"].get("room_mask_condition")))
     batch = int(cfg["training"]["batch_size"])
     scene = SceneDiffusion(SceneModelConfig.from_config(cfg["network"],
                                                         cfg.get("feature_extractor")),
                            bounds=ds.bounds.as_device_bounds(), device=device)
-    trainer = Trainer(scene, cfg["training"], steps_per_epoch=max(len(ds) // batch, 1),
-                      device=device).init(SEED)
+    trainer = Trainer(scene, dict(cfg["training"], **(training or {})),
+                      steps_per_epoch=max(len(ds) // batch, 1), device=device,
+                      graph=graph).init(SEED)
     return ds, batch, trainer
 
 
@@ -1936,22 +2027,29 @@ def grad_rel_l2(a, b):
     return per[worst], worst, math.sqrt(num / den)
 
 
-def train_steps(torch, trainer, batches, n, label):
+def train_steps(torch, trainer, batches, n, label, twin=None):
     """``n`` train steps on the card through the data pipeline: finite,
     host-clock ms a step (the median, around train_step and its one metrics
-    transfer), peak memory."""
+    transfer), peak memory.  With ``twin`` (a dict), the host batches, each
+    step's metrics, the state after the last step (train_state), the
+    median and the peak go into it, for phase 25."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    losses, times = [], []
+    losses, times, hosts, ms = [], [], [], []
     for _ in range(n):
-        batch = trainer.put_batch(next(batches))
+        hosts.append(next(batches))
+        batch = trainer.put_batch(hosts[-1])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = trainer.train_step(batch)
         times.append(time.perf_counter() - t0)
         losses.append(m["loss"])
+        ms.append(m)
     peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
     step_ms = 1e3 * sorted(times)[len(times) // 2]
+    if twin is not None:
+        twin.update(hosts=hosts, metrics=ms, state=train_state(torch, trainer),
+                    ms_per_step=step_ms, peak_gb=peak_gb)
     finite = all(math.isfinite(v) for v in losses)
     first, last = sum(losses[:5]) / 5, sum(losses[-5:]) / 5
     print(f"{label}: {n} steps: loss first5 {first:.5f} last5 {last:.5f} finite={finite} "
@@ -1962,14 +2060,16 @@ def train_steps(torch, trainer, batches, n, label):
     return batch, step_ms, peak_gb, first, last
 
 
-def phase_train_flagship(torch, data_dir):
+def phase_train_flagship(torch, data_dir, twin=None):
     """Phase 12: the flagship's train step on the card against the same step
-    on the CPU (CARD_CPU_B scenes), then 30 steps at B=128 on the card and
-    a profile of 5."""
+    on the CPU (CARD_CPU_B scenes), then FLAGSHIP_STEPS steps at B=128 on
+    the card and a profile of 5, eagerly; ``twin`` (a dict) receives phase
+    25's twin: the given step's inputs and train_steps' record."""
     from diffuscene_tpu_torch.data.loader import DataLoader
 
-    ds, bsz, card = scene_trainer(torch, FLAGSHIP_CONFIG, DEV, data_dir)
-    _, _, cpu = scene_trainer(torch, FLAGSHIP_CONFIG, "cpu", data_dir)
+    ds, bsz, card = scene_trainer(torch, FLAGSHIP_CONFIG, DEV, data_dir, graph=False)
+    t0 = time.perf_counter()
+    _, _, cpu = scene_trainer(torch, FLAGSHIP_CONFIG, "cpu", data_dir, ds=ds)
     batches = DataLoader(ds, bsz, shuffle=True, seed=SEED).infinite()
     host, t, noise = card_cpu_inputs(torch, next(batches), SEED + 30, 62)
     dev_args = (card.put_batch(host), t.to(DEV), noise.to(DEV))
@@ -1980,11 +2080,17 @@ def phase_train_flagship(torch, data_dir):
     del grads_c, grads_p
     m_c = card.train_step(dev_args[0], t=dev_args[1], noise=dev_args[2])
     m_p = cpu.train_step(cpu_args[0], t=t, noise=noise)
+    cpu_s = time.perf_counter() - t0
+    if twin is not None:
+        twin.update(config=FLAGSHIP_CONFIG, data_dir=data_dir, first=(host, t, noise),
+                    first_metrics=m_c)
     rel = {k: abs(m_c[k] - m_p[k]) / max(abs(m_p[k]), 1e-12) for k in m_p}
     rel_loss = max(v for k, v in rel.items() if k.startswith("loss"))
     ok = (rel_loss <= TRAIN_STEP_TOL["loss"] and rel["gradnorm"] <= TRAIN_STEP_TOL["gradnorm"]
           and worst <= TRAIN_STEP_TOL["grad_rel_l2"])
-    print(f"train flagship, card vs cpu (B={CARD_CPU_B}, f32, TF32 off): loss {m_c['loss']:.7f} vs "
+    print(f"train flagship, card vs cpu (B={CARD_CPU_B}, f32, TF32 off; the comparison "
+          f"{cpu_s:.1f} s, most of it the CPU trainer's build, gradients and step): loss "
+          f"{m_c['loss']:.7f} vs "
           f"{m_p['loss']:.7f} (get_loss {loss_c:.7f} vs {loss_p:.7f}), gradnorm "
           f"{m_c['gradnorm']:.6f} vs {m_p['gradnorm']:.6f}, worst relative loss-term "
           f"difference {rel_loss:.3e}, gradient relative L2: worst parameter {worst:.3e} "
@@ -1995,9 +2101,9 @@ def phase_train_flagship(torch, data_dir):
                            f"gradients {worst} at {card.names[at]}")
     del cpu, cpu_args
 
-    # the main path: 30 steps through the data pipeline
+    # the main path: FLAGSHIP_STEPS steps through the data pipeline
     batch, step_ms, peak_gb, first, last = train_steps(torch, card, batches, FLAGSHIP_STEPS,
-                                                       "train flagship")
+                                                       "train flagship", twin)
     if not last < first:
         raise RuntimeError(f"the flagship loss did not fall: first5 {first}, last5 {last}")
     prof = profile_steps(torch, lambda: card.train_step(batch), TRAIN_PROFILE_STEPS, step_ms)
@@ -2009,14 +2115,17 @@ def phase_train_flagship(torch, data_dir):
             "top_kernels": prof["top"]}
 
 
-def phase_train_b512(torch, data_dir):
+def phase_train_b512(torch, data_dir, twin=None):
     """Phase 13: the b512 recipe (bf16, ws_fast_vjp, bf16 moments, gradients
     and EMA, B=512): one step's gradients with ws_fast_vjp against the same
-    step without it, then 20 steps and a profile of 5."""
+    step without it, then 20 steps and a profile of 5, eagerly; ``twin`` as
+    in phase 12 (no given step)."""
     from diffuscene_tpu_torch.data.loader import DataLoader
     from diffuscene_tpu_torch.models.denoiser import WSConv1x1
 
-    ds, bsz, tr = scene_trainer(torch, B512_CONFIG, DEV, data_dir)
+    ds, bsz, tr = scene_trainer(torch, B512_CONFIG, DEV, data_dir, graph=False)
+    if twin is not None:
+        twin.update(config=B512_CONFIG, data_dir=data_dir, first=None, first_metrics=None)
     batches = DataLoader(ds, bsz, shuffle=True, seed=SEED).infinite()
     g = torch.Generator().manual_seed(SEED + 31)
     args = (tr.put_batch(next(batches)), torch.randint(0, T, (bsz,), generator=g).to(DEV),
@@ -2045,7 +2154,7 @@ def phase_train_b512(torch, data_dir):
         raise RuntimeError("the b512 recipe's moments or EMA are not bf16")
 
     batch, step_ms, peak_gb, first, last = train_steps(torch, tr, batches, B512_STEPS,
-                                                       "train b512")
+                                                       "train b512", twin)
     prof = profile_steps(torch, lambda: tr.train_step(batch), TRAIN_PROFILE_STEPS, step_ms)
     return {"config": B512_CONFIG, "B": bsz, "dtype": "bfloat16", "steps": B512_STEPS,
             "ms_per_step": step_ms, "busy_ms": prof["busy_ms"], "idle_share": prof["idle_share"],
@@ -2119,8 +2228,9 @@ def phase_cli(torch, data_dir, out_dir, card):
             "categorical_kl": saved["categorical_kl"]}
 
 
-def phase_train(torch, card):
-    """Phases 12-14 on a synthetic cached dataset made from the seed."""
+def train_data():
+    """The synthetic cached dataset of phases 12-14 and 25, made from the
+    seed."""
     import shutil
 
     from diffuscene_tpu_torch.data import make_synthetic_cached_dataset
@@ -2129,11 +2239,21 @@ def phase_train(torch, card):
         shutil.rmtree(d, ignore_errors=True)
     os.makedirs(TRAIN_OUT)
     make_synthetic_cached_dataset(TRAIN_DATA, n_scenes=TRAIN_SCENES, seed=SEED)
-    out = {"card": card, "flagship": phase_train_flagship(torch, TRAIN_DATA)}
+
+
+def phase_train(torch, card, twins=None, cli=True):
+    """Phases 12-14 on the synthetic cached dataset; ``twins`` (a dict)
+    receives phases 12's and 13's twins for phase 25 ("flagship", "b512");
+    without ``cli``, phase 14 is left out."""
+    twins = {} if twins is None else twins
+    twins.update(flagship={}, b512={})
+    train_data()
+    out = {"card": card, "flagship": phase_train_flagship(torch, TRAIN_DATA, twins["flagship"])}
     torch.cuda.empty_cache()
-    out["b512"] = phase_train_b512(torch, TRAIN_DATA)
+    out["b512"] = phase_train_b512(torch, TRAIN_DATA, twins["b512"])
     torch.cuda.empty_cache()
-    out["cli"] = phase_cli(torch, TRAIN_DATA, TRAIN_OUT, card)
+    if cli:
+        out["cli"] = phase_cli(torch, TRAIN_DATA, TRAIN_OUT, card)
     return out
 
 
@@ -3223,6 +3343,7 @@ def phase_data_train(torch, cfg_path, card):
                            f"{ext_tol['bad']}; zero gradients: {zero}")
     # a card step's device time at B=bsz, and the extractor's share of it
     dev_batch = dev.put_batch(full)
+    dev.train_step(dev_batch)      # the step's warm call: host_ms's own first call captures it
     step_ms = host_ms(torch, lambda: dev.train_step(dev_batch), 3)
     prof = profile_steps(torch, lambda: dev.train_step(dev_batch), TRAIN_PROFILE_STEPS, step_ms)
     rl = dev_batch["room_layout"]
@@ -3545,7 +3666,7 @@ def phase_rest_train(torch, card, numpy_ms=None):
           f"ms, so the native loader needs {1e3 / rates['native']:.1f} ms a batch", flush=True)
 
     # an async save against a blocking one, the trainer stepping on meanwhile
-    _, bsz, tr = scene_trainer(torch, rest_config("rest_async.yaml", REST_OPTIMIZERS[2][1]),
+    _, bsz, tr = scene_trainer(torch, rest_config("rest_async.yaml", REST_ASYNC_TRAINING),
                                DEV, REST_DATA)
     batches = PackedDataLoader(raw, ds.bounds, ds.max_length, ds.n_classes, bsz,
                                seed=SEED).infinite()
@@ -5110,6 +5231,375 @@ def phase_graph(torch, card, tasks=True, eager=None):
     return out
 
 
+def train_state(torch, trainer):
+    """A scene trainer's state on the host: its flat parameters, EMA and Adam
+    moments (each in its dtype), its accumulator and generator state."""
+    from diffuscene_tpu_torch.train.optim import flatten
+
+    return {"params": flatten([p.detach() for p in trainer.params]).cpu(),
+            "ema": None if trainer._ema is None else trainer._ema.cpu(),
+            "moments": trainer.opt._moments.cpu(),
+            "acc": None if trainer.acc is None else trainer.acc.cpu(),
+            "generator": trainer.generator.get_state()}
+
+
+def state_apart(torch, got, want):
+    """(bit-equal, the largest absolute difference) of two train_states; the
+    generator states must be equal (the graph draws in the eager step's
+    order), else this raises."""
+    if not torch.equal(got["generator"], want["generator"]):
+        raise RuntimeError("graph train: the generator state after the graphed steps is not "
+                           "the eager twin's")
+    equal, worst = True, 0.0
+    for k, w in want.items():
+        g = got[k]
+        if w is None or g is None:
+            equal = equal and g is None and w is None
+        elif k != "generator":
+            equal = equal and torch.equal(g, w)
+            worst = max(worst, (g.float() - w.float()).abs().max().item())
+    return equal, worst
+
+
+def graph_costs(trainer):
+    """Each captured variant's warm-step and capture seconds."""
+    return [{"key": str(key), "warm_s": warm, "capture_s": cap}
+            for key, warm, cap in trainer.step_graphs.costs]
+
+
+def costs_text(costs):
+    """graph_costs as (variant, warm s, capture s) triples to print."""
+    return [(c["key"], round(c["warm_s"], 3), c["capture_s"] and round(c["capture_s"], 3))
+            for c in costs]
+
+
+def graph_verdict(label, equal, worst, tol):
+    """The agreement's verdict to print; beyond ``tol`` the phase fails."""
+    verdict = ("bit-equal" if equal else f"NOT bit-equal, within {tol}" if worst <= tol
+               else f"FAIL (tol {tol})")
+    if not worst <= tol:
+        raise RuntimeError(f"graph train {label}: the graphed state is {worst:.3e} from the "
+                           f"eager twin's")
+    return verdict
+
+
+def graph_train_timed(torch, tr, calls):
+    """Each of ``calls`` (functions of the trainer, one train step or scan
+    each) timed on the host clock -> (their metrics, seconds)."""
+    out, times = [], []
+    for call in calls:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out.append(call(tr))
+        times.append(time.perf_counter() - t0)
+    return out, times
+
+
+def graph_scene_case(torch, label, twin, mode, card, ds=None):
+    """Phase 25, the flagship or b512 case: a graphed trainer (the default)
+    through ``twin``'s calls, phase 12's or 13's (its given-t step, then a
+    step a host batch): one train_step a batch ("steps"), train_step_scan
+    over chunks of GRAPH_SCAN_K batches ("scan"), or GRAPH_RESUME_AT steps,
+    a checkpoint written and loaded into a new trainer, then the rest
+    ("resume"); its state after the last call held to the twin's (GRAPH_TOL
+    of the model's dtype), its metrics to the twin's (equal; a scan's
+    within 1e-5 relative of the mean of its steps').  "steps" also
+    profiles TRAIN_PROFILE_STEPS graphed steps.  ``ds`` is the twin's
+    train split, made already (or None).  Returns (the summary, ``ds``)."""
+    import shutil
+
+    from diffuscene_tpu_torch.ops import build
+    from diffuscene_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    made = build.prepared.made
+    ds, _, tr = scene_trainer(torch, twin["config"], DEV, twin["data_dir"], ds=ds)
+    dname = str(tr.scene.denoiser.compute_dtype).split(".")[-1]
+    if not tr.graph:
+        raise RuntimeError(f"graph train {label}: the trainer does not run from a graph")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = []
+    if twin["first"] is not None:
+        host, t, noise = twin["first"]
+        first = [tr.train_step(tr.put_batch(host), t=t.to(DEV), noise=noise.to(DEV))]
+    first_ok = first == ([] if twin["first"] is None else [twin["first_metrics"]])
+    hosts, costs = twin["hosts"], []
+    if mode == "scan":
+        chunks = [hosts[i:i + GRAPH_SCAN_K] for i in range(0, len(hosts), GRAPH_SCAN_K)]
+        ms, times = graph_train_timed(torch, tr, [
+            lambda tr, c=c: tr.train_step_scan(tr.put_batches(c)) for c in chunks])
+        want = [{k: sum(m[k] for m in twin["metrics"][i:i + GRAPH_SCAN_K]) / len(c)
+                 for k in ms[0]} for i, c in zip(range(0, len(hosts), GRAPH_SCAN_K), chunks)]
+        metrics_ok = first_ok and all(abs(g[k] - w[k]) <= 1e-5 * abs(w[k])
+                                      for g, w in zip(ms, want) for k in w)
+    else:
+        split = GRAPH_RESUME_AT if mode == "resume" else len(hosts)
+        calls = [lambda tr, h=h: tr.train_step(tr.put_batch(h)) for h in hosts]
+        ms, times = graph_train_timed(torch, tr, calls[:split])
+        if mode == "resume":
+            shutil.rmtree(TRAIN_GRAPH_OUT, ignore_errors=True)
+            save_checkpoint(tr.state_dict(), TRAIN_GRAPH_OUT, 0)
+            costs = graph_costs(tr)
+            del tr
+            torch.cuda.empty_cache()
+            _, _, tr = scene_trainer(torch, twin["config"], DEV, twin["data_dir"], ds=ds)
+            state, _ = load_checkpoint(TRAIN_GRAPH_OUT)
+            tr.load_state_dict(state)
+            more, more_times = graph_train_timed(torch, tr, calls[split:])
+            ms, times = ms + more, times + more_times
+        metrics_ok = first_ok and ms == twin["metrics"]
+    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    equal, worst = state_apart(torch, train_state(torch, tr), twin["state"])
+    tol = GRAPH_TOL[dname]
+    verdict = graph_verdict(label, equal, worst, tol)
+    costs += graph_costs(tr)
+    # the steps after the first variant's warm step and capture
+    step_ms = 1e3 * sorted(times[2:])[len(times[2:]) // 2] / (GRAPH_SCAN_K if mode == "scan"
+                                                             else 1)
+    res = {"mode": mode, "dtype": dname, "calls": len(times) + len(first),
+           "bit_equal": equal, "max_abs_diff": worst, "metrics_equal": metrics_ok,
+           "graph_ms_per_step": step_ms, "eager_ms_per_step": twin["ms_per_step"],
+           "graph_peak_gb": peak_gb, "eager_peak_gb": twin["peak_gb"], "graphs": costs}
+    print(f"graph train {label} ({mode}), {dname}: graphed vs eager twin after "
+          f"{res['calls']} calls: state {verdict}, max_abs_diff {worst:.3e}; metrics "
+          f"{'equal' if metrics_ok else 'DIFFER'}; ms/step graphed {step_ms:.3f} (median after "
+          f"the warm step and the capture), eager {twin['ms_per_step']:.3f}; peak memory "
+          f"graphed {peak_gb:.2f} GB, eager {twin['peak_gb']:.2f} GB; graphs "
+          f"{costs_text(costs)} "
+          f"| {card}", flush=True)
+    if not metrics_ok:
+        raise RuntimeError(f"graph train {label} ({mode}): metrics {ms} differ from the "
+                           f"twin's {twin['metrics']}")
+    if mode == "steps":
+        batch = tr.put_batch(hosts[-1])
+        prof = profile_steps(torch, lambda: tr.train_step(batch), TRAIN_PROFILE_STEPS, step_ms)
+        busy = prof["busy_ms"]
+        res.update(busy_ms=busy, graph_idle_share=prof["idle_share"],
+                   eager_idle_share=None if busy is None else 1 - busy / twin["ms_per_step"],
+                   top_kernels=prof["top"])
+    if build.prepared.made != made:
+        raise RuntimeError(f"graph train {label}: {build.prepared.made - made} prepared "
+                           f"operands made")
+    del tr
+    torch.cuda.empty_cache()
+    return res, ds
+
+
+def room_graph_trainer(torch, graph):
+    """The flagship at full width as a room-mask model (room_mask_condition,
+    latent_dim and context_dim 64, the config's ResNet18 over 64x64 masks),
+    weights from the seed, on the card, without a dataset (the IoU loss on
+    DRIFT_BOUNDS, as phase 21's)."""
+    from diffuscene_tpu_torch.models import SceneDiffusion, SceneModelConfig
+    from diffuscene_tpu_torch.train.trainer import Trainer
+    from diffuscene_tpu_torch.utils.config import load_config
+
+    cfg = load_config(FLAGSHIP_CONFIG)
+    net = dict(cfg["network"], sample_num_points=12, room_mask_condition=True, latent_dim=64)
+    net["net_kwargs"] = dict(net["net_kwargs"], context_dim=64)
+    scene = SceneDiffusion(SceneModelConfig.from_config(net, cfg.get("feature_extractor")),
+                           bounds=par_bounds(), device=DEV)
+    return Trainer(scene, cfg["training"], device=DEV, graph=graph).init(SEED)
+
+
+def room_graph_batches(torch, n, batch=128):
+    """``n`` random encoded bedroom batches (par_batch) with a room mask a
+    scene: a filled rectangle of random corners on 64x64."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 50)
+    out = []
+    for i in range(n):
+        host, _, _ = par_batch(torch, batch, SEED + 51 + i)
+        masks = np.zeros((batch, 1, 64, 64), np.float32)
+        for m in masks:
+            y0, x0 = rng.integers(2, 20, 2)
+            y1, x1 = rng.integers(44, 62, 2)
+            m[0, y0:y1, x0:x1] = 1.0
+        host["room_layout"] = masks
+        out.append(host)
+    return out
+
+
+def graph_pair_case(torch, label, make, hosts, card, profile=False):
+    """Phase 25, a case with a twin of its own: ``make(graph)``'s trainer
+    eagerly (graph=False) and from graphs (the default) through one step a
+    host batch: the states bit-equal expected (GRAPH_TOL), the metrics
+    equal; each one's median ms/step and peak memory; with ``profile``, a
+    profile of TRAIN_PROFILE_STEPS graphed steps."""
+    from diffuscene_tpu_torch.ops import build
+
+    made = build.prepared.made
+    runs = {}
+    for graph in (False, None):
+        tr = make(graph)
+        if tr.graph != (graph is None):
+            raise RuntimeError(f"graph train {label}: graph={graph} gave graph={tr.graph}")
+        dname = str(tr.scene.denoiser.compute_dtype).split(".")[-1]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, times = graph_train_timed(torch, tr, [
+            lambda tr, h=h: tr.train_step(tr.put_batch(h)) for h in hosts])
+        runs[graph] = {"metrics": ms, "state": train_state(torch, tr),
+                       "ms": 1e3 * sorted(times[2:])[len(times[2:]) // 2],
+                       "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                       "costs": graph_costs(tr)}
+        if graph is None and profile:
+            batch = tr.put_batch(hosts[-1])
+            runs[graph]["prof"] = profile_steps(torch, lambda: tr.train_step(batch),
+                                                TRAIN_PROFILE_STEPS, runs[graph]["ms"])
+        del tr
+        torch.cuda.empty_cache()
+    eager, graphed = runs[False], runs[None]
+    equal, worst = state_apart(torch, graphed["state"], eager["state"])
+    verdict = graph_verdict(label, equal, worst, GRAPH_TOL[dname])
+    metrics_ok = graphed["metrics"] == eager["metrics"]
+    res = {"dtype": dname, "steps": len(hosts), "bit_equal": equal, "max_abs_diff": worst,
+           "metrics_equal": metrics_ok, "graph_ms_per_step": graphed["ms"],
+           "eager_ms_per_step": eager["ms"], "graph_peak_gb": graphed["peak_gb"],
+           "eager_peak_gb": eager["peak_gb"], "graphs": graphed["costs"]}
+    print(f"graph train {label}, {dname}: graphed vs eager over {len(hosts)} steps: state "
+          f"{verdict}, max_abs_diff {worst:.3e}; metrics {'equal' if metrics_ok else 'DIFFER'}; "
+          f"ms/step graphed {graphed['ms']:.3f}, eager {eager['ms']:.3f} (medians after the "
+          f"first two steps); peak memory graphed {graphed['peak_gb']:.2f} GB, eager "
+          f"{eager['peak_gb']:.2f} GB; graphs "
+          f"{costs_text(graphed['costs'])} "
+          f"| {card}", flush=True)
+    if not metrics_ok:
+        raise RuntimeError(f"graph train {label}: metrics {graphed['metrics']} differ from "
+                           f"{eager['metrics']}")
+    if "prof" in graphed:
+        busy = graphed["prof"]["busy_ms"]
+        res.update(busy_ms=busy, graph_idle_share=graphed["prof"]["idle_share"],
+                   eager_idle_share=None if busy is None else 1 - busy / eager["ms"],
+                   top_kernels=graphed["prof"]["top"])
+    if build.prepared.made != made:
+        raise RuntimeError(f"graph train {label}: {build.prepared.made - made} prepared "
+                           f"operands made")
+    return res
+
+
+def ae_apart(torch, tr, want, m_got, m_want, lr):
+    """One AE step's departures from its twin's (AE_GRAPH_TOL's terms):
+    relative metrics, BatchNorm moments and each Adam moment buffer (all
+    parameters' in relative L2), and the parameters in lr (par_apart)."""
+    from diffuscene_tpu_torch.train.optim import flatten
+
+    def flat(slot):
+        return flatten([t.float() for t in slot])
+
+    got = tr.state_dict()
+    names = {n for n, _ in tr.model.named_parameters()}
+    rel = {k: abs(m_got[k] - m_want[k]) / abs(m_want[k]) for k in m_want}
+    buffers = max(((got["model"][k].float() - v.float()).abs().max()
+                   / v.float().abs().max().clamp_min(1e-30)).item()
+                  for k, v in want["model"].items() if k not in names)
+    moments = max(((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+                  for a, b in ((flat(sa), flat(sb)) for sa, sb in
+                               zip(got["optimizer"]["slots"], want["optimizer"]["slots"])))
+    worst, loose = par_apart({k: got["model"][k].float().cpu() for k in names},
+                             {k: want["model"][k].float().cpu() for k in names}, lr, AE_GRAPH_TOL)
+    return {"loss": max(rel[k] for k in ("loss", "loss.cd", "loss.kl")),
+            "gradnorm": rel["gradnorm"], "buffers": buffers, "moments": moments,
+            "max_lr": worst, "loose_share": loose}
+
+
+def graph_ae_case(torch, twin, card):
+    """Phase 25, the shape AE: a graphed trainer (the default) loads phase
+    6's eager state before each of its first AE_GRAPH_STEPS steps and takes
+    the step on the same clouds: each step's departures from the eager one
+    within AE_GRAPH_TOL, exactly 2 chamfer-kernel launches a step, no
+    prepared operand; a second eager trainer through the first steps the
+    same way, printed beside them (two eager steps from one state differ as
+    much); then a profile of AE_PROFILE_STEPS graphed steps."""
+    from diffuscene_tpu_torch.ops import build
+    from diffuscene_tpu_torch.ops import chamfer as ch
+
+    made = build.prepared.made
+    runs = {}
+    for label, graph, n in (("graphed", None, AE_GRAPH_STEPS), ("eager", False, 3)):
+        tr, cfg = ae_trainer(torch, graph=graph)
+        if tr.graph != (graph is None):
+            raise RuntimeError(f"graph train AE: graph={graph} gave graph={tr.graph}")
+        lr = float(cfg["training"]["lr"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ch.directed_nn.launches = 0
+        apart, times = [], []
+        for k in range(n):
+            tr.load_state_dict(twin["before"][k])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = tr.train_step(twin["clouds"])
+            times.append(time.perf_counter() - t0)
+            apart.append(ae_apart(torch, tr, twin["after"][k], m, twin["metrics"][k], lr))
+        runs[label] = {"apart": apart, "launches": ch.directed_nn.launches,
+                       "ms": 1e3 * sorted(times[2:])[len(times[2:]) // 2],
+                       "peak_gb": torch.cuda.max_memory_allocated() / 2 ** 30,
+                       "costs": graph_costs(tr) if graph is None else []}
+        if graph is None:
+            prof = profile_steps(torch, lambda: tr.train_step(twin["clouds"]), AE_PROFILE_STEPS,
+                                 runs[label]["ms"], named=(("B3", "chamfer_nn_sm90"),))
+        del tr
+    graphed, eager = runs["graphed"], runs["eager"]
+    worst = {k: max(a[k] for a in graphed["apart"]) for k in graphed["apart"][0]}
+    witness = {k: max(a[k] for a in eager["apart"]) for k in eager["apart"][0]}
+    bad = {k: v for k, v in worst.items() if k in AE_GRAPH_TOL and v > AE_GRAPH_TOL[k]}
+    if worst["loose_share"] >= AE_GRAPH_TOL["loose_share"]:
+        bad["loose_share"] = worst["loose_share"]
+    busy = prof["busy_ms"]
+    res = {"steps": AE_GRAPH_STEPS, "worst": worst, "eager_witness": witness,
+           "launches": graphed["launches"], "graph_ms_per_step": graphed["ms"],
+           "eager_ms_per_step": twin["ms_per_step"], "graph_peak_gb": graphed["peak_gb"],
+           "graphs": graphed["costs"], "busy_ms": busy,
+           "graph_idle_share": prof["idle_share"],
+           "eager_idle_share": None if busy is None else 1 - busy / twin["ms_per_step"],
+           "b3_ms": prof["named_ms"].get("B3")}
+    print(f"graph train AE, B=16, {AE_POINTS} points: {AE_GRAPH_STEPS} graphed steps, each from "
+          f"phase 6's eager state, against phase 6's step: worst {worst} (tol {AE_GRAPH_TOL}; "
+          f"a second eager trainer the same way over 3 steps: {witness}); chamfer launches "
+          f"{graphed['launches']} (expected {2 * AE_GRAPH_STEPS}); ms/step graphed "
+          f"{graphed['ms']:.3f}, eager {twin['ms_per_step']:.3f} (phase 6); peak memory graphed "
+          f"{graphed['peak_gb']:.2f} GB; graphs "
+          f"{costs_text(graphed['costs'])} "
+          f"{'ok' if not bad else 'FAIL'} | {card}", flush=True)
+    if bad:
+        raise RuntimeError(f"graph train AE: a graphed step departs from the eager one: {bad}")
+    if graphed["launches"] != 2 * AE_GRAPH_STEPS or eager["launches"] != 2 * 3:
+        raise RuntimeError(f"graph train AE: chamfer launches {graphed['launches']} graphed, "
+                           f"{eager['launches']} eager")
+    if build.prepared.made != made:
+        raise RuntimeError(f"graph train AE: {build.prepared.made - made} prepared operands made")
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_train_graph(torch, card, twins):
+    """Phase 25: every train step from a CUDA graph, each case held to its
+    graph=False twin (the docstring's phase 25): ``twins`` holds phases 6's,
+    12's and 13's ("ae", "flagship", "b512").  Returns each case's
+    summary."""
+    t0 = time.perf_counter()
+    flag = twins["flagship"]
+    out, ds = {"card": card}, None
+    for mode in ("steps", "scan", "resume"):
+        out[f"flagship_{mode}"], ds = graph_scene_case(torch, "flagship B=128", flag, mode, card,
+                                                       ds)
+    out["b512"], _ = graph_scene_case(torch, "b512 B=512", twins["b512"], "steps", card)
+    out["ae"] = graph_ae_case(torch, twins["ae"], card)
+    out["room_mask"] = graph_pair_case(
+        torch, "room-mask flagship B=128", lambda graph: room_graph_trainer(torch, graph),
+        room_graph_batches(torch, GRAPH_TRAIN_STEPS), card, profile=True)
+    out["grad_accum2"] = graph_pair_case(
+        torch, "flagship grad_accum 2 B=128",
+        lambda graph: scene_trainer(torch, FLAGSHIP_CONFIG, DEV, flag["data_dir"], graph=graph,
+                                    ds=ds, training={"grad_accum": 2})[2],
+        flag["hosts"][:GRAPH_TRAIN_STEPS], card)
+    out["phase_s"] = time.perf_counter() - t0
+    print(f"graph train: phase 25 took {out['phase_s']:.1f} s | {card}", flush=True)
+    return out
+
+
 def profile_steps(torch, step, n, step_ms, named=()):
     """Where a step's time goes: torch.profiler over ``n`` steady steps;
     device busy time (the sum of the kernels' times, one stream), the idle
@@ -5249,6 +5739,13 @@ def main(argv):
         print(json.dumps({"graph": phase_graph(torch, card)}))
         print(card_line())
         return 0
+    if only == "--only-train-graph":  # the train steps from CUDA graphs: 6, 12, 13 and 25
+        twins = {"ae": {}}
+        phase_autoencoder(ch, torch, twins["ae"])
+        phase_train(torch, card, twins, cli=False)
+        print(json.dumps({"train_graph": phase_train_graph(torch, card, twins)}))
+        print(card_line())
+        return 0
     if only == "--only-f32-engine":  # the flagship config's own dtype: phases 3 + 9 and 15, f32
         scene32 = phase_forward(torch, torch.float32)
         phase_rows_sample(torch, scene32, card)
@@ -5333,16 +5830,24 @@ def main(argv):
     torch.cuda.empty_cache()
 
     cham = phase_chamfer(ch, torch)
-    # the second slice's main path: AE training steps, every chamfer on the kernel
-    cham_launches = phase_autoencoder(ch, torch)
+    # the second slice's main path: AE training steps, every chamfer on the
+    # kernel (eagerly: phase 25 holds the graphed steps to them)
+    twins = {"ae": {}}
+    cham_launches = phase_autoencoder(ch, torch, twins["ae"])
     profiler_tally("phases 5-6")
     mark("phases 5-6")
     torch.cuda.empty_cache()
     # this slice's main path: the scene model's train steps and the train
     # and generate CLIs (B1 and B2 in generate)
-    train = phase_train(torch, card)
+    train = phase_train(torch, card, twins)
     torch.cuda.empty_cache()
     mark("phases 12-14")
+    # this slice's main path: every train step from a CUDA graph, held to
+    # phases 6's, 12's and 13's eager steps and to twins of its own
+    train_graph = phase_train_graph(torch, card, twins)
+    del twins
+    torch.cuda.empty_cache()
+    mark("phase 25")
     # this slice's main paths: the data- and tensor-parallel trainers and
     # the sharded sampler over torch.distributed (B1 and B2, B4 in the
     # samples, B3 in the AE step), and mixed precision beside phase 13's
@@ -5399,6 +5904,7 @@ def main(argv):
     print(json.dumps({"wide": wide}))
     print(json.dumps({"wide_chain": wchain}))
     print(json.dumps({"graph": graphs}))
+    print(json.dumps({"train_graph": train_graph}))
     graph_launches = {k: v["launches"] for k, v in graphs.items() if k != "phase_s"}
     print(json.dumps({"kernels": [{
         "name": "fused_chain",
@@ -5439,6 +5945,7 @@ def main(argv):
         "data_launches": data["pipeline"]["ae_launches"],
         "rest_launches": rest["chamfer_launches"],
         "parallel_launches": {"rank_ae_step": par_launches["gloo_rank"]["ae_step"]["B3"]},
+        "graph_launches": train_graph["ae"]["launches"],
     }, {
         "name": "fused_resblock",
         "route": "cuda",

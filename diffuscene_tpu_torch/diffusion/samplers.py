@@ -19,11 +19,14 @@ body over device tensors, run by :func:`run_steps`:
 
 The same body runs eagerly (on the CPU, and on the card with
 ``graph=False``) or from a CUDA graph (``graph=None``, the default, on a
-CUDA device): the first step runs eagerly, which builds the kernels and
-fills their prepared-operand caches, then one step is captured and
-replayed for the rest (:func:`run_steps`).  A graph and an eager loop of
-the same seed give the same sample.  Under a graph the kernel wrappers'
-launch counters count what the card runs (``ops/build.py:count_launch``).
+CUDA device): the first step runs eagerly on a side stream, which builds
+the kernels and fills their prepared-operand caches, then one step is
+captured on that stream and
+replayed for the rest (:func:`run_steps`, on ``utils/graphs.py``'s
+:class:`GraphedStep` and :func:`use_graph`, which the trainers share).  A
+graph and an eager loop of the same seed give the same sample.  Under a
+graph the kernel wrappers' launch counters count what the card runs
+(``ops/build.py:count_launch``).
 
 Randomness comes from an explicit ``torch.Generator`` (drawn inside the
 step, in the order below, so a graph's replays draw what the eager loop
@@ -58,7 +61,7 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops import build
+from ..utils.graphs import GraphedStep, use_graph
 from .gaussian import model_predictions, p_mean_variance, prior_bpd, q_sample, vb_terms_bpd
 from .schedule import DiffusionSchedule
 
@@ -87,71 +90,18 @@ def p_sample_step(
     return model_mean + nonzero_mask * torch.exp(0.5 * model_log_variance) * noise
 
 
-def use_graph(graph: Optional[bool], device: torch.device,
-              noise_fn: Optional[NoiseFn] = None) -> bool:
-    """Whether a loop on ``device`` runs from a CUDA graph: ``None`` picks
-    the graph on a CUDA device and the eager loop elsewhere or with a
-    ``noise_fn``; ``True`` raises off CUDA or beside a ``noise_fn``."""
-    if graph is None:
-        return device.type == "cuda" and noise_fn is None
-    if graph and noise_fn is not None:
-        raise ValueError("graph=True draws from a generator inside the graph; noise_fn is a "
-                         "host call a step: pass graph=None or False with it")
-    if graph and device.type != "cuda":
-        raise ValueError(f"graph=True needs CUDA tensors; the sampler's are on {device}")
-    return bool(graph)
-
-
-class StepGraph:
-    """One sampling step captured into a CUDA graph on a side stream, for
-    :func:`run_steps`: ``generator`` is registered with the graph, the
-    kernel launches of the capture are tallied (``build.launch_tally``) and
-    each :meth:`replay` adds them to the wrappers' counters.  A capture
-    that made a prepared kernel operand raises (``build.prepared.made``
-    moved: it would live in the graph's memory and be made again at every
-    replay), as does any failure of the capture.  :meth:`close` frees the
-    graph and its memory pool.  ``capture_s`` is the capture's and the
-    instantiation's seconds."""
-
-    def __init__(self, step: Callable[[], None], device: torch.device,
-                 generator: Optional[torch.Generator]):
-        made = build.prepared.made
-        t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            if generator is not None:
-                self.graph.register_generator_state(generator)
-            with build.launch_tally() as self.tally:
-                with torch.cuda.graph(self.graph):
-                    step()
-            torch.cuda.synchronize(device)
-            if build.prepared.made != made:
-                raise RuntimeError(f"capturing a sampling step made {build.prepared.made - made}"
-                                   f" prepared kernel operands that the eager step did not")
-        except BaseException:
-            self.close()
-            raise
-        self.capture_s = time.perf_counter() - t0
-
-    def replay(self) -> None:
-        self.graph.replay()
-        build.add_tally(self.tally)
-
-    def close(self) -> None:
-        self.graph.reset()
-
-
 def run_steps(body: Callable[[torch.Tensor], None], n: int, device: torch.device,
               graph: bool, generator: Optional[torch.Generator] = None) -> None:
     """Run ``body(i)`` for the steps 0 .. n-1, ``i`` a (1,) int64 step counter
     on ``device`` that is advanced on the device after each step.  Eagerly,
-    or with ``graph`` as a CUDA graph: the first step eagerly (it builds
-    the kernels, fills the prepared operands and warms the libraries), then
-    the step captured once (:class:`StepGraph`) and replayed n - 1 times.
-    A failed capture or replay raises; the graph and its memory are freed
-    before this returns.  ``run_steps.last`` holds the last graph's costs:
-    the warm step's, the capture's and the replays' seconds, each ending in
-    a synchronize, and the number of replays."""
+    or with ``graph`` from a CUDA graph (:class:`GraphedStep`): the first
+    step eagerly on a side stream (it builds the kernels, fills the
+    prepared operands and warms the libraries), then the step captured once
+    and replayed n - 1 times.  A failed capture or replay raises; the graph
+    and its memory are freed before this returns.  ``run_steps.last`` holds
+    the last graph's costs: the warm step's and the capture's seconds, the
+    replays' (the calls after the warm step to a synchronize, less the
+    capture's), and the number of replays."""
     i = torch.zeros(1, dtype=torch.long, device=device)
 
     def step():
@@ -162,20 +112,18 @@ def run_steps(body: Callable[[torch.Tensor], None], n: int, device: torch.device
         for _ in range(n):
             step()
         return
-    t0 = time.perf_counter()
-    step()
-    torch.cuda.synchronize(device)
-    warm_s = time.perf_counter() - t0
-    step_graph = StepGraph(step, device, generator)
-    t0 = time.perf_counter()
+    graphed = GraphedStep(step, device, generator)
     try:
+        graphed()
+        t0 = time.perf_counter()
         for _ in range(n - 1):
-            step_graph.replay()
+            graphed()
         torch.cuda.synchronize(device)
+        after_warm_s = time.perf_counter() - t0
     finally:
-        step_graph.close()
-    run_steps.last = {"warm_s": warm_s, "capture_s": step_graph.capture_s, "replays": n - 1,
-                      "replay_s": time.perf_counter() - t0}
+        graphed.close()
+    run_steps.last = {"warm_s": graphed.warm_s, "capture_s": graphed.capture_s, "replays": n - 1,
+                      "replay_s": after_warm_s - graphed.capture_s}
 
 
 run_steps.last = None

@@ -18,9 +18,25 @@ before the clip.
 
 The trainer owns the model and the optimizer state; it runs on the card
 unless it is asked for the CPU, and moves the model there.
+
+A train step is one body over device buffers (:meth:`AETrainer._body`:
+the gradients zeroed, the forward, the backward, the clip and Adam, the
+BatchNorm running moments updated in place), its per-step values sent to
+the optimizer's device tensor in one copy before it (``train/optim.py``).
+``graph`` chooses how it runs, as on :class:`train.trainer.Trainer`
+(``utils/graphs.py``): ``None`` from a CUDA graph on a single-process CUDA
+trainer (the first step of each batch shape eagerly on a side stream, the
+second captured, then replays; the chamfer kernel's two launches a step
+tallied by the capture and counted at every replay), eagerly on the CPU
+and over a distributed mesh; ``False`` eagerly; ``True`` raises where
+``None`` runs eagerly.  The chamfer's backward sums with ``index_add_``
+atomics in a varying order (``ops/chamfer.py``), so a graphed step equals
+an eager one only to rounding, as two eager steps do.
 """
 from __future__ import annotations
 
+import functools
+import weakref
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -28,6 +44,7 @@ import torch
 
 from ..models.autoencoder import BatchNorm, KLAutoEncoder, init_parameters, kl_autoencoder_loss
 from ..parallel.mesh import Mesh, all_reduce_mean_, all_reduce_sum, make_mesh, rows_of
+from ..utils.graphs import GraphedSteps, use_graph
 from .optim import flatten, optimizer_factory
 
 METRICS = ("loss", "loss.cd", "loss.kl", "gradnorm")
@@ -36,7 +53,7 @@ METRICS = ("loss", "loss.cd", "loss.kl", "gradnorm")
 class AETrainer:
     def __init__(self, model: KLAutoEncoder, training_cfg: Dict[str, Any],
                  steps_per_epoch: int = 500, device: torch.device | str = "cuda",
-                 mesh: Optional[Mesh] = None):
+                 mesh: Optional[Mesh] = None, graph: Optional[bool] = None):
         self.device = torch.device(device)
         self.model = model.to(self.device)
         self.mesh = mesh if mesh is not None else make_mesh()
@@ -46,6 +63,9 @@ class AETrainer:
                     m.sync = (lambda t: all_reduce_sum(t, self.mesh), self.mesh.n_data)
         self.opt = optimizer_factory(list(model.parameters()), training_cfg, steps_per_epoch)
         self.generator = torch.Generator(device=self.device)
+        self.graph = use_graph(graph, self.device, uncapturable=(
+            "over a distributed mesh" if self.mesh.distributed else None))
+        self.step_graphs = GraphedSteps(self.device, self.generator)
 
     def init(self, seed: int) -> "AETrainer":
         """Random parameters from ``seed`` (the same on any device), fresh
@@ -79,6 +99,24 @@ class AETrainer:
                               device=self.device)
         return eps[rows_of(total, self.mesh)]
 
+    def _body(self, pc: torch.Tensor, eps: Optional[torch.Tensor]) -> torch.Tensor:
+        """One step on the device: (loss, loss.cd, loss.kl, gradnorm), 4 f32
+        values of the global batch."""
+        self.opt.zero_grad()
+        kl, _, recon = self.model(pc, eps=self._eps(pc, eps), generator=self.generator)
+        loss, parts = kl_autoencoder_loss(kl, recon, pc, self.model.kl_weight)
+        loss.backward()
+        values = torch.stack([loss.detach(), parts["loss.cd"].detach(), parts["loss.kl"].detach()])
+        if self.mesh.distributed:
+            # one all-reduce: the flat gradient and the metrics, averaged
+            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.opt.params]
+            buf = all_reduce_mean_(torch.cat([flatten(grads), values]), self.mesh)
+            gnorm = self.opt.update(buf[:-len(values)])
+            values = buf[-len(values):]
+        else:
+            gnorm = self.opt.update()
+        return torch.cat([values, gnorm[None]])
+
     def train_step(self, pc: torch.Tensor, eps: Optional[torch.Tensor] = None
                    ) -> Dict[str, float]:
         """One optimizer step on a (B, N, 3) batch (this data rank's clouds,
@@ -87,20 +125,13 @@ class AETrainer:
         draws it.  Returns the global batch's metrics, fetched in one host
         transfer."""
         self.model.train()
-        kl, _, recon = self.model(pc, eps=self._eps(pc, eps), generator=self.generator)
-        loss, parts = kl_autoencoder_loss(kl, recon, pc, self.model.kl_weight)
-        self.opt.zero_grad()
-        loss.backward()
-        values = torch.stack([loss.detach(), parts["loss.cd"].detach(), parts["loss.kl"].detach()])
-        if self.mesh.distributed:
-            # one all-reduce: the flat gradient and the metrics, averaged
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in self.opt.params]
-            buf = all_reduce_mean_(torch.cat([flatten(grads), values]), self.mesh)
-            gnorm = self.opt.step(buf[:-len(values)])
-            values = buf[-len(values):]
+        self.opt.prepare()
+        if self.graph:
+            out = self.step_graphs(functools.partial(type(self)._body, weakref.proxy(self)), pc,
+                                   eps)
         else:
-            gnorm = self.opt.step()
-        return dict(zip(METRICS, torch.cat([values, gnorm[None]]).tolist()))
+            out = self._body(pc, eps)
+        return dict(zip(METRICS, out.tolist()))
 
     @torch.no_grad()
     def eval_step(self, pc: torch.Tensor) -> Dict[str, float]:

@@ -22,6 +22,18 @@ formulas so that a step matches the JAX package's chain:
 - the learning rate is the schedule's at the step count before the
   increment; the schedules are Python floats.
 
+The values that change from step to step (the learning rate, Adam's bias
+corrections, RAdam's r and its branch, the fused recipe's step multiplier
+and eps) are formed on the host in that arithmetic
+(:meth:`Optimizer.next_scalars`, ``SCALARS``) and sent to a small f32
+device tensor in one copy before each step; the update (:meth:`Optimizer.update`) reads them
+there, RAdam's branch as weights 1 and 0 of its two updates.  So one body
+serves the eager step and a CUDA graph's replays (``train/trainer.py``,
+``train/ae_trainer.py``).  Every such value is rounded to f32 as the
+Python scalar it replaces was; on the card a division by a 0-d device
+tensor is a true division, where a division by a host scalar multiplies by
+its reciprocal.
+
 ``training.fused_adam`` / ``training.adam_moment_dtype`` select the JAX
 package's ``fused_clip_adam`` (``diffuscene_tpu/train/optim.py:75``): the
 norm squared in f32 (:func:`f32_global_norm`), the clip scale folded into
@@ -47,6 +59,15 @@ from ..utils.config import as_dtype
 
 OPTIMIZERS = ("SGD", "Adam", "RAdam")
 RADAM_THRESHOLD = 5.0
+# the per-step values of a step, in the order of Optimizer.scalars: the
+# count of a trainer's gradient running mean (train/trainer.py's
+# grad_accum; the optimizer leaves it to the trainer), the learning rate,
+# Adam's bias corrections 1 - b^t, RAdam's r and the weights of its
+# rectified and plain updates (1 and 0, or 0 and 1), the fused recipe's
+# step multiplier and eps; those a step does not use are 0
+SCALARS = ("acc_count", "lr", "bc1", "bc2", "radam_r", "radam_rect", "radam_plain", "step_mult",
+           "eps_eff")
+ACC_COUNT, LR, BC1, BC2, RADAM_R, RADAM_RECT, RADAM_PLAIN, STEP_MULT, EPS_EFF = range(len(SCALARS))
 
 
 def lr_schedule_factory(training_cfg: Dict[str, Any]) -> Callable[[int], float]:
@@ -145,7 +166,11 @@ class Optimizer:
     of it: SGD's trace, or Adam's and RAdam's mu and nu) and every step
     works on the flattened gradient, so an update is a few kernels over all
     parameters, not a few per parameter; the arithmetic of each element is
-    the per-leaf formula's."""
+    the per-leaf formula's.
+
+    :meth:`step` is :meth:`prepare` (the host's part: the count advanced,
+    the step's values formed and sent to :attr:`scalars`), then
+    :meth:`update` (the device's part, which a CUDA graph captures)."""
 
     def __init__(self, params: Sequence[torch.Tensor], lr_fn: Callable[[int], float],
                  max_grad_norm: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
@@ -171,6 +196,7 @@ class Optimizer:
         self._moments = torch.zeros(1 if name == "SGD" else 2, n,
                                     dtype=moment_dtype or torch.float32, device=device)
         self.slots = [unflatten(m, self.params) for m in self._moments]
+        self.scalars = torch.zeros(len(SCALARS), dtype=torch.float32, device=device)
         self._keep = None
         if frozen is not None and any(frozen):
             self._keep = flatten([torch.full((p.numel(),), not f, dtype=torch.bool, device=device)
@@ -182,47 +208,87 @@ class Optimizer:
 
     @torch.no_grad()
     def step(self, grads=None) -> torch.Tensor:
+        self.prepare()
+        return self.update(grads)
+
+    def prepare(self, advance: bool = True, acc_count: float = 0.0) -> None:
+        """The host's part of a step: :meth:`next_scalars` (zeros without
+        ``advance``, for a step that does not update), with ``acc_count``
+        in its first slot, sent to :attr:`scalars` in one copy."""
+        out = self.next_scalars() if advance else [0.0] * len(SCALARS)
+        out[ACC_COUNT] = acc_count
+        self.scalars.copy_(torch.tensor(out), non_blocking=True)
+
+    def next_scalars(self) -> List[float]:
+        """Advance the step count; this step's per-step values in
+        ``SCALARS`` order, formed on the host as optax (the fused recipe: the
+        JAX package's ``fused_clip_adam``) forms them."""
+        out = [0.0] * len(SCALARS)
+        out[LR] = lr = self.lr_fn(self.count)
+        self.count += 1
+        t = self.count
+        if self.fused:
+            # the JAX package's host scalars, in f32
+            f32 = np.float32
+            c = f32(t)
+            bc1, bc2 = f32(1.0) - f32(self.b1) ** c, f32(1.0) - f32(self.b2) ** c
+            out[STEP_MULT] = float(-f32(lr) * np.sqrt(bc2) / bc1)
+            out[EPS_EFF] = float(f32(self.eps) * np.sqrt(bc2))
+        elif self.name != "SGD":
+            out[BC1], out[BC2] = 1.0 - self.b1 ** t, 1.0 - self.b2 ** t
+            bc2 = out[BC2]
+            if self.name == "RAdam":
+                ro_inf = 2.0 / (1.0 - self.b2) - 1.0
+                ro = ro_inf - 2.0 * t * self.b2 ** t / bc2
+                if ro < RADAM_THRESHOLD:
+                    out[RADAM_PLAIN] = 1.0
+                else:
+                    out[RADAM_RECT] = 1.0
+                    out[RADAM_R] = math.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf
+                                             / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
+        return out
+
+    @torch.no_grad()
+    def update(self, grads=None) -> torch.Tensor:
+        """One update in place on the device, its per-step values read from
+        :attr:`scalars`, from the given gradients (a list, or one flat
+        tensor) or from ``p.grad``; returns the gradients' global norm
+        before the clip (0-d)."""
+        s = self.scalars
         if grads is None:
             grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
         g = grads if isinstance(grads, torch.Tensor) else flatten(grads)
         if self._keep is not None:
             g = torch.where(self._keep, g, torch.zeros_like(g))
-        lr = self.lr_fn(self.count)
-        self.count += 1
         if self.fused:
-            upd, gnorm = self._fused_update(g, *self._moments, lr)
+            upd, gnorm = self._fused_update(g, *self._moments, s)
         else:
             g, gnorm = _clip(g, self.max_grad_norm, self.sq_norm)
-            upd = self._update(g, lr)
+            upd = self._update(g, s)
         torch._foreach_add_(self.params, unflatten(upd, self.params))
         return gnorm
 
-    def _update(self, g: torch.Tensor, lr: float) -> torch.Tensor:
+    def _update(self, g: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
         """The update of the clipped flat gradient ``g`` (optax's chains)."""
+        neg_lr = -s[LR]
         if self.name == "SGD":
             (tr,) = self._moments
             tr.copy_(g + self.momentum * tr)
-            return -lr * tr
+            return neg_lr * tr
         mu, nu = self._moments
-        b1, b2, t = self.b1, self.b2, self.count
+        b1, b2 = self.b1, self.b2
         mu.copy_((1.0 - b1) * g + b1 * mu)
         nu.copy_((1.0 - b2) * (g * g) + b2 * nu)
-        bc1, bc2 = 1.0 - b1 ** t, 1.0 - b2 ** t
-        mu_hat = mu / bc1
+        mu_hat = mu / s[BC1]
         if self.name == "RAdam":
-            ro_inf = 2.0 / (1.0 - b2) - 1.0
-            ro = ro_inf - 2.0 * t * b2 ** t / bc2
-            if ro < RADAM_THRESHOLD:
-                return -lr * mu_hat
-            r = math.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf
-                          / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
-            return -lr * (r * mu_hat / (torch.sqrt(nu / bc2) + self.eps))
-        upd = mu_hat / (torch.sqrt(nu / bc2) + self.eps)
+            rect = s[RADAM_R] * mu_hat / (torch.sqrt(nu / s[BC2]) + self.eps)
+            return neg_lr * (s[RADAM_RECT] * rect + s[RADAM_PLAIN] * mu_hat)
+        upd = mu_hat / (torch.sqrt(nu / s[BC2]) + self.eps)
         if self.weight_decay:
             upd = upd + self.weight_decay * flatten(self.params)
-        return -lr * upd
+        return neg_lr * upd
 
-    def _fused_update(self, g, mu, nu, lr):
+    def _fused_update(self, g, mu, nu, s):
         """``fused_clip_adam`` (diffuscene_tpu/train/optim.py:75-140): the
         clip scale where(norm < cap, 1, cap / norm) folded into the moment
         update, the bias corrections folded into ``step_mult`` and
@@ -232,18 +298,13 @@ class Optimizer:
         gnorm = f32_global_norm(g) if self.sq_norm is None else torch.sqrt(self.sq_norm(g))
         cap = self.max_grad_norm
         scale = torch.where(gnorm < cap, torch.ones_like(gnorm), cap / gnorm)
-        f32 = np.float32
-        c = f32(self.count)
-        bc1, bc2 = f32(1.0) - f32(self.b1) ** c, f32(1.0) - f32(self.b2) ** c
-        step_mult = float(-f32(lr) * np.sqrt(bc2) / bc1)
-        eps_eff = float(f32(self.eps) * np.sqrt(bc2))
         b1, b2 = self.b1, self.b2
         gf = g.float() * scale
         muf = b1 * mu.float() + (1.0 - b1) * gf
         nuf = b2 * nu.float() + (1.0 - b2) * gf * gf
         mu.copy_(muf)
         nu.copy_(nuf)
-        return step_mult * muf / (torch.sqrt(nuf) + eps_eff), gnorm
+        return s[STEP_MULT] * muf / (torch.sqrt(nuf) + s[EPS_EFF]), gnorm
 
     def state_dict(self) -> Dict[str, Any]:
         return {"count": self.count, "slots": [[s.clone() for s in slot] for slot in self.slots]}

@@ -81,9 +81,32 @@ what the JAX step computes on the *global* batch, whatever the world size:
 The trainer runs on the card unless it is asked for the CPU, and moves the
 model there.  Timesteps and noise come from the trainer's generator unless
 a step is given them; each step's metrics come back in one host transfer.
+
+A micro-step is one body over device buffers (:meth:`Trainer._body`: the
+loss, autograd, the norm, and the optimizer step and the EMA, or the
+gradient's running mean): its per-step values (the running mean's count
+and the optimizer's) come from the optimizer's device tensor, which the
+host fills with one copy before the step (``train/optim.py:prepare``).
+``graph`` chooses how it runs (``utils/graphs.py:use_graph``), as the JAX
+package jits its step (``diffuscene_tpu/train/trainer.py:206-217``):
+``None`` (the default) from
+a CUDA graph on a single-process CUDA trainer, eagerly on the CPU and over
+a distributed mesh (its collectives, and the tensor-parallel norm's
+boolean mask, which has a data-dependent shape, are not captured);
+``False`` eagerly; ``True`` raises where ``None`` runs eagerly.  From a
+graph, each variant of the step (a batch shape, whether t and noise are
+given, for ``grad_accum`` a micro-step with or without the update) runs
+eagerly on a side stream at its first call, is captured at its second and
+replayed from then on (``utils/graphs.py:GraphedSteps``); the caller's
+batch, t and noise are copied into the variant's static buffers first, and
+the trainer's generator is registered with every graph, so a graphed run
+draws what an eager run of the same seed draws.  The eval step stays
+eager.
 """
 from __future__ import annotations
 
+import functools
+import weakref
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -96,7 +119,9 @@ from ..models.scene_model import SceneDiffusion
 from ..parallel.mesh import Mesh, all_reduce_mean_, make_mesh, shard_batch
 from ..parallel.tp import gather_full, param_shardings, shard_params
 from ..utils.config import as_dtype
-from .optim import f32_global_norm, flatten, lr_schedule_factory, optimizer_factory, unflatten
+from ..utils.graphs import GraphedSteps, use_graph
+from .optim import (ACC_COUNT, f32_global_norm, flatten, lr_schedule_factory, optimizer_factory,
+                    unflatten)
 
 # batch entries that go to the device ("desc_emb" arrives from the data
 # pipeline and is renamed to the model's "text_emb")
@@ -129,12 +154,13 @@ class Trainer:
     """Owns the optimizer state, the EMA and the gradient accumulator of a
     :class:`SceneDiffusion` model; over ``mesh`` (default: every rank of
     the process group, or none), data-parallel, and with
-    ``tensor_parallel`` the large kernels split over the model group."""
+    ``tensor_parallel`` the large kernels split over the model group;
+    ``graph`` as in the module's docstring."""
 
     def __init__(self, scene: SceneDiffusion, training_cfg: Dict[str, Any],
                  steps_per_epoch: int = 500, device: torch.device | str = "cuda",
                  mesh: Optional[Mesh] = None, tensor_parallel: bool = False,
-                 mixed_precision: bool = False):
+                 mixed_precision: bool = False, graph: Optional[bool] = None):
         self.device = torch.device(device)
         self.scene = scene.to(self.device)
         self.mesh = mesh if mesh is not None else make_mesh()
@@ -178,6 +204,9 @@ class Trainer:
             self.opt.sq_norm = self._sq_norm
         self.lr_schedule = lr_schedule_factory(training_cfg)
         self.generator = torch.Generator(device=self.device)
+        self.graph = use_graph(graph, self.device, uncapturable=(
+            "over a distributed mesh" if self.mesh.distributed else None))
+        self.step_graphs = GraphedSteps(self.device, self.generator)
         self.step = 0          # micro-steps taken (the JAX TrainState.step)
         self.mini_step = 0     # micro-batches in the accumulator
         # the EMA (one flat buffer; ``ema`` holds per-parameter views of it)
@@ -189,6 +218,8 @@ class Trainer:
 
     @torch.no_grad()
     def _reset_state(self) -> None:
+        # the graphs hold the EMA and the accumulator this rebinds
+        self.step_graphs.close()
         self.step = self.mini_step = 0
         self.opt.count = 0
         for slot in self.opt.slots:
@@ -309,8 +340,13 @@ class Trainer:
                                                  (batch, self.generator, t, noise, shard))
         return loss, terms, leaves
 
-    def _train_step(self, batch, t=None, noise=None) -> Dict[str, torch.Tensor]:
-        """One micro-step; the metrics stay on the device."""
+    def _body(self, batch, t, noise, update: bool) -> Dict[str, torch.Tensor]:
+        """One micro-step on the device, reading its per-step values from
+        ``opt.scalars``: the loss and its gradients, their norm, then the
+        optimizer step and the EMA, or (``grad_accum``) the gradient's
+        running mean, followed with ``update`` by the optimizer step on it,
+        the EMA and the accumulator zeroed.  Keeps no host state, so that a
+        CUDA graph replays it; the metrics stay on the device."""
         loss, loss_dict, leaves = self._loss(batch, t, noise)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         g = flatten([torch.zeros_like(p) if g is None else g.to(p.dtype)
@@ -329,20 +365,33 @@ class Trainer:
             g = g.to(self.grads_dtype)
         gnorm = torch.sqrt(self._sq_norm(g)) if self._sharded else f32_global_norm(g)
         with torch.no_grad():
-            if self.acc is None:
-                self.opt.step(g)
-                self._update_ema()
-            else:
+            if self.acc is not None:
                 # running mean of the micro-batch gradients, in f32
-                self.acc.add_((g.float() - self.acc) / (self.mini_step + 1))
-                self.mini_step += 1
-                if self.mini_step == self.grad_accum:
-                    self.opt.step(self.acc)
-                    self._update_ema()
+                self.acc.add_((g.float() - self.acc) / self.opt.scalars[ACC_COUNT])
+                g = self.acc
+            if update:
+                self.opt.update(g)
+                self._update_ema()
+                if self.acc is not None:
                     self.acc.zero_()
-                    self.mini_step = 0
-        self.step += 1
         metrics["gradnorm"] = gnorm
+        return metrics
+
+    def _train_step(self, batch, t=None, noise=None) -> Dict[str, torch.Tensor]:
+        """One micro-step: its per-step values to the device (one copy), then
+        the body, eagerly or from the graph of its variant; the metrics stay
+        on the device (a graph's static outputs, which its next replay
+        overwrites)."""
+        update = self.acc is None or self.mini_step + 1 == self.grad_accum
+        self.opt.prepare(advance=update, acc_count=self.mini_step + 1.0)
+        if self.graph:
+            body = functools.partial(type(self)._body, weakref.proxy(self), update=update)
+            metrics = self.step_graphs(body, batch, t, noise, key=update)
+        else:
+            metrics = self._body(batch, t, noise, update)
+        if self.acc is not None:
+            self.mini_step = 0 if update else self.mini_step + 1
+        self.step += 1
         return metrics
 
     @torch.no_grad()
@@ -371,15 +420,18 @@ class Trainer:
     def train_step_scan(self, batches: Dict[str, torch.Tensor], t: Optional[torch.Tensor] = None,
                         noise: Optional[torch.Tensor] = None) -> Dict[str, float]:
         """k train steps in one call on (k, B, ...) batches (:meth:`put_batches`),
-        equal to k :meth:`train_step` calls; the metrics are the mean over
-        the k steps, fetched in one host transfer."""
+        equal to k :meth:`train_step` calls (the ``lax.scan`` of the JAX
+        package's ``train_step_scan``: from a graph, k replays); the metrics
+        are the mean over the k steps, summed on the device and fetched in
+        one host transfer."""
         k = int(next(iter(batches.values())).shape[0])
         total: Dict[str, torch.Tensor] = {}
         for i in range(k):
             m = self._train_step({n: v[i] for n, v in batches.items()},
                                  None if t is None else t[i], None if noise is None else noise[i])
             for name, v in m.items():
-                total[name] = v if name not in total else total[name] + v
+                # a graph's outputs are overwritten by its next replay
+                total[name] = v.clone() if name not in total else total[name] + v
         return self._to_host({name: v / k for name, v in total.items()})
 
     @torch.no_grad()

@@ -29,6 +29,7 @@ from diffuscene_tpu.diffusion import samplers as js
 from diffuscene_tpu_torch.diffusion import make_schedule
 from diffuscene_tpu_torch.diffusion import samplers as ts
 from diffuscene_tpu_torch.ops import attention, build, fused_level, fused_resblock
+from diffuscene_tpu_torch.utils import graphs
 from test_torch_tasks import _complete_stream, _replay
 from test_torch_threads import one_thread_per_worker  # noqa: F401 (autouse)
 
@@ -139,8 +140,8 @@ class _EagerStepGraph:
 
     replays = 0
 
-    def __init__(self, step, device, generator):
-        self.step, self.capture_s = step, 0.0
+    def __init__(self, step, device, generator, stream=None):
+        self.step, self.capture_s, self.outputs = step, 0.0, None
 
     def replay(self):
         _EagerStepGraph.replays += 1
@@ -178,7 +179,8 @@ def test_step_replay_driver_is_the_eager_loop(case, monkeypatch):
         return out if isinstance(out, tuple) else (out,)
 
     eager = sample(False)
-    monkeypatch.setattr(ts, "StepGraph", _EagerStepGraph)
+    monkeypatch.setattr(graphs, "StepGraph", _EagerStepGraph)
+    monkeypatch.setattr(graphs, "on_side_stream", lambda fn, device: (fn(), None))
     monkeypatch.setattr(ts, "use_graph", lambda graph, device, noise_fn=None: bool(graph))
     monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
     _EagerStepGraph.replays = 0
@@ -225,11 +227,12 @@ class _FakeGraph:
 
 def _simulated_capture(monkeypatch):
     """Stub torch.cuda so run_steps' graph path runs on the CPU: inside
-    ``torch.cuda.graph`` the current stream reads as capturing."""
+    ``torch.cuda.graph`` the current stream reads as capturing, and the
+    warm step runs on the current stream."""
     capturing = [False]
 
     @contextlib.contextmanager
-    def graph(g):
+    def graph(g, stream=None):
         capturing[0] = True
         try:
             yield
@@ -240,6 +243,7 @@ def _simulated_capture(monkeypatch):
     monkeypatch.setattr(torch.cuda, "graph", graph)
     monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
     monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: capturing[0])
+    monkeypatch.setattr(graphs, "on_side_stream", lambda fn, device: (fn(), None))
 
 
 def test_launch_counts_under_capture_and_replay(monkeypatch):
