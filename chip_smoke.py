@@ -76,7 +76,8 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    torch.profiler over 20 steps against the step's host-clock time (B1's
    and B2's ms per step; a named kernel the profile does not show raises);
    its 1000-step DDPM sample (28,000 B1, 1,000 B2) is cut for the script's
-   time: phase 22 holds a bf16 DDPM-1000 through the same engine;
+   time: phase 22 holds a bf16 DDPM sample (over CUT_STEPS steps) through
+   the same engine;
 11. a 20-step DPM-Solver++ sample of 64 scenes, fused=True, bf16: finite,
    exactly 560 B1 and 20 B2 launches, wall time;
 15. the flagship config's own dtype, f32 (the scene phase 3 built):
@@ -141,11 +142,11 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    config (dim 512, 9 linear cross-attention blocks over 50 tokens of 768
    through fc_text_f to 512), random weights from the seed, the tokens from
    the port's text pipeline (textfix, the hashed table) over the eval
-   scenes of a synthetic cached dataset: (a) DDPM-1000 through
-   SceneDiffusion.sample(fused=True) at run/generate_text.sh's B=256,
-   exactly 28,000 B1 and 1,000 B2 launches and 9 cross-attention contexts,
-   the 3-D engine (exact GELU) within FORWARD_TOL of the module every 50th
-   step, wall time and scenes/s, a 20-step profile (busy time, idle share,
+   scenes of a synthetic cached dataset: (a) DDPM over CUT_STEPS (250)
+   steps of the same weights through SceneDiffusion.sample(fused=True) at
+   run/generate_text.sh's B=256, exactly 7,000 B1 and 250 B2 launches and
+   9 cross-attention contexts, the 3-D engine (exact GELU) within
+   FORWARD_TOL of the module every 50th step, wall time and scenes/s, a 20-step profile (busy time, idle share,
    B1 and B2 ms per step) and the 9 cross blocks' device time in such a
    step; (b) DDPM-1000 through fused="rows" at B=64, exactly 19,000 B4
    launches and 9 contexts, the rows engine within FORWARD_TOL of the
@@ -201,8 +202,9 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    for DATA_TRAIN_EPOCHS steps (ms/step, peak memory) and its checkpoint's
    frozen statistics bit for bit as initialized; (c) from that checkpoint,
    cli/generate_diffusion.py --fused --dpm --clip_denoised --fix_order at
-   B=256 (exactly 560 B1 and 20 B2 launches, one extractor call), DDPM-1000
-   at B=64 through fused="rows" (exactly 19,000 B4) and fused=True, each
+   B=256 (exactly 560 B1 and 20 B2 launches, one extractor call), DDPM
+   over CUT_STEPS (250) steps of the same weights at B=64 through
+   fused="rows" (exactly 4,750 B4) and fused=True (7,000 B1, 250 B2), each
    engine within FORWARD_TOL of the module every 50th step, the
    extractor's features card vs CPU within DATA_FEATURE_TOL, and
    DPM-Solver++-20 from the same noise with the masks inverted giving
@@ -263,8 +265,8 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    flagship's (dim_mults [1, 1, 2, 2]) and the 4-, 8- and 16-group
    flagships' forwards and of B2 at (64, 12, C), in each dtype; (b) the
    wide model at B=64 through fused=True: in bf16 (the b512 recipe's
-   network) DDPM-1000, exactly 28,000 B1, 1,000 B2 and no B4 (17,000 on
-   resblock_sm90 and 11,000 on resblock_bf16_wide, 1,000 on
+   network) DDPM over CUT_STEPS (250) steps, exactly 7,000 B1, 250 B2 and
+   no B4 (4,250 on resblock_sm90 and 2,750 on resblock_bf16_wide, 250 on
    attention_bf16_wide), the engine within FORWARD_TOL of the module every
    50th call; in f32 (the flagship's network) DPM-Solver++-20, 560 B1, 20
    B2, no B4, held every WIDE_DPM_EVERY calls; each with a 20-step profile
@@ -296,9 +298,9 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    inputs, in turns, and those two against PERF.md's figures; the chain
    kernels' ptxas report; (b) the rows engine at full width on the dim-1024
    [1, 1, 1, 1] model (19 C=1024 chains a forward) at B=64: the b512
-   recipe's network (bf16) by DDPM-1000 (exactly 19,000 B4, all on
-   chain_bf16_wide, no B1 or B2), held to the module every
-   TASK_CHECK_EVERY calls, and through fused=True by DPM-Solver++-20 (560
+   recipe's network (bf16) by DDPM over CUT_STEPS (250) steps (exactly
+   4,750 B4, all on chain_bf16_wide, no B1 or B2), held to the module
+   every TASK_CHECK_EVERY calls, and through fused=True by DPM-Solver++-20 (560
    B1, 20 B2, no B4) beside it; the flagship's (f32) by DPM-Solver++-20
    (380 on chain_tf32_wide), held every WIDE_DPM_EVERY calls; each with a
    20-step profile (B4, or B1 and B2); the flagship networks in 4 and in
@@ -349,11 +351,34 @@ Phases, each of which raises on failure (exit code 1, no "ok" line):
    the graphed and eager ms/step, the warm step's and each capture's
    seconds and peak memory; the flagship, b512, AE and room-mask cases a
    profile of 5 graphed steps: busy time, and the idle share of the
-   graphed and of the eager step.
+   graphed and of the eager step.  (b) The eval steps from CUDA graphs
+   (the default where the train step runs from one; the JAX package's
+   jitted eval steps), each against a graph=False twin from the same seed
+   and state, bit-equal expected (GRAPH_TOL the gate): the flagship at
+   B=128 f32 on phase 12's batches, t and noise drawn inside the graph and
+   given, a ragged last batch as a variant of its own, every step's
+   metrics, the generator's state after, the parameters untouched; the
+   shape AE at B=16 from phase 6's trained state (eval-mode BatchNorm, the
+   posterior mean) on its clouds and a ragged batch, exactly 2
+   chamfer-kernel launches an eval step under replay; each one's graphed
+   and eager ms/step;
+26. the synthetic eval protocol (cli/eval_protocol.py, the port's
+   counterpart of tools/eval_protocol_r5.py) on the flagship config, f32,
+   at a reduced scale (PROTOCOL_SCALE): 1300 synthetic rooms, the train
+   CLI for 2 epochs (9 batches of 128 an epoch: a chunk of 8 replayed from
+   the train_step_scan graph, then one step; the validation pass through
+   the graphed eval step), generate --no_ema --clip_denoised --fused
+   --render (--compute_intersec for the first) on 64 + 64 scenes by
+   DDPM-1000 at B=64 (exactly 28,000 B1 and 1,000 B2 a stage), 128 GT
+   renders, FID/KID and precision/recall with the InceptionV3 and VGG16
+   refusals recorded and the pixel rows computed: every stage's outputs
+   present, every metric finite; then the protocol again on the same
+   directory, every stage skipped and the report's metrics equal.  The
+   phase prints its own time.
 
 The phases run in the order 1, 2, 7, 8, 3 with 9 (one set of full-width
 models), 4, 10, 11, 15, 24, 22, 23, 5, 6, 12, 13, 14, 25, 21, 16, 17, 18,
-19, 20 (phase 24's task and text cases in 16 and 17).  The samples of the
+19, 20, 26 (phase 24's task and text cases in 16 and 17).  The samples of the
 other phases whose steps are not gated run from graphs too, with the same
 launch counts, and so do the train steps of every phase but 6, 12 and 13
 (and the distributed ones of 21, which run eagerly).
@@ -385,14 +410,19 @@ line), ``--only-tasks`` phases 1 and 16 (with the tasks JSON line) and
 ``--only-wide-chain`` phases 1 and 23 (with the wide_chain JSON line) and
 ``--only-graph`` phases 1 and 24 (with the graph JSON line) and
 ``--only-train-graph`` phases 1, 6, 12, 13 (its eager twins) and 25 (with
-the train_graph JSON line);
+the train_graph JSON line) and ``--only-protocol`` phases 1 and 26 (with
+the protocol JSON line);
 none of them prints an ok line.
 
 The line before the last is the card's name and power limit again, the one
 before it a JSON summary of the kernels, the one before that a JSON
+summary of phase 26 ("protocol": each stage's seconds, the train stage's
+steps, steps/s and graphed step, the launches, renders and metrics, the
+second run's seconds), the one before that a JSON
 summary of phase 25 ("train_graph": each case's agreement with its twin,
 graphed and eager ms/step, warm and capture seconds, peak memory, busy
-time and idle shares, the AE's launches), the one before that a JSON
+time and idle shares, the AE's launches, the eval steps' agreement,
+launches and ms/step), the one before that a JSON
 summary of phase 24 ("graph": each case's launches, bit-equality and
 largest difference, wall times, warm and capture seconds, step times,
 busy time, idle shares and peak memory), the one before that a JSON
@@ -447,16 +477,18 @@ ResnetBlock and set-attention entries their phase 22 samples' launches
 B2's (C=1024) times ("wide_ms", "wide_graph_ms", "wide_plain_ms",
 "wide_bound_ms"), f32; the bf16 wide kernels, resblock_bf16_wide and
 attention_bf16_wide, have entries of their own, their launches on the
-bf16 wide flagship's DDPM-1000 (by kernel) and their times in the wide
+bf16 wide flagship's DDPM over CUT_STEPS steps (by kernel) and their times in the wide
 flagship's forward (the 11 C=1024 blocks, B2 at (64, 12, 1024)); so do
 the wide chain kernels, chain_tf32_wide and chain_bf16_wide: their
 launches on the dim-1024 model's rows samples (f32 DPM-Solver++-20, bf16
-DDPM-1000) and on phase 23's other samples, their worst error, the times
+DDPM over CUT_STEPS steps) and on phase 23's other samples, their worst error, the times
 and bound of the dim-1024 model's 19 chains (8 groups), the 19 chains'
 graph-replay time at each (C, groups) of the set and the C=512 8-group
 chains on both kernels; the chain, ResnetBlock and set-attention entries
 carry phase 24's graphed samples' launches ("graph_launches"), the
-chamfer entry phase 25's graphed AE steps' ("graph_launches").  The
+chamfer entry phase 25's graphed AE steps' ("graph_launches") and graphed
+AE eval steps' ("graph_eval_launches"), the ResnetBlock and set-attention
+entries phase 26's generate stages' ("protocol_launches").  The
 last line is
 {"ok": true, "device": {...}}.  Exits non-zero without a CUDA device.
 """
@@ -596,9 +628,9 @@ TASK_TRAIN_STEPS, TASK_CLI_EPOCHS = 10, 2
 TASK_CLI_STEPS = 100
 # phase 17, text-conditioned generation on the bedroom text config (768-wide
 # hashed token embeddings of eval scenes' textfix descriptions, through
-# fc_text_f to 512): DDPM-1000 through the 3-D engine at
-# run/generate_text.sh's B=256 and through the rows engine at B=64, each
-# checked every TASK_CHECK_EVERY steps; the train step at the config's
+# fc_text_f to 512): DDPM over CUT_STEPS steps through the 3-D engine at
+# run/generate_text.sh's B=256 and DDPM-1000 through the rows engine at
+# B=64 (phase 24's twin), each checked every TASK_CHECK_EVERY steps; the train step at the config's
 # B=128; the CLIs on a 2-epoch checkpoint, 64 scenes
 TEXT_CONFIG = "configs/text/diffusion_bedrooms_instancond_lat32_v_bert.yaml"
 TEXT_B, TEXT_ROWS_B, TEXT_TRAIN_STEPS, TEXT_CLI_EPOCHS = GENERATE_B, 64, 10, 2
@@ -633,8 +665,8 @@ EVAL_FEATURE_TOL = {"pixel": 1.0 / 255 + 1e-6, "inception": 1e-4, "vgg": 1e-4}
 # DATA_TRAIN_EPOCHS steps at the flagship's B=128 (the train + val rooms,
 # 144, make one batch an epoch: the loader drops the rest), its step card
 # vs CPU, then DPM-Solver++-20 through generate --fused at B=256 and
-# DDPM-1000 through both engines at B=64.  160 rooms, not fewer, so that a
-# batch of 128 exists.
+# DDPM over CUT_STEPS steps through both engines at B=64.  160 rooms, not
+# fewer, so that a batch of 128 exists.
 DATA_RAW, DATA_OUT, DATA_ROOMS = "build/smoke_data_raw", "build/smoke_data", 160
 DATA_AE_EPOCHS, DATA_TRAIN_EPOCHS, DATA_ROWS_B, DATA_INVERT_B = 2, 10, 64, 64
 DATA_CACHE = os.path.join(DATA_OUT, "cached")
@@ -818,11 +850,30 @@ TRAIN_GRAPH_OUT = "build/smoke_train_graph"
 CHECKED_SEED = SEED + 6
 # the seeds of phase 4's and 15's samples (phase 24's eager twins there)
 ROWS_SAMPLE_SEED, ENGINE_SAMPLE_SEED = SEED + 2, SEED + 3
+# phase 25 (b), the eval steps from CUDA graphs: the ragged last batch's
+# scenes (of the flagship's 128) and clouds (of the AE's 16), and the steps
+# timed after the checked ones
+GRAPH_EVAL_RAGGED_B, GRAPH_EVAL_RAGGED_AE, GRAPH_EVAL_TIMED = 100, 8, 10
+# the gated eager samples that no graph is held to (phases 17 (a), 19 (c)
+# and the bf16 samples of 22 (b) and 23 (b)) sample DDPM over a
+# CUT_STEPS-step schedule of the same weights, cut from the configs' 1000
+# to make room for phases 25 (b) and 26: 28 B1 and 1 B2, or 19 B4, a step,
+# exactly, and the engine held to the module every TASK_CHECK_EVERY calls
+CUT_STEPS = 250
+# phase 26, the synthetic eval protocol (cli/eval_protocol.py) on the
+# flagship config at a reduced scale: 1300 rooms (1170 in train + val: 9
+# batches of 128 an epoch, so that each epoch replays one chunk of 8 from
+# the train_step_scan graph and one single step), 2 epochs, 64 + 64 scenes
+# by DDPM-1000 at B=64, 128 GT renders, the pixel FID/KID and IPR rows
+PROTOCOL_OUT = "build/smoke_protocol"
+PROTOCOL_GEN_B, PROTOCOL_BATCHES = 64, 9
+PROTOCOL_SCALE = ("--rooms", "1300", "--epochs", "2", "--n_sequences", "64", "--n_extra", "64",
+                  "--batch_size", str(PROTOCOL_GEN_B), "--ipr_samples", "128")
 # the short checks: phase 1 and one kernel's phase, no ok line
 ONLY = ("--only-resblock", "--only-chain", "--only-attention", "--only-chamfer", "--only-train",
         "--only-f32-engine", "--only-tasks", "--only-text", "--only-eval", "--only-data",
         "--only-rest", "--only-parallel", "--only-wide", "--only-wide-chain", "--only-graph",
-        "--only-train-graph")
+        "--only-train-graph", "--only-protocol")
 
 
 def card_line():
@@ -2292,6 +2343,18 @@ def task_model(torch, config_path):
     return SceneDiffusion(cfg, device=DEV).init(torch.Generator().manual_seed(SEED))
 
 
+def with_schedule(torch, scene, time_num):
+    """``scene``'s networks (a copy of its weights) over a ``time_num``-step
+    schedule of its config, on the card."""
+    import dataclasses
+
+    from diffuscene_tpu_torch.models import SceneDiffusion
+
+    short = SceneDiffusion(dataclasses.replace(scene.cfg, time_num=time_num), device=DEV)
+    short.networks.load_state_dict(scene.networks.state_dict())
+    return short
+
+
 def zero_counts(counters):
     """Every count of the wrappers ``counters`` to 0 (by kernel too)."""
     for c in counters:
@@ -2302,10 +2365,11 @@ def zero_counts(counters):
 
 def checked_sample(torch, scene, label, card, batch=TASK_B, fused=True, step=None, steps=T,
                    calls=None, every=TASK_CHECK_EVERY, named=None, profile=True, **task):
-    """One DDPM-1000 sample of ``batch`` scenes through
-    ``scene.sample(fused=fused, **task)``: with ``fused=True`` every
-    ResnetBlock on B1 and mid_attn on B2, exactly 28,000 and 1,000
-    launches; with ``fused="rows"`` every chain on B4, exactly 19,000.  At
+    """One DDPM sample (over ``steps`` steps, 1000 unless cut) of ``batch``
+    scenes through ``scene.sample(fused=fused, **task)``: with
+    ``fused=True`` every ResnetBlock on B1 and mid_attn on B2, exactly 28
+    and 1 launches a call; with ``fused="rows"`` every chain on B4, exactly
+    19 a call.  At
     every TASK_CHECK_EVERY-th step the engine's forward (the module's exact
     GELU, as phase 15's gate) on that step's x_t, spliced as the sampler
     spliced it, is held against the module's: within FORWARD_TOL of the
@@ -2652,8 +2716,9 @@ def text_inputs(torch, data_dir, batch):
 
 def phase_text_samples(torch, card, data_dir, graphs=None):
     """Phase 17 (a)-(c): the bedroom text model, f32 at full width, random
-    weights from the seed.  (a) DDPM-1000 at TEXT_B through the 3-D engine
-    and (b) at TEXT_ROWS_B through the rows engine, both by checked_sample
+    weights from the seed.  (a) DDPM over CUT_STEPS steps at TEXT_B through
+    the 3-D engine and (b) DDPM-1000 at TEXT_ROWS_B through the rows engine,
+    both by checked_sample
     (exact launch counts, the engine held to the module every
     TASK_CHECK_EVERY steps, TEXT_CONTEXTS contexts a sample, a 20-step
     profile), then the cross blocks' device time in a TEXT_B step; (c) the
@@ -2668,12 +2733,16 @@ def phase_text_samples(torch, card, data_dir, graphs=None):
     scene = task_model(torch, TEXT_CONFIG)
     text = text_inputs(torch, data_dir, TEXT_B)
     out = {}
-    for key, batch, fused in (("ddpm_3d", TEXT_B, True), ("ddpm_rows", TEXT_ROWS_B, "rows")):
+    # (a) over CUT_STEPS steps; (b) over the config's T, phase 24's twin
+    for key, batch, fused, steps in (("ddpm_3d", TEXT_B, True, CUT_STEPS),
+                                     ("ddpm_rows", TEXT_ROWS_B, "rows", T)):
         te = text[:batch]
+        model = scene if steps == T else with_schedule(torch, scene, steps)
         gen = torch.Generator(device=DEV).manual_seed(SEED + 8)
-        step = sampling_step(torch, scene, batch, gen, fused=fused, text_emb=te)
-        sample, summary = checked_sample(torch, scene, f"text: {key}", card, batch=batch,
-                                         fused=fused, text_emb=te, step=step)
+        step = sampling_step(torch, model, batch, gen, fused=fused, text_emb=te)
+        sample, summary = checked_sample(torch, model, f"text: {key}", card, batch=batch,
+                                         fused=fused, text_emb=te, step=step, steps=steps)
+        del model
         if summary["cross_contexts"] != TEXT_CONTEXTS:
             raise RuntimeError(f"text: {key}: {summary['cross_contexts']} cross-attention "
                                f"contexts a sample, expected {TEXT_CONTEXTS}")
@@ -2773,7 +2842,7 @@ def phase_train_text(torch, data_dir):
 def phase_text_cli(torch, data_dir, out_dir, card):
     """Phase 17 (e): train_diffusion on the text config for TEXT_CLI_EPOCHS
     epochs, then generate_diffusion --fused --dpm (DPM-Solver++-20; (a)
-    holds the text DDPM-1000 through the same engine) on its checkpoint,
+    holds a text DDPM through the same engine) on its checkpoint,
     once with --fix_order and once with --scene_id: GEN_SCENES scenes in
     one batch, exactly 560 B1 and 20 B2 launches, a box file and a
     sentence file a scene (every --scene_id sentence of one room, the
@@ -3426,9 +3495,9 @@ def room_inputs(torch, cfg_path, batch):
 def phase_data_samples(torch, cfg_path, exp, card):
     """Phase 19 (c), from (b)'s checkpoint: generate_diffusion --fused --dpm
     --clip_denoised --fix_order, DPM-Solver++-20 at B=256 (exactly 560 B1
-    and 20 B2 launches, the extractor once a batch); DDPM-1000 at
-    DATA_ROWS_B through fused="rows" (exactly 19,000 B4) and through
-    fused=True, each engine within FORWARD_TOL of the module every 50th
+    and 20 B2 launches, the extractor once a batch); DDPM at DATA_ROWS_B
+    over CUT_STEPS steps of the same weights through fused="rows" (exactly
+    4,750 B4) and through fused=True (7,000 B1, 250 B2), each engine within FORWARD_TOL of the module every 50th
     step (checked_sample); the extractor's features of the 256 masks card
     vs CPU within DATA_FEATURE_TOL; DPM-Solver++-20 from the same noise
     with the masks inverted (1 - mask) gives other samples."""
@@ -3477,13 +3546,16 @@ def phase_data_samples(torch, cfg_path, exp, card):
     scene = SceneDiffusion(scfg, device=DEV)
     scene.networks.load_state_dict(load_model_weights(exp))
     masks = room_inputs(torch, cfg_path, GENERATE_B)
+    short = with_schedule(torch, scene, CUT_STEPS)
     for key, fused in (("ddpm_rows", "rows"), ("ddpm_3d", True)):
         rl = masks[:DATA_ROWS_B]
         gen = torch.Generator(device=DEV).manual_seed(SEED + 41)
         _, summary = checked_sample(
-            torch, scene, f"data: {key}", card, batch=DATA_ROWS_B, fused=fused, room_layout=rl,
-            step=sampling_step(torch, scene, DATA_ROWS_B, gen, fused=fused, room_layout=rl))
+            torch, short, f"data: {key}", card, batch=DATA_ROWS_B, fused=fused, room_layout=rl,
+            step=sampling_step(torch, short, DATA_ROWS_B, gen, fused=fused, room_layout=rl),
+            steps=CUT_STEPS)
         out[key] = summary
+    del short
 
     cpu = SceneDiffusion(scfg, device="cpu")
     cpu.networks.load_state_dict(scene.networks.state_dict())
@@ -4624,13 +4696,15 @@ def wide_samples(torch, card):
     gen = torch.Generator(device=DEV).manual_seed(SEED + 60)
     for dname, config in WIDE_CONFIG.items():
         pre = "" if dname == "float32" else "bf16_"
-        scene = rest_scene(torch, {"dim_mults": list(WIDE_MULTS)}, T, config=config)
+        scene = rest_scene(torch, {"dim_mults": list(WIDE_MULTS)},
+                           CUT_STEPS if dname == "bfloat16" else T, config=config)
         if str(scene.denoiser.compute_dtype).split(".")[-1] != dname:
             raise RuntimeError(f"wide: {config} is not a {dname} network")
-        # the bf16 wide kernels' main path: DDPM-1000; f32 cut to
-        # DPM-Solver++-20 for the script's time, held every WIDE_DPM_EVERY calls
+        # the bf16 wide kernels' main path: DDPM over CUT_STEPS steps; f32
+        # cut to DPM-Solver++-20 for the script's time, held every
+        # WIDE_DPM_EVERY calls
         label = f"{pre}wide_ddpm" if dname == "bfloat16" else "wide_dpm"
-        sampler = ({} if dname == "bfloat16" else
+        sampler = (dict(steps=CUT_STEPS) if dname == "bfloat16" else
                    dict(calls=DPM_STEPS, every=WIDE_DPM_EVERY, dpm=True, dpm_steps=DPM_STEPS))
         fl.apply_chain.launches = 0
         _, res = checked_sample(torch, scene, f"wide {label}", card, batch=B, fused=True,
@@ -4959,15 +5033,17 @@ def wide_chain_samples(torch, card):
         pre = "bf16_" if dname == "bfloat16" else ""
         kernel = WIDE_CHAIN_KERNELS[dname][0][1]
         t0 = time.perf_counter()
-        scene = rest_scene(torch, {"dim": WIDE_CHAIN_DIM}, T, config=config)
+        scene = rest_scene(torch, {"dim": WIDE_CHAIN_DIM},
+                           CUT_STEPS if dname == "bfloat16" else T, config=config)
         if str(scene.denoiser.compute_dtype).split(".")[-1] != dname:
             raise RuntimeError(f"wide chain: {config} is not a {dname} network")
-        # this slice's main path: bf16 DDPM-1000; f32 DPM-Solver++-20
+        # this slice's main path: bf16 DDPM over CUT_STEPS steps; f32
+        # DPM-Solver++-20
         label = f"{pre}dim{WIDE_CHAIN_DIM}_rows_" + ("ddpm" if dname == "bfloat16" else "dpm")
         out[label] = rows_sample(torch, scene, f"wide chain {label}", card, gen=gen,
                                  named=WIDE_CHAIN_KERNELS[dname],
-                                 **({} if dname == "bfloat16" else dpm))
-        calls = T if dname == "bfloat16" else DPM_STEPS
+                                 **(dict(steps=CUT_STEPS) if dname == "bfloat16" else dpm))
+        calls = CUT_STEPS if dname == "bfloat16" else DPM_STEPS
         if out[label]["by_kernel"] != {kernel: 19 * calls}:
             raise RuntimeError(f"wide chain {label}: launches by kernel {out[label]['by_kernel']}")
         if dname == "bfloat16":   # the same model through the 3-D engine, beside it
@@ -5021,8 +5097,9 @@ def wide_chain_samples(torch, card):
 
 def wide_chain_entry(dname, kernels, samples):
     """The kernels line's entry of the ``dname`` wide chain kernel: its
-    launches on the slice's main path (the dim-1024 model's bf16 DDPM-1000;
-    f32 DPM-Solver++-20) and on the other phase 23 samples, its worst error
+    launches on the slice's main path (the dim-1024 model's bf16 DDPM over
+    CUT_STEPS steps; f32 DPM-Solver++-20) and on the other phase 23
+    samples, its worst error
     over phase 23 (a), and the times and bound of the dim-1024 model's 19
     chains at B=64 (8 groups)."""
     pre = "bf16_" if dname == "bfloat16" else ""
@@ -5574,6 +5651,128 @@ def graph_ae_case(torch, twin, card):
     return res
 
 
+def graph_eval_calls(trainer, calls):
+    """Each of ``calls`` ((batch, t, noise) of scene eval steps, or clouds of
+    AE eval steps) through ``trainer.eval_step`` -> (their metrics, their
+    host-clock seconds, the chamfer kernel's launches each made)."""
+    import torch
+
+    from diffuscene_tpu_torch.ops import chamfer as ch
+
+    out, times, launches = [], [], []
+    for call in calls:
+        n = ch.directed_nn.launches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if isinstance(call, tuple):
+            host, t, noise = call
+            out.append(trainer.eval_step(trainer.put_batch(host), t, noise))
+        else:
+            out.append(trainer.eval_step(call))
+        times.append(time.perf_counter() - t0)
+        launches.append(ch.directed_nn.launches - n)
+    return out, times, launches
+
+
+def graph_eval_case(torch, card, flag, ds, ae_twin):
+    """Phase 25 (b): the eval steps from CUDA graphs (the default where the
+    train step runs from one), each against a graph=False twin from the
+    same seed and state, bit for bit (GRAPH_TOL the gate, as in 24 and 25):
+    the flagship at B=128 f32 (phase 12's batches: one three times, one
+    with given t and noise twice, a ragged last batch of
+    GRAPH_EVAL_RAGGED_B scenes twice, t and noise otherwise drawn inside the
+    graph; every step's metrics, the generator's state after, the
+    parameters untouched) and the shape AE at B=16 from phase 6's trained
+    state (its clouds three times, a ragged batch of GRAPH_EVAL_RAGGED_AE
+    clouds twice; eval-mode BatchNorm, the posterior mean), exactly 2
+    chamfer-kernel launches an AE eval step under replay; then
+    GRAPH_EVAL_TIMED more steps of each, graphed and eager (median
+    ms/step); no prepared kernel operand made."""
+    from diffuscene_tpu_torch.ops import build
+    from diffuscene_tpu_torch.train.optim import flatten
+
+    made = build.prepared.made
+    hosts = flag["hosts"]
+    gen = torch.Generator().manual_seed(SEED + 90)
+    b = len(next(iter(hosts[1].values())))
+    given = (torch.randint(0, T, (b,), generator=gen).to(DEV),
+             torch.randn(b, 12, 62, generator=gen).to(DEV))
+    ragged = {k: v[:GRAPH_EVAL_RAGGED_B] for k, v in hosts[2].items()}
+    scene_calls = ([(hosts[0], None, None)] * 3 + [(hosts[1], *given)] * 2
+                   + [(ragged, None, None)] * 2)
+    timed = [(hosts[0], None, None)] * GRAPH_EVAL_TIMED
+    out = {}
+    runs = {}
+    for label, graph in (("graphed", None), ("eager", False)):
+        _, _, tr = scene_trainer(torch, FLAGSHIP_CONFIG, DEV, flag["data_dir"], graph=graph,
+                                 ds=ds)
+        if tr.graph != (graph is None):
+            raise RuntimeError(f"graph eval flagship: graph={graph} gave graph={tr.graph}")
+        params = flatten([p.detach() for p in tr.params]).clone()
+        ms, _, _ = graph_eval_calls(tr, scene_calls)
+        _, times, _ = graph_eval_calls(tr, timed)
+        untouched = torch.equal(flatten([p.detach() for p in tr.params]), params)
+        runs[label] = {"metrics": ms, "generator": tr.generator.get_state(),
+                       "ms": 1e3 * sorted(times)[len(times) // 2], "untouched": untouched,
+                       "costs": graph_costs(tr) if graph is None else []}
+        del tr, params
+        torch.cuda.empty_cache()
+    g, e = runs["graphed"], runs["eager"]
+    equal = g["metrics"] == e["metrics"]
+    worst = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+                for x, y in zip(g["metrics"], e["metrics"]) for k in y)
+    gen_equal = torch.equal(g["generator"], e["generator"])
+    verdict = graph_verdict("eval flagship", equal, worst, GRAPH_TOL["float32"])
+    print(f"graph eval flagship B=128 f32: {len(scene_calls)} eval steps (a batch 3 times, given "
+          f"t and noise twice, a ragged batch of {GRAPH_EVAL_RAGGED_B} twice) against a "
+          f"graph=False twin: metrics {verdict} (worst relative {worst:.3e}), generator state "
+          f"equal {gen_equal}, parameters untouched {g['untouched']}; ms/step graphed "
+          f"{g['ms']:.3f}, eager {e['ms']:.3f} (median of {GRAPH_EVAL_TIMED}); graphs "
+          f"{costs_text(g['costs'])} | {card}", flush=True)
+    if not (gen_equal and g["untouched"] and e["untouched"]):
+        raise RuntimeError(f"graph eval flagship: generator state equal {gen_equal}, parameters "
+                           f"untouched {g['untouched']}, {e['untouched']}")
+    out["flagship"] = {"steps": len(scene_calls), "bit_equal": equal, "worst_rel": worst,
+                       "graph_ms_per_step": g["ms"], "eager_ms_per_step": e["ms"],
+                       "graphs": g["costs"]}
+
+    clouds = ae_twin["clouds"]
+    ae_calls = [clouds] * 3 + [clouds[:GRAPH_EVAL_RAGGED_AE]] * 2
+    runs = {}
+    for label, graph in (("graphed", None), ("eager", False)):
+        tr, _ = ae_trainer(torch, graph=graph)
+        tr.load_state_dict(ae_twin["after"][-1])
+        ms, _, launches = graph_eval_calls(tr, ae_calls)
+        _, times, timed_launches = graph_eval_calls(tr, [clouds] * GRAPH_EVAL_TIMED)
+        runs[label] = {"metrics": ms, "launches": launches + timed_launches,
+                       "ms": 1e3 * sorted(times)[len(times) // 2],
+                       "costs": graph_costs(tr) if graph is None else []}
+        del tr
+    g, e = runs["graphed"], runs["eager"]
+    equal = g["metrics"] == e["metrics"]
+    worst = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+                for x, y in zip(g["metrics"], e["metrics"]) for k in y)
+    verdict = graph_verdict("eval AE", equal, worst, GRAPH_TOL["float32"])
+    n = len(ae_calls) + GRAPH_EVAL_TIMED
+    print(f"graph eval AE B=16, {AE_POINTS} points, phase 6's trained state: {len(ae_calls)} "
+          f"eval steps (the clouds 3 times, {GRAPH_EVAL_RAGGED_AE} of them twice) against a "
+          f"graph=False twin: metrics {verdict} (worst relative {worst:.3e}); chamfer launches "
+          f"a step graphed {g['launches']} (expected 2 each, {2 * n} in all), eager "
+          f"{sum(e['launches'])}; ms/step graphed {g['ms']:.3f}, eager {e['ms']:.3f} (median of "
+          f"{GRAPH_EVAL_TIMED}); graphs {costs_text(g['costs'])} | {card}", flush=True)
+    if g["launches"] != [2] * n or sum(e["launches"]) != 2 * n:
+        raise RuntimeError(f"graph eval AE: chamfer launches {g['launches']} graphed, "
+                           f"{e['launches']} eager")
+    if build.prepared.made != made:
+        raise RuntimeError(f"graph eval: {build.prepared.made - made} prepared operands made")
+    out["ae"] = {"steps": len(ae_calls), "bit_equal": equal, "worst_rel": worst,
+                 "launches": sum(g["launches"]), "launches_per_step": sorted(set(g["launches"])),
+                 "graph_ms_per_step": g["ms"], "eager_ms_per_step": e["ms"],
+                 "graphs": g["costs"]}
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_train_graph(torch, card, twins):
     """Phase 25: every train step from a CUDA graph, each case held to its
     graph=False twin (the docstring's phase 25): ``twins`` holds phases 6's,
@@ -5595,9 +5794,98 @@ def phase_train_graph(torch, card, twins):
         lambda graph: scene_trainer(torch, FLAGSHIP_CONFIG, DEV, flag["data_dir"], graph=graph,
                                     ds=ds, training={"grad_accum": 2})[2],
         flag["hosts"][:GRAPH_TRAIN_STEPS], card)
+    out["eval"] = graph_eval_case(torch, card, flag, ds, twins["ae"])
     out["phase_s"] = time.perf_counter() - t0
     print(f"graph train: phase 25 took {out['phase_s']:.1f} s | {card}", flush=True)
     return out
+
+
+def protocol_finite(report):
+    """Every metric of a protocol report, (name, value) pairs: generate's
+    metrics and each pixel row's numbers."""
+    out = [(f"generate_metrics.{k}", v) for k, v in report["generate_metrics"].items()]
+    for key in ("fid_protocol_pixel", "fid_control_half_vs_half_pixel", "ipr_protocol_pixel",
+                "ipr_5000x5000_pixel"):
+        out += [(f"{key}.{k}", v) for k, v in report[key].items()
+                if isinstance(v, (int, float)) and not isinstance(v, bool)]
+    return out
+
+
+def phase_protocol(torch, card):
+    """Phase 26: the synthetic eval protocol (cli/eval_protocol.py) on the
+    flagship config, f32, at PROTOCOL_SCALE: 1300 rooms trained for 2
+    epochs through the train CLI (PROTOCOL_BATCHES batches an epoch at
+    B=128: a chunk of 8 from the train_step_scan graph, then one step),
+    64 + 64 scenes by DDPM-1000 at B=64 (exactly 28,000 B1 and 1,000 B2 a
+    generate stage), 128 GT renders, the pixel FID/KID and IPR rows with
+    the InceptionV3 and VGG16 refusals: every stage's outputs present and
+    every metric finite; then the protocol again on the same directory,
+    every stage skipped and the report's metrics equal.  Prints its own
+    time."""
+    import shutil
+
+    from diffuscene_tpu_torch.cli import eval_protocol
+
+    t0 = time.perf_counter()
+    shutil.rmtree(PROTOCOL_OUT, ignore_errors=True)
+    first = eval_protocol.main([PROTOCOL_OUT, *PROTOCOL_SCALE])
+    first_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    again = eval_protocol.main([PROTOCOL_OUT, *PROTOCOL_SCALE,
+                                "--out", os.path.join(PROTOCOL_OUT, "again.json")])
+    again_s = time.perf_counter() - t1
+    stages, train = first["stages"], first["stages"]["train"]
+    n_seq, n_extra = first["protocol"]["n_sequences"], first["protocol"]["n_extra"]
+    want = {"B1": 28 * T * n_seq // PROTOCOL_GEN_B, "B2": T * n_seq // PROTOCOL_GEN_B}
+    launches = first["card"]["launches"]
+    renders = {d: len([f for f in os.listdir(os.path.join(PROTOCOL_OUT, d))
+                       if f.endswith(".png")])
+               for d in ("gen_protocol", "gen_extra", "fake_5000", "gt_renders")}
+    metrics = protocol_finite(first)
+    bad = [k for k, v in metrics if not math.isfinite(v)]
+    strip = lambda r: {k: v for k, v in r.items() if k != "stages"}
+    checks = {
+        "every stage ran": list(stages) == list(eval_protocol.STAGES)
+        and not any(v["skipped"] for v in stages.values()),
+        "train steps": train["steps"] == 2 * PROTOCOL_BATCHES == train["epochs"]
+        * train["batches_per_epoch"],
+        "graphed step": train["step_probe"]["graphed"] is True,
+        "launches": launches == {"generate_1000": want, "generate_4000": want},
+        "renders": renders == {"gen_protocol": n_seq, "gen_extra": n_extra,
+                               "fake_5000": n_seq + n_extra, "gt_renders": n_seq + n_extra},
+        "refusals": "blocked" in first["fid_protocol"] and "blocked" in first["ipr_protocol"],
+        "finite": not bad,
+        "second run skipped": all(v["skipped"] for v in again["stages"].values()),
+        "second run equal": strip(again) == strip(first),
+    }
+    phase_s = time.perf_counter() - t0
+    failed = [k for k, v in checks.items() if not v]
+    gm = first["generate_metrics"]
+    print(f"protocol: {first['n_scenes_dataset']} rooms, {train['epochs']} epochs "
+          f"({train['steps']} steps at B={train['batch_size']}, {train['steps_per_s']:.2f} "
+          f"steps/s; the step alone {train['step_probe']['ms_per_step']:.1f} ms "
+          f"{'graphed' if train['step_probe']['graphed'] else 'eager'}, a "
+          f"batch's assembly {train['step_probe']['loader_ms_per_batch']:.1f} ms), generate "
+          f"{n_seq} + {n_extra} (launches {launches}, expected {want} each), renders {renders}; "
+          f"CKL {gm['categorical_kl']:.4f}, pixel FID {first['fid_protocol_pixel']['fid']:.4f} "
+          f"(control {first['fid_control_half_vs_half_pixel']['fid']:.4f}), IPR "
+          f"{first['ipr_protocol_pixel']['precision']:.4f} / "
+          f"{first['ipr_protocol_pixel']['recall']:.4f}; {len(metrics)} metrics, non-finite "
+          f"{bad}; stage seconds "
+          f"{ {k: round(v['seconds'], 1) for k, v in stages.items()} }; the second run "
+          f"{again_s:.1f} s, every stage skipped {checks['second run skipped']}, metrics "
+          f"equal {checks['second run equal']} {'ok' if not failed else 'FAIL'} | {card}",
+          flush=True)
+    print(f"protocol: phase 26 took {phase_s:.1f} s (the first run {first_s:.1f} s)", flush=True)
+    if failed:
+        raise RuntimeError(f"protocol: failed {failed}")
+    return {"card": card, "phase_s": phase_s, "first_s": first_s, "again_s": again_s,
+            "stages": {k: v["seconds"] for k, v in stages.items()}, "train": train,
+            "launches": launches, "renders": renders, "generate_metrics": gm,
+            "fid_pixel": first["fid_protocol_pixel"],
+            "fid_control_pixel": first["fid_control_half_vs_half_pixel"],
+            "ipr_pixel": first["ipr_protocol_pixel"],
+            "ipr_full_pixel": first["ipr_5000x5000_pixel"]}
 
 
 def profile_steps(torch, step, n, step_ms, named=()):
@@ -5746,6 +6034,10 @@ def main(argv):
         print(json.dumps({"train_graph": phase_train_graph(torch, card, twins)}))
         print(card_line())
         return 0
+    if only == "--only-protocol":   # the synthetic eval protocol at a reduced scale: phase 26
+        print(json.dumps({"protocol": phase_protocol(torch, card)}))
+        print(card_line())
+        return 0
     if only == "--only-f32-engine":  # the flagship config's own dtype: phases 3 + 9 and 15, f32
         scene32 = phase_forward(torch, torch.float32)
         phase_rows_sample(torch, scene32, card)
@@ -5784,8 +6076,8 @@ def main(argv):
     mark("phase 4")
 
     # the 3-D engine's slice's main path: every ResnetBlock on B1 and
-    # mid_attn on B2, by DPM-Solver++-20 (phase 22 holds a bf16 3-D
-    # DDPM-1000, 17,000 of its B1 launches on resblock_sm90)
+    # mid_attn on B2, by DPM-Solver++-20 (phase 22 holds a bf16 3-D DDPM
+    # over CUT_STEPS steps, 17 of its 28 B1 launches a step on resblock_sm90)
     rb_launches, at_launches = phase_engine_samples(torch, scene, card, ddpm=False)
     del scene
     mark("phases 10-11")
@@ -5821,7 +6113,8 @@ def main(argv):
     torch.cuda.empty_cache()
     # this slice's main path: the chain kernel (B4) at B1's widths and
     # groupings in both dtypes, the dim-1024 equal-width model through the
-    # rows engine (bf16 DDPM-1000, f32 DPM-Solver++-20) beside the 3-D
+    # rows engine (bf16 DDPM over CUT_STEPS steps, f32 DPM-Solver++-20)
+    # beside the 3-D
     # engine, the 4- and 16-group and dim-256 models through the rows engine
     wchain = phase_wide_chain(fl, torch, card)
     profiler_tally("phase 23")
@@ -5893,6 +6186,12 @@ def main(argv):
     profiler_tally("phase 20")
     mark("phase 20")
     rest_samples = rest["samples"]
+    torch.cuda.empty_cache()
+    # this slice's main path: the synthetic eval protocol through the CLIs,
+    # trained (the graphed train and eval steps), generated (B1 and B2),
+    # rendered and scored, then resumed with every stage skipped
+    proto = phase_protocol(torch, card)
+    mark("phase 26")
 
     print(json.dumps({"train": train}))
     print(json.dumps({"tasks": tasks}))
@@ -5905,6 +6204,7 @@ def main(argv):
     print(json.dumps({"wide_chain": wchain}))
     print(json.dumps({"graph": graphs}))
     print(json.dumps({"train_graph": train_graph}))
+    print(json.dumps({"protocol": proto}))
     graph_launches = {k: v["launches"] for k, v in graphs.items() if k != "phase_s"}
     print(json.dumps({"kernels": [{
         "name": "fused_chain",
@@ -5946,6 +6246,7 @@ def main(argv):
         "rest_launches": rest["chamfer_launches"],
         "parallel_launches": {"rank_ae_step": par_launches["gloo_rank"]["ae_step"]["B3"]},
         "graph_launches": train_graph["ae"]["launches"],
+        "graph_eval_launches": train_graph["eval"]["ae"]["launches"],
     }, {
         "name": "fused_resblock",
         "route": "cuda",
@@ -5975,6 +6276,7 @@ def main(argv):
                               "rank_sample_3d": par_launches["gloo_rank"]["sample_3d"]["B1"]},
         "wide_launches": {k: v["launches"][0] for k, v in wide_samples.items()},
         "graph_launches": {k: v[0] for k, v in graph_launches.items() if v[0]},
+        "protocol_launches": {k: v["B1"] for k, v in proto["launches"].items()},
         "wide_max_abs_err": wk["float32"]["b1_worst"],
         "wide_ms": wide_b1["all"]["ms"],
         "wide_graph_ms": wide_b1["all"]["graph"],
@@ -6009,6 +6311,7 @@ def main(argv):
                               "rank_sample_3d": par_launches["gloo_rank"]["sample_3d"]["B2"]},
         "wide_launches": {k: v["launches"][1] for k, v in wide_samples.items()},
         "graph_launches": {k: v[1] for k, v in graph_launches.items() if v[1]},
+        "protocol_launches": {k: v["B2"] for k, v in proto["launches"].items()},
         "wide_ms": wide_b2["C=1024"]["ms"],
         "wide_graph_ms": wide_b2["C=1024"]["graph"],
         "wide_plain_ms": wide_b2["C=1024"]["plain"],

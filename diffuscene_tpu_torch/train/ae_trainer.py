@@ -31,7 +31,10 @@ tallied by the capture and counted at every replay), eagerly on the CPU
 and over a distributed mesh; ``False`` eagerly; ``True`` raises where
 ``None`` runs eagerly.  The chamfer's backward sums with ``index_add_``
 atomics in a varying order (``ops/chamfer.py``), so a graphed step equals
-an eager one only to rounding, as two eager steps do.
+an eager one only to rounding, as two eager steps do.  The eval step (eval
+mode, the posterior mean, no backward; the JAX package's jitted
+``_eval_step``, ``diffuscene_tpu/train/ae_trainer.py:71-93``) runs the same
+way, a graph a batch shape, and equals the eager one bit for bit.
 """
 from __future__ import annotations
 
@@ -133,15 +136,26 @@ class AETrainer:
             out = self._body(pc, eps)
         return dict(zip(METRICS, out.tolist()))
 
+    def _eval_body(self, pc: torch.Tensor) -> torch.Tensor:
+        """(loss, loss.cd, loss.kl) of a batch in eval mode, on the device."""
+        kl, _, recon = self.model(pc, deterministic=True)
+        loss, parts = kl_autoencoder_loss(kl, recon, pc, self.model.kl_weight)
+        return all_reduce_mean_(torch.stack([loss, parts["loss.cd"], parts["loss.kl"]]),
+                                self.mesh)
+
     @torch.no_grad()
     def eval_step(self, pc: torch.Tensor) -> Dict[str, float]:
         """Loss in eval mode with the posterior mean (running BatchNorm
-        moments), averaged over the data ranks."""
+        moments), averaged over the data ranks; from the graph of its batch
+        shape where the train step runs from a graph (the chamfer kernel's
+        two launches tallied by the capture and counted at every replay),
+        fetched in one host transfer."""
         self.model.eval()
-        kl, _, recon = self.model(pc, deterministic=True)
-        loss, parts = kl_autoencoder_loss(kl, recon, pc, self.model.kl_weight)
-        values = all_reduce_mean_(torch.stack([loss, parts["loss.cd"], parts["loss.kl"]]),
-                                  self.mesh)
+        if self.graph:
+            values = self.step_graphs(functools.partial(type(self)._eval_body,
+                                                        weakref.proxy(self)), pc, key="eval")
+        else:
+            values = self._eval_body(pc)
         return dict(zip(METRICS, values.tolist()))
 
     @torch.no_grad()

@@ -100,8 +100,13 @@ eagerly on a side stream at its first call, is captured at its second and
 replayed from then on (``utils/graphs.py:GraphedSteps``); the caller's
 batch, t and noise are copied into the variant's static buffers first, and
 the trainer's generator is registered with every graph, so a graphed run
-draws what an eager run of the same seed draws.  The eval step stays
-eager.
+draws what an eager run of the same seed draws.  The eval step (the
+counterpart of the JAX package's jitted ``_eval_step``,
+``diffuscene_tpu/train/trainer.py:200-217``) runs the same way: one body
+(:meth:`Trainer._eval_body`, the loss of the current parameters with t and
+noise drawn inside it) over static copies of the batch, a variant a batch
+shape (a validation loader's ragged last batch is its own), the metrics
+fetched in one host transfer after the replay.
 """
 from __future__ import annotations
 
@@ -434,12 +439,10 @@ class Trainer:
                 total[name] = v.clone() if name not in total else total[name] + v
         return self._to_host({name: v / k for name, v in total.items()})
 
-    @torch.no_grad()
-    def eval_step(self, batch: Dict[str, torch.Tensor], t: Optional[torch.Tensor] = None,
-                  noise: Optional[torch.Tensor] = None) -> Dict[str, float]:
-        """The loss of a batch with the current (not EMA) f32 parameters,
-        averaged over the data group."""
-        self._module_from_blocks()
+    def _eval_body(self, batch, t, noise) -> Dict[str, torch.Tensor]:
+        """The loss terms and "loss" of a batch with the current (not EMA)
+        parameters, on the device; keeps no host state, so that a CUDA graph
+        replays it."""
         loss, loss_dict = self.scene.get_loss(batch, self.generator, t, noise,
                                               (self.mesh.data_rank, self.mesh.n_data))
         metrics = dict(loss_dict)
@@ -448,6 +451,23 @@ class Trainer:
             values = all_reduce_mean_(torch.stack([v.float() for v in metrics.values()]),
                                       self.mesh)
             metrics = dict(zip(metrics, values))
+        return metrics
+
+    @torch.no_grad()
+    def eval_step(self, batch: Dict[str, torch.Tensor], t: Optional[torch.Tensor] = None,
+                  noise: Optional[torch.Tensor] = None) -> Dict[str, float]:
+        """The loss of a batch with the current (not EMA) f32 parameters,
+        averaged over the data group; ``t`` and ``noise`` as in
+        :meth:`train_step`.  From the graph of its batch shape where the
+        train step runs from a graph; the metrics come back in one host
+        transfer."""
+        self._module_from_blocks()
+        if self.graph:
+            metrics = self.step_graphs(functools.partial(type(self)._eval_body,
+                                                         weakref.proxy(self)),
+                                       batch, t, noise, key="eval")
+        else:
+            metrics = self._eval_body(batch, t, noise)
         return self._to_host(metrics)
 
     def current_lr(self, step: Optional[int] = None) -> float:

@@ -148,6 +148,59 @@ def as_dtype(name):
     return _DTYPES[name] if isinstance(name, str) else name
 
 
+def _plain(value: Any) -> str:
+    """``value`` as a plain scalar that :func:`parse_yaml` reads back equal."""
+    if value is None:
+        return "null"
+    if isinstance(value, bool):
+        return "true" if value else "false"
+    if isinstance(value, int):
+        return str(value)
+    if isinstance(value, float):
+        mantissa, e, exponent = repr(value).partition("e")
+        if "." not in mantissa:        # 1e-05 reads as a string without the dot
+            mantissa += ".0"
+        return mantissa + e + exponent
+    text = str(value)
+    if _scalar_or_none(text) != value:
+        raise ValueError(f"{value!r} is not a plain YAML scalar this reader reads back")
+    return text
+
+
+def _scalar_or_none(text: str) -> Any:
+    try:
+        return _scalar(text, 0)
+    except ValueError:
+        return None
+
+
+def _dump(value: Any, indent: int, out: List[str]) -> None:
+    pad = " " * indent
+    for key, v in value.items():
+        if isinstance(v, dict) and v:
+            out.append(f"{pad}{_plain(key)}:")
+            _dump(v, indent + 2, out)
+        elif isinstance(v, (list, tuple)) and v:
+            out.append(f"{pad}{_plain(key)}:")
+            out.extend(f"{pad}- {_plain(item)}" for item in v)
+        elif isinstance(v, (dict, list, tuple)):
+            raise ValueError(f"{key!r}: an empty {type(v).__name__} has no block form")
+        else:
+            out.append(f"{pad}{_plain(key)}: {_plain(v)}")
+
+
+def dump_yaml(config: Dict[str, Any]) -> str:
+    """A nested map of scalars and lists of scalars as YAML in the subset
+    :func:`parse_yaml` reads, which reads it back equal (checked here:
+    a value it would read otherwise raises ``ValueError``)."""
+    lines: List[str] = []
+    _dump(config, 0, lines)
+    text = "\n".join(lines) + "\n"
+    if parse_yaml(text) != config:
+        raise ValueError("the config does not read back equal from its YAML")
+    return text
+
+
 def load_config(config_file: str) -> Dict[str, Any]:
     with open(config_file, "r") as f:
         return parse_yaml(f.read())

@@ -70,9 +70,10 @@ def test_port_sources_found():
                    "cli/pickle_threed_future_pointcloud.py", "utils/profiling.py",
                    "utils/export.py", "models/factory.py", "native/__init__.py",
                    "parallel/__init__.py", "parallel/distributed.py", "parallel/mesh.py",
-                   "parallel/sampler.py", "parallel/tp.py"):
+                   "parallel/sampler.py", "parallel/tp.py", "utils/graphs.py",
+                   "cli/eval_protocol.py"):
         assert f"diffuscene_tpu_torch/{module}" in paths, module
-    assert len(paths) >= 71
+    assert len(paths) >= 73
 
 
 # the raw-data pipeline and the room-mask path compute the same with or
